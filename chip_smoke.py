@@ -13,21 +13,40 @@ the last line):
 2. hold each kernel K1-K4 against its plain PyTorch version on the same
    CUDA inputs, float32 and float64, on an even grid (1024²) and an odd one
    (1023x1021) where the kernel takes odd grids, each with its stated
-   tolerance; solve the same Poisson problem 50 times per SOR layout and
-   require identical iteration counts and bitwise identical fields;
+   tolerance, and K5-K8 likewise on an even (k, j, i) = (32, 48, 64) grid
+   and an odd (31, 47, 63) one (K6 on the even one only; K7/K8 with the
+   dcavity3d and the canal3d boundary sets), and once more at the canal3d
+   main path's grid, dtype and boundary conditions (configs/canal3d.par:
+   200x50x50 float64, and the same with slip front/back faces); solve the
+   same Poisson problem
+   50 times per 2-D SOR layout and the same 3-D pressure problem 50 times
+   per 3-D layout, and require identical iteration counts and bitwise
+   identical fields;
 3. hold each kernel against its plain version once more at the main
-   path's shapes (4096² float32), with phase 2's tolerances, then time
-   both and compute the least time the card could take;
-4. the main path, with every launch count set to 0 just before it:
-   Poisson 4096² float32 with tpu_sor_inner 4 for a fixed 400 iterations in
-   both SOR layouts (K1, K2), then NS-2D dcavity 4096² float32 (re 1000,
-   itermax 100) for 16 steps through NS2DSolver, split into PRE / solve /
-   POST with CUDA events and once more with the flat solve to price the
-   solve loop's host syncs; every kernel must have been launched;
-5. configs/dcavity.par (100², float64) with te 0.5, once on the card and
-   once on the CPU: the written .dat fields must agree to 1e-9.
+   paths' shapes (4096² float32 for K1-K4, 128³ and 256³ float32 for
+   K5-K8), with phase 2's tolerances, then time both and compute the least
+   time the card could take;
+4. the main paths, each with every launch count set to 0 just before it
+   and read just after: Poisson 4096² float32 with tpu_sor_inner 4 for a
+   fixed 400 iterations in both SOR layouts (K1, K2); NS-2D dcavity 4096²
+   float32 (re 1000, itermax 100) for 16 steps through NS2DSolver, split
+   into PRE / solve / POST with CUDA events and once more with the flat
+   solve to price the solve loop's host syncs; NS-3D configs/dcavity3d.par
+   (128³ float32, re 1000) with itermax 100 and eps 0 for 16 steps
+   through NS3DSolver in the auto (octants, K6) and checkerboard (K5)
+   layouts, split the same way, with the host syncs priced by the same 25
+   solve calls back to back; then configs/canal3d.par (200x50x50,
+   float64) for 8 steps; every kernel of a path must have been launched;
+5. configs/dcavity.par (100², float64) with te 0.2, once on the card and
+   once on the CPU: the written .dat fields must agree to 1e-9;
+6. configs/dcavity3d.par at 32³ float64, te 1.0, and configs/canal3d.par
+   at 48x16x16, te 0.5, both with tpu_sor_inner 1, on the card against the
+   reference's own VTK output in tests/fixtures: 1e-6, and 112 steps for
+   dcavity3d.
 
-It then prints the kernels line (JSON), the card's name and power limit
+It then prints the kernels line (JSON; K5-K8 at 256³, where a field
+outgrows the L2 and the bound is a floor, with their 128³ numbers under
+main_shape_* keys), the card's name and power limit
 from nvidia-smi, and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -43,7 +62,9 @@ import traceback
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
 FP32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
-MAIN = (4096, 4096)         # the main path's grid (jmax, imax)
+MAIN = (4096, 4096)         # the 2-D main path's grid (jmax, imax)
+MAIN3 = (128, 128, 128)     # the NS-3D main path's grid (kmax, jmax, imax)
+BIG3 = (256, 256, 256)      # where a 3-D field (68.7 MB) outgrows the L2
 # --checks-only: the first call after a kernel edit; builds with the
 # compiler's register/shared-memory report and stops after phase 2
 CHECKS_ONLY = "--checks-only" in sys.argv
@@ -105,6 +126,13 @@ def tol(torch, dtype) -> float:
 def rel_err(a, b) -> float:
     scale = max(1.0, float(b.abs().max()))
     return float((a - b).abs().max()) / scale
+
+
+def bound(nbytes, flops):
+    """(ms, "bytes" | "operations"): the larger of bytes over the memory
+    rate and float32 operations over the card's peak rate."""
+    b, o = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+    return (b, "bytes") if b >= o else (o, "operations")
 
 
 @phase("build")
@@ -188,8 +216,149 @@ def check_kernels(torch, np):
         raise AssertionError(f"kernels disagree with plain versions: {bad}")
 
 
+CASES_3D = (("dcavity3d", {}),
+            ("canal3d", dict(bcLeft=3, bcRight=3, bcFront=2, bcBack=2)))
+
+
+def check_sor3d(kern, plain, x, f, n_inner, coef, tol_):
+    """Three consecutive calls of a 3-D SOR kernel and its plain version
+    on copies of x (the ghosts carried across calls). Returns (field
+    max_rel_err, residual rel_err, max_abs_err, ok)."""
+    xk, xp = x.clone(), x.clone()
+    for _ in range(3):
+        rk = kern(xk, f, n_inner, *coef)
+        rp = plain(xp, f, n_inner, *coef)
+    e = rel_err(xk, xp)
+    er = abs(float(rk) - float(rp)) / abs(float(rp))
+    return e, er, float((xk - xp).abs().max()), e <= tol_ and er <= tol_
+
+
+def check_step3d(torch, u, v, w, p, dt, cfg, tol_):
+    """K7 then K8 against their plain versions on copies of u, v, w.
+    Returns (copies bitwise, F/G/H/rhs max_rel_err, u''/v''/w''
+    max_rel_err, maxima bitwise vs own fields, maxima vs plain, K7's
+    max_abs_err over its outputs, K8's max_abs_err over its outputs, ok)."""
+    from pampi_tpu_torch.ops import ns3d_fused as nf3
+
+    def abs_err(pairs):
+        return max(float((a - b).abs().max()) for a, b in pairs)
+
+    uk, vk, wk = u.clone(), v.clone(), w.clone()
+    fk, gk, hk, rk = nf3.ns3d_pre(uk, vk, wk, dt, cfg)
+    u1, v1, w1, f1, g1, h1, r1 = nf3.ns3d_pre_plain(u, v, w, dt, cfg)
+    walls = ((uk, u1), (vk, v1), (wk, w1))
+    copies = all(torch.equal(a, b) for a, b in walls)
+    pre = ((fk, f1), (gk, g1), (hk, h1), (rk, r1))
+    e_pre = max(rel_err(a, b) for a, b in pre)
+    err_pre = abs_err(walls + pre)
+    maxima = nf3.ns3d_post(uk, vk, wk, fk, gk, hk, p, dt, cfg.dx, cfg.dy,
+                           cfg.dz)
+    u2, v2, w2, *pm = nf3.ns3d_post_plain(u1, v1, w1, f1, g1, h1, p, dt,
+                                          cfg.dx, cfg.dy, cfg.dz)
+    post = ((uk, u2), (vk, v2), (wk, w2))
+    e_post = max(rel_err(a, b) for a, b in post)
+    em = max(abs(float(m - q)) for m, q in zip(maxima, pm))
+    err_post = max(abs_err(post), em)
+    own = all(torch.equal(m, a.abs().max())
+              for m, a in zip(maxima, (uk, vk, wk)))
+    scale = max(1.0, *(float(q) for q in pm))
+    ok = copies and e_pre <= tol_ and e_post <= tol_ and own and \
+        em <= tol_ * scale
+    return copies, e_pre, e_post, own, em, err_pre, err_post, ok
+
+
+def check_grid_3d(torch, np, params, dtype):
+    """K5, K6 (on an even grid), K7 and K8 against their plain versions on
+    the grid of params[0] in dtype; K7/K8 once for each param's boundary
+    conditions. Returns the names of the kernels that disagree."""
+    from pampi_tpu_torch.ops import ns3d_fused as nf3
+    from pampi_tpu_torch.ops import sor3d_kernels as sk3
+    from pampi_tpu_torch.ops.sor3d import sor_coefficients_3d
+    from pampi_tpu_torch.ops.sor_octants import stack_octants
+
+    bad = []
+    t = tol(torch, dtype)
+    g = params[0]
+    K, J, I = g.kmax, g.jmax, g.imax
+    shape = (K + 2, J + 2, I + 2)
+    coef = sor_coefficients_3d(g.xlength / I, g.ylength / J, g.zlength / K,
+                               g.omg)
+    p, rhs = rng_fields(torch, np, shape, dtype, 2, 13)
+    layouts = [("rb_sor3d_checkerboard", sk3.rb_sor3d_checkerboard,
+                sk3.rb_sor3d_checkerboard_plain, p, rhs)]
+    if K % 2 == 0 and J % 2 == 0 and I % 2 == 0:
+        layouts.append(("rb_sor3d_octants", sk3.rb_sor3d_octants,
+                        sk3.rb_sor3d_octants_plain,
+                        stack_octants(p), stack_octants(rhs)))
+    for name, kern, plain, x, f in layouts:
+        e, er, _err, ok = check_sor3d(kern, plain, x, f, 4, coef, t)
+        log(f"{name} {dtype} {K}x{J}x{I}: field max_rel_err {e:.3e}, "
+            f"residual rel_err {er:.3e} (tol {t:g}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            bad.append(f"{name} {K}x{J}x{I}")
+    for param in params:
+        cfg = nf3.StepConfig3D.from_param(param)
+        bcs = "".join(str(b) for b in (
+            param.bcTop, param.bcBottom, param.bcLeft, param.bcRight,
+            param.bcFront, param.bcBack))
+        u, v, w, pp = rng_fields(torch, np, shape, dtype, 4, 17)
+        dt = torch.tensor(0.013, dtype=dtype, device="cuda")
+        copies, e_pre, e_post, own, em, _ep, _eq, ok = check_step3d(
+            torch, u, v, w, pp, dt, cfg, t)
+        log(f"ns3d_pre/post {param.name} (BCs t/b/l/r/f/b {bcs}) {dtype} "
+            f"{K}x{J}x{I}: u', v', w' bitwise {copies}, F/G/H/rhs "
+            f"max_rel_err {e_pre:.3e}, u'', v'', w'' max_rel_err "
+            f"{e_post:.3e}, maxima bitwise vs own fields {own}, vs plain "
+            f"{em:.3e} (tol {t:g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            bad.append(f"ns3d_pre/post {param.name} {bcs} {K}x{J}x{I}")
+    return bad
+
+
+@phase("3-D kernels vs plain versions")
+def check_kernels_3d(torch, np):
+    from pampi_tpu_torch.utils.params import Parameter, read_parameter
+    from pampi_tpu_torch.utils.precision import resolve_dtype
+
+    bad = []
+    for dtype in (torch.float32, torch.float64):
+        for K, J, I in ((32, 48, 64), (31, 47, 63)):
+            bad += check_grid_3d(torch, np, [
+                Parameter(name=problem, imax=I, jmax=J, kmax=K, re=100.0,
+                          omg=1.8, **bckw)
+                for problem, bckw in CASES_3D], dtype)
+    # the canal3d main path's grid (200x50x50), dtype (float64) and
+    # boundary conditions, and the same grid with slip front/back faces
+    canal = read_parameter(os.path.join(ROOT, "configs", "canal3d.par"))
+    bad += check_grid_3d(torch, np, [canal, canal.replace(bcFront=2,
+                                                          bcBack=2)],
+                         resolve_dtype(canal.tpu_dtype))
+    if bad:
+        raise AssertionError(f"3-D kernels disagree with plain versions: {bad}")
+
+
+def repeat_solve(torch, label, solve, p0, rhs, eps):
+    """50 solves of the same problem: identical iteration counts and
+    residuals, bitwise identical fields, and convergence."""
+    first = None
+    for _ in range(50):
+        p, res, it = solve(p0.clone(), rhs)
+        if first is None:
+            first = (p, res, it)
+        elif it != first[2] or res != first[1] or not torch.equal(p, first[0]):
+            raise AssertionError(
+                f"{label}: solve not reproducible ({it} vs {first[2]})")
+    if not first[1] < eps * eps:
+        raise AssertionError(f"{label}: no convergence ({first[1]})")
+    log(f"{label}: 50 solves, {first[2]} iterations each (cap 20000), "
+        f"residual {first[1]:.6e} (eps² {eps * eps:g}), fields bitwise "
+        f"identical")
+
+
 @phase("iteration counts over 50 solves")
 def check_repeat_solves(torch):
+    from pampi_tpu_torch.models.ns3d import make_pressure_solve_3d
     from pampi_tpu_torch.models.poisson import init_fields, make_solver_fn
     from pampi_tpu_torch.utils.params import Parameter
 
@@ -200,17 +369,23 @@ def check_repeat_solves(torch):
         p0, rhs = init_fields(param, 2, dtype, "cuda")
         solve = make_solver_fn(I, J, 1.0 / I, 1.0 / J, 1.9, eps, 20000,
                                dtype, n_inner=4, layout=layout)
-        first = None
-        for _ in range(50):
-            p, res, it = solve(p0.clone(), rhs)
-            if first is None:
-                first = (p, res, it)
-            elif it != first[2] or res != first[1] or not torch.equal(p, first[0]):
-                raise AssertionError(
-                    f"{layout}: solve not reproducible ({it} vs {first[2]})")
-        log(f"{layout} {dtype} {J}x{I}: 50 solves, {first[2]} iterations "
-            f"each (cap 20000), residual {first[1]:.6e} (eps² {eps * eps:g}),"
-            f" fields bitwise identical")
+        repeat_solve(torch, f"{layout} {dtype} {J}x{I}", solve, p0, rhs, eps)
+
+    for layout, dtype, (K, J, I), eps in (
+            ("octants", torch.float32, (32, 32, 32), 1e-2),
+            ("checkerboard", torch.float64, (31, 33, 29), 1e-4)):
+        # rhs = sin(2π i dx) on the interior (zero mean), p starts at 0
+        i = torch.arange(I + 2, dtype=torch.float64, device="cuda")
+        rhs = torch.zeros((K + 2, J + 2, I + 2), dtype=torch.float64,
+                          device="cuda")
+        rhs[1:-1, 1:-1, 1:-1] = torch.sin(2.0 * torch.pi * i[1:-1] / I)
+        rhs = rhs.to(dtype)
+        p0 = torch.zeros_like(rhs)
+        solve = make_pressure_solve_3d(I, J, K, 1.0 / I, 1.0 / J, 1.0 / K,
+                                       1.8, eps, 20000, dtype, n_inner=4,
+                                       layout=layout)
+        repeat_solve(torch, f"3-D {layout} {dtype} {K}x{J}x{I}", solve, p0,
+                     rhs, eps)
 
 
 @phase("kernels vs plain versions and their times at 4096² float32")
@@ -235,10 +410,6 @@ def time_kernels(torch, np):
     dt = torch.tensor(1e-4, dtype=dtype, device="cuda")
     n_inner = 4
     rows, bad = {}, []
-
-    def bound(nbytes, flops):
-        b, o = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
-        return (b, "bytes") if b >= o else (o, "operations")
 
     def verdict(name, ok, detail):
         log(f"{name} 4096² f32 vs plain: {detail} {'ok' if ok else 'FAIL'}")
@@ -313,6 +484,140 @@ def time_kernels(torch, np):
     return rows
 
 
+@phase("3-D kernels vs plain versions and their times at 128³ and 256³ "
+       "float32")
+def time_kernels_3d(torch, np):
+    from pampi_tpu_torch.ops import ns3d_fused as nf3
+    from pampi_tpu_torch.ops import sor3d_kernels as sk3
+    from pampi_tpu_torch.ops.sor3d import sor_coefficients_3d
+    from pampi_tpu_torch.ops.sor_octants import stack_octants
+    from pampi_tpu_torch.utils.params import Parameter
+
+    dtype = torch.float32
+    t = tol(torch, dtype)
+    size = 4
+    n_inner = 4
+    rows, bad = {}, []
+    for K, J, I in (MAIN3, BIG3):
+        shape = (K + 2, J + 2, I + 2)
+        cells = shape[0] * shape[1] * shape[2]
+        interior = K * J * I
+        ghosts = cells - interior  # the ghost cells of one field
+        tag = f"{K}³"
+        coef = sor_coefficients_3d(1.0 / I, 1.0 / J, 1.0 / K, 1.8)
+        p, rhs = rng_fields(torch, np, shape, dtype, 2, 3)
+        res = {}
+        # SOR: p and rhs read once, p written once; ~13 flops per update
+        sor_bound = bound(3 * cells * size, 13 * n_inner * interior)
+        for name, kern, plain, x, f in (
+                ("rb_sor3d_octants", sk3.rb_sor3d_octants,
+                 sk3.rb_sor3d_octants_plain, stack_octants(p),
+                 stack_octants(rhs)),
+                ("rb_sor3d_checkerboard", sk3.rb_sor3d_checkerboard,
+                 sk3.rb_sor3d_checkerboard_plain, p, rhs)):
+            e, er, err, ok = check_sor3d(kern, plain, x, f, n_inner, coef,
+                                         t)
+            log(f"{name} {tag} f32 vs plain: field max_rel_err {e:.3e}, "
+                f"residual rel_err {er:.3e} (tol {t:g}) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                bad.append(f"{name} {tag}")
+            xk = x.clone()
+            ms = cuda_ms(torch, lambda: kern(xk, f, n_inner, *coef), 20)
+            pms = cuda_ms(torch, lambda: plain(xk, f, n_inner, *coef), 3)
+            res[name] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                             bound_ms=sor_bound[0], bound_by=sor_bound[1])
+        param = Parameter(name="dcavity3d", imax=I, jmax=J, kmax=K,
+                          re=1000.0)
+        cfg = nf3.StepConfig3D.from_param(param)
+        u, v, w, pp = rng_fields(torch, np, shape, dtype, 4, 5)
+        dt = torch.tensor(1e-3, dtype=dtype, device="cuda")
+        copies, e_pre, e_post, own, em, err_pre, err_post, ok = check_step3d(
+            torch, u, v, w, pp, dt, cfg, t)
+        log(f"ns3d_pre/post {tag} f32 vs plain: u', v', w' bitwise {copies},"
+            f" F/G/H/rhs max_rel_err {e_pre:.3e}, u'', v'', w'' max_rel_err "
+            f"{e_post:.3e}, maxima bitwise vs own fields {own}, vs plain "
+            f"{em:.3e} (tol {t:g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            bad.append(f"ns3d_pre/post {tag}")
+        uk, vk, wk = u.clone(), v.clone(), w.clone()
+        fk, gk, hk, _r = nf3.ns3d_pre(uk, vk, wk, dt, cfg)
+        # PRE, in place: reads u, v, w; writes F, G, H, rhs and the ghost
+        # cells of u, v, w; ~190 flops per interior cell
+        b = bound((7 * cells + 3 * ghosts) * size, 190 * interior)
+        ms = cuda_ms(torch, lambda: nf3.ns3d_pre(uk, vk, wk, dt, cfg), 20)
+        pms = cuda_ms(torch, lambda: nf3.ns3d_pre_plain(u, v, w, dt, cfg), 3)
+        res["ns3d_pre"] = dict(max_abs_err=err_pre, ms=ms, plain_ms=pms,
+                               bound_ms=b[0], bound_by=b[1])
+        # POST, in place: reads F, G, H, p and the ghost cells of u, v, w
+        # (for the maxima); writes the interior of u, v, w; ~15 flops/cell
+        b = bound((7 * cells + 3 * ghosts) * size, 15 * interior)
+        ms = cuda_ms(torch, lambda: nf3.ns3d_post(
+            uk, vk, wk, fk, gk, hk, pp, dt, cfg.dx, cfg.dy, cfg.dz), 20)
+        pms = cuda_ms(torch, lambda: nf3.ns3d_post_plain(
+            uk, vk, wk, fk, gk, hk, pp, dt, cfg.dx, cfg.dy, cfg.dz), 3)
+        res["ns3d_post"] = dict(max_abs_err=err_post, ms=ms, plain_ms=pms,
+                                bound_ms=b[0], bound_by=b[1])
+        for name, r in res.items():
+            log(f"{name} {tag} f32: {r['ms']:.4f} ms/call (plain "
+                f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} by "
+                f"{r['bound_by']}), max_abs_err vs plain "
+                f"{r['max_abs_err']:.3e}")
+        rows[(K, J, I)] = res
+        del p, rhs, u, v, w, pp, uk, vk, wk, fk, gk, hk
+        torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"3-D kernels disagree with plain versions: "
+                             f"{bad}")
+    # the kernels line carries 256³, where the fields outgrow the L2 and the
+    # bound is a floor, and the main path's 128³ under main_shape_* keys
+    return {name: dict(r, shape="x".join(map(str, BIG3)),
+                       main_shape="x".join(map(str, MAIN3)),
+                       **{f"main_shape_{k}": rows[MAIN3][name][k]
+                          for k in ("ms", "plain_ms", "bound_ms",
+                                    "max_abs_err")})
+            for name, r in rows[BIG3].items()}
+
+
+def drive_path(kb, name, kernels, run):
+    """Set every launch count to 0, run one main path, read the counts;
+    fail if a kernel of that path was not launched."""
+    kb.reset_launches()
+    out = run()
+    counts = {k: v.launches for k, v in kb.KERNELS.items()}
+    log(f"{name} launches: {json.dumps(counts)}")
+    missing = [k for k in kernels if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"{name}: kernels not launched: {missing}")
+    return counts, out
+
+
+def timed_steps(torch, s, n):
+    """n steps of an NS solver after one warm-up step: ms/step on the host
+    clock and the PRE / solve / POST split from CUDA events placed by the
+    solver's phase hook."""
+    s.run_steps(1)  # warm-up: loads the kernels
+    marks = []
+
+    def hook(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev))
+
+    s.phase_hook = hook
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s.run_steps(n)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / n * 1e3
+    s.phase_hook = None
+    split = {"pre": 0.0, "solve": 0.0, "post": 0.0}
+    for (name, a), (_, b) in zip(marks, marks[1:]):
+        if name in split:
+            split[name] += a.elapsed_time(b) / n
+    return dict(ms_per_step=wall, **split)
+
+
 @phase("main path: Poisson 4096² and NS-2D dcavity 4096²")
 def main_path(torch):
     from pampi_tpu_torch.kernels import build as kb
@@ -321,81 +626,146 @@ def main_path(torch):
     from pampi_tpu_torch.utils.params import Parameter
 
     J, I = MAIN
-    kb.reset_launches()
     out = {}
-    for layout in ("auto", "checkerboard"):
-        param = Parameter(name="poisson", imax=I, jmax=J, itermax=400,
-                          eps=0.0, omg=1.9, tpu_dtype="float32",
-                          tpu_sor_inner=4, tpu_sor_layout=layout)
-        s = PoissonSolver(param, device="cuda")
-        s.solve()  # warm-up: loads the kernels
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        it, res = s.solve()
-        torch.cuda.synchronize()
-        sec = time.perf_counter() - t0
-        if it != 400 or not res == res or not bool(torch.isfinite(s.p).all()):
-            raise AssertionError(f"Poisson {layout}: it={it} res={res}")
-        log(f"Poisson 4096² f32 layout {layout}: {it} iterations, "
-            f"{sec / it * 1e3:.4f} ms/iteration, "
-            f"{J * I * it / sec:.4e} site-updates/s, residual {res:.4e}")
-        out[f"poisson_{layout}_ms_per_iter"] = sec / it * 1e3
 
-    for flat in (0, 1):
-        # eps 0: every solve runs its itermax (a 4096² cavity never
-        # converges within 100 iterations), so flat and checked solves do
-        # the same work and differ only by the checks' host syncs
-        param = Parameter(name="dcavity", imax=I, jmax=J, re=1000.0,
-                          itermax=100, eps=0.0, te=1e9, tpu_dtype="float32",
-                          tpu_sor_inner=4, tpu_flat_solve=flat)
-        s = NS2DSolver(param, device="cuda")
-        s.run_steps(1)  # warm-up
-        marks = []
+    def poisson():
+        for layout in ("auto", "checkerboard"):
+            param = Parameter(name="poisson", imax=I, jmax=J, itermax=400,
+                              eps=0.0, omg=1.9, tpu_dtype="float32",
+                              tpu_sor_inner=4, tpu_sor_layout=layout)
+            s = PoissonSolver(param, device="cuda")
+            s.solve()  # warm-up: loads the kernels
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            it, res = s.solve()
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            if (it != 400 or not res == res
+                    or not bool(torch.isfinite(s.p).all())):
+                raise AssertionError(f"Poisson {layout}: it={it} res={res}")
+            log(f"Poisson 4096² f32 layout {layout}: {it} iterations, "
+                f"{sec / it * 1e3:.4f} ms/iteration, "
+                f"{J * I * it / sec:.4e} site-updates/s, residual {res:.4e}")
+            out[f"poisson_{layout}_ms_per_iter"] = sec / it * 1e3
 
-        def hook(name):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            marks.append((name, ev))
+    def ns2d():
+        for flat in (0, 1):
+            # eps 0: every solve runs its itermax (a 4096² cavity never
+            # converges within 100 iterations), so flat and checked solves
+            # do the same work and differ only by the checks' host syncs
+            param = Parameter(name="dcavity", imax=I, jmax=J, re=1000.0,
+                              itermax=100, eps=0.0, te=1e9,
+                              tpu_dtype="float32", tpu_sor_inner=4,
+                              tpu_flat_solve=flat)
+            s = NS2DSolver(param, device="cuda")
+            r = timed_steps(torch, s, 16)
+            finite = all(bool(torch.isfinite(x).all())
+                         for x in (s.u, s.v, s.p))
+            if not finite or s.nt != 17:
+                raise AssertionError(f"NS-2D: finite={finite} nt={s.nt}")
+            log(f"NS-2D dcavity 4096² f32 (flat solve {flat}): "
+                f"{r['ms_per_step']:.3f} ms/step (host clock); PRE "
+                f"{r['pre']:.3f} / solve {r['solve']:.3f} / POST "
+                f"{r['post']:.3f} ms (CUDA events), t={s.t:.6e}")
+            out[f"ns2d_flat{flat}"] = r
 
-        s.phase_hook = hook
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        s.run_steps(16)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / 16 * 1e3
-        split = {"pre": 0.0, "solve": 0.0, "post": 0.0}
-        for (name, a), (_, b) in zip(marks, marks[1:]):
-            if name in split:
-                split[name] += a.elapsed_time(b) / 16
-        finite = all(bool(torch.isfinite(x).all()) for x in (s.u, s.v, s.p))
-        if not finite or s.nt != 17:
-            raise AssertionError(f"NS-2D: finite={finite} nt={s.nt}")
-        log(f"NS-2D dcavity 4096² f32 (flat solve {flat}): {wall:.3f} ms/step"
-            f" (host clock); PRE {split['pre']:.3f} / solve "
-            f"{split['solve']:.3f} / POST {split['post']:.3f} ms (CUDA "
-            f"events), t={s.t:.6e}")
-        out[f"ns2d_flat{flat}"] = dict(ms_per_step=wall, **split)
+    counts = [drive_path(kb, "Poisson", ("rb_sor_quarters",
+                                         "rb_sor_checkerboard"), poisson)[0],
+              drive_path(kb, "NS-2D", ("rb_sor_quarters", "ns2d_pre",
+                                       "ns2d_post"), ns2d)[0]]
     synced = out["ns2d_flat0"]["solve"]
     flat_solve = out["ns2d_flat1"]["solve"]
     log(f"host-sync share of the NS solve loop: "
         f"{(synced - flat_solve) / synced:.3f} ({synced:.3f} vs flat "
         f"{flat_solve:.3f} ms/step)")
-    counts = {k: v.launches for k, v in kb.KERNELS.items()}
-    log(f"main-path launches: {json.dumps(counts)}")
-    missing = [k for k, n in counts.items() if n == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the main path: {missing}")
     return counts
 
 
-@phase("configs/dcavity.par te 0.5: card vs CPU")
+@phase("main path: NS-3D configs/dcavity3d.par 128³ and configs/canal3d.par")
+def main_path_3d(torch):
+    from pampi_tpu_torch.kernels import build as kb
+    from pampi_tpu_torch.models.ns3d import NS3DSolver
+    from pampi_tpu_torch.ops import sor3d_kernels as sk3
+    from pampi_tpu_torch.ops.sor3d import sor_coefficients_3d
+    from pampi_tpu_torch.ops.sor_octants import stack_octants, unstack_octants
+    from pampi_tpu_torch.utils.params import read_parameter
+
+    def config(name, **kw):
+        return read_parameter(os.path.join(ROOT, "configs", name)).replace(
+            **kw)
+
+    counts = []
+    for layout, kern in (("auto", "rb_sor3d_octants"),
+                         ("checkerboard", "rb_sor3d_checkerboard")):
+        # eps 0: every solve runs its itermax (25 calls at tpu_sor_inner 4)
+        param = config("dcavity3d.par", itermax=100, eps=0.0, te=1e9,
+                       tpu_sor_inner=4, tpu_sor_layout=layout)
+        s = NS3DSolver(param, device="cuda")
+        c, r = drive_path(kb, f"NS-3D dcavity3d {layout}",
+                          (kern, "ns3d_pre", "ns3d_post"),
+                          lambda: timed_steps(torch, s, 16))
+        counts.append(c)
+        finite = all(bool(torch.isfinite(x).all())
+                     for x in (s.u, s.v, s.w, s.p))
+        if not finite or s.nt != 17 or s.dtype != torch.float32:
+            raise AssertionError(f"NS-3D {layout}: finite={finite} "
+                                 f"nt={s.nt} dtype={s.dtype}")
+        # the host syncs of the solve loop: the same 25 calls (and layout
+        # conversions) back to back, with no residual read in between
+        g = s.grid
+        coef = sor_coefficients_3d(g.dx, g.dy, g.dz, param.omg)
+        rhs = torch.zeros_like(s.p)  # a call's work does not depend on it
+        if kern == "rb_sor3d_octants":
+            def flat():
+                q, f = stack_octants(s.p), stack_octants(rhs)
+                for _ in range(25):
+                    sk3.rb_sor3d_octants(q, f, 4, *coef)
+                s.p.copy_(unstack_octants(q))
+        else:
+            def flat():
+                for _ in range(25):
+                    sk3.rb_sor3d_checkerboard(s.p, rhs, 4, *coef)
+        flat_ms = cuda_ms(torch, flat, 5)
+        log(f"NS-3D dcavity3d 128³ f32 layout {layout}: "
+            f"{r['ms_per_step']:.3f} ms/step (host clock); PRE "
+            f"{r['pre']:.3f} / solve {r['solve']:.3f} / POST {r['post']:.3f}"
+            f" ms (CUDA events), t={s.t:.6e}; the same 25 solve calls back "
+            f"to back {flat_ms:.3f} ms, host-sync share of the solve "
+            f"{(r['solve'] - flat_ms) / r['solve']:.3f}")
+
+    param = config("canal3d.par", te=1e9)
+    s = NS3DSolver(param, device="cuda")
+
+    def canal():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s.run_steps(8)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / 8 * 1e3
+
+    c, ms = drive_path(kb, "NS-3D canal3d", ("rb_sor3d_octants", "ns3d_pre",
+                                              "ns3d_post"), canal)
+    counts.append(c)
+    finite = all(bool(torch.isfinite(x).all()) for x in (s.u, s.v, s.w, s.p))
+    if not finite or s.nt != 8 or s.dtype != torch.float64:
+        raise AssertionError(f"canal3d: finite={finite} nt={s.nt}")
+    log(f"NS-3D canal3d 200x50x50 f64 (itermax 500, eps 1e-4): "
+        f"{ms:.3f} ms/step over 8 steps (host clock, first step included),"
+        f" t={s.t:.6e}")
+    return counts
+
+
+DCAVITY_TE = 0.2  # the CPU half of this phase is most of the script's time
+
+
+@phase(f"configs/dcavity.par te {DCAVITY_TE}: card vs CPU")
 def dcavity_card_vs_cpu(np):
     from pampi_tpu_torch.models.ns2d import NS2DSolver
     from pampi_tpu_torch.utils.datio import read_pressure, read_velocity
     from pampi_tpu_torch.utils.params import read_parameter
 
     param = read_parameter(os.path.join(ROOT, "configs", "dcavity.par"))
-    param = param.replace(te=0.5)
+    param = param.replace(te=DCAVITY_TE)
     with tempfile.TemporaryDirectory() as tmp:
         fields = {}
         for device in ("cuda", "cpu"):
@@ -410,10 +780,48 @@ def dcavity_card_vs_cpu(np):
                 f"{time.perf_counter() - t0:.1f} s")
     diff = max(float(np.abs(a - b).max())
                for a, b in zip(fields["cuda"], fields["cpu"]))
-    log(f"dcavity.par te 0.5 f64: max |card - cpu| over the .dat fields "
-        f"{diff:.3e} (tol 1e-9)")
+    log(f"dcavity.par te {DCAVITY_TE} f64: max |card - cpu| over the .dat "
+        f"fields {diff:.3e} (tol 1e-9)")
     if not diff <= 1e-9:
         raise AssertionError(f".dat fields differ by {diff}")
+
+
+@phase("NS-3D on the card against the reference's VTK output")
+def ns3d_vs_fixtures(np):
+    from pampi_tpu_torch.models.ns3d import NS3DSolver
+    from pampi_tpu_torch.utils.params import read_parameter
+    from pampi_tpu_torch.utils.vtkio import read_vtk_ascii
+
+    fixtures = os.path.join(ROOT, "tests", "fixtures")
+    bad = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for par, kw, fixture, steps in (
+                ("dcavity3d.par", dict(imax=32, jmax=32, kmax=32, te=1.0),
+                 "dcavity3d_32_te1.0.vtk", 112),
+                ("canal3d.par", dict(imax=48, jmax=16, kmax=16, te=0.5),
+                 "canal3d_48x16x16_te0.5.vtk", None)):
+            param = read_parameter(os.path.join(ROOT, "configs", par)).replace(
+                tpu_dtype="float64", tpu_sor_inner=1, **kw)
+            t0 = time.perf_counter()
+            s = NS3DSolver(param, device="cuda")
+            s.run(progress=False)
+            out = os.path.join(tmp, "out.vtk")
+            s.write_result(out, fmt="ascii")
+            so, vo = read_vtk_ascii(out)
+            sg, vg = read_vtk_ascii(os.path.join(fixtures, fixture))
+            dp = float(np.abs(so["pressure"] - sg["pressure"]).max())
+            dv = max(float(np.abs(vo["velocity"][c] - vg["velocity"][c]).max())
+                     for c in range(3))
+            ok = dp <= 1e-6 and dv <= 1e-6 and steps in (None, s.nt)
+            log(f"{par} {kw} f64 on the card: {s.nt} steps to t={s.t:.6f} in "
+                f"{time.perf_counter() - t0:.1f} s; max |card - {fixture}| "
+                f"pressure {dp:.3e}, velocity {dv:.3e} (tol 1e-6"
+                f"{'' if steps is None else f', {steps} steps'}) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                bad.append(par)
+    if bad:
+        raise AssertionError(f"NS-3D disagrees with the reference: {bad}")
 
 
 def main() -> int:
@@ -439,14 +847,26 @@ def main() -> int:
     rows = counts = None
     if not FAILED:
         check_kernels(torch, np)
+        check_kernels_3d(torch, np)
         check_repeat_solves(torch)
     if CHECKS_ONLY:
         log(f"checks only; failed: {FAILED}")
         return 1 if FAILED else 0
     if not FAILED:
         rows = time_kernels(torch, np)
+        rows3 = time_kernels_3d(torch, np)
         counts = main_path(torch)
+        counts3 = main_path_3d(torch)
         dcavity_card_vs_cpu(np)
+        ns3d_vs_fixtures(np)
+        if None not in (rows, rows3, counts, counts3):
+            rows = {**rows, **rows3}
+            # each path ran with the counts at 0 before it: a kernel's
+            # main-path launches are its sum over the paths
+            counts = {k: sum(c[k] for c in counts + counts3)
+                      for k in counts[0]}
+        else:
+            rows = counts = None
     try:
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -467,9 +887,8 @@ def main() -> int:
         r = rows[name]
         kernels.append(dict(
             name=name, route="cuda", source=k.source, replaces=k.replaces,
-            launches=counts[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
-            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-            bound_by=r["bound_by"], library_ms=None))
+            launches=counts[name], library_ms=None,
+            **{"shape": "x".join(map(str, MAIN)), **r}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

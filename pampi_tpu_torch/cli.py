@@ -2,12 +2,16 @@
 (counterpart of pampi_tpu/cli.py): read the .par, echo it, run the solver
 the `name` key selects, write the outputs and print the wall time.
 
-  poisson        -> 2-D Poisson red-black SOR (p.dat)
-  dcavity/canal  -> NS-2D time stepper (pressure.dat, velocity.dat)
+  poisson            -> 2-D Poisson red-black SOR (p.dat)
+  dcavity/canal      -> NS-2D time stepper (pressure.dat, velocity.dat)
+  dcavity3d/canal3d  -> NS-3D time stepper (dcavity.vtk / canal.vtk, in
+                        the `tpu_vtk` format, ascii or binary)
 
-Other problems are not yet ported and exit with an error naming the
-ROADMAP item. The device defaults to cuda; without a GPU the run fails
-unless `--device cpu` is given.
+A dcavity/canal .par that configures the third dimension (kmax, zlength,
+bcFront or bcBack) runs NS-3D, as in the JAX package. Other problems are
+not yet ported and exit with an error naming the ROADMAP item. The device
+defaults to cuda; without a GPU the run fails unless `--device cpu` is
+given.
 """
 
 from __future__ import annotations
@@ -15,13 +19,16 @@ from __future__ import annotations
 import argparse
 import sys
 
-from .utils.params import Parameter, print_parameter, read_parameter
+from .utils.params import (
+    Parameter,
+    is_3d_config,
+    print_parameter,
+    read_parameter,
+)
 from .utils.timing import get_timestamp
 
 _NOT_PORTED = {
     "canal_obstacle": "A.4",
-    "dcavity3d": "A.6",
-    "canal3d": "A.6",
 }
 
 
@@ -58,15 +65,24 @@ def _dispatch(param: Parameter, device: str) -> int:
         solver.write_result("p.dat")
         print("Walltime %.2fs" % (end - start))
         return 0
-    if param.name in ("dcavity", "canal"):
-        from .models.ns2d import NS2DSolver
+    if param.name in ("dcavity", "canal", "dcavity3d", "canal3d"):
+        three_d = is_3d_config(param)
+        if three_d:
+            from .models.ns3d import NS3DSolver
 
-        solver = NS2DSolver(param, device=device)
+            solver = NS3DSolver(param, device=device)
+        else:
+            from .models.ns2d import NS2DSolver
+
+            solver = NS2DSolver(param, device=device)
         start = get_timestamp()
         solver.run()
         end = get_timestamp()
         print("Solution took %.2fs" % (end - start))
-        solver.write_result("pressure.dat", "velocity.dat")
+        if three_d:
+            solver.write_result(fmt=param.tpu_vtk)
+        else:
+            solver.write_result("pressure.dat", "velocity.dat")
         return 0
     if param.name in _NOT_PORTED:
         raise NotImplementedError(

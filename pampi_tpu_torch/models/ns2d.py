@@ -75,12 +75,12 @@ class NS2DSolver:
         self.nt = 0
         self._dt_scale = 1.0
         self._cfg = StepConfig.from_param(param)
+        layout = resolve_layout(param.imax, param.jmax, param.tpu_sor_layout)
         self._solve = make_pressure_solve(
             param.imax, param.jmax, self.dx, self.dy, param.omg, param.eps,
             param.itermax, self.dtype, n_inner=param.tpu_sor_inner,
-            solver=param.tpu_solver, layout=param.tpu_sor_layout,
+            solver=param.tpu_solver, layout=layout,
             flat=bool(param.tpu_flat_solve))
-        layout = resolve_layout(param.imax, param.jmax, param.tpu_sor_layout)
         record("ns2d_step", f"pre -> sor {layout} n_inner="
                f"{param.tpu_sor_inner} -> post on {self.device.type}")
         self.phase_hook = None

@@ -110,8 +110,18 @@ def make_solver_fn(imax, jmax, dx, dy, omega, eps, itermax, dtype,
     check_eps_floor(eps, imax * jmax, dtype, f"sor {imax}x{jmax}")
     step, prep, post, eff = make_rb_loop(imax, jmax, dx, dy, omega, n_inner,
                                          layout)
+    return make_convergence_loop(step, prep, post, eff, imax * jmax, eps,
+                                 itermax, dtype, flat)
+
+
+def make_convergence_loop(step, prep, post, eff, ncells, eps, itermax, dtype,
+                          flat: bool = False):
+    """solve(p, rhs) -> (p, res, it) around a red-black step of eff
+    iterations (make_rb_loop's contract), shared by the 2-D and 3-D
+    solvers: res = Σr² / ncells in the field's dtype, checked against eps²
+    after every call (make_solver_fn says the rest)."""
     real = np.float32 if dtype == torch.float32 else np.float64
-    norm = real(imax * jmax)
+    norm = real(ncells)
     epssq = real(eps * eps)
 
     def solve(p, rhs):
@@ -162,7 +172,7 @@ class PoissonSolver:
         self._solve = make_solver_fn(
             self.imax, self.jmax, self.dx, self.dy, param.omg, param.eps,
             param.itermax, self.dtype, n_inner=param.tpu_sor_inner,
-            layout=param.tpu_sor_layout, flat=bool(param.tpu_flat_solve))
+            layout=layout, flat=bool(param.tpu_flat_solve))
 
     @classmethod
     def from_numpy(cls, param: Parameter, p, rhs, device="cuda"):

@@ -1,0 +1,186 @@
+"""Kernels K7 and K8: the NS-3D step phases around the pressure solve on
+the H100, each beside its plain PyTorch version (sources:
+pampi_tpu_torch/csrc/ns3d_fused.cu). Single device, no obstacles.
+
+K7 `ns3d_pre` replaces pampi_tpu/ops/ns3d_fused.py `_pre3_kernel`
+  (make_fused_pre_3d, pallas_call at :778): (u, v, w, dt) -> (u', v', w',
+  F, G, H, rhs) = the six wall BCs in the reference order -> dcavity lid /
+  canal inflow -> F/G/H predictor + wall fixups -> RHS. u, v and w are
+  updated in place.
+K8 `ns3d_post` replaces pampi_tpu/ops/ns3d_fused.py `_post3_kernel`
+  (make_fused_post_3d, pallas_call at :880): the projection in place on the
+  interiors of u, v, w, then max|u|, |v|, |w| over the FULL ghosted arrays
+  (the reference's maxElement quirk), which the next step's CFL dt reads.
+
+What bounds them on the H100 is memory bandwidth: PRE reads u, v, w and
+writes F, G, H, rhs and the ghost planes of u, v, w; POST reads F, G, H, p
+and writes u, v, w: 7 field-sizes each, ~144 us at 256³ f32. Design,
+simple first: PRE is five launches (the three axes' wall pairs in order,
+the special BC riding with the last pair, F/G/H per cell, RHS per cell);
+POST is one launch with per-block partial maxima and a one-block launch
+that reduces them. dt stays on the device, so no launch waits for the host.
+The source note in ns3d_fused.cu gives the proof that the three wall
+launches reproduce the six ordered faces.
+
+For a CPU tensor each wrapper runs its plain version (ops/ns3d.py); for a
+CUDA tensor it launches its kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+
+import torch
+
+from ..kernels import build as kb
+from . import ns3d as ops
+
+SOURCE = "pampi_tpu_torch/csrc/ns3d_fused.cu"
+NS3D_PRE = kb.register(
+    "ns3d_pre", SOURCE, "pampi_tpu/ops/ns3d_fused.py:778")
+NS3D_POST = kb.register(
+    "ns3d_post", SOURCE, "pampi_tpu/ops/ns3d_fused.py:880")
+
+_PROBLEM_CODE = {"dcavity": 1, "canal": 2}
+_V, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+_PRE_ARGS = [_I, _V, _V, _V, _V, _V, _V, _V, _V, _I, _I, _I, _V, _I, _V, _V]
+_POST_ARGS = [_I, _V, _V, _V, _V, _V, _V, _V, _V, _I, _I, _I, _D, _D, _D,
+              _V, _V, _V]
+_SIGNATURES = {
+    "ns3d_pre_f32": _PRE_ARGS, "ns3d_pre_f64": _PRE_ARGS,
+    "ns3d_post_f32": _POST_ARGS, "ns3d_post_f64": _POST_ARGS,
+    "ns3d_post_partials": [_I, _I, _I],
+}
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+
+
+@dataclass(frozen=True)
+class StepConfig3D:
+    """The static configuration of the 3-D step phases (from a Parameter)."""
+
+    bc: tuple  # (top, bottom, left, right, front, back): the reference order
+    problem: str  # "dcavity", "canal" or another name (no special BC)
+    re: float
+    gx: float
+    gy: float
+    gz: float
+    gamma: float
+    dx: float
+    dy: float
+    dz: float
+
+    @classmethod
+    def from_param(cls, param) -> "StepConfig3D":
+        return cls(
+            (param.bcTop, param.bcBottom, param.bcLeft, param.bcRight,
+             param.bcFront, param.bcBack),
+            param.name.replace("3d", ""), param.re, param.gx, param.gy,
+            param.gz, param.gamma, param.xlength / param.imax,
+            param.ylength / param.jmax, param.zlength / param.kmax)
+
+    @property
+    def bcs(self) -> dict:
+        """face -> kind, in the reference's application order."""
+        return dict(zip(("top", "bottom", "left", "right", "front", "back"),
+                        self.bc))
+
+    def coefficients(self) -> list[float]:
+        """Scalar coefficients in double, formed exactly where the JAX
+        package forms them from Python floats (ops/ns3d.py)."""
+        idx, idy, idz = 1.0 / self.dx, 1.0 / self.dy, 1.0 / self.dz
+        g = self.gamma
+        return [idx * 0.25, g * idx * 0.25, idy * 0.25, g * idy * 0.25,
+                idz * 0.25, g * idz * 0.25, idx * idx, idy * idy, idz * idz,
+                1.0 / self.re, self.gx, self.gy, self.gz, self.dx, self.dy,
+                self.dz]
+
+
+def _check(tensors, dt) -> None:
+    t0 = tensors[0]
+    if t0.device.type != "cuda":
+        raise ValueError(f"NS-3D kernels take CPU or CUDA tensors, not {t0.device}")
+    if t0.dtype not in _SUFFIX:
+        raise ValueError(f"NS-3D kernels take float32 or float64, not {t0.dtype}")
+    if t0.dim() != 3 or min(t0.shape) < 4:
+        raise ValueError("fields must be 3-D with at least 2 interior cells "
+                         f"per axis, got {tuple(t0.shape)}")
+    for t in tensors:
+        if (t.device != t0.device or t.dtype != t0.dtype
+                or t.shape != t0.shape or not t.is_contiguous()):
+            raise ValueError("fields must be contiguous and share device, "
+                             "dtype and shape")
+    if dt.device != t0.device or dt.dtype != t0.dtype or dt.numel() != 1:
+        raise ValueError("dt must be a one-element tensor beside the fields")
+
+
+def _lib():
+    return kb.load("ns3d_fused", _SIGNATURES)
+
+
+def ns3d_pre_plain(u, v, w, dt, cfg: StepConfig3D):
+    """K7's plain version: returns (u', v', w', F, G, H, rhs), inputs
+    untouched."""
+    u1, v1, w1 = ops.set_boundary_conditions_3d(u, v, w, cfg.bcs)
+    u1 = ops.set_special_bc_3d(u1, cfg.problem)
+    f, g, h = ops.compute_fgh(u1, v1, w1, dt, cfg.re, cfg.gx, cfg.gy, cfg.gz,
+                              cfg.gamma, cfg.dx, cfg.dy, cfg.dz)
+    rhs = ops.compute_rhs(f, g, h, dt, cfg.dx, cfg.dy, cfg.dz)
+    return u1, v1, w1, f, g, h, rhs
+
+
+def ns3d_pre(u, v, w, dt, cfg: StepConfig3D):
+    """K7: boundary conditions in place on u, v, w; returns (F, G, H, rhs).
+    dt is a 0-dim tensor beside the fields."""
+    if u.device.type == "cpu":
+        u1, v1, w1, f, g, h, rhs = ns3d_pre_plain(u, v, w, dt, cfg)
+        for a, b in ((u, u1), (v, v1), (w, w1)):
+            a.copy_(b)
+        return f, g, h, rhs
+    _check((u, v, w), dt)
+    f, g, h, rhs = (torch.empty_like(u) for _ in range(4))
+    kmax, jmax, imax = (n - 2 for n in u.shape)
+    bc = (ctypes.c_int * 6)(*cfg.bc)
+    coef = (ctypes.c_double * 16)(*cfg.coefficients())
+    lib = _lib()
+    err = getattr(lib, f"ns3d_pre_{_SUFFIX[u.dtype]}")(
+        u.device.index, u.data_ptr(), v.data_ptr(), w.data_ptr(),
+        dt.data_ptr(), f.data_ptr(), g.data_ptr(), h.data_ptr(),
+        rhs.data_ptr(), kmax, jmax, imax, bc,
+        _PROBLEM_CODE.get(cfg.problem, 0), coef, kb.stream_of(u))
+    kb.check(lib, err, "ns3d_pre")
+    NS3D_PRE.launches += 1
+    return f, g, h, rhs
+
+
+def ns3d_post_plain(u, v, w, f, g, h, p, dt, dx, dy, dz):
+    """K8's plain version: returns (u'', v'', w'', max|u''|, max|v''|,
+    max|w''|)."""
+    u2, v2, w2 = ops.adapt_uvw(u, v, w, f, g, h, p, dt, dx, dy, dz)
+    return (u2, v2, w2, ops.max_element(u2), ops.max_element(v2),
+            ops.max_element(w2))
+
+
+def ns3d_post(u, v, w, f, g, h, p, dt, dx, dy, dz):
+    """K8: projection in place on u, v, w; returns (umax, vmax, wmax) as
+    0-dim tensors on the fields' device."""
+    if u.device.type == "cpu":
+        u2, v2, w2, *maxima = ns3d_post_plain(u, v, w, f, g, h, p, dt, dx,
+                                              dy, dz)
+        for a, b in ((u, u2), (v, v2), (w, w2)):
+            a.copy_(b)
+        return tuple(maxima)
+    _check((u, v, w, f, g, h, p), dt)
+    kmax, jmax, imax = (n - 2 for n in u.shape)
+    lib = _lib()
+    partial = torch.empty(lib.ns3d_post_partials(kmax, jmax, imax),
+                          dtype=u.dtype, device=u.device)
+    out = torch.empty(3, dtype=u.dtype, device=u.device)
+    err = getattr(lib, f"ns3d_post_{_SUFFIX[u.dtype]}")(
+        u.device.index, u.data_ptr(), v.data_ptr(), w.data_ptr(),
+        f.data_ptr(), g.data_ptr(), h.data_ptr(), p.data_ptr(),
+        dt.data_ptr(), kmax, jmax, imax, dx, dy, dz, partial.data_ptr(),
+        out.data_ptr(), kb.stream_of(u))
+    kb.check(lib, err, "ns3d_post")
+    NS3D_POST.launches += 1
+    return out[0], out[1], out[2]

@@ -7,6 +7,8 @@ port does not run yet, naming the ROADMAP item that will bring it."""
 
 from __future__ import annotations
 
+from .params import is_3d_config
+
 _RECORD: dict[str, str] = {}
 
 
@@ -59,19 +61,28 @@ def mesh_is_single(tpu_mesh: str) -> bool:
 
 def check_supported(param) -> None:
     """Raise NotImplementedError for every configuration outside the
-    ported single-device red-black SOR stack."""
+    ported single-device red-black SOR stacks (2-D and 3-D)."""
     resolve_solver(param.tpu_solver)
+    three_d = is_3d_config(param)
     if param.obstacles.strip():
         raise NotImplementedError(
+            "3-D obstacle flag fields are not yet ported (ROADMAP A.4, A.6)"
+            if three_d else
             "obstacle flag fields are not yet ported (ROADMAP A.4)")
     if not mesh_is_single(param.tpu_mesh):
         raise NotImplementedError(
             f"tpu_mesh {param.tpu_mesh}: the distributed layer is not yet "
             "ported (ROADMAP A.8)")
-    if param.tpu_sor_layout not in ("auto", "checkerboard", "quarters"):
-        raise ValueError(
-            "2-D SOR layout must be auto|checkerboard|quarters, got "
-            f"{param.tpu_sor_layout!r}")
+    # the SOR layout is checked where it is resolved
+    # (models/poisson.resolve_layout, models/ns3d.resolve_layout_3d)
+    if three_d:
+        if param.tpu_vtk == "sharded":
+            raise NotImplementedError(
+                "tpu_vtk sharded (the MPI-IO-style writer) is not yet "
+                "ported (ROADMAP A.8)")
+        if param.tpu_vtk not in ("ascii", "binary"):
+            raise ValueError(
+                f"tpu_vtk must be ascii|binary|sharded, got {param.tpu_vtk!r}")
     if param.tpu_sor_inner < 1:
         raise ValueError(
             f"tpu_sor_inner must be >= 1, got {param.tpu_sor_inner}")

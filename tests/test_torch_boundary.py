@@ -24,6 +24,7 @@ from pampi_tpu.utils.params import Parameter as JParameter
 from pampi_tpu.utils.params import read_parameter as jread_parameter
 from pampi_tpu_torch.kernels import build as kb
 from pampi_tpu_torch.models.ns2d import NS2DSolver
+from pampi_tpu_torch.models.ns3d import NS3DSolver
 from pampi_tpu_torch.models.poisson import PoissonSolver
 from pampi_tpu_torch.utils.params import (
     Parameter,
@@ -51,7 +52,11 @@ def test_import_and_solve_load_no_jax():
         s = NS2DSolver(Parameter(name="dcavity", imax=8, jmax=8),
                        device="cpu")
         s.run_steps(2)
-        print(it, s.nt)
+        from pampi_tpu_torch.models.ns3d import NS3DSolver
+        s3 = NS3DSolver(Parameter(name="dcavity3d", imax=6, jmax=6, kmax=6),
+                        device="cpu")
+        s3.run_steps(2)
+        print(it, s.nt, s3.nt)
         print(sorted(m for m in sys.modules
                      if m.startswith("jax") or m.startswith("pampi_tpu")))
     """)
@@ -59,10 +64,11 @@ def test_import_and_solve_load_no_jax():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, cwd=str(ROOT), timeout=120,
                          check=True).stdout.splitlines()
-    assert out[0] == "40 2"
+    assert out[0] == "40 2 2"
     loaded = ast.literal_eval(out[1])
     assert [m for m in loaded if _forbidden(m)] == []
-    assert "pampi_tpu_torch.ops.sor_kernels" in loaded
+    for mod in ("sor_kernels", "sor3d_kernels", "ns3d_fused"):
+        assert f"pampi_tpu_torch.ops.{mod}" in loaded
 
 
 def test_port_sources_import_no_jax():
@@ -88,6 +94,8 @@ def test_cuda_request_without_gpu_raises(monkeypatch):
         NS2DSolver(Parameter(name="dcavity", imax=8, jmax=8))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         NS2DSolver(Parameter(name="dcavity", imax=8, jmax=8), device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        NS3DSolver(Parameter(name="dcavity3d", imax=8, jmax=8, kmax=8))
 
 
 def test_parameter_from_dict_round_trip():
@@ -128,13 +136,20 @@ def test_failed_build_raises(tmp_path, monkeypatch):
 
 
 def test_kernel_registry():
-    from pampi_tpu_torch.ops import ns2d_fused, sor_kernels  # noqa: F401
+    from pampi_tpu_torch.ops import (  # noqa: F401
+        ns2d_fused,
+        ns3d_fused,
+        sor3d_kernels,
+        sor_kernels,
+    )
 
     assert set(kb.KERNELS) == {"rb_sor_quarters", "rb_sor_checkerboard",
-                               "ns2d_pre", "ns2d_post"}
+                               "ns2d_pre", "ns2d_post",
+                               "rb_sor3d_checkerboard", "rb_sor3d_octants",
+                               "ns3d_pre", "ns3d_post"}
     for k in kb.KERNELS.values():
         assert (ROOT / k.source).is_file()
         path, line = k.replaces.split(":")
         src = (ROOT / path).read_text().splitlines()
         assert "pl.pallas_call(" in src[int(line) - 1], k
-    assert kb.sources() == ["ns2d_fused", "sor_rb"]
+    assert kb.sources() == ["ns2d_fused", "ns3d_fused", "sor3d_rb", "sor_rb"]

@@ -13,8 +13,13 @@ import pytest
 import torch
 
 from pampi_tpu_torch.models.ns2d import NS2DSolver
+from pampi_tpu_torch.models.ns3d import NS3DSolver
 from pampi_tpu_torch.ops import ns2d_fused as nf
+from pampi_tpu_torch.ops import ns3d_fused as nf3
+from pampi_tpu_torch.ops import sor3d_kernels as sk3
 from pampi_tpu_torch.ops import sor_kernels as sk
+from pampi_tpu_torch.ops.sor3d import sor_coefficients_3d
+from pampi_tpu_torch.ops.sor_octants import stack_octants
 from pampi_tpu_torch.ops.sor_quarters import stack_quarters
 from pampi_tpu_torch.utils.params import Parameter
 
@@ -86,6 +91,74 @@ def test_step_kernels_match_plain(cuda, dtype, problem):
     _assert_close(vk, v2, dtype)
     assert torch.equal(umax, uk.abs().max())
     assert torch.equal(vmax, vk.abs().max())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(16, 24, 32), (15, 23, 31)])
+def test_sor3d_kernels_match_plain(cuda, dtype, shape):
+    kmax, jmax, imax = shape
+    coef = sor_coefficients_3d(1 / imax, 1 / jmax, 1 / kmax, 1.8)
+    full = (kmax + 2, jmax + 2, imax + 2)
+    p, rhs = _rand(full, dtype, cuda, 5), _rand(full, dtype, cuda, 6)
+    cases = [(sk3.rb_sor3d_checkerboard, sk3.rb_sor3d_checkerboard_plain,
+              sk3.RB_SOR3D_CHECKERBOARD, p, rhs)]
+    if kmax % 2 == 0:
+        cases.append((sk3.rb_sor3d_octants, sk3.rb_sor3d_octants_plain,
+                      sk3.RB_SOR3D_OCTANTS, stack_octants(p),
+                      stack_octants(rhs)))
+    for kern, plain, counter, x, f in cases:
+        xk, xp = x.clone(), x.clone()
+        launches = counter.launches
+        for _ in range(3):  # ghosts carried across calls
+            rk = kern(xk, f, 2, *coef)
+            rp = plain(xp, f, 2, *coef)
+        assert counter.launches == launches + 3
+        _assert_close(xk, xp, dtype)
+        assert abs(float(rk) - float(rp)) <= _tol(dtype) * float(rp)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("problem,bckw", [
+    ("dcavity3d", {}),
+    ("canal3d", dict(bcLeft=3, bcRight=3, bcFront=2, bcBack=2)),
+])
+def test_ns3d_step_kernels_match_plain(cuda, dtype, problem, bckw):
+    kmax, jmax, imax = 15, 20, 33
+    param = Parameter(name=problem, imax=imax, jmax=jmax, kmax=kmax, **bckw)
+    cfg = nf3.StepConfig3D.from_param(param)
+    full = (kmax + 2, jmax + 2, imax + 2)
+    u, v, w, p = (_rand(full, dtype, cuda, s) for s in (7, 8, 9, 10))
+    dt = torch.tensor(0.01, dtype=dtype, device=cuda)
+    uk, vk, wk = u.clone(), v.clone(), w.clone()
+    f, g, h, rhs = nf3.ns3d_pre(uk, vk, wk, dt, cfg)
+    u1, v1, w1, f1, g1, h1, r1 = nf3.ns3d_pre_plain(u, v, w, dt, cfg)
+    assert torch.equal(uk, u1) and torch.equal(vk, v1) and torch.equal(wk, w1)
+    for a, b in ((f, f1), (g, g1), (h, h1), (rhs, r1)):
+        _assert_close(a, b, dtype)
+    maxima = nf3.ns3d_post(uk, vk, wk, f, g, h, p, dt, cfg.dx, cfg.dy, cfg.dz)
+    u2, v2, w2, *_ = nf3.ns3d_post_plain(u1, v1, w1, f1, g1, h1, p, dt,
+                                         cfg.dx, cfg.dy, cfg.dz)
+    for a, b in ((uk, u2), (vk, v2), (wk, w2)):
+        _assert_close(a, b, dtype)
+    for m, a in zip(maxima, (uk, vk, wk)):
+        assert torch.equal(m, a.abs().max())
+
+
+@pytest.mark.parametrize("layout", ["auto", "checkerboard"])
+def test_dcavity3d_on_card_matches_cpu(cuda, layout):
+    param = Parameter(name="dcavity3d", imax=16, jmax=16, kmax=16, re=100.0,
+                      te=0.1, itermax=100, eps=1e-3, omg=1.8,
+                      tpu_sor_layout=layout)
+    runs = []
+    for device in ("cuda", "cpu"):
+        s = NS3DSolver(param, device=device)
+        s.run(progress=False)
+        runs.append(s)
+    a, b = runs
+    assert (a.nt, a.t) == (b.nt, b.t)
+    for name in ("u", "v", "w", "p"):
+        d = (getattr(a, name).cpu() - getattr(b, name)).abs().max()
+        assert float(d) <= 1e-12
 
 
 def test_dcavity_on_card_matches_cpu(cuda):

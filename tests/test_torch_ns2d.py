@@ -84,7 +84,7 @@ def test_run_stops_after_te_like_jax():
 
 
 def test_cli_refuses_unported_problems(tmp_path, capsys):
-    par = tmp_path / "c3.par"
-    par.write_text("name dcavity3d\nkmax 8\n")
+    par = tmp_path / "co.par"
+    par.write_text("name canal_obstacle\nobstacles 0.2,0.2,0.4,0.4\n")
     assert cli.main(["pampi_tpu_torch", "--device", "cpu", str(par)]) == 1
-    assert "ROADMAP A.6" in capsys.readouterr().err
+    assert "ROADMAP A.4" in capsys.readouterr().err
