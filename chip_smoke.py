@@ -44,13 +44,32 @@ the last line):
    reference's own VTK output in tests/fixtures: 1e-6, and 112 steps for
    dcavity3d.
 
-It then prints the kernels line (JSON; K5-K8 at 256³, where a field
-outgrows the L2 and the bound is a floor, with their 128³ numbers under
-main_shape_* keys), the card's name and power limit
+The alternative pressure solvers (`tpu_solver mg|fft`) add to phases 2-5:
+
+2. the fused V-cycle's DOWN and UP kernels K9-K12 against their plain
+   versions, float32 and float64, 2-D at 512² (2 levels) and 1024² (3), 3-D
+   at 64³ (2) and 64x96x128 (3), required bitwise; 50 repeated mg solves
+   per dimension with identical cycle counts and bitwise fields;
+3. K9-K12 once more at the main shapes (4096² float32, 5 levels; 128³ and
+   256³ float32) and their times beside the bound, with the DCT bottom and
+   the whole 4096² fft solve as library times;
+4. Poisson 4096² float32 mg for exactly 8 V-cycles (split DOWN / bottom /
+   UP / residual check), the ladder (tpu_mg_fused off) once at 4096²,
+   NS-2D dcavity 4096² float32 for 16 steps with mg (4 cycles a step) and
+   with fft, configs/dcavity3d_fast.par (128³ float32 fft) for 16 steps and
+   the same grid with mg, each with the launch counts reset before it;
+5. dcavity 512² float64 (20 steps) and dcavity3d 64³ float64 (10 steps),
+   with mg and with fft, on the card and on the CPU: fields within 1e-9 and
+   the same cycle count in every step.
+
+It then prints the kernels line (JSON; K5-K8 and K11/K12 at 256³, where a
+field outgrows the L2 and the bound is a floor, with their 128³ numbers
+under main_shape_* keys), the card's name and power limit
 from nvidia-smi, and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -338,7 +357,7 @@ def check_kernels_3d(torch, np):
         raise AssertionError(f"3-D kernels disagree with plain versions: {bad}")
 
 
-def repeat_solve(torch, label, solve, p0, rhs, eps):
+def repeat_solve(torch, label, solve, p0, rhs, eps, cap=20000):
     """50 solves of the same problem: identical iteration counts and
     residuals, bitwise identical fields, and convergence."""
     first = None
@@ -351,7 +370,7 @@ def repeat_solve(torch, label, solve, p0, rhs, eps):
                 f"{label}: solve not reproducible ({it} vs {first[2]})")
     if not first[1] < eps * eps:
         raise AssertionError(f"{label}: no convergence ({first[1]})")
-    log(f"{label}: 50 solves, {first[2]} iterations each (cap 20000), "
+    log(f"{label}: 50 solves, {first[2]} iterations each (cap {cap}), "
         f"residual {first[1]:.6e} (eps² {eps * eps:g}), fields bitwise "
         f"identical")
 
@@ -359,7 +378,11 @@ def repeat_solve(torch, label, solve, p0, rhs, eps):
 @phase("iteration counts over 50 solves")
 def check_repeat_solves(torch):
     from pampi_tpu_torch.models.ns3d import make_pressure_solve_3d
-    from pampi_tpu_torch.models.poisson import init_fields, make_solver_fn
+    from pampi_tpu_torch.models.poisson import (
+        init_fields,
+        make_pressure_solve,
+        make_solver_fn,
+    )
     from pampi_tpu_torch.utils.params import Parameter
 
     for layout, dtype, (J, I), eps in (
@@ -375,17 +398,37 @@ def check_repeat_solves(torch):
             ("octants", torch.float32, (32, 32, 32), 1e-2),
             ("checkerboard", torch.float64, (31, 33, 29), 1e-4)):
         # rhs = sin(2π i dx) on the interior (zero mean), p starts at 0
-        i = torch.arange(I + 2, dtype=torch.float64, device="cuda")
-        rhs = torch.zeros((K + 2, J + 2, I + 2), dtype=torch.float64,
-                          device="cuda")
-        rhs[1:-1, 1:-1, 1:-1] = torch.sin(2.0 * torch.pi * i[1:-1] / I)
-        rhs = rhs.to(dtype)
+        rhs = sine_rhs(torch, (K, J, I), dtype)
         p0 = torch.zeros_like(rhs)
         solve = make_pressure_solve_3d(I, J, K, 1.0 / I, 1.0 / J, 1.0 / K,
                                        1.8, eps, 20000, dtype, n_inner=4,
-                                       layout=layout)
+                                       layout=layout, device="cuda")
         repeat_solve(torch, f"3-D {layout} {dtype} {K}x{J}x{I}", solve, p0,
                      rhs, eps)
+
+    # the fused MG cycle: 2-D 1024² float64 (3 levels), 3-D 64x96x128
+    # float32 (3 levels), each stopping on eps (the stall detector off)
+    makers = {2: make_pressure_solve, 3: make_pressure_solve_3d}
+    for dims, dtype, eps in (((1024, 1024), torch.float64, 1e-6),
+                             ((64, 96, 128), torch.float32, 1e-2)):
+        rhs = sine_rhs(torch, dims, dtype)
+        sp = tuple(1.0 / n for n in reversed(dims))
+        solve = makers[len(dims)](*reversed(dims), *sp, 1.0, eps, 50, dtype,
+                                  solver="mg", stall_rtol=0, mg_fused="on",
+                                  device="cuda")
+        repeat_solve(torch, f"mg {dtype} {'x'.join(map(str, dims))}", solve,
+                     torch.zeros_like(rhs), rhs, eps, cap=50)
+
+
+def sine_rhs(torch, dims, dtype):
+    """rhs = sin(2π i dx) on the interior of a (J, I) or (K, J, I) grid, 0
+    on the ghosts: a consistent Neumann rhs (zero mean)."""
+    i = torch.arange(dims[-1] + 2, dtype=torch.float64, device="cuda")
+    rhs = torch.zeros(tuple(n + 2 for n in dims), dtype=torch.float64,
+                      device="cuda")
+    inner = (slice(1, -1),) * len(dims)
+    rhs[inner] = torch.sin(2.0 * torch.pi * i[1:-1] / dims[-1])
+    return rhs.to(dtype)
 
 
 @phase("kernels vs plain versions and their times at 4096² float32")
@@ -579,6 +622,158 @@ def time_kernels_3d(torch, np):
             for name, r in rows[BIG3].items()}
 
 
+MG2 = ((512, 512), (1024, 1024))      # 2 and 3 levels
+MG3 = ((64, 64, 64), (64, 96, 128))   # 2 and 3 levels
+
+
+def mg_plan(extents):
+    """The fused cycle's plan for a (J, I) or (K, J, I) grid of unit
+    length, as the solvers build it (ops/multigrid._make_vcycle)."""
+    from pampi_tpu_torch.ops import mg_fused as mf
+    from pampi_tpu_torch.ops import multigrid as mg
+
+    levels = mg._truncate_levels(mg.mg_levels(*extents),
+                                 mg._DCT_BOTTOM_MAX_CELLS)
+    return mf.make_cycle_plan(levels,
+                              tuple(1.0 / n for n in reversed(extents)))
+
+
+def check_mg_cycle(torch, np, plan, dtype, seed):
+    """DOWN then UP, kernel and plain version on the same inputs. Returns
+    (max_abs_err over every output, max_rel_err, bitwise, the kernel's
+    pstk, rstk, the bottom plane)."""
+    from pampi_tpu_torch.ops import mg_fused as mf
+
+    L = len(plan.levels)
+    p, rhs = rng_fields(torch, np, plan.shape(0), dtype, 2, seed)
+    (pbot,) = rng_fields(torch, np, plan.shape(L - 1), dtype, 1, seed + 1)
+    pstk, rstk = mf.mg_down(plan, p, rhs)
+    pk, rk = mf.mg_down_plain(plan, p, rhs)
+    pairs = list(zip(pstk + rstk, pk + rk))
+    pairs.append((mf.mg_up(plan, pstk, rstk, pbot),
+                  mf.mg_up_plain(plan, pk, rk, pbot)))
+    err = max(float((a - b).abs().max()) for a, b in pairs)
+    rel = max(rel_err(a, b) for a, b in pairs)
+    bitwise = all(torch.equal(a, b) for a, b in pairs)
+    return err, rel, bitwise, pstk, rstk, pbot
+
+
+@phase("MG cycle kernels K9-K12 vs plain versions")
+def check_mg_kernels(torch, np):
+    bad = []
+    for dtype in (torch.float32, torch.float64):
+        for dims in MG2 + MG3:
+            plan = mg_plan(dims)
+            err, rel, bitwise, *_ = check_mg_cycle(torch, np, plan, dtype, 31)
+            tag = "x".join(map(str, dims))
+            log(f"mg_down/mg_up {len(dims)}-D {dtype} {tag} (L={len(plan.levels)})"
+                f": bitwise {bitwise}, max_abs_err {err:.3e}, max_rel_err "
+                f"{rel:.3e} {'ok' if bitwise else 'FAIL'}")
+            if not bitwise:
+                bad.append(f"{tag} {dtype}")
+    if bad:
+        raise AssertionError(f"MG cycle kernels differ from plain: {bad}")
+
+
+def mg_bytes(plan, size):
+    """Least bytes of one DOWN and one UP: DOWN reads the fine p and rhs
+    and writes every stored level and every restricted rhs; UP reads the
+    stored levels, their rhs and the bottom, and writes the fine p."""
+    import math
+
+    cells = [math.prod(plan.shape(lvl)) for lvl in range(len(plan.levels))]
+    down = 2 * cells[0] + sum(cells) + sum(cells[1:])
+    up = 2 * sum(cells[:-1]) + cells[-1] + cells[0]
+    return down * size, up * size
+
+
+def mg_flops(plan):
+    """Operations of one DOWN and one UP: ~12 per cell update (n sweeps on
+    each level but the last), ~13 per fine cell in the restriction (its
+    residual and its share of the sum), 1 per fine cell in the
+    prolongation."""
+    import math
+
+    inner = [math.prod(e) for e in plan.levels[:-1]]
+    down = sum((12 * plan.n_pre + 13) * n for n in inner)
+    up = sum((12 * plan.n_post + 1) * n for n in inner)
+    return down, up
+
+
+@phase("MG cycle kernels vs plain versions and their times at 4096², 128³ "
+       "and 256³ float32")
+def time_mg_kernels(torch, np):
+    from pampi_tpu_torch.ops import dctpoisson as dct
+    from pampi_tpu_torch.ops import mg_fused as mf
+
+    dtype = torch.float32
+    rows, library, bad = {}, {}, []
+    for dims in (MAIN, MAIN3, BIG3):
+        plan = mg_plan(dims)
+        nd, L = len(dims), len(plan.levels)
+        tag = "x".join(map(str, dims))
+        err, rel, bitwise, pstk, rstk, pbot = check_mg_cycle(
+            torch, np, plan, dtype, 41)
+        log(f"mg_down/mg_up {tag} f32 (L={L}) vs plain: bitwise {bitwise}, "
+            f"max_abs_err {err:.3e} {'ok' if bitwise else 'FAIL'}")
+        if not bitwise:
+            bad.append(tag)
+        p, rhs = rng_fields(torch, np, plan.shape(0), dtype, 2, 43)
+        bd, bu = mg_bytes(plan, 4)
+        fd, fu = mg_flops(plan)
+        for kind, nbytes, flops, kern, plain in (
+                ("down", bd, fd, lambda: mf.mg_down(plan, p, rhs),
+                 lambda: mf.mg_down_plain(plan, p, rhs)),
+                ("up", bu, fu, lambda: mf.mg_up(plan, pstk, rstk, pbot),
+                 lambda: mf.mg_up_plain(plan, pstk, rstk, pbot))):
+            b = bound(nbytes, flops)
+            rows.setdefault(f"mg_{kind}_{nd}d", {})[dims] = dict(
+                max_abs_err=err, ms=cuda_ms(torch, kern, 20),
+                plain_ms=cuda_ms(torch, plain, 3), bound_ms=b[0],
+                bound_by=b[1], levels=L)
+        # the exact bottom between DOWN and UP, and (2-D) the whole fft
+        # solve: one library matrix-product chain each
+        bottom = dct.make_poisson_dct(
+            plan.levels[-1], tuple(1.0 / n for n in plan.levels[-1]), dtype,
+            "cuda")
+        r = rstk[-1][(slice(1, -1),) * nd].contiguous()
+        library[f"dct_bottom_{'x'.join(map(str, plan.levels[-1]))}_of_{tag}"] \
+            = cuda_ms(torch, lambda: bottom(r), 20)
+        if nd == 2:
+            solve = dct.make_dct_solve_2d(dims[1], dims[0], 1.0 / dims[1],
+                                          1.0 / dims[0], dtype,
+                                          device="cuda")
+            library[f"fft_solve_{tag}"] = cuda_ms(
+                torch, lambda: solve(p, rhs), 5)
+        del p, rhs, pstk, rstk, pbot
+        torch.cuda.empty_cache()
+    for name, by in rows.items():
+        for dims, r in by.items():
+            log(f"{name} {'x'.join(map(str, dims))} f32 (L={r['levels']}): "
+                f"{r['ms']:.4f} ms/call (plain {r['plain_ms']:.4f}, bound "
+                f"{r['bound_ms']:.4f} by {r['bound_by']}), max_abs_err vs "
+                f"plain {r['max_abs_err']:.3e}")
+    log(f"library (one chain of torch matrix products, f32, ms): "
+        f"{json.dumps(library)}")
+    if bad:
+        raise AssertionError(f"MG cycle kernels differ from plain at the "
+                             f"main shapes: {bad}")
+
+    def line(r, dims):
+        return dict({k: v for k, v in r.items() if k != "levels"},
+                    shape="x".join(map(str, dims)))
+
+    out = {f"mg_{k}_2d": line(rows[f"mg_{k}_2d"][MAIN], MAIN)
+           for k in ("down", "up")}
+    for k in ("down", "up"):
+        by = rows[f"mg_{k}_3d"]
+        out[f"mg_{k}_3d"] = dict(
+            line(by[BIG3], BIG3), main_shape="x".join(map(str, MAIN3)),
+            **{f"main_shape_{q}": by[MAIN3][q]
+               for q in ("ms", "plain_ms", "bound_ms", "max_abs_err")})
+    return out, library
+
+
 def drive_path(kb, name, kernels, run):
     """Set every launch count to 0, run one main path, read the counts;
     fail if a kernel of that path was not launched."""
@@ -592,41 +787,91 @@ def drive_path(kb, name, kernels, run):
     return counts, out
 
 
-def timed_steps(torch, s, n):
-    """n steps of an NS solver after one warm-up step: ms/step on the host
-    clock and the PRE / solve / POST split from CUDA events placed by the
-    solver's phase hook."""
-    s.run_steps(1)  # warm-up: loads the kernels
+PHASES = ("pre", "solve", "post", "end")  # the NS solvers' phase marks
+CYCLE = ("down", "bottom", "up", "check")  # cycle_marks' spans
+
+
+def event_marks(torch):
+    """(marks, mark): mark(name) records a CUDA event and appends it to
+    marks under name."""
     marks = []
 
-    def hook(name):
+    def mark(name):
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
         marks.append((name, ev))
 
-    s.phase_hook = hook
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    s.run_steps(n)
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) / n * 1e3
-    s.phase_hook = None
-    split = {"pre": 0.0, "solve": 0.0, "post": 0.0}
+    return marks, mark
+
+
+def span_ms(marks, names, per):
+    """ms per `per` of each span in names: a mark opens the span of its
+    name and the next mark closes it (the events have completed)."""
+    out = dict.fromkeys(names, 0.0)
     for (name, a), (_, b) in zip(marks, marks[1:]):
-        if name in split:
-            split[name] += a.elapsed_time(b) / n
+        if name in out:
+            out[name] += a.elapsed_time(b) / per
+    return out
+
+
+@contextlib.contextmanager
+def cycle_marks(mark):
+    """Wrap the fused cycle's DOWN and UP wrappers so that mark() opens
+    "down" before DOWN, "bottom" after it, "up" before UP and "check"
+    after it (the residual check and the loop, up to the next mark). The
+    solvers look the wrappers up at call time, so this times the path's
+    own calls and adds no launch."""
+    from pampi_tpu_torch.ops import mg_fused as mf
+
+    down, up = mf.mg_down, mf.mg_up
+
+    def timed(fn, before, after):
+        def run(*a):
+            mark(before)
+            r = fn(*a)
+            mark(after)
+            return r
+        return run
+
+    mf.mg_down, mf.mg_up = timed(down, "down", "bottom"), timed(up, "up",
+                                                                 "check")
+    try:
+        yield
+    finally:
+        mf.mg_down, mf.mg_up = down, up
+
+
+def timed_steps(torch, s, n, cycles=0):
+    """n steps of an NS solver after one warm-up step: ms/step on the host
+    clock and the PRE / solve / POST split from CUDA events placed by the
+    solver's phase hook. With `cycles` (fused V-cycles a step) the same
+    steps also give the cycle's DOWN / bottom / UP / check split, in ms
+    per cycle."""
+    s.run_steps(1)  # warm-up: loads the kernels
+    marks, mark = event_marks(torch)
+    s.phase_hook = mark
+    torch.cuda.synchronize()
+    with cycle_marks(mark) if cycles else contextlib.nullcontext():
+        t0 = time.perf_counter()
+        s.run_steps(n)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / n * 1e3
+    s.phase_hook = None
+    phases = [m for m in marks if m[0] in PHASES]
+    split = span_ms(phases, ("pre", "solve", "post"), n)
+    if cycles:
+        split["cycle"] = span_ms(marks, CYCLE, n * cycles)
     return dict(ms_per_step=wall, **split)
 
 
 @phase("main path: Poisson 4096² and NS-2D dcavity 4096²")
-def main_path(torch):
+def main_path(torch, out):
     from pampi_tpu_torch.kernels import build as kb
     from pampi_tpu_torch.models.ns2d import NS2DSolver
     from pampi_tpu_torch.models.poisson import PoissonSolver
     from pampi_tpu_torch.utils.params import Parameter
 
     J, I = MAIN
-    out = {}
 
     def poisson():
         for layout in ("auto", "checkerboard"):
@@ -755,6 +1000,158 @@ def main_path_3d(torch):
     return counts
 
 
+def cycle_split(torch, solve, cycles):
+    """Run solve() once and return ms per cycle of DOWN, the bottom
+    (DOWN's end to UP's start), UP, and the residual check with the loop
+    (UP's end to the next DOWN, or to the solve's end), from CUDA
+    events."""
+    marks, mark = event_marks(torch)
+    with cycle_marks(mark):
+        solve()
+    mark("end")
+    torch.cuda.synchronize()
+    return span_ms(marks, CYCLE, cycles)
+
+
+@phase("main path: tpu_solver mg and fft (Poisson 4096², NS-2D 4096², "
+       "NS-3D configs/dcavity3d_fast.par 128³)")
+def main_path_mg(torch, sor_ns2d):
+    from pampi_tpu_torch.kernels import build as kb
+    from pampi_tpu_torch.models.ns2d import NS2DSolver
+    from pampi_tpu_torch.models.ns3d import NS3DSolver
+    from pampi_tpu_torch.models.poisson import PoissonSolver
+    from pampi_tpu_torch.utils.params import Parameter, read_parameter
+
+    J, I = MAIN
+    fixed = dict(eps=0.0, tpu_mg_stall_rtol=0.0)  # every solve runs itermax
+    out, counts = {}, []
+
+    def poisson(fused, itermax):
+        param = Parameter(name="poisson", imax=I, jmax=J, itermax=itermax,
+                          tpu_dtype="float32", tpu_solver="mg",
+                          tpu_mg_fused=fused, **fixed)
+        s = PoissonSolver(param, device="cuda")
+        s.solve()  # warm-up: loads the kernels
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        it, res = s.solve()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / it * 1e3
+        if it != itermax or not res == res or not bool(
+                torch.isfinite(s.p).all()):
+            raise AssertionError(f"Poisson mg {fused}: it={it} res={res}")
+        return s, it, ms, res
+
+    def poisson_fused():
+        s, it, ms, res = poisson("auto", 8)
+        split = cycle_split(torch, s.solve, it)
+        log(f"Poisson 4096² f32 mg (fused, L=5): {it} V-cycles, {ms:.4f} "
+            f"ms/cycle (host clock); DOWN {split['down']:.4f} / bottom "
+            f"{split['bottom']:.4f} / UP {split['up']:.4f} / residual check "
+            f"{split['check']:.4f} ms (CUDA events), residual {res:.4e}")
+        out["poisson_mg"] = dict(ms_per_cycle=ms, **split)
+
+    def poisson_ladder():
+        _s, it, ms, res = poisson("off", 2)
+        log(f"Poisson 4096² f32 mg ladder (tpu_mg_fused off): {it} V-cycles,"
+            f" {ms:.4f} ms/cycle (host clock), residual {res:.4e}")
+        out["poisson_mg_ladder"] = dict(ms_per_cycle=ms)
+
+    def steps(label, s, cycles):
+        mg = s.param.tpu_solver == "mg"
+        r = timed_steps(torch, s, 16, cycles if mg else 0)
+        fields = [s.u, s.v, s.p] + ([s.w] if hasattr(s, "w") else [])
+        finite = all(bool(torch.isfinite(x).all()) for x in fields)
+        if not finite or s.nt != 17 or s.last_it != cycles:
+            raise AssertionError(f"{label}: finite={finite} nt={s.nt} "
+                                 f"cycles={s.last_it}")
+        log(f"{label}: {r['ms_per_step']:.3f} ms/step (host clock); PRE "
+            f"{r['pre']:.3f} / solve {r['solve']:.3f} / POST {r['post']:.3f}"
+            f" ms (CUDA events), {cycles} solve iterations a step, "
+            f"t={s.t:.6e}")
+        if mg:
+            c = r["cycle"]
+            log(f"{label} fused V-cycle (the same 16 steps): DOWN "
+                f"{c['down']:.4f} / bottom {c['bottom']:.4f} / UP "
+                f"{c['up']:.4f} / residual check {c['check']:.4f} ms per "
+                f"cycle (CUDA events)")
+        out[label] = r
+
+    def ns2d(solver):
+        kw = dict(itermax=4, **fixed) if solver == "mg" else {}
+        param = Parameter(name="dcavity", imax=I, jmax=J, re=1000.0, te=1e9,
+                          tpu_dtype="float32", tpu_solver=solver, **kw)
+        return lambda: steps(f"NS-2D dcavity 4096² f32 {solver}",
+                             NS2DSolver(param, device="cuda"),
+                             4 if solver == "mg" else 1)
+
+    def ns3d(solver):
+        param = read_parameter(os.path.join(ROOT, "configs",
+                                            "dcavity3d_fast.par"))
+        kw = dict(itermax=4, **fixed) if solver == "mg" else {}
+        param = param.replace(te=1e9, tpu_solver=solver, **kw)
+        return lambda: steps(f"NS-3D dcavity3d_fast 128³ f32 {solver}",
+                             NS3DSolver(param, device="cuda"),
+                             4 if solver == "mg" else 1)
+
+    for name, kernels, run in (
+            ("Poisson mg", ("mg_down_2d", "mg_up_2d"), poisson_fused),
+            ("Poisson mg ladder", ("rb_sor_checkerboard",), poisson_ladder),
+            ("NS-2D mg", ("mg_down_2d", "mg_up_2d", "ns2d_pre", "ns2d_post"),
+             ns2d("mg")),
+            ("NS-2D fft", ("ns2d_pre", "ns2d_post"), ns2d("fft")),
+            ("NS-3D fft", ("ns3d_pre", "ns3d_post"), ns3d("fft")),
+            ("NS-3D mg", ("mg_down_3d", "mg_up_3d", "ns3d_pre", "ns3d_post"),
+             ns3d("mg"))):
+        counts.append(drive_path(kb, name, kernels, run)[0])
+    if sor_ns2d is not None:
+        log(f"NS-2D dcavity 4096² f32 ms/step: sor (itermax 100, this run) "
+            f"{sor_ns2d['ms_per_step']:.3f}, mg (4 cycles) "
+            f"{out['NS-2D dcavity 4096² f32 mg']['ms_per_step']:.3f}, fft "
+            f"{out['NS-2D dcavity 4096² f32 fft']['ms_per_step']:.3f}")
+    return counts
+
+
+@phase("tpu_solver mg and fft: card vs CPU (dcavity 512², dcavity3d 64³, "
+       "float64)")
+def mg_fft_card_vs_cpu(torch):
+    from pampi_tpu_torch.models.ns2d import NS2DSolver
+    from pampi_tpu_torch.models.ns3d import NS3DSolver
+    from pampi_tpu_torch.utils.params import read_parameter
+
+    bad = []
+    for par, cls, kw, n in (
+            ("dcavity.par", NS2DSolver, dict(imax=512, jmax=512), 20),
+            ("dcavity3d.par", NS3DSolver, dict(imax=64, jmax=64, kmax=64),
+             10)):
+        for solver in ("mg", "fft"):
+            param = read_parameter(os.path.join(ROOT, "configs", par)).replace(
+                te=1e9, tpu_dtype="float64", tpu_solver=solver, **kw)
+            runs = {}
+            for device in ("cuda", "cpu"):
+                t0 = time.perf_counter()
+                s = cls(param, device=device)
+                its = []
+                s.phase_hook = lambda ph, s=s, its=its: (
+                    its.append(s.last_it) if ph == "end" else None)
+                s.run_steps(n)
+                runs[device] = (s, its, time.perf_counter() - t0)
+            (a, ia, ta), (b, ib, tb) = runs["cuda"], runs["cpu"]
+            names = ("u", "v", "w", "p") if cls is NS3DSolver else \
+                ("u", "v", "p")
+            diff = max(float((getattr(a, f).cpu() - getattr(b, f)).abs().max())
+                       for f in names)
+            ok = ia == ib and diff <= 1e-9 and a.nt == b.nt == n
+            log(f"{par} {kw} f64 {solver}, {n} steps: card {ta:.1f} s, CPU "
+                f"{tb:.1f} s; solve iterations per step card {ia} / CPU {ib};"
+                f" max |card - cpu| {diff:.3e} (tol 1e-9), t {a.t:.9e} / "
+                f"{b.t:.9e} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                bad.append(f"{par} {solver}")
+    if bad:
+        raise AssertionError(f"card and CPU disagree: {bad}")
+
+
 DCAVITY_TE = 0.2  # the CPU half of this phase is most of the script's time
 
 
@@ -848,6 +1245,7 @@ def main() -> int:
     if not FAILED:
         check_kernels(torch, np)
         check_kernels_3d(torch, np)
+        check_mg_kernels(torch, np)
         check_repeat_solves(torch)
     if CHECKS_ONLY:
         log(f"checks only; failed: {FAILED}")
@@ -855,16 +1253,21 @@ def main() -> int:
     if not FAILED:
         rows = time_kernels(torch, np)
         rows3 = time_kernels_3d(torch, np)
-        counts = main_path(torch)
+        mg_rows = time_mg_kernels(torch, np)
+        sor_ns2d = {}
+        counts = main_path(torch, sor_ns2d)
         counts3 = main_path_3d(torch)
+        counts_mg = main_path_mg(torch, sor_ns2d.get("ns2d_flat0"))
         dcavity_card_vs_cpu(np)
         ns3d_vs_fixtures(np)
-        if None not in (rows, rows3, counts, counts3):
-            rows = {**rows, **rows3}
+        mg_fft_card_vs_cpu(torch)
+        if None not in (rows, rows3, mg_rows, counts, counts3, counts_mg):
+            rows = {**rows, **rows3, **mg_rows[0]}
             # each path ran with the counts at 0 before it: a kernel's
             # main-path launches are its sum over the paths
-            counts = {k: sum(c[k] for c in counts + counts3)
-                      for k in counts[0]}
+            paths = counts + counts3 + counts_mg
+            counts = {k: sum(c[k] for c in paths) for k in paths[0]}
+            print(json.dumps({"library": mg_rows[1]}))
         else:
             rows = counts = None
     try:

@@ -2,10 +2,15 @@
 (counterpart of pampi_tpu/cli.py): read the .par, echo it, run the solver
 the `name` key selects, write the outputs and print the wall time.
 
-  poisson            -> 2-D Poisson red-black SOR (p.dat)
+  poisson            -> 2-D Poisson (p.dat); prints the iteration count,
+                        the V-cycle count under `tpu_solver mg`, 1 under
+                        `fft`
   dcavity/canal      -> NS-2D time stepper (pressure.dat, velocity.dat)
   dcavity3d/canal3d  -> NS-3D time stepper (dcavity.vtk / canal.vtk, in
                         the `tpu_vtk` format, ascii or binary)
+
+Every problem takes `tpu_solver sor|mg|fft|auto` (auto resolves to fft on
+these plain grids).
 
 A dcavity/canal .par that configures the third dimension (kmax, zlength,
 bcFront or bcBack) runs NS-3D, as in the JAX package. Other problems are

@@ -3,9 +3,10 @@ canal (counterpart of pampi_tpu/models/ns2d.py, the reference's
 assignment-5).
 
 One step is dt -> PRE (kernel K3: wall BCs, special BC, F/G, RHS) ->
-normalizePressure every 100 steps -> the red-black SOR pressure solve (K1
-on even grids, K2 otherwise) -> POST (kernel K4: adaptUV and the maxima of
-|u| and |v|). The maxima are carried to the next step's CFL dt, as in the
+normalizePressure every 100 steps -> the pressure solve (`tpu_solver`:
+red-black SOR, K1 on even grids and K2 otherwise; multigrid, through the
+fused-cycle kernels K9/K10; or the DCT direct solve) -> POST (kernel K4:
+adaptUV and the maxima of |u| and |v|). The maxima are carried to the next step's CFL dt, as in the
 JAX package's fused chunk (`_build_fused_chunk`), so dt is computed on the
 device from two scalars. On the CPU the same composition runs the kernels'
 plain versions, in the same order.
@@ -30,17 +31,7 @@ from ..utils.params import Parameter
 from ..utils.precision import resolve_dtype
 from ..utils.progress import Progress
 from ._driver import clamped_dt, drive_chunks
-from .poisson import make_solver_fn, resolve_layout
-
-
-def make_pressure_solve(imax, jmax, dx, dy, omega, eps, itermax, dtype,
-                        n_inner: int = 1, solver: str = "sor",
-                        layout: str = "auto", flat: bool = False):
-    """The pressure-Poisson solve of one step (solve -> (p, res, it)):
-    the Poisson model's red-black convergence loop. Only `sor` is ported."""
-    resolve_solver(solver)
-    return make_solver_fn(imax, jmax, dx, dy, omega, eps, itermax, dtype,
-                          n_inner=n_inner, layout=layout, flat=flat)
+from .poisson import make_pressure_solve_for, solve_label
 
 
 class NS2DSolver:
@@ -55,6 +46,7 @@ class NS2DSolver:
     CHUNK = 64  # steps between progress-bar updates
 
     def __init__(self, param: Parameter, dtype=None, device="cuda"):
+        param = resolve_solver(param)
         check_supported(param)
         self.device = resolve_device(device)
         self.dtype = resolve_dtype(param.tpu_dtype) if dtype is None else dtype
@@ -75,15 +67,13 @@ class NS2DSolver:
         self.nt = 0
         self._dt_scale = 1.0
         self._cfg = StepConfig.from_param(param)
-        layout = resolve_layout(param.imax, param.jmax, param.tpu_sor_layout)
-        self._solve = make_pressure_solve(
-            param.imax, param.jmax, self.dx, self.dy, param.omg, param.eps,
-            param.itermax, self.dtype, n_inner=param.tpu_sor_inner,
-            solver=param.tpu_solver, layout=layout,
-            flat=bool(param.tpu_flat_solve))
-        record("ns2d_step", f"pre -> sor {layout} n_inner="
-               f"{param.tpu_sor_inner} -> post on {self.device.type}")
+        self._solve = make_pressure_solve_for(param, self.dx, self.dy,
+                                              self.dtype, self.device)
+        record("ns2d_step", f"pre -> {solve_label(param)} -> post on "
+               f"{self.device.type}")
         self.phase_hook = None
+        # the last pressure solve's residual and iteration (V-cycle) count
+        self.last_res = self.last_it = None
         self._umax = self._vmax = None
 
     @classmethod
@@ -122,7 +112,7 @@ class NS2DSolver:
         self._mark("solve")
         if self.nt % 100 == 0:
             self.p = ops.normalize_pressure(self.p)
-        self.p, _res, _it = self._solve(self.p, rhs)
+        self.p, self.last_res, self.last_it = self._solve(self.p, rhs)
         self._mark("post")
         self._umax, self._vmax = ns2d_post(self.u, self.v, f, g, self.p, dt,
                                            self.dx, self.dy)

@@ -1,21 +1,22 @@
 """NS-3D incompressible Navier-Stokes time stepper, lid-driven cavity and
-canal (counterpart of pampi_tpu/models/ns3d.py under `tpu_solver sor`, the
-reference's assignment-6).
+canal (counterpart of pampi_tpu/models/ns3d.py, the reference's
+assignment-6).
 
 One step is dt -> PRE (kernel K7: the six wall BCs, the special BC, F/G/H,
-RHS) -> the 3-D red-black SOR pressure solve (K6 on the octants of an even
-grid, K5 on the checkerboard otherwise) -> POST (kernel K8: the projection
-and the maxima of |u|, |v|, |w|). Unlike NS-2D there is no
-normalizePressure in the loop, as in the reference. The maxima are carried
-to the next step's CFL dt, the order of the JAX package's fused chunk
-(`_build_fused_chunk`), so dt is computed on the device from three
-scalars. On the CPU the same composition runs the kernels' plain versions.
+RHS) -> the pressure solve (`tpu_solver`: 3-D red-black SOR, K6 on the
+octants of an even grid and K5 on the checkerboard otherwise; multigrid,
+through the fused-cycle kernels K11/K12; or the DCT direct solve) -> POST
+(kernel K8: the projection and the maxima of |u|, |v|, |w|). Unlike NS-2D
+there is no normalizePressure in the loop, as in the reference. The
+maxima are carried to the next step's CFL dt, the order of the JAX
+package's fused chunk (`_build_fused_chunk`), so dt is computed on the
+device from three scalars. On the CPU the same composition runs the
+kernels' plain versions.
 
 The step updates u, v, w in place and replaces p with the solved field.
 t accumulates on the host in float64 (one readback of dt per step), which
-is what the JAX chunk carries (`t + dt.astype(f64)`). Obstacles, the
-distributed solver and the mg/fft solvers are not ported (ROADMAP A.4,
-A.8, A.5).
+is what the JAX chunk carries (`t + dt.astype(f64)`). Obstacles and the
+distributed solver are not ported (ROADMAP A.4, A.8).
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ import numpy as np
 import torch
 
 from ..ops import ns3d as ops
+from ..ops.dctpoisson import make_dct_solve_3d
+from ..ops.multigrid import make_mg_solve_3d
 from ..ops.ns3d_fused import StepConfig3D, ns3d_post, ns3d_pre
 from ..ops.sor3d import sor_coefficients_3d
 from ..ops.sor3d_kernels import rb_sor3d_checkerboard, rb_sor3d_octants
@@ -56,13 +59,25 @@ def resolve_layout_3d(imax: int, jmax: int, kmax: int,
 
 def make_pressure_solve_3d(imax, jmax, kmax, dx, dy, dz, omega, eps, itermax,
                            dtype, n_inner: int = 1, solver: str = "sor",
-                           layout: str = "auto"):
-    """The 3-D pressure solve of one step, solve(p, rhs) -> (p, res, it):
-    one kernel call = n_inner red-black iterations, `it += n_inner`, the
-    residual Σr²/(imax·jmax·kmax) read back and checked against eps² after
-    every call (the JAX make_tblock_solve_loop contract). Only `sor` is
-    ported; mg and fft raise naming ROADMAP A.5."""
-    resolve_solver(solver)
+                           layout: str = "auto", stall_rtol=None,
+                           mg_fused: str = "auto", *, device):
+    """The 3-D pressure solve of one step, solve(p, rhs) -> (p, res, it).
+    `sor`: one kernel call = n_inner red-black iterations, `it += n_inner`,
+    the residual Σr²/(imax·jmax·kmax) read back and checked against eps²
+    after every call (the JAX make_tblock_solve_loop contract). `mg`:
+    multigrid V-cycles (K11/K12 in the fused cycle), `it` counts cycles.
+    `fft`: the DCT direct solve, `it` = 1. `device` is where the MG and
+    DCT solves build their level data and matrices."""
+    if solver == "mg":
+        return make_mg_solve_3d(imax, jmax, kmax, dx, dy, dz, eps, itermax,
+                                dtype, stall_rtol=stall_rtol,
+                                fused=mg_fused, device=device)
+    if solver == "fft":
+        return make_dct_solve_3d(imax, jmax, kmax, dx, dy, dz, dtype,
+                                 device=device)
+    if solver != "sor":
+        raise ValueError(f"pressure solve supports sor|mg|fft, got "
+                         f"{solver!r} (resolve auto first)")
     if n_inner < 1:
         raise ValueError(f"n_inner must be >= 1, got {n_inner}")
     factor, idx2, idy2, idz2 = sor_coefficients_3d(dx, dy, dz, omega)
@@ -96,6 +111,7 @@ class NS3DSolver:
     CHUNK = 32  # steps between progress-bar updates
 
     def __init__(self, param: Parameter, dtype=None, device="cuda"):
+        param = resolve_solver(param)
         check_supported(param)
         self.device = resolve_device(device)
         self.dtype = resolve_dtype(param.tpu_dtype) if dtype is None else dtype
@@ -114,15 +130,21 @@ class NS3DSolver:
         self.nt = 0
         self._dt_scale = 1.0
         self._cfg = StepConfig3D.from_param(param)
-        layout = resolve_layout_3d(g.imax, g.jmax, g.kmax,
-                                   param.tpu_sor_layout)
+        solver, layout = param.tpu_solver, "auto"
+        if solver == "sor":
+            layout = resolve_layout_3d(g.imax, g.jmax, g.kmax,
+                                       param.tpu_sor_layout)
+            solver = f"sor {layout} n_inner={param.tpu_sor_inner}"
         self._solve = make_pressure_solve_3d(
             g.imax, g.jmax, g.kmax, g.dx, g.dy, g.dz, param.omg, param.eps,
             param.itermax, self.dtype, n_inner=param.tpu_sor_inner,
-            solver=param.tpu_solver, layout=layout)
-        record("ns3d_step", f"pre -> sor {layout} n_inner="
-               f"{param.tpu_sor_inner} -> post on {self.device.type}")
+            solver=param.tpu_solver, layout=layout,
+            stall_rtol=param.tpu_mg_stall_rtol, mg_fused=param.tpu_mg_fused,
+            device=self.device)
+        record("ns3d_step", f"pre -> {solver} -> post on {self.device.type}")
         self.phase_hook = None
+        # the last pressure solve's residual and iteration (V-cycle) count
+        self.last_res = self.last_it = None
         self._maxima = None
 
     @classmethod
@@ -160,7 +182,7 @@ class NS3DSolver:
         dt = clamped_dt(dt, self._dt_scale)
         f, gg, h, rhs = ns3d_pre(self.u, self.v, self.w, dt, self._cfg)
         self._mark("solve")
-        self.p, _res, _it = self._solve(self.p, rhs)
+        self.p, self.last_res, self.last_it = self._solve(self.p, rhs)
         self._mark("post")
         self._maxima = ns3d_post(self.u, self.v, self.w, f, gg, h, self.p,
                                  dt, g.dx, g.dy, g.dz)

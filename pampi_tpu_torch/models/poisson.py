@@ -1,5 +1,8 @@
 """2-D Poisson solver: red-black SOR with a residual-convergence loop
 (counterpart of pampi_tpu/models/poisson.py, the reference's assignment-4).
+`tpu_solver mg` and `fft` (and `auto`, which resolves to `fft` here) take
+the multigrid and DCT solves of ops/multigrid.py and ops/dctpoisson.py
+instead; the rest of this docstring is about the SOR loop.
 
 One solve call advances the field by `eff_inner` red-black iterations with
 kernel K1 (quarter layout) or K2 (checkerboard), then reads the residual
@@ -34,12 +37,14 @@ import math
 import numpy as np
 import torch
 
+from ..ops.dctpoisson import make_dct_solve_2d
+from ..ops.multigrid import make_mg_solve_2d
 from ..ops.sor_kernels import rb_sor_checkerboard, rb_sor_quarters, sor_coefficients
 from ..ops.sor_quarters import stack_quarters, unstack_quarters
 from ..utils import flags as _flags
 from ..utils.datio import write_matrix
 from ..utils.device import resolve_device
-from ..utils.dispatch import check_supported, record
+from ..utils.dispatch import check_supported, record, resolve_solver
 from ..utils.params import Parameter
 from ..utils.precision import check_eps_floor, resolve_dtype
 
@@ -151,6 +156,49 @@ def make_convergence_loop(step, prep, post, eff, ncells, eps, itermax, dtype,
     return solve
 
 
+def make_pressure_solve(imax, jmax, dx, dy, omega, eps, itermax, dtype,
+                        n_inner: int = 1, solver: str = "sor",
+                        layout: str = "auto", flat: bool = False,
+                        stall_rtol=None, mg_fused: str = "auto", *, device):
+    """The 2-D pressure-Poisson solve (solve -> (p, res, it)), as the JAX
+    make_pressure_solve dispatches it: `sor` the red-black convergence
+    loop, `mg` multigrid V-cycles (`it` counts cycles; `stall_rtol`,
+    `mg_fused` are tpu_mg_stall_rtol and tpu_mg_fused), `fft` the DCT
+    direct solve (`it` = 1). `device` is where the MG and DCT solves build
+    their level data and matrices."""
+    if solver == "mg":
+        return make_mg_solve_2d(imax, jmax, dx, dy, eps, itermax, dtype,
+                                stall_rtol=stall_rtol, fused=mg_fused,
+                                device=device)
+    if solver == "fft":
+        return make_dct_solve_2d(imax, jmax, dx, dy, dtype, device=device)
+    if solver != "sor":
+        raise ValueError(f"pressure solve supports sor|mg|fft, got "
+                         f"{solver!r} (resolve auto first)")
+    return make_solver_fn(imax, jmax, dx, dy, omega, eps, itermax, dtype,
+                          n_inner=n_inner, layout=layout, flat=flat)
+
+
+def solve_label(param: Parameter) -> str:
+    """The dispatch record's name of a resolved Parameter's 2-D solve."""
+    if param.tpu_solver != "sor":
+        return param.tpu_solver
+    layout = resolve_layout(param.imax, param.jmax, param.tpu_sor_layout)
+    return f"sor {layout} n_inner={param.tpu_sor_inner}"
+
+
+def make_pressure_solve_for(param: Parameter, dx, dy, dtype, device):
+    """make_pressure_solve with every knob taken from a resolved
+    Parameter: the one build of the 2-D solve for PoissonSolver and
+    NS2DSolver."""
+    return make_pressure_solve(
+        param.imax, param.jmax, dx, dy, param.omg, param.eps, param.itermax,
+        dtype, n_inner=param.tpu_sor_inner, solver=param.tpu_solver,
+        layout=param.tpu_sor_layout, flat=bool(param.tpu_flat_solve),
+        stall_rtol=param.tpu_mg_stall_rtol, mg_fused=param.tpu_mg_fused,
+        device=device)
+
+
 class PoissonSolver:
     """Driver-facing Poisson solver (the reference's Solver struct with
     init/solve/writeResult). Fields live on `device` ("cuda" by default;
@@ -158,6 +206,7 @@ class PoissonSolver:
 
     def __init__(self, param: Parameter, problem: int = 2, dtype=None,
                  device="cuda"):
+        param = resolve_solver(param)
         check_supported(param)
         self.device = resolve_device(device)
         self.dtype = resolve_dtype(param.tpu_dtype) if dtype is None else dtype
@@ -166,13 +215,15 @@ class PoissonSolver:
         self.dx = param.xlength / param.imax
         self.dy = param.ylength / param.jmax
         self.p, self.rhs = init_fields(param, problem, self.dtype, self.device)
-        layout = resolve_layout(self.imax, self.jmax, param.tpu_sor_layout)
-        record("poisson_sor", f"{layout} n_inner={param.tpu_sor_inner} "
-               f"on {self.device.type}")
-        self._solve = make_solver_fn(
-            self.imax, self.jmax, self.dx, self.dy, param.omg, param.eps,
-            param.itermax, self.dtype, n_inner=param.tpu_sor_inner,
-            layout=layout, flat=bool(param.tpu_flat_solve))
+        self._solve = self._make_solve()
+
+    def _make_solve(self):
+        """The solve the resolved `tpu_solver` selects (the JAX
+        PoissonSolver._make_solve)."""
+        record("poisson_solver",
+               f"{solve_label(self.param)} on {self.device.type}")
+        return make_pressure_solve_for(self.param, self.dx, self.dy,
+                                       self.dtype, self.device)
 
     @classmethod
     def from_numpy(cls, param: Parameter, p, rhs, device="cuda"):

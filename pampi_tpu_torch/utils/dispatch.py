@@ -1,13 +1,18 @@
 """Dispatch record and the port's feature gate.
 
 `record`/`last`/`snapshot` keep a per-process record of which path each
-solver took (kernel or plain version, layout), like the JAX package's
-`utils/dispatch.py`. `check_supported` refuses, loudly, every option the
-port does not run yet, naming the ROADMAP item that will bring it."""
+solver took (kernel or plain version, layout, fused or ladder MG cycle),
+like the JAX package's `utils/dispatch.py`. `resolve_solver` and
+`resolve_mg_fused` port that module's solver policies. `check_supported`
+refuses, loudly, every option the port does not run yet, naming the
+ROADMAP item that will bring it."""
 
 from __future__ import annotations
 
+import torch
+
 from .params import is_3d_config
+from .precision import check_direct_dtype
 
 _RECORD: dict[str, str] = {}
 
@@ -24,27 +29,66 @@ def snapshot() -> dict[str, str]:
     return dict(_RECORD)
 
 
-_SOLVER_ITEMS = {
-    "fft": "A.5",
-    "mg": "A.5",
-    "auto": "A.5",
-    "sor_lex": "A.12",
-    "sor_rba": "A.12",
-}
+_SOLVERS = ("auto", "sor", "mg", "fft", "sor_lex", "sor_rba")
+_NOT_PORTED = {"sor_lex": "A.12", "sor_rba": "A.12"}
 
 
-def resolve_solver(name: str) -> str:
-    """`tpu_solver` -> the solver the port runs. Only `sor` is ported;
-    `auto` resolves to a non-sor solver in the JAX package, so it is
-    refused as well."""
-    if name == "sor":
-        return name
-    if name in _SOLVER_ITEMS:
+def check_solver(name: str) -> None:
+    """Refuse a `tpu_solver` the port does not run: `sor_lex` and
+    `sor_rba` name their ROADMAP item, anything else outside the JAX
+    package's set is a ValueError."""
+    if name not in _SOLVERS:
+        raise ValueError(
+            f"tpu_solver must be auto|sor|mg|fft|sor_lex|sor_rba, got {name!r}")
+    if name in _NOT_PORTED:
         raise NotImplementedError(
             f"tpu_solver {name} is not yet ported "
-            f"(ROADMAP {_SOLVER_ITEMS[name]})")
-    raise ValueError(
-        f"tpu_solver must be auto|sor|mg|fft|sor_lex|sor_rba, got {name!r}")
+            f"(ROADMAP {_NOT_PORTED[name]})")
+
+
+def resolve_solver(param):
+    """`tpu_solver auto` -> the solver for the run's structure, as the JAX
+    package resolves it (pampi_tpu/utils/dispatch.py resolve_solver):
+    a plain grid takes `fft` (the exact DCT direct solve), an obstacle grid
+    `mg` (obstacles themselves are refused by check_supported, ROADMAP
+    A.4). Every other value passes through. The decision is recorded
+    under "solver_auto". Returns the param with a concrete solver; the
+    models resolve through here first."""
+    check_solver(param.tpu_solver)
+    if param.tpu_solver != "auto":
+        return param
+    if param.obstacles.strip():
+        choice, why = "mg", "obstacles: dense-bottom MG, converged solves"
+    else:
+        choice, why = "fft", "plain grid: exact DCT direct solve"
+    record("solver_auto", f"{choice} ({why})")
+    return param.replace(tpu_solver=choice)
+
+
+def resolve_mg_fused(knob: str, levels, key: str) -> bool:
+    """`tpu_mg_fused` -> whether an MG build runs the fused V-cycle (the
+    DOWN and UP kernels of ops/mg_fused.py with the exact bottom between
+    them) instead of the per-level ladder, in the JAX package's decision
+    order minus its TPU-only checks: `off` and a single-level plan take
+    the ladder, `auto` and `on` the fused cycle. `on` differs from `auto`
+    only in the JAX package, whose `auto` also checks the TPU; the port
+    takes it so that the JAX package's .par files run unchanged. The
+    policy does not depend on the device: on the CPU the fused cycle runs
+    the kernels' plain versions. Recorded under `key` ("mg2d_fused",
+    "mg3d_fused")."""
+    if knob not in ("auto", "on", "off"):
+        raise ValueError(f"tpu_mg_fused must be auto|on|off, got {knob!r}")
+    if knob == "off":
+        record(key, "ladder (tpu_mg_fused off)")
+        return False
+    if len(levels) < 2:
+        record(key, "ladder (single-level plan: the direct bottom solve is "
+               "the whole cycle (ragged/odd or budget-truncated grid))")
+        return False
+    how = "forced" if knob == "on" else "auto"
+    record(key, f"fused cycle ({how}; DOWN + bottom + UP, "
+           f"levels={len(levels)})")
+    return True
 
 
 def mesh_is_single(tpu_mesh: str) -> bool:
@@ -61,8 +105,15 @@ def mesh_is_single(tpu_mesh: str) -> bool:
 
 def check_supported(param) -> None:
     """Raise NotImplementedError for every configuration outside the
-    ported single-device red-black SOR stacks (2-D and 3-D)."""
-    resolve_solver(param.tpu_solver)
+    ported single-device stacks (2-D and 3-D; the red-black SOR, multigrid
+    and DCT pressure solvers), ValueError for a value no package takes.
+    `param` has been through resolve_solver, which checks `tpu_solver`;
+    `tpu_mg_fused` is checked where an MG build resolves it
+    (resolve_mg_fused)."""
+    if param.tpu_solver == "fft" and param.tpu_dtype in ("bfloat16", "bf16"):
+        # the direct solve's refusal, before the dtype itself is refused as
+        # not yet ported
+        check_direct_dtype(torch.bfloat16)
     three_d = is_3d_config(param)
     if param.obstacles.strip():
         raise NotImplementedError(

@@ -32,6 +32,16 @@ def resolve_dtype(name: str) -> torch.dtype:
             f"{sorted(_DTYPES) + ['bfloat16']}") from None
 
 
+def check_direct_dtype(dtype: torch.dtype) -> None:
+    """The direct (fft) solve returns after one application, with no loop
+    to absorb arithmetic error: a dtype under 32 bits is refused (the JAX
+    package's _check_direct_dtype)."""
+    if torch.finfo(dtype).bits < 32:
+        raise ValueError(
+            "tpu_solver fft needs float32/float64 (a one-shot direct solve "
+            "cannot iterate bf16 error away); use sor or mg for bfloat16")
+
+
 def residual_floor(ncells: int, dtype: torch.dtype) -> float:
     """The smallest residual a reduced-precision solve can tell from zero:
     machine epsilon scaled by sqrt(ncells); 0.0 for float64."""

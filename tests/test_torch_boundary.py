@@ -56,7 +56,13 @@ def test_import_and_solve_load_no_jax():
         s3 = NS3DSolver(Parameter(name="dcavity3d", imax=6, jmax=6, kmax=6),
                         device="cpu")
         s3.run_steps(2)
-        print(it, s.nt, s3.nt)
+        from pampi_tpu_torch.ops import multigrid
+        multigrid._DCT_BOTTOM_MAX_CELLS = 64
+        mg = PoissonSolver(Parameter(imax=32, jmax=32, itermax=3, eps=0.0,
+                                     tpu_solver="mg"), device="cpu").solve()
+        fft = PoissonSolver(Parameter(imax=8, jmax=8, tpu_solver="fft"),
+                            device="cpu").solve()
+        print(it, s.nt, s3.nt, mg[0], fft[0])
         print(sorted(m for m in sys.modules
                      if m.startswith("jax") or m.startswith("pampi_tpu")))
     """)
@@ -64,10 +70,11 @@ def test_import_and_solve_load_no_jax():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, cwd=str(ROOT), timeout=120,
                          check=True).stdout.splitlines()
-    assert out[0] == "40 2 2"
+    assert out[0] == "40 2 2 3 1"
     loaded = ast.literal_eval(out[1])
     assert [m for m in loaded if _forbidden(m)] == []
-    for mod in ("sor_kernels", "sor3d_kernels", "ns3d_fused"):
+    for mod in ("sor_kernels", "sor3d_kernels", "ns3d_fused", "mg_fused",
+                "dctpoisson"):
         assert f"pampi_tpu_torch.ops.{mod}" in loaded
 
 
@@ -137,6 +144,7 @@ def test_failed_build_raises(tmp_path, monkeypatch):
 
 def test_kernel_registry():
     from pampi_tpu_torch.ops import (  # noqa: F401
+        mg_fused,
         ns2d_fused,
         ns3d_fused,
         sor3d_kernels,
@@ -146,10 +154,13 @@ def test_kernel_registry():
     assert set(kb.KERNELS) == {"rb_sor_quarters", "rb_sor_checkerboard",
                                "ns2d_pre", "ns2d_post",
                                "rb_sor3d_checkerboard", "rb_sor3d_octants",
-                               "ns3d_pre", "ns3d_post"}
+                               "ns3d_pre", "ns3d_post",
+                               "mg_down_2d", "mg_up_2d",
+                               "mg_down_3d", "mg_up_3d"}
     for k in kb.KERNELS.values():
         assert (ROOT / k.source).is_file()
         path, line = k.replaces.split(":")
         src = (ROOT / path).read_text().splitlines()
         assert "pl.pallas_call(" in src[int(line) - 1], k
-    assert kb.sources() == ["ns2d_fused", "ns3d_fused", "sor3d_rb", "sor_rb"]
+    assert kb.sources() == ["mg_cycle", "ns2d_fused", "ns3d_fused",
+                            "sor3d_rb", "sor_rb"]

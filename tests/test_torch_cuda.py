@@ -6,7 +6,10 @@ elsewhere; on the card run
 
 Fields must agree to 1e-12 (float64) / 1e-5 (float32) of their scale: the
 kernels keep the plain versions' association and are built without fma
-contraction, only the r² sums are reduced in another order."""
+contraction, only the r² sums are reduced in another order. The MG cycle
+kernels K9-K12 keep every operation of their plain versions, so they are
+held bitwise; an MG run on the card against the CPU, whose DCT bottom's
+matrix products sum in another order, to 1e-9."""
 
 import numpy as np
 import pytest
@@ -14,6 +17,8 @@ import torch
 
 from pampi_tpu_torch.models.ns2d import NS2DSolver
 from pampi_tpu_torch.models.ns3d import NS3DSolver
+from pampi_tpu_torch.ops import mg_fused as mf
+from pampi_tpu_torch.ops import multigrid as mg
 from pampi_tpu_torch.ops import ns2d_fused as nf
 from pampi_tpu_torch.ops import ns3d_fused as nf3
 from pampi_tpu_torch.ops import sor3d_kernels as sk3
@@ -174,3 +179,45 @@ def test_dcavity_on_card_matches_cpu(cuda):
     for name in ("u", "v", "p"):
         d = (getattr(a, name).cpu() - getattr(b, name)).abs().max()
         assert float(d) <= 1e-12
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("extents", [(512, 512), (64, 64, 64)])
+def test_mg_cycle_kernels_match_plain(cuda, dtype, extents):
+    levels = mg._truncate_levels(mg.mg_levels(*extents),
+                                 mg._DCT_BOTTOM_MAX_CELLS)
+    assert len(levels) == 2
+    nd = len(extents)
+    plan = mf.make_cycle_plan(levels, tuple(1.0 / n for n in extents))
+    full = tuple(n + 2 for n in extents)
+    p, rhs = _rand(full, dtype, cuda, 11), _rand(full, dtype, cuda, 12)
+    down, up = (mf.MG_DOWN_2D, mf.MG_UP_2D) if nd == 2 else \
+        (mf.MG_DOWN_3D, mf.MG_UP_3D)
+    n_down, n_up = down.launches, up.launches
+    pstk, rstk = mf.mg_down(plan, p, rhs)
+    pk, rk = mf.mg_down_plain(plan, p, rhs)
+    assert down.launches == n_down + 1
+    assert rstk[0] is rhs
+    for a, b in zip(pstk + rstk, pk + rk):
+        assert torch.equal(a, b)
+    pbot = _rand(tuple(n + 2 for n in levels[-1]), dtype, cuda, 13)
+    out = mf.mg_up(plan, pstk, rstk, pbot)
+    assert up.launches == n_up + 1
+    assert torch.equal(out, mf.mg_up_plain(plan, pk, rk, pbot))
+
+
+@pytest.mark.parametrize("solver", ["mg", "fft"])
+def test_mg_fft_dcavity_on_card_matches_cpu(cuda, solver, monkeypatch):
+    monkeypatch.setattr(mg, "_DCT_BOTTOM_MAX_CELLS", 256)  # 64² -> 3 levels
+    param = Parameter(name="dcavity", imax=64, jmax=64, re=100.0, te=0.05,
+                      itermax=20, eps=1e-5, tpu_solver=solver)
+    runs = []
+    for device in ("cuda", "cpu"):
+        s = NS2DSolver(param, device=device)
+        s.run(progress=False)
+        runs.append(s)
+    a, b = runs
+    assert a.nt == b.nt and abs(a.t - b.t) <= 1e-12 * b.t
+    for name in ("u", "v", "p"):
+        d = (getattr(a, name).cpu() - getattr(b, name)).abs().max()
+        assert float(d) <= 1e-9
