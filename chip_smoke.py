@@ -62,6 +62,27 @@ The alternative pressure solvers (`tpu_solver mg|fft`) add to phases 2-5:
    with mg and with fft, on the card and on the CPU: fields within 1e-9 and
    the same cycle count in every step.
 
+The distributed layer (a 2-D mesh of shards driven by one process; the
+shards of a mesh larger than the card count share the card) adds:
+
+2. the per-shard quarter kernel K13 against its plain version, float32 and
+   float64, on random stacked planes of shards at the offsets (0,0), (8,4)
+   and (0,12) of a 32² grid and of every shard of 1024² on 2x2 and 2x4
+   and of 100² on 2x2 (the CLI path's shards), planes required bitwise; the rank-id halo harness on a (2, 4) and a
+   (2, 2, 2) mesh on the card, every ghost face holding the neighbour's
+   rank id or, at a wall, its own;
+3. K13 once more on the four 2048² shards of 4096² float32 on 2x2, and its
+   time per shard call beside the bound;
+4. Poisson 4096² float32 on a 2x2 mesh (tpu_sor_inner 4, eps 0, 400
+   iterations) through DistPoissonSolver, against the single-device K1
+   solve of the same grid (limit 1e-5 of scale, 0.0 expected), with the
+   quarter exchange's share of the solve's rounds from CUDA events; then
+   `python -m pampi_tpu_torch` on configs/poisson.par with tpu_mesh 2x2 on
+   the card and on the CPU (K13's plain version) and with tpu_mesh 1 on the
+   card: the same iteration count, the field p.dat is written from equal
+   between card and CPU on 2x2 (1e-12 of scale) and within 1e-9 of the
+   single-device one.
+
 It then prints the kernels line (JSON; K5-K8 and K11/K12 at 256³, where a
 field outgrows the L2 and the bound is a floor, with their 128³ numbers
 under main_shape_* keys), the card's name and power limit
@@ -77,6 +98,7 @@ import sys
 import tempfile
 import time
 import traceback
+from unittest import mock
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
@@ -1221,6 +1243,307 @@ def ns3d_vs_fixtures(np):
         raise AssertionError(f"NS-3D disagrees with the reference: {bad}")
 
 
+def qdist_shards(jmax, imax, dims, n):
+    """(geometry, [(joff/2, ioff/2) per shard]) of a (jmax, imax) grid on a
+    dims mesh, the CA depth clamped as the solver clamps it."""
+    from pampi_tpu_torch.parallel import quarters_dist as qd
+
+    jl, il = jmax // dims[0], imax // dims[1]
+    g = qd.make_qgeom(jmax, imax, jl, il, qd.qdist_clamp(n, jl, il))
+    return g, [(cj * jl // 2, ci * il // 2)
+               for cj in range(dims[0]) for ci in range(dims[1])]
+
+
+def check_qdist(torch, np, g, qoffs, dtype, seed, calls=2):
+    """K13 and its plain version on copies of random stacked planes at each
+    shard offset, `calls` calls each (ghosts carried across calls).
+    Returns (planes bitwise, residual rel_err, max_abs_err)."""
+    from pampi_tpu_torch.ops import sor_qdist as sq
+    from pampi_tpu_torch.ops.sor_kernels import sor_coefficients
+
+    coef = sor_coefficients(1.0 / g.imax, 1.0 / g.jmax, 1.9)
+    bitwise, er, err = True, 0.0, 0.0
+    for k, offs in enumerate(qoffs):
+        x, f = rng_fields(torch, np, (4, g.jq, g.iq), dtype, 2, seed + k)
+        xk, xp = x.clone(), x.clone()
+        for _ in range(calls):
+            rk = sq.rb_sor_qdist(xk, f, g, offs, *coef)
+            rp = sq.rb_sor_qdist_plain(xp, f, g, offs, *coef)
+        bitwise = bitwise and torch.equal(xk, xp)
+        er = max(er, abs(float(rk) - float(rp)) / abs(float(rp)))
+        err = max(err, float((xk - xp).abs().max()))
+    return bitwise, er, err
+
+
+@phase("distributed quarter kernel K13 vs plain version")
+def check_qdist_kernel(torch, np):
+    from pampi_tpu_torch.parallel import quarters_dist as qd
+
+    bad = []
+    cases = [("32² (16x8 shard, n=2) at offsets (0,0), (8,4), (0,12)",
+              qd.make_qgeom(32, 32, 16, 8, 2), [(0, 0), (8, 4), (0, 12)])]
+    for dims in ((2, 2), (2, 4)):
+        g, qoffs = qdist_shards(1024, 1024, dims, 4)
+        cases.append((f"1024² on {dims[0]}x{dims[1]} (n={g.n}), every shard",
+                      g, qoffs))
+    # the shard geometry of the poisson.par CLI path (dist_cli)
+    g, qoffs = qdist_shards(100, 100, (2, 2), 4)
+    cases.append((f"100² on 2x2 ({g.jl}² shards, n={g.n}), every shard",
+                  g, qoffs))
+    for dtype in (torch.float32, torch.float64):
+        t = tol(torch, dtype)
+        for label, g, qoffs in cases:
+            bitwise, er, err = check_qdist(torch, np, g, qoffs, dtype, 51)
+            ok = bitwise and er <= t
+            log(f"rb_sor_qdist {dtype} {label}: planes bitwise {bitwise}, "
+                f"max_abs_err {err:.3e}, residual rel_err {er:.3e} (tol "
+                f"{t:g}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                bad.append(f"{label} {dtype}")
+    if bad:
+        raise AssertionError(f"K13 differs from its plain version: {bad}")
+
+
+@phase("halo-exchange harness on the card: (2, 4) and (2, 2, 2) meshes")
+def halo_on_card(np):
+    from pampi_tpu_torch.parallel.comm import CartComm
+    from pampi_tpu_torch.parallel.halo_debug import rank_id_blocks
+
+    bad = []
+    for dims, local in (((2, 4), (4, 6)), ((2, 2, 2), (3, 4, 5))):
+        comm = CartComm(ndims=len(dims), dims=dims)
+        comm.print_config()
+        inner = (slice(1, -1),) * len(dims)
+        for coords, blk in rank_id_blocks(comm, local).items():
+            rid = int(np.ravel_multi_index(coords, dims))
+            ok = bool((blk[inner] == rid).all())
+            for a in range(len(dims)):
+                for step, idx in ((-1, 0), (1, -1)):
+                    c = list(coords)
+                    c[a] += step
+                    want = (int(np.ravel_multi_index(c, dims))
+                            if 0 <= c[a] < dims[a] else rid)
+                    face = list(inner)
+                    face[a] = idx
+                    ok = ok and bool((blk[tuple(face)] == want).all())
+            if not ok:
+                bad.append(f"{dims} shard {coords}")
+        log(f"halo harness {dims} on {sorted(set(map(str, comm.devices)))}: "
+            f"every ghost face holds the neighbour's rank id or, at a wall, "
+            f"its own: {'ok' if not bad else 'FAIL'}")
+    if bad:
+        raise AssertionError(f"wrong ghost faces: {bad}")
+
+
+@phase("K13 vs plain version and its time at 4096² float32 on 2x2")
+def time_qdist(torch, np):
+    from pampi_tpu_torch.ops import sor_qdist as sq
+    from pampi_tpu_torch.ops.sor_kernels import sor_coefficients
+
+    g, qoffs = qdist_shards(*MAIN, (2, 2), 4)
+    bitwise, er, err = check_qdist(torch, np, g, qoffs, torch.float32, 61, 1)
+    ok = bitwise and er <= tol(torch, torch.float32)
+    log(f"rb_sor_qdist 4096² f32 on 2x2 ({g.jl}² shards, n={g.n}) vs plain, "
+        f"every shard: planes bitwise {bitwise}, residual rel_err {er:.3e} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("K13 differs from its plain version at 4096²")
+    coef = sor_coefficients(1.0 / MAIN[1], 1.0 / MAIN[0], 1.9)
+    planes = [rng_fields(torch, np, (4, g.jq, g.iq), torch.float32, 2, 71 + k)
+              for k in range(4)]
+
+    def shards(fn):
+        return lambda: [fn(x, f, g, o, *coef)
+                        for (x, f), o in zip(planes, qoffs)]
+
+    ms = cuda_ms(torch, shards(sq.rb_sor_qdist), 20) / 4
+    pms = cuda_ms(torch, shards(sq.rb_sor_qdist_plain), 3) / 4
+    # per shard call: the plane and its rhs read once, the plane written
+    # once; ~12 flops per cell update
+    b = bound(3 * 4 * g.jq * g.iq * 4, 12 * g.n * g.jl * g.il)
+    log(f"rb_sor_qdist 4096² f32 on 2x2: {ms:.4f} ms per shard call (plain "
+        f"{pms:.4f}, bound {b[0]:.4f} by {b[1]}), the four shards on one "
+        f"card")
+    return {"rb_sor_qdist": dict(
+        max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1],
+        shape=f"{g.jl}x{g.il} shard of {MAIN[0]}x{MAIN[1]} on 2x2, n={g.n}")}
+
+
+@contextlib.contextmanager
+def exchange_marks(mark):
+    """Wrap the quarter exchange of the solve's rounds (the calls that pass
+    the prebuilt copies) so that mark() opens "exchange" before it and
+    "compute" after it, and the unpack after the loop so that mark() closes
+    the last round: the set-up's rhs exchange and the copies' build fall in
+    neither span. The solver looks both functions up at call time."""
+    from pampi_tpu_torch.parallel import quarters_dist as qd
+
+    q_exchange, unpack = qd.q_exchange, qd.unpack_q_to_ext
+
+    def timed(*a):
+        if len(a) < 4:  # the set-up's rhs exchange
+            return q_exchange(*a)
+        mark("exchange")
+        out = q_exchange(*a)
+        mark("compute")
+        return out
+
+    def unpacked(*a):
+        mark("unpack")
+        return unpack(*a)
+
+    qd.q_exchange, qd.unpack_q_to_ext = timed, unpacked
+    try:
+        yield
+    finally:
+        qd.q_exchange, qd.unpack_q_to_ext = q_exchange, unpack
+
+
+@phase("main path: distributed Poisson 4096² float32 on a 2x2 mesh")
+def main_path_dist(torch, qdist_row):
+    from pampi_tpu_torch.kernels import build as kb
+    from pampi_tpu_torch.models.poisson import PoissonSolver
+    from pampi_tpu_torch.models.poisson_dist import DistPoissonSolver
+    from pampi_tpu_torch.parallel.comm import CartComm
+    from pampi_tpu_torch.utils.params import Parameter
+
+    J, I = MAIN
+    param = Parameter(name="poisson", imax=I, jmax=J, itermax=400, eps=0.0,
+                      omg=1.9, tpu_dtype="float32", tpu_sor_inner=4,
+                      tpu_mesh="2x2")
+    # warm-up: loads K13 and K1
+    DistPoissonSolver(param.replace(itermax=4), CartComm(dims=(2, 2))).solve()
+    PoissonSolver(param.replace(itermax=4, tpu_mesh="1"),
+                  device="cuda").solve()
+    out = {}
+
+    def dist():
+        s = DistPoissonSolver(param, CartComm(dims=(2, 2)))
+        s.comm.print_config()
+        marks, mark = event_marks(torch)
+        torch.cuda.synchronize()
+        with exchange_marks(mark):
+            t0 = time.perf_counter()
+            it, res = s.solve()
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+        mark("end")
+        torch.cuda.synchronize()
+        split = span_ms(marks, ("exchange", "compute"), 1)
+        out.update(it=it, res=res, ms=sec / it * 1e3, split=split,
+                   field=s.comm.collect(s.p))
+        return s
+
+    counts, s = drive_path(kb, "Poisson dist 2x2", ("rb_sor_qdist",), dist)
+    single = PoissonSolver(param.replace(tpu_mesh="1"), device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    it1, res1 = single.solve()
+    torch.cuda.synchronize()
+    ms1 = (time.perf_counter() - t0) / it1 * 1e3
+    # the interiors: the corner ghosts are float32 casts in one and
+    # float64 in the other's full_field
+    ref = single.p[1:-1, 1:-1].double().cpu().numpy()
+    diff = float(abs(out["field"] - ref).max())
+    scale = max(1.0, float(abs(ref).max()))
+    sp = out["split"]
+    loop = sp["exchange"] + sp["compute"]
+    share = sp["exchange"] / loop
+    ok = (out["it"] == it1 == 400 and diff <= 1e-5 * scale
+          and out["res"] == out["res"])
+    log(f"Poisson 4096² f32 on 2x2 ({s.jl}² shards on "
+        f"{[str(d) for d in s.comm.devices]}, {s.param.tpu_sor_inner} "
+        f"iterations per exchange): {out['it']} iterations, {out['ms']:.4f} "
+        f"ms/iteration (host clock, set-up included), residual "
+        f"{out['res']:.4e}; the loop {loop / out['it']:.4f} ms/iteration, "
+        f"exchange {sp['exchange']:.3f} ms of {loop:.3f} ms (CUDA events "
+        f"on {s.comm.devices[0]}), "
+        f"share {share:.3f}; single-device K1 {it1} "
+        f"iterations, {ms1:.4f} ms/iteration, residual {res1:.4e}; max "
+        f"|dist - single| {diff:.3e} (limit {1e-5 * scale:.3e}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if qdist_row is not None:
+        log(f"rb_sor_qdist per shard call (phase above): "
+            f"{qdist_row['ms']:.4f} ms, bound {qdist_row['bound_ms']:.4f} "
+            f"ms; main path launches {counts['rb_sor_qdist']}")
+    if not ok:
+        raise AssertionError("distributed Poisson disagrees with K1")
+    return counts
+
+
+@phase("main path: python -m pampi_tpu_torch configs/poisson.par with "
+       "tpu_mesh 2x2, card and CPU")
+def dist_cli(np):
+    import io
+
+    from pampi_tpu_torch import cli
+    from pampi_tpu_torch.kernels import build as kb
+    from pampi_tpu_torch.models import poisson, poisson_dist
+    from pampi_tpu_torch.utils import datio
+
+    text = open(os.path.join(ROOT, "configs", "poisson.par")).read()
+    runs = {}
+    fields = []
+
+    def keep(p, path):
+        # the field p.dat is written from, at full precision (p.dat holds
+        # six decimals)
+        fields.append(datio._host(p))
+        datio.write_matrix(p, path)
+
+    with tempfile.TemporaryDirectory() as tmp, \
+            mock.patch.object(poisson, "write_matrix", keep), \
+            mock.patch.object(poisson_dist, "write_matrix", keep):
+        for label, mesh, device in (("card 2x2", "2x2", "cuda"),
+                                    ("CPU 2x2", "2x2", "cpu"),
+                                    ("card single", "1", "cuda")):
+            d = os.path.join(tmp, label.replace(" ", "_"))
+            os.makedirs(d)
+            par = os.path.join(d, "poisson.par")
+            with open(par, "w") as fh:
+                fh.write(text.replace("tpu_mesh   auto", f"tpu_mesh   {mesh}"))
+            buf = io.StringIO()
+            cwd = os.getcwd()
+            os.chdir(d)
+
+            def run():
+                with contextlib.redirect_stdout(buf):
+                    return cli.main(["pampi_tpu_torch", "--device", device,
+                                     par])
+            try:
+                t0 = time.perf_counter()
+                if label == "card 2x2":
+                    counts, rc = drive_path(kb, "Poisson dist CLI",
+                                            ("rb_sor_qdist",), run)
+                else:
+                    rc = run()
+                sec = time.perf_counter() - t0
+            finally:
+                os.chdir(cwd)
+            line = [ln for ln in buf.getvalue().splitlines()
+                    if "Walltime" in ln]
+            runs[label] = (rc, line[0].split()[0] if line else None,
+                           fields.pop() if fields else np.full(1, np.nan))
+            log(f"{label}: rc {rc}, '{line[0] if line else ''}' "
+                f"({sec:.1f} s)")
+    (rc_c, it_c, p_c), (rc_h, it_h, p_h), (rc_s, it_s, p_s) = (
+        runs["card 2x2"], runs["CPU 2x2"], runs["card single"])
+    # the CPU run is K13's plain version on the same shards and exchanges
+    plain = float(np.abs(p_c - p_h).max())
+    limit = 1e-12 * max(1.0, float(np.abs(p_h).max()))
+    diff = float(np.abs(p_c - p_s).max())
+    ok = (rc_c == rc_h == rc_s == 0 and it_c == it_h == it_s is not None
+          and plain <= limit and diff <= 1e-9)
+    log(f"poisson.par 100² f64 tpu_mesh 2x2: {it_c} iterations on the card, "
+        f"{it_h} on the CPU, {it_s} single-device; max |p card - CPU| on "
+        f"2x2 {plain:.3e} (tol {limit:.3e}, bitwise "
+        f"{bool((p_c == p_h).all())}); max |p 2x2 - single| on the card "
+        f"{diff:.3e} (tol 1e-9) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the poisson.par mesh run disagrees")
+    return counts
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1247,6 +1570,8 @@ def main() -> int:
         check_kernels_3d(torch, np)
         check_mg_kernels(torch, np)
         check_repeat_solves(torch)
+        check_qdist_kernel(torch, np)
+        halo_on_card(np)
     if CHECKS_ONLY:
         log(f"checks only; failed: {FAILED}")
         return 1 if FAILED else 0
@@ -1254,6 +1579,7 @@ def main() -> int:
         rows = time_kernels(torch, np)
         rows3 = time_kernels_3d(torch, np)
         mg_rows = time_mg_kernels(torch, np)
+        q_rows = time_qdist(torch, np)
         sor_ns2d = {}
         counts = main_path(torch, sor_ns2d)
         counts3 = main_path_3d(torch)
@@ -1261,12 +1587,17 @@ def main() -> int:
         dcavity_card_vs_cpu(np)
         ns3d_vs_fixtures(np)
         mg_fft_card_vs_cpu(torch)
-        if None not in (rows, rows3, mg_rows, counts, counts3, counts_mg):
-            rows = {**rows, **rows3, **mg_rows[0]}
+        counts_dist = main_path_dist(
+            torch, None if q_rows is None else q_rows["rb_sor_qdist"])
+        counts_cli = dist_cli(np)
+        if None not in (rows, rows3, mg_rows, q_rows, counts, counts3,
+                        counts_mg, counts_dist, counts_cli):
+            rows = {**rows, **rows3, **mg_rows[0], **q_rows}
             # each path ran with the counts at 0 before it: a kernel's
             # main-path launches are its sum over the paths
-            paths = counts + counts3 + counts_mg
-            counts = {k: sum(c[k] for c in paths) for k in paths[0]}
+            paths = counts + counts3 + counts_mg + [counts_dist, counts_cli]
+            counts = {k: sum(c.get(k, 0) for c in paths)
+                      for k in set().union(*paths)}
             print(json.dumps({"library": mg_rows[1]}))
         else:
             rows = counts = None
@@ -1290,7 +1621,7 @@ def main() -> int:
         r = rows[name]
         kernels.append(dict(
             name=name, route="cuda", source=k.source, replaces=k.replaces,
-            launches=counts[name], library_ms=None,
+            launches=counts.get(name, 0), library_ms=None,
             **{"shape": "x".join(map(str, MAIN)), **r}))
     print(json.dumps({"kernels": kernels}))
     print(card)

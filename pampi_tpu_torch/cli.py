@@ -4,13 +4,26 @@ the `name` key selects, write the outputs and print the wall time.
 
   poisson            -> 2-D Poisson (p.dat); prints the iteration count,
                         the V-cycle count under `tpu_solver mg`, 1 under
-                        `fft`
+                        `fft`; on a mesh (`tpu_mesh PJxPI`, or `auto` with
+                        several cards) the distributed red-black solve
   dcavity/canal      -> NS-2D time stepper (pressure.dat, velocity.dat)
   dcavity3d/canal3d  -> NS-3D time stepper (dcavity.vtk / canal.vtk, in
                         the `tpu_vtk` format, ascii or binary)
 
 Every problem takes `tpu_solver sor|mg|fft|auto` (auto resolves to fft on
 these plain grids).
+
+`tpu_mesh` follows the JAX package: `auto` is one shard per visible card
+(the single-device path on one card), `PJxPI` a mesh of that shape, whose
+shards share the cards when they outnumber them (parallel/comm.py). The
+distributed layer runs Poisson under `tpu_solver sor`. NS and mg/fft on
+an explicit mesh exit with an error naming ROADMAP A.8; under `auto` with
+several cards they run on one card, with a note.
+
+    python -m pampi_tpu_torch --halo-test [2|3] [--mesh PJxPI] [--device cpu]
+
+fills every shard with its rank id, exchanges the halos and writes the
+ghost faces to halo-<dir>-r<rank>.txt (parallel/halo_debug.py).
 
 A dcavity/canal .par that configures the third dimension (kmax, zlength,
 bcFront or bcBack) runs NS-3D, as in the JAX package. Other problems are
@@ -45,8 +58,21 @@ def _parse(argv):
     return ap.parse_args(argv)
 
 
+def _halo_test(argv) -> int:
+    ap = argparse.ArgumentParser(prog="python -m pampi_tpu_torch --halo-test")
+    ap.add_argument("ndims", nargs="?", type=int, choices=(2, 3), default=2)
+    ap.add_argument("--mesh", help="PJxPI (or PKxPJxPI); default: auto")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    args = ap.parse_args(argv)
+    from .parallel.halo_debug import main as halo_main
+
+    return halo_main(args.ndims, args.mesh, args.device)
+
+
 def main(argv=None) -> int:
     argv = sys.argv if argv is None else argv
+    if len(argv) > 1 and argv[1] == "--halo-test":
+        return _halo_test(argv[2:])
     args = _parse(argv[1:])
     param = read_parameter(args.config, Parameter())
     print_parameter(param)
@@ -57,11 +83,48 @@ def main(argv=None) -> int:
         return 1
 
 
+def _make_comm(param: Parameter, devices):
+    """`tpu_mesh` -> a 2-D CartComm over the visible devices, or None for
+    the single-device path (pampi_tpu/cli.py _make_comm)."""
+    from .utils.dispatch import mesh_dims, mesh_is_single
+
+    if mesh_is_single(param.tpu_mesh, len(devices)):
+        return None
+    from .parallel.comm import CartComm
+
+    # the grid's extents make `auto` prefer factorizations the grid divides
+    return CartComm(ndims=2, dims=mesh_dims(param.tpu_mesh), devices=devices,
+                    extents=(param.jmax, param.imax),
+                    tiers=param.tpu_mesh_tiers)
+
+
+def _auto_single(param: Parameter, exc: NotImplementedError) -> None:
+    """A mesh for a solve the distributed layer does not run yet: an
+    explicit one fails with exc (naming ROADMAP A.8); under `auto` the solve
+    takes one device, with a note, so that the configs shipped with `auto`
+    run on a host with several cards as they do on one."""
+    if param.tpu_mesh != "auto":
+        raise exc
+    print(f"tpu_mesh auto: {exc}; running on one device")
+
+
 def _dispatch(param: Parameter, device: str) -> int:
+    from .utils.device import visible_devices
+
     if param.name.startswith("poisson"):
         from .models.poisson import PoissonSolver
 
-        solver = PoissonSolver(param, problem=2, device=device)
+        comm, solver = _make_comm(param, visible_devices(device)), None
+        if comm is not None:
+            from .models.poisson_dist import DistPoissonSolver
+
+            try:
+                solver = DistPoissonSolver(param, comm, problem=2)
+                comm.print_config()
+            except NotImplementedError as exc:
+                _auto_single(param, exc)
+        if solver is None:
+            solver = PoissonSolver(param, problem=2, device=device)
         start = get_timestamp()
         it, _res = solver.solve()
         end = get_timestamp()
@@ -71,6 +134,12 @@ def _dispatch(param: Parameter, device: str) -> int:
         print("Walltime %.2fs" % (end - start))
         return 0
     if param.name in ("dcavity", "canal", "dcavity3d", "canal3d"):
+        from .utils.dispatch import mesh_is_single
+
+        if not mesh_is_single(param.tpu_mesh, len(visible_devices(device))):
+            _auto_single(param, NotImplementedError(
+                f"tpu_mesh {param.tpu_mesh}: the distributed {param.name} "
+                "solver is not yet ported (ROADMAP A.8)"))
         three_d = is_3d_config(param)
         if three_d:
             from .models.ns3d import NS3DSolver

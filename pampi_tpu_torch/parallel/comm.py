@@ -1,0 +1,314 @@
+"""The Cartesian communication layer, driven by one process (counterpart of
+pampi_tpu/parallel/comm.py, the reference's Comm API of
+assignment-6/src/comm.h).
+
+A distributed field is a list of per-shard tensors in row-major mesh order
+over the axes ("j", "i"), or ("k", "j", "i") in 3-D; shard s lives on
+`comm.devices[s]`. One controller loops over the shards, where the JAX
+package runs one program per device under `shard_map`:
+
+  JAX (shard_map)                      here
+  -----------------------------------  ------------------------------------
+  lax.axis_index(axis)                 comm.coords(s)[axis]
+  get_offsets(axis, local)             comm.offsets(s, local): coordinate
+                                       times the local extent
+  is_boundary(axis, nper, side)        comm.is_boundary(s, axis, side)
+  halo_exchange (ppermute per axis)    halo_exchange(blocks, comm): each
+                                       neighbour's owned strip copied into
+                                       the ghost strip (Tensor.copy_, which
+                                       also crosses cards)
+  reduction (psum / pmax)              reduction(vals, comm): a fixed-order
+                                       sum or max in mesh order, on shard
+                                       0's device
+  the sharded global array             collect(blocks): the global array,
+                                       assembled on the host
+
+Placement. `dims=None` (`tpu_mesh auto`) gives one shard per visible device
+(`dims_create`). An explicit mesh with more shards than devices places
+shard s on `devices[s mod n]`, so several shards share a card; the JAX
+package refuses such a mesh (it needs one device per shard, and its test
+suite fakes eight CPU devices instead). A repeated device may also be
+passed explicitly, as the tests do with `[torch.device("cpu")] * P`.
+Multi-process launch (ROADMAP A.9) is not ported: `is_master` is always
+True.
+
+The exchange keeps the JAX package's semantics: axis by axis with full
+strips (ghost corners consistent after the last axis), physical-wall
+ghosts keep their old values (MPI_PROC_NULL), `depth` ghost layers per
+side in one message. Mesh tiers (`tpu_mesh_tiers`) order the posting of
+strips on a TPU pod and change no value; they are parsed for validation
+only.
+"""
+
+from __future__ import annotations
+
+import math
+import sys
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from ..utils.device import visible_devices
+
+# slowest-varying first, as the reference's enum {KDIM, JDIM, IDIM}
+AXIS_NAMES = ("k", "j", "i")
+TIERS = ("dcn", "ici")
+
+
+def parse_mesh_tiers(spec: str, axis_names) -> dict:
+    """`tpu_mesh_tiers` -> {axis name: tier}: "auto" maps every axis to
+    "ici"; a comma list "j=dcn,i=ici" names tiers, unlisted axes are
+    "ici", unknown axes or tiers raise ValueError."""
+    tiers = {name: "ici" for name in axis_names}
+    spec = (spec or "auto").strip()
+    if spec == "auto":
+        return tiers
+    for part in spec.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        if "=" not in part:
+            raise ValueError(
+                f"tpu_mesh_tiers entry {part!r} is not axis=tier "
+                f"(axes {tuple(axis_names)}, tiers {TIERS})")
+        axis, tier = (t.strip() for t in part.split("=", 1))
+        if axis not in tiers:
+            raise ValueError(
+                f"tpu_mesh_tiers names unknown mesh axis {axis!r} "
+                f"(this mesh has {tuple(axis_names)})")
+        if tier not in TIERS:
+            raise ValueError(
+                f"tpu_mesh_tiers tier {tier!r} for axis {axis!r} not in "
+                f"{TIERS}")
+        tiers[axis] = tier
+    return tiers
+
+
+def dims_create(nranks: int, ndims: int,
+                extents: tuple[int, ...] | None = None) -> tuple[int, ...]:
+    """Balanced factorization of nranks over ndims (MPI_Dims_create).
+
+    Without `extents`: non-increasing balanced factors. With `extents` (the
+    grid's interior extents in mesh-axis order) the factorization looks at
+    the grid: prefer every axis divisible, then the least pad-with-mask
+    overhead, then the smallest cut area, then the most balanced."""
+    if extents is not None and len(extents) != ndims:
+        raise ValueError(
+            f"extents {extents} rank does not match ndims={ndims}")
+
+    def factorizations(n, k):
+        if k == 1:
+            yield (n,)
+            return
+        for f in range(1, n + 1):
+            if n % f == 0:
+                for rest in factorizations(n // f, k - 1):
+                    yield (f,) + rest
+
+    if extents is None:
+        primes = []
+        n = nranks
+        f = 2
+        while f * f <= n:
+            while n % f == 0:
+                primes.append(f)
+                n //= f
+            f += 1
+        if n > 1:
+            primes.append(n)
+        dims = [1] * ndims
+        for prime in sorted(primes, reverse=True):
+            # the currently smallest dimension, the latest on ties
+            k = min(range(ndims), key=lambda d: (dims[d], -d))
+            dims[k] *= prime
+        return tuple(sorted(dims, reverse=True))
+
+    def score(dims):
+        locals_ = [-(-e // p) for e, p in zip(extents, dims)]
+        nondiv = sum(1 for e, p in zip(extents, dims) if e % p)
+        pad = sum((l * p - e) / e for e, p, l in zip(extents, dims, locals_))
+        padded = [l * p for l, p in zip(locals_, dims)]
+        vol = math.prod(padded)
+        comm_vol = sum(
+            (p - 1) * vol // ep for p, ep in zip(dims, padded) if p > 1)
+        spread = max(dims) - min(dims)
+        return (nondiv, round(pad, 9), comm_vol, spread,
+                tuple(-d for d in dims))
+
+    return min(factorizations(nranks, ndims), key=score)
+
+
+@dataclass
+class CartComm:
+    """Cartesian mesh of shards (the Comm struct, comm.h:104-115). The
+    axis names are the last `ndims` of ("k", "j", "i"). `devices` defaults
+    to every visible card."""
+
+    ndims: int = 2
+    dims: tuple[int, ...] | None = None
+    devices: list | None = None
+    extents: tuple[int, ...] | None = None
+    tiers: str | dict | None = None
+    axis_names: tuple[str, ...] = field(init=False)
+    _coords: list = field(init=False, repr=False)
+
+    def __post_init__(self):
+        devs = (list(self.devices) if self.devices is not None
+                else visible_devices("cuda"))
+        n = len(devs)
+        if self.dims is None:
+            self.dims = dims_create(n, self.ndims, self.extents)
+        self.dims = tuple(int(d) for d in self.dims)
+        if len(self.dims) != self.ndims:
+            raise ValueError(
+                f"tpu_mesh has {len(self.dims)} dims {self.dims} but this "
+                f"problem needs a {self.ndims}-D mesh")
+        if any(d < 1 for d in self.dims):
+            raise ValueError(f"mesh dims must be positive, got {self.dims}")
+        # the first prod(dims) devices; round-robin when there are fewer
+        self.devices = [torch.device(devs[s % n]) for s in range(self.size)]
+        self.axis_names = AXIS_NAMES[3 - self.ndims:]
+        self._coords = [tuple(int(c) for c in np.unravel_index(s, self.dims))
+                        for s in range(self.size)]
+        if isinstance(self.tiers, dict):
+            self.tiers = ",".join(f"{a}={t}" for a, t in self.tiers.items())
+        self.tiers = parse_mesh_tiers(self.tiers, self.axis_names)
+
+    # --- commIsMaster: one controller, no other processes --------------
+    @property
+    def is_master(self) -> bool:
+        return True
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.dims)
+
+    @property
+    def shared(self) -> bool:
+        """Whether several shards live on one device."""
+        return len(set(self.devices)) < self.size
+
+    def axis_size(self, axis: str) -> int:
+        return self.dims[self.axis_names.index(axis)]
+
+    def coords(self, s: int) -> tuple[int, ...]:
+        """Mesh coordinates of shard s (row-major over axis_names)."""
+        return self._coords[s]
+
+    def rank(self, coords) -> int:
+        r = 0
+        for c, d in zip(coords, self.dims):
+            r = r * d + c
+        return r
+
+    def offsets(self, s: int, local) -> tuple[int, ...]:
+        """commGetOffsets: global start of shard s's block per axis."""
+        return tuple(c * e for c, e in zip(self.coords(s), local))
+
+    def is_boundary(self, s: int, axis: str, side: str) -> bool:
+        """commIsBoundary: whether shard s owns the physical wall on the
+        "lo" or "hi" side of `axis`."""
+        c = self.coords(s)[self.axis_names.index(axis)]
+        return c == 0 if side == "lo" else c == self.axis_size(axis) - 1
+
+    def neighbour(self, s: int, axis: str, step: int,
+                  periodic: bool = False) -> int | None:
+        """The shard `step` (+1 or -1) along `axis` from s, or None past a
+        wall (MPI_PROC_NULL)."""
+        a = self.axis_names.index(axis)
+        c = list(self.coords(s))
+        c[a] += step
+        if not 0 <= c[a] < self.dims[a]:
+            if not periodic:
+                return None
+            c[a] %= self.dims[a]
+        return self.rank(c)
+
+    def local_shape(self, global_shape, ragged: bool = False
+                    ) -> tuple[int, ...]:
+        """Uniform per-shard block extents: divisible extents, or with
+        ragged=True ceil-divided blocks whose trailing cells the solvers
+        mask (pad-with-mask)."""
+        if ragged:
+            return tuple(-(-e // p) for e, p in zip(global_shape, self.dims))
+        for ext, p in zip(global_shape, self.dims):
+            if ext % p:
+                raise ValueError(
+                    f"extent {ext} not divisible by mesh dim {p} "
+                    f"(uniform-block policy; ragged pad-with-mask runs pass "
+                    f"ragged=True, or change tpu_mesh)")
+        return tuple(e // p for e, p in zip(global_shape, self.dims))
+
+    # --- commPrintConfig ------------------------------------------------
+    def print_config(self, out=None) -> None:
+        out = out or sys.stdout
+        out.write("Communication setup:\n")
+        out.write(f"\tMesh dims: {self.dims} axes {self.axis_names}\n")
+        for s, dev in enumerate(self.devices):
+            out.write(f"\tShard {s} {self.coords(s)}: {dev}\n")
+        if self.shared:
+            out.write(f"\t{self.size} shards share {len(set(self.devices))}"
+                      " device(s), placed round-robin\n")
+
+    # --- commCollectResult -----------------------------------------------
+    def collect(self, blocks) -> np.ndarray:
+        """The global array of equal per-shard blocks, on the host."""
+        local = tuple(blocks[0].shape)
+        out = np.empty(tuple(d * e for d, e in zip(self.dims, local)),
+                       dtype=np.float64)
+        for s, blk in enumerate(blocks):
+            sl = tuple(slice(o, o + e)
+                       for o, e in zip(self.offsets(s, local), local))
+            out[sl] = blk.detach().cpu().numpy()
+        return out
+
+
+def _exchange_axis(blocks, comm: CartComm, dim: int, periodic: bool,
+                   depth: int) -> None:
+    """Fill both `depth`-wide ghost strips of every block along array dim
+    `dim` from the owned strips of the +-1 neighbours; wall ghosts keep
+    their values. Every strip is read before any is written when an owned
+    extent is below `depth` (its strip then covers ghosts), as the
+    simultaneous ppermute of the JAX package reads them."""
+    axis = comm.axis_names[dim]
+    if comm.dims[dim] == 1 and not periodic:
+        return
+    n, d = blocks[0].shape[dim], depth
+    snapshot = n - 2 * d < d
+    copies = []
+    for s, x in enumerate(blocks):
+        for step, ghost, owned in ((-1, 0, n - 2 * d), (1, n - d, d)):
+            nbr = comm.neighbour(s, axis, step, periodic)
+            if nbr is None:
+                continue
+            src = blocks[nbr].narrow(dim, owned, d)
+            copies.append((x.narrow(dim, ghost, d),
+                           src.clone() if snapshot else src))
+    for dst, src in copies:
+        dst.copy_(src)
+
+
+def halo_exchange(blocks, comm: CartComm, periodic=(), depth: int = 1):
+    """commExchange: refresh, in place, every ghost layer of the extended
+    per-shard blocks (`depth` ghost layers per side, array dims ordered
+    like the mesh axes), axis by axis. Returns the list."""
+    if len({tuple(b.shape) for b in blocks}) != 1:
+        raise ValueError("halo_exchange needs equal block shapes")
+    for dim, axis in enumerate(comm.axis_names):
+        _exchange_axis(blocks, comm, dim, axis in periodic, depth)
+    return blocks
+
+
+def reduction(vals, comm: CartComm, op: str = "sum"):
+    """commReduction: the global sum or max of per-shard 0-dim tensors, in
+    mesh order, on shard 0's device (a fixed order: no float atomics)."""
+    if op not in ("sum", "max"):
+        raise ValueError(f"unknown reduction op {op!r}")
+    if len(vals) != comm.size:
+        raise ValueError(f"{len(vals)} values for {comm.size} shards")
+    acc = vals[0]
+    for v in vals[1:]:
+        v = v.to(acc.device)
+        acc = acc + v if op == "sum" else torch.maximum(acc, v)
+    return acc

@@ -19,3 +19,13 @@ def resolve_device(device="cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}: cuda or cpu")
     return dev
+
+
+def visible_devices(device="cuda") -> list[torch.device]:
+    """The devices a mesh of shards may use (the counterpart of
+    `jax.devices()`): every visible card for a CUDA request, the one CPU
+    for a CPU request."""
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        return [dev]
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]

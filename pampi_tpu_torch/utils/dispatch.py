@@ -3,11 +3,13 @@
 `record`/`last`/`snapshot` keep a per-process record of which path each
 solver took (kernel or plain version, layout, fused or ladder MG cycle),
 like the JAX package's `utils/dispatch.py`. `resolve_solver` and
-`resolve_mg_fused` port that module's solver policies. `check_supported`
-refuses, loudly, every option the port does not run yet, naming the
-ROADMAP item that will bring it."""
+`resolve_mg_fused` port that module's solver policies, `mesh_is_single`
+the CLI's mesh policy. `check_supported` refuses, loudly, every option the
+port does not run yet, naming the ROADMAP item that will bring it."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -46,18 +48,20 @@ def check_solver(name: str) -> None:
             f"(ROADMAP {_NOT_PORTED[name]})")
 
 
-def resolve_solver(param):
+def resolve_solver(param, ragged: bool = False):
     """`tpu_solver auto` -> the solver for the run's structure, as the JAX
-    package resolves it (pampi_tpu/utils/dispatch.py resolve_solver):
-    a plain grid takes `fft` (the exact DCT direct solve), an obstacle grid
-    `mg` (obstacles themselves are refused by check_supported, ROADMAP
-    A.4). Every other value passes through. The decision is recorded
-    under "solver_auto". Returns the param with a concrete solver; the
-    models resolve through here first."""
+    package resolves it (pampi_tpu/utils/dispatch.py resolve_solver): a
+    ragged distributed grid takes `sor`, a plain grid `fft` (the exact DCT
+    direct solve), an obstacle grid `mg` (obstacles themselves are refused
+    by check_supported, ROADMAP A.4). Every other value passes through. The
+    decision is recorded under "solver_auto". Returns the param with a
+    concrete solver; the models resolve through here first."""
     check_solver(param.tpu_solver)
     if param.tpu_solver != "auto":
         return param
-    if param.obstacles.strip():
+    if ragged:
+        choice, why = "sor", "ragged decomposition (mg/fft unsupported)"
+    elif param.obstacles.strip():
         choice, why = "mg", "obstacles: dense-bottom MG, converged solves"
     else:
         choice, why = "fft", "plain grid: exact DCT direct solve"
@@ -91,25 +95,40 @@ def resolve_mg_fused(knob: str, levels, key: str) -> bool:
     return True
 
 
-def mesh_is_single(tpu_mesh: str) -> bool:
-    """`auto` means one device here (the port drives one card); an
-    explicit mesh must be all ones."""
+def mesh_dims(tpu_mesh: str) -> tuple[int, ...] | None:
+    """`tpu_mesh` -> the mesh's dims, None for `auto`."""
     if tpu_mesh == "auto":
-        return True
+        return None
     try:
-        return all(int(t) == 1 for t in tpu_mesh.split("x"))
+        return tuple(int(t) for t in tpu_mesh.split("x"))
     except ValueError:
         raise ValueError(
             f"tpu_mesh must be auto or PJxPI, got {tpu_mesh!r}") from None
 
 
-def check_supported(param) -> None:
+def mesh_is_single(tpu_mesh: str, ndevices: int) -> bool:
+    """Whether `tpu_mesh` resolves to the single-device path with
+    `ndevices` visible devices (pampi_tpu/cli.py mesh_is_single): `auto`
+    builds a mesh over every device, so it is single exactly when there is
+    one; an explicit mesh is single when all its dims are 1. (The JAX
+    package also takes an explicit mesh as single on a one-device machine,
+    where it could not place it; the port places the shards on the devices
+    it has, parallel/comm.py.)"""
+    dims = mesh_dims(tpu_mesh)
+    return ndevices == 1 if dims is None else all(d == 1 for d in dims)
+
+
+def check_supported(param, mesh: bool = False) -> None:
     """Raise NotImplementedError for every configuration outside the
-    ported single-device stacks (2-D and 3-D; the red-black SOR, multigrid
-    and DCT pressure solvers), ValueError for a value no package takes.
-    `param` has been through resolve_solver, which checks `tpu_solver`;
-    `tpu_mg_fused` is checked where an MG build resolves it
-    (resolve_mg_fused)."""
+    ported stacks (2-D and 3-D single device with the red-black SOR,
+    multigrid and DCT pressure solvers; the distributed 2-D Poisson SOR
+    solve), ValueError for a value no package takes. `param` has been
+    through resolve_solver, which checks `tpu_solver`; `tpu_mg_fused` is
+    checked where an MG build resolves it (resolve_mg_fused). `mesh` says
+    that the solve runs on a mesh (DistPoissonSolver); otherwise only an
+    explicit mesh of several shards is held to the distributed layer's
+    reach, since `auto` is resolved over the visible cards by the CLI
+    (cli._make_comm)."""
     if param.tpu_solver == "fft" and param.tpu_dtype in ("bfloat16", "bf16"):
         # the direct solve's refusal, before the dtype itself is refused as
         # not yet ported
@@ -120,10 +139,18 @@ def check_supported(param) -> None:
             "3-D obstacle flag fields are not yet ported (ROADMAP A.4, A.6)"
             if three_d else
             "obstacle flag fields are not yet ported (ROADMAP A.4)")
-    if not mesh_is_single(param.tpu_mesh):
-        raise NotImplementedError(
-            f"tpu_mesh {param.tpu_mesh}: the distributed layer is not yet "
-            "ported (ROADMAP A.8)")
+    dims = mesh_dims(param.tpu_mesh)
+    if mesh or (dims is not None and math.prod(dims) > 1):
+        # the distributed layer runs the 2-D Poisson solve under
+        # `tpu_solver sor` (models/poisson_dist.py)
+        if not param.name.startswith("poisson") or three_d:
+            raise NotImplementedError(
+                f"tpu_mesh {param.tpu_mesh}: the distributed {param.name} "
+                "solver is not yet ported (ROADMAP A.8)")
+        if param.tpu_solver in ("mg", "fft"):
+            raise NotImplementedError(
+                f"tpu_solver {param.tpu_solver} on a mesh: the distributed "
+                "mg/fft solves are not yet ported (ROADMAP A.8)")
     # the SOR layout is checked where it is resolved
     # (models/poisson.resolve_layout, models/ns3d.resolve_layout_3d)
     if three_d:

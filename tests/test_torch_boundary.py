@@ -62,7 +62,16 @@ def test_import_and_solve_load_no_jax():
                                      tpu_solver="mg"), device="cpu").solve()
         fft = PoissonSolver(Parameter(imax=8, jmax=8, tpu_solver="fft"),
                             device="cpu").solve()
-        print(it, s.nt, s3.nt, mg[0], fft[0])
+        import torch
+        from pampi_tpu_torch.models.poisson_dist import DistPoissonSolver
+        from pampi_tpu_torch.parallel.comm import CartComm
+        from pampi_tpu_torch.parallel.halo_debug import rank_id_blocks
+        mesh = CartComm(ndims=2, dims=(2, 2), devices=[torch.device("cpu")])
+        dist = DistPoissonSolver(Parameter(imax=16, jmax=16, itermax=36),
+                                 mesh).solve()
+        rank_id_blocks(CartComm(ndims=3, dims=(2, 2, 2),
+                                devices=[torch.device("cpu")]), (2, 2, 2))
+        print(it, s.nt, s3.nt, mg[0], fft[0], dist[0])
         print(sorted(m for m in sys.modules
                      if m.startswith("jax") or m.startswith("pampi_tpu")))
     """)
@@ -70,17 +79,22 @@ def test_import_and_solve_load_no_jax():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, cwd=str(ROOT), timeout=120,
                          check=True).stdout.splitlines()
-    assert out[0] == "40 2 2 3 1"
+    assert out[0] == "40 2 2 3 1 36"
     loaded = ast.literal_eval(out[1])
     assert [m for m in loaded if _forbidden(m)] == []
-    for mod in ("sor_kernels", "sor3d_kernels", "ns3d_fused", "mg_fused",
-                "dctpoisson"):
-        assert f"pampi_tpu_torch.ops.{mod}" in loaded
+    for mod in ("ops.sor_kernels", "ops.sor3d_kernels", "ops.ns3d_fused",
+                "ops.mg_fused", "ops.dctpoisson", "ops.sor_qdist",
+                "parallel.comm", "parallel.halo_debug",
+                "parallel.quarters_dist", "parallel.stencil2d"):
+        assert f"pampi_tpu_torch.{mod}" in loaded
 
 
 def test_port_sources_import_no_jax():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    assert {PORT / "parallel" / f"{m}.py" for m in (
+        "comm", "halo_debug", "quarters_dist", "stencil2d")} <= set(files)
+    assert PORT / "models" / "poisson_dist.py" in files
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
@@ -149,6 +163,7 @@ def test_kernel_registry():
         ns3d_fused,
         sor3d_kernels,
         sor_kernels,
+        sor_qdist,
     )
 
     assert set(kb.KERNELS) == {"rb_sor_quarters", "rb_sor_checkerboard",
@@ -156,11 +171,11 @@ def test_kernel_registry():
                                "rb_sor3d_checkerboard", "rb_sor3d_octants",
                                "ns3d_pre", "ns3d_post",
                                "mg_down_2d", "mg_up_2d",
-                               "mg_down_3d", "mg_up_3d"}
+                               "mg_down_3d", "mg_up_3d", "rb_sor_qdist"}
     for k in kb.KERNELS.values():
         assert (ROOT / k.source).is_file()
         path, line = k.replaces.split(":")
         src = (ROOT / path).read_text().splitlines()
         assert "pl.pallas_call(" in src[int(line) - 1], k
     assert kb.sources() == ["mg_cycle", "ns2d_fused", "ns3d_fused",
-                            "sor3d_rb", "sor_rb"]
+                            "sor3d_rb", "sor_qdist", "sor_rb"]

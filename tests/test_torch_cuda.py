@@ -7,9 +7,10 @@ elsewhere; on the card run
 Fields must agree to 1e-12 (float64) / 1e-5 (float32) of their scale: the
 kernels keep the plain versions' association and are built without fma
 contraction, only the r² sums are reduced in another order. The MG cycle
-kernels K9-K12 keep every operation of their plain versions, so they are
-held bitwise; an MG run on the card against the CPU, whose DCT bottom's
-matrix products sum in another order, to 1e-9."""
+kernels K9-K12 and the distributed quarter kernel K13 keep every
+operation of their plain versions, so their fields are held bitwise; an MG
+run on the card against the CPU, whose DCT bottom's matrix products sum in
+another order, to 1e-9."""
 
 import numpy as np
 import pytest
@@ -23,9 +24,13 @@ from pampi_tpu_torch.ops import ns2d_fused as nf
 from pampi_tpu_torch.ops import ns3d_fused as nf3
 from pampi_tpu_torch.ops import sor3d_kernels as sk3
 from pampi_tpu_torch.ops import sor_kernels as sk
+from pampi_tpu_torch.ops import sor_qdist as sq
 from pampi_tpu_torch.ops.sor3d import sor_coefficients_3d
 from pampi_tpu_torch.ops.sor_octants import stack_octants
 from pampi_tpu_torch.ops.sor_quarters import stack_quarters
+from pampi_tpu_torch.models.poisson_dist import DistPoissonSolver
+from pampi_tpu_torch.parallel import quarters_dist as qd
+from pampi_tpu_torch.parallel.comm import CartComm
 from pampi_tpu_torch.utils.params import Parameter
 
 pytestmark = pytest.mark.cuda
@@ -221,3 +226,57 @@ def test_mg_fft_dcavity_on_card_matches_cpu(cuda, solver, monkeypatch):
     for name in ("u", "v", "p"):
         d = (getattr(a, name).cpu() - getattr(b, name)).abs().max()
         assert float(d) <= 1e-9
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("qoffs", [(0, 0), (8, 4), (0, 12), (16, 36)])
+def test_qdist_kernel_matches_plain(cuda, dtype, qoffs):
+    """K13 on random stacked planes of shards at global offsets, walls and
+    ghosts included: planes bitwise, the owned r² to the sum-order
+    tolerance."""
+    g = qd.make_qgeom(64, 96, 32, 24, 3)
+    coef = sk.sor_coefficients(1 / 96, 1 / 64, 1.9)
+    x = _rand((4, g.jq, g.iq), dtype, cuda, 21)
+    f = _rand((4, g.jq, g.iq), dtype, cuda, 22)
+    xk, xp = x.clone(), x.clone()
+    launches = sq.RB_SOR_QDIST.launches
+    for _ in range(2):
+        rk = sq.rb_sor_qdist(xk, f, g, qoffs, *coef)
+        rp = sq.rb_sor_qdist_plain(xp, f, g, qoffs, *coef)
+    assert sq.RB_SOR_QDIST.launches == launches + 2
+    assert torch.equal(xk, xp)
+    assert abs(float(rk) - float(rp)) <= _tol(dtype) * float(rp)
+
+
+def test_dist_poisson_on_card_matches_cpu(cuda):
+    """A 2x2 mesh whose shards share the card against the same mesh on the
+    CPU: the same count, bitwise fields (the r² sums, reduced in another
+    order, decide nothing here: eps is below reach)."""
+    param = Parameter(imax=64, jmax=48, itermax=120, eps=1e-30, omg=1.8)
+    runs = []
+    for device in ("cuda", "cpu"):
+        s = DistPoissonSolver(param, CartComm(ndims=2, dims=(2, 2),
+                                              devices=[torch.device(device)]))
+        runs.append((s.solve()[0], s.full_field()))
+    assert runs[0][0] == runs[1][0] == 120
+    assert np.array_equal(runs[0][1], runs[1][1])
+
+
+@pytest.mark.skipif(torch.cuda.device_count() < 2,
+                    reason="needs two or more cards")
+def test_dist_poisson_across_cards_matches_cpu(cuda):
+    """`tpu_mesh auto` over every visible card (one shard per card, halos
+    copied between cards) against a 2x2 mesh on the CPU: the same count,
+    bitwise fields, and the caller's current card unchanged by the
+    launches on the other cards."""
+    param = Parameter(imax=64, jmax=48, itermax=120, eps=1e-30, omg=1.8)
+    mesh = CartComm(ndims=2)
+    assert mesh.size == torch.cuda.device_count() and not mesh.shared
+    current = torch.cuda.current_device()
+    card = DistPoissonSolver(param, mesh)
+    assert card.solve()[0] == 120
+    assert torch.cuda.current_device() == current
+    cpu = DistPoissonSolver(param, CartComm(ndims=2, dims=mesh.dims,
+                                            devices=[torch.device("cpu")]))
+    assert cpu.solve()[0] == 120
+    assert np.array_equal(card.full_field(), cpu.full_field())

@@ -110,7 +110,8 @@ def test_iteration_count_advances_by_n_inner(n_inner):
 def test_refused_options_name_the_roadmap():
     base = read_parameter(str(CONFIGS / "poisson.par"))
     for kw in (dict(tpu_solver="sor_rba"), dict(tpu_solver="sor_lex"),
-               dict(tpu_dtype="bfloat16"), dict(tpu_mesh="2x2"),
+               dict(tpu_dtype="bfloat16"),
+               dict(tpu_mesh="2x2", tpu_solver="mg"),
                dict(obstacles="0.1,0.1,0.2,0.2")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tpoisson.PoissonSolver(base.replace(**kw), device="cpu")
