@@ -83,9 +83,33 @@ shards of a mesh larger than the card count share the card) adds:
    between card and CPU on 2x2 (1e-12 of scale) and within 1e-9 of the
    single-device one.
 
+The distributed NS-3D slice (a 3-D mesh of shards driven by one process,
+its eight shards on the one card) adds:
+
+2. the per-shard octant kernel K14 against its plain version, float32 and
+   float64, two calls each, on every shard of 32³ on 2x2x2 and of
+   32x48x64 on 1x2x4 (n = 2), volumes required bitwise, and on a 1x1x1
+   mesh against K6 (volume and residual bitwise); K7/K8 in their
+   distributed mode (K7 on a shard's deep block, K8 on its halo-1 blocks)
+   at every shard of 64³ on 2x2x2 with the dcavity3d and canal3d
+   boundary sets (copies and maxima bitwise, the rest to the tolerance);
+3. K14 per shard call at 256³ float32 on 2x2x2 (n = 4) and K7/K8
+   distributed per shard call (a 128³ shard of 256³), beside their bounds;
+4. configs/dcavity3d.par (128³ float32) with tpu_mesh 2x2x2, itermax 100,
+   eps 0, 16 steps after one warm-up through NS3DDistSolver: PRE / solve /
+   POST and the exchanges' share of the step from CUDA events, the fields
+   against NS3DSolver (K6) over the same 17 steps (limit 1e-5 of scale,
+   0.0 expected), and K6 never launched on the path; configs/canal3d.par
+   (200x50x50 float64) on 1x1x4 for 8 steps against one device (1e-9 of
+   scale); dcavity3d 32³ te 1.0 and canal3d 48x16x16 te 0.5 on 2x2x2
+   against tests/fixtures (1e-6, 112 steps for dcavity3d); `python -m
+   pampi_tpu_torch` on dcavity3d 16³ float64 with tpu_mesh 2x2x2 and
+   tpu_vtk sharded, on the card and on the CPU (fields 1e-9).
+
 It then prints the kernels line (JSON; K5-K8 and K11/K12 at 256³, where a
 field outgrows the L2 and the bound is a floor, with their 128³ numbers
-under main_shape_* keys), the card's name and power limit
+under main_shape_* keys and K7/K8's distributed mode under dist_* keys),
+the card's name and power limit
 from nvidia-smi, and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -1544,6 +1568,507 @@ def dist_cli(np):
     return counts
 
 
+# ----------------------------------------------------------------------
+# The distributed NS-3D slice: K14 and the distributed mode of K7/K8
+# ----------------------------------------------------------------------
+
+
+def odist_shards(ext, dims, n):
+    """(geometry, [(koff/2, joff/2, ioff/2) per shard]) of an (kmax, jmax,
+    imax) grid on a dims mesh, the CA depth clamped as the solver clamps
+    it."""
+    from pampi_tpu_torch.parallel import octants_dist as od
+
+    local = tuple(e // d for e, d in zip(ext, dims))
+    g = od.make_ogeom(*ext, *local, od.odist_clamp(n, *local, dims),
+                      dims=dims)
+    offs = [tuple(c * e // 2 for c, e in zip(mesh_coords(s, dims), local))
+            for s in range(dims[0] * dims[1] * dims[2])]
+    return g, offs
+
+
+def mesh_coords(s, dims):
+    k, r = divmod(s, dims[1] * dims[2])
+    j, i = divmod(r, dims[2])
+    return (k, j, i)
+
+
+def check_odist(torch, np, g, qoffs, dtype, seed, calls=2):
+    """K14 and its plain version on copies of random stacked volumes at
+    each shard offset, `calls` calls each (ghosts carried across calls).
+    Returns (volumes bitwise, residual rel_err, max_abs_err)."""
+    from pampi_tpu_torch.ops import sor_odist as so
+    from pampi_tpu_torch.ops.sor3d import sor_coefficients_3d
+
+    coef = sor_coefficients_3d(1.0 / g.imax, 1.0 / g.jmax, 1.0 / g.kmax, 1.8)
+    bitwise, er, err = True, 0.0, 0.0
+    for k, offs in enumerate(qoffs):
+        x, f = rng_fields(torch, np, (8, g.kq, g.jq, g.iq), dtype, 2,
+                          seed + k)
+        xk, xp = x.clone(), x.clone()
+        for _ in range(calls):
+            rk = so.rb_sor_odist(xk, f, g, offs, *coef)
+            rp = so.rb_sor_odist_plain(xp, f, g, offs, *coef)
+        bitwise = bitwise and torch.equal(xk, xp)
+        er = max(er, abs(float(rk) - float(rp)) / abs(float(rp)))
+        err = max(err, float((xk - xp).abs().max()))
+    return bitwise, er, err
+
+
+def step3d_shard(torch, cfg, offs, G, u, v, w, p, dt):
+    """K7 on copies of one shard's deep blocks u, v, w, then K8 on the
+    stripped halo-1 blocks, each against its plain version on the same
+    inputs. Returns (copies and maxima bitwise, F/G/H/rhs and u''/v''/w''
+    max_rel_err, max_abs_err, K7's F/G/H/rhs, the halo-1 u/v/w K8 read)."""
+    from pampi_tpu_torch.ops import ns3d_fused as nf3
+
+    uk, vk, wk = u.clone(), v.clone(), w.clone()
+    fk = nf3.ns3d_pre(uk, vk, wk, dt, cfg, offs, G, 2)
+    pl = nf3.ns3d_pre_plain(u, v, w, dt, cfg, offs, G, 2)
+    exact = all(torch.equal(a, b) for a, b in zip((uk, vk, wk), pl[:3]))
+    strip = (slice(2, -2),) * 3
+    h1 = [a[strip].contiguous() for a in (uk, vk, wk)]
+    post = [a.clone() for a in h1]
+    mk = nf3.ns3d_post(*post, *fk[:3], p, dt, cfg.dx, cfg.dy, cfg.dz, offs, G)
+    mp = nf3.ns3d_post_plain(*(a[strip] for a in pl[:3]), *pl[3:6], p, dt,
+                             cfg.dx, cfg.dy, cfg.dz, offs, G)
+    exact = exact and all(torch.equal(m, a.abs().max())
+                          for m, a in zip(mk, post))
+    pairs = list(zip(fk, pl[3:])) + list(zip(post, mp[:3]))
+    e = max(rel_err(a, b) for a, b in pairs)
+    err = max([float((a - b).abs().max()) for a, b in pairs]
+              + [abs(float(a - b)) for a, b in zip(mk, mp[3:])])
+    return exact, e, err, fk, h1
+
+
+def check_step3d_dist(torch, np, dims, param, dtype, seed):
+    """K7 on every shard's deep block and K8 on its halo-1 blocks of the
+    param's grid on a dims mesh against their plain versions. Returns
+    (copies and maxima bitwise, F/G/H/rhs and u''/v''/w'' max_rel_err,
+    max_abs_err)."""
+    from pampi_tpu_torch.ops import ns3d_fused as nf3
+
+    cfg = nf3.StepConfig3D.from_param(param)
+    G = (param.kmax, param.jmax, param.imax)
+    local = tuple(e // d for e, d in zip(G, dims))
+    exact, e, err = True, 0.0, 0.0
+    dt = torch.tensor(0.013, dtype=dtype, device="cuda")
+    for s in range(dims[0] * dims[1] * dims[2]):
+        offs = tuple(c * n for c, n in zip(mesh_coords(s, dims), local))
+        u, v, w = rng_fields(torch, np, tuple(n + 6 for n in local), dtype,
+                             3, seed + s)
+        (p,) = rng_fields(torch, np, tuple(n + 2 for n in local), dtype, 1,
+                          seed + 100 + s)
+        ex, es, errs, _, _ = step3d_shard(torch, cfg, offs, G, u, v, w, p, dt)
+        exact, e, err = exact and ex, max(e, es), max(err, errs)
+    return exact, e, err
+
+
+def config(name, **kw):
+    """configs/<name> with the given keys replaced."""
+    from pampi_tpu_torch.utils.params import read_parameter
+
+    return read_parameter(os.path.join(ROOT, "configs", name)).replace(**kw)
+
+
+def dist3d_main_configs():
+    """The distributed NS-3D main path's runs as (param, mesh dims):
+    dcavity3d 128³ f32 on 2x2x2 with eps 0 (every solve runs its itermax,
+    25 K14 rounds at n = 4) and canal3d 200x50x50 f64 on 1x1x4 as
+    shipped. The kernel checks take their shapes from here."""
+    return ((config("dcavity3d.par", itermax=100, eps=0.0, te=1e9,
+                    tpu_sor_inner=4), (2, 2, 2)),
+            (config("canal3d.par", te=1e9, tpu_mesh="1x1x4"), (1, 1, 4)))
+
+
+@phase("distributed octant kernel K14 and K7/K8 distributed vs plain")
+def check_dist3d_kernels(torch, np):
+    from pampi_tpu_torch.ops import sor3d_kernels as sk3
+    from pampi_tpu_torch.ops import sor_odist as so
+    from pampi_tpu_torch.ops.sor3d import sor_coefficients_3d
+    from pampi_tpu_torch.parallel import octants_dist as od
+    from pampi_tpu_torch.utils.params import Parameter
+    from pampi_tpu_torch.utils.precision import resolve_dtype
+
+    bad = []
+    dtypes = (torch.float32, torch.float64)
+
+    def label(ext, dims, g):
+        return (f"{'x'.join(map(str, ext))} on {'x'.join(map(str, dims))} "
+                f"(n={g.n}, volumes {(8, g.kq, g.jq, g.iq)}), every shard")
+
+    cases = []
+    for ext, dims in (((32, 32, 32), (2, 2, 2)), ((32, 48, 64), (1, 2, 4))):
+        g, offs = odist_shards(ext, dims, 2)
+        cases += [(label(ext, dims, g), g, offs, dt) for dt in dtypes]
+    # the shard geometries of the distributed main path, in its dtype
+    main = dist3d_main_configs()
+    for param, dims in main:
+        ext = (param.kmax, param.jmax, param.imax)
+        g, offs = odist_shards(
+            ext, dims, max(param.tpu_ca_inner, param.tpu_sor_inner))
+        cases.append((f"{param.name} {label(ext, dims, g)}", g, offs,
+                      resolve_dtype(param.tpu_dtype)))
+    for name, g, offs, dtype in cases:
+        t = tol(torch, dtype)
+        bitwise, er, err = check_odist(torch, np, g, offs, dtype, 81)
+        ok = bitwise and er <= t
+        log(f"rb_sor_odist {dtype} {name}: volumes bitwise {bitwise}, "
+            f"max_abs_err {err:.3e}, residual rel_err {er:.3e} (tol "
+            f"{t:g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            bad.append(f"{name} {dtype}")
+    steps = []
+    for dtype in dtypes:
+        # (1, 1, 1): the shard's volume is K6's stacked octants
+        g = od.make_ogeom(32, 32, 32, 32, 32, 32, 2, dims=(1, 1, 1))
+        coef = sor_coefficients_3d(1 / 32, 1 / 32, 1 / 32, 1.8)
+        x, f = rng_fields(torch, np, (8, g.kq, g.jq, g.iq), dtype, 2, 91)
+        x14, x6 = x.clone(), x.clone()
+        for _ in range(2):
+            r14 = so.rb_sor_odist(x14, f, g, (0, 0, 0), *coef)
+            r6 = sk3.rb_sor3d_octants(x6, f, g.n, *coef)
+        ok = torch.equal(x14, x6) and torch.equal(r14, r6)
+        log(f"rb_sor_odist {dtype} 32³ on 1x1x1 vs rb_sor3d_octants (K6): "
+            f"volume and residual bitwise {ok}")
+        if not ok:
+            bad.append(f"K14 vs K6 {dtype}")
+        for problem, bckw in CASES_3D:
+            steps.append((Parameter(name=problem, imax=64, jmax=64, kmax=64,
+                                    re=100.0, **bckw), (2, 2, 2), dtype))
+    # the main path's shards, with its configs' BCs, in its dtype
+    steps += [(param, dims, resolve_dtype(param.tpu_dtype))
+              for param, dims in main]
+    for param, dims, dtype in steps:
+        t = tol(torch, dtype)
+        exact, e, err = check_step3d_dist(torch, np, dims, param, dtype, 61)
+        ok = exact and e <= t
+        shape = f"{param.imax}x{param.jmax}x{param.kmax}"
+        log(f"ns3d_pre/post distributed {param.name} {dtype} {shape} on "
+            f"{'x'.join(map(str, dims))}, every shard: u', v', w' and maxima"
+            f" bitwise {exact}, max_rel_err {e:.3e}, max_abs_err {err:.3e} "
+            f"(tol {t:g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            bad.append(f"ns3d_pre/post distributed {param.name} {shape} "
+                       f"{dtype}")
+    if bad:
+        raise AssertionError(f"distributed 3-D kernels disagree: {bad}")
+
+
+@phase("K14 and K7/K8 distributed: times at 256³ float32 on 2x2x2")
+def time_dist3d(torch, np):
+    from pampi_tpu_torch.ops import ns3d_fused as nf3
+    from pampi_tpu_torch.ops import sor_odist as so
+    from pampi_tpu_torch.ops.sor3d import sor_coefficients_3d
+    from pampi_tpu_torch.utils.params import Parameter
+
+    dims, size = (2, 2, 2), 4
+    g, qoffs = odist_shards(BIG3, dims, 4)
+    bitwise, er, err = check_odist(torch, np, g, qoffs, torch.float32, 101, 1)
+    ok = bitwise and er <= tol(torch, torch.float32)
+    log(f"rb_sor_odist 256³ f32 on 2x2x2 ({g.kl}³ shards, n={g.n}) vs plain,"
+        f" every shard: volumes bitwise {bitwise}, residual rel_err "
+        f"{er:.3e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("K14 differs from its plain version at 256³")
+    coef = sor_coefficients_3d(1 / BIG3[2], 1 / BIG3[1], 1 / BIG3[0], 1.8)
+    vols = [rng_fields(torch, np, (8, g.kq, g.jq, g.iq), torch.float32, 2,
+                       111 + k) for k in range(8)]
+
+    def shards(fn):
+        return lambda: [fn(x, f, g, o, *coef)
+                        for (x, f), o in zip(vols, qoffs)]
+
+    ms = cuda_ms(torch, shards(so.rb_sor_odist), 20) / 8
+    pms = cuda_ms(torch, shards(so.rb_sor_odist_plain), 2) / 8
+    cells = 8 * g.kq * g.jq * g.iq
+    # per shard call: the volume and its rhs read once, the volume written
+    # once; ~13 flops per cell update
+    b = bound(3 * cells * size, 13 * g.n * g.kl * g.jl * g.il)
+    rows = {"rb_sor_odist": dict(
+        max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1],
+        shape=f"{g.kl}³ shard of 256³ on 2x2x2, n={g.n}")}
+    log(f"rb_sor_odist 256³ f32 on 2x2x2: {ms:.4f} ms per shard call (plain "
+        f"{pms:.4f}, bound {b[0]:.4f} by {b[1]}), the eight shards on one "
+        f"card")
+    del vols
+    # K7 on a deep block, K8 on the halo-1 blocks of the (1, 1, 1) shard
+    # of 256³ on 2x2x2 (interfaces on three sides, walls on the other
+    # three)
+    K, J, I = BIG3
+    param = Parameter(name="dcavity3d", imax=I, jmax=J, kmax=K, re=1000.0)
+    cfg = nf3.StepConfig3D.from_param(param)
+    l = K // 2
+    offs, G = (l, l, l), BIG3
+    u, v, w = rng_fields(torch, np, (l + 6,) * 3, torch.float32, 3, 121)
+    (p,) = rng_fields(torch, np, (l + 2,) * 3, torch.float32, 1, 124)
+    dt = torch.tensor(1e-3, dtype=torch.float32, device="cuda")
+    exact, e, perr, fk, h1 = step3d_shard(torch, cfg, offs, G, u, v, w, p,
+                                          dt)
+    ok = exact and e <= tol(torch, torch.float32)
+    log(f"ns3d_pre/post distributed 256³ f32 on 2x2x2 (the 128³ shard at "
+        f"{offs}) vs plain: u', v', w' and maxima bitwise {exact}, "
+        f"max_rel_err {e:.3e}, max_abs_err {perr:.3e} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("K7/K8 differ from their plain versions at 256³")
+    uk, vk, wk = u.clone(), v.clone(), w.clone()
+    deep, ext = (l + 6) ** 3, (l + 2) ** 3
+    ms = cuda_ms(torch, lambda: nf3.ns3d_pre(uk, vk, wk, dt, cfg, offs, G,
+                                             2), 20)
+    pms = cuda_ms(torch, lambda: nf3.ns3d_pre_plain(u, v, w, dt, cfg, offs,
+                                                    G, 2), 3)
+    # PRE: reads the three deep blocks, writes F, G, H, rhs on the halo-1
+    # block (and the shard's three wall faces of u, v, w, not counted);
+    # ~190 flops a cell
+    bpre = bound((3 * deep + 4 * ext) * size, 190 * l ** 3)
+    qms = cuda_ms(torch, lambda: nf3.ns3d_post(
+        *h1, *fk[:3], p, dt, cfg.dx, cfg.dy, cfg.dz, offs, G), 20)
+    qpms = cuda_ms(torch, lambda: nf3.ns3d_post_plain(
+        *h1, *fk[:3], p, dt, cfg.dx, cfg.dy, cfg.dz, offs, G), 3)
+    # POST: reads F, G, H, p and u, v, w (the maxima), writes u, v, w
+    bpost = bound(10 * ext * size, 15 * l ** 3)
+    rows["ns3d_pre"] = dict(dist_ms=ms, dist_plain_ms=pms,
+                            dist_bound_ms=bpre[0], dist_bound_by=bpre[1],
+                            dist_max_abs_err=perr)
+    rows["ns3d_post"] = dict(dist_ms=qms, dist_plain_ms=qpms,
+                             dist_bound_ms=bpost[0], dist_bound_by=bpost[1],
+                             dist_max_abs_err=perr)
+    log(f"ns3d_pre distributed 256³ f32 on 2x2x2 (one 128³ shard, deep "
+        f"block {l + 6}³): {ms:.4f} ms per shard call (plain {pms:.4f}, "
+        f"bound {bpre[0]:.4f} by {bpre[1]}); ns3d_post distributed: "
+        f"{qms:.4f} ms (plain {qpms:.4f}, bound {bpost[0]:.4f} by "
+        f"{bpost[1]})")
+    return rows
+
+
+@contextlib.contextmanager
+def dist3d_exchange_marks(mark):
+    """Wrap the halo and octant exchanges that models/ns3d_dist.py calls
+    (it looks both up at call time) so that mark() opens "exchange" before
+    each and "compute" after it."""
+    from pampi_tpu_torch.parallel import comm as pc
+    from pampi_tpu_torch.parallel import octants_dist as od
+
+    halo, octs = pc.halo_exchange, od.o_exchange
+
+    def timed(fn):
+        def run(*a, **kw):
+            mark("exchange")
+            out = fn(*a, **kw)
+            mark("compute")
+            return out
+        return run
+
+    pc.halo_exchange, od.o_exchange = timed(halo), timed(octs)
+    try:
+        yield
+    finally:
+        pc.halo_exchange, od.o_exchange = halo, octs
+
+
+@phase("main path: distributed NS-3D configs/dcavity3d.par 128³ on 2x2x2 "
+       "and configs/canal3d.par on 1x1x4")
+def main_path_dist3d(torch):
+    from pampi_tpu_torch.kernels import build as kb
+    from pampi_tpu_torch.models.ns3d import NS3DSolver
+    from pampi_tpu_torch.models.ns3d_dist import NS3DDistSolver
+    from pampi_tpu_torch.parallel.comm import CartComm
+
+    def compare(dist, single):
+        """max |dist - single| over the global fields, and the scale."""
+        gd = dist.global_fields()
+        diff = scale = 0.0
+        for n in "uvwp":
+            ref = getattr(single, n).double().cpu().numpy()
+            diff = max(diff, float(abs(gd[n] - ref).max()))
+            scale = max(scale, float(abs(ref).max()))
+        return diff, max(1.0, scale)
+
+    counts = []
+    (dcavity, _), (canal, canal_dims) = dist3d_main_configs()
+    # One card holds the eight shards of 2x2x2; several cards take the
+    # `auto` mesh, one shard per card.
+    several = torch.cuda.device_count() > 1
+    param = dcavity.replace(tpu_mesh="auto" if several else "2x2x2")
+    s = NS3DDistSolver(param, CartComm(
+        ndims=3, dims=None if several else (2, 2, 2),
+        extents=(param.kmax, param.jmax, param.imax)))
+    s.comm.print_config()
+    out = {}
+
+    def dist():
+        s.run_steps(1)  # warm-up: loads the kernels
+        marks, mark = event_marks(torch)
+        s.phase_hook = mark
+        torch.cuda.synchronize()
+        with dist3d_exchange_marks(mark):
+            t0 = time.perf_counter()
+            s.run_steps(16)
+            torch.cuda.synchronize()
+            out["ms"] = (time.perf_counter() - t0) / 16 * 1e3
+        s.phase_hook = None
+        phases = [m for m in marks if m[0] in PHASES]
+        out.update(span_ms(phases, ("pre", "solve", "post"), 16))
+        out["exchange"] = span_ms(marks, ("exchange",), 16)["exchange"]
+
+    mesh = "x".join(map(str, s.comm.dims))
+    c, _ = drive_path(kb, f"NS-3D dcavity3d {mesh}",
+                      ("rb_sor_odist", "ns3d_pre", "ns3d_post"), dist)
+    counts.append(c)
+    if c["rb_sor3d_octants"] != 0:
+        raise AssertionError("the distributed path launched K6")
+    single = NS3DSolver(param.replace(tpu_mesh="1"), device="cuda")
+    single.run_steps(17)
+    diff, scale = compare(s, single)
+    step = out["pre"] + out["solve"] + out["post"]
+    ok = (s.nt == single.nt == 17 and s.t == single.t
+          and diff <= 1e-5 * scale)
+    log(f"NS-3D dcavity3d 128³ f32 on {mesh} ({s.kl}x{s.jl}x{s.il} shards on "
+        f"{sorted(set(map(str, s.comm.devices)))}, {s._n_o} iterations per "
+        f"exchange): {out['ms']:.3f} ms/step (host clock); PRE "
+        f"{out['pre']:.3f} / solve {out['solve']:.3f} / POST "
+        f"{out['post']:.3f} ms (CUDA events); exchanges {out['exchange']:.3f}"
+        f" ms/step, share {out['exchange'] / step:.3f} of the step; "
+        f"t={s.t:.6e}, single-device t={single.t:.6e}; max |dist - single| "
+        f"{diff:.3e} (limit {1e-5 * scale:.3e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("distributed dcavity3d disagrees with K6")
+    del s, single
+    torch.cuda.empty_cache()
+
+    param = canal
+    s = NS3DDistSolver(param, CartComm(ndims=3, dims=canal_dims))
+
+    def canal():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s.run_steps(8)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / 8 * 1e3
+
+    c, ms = drive_path(kb, "NS-3D canal3d 1x1x4",
+                       ("rb_sor_odist", "ns3d_pre", "ns3d_post"), canal)
+    counts.append(c)
+    single = NS3DSolver(param.replace(tpu_mesh="1"), device="cuda")
+    single.run_steps(8)
+    diff, scale = compare(s, single)
+    ok = s.nt == single.nt == 8 and diff <= 1e-9 * scale
+    log(f"NS-3D canal3d 200x50x50 f64 on 1x1x4 (itermax 500, eps 1e-4): "
+        f"{ms:.3f} ms/step over 8 steps (host clock, first step included), "
+        f"t={s.t:.6e}, single-device t={single.t:.6e}; max |dist - single| "
+        f"{diff:.3e} (limit {1e-9 * scale:.3e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("distributed canal3d disagrees with one device")
+    return counts
+
+
+@phase("distributed NS-3D on 2x2x2 on the card against the reference's VTK")
+def ns3d_dist_vs_fixtures(np):
+    from pampi_tpu_torch.models.ns3d_dist import NS3DDistSolver
+    from pampi_tpu_torch.parallel.comm import CartComm
+    from pampi_tpu_torch.utils.params import read_parameter
+    from pampi_tpu_torch.utils.vtkio import read_vtk_ascii
+
+    fixtures = os.path.join(ROOT, "tests", "fixtures")
+    bad = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for par, kw, fixture, steps in (
+                ("dcavity3d.par", dict(imax=32, jmax=32, kmax=32, te=1.0),
+                 "dcavity3d_32_te1.0.vtk", 112),
+                ("canal3d.par", dict(imax=48, jmax=16, kmax=16, te=0.5),
+                 "canal3d_48x16x16_te0.5.vtk", None)):
+            param = read_parameter(os.path.join(ROOT, "configs", par)).replace(
+                tpu_dtype="float64", tpu_sor_inner=1, **kw)
+            t0 = time.perf_counter()
+            s = NS3DDistSolver(param, CartComm(ndims=3, dims=(2, 2, 2)))
+            s.run(progress=False)
+            out = os.path.join(tmp, "out.vtk")
+            s.write_result(out, fmt="ascii")
+            so, vo = read_vtk_ascii(out)
+            sg, vg = read_vtk_ascii(os.path.join(fixtures, fixture))
+            dp = float(np.abs(so["pressure"] - sg["pressure"]).max())
+            dv = max(float(np.abs(vo["velocity"][c] - vg["velocity"][c]).max())
+                     for c in range(3))
+            ok = dp <= 1e-6 and dv <= 1e-6 and steps in (None, s.nt)
+            log(f"{par} {kw} f64 on 2x2x2 on the card: {s.nt} steps to "
+                f"t={s.t:.6f} in {time.perf_counter() - t0:.1f} s; max "
+                f"|card - {fixture}| pressure {dp:.3e}, velocity {dv:.3e} "
+                f"(tol 1e-6{'' if steps is None else f', {steps} steps'}) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                bad.append(par)
+    if bad:
+        raise AssertionError(f"distributed NS-3D disagrees: {bad}")
+
+
+@phase("main path: python -m pampi_tpu_torch dcavity3d 16³ with tpu_mesh "
+       "2x2x2 and tpu_vtk sharded, card and CPU")
+def dist3d_cli(np):
+    import io
+    import re
+
+    from pampi_tpu_torch import cli
+    from pampi_tpu_torch.kernels import build as kb
+
+    text = open(os.path.join(ROOT, "configs", "dcavity3d.par")).read()
+    for key, val in (("imax", 16), ("jmax", 16), ("kmax", 16), ("te", 0.5),
+                     ("tpu_dtype", "float64"), ("tpu_mesh", "2x2x2")):
+        text = re.sub(rf"^{key} .*$", f"{key} {val}", text, flags=re.M)
+    text += "\ntpu_sor_inner 1\ntpu_vtk sharded\n"
+    files, counts = {}, None
+    with tempfile.TemporaryDirectory() as tmp:
+        for device in ("cuda", "cpu"):
+            d = os.path.join(tmp, device)
+            os.makedirs(d)
+            par = os.path.join(d, "dcavity3d.par")
+            with open(par, "w") as fh:
+                fh.write(text)
+            buf = io.StringIO()
+            cwd = os.getcwd()
+            os.chdir(d)
+
+            def run():
+                with contextlib.redirect_stdout(buf):
+                    return cli.main(["pampi_tpu_torch", "--device", device,
+                                     par])
+            try:
+                t0 = time.perf_counter()
+                if device == "cuda":
+                    counts, rc = drive_path(
+                        kb, "NS-3D dist CLI",
+                        ("rb_sor_odist", "ns3d_pre", "ns3d_post"), run)
+                else:
+                    rc = run()
+                sec = time.perf_counter() - t0
+            finally:
+                os.chdir(cwd)
+            with open(os.path.join(d, "dcavity.vtk"), "rb") as fh:
+                files[device] = fh.read()
+            placed = "8 shards share 1 device(s)" in buf.getvalue()
+            log(f"{device}: rc {rc}, shard placement printed {placed} "
+                f"({sec:.1f} s)")
+            if rc != 0 or not placed:
+                raise AssertionError(f"the {device} CLI run failed")
+    a, b = files["cuda"], files["cpu"]
+    head = a.index(b"LOOKUP_TABLE default\n") + 21
+    n = 16 ** 3
+    same = a[:head] == b[:head] and len(a) == len(b)
+    pa = np.frombuffer(a[head:head + 8 * n], ">f8")
+    pb = np.frombuffer(b[head:head + 8 * n], ">f8")
+    vhead = a.index(b"VECTORS velocity double\n") + 24
+    va = np.frombuffer(a[vhead:vhead + 24 * n], ">f8")
+    vb = np.frombuffer(b[vhead:vhead + 24 * n], ">f8")
+    diff = max(float(abs(pa - pb).max()), float(abs(va - vb).max()))
+    ok = same and diff <= 1e-9
+    log(f"dcavity3d 16³ f64 tpu_mesh 2x2x2 tpu_vtk sharded: headers and "
+        f"lengths equal {same}, max |card - CPU| {diff:.3e} (tol 1e-9, "
+        f"bytes equal {a == b}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the sharded VTK of card and CPU disagree")
+    return counts
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1572,6 +2097,7 @@ def main() -> int:
         check_repeat_solves(torch)
         check_qdist_kernel(torch, np)
         halo_on_card(np)
+        check_dist3d_kernels(torch, np)
     if CHECKS_ONLY:
         log(f"checks only; failed: {FAILED}")
         return 1 if FAILED else 0
@@ -1580,6 +2106,7 @@ def main() -> int:
         rows3 = time_kernels_3d(torch, np)
         mg_rows = time_mg_kernels(torch, np)
         q_rows = time_qdist(torch, np)
+        d3_rows = time_dist3d(torch, np)
         sor_ns2d = {}
         counts = main_path(torch, sor_ns2d)
         counts3 = main_path_3d(torch)
@@ -1590,12 +2117,20 @@ def main() -> int:
         counts_dist = main_path_dist(
             torch, None if q_rows is None else q_rows["rb_sor_qdist"])
         counts_cli = dist_cli(np)
-        if None not in (rows, rows3, mg_rows, q_rows, counts, counts3,
-                        counts_mg, counts_dist, counts_cli):
-            rows = {**rows, **rows3, **mg_rows[0], **q_rows}
+        counts_d3 = main_path_dist3d(torch)
+        ns3d_dist_vs_fixtures(np)
+        counts_d3cli = dist3d_cli(np)
+        if None not in (rows, rows3, mg_rows, q_rows, d3_rows, counts,
+                        counts3, counts_mg, counts_dist, counts_cli,
+                        counts_d3, counts_d3cli):
+            rows = {**rows, **rows3, **mg_rows[0], **q_rows,
+                    "rb_sor_odist": d3_rows["rb_sor_odist"]}
+            for name in ("ns3d_pre", "ns3d_post"):
+                rows[name] = {**rows[name], **d3_rows[name]}
             # each path ran with the counts at 0 before it: a kernel's
             # main-path launches are its sum over the paths
-            paths = counts + counts3 + counts_mg + [counts_dist, counts_cli]
+            paths = (counts + counts3 + counts_mg + counts_d3
+                     + [counts_dist, counts_cli, counts_d3cli])
             counts = {k: sum(c.get(k, 0) for c in paths)
                       for k in set().union(*paths)}
             print(json.dumps({"library": mg_rows[1]}))

@@ -8,17 +8,21 @@ the `name` key selects, write the outputs and print the wall time.
                         several cards) the distributed red-black solve
   dcavity/canal      -> NS-2D time stepper (pressure.dat, velocity.dat)
   dcavity3d/canal3d  -> NS-3D time stepper (dcavity.vtk / canal.vtk, in
-                        the `tpu_vtk` format, ascii or binary)
+                        the `tpu_vtk` format: ascii, binary, or sharded,
+                        the binary file written slab by slab on a mesh);
+                        on a mesh (`tpu_mesh PKxPJxPI`, or `auto` with
+                        several cards) the distributed time stepper
 
 Every problem takes `tpu_solver sor|mg|fft|auto` (auto resolves to fft on
 these plain grids).
 
 `tpu_mesh` follows the JAX package: `auto` is one shard per visible card
-(the single-device path on one card), `PJxPI` a mesh of that shape, whose
-shards share the cards when they outnumber them (parallel/comm.py). The
-distributed layer runs Poisson under `tpu_solver sor`. NS and mg/fft on
-an explicit mesh exit with an error naming ROADMAP A.8; under `auto` with
-several cards they run on one card, with a note.
+(the single-device path on one card), an explicit mesh one of that shape,
+whose shards share the cards when they outnumber them (parallel/comm.py).
+The distributed layer runs Poisson and NS-3D under `tpu_solver sor` and
+prints the shard placement. NS-2D, mg/fft and a mesh that does not divide
+an NS-3D grid exit with an error naming ROADMAP A.8 on an explicit mesh;
+under `auto` with several cards they run on one card, with a note.
 
     python -m pampi_tpu_torch --halo-test [2|3] [--mesh PJxPI] [--device cpu]
 
@@ -83,9 +87,9 @@ def main(argv=None) -> int:
         return 1
 
 
-def _make_comm(param: Parameter, devices):
-    """`tpu_mesh` -> a 2-D CartComm over the visible devices, or None for
-    the single-device path (pampi_tpu/cli.py _make_comm)."""
+def _make_comm(param: Parameter, devices, ndims: int = 2):
+    """`tpu_mesh` -> an `ndims`-D CartComm over the visible devices, or
+    None for the single-device path (pampi_tpu/cli.py _make_comm)."""
     from .utils.dispatch import mesh_dims, mesh_is_single
 
     if mesh_is_single(param.tpu_mesh, len(devices)):
@@ -93,8 +97,10 @@ def _make_comm(param: Parameter, devices):
     from .parallel.comm import CartComm
 
     # the grid's extents make `auto` prefer factorizations the grid divides
-    return CartComm(ndims=2, dims=mesh_dims(param.tpu_mesh), devices=devices,
-                    extents=(param.jmax, param.imax),
+    extents = ((param.kmax, param.jmax, param.imax) if ndims == 3
+               else (param.jmax, param.imax))
+    return CartComm(ndims=ndims, dims=mesh_dims(param.tpu_mesh),
+                    devices=devices, extents=extents,
                     tiers=param.tpu_mesh_tiers)
 
 
@@ -134,18 +140,30 @@ def _dispatch(param: Parameter, device: str) -> int:
         print("Walltime %.2fs" % (end - start))
         return 0
     if param.name in ("dcavity", "canal", "dcavity3d", "canal3d"):
-        from .utils.dispatch import mesh_is_single
-
-        if not mesh_is_single(param.tpu_mesh, len(visible_devices(device))):
-            _auto_single(param, NotImplementedError(
-                f"tpu_mesh {param.tpu_mesh}: the distributed {param.name} "
-                "solver is not yet ported (ROADMAP A.8)"))
         three_d = is_3d_config(param)
+        solver = None
         if three_d:
-            from .models.ns3d import NS3DSolver
+            comm = _make_comm(param, visible_devices(device), ndims=3)
+            if comm is not None:
+                from .models.ns3d_dist import NS3DDistSolver
 
-            solver = NS3DSolver(param, device=device)
+                try:
+                    solver = NS3DDistSolver(param, comm)
+                    comm.print_config()
+                except NotImplementedError as exc:
+                    _auto_single(param, exc)
+            if solver is None:
+                from .models.ns3d import NS3DSolver
+
+                solver = NS3DSolver(param, device=device)
         else:
+            from .utils.dispatch import mesh_is_single
+
+            if not mesh_is_single(param.tpu_mesh,
+                                  len(visible_devices(device))):
+                _auto_single(param, NotImplementedError(
+                    f"tpu_mesh {param.tpu_mesh}: the distributed "
+                    f"{param.name} solver is not yet ported (ROADMAP A.8)"))
             from .models.ns2d import NS2DSolver
 
             solver = NS2DSolver(param, device=device)
@@ -153,10 +171,14 @@ def _dispatch(param: Parameter, device: str) -> int:
         solver.run()
         end = get_timestamp()
         print("Solution took %.2fs" % (end - start))
-        if three_d:
-            solver.write_result(fmt=param.tpu_vtk)
-        else:
+        if not three_d:
             solver.write_result("pressure.dat", "velocity.dat")
+        elif param.tpu_vtk != "sharded":
+            solver.write_result(fmt=param.tpu_vtk)
+        elif hasattr(solver, "write_result_sharded"):
+            solver.write_result_sharded()
+        else:  # one device: the binary writer gives the same bytes
+            solver.write_result(fmt="binary")
         return 0
     if param.name in _NOT_PORTED:
         raise NotImplementedError(

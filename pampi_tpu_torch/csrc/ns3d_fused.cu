@@ -1,5 +1,5 @@
 // NS-3D step phases for Hopper (sm_90a): the port's PRE and POST kernels,
-// single device, no obstacles.
+// on one device and on the shards of a mesh, no obstacles.
 //
 // ns3d_pre (K7) replaces pampi_tpu/ops/ns3d_fused.py _pre3_kernel
 //   (make_fused_pre_3d): (u, v, w, dt) -> (u', v', w', F, G, H, rhs) = the
@@ -9,6 +9,16 @@
 //   (make_fused_post_3d): the projection on the interiors of u, v, w, then
 //   max|u|, |v|, |w| over the FULL ghosted arrays (the reference maxElement
 //   quirk) for the next step's CFL dt.
+//
+// Both take the block's place in the global grid, as the TPU kernels take
+// it by scalar prefetch: every write is gated by the GLOBAL index. On one
+// device the block is the whole (K+2, J+2, I+2) array at offset 0. On a
+// shard of a mesh (the distributed mode, models/ns3d_dist.py) PRE runs on
+// the deep block of the shard, ext_pad = 2 ghost layers more per side than
+// the halo-1 block (local index a is global a - ext_pad + offset), applies
+// the BCs in place where the global walls cross it, and writes F, G, H and
+// rhs on the shard's halo-1 block (l+2 per axis); POST runs on the halo-1
+// blocks at the shard's offsets and returns the shard's maxima.
 //
 // What bounds them on the H100: memory bandwidth. PRE reads u, v, w and
 // writes F, G, H, rhs plus the ghost planes of u, v, w (in place); POST
@@ -24,26 +34,33 @@
 //        (front, back) together with the special BC. Later faces read
 //        earlier faces' writes: every face writes the normal component on
 //        its wall plane and the tangential ghosts on its ghost plane, all
-//        tangentially clipped to the interior, so the write sets are
-//        disjoint, and the only writes another face reads are the normal
-//        components on the HI walls (index max, inside the others'
-//        tangential ranges): top's v(., J, .) is read by the i and k faces,
-//        right's u(., ., I) by the k faces and, as the OLD value, by the j
-//        faces; back's w(K, ., .) is read, old, by the j and i faces. The
-//        two faces of one axis read and write disjoint planes when the
-//        axis has at least 2 interior cells (the wrapper requires it). So
-//        these three launches reproduce the six ordered faces exactly. The
-//        special BC writes u(., J+1, .) (lid, after top) or u(., ., 0)
-//        (inflow, after left), which the k faces neither read nor write.
-//   4.   F, G and H for every cell of the ghosted array, wall fixups
-//        included.
-//   5.   rhs, which reads F(i-1), G(j-1), H(k-1) of neighbouring blocks.
+//        tangentially clipped to the global interior, so the write sets
+//        are disjoint, and the only writes another face reads are the
+//        normal components on the HI walls (global index max, inside the
+//        others' tangential ranges): top's v(., J, .) is read by the i and
+//        k faces, right's u(., ., I) by the k faces and, as the OLD value,
+//        by the j faces; back's w(K, ., .) is read, old, by the j and i
+//        faces. The two faces of one axis read and write disjoint planes
+//        when the axis has at least 2 interior cells (the wrapper requires
+//        it). So these three launches reproduce the six ordered faces
+//        exactly. The argument is about global planes; on a deep block a
+//        face writes the part of its planes that the block holds, and its
+//        inward read (one plane towards the interior) then lies in the
+//        block too. The special BC writes u(., J+1, .) (lid, after top) or
+//        u(., ., 0) (inflow, after left), which the k faces neither read
+//        nor write.
+//   4.   F, G and H for every cell of the halo-1 block, wall fixups
+//        included; a global-interior cell reads its neighbours in the
+//        input block (on a deep block they lie inside it).
+//   5.   rhs on the owned global-interior cells, which reads F(i-1),
+//        G(j-1), H(k-1) of neighbouring blocks.
 // POST is one launch (the projection reads only p neighbours, so u, v, w
-// update in place) that also writes per-block partial maxima, and a
-// one-block launch that reduces them. max is exact in any order, so the
-// maxima equal the plain version's bitwise; NaN propagates as in
-// torch.max. dt stays on the device (a pointer), so no launch waits for
-// the host.
+// update in place; on a shard p is read as 0 beyond the block's high edge,
+// where an interface ghost of the TPU kernel reads its zero padding) that
+// also writes per-block partial maxima, and a one-block launch that
+// reduces them. max is exact in any order, so the maxima equal the plain
+// version's bitwise; NaN propagates as in torch.max. dt stays on the
+// device (a pointer), so no launch waits for the host.
 //
 // Every formula keeps the association of pampi_tpu/ops/ns3d.py term for
 // term; scalar coefficients are formed in double on the host exactly where
@@ -64,104 +81,148 @@ struct Bcs {
   int top, bottom, left, right, front, back;
 };
 
+// a block of the global grid: its extents, the global extended index of
+// its local index 0, and the global interior extents; axes (k, j, i)
+struct Blk {
+  int L[3];
+  int base[3];
+  int G[3];
+};
+
 template <typename T>
 struct Coef {
   T idx4, gidx4, idy4, gidy4, idz4, gidz4, idx2, idy2, idz2, inv_re, gx, gy,
       gz;
 };
 
-// the BC of one face at one tangential position: `wall`/`wall_in` index the
-// normal component n, `ghost`/`ghost_in` the tangential components t1, t2
+__device__ __forceinline__ bool in_range(int a, int n) {
+  return a >= 0 && a < n;
+}
+
+// the BC of one face at one tangential position `b` (the offset of the
+// position in the face's plane), planes `stride` apart along the normal:
+// the normal component n on the wall plane aw (read from aw_in), the
+// tangential components t1, t2 on the ghost plane ag (read from ag_in); a
+// plane the block does not hold is not written
 template <typename T>
-__device__ __forceinline__ void face(int kind, T* n, T* t1, T* t2,
-                                     size_t wall, size_t wall_in,
-                                     size_t ghost, size_t ghost_in) {
-  if (kind == NOSLIP) {
-    n[wall] = T(0);
-    t1[ghost] = -t1[ghost_in];
-    t2[ghost] = -t2[ghost_in];
-  } else if (kind == SLIP) {
-    n[wall] = T(0);
-    t1[ghost] = t1[ghost_in];
-    t2[ghost] = t2[ghost_in];
-  } else if (kind == OUTFLOW) {
-    n[wall] = n[wall_in];
-    t1[ghost] = t1[ghost_in];
-    t2[ghost] = t2[ghost_in];
+__device__ __forceinline__ void face(int kind, T* n, T* t1, T* t2, size_t b,
+                                     size_t stride, int L, int aw, int aw_in,
+                                     int ag, int ag_in) {
+  if (kind != NOSLIP && kind != SLIP && kind != OUTFLOW) return;
+  if (in_range(aw, L)) {
+    const size_t w = b + aw * stride;
+    n[w] = kind == OUTFLOW ? n[b + aw_in * stride] : T(0);
+  }
+  if (in_range(ag, L)) {
+    const size_t g = b + ag * stride, gi = b + ag_in * stride;
+    if (kind == NOSLIP) {
+      t1[g] = -t1[gi];
+      t2[g] = -t2[gi];
+    } else {
+      t1[g] = t1[gi];
+      t2[g] = t2[gi];
+    }
   }
 }
 
-// launch 1: top (z = 0) and bottom (z = 1) at (k, i) = 1 + (y, x)
-template <typename T>
-__global__ void bc_jfaces(T* u, T* v, T* w, int K, int J, int I, Bcs bc) {
-  const int k = 1 + blockIdx.y * BY + threadIdx.y;
-  const int i = 1 + blockIdx.x * BX + threadIdx.x;
-  if (k > K || i > I) return;
-  const size_t W = I + 2, P = (size_t)(J + 2) * W;
-  const size_t base = k * P + i;
-  if (blockIdx.z == 0)  // top: v on the wall j = J, ghosts at J+1
-    face(bc.top, v, u, w, base + J * W, base + (J - 1) * W,
-         base + (J + 1) * W, base + J * W);
-  else  // bottom: v on the wall j = 0, ghosts at 0
-    face(bc.bottom, v, u, w, base, base + W, base, base + W);
+// the wall faces of one axis: lo (z = 0 of the pair) at global 0, hi at
+// global G (wall) and G+1 (ghost); (a, b) are the local tangential indices
+__device__ __forceinline__ bool tangential(const Blk& k, int ax1, int a,
+                                           int ax2, int b) {
+  if (a >= k.L[ax1] || b >= k.L[ax2]) return false;
+  const int g1 = a + k.base[ax1], g2 = b + k.base[ax2];
+  return g1 >= 1 && g1 <= k.G[ax1] && g2 >= 1 && g2 <= k.G[ax2];
 }
 
-// launch 2: left (z = 0) and right (z = 1) at (k, j) = 1 + (y, x)
+// launch 1: top (z = 0) and bottom (z = 1) at local (k, i) = (y, x)
 template <typename T>
-__global__ void bc_ifaces(T* u, T* v, T* w, int K, int J, int I, Bcs bc) {
-  const int k = 1 + blockIdx.y * BY + threadIdx.y;
-  const int j = 1 + blockIdx.x * BX + threadIdx.x;
-  if (k > K || j > J) return;
-  const size_t W = I + 2, P = (size_t)(J + 2) * W;
-  const size_t base = k * P + j * W;
-  if (blockIdx.z == 0)  // left: u on the wall i = 0, ghosts at 0
-    face(bc.left, u, v, w, base, base + 1, base, base + 1);
-  else  // right: u on the wall i = I, ghosts at I+1
-    face(bc.right, u, v, w, base + I, base + I - 1, base + I + 1, base + I);
+__global__ void bc_jfaces(T* u, T* v, T* w, Blk k, Bcs bc) {
+  const int a = blockIdx.y * BY + threadIdx.y;
+  const int b = blockIdx.x * BX + threadIdx.x;
+  if (!tangential(k, 0, a, 2, b)) return;
+  const size_t W = k.L[2], P = (size_t)k.L[1] * W;
+  const size_t base = a * P + b;
+  if (blockIdx.z == 0) {  // top: v on the wall j = J, ghosts at J+1
+    const int aw = k.G[1] - k.base[1];
+    face(bc.top, v, u, w, base, W, k.L[1], aw, aw - 1, aw + 1, aw);
+  } else {  // bottom: v on the wall j = 0, ghosts at 0
+    const int aw = -k.base[1];
+    face(bc.bottom, v, u, w, base, W, k.L[1], aw, aw + 1, aw, aw + 1);
+  }
 }
 
-// launch 3: front (z = 0) and back (z = 1) at (j, i) = 1 + (y, x), and the
-// special BC (z = 2): the dcavity lid at (k, i) = 1 + (y, x), skipping the
-// last interior k and i, or the canal inflow at (k, j) = 1 + (y, x)
+// launch 2: left (z = 0) and right (z = 1) at local (k, j) = (y, x)
 template <typename T>
-__global__ void bc_kfaces_special(T* u, T* v, T* w, int K, int J, int I,
-                                  Bcs bc, int problem) {
-  const int a = 1 + blockIdx.y * BY + threadIdx.y;
-  const int b = 1 + blockIdx.x * BX + threadIdx.x;
-  const size_t W = I + 2, P = (size_t)(J + 2) * W;
+__global__ void bc_ifaces(T* u, T* v, T* w, Blk k, Bcs bc) {
+  const int a = blockIdx.y * BY + threadIdx.y;
+  const int b = blockIdx.x * BX + threadIdx.x;
+  if (!tangential(k, 0, a, 1, b)) return;
+  const size_t W = k.L[2], P = (size_t)k.L[1] * W;
+  const size_t base = a * P + b * W;
+  if (blockIdx.z == 0) {  // left: u on the wall i = 0, ghosts at 0
+    const int aw = -k.base[2];
+    face(bc.left, u, v, w, base, 1, k.L[2], aw, aw + 1, aw, aw + 1);
+  } else {  // right: u on the wall i = I, ghosts at I+1
+    const int aw = k.G[2] - k.base[2];
+    face(bc.right, u, v, w, base, 1, k.L[2], aw, aw - 1, aw + 1, aw);
+  }
+}
+
+// launch 3: front (z = 0) and back (z = 1) at local (j, i) = (y, x), and
+// the special BC (z = 2): the dcavity lid at local (k, i) = (y, x),
+// skipping the last interior k and i, or the canal inflow at (k, j)
+template <typename T>
+__global__ void bc_kfaces_special(T* u, T* v, T* w, Blk k, Bcs bc,
+                                  int problem) {
+  const int a = blockIdx.y * BY + threadIdx.y;
+  const int b = blockIdx.x * BX + threadIdx.x;
+  const size_t W = k.L[2], P = (size_t)k.L[1] * W;
   if (blockIdx.z < 2) {
-    if (a > J || b > I) return;
+    if (!tangential(k, 1, a, 2, b)) return;
     const size_t base = a * W + b;
-    if (blockIdx.z == 0)  // front: w on the wall k = 0, ghosts at 0
-      face(bc.front, w, u, v, base, base + P, base, base + P);
-    else  // back: w on the wall k = K, ghosts at K+1
-      face(bc.back, w, u, v, base + K * P, base + (K - 1) * P,
-           base + (K + 1) * P, base + K * P);
+    if (blockIdx.z == 0) {  // front: w on the wall k = 0, ghosts at 0
+      const int aw = -k.base[0];
+      face(bc.front, w, u, v, base, P, k.L[0], aw, aw + 1, aw, aw + 1);
+    } else {  // back: w on the wall k = K, ghosts at K+1
+      const int aw = k.G[0] - k.base[0];
+      face(bc.back, w, u, v, base, P, k.L[0], aw, aw - 1, aw + 1, aw);
+    }
   } else if (problem == DCAVITY) {
-    if (a > K - 1 || b > I - 1) return;
-    const size_t x = a * P + (size_t)J * W + b;
-    u[x + W] = T(2) - u[x];
+    if (a >= k.L[0] || b >= k.L[2]) return;
+    const int gk = a + k.base[0], gi = b + k.base[2];
+    if (gk < 1 || gk > k.G[0] - 1 || gi < 1 || gi > k.G[2] - 1) return;
+    const int aj = k.G[1] + 1 - k.base[1];  // the lid's ghost plane J+1
+    if (!in_range(aj, k.L[1])) return;
+    const size_t x = a * P + (size_t)aj * W + b;
+    u[x] = T(2) - u[x - W];
   } else if (problem == CANAL) {
-    if (a > K || b > J) return;
-    u[a * P + b * W] = T(2);
+    if (a >= k.L[0] || b >= k.L[1]) return;
+    const int gk = a + k.base[0], gj = b + k.base[1];
+    if (gk < 1 || gk > k.G[0] || gj < 1 || gj > k.G[1]) return;
+    const int ai = -k.base[2];  // the inflow plane i = 0
+    if (!in_range(ai, k.L[2])) return;
+    u[a * P + b * W + ai] = T(2);
   }
 }
 
-// launch 4: F, G, H for every cell of the ghosted array
+// launch 4: F, G, H for every cell of the output block o (the halo-1
+// block, `e` cells inside the input block k on every side)
 template <typename T>
 __global__ void fgh_cells(const T* __restrict__ u, const T* __restrict__ v,
                           const T* __restrict__ w, const T* __restrict__ dtp,
                           T* __restrict__ f, T* __restrict__ g,
-                          T* __restrict__ h, int K, int J, int I, Coef<T> c) {
-  const int i = blockIdx.x * BX + threadIdx.x;
-  const int j = blockIdx.y * BY + threadIdx.y;
-  const int k = blockIdx.z;
-  if (i > I + 1 || j > J + 1) return;
-  const size_t W = I + 2, P = (size_t)(J + 2) * W;
-  const size_t x = k * P + j * W + i;
-  const bool in_i = i >= 1 && i <= I;
-  const bool in_j = j >= 1 && j <= J;
-  const bool in_k = k >= 1 && k <= K;
+                          T* __restrict__ h, Blk k, Blk o, int e,
+                          Coef<T> c) {
+  const int oi = blockIdx.x * BX + threadIdx.x;
+  const int oj = blockIdx.y * BY + threadIdx.y;
+  const int ok = blockIdx.z;
+  if (oi >= o.L[2] || oj >= o.L[1]) return;
+  const size_t W = k.L[2], P = (size_t)k.L[1] * W;
+  const size_t x = (size_t)(ok + e) * P + (size_t)(oj + e) * W + (oi + e);
+  const int gi = oi + o.base[2], gj = oj + o.base[1], gk = ok + o.base[0];
+  const bool in_i = gi >= 1 && gi <= o.G[2];
+  const bool in_j = gj >= 1 && gj <= o.G[1];
+  const bool in_k = gk >= 1 && gk <= o.G[0];
   T fv = T(0), gv = T(0), hv = T(0);
   if (in_i && in_j && in_k) {
     const T dt = *dtp;
@@ -228,29 +289,33 @@ __global__ void fgh_cells(const T* __restrict__ u, const T* __restrict__ v,
     hv = wc + dt * (c.inv_re * lap_w - duwdx - dvwdy - dw2dz + c.gz);
   }
   // wall fixups: F carries U on the i walls, G V on the j walls, H W on the
-  // k walls (tangentially the interior)
-  if (in_j && in_k && (i == 0 || i == I)) fv = u[x];
-  if (in_i && in_k && (j == 0 || j == J)) gv = v[x];
-  if (in_i && in_j && (k == 0 || k == K)) hv = w[x];
-  f[x] = fv;
-  g[x] = gv;
-  h[x] = hv;
+  // k walls (tangentially the global interior)
+  if (in_j && in_k && (gi == 0 || gi == o.G[2])) fv = u[x];
+  if (in_i && in_k && (gj == 0 || gj == o.G[1])) gv = v[x];
+  if (in_i && in_j && (gk == 0 || gk == o.G[0])) hv = w[x];
+  const size_t y = ((size_t)ok * o.L[1] + oj) * o.L[2] + oi;
+  f[y] = fv;
+  g[y] = gv;
+  h[y] = hv;
 }
 
-// launch 5: rhs = div(F, G, H)/dt on the interior, zero elsewhere
+// launch 5: rhs = div(F, G, H)/dt on the owned global-interior cells of the
+// output block, zero elsewhere
 template <typename T>
 __global__ void rhs_cells(const T* __restrict__ f, const T* __restrict__ g,
                           const T* __restrict__ h, const T* __restrict__ dtp,
-                          T* __restrict__ rhs, int K, int J, int I, T dx,
-                          T dy, T dz) {
+                          T* __restrict__ rhs, Blk o, T dx, T dy, T dz) {
   const int i = blockIdx.x * BX + threadIdx.x;
   const int j = blockIdx.y * BY + threadIdx.y;
   const int k = blockIdx.z;
-  if (i > I + 1 || j > J + 1) return;
-  const size_t W = I + 2, P = (size_t)(J + 2) * W;
+  if (i >= o.L[2] || j >= o.L[1]) return;
+  const size_t W = o.L[2], P = (size_t)o.L[1] * W;
   const size_t x = k * P + j * W + i;
+  const int gi = i + o.base[2], gj = j + o.base[1], gk = k + o.base[0];
   T r = T(0);
-  if (i >= 1 && i <= I && j >= 1 && j <= J && k >= 1 && k <= K) {
+  if (i >= 1 && i <= o.L[2] - 2 && j >= 1 && j <= o.L[1] - 2 && k >= 1 &&
+      k <= o.L[0] - 2 && gi >= 1 && gi <= o.G[2] && gj >= 1 &&
+      gj <= o.G[1] && gk >= 1 && gk <= o.G[0]) {
     const T inv_dt = T(1) / *dtp;
     r = ((f[x] - f[x - 1]) / dx + (g[x] - g[x - W]) / dy +
          (h[x] - h[x - P]) / dz) *
@@ -269,7 +334,7 @@ __global__ void adapt_cells(T* __restrict__ u, T* __restrict__ v,
                             T* __restrict__ w, const T* __restrict__ f,
                             const T* __restrict__ g, const T* __restrict__ h,
                             const T* __restrict__ p, const T* __restrict__ dtp,
-                            int K, int J, int I, T dx, T dy, T dz,
+                            Blk o, T dx, T dy, T dz,
                             T* __restrict__ partial) {
   __shared__ T shu[NT];
   __shared__ T shv[NT];
@@ -279,16 +344,22 @@ __global__ void adapt_cells(T* __restrict__ u, T* __restrict__ v,
   const int k = blockIdx.z;
   const int tid = threadIdx.y * BX + threadIdx.x;
   T au = T(0), av = T(0), aw = T(0);
-  if (i <= I + 1 && j <= J + 1) {
-    const size_t W = I + 2, P = (size_t)(J + 2) * W;
+  if (i < o.L[2] && j < o.L[1]) {
+    const size_t W = o.L[2], P = (size_t)o.L[1] * W;
     const size_t x = k * P + j * W + i;
+    const int gi = i + o.base[2], gj = j + o.base[1], gk = k + o.base[0];
     T uu, vv, ww;
-    if (i >= 1 && i <= I && j >= 1 && j <= J && k >= 1 && k <= K) {
+    if (gi >= 1 && gi <= o.G[2] && gj >= 1 && gj <= o.G[1] && gk >= 1 &&
+        gk <= o.G[0]) {
       const T dt = *dtp;
       const T pc = p[x];
-      uu = f[x] - (p[x + 1] - pc) * (dt / dx);
-      vv = g[x] - (p[x + W] - pc) * (dt / dy);
-      ww = h[x] - (p[x + P] - pc) * (dt / dz);
+      // beyond the block's high edge (an interface ghost) p reads as 0
+      const T pi = i + 1 < o.L[2] ? p[x + 1] : T(0);
+      const T pj = j + 1 < o.L[1] ? p[x + W] : T(0);
+      const T pk = k + 1 < o.L[0] ? p[x + P] : T(0);
+      uu = f[x] - (pi - pc) * (dt / dx);
+      vv = g[x] - (pj - pc) * (dt / dy);
+      ww = h[x] - (pk - pc) * (dt / dz);
       u[x] = uu;
       v[x] = vv;
       w[x] = ww;
@@ -342,52 +413,76 @@ __global__ void max_partials(const T* __restrict__ partial, int nb,
     for (int q = 0; q < 3; ++q) out[q] = sh[q][0];
 }
 
-dim3 cell_grid(int K, int J, int I) {
-  return dim3((I + 2 + BX - 1) / BX, (J + 2 + BY - 1) / BY, K + 2);
+// the halo-1 block of local interior extents l at global offsets off
+Blk halo1(const int* l, const int* off, const int* G) {
+  Blk b;
+  for (int a = 0; a < 3; ++a) {
+    b.L[a] = l[a] + 2;
+    b.base[a] = off[a];
+    b.G[a] = G[a];
+  }
+  return b;
+}
+
+dim3 cell_grid(const Blk& o) {
+  return dim3((o.L[2] + BX - 1) / BX, (o.L[1] + BY - 1) / BY, o.L[0]);
 }
 
 int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
+int max2(int a, int b) { return a > b ? a : b; }
+
+// geo = [ext_pad, koff, joff, ioff, K, J, I]; l = the local interior
+// extents (lk, lj, li) of the halo-1 output block
 template <typename T>
 int run_pre(int dev, T* u, T* v, T* w, const T* dt, T* f, T* g, T* h, T* rhs,
-            int K, int J, int I, const int* bc, int problem, const double* c,
-            void* stream) {
+            const int* l, const int* geo, const int* bc, int problem,
+            const double* c, void* stream) {
   cudaError_t e = cudaSetDevice(dev);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = (cudaStream_t)stream;
+  const int ep = geo[0];
+  const Blk o = halo1(l, geo + 1, geo + 4);
+  Blk k = o;  // the input block: ep more ghost layers per side
+  for (int a = 0; a < 3; ++a) {
+    k.L[a] = o.L[a] + 2 * ep;
+    k.base[a] = o.base[a] - ep;
+  }
   const Bcs b{bc[0], bc[1], bc[2], bc[3], bc[4], bc[5]};
   const dim3 blk(BX, BY);
-  bc_jfaces<T><<<dim3(ceil_div(I, BX), ceil_div(K, BY), 2), blk, 0, st>>>(
-      u, v, w, K, J, I, b);
-  bc_ifaces<T><<<dim3(ceil_div(J, BX), ceil_div(K, BY), 2), blk, 0, st>>>(
-      u, v, w, K, J, I, b);
-  const int xa = I > J ? I : J, ya = J > K ? J : K;
+  bc_jfaces<T><<<dim3(ceil_div(k.L[2], BX), ceil_div(k.L[0], BY), 2), blk, 0,
+                 st>>>(u, v, w, k, b);
+  bc_ifaces<T><<<dim3(ceil_div(k.L[1], BX), ceil_div(k.L[0], BY), 2), blk, 0,
+                 st>>>(u, v, w, k, b);
+  const int xa = max2(k.L[2], k.L[1]), ya = max2(k.L[1], k.L[0]);
   bc_kfaces_special<T><<<dim3(ceil_div(xa, BX), ceil_div(ya, BY), 3), blk, 0,
-                         st>>>(u, v, w, K, J, I, b, problem);
+                         st>>>(u, v, w, k, b, problem);
   // c = [idx*0.25, gamma*idx*0.25, idy*0.25, gamma*idy*0.25, idz*0.25,
   //      gamma*idz*0.25, idx*idx, idy*idy, idz*idz, 1/re, gx, gy, gz,
   //      dx, dy, dz]
-  const Coef<T> k{T(c[0]), T(c[1]), T(c[2]),  T(c[3]),  T(c[4]),
-                  T(c[5]), T(c[6]), T(c[7]),  T(c[8]),  T(c[9]),
-                  T(c[10]), T(c[11]), T(c[12])};
-  const dim3 grd = cell_grid(K, J, I);
-  fgh_cells<T><<<grd, blk, 0, st>>>(u, v, w, dt, f, g, h, K, J, I, k);
-  rhs_cells<T><<<grd, blk, 0, st>>>(f, g, h, dt, rhs, K, J, I, T(c[13]),
-                                    T(c[14]), T(c[15]));
+  const Coef<T> cf{T(c[0]), T(c[1]), T(c[2]),  T(c[3]),  T(c[4]),
+                   T(c[5]), T(c[6]), T(c[7]),  T(c[8]),  T(c[9]),
+                   T(c[10]), T(c[11]), T(c[12])};
+  const dim3 grd = cell_grid(o);
+  fgh_cells<T><<<grd, blk, 0, st>>>(u, v, w, dt, f, g, h, k, o, ep, cf);
+  rhs_cells<T><<<grd, blk, 0, st>>>(f, g, h, dt, rhs, o, T(c[13]), T(c[14]),
+                                    T(c[15]));
   return (int)cudaGetLastError();
 }
 
+// geo = [koff, joff, ioff, K, J, I]
 template <typename T>
 int run_post(int dev, T* u, T* v, T* w, const T* f, const T* g, const T* h,
-             const T* p, const T* dt, int K, int J, int I, double dx,
-             double dy, double dz, T* partial, T* out, void* stream) {
+             const T* p, const T* dt, const int* l, const int* geo,
+             double dx, double dy, double dz, T* partial, T* out,
+             void* stream) {
   cudaError_t e = cudaSetDevice(dev);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = (cudaStream_t)stream;
-  const dim3 grd = cell_grid(K, J, I);
-  adapt_cells<T><<<grd, dim3(BX, BY), 0, st>>>(u, v, w, f, g, h, p, dt, K, J,
-                                               I, T(dx), T(dy), T(dz),
-                                               partial);
+  const Blk o = halo1(l, geo, geo + 3);
+  const dim3 grd = cell_grid(o);
+  adapt_cells<T><<<grd, dim3(BX, BY), 0, st>>>(u, v, w, f, g, h, p, dt, o,
+                                               T(dx), T(dy), T(dz), partial);
   max_partials<T><<<1, FIN, 0, st>>>(partial, (int)(grd.x * grd.y * grd.z),
                                      out);
   return (int)cudaGetLastError();
@@ -401,27 +496,27 @@ const char* kernel_error_string(int e) {
   return cudaGetErrorString((cudaError_t)e);
 }
 
-// length of the partial-max buffer ns3d_post needs
-int ns3d_post_partials(int K, int J, int I) {
-  const dim3 g = cell_grid(K, J, I);
-  return 3 * (int)(g.x * g.y * g.z);
+// length of the partial-max buffer ns3d_post needs for a halo-1 block of
+// local interior extents (lk, lj, li)
+int ns3d_post_partials(int lk, int lj, int li) {
+  return 3 * ceil_div(li + 2, BX) * ceil_div(lj + 2, BY) * (lk + 2);
 }
 
 #define PRE_ENTRY(NAME, T)                                                   \
   int NAME(int dev, void* u, void* v, void* w, const void* dt, void* f,      \
-           void* g, void* h, void* rhs, int K, int J, int I, const int* bc,  \
-           int problem, const double* c, void* stream) {                     \
+           void* g, void* h, void* rhs, const int* l, const int* geo,        \
+           const int* bc, int problem, const double* c, void* stream) {      \
     return run_pre<T>(dev, (T*)u, (T*)v, (T*)w, (const T*)dt, (T*)f, (T*)g,  \
-                      (T*)h, (T*)rhs, K, J, I, bc, problem, c, stream);      \
+                      (T*)h, (T*)rhs, l, geo, bc, problem, c, stream);       \
   }
 
 #define POST_ENTRY(NAME, T)                                                  \
   int NAME(int dev, void* u, void* v, void* w, const void* f, const void* g, \
-           const void* h, const void* p, const void* dt, int K, int J,       \
-           int I, double dx, double dy, double dz, void* partial, void* out, \
-           void* stream) {                                                   \
+           const void* h, const void* p, const void* dt, const int* l,       \
+           const int* geo, double dx, double dy, double dz, void* partial,   \
+           void* out, void* stream) {                                        \
     return run_post<T>(dev, (T*)u, (T*)v, (T*)w, (const T*)f, (const T*)g,   \
-                       (const T*)h, (const T*)p, (const T*)dt, K, J, I, dx,  \
+                       (const T*)h, (const T*)p, (const T*)dt, l, geo, dx,   \
                        dy, dz, (T*)partial, (T*)out, stream);                \
   }
 

@@ -27,3 +27,30 @@ def drive_chunks(advance, t: float, te: float, bar, chunk: int) -> float:
             bar.update(t)
     bar.stop()
     return t
+
+
+def mesh_convergence_loop(rounds, comm, dtype, cells: int, eps: float,
+                          itermax: int):
+    """The distributed SOR solves' convergence loop: run `rounds()` (one
+    exchange and n iterations on every shard, returning the per-shard owned
+    sums of r² and n) until the residual, their mesh-order sum over
+    `cells`, falls below eps² or itermax iterations are done. The residual
+    is read back and compared on the host in the field's dtype. Returns
+    (res, it)."""
+    import numpy as np
+    import torch
+
+    from ..parallel.comm import master_print, reduction
+    from ..utils import flags
+
+    real = np.float32 if dtype == torch.float32 else np.float64
+    norm = real(cells)
+    epssq = real(eps * eps)
+    res, it = real(1.0), 0
+    while res >= epssq and it < itermax:
+        r2, n = rounds()
+        res = real(float(reduction(r2, comm, "sum"))) / norm
+        if flags.debug():
+            master_print(comm, "{} Residuum: {}", it + n - 1, float(res))
+        it += n
+    return float(res), it

@@ -15,8 +15,8 @@ kernels' plain versions.
 
 The step updates u, v, w in place and replaces p with the solved field.
 t accumulates on the host in float64 (one readback of dt per step), which
-is what the JAX chunk carries (`t + dt.astype(f64)`). Obstacles and the
-distributed solver are not ported (ROADMAP A.4, A.8).
+is what the JAX chunk carries (`t + dt.astype(f64)`). Obstacles are not
+ported (ROADMAP A.4); the distributed solver is models/ns3d_dist.py.
 """
 
 from __future__ import annotations

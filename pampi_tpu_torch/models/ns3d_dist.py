@@ -1,0 +1,455 @@
+"""Distributed NS-3D over a 3-D ("k", "j", "i") mesh of shards
+(counterpart of pampi_tpu/models/ns3d_dist.py). The reference's
+assignment-6 hands out the MPI bodies of comm.c as `// fill` skeletons; the
+JAX package completes them and this module ports that solver.
+
+- Every field is a list of per-shard halo-1 extended blocks (kl+2, jl+2,
+  il+2) in mesh order, shard s on `comm.devices[s]` (parallel/comm.py: one
+  controller loops over the shards; a mesh with more shards than cards
+  shares them). Grids the mesh does not divide are refused (ROADMAP A.8).
+- The fused step (`tpu_fuse_phases` auto/on, the default): one depth-3
+  deep-halo exchange of u, v, w; the CFL dt from the maxima of the
+  exchanged deep blocks (the JAX package's order, which equals the
+  single-device solver's maxima of the previous POST); PRE (kernel K7 in
+  its distributed mode) on every shard's deep block; the pressure solve;
+  POST (K8) on the halo-1 blocks, whose per-shard maxima are reduced in
+  mesh order (`last_maxima`).
+- The pressure solve: the octant layout (parallel/octants_dist.py, kernel
+  K14 per shard, one depth-n octant exchange per n iterations) where every
+  shard extent is even and at least 4, else the grid-space CA path
+  (parallel/stencil3d.py, plain torch; `tpu_sor_layout checkerboard`).
+  The residual is the mesh-order sum of per-shard owned sums of r², read
+  back and checked against eps² every n iterations, as in
+  models/poisson_dist.py.
+- `tpu_fuse_phases off` runs the JAX package's phase chain instead
+  (`_step_chain`): depth-1 exchanges, the BCs gated by the global index,
+  the F/G/H donor-edge shift (commShift) and the projection in plain
+  torch.
+
+On the CPU the same composition runs the kernels' plain versions. Every
+path keeps the single-device trajectory: the fields equal NS3DSolver's
+bitwise where the iteration counts agree (they can differ only at the eps
+threshold, where the residual is summed in another order).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..ops import ns3d as ops
+from ..ops.ns3d_fused import StepConfig3D, ns3d_post, ns3d_pre
+from ..ops.sor3d import sor_coefficients_3d
+from ..parallel import comm as pc
+from ..parallel import octants_dist as od
+from ..parallel.comm import (
+    CartComm,
+    assemble_global,
+    reduction,
+    scatter_blocks,
+)
+from ..parallel.stencil2d import (
+    ca_halo,
+    ca_inner,
+    ca_supported,
+    embed_deep,
+    strip_deep,
+)
+from ..parallel.stencil3d import (
+    ca_masks_3d,
+    ca_rb_iters_3d,
+    rb_exchange_per_sweep_3d,
+)
+from ..utils import dispatch as _dispatch
+from ..utils import flags as _flags
+from ..utils.grid import Grid
+from ..utils.params import Parameter
+from ..utils.precision import resolve_dtype
+from ..utils.progress import Progress
+from ..utils.vtkio import ShardedVtkWriter, VtkWriter
+from ._driver import clamped_dt, drive_chunks, mesh_convergence_loop
+
+FUSE_DEEP_HALO = 3  # the JAX package's ops/ns2d_fused.FUSE_DEEP_HALO
+
+
+def _resolve_fuse_phases(knob: str, why_not) -> bool:
+    """`tpu_fuse_phases` -> whether the step runs K7/K8 on the deep blocks,
+    recorded under "ns3d_dist_phases" in the JAX package's terms. The
+    kernels run on every device (their plain versions on the CPU), so
+    `auto` fuses wherever the shards are deep enough."""
+    if knob not in ("auto", "on", "off"):
+        raise ValueError(f"tpu_fuse_phases must be auto|on|off, got {knob!r}")
+    if knob == "off":
+        _dispatch.record("ns3d_dist_phases", "jnp (tpu_fuse_phases off)")
+        return False
+    if why_not is not None:
+        _dispatch.record("ns3d_dist_phases", f"jnp ({why_not})")
+        return False
+    _dispatch.record("ns3d_dist_phases", "kernel_fused" + (
+        " (forced)" if knob == "on" else ""))
+    return True
+
+
+class NS3DDistSolver:
+    """Mesh-parallel NS-3D solver with NS3DSolver's interface. The shards
+    live on `comm.devices` (default: one per visible card, the `tpu_mesh
+    auto` mesh).
+
+    `phase_hook`, when set, is called with "pre", "solve", "post" as each
+    phase of a step starts and with "end" after the last one, as in
+    NS3DSolver."""
+
+    CHUNK = 32  # steps between progress-bar updates
+
+    def __init__(self, param: Parameter, comm: CartComm | None = None,
+                 dtype=None):
+        self.comm = comm if comm is not None else CartComm(
+            ndims=3, extents=(param.kmax, param.jmax, param.imax),
+            tiers=param.tpu_mesh_tiers)
+        if self.comm.ndims != 3:
+            raise ValueError("NS-3D needs a 3-D mesh (CartComm(ndims=3))")
+        self.dtype = resolve_dtype(param.tpu_dtype) if dtype is None else dtype
+        self.grid = g = Grid(imax=param.imax, jmax=param.jmax,
+                             kmax=param.kmax, xlength=param.xlength,
+                             ylength=param.ylength, zlength=param.zlength)
+        self.gext = (g.kmax, g.jmax, g.imax)
+        self.local = self.comm.local_shape(self.gext, ragged=True)
+        self.kl, self.jl, self.il = self.local
+        self.ragged = any(e * p != n for e, p, n in
+                          zip(self.local, self.comm.dims, self.gext))
+        param = _dispatch.resolve_solver(param, ragged=self.ragged)
+        _dispatch.check_supported(param, mesh=True, ragged=self.ragged)
+        if param.tpu_sor_layout not in ("auto", "checkerboard", "octants"):
+            raise ValueError(
+                f"3-D SOR layout must be auto|checkerboard|octants, got "
+                f"{param.tpu_sor_layout!r} (quarters is the 2-D layout)")
+        self.param = param
+        self.offs = [self.comm.offsets(s, self.local)
+                     for s in range(self.comm.size)]
+        inv_sqr_sum = 1.0 / g.dx**2 + 1.0 / g.dy**2 + 1.0 / g.dz**2
+        self.dt_bound = 0.5 * param.re / inv_sqr_sum
+        self.t = 0.0
+        self.nt = 0
+        self._dt_scale = 1.0
+        self._build()
+        shape = tuple(e + 2 for e in self.local)
+        for name, val in (("u", param.u_init), ("v", param.v_init),
+                          ("w", param.w_init), ("p", param.p_init)):
+            setattr(self, name, [torch.full(shape, val, dtype=self.dtype,
+                                            device=dev)
+                                 for dev in self.comm.devices])
+        self.phase_hook = None
+        # the last pressure solve's residual and iteration count, and the
+        # last POST's mesh maxima of |u|, |v|, |w|
+        self.last_res = self.last_it = self.last_maxima = None
+
+    # ------------------------------------------------------------------
+    def _build(self):
+        param, g, comm = self.param, self.grid, self.comm
+        kl, jl, il = self.local
+        self._cfg = StepConfig3D.from_param(param)
+        self._coef = sor_coefficients_3d(g.dx, g.dy, g.dz, param.omg)
+        self._rb_o, self._og, self._n_o = od.octants_dispatch(
+            param, g.kmax, g.jmax, g.imax, kl, jl, il, g.dx, g.dy, g.dz,
+            "ns3d_dist", dims=comm.dims)
+        if self._rb_o is None:
+            _dispatch.record("ns3d_dist", "jnp_ca")
+        # the grid-space CA path: block size, halo depth and masks
+        self._ca_ok = ca_supported(kl, jl, il)
+        self._n_ca = ca_inner(param, kl, jl, il) if self._ca_ok else 1
+        self._H = ca_halo(self._n_ca) if self._ca_ok else 1
+        self._masks = None
+        why = None
+        if min(self.local) < FUSE_DEEP_HALO:
+            why = f"shard extents < deep halo {FUSE_DEEP_HALO}"
+        self._fused = _resolve_fuse_phases(param.tpu_fuse_phases, why)
+        if param.tpu_overlap == "off":
+            _dispatch.record("overlap_ns3d_dist", "serial (tpu_overlap off)")
+        elif not self._fused:
+            _dispatch.record("overlap_ns3d_dist", "serial (needs the fused "
+                             "deep-halo step (tpu_fuse_phases))")
+        else:
+            _dispatch.record("overlap_ns3d_dist", "serial (the overlapped "
+                             "schedule is not yet ported, ROADMAP A.8)")
+
+    @classmethod
+    def from_numpy_state(cls, param: Parameter, comm: CartComm, u, v, w, p,
+                         t, nt, dtype=None):
+        """A solver whose state is the given global reference-layout
+        (kmax+2, jmax+2, imax+2) fields and time (e.g. a JAX solver's
+        global_fields()), scattered to the shards and cast to the dtype."""
+        s = cls(param, comm, dtype=dtype)
+        s.set_global_fields({"u": u, "v": v, "w": w, "p": p})
+        s.t, s.nt = float(t), int(nt)
+        return s
+
+    def set_global_fields(self, fields: dict) -> None:
+        """Scatter global reference-layout fields to the shards (the JAX
+        package's set_global_fields)."""
+        for name, arr in fields.items():
+            blocks = scatter_blocks(np.array(arr), self.comm, self.local)
+            setattr(self, name, [
+                torch.from_numpy(b).to(device=dev, dtype=self.dtype)
+                for b, dev in zip(blocks, self.comm.devices)])
+
+    def global_fields(self) -> dict:
+        """The reference-layout (kmax+2, jmax+2, imax+2) fields on the
+        host, mesh-independent."""
+        return {name: assemble_global(getattr(self, name), self.comm,
+                                      self.gext)
+                for name in ("u", "v", "w", "p")}
+
+    def _mark(self, phase: str) -> None:
+        if self.phase_hook is not None:
+            self.phase_hook(phase)
+
+    def _on_shards(self, x):
+        """A 0-dim tensor (on shard 0's device) for every shard's device."""
+        return [x.to(dev) for dev in self.comm.devices]
+
+    # -- the CFL dt ------------------------------------------------------
+    def _dt(self, u, v, w):
+        """The CFL dt from the mesh maxima of u, v, w (ghosts included), or
+        the fixed dt when tau <= 0."""
+        param, g = self.param, self.grid
+        if param.tau > 0.0:
+            umax, vmax, wmax = (
+                reduction([ops.max_element(b) for b in x], self.comm, "max")
+                for x in (u, v, w))
+            dt = ops.cfl_dt_3d(umax, vmax, wmax, self.dt_bound, g.dx, g.dy,
+                               g.dz, param.tau)
+        else:
+            dt = torch.full((), param.dt, dtype=self.dtype,
+                            device=self.comm.devices[0])
+        return clamped_dt(dt, self._dt_scale)
+
+    # -- the pressure solve ----------------------------------------------
+    def _loop(self, rounds):
+        g = self.grid
+        return mesh_convergence_loop(rounds, self.comm, self.dtype,
+                                     g.imax * g.jmax * g.kmax,
+                                     self.param.eps, self.param.itermax)
+
+    def _solve(self, p, rhs):
+        """The pressure solve on the halo-1 blocks; returns (p exchanged,
+        res, it)."""
+        if self._rb_o is not None:
+            return self._solve_octants(p, rhs)
+        return self._solve_grid(p, rhs)
+
+    def _solve_octants(self, p, rhs):
+        """The stacked-octant CA solve, K14 on every shard; returns the
+        exchanged halo-1 blocks (the projection reads p across shard
+        edges, the reference's trailing commExchange)."""
+        comm, og = self.comm, self._og
+        qoffs = [tuple(o // 2 for o in off) for off in self.offs]
+        ro = od.o_exchange([od.pack_ext_to_o(r, og) for r in rhs], comm, og)
+        xo = [od.pack_ext_to_o(x, og) for x in p]
+        copies = od.o_exchange_copies(xo, comm, og)
+
+        def rounds():
+            od.o_exchange(xo, comm, og, copies)
+            return ([self._rb_o(q, x, f) for q, x, f in zip(qoffs, xo, ro)],
+                    og.n)
+
+        res, it = self._loop(rounds)
+        p = pc.halo_exchange([od.unpack_o_to_ext(x, og) for x in xo], comm)
+        return p, res, it
+
+    def _grid_masks(self):
+        if self._masks is None:
+            g = self.grid
+            self._masks = [ca_masks_3d(
+                *self.local, self._H, g.kmax, g.jmax, g.imax, self.dtype,
+                *off, device=dev)
+                for off, dev in zip(self.offs, self.comm.devices)]
+        return self._masks
+
+    def _solve_grid(self, p, rhs):
+        """The grid-space CA solve (one depth-2n exchange per n exact
+        iterations), or the exchange-per-half-sweep fallback on extent-1
+        shards."""
+        comm, H, masks = self.comm, self._H, self._grid_masks()
+        pd = [embed_deep(x, H) for x in p]
+        rd = pc.halo_exchange([embed_deep(x, H) for x in rhs], comm, depth=H)
+
+        def rounds():
+            if not self._ca_ok:
+                new, r2 = rb_exchange_per_sweep_3d(pd, rd, masks, comm,
+                                                   *self._coef)
+                pd[:] = new
+                return r2, 1
+            pc.halo_exchange(pd, comm, depth=H)
+            r2 = []
+            for s, (m, f) in enumerate(zip(masks, rd)):
+                pd[s], r = ca_rb_iters_3d(pd[s], f, self._n_ca, m,
+                                          *self._coef)
+                r2.append(r)
+            return r2, self._n_ca
+
+        res, it = self._loop(rounds)
+        p = pc.halo_exchange([strip_deep(x, H).contiguous() for x in pd],
+                             comm)
+        return p, res, it
+
+    # -- the steps ---------------------------------------------------------
+    def _step_fused(self):
+        """One step through K7 and K8 (JAX step_fused): one deep exchange
+        feeds PRE, the solve, POST on the halo-1 blocks."""
+        comm, g, H = self.comm, self.grid, FUSE_DEEP_HALO
+        self._mark("pre")
+        deep = [pc.halo_exchange([embed_deep(b, H) for b in x], comm,
+                                 depth=H)
+                for x in (self.u, self.v, self.w)]
+        dt = self._dt(*deep)
+        dts = self._on_shards(dt)
+        f, gg, h, rhs = [], [], [], []
+        for s in range(comm.size):
+            out = ns3d_pre(deep[0][s], deep[1][s], deep[2][s], dts[s],
+                           self._cfg, self.offs[s], self.gext, H - 1)
+            for lst, a in zip((f, gg, h, rhs), out):
+                lst.append(a)
+        u, v, w = ([strip_deep(b, H).contiguous() for b in x] for x in deep)
+        self._mark("solve")
+        self.p, self.last_res, self.last_it = self._solve(self.p, rhs)
+        self._mark("post")
+        maxima = [ns3d_post(u[s], v[s], w[s], f[s], gg[s], h[s], self.p[s],
+                            dts[s], g.dx, g.dy, g.dz, self.offs[s],
+                            self.gext)
+                  for s in range(comm.size)]
+        self.last_maxima = tuple(reduction(list(m), comm, "max")
+                                 for m in zip(*maxima))
+        self.u, self.v, self.w = u, v, w
+        self._mark("end")
+        return dt
+
+    def _step_chain(self):
+        """One step of the phase chain (JAX step, `tpu_fuse_phases off`):
+        depth-1 exchanges around the BCs, the F/G/H donor-edge shift before
+        the RHS, the projection on every shard. The walls, lid/inflow and
+        F/G/H fixups are gated by the global index on the halo-1 blocks,
+        as in the PRE kernel; what they write on interface ghosts the
+        following exchange overwrites."""
+        comm, g, cfg = self.comm, self.grid, self._cfg
+        self._mark("pre")
+        for x in (self.u, self.v, self.w):
+            pc.halo_exchange(x, comm)
+        dt = self._dt(self.u, self.v, self.w)
+        dts = self._on_shards(dt)
+        idx = [ops.index_grids(x.shape, 0, off, x.device)
+               for x, off in zip(self.u, self.offs)]
+        for s in range(comm.size):
+            u, v, w = ops.apply_wall_bcs_3d_gated(
+                self.u[s], self.v[s], self.w[s], *idx[s], cfg.bcs, self.gext)
+            self.u[s], self.v[s], self.w[s] = (
+                ops.apply_special_bc_3d_gated(u, *idx[s], cfg.problem,
+                                              self.gext), v, w)
+        for x in (self.u, self.v, self.w):
+            pc.halo_exchange(x, comm)
+        f, gg, h = [], [], []
+        for s in range(comm.size):
+            u, v, w = self.u[s], self.v[s], self.w[s]
+            fs, gs, hs = ops.fgh_fixups_gated(
+                *ops.compute_fgh_interior(u, v, w, dts[s], cfg.re, cfg.gx,
+                                          cfg.gy, cfg.gz, cfg.gamma, g.dx,
+                                          g.dy, g.dz),
+                u, v, w, *idx[s], self.gext)
+            f.append(fs)
+            gg.append(gs)
+            h.append(hs)
+        pc.halo_shift(f, comm, "i")
+        pc.halo_shift(gg, comm, "j")
+        pc.halo_shift(h, comm, "k")
+        rhs = [ops.compute_rhs(a, b, c, d, g.dx, g.dy, g.dz)
+               for a, b, c, d in zip(f, gg, h, dts)]
+        self._mark("solve")
+        self.p, self.last_res, self.last_it = self._solve(self.p, rhs)
+        self._mark("post")
+        for s in range(comm.size):
+            self.u[s], self.v[s], self.w[s] = ops.adapt_uvw(
+                self.u[s], self.v[s], self.w[s], f[s], gg[s], h[s],
+                self.p[s], dts[s], g.dx, g.dy, g.dz)
+        self._mark("end")
+        return dt
+
+    def _step(self) -> None:
+        dt = self._step_fused() if self._fused else self._step_chain()
+        dt_host = float(dt)
+        self.t += dt_host
+        self.nt += 1
+        if _flags.verbose():
+            pc.master_print(self.comm, "TIME {} , TIMESTEP {}", self.t,
+                            dt_host)
+
+    def run_steps(self, n: int) -> None:
+        """Advance exactly n steps, whatever te says."""
+        for _ in range(n):
+            self._step()
+
+    def _advance(self, n: int) -> float:
+        te = self.param.te
+        for _ in range(n):
+            if not self.t <= te:
+                break
+            self._step()
+        return self.t
+
+    def run(self, progress: bool = True) -> None:
+        """Advance from t to te (a step runs whenever t <= te at its
+        start), drawing the progress bar every CHUNK steps."""
+        bar = Progress(self.param.te,
+                       enabled=progress and not _flags.verbose())
+        drive_chunks(self._advance, self.t, self.param.te, bar,
+                     self.param.tpu_chunk or self.CHUNK)
+
+    # -- output ----------------------------------------------------------
+    def _cell_centred(self):
+        """Per shard, the cell-centred (kl, jl, il) numpy slabs (u, v, w,
+        p) and the slab's global origin. Staggered-to-centre averaging
+        reads the minus-side ghosts, so u, v, w are exchanged first (on
+        copies: the state is left as it is). The averages are taken on the
+        host in the field's dtype, as NS3DSolver.collect takes them."""
+        u, v, w = (pc.halo_exchange([b.clone() for b in x], self.comm)
+                   for x in (self.u, self.v, self.w))
+        out = []
+        for s in range(self.comm.size):
+            us, vs, ws, ps = (a[s].detach().cpu().numpy()
+                              for a in (u, v, w, self.p))
+            out.append(((us[1:-1, 1:-1, 1:-1] + us[1:-1, 1:-1, :-2]) / 2.0,
+                        (vs[1:-1, 1:-1, 1:-1] + vs[1:-1, :-2, 1:-1]) / 2.0,
+                        (ws[1:-1, 1:-1, 1:-1] + ws[:-2, 1:-1, 1:-1]) / 2.0,
+                        ps[1:-1, 1:-1, 1:-1], self.offs[s]))
+        return out
+
+    def collect(self):
+        """Cell-centred global fields (ug, vg, wg, pg), each (kmax, jmax,
+        imax), as numpy arrays on the host."""
+        slabs = self._cell_centred()
+        fields = [np.empty(self.gext, slabs[0][0].dtype) for _ in range(4)]
+        for *arrs, off in slabs:
+            sl = tuple(slice(o, o + e) for o, e in zip(off, self.local))
+            for full, a in zip(fields, arrs):
+                full[sl] = a
+        return tuple(fields)
+
+    def write_result(self, path=None, fmt: str = "ascii") -> None:
+        """The VTK output (pressure scalar, velocity vector) to path, by
+        default `<problem>.vtk`, gathered on the host."""
+        ug, vg, wg, pg = self.collect()
+        writer = VtkWriter(self._cfg.problem, self.grid, fmt=fmt, path=path)
+        writer.scalar("pressure", pg)
+        writer.vector("velocity", ug, vg, wg)
+        writer.close()
+
+    def write_result_sharded(self, path=None) -> None:
+        """`tpu_vtk sharded`: the binary VTK written slab by slab, each
+        shard's cell-centred block at its own byte offsets, with no global
+        array assembled (the reference's scaffolded MPI-IO write,
+        vtkWriter.c:118-143, completed). The bytes are those of
+        write_result(fmt="binary")."""
+        slabs = self._cell_centred()
+        writer = ShardedVtkWriter(self._cfg.problem, self.grid, path=path)
+        writer.scalar("pressure", [(ps, off) for *_, ps, off in slabs])
+        writer.vector("velocity", [(us, vs, ws, off)
+                                   for us, vs, ws, _p, off in slabs])
+        writer.close()

@@ -32,7 +32,7 @@ import torch
 
 from ..ops.sor_kernels import sor_coefficients
 from ..parallel import quarters_dist as qd
-from ..parallel.comm import CartComm, halo_exchange, reduction
+from ..parallel.comm import CartComm, halo_exchange
 from ..parallel.stencil2d import (
     ca_halo,
     ca_inner,
@@ -43,10 +43,10 @@ from ..parallel.stencil2d import (
     rb_exchange_per_sweep,
 )
 from ..utils import dispatch as _dispatch
-from ..utils import flags as _flags
 from ..utils.datio import write_matrix
 from ..utils.params import Parameter
 from ..utils.precision import resolve_dtype
+from ._driver import mesh_convergence_loop
 
 PI = math.pi
 
@@ -162,20 +162,9 @@ class DistPoissonSolver:
 
     # -- the convergence loop ------------------------------------------
     def _loop(self, rounds):
-        """Run `rounds()` (one exchange and n iterations on every shard,
-        returning the per-shard owned Σr² and n) until the residual falls
-        below eps² or itermax is reached. Returns (res, it)."""
-        real = np.float32 if self.dtype == torch.float32 else np.float64
-        norm = real(self.imax * self.jmax)
-        epssq = real(self.param.eps * self.param.eps)
-        res, it = real(1.0), 0
-        while res >= epssq and it < self.param.itermax:
-            r2, n = rounds()
-            res = real(float(reduction(r2, self.comm, "sum"))) / norm
-            if _flags.debug():
-                print(f"{it + n - 1} Residuum: {float(res)}")
-            it += n
-        return float(res), it
+        return mesh_convergence_loop(rounds, self.comm, self.dtype,
+                                     self.imax * self.jmax, self.param.eps,
+                                     self.param.itermax)
 
     def _solve_quarters(self, first):
         g, comm = self.qg, self.comm

@@ -298,3 +298,150 @@ def normalize_pressure_3d(p, imax, jmax, kmax):
     p = p.clone()
     p[1:-1, 1:-1, 1:-1] -= avg
     return p
+
+
+# ----------------------------------------------------------------------
+# Global-index gated forms: the phases on a shard's block of a mesh (the
+# plain versions of K7/K8 in their distributed mode; the JAX package's
+# apply_wall_bcs_3d / apply_special_bc_3d of ops/ns3d_fused.py)
+# ----------------------------------------------------------------------
+
+
+def index_grids(shape, ext_pad: int, offs, device):
+    """(gk, gj, gi): the global extended index of every cell of a block
+    whose local index a along an axis is global a - ext_pad + offset,
+    shaped to broadcast over the block."""
+    return tuple(
+        (torch.arange(n, device=device) - ext_pad + int(o)).reshape(
+            [-1 if d == a else 1 for d in range(3)])
+        for a, (n, o) in enumerate(zip(shape, offs)))
+
+
+def _interior(gk, gj, gi, gext):
+    K, J, I = gext
+    return ((gk >= 1) & (gk <= K), (gj >= 1) & (gj <= J),
+            (gi >= 1) & (gi <= I))
+
+
+def apply_wall_bcs_3d_gated(u, v, w, gk, gj, gi, bcs, gext):
+    """set_boundary_conditions_3d as sequential where-updates gated by the
+    global index: the same face order, the same written values, so later
+    faces read earlier faces' writes as on one device. The inward read is
+    a roll; it wraps only where no face writes."""
+    fields = {0: w, 1: v, 2: u}  # normal component per axis
+    coords = (gk, gj, gi)
+    tans = _interior(gk, gj, gi, gext)
+    for face, kind in bcs.items():
+        if kind not in (NOSLIP, SLIP, OUTFLOW):
+            continue
+        axis, side = FACES[face]
+        g = coords[axis]
+        t_axes = [a for a in (0, 1, 2) if a != axis]
+        tan = tans[t_axes[0]] & tans[t_axes[1]]
+        if side == "lo":
+            ghost = wall = (g == 0) & tan
+            shift = -1  # inward: the next plane up
+        else:
+            ghost = (g == gext[axis] + 1) & tan
+            wall = (g == gext[axis]) & tan
+            shift = 1
+        normal = fields[axis]
+        if kind == OUTFLOW:
+            fields[axis] = torch.where(wall, torch.roll(normal, shift, axis),
+                                       normal)
+        else:  # NOSLIP, SLIP
+            fields[axis] = torch.where(wall, torch.zeros_like(normal), normal)
+        for a in t_axes:
+            inward = torch.roll(fields[a], shift, axis)
+            fields[a] = torch.where(ghost,
+                                    -inward if kind == NOSLIP else inward,
+                                    fields[a])
+    return fields[2], fields[1], fields[0]
+
+
+def apply_special_bc_3d_gated(u, gk, gj, gi, problem, gext):
+    """The dcavity lid (skipping the last interior i and k) or the canal
+    inflow, gated by the global index."""
+    K, J, I = gext
+    if problem == "dcavity":
+        m = ((gj == J + 1) & (gk >= 1) & (gk <= K - 1)
+             & (gi >= 1) & (gi <= I - 1))
+        return torch.where(m, 2.0 - torch.roll(u, 1, 1), u)
+    if problem == "canal":
+        m = (gi == 0) & (gk >= 1) & (gk <= K) & (gj >= 1) & (gj <= J)
+        return torch.where(m, torch.full_like(u, 2.0), u)
+    return u
+
+
+def fgh_fixups_gated(f, g, h, u, v, w, gk, gj, gi, gext):
+    """apply_fgh_wall_fixups gated by the global index: F = U on the
+    left/right walls, G = V on bottom/top, H = W on front/back, each
+    tangentially on the global interior. Returns new tensors."""
+    K, J, I = gext
+    in_k, in_j, in_i = _interior(gk, gj, gi, gext)
+    return (torch.where(((gi == 0) | (gi == I)) & in_k & in_j, u, f),
+            torch.where(((gj == 0) | (gj == J)) & in_k & in_i, v, g),
+            torch.where(((gk == 0) | (gk == K)) & in_j & in_i, w, h))
+
+
+def pre_gated(ud, vd, wd, dt, bcs, problem, re, gx, gy, gz, gamma, dx, dy,
+              dz, offs, gext, ext_pad: int):
+    """PRE on a shard's deep block (the plain version of K7's distributed
+    mode): ud, vd, wd are (l+2+2e)-extended blocks (e = ext_pad >= 1) whose
+    local index a is global a - e + offset. Returns (u', v', w') on the deep
+    block after the wall and special BCs, and F, G, H, rhs on the shard's
+    halo-1 block (l+2 per axis). F/G/H hold the predictor on the global
+    interior and the wall fixups, zero elsewhere; rhs is set on the owned
+    global-interior cells. Inputs untouched."""
+    if ext_pad < 1:
+        raise ValueError("the gated PRE needs a deep block (ext_pad >= 1)")
+    e = ext_pad
+    gk, gj, gi = index_grids(ud.shape, e, offs, ud.device)
+    u, v, w = apply_wall_bcs_3d_gated(ud, vd, wd, gk, gj, gi, bcs, gext)
+    u = apply_special_bc_3d_gated(u, gk, gj, gi, problem, gext)
+    terms = fgh_predictor_terms(u, v, w, dt, re, gx, gy, gz, gamma, dx, dy,
+                                dz)
+    # the halo-1 block: deep cells [e, L - e), interior terms [e-1, L-e-1)
+    out = tuple(slice(e - 1, n - e - 1) for n in ud.shape)
+    strip = tuple(slice(e, n - e) for n in ud.shape)
+    uo, vo, wo = u[strip], v[strip], w[strip]
+    gk, gj, gi = index_grids(uo.shape, 0, offs, ud.device)
+    in_k, in_j, in_i = _interior(gk, gj, gi, gext)
+    interior = in_k & in_j & in_i
+    f, g, h = fgh_fixups_gated(
+        *(torch.where(interior, t[out], torch.zeros_like(a))
+          for t, a in zip(terms, (uo, vo, wo))), uo, vo, wo, gk, gj, gi,
+        gext)
+    rhs = torch.zeros_like(f)
+    rhs[1:-1, 1:-1, 1:-1] = torch.where(
+        interior[1:-1, 1:-1, 1:-1], rhs_terms_3d(f, g, h, dt, dx, dy, dz),
+        torch.zeros_like(f[1:-1, 1:-1, 1:-1]))
+    return u, v, w, f, g, h, rhs
+
+
+def post_gated(u, v, w, f, g, h, p, dt, dx, dy, dz, offs, gext):
+    """POST on a shard's halo-1 block (the plain version of K8's
+    distributed mode): the projection on the cells of the global interior,
+    ghost-ring cells included where they are interface ghosts, with p read
+    as 0 beyond the block's high edge; other cells keep u, v, w. Returns
+    (u'', v'', w'', max|u''|, max|v''|, max|w''|), the maxima over the
+    block. Inputs untouched."""
+    gk, gj, gi = index_grids(u.shape, 0, offs, u.device)
+    in_k, in_j, in_i = _interior(gk, gj, gi, gext)
+    interior = in_k & in_j & in_i
+    pp = torch.nn.functional.pad(p, (0, 1, 0, 1, 0, 1))
+    nb = (pp[:-1, :-1, 1:], pp[:-1, 1:, :-1], pp[1:, :-1, :-1])
+    out = []
+    for a, fa, pn, d in zip((u, v, w), (f, g, h), nb, (dx, dy, dz)):
+        new = fa - (pn - p) * (dt / _const(d, dt))
+        out.append(torch.where(interior, new, a))
+    return (*out, *(max_element(a) for a in out))
+
+
+def compute_fgh_interior(u, v, w, dt, re, gx, gy, gz, gamma, dx, dy, dz):
+    """The momentum predictor F, G, H on the block's interior, zero
+    elsewhere, without the wall fixups (the distributed step gates those
+    by the global index, fgh_fixups_gated)."""
+    terms = fgh_predictor_terms(u, v, w, dt, re, gx, gy, gz, gamma, dx, dy,
+                                dz)
+    return tuple(_with_interior(a, t) for a, t in zip((u, v, w), terms))

@@ -1,6 +1,6 @@
 """Kernels K7 and K8: the NS-3D step phases around the pressure solve on
 the H100, each beside its plain PyTorch version (sources:
-pampi_tpu_torch/csrc/ns3d_fused.cu). Single device, no obstacles.
+pampi_tpu_torch/csrc/ns3d_fused.cu). No obstacles.
 
 K7 `ns3d_pre` replaces pampi_tpu/ops/ns3d_fused.py `_pre3_kernel`
   (make_fused_pre_3d, pallas_call at :778): (u, v, w, dt) -> (u', v', w',
@@ -11,6 +11,16 @@ K8 `ns3d_post` replaces pampi_tpu/ops/ns3d_fused.py `_post3_kernel`
   (make_fused_post_3d, pallas_call at :880): the projection in place on the
   interiors of u, v, w, then max|u|, |v|, |w| over the FULL ghosted arrays
   (the reference's maxElement quirk), which the next step's CFL dt reads.
+
+Both gate every write by the global index, as the TPU kernels do. On one
+device the block is the whole array at offset 0. In the distributed mode
+(models/ns3d_dist.py; JAX make_fused_pre_3d(..., kl, jl, il,
+ext_pad=FUSE_DEEP_HALO - 1) and make_fused_post_3d(..., kl, jl, il)) the
+caller passes the shard's global offsets and the global extents: PRE takes
+the shard's deep blocks (ext_pad ghost layers more per side than the
+halo-1 block), applies the BCs in place where the global walls cross them
+and returns F, G, H, rhs on the halo-1 block; POST takes the halo-1 blocks
+and returns the shard's maxima.
 
 What bounds them on the H100 is memory bandwidth: PRE reads u, v, w and
 writes F, G, H, rhs and the ghost planes of u, v, w; POST reads F, G, H, p
@@ -44,9 +54,9 @@ NS3D_POST = kb.register(
 
 _PROBLEM_CODE = {"dcavity": 1, "canal": 2}
 _V, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-_PRE_ARGS = [_I, _V, _V, _V, _V, _V, _V, _V, _V, _I, _I, _I, _V, _I, _V, _V]
-_POST_ARGS = [_I, _V, _V, _V, _V, _V, _V, _V, _V, _I, _I, _I, _D, _D, _D,
-              _V, _V, _V]
+_PRE_ARGS = [_I, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _I, _V, _V]
+_POST_ARGS = [_I, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _D, _D, _D, _V, _V,
+              _V]
 _SIGNATURES = {
     "ns3d_pre_f32": _PRE_ARGS, "ns3d_pre_f64": _PRE_ARGS,
     "ns3d_post_f32": _POST_ARGS, "ns3d_post_f64": _POST_ARGS,
@@ -96,18 +106,21 @@ class StepConfig3D:
                 self.dz]
 
 
-def _check(tensors, dt) -> None:
+def _check(tensors, dt, shape=None) -> None:
+    """Device, dtype, contiguity; every tensor of `shape` (default: the
+    first one's)."""
     t0 = tensors[0]
+    shape = t0.shape if shape is None else shape
     if t0.device.type != "cuda":
         raise ValueError(f"NS-3D kernels take CPU or CUDA tensors, not {t0.device}")
     if t0.dtype not in _SUFFIX:
         raise ValueError(f"NS-3D kernels take float32 or float64, not {t0.dtype}")
-    if t0.dim() != 3 or min(t0.shape) < 4:
+    if t0.dim() != 3 or min(shape) < 4:
         raise ValueError("fields must be 3-D with at least 2 interior cells "
-                         f"per axis, got {tuple(t0.shape)}")
+                         f"per axis, got {tuple(shape)}")
     for t in tensors:
         if (t.device != t0.device or t.dtype != t0.dtype
-                or t.shape != t0.shape or not t.is_contiguous()):
+                or t.shape != shape or not t.is_contiguous()):
             raise ValueError("fields must be contiguous and share device, "
                              "dtype and shape")
     if dt.device != t0.device or dt.dtype != t0.dtype or dt.numel() != 1:
@@ -118,9 +131,34 @@ def _lib():
     return kb.load("ns3d_fused", _SIGNATURES)
 
 
-def ns3d_pre_plain(u, v, w, dt, cfg: StepConfig3D):
+def _mode(shape, offs, gext, ext_pad: int, deep: bool):
+    """(local interior extents of the halo-1 block, offsets, global
+    extents) of a call: one device when offs is None; otherwise the
+    shard's, on a deep block (ext_pad >= 1) when `deep`."""
+    local = tuple(n - 2 - 2 * ext_pad for n in shape)
+    if offs is None:
+        if ext_pad:
+            raise ValueError("a deep block (ext_pad > 0) needs the shard's "
+                             "offsets and the global extents")
+        return local, (0, 0, 0), local
+    if gext is None:
+        raise ValueError("the distributed mode needs the global extents")
+    if deep and ext_pad < 1:
+        raise ValueError("the distributed PRE runs on a deep block "
+                         "(ext_pad >= 1)")
+    return local, tuple(int(o) for o in offs), tuple(int(n) for n in gext)
+
+
+def ns3d_pre_plain(u, v, w, dt, cfg: StepConfig3D, offs=None, gext=None,
+                   ext_pad: int = 0):
     """K7's plain version: returns (u', v', w', F, G, H, rhs), inputs
-    untouched."""
+    untouched; in the distributed mode u', v', w' are deep blocks and
+    F, G, H, rhs halo-1 blocks (ops/ns3d.pre_gated)."""
+    if offs is not None:
+        _mode(u.shape, offs, gext, ext_pad, True)
+        return ops.pre_gated(u, v, w, dt, cfg.bcs, cfg.problem, cfg.re,
+                             cfg.gx, cfg.gy, cfg.gz, cfg.gamma, cfg.dx,
+                             cfg.dy, cfg.dz, offs, gext, ext_pad)
     u1, v1, w1 = ops.set_boundary_conditions_3d(u, v, w, cfg.bcs)
     u1 = ops.set_special_bc_3d(u1, cfg.problem)
     f, g, h = ops.compute_fgh(u1, v1, w1, dt, cfg.re, cfg.gx, cfg.gy, cfg.gz,
@@ -129,58 +167,77 @@ def ns3d_pre_plain(u, v, w, dt, cfg: StepConfig3D):
     return u1, v1, w1, f, g, h, rhs
 
 
-def ns3d_pre(u, v, w, dt, cfg: StepConfig3D):
+def ns3d_pre(u, v, w, dt, cfg: StepConfig3D, offs=None, gext=None,
+             ext_pad: int = 0):
     """K7: boundary conditions in place on u, v, w; returns (F, G, H, rhs).
-    dt is a 0-dim tensor beside the fields."""
+    dt is a 0-dim tensor beside the fields. One device by default; with
+    the shard's global offsets `offs` = (koff, joff, ioff), the global
+    interior extents `gext` and `ext_pad` >= 1, u, v, w are the shard's
+    deep blocks (local index a is global a - ext_pad + offset) and F, G,
+    H, rhs its halo-1 blocks."""
+    local, o, G = _mode(u.shape, offs, gext, ext_pad, True)
     if u.device.type == "cpu":
-        u1, v1, w1, f, g, h, rhs = ns3d_pre_plain(u, v, w, dt, cfg)
+        u1, v1, w1, f, g, h, rhs = ns3d_pre_plain(u, v, w, dt, cfg, offs,
+                                                  gext, ext_pad)
         for a, b in ((u, u1), (v, v1), (w, w1)):
             a.copy_(b)
         return f, g, h, rhs
     _check((u, v, w), dt)
-    f, g, h, rhs = (torch.empty_like(u) for _ in range(4))
-    kmax, jmax, imax = (n - 2 for n in u.shape)
+    f, g, h, rhs = (u.new_empty(tuple(n + 2 for n in local))
+                    for _ in range(4))
+    _check((f, g, h, rhs), dt)
     bc = (ctypes.c_int * 6)(*cfg.bc)
     coef = (ctypes.c_double * 16)(*cfg.coefficients())
     lib = _lib()
-    err = getattr(lib, f"ns3d_pre_{_SUFFIX[u.dtype]}")(
-        u.device.index, u.data_ptr(), v.data_ptr(), w.data_ptr(),
-        dt.data_ptr(), f.data_ptr(), g.data_ptr(), h.data_ptr(),
-        rhs.data_ptr(), kmax, jmax, imax, bc,
-        _PROBLEM_CODE.get(cfg.problem, 0), coef, kb.stream_of(u))
+    with torch.cuda.device(u.device):
+        err = getattr(lib, f"ns3d_pre_{_SUFFIX[u.dtype]}")(
+            u.device.index, u.data_ptr(), v.data_ptr(), w.data_ptr(),
+            dt.data_ptr(), f.data_ptr(), g.data_ptr(), h.data_ptr(),
+            rhs.data_ptr(), (ctypes.c_int * 3)(*local),
+            (ctypes.c_int * 7)(ext_pad, *o, *G), bc,
+            _PROBLEM_CODE.get(cfg.problem, 0), coef, kb.stream_of(u))
     kb.check(lib, err, "ns3d_pre")
     NS3D_PRE.launches += 1
     return f, g, h, rhs
 
 
-def ns3d_post_plain(u, v, w, f, g, h, p, dt, dx, dy, dz):
+def ns3d_post_plain(u, v, w, f, g, h, p, dt, dx, dy, dz, offs=None,
+                    gext=None):
     """K8's plain version: returns (u'', v'', w'', max|u''|, max|v''|,
-    max|w''|)."""
+    max|w''|); in the distributed mode the gated projection of
+    ops/ns3d.post_gated on the shard's halo-1 blocks."""
+    if offs is not None:
+        return ops.post_gated(u, v, w, f, g, h, p, dt, dx, dy, dz, offs,
+                              gext)
     u2, v2, w2 = ops.adapt_uvw(u, v, w, f, g, h, p, dt, dx, dy, dz)
     return (u2, v2, w2, ops.max_element(u2), ops.max_element(v2),
             ops.max_element(w2))
 
 
-def ns3d_post(u, v, w, f, g, h, p, dt, dx, dy, dz):
+def ns3d_post(u, v, w, f, g, h, p, dt, dx, dy, dz, offs=None, gext=None):
     """K8: projection in place on u, v, w; returns (umax, vmax, wmax) as
-    0-dim tensors on the fields' device."""
+    0-dim tensors on the fields' device. With the shard's global offsets
+    and the global extents, the distributed mode on its halo-1 blocks
+    (the maxima are the shard's)."""
+    local, o, G = _mode(u.shape, offs, gext, 0, False)
     if u.device.type == "cpu":
         u2, v2, w2, *maxima = ns3d_post_plain(u, v, w, f, g, h, p, dt, dx,
-                                              dy, dz)
+                                              dy, dz, offs, gext)
         for a, b in ((u, u2), (v, v2), (w, w2)):
             a.copy_(b)
         return tuple(maxima)
     _check((u, v, w, f, g, h, p), dt)
-    kmax, jmax, imax = (n - 2 for n in u.shape)
     lib = _lib()
-    partial = torch.empty(lib.ns3d_post_partials(kmax, jmax, imax),
-                          dtype=u.dtype, device=u.device)
+    partial = torch.empty(lib.ns3d_post_partials(*local), dtype=u.dtype,
+                          device=u.device)
     out = torch.empty(3, dtype=u.dtype, device=u.device)
-    err = getattr(lib, f"ns3d_post_{_SUFFIX[u.dtype]}")(
-        u.device.index, u.data_ptr(), v.data_ptr(), w.data_ptr(),
-        f.data_ptr(), g.data_ptr(), h.data_ptr(), p.data_ptr(),
-        dt.data_ptr(), kmax, jmax, imax, dx, dy, dz, partial.data_ptr(),
-        out.data_ptr(), kb.stream_of(u))
+    with torch.cuda.device(u.device):
+        err = getattr(lib, f"ns3d_post_{_SUFFIX[u.dtype]}")(
+            u.device.index, u.data_ptr(), v.data_ptr(), w.data_ptr(),
+            f.data_ptr(), g.data_ptr(), h.data_ptr(), p.data_ptr(),
+            dt.data_ptr(), (ctypes.c_int * 3)(*local),
+            (ctypes.c_int * 6)(*o, *G), dx, dy, dz, partial.data_ptr(),
+            out.data_ptr(), kb.stream_of(u))
     kb.check(lib, err, "ns3d_post")
     NS3D_POST.launches += 1
     return out[0], out[1], out[2]

@@ -17,6 +17,10 @@ package runs one program per device under `shard_map`:
                                        neighbour's owned strip copied into
                                        the ghost strip (Tensor.copy_, which
                                        also crosses cards)
+  halo_shift (one ppermute)            halo_shift(blocks, comm, axis): the
+                                       low ghost strip only (commShift)
+  master_print (debug print on shard   master_print(comm, fmt, *args): one
+  (0, ..., 0))                         line from the one controller
   reduction (psum / pmax)              reduction(vals, comm): a fixed-order
                                        sum or max in mesh order, on shard
                                        0's device
@@ -300,6 +304,36 @@ def halo_exchange(blocks, comm: CartComm, periodic=(), depth: int = 1):
     return blocks
 
 
+def halo_shift(blocks, comm: CartComm, axis: str):
+    """commShift (assignment-6 comm.c:196-244): the one-directional
+    staggered exchange of the F/G/H donor edges, in place. Each block's LOW
+    ghost strip along `axis` takes the minus neighbour's last owned strip
+    (index -2); the first shard's physical ghost and every high ghost keep
+    their values. Returns the list."""
+    dim = comm.axis_names.index(axis)
+    if comm.dims[dim] == 1:
+        return blocks
+    n = blocks[0].shape[dim]
+    copies = []
+    for s, x in enumerate(blocks):
+        lo = comm.neighbour(s, axis, -1)
+        if lo is not None:
+            copies.append((x.narrow(dim, 0, 1),
+                           blocks[lo].narrow(dim, n - 2, 1)))
+    for dst, src in copies:
+        dst.copy_(src)
+    return blocks
+
+
+def master_print(comm: CartComm, fmt: str, *args) -> None:
+    """The rank-0 printing convention of the reference drivers: one line
+    (`fmt` with `{}` fields, as jax.debug.print takes it), printed by the
+    one controller, which is the master."""
+    if comm.is_master:
+        print(fmt.format(*(float(a) if isinstance(a, torch.Tensor) else a
+                           for a in args)))
+
+
 def reduction(vals, comm: CartComm, op: str = "sum"):
     """commReduction: the global sum or max of per-shard 0-dim tensors, in
     mesh order, on shard 0's device (a fixed order: no float atomics)."""
@@ -312,3 +346,36 @@ def reduction(vals, comm: CartComm, op: str = "sum"):
         v = v.to(acc.device)
         acc = acc + v if op == "sum" else torch.maximum(acc, v)
     return acc
+
+
+def assemble_global(blocks, comm: CartComm, interior) -> np.ndarray:
+    """Per-shard extended (l+2 per axis) blocks -> the reference-layout
+    global array (interior + ghost ring, (kmax+2, jmax+2, imax+2) in 3-D):
+    the block interiors everywhere, ghost strips only from the shards at a
+    wall (the JAX package's utils/checkpoint.assemble_global, over the
+    port's list of blocks). Keeps the blocks' dtype, on the host."""
+    local = tuple(n - 2 for n in blocks[0].shape)
+    host = [b.detach().cpu().numpy() for b in blocks]
+    full = np.zeros([p * e + 2 for p, e in zip(comm.dims, local)],
+                    host[0].dtype)
+    for s, blk in enumerate(host):
+        src, dst = [], []
+        for c, p, e in zip(comm.coords(s), comm.dims, local):
+            lo = 0 if c == 0 else 1
+            hi = e + 2 if c == p - 1 else e + 1
+            src.append(slice(lo, hi))
+            dst.append(slice(c * e + lo, c * e + hi))
+        full[tuple(dst)] = blk[tuple(src)]
+    return full[tuple(slice(0, g + 2) for g in interior)]
+
+
+def scatter_blocks(full, comm: CartComm, local) -> list:
+    """The inverse of assemble_global: a reference-layout global array ->
+    per-shard extended numpy blocks of interior extents `local`, in mesh
+    order. Interface ghosts come from the neighbours' interiors (the state
+    a fresh halo exchange gives), wall ghosts bit-exact (the JAX package's
+    utils/checkpoint.scatter_blocks)."""
+    full = np.asarray(full)
+    return [full[tuple(slice(c * e, c * e + e + 2)
+                       for c, e in zip(comm.coords(s), local))].copy()
+            for s in range(comm.size)]

@@ -146,3 +146,17 @@ def ca_clamp(n: int, *local_extents) -> int:
 def ca_inner(param, *local_extents) -> int:
     """The effective CA block size: `tpu_ca_inner` through ca_clamp."""
     return ca_clamp(param.tpu_ca_inner, *local_extents)
+
+
+def embed_deep(x, halo: int):
+    """Grow a 1-ghost-layer extended block into the deep-halo layout (any
+    rank): along each axis of owned extent L, the old ghost layers land at
+    local indices H-1 and H+L (wall ghosts keep their values); the new
+    outer layers are zero until the first deep exchange fills them.
+    Returns a new contiguous block."""
+    return torch.nn.functional.pad(x, (halo - 1,) * (2 * x.dim()))
+
+
+def strip_deep(x, halo: int):
+    """Inverse of embed_deep: the 1-ghost-layer extended block, as a view."""
+    return x[tuple(slice(halo - 1, d - (halo - 1)) for d in x.shape)]

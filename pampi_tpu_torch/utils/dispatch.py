@@ -118,14 +118,17 @@ def mesh_is_single(tpu_mesh: str, ndevices: int) -> bool:
     return ndevices == 1 if dims is None else all(d == 1 for d in dims)
 
 
-def check_supported(param, mesh: bool = False) -> None:
+def check_supported(param, mesh: bool = False, ragged: bool = False) -> None:
     """Raise NotImplementedError for every configuration outside the
-    ported stacks (2-D and 3-D single device with the red-black SOR,
-    multigrid and DCT pressure solvers; the distributed 2-D Poisson SOR
-    solve), ValueError for a value no package takes. `param` has been
+    ported stacks, ValueError for a value no package takes. The port runs
+    2-D and 3-D single device with the red-black SOR, multigrid and DCT
+    pressure solvers, and on a mesh (`tpu_mesh PJxPI`, `PKxPJxPI`) the
+    distributed 2-D Poisson SOR solve and the distributed NS-3D time
+    stepper under `tpu_solver sor` on a divisible grid. `param` has been
     through resolve_solver, which checks `tpu_solver`; `tpu_mg_fused` is
     checked where an MG build resolves it (resolve_mg_fused). `mesh` says
-    that the solve runs on a mesh (DistPoissonSolver); otherwise only an
+    that the solve runs on a mesh (the distributed solvers pass it), and
+    `ragged` that the mesh does not divide the grid; otherwise only an
     explicit mesh of several shards is held to the distributed layer's
     reach, since `auto` is resolved over the visible cards by the CLI
     (cli._make_comm)."""
@@ -141,26 +144,12 @@ def check_supported(param, mesh: bool = False) -> None:
             "obstacle flag fields are not yet ported (ROADMAP A.4)")
     dims = mesh_dims(param.tpu_mesh)
     if mesh or (dims is not None and math.prod(dims) > 1):
-        # the distributed layer runs the 2-D Poisson solve under
-        # `tpu_solver sor` (models/poisson_dist.py)
-        if not param.name.startswith("poisson") or three_d:
-            raise NotImplementedError(
-                f"tpu_mesh {param.tpu_mesh}: the distributed {param.name} "
-                "solver is not yet ported (ROADMAP A.8)")
-        if param.tpu_solver in ("mg", "fft"):
-            raise NotImplementedError(
-                f"tpu_solver {param.tpu_solver} on a mesh: the distributed "
-                "mg/fft solves are not yet ported (ROADMAP A.8)")
+        _check_mesh(param, three_d, ragged)
     # the SOR layout is checked where it is resolved
     # (models/poisson.resolve_layout, models/ns3d.resolve_layout_3d)
-    if three_d:
-        if param.tpu_vtk == "sharded":
-            raise NotImplementedError(
-                "tpu_vtk sharded (the MPI-IO-style writer) is not yet "
-                "ported (ROADMAP A.8)")
-        if param.tpu_vtk not in ("ascii", "binary"):
-            raise ValueError(
-                f"tpu_vtk must be ascii|binary|sharded, got {param.tpu_vtk!r}")
+    if three_d and param.tpu_vtk not in ("ascii", "binary", "sharded"):
+        raise ValueError(
+            f"tpu_vtk must be ascii|binary|sharded, got {param.tpu_vtk!r}")
     if param.tpu_sor_inner < 1:
         raise ValueError(
             f"tpu_sor_inner must be >= 1, got {param.tpu_sor_inner}")
@@ -168,3 +157,44 @@ def check_supported(param, mesh: bool = False) -> None:
         raise NotImplementedError(
             "checkpoint, restart and ring recovery are not yet ported "
             "(ROADMAP A.9)")
+
+
+def _check_mesh(param, three_d: bool, ragged: bool) -> None:
+    """The distributed layer's reach: the 2-D Poisson solve
+    (models/poisson_dist.py) and the NS-3D time stepper
+    (models/ns3d_dist.py), both under `tpu_solver sor`; NS-3D on a
+    divisible grid, with the serial exchange schedule and a fixed solve
+    budget."""
+    where = f"tpu_mesh {param.tpu_mesh}"
+    if not (param.name.startswith("poisson") and not three_d) and not (
+            three_d and param.name in ("dcavity3d", "canal3d", "dcavity",
+                                       "canal")):
+        raise NotImplementedError(
+            f"{where}: the distributed {param.name} solver is not yet "
+            "ported (ROADMAP A.8)")
+    if param.tpu_solver in ("mg", "fft"):
+        raise NotImplementedError(
+            f"tpu_solver {param.tpu_solver} on a mesh: the distributed "
+            "mg/fft solves are not yet ported (ROADMAP A.8)")
+    if not three_d:
+        return
+    if ragged:
+        raise NotImplementedError(
+            f"{where}: a mesh that does not divide the NS-3D grid (the "
+            "ragged pad-with-mask decomposition) is not yet ported "
+            "(ROADMAP A.8)")
+    if param.tpu_overlap == "on":
+        raise NotImplementedError(
+            "tpu_overlap on: the overlapped exchange schedule of the "
+            "distributed NS-3D step is not yet ported (ROADMAP A.8)")
+    if param.tpu_overlap not in ("auto", "off"):
+        raise ValueError(
+            f"tpu_overlap must be auto|on|off, got {param.tpu_overlap!r}")
+    if param.tpu_exchange_depth not in ("auto", "off"):
+        raise NotImplementedError(
+            f"tpu_exchange_depth {param.tpu_exchange_depth}: the K-step "
+            "fused exchange schedule is not yet ported (ROADMAP A.8)")
+    if param.tpu_itermax_adaptive > 0:
+        raise NotImplementedError(
+            "tpu_itermax_adaptive > 0: the residual-adaptive solve budget "
+            "of the distributed SOR paths is not yet ported (ROADMAP A.8)")

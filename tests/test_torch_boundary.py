@@ -25,6 +25,7 @@ from pampi_tpu.utils.params import read_parameter as jread_parameter
 from pampi_tpu_torch.kernels import build as kb
 from pampi_tpu_torch.models.ns2d import NS2DSolver
 from pampi_tpu_torch.models.ns3d import NS3DSolver
+from pampi_tpu_torch.models.ns3d_dist import NS3DDistSolver
 from pampi_tpu_torch.models.poisson import PoissonSolver
 from pampi_tpu_torch.utils.params import (
     Parameter,
@@ -71,7 +72,13 @@ def test_import_and_solve_load_no_jax():
                                  mesh).solve()
         rank_id_blocks(CartComm(ndims=3, dims=(2, 2, 2),
                                 devices=[torch.device("cpu")]), (2, 2, 2))
-        print(it, s.nt, s3.nt, mg[0], fft[0], dist[0])
+        from pampi_tpu_torch.models.ns3d_dist import NS3DDistSolver
+        d3 = NS3DDistSolver(Parameter(name="dcavity3d", imax=8, jmax=8,
+                                      kmax=8),
+                            CartComm(ndims=3, dims=(2, 2, 2),
+                                     devices=[torch.device("cpu")]))
+        d3.run_steps(2)
+        print(it, s.nt, s3.nt, mg[0], fft[0], dist[0], d3.nt)
         print(sorted(m for m in sys.modules
                      if m.startswith("jax") or m.startswith("pampi_tpu")))
     """)
@@ -79,13 +86,15 @@ def test_import_and_solve_load_no_jax():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, cwd=str(ROOT), timeout=120,
                          check=True).stdout.splitlines()
-    assert out[0] == "40 2 2 3 1 36"
+    assert out[0] == "40 2 2 3 1 36 2"
     loaded = ast.literal_eval(out[1])
     assert [m for m in loaded if _forbidden(m)] == []
     for mod in ("ops.sor_kernels", "ops.sor3d_kernels", "ops.ns3d_fused",
                 "ops.mg_fused", "ops.dctpoisson", "ops.sor_qdist",
                 "parallel.comm", "parallel.halo_debug",
-                "parallel.quarters_dist", "parallel.stencil2d"):
+                "parallel.quarters_dist", "parallel.stencil2d",
+                "ops.sor_odist", "parallel.octants_dist",
+                "parallel.stencil3d", "models.ns3d_dist"):
         assert f"pampi_tpu_torch.{mod}" in loaded
 
 
@@ -93,8 +102,11 @@ def test_port_sources_import_no_jax():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
     assert {PORT / "parallel" / f"{m}.py" for m in (
-        "comm", "halo_debug", "quarters_dist", "stencil2d")} <= set(files)
-    assert PORT / "models" / "poisson_dist.py" in files
+        "comm", "halo_debug", "quarters_dist", "stencil2d", "octants_dist",
+        "stencil3d")} <= set(files)
+    assert {PORT / "models" / "poisson_dist.py",
+            PORT / "models" / "ns3d_dist.py",
+            PORT / "ops" / "sor_odist.py"} <= set(files)
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
@@ -117,6 +129,8 @@ def test_cuda_request_without_gpu_raises(monkeypatch):
         NS2DSolver(Parameter(name="dcavity", imax=8, jmax=8), device="cuda")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         NS3DSolver(Parameter(name="dcavity3d", imax=8, jmax=8, kmax=8))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        NS3DDistSolver(Parameter(name="dcavity3d", imax=8, jmax=8, kmax=8))
 
 
 def test_parameter_from_dict_round_trip():
@@ -163,6 +177,7 @@ def test_kernel_registry():
         ns3d_fused,
         sor3d_kernels,
         sor_kernels,
+        sor_odist,
         sor_qdist,
     )
 
@@ -171,11 +186,12 @@ def test_kernel_registry():
                                "rb_sor3d_checkerboard", "rb_sor3d_octants",
                                "ns3d_pre", "ns3d_post",
                                "mg_down_2d", "mg_up_2d",
-                               "mg_down_3d", "mg_up_3d", "rb_sor_qdist"}
+                               "mg_down_3d", "mg_up_3d", "rb_sor_qdist",
+                               "rb_sor_odist"}
     for k in kb.KERNELS.values():
         assert (ROOT / k.source).is_file()
         path, line = k.replaces.split(":")
         src = (ROOT / path).read_text().splitlines()
         assert "pl.pallas_call(" in src[int(line) - 1], k
     assert kb.sources() == ["mg_cycle", "ns2d_fused", "ns3d_fused",
-                            "sor3d_rb", "sor_qdist", "sor_rb"]
+                            "sor3d_rb", "sor_odist", "sor_qdist", "sor_rb"]

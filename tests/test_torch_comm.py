@@ -132,6 +132,69 @@ def test_halo_exchange_3d_matches_jax():
             np.testing.assert_array_equal(g.numpy(), w)
 
 
+@pytest.mark.parametrize("dims", [(1, 2, 4), (2, 1, 1), (2, 2, 2)])
+def test_halo_exchange_3d_deep_matches_jax(dims):
+    """3-D blocks at depth 1 and at the fused step's depth 3, on meshes with
+    extent-1 axes; owned extents of 2 below depth 3 take the read-all-
+    strips-first path."""
+    rng = np.random.default_rng(sum(dims))
+    jc, tc = _comms(dims)
+    for depth, local in ((1, (4, 3, 2)), (3, (4, 3, 2)), (3, (5, 6, 4))):
+        ext = tuple(e + 2 * depth for e in local)
+        blocks = [rng.standard_normal(ext) for _ in range(int(np.prod(dims)))]
+        want = _jax_exchange(jc, blocks, depth)
+        got = comm.halo_exchange([torch.from_numpy(b.copy()) for b in blocks],
+                                 tc, depth=depth)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), w)
+
+
+@pytest.mark.parametrize("dims", [(2, 2, 2), (1, 2, 4)])
+def test_halo_shift_matches_jax(dims):
+    """commShift along each axis: the low ghost strip from the minus
+    neighbour's last owned strip, walls and high ghosts kept."""
+    rng = np.random.default_rng(5)
+    blocks = [rng.standard_normal((5, 6, 7))
+              for _ in range(int(np.prod(dims)))]
+    jc, tc = _comms(dims)
+    for axis in ("k", "j", "i"):
+        fn = jc.shard_map(lambda x, a=axis: jcomm.halo_shift(x, jc, a),
+                          in_specs=(jc.spec(),), out_specs=jc.spec())
+        want = _untile(np.asarray(jax.jit(fn)(
+            jnp.asarray(_tile(blocks, dims)))), dims)
+        got = comm.halo_shift([torch.from_numpy(b.copy()) for b in blocks],
+                              tc, axis)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), w)
+
+
+def test_embed_strip_deep_and_global_blocks_match_jax():
+    """stencil2d.embed_deep/strip_deep and the reference-layout
+    assemble_global/scatter_blocks against the JAX package's."""
+    from pampi_tpu.parallel import stencil2d as jst
+    from pampi_tpu.utils import checkpoint as jckpt
+    from pampi_tpu_torch.parallel import stencil2d as st
+
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((4, 5, 6))
+    deep = st.embed_deep(torch.from_numpy(x), 3)
+    np.testing.assert_array_equal(deep.numpy(),
+                                  np.asarray(jst.embed_deep(x, 3)))
+    np.testing.assert_array_equal(st.strip_deep(deep, 3).numpy(), x)
+    dims, local = (2, 1, 2), (4, 6, 3)
+    full = rng.standard_normal((10, 8, 8))
+    tc = comm.CartComm(ndims=3, dims=dims, devices=[CPU])
+    blocks = comm.scatter_blocks(full, tc, local)
+    want = _untile(jckpt.scatter_blocks(full, dims, local), dims)
+    for b, w in zip(blocks, want):
+        np.testing.assert_array_equal(b, w)
+    back = comm.assemble_global([torch.from_numpy(b) for b in blocks], tc,
+                                (8, 6, 6))
+    np.testing.assert_array_equal(back, jckpt.assemble_global(
+        _tile(want, dims), dims, local, (8, 6, 6)))
+    np.testing.assert_array_equal(back, full)
+
+
 @pytest.mark.parametrize("op", ["sum", "max"])
 def test_reduction_matches_jax(op):
     vals = np.random.default_rng(9).standard_normal(8)

@@ -7,8 +7,9 @@ elsewhere; on the card run
 Fields must agree to 1e-12 (float64) / 1e-5 (float32) of their scale: the
 kernels keep the plain versions' association and are built without fma
 contraction, only the r² sums are reduced in another order. The MG cycle
-kernels K9-K12 and the distributed quarter kernel K13 keep every
-operation of their plain versions, so their fields are held bitwise; an MG
+kernels K9-K12 and the distributed quarter and octant kernels K13 and K14
+keep every operation of their plain versions, so their fields are held
+bitwise, and K14 on a one-shard mesh is K6, residual included; an MG
 run on the card against the CPU, whose DCT bottom's matrix products sum in
 another order, to 1e-9."""
 
@@ -24,11 +25,14 @@ from pampi_tpu_torch.ops import ns2d_fused as nf
 from pampi_tpu_torch.ops import ns3d_fused as nf3
 from pampi_tpu_torch.ops import sor3d_kernels as sk3
 from pampi_tpu_torch.ops import sor_kernels as sk
+from pampi_tpu_torch.ops import sor_odist as so
 from pampi_tpu_torch.ops import sor_qdist as sq
 from pampi_tpu_torch.ops.sor3d import sor_coefficients_3d
 from pampi_tpu_torch.ops.sor_octants import stack_octants
 from pampi_tpu_torch.ops.sor_quarters import stack_quarters
+from pampi_tpu_torch.models.ns3d_dist import NS3DDistSolver
 from pampi_tpu_torch.models.poisson_dist import DistPoissonSolver
+from pampi_tpu_torch.parallel import octants_dist as od
 from pampi_tpu_torch.parallel import quarters_dist as qd
 from pampi_tpu_torch.parallel.comm import CartComm
 from pampi_tpu_torch.utils.params import Parameter
@@ -280,3 +284,124 @@ def test_dist_poisson_across_cards_matches_cpu(cuda):
                                             devices=[torch.device("cpu")]))
     assert cpu.solve()[0] == 120
     assert np.array_equal(card.full_field(), cpu.full_field())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dims,offs", [
+    ((2, 2, 2), (0, 0, 0)), ((2, 2, 2), (8, 8, 8)), ((1, 2, 4), (0, 8, 24)),
+    ((1, 1, 1), (0, 0, 0))])
+def test_odist_kernel_matches_plain(cuda, dtype, dims, offs):
+    """K14 on random stacked volumes of a shard of 32x32x64 (n = 2) at its
+    global octant offsets, walls and ghosts included: volumes bitwise, the
+    owned r² to the sum-order tolerance."""
+    ext = (32, 32, 64) if dims != (1, 1, 1) else (16, 16, 16)
+    local = tuple(e // d for e, d in zip(ext, dims))
+    g = od.make_ogeom(*ext, *local, 2, dims=dims)
+    coef = sor_coefficients_3d(1 / ext[2], 1 / ext[1], 1 / ext[0], 1.8)
+    x = _rand((8, g.kq, g.jq, g.iq), dtype, cuda, 31)
+    f = _rand((8, g.kq, g.jq, g.iq), dtype, cuda, 32)
+    xk, xp = x.clone(), x.clone()
+    launches = so.RB_SOR_ODIST.launches
+    for _ in range(2):
+        rk = so.rb_sor_odist(xk, f, g, offs, *coef)
+        rp = so.rb_sor_odist_plain(xp, f, g, offs, *coef)
+    assert so.RB_SOR_ODIST.launches == launches + 2
+    assert torch.equal(xk, xp)
+    assert abs(float(rk) - float(rp)) <= _tol(dtype) * float(rp)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_odist_kernel_on_one_shard_is_k6(cuda, dtype):
+    """On a (1, 1, 1) mesh the shard's volume is K6's stacked octants: K14
+    and K6 give the same volume and the same residual, bitwise."""
+    g = od.make_ogeom(24, 16, 32, 24, 16, 32, 3, dims=(1, 1, 1))
+    coef = sor_coefficients_3d(1 / 32, 1 / 16, 1 / 24, 1.7)
+    p = _rand((26, 18, 34), dtype, cuda, 41)
+    rhs = _rand((26, 18, 34), dtype, cuda, 42)
+    q14, q6 = stack_octants(p), stack_octants(p)
+    f = stack_octants(rhs)
+    assert tuple(q14.shape) == (8, g.kq, g.jq, g.iq)
+    for _ in range(2):
+        r14 = so.rb_sor_odist(q14, f, g, (0, 0, 0), *coef)
+        r6 = sk3.rb_sor3d_octants(q6, f, g.n, *coef)
+    assert torch.equal(q14, q6)
+    assert torch.equal(r14, r6)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("problem,bckw", [
+    ("dcavity3d", {}),
+    ("canal3d", dict(bcLeft=3, bcRight=3, bcFront=2, bcBack=2))])
+@pytest.mark.parametrize("offs", [(0, 0, 0), (8, 8, 8), (16, 0, 16)])
+def test_ns3d_step_kernels_distributed_match_plain(cuda, dtype, problem,
+                                                   bckw, offs):
+    """K7 on a shard's deep block and K8 on its halo-1 blocks (8³ shards of
+    24³) against their plain versions: u', v', w' and the maxima bitwise,
+    F/G/H/rhs and u'', v'', w'' to the tolerance."""
+    G = (24, 24, 24)
+    param = Parameter(name=problem, imax=24, jmax=24, kmax=24, re=100.0,
+                      **bckw)
+    cfg = nf3.StepConfig3D.from_param(param)
+    u, v, w = (_rand((14, 14, 14), dtype, cuda, 51 + k) for k in range(3))
+    p = _rand((10, 10, 10), dtype, cuda, 54)
+    dt = torch.tensor(0.013, dtype=dtype, device=cuda)
+    uk, vk, wk = u.clone(), v.clone(), w.clone()
+    fk = nf3.ns3d_pre(uk, vk, wk, dt, cfg, offs, G, 2)
+    plain = nf3.ns3d_pre_plain(u, v, w, dt, cfg, offs, G, 2)
+    for a, b in zip((uk, vk, wk), plain[:3]):
+        assert torch.equal(a, b)
+    for a, b in zip(fk, plain[3:]):
+        _assert_close(a, b, dtype)
+    strip = (slice(2, -2),) * 3
+    halo1 = [a[strip].contiguous() for a in (uk, vk, wk)]
+    mk = nf3.ns3d_post(*halo1, *fk[:3], p, dt, cfg.dx, cfg.dy, cfg.dz,
+                       offs, G)
+    mp = nf3.ns3d_post_plain(*(a[strip] for a in plain[:3]), *plain[3:6], p,
+                             dt, cfg.dx, cfg.dy, cfg.dz, offs, G)
+    for a, b in zip(halo1, mp[:3]):
+        _assert_close(a, b, dtype)
+    for m, a in zip(mk, halo1):
+        assert torch.equal(m, a.abs().max())
+
+
+def test_dist_ns3d_on_card_matches_cpu(cuda):
+    """dcavity3d 16³ f64 on a (2, 2, 2) mesh whose shards share the card
+    (K7, K8, K14) against the same mesh on the CPU (their plain versions):
+    the same step count and bitwise fields (eps below reach: the r² sums,
+    reduced in another order, decide nothing)."""
+    param = Parameter(name="dcavity3d", imax=16, jmax=16, kmax=16, re=100.0,
+                      te=0.2, itermax=40, eps=1e-30, tpu_sor_inner=2,
+                      tpu_dtype="float64")
+    runs = []
+    for device in ("cuda", "cpu"):
+        s = NS3DDistSolver(param, CartComm(ndims=3, dims=(2, 2, 2),
+                                           devices=[torch.device(device)]))
+        s.run(progress=False)
+        runs.append((s.nt, s.t, s.collect()))
+    assert runs[0][:2] == runs[1][:2]
+    for a, b in zip(runs[0][2], runs[1][2]):
+        assert np.array_equal(a, b)
+
+
+def test_dist_ns3d_across_cards_matches_cpu(cuda):
+    """`tpu_mesh auto` over every visible card (one shard per card, the
+    deep and octant exchanges copied between cards) against the same mesh
+    on the CPU: the same step count, bitwise fields, and the caller's
+    current card unchanged by the launches on the other cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more cards")
+    param = Parameter(name="dcavity3d", imax=16, jmax=16, kmax=16, re=100.0,
+                      te=0.2, itermax=40, eps=1e-30, tpu_sor_inner=2,
+                      tpu_dtype="float64")
+    mesh = CartComm(ndims=3, extents=(16, 16, 16))
+    assert mesh.size == torch.cuda.device_count() and not mesh.shared
+    current = torch.cuda.current_device()
+    card = NS3DDistSolver(param, mesh)
+    card.run(progress=False)
+    assert torch.cuda.current_device() == current
+    cpu = NS3DDistSolver(param, CartComm(ndims=3, dims=mesh.dims,
+                                         devices=[torch.device("cpu")]))
+    cpu.run(progress=False)
+    assert (card.nt, card.t) == (cpu.nt, cpu.t)
+    for a, b in zip(card.collect(), cpu.collect()):
+        assert np.array_equal(a, b)

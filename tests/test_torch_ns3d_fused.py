@@ -112,3 +112,86 @@ def test_wrappers_refuse_other_devices():
         nf3.ns3d_pre(z, z, z, dt, cfg)
     with pytest.raises(ValueError):
         nf3.ns3d_post(z, z, z, z, z, z, z, dt, 0.1, 0.1, 0.1)
+
+
+# the distributed mode: shards of 8³ of a 24³ grid at a low corner, an
+# interior and a high corner position, and one on the high i and low k
+# walls (the kernels see only the offsets and the global extents)
+SHARD_OFFSETS = [(0, 0, 0), (8, 8, 8), (16, 16, 16), (0, 8, 16)]
+H = 3  # FUSE_DEEP_HALO: the deep block has H - 1 = 2 more ghost layers
+
+
+@pytest.mark.parametrize("problem,bckw", CASES, ids=["dcavity3d", "canal3d"])
+@pytest.mark.parametrize("offs", SHARD_OFFSETS,
+                         ids=["lo-corner", "interior", "hi-corner", "mixed"])
+def test_distributed_mode_matches_fused_interpret(problem, bckw, offs):
+    """K7/K8's distributed mode (plain versions) against the JAX kernels
+    built for a shard (kl, jl, il, ext_pad = H - 1), on random deep and
+    halo-1 blocks: the deep blocks after the BCs bitwise, F/G/H/rhs (on
+    the halo-1 block) and u'', v'', w'' to 1e-12 of scale; the maxima
+    bitwise against the port's own fields and, as on one device, to 1e-12
+    against JAX's (the maximum can sit on a projected cell, whose last bit
+    XLA's contracted multiply-adds move)."""
+    G = (24, 24, 24)
+    kl = jl = il = 8
+    kw = dict(name=problem, imax=G[2], jmax=G[1], kmax=G[0], re=100.0,
+              gamma=0.9, gx=0.1, gy=-0.2, gz=0.05, **bckw)
+    jparam, param = JParameter(**kw), Parameter(**kw)
+    cfg = nf3.StepConfig3D.from_param(param)
+    rng = np.random.default_rng(sum(offs) + 5)
+    deep = [rng.normal(size=(kl + 2 * H,) * 3) for _ in range(3)]
+    ext = [rng.normal(size=(kl + 2,) * 3) for _ in range(7)]
+    dt = 0.011
+    pre, pad_d, unpad_d, _h = jnf3.make_fused_pre_3d(
+        jparam, *G, cfg.dx, cfg.dy, cfg.dz, jnp.float64, kl=kl, jl=jl, il=il,
+        ext_pad=H - 1, interpret=True)
+    post, pad_e, unpad_e, _h = jnf3.make_fused_post_3d(
+        jparam, *G, cfg.dx, cfg.dy, cfg.dz, jnp.float64, kl=kl, jl=jl, il=il,
+        interpret=True)
+    joffs = jnp.asarray(offs, jnp.int32)
+    dt11 = jnp.full((1, 1), dt, jnp.float64)
+    outs = [np.asarray(unpad_d(a)) for a in pre(
+        joffs, dt11, *(pad_d(jnp.asarray(a)) for a in deep))]
+    strip = (slice(H - 1, -(H - 1)),) * 3
+
+    tu, tv, tw = (_t(a) for a in deep)
+    tdt = torch.tensor(dt, dtype=torch.float64)
+    f, g, h, rhs = nf3.ns3d_pre(tu, tv, tw, tdt, cfg, offs, G, H - 1)
+    for a, b in zip((tu, tv, tw), outs[:3]):
+        assert np.array_equal(a.numpy(), b)
+    for a, b in zip((f, g, h, rhs), outs[3:]):
+        _close(a, b[strip])
+
+    jout = post(joffs, dt11, *(pad_e(jnp.asarray(a)) for a in ext))
+    fields = [_t(a) for a in ext]
+    maxima = nf3.ns3d_post(*fields, tdt, cfg.dx, cfg.dy, cfg.dz, offs, G)
+    for a, b in zip(fields[:3], jout[:3]):
+        _close(a, unpad_e(b))
+    for got, want, field in zip(maxima, jout[3:], fields):
+        assert float(got) == float(field.abs().max())
+        assert abs(float(got) - float(want)) <= TOL * max(1.0, float(want))
+
+
+def test_distributed_mode_at_offset_zero_is_the_single_device_call():
+    """A one-shard mesh: the distributed mode on the deep block gives the
+    single-device call's fields bitwise."""
+    param = Parameter(name="dcavity3d", imax=10, jmax=8, kmax=6, re=100.0)
+    cfg = nf3.StepConfig3D.from_param(param)
+    rng = np.random.default_rng(9)
+    u, v, w, p = (_t(rng.normal(size=(8, 10, 12))) for _ in range(4))
+    dt = torch.tensor(0.01, dtype=torch.float64)
+    single = [a.clone() for a in (u, v, w)]
+    fs = nf3.ns3d_pre(*single, dt, cfg)
+    deep = [torch.nn.functional.pad(a, (H - 1,) * 6) for a in (u, v, w)]
+    fd = nf3.ns3d_pre(*deep, dt, cfg, (0, 0, 0), (6, 8, 10), H - 1)
+    for a, b in zip(single, deep):
+        assert torch.equal(a, b[(slice(H - 1, -(H - 1)),) * 3])
+    for a, b in zip(fs, fd):
+        assert torch.equal(a, b)
+    ms = nf3.ns3d_post(*single, *fs[:3], p, dt, cfg.dx, cfg.dy, cfg.dz)
+    ud = [b[(slice(H - 1, -(H - 1)),) * 3].clone() for b in deep]
+    md = nf3.ns3d_post(*ud, *fd[:3], p, dt, cfg.dx, cfg.dy, cfg.dz,
+                       (0, 0, 0), (6, 8, 10))
+    for a, b in zip(single, ud):
+        assert torch.equal(a, b)
+    assert all(torch.equal(a, b) for a, b in zip(ms, md))
