@@ -37,8 +37,10 @@ the last line):
    layouts, split the same way, with the host syncs priced by the same 25
    solve calls back to back; then configs/canal3d.par (200x50x50,
    float64) for 8 steps; every kernel of a path must have been launched;
-5. configs/dcavity.par (100², float64) with te 0.2, once on the card and
-   once on the CPU: the written .dat fields must agree to 1e-9;
+5. configs/dcavity.par (100², float64) with te 0.05, once on the card and
+   once on the CPU (`python -m pampi_tpu_torch --device cpu` in a process
+   of its own, started with the card half after the timed phases and
+   read at the end): the written .dat fields must agree to 1e-9;
 6. configs/dcavity3d.par at 32³ float64, te 1.0, and configs/canal3d.par
    at 48x16x16, te 0.5, both with tpu_sor_inner 1, on the card against the
    reference's own VTK output in tests/fixtures: 1e-6, and 112 steps for
@@ -106,9 +108,46 @@ its eight shards on the one card) adds:
    pampi_tpu_torch` on dcavity3d 16³ float64 with tpu_mesh 2x2x2 and
    tpu_vtk sharded, on the card and on the CPU (fields 1e-9).
 
+The float64 solves check convergence every iteration on one device and
+every tpu_ca_inner iterations on a mesh (utils/dispatch.sor_cadence), so
+phase 2 also holds K1, K2, K5, K6, K13 and K14 against their plain
+versions at n = 1.
+
+The distributed NS-2D slice (a 2-D mesh, divisible or ragged, its shards
+on the one card) adds:
+
+2. the per-shard flag-masked kernel K15 against its plain version (two
+   calls, blocks bitwise) and K3/K4 in their distributed mode (K3 on a
+   shard's deep block, K4 on its halo-1 blocks; copies and maxima
+   bitwise, the rest to the tolerance) on every shard of the main path's
+   runs (dcavity 4096² f32 on 2x2, the ragged 3x1 and 2x2 under
+   tpu_sor_layout checkerboard) and of configs/dcavity.par on 3x3 and
+   configs/canal.par on 3x2 (f64, ragged); K15 on a 1x1 mesh with
+   all-fluid flags against K2 (1e-12 / 1e-5 of scale: the relaxation
+   factor is formed from the flags);
+3. K15 per 1366x4096 shard call of 4096² f32 on the ragged 3x1 (n = 4,
+   deep block 1384x4114) and K3/K4 distributed per shard call, beside
+   their bounds;
+4. dcavity 4096² f32 (re 1000, tpu_sor_inner 4, itermax 100, eps 0), 16
+   steps after one warm-up through NS2DDistSolver on 2x2 (K13), the ragged
+   3x1 (K15) and 2x2 checkerboard (K15): PRE / solve / POST and the
+   exchanges' share of the step from CUDA events, the launches, the
+   fields against NS2DSolver (K1) over the same 17 steps (1e-5 of scale,
+   0.0 expected on 2x2); on a machine with four cards the 2x2 run once
+   more with one shard per card (skipped, with a line, on one card);
+   `python -m pampi_tpu_torch` on configs/dcavity.par (te cut to 0.001:
+   its first solves run to itermax 1000) on 2x2 and 3x3 and
+   configs/canal.par (te 0.5) on 2x2, 3x3 and 3x2, on the card and on the
+   CPU: pressure.dat and velocity.dat within 1e-9, the same step count;
+   and configs/dcavity.par to te 0.05 (400 steps) on 2x2 and 3x3 on the
+   card, each in a process of its own beside those runs, against the
+   single-device card run of phase 5: u, v, p within 1e-9 of scale, the
+   same steps and t.
+
 It then prints the kernels line (JSON; K5-K8 and K11/K12 at 256³, where a
 field outgrows the L2 and the bound is a floor, with their 128³ numbers
-under main_shape_* keys and K7/K8's distributed mode under dist_* keys),
+under main_shape_* keys and the distributed modes of K3/K4 and K7/K8
+under dist_* keys),
 the card's name and power limit
 from nvidia-smi, and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1198,31 +1237,107 @@ def mg_fft_card_vs_cpu(torch):
         raise AssertionError(f"card and CPU disagree: {bad}")
 
 
-DCAVITY_TE = 0.2  # the CPU half of this phase is most of the script's time
+# the CPU half of this check is the script's longest single run: at
+# float64 it checks convergence every iteration (utils/dispatch.
+# sor_cadence), and te 0.2 (1601 steps) took 358 s of it on the CPU and 45
+# s on the card; te 0.05 (400 steps) took 143.7 s on the CPU, so it runs
+# in a process of its own beside the card's last phases
+DCAVITY_TE = 0.05
+# the card's fields at DCAVITY_TE (full precision, and as written to the
+# .dat files), which the CPU half and the mesh runs of dist2d_cli are held
+# against; the CPU half's process and directory
+DCAVITY_CARD = {}
+DCAVITY_CPU = {}
 
 
-@phase(f"configs/dcavity.par te {DCAVITY_TE}: card vs CPU")
-def dcavity_card_vs_cpu(np):
+def dcavity_par(tmp, te):
+    """configs/dcavity.par with te replaced, written into tmp."""
+    import re
+
+    text = open(os.path.join(ROOT, "configs", "dcavity.par")).read()
+    path = os.path.join(tmp, "dcavity.par")
+    with open(path, "w") as fh:
+        fh.write(re.sub(r"^te .*$", f"te {te}", text, flags=re.M))
+    return path
+
+
+# every process the script starts, stopped on the way out
+PROCS = []
+
+
+def start(args, cwd, log_path, env=None):
+    """Start a process of the script's own, its output to log_path."""
+    with open(log_path, "w") as out:
+        proc = subprocess.Popen(args, cwd=cwd, stdout=out,
+                                stderr=subprocess.STDOUT, env=env)
+    PROCS.append(proc)
+    return proc
+
+
+def stop_procs():
+    """Stop every process the script started that still runs; remove the
+    CPU half's files."""
+    import shutil
+
+    for proc in PROCS:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if "tmp" in DCAVITY_CPU:
+        shutil.rmtree(DCAVITY_CPU.pop("tmp"), ignore_errors=True)
+
+
+@phase(f"configs/dcavity.par te {DCAVITY_TE}: the card half, the CPU half "
+       "started beside it")
+def dcavity_card(np):
     from pampi_tpu_torch.models.ns2d import NS2DSolver
     from pampi_tpu_torch.utils.datio import read_pressure, read_velocity
     from pampi_tpu_torch.utils.params import read_parameter
 
-    param = read_parameter(os.path.join(ROOT, "configs", "dcavity.par"))
-    param = param.replace(te=DCAVITY_TE)
-    with tempfile.TemporaryDirectory() as tmp:
-        fields = {}
-        for device in ("cuda", "cpu"):
-            t0 = time.perf_counter()
-            s = NS2DSolver(param, device=device)
-            s.run(progress=False)
-            pp = os.path.join(tmp, f"pressure_{device}.dat")
-            vp = os.path.join(tmp, f"velocity_{device}.dat")
-            s.write_result(pp, vp)
-            fields[device] = (read_pressure(pp), *read_velocity(vp))
-            log(f"{device}: {s.nt} steps to t={s.t:.6f} in "
-                f"{time.perf_counter() - t0:.1f} s")
+    tmp = tempfile.mkdtemp(prefix="dcavity_cpu_")
+    DCAVITY_CPU["tmp"] = tmp
+    par = dcavity_par(tmp, DCAVITY_TE)
+    env = dict(os.environ, OMP_NUM_THREADS="4",
+               PYTHONPATH=os.pathsep.join(
+                   [ROOT] + [x for x in [os.environ.get("PYTHONPATH")] if x]))
+    DCAVITY_CPU["proc"] = start(
+        [sys.executable, "-m", "pampi_tpu_torch", "--device", "cpu", par],
+        tmp, os.path.join(tmp, "cli.log"), env)
+    t0 = time.perf_counter()
+    s = NS2DSolver(read_parameter(par), device="cuda")
+    s.run(progress=False)
+    pp = os.path.join(tmp, "pressure_cuda.dat")
+    vp = os.path.join(tmp, "velocity_cuda.dat")
+    s.write_result(pp, vp)
+    DCAVITY_CARD.update(nt=s.nt, t=s.t,
+                        dat=(read_pressure(pp), *read_velocity(vp)),
+                        **{k: getattr(s, k).cpu().numpy() for k in "uvp"})
+    log(f"cuda: {s.nt} steps to t={s.t:.6f} in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+@phase(f"configs/dcavity.par te {DCAVITY_TE}: card vs CPU")
+def dcavity_card_vs_cpu(np):
+    from pampi_tpu_torch.utils.datio import read_pressure, read_velocity
+
+    if "dat" not in DCAVITY_CARD or "proc" not in DCAVITY_CPU:
+        raise AssertionError("the card half did not run")
+    tmp, proc = DCAVITY_CPU["tmp"], DCAVITY_CPU["proc"]
+    waited = time.perf_counter()
+    rc = proc.wait(timeout=600)
+    waited = time.perf_counter() - waited
+    out = open(os.path.join(tmp, "cli.log")).read()
+    if rc != 0:
+        log(out[-4000:])
+        raise AssertionError(f"the CPU half exited {rc}")
+    took = [ln for ln in out.splitlines() if ln.startswith("Solution took")]
+    cpu = (read_pressure(os.path.join(tmp, "pressure.dat")),
+           *read_velocity(os.path.join(tmp, "velocity.dat")))
     diff = max(float(np.abs(a - b).max())
-               for a, b in zip(fields["cuda"], fields["cpu"]))
+               for a, b in zip(DCAVITY_CARD["dat"], cpu))
+    log(f"cpu: python -m pampi_tpu_torch --device cpu in its own process: "
+        f"{took[-1] if took else 'no timing line'}; waited {waited:.1f} s "
+        f"for it here")
     log(f"dcavity.par te {DCAVITY_TE} f64: max |card - cpu| over the .dat "
         f"fields {diff:.3e} (tol 1e-9)")
     if not diff <= 1e-9:
@@ -1843,14 +1958,11 @@ def time_dist3d(torch, np):
 
 
 @contextlib.contextmanager
-def dist3d_exchange_marks(mark):
-    """Wrap the halo and octant exchanges that models/ns3d_dist.py calls
-    (it looks both up at call time) so that mark() opens "exchange" before
-    each and "compute" after it."""
-    from pampi_tpu_torch.parallel import comm as pc
-    from pampi_tpu_torch.parallel import octants_dist as od
-
-    halo, octs = pc.halo_exchange, od.o_exchange
+def exchange_spans(mark, *targets):
+    """Wrap the exchange functions `targets` ((module, name) pairs, which
+    the solvers look up at call time) so that mark() opens "exchange"
+    before each call and "compute" after it."""
+    saved = [(mod, name, getattr(mod, name)) for mod, name in targets]
 
     def timed(fn):
         def run(*a, **kw):
@@ -1860,11 +1972,13 @@ def dist3d_exchange_marks(mark):
             return out
         return run
 
-    pc.halo_exchange, od.o_exchange = timed(halo), timed(octs)
+    for mod, name, fn in saved:
+        setattr(mod, name, timed(fn))
     try:
         yield
     finally:
-        pc.halo_exchange, od.o_exchange = halo, octs
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 @phase("main path: distributed NS-3D configs/dcavity3d.par 128³ on 2x2x2 "
@@ -1873,6 +1987,8 @@ def main_path_dist3d(torch):
     from pampi_tpu_torch.kernels import build as kb
     from pampi_tpu_torch.models.ns3d import NS3DSolver
     from pampi_tpu_torch.models.ns3d_dist import NS3DDistSolver
+    from pampi_tpu_torch.parallel import comm as pc
+    from pampi_tpu_torch.parallel import octants_dist as od
     from pampi_tpu_torch.parallel.comm import CartComm
 
     def compare(dist, single):
@@ -1902,7 +2018,7 @@ def main_path_dist3d(torch):
         marks, mark = event_marks(torch)
         s.phase_hook = mark
         torch.cuda.synchronize()
-        with dist3d_exchange_marks(mark):
+        with exchange_spans(mark, (pc, "halo_exchange"), (od, "o_exchange")):
             t0 = time.perf_counter()
             s.run_steps(16)
             torch.cuda.synchronize()
@@ -2069,6 +2185,607 @@ def dist3d_cli(np):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# The distributed NS-2D slice: K15 and the distributed mode of K3/K4
+# ---------------------------------------------------------------------------
+
+
+def dist2d_main_configs():
+    """The distributed NS-2D main path's runs as (label, param, mesh dims):
+    dcavity 4096² f32 (re 1000, tpu_sor_inner 4, itermax 100, eps 0: every
+    solve runs 25 rounds at n = 4) on 2x2 (K13), on the ragged 3x1 (K15,
+    1366-row shards) and on 2x2 under tpu_sor_layout checkerboard (K15).
+    The kernel checks take their shapes from here."""
+    J, I = MAIN
+    base = config("dcavity.par", imax=I, jmax=J, re=1000.0, itermax=100,
+                  eps=0.0, te=1e9, tpu_dtype="float32", tpu_sor_inner=4)
+    return (("2x2", base.replace(tpu_mesh="2x2"), (2, 2)),
+            ("3x1 ragged", base.replace(tpu_mesh="3x1"), (3, 1)),
+            ("2x2 checkerboard", base.replace(
+                tpu_mesh="2x2", tpu_sor_layout="checkerboard"), (2, 2)))
+
+
+def dist2d_check_configs():
+    """The main path's runs and the CLI phase's shipped configs on their
+    ragged meshes: configs/dcavity.par (100² f64) on 3x3 (34² shards) and
+    configs/canal.par (200x50 f64) on 3x2."""
+    return dist2d_main_configs() + (
+        ("dcavity.par 3x3", config("dcavity.par", tpu_mesh="3x3"), (3, 3)),
+        ("canal.par 3x2", config("canal.par", tpu_mesh="3x2"), (3, 2)))
+
+
+def dist2d_solver(param, dims):
+    """NS2DDistSolver of param on a dims mesh of the card(s)."""
+    from pampi_tpu_torch.models.ns2d_dist import NS2DDistSolver
+    from pampi_tpu_torch.parallel.comm import CartComm
+
+    return NS2DDistSolver(param, CartComm(ndims=2, dims=dims))
+
+
+def check_obsdist(torch, np, solve, param, dtype, seed, calls=2):
+    """K15 and its plain version on copies of random deep blocks of every
+    shard of a solver's K15 solve (its geometry, flags and offsets),
+    `calls` calls each. Returns (blocks bitwise, residual rel_err,
+    max_abs_err)."""
+    from pampi_tpu_torch.ops import sor_obsdist as sod
+
+    g = solve.geom
+    dx, dy = param.xlength / param.imax, param.ylength / param.jmax
+    coef = (param.omg, 1.0 / (dx * dx), 1.0 / (dy * dy))
+    bitwise, er, err = True, 0.0, 0.0
+    for k, (fl, offs) in enumerate(zip(solve.flags, solve.offs)):
+        x, f = rng_fields(torch, np, g.shape, dtype, 2, seed + k)
+        xk, xp = x.clone(), x.clone()
+        for _ in range(calls):
+            rk = sod.rb_sor_obsdist(xk, f, fl, g, offs, *coef)
+            rp = sod.rb_iters_obsdist_plain(xp, f, fl, g, offs, *coef)
+        bitwise = bitwise and torch.equal(xk, xp)
+        er = max(er, abs(float(rk) - float(rp)) / abs(float(rp)))
+        err = max(err, float((xk - xp).abs().max()))
+    return bitwise, er, err
+
+
+def step2d_shard(torch, cfg, offs, G, u, v, p, dt, ragged):
+    """K3 on copies of one shard's deep blocks u, v, then K4 on the
+    stripped halo-1 blocks, each against its plain version on the same
+    inputs. Returns (copies and maxima bitwise, every output bitwise,
+    F/G/rhs and u''/v'' max_rel_err, max_abs_err, K3's F/G/rhs, the
+    halo-1 u/v K4 read)."""
+    from pampi_tpu_torch.ops import ns2d as ops2
+    from pampi_tpu_torch.ops import ns2d_fused as nf
+
+    uk, vk = u.clone(), v.clone()
+    fk = nf.ns2d_pre(uk, vk, dt, cfg, offs, G, 2)
+    pl = nf.ns2d_pre_plain(u, v, dt, cfg, offs, G, 2)
+    exact = torch.equal(uk, pl[0]) and torch.equal(vk, pl[1])
+    strip = (slice(2, -2),) * 2
+    h1 = [a[strip].contiguous() for a in (uk, vk)]
+    post = [a.clone() for a in h1]
+    mk = nf.ns2d_post(*post, *fk[:2], p, dt, cfg.dx, cfg.dy, offs, G,
+                      ragged)
+    mp = nf.ns2d_post_plain(*(a[strip] for a in pl[:2]), *pl[2:4], p, dt,
+                            cfg.dx, cfg.dy, offs, G, ragged)
+    gj, gi = ops2.index_grids_2d(p.shape, 0, offs, p.device)
+    valid = (gj <= G[0] + 1) & (gi <= G[1] + 1)
+    exact = exact and all(
+        torch.equal(m, torch.where(valid, a.abs(), 0).max())
+        for m, a in zip(mk, post))
+    pairs = list(zip(fk, pl[2:])) + list(zip(post, mp[:2]))
+    every = exact and all(torch.equal(a, b) for a, b in pairs)
+    e = max(rel_err(a, b) for a, b in pairs)
+    err = max([float((a - b).abs().max()) for a, b in pairs]
+              + [abs(float(a - b)) for a, b in zip(mk, mp[2:])])
+    return exact, every, e, err, fk, h1
+
+
+@phase("distributed flag-masked kernel K15 and K3/K4 distributed vs plain")
+def check_dist2d_kernels(torch, np):
+    from pampi_tpu_torch.ops import sor_kernels as sk
+    from pampi_tpu_torch.ops import sor_obsdist as sod
+    from pampi_tpu_torch.ops.ns2d_fused import StepConfig
+    from pampi_tpu_torch.parallel.stencil2d import embed_deep, strip_deep
+    from pampi_tpu_torch.utils.params import Parameter
+
+    bad = []
+    for label, param, dims in dist2d_check_configs():
+        s = dist2d_solver(param, dims)
+        dtype, name = s.dtype, f"{param.name} {label}"
+        t = tol(torch, dtype)
+        if s._solve_k is not None:
+            g = s._solve_k.geom
+            bitwise, er, err = check_obsdist(torch, np, s._solve_k, param,
+                                             dtype, 131)
+            ok = bitwise and er <= t
+            log(f"rb_sor_obsdist {dtype} {name} (n={g.n}, H={g.H}, deep "
+                f"blocks {g.shape}), every shard: blocks bitwise {bitwise},"
+                f" max_abs_err {err:.3e}, residual rel_err {er:.3e} (tol "
+                f"{t:g}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                bad.append(f"K15 {name}")
+        cfg = StepConfig.from_param(param)
+        dt = torch.tensor(0.013, dtype=dtype, device="cuda")
+        exact, every, e, err = True, True, 0.0, 0.0
+        for k, off in enumerate(s.offs):
+            u, v = rng_fields(torch, np, (s.jl + 6, s.il + 6), dtype, 2,
+                              141 + k)
+            (p,) = rng_fields(torch, np, (s.jl + 2, s.il + 2), dtype, 1,
+                              151 + k)
+            ex, ev, es, errs, _, _ = step2d_shard(torch, cfg, off, s.gext,
+                                                  u, v, p, dt, s.ragged)
+            exact, every = exact and ex, every and ev
+            e, err = max(e, es), max(err, errs)
+        ok = exact and e <= t
+        log(f"ns2d_pre/post distributed {dtype} {name} ({s.jl}x{s.il} "
+            f"shards), every shard: u', v' and maxima bitwise {exact}, "
+            f"every output bitwise {every}, max_rel_err {e:.3e}, "
+            f"max_abs_err {err:.3e} (tol {t:g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            bad.append(f"K3/K4 distributed {name}")
+        del s
+    # K15 on a 1x1 mesh with all-fluid flags against K2 on the same field:
+    # the same iterations, the relaxation factor formed from the flags
+    for dtype in (torch.float32, torch.float64):
+        J = I = 1024
+        param = Parameter(name="dcavity", imax=I, jmax=J, omg=1.8, eps=0.0,
+                          tpu_sor_layout="checkerboard", tpu_mesh="1x1",
+                          tpu_dtype="float32" if dtype == torch.float32
+                          else "float64")
+        s = dist2d_solver(param, (1, 1))
+        solve = s._solve_k
+        g = solve.geom
+        p, rhs = rng_fields(torch, np, (J + 2, I + 2), dtype, 2, 161)
+        pd = embed_deep(p, g.H).contiguous()
+        rd = embed_deep(rhs, g.H).contiguous()
+        dx, dy = 1.0 / I, 1.0 / J
+        r15 = sod.rb_sor_obsdist(pd, rd, solve.flags[0], g, (0, 0),
+                                 param.omg, 1.0 / (dx * dx), 1.0 / (dy * dy))
+        r2 = sk.rb_sor_checkerboard(p, rhs, g.n,
+                                    *sk.sor_coefficients(dx, dy, param.omg))
+        e = rel_err(strip_deep(pd, g.H), p)
+        er = abs(float(r15) - float(r2)) / abs(float(r2))
+        t = tol(torch, dtype)
+        ok = e <= t and er <= t
+        log(f"rb_sor_obsdist {dtype} 1024² on 1x1 (n={g.n}) vs "
+            f"rb_sor_checkerboard (K2): field rel_err {e:.3e}, residual "
+            f"rel_err {er:.3e} (tol {t:g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            bad.append(f"K15 vs K2 {dtype}")
+    if bad:
+        raise AssertionError(f"distributed 2-D kernels disagree: {bad}")
+
+
+@phase("K15 and K3/K4 distributed: times per 1366x4096 shard of 4096² "
+       "float32 on the ragged 3x1")
+def time_dist2d(torch, np):
+    from pampi_tpu_torch.ops import ns2d_fused as nf
+    from pampi_tpu_torch.ops import sor_obsdist as sod
+    from pampi_tpu_torch.ops.ns2d_fused import StepConfig
+
+    _, param, dims = dist2d_main_configs()[1]
+    s = dist2d_solver(param, dims)
+    solve, size = s._solve_k, 4
+    g = solve.geom
+    bitwise, er, err = check_obsdist(torch, np, solve, param, s.dtype, 171,
+                                     1)
+    ok = bitwise and er <= tol(torch, s.dtype)
+    log(f"rb_sor_obsdist 4096² f32 on 3x1 (deep blocks {g.shape}, n={g.n}) "
+        f"vs plain, every shard: blocks bitwise {bitwise}, residual rel_err "
+        f"{er:.3e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("K15 differs from its plain version at 4096²")
+    blocks = [rng_fields(torch, np, g.shape, torch.float32, 2, 181 + k)
+              for k in range(len(solve.offs))]
+    coef = (param.omg, 1.0 / (s.dx * s.dx), 1.0 / (s.dy * s.dy))
+
+    def shards(fn):
+        return lambda: [fn(x, f, fl, g, o, *coef) for (x, f), fl, o in
+                        zip(blocks, solve.flags, solve.offs)]
+
+    nsh = len(solve.offs)
+    ms = cuda_ms(torch, shards(sod.rb_sor_obsdist), 20) / nsh
+    pms = cuda_ms(torch, shards(sod.rb_iters_obsdist_plain), 2) / nsh
+    cells = g.shape[0] * g.shape[1]
+    # per shard call: p, rhs (4 bytes) and the flags (1) read once, p
+    # written once; ~20 flops per cell update
+    b = bound(cells * (3 * size + 1), 20 * g.n * g.jl * g.il)
+    rows = {"rb_sor_obsdist": dict(
+        max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1],
+        shape=f"{g.jl}x{g.il} shard of 4096x4096 on 3x1 (deep "
+              f"{g.shape[0]}x{g.shape[1]}), n={g.n}")}
+    log(f"rb_sor_obsdist 4096² f32 on 3x1: {ms:.4f} ms per shard call "
+        f"(plain {pms:.4f}, bound {b[0]:.4f} by {b[1]}), the three shards "
+        f"on one card")
+    del blocks
+    # K3 on a deep block, K4 on the halo-1 blocks of the middle shard
+    # (interfaces above and below, the side walls)
+    cfg = StepConfig.from_param(param)
+    off = s.offs[1]
+    jl, il = s.local
+    u, v = rng_fields(torch, np, (jl + 6, il + 6), torch.float32, 2, 191)
+    (p,) = rng_fields(torch, np, (jl + 2, il + 2), torch.float32, 1, 193)
+    dt = torch.tensor(1e-3, dtype=torch.float32, device="cuda")
+    exact, every, e, perr, fk, h1 = step2d_shard(torch, cfg, off, s.gext, u,
+                                                 v, p, dt, s.ragged)
+    ok = exact and e <= tol(torch, torch.float32)
+    log(f"ns2d_pre/post distributed 4096² f32 on 3x1 (the shard at {off}) "
+        f"vs plain: u', v' and maxima bitwise {exact}, every output bitwise "
+        f"{every}, max_rel_err {e:.3e}, max_abs_err {perr:.3e} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("K3/K4 differ from their plain versions")
+    uk, vk = u.clone(), v.clone()
+    deep, ext = (jl + 6) * (il + 6), (jl + 2) * (il + 2)
+    ms = cuda_ms(torch, lambda: nf.ns2d_pre(uk, vk, dt, cfg, off, s.gext,
+                                            2), 20)
+    pms = cuda_ms(torch, lambda: nf.ns2d_pre_plain(u, v, dt, cfg, off,
+                                                   s.gext, 2), 3)
+    # PRE: reads the two deep blocks, writes F, G, rhs on the halo-1 block
+    # (and the shard's wall strips of u, v, not counted); ~70 flops a cell
+    bpre = bound((2 * deep + 3 * ext) * size, 70 * jl * il)
+    qms = cuda_ms(torch, lambda: nf.ns2d_post(
+        *h1, *fk[:2], p, dt, cfg.dx, cfg.dy, off, s.gext, s.ragged), 20)
+    qpms = cuda_ms(torch, lambda: nf.ns2d_post_plain(
+        *h1, *fk[:2], p, dt, cfg.dx, cfg.dy, off, s.gext, s.ragged), 3)
+    # POST: reads F, G, p and the ghost ring of u and v (the maxima; the
+    # interior of u and v is overwritten, dead cells multiplied by 0),
+    # writes u and v, as single-device K4 is bounded
+    ring = 2 * (il + 2) + 2 * jl
+    bpost = bound((5 * ext + 2 * ring) * size, 10 * jl * il)
+    rows["ns2d_pre"] = dict(dist_ms=ms, dist_plain_ms=pms,
+                            dist_bound_ms=bpre[0], dist_bound_by=bpre[1],
+                            dist_max_abs_err=perr)
+    rows["ns2d_post"] = dict(dist_ms=qms, dist_plain_ms=qpms,
+                             dist_bound_ms=bpost[0], dist_bound_by=bpost[1],
+                             dist_max_abs_err=perr)
+    log(f"ns2d_pre distributed 4096² f32 on 3x1 (one {jl}x{il} shard, deep "
+        f"block {jl + 6}x{il + 6}): {ms:.4f} ms per shard call (plain "
+        f"{pms:.4f}, bound {bpre[0]:.4f} by {bpre[1]}); ns2d_post "
+        f"distributed: {qms:.4f} ms (plain {qpms:.4f}, bound {bpost[0]:.4f} "
+        f"by {bpost[1]})")
+    return rows
+
+
+def dist2d_steps(torch, s, n):
+    """n steps of a distributed NS-2D solver after one warm-up step:
+    ms/step on the host clock, the PRE / solve / POST split and the
+    exchanges (halo and quarter) from CUDA events, per step."""
+    from pampi_tpu_torch.parallel import comm as pc
+    from pampi_tpu_torch.parallel import quarters_dist as qd
+
+    s.run_steps(1)  # warm-up: loads the kernels
+    marks, mark = event_marks(torch)
+    s.phase_hook = mark
+    torch.cuda.synchronize()
+    with exchange_spans(mark, (pc, "halo_exchange"), (qd, "q_exchange")):
+        t0 = time.perf_counter()
+        s.run_steps(n)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / n * 1e3
+    s.phase_hook = None
+    phases = [m for m in marks if m[0] in PHASES]
+    out = dict(ms=wall, **span_ms(phases, ("pre", "solve", "post"), n))
+    out["exchange"] = span_ms(marks, ("exchange",), n)["exchange"]
+    return out
+
+
+def field_diff(dist, single):
+    """max |dist - single| over the global u, v, p, and the scale."""
+    gd = dist.global_fields()
+    diff = scale = 0.0
+    for n in "uvp":
+        ref = getattr(single, n).double().cpu().numpy()
+        diff = max(diff, float(abs(gd[n] - ref).max()))
+        scale = max(scale, float(abs(ref).max()))
+    return diff, max(1.0, scale)
+
+
+@phase("main path: distributed NS-2D dcavity 4096² float32 on 2x2, the "
+       "ragged 3x1 and 2x2 checkerboard")
+def main_path_dist2d(torch):
+    from pampi_tpu_torch.kernels import build as kb
+    from pampi_tpu_torch.models.ns2d import NS2DSolver
+
+    runs = dist2d_main_configs()
+    single = NS2DSolver(runs[0][1].replace(tpu_mesh="1"), device="cuda")
+    single.run_steps(17)
+    torch.cuda.synchronize()
+    counts = []
+    for label, param, dims in runs:
+        s = dist2d_solver(param, dims)
+        s.comm.print_config()
+        solve = "rb_sor_qdist" if s._rb_q is not None else "rb_sor_obsdist"
+        c, r = drive_path(kb, f"NS-2D dcavity 4096² {label}",
+                          (solve, "ns2d_pre", "ns2d_post"),
+                          lambda: dist2d_steps(torch, s, 16))
+        counts.append(c)
+        if c["rb_sor_quarters"] != 0:
+            raise AssertionError(f"{label}: the distributed path launched K1")
+        diff, scale = field_diff(s, single)
+        step = r["pre"] + r["solve"] + r["post"]
+        ok = (s.nt == single.nt == 17 and s.t == single.t
+              and diff <= 1e-5 * scale)
+        n = s._qg.n if s._rb_q is not None else s._solve_k.n
+        log(f"NS-2D dcavity 4096² f32 on {label} ({s.jl}x{s.il} shards on "
+            f"{sorted(set(map(str, s.comm.devices)))}, {solve}, {n} "
+            f"iterations per exchange): {r['ms']:.3f} ms/step (host clock);"
+            f" PRE {r['pre']:.3f} / solve {r['solve']:.3f} / POST "
+            f"{r['post']:.3f} ms (CUDA events); exchanges "
+            f"{r['exchange']:.3f} ms/step, share {r['exchange'] / step:.3f} "
+            f"of the step; launches per step {c[solve] / 17:.1f} {solve}, "
+            f"{c['ns2d_pre'] / 17:.1f} ns2d_pre, {c['ns2d_post'] / 17:.1f} "
+            f"ns2d_post; t={s.t:.6e}, single-device t={single.t:.6e}; max "
+            f"|dist - single| {diff:.3e} (limit {1e-5 * scale:.3e}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"distributed dcavity {label} disagrees "
+                                 f"with K1")
+        del s
+        torch.cuda.empty_cache()
+    log(f"single-device K1 run of the same 17 steps: t={single.t:.6e}")
+    return counts
+
+
+@phase("several cards: distributed NS-2D dcavity 4096² on 2x2, one shard "
+       "per card")
+def dist2d_several_cards(torch):
+    from pampi_tpu_torch.kernels import build as kb
+    from pampi_tpu_torch.models.ns2d import NS2DSolver
+
+    if torch.cuda.device_count() < 4:
+        log(f"{torch.cuda.device_count()} card(s): skipped (needs four)")
+        return {}
+    _, param, dims = dist2d_main_configs()[0]
+    s = dist2d_solver(param, dims)
+    s.comm.print_config()
+    c, r = drive_path(kb, "NS-2D dcavity 4096² 2x2, four cards",
+                      ("rb_sor_qdist", "ns2d_pre", "ns2d_post"),
+                      lambda: dist2d_steps(torch, s, 16))
+    single = NS2DSolver(param.replace(tpu_mesh="1"), device="cuda")
+    single.run_steps(17)
+    diff, scale = field_diff(s, single)
+    ok = s.nt == single.nt == 17 and s.t == single.t and diff <= 1e-5 * scale
+    step = r["pre"] + r["solve"] + r["post"]
+    log(f"NS-2D dcavity 4096² f32 on 2x2, one shard per card: "
+        f"{r['ms']:.3f} ms/step (host clock); PRE {r['pre']:.3f} / solve "
+        f"{r['solve']:.3f} / POST {r['post']:.3f} ms ({s.comm.devices[0]}'s "
+        f"events); exchanges share {r['exchange'] / step:.3f}; max |dist - "
+        f"single| {diff:.3e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("four-card dcavity disagrees with one card")
+    return c
+
+
+# (config, te, ((mesh, its solve kernel), ...)), card against CPU:
+# configs/dcavity.par's first steps run every solve to its itermax (1000),
+# which takes the CPU half ~4 s a step on 2x2, so it is cut to te 0.001 (9
+# steps); canal.par 200x50 on 2x2 has odd shard extents and solves on the
+# grid path (no kernel)
+DIST2D_CLI = (("dcavity.par", 0.001, (("2x2", "rb_sor_qdist"),
+                                      ("3x3", "rb_sor_obsdist"))),
+              ("canal.par", 0.5, (("2x2", None), ("3x3", "rb_sor_obsdist"),
+                                  ("3x2", "rb_sor_obsdist"))))
+# configs/dcavity.par on the card alone to DCAVITY_TE (400 steps, 381140
+# solve iterations), held against the single-device card run of
+# dcavity_card, which is held against the CPU; each mesh in a process of
+# its own (cli_child): the runs are bound by the host's launches (0.45 and
+# 1.27 ms an iteration on 2x2 and 3x3 on the H100, against 0.06 on one
+# device), so they overlap each other and the card-vs-CPU runs
+DIST2D_CARD = (("dcavity.par", DCAVITY_TE, (("2x2", "rb_sor_qdist"),
+                                            ("3x3", "rb_sor_obsdist"))),)
+
+
+def cli_child(par, out):
+    """`chip_smoke.py --cli-child <par> <out.npz>`, started by dist2d_cli:
+    the CLI on the card on `par`, with the launch counts set to 0 before
+    it; saves the full-precision global fields, nt, t, the solve's label,
+    the counts and the seconds to `out`."""
+    import io
+
+    import numpy as np
+
+    sys.path.insert(0, ROOT)
+    from pampi_tpu_torch import cli
+    from pampi_tpu_torch.kernels import build as kb
+    from pampi_tpu_torch.models.ns2d_dist import NS2DDistSolver
+    from pampi_tpu_torch.utils import dispatch
+
+    write = NS2DDistSolver.write_result
+    got = {}
+
+    def record(self, *a, **kw):
+        got.update(self.global_fields(), nt=self.nt, t=self.t,
+                   label=dispatch.last("ns2d_dist"))
+        return write(self, *a, **kw)
+
+    kb.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()), \
+            mock.patch.object(NS2DDistSolver, "write_result", record):
+        rc = cli.main(["pampi_tpu_torch", "--device", "cuda", par])
+    counts = {k: v.launches for k, v in kb.KERNELS.items()}
+    np.savez(out, rc=rc, secs=time.perf_counter() - t0,
+             counts=json.dumps(counts), **got)
+    return rc
+
+
+@phase("main path: python -m pampi_tpu_torch configs/dcavity.par and "
+       "configs/canal.par on 2-D meshes, card and CPU, card and one device")
+def dist2d_cli(np):
+    import io
+    import re
+
+    from pampi_tpu_torch import cli
+    from pampi_tpu_torch.kernels import build as kb
+    from pampi_tpu_torch.models.ns2d_dist import NS2DDistSolver
+    from pampi_tpu_torch.utils import dispatch
+    from pampi_tpu_torch.utils.datio import read_pressure, read_velocity
+
+    write = NS2DDistSolver.write_result
+    counts, bad = [], []
+
+    def run_cli(par, mesh, body, device, solve, d):
+        """The CLI on `body` (a .par text) in directory d; returns the
+        pressure.dat and velocity.dat arrays, (nt, t, the solve's label,
+        the full-precision global fields) and the seconds taken."""
+        os.makedirs(d)
+        path = os.path.join(d, par)
+        with open(path, "w") as fh:
+            fh.write(body)
+        steps = []
+
+        def record(self, *a, **kw):
+            steps.append((self.nt, self.t, dispatch.last("ns2d_dist"),
+                          self.global_fields()))
+            return write(self, *a, **kw)
+
+        def run():
+            with contextlib.redirect_stdout(io.StringIO()), \
+                    mock.patch.object(NS2DDistSolver, "write_result",
+                                      record):
+                return cli.main(["pampi_tpu_torch", "--device", device,
+                                 path])
+        cwd = os.getcwd()
+        os.chdir(d)
+        t0 = time.perf_counter()
+        try:
+            if device == "cuda":
+                c, rc = drive_path(kb, f"{par} {mesh} CLI",
+                                   ("ns2d_pre", "ns2d_post")
+                                   + ((solve,) if solve else ()), run)
+                counts.append(c)
+            else:
+                rc = run()
+        finally:
+            os.chdir(cwd)
+        if rc != 0 or len(steps) != 1:
+            raise AssertionError(f"{par} {d} {device}: rc {rc}")
+        return (read_pressure(os.path.join(d, "pressure.dat")),
+                *read_velocity(os.path.join(d, "velocity.dat")), steps[0],
+                time.perf_counter() - t0)
+
+    def par_text(par, te, mesh):
+        text = open(os.path.join(ROOT, "configs", par)).read()
+        text = re.sub(r"^te .*$", f"te {te}", text, flags=re.M)
+        return re.sub(r"^tpu_mesh .*$", f"tpu_mesh {mesh}", text, flags=re.M)
+
+    if not DCAVITY_CARD:
+        raise AssertionError("no single-device card run to hold the mesh "
+                             "runs against")
+    with tempfile.TemporaryDirectory() as tmp:
+        children = []
+        for par, te, meshes in DIST2D_CARD:
+            for mesh, solve in meshes:
+                d = os.path.join(tmp, f"{par}{te}{mesh}")
+                os.makedirs(d)
+                path = os.path.join(d, par)
+                with open(path, "w") as fh:
+                    fh.write(par_text(par, te, mesh))
+                out = os.path.join(d, "fields.npz")
+                children.append((par, te, mesh, solve, out, start(
+                    [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+                     "--cli-child", path, out], d,
+                    os.path.join(d, "child.log"))))
+        for par, te, meshes in DIST2D_CLI:
+            for mesh, solve in meshes:
+                body = par_text(par, te, mesh)
+                a, b = (run_cli(par, mesh, body, device, solve,
+                                os.path.join(tmp, f"{par}{te}{mesh}{device}"))
+                        for device in ("cuda", "cpu"))
+                diff = max(float(np.abs(x - y).max())
+                           for x, y in zip(a[:3], b[:3]))
+                ok = (diff <= 1e-9 and a[3][0] == b[3][0]
+                      and a[3][2] == b[3][2])
+                log(f"{par} te {te} tpu_mesh {mesh} ({a[3][2]}): {a[3][0]} "
+                    f"steps on the card ({a[4]:.1f} s), {b[3][0]} on the CPU"
+                    f" ({b[4]:.1f} s); max |card - CPU| over pressure.dat "
+                    f"and velocity.dat {diff:.3e} (tol 1e-9) "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    bad.append(f"{par} {mesh}")
+        one = DCAVITY_CARD
+        for par, te, mesh, solve, out, proc in children:
+            rc = proc.wait(timeout=900)
+            if rc != 0:
+                log(open(os.path.join(os.path.dirname(out),
+                                      "child.log")).read()[-4000:])
+                raise AssertionError(f"{par} {mesh} te {te}: rc {rc}")
+            with np.load(out) as z:
+                g = {k: z[k] for k in "uvp"}
+                nt, t, label = int(z["nt"]), float(z["t"]), str(z["label"])
+                c, secs = json.loads(str(z["counts"])), float(z["secs"])
+            log(f"{par} te {te} {mesh} CLI launches: {json.dumps(c)}")
+            missing = [k for k in ("ns2d_pre", "ns2d_post")
+                       + ((solve,) if solve else ()) if c[k] == 0]
+            if missing:
+                raise AssertionError(f"{par} {mesh} te {te}: kernels not "
+                                     f"launched: {missing}")
+            counts.append(c)
+            diff = max(float(np.abs(g[k] - one[k]).max()) for k in "uvp")
+            scale = max(float(np.abs(one[k]).max()) for k in "uvp")
+            ok = diff <= 1e-9 * scale and (nt, t) == (one["nt"], one["t"])
+            log(f"{par} te {te} tpu_mesh {mesh} ({label}) on the card, its "
+                f"own process: {nt} steps in {secs:.1f} s (one device: "
+                f"{one['nt']}), t equal {t == one['t']}; max |mesh - one "
+                f"device| over u, v, p {diff:.3e} (tol 1e-9 of scale "
+                f"{scale:.3e}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                bad.append(f"{par} {mesh} te {te}")
+    if bad:
+        raise AssertionError(f"runs disagree: {bad}")
+    return counts
+
+
+@phase("kernels at n = 1, the float64 cadence: K1, K2, K5, K6, K13, K14")
+def check_cadence_one(torch, np):
+    """The float64 solves now run one iteration a call (utils/dispatch.
+    sor_cadence); every SOR kernel against its plain version at n = 1."""
+    from pampi_tpu_torch.ops import sor3d_kernels as sk3
+    from pampi_tpu_torch.ops import sor_kernels as sk
+    from pampi_tpu_torch.ops.sor3d import sor_coefficients_3d
+    from pampi_tpu_torch.ops.sor_octants import stack_octants
+    from pampi_tpu_torch.ops.sor_quarters import stack_quarters
+
+    bad = []
+    f64 = torch.float64
+    coef = sk.sor_coefficients(1 / 256, 1 / 256, 1.8)
+    p, f = rng_fields(torch, np, (258, 258), f64, 2, 201)
+    pairs = [("rb_sor_checkerboard", sk.rb_sor_checkerboard,
+              sk.rb_sor_checkerboard_plain, p, f, coef),
+             ("rb_sor_quarters", sk.rb_sor_quarters, sk.rb_sor_quarters_plain,
+              stack_quarters(p), stack_quarters(f), coef)]
+    coef3 = sor_coefficients_3d(1 / 32, 1 / 32, 1 / 32, 1.8)
+    p3, f3 = rng_fields(torch, np, (34, 34, 34), f64, 2, 203)
+    pairs += [("rb_sor3d_checkerboard", sk3.rb_sor3d_checkerboard,
+               sk3.rb_sor3d_checkerboard_plain, p3, f3, coef3),
+              ("rb_sor3d_octants", sk3.rb_sor3d_octants,
+               sk3.rb_sor3d_octants_plain, stack_octants(p3),
+               stack_octants(f3), coef3)]
+    for name, kern, plain, x, rhs, c in pairs:
+        xk, xp = x.clone(), x.clone()
+        rk, rp = kern(xk, rhs, 1, *c), plain(xp, rhs, 1, *c)
+        ok = (torch.equal(xk, xp)
+              and abs(float(rk) - float(rp)) <= 1e-12 * abs(float(rp)))
+        log(f"{name} f64 n=1: field bitwise {torch.equal(xk, xp)}, "
+            f"residual {float(rk):.6e} / {float(rp):.6e} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            bad.append(name)
+    g, qoffs = qdist_shards(256, 256, (2, 2), 1)
+    bitwise, er, _ = check_qdist(torch, np, g, qoffs, f64, 205)
+    log(f"rb_sor_qdist f64 n={g.n}, 256² on 2x2: planes bitwise {bitwise}, "
+        f"residual rel_err {er:.3e}")
+    if not (bitwise and er <= 1e-12):
+        bad.append("rb_sor_qdist")
+    g, offs = odist_shards((32, 32, 32), (2, 2, 2), 1)
+    bitwise, er, _ = check_odist(torch, np, g, offs, f64, 207)
+    log(f"rb_sor_odist f64 n={g.n}, 32³ on 2x2x2: volumes bitwise {bitwise},"
+        f" residual rel_err {er:.3e}")
+    if not (bitwise and er <= 1e-12):
+        bad.append("rb_sor_odist")
+    if bad:
+        raise AssertionError(f"kernels at n = 1 disagree: {bad}")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2098,6 +2815,8 @@ def main() -> int:
         check_qdist_kernel(torch, np)
         halo_on_card(np)
         check_dist3d_kernels(torch, np)
+        check_cadence_one(torch, np)
+        check_dist2d_kernels(torch, np)
     if CHECKS_ONLY:
         log(f"checks only; failed: {FAILED}")
         return 1 if FAILED else 0
@@ -2107,11 +2826,11 @@ def main() -> int:
         mg_rows = time_mg_kernels(torch, np)
         q_rows = time_qdist(torch, np)
         d3_rows = time_dist3d(torch, np)
+        d2_rows = time_dist2d(torch, np)
         sor_ns2d = {}
         counts = main_path(torch, sor_ns2d)
         counts3 = main_path_3d(torch)
         counts_mg = main_path_mg(torch, sor_ns2d.get("ns2d_flat0"))
-        dcavity_card_vs_cpu(np)
         ns3d_vs_fixtures(np)
         mg_fft_card_vs_cpu(torch)
         counts_dist = main_path_dist(
@@ -2120,17 +2839,30 @@ def main() -> int:
         counts_d3 = main_path_dist3d(torch)
         ns3d_dist_vs_fixtures(np)
         counts_d3cli = dist3d_cli(np)
-        if None not in (rows, rows3, mg_rows, q_rows, d3_rows, counts,
-                        counts3, counts_mg, counts_dist, counts_cli,
-                        counts_d3, counts_d3cli):
+        counts_d2 = main_path_dist2d(torch)
+        counts_d2cards = dist2d_several_cards(torch)
+        # no times are taken from here on: the CPU half of dcavity_card
+        # runs beside the card's runs
+        dcavity_card(np)
+        counts_d2cli = dist2d_cli(np)
+        dcavity_card_vs_cpu(np)
+        if None not in (rows, rows3, mg_rows, q_rows, d3_rows, d2_rows,
+                        counts, counts3, counts_mg, counts_dist, counts_cli,
+                        counts_d3, counts_d3cli, counts_d2, counts_d2cards,
+                        counts_d2cli):
             rows = {**rows, **rows3, **mg_rows[0], **q_rows,
-                    "rb_sor_odist": d3_rows["rb_sor_odist"]}
+                    "rb_sor_odist": d3_rows["rb_sor_odist"],
+                    "rb_sor_obsdist": d2_rows["rb_sor_obsdist"]}
             for name in ("ns3d_pre", "ns3d_post"):
                 rows[name] = {**rows[name], **d3_rows[name]}
+            for name in ("ns2d_pre", "ns2d_post"):
+                rows[name] = {**rows[name], **d2_rows[name]}
             # each path ran with the counts at 0 before it: a kernel's
             # main-path launches are its sum over the paths
-            paths = (counts + counts3 + counts_mg + counts_d3
-                     + [counts_dist, counts_cli, counts_d3cli])
+            paths = (counts + counts3 + counts_mg + counts_d3 + counts_d2
+                     + counts_d2cli
+                     + [counts_dist, counts_cli, counts_d3cli,
+                        counts_d2cards])
             counts = {k: sum(c.get(k, 0) for c in paths)
                       for k in set().union(*paths)}
             print(json.dumps({"library": mg_rows[1]}))
@@ -2167,4 +2899,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    if sys.argv[1:2] == ["--cli-child"]:
+        sys.exit(cli_child(*sys.argv[2:4]))
+    try:
+        code = main()
+    finally:
+        stop_procs()
+    sys.exit(code)

@@ -6,7 +6,10 @@ the `name` key selects, write the outputs and print the wall time.
                         the V-cycle count under `tpu_solver mg`, 1 under
                         `fft`; on a mesh (`tpu_mesh PJxPI`, or `auto` with
                         several cards) the distributed red-black solve
-  dcavity/canal      -> NS-2D time stepper (pressure.dat, velocity.dat)
+  dcavity/canal      -> NS-2D time stepper (pressure.dat, velocity.dat);
+                        on a mesh (`tpu_mesh PJxPI`, or `auto` with
+                        several cards) the distributed time stepper, on a
+                        mesh that divides the grid or a ragged one
   dcavity3d/canal3d  -> NS-3D time stepper (dcavity.vtk / canal.vtk, in
                         the `tpu_vtk` format: ascii, binary, or sharded,
                         the binary file written slab by slab on a mesh);
@@ -14,15 +17,16 @@ the `name` key selects, write the outputs and print the wall time.
                         several cards) the distributed time stepper
 
 Every problem takes `tpu_solver sor|mg|fft|auto` (auto resolves to fft on
-these plain grids).
+these plain grids, to sor on a ragged mesh).
 
 `tpu_mesh` follows the JAX package: `auto` is one shard per visible card
 (the single-device path on one card), an explicit mesh one of that shape,
 whose shards share the cards when they outnumber them (parallel/comm.py).
-The distributed layer runs Poisson and NS-3D under `tpu_solver sor` and
-prints the shard placement. NS-2D, mg/fft and a mesh that does not divide
-an NS-3D grid exit with an error naming ROADMAP A.8 on an explicit mesh;
-under `auto` with several cards they run on one card, with a note.
+The distributed layer runs Poisson, NS-2D and NS-3D under `tpu_solver
+sor` and prints the shard placement. mg/fft on a mesh and a mesh that
+does not divide an NS-3D grid exit with an error naming ROADMAP A.8 on an
+explicit mesh; under `auto` with several cards they run on one card, with
+a note.
 
     python -m pampi_tpu_torch --halo-test [2|3] [--mesh PJxPI] [--device cpu]
 
@@ -30,8 +34,9 @@ fills every shard with its rank id, exchanges the halos and writes the
 ghost faces to halo-<dir>-r<rank>.txt (parallel/halo_debug.py).
 
 A dcavity/canal .par that configures the third dimension (kmax, zlength,
-bcFront or bcBack) runs NS-3D, as in the JAX package. Other problems are
-not yet ported and exit with an error naming the ROADMAP item. The device
+bcFront or bcBack) runs NS-3D, as in the JAX package. Other problems, and
+the JAX package's DMVM form `<N> <iter>` (ROADMAP A.7), are not yet
+ported and exit with an error naming the ROADMAP item. The device
 defaults to cuda; without a GPU the run fails unless `--device cpu` is
 given.
 """
@@ -77,6 +82,11 @@ def main(argv=None) -> int:
     argv = sys.argv if argv is None else argv
     if len(argv) > 1 and argv[1] == "--halo-test":
         return _halo_test(argv[2:])
+    if len(argv) > 1 and argv[1].isdigit():
+        # the JAX package's DMVM form, `<N> <iter>` (assignment-3a/3b)
+        print("Error: the DMVM ring benchmark (<N> <iter>) is not yet "
+              "ported (ROADMAP A.7)", file=sys.stderr)
+        return 1
     args = _parse(argv[1:])
     param = read_parameter(args.config, Parameter())
     print_parameter(param)
@@ -142,28 +152,23 @@ def _dispatch(param: Parameter, device: str) -> int:
     if param.name in ("dcavity", "canal", "dcavity3d", "canal3d"):
         three_d = is_3d_config(param)
         solver = None
-        if three_d:
-            comm = _make_comm(param, visible_devices(device), ndims=3)
-            if comm is not None:
-                from .models.ns3d_dist import NS3DDistSolver
+        comm = _make_comm(param, visible_devices(device),
+                          ndims=3 if three_d else 2)
+        if comm is not None:
+            if three_d:
+                from .models.ns3d_dist import NS3DDistSolver as Dist
+            else:
+                from .models.ns2d_dist import NS2DDistSolver as Dist
+            try:
+                solver = Dist(param, comm)
+                comm.print_config()
+            except NotImplementedError as exc:
+                _auto_single(param, exc)
+        if solver is None and three_d:
+            from .models.ns3d import NS3DSolver
 
-                try:
-                    solver = NS3DDistSolver(param, comm)
-                    comm.print_config()
-                except NotImplementedError as exc:
-                    _auto_single(param, exc)
-            if solver is None:
-                from .models.ns3d import NS3DSolver
-
-                solver = NS3DSolver(param, device=device)
-        else:
-            from .utils.dispatch import mesh_is_single
-
-            if not mesh_is_single(param.tpu_mesh,
-                                  len(visible_devices(device))):
-                _auto_single(param, NotImplementedError(
-                    f"tpu_mesh {param.tpu_mesh}: the distributed "
-                    f"{param.name} solver is not yet ported (ROADMAP A.8)"))
+            solver = NS3DSolver(param, device=device)
+        elif solver is None:
             from .models.ns2d import NS2DSolver
 
             solver = NS2DSolver(param, device=device)

@@ -1,5 +1,8 @@
 // NS-2D step phases for Hopper (sm_90a): the port's PRE and POST kernels,
-// single device, no obstacles.
+// no obstacles, on one device and, below, in the distributed mode (a
+// shard's deep and halo-1 blocks of a 2-D mesh, divisible or ragged:
+// make_fused_pre_2d(..., jl, il, ext_pad) and make_fused_post_2d(..., jl,
+// il, ragged) of the JAX package).
 //
 // ns2d_pre (K3) replaces pampi_tpu/ops/ns2d_fused.py _pre_kernel
 //   (make_fused_pre_2d): (u, v, dt) -> (u', v', F, G, rhs) = wall BCs ->
@@ -99,6 +102,37 @@ __global__ void bc_strips(T* __restrict__ u, T* __restrict__ v, int J, int I,
 #undef V
 }
 
+// the F/G predictor at cell k of u and v (row stride W): central plus
+// gamma-blended donor-cell convection, the viscous Laplacian, body force
+template <typename T>
+__device__ __forceinline__ void fg_predict(const T* __restrict__ u,
+                                           const T* __restrict__ v, size_t k,
+                                           size_t W, T dt, const Coef<T>& c,
+                                           T& fv, T& gv) {
+  const T uc = u[k], ue = u[k + 1], uw = u[k - 1], un = u[k + W],
+          us = u[k - W], unw = u[k + W - 1];
+  const T vc = v[k], ve = v[k + 1], vw = v[k - 1], vn = v[k + W],
+          vs = v[k - W], vse = v[k - W + 1];
+  const T du2dx = c.idx4 * ((uc + ue) * (uc + ue) - (uc + uw) * (uc + uw)) +
+                  c.gidx4 * (fabs(uc + ue) * (uc - ue) +
+                             fabs(uc + uw) * (uc - uw));
+  const T duvdy = c.idy4 * ((vc + ve) * (uc + un) - (vs + vse) * (uc + us)) +
+                  c.gidy4 * (fabs(vc + ve) * (uc - un) +
+                             fabs(vs + vse) * (uc - us));
+  const T lap_u = c.idx2 * (ue - T(2) * uc + uw) +
+                  c.idy2 * (un - T(2) * uc + us);
+  fv = uc + dt * (c.inv_re * lap_u - du2dx - duvdy + c.gx);
+  const T duvdx = c.idx4 * ((uc + un) * (vc + ve) - (uw + unw) * (vc + vw)) +
+                  c.gidx4 * (fabs(uc + un) * (vc - ve) +
+                             fabs(uw + unw) * (vc - vw));
+  const T dv2dy = c.idy4 * ((vc + vn) * (vc + vn) - (vc + vs) * (vc + vs)) +
+                  c.gidy4 * (fabs(vc + vn) * (vc - vn) +
+                             fabs(vc + vs) * (vc - vs));
+  const T lap_v = c.idx2 * (ve - T(2) * vc + vw) +
+                  c.idy2 * (vn - T(2) * vc + vs);
+  gv = vc + dt * (c.inv_re * lap_v - duvdx - dv2dy + c.gy);
+}
+
 template <typename T>
 __global__ void fg_cells(const T* __restrict__ u, const T* __restrict__ v,
                          const T* __restrict__ dtp, T* __restrict__ f,
@@ -111,31 +145,7 @@ __global__ void fg_cells(const T* __restrict__ u, const T* __restrict__ v,
   const bool rows = j >= 1 && j <= J;
   const bool cols = i >= 1 && i <= I;
   T fv = T(0), gv = T(0);
-  if (rows && cols) {
-    const T dt = *dtp;
-    const T uc = u[k], ue = u[k + 1], uw = u[k - 1], un = u[k + W],
-            us = u[k - W], unw = u[k + W - 1];
-    const T vc = v[k], ve = v[k + 1], vw = v[k - 1], vn = v[k + W],
-            vs = v[k - W], vse = v[k - W + 1];
-    const T du2dx = c.idx4 * ((uc + ue) * (uc + ue) - (uc + uw) * (uc + uw)) +
-                    c.gidx4 * (fabs(uc + ue) * (uc - ue) +
-                               fabs(uc + uw) * (uc - uw));
-    const T duvdy = c.idy4 * ((vc + ve) * (uc + un) - (vs + vse) * (uc + us)) +
-                    c.gidy4 * (fabs(vc + ve) * (uc - un) +
-                               fabs(vs + vse) * (uc - us));
-    const T lap_u = c.idx2 * (ue - T(2) * uc + uw) +
-                    c.idy2 * (un - T(2) * uc + us);
-    fv = uc + dt * (c.inv_re * lap_u - du2dx - duvdy + c.gx);
-    const T duvdx = c.idx4 * ((uc + un) * (vc + ve) - (uw + unw) * (vc + vw)) +
-                    c.gidx4 * (fabs(uc + un) * (vc - ve) +
-                               fabs(uw + unw) * (vc - vw));
-    const T dv2dy = c.idy4 * ((vc + vn) * (vc + vn) - (vc + vs) * (vc + vs)) +
-                    c.gidy4 * (fabs(vc + vn) * (vc - vn) +
-                               fabs(vc + vs) * (vc - vs));
-    const T lap_v = c.idx2 * (ve - T(2) * vc + vw) +
-                    c.idy2 * (vn - T(2) * vc + vs);
-    gv = vc + dt * (c.inv_re * lap_v - duvdx - dv2dy + c.gy);
-  }
+  if (rows && cols) fg_predict(u, v, k, W, *dtp, c, fv, gv);
   // wall fixups: F carries U on vertical walls, G carries V on horizontal
   if (rows && (i == 0 || i == I)) fv = u[k];
   if (cols && (j == 0 || j == J)) gv = v[k];
@@ -236,6 +246,203 @@ __global__ void max_partials(const T* __restrict__ partial, int nb,
   }
 }
 
+// ---------------------------------------------------------------------
+// The distributed mode (a shard's blocks on a 2-D mesh, divisible or
+// ragged). Geometry: the shard's halo-1 block is (Lj+2, Li+2), its deep
+// block (Lj+2+2e, Li+2+2e) with e = ext_pad; deep cell (a, b) is global
+// extended cell (a - e + joff, b - e + ioff), halo-1 cell (a, b) global
+// (a + joff, b + ioff). Every write is gated by the global index against
+// the global extents (Gj, Gi), so the walls, the lid and the inflow land
+// wherever they cross the block, and the dead cells of a ragged block stay
+// outside the global interior.
+// ---------------------------------------------------------------------
+
+struct Dist {
+  int Lj, Li, e, joff, ioff, Gj, Gi;
+};
+
+// the i-walls of one deep row per thread, in the reference's order (left,
+// then right), then the canal inflow on the left wall. Every read is in
+// the thread's own row; an inward read past the block reads 0, as the
+// TPU kernel's window does (it lands only on the outermost deep layer,
+// which the strip to the halo-1 block drops).
+template <typename T>
+__global__ void bc_rows_dist(T* __restrict__ u, T* __restrict__ v, Dist d,
+                             int bl, int br, int problem, double dy, T yl,
+                             T yl2) {
+  const int a = blockIdx.x * blockDim.x + threadIdx.x;
+  const int R = d.Lj + 2 + 2 * d.e, W = d.Li + 2 + 2 * d.e;
+  if (a >= R) return;
+  const int gj = a - d.e + d.joff;
+  if (gj < 1 || gj > d.Gj) return;
+  T* ur = u + (size_t)a * W;
+  T* vr = v + (size_t)a * W;
+  auto U = [&](int b) { return b >= 0 && b < W ? ur[b] : T(0); };
+  auto V = [&](int b) { return b >= 0 && b < W ? vr[b] : T(0); };
+  const int blo = d.e - d.ioff;  // gi == 0
+  const int bw = d.Gi + d.e - d.ioff;  // gi == Gi: U on the right wall
+  const int bg = bw + 1;  // gi == Gi + 1: the ghost column
+  if (blo >= 0 && blo < W) {
+    if (bl == NOSLIP) { ur[blo] = T(0); vr[blo] = -V(blo + 1); }
+    else if (bl == SLIP) { ur[blo] = T(0); vr[blo] = V(blo + 1); }
+    else if (bl == OUTFLOW) { ur[blo] = U(blo + 1); vr[blo] = V(blo + 1); }
+  }
+  if (br == NOSLIP || br == SLIP) {
+    if (bw >= 0 && bw < W) ur[bw] = T(0);
+    if (bg >= 0 && bg < W) vr[bg] = br == NOSLIP ? -V(bg - 1) : V(bg - 1);
+  } else if (br == OUTFLOW) {
+    if (bw >= 0 && bw < W) ur[bw] = U(bw - 1);
+    if (bg >= 0 && bg < W) vr[bg] = V(bg - 1);
+  }
+  if (problem == CANAL && blo >= 0 && blo < W) {
+    // y from the global row index in double, then the field's dtype
+    const T y = T((double(gj) - 0.5) * dy);
+    ur[blo] = y * (yl - y) * T(4) / yl2;
+  }
+}
+
+// the j-walls of one deep column per thread (bottom, then top), then the
+// dcavity lid (which skips the last interior i); every read is in the
+// thread's own column
+template <typename T>
+__global__ void bc_cols_dist(T* __restrict__ u, T* __restrict__ v, Dist d,
+                             int bb, int bt, int problem) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  const int R = d.Lj + 2 + 2 * d.e, W = d.Li + 2 + 2 * d.e;
+  if (b >= W) return;
+  const int gi = b - d.e + d.ioff;
+  if (gi < 1 || gi > d.Gi) return;
+  // reads past the block are 0 (as in bc_rows_dist); writes stay inside
+  auto U = [&](int a) { return a >= 0 && a < R ? u[(size_t)a * W + b] : T(0); };
+  auto V = [&](int a) { return a >= 0 && a < R ? v[(size_t)a * W + b] : T(0); };
+  auto Uw = [&](int a) -> T& { return u[(size_t)a * W + b]; };
+  auto Vw = [&](int a) -> T& { return v[(size_t)a * W + b]; };
+  const int alo = d.e - d.joff;  // gj == 0
+  const int aw = d.Gj + d.e - d.joff;  // gj == Gj: V on the top wall
+  const int ag = aw + 1;  // gj == Gj + 1: the ghost row
+  const bool lo = alo >= 0 && alo < R, w = aw >= 0 && aw < R,
+             gh = ag >= 0 && ag < R;
+  if (lo) {
+    if (bb == NOSLIP) { Vw(alo) = T(0); Uw(alo) = -U(alo + 1); }
+    else if (bb == SLIP) { Vw(alo) = T(0); Uw(alo) = U(alo + 1); }
+    else if (bb == OUTFLOW) { Uw(alo) = U(alo + 1); Vw(alo) = V(alo + 1); }
+  }
+  if (bt == NOSLIP || bt == SLIP) {
+    if (w) Vw(aw) = T(0);
+    if (gh) Uw(ag) = bt == NOSLIP ? -U(ag - 1) : U(ag - 1);
+  } else if (bt == OUTFLOW) {
+    if (gh) Uw(ag) = U(ag - 1);
+    if (w) Vw(aw) = V(aw - 1);
+  }
+  if (problem == DCAVITY && gh && gi <= d.Gi - 1) Uw(ag) = T(2) - U(ag - 1);
+}
+
+// F and G on the halo-1 block from the deep u and v: the predictor on the
+// global interior, the wall fixups, zero elsewhere
+template <typename T>
+__global__ void fg_cells_dist(const T* __restrict__ u,
+                              const T* __restrict__ v,
+                              const T* __restrict__ dtp, T* __restrict__ f,
+                              T* __restrict__ g, Dist d, Coef<T> c) {
+  const int i = blockIdx.x * BX + threadIdx.x;
+  const int j = blockIdx.y * BY + threadIdx.y;
+  if (i > d.Li + 1 || j > d.Lj + 1) return;
+  const size_t Wd = d.Li + 2 + 2 * d.e;
+  const size_t kd = (size_t)(j + d.e) * Wd + (i + d.e);
+  const size_t k = (size_t)j * (d.Li + 2) + i;
+  const int gj = j + d.joff, gi = i + d.ioff;
+  const bool rows = gj >= 1 && gj <= d.Gj;
+  const bool cols = gi >= 1 && gi <= d.Gi;
+  T fv = T(0), gv = T(0);
+  if (rows && cols) fg_predict(u, v, kd, Wd, *dtp, c, fv, gv);
+  if (rows && (gi == 0 || gi == d.Gi)) fv = u[kd];
+  if (cols && (gj == 0 || gj == d.Gj)) gv = v[kd];
+  f[k] = fv;
+  g[k] = gv;
+}
+
+// rhs on the halo-1 block: the owned cells of the global interior
+template <typename T>
+__global__ void rhs_cells_dist(const T* __restrict__ f,
+                               const T* __restrict__ g,
+                               const T* __restrict__ dtp, T* __restrict__ rhs,
+                               Dist d, T dx, T dy) {
+  const int i = blockIdx.x * BX + threadIdx.x;
+  const int j = blockIdx.y * BY + threadIdx.y;
+  if (i > d.Li + 1 || j > d.Lj + 1) return;
+  const size_t W = d.Li + 2;
+  const size_t k = (size_t)j * W + i;
+  const int gj = j + d.joff, gi = i + d.ioff;
+  T r = T(0);
+  if (j >= 1 && j <= d.Lj && i >= 1 && i <= d.Li && gj <= d.Gj &&
+      gi <= d.Gi) {
+    const T inv_dt = T(1) / *dtp;
+    r = inv_dt * ((f[k] - f[k - 1]) / dx + (g[k] - g[k - W]) / dy);
+  }
+  rhs[k] = r;
+}
+
+// the projection on the halo-1 block's cells of the global interior (p
+// read as 0 past the block's high edge), the live-mask multiply on a
+// ragged mesh, and per-block maxima of |u|, |v| over the cells of the
+// global extended array
+template <typename T>
+__global__ void adapt_cells_dist(T* __restrict__ u, T* __restrict__ v,
+                                 const T* __restrict__ f,
+                                 const T* __restrict__ g,
+                                 const T* __restrict__ p,
+                                 const T* __restrict__ dtp, Dist d, T dx,
+                                 T dy, int ragged, T* __restrict__ partial) {
+  __shared__ T shu[NT];
+  __shared__ T shv[NT];
+  const int i = blockIdx.x * BX + threadIdx.x;
+  const int j = blockIdx.y * BY + threadIdx.y;
+  const int tid = threadIdx.y * BX + threadIdx.x;
+  T au = T(0), av = T(0);
+  if (i <= d.Li + 1 && j <= d.Lj + 1) {
+    const size_t W = d.Li + 2;
+    const size_t k = (size_t)j * W + i;
+    const int gj = j + d.joff, gi = i + d.ioff;
+    T uu = u[k], vv = v[k];
+    if (gj >= 1 && gj <= d.Gj && gi >= 1 && gi <= d.Gi) {
+      const T dt = *dtp;
+      const T fx = dt / dx;
+      const T fy = dt / dy;
+      const T pe = i <= d.Li ? p[k + 1] : T(0);
+      const T pn = j <= d.Lj ? p[k + W] : T(0);
+      uu = f[k] - (pe - p[k]) * fx;
+      vv = g[k] - (pn - p[k]) * fy;
+    }
+    if (ragged) {
+      const T live = (gj <= d.Gj + 1 && gi <= d.Gi + 1) ? T(1) : T(0);
+      uu = uu * live;
+      vv = vv * live;
+    }
+    u[k] = uu;
+    v[k] = vv;
+    if (gj >= 0 && gj <= d.Gj + 1 && gi >= 0 && gi <= d.Gi + 1) {
+      au = fabs(uu);
+      av = fabs(vv);
+    }
+  }
+  shu[tid] = au;
+  shv[tid] = av;
+  __syncthreads();
+  for (int s = NT / 2; s > 0; s >>= 1) {
+    if (tid < s) {
+      shu[tid] = nanmax(shu[tid], shu[tid + s]);
+      shv[tid] = nanmax(shv[tid], shv[tid + s]);
+    }
+    __syncthreads();
+  }
+  if (tid == 0) {
+    const int nb = gridDim.x * gridDim.y;
+    const int bi = blockIdx.y * gridDim.x + blockIdx.x;
+    partial[bi] = shu[0];
+    partial[nb + bi] = shv[0];
+  }
+}
+
 dim3 cell_grid(int J, int I) {
   return dim3((I + 2 + BX - 1) / BX, (J + 2 + BY - 1) / BY);
 }
@@ -274,6 +481,44 @@ int run_post(int dev, T* u, T* v, const T* f, const T* g, const T* p,
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int run_pre_dist(int dev, T* u, T* v, const T* dt, T* f, T* g, T* rhs,
+                 const int* geo, const int* bc, int problem, const double* c,
+                 void* stream) {
+  cudaError_t e = cudaSetDevice(dev);
+  if (e != cudaSuccess) return (int)e;
+  cudaStream_t st = (cudaStream_t)stream;
+  const Dist d{geo[0], geo[1], geo[2], geo[3], geo[4], geo[5], geo[6]};
+  const int R = d.Lj + 2 + 2 * d.e, W = d.Li + 2 + 2 * d.e;
+  bc_rows_dist<T><<<(R + BC_THREADS - 1) / BC_THREADS, BC_THREADS, 0, st>>>(
+      u, v, d, bc[0], bc[1], problem, c[10], T(c[11]), T(c[12]));
+  bc_cols_dist<T><<<(W + BC_THREADS - 1) / BC_THREADS, BC_THREADS, 0, st>>>(
+      u, v, d, bc[2], bc[3], problem);
+  const Coef<T> k{T(c[0]), T(c[1]), T(c[2]), T(c[3]), T(c[4]),
+                  T(c[5]), T(c[6]), T(c[7]), T(c[8])};
+  const dim3 grd = cell_grid(d.Lj, d.Li);
+  const dim3 blk(BX, BY);
+  fg_cells_dist<T><<<grd, blk, 0, st>>>(u, v, dt, f, g, d, k);
+  rhs_cells_dist<T><<<grd, blk, 0, st>>>(f, g, dt, rhs, d, T(c[9]),
+                                         T(c[10]));
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int run_post_dist(int dev, T* u, T* v, const T* f, const T* g, const T* p,
+                  const T* dt, const int* geo, int ragged, double dx,
+                  double dy, T* partial, T* out, void* stream) {
+  cudaError_t e = cudaSetDevice(dev);
+  if (e != cudaSuccess) return (int)e;
+  cudaStream_t st = (cudaStream_t)stream;
+  const Dist d{geo[0], geo[1], 0, geo[2], geo[3], geo[4], geo[5]};
+  const dim3 grd = cell_grid(d.Lj, d.Li);
+  adapt_cells_dist<T><<<grd, dim3(BX, BY), 0, st>>>(
+      u, v, f, g, p, dt, d, T(dx), T(dy), ragged, partial);
+  max_partials<T><<<1, FIN, 0, st>>>(partial, (int)(grd.x * grd.y), out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -305,6 +550,30 @@ int ns2d_post_partials(int J, int I) {
                        (T*)out, stream);                                     \
   }
 
+// the distributed mode: geo = [Lj, Li, ext_pad, joff, ioff, Gj, Gi]; u, v
+// are the shard's deep blocks, f, g, rhs its halo-1 blocks
+#define PRE_DIST_ENTRY(NAME, T)                                              \
+  int NAME(int dev, void* u, void* v, const void* dt, void* f, void* g,      \
+           void* rhs, const int* geo, const int* bc, int problem,            \
+           const double* c, void* stream) {                                  \
+    return run_pre_dist<T>(dev, (T*)u, (T*)v, (const T*)dt, (T*)f, (T*)g,    \
+                           (T*)rhs, geo, bc, problem, c, stream);            \
+  }
+
+// geo = [Lj, Li, joff, ioff, Gj, Gi]; every block is the shard's halo-1
+#define POST_DIST_ENTRY(NAME, T)                                             \
+  int NAME(int dev, void* u, void* v, const void* f, const void* g,          \
+           const void* p, const void* dt, const int* geo, int ragged,        \
+           double dx, double dy, void* partial, void* out, void* stream) {   \
+    return run_post_dist<T>(dev, (T*)u, (T*)v, (const T*)f, (const T*)g,     \
+                            (const T*)p, (const T*)dt, geo, ragged, dx, dy,  \
+                            (T*)partial, (T*)out, stream);                   \
+  }
+
+PRE_DIST_ENTRY(ns2d_pre_dist_f32, float)
+PRE_DIST_ENTRY(ns2d_pre_dist_f64, double)
+POST_DIST_ENTRY(ns2d_post_dist_f32, float)
+POST_DIST_ENTRY(ns2d_post_dist_f64, double)
 PRE_ENTRY(ns2d_pre_f32, float)
 PRE_ENTRY(ns2d_pre_f64, double)
 POST_ENTRY(ns2d_post_f32, float)

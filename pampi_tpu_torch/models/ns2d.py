@@ -69,7 +69,7 @@ class NS2DSolver:
         self._cfg = StepConfig.from_param(param)
         self._solve = make_pressure_solve_for(param, self.dx, self.dy,
                                               self.dtype, self.device)
-        record("ns2d_step", f"pre -> {solve_label(param)} -> post on "
+        record("ns2d_step", f"pre -> {solve_label(param, self.dtype)} -> post on "
                f"{self.device.type}")
         self.phase_hook = None
         # the last pressure solve's residual and iteration (V-cycle) count

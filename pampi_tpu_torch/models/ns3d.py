@@ -33,7 +33,12 @@ from ..ops.sor3d_kernels import rb_sor3d_checkerboard, rb_sor3d_octants
 from ..ops.sor_octants import stack_octants, unstack_octants
 from ..utils import flags as _flags
 from ..utils.device import resolve_device
-from ..utils.dispatch import check_supported, record, resolve_solver
+from ..utils.dispatch import (
+    check_supported,
+    record,
+    resolve_solver,
+    sor_cadence,
+)
 from ..utils.grid import Grid
 from ..utils.params import Parameter
 from ..utils.precision import resolve_dtype
@@ -62,7 +67,8 @@ def make_pressure_solve_3d(imax, jmax, kmax, dx, dy, dz, omega, eps, itermax,
                            layout: str = "auto", stall_rtol=None,
                            mg_fused: str = "auto", *, device):
     """The 3-D pressure solve of one step, solve(p, rhs) -> (p, res, it).
-    `sor`: one kernel call = n_inner red-black iterations, `it += n_inner`,
+    `sor`: one kernel call = n_inner red-black iterations (NS3DSolver
+    passes the dtype's sor_cadence), `it += n_inner`,
     the residual Σr²/(imax·jmax·kmax) read back and checked against eps²
     after every call (the JAX make_tblock_solve_loop contract). `mg`:
     multigrid V-cycles (K11/K12 in the fused cycle), `it` counts cycles.
@@ -131,13 +137,15 @@ class NS3DSolver:
         self._dt_scale = 1.0
         self._cfg = StepConfig3D.from_param(param)
         solver, layout = param.tpu_solver, "auto"
+        # the JAX package's residual cadence for the dtype
+        n_inner = sor_cadence(param, self.dtype)
         if solver == "sor":
             layout = resolve_layout_3d(g.imax, g.jmax, g.kmax,
                                        param.tpu_sor_layout)
-            solver = f"sor {layout} n_inner={param.tpu_sor_inner}"
+            solver = f"sor {layout} n_inner={n_inner}"
         self._solve = make_pressure_solve_3d(
             g.imax, g.jmax, g.kmax, g.dx, g.dy, g.dz, param.omg, param.eps,
-            param.itermax, self.dtype, n_inner=param.tpu_sor_inner,
+            param.itermax, self.dtype, n_inner=n_inner,
             solver=param.tpu_solver, layout=layout,
             stall_rtol=param.tpu_mg_stall_rtol, mg_fused=param.tpu_mg_fused,
             device=self.device)

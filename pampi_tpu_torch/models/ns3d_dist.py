@@ -151,7 +151,7 @@ class NS3DDistSolver:
         self._coef = sor_coefficients_3d(g.dx, g.dy, g.dz, param.omg)
         self._rb_o, self._og, self._n_o = od.octants_dispatch(
             param, g.kmax, g.jmax, g.imax, kl, jl, il, g.dx, g.dy, g.dz,
-            "ns3d_dist", dims=comm.dims)
+            self.dtype, "ns3d_dist", dims=comm.dims)
         if self._rb_o is None:
             _dispatch.record("ns3d_dist", "jnp_ca")
         # the grid-space CA path: block size, halo depth and masks

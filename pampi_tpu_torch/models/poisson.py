@@ -10,7 +10,10 @@ back to the host and checks `res >= eps² and it < itermax`. That is one
 host sync per check, where the JAX package keeps the whole loop on the
 device in a `while_loop`; moving the loop onto the device is later work.
 The iteration count `it` advances by exactly `eff_inner` per call, as in
-the JAX package's convergence loops.
+the JAX package's convergence loops. `eff_inner` is the JAX package's
+cadence for the dtype (utils/dispatch.sor_cadence): `tpu_sor_inner` at
+float32, where its TPU kernels run, and 1 at float64, where it steps its
+jnp path one iteration at a time.
 
 The residual is normalised and compared on the host in the field's dtype
 (numpy float32 or float64 arithmetic), which is what the JAX loop computes
@@ -44,7 +47,12 @@ from ..ops.sor_quarters import stack_quarters, unstack_quarters
 from ..utils import flags as _flags
 from ..utils.datio import write_matrix
 from ..utils.device import resolve_device
-from ..utils.dispatch import check_supported, record, resolve_solver
+from ..utils.dispatch import (
+    check_supported,
+    record,
+    resolve_solver,
+    sor_cadence,
+)
 from ..utils.params import Parameter
 from ..utils.precision import check_eps_floor, resolve_dtype
 
@@ -107,9 +115,10 @@ def make_solver_fn(imax, jmax, dx, dy, omega, eps, itermax, dtype,
                    n_inner: int = 1, layout: str = "auto",
                    flat: bool = False):
     """The convergence loop: solve(p, rhs) -> (p, res, it), updating p in
-    place. Convergence is checked every eff_inner iterations, so a solve
-    may run up to eff_inner-1 iterations past the first one below eps
-    (they only lower the residual); `it` is the true iteration count.
+    place. Convergence is checked every n_inner iterations (the caller's
+    sor_cadence), so a solve may run up to n_inner-1 iterations past the
+    first one below eps (they only lower the residual); `it` is the true
+    iteration count.
     flat=True runs exactly ceil(itermax/eff_inner) calls with no check in
     between (no host sync inside the solve); res is then the last one."""
     check_eps_floor(eps, imax * jmax, dtype, f"sor {imax}x{jmax}")
@@ -179,21 +188,21 @@ def make_pressure_solve(imax, jmax, dx, dy, omega, eps, itermax, dtype,
                           n_inner=n_inner, layout=layout, flat=flat)
 
 
-def solve_label(param: Parameter) -> str:
+def solve_label(param: Parameter, dtype) -> str:
     """The dispatch record's name of a resolved Parameter's 2-D solve."""
     if param.tpu_solver != "sor":
         return param.tpu_solver
     layout = resolve_layout(param.imax, param.jmax, param.tpu_sor_layout)
-    return f"sor {layout} n_inner={param.tpu_sor_inner}"
+    return f"sor {layout} n_inner={sor_cadence(param, dtype)}"
 
 
 def make_pressure_solve_for(param: Parameter, dx, dy, dtype, device):
     """make_pressure_solve with every knob taken from a resolved
     Parameter: the one build of the 2-D solve for PoissonSolver and
-    NS2DSolver."""
+    NS2DSolver, checking convergence at the dtype's sor_cadence."""
     return make_pressure_solve(
         param.imax, param.jmax, dx, dy, param.omg, param.eps, param.itermax,
-        dtype, n_inner=param.tpu_sor_inner, solver=param.tpu_solver,
+        dtype, n_inner=sor_cadence(param, dtype), solver=param.tpu_solver,
         layout=param.tpu_sor_layout, flat=bool(param.tpu_flat_solve),
         stall_rtol=param.tpu_mg_stall_rtol, mg_fused=param.tpu_mg_fused,
         device=device)
@@ -221,7 +230,7 @@ class PoissonSolver:
         """The solve the resolved `tpu_solver` selects (the JAX
         PoissonSolver._make_solve)."""
         record("poisson_solver",
-               f"{solve_label(self.param)} on {self.device.type}")
+               f"{solve_label(self.param, self.dtype)} on {self.device.type}")
         return make_pressure_solve_for(self.param, self.dx, self.dy,
                                        self.dtype, self.device)
 

@@ -105,7 +105,7 @@ class DistPoissonSolver:
         self.H = ca_halo(self.n_ca, self.ragged) if self.supported else 1
         self.rb_q, self.qg = qd.quarters_dispatch(
             param, self.jmax, self.imax, jl, il, self.dx, self.dy,
-            "poisson_dist", plain_sor=not self.ragged)
+            self.dtype, "poisson_dist", plain_sor=not self.ragged)
         if self.rb_q is None:
             tag = f"jnp_ca ca{self.n_ca}" if self.supported else \
                 "jnp_rb_fallback"

@@ -16,6 +16,7 @@ JAX ones; the kernels' wrappers (ops/ns2d_fused.py) work in place.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 NOSLIP, SLIP, OUTFLOW, PERIODIC = 1, 2, 3, 4
@@ -237,3 +238,188 @@ def compute_timestep(u, v, dt_bound, dx, dy, tau):
 def normalize_pressure(p):
     """Subtract the mean over the FULL array (normalizePressure)."""
     return p - torch.mean(p)
+
+
+# ----------------------------------------------------------------------
+# Global-index gated forms: the phases on a shard's block of a 2-D mesh,
+# divisible or ragged (the plain versions of K3/K4 in their distributed
+# mode; the JAX package's apply_wall_bcs_2d / apply_special_bc_2d of
+# ops/ns2d_fused.py, which parallel/ragged2d.py shares)
+# ----------------------------------------------------------------------
+
+
+def index_grids_2d(shape, ext_pad: int, offs, device="cpu"):
+    """(gj column, gi row): the global extended index of every cell of a
+    block whose local index a along an axis is global a - ext_pad +
+    offset."""
+    (nj, ni), (joff, ioff) = shape, offs
+    gj = torch.arange(nj, device=device)[:, None] - ext_pad + int(joff)
+    gi = torch.arange(ni, device=device)[None, :] - ext_pad + int(ioff)
+    return gj, gi
+
+
+def shift_zero(x, shift: int, dim: int):
+    """torch.roll with the wrapped-in cells read as 0: x shifted by
+    `shift` along `dim`, the value past the block's edge 0."""
+    out = torch.roll(x, shift, dim)
+    edge = [slice(None)] * x.dim()
+    edge[dim] = slice(0, shift) if shift > 0 else slice(shift, None)
+    out[tuple(edge)] = 0.0
+    return out
+
+
+def apply_wall_bcs_gated(u, v, gj, gi, bc, gext, roll=torch.roll):
+    """set_boundary_conditions as sequential where-updates gated by the
+    global index, in the reference's wall order (left, right, bottom,
+    top), so later walls read earlier walls' writes as on one device. The
+    inward read is `roll` of the block: a wrapping roll on the halo-1
+    blocks of the phase chain (as the JAX package's ragged2d), shift_zero
+    on the deep blocks of PRE (as its kernel, whose window reads 0 past
+    the block); the two differ only on the block's outermost layer."""
+    bc_left, bc_right, bc_bottom, bc_top = bc
+    jmax, imax = gext
+    rows = (gj >= 1) & (gj <= jmax)
+    cols = (gi >= 1) & (gi <= imax)
+    zu, zv = torch.zeros_like(u), torch.zeros_like(v)
+    where = torch.where
+
+    m = (gi == 0) & rows  # left: U on the wall, V ghost
+    if bc_left == NOSLIP:
+        u, v = where(m, zu, u), where(m, -roll(v, -1, 1), v)
+    elif bc_left == SLIP:
+        u, v = where(m, zu, u), where(m, roll(v, -1, 1), v)
+    elif bc_left == OUTFLOW:
+        u, v = where(m, roll(u, -1, 1), u), where(m, roll(v, -1, 1), v)
+    mw = (gi == imax) & rows  # right: U(imax) on the wall
+    mg = (gi == imax + 1) & rows  # the ghost column
+    if bc_right == NOSLIP:
+        u, v = where(mw, zu, u), where(mg, -roll(v, 1, 1), v)
+    elif bc_right == SLIP:
+        u, v = where(mw, zu, u), where(mg, roll(v, 1, 1), v)
+    elif bc_right == OUTFLOW:
+        u, v = where(mw, roll(u, 1, 1), u), where(mg, roll(v, 1, 1), v)
+    m = (gj == 0) & cols  # bottom: V on the wall, U ghost
+    if bc_bottom == NOSLIP:
+        v, u = where(m, zv, v), where(m, -roll(u, -1, 0), u)
+    elif bc_bottom == SLIP:
+        v, u = where(m, zv, v), where(m, roll(u, -1, 0), u)
+    elif bc_bottom == OUTFLOW:
+        u, v = where(m, roll(u, -1, 0), u), where(m, roll(v, -1, 0), v)
+    mw = (gj == jmax) & cols  # top: V(jmax) on the wall
+    mg = (gj == jmax + 1) & cols  # the ghost row
+    if bc_top == NOSLIP:
+        v, u = where(mw, zv, v), where(mg, -roll(u, 1, 0), u)
+    elif bc_top == SLIP:
+        v, u = where(mw, zv, v), where(mg, roll(u, 1, 0), u)
+    elif bc_top == OUTFLOW:
+        u, v = where(mg, roll(u, 1, 0), u), where(mw, roll(v, 1, 0), v)
+    return u, v
+
+
+def inflow_profile(gj, dy, ylength, dtype):
+    """The canal's parabolic inflow U(0, j) at the global rows gj (a
+    numpy integer array): y from the row index in float64, cast to the
+    field dtype, then y(ylength - y)·4/ylength² in that dtype (the JAX
+    package's distributed profile). Computed with numpy on the host."""
+    real = np.float32 if dtype == torch.float32 else np.float64
+    y = ((np.asarray(gj, np.float64) - 0.5) * dy).astype(real)
+    return torch.from_numpy(np.asarray(
+        y * (real(ylength) - y) * real(4.0) / real(ylength * ylength),
+        dtype=real))
+
+
+def apply_special_bc_gated(u, gj, gi, problem, gext, dy, ylength,
+                           roll=torch.roll):
+    """The dcavity lid (skipping the last interior i, the reference's
+    loop-bound quirk) or the canal inflow, gated by the global index
+    (`roll` as in apply_wall_bcs_gated)."""
+    jmax, imax = gext
+    if problem == "dcavity":
+        m = (gj == jmax + 1) & (gi >= 1) & (gi <= imax - 1)
+        return torch.where(m, 2.0 - roll(u, 1, 0), u)
+    if problem in ("canal", "canal_obstacle"):
+        prof = inflow_profile(gj[:, 0].cpu().numpy(), dy, ylength, u.dtype)
+        m = (gi == 0) & (gj >= 1) & (gj <= jmax)
+        return torch.where(m, prof.to(u.device)[:, None].expand_as(u), u)
+    return u
+
+
+def fg_fixups_gated(f, g, u, v, gj, gi, gext):
+    """apply_fg_wall_fixups gated by the global index: F = U on the
+    vertical walls, G = V on the horizontal ones, tangentially on the
+    global interior."""
+    jmax, imax = gext
+    rows = (gj >= 1) & (gj <= jmax)
+    cols = (gi >= 1) & (gi <= imax)
+    return (torch.where(((gi == 0) | (gi == imax)) & rows, u, f),
+            torch.where(((gj == 0) | (gj == jmax)) & cols, v, g))
+
+
+def _global_interior(gj, gi, gext):
+    jmax, imax = gext
+    return (gj >= 1) & (gj <= jmax) & (gi >= 1) & (gi <= imax)
+
+
+def compute_fg_interior(u, v, dt, re, gx, gy, gamma, dx, dy):
+    """The momentum predictor F, G on the block's interior, zero
+    elsewhere, without the wall fixups (the distributed step gates those
+    by the global index, fg_fixups_gated)."""
+    f_int, g_int = fg_predictor_terms(u, v, dt, re, gx, gy, gamma, dx, dy)
+    m = _interior_mask(u.shape, u.device)
+    zero = _const(0.0, u)
+    return torch.where(m, f_int, zero), torch.where(m, g_int, zero)
+
+
+def pre_gated(ud, vd, dt, bc, problem, re, gx, gy, gamma, dx, dy, ylength,
+              offs, gext, ext_pad: int):
+    """PRE on a shard's deep block (the plain version of K3's distributed
+    mode): ud, vd are (l+2+2e)-extended blocks (e = ext_pad >= 1) whose
+    local index a is global a - e + offset. Returns u', v' on the deep
+    block after the wall and special BCs, and F, G, rhs on the shard's
+    halo-1 block: F/G the predictor on the global interior plus the wall
+    fixups, zero elsewhere; rhs on the owned cells of the global interior.
+    Inputs untouched."""
+    if ext_pad < 1:
+        raise ValueError("the gated PRE needs a deep block (ext_pad >= 1)")
+    e = ext_pad
+    gj, gi = index_grids_2d(ud.shape, e, offs, ud.device)
+    u, v = apply_wall_bcs_gated(ud, vd, gj, gi, bc, gext, shift_zero)
+    u = apply_special_bc_gated(u, gj, gi, problem, gext, dy, ylength,
+                               shift_zero)
+    f_full, g_full = fg_predictor_terms(u, v, dt, re, gx, gy, gamma, dx, dy)
+    strip = tuple(slice(e, n - e) for n in ud.shape)
+    uo, vo = u[strip], v[strip]
+    gj, gi = index_grids_2d(uo.shape, 0, offs, ud.device)
+    interior = _global_interior(gj, gi, gext)
+    zero = _const(0.0, u)
+    f, g = fg_fixups_gated(torch.where(interior, f_full[strip], zero),
+                           torch.where(interior, g_full[strip], zero),
+                           uo, vo, gj, gi, gext)
+    owned = _interior_mask(f.shape, f.device) & interior
+    rhs = torch.where(owned, rhs_terms(f, g, dt, dx, dy), zero)
+    return u, v, f, g, rhs
+
+
+def post_gated(u, v, f, g, p, dt, dx, dy, offs, gext, ragged: bool):
+    """POST on a shard's halo-1 block (the plain version of K4's
+    distributed mode): the projection on the cells of the global interior,
+    ring cells included where they are interface ghosts, with p read as 0
+    beyond the block's high edge; other cells keep u, v. On a ragged mesh
+    the dead cells are then zeroed (the live-mask multiply). Returns (u'',
+    v'', max|u''|, max|v''|), the maxima over the block's cells of the
+    global extended array. Inputs untouched."""
+    gj, gi = index_grids_2d(u.shape, 0, offs, u.device)
+    jmax, imax = gext
+    interior = _global_interior(gj, gi, gext)
+    pp = torch.nn.functional.pad(p, (0, 1, 0, 1))
+    fx = dt / _const(dx, dt)
+    fy = dt / _const(dy, dt)
+    un = torch.where(interior, f - (pp[:-1, 1:] - p) * fx, u)
+    vn = torch.where(interior, g - (pp[1:, :-1] - p) * fy, v)
+    if ragged:
+        live = ((gj <= jmax + 1) & (gi <= imax + 1)).to(u.dtype)
+        un, vn = un * live, vn * live
+    valid = (gj >= 0) & (gj <= jmax + 1) & (gi >= 0) & (gi <= imax + 1)
+    zero = _const(0.0, u)
+    return (un, vn, torch.max(torch.where(valid, un.abs(), zero)),
+            torch.max(torch.where(valid, vn.abs(), zero)))

@@ -1,6 +1,6 @@
 """Kernels K3 and K4: the NS-2D step phases around the pressure solve on
 the H100, each beside its plain PyTorch version (sources:
-pampi_tpu_torch/csrc/ns2d_fused.cu). Single device, no obstacles.
+pampi_tpu_torch/csrc/ns2d_fused.cu). No obstacles.
 
 K3 `ns2d_pre` replaces pampi_tpu/ops/ns2d_fused.py `_pre_kernel`
   (make_fused_pre_2d, pallas_call at :775): (u, v, dt) -> (u', v', F, G,
@@ -24,6 +24,21 @@ of neighbouring blocks); POST is one launch that also writes per-block
 partial maxima, and a one-block launch that reduces them. dt stays on the
 device, so no launch waits for the host. max is exact in any order, so the
 maxima equal the plain version's bitwise given equal fields.
+
+The distributed mode (models/ns2d_dist.py; JAX make_fused_pre_2d(...,
+jl, il, ext_pad=FUSE_DEEP_HALO - 1) and make_fused_post_2d(..., jl, il,
+ragged)): the caller passes the shard's global offsets and the global
+extents, and every write is gated by the global index, so the walls, the
+lid and the inflow land wherever they cross a shard, on a divisible mesh
+or a ragged one. PRE takes the shard's deep blocks (ext_pad ghost layers
+more per side than the halo-1 block), applies the BCs in place where the
+global walls cross them, and returns F, G, rhs on the halo-1 block (four
+launches: the i-walls and the inflow one thread per row, the j-walls and
+the lid one per column, F/G, rhs). POST takes the halo-1 blocks, reads p
+as 0 past the block's high edge, zeroes the dead cells on a ragged mesh
+(the live-mask multiply) and returns the shard's maxima over the cells of
+the global extended array. The single-device mode is the call without
+offsets and runs the kernels above unchanged.
 
 For a CPU tensor each wrapper runs its plain version (ops/ns2d.py); for a
 CUDA tensor it launches its kernel or raises.
@@ -49,9 +64,14 @@ _PROBLEM_CODE = {"dcavity": 1, "canal": 2}
 _V, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _PRE_ARGS = [_I, _V, _V, _V, _V, _V, _V, _I, _I, _V, _I, _V, _V]
 _POST_ARGS = [_I, _V, _V, _V, _V, _V, _V, _I, _I, _D, _D, _V, _V, _V]
+_PRE_DIST_ARGS = [_I, _V, _V, _V, _V, _V, _V, _V, _V, _I, _V, _V]
+_POST_DIST_ARGS = [_I, _V, _V, _V, _V, _V, _V, _V, _I, _D, _D, _V, _V, _V]
 _SIGNATURES = {
     "ns2d_pre_f32": _PRE_ARGS, "ns2d_pre_f64": _PRE_ARGS,
     "ns2d_post_f32": _POST_ARGS, "ns2d_post_f64": _POST_ARGS,
+    "ns2d_pre_dist_f32": _PRE_DIST_ARGS, "ns2d_pre_dist_f64": _PRE_DIST_ARGS,
+    "ns2d_post_dist_f32": _POST_DIST_ARGS,
+    "ns2d_post_dist_f64": _POST_DIST_ARGS,
     "ns2d_post_partials": [_I, _I],
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
@@ -89,8 +109,11 @@ class StepConfig:
                 self.ylength, self.ylength * self.ylength]
 
 
-def _check(tensors, dt) -> None:
+def _check(tensors, dt, shape=None) -> None:
+    """Device, dtype, contiguity; every tensor of `shape` (default: the
+    first one's)."""
     t0 = tensors[0]
+    shape = t0.shape if shape is None else shape
     if t0.device.type != "cuda":
         raise ValueError(f"NS-2D kernels take CPU or CUDA tensors, not {t0.device}")
     if t0.dtype not in _SUFFIX:
@@ -99,7 +122,7 @@ def _check(tensors, dt) -> None:
         raise ValueError(f"fields must be 2-D, got {tuple(t0.shape)}")
     for t in tensors:
         if (t.device != t0.device or t.dtype != t0.dtype
-                or t.shape != t0.shape or not t.is_contiguous()):
+                or t.shape != shape or not t.is_contiguous()):
             raise ValueError("fields must be contiguous and share device, "
                              "dtype and shape")
     if dt.device != t0.device or dt.dtype != t0.dtype or dt.numel() != 1:
@@ -110,8 +133,34 @@ def _lib():
     return kb.load("ns2d_fused", _SIGNATURES)
 
 
-def ns2d_pre_plain(u, v, dt, cfg: StepConfig):
-    """K3's plain version: returns (u', v', F, G, rhs), inputs untouched."""
+def _mode(shape, offs, gext, ext_pad: int, deep: bool):
+    """(local interior extents of the halo-1 block, offsets, global
+    extents) of a call: one device when offs is None; otherwise the
+    shard's, on a deep block (ext_pad >= 1) when `deep`."""
+    local = tuple(n - 2 - 2 * ext_pad for n in shape)
+    if offs is None:
+        if ext_pad:
+            raise ValueError("a deep block (ext_pad > 0) needs the shard's "
+                             "offsets and the global extents")
+        return local, (0, 0), local
+    if gext is None:
+        raise ValueError("the distributed mode needs the global extents")
+    if deep and ext_pad < 1:
+        raise ValueError("the distributed PRE runs on a deep block "
+                         "(ext_pad >= 1)")
+    return local, tuple(int(o) for o in offs), tuple(int(n) for n in gext)
+
+
+def ns2d_pre_plain(u, v, dt, cfg: StepConfig, offs=None, gext=None,
+                   ext_pad: int = 0):
+    """K3's plain version: returns (u', v', F, G, rhs), inputs untouched;
+    in the distributed mode u', v' are deep blocks and F, G, rhs halo-1
+    blocks (ops/ns2d.pre_gated)."""
+    if offs is not None:
+        _mode(u.shape, offs, gext, ext_pad, True)
+        return ops.pre_gated(u, v, dt, cfg.bc, cfg.problem, cfg.re, cfg.gx,
+                             cfg.gy, cfg.gamma, cfg.dx, cfg.dy, cfg.ylength,
+                             offs, gext, ext_pad)
     u1, v1 = ops.set_boundary_conditions(u, v, *cfg.bc)
     u1 = ops.set_special_bc(u1, cfg.problem, cfg.dy, cfg.ylength)
     f, g = ops.compute_fg(u1, v1, dt, cfg.re, cfg.gx, cfg.gy, cfg.gamma,
@@ -120,53 +169,87 @@ def ns2d_pre_plain(u, v, dt, cfg: StepConfig):
     return u1, v1, f, g, rhs
 
 
-def ns2d_pre(u, v, dt, cfg: StepConfig):
+def ns2d_pre(u, v, dt, cfg: StepConfig, offs=None, gext=None,
+             ext_pad: int = 0):
     """K3: boundary conditions in place on u and v; returns (F, G, rhs).
-    dt is a 0-dim tensor beside the fields."""
+    dt is a 0-dim tensor beside the fields. One device by default; with
+    the shard's global offsets `offs` = (joff, ioff), the global interior
+    extents `gext` = (jmax, imax) and `ext_pad` >= 1, u and v are the
+    shard's deep blocks (local index a is global a - ext_pad + offset) and
+    F, G, rhs its halo-1 blocks."""
+    local, o, G = _mode(u.shape, offs, gext, ext_pad, True)
     if u.device.type == "cpu":
-        u1, v1, f, g, rhs = ns2d_pre_plain(u, v, dt, cfg)
+        u1, v1, f, g, rhs = ns2d_pre_plain(u, v, dt, cfg, offs, gext,
+                                           ext_pad)
         u.copy_(u1)
         v.copy_(v1)
         return f, g, rhs
     _check((u, v), dt)
-    f, g, rhs = (torch.empty_like(u) for _ in range(3))
-    jmax, imax = u.shape[0] - 2, u.shape[1] - 2
+    f, g, rhs = (u.new_empty(tuple(n + 2 for n in local)) for _ in range(3))
+    _check((f, g, rhs), dt)
     bc = (ctypes.c_int * 4)(*cfg.bc)
     coef = (ctypes.c_double * 13)(*cfg.coefficients())
     lib = _lib()
-    err = getattr(lib, f"ns2d_pre_{_SUFFIX[u.dtype]}")(
-        u.device.index, u.data_ptr(), v.data_ptr(), dt.data_ptr(),
-        f.data_ptr(), g.data_ptr(), rhs.data_ptr(), jmax, imax, bc,
-        _PROBLEM_CODE.get(cfg.problem, 0), coef, kb.stream_of(u))
+    code = _PROBLEM_CODE.get(cfg.problem, 0)
+    with torch.cuda.device(u.device):
+        if offs is None:
+            err = getattr(lib, f"ns2d_pre_{_SUFFIX[u.dtype]}")(
+                u.device.index, u.data_ptr(), v.data_ptr(), dt.data_ptr(),
+                f.data_ptr(), g.data_ptr(), rhs.data_ptr(), *local, bc, code,
+                coef, kb.stream_of(u))
+        else:
+            err = getattr(lib, f"ns2d_pre_dist_{_SUFFIX[u.dtype]}")(
+                u.device.index, u.data_ptr(), v.data_ptr(), dt.data_ptr(),
+                f.data_ptr(), g.data_ptr(), rhs.data_ptr(),
+                (ctypes.c_int * 7)(*local, ext_pad, *o, *G), bc, code, coef,
+                kb.stream_of(u))
     kb.check(lib, err, "ns2d_pre")
     NS2D_PRE.launches += 1
     return f, g, rhs
 
 
-def ns2d_post_plain(u, v, f, g, p, dt, dx, dy):
-    """K4's plain version: returns (u'', v'', max|u''|, max|v''|)."""
+def ns2d_post_plain(u, v, f, g, p, dt, dx, dy, offs=None, gext=None,
+                    ragged: bool = False):
+    """K4's plain version: returns (u'', v'', max|u''|, max|v''|); in the
+    distributed mode the gated projection of ops/ns2d.post_gated on the
+    shard's halo-1 blocks."""
+    if offs is not None:
+        return ops.post_gated(u, v, f, g, p, dt, dx, dy, offs, gext, ragged)
     u2, v2 = ops.adapt_uv(u, v, f, g, p, dt, dx, dy)
     return u2, v2, ops.max_element(u2), ops.max_element(v2)
 
 
-def ns2d_post(u, v, f, g, p, dt, dx, dy):
+def ns2d_post(u, v, f, g, p, dt, dx, dy, offs=None, gext=None,
+              ragged: bool = False):
     """K4: projection in place on u and v; returns (umax, vmax) as 0-dim
-    tensors on the fields' device."""
+    tensors on the fields' device. With the shard's global offsets and the
+    global extents, the distributed mode on its halo-1 blocks (`ragged`:
+    the mesh does not divide the grid, and the dead cells are zeroed); the
+    maxima are then the shard's."""
+    local, o, G = _mode(u.shape, offs, gext, 0, False)
     if u.device.type == "cpu":
-        u2, v2, umax, vmax = ns2d_post_plain(u, v, f, g, p, dt, dx, dy)
+        u2, v2, umax, vmax = ns2d_post_plain(u, v, f, g, p, dt, dx, dy,
+                                             offs, gext, ragged)
         u.copy_(u2)
         v.copy_(v2)
         return umax, vmax
     _check((u, v, f, g, p), dt)
-    jmax, imax = u.shape[0] - 2, u.shape[1] - 2
     lib = _lib()
-    partial = torch.empty(lib.ns2d_post_partials(jmax, imax), dtype=u.dtype,
+    partial = torch.empty(lib.ns2d_post_partials(*local), dtype=u.dtype,
                           device=u.device)
     out = torch.empty(2, dtype=u.dtype, device=u.device)
-    err = getattr(lib, f"ns2d_post_{_SUFFIX[u.dtype]}")(
-        u.device.index, u.data_ptr(), v.data_ptr(), f.data_ptr(),
-        g.data_ptr(), p.data_ptr(), dt.data_ptr(), jmax, imax, dx, dy,
-        partial.data_ptr(), out.data_ptr(), kb.stream_of(u))
+    with torch.cuda.device(u.device):
+        if offs is None:
+            err = getattr(lib, f"ns2d_post_{_SUFFIX[u.dtype]}")(
+                u.device.index, u.data_ptr(), v.data_ptr(), f.data_ptr(),
+                g.data_ptr(), p.data_ptr(), dt.data_ptr(), *local, dx, dy,
+                partial.data_ptr(), out.data_ptr(), kb.stream_of(u))
+        else:
+            err = getattr(lib, f"ns2d_post_dist_{_SUFFIX[u.dtype]}")(
+                u.device.index, u.data_ptr(), v.data_ptr(), f.data_ptr(),
+                g.data_ptr(), p.data_ptr(), dt.data_ptr(),
+                (ctypes.c_int * 6)(*local, *o, *G), int(ragged), dx, dy,
+                partial.data_ptr(), out.data_ptr(), kb.stream_of(u))
     kb.check(lib, err, "ns2d_post")
     NS2D_POST.launches += 1
     return out[0], out[1]

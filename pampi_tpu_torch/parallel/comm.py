@@ -373,9 +373,14 @@ def scatter_blocks(full, comm: CartComm, local) -> list:
     """The inverse of assemble_global: a reference-layout global array ->
     per-shard extended numpy blocks of interior extents `local`, in mesh
     order. Interface ghosts come from the neighbours' interiors (the state
-    a fresh halo exchange gives), wall ghosts bit-exact (the JAX package's
+    a fresh halo exchange gives), wall ghosts bit-exact; on a ragged mesh
+    the dead cells past the array are zero (the JAX package's
     utils/checkpoint.scatter_blocks)."""
     full = np.asarray(full)
+    pad = np.zeros([max(n, p * e + 2) for n, p, e in
+                    zip(full.shape, comm.dims, local)], full.dtype)
+    pad[tuple(slice(0, n) for n in full.shape)] = full
+    full = pad
     return [full[tuple(slice(c * e, c * e + e + 2)
                        for c, e in zip(comm.coords(s), local))].copy()
             for s in range(comm.size)]

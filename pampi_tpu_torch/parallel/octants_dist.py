@@ -118,12 +118,14 @@ def odist_clamp(n: int, kl: int, jl: int, il: int, dims=None) -> int:
 
 
 def octants_dispatch(param, kmax, jmax, imax, kl, jl, il, dx, dy, dz,
-                     record_key: str, dims=None):
+                     dtype, record_key: str, dims=None):
     """The layout decision of the distributed NS-3D solver: whether the
     octant-layout path runs. Returns (rb_o, og, n_o), where rb_o(qoffs, xo,
     ro) runs K14 (or, on a CPU tensor, its plain version) on one shard;
     rb_o is None when the caller should run its grid-space CA path. Raises
-    ValueError on a forced `tpu_sor_layout octants` that does not fit.
+    ValueError on a forced `tpu_sor_layout octants` that does not fit. The
+    depth n is the dtype's utils/dispatch.sor_cadence, clamped by
+    odist_clamp.
 
     Unlike the JAX package, which takes the octants under `auto` only where
     its Pallas kernel is live (a TPU), the port takes them wherever
@@ -142,8 +144,9 @@ def octants_dispatch(param, kmax, jmax, imax, kl, jl, il, dx, dy, dz,
         )
     if not (osup and layout in ("auto", "octants")):
         return None, None, 0
-    n_o = odist_clamp(max(param.tpu_ca_inner, param.tpu_sor_inner), kl, jl,
-                      il, dims)
+    n_o = _dispatch.sor_cadence(
+        param, dtype, mesh=True, forced=layout == "octants",
+        clamp=lambda n: odist_clamp(n, kl, jl, il, dims))
     og = make_ogeom(kmax, jmax, imax, kl, jl, il, n_o, dims=dims)
     factor, idx2, idy2, idz2 = sor_coefficients_3d(dx, dy, dz, param.omg)
 

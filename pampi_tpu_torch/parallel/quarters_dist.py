@@ -90,14 +90,17 @@ def qdist_clamp(n: int, jl: int, il: int) -> int:
     return max(1, min(n, min(jl, il) // 2 - 1))
 
 
-def quarters_dispatch(param, jmax, imax, jl, il, dx, dy, record_key: str,
-                      plain_sor: bool):
+def quarters_dispatch(param, jmax, imax, jl, il, dx, dy, dtype,
+                      record_key: str, plain_sor: bool, label="kernel"):
     """The layout decision of the 2-D distributed solvers: whether the
     quarter-layout path runs. Returns (rb_q, qg), where rb_q(qoffs, xq,
     rq) runs K13 (or, on a CPU tensor, its plain version) on one
     shard; rb_q is None when the caller should run its grid-space CA path.
     Raises ValueError on a forced `tpu_sor_layout quarters` that does not
-    fit.
+    fit. The depth n (iterations per exchange) is the dtype's
+    utils/dispatch.sor_cadence, clamped by qdist_clamp. The decision is
+    recorded under record_key as "<label>_quarters caN" (the JAX package's
+    NS-2D records "pallas_quarters").
 
     Unlike the JAX package, which takes the quarters under `auto` only
     where its Pallas kernel is live (a TPU), the port takes them wherever
@@ -116,14 +119,16 @@ def quarters_dispatch(param, jmax, imax, jl, il, dx, dy, record_key: str,
             "extents (>= 4) and the plain tpu_solver sor path")
     if not (plain_sor and qsup and layout in ("auto", "quarters")):
         return None, None
-    n_q = qdist_clamp(max(param.tpu_ca_inner, param.tpu_sor_inner), jl, il)
+    n_q = _dispatch.sor_cadence(param, dtype, mesh=True,
+                                forced=layout == "quarters",
+                                clamp=lambda n: qdist_clamp(n, jl, il))
     qg = make_qgeom(jmax, imax, jl, il, n_q)
     factor, idx2, idy2 = sor_coefficients(dx, dy, param.omg)
 
     def rb_q(qoffs, xq, rq):
         return rb_sor_qdist(xq, rq, qg, qoffs, factor, idx2, idy2)
 
-    _dispatch.record(record_key, f"kernel_quarters ca{n_q}")
+    _dispatch.record(record_key, f"{label}_quarters ca{n_q}")
     return rb_q, qg
 
 

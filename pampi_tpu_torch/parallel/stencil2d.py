@@ -148,6 +148,20 @@ def ca_inner(param, *local_extents) -> int:
     return ca_clamp(param.tpu_ca_inner, *local_extents)
 
 
+def ceil_overhang(nper: int, local: int, gmax: int) -> int:
+    """Trailing dead cells of a ceil-divided axis (0 when divisible)."""
+    return max(0, nper * local - gmax)
+
+
+def deep_pad_widths(halo: int, local: int, nper: int, gmax: int):
+    """(lo, hi) pad widths that turn a global (gmax+2)-extent constant
+    into one from which every shard's (local + 2·halo)-extent deep block
+    is a plain slice at the shard's offset: halo-1 on the low side, and on
+    the high side halo-1 plus the ragged ceil-division overhang (without
+    it the trailing shards' slices would run past the array)."""
+    return (halo - 1, halo - 1 + ceil_overhang(nper, local, gmax))
+
+
 def embed_deep(x, halo: int):
     """Grow a 1-ghost-layer extended block into the deep-halo layout (any
     rank): along each axis of owned extent L, the old ghost layers land at

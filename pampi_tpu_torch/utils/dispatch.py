@@ -69,6 +69,32 @@ def resolve_solver(param, ragged: bool = False):
     return param.replace(tpu_solver=choice)
 
 
+def sor_cadence(param, dtype, mesh: bool = False, forced: bool = False,
+                clamp=None) -> int:
+    """Red-black iterations between two residual checks of a SOR solve:
+    the number the JAX package takes for the same dtype, layout and mesh
+    when it runs on a TPU. Its Pallas kernels take dtypes of at most 4
+    bytes; at float64 it steps its jnp path one iteration at a time on one
+    device and `tpu_ca_inner` iterations per exchange on a mesh. So:
+
+    - a dtype of at most 4 bytes: the kernel's depth, `tpu_sor_inner` on
+      one device and max(`tpu_ca_inner`, `tpu_sor_inner`) on a mesh;
+    - float64 on one device: 1;
+    - float64 on a mesh: `tpu_ca_inner`, except under a layout the JAX
+      package forces onto its kernel whatever the dtype (`forced`:
+      `tpu_sor_layout quarters`, `octants` or, on a 2-D mesh,
+      `checkerboard`), which keeps the kernel's depth.
+
+    `clamp` bounds a mesh's depth by the shard extents (ca_clamp,
+    qdist_clamp, odist_clamp)."""
+    wide = dtype.itemsize > 4
+    if not mesh:
+        return 1 if wide else param.tpu_sor_inner
+    n = (param.tpu_ca_inner if wide and not forced
+         else max(param.tpu_ca_inner, param.tpu_sor_inner))
+    return n if clamp is None else clamp(n)
+
+
 def resolve_mg_fused(knob: str, levels, key: str) -> bool:
     """`tpu_mg_fused` -> whether an MG build runs the fused V-cycle (the
     DOWN and UP kernels of ops/mg_fused.py with the exact bottom between
@@ -122,12 +148,14 @@ def check_supported(param, mesh: bool = False, ragged: bool = False) -> None:
     """Raise NotImplementedError for every configuration outside the
     ported stacks, ValueError for a value no package takes. The port runs
     2-D and 3-D single device with the red-black SOR, multigrid and DCT
-    pressure solvers, and on a mesh (`tpu_mesh PJxPI`, `PKxPJxPI`) the
-    distributed 2-D Poisson SOR solve and the distributed NS-3D time
-    stepper under `tpu_solver sor` on a divisible grid. `param` has been
-    through resolve_solver, which checks `tpu_solver`; `tpu_mg_fused` is
-    checked where an MG build resolves it (resolve_mg_fused). `mesh` says
-    that the solve runs on a mesh (the distributed solvers pass it), and
+    pressure solvers, and on a mesh (`tpu_mesh PJxPI`, `PKxPJxPI`) under
+    `tpu_solver sor` the distributed 2-D Poisson solve, the distributed
+    NS-2D time stepper on a mesh that divides the grid or not (ragged),
+    and the distributed NS-3D time stepper on a divisible grid. `param`
+    has been through resolve_solver, which checks `tpu_solver`;
+    `tpu_mg_fused` is checked where an MG build resolves it
+    (resolve_mg_fused). `mesh` says that the solve runs on a mesh (the
+    distributed solvers pass it), and
     `ragged` that the mesh does not divide the grid; otherwise only an
     explicit mesh of several shards is held to the distributed layer's
     reach, since `auto` is resolved over the visible cards by the CLI
@@ -160,15 +188,14 @@ def check_supported(param, mesh: bool = False, ragged: bool = False) -> None:
 
 
 def _check_mesh(param, three_d: bool, ragged: bool) -> None:
-    """The distributed layer's reach: the 2-D Poisson solve
-    (models/poisson_dist.py) and the NS-3D time stepper
-    (models/ns3d_dist.py), both under `tpu_solver sor`; NS-3D on a
-    divisible grid, with the serial exchange schedule and a fixed solve
-    budget."""
+    """The distributed layer's reach, all under `tpu_solver sor`: the 2-D
+    Poisson solve (models/poisson_dist.py), the NS-2D time stepper
+    (models/ns2d_dist.py) on any mesh, and the NS-3D time stepper
+    (models/ns3d_dist.py) on a mesh that divides the grid; the NS steppers
+    with the serial exchange schedule and a fixed solve budget."""
     where = f"tpu_mesh {param.tpu_mesh}"
-    if not (param.name.startswith("poisson") and not three_d) and not (
-            three_d and param.name in ("dcavity3d", "canal3d", "dcavity",
-                                       "canal")):
+    ns = param.name in ("dcavity3d", "canal3d", "dcavity", "canal")
+    if not (param.name.startswith("poisson") and not three_d) and not ns:
         raise NotImplementedError(
             f"{where}: the distributed {param.name} solver is not yet "
             "ported (ROADMAP A.8)")
@@ -176,17 +203,18 @@ def _check_mesh(param, three_d: bool, ragged: bool) -> None:
         raise NotImplementedError(
             f"tpu_solver {param.tpu_solver} on a mesh: the distributed "
             "mg/fft solves are not yet ported (ROADMAP A.8)")
-    if not three_d:
+    if not ns:
         return
-    if ragged:
+    family = "NS-3D" if three_d else "NS-2D"
+    if three_d and ragged:
         raise NotImplementedError(
             f"{where}: a mesh that does not divide the NS-3D grid (the "
             "ragged pad-with-mask decomposition) is not yet ported "
             "(ROADMAP A.8)")
     if param.tpu_overlap == "on":
         raise NotImplementedError(
-            "tpu_overlap on: the overlapped exchange schedule of the "
-            "distributed NS-3D step is not yet ported (ROADMAP A.8)")
+            f"tpu_overlap on: the overlapped exchange schedule of the "
+            f"distributed {family} step is not yet ported (ROADMAP A.8)")
     if param.tpu_overlap not in ("auto", "off"):
         raise ValueError(
             f"tpu_overlap must be auto|on|off, got {param.tpu_overlap!r}")

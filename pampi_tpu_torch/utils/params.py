@@ -59,9 +59,11 @@ class Parameter:
     # execution keys (names shared with the JAX package)
     tpu_mesh: str = "auto"
     tpu_dtype: str = "float64"
-    # red-black iterations per kernel call; convergence is checked every
-    # tpu_sor_inner iterations, so a solve may overshoot by up to
-    # tpu_sor_inner-1 iterations
+    # red-black iterations per kernel call at float32, where convergence is
+    # checked every tpu_sor_inner iterations (a solve may overshoot by up
+    # to tpu_sor_inner-1 iterations); float64 checks every iteration on one
+    # device and every tpu_ca_inner on a mesh, as the JAX package does
+    # (utils/dispatch.sor_cadence)
     tpu_sor_inner: int = 4
     # auto: quarter layout on even grids, checkerboard otherwise
     tpu_sor_layout: str = "auto"

@@ -78,7 +78,12 @@ def test_import_and_solve_load_no_jax():
                             CartComm(ndims=3, dims=(2, 2, 2),
                                      devices=[torch.device("cpu")]))
         d3.run_steps(2)
-        print(it, s.nt, s3.nt, mg[0], fft[0], dist[0], d3.nt)
+        from pampi_tpu_torch.models.ns2d_dist import NS2DDistSolver
+        d2 = NS2DDistSolver(Parameter(name="dcavity", imax=9, jmax=8),
+                            CartComm(ndims=2, dims=(2, 2),
+                                     devices=[torch.device("cpu")]))
+        d2.run_steps(2)
+        print(it, s.nt, s3.nt, mg[0], fft[0], dist[0], d3.nt, d2.nt)
         print(sorted(m for m in sys.modules
                      if m.startswith("jax") or m.startswith("pampi_tpu")))
     """)
@@ -86,7 +91,7 @@ def test_import_and_solve_load_no_jax():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, cwd=str(ROOT), timeout=120,
                          check=True).stdout.splitlines()
-    assert out[0] == "40 2 2 3 1 36 2"
+    assert out[0] == "40 2 2 3 1 36 2 2"
     loaded = ast.literal_eval(out[1])
     assert [m for m in loaded if _forbidden(m)] == []
     for mod in ("ops.sor_kernels", "ops.sor3d_kernels", "ops.ns3d_fused",
@@ -94,7 +99,8 @@ def test_import_and_solve_load_no_jax():
                 "parallel.comm", "parallel.halo_debug",
                 "parallel.quarters_dist", "parallel.stencil2d",
                 "ops.sor_odist", "parallel.octants_dist",
-                "parallel.stencil3d", "models.ns3d_dist"):
+                "parallel.stencil3d", "models.ns3d_dist", "ops.obstacle",
+                "ops.sor_obsdist", "parallel.ragged2d", "models.ns2d_dist"):
         assert f"pampi_tpu_torch.{mod}" in loaded
 
 
@@ -103,10 +109,12 @@ def test_port_sources_import_no_jax():
     assert len(files) > 10
     assert {PORT / "parallel" / f"{m}.py" for m in (
         "comm", "halo_debug", "quarters_dist", "stencil2d", "octants_dist",
-        "stencil3d")} <= set(files)
+        "stencil3d", "ragged2d")} <= set(files)
     assert {PORT / "models" / "poisson_dist.py",
             PORT / "models" / "ns3d_dist.py",
-            PORT / "ops" / "sor_odist.py"} <= set(files)
+            PORT / "models" / "ns2d_dist.py",
+            PORT / "ops" / "sor_odist.py", PORT / "ops" / "sor_obsdist.py",
+            PORT / "ops" / "obstacle.py"} <= set(files)
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
@@ -177,6 +185,7 @@ def test_kernel_registry():
         ns3d_fused,
         sor3d_kernels,
         sor_kernels,
+        sor_obsdist,
         sor_odist,
         sor_qdist,
     )
@@ -187,11 +196,12 @@ def test_kernel_registry():
                                "ns3d_pre", "ns3d_post",
                                "mg_down_2d", "mg_up_2d",
                                "mg_down_3d", "mg_up_3d", "rb_sor_qdist",
-                               "rb_sor_odist"}
+                               "rb_sor_odist", "rb_sor_obsdist"}
     for k in kb.KERNELS.values():
         assert (ROOT / k.source).is_file()
         path, line = k.replaces.split(":")
         src = (ROOT / path).read_text().splitlines()
         assert "pl.pallas_call(" in src[int(line) - 1], k
     assert kb.sources() == ["mg_cycle", "ns2d_fused", "ns3d_fused",
-                            "sor3d_rb", "sor_odist", "sor_qdist", "sor_rb"]
+                            "sor3d_rb", "sor_obsdist", "sor_odist",
+                            "sor_qdist", "sor_rb"]

@@ -267,11 +267,11 @@ def test_mesh_is_single_follows_jax(ndevices, monkeypatch):
 def test_cli_auto_mesh_over_visible_devices(ndevices, tmp_path, monkeypatch,
                                             capsys):
     """The CLI resolves `tpu_mesh auto` over the visible devices: with one
-    it runs single-device; with four, Poisson sor runs on a 2x2 mesh, and
-    the solves the distributed layer does not run yet (NS, Poisson fft)
-    run on one device with a note naming ROADMAP A.8. An explicit mesh for
-    them exits with that error. The solver classes themselves run on the
-    device they are given."""
+    it runs single-device; with four, Poisson sor and NS-2D sor run on a
+    2x2 mesh, and the solves the distributed layer does not run yet
+    (Poisson and NS-2D fft) run on one device with a note naming ROADMAP
+    A.8. An explicit mesh for them exits with that error. The solver
+    classes themselves run on the device they are given."""
     from pampi_tpu_torch.utils import device as tdevice
 
     monkeypatch.setattr(tdevice, "visible_devices",
@@ -294,6 +294,13 @@ def test_cli_auto_mesh_over_visible_devices(ndevices, tmp_path, monkeypatch,
         par.write_text(re.sub(r"^tpu_mesh .*$", f"tpu_mesh {mesh}", text,
                               flags=re.M))
         rc = cli.main(["pampi_tpu_torch", "--device", "cpu", str(par)])
+        out, err = capsys.readouterr()
+        assert rc == 0 and "ROADMAP A.8" not in out + err
+        assert ("Shard 3 (1, 1): cpu" in out) == (mesh == "2x2"
+                                                  or ndevices == 4)
+        fft = tmp_path / f"dcavity_fft_{mesh}.par"
+        fft.write_text(par.read_text() + "\ntpu_solver fft\n")
+        rc = cli.main(["pampi_tpu_torch", "--device", "cpu", str(fft)])
         out, err = capsys.readouterr()
         assert (rc, "ROADMAP A.8" in err) == ((1, True) if mesh == "2x2"
                                               else (0, False))

@@ -9,7 +9,8 @@ kernels keep the plain versions' association and are built without fma
 contraction, only the r² sums are reduced in another order. The MG cycle
 kernels K9-K12 and the distributed quarter and octant kernels K13 and K14
 keep every operation of their plain versions, so their fields are held
-bitwise, and K14 on a one-shard mesh is K6, residual included; an MG
+bitwise, and K14 on a one-shard mesh is K6, residual included; so is K15,
+the flag-masked per-shard kernel of the distributed NS-2D solve; an MG
 run on the card against the CPU, whose DCT bottom's matrix products sum in
 another order, to 1e-9."""
 
@@ -25,11 +26,14 @@ from pampi_tpu_torch.ops import ns2d_fused as nf
 from pampi_tpu_torch.ops import ns3d_fused as nf3
 from pampi_tpu_torch.ops import sor3d_kernels as sk3
 from pampi_tpu_torch.ops import sor_kernels as sk
+from pampi_tpu_torch.ops import obstacle as obst
+from pampi_tpu_torch.ops import sor_obsdist as sod
 from pampi_tpu_torch.ops import sor_odist as so
 from pampi_tpu_torch.ops import sor_qdist as sq
 from pampi_tpu_torch.ops.sor3d import sor_coefficients_3d
 from pampi_tpu_torch.ops.sor_octants import stack_octants
 from pampi_tpu_torch.ops.sor_quarters import stack_quarters
+from pampi_tpu_torch.models.ns2d_dist import NS2DDistSolver
 from pampi_tpu_torch.models.ns3d_dist import NS3DDistSolver
 from pampi_tpu_torch.models.poisson_dist import DistPoissonSolver
 from pampi_tpu_torch.parallel import octants_dist as od
@@ -404,4 +408,106 @@ def test_dist_ns3d_across_cards_matches_cpu(cuda):
     cpu.run(progress=False)
     assert (card.nt, card.t) == (cpu.nt, cpu.t)
     for a, b in zip(card.collect(), cpu.collect()):
+        assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("obstacle", [False, True])
+def test_obsdist_kernel_matches_plain(cuda, dtype, obstacle):
+    """K15 on every shard of 33x18 on a ragged (4, 2) mesh (n = 2, the
+    ragged depth H = 5), all-fluid or with an obstacle's flags, two calls
+    each: blocks bitwise, residuals to the tolerance."""
+    imax, jmax, dims, n = 33, 18, (4, 2), 2
+    jl, il = -(-jmax // dims[0]), -(-imax // dims[1])
+    dx, dy = 4.0 / imax, 2.0 / jmax
+    fluid = np.ones((jmax + 2, imax + 2), bool)
+    if obstacle:
+        fluid[6:12, 10:16] = False
+    m = obst.make_masks(fluid, dx, dy, 1.7)
+    comm = CartComm(ndims=2, dims=dims, devices=[cuda])
+    H = 2 * n + 1
+    g = sod.ObsGeom(jmax, imax, jl, il, n, H)
+    coef = (1.7, 1.0 / (dx * dx), 1.0 / (dy * dy))
+    for s in range(comm.size):
+        fl = obst.deep_flag_block(m, comm, s, jl, il, H, jmax, imax, cuda)
+        x, f = (_rand(g.shape, dtype, cuda, 71 + 2 * s + k) for k in (0, 1))
+        xk, xp = x.clone(), x.clone()
+        for _ in range(2):
+            rk = sod.rb_sor_obsdist(xk, f, fl, g, comm.offsets(s, (jl, il)),
+                                    *coef)
+            rp = sod.rb_iters_obsdist_plain(xp, f, fl, g,
+                                            comm.offsets(s, (jl, il)), *coef)
+        assert torch.equal(xk, xp)
+        assert abs(float(rk) - float(rp)) <= _tol(dtype) * abs(float(rp))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("problem,bcs", [("dcavity", (1, 1, 1, 1)),
+                                         ("canal", (3, 3, 1, 1))])
+@pytest.mark.parametrize("offs", [(0, 0), (5, 10), (15, 10)])
+def test_ns2d_step_kernels_distributed_match_plain(cuda, dtype, problem, bcs,
+                                                   offs):
+    """K3 on a shard's deep block and K4 on its halo-1 blocks (5x10 shards
+    of the ragged 18x20 on (4, 2)) against their plain versions: u', v'
+    and the maxima bitwise, F/G/rhs and u'', v'' to the tolerance."""
+    G = (18, 20)
+    param = Parameter(name=problem, imax=20, jmax=18, re=100.0,
+                      bcLeft=bcs[0], bcRight=bcs[1], bcBottom=bcs[2],
+                      bcTop=bcs[3])
+    cfg = nf.StepConfig.from_param(param)
+    u, v = (_rand((11, 16), dtype, cuda, 81 + k) for k in range(2))
+    p = _rand((7, 12), dtype, cuda, 84)
+    dt = torch.tensor(0.013, dtype=dtype, device=cuda)
+    uk, vk = u.clone(), v.clone()
+    fk = nf.ns2d_pre(uk, vk, dt, cfg, offs, G, 2)
+    plain = nf.ns2d_pre_plain(u, v, dt, cfg, offs, G, 2)
+    for a, b in zip((uk, vk), plain[:2]):
+        assert torch.equal(a, b)
+    for a, b in zip(fk, plain[2:]):
+        _assert_close(a, b, dtype)
+    strip = (slice(2, -2),) * 2
+    halo1 = [a[strip].contiguous() for a in (uk, vk)]
+    mk = nf.ns2d_post(*halo1, *fk[:2], p, dt, cfg.dx, cfg.dy, offs, G, True)
+    mp = nf.ns2d_post_plain(*(a[strip] for a in plain[:2]), *plain[2:4], p,
+                            dt, cfg.dx, cfg.dy, offs, G, True)
+    for a, b in zip(halo1, mp[:2]):
+        _assert_close(a, b, dtype)
+    for m, b in zip(mk, mp[2:]):
+        assert abs(float(m) - float(b)) <= _tol(dtype) * max(1.0, float(b))
+
+
+@pytest.mark.parametrize("dims", [(2, 2), (3, 3)])
+def test_dist_ns2d_on_card_matches_cpu(cuda, dims):
+    """dcavity 24x18 f64 on a 2x2 (K13) or ragged 3x3 (K15) mesh whose
+    shards share the card, K3/K4 in their distributed mode, against the
+    same mesh on the CPU (their plain versions): the same step count and
+    bitwise fields (eps below reach)."""
+    param = Parameter(name="dcavity", imax=24, jmax=18, te=0.05, itermax=30,
+                      eps=1e-30, tpu_dtype="float64")
+    runs = []
+    for device in ("cuda", "cpu"):
+        s = NS2DDistSolver(param, CartComm(ndims=2, dims=dims,
+                                           devices=[torch.device(device)]))
+        s.run(progress=False)
+        runs.append((s.nt, s.t, s.fields()))
+    assert runs[0][:2] == runs[1][:2]
+    for a, b in zip(runs[0][2], runs[1][2]):
+        assert np.array_equal(a, b)
+
+
+def test_dist_ns2d_across_cards_matches_cpu(cuda):
+    """`tpu_mesh auto` over every visible card (one shard per card) against
+    the same mesh on the CPU: the same step count and bitwise fields."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more cards")
+    param = Parameter(name="dcavity", imax=24, jmax=18, te=0.05, itermax=30,
+                      eps=1e-30, tpu_dtype="float64")
+    mesh = CartComm(ndims=2, extents=(18, 24))
+    card = NS2DDistSolver(param, mesh)
+    card.run(progress=False)
+    cpu = NS2DDistSolver(param, CartComm(ndims=2, dims=mesh.dims,
+                                         devices=[torch.device("cpu")]))
+    cpu.run(progress=False)
+    assert (card.nt, card.t) == (cpu.nt, cpu.t)
+    for a, b in zip(card.fields(), cpu.fields()):
         assert np.array_equal(a, b)

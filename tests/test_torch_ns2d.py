@@ -2,13 +2,16 @@
 
 1. dcavity 16², 20 steps, tpu_sor_inner 1, against NS2DSolver with
    tpu_fuse_phases off (the jnp chain);
-2. the same with tpu_sor_layout checkerboard and tpu_sor_inner 4 against
-   the JAX folded fused path (tpu_fuse_phases on, interpret kernels), which
+2. the same with tpu_sor_layout checkerboard against the JAX fused path
+   (tpu_fuse_phases on, interpret kernels), at float64 (one iteration a
+   call, the float64 cadence) and at float32 with tpu_sor_inner 4, which
    pins the n_inner iteration accounting;
 3. configs/dcavity.par with te 0.01 through the port's CLI (--device cpu)
    against the committed rb fixtures, the check tests/test_ns2d.py makes.
 
-Fields agree to 1e-10; t and nt exactly."""
+Fields agree to 1e-10 at float64 (1e-5 of scale at float32); nt exactly,
+t exactly at float64 (to 1e-6 at float32, whose CFL dt an ulp of the
+maxima moves)."""
 
 import dataclasses
 import pathlib
@@ -35,21 +38,38 @@ def _jax_steps(**kw):
     return jparam, js, u, v, p, float(t), int(nt)
 
 
-@pytest.mark.parametrize("kw", [
-    dict(tpu_sor_inner=1, tpu_fuse_phases="off"),
-    dict(tpu_sor_inner=4, tpu_fuse_phases="on",
-         tpu_sor_layout="checkerboard"),
-], ids=["jnp-chain", "folded-fused"])
-def test_dcavity_steps_match_jax(kw):
+# float64 checks convergence every iteration (utils/dispatch.sor_cadence),
+# so in "folded-fused" the JAX package's fused path, forced in interpret
+# mode, runs one iteration a call too; the n = 4 fold is held at float32
+# ("folded-fused-f32"), where both packages run the kernel cadence, to
+# 1e-5 of the field's scale (float32 round-off over 20 steps; the float64
+# cases hold 1e-10 absolute)
+@pytest.mark.parametrize("kw,tol", [
+    (dict(tpu_sor_inner=1, tpu_fuse_phases="off"), 1e-10),
+    (dict(tpu_sor_inner=1, tpu_fuse_phases="on",
+          tpu_sor_layout="checkerboard"), 1e-10),
+    (dict(tpu_sor_inner=4, tpu_fuse_phases="on",
+          tpu_sor_layout="checkerboard", tpu_dtype="float32"), 1e-5),
+], ids=["jnp-chain", "folded-fused", "folded-fused-f32"])
+def test_dcavity_steps_match_jax(kw, tol):
     jparam, js, ju, jv, jp, jt, jnt = _jax_steps(**kw)
     assert js._fused == (kw["tpu_fuse_phases"] == "on")
     s = NS2DSolver(parameter_from_dict(dataclasses.asdict(jparam)),
                    device="cpu")
     s.run_steps(STEPS)
-    assert (s.nt, s.t) == (jnt, jt)
+    assert s.nt == jnt
+    if kw.get("tpu_dtype") == "float32":
+        # the float32 CFL dt reads maxima that round-off moves by an ulp
+        assert abs(s.t - jt) <= 1e-6 * jt
+    else:
+        assert s.t == jt
     for name, ref in (("u", ju), ("v", jv), ("p", jp)):
-        d = np.abs(getattr(s, name).numpy() - np.asarray(ref)).max()
-        assert d <= 1e-10, (name, d)
+        ref = np.asarray(ref)
+        assert getattr(s, name).numpy().dtype == ref.dtype
+        d = np.abs(getattr(s, name).numpy() - ref).max()
+        scale = (1.0 if ref.dtype == np.float64
+                 else max(1.0, float(np.abs(ref).max())))
+        assert d <= tol * scale, (name, d)
 
 
 def test_dcavity_par_cli_matches_rb_fixtures(tmp_path, monkeypatch, capsys):

@@ -3,9 +3,10 @@
 1. dcavity3d 12³, 20 steps, tpu_sor_inner 1, against NS3DSolver with
    tpu_fuse_phases off (the jnp chain, which checks convergence every
    iteration);
-2. the same at tpu_sor_inner 4 in both SOR layouts against the JAX fused
-   chunk with the Pallas solve (`_build_chunk(backend="pallas")`,
-   tpu_fuse_phases on, interpret kernels), which pins the n_inner
+2. the same in both SOR layouts against the JAX fused chunk with the
+   Pallas solve (`_build_chunk(backend="pallas")`, tpu_fuse_phases on,
+   interpret kernels), at float64 (one iteration a call, the float64
+   cadence) and at float32 with tpu_sor_inner 4, which pins the n_inner
    iteration accounting;
 3. a JAX solver's state carried across with from_numpy_state;
 4. configs/canal3d.par (48x16x16, te 0.5) and configs/dcavity3d.par (32³,
@@ -14,7 +15,9 @@
    writer's precision; 112 steps for dcavity3d, as the oracle's log);
 5. the VTK writer's bytes against the JAX writer's, ASCII and BINARY.
 
-Fields agree to 1e-10; t and nt exactly."""
+Fields agree to 1e-10 at float64 (1e-5 of scale at float32); nt exactly,
+t exactly at float64 (to 1e-6 at float32, whose CFL dt an ulp of the
+maxima moves)."""
 
 import dataclasses
 import pathlib
@@ -42,7 +45,7 @@ STEPS = 20
 def _jax_steps(backend=None, **kw):
     jparam = jread_parameter(str(ROOT / "configs" / "dcavity3d.par")).replace(
         imax=12, jmax=12, kmax=12, te=1e9, tpu_chunk=STEPS,
-        tpu_dtype="float64", **kw)
+        **{"tpu_dtype": "float64", **kw})
     js = JNS3DSolver(jparam)
     if backend is not None:
         js._chunk_fn = jax.jit(js._build_chunk(backend=backend))
@@ -55,22 +58,43 @@ def _port(jparam):
                       device="cpu")
 
 
+# float64 checks convergence every iteration (utils/dispatch.sor_cadence),
+# so the JAX kernels forced in interpret mode run one iteration a call too;
+# the n = 4 fold is held at float32 ("-f32"), where both packages run the
+# kernel cadence, to 1e-5 of the field's scale (float32 round-off over 20
+# steps; the float64 cases hold 1e-10 absolute)
+F32 = dict(tpu_sor_inner=4, tpu_fuse_phases="on", tpu_dtype="float32")
+
+
 @pytest.mark.parametrize("kw,backend", [
     (dict(tpu_sor_inner=1, tpu_fuse_phases="off"), None),
-    (dict(tpu_sor_inner=4, tpu_fuse_phases="on", tpu_sor_layout="auto"),
+    (dict(tpu_sor_inner=1, tpu_fuse_phases="on", tpu_sor_layout="auto"),
      "pallas"),
-    (dict(tpu_sor_inner=4, tpu_fuse_phases="on",
+    (dict(tpu_sor_inner=1, tpu_fuse_phases="on",
           tpu_sor_layout="checkerboard"), "pallas"),
-], ids=["jnp-chain", "fused-octants", "fused-checkerboard"])
+    (dict(F32, tpu_sor_layout="auto"), "pallas"),
+    (dict(F32, tpu_sor_layout="checkerboard"), "pallas"),
+], ids=["jnp-chain", "fused-octants", "fused-checkerboard",
+        "fused-octants-f32", "fused-checkerboard-f32"])
 def test_dcavity3d_steps_match_jax(kw, backend):
     jparam, js, fields, jt, jnt = _jax_steps(backend, **kw)
     assert js._fused == (kw["tpu_fuse_phases"] == "on")
     s = _port(jparam)
     s.run_steps(STEPS)
-    assert (s.nt, s.t) == (jnt, jt)
+    assert s.nt == jnt
+    if kw.get("tpu_dtype") == "float32":
+        # the float32 CFL dt reads maxima that round-off moves by an ulp
+        assert abs(s.t - jt) <= 1e-6 * jt
+    else:
+        assert s.t == jt
     for name, ref in zip("uvwp", fields):
-        d = np.abs(getattr(s, name).numpy() - np.asarray(ref)).max()
-        assert d <= 1e-10, (name, d)
+        ref = np.asarray(ref)
+        assert getattr(s, name).numpy().dtype == ref.dtype
+        d = np.abs(getattr(s, name).numpy() - ref).max()
+        scale = (1.0 if ref.dtype == np.float64
+                 else max(1.0, float(np.abs(ref).max())))
+        tol = 1e-10 if ref.dtype == np.float64 else 1e-5
+        assert d <= tol * scale, (name, d)
 
 
 def test_from_numpy_state_carries_a_jax_state():

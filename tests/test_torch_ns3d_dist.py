@@ -219,7 +219,9 @@ def test_dispatch_records():
     assert dispatch.last("ns3d_dist_phases") == "kernel_fused"
     assert dispatch.last("overlap_ns3d_dist") == (
         "serial (the overlapped schedule is not yet ported, ROADMAP A.8)")
-    NS3DDistSolver(base.replace(tpu_sor_inner=4), _comm((2, 2, 2)))
+    # float32 takes the kernel's depth (float64 checks every tpu_ca_inner)
+    NS3DDistSolver(base.replace(tpu_sor_inner=4, tpu_dtype="float32"),
+                   _comm((2, 2, 2)))
     assert dispatch.last("ns3d_dist") == "kernel_octants ca3"  # 8/2 - 1
     NS3DDistSolver(base.replace(tpu_fuse_phases="off", tpu_overlap="off",
                                 tpu_sor_layout="checkerboard"),
@@ -346,7 +348,8 @@ def test_debug_and_verbose_lines(monkeypatch, capsys):
     mesh)."""
     monkeypatch.setenv("PAMPI_DEBUG", "1")
     monkeypatch.setenv("PAMPI_VERBOSE", "1")
-    param = _port_param(_jparam(itermax=6, eps=0.0, tpu_sor_inner=2))
+    # float64 on a mesh checks every tpu_ca_inner iterations
+    param = _port_param(_jparam(itermax=6, eps=0.0, tpu_ca_inner=2))
     s = NS3DDistSolver(param, _comm((2, 2, 2)))
     s.run_steps(1)
     lines = capsys.readouterr().out.splitlines()

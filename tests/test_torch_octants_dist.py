@@ -77,19 +77,26 @@ def test_octants_dispatch_decisions():
     for layout in ("auto", "octants"):
         rb, g, n = od.octants_dispatch(
             Parameter(tpu_sor_layout=layout, tpu_sor_inner=2), 16, 16, 16,
-            8, 8, 8, 1 / 16, 1 / 16, 1 / 16, "k", dims=(2, 2, 2))
+            8, 8, 8, 1 / 16, 1 / 16, 1 / 16, torch.float32, "k",
+            dims=(2, 2, 2))
         assert rb is not None and n == 2
         assert g == od.make_ogeom(16, 16, 16, 8, 8, 8, 2, dims=(2, 2, 2))
+        # float64 checks every tpu_ca_inner iterations, unless forced
+        n64 = od.octants_dispatch(
+            Parameter(tpu_sor_layout=layout, tpu_sor_inner=2), 16, 16, 16,
+            8, 8, 8, 1 / 16, 1 / 16, 1 / 16, torch.float64, "k",
+            dims=(2, 2, 2))[2]
+        assert n64 == (2 if layout == "octants" else 1)
     for layout, ext in (("checkerboard", (16, 16, 16, 8, 8, 8)),
                         ("auto", (12, 12, 12, 6, 3, 6))):
         assert od.octants_dispatch(
             Parameter(tpu_sor_layout=layout), *ext, 1 / 16, 1 / 16, 1 / 16,
-            "k")[0] is None
+            torch.float64, "k")[0] is None
     # 12/4 = 3: an odd per-shard k extent (the JAX suite's refusal)
     with pytest.raises(ValueError) as ours:
         od.octants_dispatch(Parameter(tpu_sor_layout="octants"), 12, 12, 12,
-                            3, 6, 12, 1 / 12, 1 / 12, 1 / 12, "k",
-                            dims=(4, 2, 1))
+                            3, 6, 12, 1 / 12, 1 / 12, 1 / 12, torch.float64,
+                            "k", dims=(4, 2, 1))
     with pytest.raises(ValueError) as theirs:
         jod.octants_dispatch(JParameter(tpu_sor_layout="octants"), 12, 12,
                              12, 3, 6, 12, 1 / 12, 1 / 12, 1 / 12,

@@ -139,9 +139,10 @@ def test_refusals():
         DistPoissonSolver(Parameter(imax=20, jmax=36,
                                     tpu_sor_layout="quarters"),
                           CartComm(ndims=2, dims=(2, 3), devices=[CPU]))
+    # NS-2D sor runs on a mesh (models/ns2d_dist.py); mg there does not
     with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
         NS2DSolver(Parameter(name="dcavity", imax=16, jmax=16,
-                             tpu_mesh="2x2"), device="cpu")
+                             tpu_mesh="2x2", tpu_solver="mg"), device="cpu")
 
 
 def _run_cli(main, argv, path, capsys, monkeypatch):
@@ -168,6 +169,7 @@ def test_cli_mesh_matches_jax_cli(tmp_path, capsys, monkeypatch):
         tmp_path / "torch", capsys, monkeypatch)
     assert count == jcount == ["2388"]
     assert "\t4 shards share 1 device(s), placed round-robin" in lines
-    assert dispatch.last("poisson_dist") == "kernel_quarters ca4"
+    # float64 checks every tpu_ca_inner (1) iterations, as JAX's jnp_ca
+    assert dispatch.last("poisson_dist") == "kernel_quarters ca1"
     assert p.shape == (102, 102)
     assert np.abs(p - jp).max() <= 1e-10

@@ -176,17 +176,23 @@ def test_quarters_dispatch_decisions():
     for layout in ("auto", "quarters"):
         rb, g = qd.quarters_dispatch(
             Parameter(tpu_sor_layout=layout, tpu_sor_inner=4), 64, 64, 32,
-            16, 1 / 64, 1 / 64, "k", plain_sor=True)
+            16, 1 / 64, 1 / 64, torch.float32, "k", plain_sor=True)
         assert rb is not None and g == qd.make_qgeom(64, 64, 32, 16, 4)
+        # float64 checks every tpu_ca_inner iterations, unless forced
+        g64 = qd.quarters_dispatch(
+            Parameter(tpu_sor_layout=layout, tpu_sor_inner=4), 64, 64, 32,
+            16, 1 / 64, 1 / 64, torch.float64, "k", plain_sor=True)[1]
+        assert g64.n == (4 if layout == "quarters" else 1)
     for layout, dims, plain in (("checkerboard", (64, 64, 32, 16), True),
                                 ("auto", (63, 64, 63, 16), True),
                                 ("auto", (64, 64, 32, 16), False)):
         assert qd.quarters_dispatch(Parameter(tpu_sor_layout=layout), *dims,
-                                    1 / 64, 1 / 64, "k",
+                                    1 / 64, 1 / 64, torch.float64, "k",
                                     plain_sor=plain)[0] is None
     with pytest.raises(ValueError) as ours:
         qd.quarters_dispatch(Parameter(tpu_sor_layout="quarters"), 63, 64,
-                             63, 16, 1 / 64, 1 / 64, "k", plain_sor=True)
+                             63, 16, 1 / 64, 1 / 64, torch.float64, "k",
+                             plain_sor=True)
     with pytest.raises(ValueError) as theirs:
         jqd.quarters_dispatch(JParameter(tpu_sor_layout="quarters"), 63, 64,
                               63, 16, 1 / 64, 1 / 64, jnp.float64, "k",
