@@ -144,6 +144,31 @@ on the one card) adds:
    single-device card run of phase 5: u, v, p within 1e-9 of scale, the
    same steps and t.
 
+The 3-D obstacle slice (configs/canal3d_obstacle.par: a box in a channel,
+flag-field masks) adds:
+
+2. the masked mode of K5 against its plain version (float32 and float64,
+   n = 1 and 4, two calls) on the shipped 128x32x32 flags and on an odd
+   63x47x31 grid with a box, fields and residuals bitwise; K16 against
+   its plain version on every shard of 128x32x32 on 2x2x2 (n = 1 and 2,
+   two calls), blocks and residuals bitwise, and on 1x1x1 against masked
+   K5 (volume and residual bitwise); K7/K8 in flag mode on one device and
+   on every shard of 2x2x2 (copies and maxima bitwise, the rest to the
+   tolerance);
+3. masked K5 (n = 4) and K7/K8 in flag mode at 512x128x128 float32 and
+   K16 per (128, 128, 512) shard of 1024x256x256 on 2x2x2 (n = 4), beside
+   their bounds;
+4. the shipped geometry at 512x128x128 float32 (re 100, tpu_sor_inner 4,
+   itermax 100, eps 0), 16 steps after one warm-up, through NS3DSolver
+   and through NS3DDistSolver on 2x2x2 (one card): the split, the
+   exchanges' share, the launches (no K6, K14 or unmasked K5/K7/K8), the
+   mesh fields against one device (1e-5 of scale, 0.0 expected);
+5. `python -m pampi_tpu_torch configs/canal3d_obstacle.par` as shipped on
+   the card, once on one device and once with tpu_mesh 2x2x2 (in a
+   process of its own, `--cli3-child`): fields 1e-9 of scale apart, the
+   same steps and t; and cut to te 0.5 (binary VTK) on the card against
+   the CPU (its own process): 1e-9 of scale, the same steps.
+
 It then prints the kernels line (JSON; K5-K8 and K11/K12 at 256³, where a
 field outgrows the L2 and the bound is a floor, with their 128³ numbers
 under main_shape_* keys and the distributed modes of K3/K4 and K7/K8
@@ -337,28 +362,31 @@ def check_sor3d(kern, plain, x, f, n_inner, coef, tol_):
     return e, er, float((xk - xp).abs().max()), e <= tol_ and er <= tol_
 
 
-def check_step3d(torch, u, v, w, p, dt, cfg, tol_):
-    """K7 then K8 against their plain versions on copies of u, v, w.
-    Returns (copies bitwise, F/G/H/rhs max_rel_err, u''/v''/w''
-    max_rel_err, maxima bitwise vs own fields, maxima vs plain, K7's
-    max_abs_err over its outputs, K8's max_abs_err over its outputs, ok)."""
+def check_step3d(torch, u, v, w, p, dt, cfg, tol_, flags=None):
+    """K7 then K8 against their plain versions on copies of u, v, w (in
+    the flag mode with `flags`). Returns (copies bitwise, F/G/H/rhs
+    max_rel_err, u''/v''/w'' max_rel_err, maxima bitwise vs own fields,
+    maxima vs plain, K7's max_abs_err over its outputs, K8's max_abs_err
+    over its outputs, ok)."""
     from pampi_tpu_torch.ops import ns3d_fused as nf3
 
     def abs_err(pairs):
         return max(float((a - b).abs().max()) for a, b in pairs)
 
     uk, vk, wk = u.clone(), v.clone(), w.clone()
-    fk, gk, hk, rk = nf3.ns3d_pre(uk, vk, wk, dt, cfg)
-    u1, v1, w1, f1, g1, h1, r1 = nf3.ns3d_pre_plain(u, v, w, dt, cfg)
+    fk, gk, hk, rk = nf3.ns3d_pre(uk, vk, wk, dt, cfg, flags=flags)
+    u1, v1, w1, f1, g1, h1, r1 = nf3.ns3d_pre_plain(u, v, w, dt, cfg,
+                                                    flags=flags)
     walls = ((uk, u1), (vk, v1), (wk, w1))
     copies = all(torch.equal(a, b) for a, b in walls)
     pre = ((fk, f1), (gk, g1), (hk, h1), (rk, r1))
     e_pre = max(rel_err(a, b) for a, b in pre)
     err_pre = abs_err(walls + pre)
     maxima = nf3.ns3d_post(uk, vk, wk, fk, gk, hk, p, dt, cfg.dx, cfg.dy,
-                           cfg.dz)
+                           cfg.dz, flags=flags)
     u2, v2, w2, *pm = nf3.ns3d_post_plain(u1, v1, w1, f1, g1, h1, p, dt,
-                                          cfg.dx, cfg.dy, cfg.dz)
+                                          cfg.dx, cfg.dy, cfg.dz,
+                                          flags=flags)
     post = ((uk, u2), (vk, v2), (wk, w2))
     e_post = max(rel_err(a, b) for a, b in post)
     em = max(abs(float(m - q)) for m, q in zip(maxima, pm))
@@ -1283,8 +1311,9 @@ def stop_procs():
         if proc.poll() is None:
             proc.kill()
             proc.wait()
-    if "tmp" in DCAVITY_CPU:
-        shutil.rmtree(DCAVITY_CPU.pop("tmp"), ignore_errors=True)
+    for files in (DCAVITY_CPU, OBST_RUNS):
+        if "tmp" in files:
+            shutil.rmtree(files.pop("tmp"), ignore_errors=True)
 
 
 @phase(f"configs/dcavity.par te {DCAVITY_TE}: the card half, the CPU half "
@@ -1730,23 +1759,25 @@ def check_odist(torch, np, g, qoffs, dtype, seed, calls=2):
     return bitwise, er, err
 
 
-def step3d_shard(torch, cfg, offs, G, u, v, w, p, dt):
+def step3d_shard(torch, cfg, offs, G, u, v, w, p, dt, flags=(None, None)):
     """K7 on copies of one shard's deep blocks u, v, w, then K8 on the
     stripped halo-1 blocks, each against its plain version on the same
-    inputs. Returns (copies and maxima bitwise, F/G/H/rhs and u''/v''/w''
+    inputs (in the flag mode with flags = (deep block, halo-1 block)).
+    Returns (copies and maxima bitwise, F/G/H/rhs and u''/v''/w''
     max_rel_err, max_abs_err, K7's F/G/H/rhs, the halo-1 u/v/w K8 read)."""
     from pampi_tpu_torch.ops import ns3d_fused as nf3
 
     uk, vk, wk = u.clone(), v.clone(), w.clone()
-    fk = nf3.ns3d_pre(uk, vk, wk, dt, cfg, offs, G, 2)
-    pl = nf3.ns3d_pre_plain(u, v, w, dt, cfg, offs, G, 2)
+    fk = nf3.ns3d_pre(uk, vk, wk, dt, cfg, offs, G, 2, flags=flags[0])
+    pl = nf3.ns3d_pre_plain(u, v, w, dt, cfg, offs, G, 2, flags=flags[0])
     exact = all(torch.equal(a, b) for a, b in zip((uk, vk, wk), pl[:3]))
     strip = (slice(2, -2),) * 3
     h1 = [a[strip].contiguous() for a in (uk, vk, wk)]
     post = [a.clone() for a in h1]
-    mk = nf3.ns3d_post(*post, *fk[:3], p, dt, cfg.dx, cfg.dy, cfg.dz, offs, G)
+    mk = nf3.ns3d_post(*post, *fk[:3], p, dt, cfg.dx, cfg.dy, cfg.dz, offs, G,
+                       flags=flags[1])
     mp = nf3.ns3d_post_plain(*(a[strip] for a in pl[:3]), *pl[3:6], p, dt,
-                             cfg.dx, cfg.dy, cfg.dz, offs, G)
+                             cfg.dx, cfg.dy, cfg.dz, offs, G, flags[1])
     exact = exact and all(torch.equal(m, a.abs().max())
                           for m, a in zip(mk, post))
     pairs = list(zip(fk, pl[3:])) + list(zip(post, mp[:3]))
@@ -1768,13 +1799,18 @@ def check_step3d_dist(torch, np, dims, param, dtype, seed):
     local = tuple(e // d for e, d in zip(G, dims))
     exact, e, err = True, 0.0, 0.0
     dt = torch.tensor(0.013, dtype=dtype, device="cuda")
+    fluid = obstacle_fluid(param) if param.obstacles.strip() else None
     for s in range(dims[0] * dims[1] * dims[2]):
         offs = tuple(c * n for c, n in zip(mesh_coords(s, dims), local))
         u, v, w = rng_fields(torch, np, tuple(n + 6 for n in local), dtype,
                              3, seed + s)
         (p,) = rng_fields(torch, np, tuple(n + 2 for n in local), dtype, 1,
                           seed + 100 + s)
-        ex, es, errs, _, _ = step3d_shard(torch, cfg, offs, G, u, v, w, p, dt)
+        # the flag mode: the shard's deep (PRE) and halo-1 (POST) blocks
+        flags = (None, None) if fluid is None else tuple(
+            shard_flags(fluid, offs, local, H) for H in (3, 1))
+        ex, es, errs, _, _ = step3d_shard(torch, cfg, offs, G, u, v, w, p, dt,
+                                          flags)
         exact, e, err = exact and ex, max(e, es), max(err, errs)
     return exact, e, err
 
@@ -1957,6 +1993,17 @@ def time_dist3d(torch, np):
     return rows
 
 
+def global_diff(dist, single):
+    """max |dist - single| over the global u, v, w, p, and the scale."""
+    gd = dist.global_fields()
+    diff = scale = 0.0
+    for n in "uvwp":
+        ref = getattr(single, n).double().cpu().numpy()
+        diff = max(diff, float(abs(gd[n] - ref).max()))
+        scale = max(scale, float(abs(ref).max()))
+    return diff, max(1.0, scale)
+
+
 @contextlib.contextmanager
 def exchange_spans(mark, *targets):
     """Wrap the exchange functions `targets` ((module, name) pairs, which
@@ -1990,16 +2037,6 @@ def main_path_dist3d(torch):
     from pampi_tpu_torch.parallel import comm as pc
     from pampi_tpu_torch.parallel import octants_dist as od
     from pampi_tpu_torch.parallel.comm import CartComm
-
-    def compare(dist, single):
-        """max |dist - single| over the global fields, and the scale."""
-        gd = dist.global_fields()
-        diff = scale = 0.0
-        for n in "uvwp":
-            ref = getattr(single, n).double().cpu().numpy()
-            diff = max(diff, float(abs(gd[n] - ref).max()))
-            scale = max(scale, float(abs(ref).max()))
-        return diff, max(1.0, scale)
 
     counts = []
     (dcavity, _), (canal, canal_dims) = dist3d_main_configs()
@@ -2036,7 +2073,7 @@ def main_path_dist3d(torch):
         raise AssertionError("the distributed path launched K6")
     single = NS3DSolver(param.replace(tpu_mesh="1"), device="cuda")
     single.run_steps(17)
-    diff, scale = compare(s, single)
+    diff, scale = global_diff(s, single)
     step = out["pre"] + out["solve"] + out["post"]
     ok = (s.nt == single.nt == 17 and s.t == single.t
           and diff <= 1e-5 * scale)
@@ -2068,7 +2105,7 @@ def main_path_dist3d(torch):
     counts.append(c)
     single = NS3DSolver(param.replace(tpu_mesh="1"), device="cuda")
     single.run_steps(8)
-    diff, scale = compare(s, single)
+    diff, scale = global_diff(s, single)
     ok = s.nt == single.nt == 8 and diff <= 1e-9 * scale
     log(f"NS-3D canal3d 200x50x50 f64 on 1x1x4 (itermax 500, eps 1e-4): "
         f"{ms:.3f} ms/step over 8 steps (host clock, first step included), "
@@ -2446,7 +2483,7 @@ def time_dist2d(torch, np):
 
 
 def dist2d_steps(torch, s, n):
-    """n steps of a distributed NS-2D solver after one warm-up step:
+    """n steps of a distributed NS solver after one warm-up step:
     ms/step on the host clock, the PRE / solve / POST split and the
     exchanges (halo and quarter) from CUDA events, per step."""
     from pampi_tpu_torch.parallel import comm as pc
@@ -2786,6 +2823,581 @@ def check_cadence_one(torch, np):
         raise AssertionError(f"kernels at n = 1 disagree: {bad}")
 
 
+# ---------------------------------------------------------------------------
+# The 3-D obstacle slice: K16, the masked mode of K5, the flag mode of K7/K8
+# ---------------------------------------------------------------------------
+
+OBST_MAIN = dict(imax=512, jmax=128, kmax=128)  # the main path's grid
+OBST_K16 = dict(imax=1024, jmax=256, kmax=256)  # K16's timed shard's grid
+
+
+def obstacle_config(**kw):
+    """configs/canal3d_obstacle.par with the given keys replaced (its box
+    stays where it is in physical coordinates)."""
+    return config("canal3d_obstacle.par", **kw)
+
+
+def obstacle_fluid(param):
+    """The boolean fluid field of param's grid and obstacles."""
+    from pampi_tpu_torch.ops import obstacle3d as o3
+
+    return o3.build_fluid_3d(param.imax, param.jmax, param.kmax,
+                             param.xlength / param.imax,
+                             param.ylength / param.jmax,
+                             param.zlength / param.kmax, param.obstacles)
+
+
+def shard_flags(fluid, offs, local, H):
+    """A shard's (l + 2H)-extent block of the flags as uint8 on the card:
+    the global field padded with H-1 dead cells per side, cut at the
+    shard's offsets (ops/obstacle3d.deep_flag_block_3d's slice)."""
+    import numpy as np
+    import torch
+
+    wide = np.pad(fluid.astype(np.uint8), H - 1)
+    blk = wide[tuple(slice(o, o + n + 2 * H) for o, n in zip(offs, local))]
+    return torch.from_numpy(np.ascontiguousarray(blk)).to("cuda")
+
+
+def inverse_squares(param):
+    """(idx2, idy2, idz2) of param's grid."""
+    return tuple(1.0 / (d * d) for d in (param.xlength / param.imax,
+                                         param.ylength / param.jmax,
+                                         param.zlength / param.kmax))
+
+
+def check_masked_k5(torch, np, param, flags, dtype, n, seed, calls=2):
+    """Masked K5 and its plain version on copies of random p, rhs, `calls`
+    calls each. Returns (fields bitwise, residuals bitwise, max_abs_err)."""
+    from pampi_tpu_torch.ops import sor3d_kernels as sk3
+
+    c = inverse_squares(param)
+    x, f = rng_fields(torch, np, tuple(flags.shape), dtype, 2, seed)
+    xk, xp = x.clone(), x.clone()
+    for _ in range(calls):
+        rk = sk3.rb_sor3d_checkerboard(xk, f, n, 0.0, *c, flags=flags,
+                                       omega=param.omg)
+        rp = sk3.rb_sor3d_masked_plain(xp, f, flags, n, param.omg, *c)
+    return (torch.equal(xk, xp), torch.equal(rk, rp),
+            float((xk - xp).abs().max()))
+
+
+def check_k16(torch, np, param, fluid, offs, local, n, dtype, seed,
+              calls=2):
+    """K16 and its plain version on copies of a random deep block at the
+    shard offsets offs, `calls` calls each. Returns (blocks bitwise,
+    residuals bitwise, max_abs_err, the geometry)."""
+    from pampi_tpu_torch.ops import sor_obsdist3d as sod3
+
+    g = sod3.ObsGeom3(param.kmax, param.jmax, param.imax, *local, n)
+    flags = shard_flags(fluid, offs, local, g.H)
+    c = inverse_squares(param)
+    x, f = rng_fields(torch, np, g.shape, dtype, 2, seed)
+    xk, xp = x.clone(), x.clone()
+    for _ in range(calls):
+        rk = sod3.rb_sor_obsdist3d(xk, f, flags, g, offs, param.omg, *c)
+        rp = sod3.rb_iters_obsdist3d_plain(xp, f, flags, g, offs, param.omg,
+                                           *c)
+    return (torch.equal(xk, xp), torch.equal(rk, rp),
+            float((xk - xp).abs().max()), g)
+
+
+def check_obsdist3d(torch, np, solve, param, dtype, seed, calls=2):
+    """K16 and its plain version on copies of random deep blocks of every
+    shard of a solver's K16 solve (its geometry, flags and offsets),
+    `calls` calls each. Returns (blocks bitwise, residuals bitwise,
+    max_abs_err)."""
+    from pampi_tpu_torch.ops import sor_obsdist3d as sod3
+
+    g, c = solve.geom, inverse_squares(param)
+    bitwise = rbits = True
+    err = 0.0
+    for k, (fl, offs) in enumerate(zip(solve.flags, solve.offs)):
+        x, f = rng_fields(torch, np, g.shape, dtype, 2, seed + k)
+        xk, xp = x.clone(), x.clone()
+        for _ in range(calls):
+            rk = sod3.rb_sor_obsdist3d(xk, f, fl, g, offs, param.omg, *c)
+            rp = sod3.rb_iters_obsdist3d_plain(xp, f, fl, g, offs,
+                                               param.omg, *c)
+        bitwise = bitwise and torch.equal(xk, xp)
+        rbits = rbits and torch.equal(rk, rp)
+        err = max(err, float((xk - xp).abs().max()))
+    return bitwise, rbits, err
+
+
+def k16_read_cells(g, offs):
+    """The cells of a deep block that K16 reads: the owned cells, H layers
+    on each side that faces another shard and the one global ghost layer
+    on each wall side (the dead padding beyond a wall's ghost layer is
+    neither loaded nor written)."""
+    cells = 1
+    for G, n, o in zip((g.kmax, g.jmax, g.imax), (g.kl, g.jl, g.il), offs):
+        cells *= n + (1 if o == 0 else g.H) + (1 if o + n == G else g.H)
+    return cells
+
+
+@phase("obstacle kernels vs plain versions: masked K5, K16, K7/K8 in flag "
+       "mode")
+def check_obstacle3d_kernels(torch, np):
+    from pampi_tpu_torch.ops import sor3d_kernels as sk3
+    from pampi_tpu_torch.ops import sor_obsdist3d as sod3
+    from pampi_tpu_torch.ops.ns3d_fused import StepConfig3D
+    from pampi_tpu_torch.parallel.stencil2d import embed_deep, strip_deep
+    from pampi_tpu_torch.utils.params import Parameter
+
+    bad = []
+    dtypes = (torch.float32, torch.float64)
+    shipped = obstacle_config()  # 128x32x32
+    odd = Parameter(name="dcavity3d", imax=63, jmax=47, kmax=31, re=100.0,
+                    obstacles="0.3,0.2,0.35,0.7,0.6,0.75")
+    grids = [(p, obstacle_fluid(p)) for p in (shipped, odd)]
+    for param, fluid in grids:
+        flags = torch.from_numpy(fluid.astype(np.uint8)).to("cuda")
+        shape = f"{param.imax}x{param.jmax}x{param.kmax}"
+        for dtype in dtypes:
+            for n in (1, 4):
+                fb, rb, err = check_masked_k5(torch, np, param, flags, dtype,
+                                              n, 151)
+                log(f"rb_sor3d_checkerboard masked {dtype} {shape} n={n}, "
+                    f"two calls: fields bitwise {fb}, residual bitwise {rb}"
+                    f", max_abs_err {err:.3e} {'ok' if fb and rb else 'FAIL'}")
+                if not (fb and rb):
+                    bad.append(f"masked K5 {shape} {dtype} n={n}")
+            t = tol(torch, dtype)
+            u, v, w, pp = rng_fields(torch, np, tuple(flags.shape), dtype, 4,
+                                     157)
+            dt = torch.tensor(0.013, dtype=dtype, device="cuda")
+            copies, e_pre, e_post, own, em, _a, _b, ok = check_step3d(
+                torch, u, v, w, pp, dt, StepConfig3D.from_param(param), t,
+                flags)
+            log(f"ns3d_pre/post flag mode {param.name} {dtype} {shape}: u',"
+                f" v', w' bitwise {copies}, F/G/H/rhs max_rel_err "
+                f"{e_pre:.3e}, u'', v'', w'' max_rel_err {e_post:.3e}, "
+                f"maxima bitwise vs own fields {own}, vs plain {em:.3e} "
+                f"(tol {t:g}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                bad.append(f"K7/K8 flag mode {shape} {dtype}")
+    # K16 on every shard of the shipped grid on 2x2x2, and on 1x1x1
+    # against masked K5
+    param, fluid = grids[0]
+    dims = (2, 2, 2)
+    G = (param.kmax, param.jmax, param.imax)
+    local = tuple(e // d for e, d in zip(G, dims))
+    for dtype in dtypes:
+        for n in (1, 2):
+            fb = rb = True
+            err = 0.0
+            for s in range(8):
+                offs = tuple(c * e for c, e in zip(mesh_coords(s, dims),
+                                                   local))
+                b1, r1, e1, g = check_k16(torch, np, param, fluid, offs,
+                                          local, n, dtype, 161 + s)
+                fb, rb, err = fb and b1, rb and r1, max(err, e1)
+            log(f"rb_sor_obsdist3d {dtype} 128x32x32 on 2x2x2 (n={n}, deep "
+                f"blocks {g.shape}), every shard, two calls: blocks bitwise "
+                f"{fb}, residuals bitwise {rb}, max_abs_err {err:.3e} "
+                f"{'ok' if fb and rb else 'FAIL'}")
+            if not (fb and rb):
+                bad.append(f"K16 2x2x2 {dtype} n={n}")
+        g = sod3.ObsGeom3(*G, *G, 2)
+        flags16 = shard_flags(fluid, (0, 0, 0), G, g.H)
+        flags5 = torch.from_numpy(fluid.astype(np.uint8)).to("cuda")
+        c = inverse_squares(param)
+        x, f = rng_fields(torch, np, tuple(flags5.shape), dtype, 2, 171)
+        x5, xd = x.clone(), embed_deep(x, g.H).contiguous()
+        fd = embed_deep(f, g.H).contiguous()
+        for _ in range(2):
+            r16 = sod3.rb_sor_obsdist3d(xd, fd, flags16, g, (0, 0, 0),
+                                        param.omg, *c)
+            r5 = sk3.rb_sor3d_checkerboard(x5, f, g.n, 0.0, *c, flags=flags5,
+                                           omega=param.omg)
+        ok = torch.equal(strip_deep(xd, g.H), x5) and torch.equal(r16, r5)
+        log(f"rb_sor_obsdist3d {dtype} 128x32x32 on 1x1x1 (n=2) vs masked "
+            f"K5, two calls: volume and residual bitwise {ok}")
+        if not ok:
+            bad.append(f"K16 vs masked K5 {dtype}")
+        t = tol(torch, dtype)
+        exact, e, err = check_step3d_dist(torch, np, dims, param, dtype, 181)
+        ok = exact and e <= t
+        log(f"ns3d_pre/post distributed flag mode {dtype} 128x32x32 on 2x2x2,"
+            f" every shard: u', v', w' and maxima bitwise {exact}, "
+            f"max_rel_err {e:.3e}, max_abs_err {err:.3e} (tol {t:g}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            bad.append(f"K7/K8 distributed flag mode {dtype}")
+    if bad:
+        raise AssertionError(f"obstacle kernels disagree: {bad}")
+
+
+@phase("masked K5, K16 and K7/K8 in flag mode: times, float32")
+def time_obstacle3d(torch, np):
+    from pampi_tpu_torch.ops import ns3d_fused as nf3
+    from pampi_tpu_torch.ops import sor3d_kernels as sk3
+    from pampi_tpu_torch.ops import sor_obsdist3d as sod3
+
+    size, rows = 4, {}
+    param = obstacle_config(**OBST_MAIN)
+    fluid = obstacle_fluid(param)
+    flags = torch.from_numpy(fluid.astype(np.uint8)).to("cuda")
+    cells = flags.numel()
+    K, J, I = (n - 2 for n in flags.shape)
+    shape = f"{I}x{J}x{K}"
+    c = inverse_squares(param)
+    fb, rb, err = check_masked_k5(torch, np, param, flags, torch.float32, 4,
+                                  191, calls=1)
+    if not (fb and rb):
+        raise AssertionError(f"masked K5 differs from its plain version at "
+                             f"{shape}")
+    x, f = rng_fields(torch, np, tuple(flags.shape), torch.float32, 2, 193)
+    ms = cuda_ms(torch, lambda: sk3.rb_sor3d_checkerboard(
+        x, f, 4, 0.0, *c, flags=flags, omega=param.omg), 20)
+    pms = cuda_ms(torch, lambda: sk3.rb_sor3d_masked_plain(
+        x, f, flags, 4, param.omg, *c), 2)
+    # p and rhs read, p written, the flags read once: 13 bytes a cell;
+    # ~33 flops a cell update
+    b = bound(13 * cells, 33 * 4 * K * J * I)
+    rows["rb_sor3d_checkerboard_masked"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1],
+        shape=f"{shape} f32, n=4, the box of canal3d_obstacle.par")
+    log(f"rb_sor3d_checkerboard masked {shape} f32 n=4: {ms:.4f} ms per call"
+        f" (plain {pms:.4f}, bound {b[0]:.4f} by {b[1]})")
+    del x, f
+    # K7/K8 in flag mode on the same grid
+    pk = obstacle_config(**OBST_MAIN, tpu_dtype="float32")
+    cfg = nf3.StepConfig3D.from_param(pk)
+    u, v, w, pp = rng_fields(torch, np, tuple(flags.shape), torch.float32, 4,
+                             197)
+    dt = torch.tensor(1e-3, dtype=torch.float32, device="cuda")
+    copies, e_pre, e_post, own, em, err_pre, err_post, ok = check_step3d(
+        torch, u, v, w, pp, dt, cfg, tol(torch, torch.float32), flags)
+    if not ok:
+        raise AssertionError(f"K7/K8 flag mode differ from their plain "
+                             f"versions at {shape}")
+    uk, vk, wk = u.clone(), v.clone(), w.clone()
+    ms = cuda_ms(torch, lambda: nf3.ns3d_pre(uk, vk, wk, dt, cfg,
+                                             flags=flags), 20)
+    pms = cuda_ms(torch, lambda: nf3.ns3d_pre_plain(u, v, w, dt, cfg,
+                                                    flags=flags), 3)
+    fk = nf3.ns3d_pre(uk, vk, wk, dt, cfg, flags=flags)
+    qms = cuda_ms(torch, lambda: nf3.ns3d_post(
+        uk, vk, wk, *fk[:3], pp, dt, cfg.dx, cfg.dy, cfg.dz, flags=flags), 20)
+    qpms = cuda_ms(torch, lambda: nf3.ns3d_post_plain(
+        uk, vk, wk, *fk[:3], pp, dt, cfg.dx, cfg.dy, cfg.dz, flags=flags), 3)
+    # 7 field-sizes each, as without flags, plus the flags' byte a cell
+    b = bound((7 * size + 1) * cells, 200 * K * J * I)
+    q = bound((7 * size + 1) * cells, 20 * K * J * I)
+    rows["ns3d_pre_flags"] = dict(
+        max_abs_err=err_pre, ms=ms, plain_ms=pms, bound_ms=b[0],
+        bound_by=b[1], shape=f"{shape} f32, canal3d_obstacle.par's BCs")
+    rows["ns3d_post_flags"] = dict(
+        max_abs_err=err_post, ms=qms, plain_ms=qpms, bound_ms=q[0],
+        bound_by=q[1], shape=f"{shape} f32, canal3d_obstacle.par's BCs")
+    log(f"ns3d_pre flag mode {shape} f32: {ms:.4f} ms (plain {pms:.4f}, "
+        f"bound {b[0]:.4f} by {b[1]}); ns3d_post flag mode: {qms:.4f} ms "
+        f"(plain {qpms:.4f}, bound {q[0]:.4f} by {q[1]})")
+    del u, v, w, pp, uk, vk, wk, fk, flags
+    torch.cuda.empty_cache()
+    # K16 per (128, 128, 512) shard of 1024x256x256 on 2x2x2, n = 4: only
+    # that shard's blocks on the card
+    big = obstacle_config(**OBST_K16)
+    fluid = obstacle_fluid(big)
+    local = (big.kmax // 2, big.jmax // 2, big.imax // 2)
+    offs = local  # the shard at mesh coordinates (1, 1, 1)
+    fb, rb, err, g = check_k16(torch, np, big, fluid, offs, local, 4,
+                               torch.float32, 199, calls=1)
+    if not (fb and rb):
+        raise AssertionError("K16 differs from its plain version at the "
+                             "timed shard")
+    flags = shard_flags(fluid, offs, local, g.H)
+    c = inverse_squares(big)
+    x, f = rng_fields(torch, np, g.shape, torch.float32, 2, 201)
+    ms = cuda_ms(torch, lambda: sod3.rb_sor_obsdist3d(
+        x, f, flags, g, offs, big.omg, *c), 20)
+    pms = cuda_ms(torch, lambda: sod3.rb_iters_obsdist3d_plain(
+        x, f, flags, g, offs, big.omg, *c), 2)
+    # p, rhs and the flags of the cells K16 reads: at mesh coordinates
+    # (1, 1, 1) H layers on the three interface sides, the ghost layer on
+    # the three wall sides
+    read = k16_read_cells(g, offs)
+    b = bound(13 * read, 33 * 4 * local[0] * local[1] * local[2])
+    rows["rb_sor_obsdist3d"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1],
+        shape=f"(128, 128, 512) shard of 1024x256x256 f32 on 2x2x2, n=4, "
+              f"deep block {g.shape}, {read} cells read")
+    log(f"rb_sor_obsdist3d per (128, 128, 512) shard of 1024x256x256 f32 on "
+        f"2x2x2, n=4 (deep block {g.shape}, {read} cells read): {ms:.4f} ms"
+        f" per shard call (plain {pms:.4f}, bound {b[0]:.4f} by {b[1]})")
+    del x, f, flags
+    torch.cuda.empty_cache()
+    return rows
+
+
+OBST_PATH = ("ns3d_pre_flags", "ns3d_post_flags")
+NOT_ON_OBSTACLE_PATHS = ("rb_sor3d_octants", "rb_sor_odist",
+                         "rb_sor3d_checkerboard", "ns3d_pre", "ns3d_post")
+
+
+def check_not_launched(counts, label):
+    """K6 and K14 (and the unmasked K5, K7, K8) never run on an obstacle
+    path."""
+    wrong = [k for k in NOT_ON_OBSTACLE_PATHS if counts.get(k, 0)]
+    if wrong:
+        raise AssertionError(f"{label} launched {wrong}")
+
+
+@phase("main path: NS-3D with obstacles, canal3d_obstacle.par's geometry "
+       "at 512x128x128 float32, one device and 2x2x2")
+def main_path_obstacle3d(torch):
+    import numpy as np
+
+    from pampi_tpu_torch.kernels import build as kb
+    from pampi_tpu_torch.models.ns3d import NS3DSolver
+    from pampi_tpu_torch.models.ns3d_dist import NS3DDistSolver
+    from pampi_tpu_torch.parallel.comm import CartComm
+
+    param = obstacle_config(**OBST_MAIN, tpu_dtype="float32", re=100.0,
+                            tpu_sor_inner=4, itermax=100, eps=0.0, te=1e9)
+    counts = []
+    single = NS3DSolver(param.replace(tpu_mesh="1"), device="cuda")
+    c, r = drive_path(kb, "NS-3D obstacle one device",
+                      ("rb_sor3d_checkerboard_masked",) + OBST_PATH,
+                      lambda: timed_steps(torch, single, 16))
+    check_not_launched(c, "the one-device obstacle path")
+    counts.append(c)
+    log(f"NS-3D canal3d_obstacle 512x128x128 f32 one device (re 100, "
+        f"itermax 100, eps 0, masked K5 n=4): {r['ms_per_step']:.3f} ms/step"
+        f" (host clock); PRE {r['pre']:.3f} / solve {r['solve']:.3f} / POST "
+        f"{r['post']:.3f} ms (CUDA events); launches per step "
+        f"{c['rb_sor3d_checkerboard_masked'] / 17:.1f} masked K5")
+    s = NS3DDistSolver(param.replace(tpu_mesh="2x2x2"),
+                       CartComm(ndims=3, dims=(2, 2, 2)))
+    s.comm.print_config()
+    c, r = drive_path(kb, "NS-3D obstacle 2x2x2",
+                      ("rb_sor_obsdist3d",) + OBST_PATH,
+                      lambda: dist2d_steps(torch, s, 16))
+    check_not_launched(c, "the 2x2x2 obstacle path")
+    counts.append(c)
+    diff, scale = global_diff(s, single)
+    step = r["pre"] + r["solve"] + r["post"]
+    ok = (s.nt == single.nt == 17 and s.t == single.t
+          and diff <= 1e-5 * scale)
+    log(f"NS-3D canal3d_obstacle 512x128x128 f32 on 2x2x2 ({s.kl}x{s.jl}x"
+        f"{s.il} shards on {sorted(set(map(str, s.comm.devices)))}, K16 n="
+        f"{s._obs_solve.n}): {r['ms']:.3f} ms/step (host clock); PRE "
+        f"{r['pre']:.3f} / solve {r['solve']:.3f} / POST {r['post']:.3f} ms "
+        f"(CUDA events); exchanges {r['exchange']:.3f} ms/step, share "
+        f"{r['exchange'] / step:.3f} of the step; launches per step "
+        f"{c['rb_sor_obsdist3d'] / 17:.1f} K16; t={s.t:.6e}, single-device "
+        f"t={single.t:.6e}; max |dist - single| {diff:.3e} (limit "
+        f"{1e-5 * scale:.3e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the 2x2x2 obstacle run disagrees with one "
+                             "device")
+    # the kernels of the mesh path against their plain versions at this
+    # path's own shapes: K16 on the solve's deep blocks, flags and offsets,
+    # K7/K8 in distributed flag mode on its shards
+    g = s._obs_solve.geom
+    fb, rb, err = check_obsdist3d(torch, np, s._obs_solve, param,
+                                  torch.float32, 211)
+    log(f"rb_sor_obsdist3d f32 on the 2x2x2 path's own shards (n={g.n}, "
+        f"deep blocks {g.shape}), every shard, two calls: blocks bitwise "
+        f"{fb}, residuals bitwise {rb}, max_abs_err {err:.3e} "
+        f"{'ok' if fb and rb else 'FAIL'}")
+    t = tol(torch, torch.float32)
+    exact, e, err = check_step3d_dist(torch, np, (2, 2, 2), param,
+                                      torch.float32, 221)
+    ok = exact and e <= t
+    log(f"ns3d_pre/post distributed flag mode f32 on the 2x2x2 path's own "
+        f"shards ({s.kl}x{s.jl}x{s.il}), every shard: u', v', w' and maxima"
+        f" bitwise {exact}, max_rel_err {e:.3e}, max_abs_err {err:.3e} (tol"
+        f" {t:g}) {'ok' if ok else 'FAIL'}")
+    if not (fb and rb and ok):
+        raise AssertionError("a kernel of the 2x2x2 obstacle path differs "
+                             "from its plain version at the path's shapes")
+    del s, single
+    torch.cuda.empty_cache()
+    return counts
+
+
+def run_cli3(par, device):
+    """The CLI on an NS-3D .par in the current directory, with the launch
+    counts set to 0 before it: (rc, seconds, counts, what the run wrote:
+    the cell-centred fields, nt, t, the dispatch record)."""
+    import io
+
+    from pampi_tpu_torch import cli
+    from pampi_tpu_torch.kernels import build as kb
+    from pampi_tpu_torch.models.ns3d import NS3DSolver
+    from pampi_tpu_torch.models.ns3d_dist import NS3DDistSolver
+    from pampi_tpu_torch.utils import dispatch
+
+    got = {}
+
+    def recorder(cls):
+        write = cls.write_result
+
+        def record(self, *a, **kw):
+            got.update(zip(("ug", "vg", "wg", "pg"), self.collect()),
+                       nt=self.nt, t=self.t,
+                       record=json.dumps(dispatch.snapshot()))
+            return write(self, *a, **kw)
+
+        return mock.patch.object(cls, "write_result", record)
+
+    kb.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()), recorder(NS3DSolver), \
+            recorder(NS3DDistSolver):
+        rc = cli.main(["pampi_tpu_torch", "--device", device, par])
+    secs = time.perf_counter() - t0
+    return rc, secs, {k: v.launches for k, v in kb.KERNELS.items()}, got
+
+
+def cli3_child(par, out, device):
+    """`chip_smoke.py --cli3-child <par> <out.npz> <device>`: run_cli3 in
+    the .par's directory, saved to out."""
+    import numpy as np
+
+    sys.path.insert(0, ROOT)
+    os.chdir(os.path.dirname(os.path.abspath(par)))
+    rc, secs, counts, got = run_cli3(par, device)
+    np.savez(out, rc=rc, secs=secs, counts=json.dumps(counts), **got)
+    return rc
+
+
+OBST_RUNS = {}
+
+
+def obstacle_par(te, **keys):
+    """configs/canal3d_obstacle.par's text with te and the given keys set
+    (a key the file lacks is appended)."""
+    import re
+
+    text = open(os.path.join(ROOT, "configs", "canal3d_obstacle.par")).read()
+    for key, val in dict(te=te, **keys).items():
+        text, n = re.subn(rf"^{key}\s.*$", f"{key} {val}", text, flags=re.M)
+        if n == 0:
+            text += f"\n{key} {val}\n"
+    return text
+
+
+@phase("configs/canal3d_obstacle.par: the 2x2x2 card run and the CPU run "
+       "started in processes of their own")
+def obstacle3d_cli_start():
+    tmp = tempfile.mkdtemp(prefix="obstacle3d_")
+    OBST_RUNS["tmp"] = tmp
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    for name, text, device in (
+            ("mesh", obstacle_par(5.0, tpu_mesh="2x2x2"), "cuda"),
+            ("cpu05", obstacle_par(0.5, tpu_vtk="binary"), "cpu")):
+        d = os.path.join(tmp, name)
+        os.makedirs(d)
+        par = os.path.join(d, "canal3d_obstacle.par")
+        with open(par, "w") as fh:
+            fh.write(text)
+        out = os.path.join(d, "fields.npz")
+        OBST_RUNS[name] = (out, start(
+            [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+             "--cli3-child", par, out, device], d,
+            os.path.join(d, "child.log"), env))
+
+
+def vtk_fields(np, path, n):
+    """The pressure and velocity arrays of a binary float64 VTK file."""
+    data = open(path, "rb").read()
+    head = data.index(b"LOOKUP_TABLE default\n") + 21
+    vhead = data.index(b"VECTORS velocity double\n") + 24
+    return (np.frombuffer(data[head:head + 8 * n], ">f8"),
+            np.frombuffer(data[vhead:vhead + 24 * n], ">f8"))
+
+
+@phase("main path: python -m pampi_tpu_torch configs/canal3d_obstacle.par "
+       "on the card, one device and 2x2x2, and at te 0.5 against the CPU")
+def obstacle3d_cli(np):
+    from pampi_tpu_torch.kernels import build as kb
+
+    if "mesh" not in OBST_RUNS:
+        raise AssertionError("the child runs did not start")
+    tmp = OBST_RUNS["tmp"]
+    counts, one = [], {}
+    for name, text in (("one", obstacle_par(5.0)),
+                       ("card05", obstacle_par(0.5, tpu_vtk="binary"))):
+        d = os.path.join(tmp, name)
+        os.makedirs(d)
+        par = os.path.join(d, "canal3d_obstacle.par")
+        with open(par, "w") as fh:
+            fh.write(text)
+        cwd = os.getcwd()
+        os.chdir(d)
+        try:
+            c, (rc, secs, _c, got) = drive_path(
+                kb, f"canal3d_obstacle.par {name} CLI",
+                ("rb_sor3d_checkerboard_masked",) + OBST_PATH,
+                lambda: run_cli3(par, "cuda"))
+        finally:
+            os.chdir(cwd)
+        check_not_launched(c, f"the {name} CLI run")
+        counts.append(c)
+        if rc != 0:
+            raise AssertionError(f"the {name} CLI run exited {rc}")
+        one[name] = got
+        log(f"canal3d_obstacle.par {'as shipped (te 5.0)' if name == 'one' else 'te 0.5, tpu_vtk binary'}"
+            f" on one card: {got['nt']} steps to t={got['t']:.6f} in "
+            f"{secs:.1f} s (wall, the CLI's whole run, beside the other "
+            f"processes)")
+    bad = []
+    results = {}
+    for name in ("cpu05", "mesh"):
+        out, proc = OBST_RUNS[name]
+        rc = proc.wait(timeout=900)
+        if rc != 0:
+            log(open(os.path.join(os.path.dirname(out),
+                                  "child.log")).read()[-4000:])
+            raise AssertionError(f"the {name} child exited {rc}")
+        with np.load(out) as z:
+            results[name] = {k: z[k] for k in z.files}
+    # te 0.5: the card's and the CPU's VTK files
+    cpu = results["cpu05"]
+    n = 128 * 32 * 32
+    a = vtk_fields(np, os.path.join(tmp, "card05", "canal.vtk"), n)
+    b = vtk_fields(np, os.path.join(tmp, "cpu05", "canal.vtk"), n)
+    diff = max(float(np.abs(x - y).max()) for x, y in zip(a, b))
+    scale = max(1.0, *(float(np.abs(y).max()) for y in b))
+    ok = diff <= 1e-9 * scale and int(cpu["nt"]) == one["card05"]["nt"]
+    log(f"canal3d_obstacle.par te 0.5 f64: {one['card05']['nt']} steps on "
+        f"the card, {int(cpu['nt'])} on the CPU ({float(cpu['secs']):.1f} s "
+        f"in its own process); max |card - CPU| over the VTK fields "
+        f"{diff:.3e} (tol 1e-9 of scale {scale:.3e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        bad.append("te 0.5 card vs CPU")
+    mesh, ref = results["mesh"], one["one"]
+    c = json.loads(str(mesh["counts"]))
+    log(f"canal3d_obstacle.par 2x2x2 CLI launches: {json.dumps(c)}")
+    missing = [k for k in ("rb_sor_obsdist3d",) + OBST_PATH if c[k] == 0]
+    if missing:
+        raise AssertionError(f"the 2x2x2 CLI run did not launch {missing}")
+    check_not_launched(c, "the 2x2x2 CLI run")
+    counts.append(c)
+    diff = max(float(np.abs(mesh[k] - ref[k]).max())
+               for k in ("ug", "vg", "wg", "pg"))
+    scale = max(1.0, *(float(np.abs(ref[k]).max())
+                       for k in ("ug", "vg", "wg", "pg")))
+    same = (int(mesh["nt"]), float(mesh["t"])) == (ref["nt"], ref["t"])
+    label = json.loads(str(mesh["record"])).get("obstacle3d_dist")
+    ok = same and diff <= 1e-9 * scale
+    log(f"canal3d_obstacle.par te 5.0 tpu_mesh 2x2x2 ({label}) on the card, "
+        f"its own process: {int(mesh['nt'])} steps in "
+        f"{float(mesh['secs']):.1f} s (one device: {ref['nt']}), t equal "
+        f"{float(mesh['t']) == ref['t']}; max |mesh - one device| over the "
+        f"cell-centred u, v, w, p {diff:.3e} (tol 1e-9 of scale "
+        f"{scale:.3e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        bad.append("te 5.0 2x2x2 vs one device")
+    if bad:
+        raise AssertionError(f"canal3d_obstacle.par runs disagree: {bad}")
+    return counts
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2817,6 +3429,7 @@ def main() -> int:
         check_dist3d_kernels(torch, np)
         check_cadence_one(torch, np)
         check_dist2d_kernels(torch, np)
+        check_obstacle3d_kernels(torch, np)
     if CHECKS_ONLY:
         log(f"checks only; failed: {FAILED}")
         return 1 if FAILED else 0
@@ -2827,6 +3440,7 @@ def main() -> int:
         q_rows = time_qdist(torch, np)
         d3_rows = time_dist3d(torch, np)
         d2_rows = time_dist2d(torch, np)
+        o3_rows = time_obstacle3d(torch, np)
         sor_ns2d = {}
         counts = main_path(torch, sor_ns2d)
         counts3 = main_path_3d(torch)
@@ -2841,16 +3455,21 @@ def main() -> int:
         counts_d3cli = dist3d_cli(np)
         counts_d2 = main_path_dist2d(torch)
         counts_d2cards = dist2d_several_cards(torch)
+        counts_o3 = main_path_obstacle3d(torch)
         # no times are taken from here on: the CPU half of dcavity_card
-        # runs beside the card's runs
+        # and the canal3d_obstacle.par mesh and CPU runs run beside the
+        # card's runs
+        obstacle3d_cli_start()
         dcavity_card(np)
         counts_d2cli = dist2d_cli(np)
         dcavity_card_vs_cpu(np)
+        counts_o3cli = obstacle3d_cli(np)
         if None not in (rows, rows3, mg_rows, q_rows, d3_rows, d2_rows,
-                        counts, counts3, counts_mg, counts_dist, counts_cli,
-                        counts_d3, counts_d3cli, counts_d2, counts_d2cards,
-                        counts_d2cli):
-            rows = {**rows, **rows3, **mg_rows[0], **q_rows,
+                        o3_rows, counts, counts3, counts_mg, counts_dist,
+                        counts_cli, counts_d3, counts_d3cli, counts_d2,
+                        counts_d2cards, counts_d2cli, counts_o3,
+                        counts_o3cli):
+            rows = {**rows, **rows3, **mg_rows[0], **q_rows, **o3_rows,
                     "rb_sor_odist": d3_rows["rb_sor_odist"],
                     "rb_sor_obsdist": d2_rows["rb_sor_obsdist"]}
             for name in ("ns3d_pre", "ns3d_post"):
@@ -2860,7 +3479,7 @@ def main() -> int:
             # each path ran with the counts at 0 before it: a kernel's
             # main-path launches are its sum over the paths
             paths = (counts + counts3 + counts_mg + counts_d3 + counts_d2
-                     + counts_d2cli
+                     + counts_d2cli + counts_o3 + counts_o3cli
                      + [counts_dist, counts_cli, counts_d3cli,
                         counts_d2cards])
             counts = {k: sum(c.get(k, 0) for c in paths)
@@ -2901,6 +3520,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--cli-child"]:
         sys.exit(cli_child(*sys.argv[2:4]))
+    if sys.argv[1:2] == ["--cli3-child"]:
+        sys.exit(cli3_child(*sys.argv[2:5]))
     try:
         code = main()
     finally:

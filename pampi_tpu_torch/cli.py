@@ -14,10 +14,16 @@ the `name` key selects, write the outputs and print the wall time.
                         the `tpu_vtk` format: ascii, binary, or sharded,
                         the binary file written slab by slab on a mesh);
                         on a mesh (`tpu_mesh PKxPJxPI`, or `auto` with
-                        several cards) the distributed time stepper
+                        several cards) the distributed time stepper; with
+                        an `obstacles` key (3-D boxes, e.g.
+                        configs/canal3d_obstacle.par) the flag-masked
+                        obstacle run under `tpu_solver sor`, on one
+                        device or a mesh that divides the grid
 
 Every problem takes `tpu_solver sor|mg|fft|auto` (auto resolves to fft on
-these plain grids, to sor on a ragged mesh).
+these plain grids, to sor on a ragged mesh, to mg on an obstacle grid,
+where mg exits naming ROADMAP A item 3 and fft with the JAX package's
+error). 2-D obstacles (canal_obstacle*.par) exit naming ROADMAP A.4.
 
 `tpu_mesh` follows the JAX package: `auto` is one shard per visible card
 (the single-device path on one card), an explicit mesh one of that shape,

@@ -66,8 +66,42 @@
 // term; scalar coefficients are formed in double on the host exactly where
 // the reference forms them from Python floats, then rounded to T. Built
 // with --fmad=false.
+//
+// The flag mode (obstacle flag fields, pampi_tpu/ops/obstacle3d.py; the
+// TPU kernels' `masked` mode): both kernels also take a uint8 fluid flag
+// block of their input block's shape (0 on obstacle and dead cells). A
+// face mask is read from the flags: the u face of a cell is fluid-fluid
+// where the cell and its +i neighbour are fluid, forced to 1 on the last
+// global ghost plane i = I+1 (make_masks_3d's fix of its wrapping roll),
+// and likewise v along j and w along k.
+//   PRE, after the walls and the special BC (obstacle3d.
+//   apply_obstacle_velocity_bc_3d, then mask_fgh):
+//   4a. zero the normal components on faces touching an obstacle, into a
+//       snapshot us, vs, ws (scratch the wrapper allocates);
+//   4b. write u, v, w from the snapshot: u = us + both_u*mirror(us),
+//       where both_u marks a face buried in obstacles and mirror is the
+//       first-hit sum over the fluid-fluid faces at j+1, j-1, k+1, k-1
+//       (v: i+1, i-1, k+1, k-1; w: i+1, i-1, j+1, j-1), in the JAX
+//       package's arithmetic (`_mirror`). The JAX function is functional:
+//       every mirror reads the array as it is after the zeroing. Done in
+//       place, a thread's write could land on a cell another thread
+//       reads, and even a read that is multiplied by 0 changes the sign
+//       of a zero; the snapshot keeps 4b's reads apart from its writes.
+//       Neighbour reads wrap on the block, as the plain version's rolls
+//       do; on one device they are the JAX package's full-array rolls,
+//       and on a deep block they reach only the outermost layer, which no
+//       output reads;
+//   then F, G, H carry U, V, W on every non-fluid face (after the wall
+//   fixups).
+//   POST: the projection is multiplied by the face mask (adapt_uvw_
+//   obstacle); on a shard the flags read 0 beyond the block's high edge,
+//   as p does there.
+// The flags add 1 byte a cell to each kernel's traffic, and PRE's snapshot
+// 6 field-sizes (three written, three read).
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -205,6 +239,94 @@ __global__ void bc_kfaces_special(T* u, T* v, T* w, Blk k, Bcs bc,
   }
 }
 
+// -- the flag mode --------------------------------------------------------
+
+__device__ __forceinline__ int wrap(int a, int L) {
+  return a < 0 ? a + L : (a >= L ? a - L : a);
+}
+
+__device__ __forceinline__ size_t at(const Blk& k, int a0, int a1, int a2) {
+  return ((size_t)wrap(a0, k.L[0]) * k.L[1] + wrap(a1, k.L[1])) * k.L[2] +
+         wrap(a2, k.L[2]);
+}
+
+// the face mask of the component normal to `axis` (0: w, 1: v, 2: u) at
+// local (a0, a1, a2), every index wrapping on the block: 1 on the last
+// global ghost plane of the axis, else the cell's flag times the flag of
+// its + neighbour along the axis
+template <typename T>
+__device__ __forceinline__ T face_at(const uint8_t* fl, const Blk& k,
+                                     int axis, int a0, int a1, int a2) {
+  int a[3] = {wrap(a0, k.L[0]), wrap(a1, k.L[1]), wrap(a2, k.L[2])};
+  if (a[axis] + k.base[axis] == k.G[axis] + 1) return T(1);
+  const T c = T(fl[at(k, a[0], a[1], a[2])]);
+  a[axis] += 1;
+  return c * T(fl[at(k, a[0], a[1], a[2])]);
+}
+
+// launch 4a: the zeroed normal components, into the snapshot
+template <typename T>
+__global__ void obs_zero(const T* __restrict__ u, const T* __restrict__ v,
+                         const T* __restrict__ w,
+                         const uint8_t* __restrict__ fl, T* __restrict__ us,
+                         T* __restrict__ vs, T* __restrict__ ws, Blk k) {
+  const int a2 = blockIdx.x * BX + threadIdx.x;
+  const int a1 = blockIdx.y * BY + threadIdx.y;
+  const int a0 = blockIdx.z;
+  if (a2 >= k.L[2] || a1 >= k.L[1]) return;
+  const size_t x = at(k, a0, a1, a2);
+  us[x] = u[x] * face_at<T>(fl, k, 2, a0, a1, a2);
+  vs[x] = v[x] * face_at<T>(fl, k, 1, a0, a1, a2);
+  ws[x] = w[x] * face_at<T>(fl, k, 0, a0, a1, a2);
+}
+
+// one term of the first-hit mirror (obstacle3d._mirror)
+template <typename T>
+__device__ __forceinline__ void mirror_term(T& acc, T& rem, T fm, T val) {
+  acc = acc + rem * fm * (-val);
+  rem = rem * (T(1) - fm);
+}
+
+// launch 4b: the tangential mirror of every component, read from the
+// snapshot, written to u, v, w; d[q] are the four neighbour offsets
+template <typename T>
+__device__ __forceinline__ T mirrored(const T* s, const uint8_t* fl,
+                                      const Blk& k, int axis, int a0, int a1,
+                                      int a2, const int (*d)[3]) {
+  const T one = T(1);
+  int b[3] = {a0, a1, a2};
+  b[axis] += 1;
+  const T both = (one - T(fl[at(k, a0, a1, a2)])) *
+                 (one - T(fl[at(k, b[0], b[1], b[2])]));
+  T acc = T(0), rem = T(1);
+  for (int q = 0; q < 4; ++q) {
+    const int n0 = a0 + d[q][0], n1 = a1 + d[q][1], n2 = a2 + d[q][2];
+    mirror_term(acc, rem, face_at<T>(fl, k, axis, n0, n1, n2),
+                s[at(k, n0, n1, n2)]);
+  }
+  return s[at(k, a0, a1, a2)] + both * acc;
+}
+
+template <typename T>
+__global__ void obs_mirror(T* __restrict__ u, T* __restrict__ v,
+                           T* __restrict__ w, const uint8_t* __restrict__ fl,
+                           const T* __restrict__ us, const T* __restrict__ vs,
+                           const T* __restrict__ ws, Blk k) {
+  // priority order: u north, south, back, front; v east, west, back,
+  // front; w east, west, north, south ((k, j, i) offsets)
+  const int du[4][3] = {{0, 1, 0}, {0, -1, 0}, {1, 0, 0}, {-1, 0, 0}};
+  const int dv[4][3] = {{0, 0, 1}, {0, 0, -1}, {1, 0, 0}, {-1, 0, 0}};
+  const int dw[4][3] = {{0, 0, 1}, {0, 0, -1}, {0, 1, 0}, {0, -1, 0}};
+  const int a2 = blockIdx.x * BX + threadIdx.x;
+  const int a1 = blockIdx.y * BY + threadIdx.y;
+  const int a0 = blockIdx.z;
+  if (a2 >= k.L[2] || a1 >= k.L[1]) return;
+  const size_t x = at(k, a0, a1, a2);
+  u[x] = mirrored<T>(us, fl, k, 2, a0, a1, a2, du);
+  v[x] = mirrored<T>(vs, fl, k, 1, a0, a1, a2, dv);
+  w[x] = mirrored<T>(ws, fl, k, 0, a0, a1, a2, dw);
+}
+
 // launch 4: F, G, H for every cell of the output block o (the halo-1
 // block, `e` cells inside the input block k on every side)
 template <typename T>
@@ -212,7 +334,7 @@ __global__ void fgh_cells(const T* __restrict__ u, const T* __restrict__ v,
                           const T* __restrict__ w, const T* __restrict__ dtp,
                           T* __restrict__ f, T* __restrict__ g,
                           T* __restrict__ h, Blk k, Blk o, int e,
-                          Coef<T> c) {
+                          Coef<T> c, const uint8_t* __restrict__ fl) {
   const int oi = blockIdx.x * BX + threadIdx.x;
   const int oj = blockIdx.y * BY + threadIdx.y;
   const int ok = blockIdx.z;
@@ -293,6 +415,15 @@ __global__ void fgh_cells(const T* __restrict__ u, const T* __restrict__ v,
   if (in_j && in_k && (gi == 0 || gi == o.G[2])) fv = u[x];
   if (in_i && in_k && (gj == 0 || gj == o.G[1])) gv = v[x];
   if (in_i && in_j && (gk == 0 || gk == o.G[0])) hv = w[x];
+  if (fl != nullptr) {  // F, G, H carry U, V, W on non-fluid faces
+    const T one = T(1);
+    const T uf = face_at<T>(fl, k, 2, ok + e, oj + e, oi + e);
+    const T vf = face_at<T>(fl, k, 1, ok + e, oj + e, oi + e);
+    const T wf = face_at<T>(fl, k, 0, ok + e, oj + e, oi + e);
+    fv = uf * fv + (one - uf) * u[x];
+    gv = vf * gv + (one - vf) * v[x];
+    hv = wf * hv + (one - wf) * w[x];
+  }
   const size_t y = ((size_t)ok * o.L[1] + oj) * o.L[2] + oi;
   f[y] = fv;
   g[y] = gv;
@@ -335,6 +466,7 @@ __global__ void adapt_cells(T* __restrict__ u, T* __restrict__ v,
                             const T* __restrict__ g, const T* __restrict__ h,
                             const T* __restrict__ p, const T* __restrict__ dtp,
                             Blk o, T dx, T dy, T dz,
+                            const uint8_t* __restrict__ fl,
                             T* __restrict__ partial) {
   __shared__ T shu[NT];
   __shared__ T shv[NT];
@@ -360,6 +492,12 @@ __global__ void adapt_cells(T* __restrict__ u, T* __restrict__ v,
       uu = f[x] - (pi - pc) * (dt / dx);
       vv = g[x] - (pj - pc) * (dt / dy);
       ww = h[x] - (pk - pc) * (dt / dz);
+      if (fl != nullptr) {  // the projection on fluid-fluid faces only
+        const T fc = T(fl[x]);
+        uu = uu * (fc * (i + 1 < o.L[2] ? T(fl[x + 1]) : T(0)));
+        vv = vv * (fc * (j + 1 < o.L[1] ? T(fl[x + W]) : T(0)));
+        ww = ww * (fc * (k + 1 < o.L[0] ? T(fl[x + P]) : T(0)));
+      }
       u[x] = uu;
       v[x] = vv;
       w[x] = ww;
@@ -437,7 +575,8 @@ int max2(int a, int b) { return a > b ? a : b; }
 template <typename T>
 int run_pre(int dev, T* u, T* v, T* w, const T* dt, T* f, T* g, T* h, T* rhs,
             const int* l, const int* geo, const int* bc, int problem,
-            const double* c, void* stream) {
+            const double* c, const uint8_t* fl, T* us, T* vs, T* ws,
+            void* stream) {
   cudaError_t e = cudaSetDevice(dev);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = (cudaStream_t)stream;
@@ -457,6 +596,11 @@ int run_pre(int dev, T* u, T* v, T* w, const T* dt, T* f, T* g, T* h, T* rhs,
   const int xa = max2(k.L[2], k.L[1]), ya = max2(k.L[1], k.L[0]);
   bc_kfaces_special<T><<<dim3(ceil_div(xa, BX), ceil_div(ya, BY), 3), blk, 0,
                          st>>>(u, v, w, k, b, problem);
+  if (fl != nullptr) {
+    const dim3 kgrd(ceil_div(k.L[2], BX), ceil_div(k.L[1], BY), k.L[0]);
+    obs_zero<T><<<kgrd, blk, 0, st>>>(u, v, w, fl, us, vs, ws, k);
+    obs_mirror<T><<<kgrd, blk, 0, st>>>(u, v, w, fl, us, vs, ws, k);
+  }
   // c = [idx*0.25, gamma*idx*0.25, idy*0.25, gamma*idy*0.25, idz*0.25,
   //      gamma*idz*0.25, idx*idx, idy*idy, idz*idz, 1/re, gx, gy, gz,
   //      dx, dy, dz]
@@ -464,7 +608,7 @@ int run_pre(int dev, T* u, T* v, T* w, const T* dt, T* f, T* g, T* h, T* rhs,
                    T(c[5]), T(c[6]), T(c[7]),  T(c[8]),  T(c[9]),
                    T(c[10]), T(c[11]), T(c[12])};
   const dim3 grd = cell_grid(o);
-  fgh_cells<T><<<grd, blk, 0, st>>>(u, v, w, dt, f, g, h, k, o, ep, cf);
+  fgh_cells<T><<<grd, blk, 0, st>>>(u, v, w, dt, f, g, h, k, o, ep, cf, fl);
   rhs_cells<T><<<grd, blk, 0, st>>>(f, g, h, dt, rhs, o, T(c[13]), T(c[14]),
                                     T(c[15]));
   return (int)cudaGetLastError();
@@ -474,15 +618,16 @@ int run_pre(int dev, T* u, T* v, T* w, const T* dt, T* f, T* g, T* h, T* rhs,
 template <typename T>
 int run_post(int dev, T* u, T* v, T* w, const T* f, const T* g, const T* h,
              const T* p, const T* dt, const int* l, const int* geo,
-             double dx, double dy, double dz, T* partial, T* out,
-             void* stream) {
+             double dx, double dy, double dz, const uint8_t* fl, T* partial,
+             T* out, void* stream) {
   cudaError_t e = cudaSetDevice(dev);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = (cudaStream_t)stream;
   const Blk o = halo1(l, geo, geo + 3);
   const dim3 grd = cell_grid(o);
   adapt_cells<T><<<grd, dim3(BX, BY), 0, st>>>(u, v, w, f, g, h, p, dt, o,
-                                               T(dx), T(dy), T(dz), partial);
+                                               T(dx), T(dy), T(dz), fl,
+                                               partial);
   max_partials<T><<<1, FIN, 0, st>>>(partial, (int)(grd.x * grd.y * grd.z),
                                      out);
   return (int)cudaGetLastError();
@@ -502,22 +647,27 @@ int ns3d_post_partials(int lk, int lj, int li) {
   return 3 * ceil_div(li + 2, BX) * ceil_div(lj + 2, BY) * (lk + 2);
 }
 
+// fl (uint8, the input block's shape) and the scratch us, vs, ws are
+// null outside the flag mode
 #define PRE_ENTRY(NAME, T)                                                   \
   int NAME(int dev, void* u, void* v, void* w, const void* dt, void* f,      \
            void* g, void* h, void* rhs, const int* l, const int* geo,        \
-           const int* bc, int problem, const double* c, void* stream) {      \
+           const int* bc, int problem, const double* c, const void* fl,      \
+           void* us, void* vs, void* ws, void* stream) {                     \
     return run_pre<T>(dev, (T*)u, (T*)v, (T*)w, (const T*)dt, (T*)f, (T*)g,  \
-                      (T*)h, (T*)rhs, l, geo, bc, problem, c, stream);       \
+                      (T*)h, (T*)rhs, l, geo, bc, problem, c,                \
+                      (const uint8_t*)fl, (T*)us, (T*)vs, (T*)ws, stream);   \
   }
 
 #define POST_ENTRY(NAME, T)                                                  \
   int NAME(int dev, void* u, void* v, void* w, const void* f, const void* g, \
            const void* h, const void* p, const void* dt, const int* l,       \
-           const int* geo, double dx, double dy, double dz, void* partial,   \
-           void* out, void* stream) {                                        \
+           const int* geo, double dx, double dy, double dz, const void* fl,  \
+           void* partial, void* out, void* stream) {                         \
     return run_post<T>(dev, (T*)u, (T*)v, (T*)w, (const T*)f, (const T*)g,   \
                        (const T*)h, (const T*)p, (const T*)dt, l, geo, dx,   \
-                       dy, dz, (T*)partial, (T*)out, stream);                \
+                       dy, dz, (const uint8_t*)fl, (T*)partial, (T*)out,     \
+                       stream);                                              \
   }
 
 PRE_ENTRY(ns3d_pre_f32, float)

@@ -41,8 +41,36 @@
 //   r = rhs - ((e - 2c + w)*idx2 + (n - 2c + s)*idy2 + (b - 2c + f)*idz2)
 //   p = c - factor*r
 // built with --fmad=false so no multiply-add is contracted.
+//
+// rb_sor3d_masked (K5's masked mode) replaces the masked mode of the same
+//   TPU kernel (_tblock3d_kernel(masked=True), the NS-3D obstacle solve,
+//   pampi_tpu/ops/obstacle3d.make_obstacle_solver_fn_3d): a cell updates
+//   only where it is interior, of the colour and fluid (flag != 0), with
+//   per-direction coefficients formed from the uint8 flags in the kernel
+//   (sor3d_pallas.masked_stencil_ops_3d's order):
+//     eps_* = the six neighbours' flags,
+//     denom = (eps_e + eps_w)*idx2 + (eps_n + eps_s)*idy2
+//             + (eps_b + eps_f)*idz2,
+//     fac   = (denom > 0 ? omega/denom : 0) * flag,
+//     r     = rhs - ((eps_e*(e - c) + eps_w*(w - c))*idx2
+//                    + (eps_n*(n - c) + eps_s*(s - c))*idy2
+//                    + (eps_b*(b - c) + eps_f*(f - c))*idz2),
+//     p     = c - fac*r.
+//   The flags add 1 byte a cell: the bound is 13 bytes a cell at float32
+//   (p and rhs read, p written, the flags read). Its residual takes a
+//   fixed order that a plain PyTorch version can repeat bit for bit: on
+//   the last iteration each cell of a colour writes r^2 (0 on an
+//   obstacle) into an interior-sized buffer, one thread per (k, j) row
+//   sums its row from i = 1 up, and one block sums the rows as
+//   sum_partials does (ops/sor3d_kernels.ordered_r2_sum is the plain
+//   form). The per-shard kernel K16 (sor_obsdist3d.cu) reduces its owned
+//   cells the same way, so on a one-shard mesh the two residuals agree
+//   bitwise. The buffer costs one extra write and read of a field per
+//   call, on the last iteration only.
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -104,6 +132,54 @@ __global__ void cb3_color(T* __restrict__ p, const T* __restrict__ rhs, int K,
     }
   }
   if (partial != nullptr) write_partial(rr, sh, partial);
+}
+
+// one colour of the masked mode, in place (cb3_color's mapping); on the
+// last iteration (r2 != nullptr) every cell of the colour writes its r^2
+// at its interior index, 0 on an obstacle cell
+template <typename T>
+__global__ void cb3m_color(T* __restrict__ p, const T* __restrict__ rhs,
+                           const uint8_t* __restrict__ fl, int K, int J,
+                           int I, int par, T omega, T idx2, T idy2, T idz2,
+                           T* __restrict__ r2) {
+  const size_t W = I + 2;
+  const size_t P = (size_t)(J + 2) * W;
+  const int k = 1 + blockIdx.z;
+  const int j = 1 + blockIdx.y * BY + threadIdx.y;
+  const int t = blockIdx.x * BX + threadIdx.x;
+  if (j > J) return;
+  const int i = (((1 + j + k) & 1) == par ? 1 : 2) + 2 * t;
+  if (i > I) return;
+  const size_t x = k * P + j * W + i;
+  T rr = T(0);
+  if (fl[x] != 0) {
+    const T ee = T(fl[x + 1]), ew = T(fl[x - 1]);
+    const T en = T(fl[x + W]), es = T(fl[x - W]);
+    const T eb = T(fl[x + P]), ef = T(fl[x - P]);
+    const T denom = (ee + ew) * idx2 + (en + es) * idy2 + (eb + ef) * idz2;
+    const T fac = (denom > T(0) ? omega / denom : T(0)) * T(fl[x]);
+    const T c = p[x];
+    const T lap = (ee * (p[x + 1] - c) + ew * (p[x - 1] - c)) * idx2 +
+                  (en * (p[x + W] - c) + es * (p[x - W] - c)) * idy2 +
+                  (eb * (p[x + P] - c) + ef * (p[x - P] - c)) * idz2;
+    const T r = rhs[x] - lap;
+    p[x] = c - fac * r;
+    rr = r * r;
+  }
+  if (r2 != nullptr)
+    r2[((size_t)(k - 1) * J + (j - 1)) * I + (i - 1)] = rr;
+}
+
+// out[row] = the sum of the row's n values from the first up
+template <typename T>
+__global__ void row_sums(const T* __restrict__ v, int rows, int n,
+                         T* __restrict__ out) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= rows) return;
+  const T* a = v + (size_t)r * n;
+  T s = T(0);
+  for (int i = 0; i < n; ++i) s += a[i];
+  out[r] = s;
 }
 
 // the six Neumann faces; blockIdx.z picks the axis (0: front/back, 1:
@@ -284,6 +360,29 @@ int run_checkerboard3d(int dev, T* p, const T* rhs, int K, int J, int I,
 }
 
 template <typename T>
+int run_masked3d(int dev, T* p, const T* rhs, const uint8_t* fl, int K,
+                 int J, int I, int n_inner, double omega, double idx2,
+                 double idy2, double idz2, T* r2, T* rows, T* out,
+                 cudaStream_t st) {
+  cudaError_t e = cudaSetDevice(dev);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grd = cb3_grid(K, J, I);
+  const dim3 blk(BX, BY);
+  const dim3 ngrd(ceil_div(I > J ? I : J, BX), ceil_div(J > K ? J : K, BY), 3);
+  for (int t = 0; t < n_inner; ++t) {
+    T* last = t == n_inner - 1 ? r2 : nullptr;
+    cb3m_color<T><<<grd, blk, 0, st>>>(p, rhs, fl, K, J, I, 1, T(omega),
+                                       T(idx2), T(idy2), T(idz2), last);
+    cb3m_color<T><<<grd, blk, 0, st>>>(p, rhs, fl, K, J, I, 0, T(omega),
+                                       T(idx2), T(idy2), T(idz2), last);
+    cb3_neumann<T><<<ngrd, blk, 0, st>>>(p, K, J, I);
+  }
+  row_sums<T><<<ceil_div(K * J, 256), 256, 0, st>>>(r2, K * J, I, rows);
+  sum_partials<T><<<1, FIN, 0, st>>>(rows, K * J, out);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
 int run_octants(int dev, T* q, const T* f, int K2, int J2, int I2,
                 int n_inner, double factor, double idx2, double idy2,
                 double idz2, T* partial, T* out, cudaStream_t st) {
@@ -335,6 +434,17 @@ int rb_sor3d_octants_partials(int K2, int J2, int I2) {
                   idy2, idz2, (T*)partial, (T*)out, (cudaStream_t)stream);   \
   }
 
+#define MASKED3_ENTRY(NAME, T)                                               \
+  int NAME(int dev, void* p, const void* rhs, const void* fl, int K, int J,  \
+           int I, int n_inner, double omega, double idx2, double idy2,       \
+           double idz2, void* r2, void* rows, void* out, void* stream) {     \
+    return run_masked3d<T>(dev, (T*)p, (const T*)rhs, (const uint8_t*)fl, K, \
+                           J, I, n_inner, omega, idx2, idy2, idz2, (T*)r2,   \
+                           (T*)rows, (T*)out, (cudaStream_t)stream);         \
+  }
+
+MASKED3_ENTRY(rb_sor3d_masked_f32, float)
+MASKED3_ENTRY(rb_sor3d_masked_f64, double)
 SOR3_ENTRY(rb_sor3d_checkerboard_f32, run_checkerboard3d, float)
 SOR3_ENTRY(rb_sor3d_checkerboard_f64, run_checkerboard3d, double)
 SOR3_ENTRY(rb_sor3d_octants_f32, run_octants, float)

@@ -15,8 +15,15 @@ kernels' plain versions.
 
 The step updates u, v, w in place and replaces p with the solved field.
 t accumulates on the host in float64 (one readback of dt per step), which
-is what the JAX chunk carries (`t + dt.astype(f64)`). Obstacles are not
-ported (ROADMAP A.4); the distributed solver is models/ns3d_dist.py.
+is what the JAX chunk carries (`t + dt.astype(f64)`).
+
+Obstacle flag fields (the .par `obstacles` key, 3-D boxes; ops/
+obstacle3d.py) run under `tpu_solver sor`: the masks are built from the
+geometry, K7 and K8 run in their flag mode (the obstacle velocity BC and
+the masked F/G/H in PRE, the projection on fluid-fluid faces in POST),
+and the solve is the masked mode of K5 (make_obstacle_solver_fn_3d), the
+residual normalised by the fluid cells. The distributed solver is
+models/ns3d_dist.py.
 """
 
 from __future__ import annotations
@@ -40,7 +47,8 @@ from ..utils.dispatch import (
     sor_cadence,
 )
 from ..utils.grid import Grid
-from ..utils.params import Parameter
+from ..ops import obstacle3d as obst3
+from ..utils.params import Parameter, validate_obstacle_layout
 from ..utils.precision import resolve_dtype
 from ..utils.progress import Progress
 from ..utils.vtkio import VtkWriter
@@ -139,16 +147,31 @@ class NS3DSolver:
         solver, layout = param.tpu_solver, "auto"
         # the JAX package's residual cadence for the dtype
         n_inner = sor_cadence(param, self.dtype)
-        if solver == "sor":
-            layout = resolve_layout_3d(g.imax, g.jmax, g.kmax,
-                                       param.tpu_sor_layout)
-            solver = f"sor {layout} n_inner={n_inner}"
-        self._solve = make_pressure_solve_3d(
-            g.imax, g.jmax, g.kmax, g.dx, g.dy, g.dz, param.omg, param.eps,
-            param.itermax, self.dtype, n_inner=n_inner,
-            solver=param.tpu_solver, layout=layout,
-            stall_rtol=param.tpu_mg_stall_rtol, mg_fused=param.tpu_mg_fused,
-            device=self.device)
+        self.masks = self._flags = None
+        if param.obstacles.strip():
+            # check_supported leaves only sor here
+            validate_obstacle_layout(param.tpu_sor_layout)
+            self.masks = obst3.make_masks_3d(
+                obst3.build_fluid_3d(g.imax, g.jmax, g.kmax, g.dx, g.dy,
+                                     g.dz, param.obstacles),
+                g.dx, g.dy, g.dz, param.omg)
+            self._solve = obst3.make_obstacle_solver_fn_3d(
+                g.imax, g.jmax, g.kmax, g.dx, g.dy, g.dz, param.eps,
+                param.itermax, self.masks, self.dtype, n_inner=n_inner,
+                device=self.device)
+            self._flags = self._solve.flags
+            solver = f"sor masked checkerboard n_inner={n_inner}"
+        else:
+            if solver == "sor":
+                layout = resolve_layout_3d(g.imax, g.jmax, g.kmax,
+                                           param.tpu_sor_layout)
+                solver = f"sor {layout} n_inner={n_inner}"
+            self._solve = make_pressure_solve_3d(
+                g.imax, g.jmax, g.kmax, g.dx, g.dy, g.dz, param.omg,
+                param.eps, param.itermax, self.dtype, n_inner=n_inner,
+                solver=param.tpu_solver, layout=layout,
+                stall_rtol=param.tpu_mg_stall_rtol,
+                mg_fused=param.tpu_mg_fused, device=self.device)
         record("ns3d_step", f"pre -> {solver} -> post on {self.device.type}")
         self.phase_hook = None
         # the last pressure solve's residual and iteration (V-cycle) count
@@ -159,7 +182,8 @@ class NS3DSolver:
     def from_numpy_state(cls, param: Parameter, u, v, w, p, t, nt,
                          device="cuda"):
         """A solver whose state is the given fields and time (e.g. a JAX
-        solver's), cast to the configured dtype."""
+        solver's), cast to the configured dtype. Obstacle masks are
+        rebuilt from the param's geometry."""
         s = cls(param, device=device)
         for name, arr in (("u", u), ("v", v), ("w", w), ("p", p)):
             # a copy: the solver updates its fields in place
@@ -188,12 +212,13 @@ class NS3DSolver:
             dt = torch.full((), param.dt, dtype=self.dtype,
                             device=self.device)
         dt = clamped_dt(dt, self._dt_scale)
-        f, gg, h, rhs = ns3d_pre(self.u, self.v, self.w, dt, self._cfg)
+        f, gg, h, rhs = ns3d_pre(self.u, self.v, self.w, dt, self._cfg,
+                                 flags=self._flags)
         self._mark("solve")
         self.p, self.last_res, self.last_it = self._solve(self.p, rhs)
         self._mark("post")
         self._maxima = ns3d_post(self.u, self.v, self.w, f, gg, h, self.p,
-                                 dt, g.dx, g.dy, g.dz)
+                                 dt, g.dx, g.dy, g.dz, flags=self._flags)
         self._mark("end")
         dt_host = float(dt)
         self.t += dt_host

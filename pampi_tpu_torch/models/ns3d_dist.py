@@ -25,6 +25,15 @@ JAX package completes them and this module ports that solver.
   (`_step_chain`): depth-1 exchanges, the BCs gated by the global index,
   the F/G/H donor-edge shift (commShift) and the projection in plain
   torch.
+- Obstacle flag fields (ops/obstacle3d.py): the global masks are built
+  once and every shard cuts its own blocks from them. The octants are
+  not dispatched; the solve is make_dist_obstacle_solver_3d (kernel K16
+  per shard, one depth-2n exchange per n iterations, the residual
+  normalised by the fluid cells). The fused step feeds K7/K8 the shard's
+  deep flag block (PRE) and halo-1 one (POST); the chain applies the
+  obstacle velocity BC, mask_fgh and the masked projection on the
+  shard's masks, with one more exchange after the obstacle BC, as the
+  JAX package's chain does.
 
 On the CPU the same composition runs the kernels' plain versions. Every
 path keeps the single-device trajectory: the fields equal NS3DSolver's
@@ -38,6 +47,7 @@ import numpy as np
 import torch
 
 from ..ops import ns3d as ops
+from ..ops import obstacle3d as obst3
 from ..ops.ns3d_fused import StepConfig3D, ns3d_post, ns3d_pre
 from ..ops.sor3d import sor_coefficients_3d
 from ..parallel import comm as pc
@@ -49,6 +59,7 @@ from ..parallel.comm import (
     scatter_blocks,
 )
 from ..parallel.stencil2d import (
+    ca_clamp,
     ca_halo,
     ca_inner,
     ca_supported,
@@ -126,6 +137,14 @@ class NS3DDistSolver:
         self.param = param
         self.offs = [self.comm.offsets(s, self.local)
                      for s in range(self.comm.size)]
+        # obstacle flag fields: the global static masks, which every shard
+        # cuts its blocks from (check_supported leaves only sor here)
+        self.masks = None
+        if param.obstacles.strip():
+            self.masks = obst3.make_masks_3d(
+                obst3.build_fluid_3d(g.imax, g.jmax, g.kmax, g.dx, g.dy,
+                                     g.dz, param.obstacles),
+                g.dx, g.dy, g.dz, param.omg)
         inv_sqr_sum = 1.0 / g.dx**2 + 1.0 / g.dy**2 + 1.0 / g.dz**2
         self.dt_bound = 0.5 * param.re / inv_sqr_sum
         self.t = 0.0
@@ -151,9 +170,26 @@ class NS3DDistSolver:
         self._coef = sor_coefficients_3d(g.dx, g.dy, g.dz, param.omg)
         self._rb_o, self._og, self._n_o = od.octants_dispatch(
             param, g.kmax, g.jmax, g.imax, kl, jl, il, g.dx, g.dy, g.dz,
-            self.dtype, "ns3d_dist", dims=comm.dims)
+            self.dtype, "ns3d_dist", dims=comm.dims,
+            plain_sor=self.masks is None)
         if self._rb_o is None:
-            _dispatch.record("ns3d_dist", "jnp_ca")
+            _dispatch.record("ns3d_dist", "jnp_ca" if self.masks is None
+                             else "obstacle_jnp")
+        self._obs_solve = self._flags = self._local_masks = None
+        if self.masks is not None:
+            self._obs_solve, _ = obst3.make_dist_obstacle_solver_3d(
+                comm, g.imax, g.jmax, g.kmax, kl, jl, il, g.dx, g.dy, g.dz,
+                param.eps, param.itermax, self.masks, self.dtype,
+                _dispatch.sor_cadence(
+                    param, self.dtype, mesh=True,
+                    clamp=lambda n: ca_clamp(n, kl, jl, il)))
+            # the fused kernels' flag blocks: the deep block for PRE, the
+            # halo-1 block for POST (the JAX package's fused_flag_blocks)
+            self._flags = [
+                tuple(obst3.deep_flag_block_3d(self.masks, comm, s, kl, jl,
+                                               il, H, dev)
+                      for H in (FUSE_DEEP_HALO, 1))
+                for s, dev in enumerate(comm.devices)]
         # the grid-space CA path: block size, halo depth and masks
         self._ca_ok = ca_supported(kl, jl, il)
         self._n_ca = ca_inner(param, kl, jl, il) if self._ca_ok else 1
@@ -233,6 +269,8 @@ class NS3DDistSolver:
     def _solve(self, p, rhs):
         """The pressure solve on the halo-1 blocks; returns (p exchanged,
         res, it)."""
+        if self._obs_solve is not None:
+            return self._obs_solve(p, rhs)
         if self._rb_o is not None:
             return self._solve_octants(p, rhs)
         return self._solve_grid(p, rhs)
@@ -303,10 +341,12 @@ class NS3DDistSolver:
                 for x in (self.u, self.v, self.w)]
         dt = self._dt(*deep)
         dts = self._on_shards(dt)
+        flags = self._flags or [(None, None)] * comm.size
         f, gg, h, rhs = [], [], [], []
         for s in range(comm.size):
             out = ns3d_pre(deep[0][s], deep[1][s], deep[2][s], dts[s],
-                           self._cfg, self.offs[s], self.gext, H - 1)
+                           self._cfg, self.offs[s], self.gext, H - 1,
+                           flags=flags[s][0])
             for lst, a in zip((f, gg, h, rhs), out):
                 lst.append(a)
         u, v, w = ([strip_deep(b, H).contiguous() for b in x] for x in deep)
@@ -315,7 +355,7 @@ class NS3DDistSolver:
         self._mark("post")
         maxima = [ns3d_post(u[s], v[s], w[s], f[s], gg[s], h[s], self.p[s],
                             dts[s], g.dx, g.dy, g.dz, self.offs[s],
-                            self.gext)
+                            self.gext, flags=flags[s][1])
                   for s in range(comm.size)]
         self.last_maxima = tuple(reduction(list(m), comm, "max")
                                  for m in zip(*maxima))
@@ -346,6 +386,16 @@ class NS3DDistSolver:
                                               self.gext), v, w)
         for x in (self.u, self.v, self.w):
             pc.halo_exchange(x, comm)
+        lm = self._shard_masks()
+        if lm is not None:
+            # the obstacle BC reads the fully exchanged post-BC state; one
+            # more exchange refreshes what it wrote on interface ghosts
+            for s in range(comm.size):
+                self.u[s], self.v[s], self.w[s] = \
+                    obst3.apply_obstacle_velocity_bc_3d(
+                        self.u[s], self.v[s], self.w[s], lm[s])
+            for x in (self.u, self.v, self.w):
+                pc.halo_exchange(x, comm)
         f, gg, h = [], [], []
         for s in range(comm.size):
             u, v, w = self.u[s], self.v[s], self.w[s]
@@ -354,6 +404,8 @@ class NS3DDistSolver:
                                           cfg.gy, cfg.gz, cfg.gamma, g.dx,
                                           g.dy, g.dz),
                 u, v, w, *idx[s], self.gext)
+            if lm is not None:
+                fs, gs, hs = obst3.mask_fgh(fs, gs, hs, u, v, w, lm[s])
             f.append(fs)
             gg.append(gs)
             h.append(hs)
@@ -366,11 +418,23 @@ class NS3DDistSolver:
         self.p, self.last_res, self.last_it = self._solve(self.p, rhs)
         self._mark("post")
         for s in range(comm.size):
-            self.u[s], self.v[s], self.w[s] = ops.adapt_uvw(
-                self.u[s], self.v[s], self.w[s], f[s], gg[s], h[s],
-                self.p[s], dts[s], g.dx, g.dy, g.dz)
+            args = (self.u[s], self.v[s], self.w[s], f[s], gg[s], h[s],
+                    self.p[s], dts[s], g.dx, g.dy, g.dz)
+            self.u[s], self.v[s], self.w[s] = (
+                ops.adapt_uvw(*args) if lm is None
+                else obst3.adapt_uvw_obstacle(*args, lm[s]))
         self._mark("end")
         return dt
+
+    def _shard_masks(self):
+        """Every shard's masks (ops/obstacle3d.shard_masks_3d) as tensors
+        on its device, or None without obstacles."""
+        if self.masks is not None and self._local_masks is None:
+            self._local_masks = [
+                obst3.shard_masks_3d(self.masks, self.comm, s,
+                                     *self.local).to(self.dtype, dev)
+                for s, dev in enumerate(self.comm.devices)]
+        return self._local_masks
 
     def _step(self) -> None:
         dt = self._step_fused() if self._fused else self._step_chain()

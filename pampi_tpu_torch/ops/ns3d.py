@@ -385,20 +385,29 @@ def fgh_fixups_gated(f, g, h, u, v, w, gk, gj, gi, gext):
 
 
 def pre_gated(ud, vd, wd, dt, bcs, problem, re, gx, gy, gz, gamma, dx, dy,
-              dz, offs, gext, ext_pad: int):
+              dz, offs, gext, ext_pad: int, flags=None):
     """PRE on a shard's deep block (the plain version of K7's distributed
     mode): ud, vd, wd are (l+2+2e)-extended blocks (e = ext_pad >= 1) whose
     local index a is global a - e + offset. Returns (u', v', w') on the deep
     block after the wall and special BCs, and F, G, H, rhs on the shard's
     halo-1 block (l+2 per axis). F/G/H hold the predictor on the global
     interior and the wall fixups, zero elsewhere; rhs is set on the owned
-    global-interior cells. Inputs untouched."""
+    global-interior cells. With the deep block's uint8 `flags` (obstacle
+    flag fields) the obstacle velocity BC follows the special BC and F/G/H
+    carry U/V/W on non-fluid faces (ops/obstacle3d.py, with the block's
+    own faces). Inputs untouched."""
     if ext_pad < 1:
         raise ValueError("the gated PRE needs a deep block (ext_pad >= 1)")
     e = ext_pad
     gk, gj, gi = index_grids(ud.shape, e, offs, ud.device)
     u, v, w = apply_wall_bcs_3d_gated(ud, vd, wd, gk, gj, gi, bcs, gext)
     u = apply_special_bc_3d_gated(u, gk, gj, gi, problem, gext)
+    faces = None
+    if flags is not None:
+        from . import obstacle3d as obst3
+
+        faces = obst3.block_faces_3d(flags, gk, gj, gi, gext, ud.dtype)
+        u, v, w = obst3.apply_obstacle_velocity_bc_3d(u, v, w, faces)
     terms = fgh_predictor_terms(u, v, w, dt, re, gx, gy, gz, gamma, dx, dy,
                                 dz)
     # the halo-1 block: deep cells [e, L - e), interior terms [e-1, L-e-1)
@@ -412,6 +421,10 @@ def pre_gated(ud, vd, wd, dt, bcs, problem, re, gx, gy, gz, gamma, dx, dy,
         *(torch.where(interior, t[out], torch.zeros_like(a))
           for t, a in zip(terms, (uo, vo, wo))), uo, vo, wo, gk, gj, gi,
         gext)
+    if faces is not None:
+        f, g, h = obst3.mask_fgh(f, g, h, uo, vo, wo, obst3.Faces3D(
+            *(a[strip] for a in (faces.fluid, faces.u_face, faces.v_face,
+                                 faces.w_face))))
     rhs = torch.zeros_like(f)
     rhs[1:-1, 1:-1, 1:-1] = torch.where(
         interior[1:-1, 1:-1, 1:-1], rhs_terms_3d(f, g, h, dt, dx, dy, dz),
@@ -419,21 +432,36 @@ def pre_gated(ud, vd, wd, dt, bcs, problem, re, gx, gy, gz, gamma, dx, dy,
     return u, v, w, f, g, h, rhs
 
 
-def post_gated(u, v, w, f, g, h, p, dt, dx, dy, dz, offs, gext):
+def _high_neighbours(x):
+    """x's + neighbours along i, j, k, read as 0 beyond the block's high
+    edge."""
+    xp = torch.nn.functional.pad(x, (0, 1, 0, 1, 0, 1))
+    return (xp[:-1, :-1, 1:], xp[:-1, 1:, :-1], xp[1:, :-1, :-1])
+
+
+def post_gated(u, v, w, f, g, h, p, dt, dx, dy, dz, offs, gext, flags=None):
     """POST on a shard's halo-1 block (the plain version of K8's
     distributed mode): the projection on the cells of the global interior,
     ghost-ring cells included where they are interface ghosts, with p read
-    as 0 beyond the block's high edge; other cells keep u, v, w. Returns
-    (u'', v'', w'', max|u''|, max|v''|, max|w''|), the maxima over the
-    block. Inputs untouched."""
+    as 0 beyond the block's high edge; other cells keep u, v, w. With the
+    block's uint8 `flags` the projection is multiplied by the face masks,
+    a face fluid-fluid where the cell and its + neighbour are fluid (the
+    flags, like p, read as 0 beyond the high edge). Returns (u'', v'',
+    w'', max|u''|, max|v''|, max|w''|), the maxima over the block. Inputs
+    untouched."""
     gk, gj, gi = index_grids(u.shape, 0, offs, u.device)
     in_k, in_j, in_i = _interior(gk, gj, gi, gext)
     interior = in_k & in_j & in_i
-    pp = torch.nn.functional.pad(p, (0, 1, 0, 1, 0, 1))
-    nb = (pp[:-1, :-1, 1:], pp[:-1, 1:, :-1], pp[1:, :-1, :-1])
+    faces = (None,) * 3
+    if flags is not None:
+        fl = flags.to(u.dtype)
+        faces = tuple(fl * nb for nb in _high_neighbours(fl))
     out = []
-    for a, fa, pn, d in zip((u, v, w), (f, g, h), nb, (dx, dy, dz)):
+    for a, fa, pn, d, face in zip((u, v, w), (f, g, h), _high_neighbours(p),
+                                  (dx, dy, dz), faces):
         new = fa - (pn - p) * (dt / _const(d, dt))
+        if face is not None:
+            new = new * face
         out.append(torch.where(interior, new, a))
     return (*out, *(max_element(a) for a in out))
 

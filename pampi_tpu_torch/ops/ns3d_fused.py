@@ -1,6 +1,7 @@
 """Kernels K7 and K8: the NS-3D step phases around the pressure solve on
 the H100, each beside its plain PyTorch version (sources:
-pampi_tpu_torch/csrc/ns3d_fused.cu). No obstacles.
+pampi_tpu_torch/csrc/ns3d_fused.cu), with and without obstacle flag
+fields.
 
 K7 `ns3d_pre` replaces pampi_tpu/ops/ns3d_fused.py `_pre3_kernel`
   (make_fused_pre_3d, pallas_call at :778): (u, v, w, dt) -> (u', v', w',
@@ -32,8 +33,18 @@ that reduces them. dt stays on the device, so no launch waits for the host.
 The source note in ns3d_fused.cu gives the proof that the three wall
 launches reproduce the six ordered faces.
 
-For a CPU tensor each wrapper runs its plain version (ops/ns3d.py); for a
-CUDA tensor it launches its kernel or raises.
+The flag mode (`flags=`, a uint8 fluid field of the input block's shape:
+the TPU kernels' masked mode, fed the global flags on one device and, on
+a mesh, the shard's deep flag block for PRE and its halo-1 block for POST,
+as the JAX package's fused_flag_blocks): PRE applies the obstacle
+velocity BC after the walls and the special BC and makes F/G/H carry
+U/V/W on non-fluid faces (ops/obstacle3d.apply_obstacle_velocity_bc_3d,
+mask_fgh); POST projects on fluid-fluid faces only (adapt_uvw_obstacle).
+Its launches count on kernel entries of their own, `ns3d_pre_flags` and
+`ns3d_post_flags`.
+
+For a CPU tensor each wrapper runs its plain version (ops/ns3d.py,
+ops/obstacle3d.py); for a CUDA tensor it launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -45,18 +56,24 @@ import torch
 
 from ..kernels import build as kb
 from . import ns3d as ops
+from . import obstacle3d as obst3
 
 SOURCE = "pampi_tpu_torch/csrc/ns3d_fused.cu"
 NS3D_PRE = kb.register(
     "ns3d_pre", SOURCE, "pampi_tpu/ops/ns3d_fused.py:778")
 NS3D_POST = kb.register(
     "ns3d_post", SOURCE, "pampi_tpu/ops/ns3d_fused.py:880")
+NS3D_PRE_FLAGS = kb.register(
+    "ns3d_pre_flags", SOURCE, "pampi_tpu/ops/ns3d_fused.py:778")
+NS3D_POST_FLAGS = kb.register(
+    "ns3d_post_flags", SOURCE, "pampi_tpu/ops/ns3d_fused.py:880")
 
 _PROBLEM_CODE = {"dcavity": 1, "canal": 2}
 _V, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-_PRE_ARGS = [_I, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _I, _V, _V]
+_PRE_ARGS = [_I, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _I, _V, _V, _V,
+             _V, _V, _V]
 _POST_ARGS = [_I, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _D, _D, _D, _V, _V,
-              _V]
+              _V, _V]
 _SIGNATURES = {
     "ns3d_pre_f32": _PRE_ARGS, "ns3d_pre_f64": _PRE_ARGS,
     "ns3d_post_f32": _POST_ARGS, "ns3d_post_f64": _POST_ARGS,
@@ -149,36 +166,52 @@ def _mode(shape, offs, gext, ext_pad: int, deep: bool):
     return local, tuple(int(o) for o in offs), tuple(int(n) for n in gext)
 
 
+def _check_flags(flags, like) -> None:
+    if (flags.dtype != torch.uint8 or flags.device != like.device
+            or flags.shape != like.shape or not flags.is_contiguous()):
+        raise ValueError("flags must be contiguous uint8 of the fields' "
+                         "shape on their device")
+
+
 def ns3d_pre_plain(u, v, w, dt, cfg: StepConfig3D, offs=None, gext=None,
-                   ext_pad: int = 0):
+                   ext_pad: int = 0, flags=None):
     """K7's plain version: returns (u', v', w', F, G, H, rhs), inputs
     untouched; in the distributed mode u', v', w' are deep blocks and
-    F, G, H, rhs halo-1 blocks (ops/ns3d.pre_gated)."""
+    F, G, H, rhs halo-1 blocks (ops/ns3d.pre_gated). `flags` adds the
+    obstacle velocity BC and mask_fgh (ops/obstacle3d.py)."""
     if offs is not None:
         _mode(u.shape, offs, gext, ext_pad, True)
         return ops.pre_gated(u, v, w, dt, cfg.bcs, cfg.problem, cfg.re,
                              cfg.gx, cfg.gy, cfg.gz, cfg.gamma, cfg.dx,
-                             cfg.dy, cfg.dz, offs, gext, ext_pad)
+                             cfg.dy, cfg.dz, offs, gext, ext_pad, flags)
     u1, v1, w1 = ops.set_boundary_conditions_3d(u, v, w, cfg.bcs)
     u1 = ops.set_special_bc_3d(u1, cfg.problem)
+    if flags is not None:
+        faces = obst3.block_faces_3d(
+            flags, *ops.index_grids(u.shape, 0, (0, 0, 0), u.device),
+            tuple(n - 2 for n in u.shape), u.dtype)
+        u1, v1, w1 = obst3.apply_obstacle_velocity_bc_3d(u1, v1, w1, faces)
     f, g, h = ops.compute_fgh(u1, v1, w1, dt, cfg.re, cfg.gx, cfg.gy, cfg.gz,
                               cfg.gamma, cfg.dx, cfg.dy, cfg.dz)
+    if flags is not None:
+        f, g, h = obst3.mask_fgh(f, g, h, u1, v1, w1, faces)
     rhs = ops.compute_rhs(f, g, h, dt, cfg.dx, cfg.dy, cfg.dz)
     return u1, v1, w1, f, g, h, rhs
 
 
 def ns3d_pre(u, v, w, dt, cfg: StepConfig3D, offs=None, gext=None,
-             ext_pad: int = 0):
+             ext_pad: int = 0, flags=None):
     """K7: boundary conditions in place on u, v, w; returns (F, G, H, rhs).
     dt is a 0-dim tensor beside the fields. One device by default; with
     the shard's global offsets `offs` = (koff, joff, ioff), the global
     interior extents `gext` and `ext_pad` >= 1, u, v, w are the shard's
     deep blocks (local index a is global a - ext_pad + offset) and F, G,
-    H, rhs its halo-1 blocks."""
+    H, rhs its halo-1 blocks. `flags` (uint8 of u's shape) selects the
+    flag mode."""
     local, o, G = _mode(u.shape, offs, gext, ext_pad, True)
     if u.device.type == "cpu":
         u1, v1, w1, f, g, h, rhs = ns3d_pre_plain(u, v, w, dt, cfg, offs,
-                                                  gext, ext_pad)
+                                                  gext, ext_pad, flags)
         for a, b in ((u, u1), (v, v1), (w, w1)):
             a.copy_(b)
         return f, g, h, rhs
@@ -186,6 +219,10 @@ def ns3d_pre(u, v, w, dt, cfg: StepConfig3D, offs=None, gext=None,
     f, g, h, rhs = (u.new_empty(tuple(n + 2 for n in local))
                     for _ in range(4))
     _check((f, g, h, rhs), dt)
+    scratch = [None] * 3
+    if flags is not None:
+        _check_flags(flags, u)
+        scratch = [torch.empty_like(u) for _ in range(3)]
     bc = (ctypes.c_int * 6)(*cfg.bc)
     coef = (ctypes.c_double * 16)(*cfg.coefficients())
     lib = _lib()
@@ -195,38 +232,56 @@ def ns3d_pre(u, v, w, dt, cfg: StepConfig3D, offs=None, gext=None,
             dt.data_ptr(), f.data_ptr(), g.data_ptr(), h.data_ptr(),
             rhs.data_ptr(), (ctypes.c_int * 3)(*local),
             (ctypes.c_int * 7)(ext_pad, *o, *G), bc,
-            _PROBLEM_CODE.get(cfg.problem, 0), coef, kb.stream_of(u))
+            _PROBLEM_CODE.get(cfg.problem, 0), coef, _ptr(flags),
+            *(_ptr(a) for a in scratch), kb.stream_of(u))
     kb.check(lib, err, "ns3d_pre")
-    NS3D_PRE.launches += 1
+    (NS3D_PRE if flags is None else NS3D_PRE_FLAGS).launches += 1
     return f, g, h, rhs
 
 
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def ns3d_post_plain(u, v, w, f, g, h, p, dt, dx, dy, dz, offs=None,
-                    gext=None):
+                    gext=None, flags=None):
     """K8's plain version: returns (u'', v'', w'', max|u''|, max|v''|,
     max|w''|); in the distributed mode the gated projection of
-    ops/ns3d.post_gated on the shard's halo-1 blocks."""
+    ops/ns3d.post_gated on the shard's halo-1 blocks. `flags` restricts
+    the projection to fluid-fluid faces (ops/obstacle3d.
+    adapt_uvw_obstacle)."""
     if offs is not None:
         return ops.post_gated(u, v, w, f, g, h, p, dt, dx, dy, dz, offs,
-                              gext)
-    u2, v2, w2 = ops.adapt_uvw(u, v, w, f, g, h, p, dt, dx, dy, dz)
+                              gext, flags)
+    if flags is None:
+        u2, v2, w2 = ops.adapt_uvw(u, v, w, f, g, h, p, dt, dx, dy, dz)
+    else:
+        faces = obst3.block_faces_3d(
+            flags, *ops.index_grids(u.shape, 0, (0, 0, 0), u.device),
+            tuple(n - 2 for n in u.shape), u.dtype)
+        u2, v2, w2 = obst3.adapt_uvw_obstacle(u, v, w, f, g, h, p, dt, dx,
+                                              dy, dz, faces)
     return (u2, v2, w2, ops.max_element(u2), ops.max_element(v2),
             ops.max_element(w2))
 
 
-def ns3d_post(u, v, w, f, g, h, p, dt, dx, dy, dz, offs=None, gext=None):
+def ns3d_post(u, v, w, f, g, h, p, dt, dx, dy, dz, offs=None, gext=None,
+              flags=None):
     """K8: projection in place on u, v, w; returns (umax, vmax, wmax) as
     0-dim tensors on the fields' device. With the shard's global offsets
     and the global extents, the distributed mode on its halo-1 blocks
-    (the maxima are the shard's)."""
+    (the maxima are the shard's). `flags` (uint8 of u's shape) selects
+    the flag mode."""
     local, o, G = _mode(u.shape, offs, gext, 0, False)
     if u.device.type == "cpu":
         u2, v2, w2, *maxima = ns3d_post_plain(u, v, w, f, g, h, p, dt, dx,
-                                              dy, dz, offs, gext)
+                                              dy, dz, offs, gext, flags)
         for a, b in ((u, u2), (v, v2), (w, w2)):
             a.copy_(b)
         return tuple(maxima)
     _check((u, v, w, f, g, h, p), dt)
+    if flags is not None:
+        _check_flags(flags, u)
     lib = _lib()
     partial = torch.empty(lib.ns3d_post_partials(*local), dtype=u.dtype,
                           device=u.device)
@@ -236,8 +291,8 @@ def ns3d_post(u, v, w, f, g, h, p, dt, dx, dy, dz, offs=None, gext=None):
             u.device.index, u.data_ptr(), v.data_ptr(), w.data_ptr(),
             f.data_ptr(), g.data_ptr(), h.data_ptr(), p.data_ptr(),
             dt.data_ptr(), (ctypes.c_int * 3)(*local),
-            (ctypes.c_int * 6)(*o, *G), dx, dy, dz, partial.data_ptr(),
-            out.data_ptr(), kb.stream_of(u))
+            (ctypes.c_int * 6)(*o, *G), dx, dy, dz, _ptr(flags),
+            partial.data_ptr(), out.data_ptr(), kb.stream_of(u))
     kb.check(lib, err, "ns3d_post")
-    NS3D_POST.launches += 1
+    (NS3D_POST if flags is None else NS3D_POST_FLAGS).launches += 1
     return out[0], out[1], out[2]

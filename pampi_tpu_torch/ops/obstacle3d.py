@@ -1,0 +1,423 @@
+"""Flag-field obstacle cells for NS-3D (counterpart of
+pampi_tpu/ops/obstacle3d.py): axis-aligned boxes from the .par `obstacles`
+key ("x0,y0,z0,x1,y1,z1[;...]"), the static masks, the obstacle velocity
+BC, the masked F/G/H and projection, and the flag-masked pressure solve on
+one device and on a 3-D mesh.
+
+- velocity: normal components on faces touching an obstacle are zeroed;
+  tangential components on faces buried in obstacles mirror the nearest
+  fluid-fluid face (priority j± then k± for u, i± then k± for v, i± then
+  j± for w), so the interpolated wall velocity vanishes;
+- momentum: F/G/H carry U/V/W on non-fluid faces (`mask_fgh`), so the
+  RHS sees no flux across an obstacle wall and the projection
+  (`adapt_uvw_obstacle`) leaves those faces alone;
+- pressure: per-direction fluid coefficients eps_{e,w,n,s,b,f} in {0, 1}
+  in the Laplacian and in the relaxation factor omega/denom (homogeneous
+  Neumann on obstacle surfaces); the residual is normalised by the number
+  of fluid cells. On one device the solve runs the masked mode of kernel
+  K5 (ops/sor3d_kernels.py); on a mesh kernel K16 per shard
+  (ops/sor_obsdist3d.py), each on its plain version for CPU tensors.
+
+Obstacles must be at least 2 cells thick per axis. The masks are numpy
+float64 arrays, as the JAX package computes them on the host;
+`ObstacleMasks3D.to` moves them to a device in the field's dtype (the
+JAX package's cast). The pressure solve reads only the uint8 flags: its
+coefficients are formed from them (ops/sor3d_kernels.masked_stencil_3d),
+as the TPU kernels form them, so the JAX package's float64 host arrays of
+interior coefficients (eps_*, factor, p_mask) are not kept. Layout as in
+ops/ns3d.py: (kmax+2, jmax+2, imax+2) arrays [k, j, i]; u on east faces,
+v on north faces, w on back faces; the ghost shell counts as fluid.
+
+The JAX package's obstacle multigrid and its ragged-mesh obstacle solve
+are not ported (ROADMAP A items 3 and 5), and neither is its padded TPU
+layout (`pad_array_3d`, `padded_deep_exchange_3d`): the port exchanges
+the unpadded deep block (parallel/comm.halo_exchange).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..models._driver import mesh_convergence_loop
+from ..parallel import comm as pc
+from ..parallel.comm import CartComm
+from ..parallel.stencil2d import (
+    ca_clamp,
+    ca_supported,
+    embed_deep,
+    strip_deep,
+)
+from ..parallel.stencil3d import _owned_r2_3d, ca_masks_3d, neumann_masked_3d
+from ..utils import dispatch as _dispatch
+from ..utils.precision import check_eps_floor
+from .ns2d import _const
+from .sor3d_kernels import masked_stencil_3d, rb_sor3d_checkerboard
+from .sor_obsdist3d import ObsGeom3, rb_sor_obsdist3d
+
+
+def parse_obstacles_3d(spec: str) -> list[tuple[float, ...]]:
+    """Parse `obstacles` as 3-D boxes "x0,y0,z0,x1,y1,z1[;...]"."""
+    boxes = []
+    for part in (spec or "").split(";"):
+        part = part.strip()
+        if not part:
+            continue
+        vals = [float(v) for v in part.split(",")]
+        if len(vals) != 6:
+            raise ValueError(
+                f"3-D obstacle box needs 6 values x0,y0,z0,x1,y1,z1, "
+                f"got {part!r}"
+            )
+        x0, y0, z0, x1, y1, z1 = vals
+        boxes.append((
+            min(x0, x1), min(y0, y1), min(z0, z1),
+            max(x0, x1), max(y0, y1), max(z0, z1),
+        ))
+    return boxes
+
+
+def build_fluid_3d(imax, jmax, kmax, dx, dy, dz, spec: str) -> np.ndarray:
+    """Boolean fluid mask (kmax+2, jmax+2, imax+2), True = fluid: a cell is
+    an obstacle when its centre lies inside a box. The ghost shell is
+    always fluid (the domain walls belong to the wall BCs)."""
+    fluid = np.ones((kmax + 2, jmax + 2, imax + 2), dtype=bool)
+    x = (np.arange(imax + 2) - 0.5) * dx
+    y = (np.arange(jmax + 2) - 0.5) * dy
+    z = (np.arange(kmax + 2) - 0.5) * dz
+    for (x0, y0, z0, x1, y1, z1) in parse_obstacles_3d(spec):
+        inside = (
+            (x[None, None, :] > x0) & (x[None, None, :] < x1)
+            & (y[None, :, None] > y0) & (y[None, :, None] < y1)
+            & (z[:, None, None] > z0) & (z[:, None, None] < z1)
+        )
+        fluid &= ~inside
+    fluid[0], fluid[-1] = True, True
+    fluid[:, 0], fluid[:, -1] = True, True
+    fluid[:, :, 0], fluid[:, :, -1] = True, True
+    _validate_3d(fluid)
+    return fluid
+
+
+def _validate_3d(fluid: np.ndarray) -> None:
+    obs = ~fluid[1:-1, 1:-1, 1:-1]
+    thin_i = obs & fluid[1:-1, 1:-1, :-2] & fluid[1:-1, 1:-1, 2:]
+    thin_j = obs & fluid[1:-1, :-2, 1:-1] & fluid[1:-1, 2:, 1:-1]
+    thin_k = obs & fluid[:-2, 1:-1, 1:-1] & fluid[2:, 1:-1, 1:-1]
+    if thin_i.any() or thin_j.any() or thin_k.any():
+        raise ValueError(
+            "obstacle cells with fluid on two opposite sides (1-cell-thin "
+            "walls) are not representable; make obstacles >= 2 cells thick"
+        )
+
+
+_FULL = ("fluid", "u_face", "v_face", "w_face")
+
+
+@dataclass(frozen=True)
+class ObstacleMasks3D:
+    """The static masks of one geometry and grid on the (K+2, J+2, I+2)
+    array: numpy float64 from make_masks_3d, torch tensors after `to`."""
+
+    fluid: object   # 0/1 cell is fluid (the ghost shell is fluid)
+    u_face: object  # 1 where u[k, j, i] is a fluid-fluid face (i dir)
+    v_face: object  # (j dir)
+    w_face: object  # (k dir)
+    n_fluid: float  # interior fluid cells
+    omega: float
+
+    def to(self, dtype, device="cpu") -> "ObstacleMasks3D":
+        """The masks as tensors of `dtype` on `device` (the JAX package's
+        jnp.asarray(a, dtype) cast of the float64 host arrays)."""
+        return dataclasses.replace(self, **{
+            name: torch.from_numpy(np.ascontiguousarray(
+                getattr(self, name))).to(device=device, dtype=dtype)
+            for name in _FULL})
+
+    def flags(self, device="cpu") -> torch.Tensor:
+        """The fluid field as uint8 (1 byte a cell), the kernels' input."""
+        return torch.from_numpy(
+            np.ascontiguousarray(np.asarray(self.fluid) != 0).astype(
+                np.uint8)).to(device)
+
+
+def make_masks_3d(fluid_np: np.ndarray, dx, dy, dz,
+                  omega) -> ObstacleMasks3D:
+    """The masks of a boolean fluid field, in float64 numpy as the JAX
+    package computes them, including its fixes of the wrapping roll on
+    the last ghost column, row and plane (always a face: ghosts are
+    fluid). dx, dy, dz are the JAX signature's; the solve forms its
+    coefficients from the flags."""
+    f = np.asarray(fluid_np, dtype=bool)
+    u_face = f & np.roll(f, -1, axis=2)
+    u_face[:, :, -1] = True
+    v_face = f & np.roll(f, -1, axis=1)
+    v_face[:, -1, :] = True
+    w_face = f & np.roll(f, -1, axis=0)
+    w_face[-1, :, :] = True
+    return ObstacleMasks3D(
+        fluid=f.astype(np.float64), u_face=u_face.astype(np.float64),
+        v_face=v_face.astype(np.float64), w_face=w_face.astype(np.float64),
+        n_fluid=float(f[1:-1, 1:-1, 1:-1].sum()), omega=float(omega))
+
+
+@dataclass(frozen=True)
+class Faces3D:
+    """The fields the velocity BC, mask_fgh and the projection read: the
+    fluid field and the three face masks, on one block (ObstacleMasks3D
+    has the same four)."""
+
+    fluid: torch.Tensor
+    u_face: torch.Tensor
+    v_face: torch.Tensor
+    w_face: torch.Tensor
+
+
+def block_faces_3d(flags, gk, gj, gi, gext, dtype) -> Faces3D:
+    """The face masks of a block from its own uint8 flags: a face is
+    fluid-fluid where the cell and its + neighbour are fluid, the + read a
+    roll that wraps on the block, and the last global ghost plane of each
+    axis is forced to a face (make_masks_3d's fixes; the JAX window form
+    ns3d_fused._obstacle_faces_3d). (gk, gj, gi) are the cells' global
+    indices (ops/ns3d.index_grids), gext the global interior extents. On
+    the whole (K+2, J+2, I+2) array these are make_masks_3d's faces."""
+    K, J, I = gext
+    fl = flags.to(dtype)
+    one = torch.ones((), dtype=dtype, device=fl.device)
+    return Faces3D(
+        fl,
+        torch.where(gi == I + 1, one, fl * torch.roll(fl, -1, 2)),
+        torch.where(gj == J + 1, one, fl * torch.roll(fl, -1, 1)),
+        torch.where(gk == K + 1, one, fl * torch.roll(fl, -1, 0)))
+
+
+def _mirror(comp, both_obs, faces_and_vals):
+    """comp + both_obs · the first-hit mirror of the neighbouring
+    fluid-fluid faces, in priority order [(face_mask, value), ...]."""
+    one = torch.ones((), dtype=comp.dtype, device=comp.device)
+    acc = torch.zeros_like(comp)
+    remaining = torch.ones_like(comp)
+    for fm, val in faces_and_vals:
+        acc = acc + remaining * fm * (-val)
+        remaining = remaining * (one - fm)
+    return comp + both_obs * acc
+
+
+def apply_obstacle_velocity_bc_3d(u, v, w, m):
+    """No-slip on obstacle surfaces: zero the normal components on every
+    face touching an obstacle, then mirror the tangential ghosts from the
+    nearest fluid-fluid face. Every mirror reads its component as it is
+    after the zeroing (the JAX function is functional). `m` holds fluid,
+    u_face, v_face, w_face (ObstacleMasks3D.to or Faces3D). Returns new
+    tensors."""
+    one = torch.ones((), dtype=u.dtype, device=u.device)
+    r = torch.roll
+    u = u * m.u_face
+    v = v * m.v_face
+    w = w * m.w_face
+    both_u = (one - m.fluid) * (one - r(m.fluid, -1, 2))
+    u = _mirror(u, both_u, [
+        (r(m.u_face, -1, 1), r(u, -1, 1)),   # north (j+1)
+        (r(m.u_face, 1, 1), r(u, 1, 1)),     # south (j-1)
+        (r(m.u_face, -1, 0), r(u, -1, 0)),   # back  (k+1)
+        (r(m.u_face, 1, 0), r(u, 1, 0)),     # front (k-1)
+    ])
+    both_v = (one - m.fluid) * (one - r(m.fluid, -1, 1))
+    v = _mirror(v, both_v, [
+        (r(m.v_face, -1, 2), r(v, -1, 2)),   # east  (i+1)
+        (r(m.v_face, 1, 2), r(v, 1, 2)),     # west  (i-1)
+        (r(m.v_face, -1, 0), r(v, -1, 0)),   # back
+        (r(m.v_face, 1, 0), r(v, 1, 0)),     # front
+    ])
+    both_w = (one - m.fluid) * (one - r(m.fluid, -1, 0))
+    w = _mirror(w, both_w, [
+        (r(m.w_face, -1, 2), r(w, -1, 2)),   # east
+        (r(m.w_face, 1, 2), r(w, 1, 2)),     # west
+        (r(m.w_face, -1, 1), r(w, -1, 1)),   # north
+        (r(m.w_face, 1, 1), r(w, 1, 1)),     # south
+    ])
+    return u, v, w
+
+
+def mask_fgh(f, g, h, u, v, w, m):
+    """F/G/H carry U/V/W on every non-fluid face (the obstacle form of the
+    reference's wall fixups, solver.c:771-823). Returns new tensors."""
+    one = torch.ones((), dtype=f.dtype, device=f.device)
+    return (m.u_face * f + (one - m.u_face) * u,
+            m.v_face * g + (one - m.v_face) * v,
+            m.w_face * h + (one - m.w_face) * w)
+
+
+def adapt_uvw_obstacle(u, v, w, f, g, h, p, dt, dx, dy, dz, m):
+    """The projection restricted to fluid-fluid faces: interior cells get
+    the corrected velocity times their face mask, ghost cells keep u, v,
+    w. Returns new tensors."""
+    I = slice(1, -1)
+    out = []
+    for a, fa, face, d, nb in ((u, f, m.u_face, dx, p[I, I, 2:]),
+                               (v, g, m.v_face, dy, p[I, 2:, I]),
+                               (w, h, m.w_face, dz, p[2:, I, I])):
+        new = fa[I, I, I] - (nb - p[I, I, I]) * (dt / _const(d, dt))
+        a = a.clone()
+        a[I, I, I] = new * face[I, I, I]
+        out.append(a)
+    return tuple(out)
+
+
+# -- the pressure solve ------------------------------------------------------
+
+
+def make_obstacle_solver_fn_3d(imax, jmax, kmax, dx, dy, dz, eps, itermax,
+                               m: ObstacleMasks3D, dtype, n_inner: int = 1,
+                               *, device):
+    """The one-device obstacle pressure solve, solve(p, rhs) -> (p, res,
+    it): the masked mode of K5, n_inner iterations a call (its plain
+    version on the CPU), the residual Σr²/n_fluid checked against eps²
+    after every call (NS3DSolver passes the dtype's sor_cadence). The
+    relaxation factor is formed from the flags in the field's dtype, as
+    the TPU kernel forms it; the JAX package's jnp path takes a factor
+    made on the host in float64, which equals it at float64."""
+    from ..models.poisson import make_convergence_loop
+
+    if n_inner < 1:
+        raise ValueError(f"n_inner must be >= 1, got {n_inner}")
+    check_eps_floor(eps, int(m.n_fluid), dtype,
+                    f"sor_obstacle3d {imax}x{jmax}x{kmax}")
+    idx2, idy2, idz2 = 1.0 / (dx * dx), 1.0 / (dy * dy), 1.0 / (dz * dz)
+    flags = m.flags(device)
+
+    def step(p, rhs):
+        return rb_sor3d_checkerboard(p, rhs, n_inner, 0.0, idx2, idy2, idz2,
+                                     flags=flags, omega=m.omega)
+
+    def prep(x):
+        return x.contiguous()
+
+    solve = make_convergence_loop(step, prep, prep, n_inner, m.n_fluid, eps,
+                                  itermax, dtype)
+    solve.flags = flags
+    return solve
+
+
+# -- on a 3-D mesh -----------------------------------------------------------
+
+
+def shard_masks_3d(m: ObstacleMasks3D, comm: CartComm, s: int, kl: int,
+                   jl: int, il: int) -> ObstacleMasks3D:
+    """Shard s's view of the global masks on a mesh that divides the grid:
+    its halo-1 block, sliced at its offsets (no overhang: divisible
+    only)."""
+    k0, j0, i0 = comm.offsets(s, (kl, jl, il))
+    return dataclasses.replace(m, **{
+        name: np.asarray(getattr(m, name))[k0:k0 + kl + 2, j0:j0 + jl + 2,
+                                           i0:i0 + il + 2]
+        for name in _FULL})
+
+
+def deep_flag_block_3d(m: ObstacleMasks3D, comm: CartComm, s: int, kl: int,
+                       jl: int, il: int, H: int, device="cpu"):
+    """Shard s's (kl+2H, jl+2H, il+2H) deep block of the fluid flags, as
+    uint8: the global flags padded with H-1 dead (0) cells per side and
+    sliced at the shard's offsets (local index a is global
+    a - (H-1) + offset)."""
+    k0, j0, i0 = comm.offsets(s, (kl, jl, il))
+    wide = np.pad((np.asarray(m.fluid) != 0).astype(np.uint8), H - 1)
+    blk = wide[k0:k0 + kl + 2 * H, j0:j0 + jl + 2 * H, i0:i0 + il + 2 * H]
+    return torch.from_numpy(np.ascontiguousarray(blk)).to(device)
+
+
+def _flag_half_3d(p, rhs, upd, fac, lap):
+    """One flag-masked half-sweep on a halo-1 block, in place on p: the
+    cells of `upd` relax with the flags' coefficients (fac, lap:
+    sor3d_kernels.masked_stencil_3d). Returns r."""
+    inner = (slice(1, -1),) * 3
+    r = torch.where(upd, rhs[inner] - lap(p), torch.zeros_like(fac))
+    p[inner] = p[inner] - fac * r
+    return r
+
+
+def make_dist_obstacle_solver_3d(comm: CartComm, imax, jmax, kmax, kl, jl,
+                                 il, dx, dy, dz, eps, itermax,
+                                 m: ObstacleMasks3D, dtype, n: int,
+                                 record_key: str = "obstacle3d_dist"):
+    """The distributed flag-masked pressure solve on a mesh that divides
+    the grid, communication-avoiding: one depth-2n halo exchange buys n
+    exact red-black iterations, which kernel K16 runs on every shard's
+    deep block (ops/sor_obsdist3d.py; its plain version on CPU tensors).
+    The residual, normalised by the global fluid-cell count, is checked
+    every n iterations. `n` is the caller's cadence
+    (utils/dispatch.sor_cadence), clamped so that the deep strips come
+    from owned cells (ca_clamp). Shards below the CA's extents take the
+    exchange-per-half-sweep fallback, as the JAX package's do, with the
+    coefficients formed from their halo-1 flag blocks. The decision is
+    recorded under record_key with the JAX package's labels ("pallas caN",
+    "jnp_rb_fallback").
+
+    Returns (solve, used_kernel), the JAX package's shape: solve(p, rhs)
+    -> (p, res, it) on lists of halo-1 blocks (p exchanged on return: the
+    projection reads it across shard edges); used_kernel says whether K16
+    runs. solve.n, solve.geom, solve.flags and solve.offs give the
+    cadence, the shards' geometry, deep flag blocks and offsets (for
+    callers that time or check K16 at this solve's shapes)."""
+    check_eps_floor(eps, int(m.n_fluid), dtype,
+                    f"sor_dist_obstacle3d {imax}x{jmax}x{kmax}")
+    idx2, idy2, idz2 = 1.0 / (dx * dx), 1.0 / (dy * dy), 1.0 / (dz * dz)
+    local = (kl, jl, il)
+    offs = [comm.offsets(s, local) for s in range(comm.size)]
+    supported = ca_supported(kl, jl, il)
+    n = ca_clamp(n, kl, jl, il) if supported else 1
+    H = 2 * n if supported else 1
+
+    if supported:
+        geom = ObsGeom3(kmax, jmax, imax, kl, jl, il, n)
+        flags = [deep_flag_block_3d(m, comm, s, kl, jl, il, H, dev)
+                 for s, dev in enumerate(comm.devices)]
+        _dispatch.record(record_key, f"pallas ca{n}")
+
+        def rounds_for(pd, rd):
+            def rounds():
+                pc.halo_exchange(pd, comm, depth=H)
+                return [rb_sor_obsdist3d(x, f, fl, geom, o, m.omega, idx2,
+                                         idy2, idz2)
+                        for x, f, fl, o in zip(pd, rd, flags, offs)], n
+            return rounds
+    else:
+        geom = flags = None
+        _dispatch.record(record_key, "jnp_rb_fallback")
+        cms, sweeps = [], []
+        for s, dev in enumerate(comm.devices):
+            cms.append(ca_masks_3d(kl, jl, il, 1, kmax, jmax, imax,
+                                   torch.bool, *offs[s], device=dev))
+            fl = deep_flag_block_3d(m, comm, s, kl, jl, il, 1, dev)
+            fluid = fl[1:-1, 1:-1, 1:-1] != 0
+            sweeps.append((cms[-1]["odd"][1:-1, 1:-1, 1:-1] & fluid,
+                           cms[-1]["even"][1:-1, 1:-1, 1:-1] & fluid,
+                           *masked_stencil_3d(fl, dtype, m.omega, idx2,
+                                              idy2, idz2)))
+
+        def rounds_for(pd, rd):
+            def rounds():
+                pc.halo_exchange(pd, comm)
+                r_odd = [_flag_half_3d(x, f, odd, fac, lap)
+                         for x, f, (odd, _, fac, lap) in zip(pd, rd, sweeps)]
+                pc.halo_exchange(pd, comm)
+                r_evn = [_flag_half_3d(x, f, even, fac, lap)
+                         for x, f, (_, even, fac, lap) in zip(pd, rd, sweeps)]
+                pd[:] = [neumann_masked_3d(x, cm) for x, cm in zip(pd, cms)]
+                return [_owned_r2_3d(a, b, cm)
+                        for a, b, cm in zip(r_odd, r_evn, cms)], 1
+            return rounds
+
+    def solve(p, rhs):
+        pd = [embed_deep(x, H) for x in p]
+        rd = pc.halo_exchange([embed_deep(x, H) for x in rhs], comm, depth=H)
+        res, it = mesh_convergence_loop(rounds_for(pd, rd), comm, dtype,
+                                        m.n_fluid, eps, itermax)
+        p = [strip_deep(x, H).contiguous() for x in pd]
+        return pc.halo_exchange(p, comm), res, it
+
+    solve.n, solve.geom, solve.flags, solve.offs = n, geom, flags, offs
+    return solve, supported

@@ -9,6 +9,16 @@ K6 `rb_sor3d_octants` replaces pampi_tpu/ops/sor3d_pallas.py
   at :735): the same function on the stacked octants (8, K2, J2, I2) of
   pampi_tpu_torch/ops/sor_octants.py (even imax, jmax, kmax).
 
+K5's masked mode (`rb_sor3d_checkerboard(..., flags=, omega=)`) replaces
+  the masked mode of the same TPU kernel (_tblock3d_kernel(masked=True),
+  the NS-3D obstacle solve): a cell updates only where it is fluid, with
+  per-direction coefficients and the relaxation factor omega/denom formed
+  from uint8 flags (1 byte a cell) in the field's dtype, as
+  sor3d_pallas.masked_stencil_ops_3d forms them. Its launches count on
+  their own kernel entry, `rb_sor3d_checkerboard_masked`. Its residual is
+  summed in a fixed order (`ordered_r2_sum`) that the plain version
+  repeats, so the two agree bitwise, residual included.
+
 Each iteration is the odd-parity half-sweep, the even one, and the 6-face
 Neumann refresh. Both update p in place and return the sum of r² over both
 half-sweeps of the LAST of their n_inner iterations, as a 0-dim tensor on
@@ -41,6 +51,9 @@ RB_SOR3D_CHECKERBOARD = kb.register(
     "rb_sor3d_checkerboard", SOURCE, "pampi_tpu/ops/sor3d_pallas.py:388")
 RB_SOR3D_OCTANTS = kb.register(
     "rb_sor3d_octants", SOURCE, "pampi_tpu/ops/sor3d_pallas.py:735")
+RB_SOR3D_MASKED = kb.register(
+    "rb_sor3d_checkerboard_masked", SOURCE,
+    "pampi_tpu/ops/sor3d_pallas.py:388")
 
 _V, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _SOR_ARGS = [_I, _V, _V, _I, _I, _I, _I, _D, _D, _D, _D, _V, _V, _V]
@@ -50,6 +63,62 @@ _SIGNATURES = {
 }
 _SIGNATURES["rb_sor3d_checkerboard_partials"] = [_I, _I, _I]
 _SIGNATURES["rb_sor3d_octants_partials"] = [_I, _I, _I]
+_MASKED_ARGS = [_I, _V, _V, _V, _I, _I, _I, _I, _D, _D, _D, _D, _V, _V, _V,
+                _V]
+_SIGNATURES.update({f"rb_sor3d_masked_{t}": _MASKED_ARGS
+                    for t in ("f32", "f64")})
+FIN = 1024  # threads of the kernels' one-block final sum (sum_partials)
+
+
+def ordered_r2_sum(r2):
+    """The fixed-order sum of a (K', J', I') array of r² that masked K5 and
+    K16 take on the card: each (k, j) row summed from its first cell up,
+    then the rows, in row-major order, by one block of FIN threads (thread
+    t adds rows t, t + FIN, ... in turn, then a halving tree over the
+    threads). Returns a 0-dim tensor equal bit for bit to the kernels'."""
+    rows = torch.zeros(r2.shape[:-1], dtype=r2.dtype, device=r2.device)
+    for i in range(r2.shape[-1]):
+        rows = rows + r2[..., i]
+    flat = rows.reshape(-1)
+    m = max(1, -(-flat.numel() // FIN))
+    padded = torch.zeros(m * FIN, dtype=r2.dtype, device=r2.device)
+    padded[:flat.numel()] = flat
+    s = torch.zeros(FIN, dtype=r2.dtype, device=r2.device)
+    for r in range(m):
+        s = s + padded[r * FIN:(r + 1) * FIN]
+    st = FIN // 2
+    while st > 0:
+        s = s[:st] + s[st:2 * st]
+        st //= 2
+    return s[0]
+
+
+def masked_stencil_3d(flags, dtype, omega, idx2, idy2, idz2):
+    """(fac, lap) of the flag-masked stencil on the interior of a
+    (K'+2, J'+2, I'+2) block, from the six neighbours' flags (e, w, n, s,
+    b, f): fac = (denom > 0 ? omega/denom : 0)·flag and lap(x) the
+    eps-coefficient Laplacian on x's interior, in
+    sor3d_pallas.masked_stencil_ops_3d's operation order."""
+    fl = flags.to(dtype)
+    c = fl[1:-1, 1:-1, 1:-1]
+    eps = (fl[1:-1, 1:-1, 2:], fl[1:-1, 1:-1, :-2], fl[1:-1, 2:, 1:-1],
+           fl[1:-1, :-2, 1:-1], fl[2:, 1:-1, 1:-1], fl[:-2, 1:-1, 1:-1])
+    e, w, n, s, b, f = eps
+    denom = (e + w) * idx2 + (n + s) * idy2 + (b + f) * idz2
+    om = torch.full((), omega, dtype=dtype, device=fl.device)
+    zero = torch.zeros((), dtype=dtype, device=fl.device)
+    fac = torch.where(denom > 0, om / denom, zero) * c
+
+    def lap(x):
+        xc = x[1:-1, 1:-1, 1:-1]
+        return ((e * (x[1:-1, 1:-1, 2:] - xc) + w * (x[1:-1, 1:-1, :-2] - xc))
+                * idx2
+                + (n * (x[1:-1, 2:, 1:-1] - xc) + s * (x[1:-1, :-2, 1:-1] - xc))
+                * idy2
+                + (b * (x[2:, 1:-1, 1:-1] - xc) + f * (x[:-2, 1:-1, 1:-1] - xc))
+                * idz2)
+
+    return fac, lap
 
 
 def _launch(kernel, entry: str, p, rhs, dims, n_inner, factor, idx2, idy2,
@@ -80,9 +149,39 @@ def rb_sor3d_checkerboard_plain(p, rhs, n_inner, factor, idx2, idy2, idz2):
     return r0 + r1
 
 
-def rb_sor3d_checkerboard(p, rhs, n_inner, factor, idx2, idy2, idz2):
+def rb_sor3d_masked_plain(p, rhs, flags, n_inner, omega, idx2, idy2,
+                          idz2):
+    """K5's masked mode, plain: n_inner (odd, even, Neumann) iterations in
+    place on p, a cell updating only where it is interior, of the colour
+    and fluid. Returns Σr² of the last iteration in ordered_r2_sum's
+    order."""
+    kmax, jmax, imax = (n - 2 for n in p.shape)
+    fluid = flags[1:-1, 1:-1, 1:-1] != 0
+    odd = (checkerboard_mask_3d(kmax, jmax, imax, 1, torch.uint8, p.device)
+           != 0) & fluid
+    even = (checkerboard_mask_3d(kmax, jmax, imax, 0, torch.uint8, p.device)
+            != 0) & fluid
+    fac, lap = masked_stencil_3d(flags, p.dtype, omega, idx2, idy2, idz2)
+    zero = torch.zeros((), dtype=p.dtype, device=p.device)
+    rhs_c = rhs[1:-1, 1:-1, 1:-1]
+    r_odd = r_evn = None
+    for _ in range(n_inner):
+        r_odd = torch.where(odd, rhs_c - lap(p), zero)
+        p[1:-1, 1:-1, 1:-1] = p[1:-1, 1:-1, 1:-1] - fac * r_odd
+        r_evn = torch.where(even, rhs_c - lap(p), zero)
+        p[1:-1, 1:-1, 1:-1] = p[1:-1, 1:-1, 1:-1] - fac * r_evn
+        neumann_faces_3d(p)
+    return ordered_r2_sum(r_odd * r_odd + r_evn * r_evn)
+
+
+def rb_sor3d_checkerboard(p, rhs, n_inner, factor, idx2, idy2, idz2,
+                          flags=None, omega=None):
     """K5 on a (kmax+2, jmax+2, imax+2) p, in place. Returns Σr² of the
-    last iteration (0-dim tensor)."""
+    last iteration (0-dim tensor). With `flags` (uint8 of p's shape, 0 on
+    obstacle cells) the masked mode, which relaxes with `omega` (the
+    per-cell factor comes from the flags; `factor` is not read)."""
+    if flags is not None:
+        return _masked(p, rhs, flags, n_inner, omega, idx2, idy2, idz2)
     if p.device.type == "cpu":
         return rb_sor3d_checkerboard_plain(p, rhs, n_inner, factor, idx2,
                                            idy2, idz2)
@@ -92,6 +191,32 @@ def rb_sor3d_checkerboard(p, rhs, n_inner, factor, idx2, idy2, idz2):
     return _launch(RB_SOR3D_CHECKERBOARD, "rb_sor3d_checkerboard", p, rhs,
                    tuple(n - 2 for n in p.shape), n_inner, factor, idx2,
                    idy2, idz2)
+
+
+def _masked(p, rhs, flags, n_inner, omega, idx2, idy2, idz2):
+    if omega is None:
+        raise ValueError("the masked mode needs omega")
+    if p.device.type == "cpu":
+        return rb_sor3d_masked_plain(p, rhs, flags, n_inner, omega, idx2,
+                                     idy2, idz2)
+    _check(p, rhs, n_inner)
+    if (p.dim() != 3 or flags.dtype != torch.uint8
+            or flags.device != p.device or flags.shape != p.shape
+            or not flags.is_contiguous()):
+        raise ValueError("masked K5 needs a 3-D p and contiguous uint8 flags "
+                         "of its shape on its device")
+    K, J, I = (n - 2 for n in p.shape)
+    lib = kb.load("sor3d_rb", _SIGNATURES)
+    r2 = torch.empty((K, J, I), dtype=p.dtype, device=p.device)
+    rows = torch.empty((K, J), dtype=p.dtype, device=p.device)
+    out = torch.empty((), dtype=p.dtype, device=p.device)
+    err = getattr(lib, f"rb_sor3d_masked_{_SUFFIX[p.dtype]}")(
+        p.device.index, p.data_ptr(), rhs.data_ptr(), flags.data_ptr(), K, J,
+        I, n_inner, omega, idx2, idy2, idz2, r2.data_ptr(), rows.data_ptr(),
+        out.data_ptr(), kb.stream_of(p))
+    kb.check(lib, err, "rb_sor3d_masked")
+    RB_SOR3D_MASKED.launches += 1
+    return out
 
 
 def rb_sor3d_octants_plain(q, f, n_inner, factor, idx2, idy2, idz2):

@@ -118,12 +118,15 @@ def odist_clamp(n: int, kl: int, jl: int, il: int, dims=None) -> int:
 
 
 def octants_dispatch(param, kmax, jmax, imax, kl, jl, il, dx, dy, dz,
-                     dtype, record_key: str, dims=None):
+                     dtype, record_key: str, dims=None,
+                     plain_sor: bool = True):
     """The layout decision of the distributed NS-3D solver: whether the
     octant-layout path runs. Returns (rb_o, og, n_o), where rb_o(qoffs, xo,
     ro) runs K14 (or, on a CPU tensor, its plain version) on one shard;
-    rb_o is None when the caller should run its grid-space CA path. Raises
-    ValueError on a forced `tpu_sor_layout octants` that does not fit. The
+    rb_o is None when the caller should run its grid-space CA path, or,
+    with `plain_sor` False (obstacle flag fields), its own solve. Raises
+    ValueError on a forced `tpu_sor_layout octants` that does not fit or
+    has no plain SOR to run. The
     depth n is the dtype's utils/dispatch.sor_cadence, clamped by
     odist_clamp.
 
@@ -137,12 +140,12 @@ def octants_dispatch(param, kmax, jmax, imax, kl, jl, il, dx, dy, dz,
 
     layout = param.tpu_sor_layout
     osup = odist_supported(kmax, jmax, imax, kl, jl, il)
-    if layout == "octants" and not osup:
+    if layout == "octants" and not (osup and plain_sor):
         raise ValueError(
             "tpu_sor_layout octants needs even global and per-shard "
             "extents (>= 4) and the plain tpu_solver sor path"
         )
-    if not (osup and layout in ("auto", "octants")):
+    if not (plain_sor and osup and layout in ("auto", "octants")):
         return None, None, 0
     n_o = _dispatch.sor_cadence(
         param, dtype, mesh=True, forced=layout == "octants",

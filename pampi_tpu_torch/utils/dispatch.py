@@ -52,8 +52,9 @@ def resolve_solver(param, ragged: bool = False):
     """`tpu_solver auto` -> the solver for the run's structure, as the JAX
     package resolves it (pampi_tpu/utils/dispatch.py resolve_solver): a
     ragged distributed grid takes `sor`, a plain grid `fft` (the exact DCT
-    direct solve), an obstacle grid `mg` (obstacles themselves are refused
-    by check_supported, ROADMAP A.4). Every other value passes through. The
+    direct solve), an obstacle grid `mg` (which check_supported refuses
+    until obstacle multigrid is ported). Every other value passes
+    through. The
     decision is recorded under "solver_auto". Returns the param with a
     concrete solver; the models resolve through here first."""
     check_solver(param.tpu_solver)
@@ -148,7 +149,8 @@ def check_supported(param, mesh: bool = False, ragged: bool = False) -> None:
     """Raise NotImplementedError for every configuration outside the
     ported stacks, ValueError for a value no package takes. The port runs
     2-D and 3-D single device with the red-black SOR, multigrid and DCT
-    pressure solvers, and on a mesh (`tpu_mesh PJxPI`, `PKxPJxPI`) under
+    pressure solvers, 3-D obstacle flag fields under the SOR (on one
+    device and on a mesh that divides the grid), and on a mesh (`tpu_mesh PJxPI`, `PKxPJxPI`) under
     `tpu_solver sor` the distributed 2-D Poisson solve, the distributed
     NS-2D time stepper on a mesh that divides the grid or not (ragged),
     and the distributed NS-3D time stepper on a divisible grid. `param`
@@ -166,10 +168,7 @@ def check_supported(param, mesh: bool = False, ragged: bool = False) -> None:
         check_direct_dtype(torch.bfloat16)
     three_d = is_3d_config(param)
     if param.obstacles.strip():
-        raise NotImplementedError(
-            "3-D obstacle flag fields are not yet ported (ROADMAP A.4, A.6)"
-            if three_d else
-            "obstacle flag fields are not yet ported (ROADMAP A.4)")
+        _check_obstacles(param, three_d)
     dims = mesh_dims(param.tpu_mesh)
     if mesh or (dims is not None and math.prod(dims) > 1):
         _check_mesh(param, three_d, ragged)
@@ -185,6 +184,25 @@ def check_supported(param, mesh: bool = False, ragged: bool = False) -> None:
         raise NotImplementedError(
             "checkpoint, restart and ring recovery are not yet ported "
             "(ROADMAP A.9)")
+
+
+def _check_obstacles(param, three_d: bool) -> None:
+    """Obstacle flag fields: 3-D ones under `tpu_solver sor`, on one
+    device and on a mesh that divides the grid (the ragged refusal is
+    _check_mesh's); fft is refused with the JAX package's ValueError
+    (pampi_tpu/models/ns3d.py), mg (which `auto` resolves to on an
+    obstacle grid) until obstacle multigrid is ported."""
+    if not three_d:
+        raise NotImplementedError(
+            "2-D obstacle flag fields are not yet ported (ROADMAP A.4)")
+    if param.tpu_solver == "fft":
+        raise ValueError(
+            "tpu_solver fft cannot solve obstacle flag fields (the "
+            "stencil is not constant-coefficient); use sor or mg")
+    if param.tpu_solver == "mg":
+        raise NotImplementedError(
+            "tpu_solver mg with obstacle flag fields: obstacle multigrid "
+            "is not yet ported (ROADMAP A item 3); use tpu_solver sor")
 
 
 def _check_mesh(param, three_d: bool, ragged: bool) -> None:

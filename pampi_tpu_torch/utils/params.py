@@ -214,3 +214,15 @@ def print_parameter(p: Parameter, out=None) -> None:
     w("\tepsilon (stopping tolerance) : %f\n" % p.eps)
     w("\tgamma factor: %f\n" % p.gamma)
     w("\tomega (SOR relaxation): %f\n" % p.omg)
+
+
+def validate_obstacle_layout(layout: str) -> None:
+    """Obstacle flag fields run only on the masked checkerboard kernel:
+    reject a forced compressed layout instead of ignoring it (the JAX
+    package's validate_obstacle_layout, with its message)."""
+    if layout not in ("auto", "checkerboard"):
+        raise ValueError(
+            f"tpu_sor_layout {layout} does not support obstacle flag "
+            "fields; obstacle runs use the masked checkerboard kernel "
+            "(auto|checkerboard)"
+        )

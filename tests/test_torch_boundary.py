@@ -83,6 +83,12 @@ def test_import_and_solve_load_no_jax():
                             CartComm(ndims=2, dims=(2, 2),
                                      devices=[torch.device("cpu")]))
         d2.run_steps(2)
+        obstacle = Parameter(name="canal3d", imax=16, jmax=8, kmax=8,
+                             obstacles="0.2,0.2,0.2,0.6,0.6,0.6", itermax=5)
+        NS3DSolver(obstacle, device="cpu").run_steps(1)
+        NS3DDistSolver(obstacle, CartComm(ndims=3, dims=(2, 2, 2),
+                                          devices=[torch.device("cpu")])
+                       ).run_steps(1)
         print(it, s.nt, s3.nt, mg[0], fft[0], dist[0], d3.nt, d2.nt)
         print(sorted(m for m in sys.modules
                      if m.startswith("jax") or m.startswith("pampi_tpu")))
@@ -100,7 +106,8 @@ def test_import_and_solve_load_no_jax():
                 "parallel.quarters_dist", "parallel.stencil2d",
                 "ops.sor_odist", "parallel.octants_dist",
                 "parallel.stencil3d", "models.ns3d_dist", "ops.obstacle",
-                "ops.sor_obsdist", "parallel.ragged2d", "models.ns2d_dist"):
+                "ops.sor_obsdist", "parallel.ragged2d", "models.ns2d_dist",
+                "ops.obstacle3d", "ops.sor_obsdist3d"):
         assert f"pampi_tpu_torch.{mod}" in loaded
 
 
@@ -114,7 +121,8 @@ def test_port_sources_import_no_jax():
             PORT / "models" / "ns3d_dist.py",
             PORT / "models" / "ns2d_dist.py",
             PORT / "ops" / "sor_odist.py", PORT / "ops" / "sor_obsdist.py",
-            PORT / "ops" / "obstacle.py"} <= set(files)
+            PORT / "ops" / "obstacle.py", PORT / "ops" / "obstacle3d.py",
+            PORT / "ops" / "sor_obsdist3d.py"} <= set(files)
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
@@ -186,6 +194,7 @@ def test_kernel_registry():
         sor3d_kernels,
         sor_kernels,
         sor_obsdist,
+        sor_obsdist3d,
         sor_odist,
         sor_qdist,
     )
@@ -196,12 +205,15 @@ def test_kernel_registry():
                                "ns3d_pre", "ns3d_post",
                                "mg_down_2d", "mg_up_2d",
                                "mg_down_3d", "mg_up_3d", "rb_sor_qdist",
-                               "rb_sor_odist", "rb_sor_obsdist"}
+                               "rb_sor_odist", "rb_sor_obsdist",
+                               "rb_sor_obsdist3d",
+                               "rb_sor3d_checkerboard_masked",
+                               "ns3d_pre_flags", "ns3d_post_flags"}
     for k in kb.KERNELS.values():
         assert (ROOT / k.source).is_file()
         path, line = k.replaces.split(":")
         src = (ROOT / path).read_text().splitlines()
         assert "pl.pallas_call(" in src[int(line) - 1], k
     assert kb.sources() == ["mg_cycle", "ns2d_fused", "ns3d_fused",
-                            "sor3d_rb", "sor_obsdist", "sor_odist",
-                            "sor_qdist", "sor_rb"]
+                            "sor3d_rb", "sor_obsdist", "sor_obsdist3d",
+                            "sor_odist", "sor_qdist", "sor_rb"]

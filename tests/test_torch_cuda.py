@@ -10,9 +10,11 @@ contraction, only the r² sums are reduced in another order. The MG cycle
 kernels K9-K12 and the distributed quarter and octant kernels K13 and K14
 keep every operation of their plain versions, so their fields are held
 bitwise, and K14 on a one-shard mesh is K6, residual included; so is K15,
-the flag-masked per-shard kernel of the distributed NS-2D solve; an MG
-run on the card against the CPU, whose DCT bottom's matrix products sum in
-another order, to 1e-9."""
+the flag-masked per-shard kernel of the distributed NS-2D solve; masked
+K5 and K16 (3-D obstacles) sum their residual in an order their plain
+versions repeat, so they are held bitwise, residual included, and K16 on a
+one-shard mesh is masked K5; an MG run on the card against the CPU, whose
+DCT bottom's matrix products sum in another order, to 1e-9."""
 
 import numpy as np
 import pytest
@@ -511,3 +513,159 @@ def test_dist_ns2d_across_cards_matches_cpu(cuda):
     assert (card.nt, card.t) == (cpu.nt, cpu.t)
     for a, b in zip(card.fields(), cpu.fields()):
         assert np.array_equal(a, b)
+
+
+def _obstacle_flags(shape, cuda):
+    """uint8 flags of a (k, j, i)-extended grid with a box obstacle at least
+    two cells thick per axis (ghost shell fluid)."""
+    fluid = np.ones(shape, bool)
+    k, j, i = (n // 4 for n in shape)
+    fluid[k:2 * k + 2, j:2 * j + 2, i:2 * i + 2] = False
+    return torch.from_numpy(fluid.astype(np.uint8)).to(cuda)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(16, 24, 32), (15, 23, 31)])
+@pytest.mark.parametrize("n", [1, 4])
+def test_masked_k5_matches_plain(cuda, dtype, shape, n):
+    """K5's masked mode (obstacle flags), two calls: fields and the
+    residual bitwise (the residual's fixed order is the plain version's)."""
+    full = tuple(e + 2 for e in shape)
+    flags = _obstacle_flags(full, cuda)
+    coef = tuple(e * e for e in shape[::-1])  # idx2, idy2, idz2 of 1/e
+    x, f = _rand(full, dtype, cuda, 81), _rand(full, dtype, cuda, 82)
+    xk, xp = x.clone(), x.clone()
+    launches = sk3.RB_SOR3D_MASKED.launches
+    for _ in range(2):
+        rk = sk3.rb_sor3d_checkerboard(xk, f, n, 0.0, *coef, flags=flags,
+                                       omega=1.7)
+        rp = sk3.rb_sor3d_masked_plain(xp, f, flags, n, 1.7, *coef)
+    assert sk3.RB_SOR3D_MASKED.launches == launches + 2
+    assert torch.equal(xk, xp) and torch.equal(rk, rp)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [1, 2])
+def test_obsdist3d_kernel_matches_plain(cuda, dtype, n):
+    """K16 on every shard of 32x16x16 on (2, 2, 2) with a box obstacle's
+    deep flag blocks, two calls each: blocks and residuals bitwise."""
+    from pampi_tpu_torch.ops import obstacle3d as o3
+    from pampi_tpu_torch.ops import sor_obsdist3d as sod3
+
+    G, dims = (16, 16, 32), (2, 2, 2)
+    local = tuple(e // d for e, d in zip(G, dims))
+    dx, dy, dz = 8.0 / G[2], 4.0 / G[1], 4.0 / G[0]
+    m = o3.make_masks_3d(o3.build_fluid_3d(G[2], G[1], G[0], dx, dy, dz,
+                                           "3.0,1.5,1.5,5.0,2.5,2.5"),
+                         dx, dy, dz, 1.7)
+    comm = CartComm(ndims=3, dims=dims, devices=[cuda])
+    g = sod3.ObsGeom3(*G, *local, n)
+    coef = (1.7, 1 / dx**2, 1 / dy**2, 1 / dz**2)
+    for s in range(comm.size):
+        offs = comm.offsets(s, local)
+        fl = o3.deep_flag_block_3d(m, comm, s, *local, g.H, cuda)
+        x, f = (_rand(g.shape, dtype, cuda, 91 + 2 * s + k) for k in (0, 1))
+        xk, xp = x.clone(), x.clone()
+        for _ in range(2):
+            rk = sod3.rb_sor_obsdist3d(xk, f, fl, g, offs, *coef)
+            rp = sod3.rb_iters_obsdist3d_plain(xp, f, fl, g, offs, *coef)
+        assert torch.equal(xk, xp) and torch.equal(rk, rp)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_obsdist3d_on_one_shard_is_masked_k5(cuda, dtype):
+    """On a (1, 1, 1) mesh K16's deep block holds masked K5's array: the
+    same volume and residual, bitwise."""
+    from pampi_tpu_torch.ops import sor_obsdist3d as sod3
+    from pampi_tpu_torch.parallel.stencil2d import embed_deep, strip_deep
+
+    G, n = (12, 10, 14), 2
+    g = sod3.ObsGeom3(*G, *G, n)
+    full = tuple(e + 2 for e in G)
+    flags = _obstacle_flags(full, cuda)
+    deep = torch.nn.functional.pad(flags, (g.H - 1,) * 6).contiguous()
+    coef = (14.0**2, 10.0**2, 12.0**2)  # idx2, idy2, idz2 of 1/I, 1/J, 1/K
+    x, f = _rand(full, dtype, cuda, 101), _rand(full, dtype, cuda, 102)
+    x5, xd = x.clone(), embed_deep(x, g.H).contiguous()
+    fd = embed_deep(f, g.H).contiguous()
+    for _ in range(2):
+        r16 = sod3.rb_sor_obsdist3d(xd, fd, deep, g, (0, 0, 0), 1.7, *coef)
+        r5 = sk3.rb_sor3d_checkerboard(x5, f, n, 0.0, *coef, flags=flags,
+                                       omega=1.7)
+    assert torch.equal(strip_deep(xd, g.H), x5) and torch.equal(r16, r5)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("offs", [None, (0, 0, 0), (8, 8, 8), (16, 0, 16)])
+def test_ns3d_step_kernels_flag_mode_match_plain(cuda, dtype, offs):
+    """K7/K8 in flag mode, on one device (24³) and on 8³ shards of 24³
+    (the deep flag block for PRE, the halo-1 one for POST): u', v', w'
+    and the maxima bitwise, F/G/H/rhs and u'', v'', w'' to the
+    tolerance."""
+    G = (24, 24, 24)
+    param = Parameter(name="canal3d", imax=24, jmax=24, kmax=24, re=100.0,
+                      bcLeft=3, bcRight=3)
+    cfg = nf3.StepConfig3D.from_param(param)
+    fluid = _obstacle_flags((26, 26, 26), cuda).cpu().numpy()
+    dt = torch.tensor(0.013, dtype=dtype, device=cuda)
+    if offs is None:
+        flags = torch.from_numpy(fluid).to(cuda)
+        u, v, w, p = (_rand((26,) * 3, dtype, cuda, 111 + k)
+                      for k in range(4))
+        uk, vk, wk = u.clone(), v.clone(), w.clone()
+        fk = nf3.ns3d_pre(uk, vk, wk, dt, cfg, flags=flags)
+        plain = nf3.ns3d_pre_plain(u, v, w, dt, cfg, flags=flags)
+        halo1, post_in, pflags = (uk, vk, wk), plain[:3], flags
+        mode = {}
+    else:
+        deep, ext = (torch.from_numpy(np.ascontiguousarray(np.pad(
+            fluid, h - 1)[tuple(slice(o, o + 8 + 2 * h) for o in offs)]
+        )).to(cuda) for h in (3, 1))
+        u, v, w = (_rand((14,) * 3, dtype, cuda, 121 + k) for k in range(3))
+        p = _rand((10,) * 3, dtype, cuda, 124)
+        uk, vk, wk = u.clone(), v.clone(), w.clone()
+        fk = nf3.ns3d_pre(uk, vk, wk, dt, cfg, offs, G, 2, flags=deep)
+        plain = nf3.ns3d_pre_plain(u, v, w, dt, cfg, offs, G, 2, flags=deep)
+        strip = (slice(2, -2),) * 3
+        halo1 = [a[strip].contiguous() for a in (uk, vk, wk)]
+        post_in = [a[strip] for a in plain[:3]]
+        pflags, mode = ext, dict(offs=offs, gext=G)
+    for a, b in zip((uk, vk, wk), plain[:3]):
+        assert torch.equal(a, b)
+    for a, b in zip(fk, plain[3:]):
+        _assert_close(a, b, dtype)
+    launches = nf3.NS3D_POST_FLAGS.launches
+    mk = nf3.ns3d_post(*halo1, *fk[:3], p, dt, cfg.dx, cfg.dy, cfg.dz,
+                       flags=pflags, **mode)
+    mp = nf3.ns3d_post_plain(*post_in, *plain[3:6], p, dt, cfg.dx, cfg.dy,
+                             cfg.dz, flags=pflags, **mode)
+    assert nf3.NS3D_POST_FLAGS.launches == launches + 1
+    for a, b in zip(halo1, mp[:3]):
+        _assert_close(a, b, dtype)
+    for m, a in zip(mk, halo1):
+        assert torch.equal(m, a.abs().max())
+
+
+def test_obstacle_ns3d_on_card_matches_cpu(cuda):
+    """configs/canal3d_obstacle.par cut to 32x8x8 (te 0.3, f64) on the card
+    and on the CPU, one device and (2, 2, 2): the same steps and fields
+    within 1e-12."""
+    import pathlib
+
+    from pampi_tpu_torch.utils.params import read_parameter
+
+    root = pathlib.Path(__file__).resolve().parent.parent
+    param = read_parameter(str(root / "configs" / "canal3d_obstacle.par")
+                           ).replace(
+        imax=32, jmax=8, kmax=8, te=0.3, itermax=60)
+    runs = [NS3DSolver(param, device=d) for d in ("cuda", "cpu")]
+    runs += [NS3DDistSolver(param, CartComm(ndims=3, dims=(2, 2, 2),
+                                            devices=[d]))
+             for d in (cuda, torch.device("cpu"))]
+    for s in runs:
+        s.run(progress=False)
+    ref = runs[1].collect()
+    for s in runs:
+        assert s.nt == runs[1].nt
+        for a, b in zip(s.collect(), ref):
+            assert np.abs(a - b).max() <= 1e-12

@@ -192,13 +192,16 @@ def test_canal3d_fixture_on_a_mesh():
 def test_refusals():
     """What the distributed NS-3D slice does not run raises, naming the
     ROADMAP item (or, for a forced octant layout on odd shards, the JAX
-    package's ValueError)."""
+    package's ValueError). Obstacles run under sor on a divisible mesh;
+    with mg, or on a ragged mesh, they stay refused."""
     base = _port_param(_jparam())
+    box = "0.2,0.2,0.2,0.6,0.6,0.6"
     for kw, mesh in ((dict(imax=18), (1, 1, 4)),  # ragged
                      (dict(tpu_solver="mg"), (2, 2, 2)),
                      (dict(tpu_solver="fft"), (2, 2, 2)),
                      (dict(tpu_solver="auto"), (2, 2, 2)),  # takes fft
-                     (dict(obstacles="0.2,0.2,0.2,0.4,0.4,0.4"), (2, 2, 2)),
+                     (dict(obstacles=box, tpu_solver="mg"), (2, 2, 2)),
+                     (dict(obstacles=box, imax=18), (1, 1, 4)),  # ragged
                      (dict(tpu_overlap="on"), (2, 2, 2)),
                      (dict(tpu_exchange_depth="1"), (2, 2, 2)),
                      (dict(tpu_itermax_adaptive=4), (2, 2, 2))):
