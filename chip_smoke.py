@@ -169,6 +169,34 @@ flag-field masks) adds:
    same steps and t; and cut to te 0.5 (binary VTK) on the card against
    the CPU (its own process): 1e-9 of scale, the same steps.
 
+The 2-D obstacle slice (configs/canal_obstacle.par: a box in a 16x4
+channel, flag-field masks) and K17 add:
+
+2. the masked mode of K2 (float32 and float64, n = 1 and 4, two calls),
+   K3/K4 in flag mode on one device, K15 on the real flags and K3/K4's
+   distributed flag mode on every shard of 2x2 and the ragged 3x2, all on
+   the box scaled onto 1024x256 and 1023x257; K17 on 1024² and 1023x1021
+   against its plain version and against K2 at n_inner 1. Fields, copies,
+   maxima and the residuals of masked K2 and K17 bitwise (K15's residual
+   and K3/K4's F/G/rhs are also held to the tolerance);
+3. masked K2 (n = 4, and n = 1 for the residual sum's fixed cost) and
+   K3/K4 in flag mode at 8192x2048 float32 (the box 512x512 cells), K17
+   at 4096², K15 per 4096x1024 shard of 8192x2048 on 2x2 on the real
+   flags (n = 4), beside their bounds;
+4. canal_obstacle.par's geometry at 8192x2048 float32 (re 100,
+   tpu_sor_inner 4, itermax 100, eps 0), 16 steps after one warm-up,
+   through NS2DSolver and NS2DDistSolver on 2x2 (one card): the split,
+   the exchanges' share, the launches (no K1, K13 or unmasked K2/K3/K4),
+   the mesh fields against one device (1e-5 of scale, 0.0 expected),
+   then K15 and K3/K4 on that run's own shards; Poisson 4096² float32
+   through make_rb_step_padded, kernel "blocked" (K17) and "fused" (K2 at
+   n_inner 1), 400 iterations each: fields bitwise;
+5. `python -m pampi_tpu_torch configs/canal_obstacle.par` at te 0.5 on
+   the card on one device, and with tpu_mesh 2x2 and 3x2 and on the CPU in
+   processes of their own (`--cli2-child`): fields 1e-9 of scale from the
+   one-card run, the same steps (and t on the card); and
+   configs/canal_obstacle2048.par at te 0.1 on one card.
+
 It then prints the kernels line (JSON; K5-K8 and K11/K12 at 256³, where a
 field outgrows the L2 and the bound is a floor, with their 128³ numbers
 under main_shape_* keys and the distributed modes of K3/K4 and K7/K8
@@ -1311,7 +1339,7 @@ def stop_procs():
         if proc.poll() is None:
             proc.kill()
             proc.wait()
-    for files in (DCAVITY_CPU, OBST_RUNS):
+    for files in (DCAVITY_CPU, OBST_RUNS, OBST2_RUNS):
         if "tmp" in files:
             shutil.rmtree(files.pop("tmp"), ignore_errors=True)
 
@@ -2282,26 +2310,28 @@ def check_obsdist(torch, np, solve, param, dtype, seed, calls=2):
     return bitwise, er, err
 
 
-def step2d_shard(torch, cfg, offs, G, u, v, p, dt, ragged):
+def step2d_shard(torch, cfg, offs, G, u, v, p, dt, ragged,
+                 flags=(None, None)):
     """K3 on copies of one shard's deep blocks u, v, then K4 on the
     stripped halo-1 blocks, each against its plain version on the same
-    inputs. Returns (copies and maxima bitwise, every output bitwise,
+    inputs (`flags`: the shard's deep and halo-1 flag blocks, the flag
+    mode). Returns (copies and maxima bitwise, every output bitwise,
     F/G/rhs and u''/v'' max_rel_err, max_abs_err, K3's F/G/rhs, the
     halo-1 u/v K4 read)."""
     from pampi_tpu_torch.ops import ns2d as ops2
     from pampi_tpu_torch.ops import ns2d_fused as nf
 
     uk, vk = u.clone(), v.clone()
-    fk = nf.ns2d_pre(uk, vk, dt, cfg, offs, G, 2)
-    pl = nf.ns2d_pre_plain(u, v, dt, cfg, offs, G, 2)
+    fk = nf.ns2d_pre(uk, vk, dt, cfg, offs, G, 2, flags[0])
+    pl = nf.ns2d_pre_plain(u, v, dt, cfg, offs, G, 2, flags[0])
     exact = torch.equal(uk, pl[0]) and torch.equal(vk, pl[1])
     strip = (slice(2, -2),) * 2
     h1 = [a[strip].contiguous() for a in (uk, vk)]
     post = [a.clone() for a in h1]
     mk = nf.ns2d_post(*post, *fk[:2], p, dt, cfg.dx, cfg.dy, offs, G,
-                      ragged)
+                      ragged, flags[1])
     mp = nf.ns2d_post_plain(*(a[strip] for a in pl[:2]), *pl[2:4], p, dt,
-                            cfg.dx, cfg.dy, offs, G, ragged)
+                            cfg.dx, cfg.dy, offs, G, ragged, flags[1])
     gj, gi = ops2.index_grids_2d(p.shape, 0, offs, p.device)
     valid = (gj <= G[0] + 1) & (gi <= G[1] + 1)
     exact = exact and all(
@@ -2421,14 +2451,16 @@ def time_dist2d(torch, np):
     nsh = len(solve.offs)
     ms = cuda_ms(torch, shards(sod.rb_sor_obsdist), 20) / nsh
     pms = cuda_ms(torch, shards(sod.rb_iters_obsdist_plain), 2) / nsh
-    cells = g.shape[0] * g.shape[1]
-    # per shard call: p, rhs (4 bytes) and the flags (1) read once, p
-    # written once; ~20 flops per cell update
-    b = bound(cells * (3 * size + 1), 20 * g.n * g.jl * g.il)
+    # per shard call: p, rhs (4 bytes) and the flags (1) of the cells K15
+    # reads, read once, p written once (the mean over the three shards,
+    # whose times are averaged); ~20 flops per cell update
+    read = sum(k15_read_cells(g, o) for o in solve.offs) / nsh
+    b = bound(read * (3 * size + 1), 20 * g.n * g.jl * g.il)
     rows = {"rb_sor_obsdist": dict(
         max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1],
         shape=f"{g.jl}x{g.il} shard of 4096x4096 on 3x1 (deep "
-              f"{g.shape[0]}x{g.shape[1]}), n={g.n}")}
+              f"{g.shape[0]}x{g.shape[1]}), n={g.n}, {read:.0f} cells "
+              f"read a shard")}
     log(f"rb_sor_obsdist 4096² f32 on 3x1: {ms:.4f} ms per shard call "
         f"(plain {pms:.4f}, bound {b[0]:.4f} by {b[1]}), the three shards "
         f"on one card")
@@ -2925,15 +2957,28 @@ def check_obsdist3d(torch, np, solve, param, dtype, seed, calls=2):
     return bitwise, rbits, err
 
 
-def k16_read_cells(g, offs):
-    """The cells of a deep block that K16 reads: the owned cells, H layers
-    on each side that faces another shard and the one global ghost layer
-    on each wall side (the dead padding beyond a wall's ghost layer is
-    neither loaded nor written)."""
+def deep_read_cells(glob, local, offs, H):
+    """The cells of a deep block that the per-shard flag-masked kernels
+    (K15, K16) read: the owned cells, H layers on each side that faces
+    another shard and the one global ghost layer on each wall side (the
+    dead padding beyond a wall's ghost layer, and a ragged shard's
+    overhang beyond the global grid, are neither loaded nor written)."""
     cells = 1
-    for G, n, o in zip((g.kmax, g.jmax, g.imax), (g.kl, g.jl, g.il), offs):
-        cells *= n + (1 if o == 0 else g.H) + (1 if o + n == G else g.H)
+    for G, n, o in zip(glob, local, offs):
+        own = min(n, G - o)
+        cells *= own + (1 if o == 0 else H) + (1 if o + own == G else H)
     return cells
+
+
+def k15_read_cells(g, offs):
+    """deep_read_cells of K15's 2-D geometry g at offsets offs."""
+    return deep_read_cells((g.jmax, g.imax), (g.jl, g.il), offs, g.H)
+
+
+def k16_read_cells(g, offs):
+    """deep_read_cells of K16's 3-D geometry g at offsets offs."""
+    return deep_read_cells((g.kmax, g.jmax, g.imax), (g.kl, g.jl, g.il),
+                           offs, g.H)
 
 
 @phase("obstacle kernels vs plain versions: masked K5, K16, K7/K8 in flag "
@@ -3219,17 +3264,32 @@ def main_path_obstacle3d(torch):
     return counts
 
 
-def run_cli3(par, device):
-    """The CLI on an NS-3D .par in the current directory, with the launch
-    counts set to 0 before it: (rc, seconds, counts, what the run wrote:
-    the cell-centred fields, nt, t, the dispatch record)."""
+def run_cli_ns(par, device, ndim):
+    """The CLI on an NS-2D (ndim 2) or NS-3D (ndim 3) .par in the current
+    directory, with the launch counts set to 0 before it: (rc, seconds,
+    counts, what the run wrote: the fields at full precision (NS-3D the
+    cell-centred ug, vg, wg, pg; NS-2D the global u, v, p), nt, t, the
+    dispatch record)."""
     import io
 
     from pampi_tpu_torch import cli
     from pampi_tpu_torch.kernels import build as kb
-    from pampi_tpu_torch.models.ns3d import NS3DSolver
-    from pampi_tpu_torch.models.ns3d_dist import NS3DDistSolver
     from pampi_tpu_torch.utils import dispatch
+
+    if ndim == 3:
+        from pampi_tpu_torch.models.ns3d import NS3DSolver as One
+        from pampi_tpu_torch.models.ns3d_dist import NS3DDistSolver as Dist
+
+        def fields(s):
+            return dict(zip(("ug", "vg", "wg", "pg"), s.collect()))
+    else:
+        from pampi_tpu_torch.models.ns2d import NS2DSolver as One
+        from pampi_tpu_torch.models.ns2d_dist import NS2DDistSolver as Dist
+
+        def fields(s):
+            if isinstance(s, Dist):
+                return s.global_fields()
+            return {k: getattr(s, k).cpu().numpy() for k in "uvp"}
 
     got = {}
 
@@ -3237,8 +3297,7 @@ def run_cli3(par, device):
         write = cls.write_result
 
         def record(self, *a, **kw):
-            got.update(zip(("ug", "vg", "wg", "pg"), self.collect()),
-                       nt=self.nt, t=self.t,
+            got.update(fields(self), nt=self.nt, t=self.t,
                        record=json.dumps(dispatch.snapshot()))
             return write(self, *a, **kw)
 
@@ -3246,21 +3305,21 @@ def run_cli3(par, device):
 
     kb.reset_launches()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(io.StringIO()), recorder(NS3DSolver), \
-            recorder(NS3DDistSolver):
+    with contextlib.redirect_stdout(io.StringIO()), recorder(One), \
+            recorder(Dist):
         rc = cli.main(["pampi_tpu_torch", "--device", device, par])
     secs = time.perf_counter() - t0
     return rc, secs, {k: v.launches for k, v in kb.KERNELS.items()}, got
 
 
-def cli3_child(par, out, device):
-    """`chip_smoke.py --cli3-child <par> <out.npz> <device>`: run_cli3 in
-    the .par's directory, saved to out."""
+def cli_ns_child(ndim, par, out, device):
+    """`chip_smoke.py --cli3-child|--cli2-child <par> <out.npz> <device>`:
+    run_cli_ns in the .par's directory, saved to out."""
     import numpy as np
 
     sys.path.insert(0, ROOT)
     os.chdir(os.path.dirname(os.path.abspath(par)))
-    rc, secs, counts, got = run_cli3(par, device)
+    rc, secs, counts, got = run_cli_ns(par, device, ndim)
     np.savez(out, rc=rc, secs=secs, counts=json.dumps(counts), **got)
     return rc
 
@@ -3268,17 +3327,23 @@ def cli3_child(par, out, device):
 OBST_RUNS = {}
 
 
-def obstacle_par(te, **keys):
-    """configs/canal3d_obstacle.par's text with te and the given keys set
-    (a key the file lacks is appended)."""
+def config_text(name, **keys):
+    """configs/<name>'s text with the given keys set (a key the file lacks
+    is appended)."""
     import re
 
-    text = open(os.path.join(ROOT, "configs", "canal3d_obstacle.par")).read()
-    for key, val in dict(te=te, **keys).items():
+    text = open(os.path.join(ROOT, "configs", name)).read()
+    for key, val in keys.items():
         text, n = re.subn(rf"^{key}\s.*$", f"{key} {val}", text, flags=re.M)
         if n == 0:
             text += f"\n{key} {val}\n"
     return text
+
+
+def obstacle_par(te, **keys):
+    """configs/canal3d_obstacle.par's text with te and the given keys
+    set."""
+    return config_text("canal3d_obstacle.par", te=te, **keys)
 
 
 @phase("configs/canal3d_obstacle.par: the 2x2x2 card run and the CPU run "
@@ -3333,7 +3398,7 @@ def obstacle3d_cli(np):
             c, (rc, secs, _c, got) = drive_path(
                 kb, f"canal3d_obstacle.par {name} CLI",
                 ("rb_sor3d_checkerboard_masked",) + OBST_PATH,
-                lambda: run_cli3(par, "cuda"))
+                lambda: run_cli_ns(par, "cuda", 3))
         finally:
             os.chdir(cwd)
         check_not_launched(c, f"the {name} CLI run")
@@ -3398,6 +3463,551 @@ def obstacle3d_cli(np):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# The 2-D obstacle slice: the masked mode of K2, K17 (B.5), the flag mode of
+# K3/K4 on one device and on a mesh, K15 on real flags
+# ---------------------------------------------------------------------------
+
+OBST2_MAIN = (2048, 8192)  # the main path's grid (jmax, imax): box 512x512
+OBST2_CHECK = ((256, 1024), (257, 1023))
+K17_MAIN = (4096, 4096)
+K17_CHECK = ((1024, 1024), (1021, 1023))
+OBST2_PATH = ("ns2d_pre_flags", "ns2d_post_flags")
+NOT_ON_OBSTACLE2D_PATHS = ("rb_sor_quarters", "rb_sor_checkerboard",
+                           "rb_sor_qdist", "ns2d_pre", "ns2d_post")
+
+
+def obstacle2d_config(jmax, imax, **kw):
+    """configs/canal_obstacle.par on a jmax x imax grid (its box stays
+    where it is in physical coordinates)."""
+    return config("canal_obstacle.par", imax=imax, jmax=jmax, **kw)
+
+
+def obstacle2d_flags(param):
+    """The uint8 fluid flags of param's grid and box, on the card."""
+    from pampi_tpu_torch.ops import obstacle as obst
+
+    dx, dy = param.xlength / param.imax, param.ylength / param.jmax
+    return obst.make_masks(
+        obst.build_fluid(param.imax, param.jmax, dx, dy, param.obstacles),
+        dx, dy, param.omg).flags("cuda")
+
+
+def inverse_squares_2d(param):
+    """(idx2, idy2) of param's grid."""
+    return tuple(1.0 / (d * d) for d in (param.xlength / param.imax,
+                                         param.ylength / param.jmax))
+
+
+def check_masked_k2(torch, np, param, flags, dtype, n, seed, calls=2):
+    """Masked K2 and its plain version on copies of random p, rhs, `calls`
+    calls each. Returns (fields bitwise, residuals bitwise, max_abs_err)."""
+    from pampi_tpu_torch.ops import sor_kernels as sk
+
+    c = inverse_squares_2d(param)
+    x, f = rng_fields(torch, np, tuple(flags.shape), dtype, 2, seed)
+    xk, xp = x.clone(), x.clone()
+    for _ in range(calls):
+        rk = sk.rb_sor_checkerboard(xk, f, n, 0.0, *c, flags=flags,
+                                    omega=param.omg)
+        rp = sk.rb_sor_masked_plain(xp, f, flags, n, param.omg, *c)
+    return (torch.equal(xk, xp), torch.equal(rk, rp),
+            float((xk - xp).abs().max()))
+
+
+def check_k17(torch, np, shape, dtype, seed, calls=2):
+    """K17 against its plain version and against K2 at n_inner 1, on
+    copies of random p, rhs of a (jmax, imax) grid, `calls` calls each.
+    Returns (fields bitwise vs plain, residuals bitwise, fields bitwise vs
+    K2, max_abs_err)."""
+    from pampi_tpu_torch.ops import sor_kernels as sk
+
+    jmax, imax = shape
+    coef = sk.sor_coefficients(1.0 / imax, 1.0 / jmax, 1.9)
+    x, f = rng_fields(torch, np, (jmax + 2, imax + 2), dtype, 2, seed)
+    xk, xp, x2 = x.clone(), x.clone(), x.clone()
+    for _ in range(calls):
+        rk = sk.rb_sor_blocked(xk, f, *coef)
+        rp = sk.rb_sor_blocked_plain(xp, f, *coef)
+        sk.rb_sor_checkerboard(x2, f, 1, *coef)
+    return (torch.equal(xk, xp), torch.equal(rk, rp), torch.equal(xk, x2),
+            float((xk - xp).abs().max()))
+
+
+def check_step2d_flags(torch, u, v, p, dt, cfg, flags, t):
+    """K3 then K4 in flag mode on one device against their plain versions
+    on the same inputs. Returns (ok, copies and maxima bitwise, every
+    output bitwise, max_rel_err, max_abs_err, K3's F/G/rhs, the u, v K4
+    projected)."""
+    from pampi_tpu_torch.ops import ns2d_fused as nf
+
+    uk, vk = u.clone(), v.clone()
+    fk = nf.ns2d_pre(uk, vk, dt, cfg, flags=flags)
+    pl = nf.ns2d_pre_plain(u, v, dt, cfg, flags=flags)
+    exact = torch.equal(uk, pl[0]) and torch.equal(vk, pl[1])
+    mp = nf.ns2d_post_plain(pl[0], pl[1], *pl[2:4], p, dt, cfg.dx, cfg.dy,
+                            flags=flags)
+    mk = nf.ns2d_post(uk, vk, *fk[:2], p, dt, cfg.dx, cfg.dy, flags=flags)
+    exact = exact and all(torch.equal(m, a.abs().max())
+                          for m, a in zip(mk, (uk, vk)))
+    pairs = list(zip(fk, pl[2:])) + list(zip((uk, vk), mp[:2]))
+    every = exact and all(torch.equal(a, b) for a, b in pairs)
+    e = max(rel_err(a, b) for a, b in pairs)
+    err = max(float((a - b).abs().max()) for a, b in pairs)
+    return exact and e <= t, exact, every, e, err, fk, (uk, vk)
+
+
+def check_dist2d_flags(torch, np, s, dtype, seed):
+    """K3/K4's distributed flag mode against their plain versions on every
+    shard of an obstacle NS2DDistSolver (its offsets and deep and halo-1
+    flag blocks), on random blocks. Returns (copies and maxima bitwise,
+    every output bitwise, max_rel_err, max_abs_err)."""
+    from pampi_tpu_torch.ops.ns2d_fused import StepConfig
+
+    cfg = StepConfig.from_param(s.param)
+    dt = torch.tensor(0.013, dtype=dtype, device="cuda")
+    exact, every, e, err = True, True, 0.0, 0.0
+    for k, off in enumerate(s.offs):
+        u, v = rng_fields(torch, np, (s.jl + 6, s.il + 6), dtype, 2,
+                          seed + k)
+        (p,) = rng_fields(torch, np, (s.jl + 2, s.il + 2), dtype, 1,
+                          seed + 50 + k)
+        ex, ev, es, errs, _, _ = step2d_shard(torch, cfg, off, s.gext, u, v,
+                                              p, dt, s.ragged, s._flags[k])
+        exact, every = exact and ex, every and ev
+        e, err = max(e, es), max(err, errs)
+    return exact, every, e, err
+
+
+@phase("2-D obstacle kernels vs plain versions: masked K2, K17, K3/K4 in "
+       "flag mode (one device and distributed), K15 on real flags")
+def check_obstacle2d_kernels(torch, np):
+    from pampi_tpu_torch.ops.ns2d_fused import StepConfig
+
+    bad = []
+    dtypes = (torch.float32, torch.float64)
+    for jmax, imax in OBST2_CHECK:
+        shape = f"{imax}x{jmax}"
+        for dtype in dtypes:
+            name = "float32" if dtype == torch.float32 else "float64"
+            param = obstacle2d_config(jmax, imax, tpu_dtype=name, eps=0.0)
+            flags = obstacle2d_flags(param)
+            for n in (1, 4):
+                fb, rb, err = check_masked_k2(torch, np, param, flags, dtype,
+                                              n, 251)
+                log(f"rb_sor_checkerboard masked {dtype} {shape} n={n}, two "
+                    f"calls: fields bitwise {fb}, residual bitwise {rb}, "
+                    f"max_abs_err {err:.3e} {'ok' if fb and rb else 'FAIL'}")
+                if not (fb and rb):
+                    bad.append(f"masked K2 {shape} {dtype} n={n}")
+            t = tol(torch, dtype)
+            u, v, pp = rng_fields(torch, np, tuple(flags.shape), dtype, 3,
+                                  253)
+            dt = torch.tensor(0.013, dtype=dtype, device="cuda")
+            ok, exact, every, e, err, _, _ = check_step2d_flags(
+                torch, u, v, pp, dt, StepConfig.from_param(param), flags, t)
+            log(f"ns2d_pre/post flag mode {dtype} {shape}: u', v' and maxima"
+                f" bitwise {exact}, every output bitwise {every}, "
+                f"max_rel_err {e:.3e}, max_abs_err {err:.3e} (tol {t:g}) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                bad.append(f"K3/K4 flag mode {shape} {dtype}")
+            for dims in ((2, 2), (3, 2)):
+                mesh = "x".join(map(str, dims))
+                s = dist2d_solver(param.replace(tpu_mesh=mesh), dims)
+                g = s._solve_k.geom
+                bitwise, er, err = check_obsdist(torch, np, s._solve_k,
+                                                 param, dtype, 255)
+                ok = bitwise and er <= t
+                log(f"rb_sor_obsdist {dtype} {shape} on {mesh} on real flags"
+                    f" (n={g.n}, H={g.H}, deep blocks {g.shape}), every "
+                    f"shard, two calls: blocks bitwise {bitwise}, residual "
+                    f"rel_err {er:.3e}, max_abs_err {err:.3e} (tol {t:g}) "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    bad.append(f"K15 real flags {shape} {mesh} {dtype}")
+                exact, every, e, err = check_dist2d_flags(torch, np, s, dtype,
+                                                          261)
+                ok = exact and e <= t
+                log(f"ns2d_pre/post distributed flag mode {dtype} {shape} on"
+                    f" {mesh} ({s.jl}x{s.il} shards), every shard: u', v' "
+                    f"and maxima bitwise {exact}, every output bitwise "
+                    f"{every}, max_rel_err {e:.3e}, max_abs_err {err:.3e} "
+                    f"(tol {t:g}) {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    bad.append(f"K3/K4 distributed flag mode {shape} {mesh} "
+                               f"{dtype}")
+                del s
+    for shape in K17_CHECK:
+        for dtype in dtypes:
+            fb, rb, same, err = check_k17(torch, np, shape, dtype, 271)
+            ok = fb and rb and same
+            log(f"rb_sor_blocked {dtype} {shape[1]}x{shape[0]}, two calls: "
+                f"fields bitwise {fb}, residual bitwise {rb}, fields bitwise "
+                f"vs rb_sor_checkerboard n_inner 1 {same}, max_abs_err "
+                f"{err:.3e} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                bad.append(f"K17 {shape} {dtype}")
+    if bad:
+        raise AssertionError(f"2-D obstacle kernels disagree: {bad}")
+
+
+@phase("masked K2 and K3/K4 flag mode at 8192x2048, K17 at 4096² and K15 "
+       "per 4096x1024 shard on real flags: times, float32")
+def time_obstacle2d(torch, np):
+    from pampi_tpu_torch.ops import ns2d_fused as nf
+    from pampi_tpu_torch.ops import sor_kernels as sk
+    from pampi_tpu_torch.ops import sor_obsdist as sod
+
+    size, rows, f32 = 4, {}, torch.float32
+    J, I = OBST2_MAIN
+    param = obstacle2d_config(J, I, tpu_dtype="float32", eps=0.0)
+    flags = obstacle2d_flags(param)
+    cells, interior = flags.numel(), J * I
+    ring = 2 * (I + 2) + 2 * J
+    c = inverse_squares_2d(param)
+    shape = f"{I}x{J}"
+    fb, rb, err = check_masked_k2(torch, np, param, flags, f32, 4, 281,
+                                  calls=1)
+    if not (fb and rb):
+        raise AssertionError(f"masked K2 differs from its plain version at "
+                             f"{shape}")
+    x, f = rng_fields(torch, np, tuple(flags.shape), f32, 2, 283)
+    ms = cuda_ms(torch, lambda: sk.rb_sor_checkerboard(
+        x, f, 4, 0.0, *c, flags=flags, omega=param.omg), 20)
+    pms = cuda_ms(torch, lambda: sk.rb_sor_masked_plain(
+        x, f, flags, 4, param.omg, *c), 2)
+    # n = 1 too: a call costs a + b·n, a the residual's fixed-order sum
+    ms1 = cuda_ms(torch, lambda: sk.rb_sor_checkerboard(
+        x, f, 1, 0.0, *c, flags=flags, omega=param.omg), 20)
+    # p and rhs read, p written, the flags read once: 13 bytes a cell;
+    # ~20 flops a cell update
+    b = bound(13 * cells, 20 * 4 * interior)
+    rows["rb_sor_checkerboard_masked"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1],
+        n1_ms=ms1,
+        shape=f"{shape} f32, n=4, canal_obstacle.par's box (512x512 cells)")
+    log(f"rb_sor_checkerboard masked {shape} f32 n=4: {ms:.4f} ms per call "
+        f"(plain {pms:.4f}, bound {b[0]:.4f} by {b[1]}); n=1 {ms1:.4f} ms, "
+        f"so {(ms - ms1) / 3:.4f} ms an iteration and "
+        f"{ms1 - (ms - ms1) / 3:.4f} ms a call for the residual's sum")
+    del x, f
+    # K3/K4 in flag mode on the same grid
+    cfg = nf.StepConfig.from_param(param)
+    u, v, pp = rng_fields(torch, np, tuple(flags.shape), f32, 3, 287)
+    dt = torch.tensor(1e-4, dtype=f32, device="cuda")
+    ok, exact, every, e, err, fk, (uk, vk) = check_step2d_flags(
+        torch, u, v, pp, dt, cfg, flags, tol(torch, f32))
+    if not ok:
+        raise AssertionError(f"K3/K4 flag mode differ from their plain "
+                             f"versions at {shape}")
+    ms = cuda_ms(torch, lambda: nf.ns2d_pre(uk, vk, dt, cfg, flags=flags),
+                 20)
+    pms = cuda_ms(torch, lambda: nf.ns2d_pre_plain(u, v, dt, cfg,
+                                                   flags=flags), 3)
+    qms = cuda_ms(torch, lambda: nf.ns2d_post(
+        uk, vk, *fk[:2], pp, dt, cfg.dx, cfg.dy, flags=flags), 20)
+    qpms = cuda_ms(torch, lambda: nf.ns2d_post_plain(
+        uk, vk, *fk[:2], pp, dt, cfg.dx, cfg.dy, flags=flags), 3)
+    # as K3/K4 are bounded (5 field-sizes and two ghost rings each), plus
+    # the flags' byte a cell
+    b = bound((5 * cells + 2 * ring) * size + cells, 80 * interior)
+    q = bound((5 * cells + 2 * ring) * size + cells, 10 * interior)
+    rows["ns2d_pre_flags"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1],
+        shape=f"{shape} f32, canal_obstacle.par's BCs and box")
+    rows["ns2d_post_flags"] = dict(
+        max_abs_err=err, ms=qms, plain_ms=qpms, bound_ms=q[0], bound_by=q[1],
+        shape=f"{shape} f32, canal_obstacle.par's BCs and box")
+    log(f"ns2d_pre flag mode {shape} f32: {ms:.4f} ms (plain {pms:.4f}, "
+        f"bound {b[0]:.4f} by {b[1]}); ns2d_post flag mode: {qms:.4f} ms "
+        f"(plain {qpms:.4f}, bound {q[0]:.4f} by {q[1]})")
+    del u, v, pp, uk, vk, fk, flags
+    torch.cuda.empty_cache()
+    # K17 at 4096²: one iteration a call
+    J2, I2 = K17_MAIN
+    fb, rb, same, err = check_k17(torch, np, K17_MAIN, f32, 289, calls=1)
+    if not (fb and rb and same):
+        raise AssertionError("K17 differs from its plain version or K2 at "
+                             "4096²")
+    coef = sk.sor_coefficients(1.0 / I2, 1.0 / J2, 1.9)
+    x, f = rng_fields(torch, np, (J2 + 2, I2 + 2), f32, 2, 291)
+    ms = cuda_ms(torch, lambda: sk.rb_sor_blocked(x, f, *coef), 20)
+    pms = cuda_ms(torch, lambda: sk.rb_sor_blocked_plain(x, f, *coef), 2)
+    k2 = cuda_ms(torch, lambda: sk.rb_sor_checkerboard(x, f, 1, *coef), 20)
+    # p and rhs read once, p written once: 12 bytes a cell; ~12 flops an
+    # update
+    b = bound(12 * (J2 + 2) * (I2 + 2), 12 * J2 * I2)
+    rows["rb_sor_blocked"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1],
+        k2_n1_ms=k2, shape=f"{I2}x{J2} f32, one iteration a call")
+    log(f"rb_sor_blocked {I2}x{J2} f32: {ms:.4f} ms per call (plain "
+        f"{pms:.4f}, bound {b[0]:.4f} by {b[1]}; rb_sor_checkerboard at "
+        f"n_inner 1 {k2:.4f})")
+    del x, f
+    torch.cuda.empty_cache()
+    # K15 per 4096x1024 shard of 8192x2048 on 2x2 on the real flags, n = 4
+    s = dist2d_solver(param.replace(tpu_mesh="2x2", tpu_sor_inner=4), (2, 2))
+    solve = s._solve_k
+    g = solve.geom
+    bitwise, er, err = check_obsdist(torch, np, solve, param, f32, 293, 1)
+    if not (bitwise and er <= tol(torch, f32)):
+        raise AssertionError("K15 differs from its plain version on the real"
+                             " flags")
+    blocks = [rng_fields(torch, np, g.shape, f32, 2, 295 + k)
+              for k in range(len(solve.offs))]
+    coef = (param.omg, *c)
+
+    def shards(fn):
+        return lambda: [fn(x, f, fl, g, o, *coef) for (x, f), fl, o in
+                        zip(blocks, solve.flags, solve.offs)]
+
+    nsh = len(solve.offs)
+    ms = cuda_ms(torch, shards(sod.rb_sor_obsdist), 20) / nsh
+    pms = cuda_ms(torch, shards(sod.rb_iters_obsdist_plain), 2) / nsh
+    # the cells K15 reads on each (corner) shard: H layers on the two
+    # interface sides, the ghost layer on the two wall sides
+    read = sum(k15_read_cells(g, o) for o in solve.offs) / nsh
+    b = bound(read * (3 * size + 1), 20 * g.n * g.jl * g.il)
+    rows["rb_sor_obsdist"] = dict(
+        real_flags_ms=ms, real_flags_plain_ms=pms, real_flags_bound_ms=b[0],
+        real_flags_bound_by=b[1], real_flags_max_abs_err=err,
+        real_flags_shape=f"{g.jl}x{g.il} shard of {I}x{J} on 2x2 (deep "
+                         f"{g.shape[0]}x{g.shape[1]}, {read:.0f} cells "
+                         f"read), n={g.n}, canal_obstacle.par's box")
+    log(f"rb_sor_obsdist per {g.il}x{g.jl} shard of {shape} f32 on 2x2, real"
+        f" flags, n={g.n} (deep block {g.shape}): {ms:.4f} ms per shard call"
+        f" (plain {pms:.4f}, bound {b[0]:.4f} by {b[1]})")
+    del blocks, s, solve
+    torch.cuda.empty_cache()
+    return rows
+
+
+def check_not_launched_2d(counts, label):
+    """K1, unmasked K2, K13 and the unflagged K3/K4 never run on a 2-D
+    obstacle path."""
+    wrong = [k for k in NOT_ON_OBSTACLE2D_PATHS if counts.get(k, 0)]
+    if wrong:
+        raise AssertionError(f"{label} launched {wrong}")
+
+
+@phase("main path: NS-2D with obstacles, canal_obstacle.par's geometry at "
+       "8192x2048 float32, one device and 2x2; Poisson 4096² through "
+       "make_rb_step_padded(kernel=\"blocked\")")
+def main_path_obstacle2d(torch):
+    import numpy as np
+
+    from pampi_tpu_torch.kernels import build as kb
+    from pampi_tpu_torch.models.ns2d import NS2DSolver
+    from pampi_tpu_torch.models.poisson import (
+        PoissonSolver,
+        make_rb_step_padded,
+    )
+    from pampi_tpu_torch.utils.params import Parameter
+
+    J, I = OBST2_MAIN
+    param = obstacle2d_config(J, I, tpu_dtype="float32", tpu_sor_inner=4,
+                              itermax=100, eps=0.0, te=1e9)
+    counts = []
+    single = NS2DSolver(param.replace(tpu_mesh="1"), device="cuda")
+    c, r = drive_path(kb, "NS-2D obstacle one device",
+                      ("rb_sor_checkerboard_masked",) + OBST2_PATH,
+                      lambda: timed_steps(torch, single, 16))
+    check_not_launched_2d(c, "the one-device 2-D obstacle path")
+    counts.append(c)
+    log(f"NS-2D canal_obstacle {I}x{J} f32 one device (re 100, itermax 100, "
+        f"eps 0, masked K2 n=4): {r['ms_per_step']:.3f} ms/step (host "
+        f"clock); PRE {r['pre']:.3f} / solve {r['solve']:.3f} / POST "
+        f"{r['post']:.3f} ms (CUDA events); launches per step "
+        f"{c['rb_sor_checkerboard_masked'] / 17:.1f} masked K2")
+    s = dist2d_solver(param.replace(tpu_mesh="2x2"), (2, 2))
+    s.comm.print_config()
+    c, r = drive_path(kb, "NS-2D obstacle 2x2",
+                      ("rb_sor_obsdist",) + OBST2_PATH,
+                      lambda: dist2d_steps(torch, s, 16))
+    check_not_launched_2d(c, "the 2x2 obstacle path")
+    counts.append(c)
+    diff, scale = field_diff(s, single)
+    step = r["pre"] + r["solve"] + r["post"]
+    ok = (s.nt == single.nt == 17 and s.t == single.t
+          and diff <= 1e-5 * scale)
+    log(f"NS-2D canal_obstacle {I}x{J} f32 on 2x2 ({s.jl}x{s.il} shards on "
+        f"{sorted(set(map(str, s.comm.devices)))}, K15 n={s._solve_k.n}): "
+        f"{r['ms']:.3f} ms/step (host clock); PRE {r['pre']:.3f} / solve "
+        f"{r['solve']:.3f} / POST {r['post']:.3f} ms (CUDA events); "
+        f"exchanges {r['exchange']:.3f} ms/step, share "
+        f"{r['exchange'] / step:.3f} of the step; launches per step "
+        f"{c['rb_sor_obsdist'] / 17:.1f} K15; t={s.t:.6e}, single-device "
+        f"t={single.t:.6e}; max |dist - single| {diff:.3e} (limit "
+        f"{1e-5 * scale:.3e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the 2x2 obstacle run disagrees with one device")
+    # the kernels of the mesh path against their plain versions at this
+    # path's own shapes: K15 on the solve's deep blocks, flags and offsets,
+    # K3/K4 in distributed flag mode on its shards
+    g = s._solve_k.geom
+    fb, er, err = check_obsdist(torch, np, s._solve_k, param, torch.float32,
+                                301)
+    t = tol(torch, torch.float32)
+    log(f"rb_sor_obsdist f32 on the 2x2 path's own shards (n={g.n}, deep "
+        f"blocks {g.shape}, real flags), every shard, two calls: blocks "
+        f"bitwise {fb}, residual rel_err {er:.3e}, max_abs_err {err:.3e} "
+        f"{'ok' if fb and er <= t else 'FAIL'}")
+    exact, every, e, err = check_dist2d_flags(torch, np, s, torch.float32,
+                                              311)
+    ok = exact and e <= t
+    log(f"ns2d_pre/post distributed flag mode f32 on the 2x2 path's own "
+        f"shards ({s.jl}x{s.il}), every shard: u', v' and maxima bitwise "
+        f"{exact}, every output bitwise {every}, max_rel_err {e:.3e}, "
+        f"max_abs_err {err:.3e} (tol {t:g}) {'ok' if ok else 'FAIL'}")
+    if not (fb and er <= t and ok):
+        raise AssertionError("a kernel of the 2x2 obstacle path differs from "
+                             "its plain version at the path's shapes")
+    del s, single
+    torch.cuda.empty_cache()
+    # Poisson 4096² f32 through make_rb_step_padded: K17 ("blocked") and
+    # K2 at n_inner 1 ("fused"), 400 iterations each from the same fields
+    J2, I2 = K17_MAIN
+    pp = Parameter(name="poisson", imax=I2, jmax=J2, tpu_dtype="float32")
+    base = PoissonSolver(pp, device="cuda")
+    dx, dy = pp.xlength / I2, pp.ylength / J2
+    out = {}
+
+    def poisson():
+        for kernel in ("blocked", "fused"):
+            step, pad, unpad = make_rb_step_padded(
+                I2, J2, dx, dy, pp.omg, torch.float32, kernel=kernel,
+                device="cuda")
+            p, rhs = pad(base.p), pad(base.rhs)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(400):
+                p, res = step(p, rhs)
+            b.record()
+            b.synchronize()
+            out[kernel] = (unpad(p), float(res), a.elapsed_time(b) / 400)
+
+    c, _ = drive_path(kb, "Poisson 4096² make_rb_step_padded",
+                      ("rb_sor_blocked",), poisson)
+    counts.append(c)
+    (pb, rb, mb), (pf, rf, mf) = out["blocked"], out["fused"]
+    ok = (torch.equal(pb, pf) and c["rb_sor_blocked"] == 400
+          and np.isfinite(rb) and abs(rb - rf) <= 1e-5 * abs(rf))
+    log(f"Poisson {I2}x{J2} f32, 400 iterations through "
+        f"make_rb_step_padded: kernel=\"blocked\" (K17) {mb:.4f} ms per "
+        f"iteration, kernel=\"fused\" (K2 n_inner 1) {mf:.4f}; fields "
+        f"bitwise {torch.equal(pb, pf)}, residuals {rb:.6e} / {rf:.6e}, K17 "
+        f"launches {c['rb_sor_blocked']} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("K17's Poisson run disagrees with K2's")
+    return counts
+
+
+OBST2_RUNS = {}
+OBST2_TE = 0.5     # canal_obstacle.par: ~50 steps
+# canal_obstacle2048.par: 0.2 took 263 steps and 49.5 s on one card (a
+# masked K2 call and a host check an iteration at float64), so 0.1
+OBST2048_TE = 0.1
+
+
+@phase("configs/canal_obstacle.par: the CPU run and the 2x2 and 3x2 card "
+       "runs started in processes of their own")
+def obstacle2d_cli_start():
+    tmp = tempfile.mkdtemp(prefix="obstacle2d_")
+    OBST2_RUNS["tmp"] = tmp
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    for name, mesh, device in (("cpu", "1", "cpu"), ("2x2", "2x2", "cuda"),
+                               ("3x2", "3x2", "cuda")):
+        d = os.path.join(tmp, name)
+        os.makedirs(d)
+        par = os.path.join(d, "canal_obstacle.par")
+        with open(par, "w") as fh:
+            fh.write(config_text("canal_obstacle.par", te=OBST2_TE,
+                                 tpu_mesh=mesh))
+        out = os.path.join(d, "fields.npz")
+        OBST2_RUNS[name] = (out, start(
+            [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+             "--cli2-child", par, out, device], d,
+            os.path.join(d, "child.log"), env))
+
+
+@phase(f"main path: python -m pampi_tpu_torch configs/canal_obstacle.par "
+       f"(te {OBST2_TE}) on the card, one device, 2x2 and 3x2, and on the "
+       f"CPU; configs/canal_obstacle2048.par (te {OBST2048_TE}) on the card")
+def obstacle2d_cli(np):
+    from pampi_tpu_torch.kernels import build as kb
+
+    if "2x2" not in OBST2_RUNS:
+        raise AssertionError("the child runs did not start")
+    tmp = OBST2_RUNS["tmp"]
+    counts, one = [], {}
+    for name, par, te in (("one", "canal_obstacle.par", OBST2_TE),
+                          ("2048", "canal_obstacle2048.par", OBST2048_TE)):
+        d = os.path.join(tmp, name)
+        os.makedirs(d)
+        path = os.path.join(d, par)
+        with open(path, "w") as fh:
+            fh.write(config_text(par, te=te))
+        cwd = os.getcwd()
+        os.chdir(d)
+        try:
+            c, (rc, secs, _c, got) = drive_path(
+                kb, f"{par} te {te} CLI",
+                ("rb_sor_checkerboard_masked",) + OBST2_PATH,
+                lambda: run_cli_ns(path, "cuda", 2))
+        finally:
+            os.chdir(cwd)
+        check_not_launched_2d(c, f"the {par} CLI run")
+        counts.append(c)
+        finite = all(np.isfinite(got[k]).all() for k in "uvp")
+        if rc != 0 or not finite:
+            raise AssertionError(f"the {par} CLI run: rc {rc}, finite "
+                                 f"{finite}")
+        one[name] = got
+        log(f"{par} te {te} (f64) on one card: {got['nt']} steps to "
+            f"t={got['t']:.6f} in {secs:.1f} s (wall, the CLI's whole run, "
+            f"beside the other processes); fields finite")
+    ref, bad = one["one"], []
+    scale = max(1.0, *(float(np.abs(ref[k]).max()) for k in "uvp"))
+    for name in ("cpu", "2x2", "3x2"):
+        out, proc = OBST2_RUNS[name]
+        rc = proc.wait(timeout=900)
+        if rc != 0:
+            log(open(os.path.join(os.path.dirname(out),
+                                  "child.log")).read()[-4000:])
+            raise AssertionError(f"the {name} child exited {rc}")
+        with np.load(out) as z:
+            got = {k: z[k] for k in z.files}
+        c = json.loads(str(got["counts"]))
+        if name != "cpu":
+            log(f"canal_obstacle.par {name} CLI launches: {json.dumps(c)}")
+            missing = [k for k in ("rb_sor_obsdist",) + OBST2_PATH
+                       if c[k] == 0]
+            if missing:
+                raise AssertionError(f"the {name} CLI run did not launch "
+                                     f"{missing}")
+            check_not_launched_2d(c, f"the {name} CLI run")
+            counts.append(c)
+        diff = max(float(np.abs(got[k] - ref[k]).max()) for k in "uvp")
+        same = (int(got["nt"]), float(got["t"])) == (ref["nt"], ref["t"])
+        label = json.loads(str(got["record"])).get(
+            "obstacle_dist", "one device")
+        ok = diff <= 1e-9 * scale and (same if name != "cpu"
+                                       else int(got["nt"]) == ref["nt"])
+        log(f"canal_obstacle.par te {OBST2_TE} {name} ({label}), its own "
+            f"process on the {'CPU' if name == 'cpu' else 'card'}: "
+            f"{int(got['nt'])} steps in {float(got['secs']):.1f} s (one "
+            f"card: {ref['nt']}), t equal {float(got['t']) == ref['t']}; max "
+            f"|{name} - one card| over u, v, p {diff:.3e} (tol 1e-9 of scale "
+            f"{scale:.3e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            bad.append(name)
+    if bad:
+        raise AssertionError(f"canal_obstacle.par runs disagree: {bad}")
+    return counts
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3430,6 +4040,7 @@ def main() -> int:
         check_cadence_one(torch, np)
         check_dist2d_kernels(torch, np)
         check_obstacle3d_kernels(torch, np)
+        check_obstacle2d_kernels(torch, np)
     if CHECKS_ONLY:
         log(f"checks only; failed: {FAILED}")
         return 1 if FAILED else 0
@@ -3441,6 +4052,7 @@ def main() -> int:
         d3_rows = time_dist3d(torch, np)
         d2_rows = time_dist2d(torch, np)
         o3_rows = time_obstacle3d(torch, np)
+        o2_rows = time_obstacle2d(torch, np)
         sor_ns2d = {}
         counts = main_path(torch, sor_ns2d)
         counts3 = main_path_3d(torch)
@@ -3456,22 +4068,26 @@ def main() -> int:
         counts_d2 = main_path_dist2d(torch)
         counts_d2cards = dist2d_several_cards(torch)
         counts_o3 = main_path_obstacle3d(torch)
+        counts_o2 = main_path_obstacle2d(torch)
         # no times are taken from here on: the CPU half of dcavity_card
         # and the canal3d_obstacle.par mesh and CPU runs run beside the
         # card's runs
         obstacle3d_cli_start()
+        obstacle2d_cli_start()
         dcavity_card(np)
         counts_d2cli = dist2d_cli(np)
         dcavity_card_vs_cpu(np)
         counts_o3cli = obstacle3d_cli(np)
+        counts_o2cli = obstacle2d_cli(np)
         if None not in (rows, rows3, mg_rows, q_rows, d3_rows, d2_rows,
-                        o3_rows, counts, counts3, counts_mg, counts_dist,
-                        counts_cli, counts_d3, counts_d3cli, counts_d2,
-                        counts_d2cards, counts_d2cli, counts_o3,
-                        counts_o3cli):
+                        o3_rows, o2_rows, counts, counts3, counts_mg,
+                        counts_dist, counts_cli, counts_d3, counts_d3cli,
+                        counts_d2, counts_d2cards, counts_d2cli, counts_o3,
+                        counts_o3cli, counts_o2, counts_o2cli):
             rows = {**rows, **rows3, **mg_rows[0], **q_rows, **o3_rows,
-                    "rb_sor_odist": d3_rows["rb_sor_odist"],
-                    "rb_sor_obsdist": d2_rows["rb_sor_obsdist"]}
+                    **o2_rows, "rb_sor_odist": d3_rows["rb_sor_odist"],
+                    "rb_sor_obsdist": {**d2_rows["rb_sor_obsdist"],
+                                       **o2_rows["rb_sor_obsdist"]}}
             for name in ("ns3d_pre", "ns3d_post"):
                 rows[name] = {**rows[name], **d3_rows[name]}
             for name in ("ns2d_pre", "ns2d_post"):
@@ -3479,7 +4095,8 @@ def main() -> int:
             # each path ran with the counts at 0 before it: a kernel's
             # main-path launches are its sum over the paths
             paths = (counts + counts3 + counts_mg + counts_d3 + counts_d2
-                     + counts_d2cli + counts_o3 + counts_o3cli
+                     + counts_d2cli + counts_o3 + counts_o3cli + counts_o2
+                     + counts_o2cli
                      + [counts_dist, counts_cli, counts_d3cli,
                         counts_d2cards])
             counts = {k: sum(c.get(k, 0) for c in paths)
@@ -3520,8 +4137,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--cli-child"]:
         sys.exit(cli_child(*sys.argv[2:4]))
-    if sys.argv[1:2] == ["--cli3-child"]:
-        sys.exit(cli3_child(*sys.argv[2:5]))
+    if sys.argv[1:2] in (["--cli2-child"], ["--cli3-child"]):
+        sys.exit(cli_ns_child(int(sys.argv[1][5]), *sys.argv[2:5]))
     try:
         code = main()
     finally:

@@ -6,10 +6,13 @@ the `name` key selects, write the outputs and print the wall time.
                         the V-cycle count under `tpu_solver mg`, 1 under
                         `fft`; on a mesh (`tpu_mesh PJxPI`, or `auto` with
                         several cards) the distributed red-black solve
-  dcavity/canal      -> NS-2D time stepper (pressure.dat, velocity.dat);
-                        on a mesh (`tpu_mesh PJxPI`, or `auto` with
+  dcavity/canal/     -> NS-2D time stepper (pressure.dat, velocity.dat);
+  canal_obstacle        on a mesh (`tpu_mesh PJxPI`, or `auto` with
                         several cards) the distributed time stepper, on a
-                        mesh that divides the grid or a ragged one
+                        mesh that divides the grid or a ragged one; with
+                        an `obstacles` key (rectangles, e.g.
+                        configs/canal_obstacle.par) the flag-masked
+                        obstacle run under `tpu_solver sor`
   dcavity3d/canal3d  -> NS-3D time stepper (dcavity.vtk / canal.vtk, in
                         the `tpu_vtk` format: ascii, binary, or sharded,
                         the binary file written slab by slab on a mesh);
@@ -22,8 +25,9 @@ the `name` key selects, write the outputs and print the wall time.
 
 Every problem takes `tpu_solver sor|mg|fft|auto` (auto resolves to fft on
 these plain grids, to sor on a ragged mesh, to mg on an obstacle grid,
-where mg exits naming ROADMAP A item 3 and fft with the JAX package's
-error). 2-D obstacles (canal_obstacle*.par) exit naming ROADMAP A.4.
+where mg exits naming ROADMAP A item 5 and fft with the JAX package's
+error). A Poisson .par with an `obstacles` key exits with the JAX
+package's error.
 
 `tpu_mesh` follows the JAX package: `auto` is one shard per visible card
 (the single-device path on one card), an explicit mesh one of that shape,
@@ -59,10 +63,6 @@ from .utils.params import (
     read_parameter,
 )
 from .utils.timing import get_timestamp
-
-_NOT_PORTED = {
-    "canal_obstacle": "A.4",
-}
 
 
 def _parse(argv):
@@ -155,7 +155,8 @@ def _dispatch(param: Parameter, device: str) -> int:
         solver.write_result("p.dat")
         print("Walltime %.2fs" % (end - start))
         return 0
-    if param.name in ("dcavity", "canal", "dcavity3d", "canal3d"):
+    if param.name in ("dcavity", "canal", "canal_obstacle", "dcavity3d",
+                      "canal3d"):
         three_d = is_3d_config(param)
         solver = None
         comm = _make_comm(param, visible_devices(device),
@@ -191,9 +192,5 @@ def _dispatch(param: Parameter, device: str) -> int:
         else:  # one device: the binary writer gives the same bytes
             solver.write_result(fmt="binary")
         return 0
-    if param.name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"problem {param.name} is not yet ported "
-            f"(ROADMAP {_NOT_PORTED[param.name]})")
     print(f"Unknown problem name: {param.name}", file=sys.stderr)
     return 1

@@ -1,8 +1,8 @@
 // NS-2D step phases for Hopper (sm_90a): the port's PRE and POST kernels,
-// no obstacles, on one device and, below, in the distributed mode (a
-// shard's deep and halo-1 blocks of a 2-D mesh, divisible or ragged:
-// make_fused_pre_2d(..., jl, il, ext_pad) and make_fused_post_2d(..., jl,
-// il, ragged) of the JAX package).
+// on one device and, below, in the distributed mode (a shard's deep and
+// halo-1 blocks of a 2-D mesh, divisible or ragged: make_fused_pre_2d(...,
+// jl, il, ext_pad) and make_fused_post_2d(..., jl, il, ragged) of the JAX
+// package), each with or without obstacle flag fields.
 //
 // ns2d_pre (K3) replaces pampi_tpu/ops/ns2d_fused.py _pre_kernel
 //   (make_fused_pre_2d): (u, v, dt) -> (u', v', F, G, rhs) = wall BCs ->
@@ -40,13 +40,49 @@
 // term; scalar coefficients are formed in double on the host exactly where
 // the reference forms them from Python floats, then rounded to T. Built
 // with --fmad=false.
+//
+// The flag mode (obstacle flag fields, pampi_tpu/ops/obstacle.py; the TPU
+// kernels' `masked` mode, fed the global flags on one device and, on a
+// mesh, the shard's deep flag block for PRE and its halo-1 block for
+// POST, as the JAX package's fused_flag_blocks): both kernels also take a
+// uint8 fluid flag block of their input block's shape (0 on obstacle and
+// dead cells). A face mask is read from the flags: the u face of a cell is
+// fluid-fluid where the cell and its +i neighbour are fluid, forced to 1
+// on the last global ghost column i = I+1 (make_masks' fix of its wrapping
+// roll), and the v face likewise along j.
+//   PRE, after the walls and the special BC (obstacle.
+//   apply_obstacle_velocity_bc, then mask_fg):
+//   4a. zero the normal components on faces touching an obstacle, into a
+//       snapshot us, vs (scratch the wrapper allocates);
+//   4b. write u, v from the snapshot: u = us + both_u*(uf_n*(-us_n) +
+//       (1 - uf_n)*uf_s*(-us_s)), where both_u marks a face buried in
+//       obstacles and uf_n, uf_s are the u faces one row north and south
+//       (v: the v faces one column east and west), in the JAX package's
+//       arithmetic. The JAX function is functional: every mirror reads
+//       the array as it is after the zeroing. Done in place, a thread's
+//       write could land on a cell another thread reads, and even a read
+//       that is multiplied by 0 changes the sign of a zero; the snapshot
+//       keeps 4b's reads apart from its writes. Neighbour reads wrap on
+//       the block, as the plain version's rolls do; on one device they are
+//       the JAX package's full-array rolls, and on a deep block they reach
+//       only the outermost layer, which no output reads;
+//   then F, G carry U, V on every non-fluid face (after the wall fixups:
+//   mask_fg is pointwise on faces formed from the flags, so it rides the
+//   F/G launch).
+//   POST: the projection is multiplied by the face mask (adapt_uv_
+//   obstacle); on a shard the flags read 0 beyond the block's high edge,
+//   as p does there.
+// The flags add 1 byte a cell to each kernel's traffic, and PRE's snapshot
+// 4 field-sizes (two written, two read).
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
 constexpr int NOSLIP = 1, SLIP = 2, OUTFLOW = 3;
-constexpr int DCAVITY = 1, CANAL = 2;
+constexpr int DCAVITY = 1, CANAL = 2;  // canal_obstacle: CANAL
 constexpr int BX = 32, BY = 8, NT = BX * BY;
 constexpr int BC_THREADS = 1024;
 constexpr int FIN = 1024;
@@ -102,6 +138,92 @@ __global__ void bc_strips(T* __restrict__ u, T* __restrict__ v, int J, int I,
 #undef V
 }
 
+// -- the flag mode --------------------------------------------------------
+
+// a block of the flag mode: R x W cells, cell (a, b) at global extended
+// index (a + jb, b + ib); global interior extents (Gj, Gi)
+struct Blk {
+  int R, W, jb, ib, Gj, Gi;
+};
+
+__device__ __forceinline__ int wrap(int a, int L) {
+  return a < 0 ? a + L : (a >= L ? a - L : a);
+}
+
+// the u (v) face mask at (a, b), every index wrapping on the block: 1 on
+// the last global ghost column (row), else the cell's flag times its +i
+// (+j) neighbour's
+template <typename T>
+__device__ __forceinline__ T face_u(const uint8_t* fl, const Blk& k, int a,
+                                    int b) {
+  a = wrap(a, k.R);
+  b = wrap(b, k.W);
+  if (b + k.ib == k.Gi + 1) return T(1);
+  const size_t r = (size_t)a * k.W;
+  return T(fl[r + b]) * T(fl[r + wrap(b + 1, k.W)]);
+}
+
+template <typename T>
+__device__ __forceinline__ T face_v(const uint8_t* fl, const Blk& k, int a,
+                                    int b) {
+  a = wrap(a, k.R);
+  b = wrap(b, k.W);
+  if (a + k.jb == k.Gj + 1) return T(1);
+  return T(fl[(size_t)a * k.W + b]) *
+         T(fl[(size_t)wrap(a + 1, k.R) * k.W + b]);
+}
+
+// launch 4a: the zeroed normal components, into the snapshot
+template <typename T>
+__global__ void obs_zero(const T* __restrict__ u, const T* __restrict__ v,
+                         const uint8_t* __restrict__ fl, T* __restrict__ us,
+                         T* __restrict__ vs, Blk k) {
+  const int b = blockIdx.x * BX + threadIdx.x;
+  const int a = blockIdx.y * BY + threadIdx.y;
+  if (a >= k.R || b >= k.W) return;
+  const size_t x = (size_t)a * k.W + b;
+  us[x] = u[x] * face_u<T>(fl, k, a, b);
+  vs[x] = v[x] * face_v<T>(fl, k, a, b);
+}
+
+// launch 4b: the mirror of the buried faces, read from the snapshot,
+// written to u and v
+template <typename T>
+__global__ void obs_mirror(T* __restrict__ u, T* __restrict__ v,
+                           const uint8_t* __restrict__ fl,
+                           const T* __restrict__ us, const T* __restrict__ vs,
+                           Blk k) {
+  const int b = blockIdx.x * BX + threadIdx.x;
+  const int a = blockIdx.y * BY + threadIdx.y;
+  if (a >= k.R || b >= k.W) return;
+  const T one = T(1);
+  const size_t W = k.W;
+  const size_t x = (size_t)a * W + b;
+  const int an = wrap(a + 1, k.R), as = wrap(a - 1, k.R);
+  const int be = wrap(b + 1, k.W), bw = wrap(b - 1, k.W);
+  const T fc = T(fl[x]);
+  const T both_u = (one - fc) * (one - T(fl[(size_t)a * W + be]));
+  const T uf_n = face_u<T>(fl, k, a + 1, b), uf_s = face_u<T>(fl, k, a - 1, b);
+  u[x] = us[x] + both_u * (uf_n * (-us[(size_t)an * W + b]) +
+                           (one - uf_n) * uf_s * (-us[(size_t)as * W + b]));
+  const T both_v = (one - fc) * (one - T(fl[(size_t)an * W + b]));
+  const T vf_e = face_v<T>(fl, k, a, b + 1), vf_w = face_v<T>(fl, k, a, b - 1);
+  v[x] = vs[x] + both_v * (vf_e * (-vs[(size_t)a * W + be]) +
+                           (one - vf_e) * vf_w * (-vs[(size_t)a * W + bw]));
+}
+
+// F, G carry U, V on every non-fluid face (obstacle.mask_fg) at block
+// cell (a, b), from the post-BC u, v there
+template <typename T>
+__device__ __forceinline__ void mask_fg(const uint8_t* fl, const Blk& k,
+                                        int a, int b, T uu, T vv, T& fv,
+                                        T& gv) {
+  const T one = T(1);
+  const T uf = face_u<T>(fl, k, a, b), vf = face_v<T>(fl, k, a, b);
+  fv = uf * fv + (one - uf) * uu;
+  gv = vf * gv + (one - vf) * vv;
+}
+
 // the F/G predictor at cell k of u and v (row stride W): central plus
 // gamma-blended donor-cell convection, the viscous Laplacian, body force
 template <typename T>
@@ -136,7 +258,8 @@ __device__ __forceinline__ void fg_predict(const T* __restrict__ u,
 template <typename T>
 __global__ void fg_cells(const T* __restrict__ u, const T* __restrict__ v,
                          const T* __restrict__ dtp, T* __restrict__ f,
-                         T* __restrict__ g, int J, int I, Coef<T> c) {
+                         T* __restrict__ g, int J, int I, Coef<T> c,
+                         const uint8_t* __restrict__ fl) {
   const int i = blockIdx.x * BX + threadIdx.x;
   const int j = blockIdx.y * BY + threadIdx.y;
   if (i > I + 1 || j > J + 1) return;
@@ -149,6 +272,8 @@ __global__ void fg_cells(const T* __restrict__ u, const T* __restrict__ v,
   // wall fixups: F carries U on vertical walls, G carries V on horizontal
   if (rows && (i == 0 || i == I)) fv = u[k];
   if (cols && (j == 0 || j == J)) gv = v[k];
+  if (fl != nullptr)
+    mask_fg(fl, Blk{J + 2, I + 2, 0, 0, J, I}, j, i, u[k], v[k], fv, gv);
   f[k] = fv;
   g[k] = gv;
 }
@@ -179,7 +304,9 @@ template <typename T>
 __global__ void adapt_cells(T* __restrict__ u, T* __restrict__ v,
                             const T* __restrict__ f, const T* __restrict__ g,
                             const T* __restrict__ p, const T* __restrict__ dtp,
-                            int J, int I, T dx, T dy, T* __restrict__ partial) {
+                            int J, int I, T dx, T dy,
+                            const uint8_t* __restrict__ fl,
+                            T* __restrict__ partial) {
   __shared__ T shu[NT];
   __shared__ T shv[NT];
   const int i = blockIdx.x * BX + threadIdx.x;
@@ -196,6 +323,11 @@ __global__ void adapt_cells(T* __restrict__ u, T* __restrict__ v,
       const T fy = dt / dy;
       uu = f[k] - (p[k + 1] - p[k]) * fx;
       vv = g[k] - (p[k + W] - p[k]) * fy;
+      if (fl != nullptr) {  // the projection on fluid-fluid faces only
+        const T fc = T(fl[k]);
+        uu = uu * (fc * T(fl[k + 1]));
+        vv = vv * (fc * T(fl[k + W]));
+      }
       u[k] = uu;
       v[k] = vv;
     }
@@ -260,6 +392,12 @@ __global__ void max_partials(const T* __restrict__ partial, int nb,
 struct Dist {
   int Lj, Li, e, joff, ioff, Gj, Gi;
 };
+
+// the deep block of a Dist as a flag-mode block
+__device__ __host__ __forceinline__ Blk deep_blk(const Dist& d) {
+  return Blk{d.Lj + 2 + 2 * d.e, d.Li + 2 + 2 * d.e, d.joff - d.e,
+             d.ioff - d.e, d.Gj, d.Gi};
+}
 
 // the i-walls of one deep row per thread, in the reference's order (left,
 // then right), then the canal inflow on the left wall. Every read is in
@@ -343,7 +481,8 @@ template <typename T>
 __global__ void fg_cells_dist(const T* __restrict__ u,
                               const T* __restrict__ v,
                               const T* __restrict__ dtp, T* __restrict__ f,
-                              T* __restrict__ g, Dist d, Coef<T> c) {
+                              T* __restrict__ g, Dist d, Coef<T> c,
+                              const uint8_t* __restrict__ fl) {
   const int i = blockIdx.x * BX + threadIdx.x;
   const int j = blockIdx.y * BY + threadIdx.y;
   if (i > d.Li + 1 || j > d.Lj + 1) return;
@@ -357,6 +496,8 @@ __global__ void fg_cells_dist(const T* __restrict__ u,
   if (rows && cols) fg_predict(u, v, kd, Wd, *dtp, c, fv, gv);
   if (rows && (gi == 0 || gi == d.Gi)) fv = u[kd];
   if (cols && (gj == 0 || gj == d.Gj)) gv = v[kd];
+  if (fl != nullptr)
+    mask_fg(fl, deep_blk(d), j + d.e, i + d.e, u[kd], v[kd], fv, gv);
   f[k] = fv;
   g[k] = gv;
 }
@@ -392,7 +533,9 @@ __global__ void adapt_cells_dist(T* __restrict__ u, T* __restrict__ v,
                                  const T* __restrict__ g,
                                  const T* __restrict__ p,
                                  const T* __restrict__ dtp, Dist d, T dx,
-                                 T dy, int ragged, T* __restrict__ partial) {
+                                 T dy, int ragged,
+                                 const uint8_t* __restrict__ fl,
+                                 T* __restrict__ partial) {
   __shared__ T shu[NT];
   __shared__ T shv[NT];
   const int i = blockIdx.x * BX + threadIdx.x;
@@ -412,6 +555,11 @@ __global__ void adapt_cells_dist(T* __restrict__ u, T* __restrict__ v,
       const T pn = j <= d.Lj ? p[k + W] : T(0);
       uu = f[k] - (pe - p[k]) * fx;
       vv = g[k] - (pn - p[k]) * fy;
+      if (fl != nullptr) {  // faces read flag 0 past the high edge
+        const T fc = T(fl[k]);
+        uu = uu * (fc * (i <= d.Li ? T(fl[k + 1]) : T(0)));
+        vv = vv * (fc * (j <= d.Lj ? T(fl[k + W]) : T(0)));
+      }
     }
     if (ragged) {
       const T live = (gj <= d.Gj + 1 && gi <= d.Gi + 1) ? T(1) : T(0);
@@ -448,8 +596,17 @@ dim3 cell_grid(int J, int I) {
 }
 
 template <typename T>
+void run_obstacle_bc(T* u, T* v, const uint8_t* fl, T* us, T* vs,
+                     const Blk& k, cudaStream_t st) {
+  const dim3 grd((k.W + BX - 1) / BX, (k.R + BY - 1) / BY);
+  obs_zero<T><<<grd, dim3(BX, BY), 0, st>>>(u, v, fl, us, vs, k);
+  obs_mirror<T><<<grd, dim3(BX, BY), 0, st>>>(u, v, fl, us, vs, k);
+}
+
+template <typename T>
 int run_pre(int dev, T* u, T* v, const T* dt, T* f, T* g, T* rhs, int J,
-            int I, const int* bc, int problem, const double* c, void* stream) {
+            int I, const int* bc, int problem, const double* c,
+            const uint8_t* fl, T* us, T* vs, void* stream) {
   cudaError_t e = cudaSetDevice(dev);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = (cudaStream_t)stream;
@@ -458,25 +615,27 @@ int run_pre(int dev, T* u, T* v, const T* dt, T* f, T* g, T* rhs, int J,
   bc_strips<T><<<1, BC_THREADS, 0, st>>>(u, v, J, I, bc[0], bc[1], bc[2],
                                          bc[3], problem, T(c[10]), T(c[11]),
                                          T(c[12]));
+  if (fl != nullptr)
+    run_obstacle_bc(u, v, fl, us, vs, Blk{J + 2, I + 2, 0, 0, J, I}, st);
   const Coef<T> k{T(c[0]), T(c[1]), T(c[2]), T(c[3]), T(c[4]),
                   T(c[5]), T(c[6]), T(c[7]), T(c[8])};
   const dim3 grd = cell_grid(J, I);
   const dim3 blk(BX, BY);
-  fg_cells<T><<<grd, blk, 0, st>>>(u, v, dt, f, g, J, I, k);
+  fg_cells<T><<<grd, blk, 0, st>>>(u, v, dt, f, g, J, I, k, fl);
   rhs_cells<T><<<grd, blk, 0, st>>>(f, g, dt, rhs, J, I, T(c[9]), T(c[10]));
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int run_post(int dev, T* u, T* v, const T* f, const T* g, const T* p,
-             const T* dt, int J, int I, double dx, double dy, T* partial,
-             T* out, void* stream) {
+             const T* dt, int J, int I, double dx, double dy,
+             const uint8_t* fl, T* partial, T* out, void* stream) {
   cudaError_t e = cudaSetDevice(dev);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = (cudaStream_t)stream;
   const dim3 grd = cell_grid(J, I);
   adapt_cells<T><<<grd, dim3(BX, BY), 0, st>>>(u, v, f, g, p, dt, J, I, T(dx),
-                                               T(dy), partial);
+                                               T(dy), fl, partial);
   max_partials<T><<<1, FIN, 0, st>>>(partial, (int)(grd.x * grd.y), out);
   return (int)cudaGetLastError();
 }
@@ -484,7 +643,7 @@ int run_post(int dev, T* u, T* v, const T* f, const T* g, const T* p,
 template <typename T>
 int run_pre_dist(int dev, T* u, T* v, const T* dt, T* f, T* g, T* rhs,
                  const int* geo, const int* bc, int problem, const double* c,
-                 void* stream) {
+                 const uint8_t* fl, T* us, T* vs, void* stream) {
   cudaError_t e = cudaSetDevice(dev);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = (cudaStream_t)stream;
@@ -494,11 +653,12 @@ int run_pre_dist(int dev, T* u, T* v, const T* dt, T* f, T* g, T* rhs,
       u, v, d, bc[0], bc[1], problem, c[10], T(c[11]), T(c[12]));
   bc_cols_dist<T><<<(W + BC_THREADS - 1) / BC_THREADS, BC_THREADS, 0, st>>>(
       u, v, d, bc[2], bc[3], problem);
+  if (fl != nullptr) run_obstacle_bc(u, v, fl, us, vs, deep_blk(d), st);
   const Coef<T> k{T(c[0]), T(c[1]), T(c[2]), T(c[3]), T(c[4]),
                   T(c[5]), T(c[6]), T(c[7]), T(c[8])};
   const dim3 grd = cell_grid(d.Lj, d.Li);
   const dim3 blk(BX, BY);
-  fg_cells_dist<T><<<grd, blk, 0, st>>>(u, v, dt, f, g, d, k);
+  fg_cells_dist<T><<<grd, blk, 0, st>>>(u, v, dt, f, g, d, k, fl);
   rhs_cells_dist<T><<<grd, blk, 0, st>>>(f, g, dt, rhs, d, T(c[9]),
                                          T(c[10]));
   return (int)cudaGetLastError();
@@ -507,14 +667,15 @@ int run_pre_dist(int dev, T* u, T* v, const T* dt, T* f, T* g, T* rhs,
 template <typename T>
 int run_post_dist(int dev, T* u, T* v, const T* f, const T* g, const T* p,
                   const T* dt, const int* geo, int ragged, double dx,
-                  double dy, T* partial, T* out, void* stream) {
+                  double dy, const uint8_t* fl, T* partial, T* out,
+                  void* stream) {
   cudaError_t e = cudaSetDevice(dev);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = (cudaStream_t)stream;
   const Dist d{geo[0], geo[1], 0, geo[2], geo[3], geo[4], geo[5]};
   const dim3 grd = cell_grid(d.Lj, d.Li);
   adapt_cells_dist<T><<<grd, dim3(BX, BY), 0, st>>>(
-      u, v, f, g, p, dt, d, T(dx), T(dy), ragged, partial);
+      u, v, f, g, p, dt, d, T(dx), T(dy), ragged, fl, partial);
   max_partials<T><<<1, FIN, 0, st>>>(partial, (int)(grd.x * grd.y), out);
   return (int)cudaGetLastError();
 }
@@ -533,21 +694,26 @@ int ns2d_post_partials(int J, int I) {
   return 2 * (int)(g.x * g.y);
 }
 
+// fl (uint8, the input block's shape) and PRE's scratch us, vs are null
+// outside the flag mode
 #define PRE_ENTRY(NAME, T)                                                   \
   int NAME(int dev, void* u, void* v, const void* dt, void* f, void* g,      \
            void* rhs, int J, int I, const int* bc, int problem,              \
-           const double* c, void* stream) {                                  \
+           const double* c, const void* fl, void* us, void* vs,              \
+           void* stream) {                                                   \
     return run_pre<T>(dev, (T*)u, (T*)v, (const T*)dt, (T*)f, (T*)g,         \
-                      (T*)rhs, J, I, bc, problem, c, stream);                \
+                      (T*)rhs, J, I, bc, problem, c, (const uint8_t*)fl,     \
+                      (T*)us, (T*)vs, stream);                               \
   }
 
 #define POST_ENTRY(NAME, T)                                                  \
   int NAME(int dev, void* u, void* v, const void* f, const void* g,          \
            const void* p, const void* dt, int J, int I, double dx,           \
-           double dy, void* partial, void* out, void* stream) {              \
+           double dy, const void* fl, void* partial, void* out,              \
+           void* stream) {                                                   \
     return run_post<T>(dev, (T*)u, (T*)v, (const T*)f, (const T*)g,          \
-                       (const T*)p, (const T*)dt, J, I, dx, dy, (T*)partial, \
-                       (T*)out, stream);                                     \
+                       (const T*)p, (const T*)dt, J, I, dx, dy,              \
+                       (const uint8_t*)fl, (T*)partial, (T*)out, stream);    \
   }
 
 // the distributed mode: geo = [Lj, Li, ext_pad, joff, ioff, Gj, Gi]; u, v
@@ -555,19 +721,23 @@ int ns2d_post_partials(int J, int I) {
 #define PRE_DIST_ENTRY(NAME, T)                                              \
   int NAME(int dev, void* u, void* v, const void* dt, void* f, void* g,      \
            void* rhs, const int* geo, const int* bc, int problem,            \
-           const double* c, void* stream) {                                  \
+           const double* c, const void* fl, void* us, void* vs,              \
+           void* stream) {                                                   \
     return run_pre_dist<T>(dev, (T*)u, (T*)v, (const T*)dt, (T*)f, (T*)g,    \
-                           (T*)rhs, geo, bc, problem, c, stream);            \
+                           (T*)rhs, geo, bc, problem, c, (const uint8_t*)fl, \
+                           (T*)us, (T*)vs, stream);                          \
   }
 
 // geo = [Lj, Li, joff, ioff, Gj, Gi]; every block is the shard's halo-1
 #define POST_DIST_ENTRY(NAME, T)                                             \
   int NAME(int dev, void* u, void* v, const void* f, const void* g,          \
            const void* p, const void* dt, const int* geo, int ragged,        \
-           double dx, double dy, void* partial, void* out, void* stream) {   \
+           double dx, double dy, const void* fl, void* partial, void* out,   \
+           void* stream) {                                                   \
     return run_post_dist<T>(dev, (T*)u, (T*)v, (const T*)f, (const T*)g,     \
                             (const T*)p, (const T*)dt, geo, ragged, dx, dy,  \
-                            (T*)partial, (T*)out, stream);                   \
+                            (const uint8_t*)fl, (T*)partial, (T*)out,        \
+                            stream);                                         \
   }
 
 PRE_DIST_ENTRY(ns2d_pre_dist_f32, float)

@@ -62,7 +62,7 @@
 //   the last iteration each cell of a colour writes r^2 (0 on an
 //   obstacle) into an interior-sized buffer, one thread per (k, j) row
 //   sums its row from i = 1 up, and one block sums the rows as
-//   sum_partials does (ops/sor3d_kernels.ordered_r2_sum is the plain
+//   sum_partials does (ops/sor_kernels.ordered_r2_sum is the plain
 //   form). The per-shard kernel K16 (sor_obsdist3d.cu) reduces its owned
 //   cells the same way, so on a one-shard mesh the two residuals agree
 //   bitwise. The buffer costs one extra write and read of a field per

@@ -1,4 +1,5 @@
-// Red-black SOR for Hopper (sm_90a): the port's two solve kernels.
+// Red-black SOR for Hopper (sm_90a): the port's 2-D single-device solve
+// kernels K1, K2 (with its masked mode) and K17.
 //
 // rb_sor_checkerboard (K2) replaces pampi_tpu/ops/sor_pallas.py
 //   _tblock_kernel (make_rb_iter_tblock, plain mode) on the natural
@@ -37,8 +38,55 @@
 // Arithmetic keeps the reference association term for term:
 //   r = rhs - ((e - 2c + w)*idx2 + (n - 2c + s)*idy2);  p = c - factor*r
 // built with --fmad=false so no multiply-add is contracted.
+//
+// rb_sor_checkerboard_masked (K2's masked mode) replaces the masked mode of
+//   the same TPU kernel (_tblock_kernel(masked=True), the NS-2D obstacle
+//   solve, pampi_tpu/ops/obstacle.make_obstacle_solver_fn): a cell updates
+//   only where it is interior, of the colour and fluid (flag != 0), with
+//   per-direction coefficients formed from the uint8 flags in the kernel
+//   (sor_pallas.masked_stencil_ops' order):
+//     eps_* = the four neighbours' flags,
+//     denom = (eps_e + eps_w)*idx2 + (eps_n + eps_s)*idy2,
+//     fac   = (denom > 0 ? omega/denom : 0) * flag,
+//     r     = rhs - ((eps_e*(e - c) + eps_w*(w - c))*idx2
+//                    + (eps_n*(n - c) + eps_s*(s - c))*idy2),
+//     p     = c - fac*r.
+//   The flags add 1 byte a cell: the bound is 13 bytes a cell at float32
+//   (p and rhs read, p written, the flags read). Its residual takes plain
+//   K2's order: on the last iteration each block of a colour launch sums
+//   its threads' r^2 (0 on an obstacle) with the fixed shared-memory tree,
+//   and sum_partials adds the red and then the black partials; the plain
+//   version (ops/sor_kernels.rb_sor_masked_plain) repeats that order, so
+//   kernel and plain version agree bitwise, residual included.
+//
+// rb_sor_blocked (K17) replaces pampi_tpu/ops/sor_pallas.py _rb_kernel
+//   (make_rb_iter_pallas, the blocked kernel of
+//   models/poisson.make_rb_step_padded(kernel="blocked")): ONE red-black
+//   iteration in place, the sum of r^2 over both half-sweeps, then the
+//   Neumann ghost copy (the TPU caller's neumann_bc_padded). The TPU kernel
+//   walks a (2, nblocks) grid of row bands in order, staging each band and
+//   a halo in VMEM; its black phase sees the red phase's writes only
+//   because the grid runs in order. Here a CTA owns a band of BAND rows
+//   and walks it in column tiles of TILE cells, staging the tile plus one
+//   halo row above and below and one halo column each side in shared
+//   memory; each thread takes one column of the tile and relaxes the cells
+//   of the launch's colour down the band, reading its neighbours from
+//   shared memory. One launch per colour is the ordering point that the
+//   TPU's sequential grid gave. Within a colour every cell reads only the
+//   other colour, so staging a neighbour band's rows while its CTA writes
+//   them is harmless (those cells are never read). Each thread adds r^2
+//   over its tiles and rows in order, the CTA reduces its threads with a
+//   fixed tree into one partial, and sum_partials adds the 2*nblocks
+//   partials (red, then black) in a fixed order: the plain version
+//   (ops/sor_kernels.rb_sor_blocked_plain) repeats that order, so the
+//   residual is bitwise too. Its fields are K2's at n_inner = 1 bit for
+//   bit (the same association). Bound: memory, as K2's (p and rhs read
+//   once, p written once: 12 bytes a cell at float32); each colour launch
+//   reads p and the colour's rhs, so a call moves about 2.5 field-sizes.
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -46,6 +94,8 @@ constexpr int BX = 32;
 constexpr int BY = 8;
 constexpr int NT = BX * BY;
 constexpr int FIN = 1024;
+constexpr int BAND = 8;    // K17: rows a CTA owns
+constexpr int TILE = 256;  // K17: columns of a tile, one thread each
 
 template <typename T>
 __device__ T block_sum(T v, T* sh) {
@@ -221,6 +271,87 @@ __global__ void q_neumann(T* __restrict__ q, int J2, int I2) {
   }
 }
 
+// one colour of the masked mode, in place (cb_color's mapping); on the
+// last iteration (partial != nullptr) each block writes its sum of r^2 (0
+// on an obstacle cell) as cb_color does
+template <typename T>
+__global__ void cbm_color(T* __restrict__ p, const T* __restrict__ rhs,
+                          const uint8_t* __restrict__ fl, int J, int I,
+                          int color, T omega, T idx2, T idy2,
+                          T* __restrict__ partial) {
+  __shared__ T sh[NT];
+  const size_t W = I + 2;
+  const int j = 1 + blockIdx.y * BY + threadIdx.y;
+  const int t = blockIdx.x * BX + threadIdx.x;
+  T rr = T(0);
+  if (j <= J) {
+    const int i = (((1 + j) & 1) == color ? 1 : 2) + 2 * t;
+    const size_t k = (size_t)j * W + i;
+    if (i <= I && fl[k] != 0) {
+      const T ee = T(fl[k + 1]), ew = T(fl[k - 1]);
+      const T en = T(fl[k + W]), es = T(fl[k - W]);
+      const T denom = (ee + ew) * idx2 + (en + es) * idy2;
+      const T fac = (denom > T(0) ? omega / denom : T(0)) * T(fl[k]);
+      const T c = p[k];
+      const T lap = (ee * (p[k + 1] - c) + ew * (p[k - 1] - c)) * idx2 +
+                    (en * (p[k + W] - c) + es * (p[k - W] - c)) * idy2;
+      const T r = rhs[k] - lap;
+      p[k] = c - fac * r;
+      rr = r * r;
+    }
+  }
+  if (partial != nullptr) {
+    const T s = block_sum(rr, sh);
+    if (threadIdx.x == 0 && threadIdx.y == 0)
+      partial[blockIdx.y * gridDim.x + blockIdx.x] = s;
+  }
+}
+
+// K17: one colour over CTA b's band of rows [b*BAND, b*BAND + BAND) of the
+// (J+2, I+2) array, tile by tile (TILE threads, one column each); partial[b]
+// = the CTA's sum of r^2 in the fixed order described at the top
+template <typename T>
+__global__ void blk_color(T* __restrict__ p, const T* __restrict__ rhs,
+                          int J, int I, int color, T factor, T idx2, T idy2,
+                          T* __restrict__ partial) {
+  __shared__ T tile[BAND + 2][TILE + 2];
+  __shared__ T sh[TILE];
+  const size_t W = I + 2;
+  const int row0 = blockIdx.x * BAND;
+  const int tx = threadIdx.x;
+  T acc = T(0);
+  for (int c0 = 1; c0 <= I; c0 += TILE) {
+    // stage rows row0-1 .. row0+BAND and columns c0-1 .. c0+TILE
+    for (int q = tx; q < (BAND + 2) * (TILE + 2); q += TILE) {
+      const int a = q / (TILE + 2), b = q % (TILE + 2);
+      const int gr = row0 - 1 + a, gc = c0 - 1 + b;
+      tile[a][b] = (gr >= 0 && gr <= J + 1 && gc <= I + 1)
+                       ? p[(size_t)gr * W + gc] : T(0);
+    }
+    __syncthreads();
+    const int i = c0 + tx;
+    for (int l = 0; l < BAND; ++l) {
+      const int j = row0 + l;
+      if (i <= I && j >= 1 && j <= J && ((i + j) & 1) == color) {
+        const T c = tile[l + 1][tx + 1];
+        const T r = resid(c, rhs[(size_t)j * W + i], tile[l + 1][tx],
+                          tile[l + 1][tx + 2], tile[l][tx + 1],
+                          tile[l + 2][tx + 1], idx2, idy2);
+        p[(size_t)j * W + i] = c - factor * r;
+        acc += r * r;
+      }
+    }
+    __syncthreads();
+  }
+  sh[tx] = acc;
+  __syncthreads();
+  for (int s = TILE / 2; s > 0; s >>= 1) {
+    if (tx < s) sh[tx] += sh[tx + s];
+    __syncthreads();
+  }
+  if (tx == 0) partial[blockIdx.x] = sh[0];
+}
+
 // one block: out[0] = sum of n partials, in a fixed order
 template <typename T>
 __global__ void sum_partials(const T* __restrict__ partial, int n,
@@ -289,6 +420,49 @@ int run_quarters(int dev, T* q, const T* f, int J2, int I2, int n_inner,
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int run_masked(int dev, T* p, const T* rhs, const uint8_t* fl, int J, int I,
+               int n_inner, double omega, double idx2, double idy2, T* partial,
+               T* out, cudaStream_t st) {
+  cudaError_t e = cudaSetDevice(dev);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grd = cb_grid(J, I);
+  const dim3 blk(BX, BY);
+  const int nb = grd.x * grd.y;
+  const int nn = ((I > J ? I : J) + 255) / 256;
+  for (int t = 0; t < n_inner; ++t) {
+    const bool last = t == n_inner - 1;
+    cbm_color<T><<<grd, blk, 0, st>>>(p, rhs, fl, J, I, 0, T(omega),
+                                      T(idx2), T(idy2),
+                                      last ? partial : nullptr);
+    cbm_color<T><<<grd, blk, 0, st>>>(p, rhs, fl, J, I, 1, T(omega),
+                                      T(idx2), T(idy2),
+                                      last ? partial + nb : nullptr);
+    cb_neumann<T><<<nn, 256, 0, st>>>(p, J, I);
+  }
+  sum_partials<T><<<1, FIN, 0, st>>>(partial, 2 * nb, out);
+  return (int)cudaGetLastError();
+}
+
+int blk_bands(int J) { return (J + 2 + BAND - 1) / BAND; }
+
+template <typename T>
+int run_blocked(int dev, T* p, const T* rhs, int J, int I, double factor,
+                double idx2, double idy2, T* partial, T* out,
+                cudaStream_t st) {
+  cudaError_t e = cudaSetDevice(dev);
+  if (e != cudaSuccess) return (int)e;
+  const int nb = blk_bands(J);
+  const int nn = ((I > J ? I : J) + 255) / 256;
+  blk_color<T><<<nb, TILE, 0, st>>>(p, rhs, J, I, 0, T(factor), T(idx2),
+                                    T(idy2), partial);
+  blk_color<T><<<nb, TILE, 0, st>>>(p, rhs, J, I, 1, T(factor), T(idx2),
+                                    T(idy2), partial + nb);
+  cb_neumann<T><<<nn, 256, 0, st>>>(p, J, I);
+  sum_partials<T><<<1, FIN, 0, st>>>(partial, 2 * nb, out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -320,5 +494,29 @@ SOR_ENTRY(rb_sor_checkerboard_f32, run_checkerboard, float)
 SOR_ENTRY(rb_sor_checkerboard_f64, run_checkerboard, double)
 SOR_ENTRY(rb_sor_quarters_f32, run_quarters, float)
 SOR_ENTRY(rb_sor_quarters_f64, run_quarters, double)
+
+int rb_sor_blocked_partials(int J) { return 2 * blk_bands(J); }
+
+#define MASKED_ENTRY(NAME, T)                                                \
+  int NAME(int dev, void* p, const void* rhs, const void* fl, int J, int I,  \
+           int n_inner, double omega, double idx2, double idy2,             \
+           void* partial, void* out, void* stream) {                         \
+    return run_masked<T>(dev, (T*)p, (const T*)rhs, (const uint8_t*)fl, J,   \
+                         I, n_inner, omega, idx2, idy2, (T*)partial,        \
+                         (T*)out, (cudaStream_t)stream);                     \
+  }
+
+#define BLOCKED_ENTRY(NAME, T)                                               \
+  int NAME(int dev, void* p, const void* rhs, int J, int I, double factor,   \
+           double idx2, double idy2, void* partial, void* out,               \
+           void* stream) {                                                   \
+    return run_blocked<T>(dev, (T*)p, (const T*)rhs, J, I, factor, idx2,     \
+                          idy2, (T*)partial, (T*)out, (cudaStream_t)stream); \
+  }
+
+MASKED_ENTRY(rb_sor_masked_f32, float)
+MASKED_ENTRY(rb_sor_masked_f64, double)
+BLOCKED_ENTRY(rb_sor_blocked_f32, float)
+BLOCKED_ENTRY(rb_sor_blocked_f64, double)
 
 }  // extern "C"

@@ -1,6 +1,6 @@
-"""NS-2D incompressible Navier-Stokes time stepper, lid-driven cavity and
-canal (counterpart of pampi_tpu/models/ns2d.py, the reference's
-assignment-5).
+"""NS-2D incompressible Navier-Stokes time stepper, lid-driven cavity,
+canal and canal with obstacles (counterpart of pampi_tpu/models/ns2d.py,
+the reference's assignment-5).
 
 One step is dt -> PRE (kernel K3: wall BCs, special BC, F/G, RHS) ->
 normalizePressure every 100 steps -> the pressure solve (`tpu_solver`:
@@ -10,6 +10,15 @@ adaptUV and the maxima of |u| and |v|). The maxima are carried to the next step'
 JAX package's fused chunk (`_build_fused_chunk`), so dt is computed on the
 device from two scalars. On the CPU the same composition runs the kernels'
 plain versions, in the same order.
+
+With an `obstacles` key (canal_obstacle*.par: flag-field rectangles,
+ops/obstacle.py) the step is the same composition in flag mode: PRE (K3
+with the flags: the obstacle velocity BC after the special BC, F/G
+carrying U/V on non-fluid faces), the fluid-weighted normalizePressure
+every 100 steps, the solve on the masked mode of K2 (residual over the
+fluid cells, `tpu_solver sor` only), POST (K4 with the flags: the
+projection on fluid-fluid faces). The JAX package runs that step as its
+phase chain on the CPU and as these kernels on a TPU.
 
 The step updates u and v in place and replaces p with the solved field.
 t accumulates on the host in float64 (one readback of dt per step), which
@@ -22,12 +31,18 @@ import numpy as np
 import torch
 
 from ..ops import ns2d as ops
+from ..ops import obstacle as obst
 from ..ops.ns2d_fused import StepConfig, ns2d_post, ns2d_pre
 from ..utils import flags as _flags
 from ..utils.datio import write_pressure, write_velocity
 from ..utils.device import resolve_device
-from ..utils.dispatch import check_supported, record, resolve_solver
-from ..utils.params import Parameter
+from ..utils.dispatch import (
+    check_supported,
+    record,
+    resolve_solver,
+    sor_cadence,
+)
+from ..utils.params import Parameter, validate_obstacle_layout
 from ..utils.precision import resolve_dtype
 from ..utils.progress import Progress
 from ._driver import clamped_dt, drive_chunks
@@ -67,10 +82,28 @@ class NS2DSolver:
         self.nt = 0
         self._dt_scale = 1.0
         self._cfg = StepConfig.from_param(param)
-        self._solve = make_pressure_solve_for(param, self.dx, self.dy,
-                                              self.dtype, self.device)
-        record("ns2d_step", f"pre -> {solve_label(param, self.dtype)} -> post on "
-               f"{self.device.type}")
+        # obstacle flag fields: the host masks, the fluid field on the
+        # device (normalizePressure's weight) and the kernels' uint8 flags
+        self.masks = self._fluid = self._flags = None
+        if param.obstacles.strip():
+            validate_obstacle_layout(param.tpu_sor_layout)
+            self.masks = obst.make_masks(
+                obst.build_fluid(self.imax, self.jmax, self.dx, self.dy,
+                                 param.obstacles),
+                self.dx, self.dy, param.omg)
+            self._fluid = torch.from_numpy(self.masks.fluid).to(
+                device=self.device, dtype=self.dtype)
+            n = sor_cadence(param, self.dtype)
+            self._solve = obst.make_obstacle_solver_fn(
+                self.imax, self.jmax, self.dx, self.dy, param.eps,
+                param.itermax, self.masks, self.dtype, n, device=self.device)
+            self._flags = self._solve.flags
+            label = f"sor masked checkerboard n_inner={n}"
+        else:
+            self._solve = make_pressure_solve_for(param, self.dx, self.dy,
+                                                  self.dtype, self.device)
+            label = solve_label(param, self.dtype)
+        record("ns2d_step", f"pre -> {label} -> post on {self.device.type}")
         self.phase_hook = None
         # the last pressure solve's residual and iteration (V-cycle) count
         self.last_res = self.last_it = None
@@ -108,14 +141,17 @@ class NS2DSolver:
             dt = torch.full((), param.dt, dtype=self.dtype,
                             device=self.device)
         dt = clamped_dt(dt, self._dt_scale)
-        f, g, rhs = ns2d_pre(self.u, self.v, dt, self._cfg)
+        f, g, rhs = ns2d_pre(self.u, self.v, dt, self._cfg,
+                             flags=self._flags)
         self._mark("solve")
         if self.nt % 100 == 0:
-            self.p = ops.normalize_pressure(self.p)
+            self.p = (ops.normalize_pressure(self.p) if self._fluid is None
+                      else obst.normalize_pressure_fluid(self.p, self._fluid))
         self.p, self.last_res, self.last_it = self._solve(self.p, rhs)
         self._mark("post")
         self._umax, self._vmax = ns2d_post(self.u, self.v, f, g, self.p, dt,
-                                           self.dx, self.dy)
+                                           self.dx, self.dy,
+                                           flags=self._flags)
         self._mark("end")
         dt_host = float(dt)
         self.t += dt_host

@@ -32,6 +32,11 @@ assignment-5 MPI solver (ex5-nazifkar), with NS2DSolver's .par interface.
     JAX package runs its kernel, B.14, only on a ragged mesh (on a TPU,
     or anywhere under `checkerboard`) and its grid CA otherwise; the port
     runs K15 on every device;
+  - with an `obstacles` key, the same solve on the real flags
+    (recorded "obstacle (see obstacle_dist)[ ragged]", the solve itself
+    under "obstacle_dist"), or on shards too thin for K15 the flag-masked
+    exchange per half-sweep (ops/obstacle.make_obstacle_fallback); the
+    quarter layout never runs there;
   - the grid-space CA solve (parallel/stencil2d.py, plain torch;
     "jnp_ca[ ragged]") where neither applies, or the exchange-per-half-
     sweep fallback on shards too thin for the CA's strips (extent 1, or
@@ -43,12 +48,19 @@ assignment-5 MPI solver (ex5-nazifkar), with NS2DSolver's .par interface.
   (`_step_chain`): depth-1 exchanges around the BCs, the F/G donor-edge
   shift (commShift), the projection on the global interior times the live
   mask, in plain torch.
+- Obstacle flag fields (canal_obstacle*.par): the fused step feeds K3 the
+  shard's deep flag block and K4 its halo-1 block (cells beyond the
+  global grid read flag 0, the JAX package's fused_flag_blocks); the
+  chain applies the obstacle velocity BC, mask_fg and the masked
+  projection with the shard's slices of the global masks
+  (ops/obstacle.shard_masks); normalizePressure takes the fluid-weighted
+  mean, the sums in mesh order.
 
 On the CPU the same composition runs the kernels' plain versions. The
 fields equal NS2DSolver's to round-off where the iteration counts agree.
 The overlapped and depth-scheduled exchanges, the residual-adaptive
-itermax and mg/fft on a mesh are refused (ROADMAP A.8), obstacles too
-(A.4).
+itermax and mg/fft on a mesh are refused (ROADMAP A.8), and obstacle
+multigrid (A item 5).
 """
 
 from __future__ import annotations
@@ -57,8 +69,8 @@ import numpy as np
 import torch
 
 from ..ops import ns2d as ops
+from ..ops import obstacle as obst
 from ..ops.ns2d_fused import StepConfig, ns2d_post, ns2d_pre
-from ..ops.obstacle import make_dist_obstacle_solver, make_masks
 from ..ops.sor_kernels import sor_coefficients
 from ..parallel import comm as pc
 from ..parallel import quarters_dist as qd
@@ -77,6 +89,7 @@ from ..parallel.stencil2d import (
     ca_supported,
     embed_deep,
     rb_exchange_per_sweep,
+    scalar_half,
     strip_deep,
 )
 from ..utils import dispatch as _dispatch
@@ -144,6 +157,12 @@ class NS2DDistSolver:
         self.param = param
         self.offs = [self.comm.offsets(s, self.local)
                      for s in range(self.comm.size)]
+        self.masks = None
+        if param.obstacles.strip():
+            self.masks = obst.make_masks(
+                obst.build_fluid(self.imax, self.jmax, self.dx, self.dy,
+                                 param.obstacles),
+                self.dx, self.dy, param.omg)
         inv_sqr_sum = 1.0 / (self.dx * self.dx) + 1.0 / (self.dy * self.dy)
         self.dt_bound = 0.5 * param.re / inv_sqr_sum
         self.t = 0.0
@@ -168,21 +187,31 @@ class NS2DDistSolver:
         devices = comm.devices
         self._cfg = StepConfig.from_param(param)
         self._coef = sor_coefficients(self.dx, self.dy, param.omg)
+        masks = self.masks
         self._rb_q, self._qg = qd.quarters_dispatch(
             param, self.jmax, self.imax, jl, il, self.dx, self.dy, dtype,
-            "ns2d_dist", plain_sor=not self.ragged, label="pallas")
+            "ns2d_dist", plain_sor=not self.ragged and masks is None,
+            label="pallas")
         self._solve_k = None
         forced = param.tpu_sor_layout == "checkerboard"
-        if self._rb_q is None and (self.ragged or forced):
+        n = _dispatch.sor_cadence(param, dtype, mesh=True, forced=forced)
+        if masks is not None:
+            _dispatch.record("ns2d_dist", "obstacle (see obstacle_dist)"
+                             + (" ragged" if self.ragged else ""))
+            args = (comm, self.imax, self.jmax, jl, il, self.dx, self.dy,
+                    param.eps, param.itermax, masks, dtype)
+            self._solve_k = obst.make_dist_obstacle_solver(
+                *args, n=n, ragged=self.ragged) or \
+                obst.make_obstacle_fallback(*args, ragged=self.ragged)
+        elif self._rb_q is None and (self.ragged or forced):
             # the live region is a flag field: all-fluid flags, the dead
             # cells excluded by the kernel's global gating
-            live = make_masks(np.ones((self.jmax + 2, self.imax + 2), bool),
-                              self.dx, self.dy, param.omg)
-            self._solve_k = make_dist_obstacle_solver(
+            live = obst.make_masks(
+                np.ones((self.jmax + 2, self.imax + 2), bool), self.dx,
+                self.dy, param.omg)
+            self._solve_k = obst.make_dist_obstacle_solver(
                 comm, self.imax, self.jmax, jl, il, self.dx, self.dy,
-                param.eps, param.itermax, live, dtype,
-                n=_dispatch.sor_cadence(param, dtype, mesh=True,
-                                        forced=forced),
+                param.eps, param.itermax, live, dtype, n=n,
                 ragged=self.ragged, record_key="ns2d_dist")
         # the grid-space CA path: block size, halo depth and masks; shards
         # that cannot ship its depth-2n (ragged: 2n+1) strips take the
@@ -195,10 +224,24 @@ class NS2DDistSolver:
         if self._rb_q is None and self._solve_k is None:
             _dispatch.record("ns2d_dist",
                              "jnp_ca ragged" if self.ragged else "jnp_ca")
-        # the normalizePressure weight
+        # the normalizePressure weight (times the fluid field with
+        # obstacles), the shards' slices of the masks (the phase chain's)
+        # and their deep and halo-1 flag blocks (the fused step's)
         self._weight = [rg.wall_weight_ragged(comm, s, jl, il, self.jmax,
                                               self.imax, dtype, dev)
                         for s, dev in enumerate(devices)]
+        self._obs = self._flags = None
+        if masks is not None:
+            self._obs = [obst.shard_masks(masks, comm, s, jl, il).to(dtype,
+                                                                     dev)
+                         for s, dev in enumerate(devices)]
+            self._weight = [w * m.fluid for w, m in zip(self._weight,
+                                                        self._obs)]
+            self._flags = [
+                tuple(obst.deep_flag_block(masks, comm, s, jl, il, H,
+                                           self.jmax, self.imax, dev)
+                      for H in (FUSE_DEEP_HALO, 1))
+                for s, dev in enumerate(devices)]
         why = None
         if min(jl, il) < FUSE_DEEP_HALO:
             why = f"shard extents < deep halo {FUSE_DEEP_HALO}"
@@ -281,11 +324,17 @@ class NS2DDistSolver:
     def _normalize(self, p):
         """normalizePressure: p minus the mean over the global
         (jmax+2, imax+2) array, each position counted once (the wall
-        weight), the sum in mesh order."""
+        weight), the sum in mesh order; with obstacles the fluid-weighted
+        mean (normalize_pressure_fluid), the weights' sum in mesh order
+        too."""
         total = reduction([torch.sum(x * w) for x, w in
                            zip(p, self._weight)], self.comm, "sum")
-        mean = total / ops._const(float((self.imax + 2) * (self.jmax + 2)),
-                                  total)
+        if self.masks is not None:
+            mean = total / reduction([torch.sum(w) for w in self._weight],
+                                     self.comm, "sum")
+        else:
+            mean = total / ops._const(
+                float((self.imax + 2) * (self.jmax + 2)), total)
         return [x - m for x, m in zip(p, self._on_shards(mean))]
 
     # -- the pressure solve ----------------------------------------------
@@ -338,9 +387,9 @@ class NS2DDistSolver:
 
         def rounds():
             if not self._ca_ok:
-                new, r2 = rb_exchange_per_sweep(pd, rd, masks, comm,
-                                                *self._coef,
-                                                ragged=self.ragged)
+                new, r2 = rb_exchange_per_sweep(
+                    pd, rd, masks, comm, scalar_half(masks, *self._coef),
+                    ragged=self.ragged)
                 pd[:] = new
                 return r2, 1
             pc.halo_exchange(pd, comm, depth=H)
@@ -372,9 +421,10 @@ class NS2DDistSolver:
         dt = self._dt(ud, vd)
         dts = self._on_shards(dt)
         f, g, rhs = [], [], []
+        flags = self._flags or [(None, None)] * comm.size
         for s in range(comm.size):
             out = ns2d_pre(ud[s], vd[s], dts[s], self._cfg, self.offs[s],
-                           self.gext, H - 1)
+                           self.gext, H - 1, flags[s][0])
             for lst, a in zip((f, g, rhs), out):
                 lst.append(a)
         u, v = ([strip_deep(b, H).contiguous() for b in x] for x in (ud, vd))
@@ -383,7 +433,7 @@ class NS2DDistSolver:
         self._mark("post")
         maxima = [ns2d_post(u[s], v[s], f[s], g[s], self.p[s], dts[s],
                             self.dx, self.dy, self.offs[s], self.gext,
-                            self.ragged)
+                            self.ragged, flags[s][1])
                   for s in range(comm.size)]
         self.last_maxima = tuple(reduction(list(m), comm, "max")
                                  for m in zip(*maxima))
@@ -397,7 +447,10 @@ class NS2DDistSolver:
         the projection on the global interior times the live mask. The
         BCs and fixups are gated by the global index (parallel/ragged2d.py)
         on every mesh; what they write on interface ghosts the following
-        exchange overwrites."""
+        exchange overwrites. With obstacles the velocity BC follows the
+        exchanged BCs (and one more exchange), F/G carry U/V on non-fluid
+        faces and the projection runs on fluid-fluid faces, with the
+        shard's slices of the global masks."""
         comm, cfg, param = self.comm, self._cfg, self.param
         jl, il = self.local
         J, I = self.gext
@@ -414,6 +467,12 @@ class NS2DDistSolver:
             self.v[s] = v
         for x in (self.u, self.v):
             pc.halo_exchange(x, comm)
+        if self._obs is not None:
+            for s in range(comm.size):
+                self.u[s], self.v[s] = obst.apply_obstacle_velocity_bc(
+                    self.u[s], self.v[s], self._obs[s])
+            for x in (self.u, self.v):
+                pc.halo_exchange(x, comm)
         f, g = [], []
         for s in range(comm.size):
             u, v = self.u[s], self.v[s]
@@ -421,6 +480,8 @@ class NS2DDistSolver:
                 *ops.compute_fg_interior(u, v, dts[s], cfg.re, cfg.gx, cfg.gy,
                                          cfg.gamma, self.dx, self.dy),
                 u, v, comm, s, jl, il, J, I)
+            if self._obs is not None:
+                fs, gs = obst.mask_fg(fs, gs, u, v, self._obs[s])
             f.append(fs)
             g.append(gs)
         pc.halo_shift(f, comm, "i")
@@ -431,8 +492,13 @@ class NS2DDistSolver:
         self._pressure(rhs)
         self._mark("post")
         for s in range(comm.size):
-            ua, va = ops.adapt_uv(self.u[s], self.v[s], f[s], g[s],
-                                  self.p[s], dts[s], self.dx, self.dy)
+            if self._obs is None:
+                ua, va = ops.adapt_uv(self.u[s], self.v[s], f[s], g[s],
+                                      self.p[s], dts[s], self.dx, self.dy)
+            else:
+                ua, va = obst.adapt_uv_obstacle(
+                    self.u[s], self.v[s], f[s], g[s], self.p[s], dts[s],
+                    self.dx, self.dy, self._obs[s])
             if self.ragged:
                 m, live = self._interior[s], self._live[s]
                 self.u[s] = torch.where(m, ua, self.u[s]) * live

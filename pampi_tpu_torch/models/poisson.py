@@ -42,7 +42,12 @@ import torch
 
 from ..ops.dctpoisson import make_dct_solve_2d
 from ..ops.multigrid import make_mg_solve_2d
-from ..ops.sor_kernels import rb_sor_checkerboard, rb_sor_quarters, sor_coefficients
+from ..ops.sor_kernels import (
+    rb_sor_blocked,
+    rb_sor_checkerboard,
+    rb_sor_quarters,
+    sor_coefficients,
+)
 from ..ops.sor_quarters import stack_quarters, unstack_quarters
 from ..utils import flags as _flags
 from ..utils.datio import write_matrix
@@ -109,6 +114,46 @@ def make_rb_loop(imax, jmax, dx, dy, omega, n_inner: int = 1,
         return x.contiguous()
 
     return step, ident, ident, n_inner
+
+
+def make_rb_step_padded(imax, jmax, dx, dy, omega, dtype,
+                        kernel: str = "fused", n_inner: int = 4, *, device):
+    """One red-black step on the pressure array, as the JAX package's
+    make_rb_step_padded: returns (step, pad, unpad), where step(p, rhs)
+    updates p in place and returns (p, Σr²/(imax·jmax)), the Neumann ghost
+    copy included, the residual a 0-dim tensor in the field's dtype (no
+    host sync). `kernel` "tblock" runs K2 with n_inner iterations a step,
+    "fused" K2 with one, "blocked" K17 (one iteration, the JAX package's
+    _rb_kernel). Their plain versions run on CPU tensors.
+
+    The port keeps the natural (jmax+2, imax+2) layout: the TPU's sublane
+    and lane padding (sor_pallas.pad_array, padded_width) is the TPU's
+    tiling and is not ported, so pad and unpad return a contiguous copy
+    (on `device`), which the caller carries through its loop as the JAX
+    package carries its padded array."""
+    if kernel == "fused":
+        kernel, n_inner = "tblock", 1
+    if kernel not in ("tblock", "blocked"):
+        raise ValueError(f"kernel must be fused|tblock|blocked, got "
+                         f"{kernel!r}")
+    device = resolve_device(device)
+    factor, idx2, idy2 = sor_coefficients(dx, dy, omega)
+    norm = torch.full((), float(imax * jmax), dtype=dtype, device=device)
+
+    if kernel == "tblock":
+        def rsq(p, rhs):
+            return rb_sor_checkerboard(p, rhs, n_inner, factor, idx2, idy2)
+    else:
+        def rsq(p, rhs):
+            return rb_sor_blocked(p, rhs, factor, idx2, idy2)
+
+    def step(p, rhs):
+        return p, rsq(p, rhs) / norm
+
+    def pad(x):
+        return x.to(device=device, dtype=dtype, copy=True).contiguous()
+
+    return step, pad, pad
 
 
 def make_solver_fn(imax, jmax, dx, dy, omega, eps, itermax, dtype,

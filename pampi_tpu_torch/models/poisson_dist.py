@@ -41,6 +41,7 @@ from ..parallel.stencil2d import (
     ca_supported,
     neumann_masked,
     rb_exchange_per_sweep,
+    scalar_half,
 )
 from ..utils import dispatch as _dispatch
 from ..utils.datio import write_matrix
@@ -196,8 +197,9 @@ class DistPoissonSolver:
 
         def rounds():
             if not self.supported:
-                new, r2 = rb_exchange_per_sweep(ps, rhs, masks, comm, *coef,
-                                                ragged=self.ragged)
+                new, r2 = rb_exchange_per_sweep(
+                    ps, rhs, masks, comm, scalar_half(masks, *coef),
+                    ragged=self.ragged)
                 ps[:] = new
                 return r2, 1
             halo_exchange(ps, comm, depth=H)

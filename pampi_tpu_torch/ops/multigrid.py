@@ -31,7 +31,7 @@ back, normalises it in the field's dtype, and stops on res < eps², on
 it >= itermax, or on a stall (the residual changed by at most
 `stall_rtol` relative over one cycle, from the second cycle on; 0
 disables the detector). The obstacle and distributed multigrids are not
-ported (ROADMAP A.4, A.8).
+ported (ROADMAP A item 5, A.8).
 """
 
 from __future__ import annotations

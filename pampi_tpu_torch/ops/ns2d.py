@@ -203,10 +203,11 @@ def set_special_bc_canal(u, dy, ylength):
 
 
 def set_special_bc(u, problem, dy, ylength):
-    """The special BC of `problem` (dcavity lid or canal inflow)."""
+    """The special BC of `problem` (dcavity lid, or the canal inflow of
+    canal and canal_obstacle)."""
     if problem == "dcavity":
         return set_special_bc_dcavity(u)
-    if problem == "canal":
+    if problem in ("canal", "canal_obstacle"):
         return set_special_bc_canal(u, dy, ylength)
     return u
 
@@ -371,14 +372,17 @@ def compute_fg_interior(u, v, dt, re, gx, gy, gamma, dx, dy):
 
 
 def pre_gated(ud, vd, dt, bc, problem, re, gx, gy, gamma, dx, dy, ylength,
-              offs, gext, ext_pad: int):
+              offs, gext, ext_pad: int, flags=None):
     """PRE on a shard's deep block (the plain version of K3's distributed
     mode): ud, vd are (l+2+2e)-extended blocks (e = ext_pad >= 1) whose
     local index a is global a - e + offset. Returns u', v' on the deep
     block after the wall and special BCs, and F, G, rhs on the shard's
     halo-1 block: F/G the predictor on the global interior plus the wall
     fixups, zero elsewhere; rhs on the owned cells of the global interior.
-    Inputs untouched."""
+    With the deep block's uint8 `flags` (obstacle flag fields) the
+    obstacle velocity BC follows the special BC and F/G carry U/V on
+    non-fluid faces (ops/obstacle.py, with the block's own faces). Inputs
+    untouched."""
     if ext_pad < 1:
         raise ValueError("the gated PRE needs a deep block (ext_pad >= 1)")
     e = ext_pad
@@ -386,6 +390,12 @@ def pre_gated(ud, vd, dt, bc, problem, re, gx, gy, gamma, dx, dy, ylength,
     u, v = apply_wall_bcs_gated(ud, vd, gj, gi, bc, gext, shift_zero)
     u = apply_special_bc_gated(u, gj, gi, problem, gext, dy, ylength,
                                shift_zero)
+    faces = None
+    if flags is not None:
+        from . import obstacle as obst
+
+        faces = obst.block_faces(flags, gj, gi, gext, ud.dtype)
+        u, v = obst.apply_obstacle_velocity_bc(u, v, faces)
     f_full, g_full = fg_predictor_terms(u, v, dt, re, gx, gy, gamma, dx, dy)
     strip = tuple(slice(e, n - e) for n in ud.shape)
     uo, vo = u[strip], v[strip]
@@ -395,17 +405,24 @@ def pre_gated(ud, vd, dt, bc, problem, re, gx, gy, gamma, dx, dy, ylength,
     f, g = fg_fixups_gated(torch.where(interior, f_full[strip], zero),
                            torch.where(interior, g_full[strip], zero),
                            uo, vo, gj, gi, gext)
+    if faces is not None:
+        f, g = obst.mask_fg(f, g, uo, vo, obst.Faces(
+            faces.fluid[strip], faces.u_face[strip], faces.v_face[strip]))
     owned = _interior_mask(f.shape, f.device) & interior
     rhs = torch.where(owned, rhs_terms(f, g, dt, dx, dy), zero)
     return u, v, f, g, rhs
 
 
-def post_gated(u, v, f, g, p, dt, dx, dy, offs, gext, ragged: bool):
+def post_gated(u, v, f, g, p, dt, dx, dy, offs, gext, ragged: bool,
+               flags=None):
     """POST on a shard's halo-1 block (the plain version of K4's
     distributed mode): the projection on the cells of the global interior,
     ring cells included where they are interface ghosts, with p read as 0
     beyond the block's high edge; other cells keep u, v. On a ragged mesh
-    the dead cells are then zeroed (the live-mask multiply). Returns (u'',
+    the dead cells are then zeroed (the live-mask multiply). With the
+    block's uint8 `flags` the projection is multiplied by the face masks,
+    a face fluid-fluid where the cell and its + neighbour are fluid (the
+    flags, like p, read as 0 beyond the block's high edge). Returns (u'',
     v'', max|u''|, max|v''|), the maxima over the block's cells of the
     global extended array. Inputs untouched."""
     gj, gi = index_grids_2d(u.shape, 0, offs, u.device)
@@ -414,8 +431,15 @@ def post_gated(u, v, f, g, p, dt, dx, dy, offs, gext, ragged: bool):
     pp = torch.nn.functional.pad(p, (0, 1, 0, 1))
     fx = dt / _const(dx, dt)
     fy = dt / _const(dy, dt)
-    un = torch.where(interior, f - (pp[:-1, 1:] - p) * fx, u)
-    vn = torch.where(interior, g - (pp[1:, :-1] - p) * fy, v)
+    ua = f - (pp[:-1, 1:] - p) * fx
+    va = g - (pp[1:, :-1] - p) * fy
+    if flags is not None:
+        fl = flags.to(u.dtype)
+        fp = torch.nn.functional.pad(fl, (0, 1, 0, 1))
+        ua = ua * (fl * fp[:-1, 1:])
+        va = va * (fl * fp[1:, :-1])
+    un = torch.where(interior, ua, u)
+    vn = torch.where(interior, va, v)
     if ragged:
         live = ((gj <= jmax + 1) & (gi <= imax + 1)).to(u.dtype)
         un, vn = un * live, vn * live

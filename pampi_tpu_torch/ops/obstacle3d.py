@@ -29,7 +29,7 @@ ops/ns3d.py: (kmax+2, jmax+2, imax+2) arrays [k, j, i]; u on east faces,
 v on north faces, w on back faces; the ghost shell counts as fluid.
 
 The JAX package's obstacle multigrid and its ragged-mesh obstacle solve
-are not ported (ROADMAP A items 3 and 5), and neither is its padded TPU
+are not ported (ROADMAP A items 5 and 6), and neither is its padded TPU
 layout (`pad_array_3d`, `padded_deep_exchange_3d`): the port exchanges
 the unpadded deep block (parallel/comm.halo_exchange).
 """

@@ -43,7 +43,7 @@ import torch
 
 from ..kernels import build as kb
 from .sor3d import checkerboard_mask_3d, neumann_faces_3d, sor_pass_3d
-from .sor_kernels import _SUFFIX, _check
+from .sor_kernels import _SUFFIX, _check, ordered_r2_sum
 from .sor_octants import BITS, rb_sweeps_octants
 
 SOURCE = "pampi_tpu_torch/csrc/sor3d_rb.cu"
@@ -67,32 +67,6 @@ _MASKED_ARGS = [_I, _V, _V, _V, _I, _I, _I, _I, _D, _D, _D, _D, _V, _V, _V,
                 _V]
 _SIGNATURES.update({f"rb_sor3d_masked_{t}": _MASKED_ARGS
                     for t in ("f32", "f64")})
-FIN = 1024  # threads of the kernels' one-block final sum (sum_partials)
-
-
-def ordered_r2_sum(r2):
-    """The fixed-order sum of a (K', J', I') array of r² that masked K5 and
-    K16 take on the card: each (k, j) row summed from its first cell up,
-    then the rows, in row-major order, by one block of FIN threads (thread
-    t adds rows t, t + FIN, ... in turn, then a halving tree over the
-    threads). Returns a 0-dim tensor equal bit for bit to the kernels'."""
-    rows = torch.zeros(r2.shape[:-1], dtype=r2.dtype, device=r2.device)
-    for i in range(r2.shape[-1]):
-        rows = rows + r2[..., i]
-    flat = rows.reshape(-1)
-    m = max(1, -(-flat.numel() // FIN))
-    padded = torch.zeros(m * FIN, dtype=r2.dtype, device=r2.device)
-    padded[:flat.numel()] = flat
-    s = torch.zeros(FIN, dtype=r2.dtype, device=r2.device)
-    for r in range(m):
-        s = s + padded[r * FIN:(r + 1) * FIN]
-    st = FIN // 2
-    while st > 0:
-        s = s[:st] + s[st:2 * st]
-        st //= 2
-    return s[0]
-
-
 def masked_stencil_3d(flags, dtype, omega, idx2, idy2, idz2):
     """(fac, lap) of the flag-masked stencil on the interior of a
     (K'+2, J'+2, I'+2) block, from the six neighbours' flags (e, w, n, s,

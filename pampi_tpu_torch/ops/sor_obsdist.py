@@ -17,7 +17,8 @@ cell (a, b) holds global extended index (a - H + joff + 1, b - H + ioff +
 - its coefficients come from the flags of the shard's deep flag block:
   eps_E/W/N/S are the neighbours' flags, fac = (denom > 0 ? omega/denom :
   0)·flag with denom = (eps_E + eps_W)/dx² + (eps_N + eps_S)/dy²
-  (sor_pallas.masked_stencil_ops);
+  (sor_pallas.masked_stencil_ops; the plain form is
+  ops/sor_kernels.masked_stencil_2d, which masked K2 shares);
 - per iteration: r = rhs - lap(p) on red, p -= fac·r, the same on black,
   then the four wall selects (row lo, row hi, column lo, column hi;
   sor_pallas.rb_inner_sweeps), each clipped tangentially to the global
@@ -26,9 +27,10 @@ cell (a, b) holds global extended index (a - H + joff + 1, b - H + ioff +
   shard's owned cells, returned as a 0-dim tensor on p's device.
 
 The flags are uint8 (1 byte a cell): 0 marks an obstacle or a dead cell
-beyond the global ghost ring. The ragged NS-2D solve passes all-fluid
-flags; the dead cells of a ceil-divided block lie outside the global
-interior, so the gating keeps them frozen.
+beyond the global ghost ring. The NS-2D obstacle solve passes the real
+flags; the ragged NS-2D solve without obstacles passes all-fluid flags.
+The dead cells of a ceil-divided block lie outside the global interior,
+so the gating keeps them frozen.
 
 The JAX package carries the block in the TPU's padded layout
 (sor_pallas.pad_array) and exchanges it there (sor_obsdist.
@@ -54,7 +56,7 @@ from dataclasses import dataclass
 import torch
 
 from ..kernels import build as kb
-from .sor_kernels import _SUFFIX
+from .sor_kernels import _SUFFIX, masked_stencil_2d
 
 SOURCE = "pampi_tpu_torch/csrc/sor_obsdist.cu"
 RB_SOR_OBSDIST = kb.register(
@@ -111,46 +113,34 @@ def obsdist_masks(g: ObsGeom, joff: int, ioff: int, device="cpu"):
     }
 
 
-def _roll(x, shift, dim):
-    return torch.roll(x, shift, dim)
-
-
 def rb_iters_obsdist_plain(p, rhs, flags, g: ObsGeom, offs, omega, idx2,
                            idy2):
     """K15's plain version, op for op the kernel's arithmetic, in place on
     p; returns the owned Σr² of the last iteration (0-dim tensor). The
-    rolls wrap only into the frozen outer ring, which no mask selects."""
+    stencil is ops/sor_kernels.masked_stencil_2d on the block's interior
+    (the frozen outer ring is never updated); the wall selects' rolls wrap
+    only into that ring, which no mask selects."""
     m = obsdist_masks(g, int(offs[0]), int(offs[1]), p.device)
-    fluid = flags != 0
-    red, black = m["red"] & fluid, m["black"] & fluid
-    fl = flags.to(p.dtype)
-    eps_e, eps_w = _roll(fl, -1, 1), _roll(fl, 1, 1)
-    eps_n, eps_s = _roll(fl, -1, 0), _roll(fl, 1, 0)
-    denom = (eps_e + eps_w) * idx2 + (eps_n + eps_s) * idy2
-    om = torch.full((), omega, dtype=p.dtype, device=p.device)
+    inner = (slice(1, -1), slice(1, -1))
+    fluid = flags[inner] != 0
+    red, black = m["red"][inner] & fluid, m["black"][inner] & fluid
+    fac, lap = masked_stencil_2d(flags, p.dtype, omega, idx2, idy2)
     zero = torch.zeros((), dtype=p.dtype, device=p.device)
-    fac = torch.where(denom > 0, om / denom, zero) * fl
-
-    def resid(x, mask):
-        lap = ((eps_e * (_roll(x, -1, 1) - x) + eps_w * (_roll(x, 1, 1) - x))
-               * idx2 + (eps_n * (_roll(x, -1, 0) - x)
-                         + eps_s * (_roll(x, 1, 0) - x)) * idy2)
-        return torch.where(mask, rhs - lap, zero)
-
-    x = p
+    rhs_c = rhs[inner]
+    x = p.clone()
     r_red = r_blk = None
     for _ in range(g.n):
-        r_red = resid(x, red)
-        x = torch.where(red, x - fac * r_red, x)
-        r_blk = resid(x, black)
-        x = torch.where(black, x - fac * r_blk, x)
-        x = torch.where(m["row_lo"], _roll(x, -1, 0), x)
-        x = torch.where(m["row_hi"], _roll(x, 1, 0), x)
-        x = torch.where(m["col_lo"], _roll(x, -1, 1), x)
-        x = torch.where(m["col_hi"], _roll(x, 1, 1), x)
+        r_red = torch.where(red, rhs_c - lap(x), zero)
+        x[inner] = x[inner] - fac * r_red
+        r_blk = torch.where(black, rhs_c - lap(x), zero)
+        x[inner] = x[inner] - fac * r_blk
+        x = torch.where(m["row_lo"], torch.roll(x, -1, 0), x)
+        x = torch.where(m["row_hi"], torch.roll(x, 1, 0), x)
+        x = torch.where(m["col_lo"], torch.roll(x, -1, 1), x)
+        x = torch.where(m["col_hi"], torch.roll(x, 1, 1), x)
     p.copy_(x)
     r2 = r_red * r_red + r_blk * r_blk
-    return torch.sum(torch.where(m["owned"], r2, zero))
+    return torch.sum(torch.where(m["owned"][inner], r2, zero))
 
 
 def rb_sor_obsdist(p, rhs, flags, g: ObsGeom, offs, omega, idx2, idy2):

@@ -22,7 +22,7 @@ Per cell:
   (sor3d_pallas.rb_inner_sweeps_3d), each clipped tangentially to the
   global interior;
 - the residual is Σ r_odd² + r_even² of the last iteration over the
-  shard's owned cells, summed in ops/sor3d_kernels.ordered_r2_sum's
+  shard's owned cells, summed in ops/sor_kernels.ordered_r2_sum's
   fixed order (the masked K5's), returned as a 0-dim tensor on p's
   device: on a one-shard mesh K16 and masked K5 agree bitwise.
 
@@ -50,8 +50,8 @@ from dataclasses import dataclass
 import torch
 
 from ..kernels import build as kb
-from .sor3d_kernels import masked_stencil_3d, ordered_r2_sum
-from .sor_kernels import _SUFFIX
+from .sor3d_kernels import masked_stencil_3d
+from .sor_kernels import _SUFFIX, ordered_r2_sum
 
 SOURCE = "pampi_tpu_torch/csrc/sor_obsdist3d.cu"
 RB_SOR_OBSDIST3D = kb.register(

@@ -103,20 +103,30 @@ def ca_rb_iters(p, rhs, n: int, masks, factor, idx2, idy2):
     return p, _owned_r2(r_red, r_blk, masks)
 
 
-def rb_exchange_per_sweep(blocks, rhs, masks, comm: CartComm, factor, idx2,
-                          idy2, ragged: bool = False):
+def scalar_half(masks, factor, idx2, idy2):
+    """The all-fluid half-sweep for rb_exchange_per_sweep: ca_half_sweep
+    with the scalar factor on shard s's colour mask."""
+    def half(s, colour, p, f):
+        return ca_half_sweep(p, f, masks[s][colour][1:-1, 1:-1], factor,
+                             idx2, idy2)[1]
+    return half
+
+
+def rb_exchange_per_sweep(blocks, rhs, masks, comm: CartComm, half,
+                          ragged: bool = False):
     """The extent-1 fallback over every shard: one red-black iteration with
-    an exchange before each half-sweep, on halo-1 blocks. Ragged layouts
-    exchange once more before the wall copy (a wall-ghost row can open a
-    dead shard whose Neumann source is a neighbour's row). Returns the
-    blocks and the per-shard owned sums of r²."""
+    an exchange before each half-sweep, on halo-1 blocks. `half(s, colour,
+    p, f)` relaxes colour ("red" or "black") of shard s's block p in place
+    and returns its r (scalar_half, or the obstacle solve's flag-masked
+    half-sweep). Ragged layouts exchange once more before the wall copy (a
+    wall-ghost row can open a dead shard whose Neumann source is a
+    neighbour's row). Returns the blocks and the per-shard owned sums of
+    r²."""
     halo_exchange(blocks, comm)
-    r_red = [ca_half_sweep(p, f, m["red"][1:-1, 1:-1], factor, idx2, idy2)[1]
-             for p, f, m in zip(blocks, rhs, masks)]
+    r_red = [half(s, "red", p, f) for s, (p, f) in enumerate(zip(blocks, rhs))]
     halo_exchange(blocks, comm)
-    r_blk = [ca_half_sweep(p, f, m["black"][1:-1, 1:-1], factor, idx2,
-                           idy2)[1]
-             for p, f, m in zip(blocks, rhs, masks)]
+    r_blk = [half(s, "black", p, f)
+             for s, (p, f) in enumerate(zip(blocks, rhs))]
     if ragged:
         halo_exchange(blocks, comm)
     blocks = [neumann_masked(p, m) for p, m in zip(blocks, masks)]

@@ -56,7 +56,13 @@ def resolve_solver(param, ragged: bool = False):
     until obstacle multigrid is ported). Every other value passes
     through. The
     decision is recorded under "solver_auto". Returns the param with a
-    concrete solver; the models resolve through here first."""
+    concrete solver; the models resolve through here first. A 2-D
+    obstacle run under `sor_lex` gets the JAX package's ValueError (its
+    NS2DSolver refuses the pair) before the unported solver is named."""
+    if (param.tpu_solver == "sor_lex" and param.obstacles.strip()
+            and not is_3d_config(param)
+            and not param.name.startswith("poisson")):
+        raise ValueError(_OBSTACLE_SOLVER_2D.format("sor_lex"))
     check_solver(param.tpu_solver)
     if param.tpu_solver != "auto":
         return param
@@ -149,8 +155,9 @@ def check_supported(param, mesh: bool = False, ragged: bool = False) -> None:
     """Raise NotImplementedError for every configuration outside the
     ported stacks, ValueError for a value no package takes. The port runs
     2-D and 3-D single device with the red-black SOR, multigrid and DCT
-    pressure solvers, 3-D obstacle flag fields under the SOR (on one
-    device and on a mesh that divides the grid), and on a mesh (`tpu_mesh PJxPI`, `PKxPJxPI`) under
+    pressure solvers, obstacle flag fields under the SOR (2-D on one
+    device and on any 2-D mesh, 3-D on one device and on a mesh that
+    divides the grid), and on a mesh (`tpu_mesh PJxPI`, `PKxPJxPI`) under
     `tpu_solver sor` the distributed 2-D Poisson solve, the distributed
     NS-2D time stepper on a mesh that divides the grid or not (ragged),
     and the distributed NS-3D time stepper on a divisible grid. `param`
@@ -167,10 +174,11 @@ def check_supported(param, mesh: bool = False, ragged: bool = False) -> None:
         # not yet ported
         check_direct_dtype(torch.bfloat16)
     three_d = is_3d_config(param)
-    if param.obstacles.strip():
-        _check_obstacles(param, three_d)
     dims = mesh_dims(param.tpu_mesh)
-    if mesh or (dims is not None and math.prod(dims) > 1):
+    on_mesh = mesh or (dims is not None and math.prod(dims) > 1)
+    if param.obstacles.strip():
+        _check_obstacles(param, three_d, on_mesh)
+    if on_mesh:
         _check_mesh(param, three_d, ragged)
     # the SOR layout is checked where it is resolved
     # (models/poisson.resolve_layout, models/ns3d.resolve_layout_3d)
@@ -186,23 +194,34 @@ def check_supported(param, mesh: bool = False, ragged: bool = False) -> None:
             "(ROADMAP A.9)")
 
 
-def _check_obstacles(param, three_d: bool) -> None:
-    """Obstacle flag fields: 3-D ones under `tpu_solver sor`, on one
-    device and on a mesh that divides the grid (the ragged refusal is
-    _check_mesh's); fft is refused with the JAX package's ValueError
-    (pampi_tpu/models/ns3d.py), mg (which `auto` resolves to on an
-    obstacle grid) until obstacle multigrid is ported."""
-    if not three_d:
-        raise NotImplementedError(
-            "2-D obstacle flag fields are not yet ported (ROADMAP A.4)")
+# the JAX package's refusals of a solver that cannot take obstacle flag
+# fields: its NS2DSolver's, and its NS3DSolver's and distributed solvers'
+_OBSTACLE_SOLVER_2D = (
+    "tpu_solver {} cannot solve obstacle flag fields (fft: non-constant "
+    "coefficients; sor_lex: the lex oracle has no eps-coefficient form); "
+    "use sor or mg")
+_OBSTACLE_FFT = ("tpu_solver fft cannot solve obstacle flag fields (the "
+                 "stencil is not constant-coefficient); use sor or mg")
+
+
+def _check_obstacles(param, three_d: bool, mesh: bool) -> None:
+    """Obstacle flag fields under `tpu_solver sor`: 2-D ones on one device
+    and on a 2-D mesh, divisible or ragged; 3-D ones on one device and on
+    a mesh that divides the grid (the ragged refusal is _check_mesh's).
+    The Poisson problems refuse the key and fft refuses the fields, each
+    with the JAX package's ValueError (pampi_tpu/cli.py,
+    models/ns2d.py, ns2d_dist.py, ns3d.py); mg (which `auto` resolves to
+    on an obstacle grid) is refused until obstacle multigrid is ported."""
+    if param.name.startswith("poisson"):
+        raise ValueError("the obstacles key is supported for NS problems "
+                         "only")
     if param.tpu_solver == "fft":
-        raise ValueError(
-            "tpu_solver fft cannot solve obstacle flag fields (the "
-            "stencil is not constant-coefficient); use sor or mg")
+        raise ValueError(_OBSTACLE_SOLVER_2D.format("fft")
+                         if not (three_d or mesh) else _OBSTACLE_FFT)
     if param.tpu_solver == "mg":
         raise NotImplementedError(
             "tpu_solver mg with obstacle flag fields: obstacle multigrid "
-            "is not yet ported (ROADMAP A item 3); use tpu_solver sor")
+            "is not yet ported (ROADMAP A item 5); use tpu_solver sor")
 
 
 def _check_mesh(param, three_d: bool, ragged: bool) -> None:
@@ -212,7 +231,8 @@ def _check_mesh(param, three_d: bool, ragged: bool) -> None:
     (models/ns3d_dist.py) on a mesh that divides the grid; the NS steppers
     with the serial exchange schedule and a fixed solve budget."""
     where = f"tpu_mesh {param.tpu_mesh}"
-    ns = param.name in ("dcavity3d", "canal3d", "dcavity", "canal")
+    ns = param.name in ("dcavity3d", "canal3d", "dcavity", "canal",
+                        "canal_obstacle")
     if not (param.name.startswith("poisson") and not three_d) and not ns:
         raise NotImplementedError(
             f"{where}: the distributed {param.name} solver is not yet "

@@ -208,7 +208,10 @@ def test_kernel_registry():
                                "rb_sor_odist", "rb_sor_obsdist",
                                "rb_sor_obsdist3d",
                                "rb_sor3d_checkerboard_masked",
-                               "ns3d_pre_flags", "ns3d_post_flags"}
+                               "ns3d_pre_flags", "ns3d_post_flags",
+                               "rb_sor_checkerboard_masked",
+                               "rb_sor_blocked", "ns2d_pre_flags",
+                               "ns2d_post_flags"}
     for k in kb.KERNELS.values():
         assert (ROOT / k.source).is_file()
         path, line = k.replaces.split(":")

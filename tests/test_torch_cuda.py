@@ -13,8 +13,10 @@ bitwise, and K14 on a one-shard mesh is K6, residual included; so is K15,
 the flag-masked per-shard kernel of the distributed NS-2D solve; masked
 K5 and K16 (3-D obstacles) sum their residual in an order their plain
 versions repeat, so they are held bitwise, residual included, and K16 on a
-one-shard mesh is masked K5; an MG run on the card against the CPU, whose
-DCT bottom's matrix products sum in another order, to 1e-9."""
+one-shard mesh is masked K5; masked K2 (2-D obstacles) and K17 (one
+blocked red-black iteration) likewise, residual included, and K17's
+fields are K2's; an MG run on the card against the CPU, whose DCT
+bottom's matrix products sum in another order, to 1e-9."""
 
 import numpy as np
 import pytest
@@ -669,3 +671,114 @@ def test_obstacle_ns3d_on_card_matches_cpu(cuda):
         assert s.nt == runs[1].nt
         for a, b in zip(s.collect(), ref):
             assert np.abs(a - b).max() <= 1e-12
+
+
+def _obstacle_flags_2d(jmax, imax, device):
+    """The canal_obstacle.par box scaled onto a jmax x imax grid."""
+    dx, dy = 16.0 / imax, 4.0 / jmax
+    return obst.make_masks(obst.build_fluid(imax, jmax, dx, dy,
+                                            "3.0,1.5,4.0,2.5"),
+                           dx, dy, 1.8).flags(device), dx, dy
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(128, 256), (127, 257)])
+@pytest.mark.parametrize("n", [1, 4])
+def test_masked_k2_matches_plain(cuda, dtype, shape, n):
+    """Masked K2 against its plain version, two calls: fields and the
+    residual (summed in an order the plain version repeats) bitwise."""
+    jmax, imax = shape
+    flags, dx, dy = _obstacle_flags_2d(jmax, imax, cuda)
+    coef = (1.0 / (dx * dx), 1.0 / (dy * dy))
+    x = _rand((jmax + 2, imax + 2), dtype, cuda, 91)
+    f = _rand((jmax + 2, imax + 2), dtype, cuda, 92)
+    xk, xp = x.clone(), x.clone()
+    launches = sk.RB_SOR_MASKED.launches
+    for _ in range(2):
+        rk = sk.rb_sor_checkerboard(xk, f, n, 0.0, *coef, flags=flags,
+                                    omega=1.8)
+        rp = sk.rb_sor_masked_plain(xp, f, flags, n, 1.8, *coef)
+    assert sk.RB_SOR_MASKED.launches == launches + 2
+    assert torch.equal(xk, xp) and torch.equal(rk, rp)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(300, 520), (301, 9)])
+def test_blocked_k17_matches_plain_and_k2(cuda, dtype, shape):
+    """K17 against its plain version (fields and residual bitwise: the
+    plain version repeats its summation order) and its fields against K2
+    at n_inner 1, bitwise."""
+    jmax, imax = shape
+    coef = sk.sor_coefficients(1 / imax, 1 / jmax, 1.9)
+    x = _rand((jmax + 2, imax + 2), dtype, cuda, 93)
+    f = _rand((jmax + 2, imax + 2), dtype, cuda, 94)
+    xk, xp, x2 = x.clone(), x.clone(), x.clone()
+    launches = sk.RB_SOR_BLOCKED.launches
+    for _ in range(2):
+        rk = sk.rb_sor_blocked(xk, f, *coef)
+        rp = sk.rb_sor_blocked_plain(xp, f, *coef)
+        sk.rb_sor_checkerboard(x2, f, 1, *coef)
+    assert sk.RB_SOR_BLOCKED.launches == launches + 2
+    assert torch.equal(xk, xp) and torch.equal(rk, rp)
+    assert torch.equal(xk, x2)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(64, 256), (63, 255)])
+def test_ns2d_step_kernels_flag_mode_match_plain(cuda, dtype, shape):
+    """K3/K4 in flag mode on one device against their plain versions:
+    u', v' after the BCs and the maxima bitwise, the rest to the
+    tolerance; the flag entries count their launches."""
+    from pampi_tpu_torch.utils.params import Parameter
+
+    jmax, imax = shape
+    flags, dx, dy = _obstacle_flags_2d(jmax, imax, cuda)
+    param = Parameter(name="canal_obstacle", imax=imax, jmax=jmax,
+                      xlength=16.0, ylength=4.0, re=100.0, bcLeft=3,
+                      bcRight=3, gamma=0.9)
+    cfg = nf.StepConfig.from_param(param)
+    u, v, p = (_rand((jmax + 2, imax + 2), dtype, cuda, 95 + k)
+               for k in range(3))
+    dt = torch.tensor(0.013, dtype=dtype, device=cuda)
+    plain = nf.ns2d_pre_plain(u, v, dt, cfg, flags=flags)
+    uk, vk = u.clone(), v.clone()
+    pre, post = nf.NS2D_PRE_FLAGS.launches, nf.NS2D_POST_FLAGS.launches
+    fk = nf.ns2d_pre(uk, vk, dt, cfg, flags=flags)
+    assert torch.equal(uk, plain[0]) and torch.equal(vk, plain[1])
+    for a, b in zip(fk, plain[2:]):
+        _assert_close(a, b, dtype)
+    mp = nf.ns2d_post_plain(uk, vk, *fk[:2], p, dt, cfg.dx, cfg.dy,
+                            flags=flags)
+    mk = nf.ns2d_post(uk, vk, *fk[:2], p, dt, cfg.dx, cfg.dy, flags=flags)
+    assert (nf.NS2D_PRE_FLAGS.launches, nf.NS2D_POST_FLAGS.launches) == (
+        pre + 1, post + 1)
+    for a, b in zip((uk, vk), mp[:2]):
+        _assert_close(a, b, dtype)
+    for m, a in zip(mk, (uk, vk)):
+        assert torch.equal(m, a.abs().max())
+
+
+def test_obstacle_ns2d_on_card_matches_cpu(cuda):
+    """configs/canal_obstacle.par cut to 64x16 (te 0.5, f64) on the card
+    and on the CPU, one device and 2x2: the same steps and fields within
+    1e-12."""
+    import pathlib
+
+    from pampi_tpu_torch.utils.params import read_parameter
+
+    root = pathlib.Path(__file__).resolve().parent.parent
+    param = read_parameter(str(root / "configs" / "canal_obstacle.par")
+                           ).replace(imax=64, jmax=16, te=0.5)
+    runs = [NS2DSolver(param, device=d) for d in ("cuda", "cpu")]
+    runs += [NS2DDistSolver(param, CartComm(ndims=2, dims=(2, 2),
+                                            devices=[d]))
+             for d in (cuda, torch.device("cpu"))]
+    for s in runs:
+        s.run(progress=False)
+    ref = [getattr(runs[1], n).numpy() for n in "uvp"]
+    for s in runs:
+        assert s.nt == runs[1].nt
+        got = (s.global_fields() if hasattr(s, "global_fields")
+               else {n: getattr(s, n).cpu().numpy() for n in "uvp"})
+        for n, b in zip("uvp", ref):
+            assert np.abs(np.asarray(got[n]) - b).max() <= 1e-12

@@ -241,11 +241,13 @@ def test_refusals():
                dict(tpu_solver="auto"),  # takes fft on a divisible mesh
                dict(tpu_overlap="on"), dict(tpu_exchange_depth="1"),
                dict(tpu_itermax_adaptive=4),
-               dict(obstacles="0.2,0.2,0.4,0.4")):
+               dict(obstacles="0.2,0.2,0.4,0.4", tpu_solver="mg")):
         with pytest.raises(NotImplementedError, match="ROADMAP A"):
             NS2DDistSolver(base.replace(**kw), comm)
-    with pytest.raises(NotImplementedError, match="A.4"):
-        NS2DDistSolver(base.replace(obstacles="0.2,0.2,0.4,0.4"), comm)
+    # obstacles run on a mesh; obstacle multigrid does not
+    with pytest.raises(NotImplementedError, match="ROADMAP A item 5"):
+        NS2DDistSolver(base.replace(obstacles="0.2,0.2,0.4,0.4",
+                                    tpu_solver="mg"), comm)
     # auto takes sor on a ragged mesh
     s = NS2DDistSolver(base.replace(tpu_solver="auto", imax=15), comm)
     assert s.ragged and s.param.tpu_solver == "sor"

@@ -57,20 +57,19 @@ def _fluid(kind):
 KEYS = ("p_mask", "eps_e", "eps_w", "eps_n", "eps_s", "factor")
 
 
-def _deep_masks(m, comm, s, H):
+def _deep_masks(jm, comm, s, H):
     """The JAX twin's precomputed coefficients for shard s's deep block
     (the JAX package's deep_obstacle_masks, without its shard_map): the
-    global interior constants padded with zeros (H-1 per side, plus the
-    ragged overhang on the high side) and sliced at the shard's offsets,
-    cut for the block's [1:-1] region."""
+    global interior constants of JAX's masks `jm` padded with zeros (H-1
+    per side, plus the ragged overhang on the high side) and sliced at the
+    shard's offsets, cut for the block's [1:-1] region."""
     over_j = st.deep_pad_widths(H, JL, DIMS[0], JMAX)[1] - (H - 1)
     over_i = st.deep_pad_widths(H, IL, DIMS[1], IMAX)[1] - (H - 1)
     joff, ioff = comm.offsets(s, (JL, IL))
     pad = [(H - 1, H - 1 + over_j), (H - 1, H - 1 + over_i)]
     size = (JL + 2 * H - 2, IL + 2 * H - 2)
-    return {k: np.pad(getattr(m, k), pad)[joff:joff + size[0],
-                                          ioff:ioff + size[1]]
-            for k in KEYS}
+    return {k: np.pad(np.asarray(getattr(jm, k)), pad)[
+        joff:joff + size[0], ioff:ioff + size[1]] for k in KEYS}
 
 
 def _fields(seed=11):
@@ -176,7 +175,7 @@ def test_plain_version_per_shard_matches_eager_twin_and_kernel(kind):
         r = sod.rb_sor_obsdist(x, torch.from_numpy(rhs), flags, g, offs,
                                OMEGA, idx2, idy2)
         cm = jst.ca_masks(JL, IL, H, JMAX, IMAX, jnp.float64, *offs)
-        om = {k: jnp.asarray(v) for k, v in _deep_masks(m, comm, s,
+        om = {k: jnp.asarray(v) for k, v in _deep_masks(jm, comm, s,
                                                          H).items()}
         with jax.disable_jit():
             jx, jr2 = jobst.ca_rb_iters_obstacle(
@@ -197,16 +196,31 @@ def test_plain_version_per_shard_matches_eager_twin_and_kernel(kind):
 
 
 def test_masks_and_deep_slices_match_jax():
-    """make_masks against the JAX package's, bitwise, and the deep slices
-    the JAX twin is fed above (_deep_masks) against its
-    deep_obstacle_masks under shard_map, bitwise."""
+    """make_masks against the JAX package's, bitwise (the port keeps the
+    fluid field and the face masks; every solve forms its coefficients
+    from the flags, and those equal JAX's host-made interior fields on
+    the fluid cells, bitwise), and the deep slices the JAX twin is fed
+    above (_deep_masks) against its deep_obstacle_masks under shard_map,
+    bitwise."""
+    from pampi_tpu_torch.ops.sor_kernels import masked_stencil_2d
+
     fluid = _fluid("obstacle")
     jm = jobst.make_masks(fluid, DX, DY, OMEGA, jnp.float64)
     m = obst.make_masks(fluid, DX, DY, OMEGA)
-    for name in ("fluid", "u_face", "v_face") + KEYS:
+    for name in ("fluid", "u_face", "v_face"):
         np.testing.assert_array_equal(getattr(m, name),
                                       np.asarray(getattr(jm, name)))
     assert m.n_fluid == jm.n_fluid
+    fl = m.flags().to(torch.float64)
+    inner = fluid[1:-1, 1:-1]
+    fac, _lap = masked_stencil_2d(m.flags(), torch.float64, OMEGA,
+                                  1 / (DX * DX), 1 / (DY * DY))
+    np.testing.assert_array_equal(fac.numpy(), np.asarray(jm.factor))
+    np.testing.assert_array_equal(inner, np.asarray(jm.p_mask) != 0)
+    for name, nb in (("eps_e", fl[1:-1, 2:]), ("eps_w", fl[1:-1, :-2]),
+                     ("eps_n", fl[2:, 1:-1]), ("eps_s", fl[:-2, 1:-1])):
+        np.testing.assert_array_equal(np.where(inner, nb.numpy(), 0.0),
+                                      np.asarray(getattr(jm, name)))
     H = st.ca_halo(2, True)
     comm = CartComm(ndims=2, dims=DIMS, devices=[CPU])
     jc = jcomm.CartComm(ndims=2, dims=DIMS)
@@ -226,7 +240,7 @@ def test_masks_and_deep_slices_match_jax():
     for s in range(comm.size):
         cj, ci = comm.coords(s)
         sl = (slice(cj * mi, (cj + 1) * mi), slice(ci * mk, (ci + 1) * mk))
-        om = _deep_masks(m, comm, s, H)
+        om = _deep_masks(jm, comm, s, H)
         for k, a in zip(KEYS, stacked):
             np.testing.assert_array_equal(om[k], np.asarray(a[sl]))
 
@@ -264,7 +278,9 @@ def test_fallback_on_thin_ragged_shards():
              for s in range(comm.size)]
     for _ in range(12):
         p, _r2 = st.rb_exchange_per_sweep(
-            p, f, masks, comm, *sor_coefficients(dx, dy, OMEGA), ragged=True)
+            p, f, masks, comm,
+            st.scalar_half(masks, *sor_coefficients(dx, dy, OMEGA)),
+            ragged=True)
     comm2 = CartComm(ndims=2, dims=(2, 1), devices=[CPU])
     solve2 = obst.make_dist_obstacle_solver(
         comm2, imax, jmax, 8, 12, dx, dy, 1e-30, 12, m, torch.float64, n=1,

@@ -111,7 +111,11 @@ def test_refused_options_name_the_roadmap():
     base = read_parameter(str(CONFIGS / "poisson.par"))
     for kw in (dict(tpu_solver="sor_rba"), dict(tpu_solver="sor_lex"),
                dict(tpu_dtype="bfloat16"),
-               dict(tpu_mesh="2x2", tpu_solver="mg"),
-               dict(obstacles="0.1,0.1,0.2,0.2")):
+               dict(tpu_mesh="2x2", tpu_solver="mg")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tpoisson.PoissonSolver(base.replace(**kw), device="cpu")
+    # an obstacles key is no unported option: Poisson refuses it with the
+    # JAX CLI's error
+    with pytest.raises(ValueError, match="supported for NS problems only"):
+        tpoisson.PoissonSolver(base.replace(obstacles="0.1,0.1,0.2,0.2"),
+                               device="cpu")
