@@ -197,6 +197,33 @@ channel, flag-field masks) and K17 add:
    one-card run, the same steps (and t on the card); and
    configs/canal_obstacle2048.par at te 0.1 on one card.
 
+The fleet's shape-class mg lane (K18, the one-launch class V-cycle)
+adds:
+
+2. K18 against its plain version, float32 and float64, three chained
+   cycles, in the 16², 64² and 256² classes, each with a full-class lane,
+   an odd 9x13 lane (a one-level plan: the bottom sweeps run at level 0),
+   a 12x12 lane whose plan stops early, a ragged lane and an inactive one:
+   fields and residuals bitwise, the inactive lane passed through; 50
+   class solves of one 8-lane batch of the 64² class with identical
+   cycle counts and bitwise fields;
+3. K18 at bucket A's shape (256 lanes of the 64² class, float32) beside
+   its bound;
+4. FleetScheduler(classes="on") on the card, float32, with the launch
+   counts reset: bucket A, 256 dcavity mg requests in the 64² class
+   (tools/perf_fleet.py --classes at its TPU size: imax 48 + i%17, jmax 64
+   - i%17, re 10, te 0.05, itermax 10 V-cycles), and bucket B, 32 canal
+   mg requests in the 256² class (imax 256 - 2i, jmax 160 + 3i,
+   configs/canal.par's physics on a square 4x4 box, each lane's te 20 of
+   its first steps), served cold and then warm with fresh ids: scenarios/s
+   from the run walls, ms per chunk, K18's calls and ms per call (CUDA
+   events around its wrapper); every lane finite, none diverged, only K18
+   launched, the warm run bitwise the cold one; four of bucket A's
+   requests served alone in the 128² class, bitwise their bucket-A lanes;
+5. 8 mg class requests (dcavity in the 16² class, canal in the 32² class)
+   and a sor request (served solo), float64, on the card and on the CPU:
+   fields within 1e-9 of scale, the same steps.
+
 It then prints the kernels line (JSON; K5-K8 and K11/K12 at 256³, where a
 field outgrows the L2 and the bound is a floor, with their 128³ numbers
 under main_shape_* keys and the distributed modes of K3/K4 and K7/K8
@@ -4008,6 +4035,371 @@ def obstacle2d_cli(np):
     return counts
 
 
+# ----------------------------------------------------------------------
+# the fleet's shape-class mg lane: K18, the one-launch class V-cycle
+# ----------------------------------------------------------------------
+
+CARD = "cuda"          # where the fleet phases run
+CLASS_CHECK = (16, 64, 256)
+FLEET_A = 256          # bucket A: dcavity mg requests in the 64² class
+FLEET_B = 32           # bucket B: canal mg requests in the 256² class
+FLEET_B_STEPS = 20     # each bucket-B lane's te is ~this many first steps
+
+
+def class_inputs(torch, np, cls, lanes, dtype, seed, active=None):
+    """Lane-stacked K18 inputs in a cls² class for (jmax, imax) lanes of
+    unit length: random p on each lane's live corner, random rhs on its
+    interior, 0 elsewhere; the lanes' level plans; active (N,) int32."""
+    from pampi_tpu_torch.ops import mg_fused as mf
+
+    rng = np.random.default_rng(seed)
+    n, lmax = len(lanes), mf.class_level_max(cls, cls)
+    p = np.zeros((n, cls + 2, cls + 2))
+    rhs = np.zeros((n, cls + 2, cls + 2))
+    plans = []
+    for k, (jl, il) in enumerate(lanes):
+        p[k, :jl + 2, :il + 2] = rng.normal(size=(jl + 2, il + 2))
+        rhs[k, 1:jl + 1, 1:il + 1] = rng.normal(size=(jl, il))
+        plans.append(mf.class_level_plan(jl, il, float(il * il),
+                                          float(jl * jl), lmax, dtype))
+    act = torch.tensor([1] * n if active is None else active,
+                       dtype=torch.int32, device=CARD)
+    return (torch.from_numpy(p).to(CARD, dtype),
+            torch.from_numpy(rhs).to(CARD, dtype),
+            torch.stack([e for e, _ in plans]).to(CARD),
+            torch.stack([g for _, g in plans]).to(CARD), act)
+
+
+def check_class(torch, inputs, calls=3):
+    """`calls` chained cycles of K18 and of its plain version on the same
+    inputs. Returns (bitwise, max_abs_err, the kernel's last p, rsq)."""
+    from pampi_tpu_torch.ops import mg_fused as mf
+
+    p, rhs, ext, geo, act = inputs
+    pk = pp = p
+    same, err = True, 0.0
+    for _ in range(calls):
+        pk, rk = mf.class_cycle(pk, rhs, ext, geo, act)
+        pp, rp = mf.class_cycle_plain(pp, rhs, ext, geo, act)
+        same = same and torch.equal(pk, pp) and torch.equal(rk, rp)
+        err = max(err, float((pk - pp).abs().max()),
+                  float((rk - rp).abs().max()))
+    return same, err, pk, rk
+
+
+def fleet_lanes_a():
+    """Bucket A's (jmax, imax): tools/perf_fleet.py --classes at its TPU
+    size, imax = 48 + i%17, jmax = 64 - i%17."""
+    return [(64 - i % 17, 48 + i % 17) for i in range(FLEET_A)]
+
+
+@phase("class V-cycle kernel K18 vs its plain version (16², 64², 256², "
+       "float32/float64) and 50 repeated class solves")
+def check_class_kernel(torch, np):
+    from pampi_tpu_torch.fleet import shapeclass as sc
+    from pampi_tpu_torch.utils.params import Parameter
+
+    bad = []
+    for dtype in (torch.float32, torch.float64):
+        for cls in CLASS_CHECK:
+            # a full-class lane, an odd one (one level: the bottom sweeps
+            # run at level 0), one whose plan stops early, a ragged one,
+            # an inactive one
+            lanes = [(cls, cls), (9, 13), (12, 12), (cls - 3, cls - 1),
+                     (cls, cls)]
+            inputs = class_inputs(torch, np, cls, lanes, dtype, 501 + cls,
+                                  active=[1, 1, 1, 1, 0])
+            same, err, pk, rk = check_class(torch, inputs)
+            passed = (torch.equal(pk[4], inputs[0][4])
+                      and float(rk[4]) == 0.0)
+            ok = same and passed
+            log(f"mg_class_cycle_2d {cls}² {dtype}, lanes {lanes[:4]} + an "
+                f"inactive one, 3 chained cycles: fields and rsq bitwise "
+                f"{same}, max_abs_err {err:.3e}, inactive lane passed "
+                f"{passed} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                bad.append(f"{cls} {dtype}")
+    # 50 class solves of one batch (8 lanes of the 64² class, f32)
+    dtype = torch.float32
+    lanes = fleet_lanes_a()[:8]
+    params = [Parameter(name="dcavity", imax=i, jmax=j, eps=1e-3,
+                        itermax=30, tpu_solver="mg") for j, i in lanes]
+    gm = np.array([sc.lane_geometry(q) for q in params])
+    cl = sc.class_lanes(gm, 64, 64, dtype, CARD)
+    solve = sc.make_class_mg_solve(params[0], 64, 64, dtype, CARD)
+    p0, rhs, *_ = class_inputs(torch, np, 64, lanes, dtype, 509)
+    p0 = torch.zeros_like(p0)
+    for k, (j, i) in enumerate(lanes):  # a zero-mean rhs: the solves converge
+        inner = rhs[k, 1:j + 1, 1:i + 1]
+        inner -= inner.mean()
+    runs = [solve(p0, rhs, cl, np.ones(len(lanes), bool))
+            for _ in range(50)]
+    same = all(torch.equal(r[0], runs[0][0]) and (r[2] == runs[0][2]).all()
+               and (r[1] == runs[0][1]).all() for r in runs)
+    log(f"50 class solves, 8 lanes of the 64² class f32 (eps 1e-3, itermax "
+        f"30): V-cycles per lane {runs[0][2].tolist()}, identical counts, "
+        f"residuals and bitwise fields {same} {'ok' if same else 'FAIL'}")
+    if not same:
+        bad.append("50 repeated class solves")
+    if bad:
+        raise AssertionError(f"K18 differs from its plain version: {bad}")
+
+
+def class_work(ext_rows, size, n_pre=2, n_post=2, n_bottom=8):
+    """(bytes, operations) of one K18 cycle of one lane, from its plan:
+    the fine p and rhs read and p written, every live coarser level's p
+    and rhs once; ~12 operations a cell update (n_pre + n_post sweeps a
+    live level, n_bottom more at the deepest), ~14 a fine cell for the
+    restriction, 1 for the prolongation, 13 for the residual sum."""
+    from pampi_tpu_torch.ops import mg_fused as mf
+
+    levels = mf._live_levels(ext_rows)
+    cells = [(j + 2) * (i + 2) for j, i in levels]
+    nbytes = (3 * cells[0] + 2 * sum(cells[1:])) * size
+    ops = 13 * levels[0][0] * levels[0][1]
+    for lvl, (j, i) in enumerate(levels):
+        sweeps = n_pre + n_post + (n_bottom if lvl == len(levels) - 1
+                                   else 0)
+        ops += 12 * sweeps * j * i
+        if lvl + 1 < len(levels):
+            ops += 15 * j * i
+    return nbytes, ops
+
+
+@phase("K18 at the fleet main path's shape (bucket A: 256 lanes of the 64² "
+       "class, float32) and its time beside the bound")
+def time_class_kernel(torch, np):
+    from pampi_tpu_torch.ops import mg_fused as mf
+
+    dtype = torch.float32
+    lanes = fleet_lanes_a()
+    inputs = class_inputs(torch, np, 64, lanes, dtype, 511)
+    same, err, _pk, _rk = check_class(torch, inputs, calls=1)
+    if not same:
+        raise AssertionError("K18 differs from its plain version at bucket "
+                             "A's shape")
+    p, rhs, ext, geo, act = inputs
+    work = torch.empty(len(lanes) * mf.class_work_cells(64, 64,
+                                                        ext.shape[1]),
+                       dtype=dtype, device=CARD)
+    ms = cuda_ms(torch, lambda: mf.class_cycle(p, rhs, ext, geo, act,
+                                               work=work), 20)
+    pms = cuda_ms(torch, lambda: mf.class_cycle_plain(p, rhs, ext, geo,
+                                                      act), 1)
+    nbytes = ops = 0
+    for rows in ext.tolist():
+        b, o = class_work(rows, 4)
+        nbytes, ops = nbytes + b, ops + o
+    b = bound(nbytes, ops)
+    shape = (f"256 lanes of the 64² class f32 (imax 48..64, jmax 48..64), "
+             f"one V-cycle each")
+    log(f"mg_class_cycle_2d {shape}: {ms:.4f} ms per call (plain {pms:.4f}),"
+        f" bound {b[0]:.5f} ms by {b[1]} (bytes {nbytes / 1e6:.2f} MB over "
+        f"3.35 TB/s = {nbytes / HBM_BYTES_PER_S * 1e3:.5f} ms; operations "
+        f"{ops / 1e6:.1f} M over 67 TFLOP/s = {ops / FP32_FLOPS * 1e3:.5f} "
+        f"ms); bitwise its plain version")
+    return {"mg_class_cycle_2d": dict(
+        max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1],
+        bound_bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+        bound_operations_ms=ops / FP32_FLOPS * 1e3, shape=shape)}
+
+
+def fleet_requests(torch, sid0=""):
+    """(bucket A, bucket B) requests of the fleet main path, f32: A 256
+    dcavity mg requests in the 64² class (tools/perf_fleet.py --classes at
+    its TPU size, itermax 10 V-cycles), B 32 canal mg requests in the 256²
+    class with configs/canal.par's physics on a square box (xlength cut
+    from 30 to its ylength 4: on the 30x4 box these grids' cells are 4.7-9.8
+    times longer than high, and the class V-cycle, point red-black
+    Gauss-Seidel with piecewise-constant prolongation as on the TPU,
+    diverges there), each lane's te 20 of its first steps' dt (tau·
+    dt_bound: the inflow's CFL limit is larger), itermax 20 V-cycles."""
+    from pampi_tpu_torch.fleet import ScenarioRequest
+    from pampi_tpu_torch.fleet import shapeclass as sc
+    from pampi_tpu_torch.utils.params import read_parameter
+
+    a = [ScenarioRequest(f"{sid0}a{i}", pa) for i, pa in enumerate(
+        read_parameter(os.path.join(ROOT, "configs", "dcavity.par")).replace(
+            imax=48 + i % 17, jmax=64 - i % 17, re=10.0, te=0.05, tau=0.5,
+            eps=1e-4, omg=1.7, gamma=0.9, u_init=0.001 * i, itermax=10,
+            tpu_solver="mg", tpu_dtype="float32", tpu_mesh="1")
+        for i in range(FLEET_A))]
+    canal = read_parameter(os.path.join(ROOT, "configs", "canal.par"))
+    b = []
+    for i in range(FLEET_B):
+        q = canal.replace(imax=256 - 2 * i, jmax=160 + 3 * i, itermax=20,
+                          xlength=canal.ylength, tpu_solver="mg",
+                          tpu_dtype="float32", tpu_mesh="1")
+        dtb = sc.lane_geometry(q)[sc.G_DTB]
+        b.append(ScenarioRequest(f"{sid0}b{i}", q.replace(
+            te=FLEET_B_STEPS * q.tau * dtb)))
+    return a, b
+
+
+@contextlib.contextmanager
+def class_cycle_events(torch, calls):
+    """Wrap K18's wrapper so that each call records CUDA events, kept in
+    calls[class width] (the fleet looks the wrapper up at call time, so
+    this times the path's own calls and adds no launch)."""
+    from pampi_tpu_torch.ops import mg_fused as mf
+
+    inner = mf.class_cycle
+
+    def timed(p, *a, **kw):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = inner(p, *a, **kw)
+        ev[1].record()
+        calls.setdefault(p.shape[-1] - 2, []).append(ev)
+        return out
+
+    mf.class_cycle = timed
+    try:
+        yield
+    finally:
+        mf.class_cycle = inner
+
+
+@phase("main path: the fleet's mg class lane on the card, f32: 256 dcavity "
+       "requests in the 64² class and 32 canal requests in the 256² class, "
+       "cold and warm; four of them alone in the 128² class")
+def main_path_fleet(torch):
+    import numpy as np
+
+    from pampi_tpu_torch.fleet import BatchedSolver, FleetScheduler
+    from pampi_tpu_torch.fleet import shapeclass as sc
+    from pampi_tpu_torch.kernels import build as kb
+
+    sched = FleetScheduler(classes="on", device=CARD)
+    runs, calls = {}, {}
+
+    def serve():
+        for name in ("cold", "warm"):
+            a, b = fleet_requests(torch, "" if name == "cold" else "w")
+            for r in a + b:
+                sched.submit(r)
+            calls.clear()
+            with class_cycle_events(torch, calls):
+                runs[name] = sched.run()
+            torch.cuda.synchronize()
+            runs[name + "_calls"] = {
+                w: (len(ev), sum(x.elapsed_time(y) for x, y in ev))
+                for w, ev in calls.items()}
+        # four of bucket A's requests alone in the 128² class
+        a, _b = fleet_requests(torch)
+        four = [a[k] for k in (0, 5, 16, min(200, FLEET_A - 1))]
+        tpl = sc.ClassSolver(four[0].param, ic=128, jc=128, device=CARD)
+        batch = BatchedSolver(tpl, [r.param for r in four],
+                              [r.sid for r in four])
+        runs["128"] = batch.results(batch.run())
+
+    counts, _ = drive_path(kb, "fleet class lane", ("mg_class_cycle_2d",),
+                           serve)
+    others = [k for k, v in counts.items()
+              if v and k != "mg_class_cycle_2d"]
+    if others:
+        raise AssertionError(f"the class path launched {others}")
+    bad = []
+    for name in ("cold", "warm"):
+        res = runs[name]
+        n_bad = [s.sid for s in res.scenarios
+                 if s.diverged or not all(np.isfinite(f).all()
+                                          for f in s.fields)]
+        if n_bad or len(res.scenarios) != FLEET_A + FLEET_B:
+            bad.append(f"{name}: {len(n_bad)} lanes not finite or diverged")
+        for row in res.summary["buckets"]:
+            n_calls, ms = runs[name + "_calls"].get(row["grid"][0], (0, 0.0))
+            nts = [s.nt for s in res.scenarios if s.bucket == row["bucket"]]
+            div = [s.sid for s in res.scenarios
+                   if s.bucket == row["bucket"] and s.diverged]
+            if div:
+                log(f"diverged in {row['grid']}: {div}")
+            log(f"fleet {name} bucket {row['grid']} ({row['lanes']} lanes, "
+                f"mode {row['mode']}): set-up {row['compile_wall_s']:.3f} s, "
+                f"run {row['run_wall_s']:.4f} s, {row['chunks']} chunks, "
+                f"{row['run_wall_s'] / max(1, row['chunks']) * 1e3:.2f} ms "
+                f"per chunk; steps per lane {min(nts)}..{max(nts)}; K18 "
+                f"{n_calls} calls, {ms / max(1, n_calls):.4f} ms per call "
+                f"(CUDA events), {ms:.2f} ms in all")
+            if row["mode"] != "class":
+                bad.append(f"{row['bucket']} ran {row['mode']}")
+        log(f"fleet {name}: {res.summary['n_scenarios']} scenarios, "
+            f"{res.summary['scenarios_per_s']} scenarios/s (run walls), "
+            f"diverged {res.summary['divergence_census']['diverged']}")
+    b_nts = [s.nt for s in runs["cold"].scenarios if s.sid.startswith("b")]
+    if not 15 <= min(b_nts) <= max(b_nts) <= 30:
+        bad.append(f"bucket B lanes ran {min(b_nts)}..{max(b_nts)} steps")
+    # the warm run serves the same requests: bitwise the cold one
+    cold, warm = runs["cold"], runs["warm"]
+    differ = [s.sid for s in cold.scenarios
+              if s.nt != warm.by_sid("w" + s.sid).nt or not all(
+                  np.array_equal(x, y, equal_nan=True) for x, y in
+                  zip(s.fields, warm.by_sid("w" + s.sid).fields))]
+    log(f"warm run bitwise the cold one: {not differ}")
+    if differ:
+        bad.append(f"warm differs from cold in {differ}")
+    same = all(r["nt"] == cold.by_sid(r["sid"]).nt and all(
+        np.array_equal(x, y) for x, y in zip(
+            r["fields"], cold.by_sid(r["sid"]).fields))
+        for r in runs["128"])
+    log(f"four bucket-A requests alone in the 128² class: steps "
+        f"{[r['nt'] for r in runs['128']]}, fields bitwise their 64²-class "
+        f"lanes {same} {'ok' if same else 'FAIL'}")
+    if not same:
+        bad.append("the 128² re-run differs")
+    if bad:
+        raise AssertionError(f"fleet main path: {bad}")
+    return counts
+
+
+@phase("the fleet card vs CPU, float64: 8 mg class requests across the 16² "
+       "and 32² classes and a sor request served solo")
+def fleet_card_vs_cpu(np):
+    from pampi_tpu_torch.fleet import FleetScheduler
+    from pampi_tpu_torch.utils.params import Parameter
+
+    base = dict(tpu_mesh="1", tpu_solver="mg", tau=0.5, gamma=0.9,
+                tpu_dtype="float64")
+    dcav = dict(base, name="dcavity", re=10.0, te=0.15, itermax=10,
+                eps=1e-4, omg=1.7)
+    canal = dict(base, name="canal", re=100.0, te=0.6, itermax=20,
+                 eps=1e-5, omg=1.8, xlength=3.0, ylength=1.0, bcLeft=3,
+                 bcRight=3)
+    reqs = {f"d{k}": dict(dcav, imax=i, jmax=j, u_init=0.01 * k)
+            for k, (j, i) in enumerate(((12, 12), (9, 16), (14, 10),
+                                        (13, 13)))}
+    reqs.update({f"c{k}": dict(canal, imax=i, jmax=j)
+                 for k, (j, i) in enumerate(((24, 28), (20, 30), (30, 17),
+                                             (18, 26)))})
+    reqs["s0"] = dict(dcav, imax=12, jmax=10, tpu_solver="sor",
+                      itermax=200)
+    out = []
+    for dev in (CARD, "cpu"):
+        sched = FleetScheduler(classes="on", device=dev)
+        for sid, kw in reqs.items():
+            sched.submit_param(sid, Parameter(**kw))
+        t0 = time.perf_counter()
+        out.append((sched.run(), time.perf_counter() - t0))
+    (card, tc), (cpu, tp) = out
+    bad = []
+    for sid in reqs:
+        a, b = card.by_sid(sid), cpu.by_sid(sid)
+        diff = max(float(np.abs(x - y).max()) / max(1.0, float(np.abs(y).max()))
+                   for x, y in zip(a.fields, b.fields))
+        ok = (a.nt == b.nt and a.mode == b.mode and diff <= 1e-9
+              and not a.diverged)
+        log(f"{sid} ({a.mode}, {b.fields[0].shape[1] - 2}x"
+            f"{b.fields[0].shape[0] - 2}): steps card {a.nt} / CPU {b.nt}, "
+            f"max |card - cpu| / scale {diff:.3e} (limit 1e-9) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            bad.append(sid)
+    modes = sorted(r["mode"] for r in card.summary["buckets"])
+    log(f"card {tc:.1f} s, CPU {tp:.1f} s; bucket modes {modes}")
+    if modes != ["class", "class", "solo"] or bad:
+        raise AssertionError(f"fleet card and CPU disagree: {bad} {modes}")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4041,6 +4433,7 @@ def main() -> int:
         check_dist2d_kernels(torch, np)
         check_obstacle3d_kernels(torch, np)
         check_obstacle2d_kernels(torch, np)
+        check_class_kernel(torch, np)
     if CHECKS_ONLY:
         log(f"checks only; failed: {FAILED}")
         return 1 if FAILED else 0
@@ -4053,6 +4446,7 @@ def main() -> int:
         d2_rows = time_dist2d(torch, np)
         o3_rows = time_obstacle3d(torch, np)
         o2_rows = time_obstacle2d(torch, np)
+        k18_rows = time_class_kernel(torch, np)
         sor_ns2d = {}
         counts = main_path(torch, sor_ns2d)
         counts3 = main_path_3d(torch)
@@ -4069,6 +4463,8 @@ def main() -> int:
         counts_d2cards = dist2d_several_cards(torch)
         counts_o3 = main_path_obstacle3d(torch)
         counts_o2 = main_path_obstacle2d(torch)
+        counts_fl = main_path_fleet(torch)
+        fleet_card_vs_cpu(np)
         # no times are taken from here on: the CPU half of dcavity_card
         # and the canal3d_obstacle.par mesh and CPU runs run beside the
         # card's runs
@@ -4080,12 +4476,14 @@ def main() -> int:
         counts_o3cli = obstacle3d_cli(np)
         counts_o2cli = obstacle2d_cli(np)
         if None not in (rows, rows3, mg_rows, q_rows, d3_rows, d2_rows,
-                        o3_rows, o2_rows, counts, counts3, counts_mg,
-                        counts_dist, counts_cli, counts_d3, counts_d3cli,
-                        counts_d2, counts_d2cards, counts_d2cli, counts_o3,
-                        counts_o3cli, counts_o2, counts_o2cli):
+                        o3_rows, o2_rows, k18_rows, counts, counts3,
+                        counts_mg, counts_dist, counts_cli, counts_d3,
+                        counts_d3cli, counts_d2, counts_d2cards,
+                        counts_d2cli, counts_o3, counts_o3cli, counts_o2,
+                        counts_o2cli, counts_fl):
             rows = {**rows, **rows3, **mg_rows[0], **q_rows, **o3_rows,
-                    **o2_rows, "rb_sor_odist": d3_rows["rb_sor_odist"],
+                    **o2_rows, **k18_rows,
+                    "rb_sor_odist": d3_rows["rb_sor_odist"],
                     "rb_sor_obsdist": {**d2_rows["rb_sor_obsdist"],
                                        **o2_rows["rb_sor_obsdist"]}}
             for name in ("ns3d_pre", "ns3d_post"):
@@ -4098,7 +4496,7 @@ def main() -> int:
                      + counts_d2cli + counts_o3 + counts_o3cli + counts_o2
                      + counts_o2cli
                      + [counts_dist, counts_cli, counts_d3cli,
-                        counts_d2cards])
+                        counts_d2cards, counts_fl])
             counts = {k: sum(c.get(k, 0) for c in paths)
                       for k in set().union(*paths)}
             print(json.dumps({"library": mg_rows[1]}))

@@ -130,6 +130,38 @@ def _auto_single(param: Parameter, exc: NotImplementedError) -> None:
     print(f"tpu_mesh auto: {exc}; running on one device")
 
 
+def build_ns_solver(param: Parameter, device, announce: bool = False):
+    """The NS solver this CLI runs for `param` on `device`: the
+    distributed one on a mesh of several shards (the mesh's banner printed
+    when `announce`), else the single-device one (the fleet's solo mode
+    builds its solvers here too)."""
+    from .utils.device import visible_devices
+
+    three_d = is_3d_config(param)
+    comm = _make_comm(param, visible_devices(device),
+                      ndims=3 if three_d else 2)
+    if comm is not None:
+        if three_d:
+            from .models.ns3d_dist import NS3DDistSolver as Dist
+        else:
+            from .models.ns2d_dist import NS2DDistSolver as Dist
+        try:
+            solver = Dist(param, comm)
+        except NotImplementedError as exc:
+            _auto_single(param, exc)
+        else:
+            if announce:
+                comm.print_config()
+            return solver
+    if three_d:
+        from .models.ns3d import NS3DSolver
+
+        return NS3DSolver(param, device=device)
+    from .models.ns2d import NS2DSolver
+
+    return NS2DSolver(param, device=device)
+
+
 def _dispatch(param: Parameter, device: str) -> int:
     from .utils.device import visible_devices
 
@@ -158,27 +190,7 @@ def _dispatch(param: Parameter, device: str) -> int:
     if param.name in ("dcavity", "canal", "canal_obstacle", "dcavity3d",
                       "canal3d"):
         three_d = is_3d_config(param)
-        solver = None
-        comm = _make_comm(param, visible_devices(device),
-                          ndims=3 if three_d else 2)
-        if comm is not None:
-            if three_d:
-                from .models.ns3d_dist import NS3DDistSolver as Dist
-            else:
-                from .models.ns2d_dist import NS2DDistSolver as Dist
-            try:
-                solver = Dist(param, comm)
-                comm.print_config()
-            except NotImplementedError as exc:
-                _auto_single(param, exc)
-        if solver is None and three_d:
-            from .models.ns3d import NS3DSolver
-
-            solver = NS3DSolver(param, device=device)
-        elif solver is None:
-            from .models.ns2d import NS2DSolver
-
-            solver = NS2DSolver(param, device=device)
+        solver = build_ns_solver(param, device, announce=True)
         start = get_timestamp()
         solver.run()
         end = get_timestamp()

@@ -1,0 +1,41 @@
+"""Scenario-fleet serving on the port (counterpart of pampi_tpu/fleet/):
+many small scenarios served in buckets that share one program.
+
+  queue.py      request intake and bucketing, the shape-class keys
+  shapeclass.py shape classes: power-of-two padded rungs whose grid
+                extents are per-lane data; the 2-D mg class lane, whose
+                V-cycle is one launch of K18 for a whole batch
+  batch.py      the batched runner over a class template: lanes stacked
+                on a leading axis, diverged lanes retired, per-lane te
+  scheduler.py  the serving front: buckets -> `class` (a class batch) or
+                `solo` (one solver per request) -> results and a summary
+
+Not ported yet (ROADMAP A item 9): the sor class lane, the 3-D class
+rungs, vmapped exact-shape batches, continuous batching, the mesh and
+pjit modes, lane faults, telemetry and tracing, serve.py, slo.py and
+autopilot.py.
+"""
+
+from .batch import BatchedSolver
+from .queue import (
+    BucketKey,
+    ScenarioRequest,
+    bucket,
+    bucket_key,
+    class_bucket_key,
+    family_of,
+    knob_signature,
+    load_queue,
+    signature_hash,
+)
+from .scheduler import FleetResult, FleetScheduler, ScenarioResult
+from .shapeclass import ClassSolver
+
+__all__ = [
+    "BatchedSolver",
+    "BucketKey", "ScenarioRequest", "bucket", "bucket_key",
+    "class_bucket_key", "family_of", "knob_signature", "load_queue",
+    "signature_hash",
+    "FleetResult", "FleetScheduler", "ScenarioResult",
+    "ClassSolver",
+]

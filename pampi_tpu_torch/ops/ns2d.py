@@ -22,38 +22,46 @@ import torch
 NOSLIP, SLIP, OUTFLOW, PERIODIC = 1, 2, 3, 4
 
 
-def _const(x: float, like: torch.Tensor) -> torch.Tensor:
+def _const(x, like: torch.Tensor) -> torch.Tensor:
     """x as a 0-dim tensor of like's dtype and device: a fill on the
-    device, so a step never waits on a host-to-device copy."""
+    device, so a step never waits on a host-to-device copy. A tensor x
+    (a lane-stacked (N, 1, 1) scalar of the fleet's class lanes) is taken
+    as it is, in like's dtype."""
+    if isinstance(x, torch.Tensor):
+        return x.to(like.dtype)
     return torch.full((), x, dtype=like.dtype, device=like.device)
 
 
 def _interior_mask(shape, device) -> torch.Tensor:
+    """The interior of the last two axes (a leading lane axis, if any,
+    is broadcast over)."""
     m = torch.zeros(shape, dtype=torch.bool, device=device)
-    m[1:-1, 1:-1] = True
+    m[..., 1:-1, 1:-1] = True
     return m
 
 
 def fg_predictor_terms(u, v, dt, re, gx, gy, gamma, dx, dy):
     """Full-array F/G predictor arithmetic, no masking (JAX
     fg_predictor_terms): every neighbour is a roll of the whole array, so
-    the wrapped edge values are garbage that callers mask out."""
+    the wrapped edge values are garbage that callers mask out. The rolls
+    take the last two axes, so lane-stacked (N, J, I) fields with (N, 1,
+    1) dt, dx, dy work as well."""
     idx, idy = 1.0 / dx, 1.0 / dy
     inv_re = 1.0 / re
     roll = torch.roll
 
     uc = u
-    ue = roll(u, -1, 1)
-    uw = roll(u, 1, 1)
-    un = roll(u, -1, 0)
-    us = roll(u, 1, 0)
-    unw = roll(roll(u, -1, 0), 1, 1)
+    ue = roll(u, -1, -1)
+    uw = roll(u, 1, -1)
+    un = roll(u, -1, -2)
+    us = roll(u, 1, -2)
+    unw = roll(roll(u, -1, -2), 1, -1)
     vc = v
-    ve = roll(v, -1, 1)
-    vw = roll(v, 1, 1)
-    vn = roll(v, -1, 0)
-    vs = roll(v, 1, 0)
-    vse = roll(roll(v, 1, 0), -1, 1)
+    ve = roll(v, -1, -1)
+    vw = roll(v, 1, -1)
+    vn = roll(v, -1, -2)
+    vs = roll(v, 1, -2)
+    vse = roll(roll(v, 1, -2), -1, -1)
 
     du2dx = idx * 0.25 * (
         (uc + ue) * (uc + ue) - (uc + uw) * (uc + uw)
@@ -108,8 +116,8 @@ def compute_fg(u, v, dt, re, gx, gy, gamma, dx, dy):
 def rhs_terms(f, g, dt, dx, dy):
     """Full-array RHS = div(F, G)/dt arithmetic."""
     return torch.reciprocal(dt) * (
-        (f - torch.roll(f, 1, 1)) / _const(dx, f)
-        + (g - torch.roll(g, 1, 0)) / _const(dy, g)
+        (f - torch.roll(f, 1, -1)) / _const(dx, f)
+        + (g - torch.roll(g, 1, -2)) / _const(dy, g)
     )
 
 
@@ -123,8 +131,8 @@ def adapt_terms(f, g, p, dt, dx, dy):
     """Full-array projection arithmetic."""
     fx = dt / _const(dx, dt)
     fy = dt / _const(dy, dt)
-    u_new = f - (torch.roll(p, -1, 1) - p) * fx
-    v_new = g - (torch.roll(p, -1, 0) - p) * fy
+    u_new = f - (torch.roll(p, -1, -1) - p) * fx
+    v_new = g - (torch.roll(p, -1, -2) - p) * fy
     return u_new, v_new
 
 
@@ -286,34 +294,34 @@ def apply_wall_bcs_gated(u, v, gj, gi, bc, gext, roll=torch.roll):
 
     m = (gi == 0) & rows  # left: U on the wall, V ghost
     if bc_left == NOSLIP:
-        u, v = where(m, zu, u), where(m, -roll(v, -1, 1), v)
+        u, v = where(m, zu, u), where(m, -roll(v, -1, -1), v)
     elif bc_left == SLIP:
-        u, v = where(m, zu, u), where(m, roll(v, -1, 1), v)
+        u, v = where(m, zu, u), where(m, roll(v, -1, -1), v)
     elif bc_left == OUTFLOW:
-        u, v = where(m, roll(u, -1, 1), u), where(m, roll(v, -1, 1), v)
+        u, v = where(m, roll(u, -1, -1), u), where(m, roll(v, -1, -1), v)
     mw = (gi == imax) & rows  # right: U(imax) on the wall
     mg = (gi == imax + 1) & rows  # the ghost column
     if bc_right == NOSLIP:
-        u, v = where(mw, zu, u), where(mg, -roll(v, 1, 1), v)
+        u, v = where(mw, zu, u), where(mg, -roll(v, 1, -1), v)
     elif bc_right == SLIP:
-        u, v = where(mw, zu, u), where(mg, roll(v, 1, 1), v)
+        u, v = where(mw, zu, u), where(mg, roll(v, 1, -1), v)
     elif bc_right == OUTFLOW:
-        u, v = where(mw, roll(u, 1, 1), u), where(mg, roll(v, 1, 1), v)
+        u, v = where(mw, roll(u, 1, -1), u), where(mg, roll(v, 1, -1), v)
     m = (gj == 0) & cols  # bottom: V on the wall, U ghost
     if bc_bottom == NOSLIP:
-        v, u = where(m, zv, v), where(m, -roll(u, -1, 0), u)
+        v, u = where(m, zv, v), where(m, -roll(u, -1, -2), u)
     elif bc_bottom == SLIP:
-        v, u = where(m, zv, v), where(m, roll(u, -1, 0), u)
+        v, u = where(m, zv, v), where(m, roll(u, -1, -2), u)
     elif bc_bottom == OUTFLOW:
-        u, v = where(m, roll(u, -1, 0), u), where(m, roll(v, -1, 0), v)
+        u, v = where(m, roll(u, -1, -2), u), where(m, roll(v, -1, -2), v)
     mw = (gj == jmax) & cols  # top: V(jmax) on the wall
     mg = (gj == jmax + 1) & cols  # the ghost row
     if bc_top == NOSLIP:
-        v, u = where(mw, zv, v), where(mg, -roll(u, 1, 0), u)
+        v, u = where(mw, zv, v), where(mg, -roll(u, 1, -2), u)
     elif bc_top == SLIP:
-        v, u = where(mw, zv, v), where(mg, roll(u, 1, 0), u)
+        v, u = where(mw, zv, v), where(mg, roll(u, 1, -2), u)
     elif bc_top == OUTFLOW:
-        u, v = where(mg, roll(u, 1, 0), u), where(mw, roll(v, 1, 0), v)
+        u, v = where(mg, roll(u, 1, -2), u), where(mw, roll(v, 1, -2), v)
     return u, v
 
 
@@ -337,7 +345,7 @@ def apply_special_bc_gated(u, gj, gi, problem, gext, dy, ylength,
     jmax, imax = gext
     if problem == "dcavity":
         m = (gj == jmax + 1) & (gi >= 1) & (gi <= imax - 1)
-        return torch.where(m, 2.0 - roll(u, 1, 0), u)
+        return torch.where(m, 2.0 - roll(u, 1, -2), u)
     if problem in ("canal", "canal_obstacle"):
         prof = inflow_profile(gj[:, 0].cpu().numpy(), dy, ylength, u.dtype)
         m = (gi == 0) & (gj >= 1) & (gj <= jmax)

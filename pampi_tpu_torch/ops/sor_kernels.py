@@ -86,17 +86,18 @@ BX, BY = 32, 8  # K2's thread block (sor_rb.cu)
 BAND, TILE = 8, 256  # K17's rows per CTA and columns per tile (sor_rb.cu)
 
 
-def fixed_order_sum(flat):
+def fixed_order_sum(flat, threads: int = FIN):
     """The one-block fixed-order sum of a 1-D tensor that the kernels'
-    sum_partials takes on the card: thread t of FIN adds elements t,
-    t + FIN, ... in turn, then a halving tree over the threads. Returns a
-    0-dim tensor equal bit for bit to the kernels'."""
-    m = max(1, -(-flat.numel() // FIN))
-    padded = torch.zeros(m * FIN, dtype=flat.dtype, device=flat.device)
+    sum_partials takes on the card: thread t of `threads` (FIN there)
+    adds elements t, t + threads, ... in turn, then a halving tree over
+    the threads. Returns a 0-dim tensor equal bit for bit to the
+    kernels'."""
+    m = max(1, -(-flat.numel() // threads))
+    padded = torch.zeros(m * threads, dtype=flat.dtype, device=flat.device)
     padded[:flat.numel()] = flat
-    s = torch.zeros(FIN, dtype=flat.dtype, device=flat.device)
+    s = torch.zeros(threads, dtype=flat.dtype, device=flat.device)
     for r in range(m):
-        s = s + padded[r * FIN:(r + 1) * FIN]
+        s = s + padded[r * threads:(r + 1) * threads]
     return _tree(s)[..., 0]
 
 

@@ -101,3 +101,58 @@ def wall_weight_ragged(comm: CartComm, s: int, jl: int, il: int, jmax: int,
 
     return (axis_own(lj, gj, jl, jmax, edge_j)
             & axis_own(li, gi, il, imax, edge_i)).to(dtype)
+
+
+# ----------------------------------------------------------------------
+# Offset-0 forms over lane-stacked class blocks (the fleet's shape-class
+# chunk, fleet/shapeclass.py): one (jc+2, ic+2) block per lane on a
+# leading axis, each lane's grid extents as (N, 1, 1) tensors. The JAX
+# package reaches the same arithmetic through the functions above with
+# `grids=` given.
+# ----------------------------------------------------------------------
+
+
+def class_index_grids(jc: int, ic: int, device="cpu"):
+    """(gj column, gi row) of a class block: the global extended index is
+    the block index (offset 0)."""
+    return (torch.arange(jc + 2, device=device)[:, None],
+            torch.arange(ic + 2, device=device)[None, :])
+
+
+def set_bcs_class(u, v, param, grids, jmax, imax):
+    """setBoundaryConditions on lane-stacked class blocks, in the
+    reference's wall order (ops/ns2d.apply_wall_bcs_gated)."""
+    gj, gi = grids
+    return ops.apply_wall_bcs_gated(
+        u, v, gj, gi, (param.bcLeft, param.bcRight, param.bcBottom,
+                       param.bcTop), (jmax, imax))
+
+
+def class_inflow_profile(jrows: int, dy, ylength: float, dtype, device):
+    """The canal inflow U(0, j) of a class block's rows for each lane, as
+    the JAX class chunk forms it: y = (j - 0.5)·dy in the field dtype with
+    the lane's own dy ((N, 1, 1)), then y(ylength - y)·4/ylength² in that
+    dtype. Returns (N, jrows, 1)."""
+    jj = torch.arange(jrows, dtype=dtype, device=device)[:, None]
+    y = (jj - 0.5) * dy.to(dtype)
+    return y * (ylength - y) * 4.0 / ops._const(ylength ** 2, y)
+
+
+def set_special_bc_class(u, param, grids, jmax, imax, dy):
+    """setSpecialBoundaryCondition on lane-stacked class blocks: the
+    dcavity lid (skipping i == imax, the reference's loop-bound quirk) or
+    the canal inflow of class_inflow_profile."""
+    gj, gi = grids
+    if param.name in ("canal", "canal_obstacle"):
+        prof = class_inflow_profile(u.shape[-2], dy, param.ylength, u.dtype,
+                                    u.device)
+        m = (gi == 0) & (gj >= 1) & (gj <= jmax)
+        return torch.where(m, prof.expand_as(u), u)
+    return ops.apply_special_bc_gated(u, gj, gi, param.name, (jmax, imax),
+                                      dy, param.ylength)
+
+
+def fg_fixups_class(f, g, u, v, grids, jmax, imax):
+    """The F/G wall fixups on lane-stacked class blocks."""
+    gj, gi = grids
+    return ops.fg_fixups_gated(f, g, u, v, gj, gi, (jmax, imax))

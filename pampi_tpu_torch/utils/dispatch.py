@@ -1,11 +1,13 @@
 """Dispatch record and the port's feature gate.
 
 `record`/`last`/`snapshot` keep a per-process record of which path each
-solver took (kernel or plain version, layout, fused or ladder MG cycle),
-like the JAX package's `utils/dispatch.py`. `resolve_solver` and
-`resolve_mg_fused` port that module's solver policies, `mesh_is_single`
-the CLI's mesh policy. `check_supported` refuses, loudly, every option the
-port does not run yet, naming the ROADMAP item that will bring it."""
+solver took (kernel or plain version, layout, fused or ladder MG cycle,
+the fleet's class and bucket decisions), like the JAX package's
+`utils/dispatch.py`. `resolve_solver`, `resolve_mg_fused`,
+`resolve_mg_class` and `resolve_class` port that module's policies,
+`mesh_is_single` the CLI's mesh policy. `check_supported` refuses, loudly,
+every option the port does not run yet, naming the ROADMAP item that will
+bring it."""
 
 from __future__ import annotations
 
@@ -125,6 +127,43 @@ def resolve_mg_fused(knob: str, levels, key: str) -> bool:
     how = "forced" if knob == "on" else "auto"
     record(key, f"fused cycle ({how}; DOWN + bottom + UP, "
            f"levels={len(levels)})")
+    return True
+
+
+def resolve_mg_class(knob: str, lmax: int, key: str = "mg_class_fused"
+                     ) -> bool:
+    """`tpu_mg_fused` for the fleet's mg class lanes: whether the lane's
+    solve is the one-launch class V-cycle (K18, ops/mg_fused.class_cycle).
+    `off` never reaches here (fleet/shapeclass.class_eligible keeps such
+    requests in their exact-shape bucket, as the JAX package does); `auto`
+    and `on` both take the cycle, as resolve_mg_fused does for K9-K12. On
+    a TPU the JAX package's `auto` also refuses float64 (Mosaic cannot
+    lower it) and runs its rb-SOR class loop there; the port runs K18 at
+    float64 too, as all its Hopper kernels do. On the CPU the cycle runs
+    K18's plain version. Recorded under `key`."""
+    if knob not in ("auto", "on", "off"):
+        raise ValueError(f"tpu_mg_fused must be auto|on|off, got {knob!r}")
+    if knob == "off":
+        record(key, "refused (tpu_mg_fused off: the mg class solve is the "
+               "one-launch cycle)")
+        return False
+    how = "forced" if knob == "on" else "auto"
+    record(key, f"class cycle ({how}; K18, launches=1 a cycle, "
+           f"levels<={lmax})")
+    return True
+
+
+def resolve_class(key: str, grid, why_not: str | None) -> bool:
+    """Shape-class eligibility of one request, recorded per bucket (the
+    JAX package's resolve_class): `key` is `class_<bucket>`, the class
+    bucket's label when eligible and the exact-shape bucket's when not,
+    `grid` the padded class rungs, `why_not` the
+    fleet/shapeclass.class_eligible refusal. Returns whether the request
+    rides a class bucket."""
+    if why_not is not None:
+        record(key, f"exact ({why_not})")
+        return False
+    record(key, f"class (padded {'x'.join(str(g) for g in grid)})")
     return True
 
 

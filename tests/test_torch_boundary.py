@@ -89,7 +89,17 @@ def test_import_and_solve_load_no_jax():
         NS3DDistSolver(obstacle, CartComm(ndims=3, dims=(2, 2, 2),
                                           devices=[torch.device("cpu")])
                        ).run_steps(1)
-        print(it, s.nt, s3.nt, mg[0], fft[0], dist[0], d3.nt, d2.nt)
+        from pampi_tpu_torch.fleet import FleetScheduler
+        sched = FleetScheduler(classes="on", device="cpu")
+        for k, (i, j) in enumerate(((12, 12), (9, 14))):
+            sched.submit_param(f"m{k}", Parameter(
+                name="dcavity", imax=i, jmax=j, te=0.02, tpu_mesh="1",
+                tpu_solver="mg", itermax=3))
+        sched.submit_param("s", Parameter(name="dcavity", imax=8, jmax=8,
+                                          te=0.02, tpu_mesh="1"))
+        fl = sched.run()
+        print(it, s.nt, s3.nt, mg[0], fft[0], dist[0], d3.nt, d2.nt,
+              fl.summary["n_scenarios"])
         print(sorted(m for m in sys.modules
                      if m.startswith("jax") or m.startswith("pampi_tpu")))
     """)
@@ -97,7 +107,7 @@ def test_import_and_solve_load_no_jax():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, cwd=str(ROOT), timeout=120,
                          check=True).stdout.splitlines()
-    assert out[0] == "40 2 2 3 1 36 2 2"
+    assert out[0] == "40 2 2 3 1 36 2 2 3"
     loaded = ast.literal_eval(out[1])
     assert [m for m in loaded if _forbidden(m)] == []
     for mod in ("ops.sor_kernels", "ops.sor3d_kernels", "ops.ns3d_fused",
@@ -107,7 +117,8 @@ def test_import_and_solve_load_no_jax():
                 "ops.sor_odist", "parallel.octants_dist",
                 "parallel.stencil3d", "models.ns3d_dist", "ops.obstacle",
                 "ops.sor_obsdist", "parallel.ragged2d", "models.ns2d_dist",
-                "ops.obstacle3d", "ops.sor_obsdist3d"):
+                "ops.obstacle3d", "ops.sor_obsdist3d", "fleet.queue",
+                "fleet.shapeclass", "fleet.batch", "fleet.scheduler"):
         assert f"pampi_tpu_torch.{mod}" in loaded
 
 
@@ -117,6 +128,9 @@ def test_port_sources_import_no_jax():
     assert {PORT / "parallel" / f"{m}.py" for m in (
         "comm", "halo_debug", "quarters_dist", "stencil2d", "octants_dist",
         "stencil3d", "ragged2d")} <= set(files)
+    assert {PORT / "fleet" / f"{m}.py" for m in (
+        "__init__", "queue", "shapeclass", "batch", "scheduler")} \
+        <= set(files)
     assert {PORT / "models" / "poisson_dist.py",
             PORT / "models" / "ns3d_dist.py",
             PORT / "models" / "ns2d_dist.py",
@@ -211,12 +225,13 @@ def test_kernel_registry():
                                "ns3d_pre_flags", "ns3d_post_flags",
                                "rb_sor_checkerboard_masked",
                                "rb_sor_blocked", "ns2d_pre_flags",
-                               "ns2d_post_flags"}
+                               "ns2d_post_flags", "mg_class_cycle_2d"}
     for k in kb.KERNELS.values():
         assert (ROOT / k.source).is_file()
         path, line = k.replaces.split(":")
         src = (ROOT / path).read_text().splitlines()
         assert "pl.pallas_call(" in src[int(line) - 1], k
-    assert kb.sources() == ["mg_cycle", "ns2d_fused", "ns3d_fused",
-                            "sor3d_rb", "sor_obsdist", "sor_obsdist3d",
-                            "sor_odist", "sor_qdist", "sor_rb"]
+    assert kb.sources() == ["mg_class_cycle", "mg_cycle", "ns2d_fused",
+                            "ns3d_fused", "sor3d_rb", "sor_obsdist",
+                            "sor_obsdist3d", "sor_odist", "sor_qdist",
+                            "sor_rb"]

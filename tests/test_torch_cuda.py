@@ -15,8 +15,10 @@ K5 and K16 (3-D obstacles) sum their residual in an order their plain
 versions repeat, so they are held bitwise, residual included, and K16 on a
 one-shard mesh is masked K5; masked K2 (2-D obstacles) and K17 (one
 blocked red-black iteration) likewise, residual included, and K17's
-fields are K2's; an MG run on the card against the CPU, whose DCT
-bottom's matrix products sum in another order, to 1e-9."""
+fields are K2's; so is K18 (the fleet's one-launch class V-cycle), fields
+and residual; an MG run on the card against the CPU, whose DCT bottom's
+matrix products sum in another order, to 1e-9; a fleet of mg class lanes
+on the card against the CPU to 1e-9 of scale."""
 
 import numpy as np
 import pytest
@@ -782,3 +784,72 @@ def test_obstacle_ns2d_on_card_matches_cpu(cuda):
                else {n: getattr(s, n).cpu().numpy() for n in "uvp"})
         for n, b in zip("uvp", ref):
             assert np.abs(np.asarray(got[n]) - b).max() <= 1e-12
+
+
+def _class_lanes(cls, dtype, device, seed):
+    """Lane-stacked class blocks for K18: a full-class lane, an odd one
+    (a one-level plan), one whose plan stops early, an inactive one."""
+    lanes = [(cls, cls), (9, 13), (12, 12), (cls, cls - 3)]
+    rng = np.random.default_rng(seed)
+    n, lmax = len(lanes), mf.class_level_max(cls, cls)
+    p = np.zeros((n, cls + 2, cls + 2))
+    rhs = np.zeros((n, cls + 2, cls + 2))
+    plans = []
+    for k, (jl, il) in enumerate(lanes):
+        p[k, :jl + 2, :il + 2] = rng.normal(size=(jl + 2, il + 2))
+        rhs[k, 1:jl + 1, 1:il + 1] = rng.normal(size=(jl, il))
+        plans.append(mf.class_level_plan(jl, il, float(il * il),
+                                          float(jl * jl), lmax, dtype))
+    act = torch.tensor([1, 1, 1, 0], dtype=torch.int32, device=device)
+    return (torch.from_numpy(p).to(device, dtype),
+            torch.from_numpy(rhs).to(device, dtype),
+            torch.stack([e for e, _ in plans]).to(device),
+            torch.stack([g for _, g in plans]).to(device), act)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("cls", [16, 64, 256])
+def test_class_cycle_k18_matches_plain(cuda, dtype, cls):
+    """K18 against its plain version on the same CUDA inputs, three
+    cycles: fields and residual bitwise; the inactive lane passes."""
+    p, rhs, ext, geo, act = _class_lanes(cls, dtype, cuda, 101 + cls)
+    pk = pp = p
+    launches = mf.MG_CLASS_CYCLE_2D.launches
+    for _ in range(3):
+        pk, rk = mf.class_cycle(pk, rhs, ext, geo, act)
+        pp, rp = mf.class_cycle_plain(pp, rhs, ext, geo, act)
+        assert torch.equal(pk, pp) and torch.equal(rk, rp)
+    assert mf.MG_CLASS_CYCLE_2D.launches == launches + 3
+    assert torch.equal(pk[3], p[3]) and float(rk[3]) == 0.0
+
+
+def test_class_fleet_on_card_matches_cpu(cuda):
+    """Four mixed-grid mg requests (dcavity and canal, f64) through
+    FleetScheduler(classes="on") on the card and on the CPU: the same
+    steps, fields within 1e-9 of scale, K18 launched."""
+    from pampi_tpu_torch.fleet import FleetScheduler
+
+    base = dict(tpu_mesh="1", tpu_solver="mg", re=10.0, tau=0.5,
+                itermax=10, eps=1e-4, gamma=0.9, te=0.1)
+    reqs = {"d0": dict(base, name="dcavity", imax=12, jmax=12),
+            "d1": dict(base, name="dcavity", imax=16, jmax=9, u_init=0.1),
+            "c0": dict(base, name="canal", imax=24, jmax=10, xlength=3.0,
+                       bcLeft=3, bcRight=3, re=100.0),
+            "c1": dict(base, name="canal", imax=20, jmax=14, xlength=3.0,
+                       bcLeft=3, bcRight=3, re=100.0)}
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        sched = FleetScheduler(classes="on", device=dev)
+        for sid, kw in reqs.items():
+            sched.submit_param(sid, Parameter(**kw))
+        launches = mf.MG_CLASS_CYCLE_2D.launches
+        runs[dev] = sched.run()
+        if dev == "cuda":
+            assert mf.MG_CLASS_CYCLE_2D.launches > launches
+    for sid in reqs:
+        a, b = runs["cuda"].by_sid(sid), runs["cpu"].by_sid(sid)
+        assert a.nt == b.nt and a.mode == b.mode == "class"
+        assert not a.diverged
+        for x, y in zip(a.fields, b.fields):
+            scale = max(1.0, float(np.abs(y).max()))
+            assert np.abs(x - y).max() <= 1e-9 * scale
