@@ -127,7 +127,13 @@ on the one card) adds:
    factor is formed from the flags);
 3. K15 per 1366x4096 shard call of 4096² f32 on the ragged 3x1 (n = 4,
    deep block 1384x4114) and K3/K4 distributed per shard call, beside
-   their bounds;
+   their bounds; K15 and K16 (both redesigned: one pass through shared
+   memory a call) time their `out=` form, the solvers' form, and count
+   their CUDA launches a call from torch.profiler's trace; they are also
+   held against their plain versions and timed on the float64 shards of
+   the CLI runs that make most of their launches (configs/dcavity.par on
+   3x3, configs/canal_obstacle.par on 2x2, configs/canal3d_obstacle.par
+   on 2x2x2, n = 1);
 4. dcavity 4096² f32 (re 1000, tpu_sor_inner 4, itermax 100, eps 0), 16
    steps after one warm-up through NS2DDistSolver on 2x2 (K13), the ragged
    3x1 (K15) and 2x2 checkerboard (K15): PRE / solve / POST and the
@@ -241,11 +247,13 @@ import sys
 import tempfile
 import time
 import traceback
+from types import SimpleNamespace
 from unittest import mock
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
 FP32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
+FP64_FLOPS = 34e12          # H100 SXM float64 outside the tensor cores
 MAIN = (4096, 4096)         # the 2-D main path's grid (jmax, imax)
 MAIN3 = (128, 128, 128)     # the NS-3D main path's grid (kmax, jmax, imax)
 BIG3 = (256, 256, 256)      # where a 3-D field (68.7 MB) outgrows the L2
@@ -312,11 +320,36 @@ def rel_err(a, b) -> float:
     return float((a - b).abs().max()) / scale
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, peak=FP32_FLOPS):
     """(ms, "bytes" | "operations"): the larger of bytes over the memory
-    rate and float32 operations over the card's peak rate."""
-    b, o = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+    rate and operations over the card's peak rate for their type (float32
+    unless `peak` says otherwise)."""
+    b, o = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     return (b, "bytes") if b >= o else (o, "operations")
+
+
+def cuda_launches(torch, fn, calls=20):
+    """The device operations (kernels, copies, fills) of one call of fn,
+    counted in torch.profiler's trace of `calls` calls after a warm-up
+    call and rounded (the trace has been seen to miss one event of a
+    run); None where the trace holds none (the profiler cannot see the
+    card): the count is then not measured."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    return round(n / calls) if n else None
+
+
+def launches_text(n):
+    return "not measured" if n is None else f"{n:g}"
 
 
 @phase("build")
@@ -2337,6 +2370,40 @@ def check_obsdist(torch, np, solve, param, dtype, seed, calls=2):
     return bitwise, er, err
 
 
+def time_obsdist_shards(torch, solve, blocks, coef, reps=20):
+    """K15 (K16 where solve.geom is 3-D) as the solve calls it (reading a
+    block, writing `out`) and its plain version on every shard's random
+    (p, rhs) of `blocks`, with the solve's flags and offsets: (ms a shard
+    call, plain ms a shard call, CUDA launches a call)."""
+    from pampi_tpu_torch.ops import sor_obsdist as sod
+    from pampi_tpu_torch.ops import sor_obsdist3d as sod3
+
+    three = isinstance(solve.geom, sod3.ObsGeom3)
+    kern = sod3.rb_sor_obsdist3d if three else sod.rb_sor_obsdist
+    plain = (sod3.rb_iters_obsdist3d_plain if three
+             else sod.rb_iters_obsdist_plain)
+    g, nsh = solve.geom, len(solve.offs)
+    outs = [torch.empty_like(x) for x, _ in blocks]
+    shards = list(zip(blocks, outs, solve.flags, solve.offs))
+
+    def run():
+        return [kern(x, f, fl, g, o, *coef, out=y)
+                for (x, f), y, fl, o in shards]
+
+    ms = cuda_ms(torch, run, reps) / nsh
+    pms = cuda_ms(torch, lambda: [plain(x.clone(), f, fl, g, o, *coef)
+                                  for (x, f), _, fl, o in shards], 2) / nsh
+    calls = cuda_launches(torch, lambda: kern(
+        blocks[0][0], blocks[0][1], solve.flags[0], g, solve.offs[0], *coef,
+        out=outs[0]))
+    # the solvers' form: one launch for K15, three for K16 (its residual's
+    # row sums and their sum)
+    if calls is not None and calls > (3 if three else 1):
+        raise AssertionError(f"{kern.__name__} made {calls} CUDA launches "
+                             f"a call")
+    return ms, pms, calls
+
+
 def step2d_shard(torch, cfg, offs, G, u, v, p, dt, ragged,
                  flags=(None, None)):
     """K3 on copies of one shard's deep blocks u, v, then K4 on the
@@ -2452,7 +2519,6 @@ def check_dist2d_kernels(torch, np):
        "float32 on the ragged 3x1")
 def time_dist2d(torch, np):
     from pampi_tpu_torch.ops import ns2d_fused as nf
-    from pampi_tpu_torch.ops import sor_obsdist as sod
     from pampi_tpu_torch.ops.ns2d_fused import StepConfig
 
     _, param, dims = dist2d_main_configs()[1]
@@ -2471,13 +2537,8 @@ def time_dist2d(torch, np):
               for k in range(len(solve.offs))]
     coef = (param.omg, 1.0 / (s.dx * s.dx), 1.0 / (s.dy * s.dy))
 
-    def shards(fn):
-        return lambda: [fn(x, f, fl, g, o, *coef) for (x, f), fl, o in
-                        zip(blocks, solve.flags, solve.offs)]
-
     nsh = len(solve.offs)
-    ms = cuda_ms(torch, shards(sod.rb_sor_obsdist), 20) / nsh
-    pms = cuda_ms(torch, shards(sod.rb_iters_obsdist_plain), 2) / nsh
+    ms, pms, calls = time_obsdist_shards(torch, solve, blocks, coef)
     # per shard call: p, rhs (4 bytes) and the flags (1) of the cells K15
     # reads, read once, p written once (the mean over the three shards,
     # whose times are averaged); ~20 flops per cell update
@@ -2485,11 +2546,13 @@ def time_dist2d(torch, np):
     b = bound(read * (3 * size + 1), 20 * g.n * g.jl * g.il)
     rows = {"rb_sor_obsdist": dict(
         max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1],
+        cuda_launches_a_call=calls,
         shape=f"{g.jl}x{g.il} shard of 4096x4096 on 3x1 (deep "
               f"{g.shape[0]}x{g.shape[1]}), n={g.n}, {read:.0f} cells "
               f"read a shard")}
     log(f"rb_sor_obsdist 4096² f32 on 3x1: {ms:.4f} ms per shard call "
-        f"(plain {pms:.4f}, bound {b[0]:.4f} by {b[1]}), the three shards "
+        f"(plain {pms:.4f}, bound {b[0]:.4f} by {b[1]}), "
+        f"{launches_text(calls)} CUDA launches a call, the three shards "
         f"on one card")
     del blocks
     # K3 on a deep block, K4 on the halo-1 blocks of the middle shard
@@ -3105,7 +3168,6 @@ def check_obstacle3d_kernels(torch, np):
 def time_obstacle3d(torch, np):
     from pampi_tpu_torch.ops import ns3d_fused as nf3
     from pampi_tpu_torch.ops import sor3d_kernels as sk3
-    from pampi_tpu_torch.ops import sor_obsdist3d as sod3
 
     size, rows = 4, {}
     param = obstacle_config(**OBST_MAIN)
@@ -3182,11 +3244,10 @@ def time_obstacle3d(torch, np):
                              "timed shard")
     flags = shard_flags(fluid, offs, local, g.H)
     c = inverse_squares(big)
-    x, f = rng_fields(torch, np, g.shape, torch.float32, 2, 201)
-    ms = cuda_ms(torch, lambda: sod3.rb_sor_obsdist3d(
-        x, f, flags, g, offs, big.omg, *c), 20)
-    pms = cuda_ms(torch, lambda: sod3.rb_iters_obsdist3d_plain(
-        x, f, flags, g, offs, big.omg, *c), 2)
+    solve = SimpleNamespace(geom=g, flags=[flags], offs=[offs])
+    blocks = [rng_fields(torch, np, g.shape, torch.float32, 2, 201)]
+    ms, pms, calls = time_obsdist_shards(torch, solve, blocks,
+                                         (big.omg, *c))
     # p, rhs and the flags of the cells K16 reads: at mesh coordinates
     # (1, 1, 1) H layers on the three interface sides, the ghost layer on
     # the three wall sides
@@ -3194,12 +3255,14 @@ def time_obstacle3d(torch, np):
     b = bound(13 * read, 33 * 4 * local[0] * local[1] * local[2])
     rows["rb_sor_obsdist3d"] = dict(
         max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1],
+        cuda_launches_a_call=calls,
         shape=f"(128, 128, 512) shard of 1024x256x256 f32 on 2x2x2, n=4, "
               f"deep block {g.shape}, {read} cells read")
     log(f"rb_sor_obsdist3d per (128, 128, 512) shard of 1024x256x256 f32 on "
         f"2x2x2, n=4 (deep block {g.shape}, {read} cells read): {ms:.4f} ms"
-        f" per shard call (plain {pms:.4f}, bound {b[0]:.4f} by {b[1]})")
-    del x, f, flags
+        f" per shard call (plain {pms:.4f}, bound {b[0]:.4f} by {b[1]}), "
+        f"{launches_text(calls)} CUDA launches a call")
+    del blocks, flags, solve
     torch.cuda.empty_cache()
     return rows
 
@@ -3684,7 +3747,6 @@ def check_obstacle2d_kernels(torch, np):
 def time_obstacle2d(torch, np):
     from pampi_tpu_torch.ops import ns2d_fused as nf
     from pampi_tpu_torch.ops import sor_kernels as sk
-    from pampi_tpu_torch.ops import sor_obsdist as sod
 
     size, rows, f32 = 4, {}, torch.float32
     J, I = OBST2_MAIN
@@ -3784,14 +3846,8 @@ def time_obstacle2d(torch, np):
     blocks = [rng_fields(torch, np, g.shape, f32, 2, 295 + k)
               for k in range(len(solve.offs))]
     coef = (param.omg, *c)
-
-    def shards(fn):
-        return lambda: [fn(x, f, fl, g, o, *coef) for (x, f), fl, o in
-                        zip(blocks, solve.flags, solve.offs)]
-
     nsh = len(solve.offs)
-    ms = cuda_ms(torch, shards(sod.rb_sor_obsdist), 20) / nsh
-    pms = cuda_ms(torch, shards(sod.rb_iters_obsdist_plain), 2) / nsh
+    ms, pms, calls = time_obsdist_shards(torch, solve, blocks, coef)
     # the cells K15 reads on each (corner) shard: H layers on the two
     # interface sides, the ghost layer on the two wall sides
     read = sum(k15_read_cells(g, o) for o in solve.offs) / nsh
@@ -3799,14 +3855,84 @@ def time_obstacle2d(torch, np):
     rows["rb_sor_obsdist"] = dict(
         real_flags_ms=ms, real_flags_plain_ms=pms, real_flags_bound_ms=b[0],
         real_flags_bound_by=b[1], real_flags_max_abs_err=err,
+        real_flags_cuda_launches_a_call=calls,
         real_flags_shape=f"{g.jl}x{g.il} shard of {I}x{J} on 2x2 (deep "
                          f"{g.shape[0]}x{g.shape[1]}, {read:.0f} cells "
                          f"read), n={g.n}, canal_obstacle.par's box")
     log(f"rb_sor_obsdist per {g.il}x{g.jl} shard of {shape} f32 on 2x2, real"
         f" flags, n={g.n} (deep block {g.shape}): {ms:.4f} ms per shard call"
-        f" (plain {pms:.4f}, bound {b[0]:.4f} by {b[1]})")
+        f" (plain {pms:.4f}, bound {b[0]:.4f} by {b[1]}), "
+        f"{launches_text(calls)} CUDA launches a call")
     del blocks, s, solve
     torch.cuda.empty_cache()
+    return rows
+
+
+def obsdist_cli_configs():
+    """The CLI runs whose rounds make most of K15's and K16's launches, as
+    (kernel, label, param, mesh dims): configs/dcavity.par on 3x3 (34²
+    shards), configs/canal_obstacle.par on 2x2 (256x64 shards) and
+    configs/canal3d_obstacle.par on 2x2x2 (64x16x16 shards), all float64
+    at n = 1 (tpu_ca_inner 1)."""
+    return (("rb_sor_obsdist", "dcavity.par 3x3",
+             config("dcavity.par", tpu_mesh="3x3"), (3, 3)),
+            ("rb_sor_obsdist", "canal_obstacle.par 2x2",
+             config("canal_obstacle.par", tpu_mesh="2x2"), (2, 2)),
+            ("rb_sor_obsdist3d", "canal3d_obstacle.par 2x2x2",
+             config("canal3d_obstacle.par", tpu_mesh="2x2x2"), (2, 2, 2)))
+
+
+@phase("K15 and K16 at the CLI runs' float64 shards: vs plain, times, "
+       "CUDA launches a call")
+def time_obsdist_cli(torch, np):
+    from pampi_tpu_torch.models.ns3d_dist import NS3DDistSolver
+    from pampi_tpu_torch.parallel.comm import CartComm
+
+    rows, bad = {"rb_sor_obsdist": {}, "rb_sor_obsdist3d": {}}, []
+    f64 = torch.float64
+    for name, label, param, dims in obsdist_cli_configs():
+        key = "cli_" + label.split(".")[0]
+        if name == "rb_sor_obsdist":
+            s = dist2d_solver(param, dims)
+            solve = s._solve_k
+            fb, er, err = check_obsdist(torch, np, solve, param, f64, 301)
+            rb = er <= tol(torch, f64)
+            dx, dy = param.xlength / param.imax, param.ylength / param.jmax
+            coef = (param.omg, 1.0 / (dx * dx), 1.0 / (dy * dy))
+            reads = [k15_read_cells(solve.geom, o) for o in solve.offs]
+            g = solve.geom
+            cells, flops = g.jl * g.il, 20
+        else:
+            s = NS3DDistSolver(param, CartComm(ndims=3, dims=dims))
+            solve = s._obs_solve
+            fb, rb, err = check_obsdist3d(torch, np, solve, param, f64, 311)
+            coef = (param.omg, *inverse_squares(param))
+            reads = [k16_read_cells(solve.geom, o) for o in solve.offs]
+            g = solve.geom
+            cells, flops = g.kl * g.jl * g.il, 33
+        blocks = [rng_fields(torch, np, g.shape, f64, 2, 321 + k)
+                  for k in range(len(solve.offs))]
+        ms, pms, calls = time_obsdist_shards(torch, solve, blocks, coef,
+                                             reps=200)
+        read = sum(reads) / len(reads)
+        b = bound(read * (3 * 8 + 1), flops * g.n * cells, FP64_FLOPS)
+        rows[name].update({
+            f"{key}_ms": ms, f"{key}_plain_ms": pms, f"{key}_bound_ms": b[0],
+            f"{key}_bound_by": b[1], f"{key}_max_abs_err": err,
+            f"{key}_cuda_launches_a_call": calls,
+            f"{key}_shape": f"{label} f64 shards, deep {g.shape}, n={g.n}"})
+        log(f"{name} f64 {label} (deep blocks {g.shape}, n={g.n}), every "
+            f"shard vs plain: blocks bitwise {fb}, residual "
+            f"{'bitwise' if name.endswith('3d') else 'within tol'} {rb}; "
+            f"{ms:.4f} ms a shard call (plain {pms:.4f}, bound {b[0]:.6f} "
+            f"by {b[1]}), {launches_text(calls)} CUDA launches a call")
+        if not (fb and rb):
+            bad.append(label)
+        del s, solve, blocks
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"K15/K16 differ from their plain versions at "
+                             f"the CLI shards: {bad}")
     return rows
 
 
@@ -4446,6 +4572,7 @@ def main() -> int:
         d2_rows = time_dist2d(torch, np)
         o3_rows = time_obstacle3d(torch, np)
         o2_rows = time_obstacle2d(torch, np)
+        cli_rows = time_obsdist_cli(torch, np)
         k18_rows = time_class_kernel(torch, np)
         sor_ns2d = {}
         counts = main_path(torch, sor_ns2d)
@@ -4476,7 +4603,8 @@ def main() -> int:
         counts_o3cli = obstacle3d_cli(np)
         counts_o2cli = obstacle2d_cli(np)
         if None not in (rows, rows3, mg_rows, q_rows, d3_rows, d2_rows,
-                        o3_rows, o2_rows, k18_rows, counts, counts3,
+                        o3_rows, o2_rows, cli_rows, k18_rows, counts,
+                        counts3,
                         counts_mg, counts_dist, counts_cli, counts_d3,
                         counts_d3cli, counts_d2, counts_d2cards,
                         counts_d2cli, counts_o3, counts_o3cli, counts_o2,
@@ -4485,7 +4613,10 @@ def main() -> int:
                     **o2_rows, **k18_rows,
                     "rb_sor_odist": d3_rows["rb_sor_odist"],
                     "rb_sor_obsdist": {**d2_rows["rb_sor_obsdist"],
-                                       **o2_rows["rb_sor_obsdist"]}}
+                                       **o2_rows["rb_sor_obsdist"],
+                                       **cli_rows["rb_sor_obsdist"]}}
+            rows["rb_sor_obsdist3d"] = {**rows["rb_sor_obsdist3d"],
+                                        **cli_rows["rb_sor_obsdist3d"]}
             for name in ("ns3d_pre", "ns3d_post"):
                 rows[name] = {**rows[name], **d3_rows[name]}
             for name in ("ns2d_pre", "ns2d_post"):

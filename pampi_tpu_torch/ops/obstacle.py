@@ -362,12 +362,18 @@ def make_dist_obstacle_solver(comm: CartComm, imax, jmax, jl, il, dx, dy,
 
     def solve(p, rhs):
         pd = [embed_deep(x, H) for x in p]
+        qd = [torch.empty_like(x) for x in pd]
         rd = pc.halo_exchange([embed_deep(x, H) for x in rhs], comm, depth=H)
 
         def rounds():
+            # K15 reads pd and writes qd; the two swap, so pd holds the
+            # newest blocks
             pc.halo_exchange(pd, comm, depth=H)
-            return [rb_sor_obsdist(x, f, fl, geom, o, m.omega, idx2, idy2)
-                    for x, f, fl, o in zip(pd, rd, flags, offs)], n
+            res = [rb_sor_obsdist(x, f, fl, geom, o, m.omega, idx2, idy2,
+                                  out=y)
+                   for x, y, f, fl, o in zip(pd, qd, rd, flags, offs)]
+            pd[:], qd[:] = list(qd), list(pd)
+            return res, n
 
         res, it = mesh_convergence_loop(rounds, comm, dtype, int(m.n_fluid),
                                         eps, itermax)

@@ -378,11 +378,17 @@ def make_dist_obstacle_solver_3d(comm: CartComm, imax, jmax, kmax, kl, jl,
         _dispatch.record(record_key, f"pallas ca{n}")
 
         def rounds_for(pd, rd):
+            qd = [torch.empty_like(x) for x in pd]
+
             def rounds():
+                # K16 reads pd and writes qd; the two swap in place, so pd
+                # (the closure's and solve's) holds the newest blocks
                 pc.halo_exchange(pd, comm, depth=H)
-                return [rb_sor_obsdist3d(x, f, fl, geom, o, m.omega, idx2,
-                                         idy2, idz2)
-                        for x, f, fl, o in zip(pd, rd, flags, offs)], n
+                res = [rb_sor_obsdist3d(x, f, fl, geom, o, m.omega, idx2,
+                                        idy2, idz2, out=y)
+                       for x, y, f, fl, o in zip(pd, qd, rd, flags, offs)]
+                pd[:], qd[:] = list(qd), list(pd)
+                return res, n
             return rounds
     else:
         geom = flags = None

@@ -5,11 +5,11 @@ pampi_tpu_torch/csrc/sor_obsdist.cu).
 K15 `rb_sor_obsdist` replaces pampi_tpu/ops/sor_obsdist.py
 `_obsdist_kernel` (make_rb_iters_obsdist, pallas_call at :296): g.n
 red-black iterations, each with the globally gated Neumann wall refresh,
-on one shard's (jl+2H, il+2H) deep block, in place, with the shard's
-global offsets (joff, ioff) as arguments (the TPU kernel's scalar
-prefetch). H = ca_halo(n, ragged) is 2n, or 2n+1 on a ragged mesh. Deep
-cell (a, b) holds global extended index (a - H + joff + 1, b - H + ioff +
-1). Per cell:
+on one shard's (jl+2H, il+2H) deep block, with the shard's global offsets
+(joff, ioff) as arguments (the TPU kernel's scalar prefetch). H =
+ca_halo(n, ragged) is 2n, or 2n+1 on a ragged mesh. Deep cell (a, b)
+holds global extended index (a - H + joff + 1, b - H + ioff + 1). Per
+cell:
 
 - it updates when it lies in the global interior, off the block's frozen
   outer ring, in the colour (gi + gj) mod 2 of the half-sweep, and is
@@ -40,9 +40,15 @@ keeps the unpadded block and exchanges it with parallel/comm.halo_exchange
 
 Bound: memory, as K2 (p, rhs and the flags read once, p written once per
 call: 13 bytes a cell at float32, ~22 us for a 1366x4096 shard at n = 4).
-The design is K13's: a launch per colour per iteration and one for the
-wall refresh, per-block partial sums of r² on the last iteration and a
-one-block fixed-order sum; temporal blocking is later work.
+The design is the TPU kernel's temporal blocking: the block is cut into
+owned tiles that partition it (obsdist_tiles); a CTA loads its tile with
+a halo of 2n + 1 cells into shared memory, runs all n iterations
+there and writes the tile's cells into `out` once; the last CTA sums the
+per-tile residual partials in tile order. One launch a call: the solver
+passes `out` and swaps the two blocks; without `out` the wrapper copies
+the result back into p (a second launch). A call whose boxes would
+outgrow shared memory (n in the tens at float64) runs as a few passes of
+fewer iterations (obsdist_passes), each exact on the whole block.
 
 For a CPU tensor the wrapper runs the plain version; for a CUDA tensor it
 launches K15 or raises.
@@ -51,6 +57,7 @@ launches K15 or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 
 import torch
@@ -64,11 +71,20 @@ RB_SOR_OBSDIST = kb.register(
 
 _V, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _SIGNATURES = {
-    f"rb_sor_obsdist_{t}": [_I, _V, _V, _V] + [_I] * 10
-    + [_D, _D, _D, _V, _V, _V]
+    f"rb_sor_obsdist_{t}": [_I, _V, _V, _V, _V, _V, _D, _D, _D, _V, _V, _V,
+                            _V]
     for t in ("f32", "f64")
 }
-_SIGNATURES["rb_sor_obsdist_partials"] = [_I, _I]
+# the largest box (tile and halo, rows x columns) a CTA holds, by element
+# size: p, rhs (itemsize each) and the flags (1 byte) of 96x128 cells
+# (~111 KB) at float32 and 64x96 (~106 KB) at float64, two CTAs an SM
+_BOX = {4: (96, 128), 8: (64, 96)}
+_MIN_TILE = (16, 32)
+_THREADS = 512  # a CTA's threads (csrc/sor_obsdist.cu's NT)
+# dynamic shared memory a CTA may take on the H100 (227 KB, less a margin
+# for the kernel's static shared memory)
+SMEM_LIMIT = 232448 - 1024
+_TICKETS: dict = {}
 
 
 @dataclass(frozen=True)
@@ -143,13 +159,100 @@ def rb_iters_obsdist_plain(p, rhs, flags, g: ObsGeom, offs, omega, idx2,
     return torch.sum(torch.where(m["owned"][inner], r2, zero))
 
 
-def rb_sor_obsdist(p, rhs, flags, g: ObsGeom, offs, omega, idx2, idy2):
-    """K15 on one shard's deep block p, rhs of shape g.shape, in place on
-    p, with the uint8 deep flag block `flags` and the shard's global
-    offsets offs = (joff, ioff). Returns the owned Σr² of the last
-    iteration (0-dim tensor)."""
+@dataclass(frozen=True)
+class PassPlan:
+    """One launch of K15: n iterations on tiles (th, tw) with a halo of ht
+    cells, and the shared-memory layout of the largest box."""
+
+    n: int
+    ht: int
+    th: int
+    tw: int
+    rows: int  # rows of the largest box
+    P: int  # row pitch of p and rhs in shared memory (elements, even)
+    Pf: int  # row pitch of the flags (bytes)
+    smem: int  # dynamic shared memory a CTA takes (bytes)
+
+
+def _flag_pitch(w: int) -> int:
+    """A row pitch for the byte flags: a multiple of 32 at least w, not of
+    128, so that the two rows of a warp's row pair fall on other banks."""
+    pf = -(-w // 32) * 32
+    return pf + 32 if pf % 128 == 0 else pf
+
+
+def pass_plan(g: ObsGeom, n: int, itemsize: int = 4) -> PassPlan:
+    """The launch plan of a pass of n <= g.n iterations on g's deep block.
+    The tile halo is 2n + 1, or g.H less two cells an iteration not run in
+    this pass where that is more: the sweeps reach 2n cells in from the
+    box's edge, and a wall-ghost cell of the tile copies its inward
+    neighbour after them, one cell further (a shard's owned region holds
+    no wall cell, so its deep halo needs only 2n, or 2n + 1 on a ragged
+    mesh for the same reason). The owned tile is the largest box for the
+    element size less the halo (at least _MIN_TILE)."""
+    ht = max(g.H - 2 * (g.n - n), 2 * n + 1)
+    rows, cols = _BOX[itemsize]
+    th, tw = max(rows - 2 * ht, _MIN_TILE[0]), max(cols - 2 * ht, _MIN_TILE[1])
+    ej, ei = g.shape
+    r, w = min(ej, th + 2 * ht), min(ei, tw + 2 * ht)
+    P, Pf = w + (w & 1), _flag_pitch(w)
+    # the residual's tree reuses the box's memory: one value a thread
+    smem = max(r * (2 * P * itemsize + Pf), _THREADS * itemsize)
+    return PassPlan(n, ht, th, tw, r, P, Pf, smem)
+
+
+def split_passes(n: int, fits) -> list[int]:
+    """n iterations as the fewest passes of near-equal length for which
+    fits(length) holds (one pass where n fits)."""
+    for k in range(1, n + 1):
+        parts = [n // k + (1 if i < n % k else 0) for i in range(k)]
+        if all(fits(m) for m in set(parts)):
+            return parts
+    raise ValueError(f"no pass of one iteration fits (n = {n})")
+
+
+def obsdist_passes(g: ObsGeom, itemsize: int = 4) -> list[PassPlan]:
+    """K15's launches for one call: one pass of g.n iterations wherever
+    its boxes fit shared memory, else the fewest that do."""
+    parts = split_passes(
+        g.n, lambda m: pass_plan(g, m, itemsize).smem <= SMEM_LIMIT)
+    return [pass_plan(g, m, itemsize) for m in parts]
+
+
+def obsdist_tiles(g: ObsGeom, itemsize: int = 4, n: int | None = None):
+    """The owned tiles (j0, j1, i0, i1) of a pass of n iterations (default
+    g.n): they partition the deep block, its frozen ring included, so the
+    kernel writes each cell once. The CTA of a tile holds the box
+    [j0 - ht, j1 + ht) x [i0 - ht, i1 + ht), clipped to the block."""
+    pl = pass_plan(g, g.n if n is None else n, itemsize)
+    ej, ei = g.shape
+    return [(j0, min(j0 + pl.th, ej), i0, min(i0 + pl.tw, ei))
+            for j0 in range(0, ej, pl.th) for i0 in range(0, ei, pl.tw)]
+
+
+def _check_out(name, p, out):
+    if (out.device != p.device or out.dtype != p.dtype
+            or out.shape != p.shape or not out.is_contiguous()
+            or out.data_ptr() == p.data_ptr()):
+        raise ValueError(f"{name}: out must be a contiguous {p.dtype} block "
+                         f"of p's shape on p's device, not p itself")
+
+
+def rb_sor_obsdist(p, rhs, flags, g: ObsGeom, offs, omega, idx2, idy2,
+                   out=None):
+    """K15 on one shard's deep block p, rhs of shape g.shape with the uint8
+    deep flag block `flags` and the shard's global offsets offs = (joff,
+    ioff). With `out` it reads p and writes the new block into out (p
+    untouched); without, it updates p in place. Returns the owned Σr² of
+    the last iteration (0-dim tensor)."""
+    if out is not None:
+        _check_out("K15", p, out)
     if p.device.type == "cpu":
-        return rb_iters_obsdist_plain(p, rhs, flags, g, offs, omega, idx2,
+        if out is None:
+            return rb_iters_obsdist_plain(p, rhs, flags, g, offs, omega,
+                                          idx2, idy2)
+        out.copy_(p)
+        return rb_iters_obsdist_plain(out, rhs, flags, g, offs, omega, idx2,
                                       idy2)
     if p.device.type != "cuda":
         raise ValueError(f"K15 takes CPU or CUDA tensors, not {p.device}")
@@ -161,21 +264,49 @@ def rb_sor_obsdist(p, rhs, flags, g: ObsGeom, offs, omega, idx2, idy2):
             raise ValueError(
                 f"K15 needs contiguous p, rhs ({p.dtype}) and flags (uint8) "
                 f"of shape {g.shape} on one device")
-    if g.n < 1:
-        raise ValueError(f"n must be >= 1, got {g.n}")
+    if g.n < 1 or g.H < 2 * g.n:
+        raise ValueError(f"K15 needs n >= 1 and H >= 2n, got n = {g.n}, "
+                         f"H = {g.H}")
     lib = kb.load("sor_obsdist", _SIGNATURES)
-    ej, ei = g.shape
-    partial = torch.empty(lib.rb_sor_obsdist_partials(ej, ei),
-                          dtype=p.dtype, device=p.device)
-    out = torch.empty((), dtype=p.dtype, device=p.device)
+    entry = getattr(lib, f"rb_sor_obsdist_{_SUFFIX[p.dtype]}")
+    launches = _launches(g, p.element_size(), int(offs[0]), int(offs[1]))
+    target = torch.empty_like(p) if out is None else out
+    scratch = torch.empty_like(p) if len(launches) > 1 else None
+    res = torch.empty((), dtype=p.dtype, device=p.device)
     # the shards of a mesh lie on several cards: the launch selects p's
     # card, and the guard gives the caller its current card back
     with torch.cuda.device(p.device):
-        err = getattr(lib, f"rb_sor_obsdist_{_SUFFIX[p.dtype]}")(
-            p.device.index, p.data_ptr(), rhs.data_ptr(), flags.data_ptr(),
-            ej, ei, g.jl, g.il, g.n, g.H, g.jmax, g.imax, int(offs[0]),
-            int(offs[1]), omega, idx2, idy2, partial.data_ptr(),
-            out.data_ptr(), kb.stream_of(p))
-    kb.check(lib, err, "rb_sor_obsdist")
+        stream = kb.stream_of(p)
+        ticket = _TICKETS.get((p.device.index, stream))
+        if ticket is None:
+            ticket = torch.zeros(1, dtype=torch.int32, device=p.device)
+            _TICKETS[(p.device.index, stream)] = ticket
+        src = p
+        for k, (ntiles, geo) in enumerate(launches):
+            # alternate the two buffers so that the last pass lands in target
+            dst = target if (len(launches) - 1 - k) % 2 == 0 else scratch
+            partial = torch.empty(ntiles, dtype=p.dtype, device=p.device)
+            err = entry(p.device.index, src.data_ptr(), rhs.data_ptr(),
+                        flags.data_ptr(), dst.data_ptr(), geo, omega, idx2,
+                        idy2, partial.data_ptr(), ticket.data_ptr(),
+                        res.data_ptr(), stream)
+            kb.check(lib, err, "rb_sor_obsdist")
+            src = dst
+        if out is None:
+            p.copy_(target)
     RB_SOR_OBSDIST.launches += 1
-    return out
+    return res
+
+
+@functools.lru_cache(maxsize=1024)
+def _launches(g: ObsGeom, itemsize: int, joff: int, ioff: int):
+    """(tiles, the kernel's geometry array) of each pass of a call, made
+    once per shard: the CLI's rounds call K15 on small shards, where the
+    host's work is the call's cost."""
+    ej, ei = g.shape
+    return tuple(
+        (-(-ej // pl.th) * -(-ei // pl.tw),
+         (ctypes.c_int * 17)(ej, ei, g.jl, g.il, pl.n, g.H, g.jmax, g.imax,
+                             joff, ioff, pl.ht, pl.th, pl.tw, pl.rows, pl.P,
+                             pl.Pf, pl.smem))
+        for pl in obsdist_passes(g, itemsize))

@@ -35,8 +35,18 @@ Divisible meshes only, as in the JAX package.
 
 Bound: memory (p, rhs and the flags read once, p written once per call:
 13 bytes a cell at float32, ~42 us for a (128, 128, 512) shard at n = 4).
-The design is K15's: a launch per colour per iteration and one for the
-walls; temporal blocking is later work.
+The design is the TPU kernel's temporal blocking, streamed along k: the
+block's (j, i) plane is cut into owned tiles, and k into slabs where the
+tiles alone would leave SMs idle (obsdist3d_tiles); a CTA streams its
+tile's box (a halo of 2n + 1 cells a side) through a ring of 2n + 2 planes in
+shared memory, the 2n colour stages a wavefront one plane apart, and
+writes the tile's cells into `out` once. The residual keeps its fixed
+order: the owned r² buffer, row sums from the low i up, then one block
+(three launches a call). The solver passes `out` and swaps the two
+blocks; without `out` the wrapper copies the result back into p. At
+n >= 6 the ring of 2n + 2 planes outgrows shared memory at either
+dtype, and a call runs as a few passes of at most 5 iterations
+(obsdist3d_passes), each exact on the whole block.
 
 For a CPU tensor the wrapper runs the plain version; for a CUDA tensor it
 launches K16 or raises.
@@ -45,6 +55,7 @@ launches K16 or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 
 import torch
@@ -52,6 +63,7 @@ import torch
 from ..kernels import build as kb
 from .sor3d_kernels import masked_stencil_3d
 from .sor_kernels import _SUFFIX, ordered_r2_sum
+from .sor_obsdist import SMEM_LIMIT, _check_out, _flag_pitch, split_passes
 
 SOURCE = "pampi_tpu_torch/csrc/sor_obsdist3d.cu"
 RB_SOR_OBSDIST3D = kb.register(
@@ -59,10 +71,16 @@ RB_SOR_OBSDIST3D = kb.register(
 
 _V, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _SIGNATURES = {
-    f"rb_sor_obsdist3d_{t}": [_I, _V, _V, _V, _V, _D, _D, _D, _D, _V, _V,
-                              _V, _V]
+    f"rb_sor_obsdist3d_{t}": [_I, _V, _V, _V, _V, _V, _D, _D, _D, _D, _V,
+                              _V, _V, _V]
     for t in ("f32", "f64")
 }
+# the largest (j, i) box of a ring plane, by element size: the kernel's
+# threads hold a plane's next loads in registers, sized for it
+# (csrc/sor_obsdist3d.cu's entries)
+_BOX3 = {4: (32, 64), 8: (32, 32)}
+# SMs of the card, for the number of k slabs (the H100 SXM's 132)
+SMS = 132
 
 
 @dataclass(frozen=True)
@@ -144,15 +162,93 @@ def rb_iters_obsdist3d_plain(p, rhs, flags, g: ObsGeom3, offs, omega, idx2,
     return ordered_r2_sum(r2[own])
 
 
+@dataclass(frozen=True)
+class PassPlan3:
+    """One pass of K16: n iterations on tiles (tk, tj, ti) with a halo of
+    ht = 2n + 1 cells, a ring of rs = 2n + 2 planes of rows x P cells."""
+
+    n: int
+    ht: int
+    tk: int
+    tj: int
+    ti: int
+    rs: int
+    rows: int
+    P: int  # row pitch of p and rhs in shared memory (elements, even)
+    Pf: int  # row pitch of the flags (bytes)
+    smem: int  # dynamic shared memory a CTA takes (bytes)
+
+
+def pass_plan_3d(g: ObsGeom3, n: int, itemsize: int = 4,
+                 sms: int = SMS) -> PassPlan3 | None:
+    """The plan of a pass of n <= g.n iterations on g's deep block, or
+    None where no owned tile fits the largest box with its halo. The halo
+    is 2n + 1 (sor_obsdist.pass_plan: the sweeps reach 2n cells in, a
+    wall-ghost cell's copy one more). The (j, i) tile is the box less the
+    halo (the whole extent where the block is smaller); k is cut into as
+    many slabs as idle SMs can take, none of fewer than 4n owned
+    planes."""
+    ht, rs = 2 * n + 1, 2 * n + 2
+    BJ, BI = _BOX3[itemsize]
+    ek, ej, ei = g.shape
+    tj = ej if ej <= BJ else BJ - 2 * ht
+    ti = ei if ei <= BI else BI - 2 * ht
+    if tj < 1 or ti < 1:
+        return None
+    rows, w = min(ej, tj + 2 * ht), min(ei, ti + 2 * ht)
+    P, Pf = w + (w & 1), _flag_pitch(w)
+    smem = rs * rows * (2 * P * itemsize + Pf)
+    per_sm = max(1, 233472 // (smem + 1024))  # the SM's 228 KB
+    tiles = -(-ej // tj) * -(-ei // ti)
+    slabs = max(1, min(sms * per_sm // tiles, ek // (4 * n)))
+    tk = -(-ek // slabs)
+    return PassPlan3(n, ht, tk, tj, ti, rs, rows, P, Pf, smem)
+
+
+def obsdist3d_passes(g: ObsGeom3, itemsize: int = 4,
+                     sms: int = SMS) -> list[PassPlan3]:
+    """K16's passes for one call: one of g.n iterations wherever its ring
+    fits shared memory (n <= 5 at either dtype), else the fewest that
+    do."""
+    def fits(m):
+        pl = pass_plan_3d(g, m, itemsize, sms)
+        return pl is not None and pl.smem <= SMEM_LIMIT
+
+    return [pass_plan_3d(g, m, itemsize, sms)
+            for m in split_passes(g.n, fits)]
+
+
+def obsdist3d_tiles(g: ObsGeom3, itemsize: int = 4, sms: int = SMS,
+                    n: int | None = None):
+    """The owned tiles (k0, k1, j0, j1, i0, i1) of a pass of n iterations
+    (default g.n): they partition the deep block, its frozen shell
+    included, so the kernel writes each cell once. The CTA of a tile
+    streams the box of the tile and ht = 2n + 1 cells a side (k
+    included), clipped to the block."""
+    pl = pass_plan_3d(g, g.n if n is None else n, itemsize, sms)
+    ek, ej, ei = g.shape
+    return [(k0, min(k0 + pl.tk, ek), j0, min(j0 + pl.tj, ej), i0,
+             min(i0 + pl.ti, ei))
+            for k0 in range(0, ek, pl.tk) for j0 in range(0, ej, pl.tj)
+            for i0 in range(0, ei, pl.ti)]
+
+
 def rb_sor_obsdist3d(p, rhs, flags, g: ObsGeom3, offs, omega, idx2, idy2,
-                     idz2):
-    """K16 on one shard's deep block p, rhs of shape g.shape, in place on
-    p, with the uint8 deep flag block `flags` and the shard's global
-    offsets offs = (koff, joff, ioff). Returns the owned Σr² of the last
-    iteration (0-dim tensor)."""
+                     idz2, out=None):
+    """K16 on one shard's deep block p, rhs of shape g.shape with the uint8
+    deep flag block `flags` and the shard's global offsets offs = (koff,
+    joff, ioff). With `out` it reads p and writes the new block into out
+    (p untouched); without, it updates p in place. Returns the owned Σr²
+    of the last iteration (0-dim tensor)."""
+    if out is not None:
+        _check_out("K16", p, out)
     if p.device.type == "cpu":
-        return rb_iters_obsdist3d_plain(p, rhs, flags, g, offs, omega, idx2,
-                                        idy2, idz2)
+        if out is None:
+            return rb_iters_obsdist3d_plain(p, rhs, flags, g, offs, omega,
+                                            idx2, idy2, idz2)
+        out.copy_(p)
+        return rb_iters_obsdist3d_plain(out, rhs, flags, g, offs, omega,
+                                        idx2, idy2, idz2)
     if p.device.type != "cuda":
         raise ValueError(f"K16 takes CPU or CUDA tensors, not {p.device}")
     if p.dtype not in _SUFFIX:
@@ -166,18 +262,46 @@ def rb_sor_obsdist3d(p, rhs, flags, g: ObsGeom3, offs, omega, idx2, idy2,
     if g.n < 1:
         raise ValueError(f"n must be >= 1, got {g.n}")
     lib = kb.load("sor_obsdist3d", _SIGNATURES)
+    entry = getattr(lib, f"rb_sor_obsdist3d_{_SUFFIX[p.dtype]}")
+    launches = _launches(g, p.element_size(), tuple(int(o) for o in offs),
+                         _sms(p.device.index))
+    target = torch.empty_like(p) if out is None else out
+    scratch = torch.empty_like(p) if len(launches) > 1 else None
     r2 = torch.empty((g.kl, g.jl, g.il), dtype=p.dtype, device=p.device)
     rows = torch.empty((g.kl, g.jl), dtype=p.dtype, device=p.device)
-    out = torch.empty((), dtype=p.dtype, device=p.device)
-    geo = (ctypes.c_int * 14)(*g.shape, g.kl, g.jl, g.il, g.n, g.H, g.kmax,
-                              g.jmax, g.imax, *(int(o) for o in offs))
+    res = torch.empty((), dtype=p.dtype, device=p.device)
     # the shards of a mesh lie on several cards: the launch selects p's
     # card, and the guard gives the caller its current card back
     with torch.cuda.device(p.device):
-        err = getattr(lib, f"rb_sor_obsdist3d_{_SUFFIX[p.dtype]}")(
-            p.device.index, p.data_ptr(), rhs.data_ptr(), flags.data_ptr(),
-            geo, omega, idx2, idy2, idz2, r2.data_ptr(), rows.data_ptr(),
-            out.data_ptr(), kb.stream_of(p))
-    kb.check(lib, err, "rb_sor_obsdist3d")
+        src = p
+        for k, geo in enumerate(launches):
+            # alternate the two buffers so that the last pass lands in target
+            last = k == len(launches) - 1
+            dst = target if (len(launches) - 1 - k) % 2 == 0 else scratch
+            err = entry(p.device.index, src.data_ptr(), rhs.data_ptr(),
+                        flags.data_ptr(), dst.data_ptr(), geo, omega, idx2,
+                        idy2, idz2, r2.data_ptr() if last else None,
+                        rows.data_ptr(), res.data_ptr(), kb.stream_of(p))
+            kb.check(lib, err, "rb_sor_obsdist3d")
+            src = dst
+        if out is None:
+            p.copy_(target)
     RB_SOR_OBSDIST3D.launches += 1
-    return out
+    return res
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=1024)
+def _launches(g: ObsGeom3, itemsize: int, offs: tuple, sms: int):
+    """The kernel's geometry array of each pass of a call, made once per
+    shard (the CLI's rounds call K16 on small shards, where the host's
+    work is the call's cost)."""
+    return tuple(
+        (ctypes.c_int * 23)(*g.shape, g.kl, g.jl, g.il, pl.n, g.H, g.kmax,
+                            g.jmax, g.imax, *offs, pl.ht, pl.tk, pl.tj,
+                            pl.ti, pl.rs, pl.rows, pl.P, pl.Pf, pl.smem)
+        for pl in obsdist3d_passes(g, itemsize, sms))

@@ -16,9 +16,13 @@ versions repeat, so they are held bitwise, residual included, and K16 on a
 one-shard mesh is masked K5; masked K2 (2-D obstacles) and K17 (one
 blocked red-black iteration) likewise, residual included, and K17's
 fields are K2's; so is K18 (the fleet's one-launch class V-cycle), fields
-and residual; an MG run on the card against the CPU, whose DCT bottom's
-matrix products sum in another order, to 1e-9; a fleet of mg class lanes
-on the card against the CPU to 1e-9 of scale."""
+and residual; K15 and K16 (one pass through shared memory a call) on
+shards of several tiles with ragged remainders and on shards smaller than
+a tile, n = 1..4 (K16 also n = 5, and 6 as two passes), their `out=` form (the
+solvers') and in-place form bitwise each other; an MG run on the card
+against the CPU, whose DCT bottom's matrix products sum in another order,
+to 1e-9; a fleet of mg class lanes on the card against the CPU to 1e-9 of
+scale."""
 
 import numpy as np
 import pytest
@@ -447,6 +451,49 @@ def test_obsdist_kernel_matches_plain(cuda, dtype, obstacle):
         assert abs(float(rk) - float(rp)) <= _tol(dtype) * abs(float(rp))
 
 
+def _obsdist_shards(imax, jmax, dims, n, obstacle, cuda):
+    """(geometry, coefficients, [(offsets, deep flags)]) of K15 on every
+    shard of imax x jmax on a ragged dims mesh (H = 2n+1)."""
+    jl, il = -(-jmax // dims[0]), -(-imax // dims[1])
+    dx, dy = 4.0 / imax, 2.0 / jmax
+    fluid = np.ones((jmax + 2, imax + 2), bool)
+    if obstacle:
+        fluid[jmax // 3:2 * jmax // 3, imax // 4:imax // 2] = False
+    m = obst.make_masks(fluid, dx, dy, 1.7)
+    comm = CartComm(ndims=2, dims=dims, devices=[cuda])
+    g = sod.ObsGeom(jmax, imax, jl, il, n, 2 * n + 1)
+    return g, (1.7, 1.0 / (dx * dx), 1.0 / (dy * dy)), [
+        (comm.offsets(s, (jl, il)),
+         obst.deep_flag_block(m, comm, s, jl, il, g.H, jmax, imax, cuda))
+        for s in range(comm.size)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("obstacle", [False, True])
+@pytest.mark.parametrize("n", [1, 2, 3, 4])
+@pytest.mark.parametrize("grid", [(301, 203, (2, 2)), (33, 18, (4, 2))])
+def test_obsdist_tiles_match_plain(cuda, dtype, obstacle, n, grid):
+    """K15 (one launch, `out=`) on every shard of 301x203 on 2x2 (several
+    tiles a shard, ragged remainders) and of 33x18 on (4, 2) (shards
+    smaller than a tile), two chained calls: blocks bitwise the plain
+    version's, p untouched, the residual to the tolerance; the in-place
+    form bitwise the `out=` form."""
+    g, coef, shards = _obsdist_shards(*grid, n, obstacle, cuda)
+    for s, (offs, fl) in enumerate(shards):
+        x, f = (_rand(g.shape, dtype, cuda, 201 + 2 * s + k) for k in (0, 1))
+        xp, xi, xk, out = x.clone(), x.clone(), x.clone(), torch.empty_like(x)
+        for _ in range(2):
+            keep = xk.clone()
+            rk = sod.rb_sor_obsdist(xk, f, fl, g, offs, *coef, out=out)
+            assert torch.equal(xk, keep)
+            xk, out = out, xk
+            ri = sod.rb_sor_obsdist(xi, f, fl, g, offs, *coef)
+            rp = sod.rb_iters_obsdist_plain(xp, f, fl, g, offs, *coef)
+        assert torch.equal(xk, xp) and torch.equal(xi, xp)
+        assert torch.equal(rk, ri)
+        assert abs(float(rk) - float(rp)) <= _tol(dtype) * abs(float(rp))
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("problem,bcs", [("dcavity", (1, 1, 1, 1)),
                                          ("canal", (3, 3, 1, 1))])
@@ -574,6 +621,44 @@ def test_obsdist3d_kernel_matches_plain(cuda, dtype, n):
             rk = sod3.rb_sor_obsdist3d(xk, f, fl, g, offs, *coef)
             rp = sod3.rb_iters_obsdist3d_plain(xp, f, fl, g, offs, *coef)
         assert torch.equal(xk, xp) and torch.equal(rk, rp)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 6])
+@pytest.mark.parametrize("G,dims", [((40, 72, 136), (2, 2, 2)),
+                                    ((32, 32, 128), (2, 2, 2))])
+def test_obsdist3d_tiles_match_plain(cuda, dtype, n, G, dims):
+    """K16 (`out=`) on every shard of 40x72x136 (k, j, i; several (j, i)
+    tiles a shard, ragged remainders) and of 32x32x128 (canal3d_obstacle
+    .par's 16x16x64 shards: one tile across j) on (2, 2, 2) with a box
+    obstacle's deep flags, two chained calls: blocks and residuals bitwise
+    the plain version's, p untouched, the in-place form bitwise the `out=`
+    form. n = 6 runs as two passes of 3."""
+    from pampi_tpu_torch.ops import obstacle3d as o3
+    from pampi_tpu_torch.ops import sor_obsdist3d as sod3
+
+    local = tuple(e // d for e, d in zip(G, dims))
+    dx, dy, dz = 8.0 / G[2], 4.0 / G[1], 4.0 / G[0]
+    m = o3.make_masks_3d(o3.build_fluid_3d(G[2], G[1], G[0], dx, dy, dz,
+                                           "3.0,1.5,1.5,5.0,2.5,2.5"),
+                         dx, dy, dz, 1.7)
+    comm = CartComm(ndims=3, dims=dims, devices=[cuda])
+    g = sod3.ObsGeom3(*G, *local, n)
+    coef = (1.7, 1 / dx**2, 1 / dy**2, 1 / dz**2)
+    for s in range(comm.size):
+        offs = comm.offsets(s, local)
+        fl = o3.deep_flag_block_3d(m, comm, s, *local, g.H, cuda)
+        x, f = (_rand(g.shape, dtype, cuda, 211 + 2 * s + k) for k in (0, 1))
+        xp, xi, xk, out = x.clone(), x.clone(), x.clone(), torch.empty_like(x)
+        for _ in range(2):
+            keep = xk.clone()
+            rk = sod3.rb_sor_obsdist3d(xk, f, fl, g, offs, *coef, out=out)
+            assert torch.equal(xk, keep)
+            xk, out = out, xk
+            ri = sod3.rb_sor_obsdist3d(xi, f, fl, g, offs, *coef)
+            rp = sod3.rb_iters_obsdist3d_plain(xp, f, fl, g, offs, *coef)
+        assert torch.equal(xk, xp) and torch.equal(xi, xp)
+        assert torch.equal(rk, rp) and torch.equal(ri, rp)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
