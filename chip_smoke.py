@@ -203,6 +203,23 @@ channel, flag-field masks) and K17 add:
    one-card run, the same steps (and t on the card); and
    configs/canal_obstacle2048.par at te 0.1 on one card.
 
+K13 and masked K2, redesigned as one pass through shared memory a call
+(one launch, the solvers' `out=` form), add or extend:
+
+2. K13 against its plain version, float32 and float64, n = 1..4, planes
+   and residuals bitwise, in the `out=` form, on every case
+   above and on every shard of 1024x680 on 2x2 (planes of several tiles,
+   cut at the planes' edges); masked K2 the same way at n = 1..4;
+3. K13 on the four 2048² shards of 4096² at float32 and float64, n =
+   1..4, bitwise, then its time and its CUDA launches a call at n = 4 and
+   1 (torch.profiler's trace; must be 1); masked K2 at 8192x2048 the same
+   way; both at the CLI runs' float64 shapes at n = 1 (configs/
+   dcavity.par's 50² shards on 2x2, canal_obstacle.par, canal_obstacle2048
+   .par): bitwise, ms a call, bound, one launch a call;
+5. poisson.par on 2x2 must take 2388 iterations on the card and the CPU,
+   and canal_obstacle2048.par, cut to te 0.004, on one card against the
+   CPU (its own process): fields 1e-9 of scale, the same steps.
+
 The fleet's shape-class mg lane (K18, the one-launch class V-cycle)
 adds:
 
@@ -237,6 +254,10 @@ under dist_* keys),
 the card's name and power limit
 from nvidia-smi, and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+
+`python3 chip_smoke.py --kernel-times [ROOT]` times only K13, masked K2
+and K15 of the package under ROOT (another checkout: run old, new, new,
+old in one call on the card to compare two) and prints one JSON line.
 """
 
 import contextlib
@@ -1511,24 +1532,44 @@ def qdist_shards(jmax, imax, dims, n):
 
 
 def check_qdist(torch, np, g, qoffs, dtype, seed, calls=2):
-    """K13 and its plain version on copies of random stacked planes at each
-    shard offset, `calls` calls each (ghosts carried across calls).
-    Returns (planes bitwise, residual rel_err, max_abs_err)."""
+    """K13 and its plain version in the solvers' form (reading one plane,
+    writing `out`, the two swapped each call) on copies of random stacked
+    planes at each shard offset, `calls` calls each (ghosts carried across
+    calls). Returns (planes bitwise, residuals bitwise, max_abs_err)."""
     from pampi_tpu_torch.ops import sor_qdist as sq
     from pampi_tpu_torch.ops.sor_kernels import sor_coefficients
 
     coef = sor_coefficients(1.0 / g.imax, 1.0 / g.jmax, 1.9)
-    bitwise, er, err = True, 0.0, 0.0
+    fb, rb, err = True, True, 0.0
     for k, offs in enumerate(qoffs):
         x, f = rng_fields(torch, np, (4, g.jq, g.iq), dtype, 2, seed + k)
-        xk, xp = x.clone(), x.clone()
+        xk, xp, yk, yp = (x.clone(), x.clone(), torch.empty_like(x),
+                          torch.empty_like(x))
         for _ in range(calls):
-            rk = sq.rb_sor_qdist(xk, f, g, offs, *coef)
-            rp = sq.rb_sor_qdist_plain(xp, f, g, offs, *coef)
-        bitwise = bitwise and torch.equal(xk, xp)
-        er = max(er, abs(float(rk) - float(rp)) / abs(float(rp)))
+            rk = sq.rb_sor_qdist(xk, f, g, offs, *coef, out=yk)
+            rp = sq.rb_sor_qdist_plain(xp, f, g, offs, *coef, out=yp)
+            xk, yk, xp, yp = yk, xk, yp, xp
+        fb = fb and torch.equal(xk, xp)
+        rb = rb and torch.equal(rk, rp)
         err = max(err, float((xk - xp).abs().max()))
-    return bitwise, er, err
+    return fb, rb, err
+
+
+def qdist_check_cases():
+    """K13's check cases as (label, jmax, imax, dims, n): a 32² grid's
+    16x8 shard at the offsets (0,0), (8,4), (0,12) (dims None), every shard
+    of 1024² on 2x2 and 2x4, of 1024x680 on 2x2 (planes of several tiles,
+    cut at the planes' edges) and of 100² on 2x2 (the CLI paths' shards),
+    each at n = 1..4 (clamped as the solver clamps it)."""
+    cases = []
+    for n in (1, 2, 3, 4):
+        cases.append(("32² (16x8 shard) at offsets (0,0), (8,4), (0,12)",
+                      32, 32, None, n))
+        for jmax, imax, dims in ((1024, 1024, (2, 2)), (1024, 1024, (2, 4)),
+                                 (1024, 680, (2, 2)), (100, 100, (2, 2))):
+            cases.append((f"{imax}x{jmax} on {dims[0]}x{dims[1]}, every "
+                          f"shard", jmax, imax, dims, n))
+    return cases
 
 
 @phase("distributed quarter kernel K13 vs plain version")
@@ -1536,26 +1577,21 @@ def check_qdist_kernel(torch, np):
     from pampi_tpu_torch.parallel import quarters_dist as qd
 
     bad = []
-    cases = [("32² (16x8 shard, n=2) at offsets (0,0), (8,4), (0,12)",
-              qd.make_qgeom(32, 32, 16, 8, 2), [(0, 0), (8, 4), (0, 12)])]
-    for dims in ((2, 2), (2, 4)):
-        g, qoffs = qdist_shards(1024, 1024, dims, 4)
-        cases.append((f"1024² on {dims[0]}x{dims[1]} (n={g.n}), every shard",
-                      g, qoffs))
-    # the shard geometry of the poisson.par CLI path (dist_cli)
-    g, qoffs = qdist_shards(100, 100, (2, 2), 4)
-    cases.append((f"100² on 2x2 ({g.jl}² shards, n={g.n}), every shard",
-                  g, qoffs))
     for dtype in (torch.float32, torch.float64):
-        t = tol(torch, dtype)
-        for label, g, qoffs in cases:
-            bitwise, er, err = check_qdist(torch, np, g, qoffs, dtype, 51)
-            ok = bitwise and er <= t
-            log(f"rb_sor_qdist {dtype} {label}: planes bitwise {bitwise}, "
-                f"max_abs_err {err:.3e}, residual rel_err {er:.3e} (tol "
-                f"{t:g}) {'ok' if ok else 'FAIL'}")
+        for label, jmax, imax, dims, n in qdist_check_cases():
+            if dims is None:
+                g = qd.make_qgeom(jmax, imax, 16, 8, qd.qdist_clamp(n, 16, 8))
+                qoffs = [(0, 0), (8, 4), (0, 12)]
+            else:
+                g, qoffs = qdist_shards(jmax, imax, dims, n)
+            fb, rb, err = check_qdist(torch, np, g, qoffs, dtype, 51)
+            ok = fb and rb
+            log(f"rb_sor_qdist {dtype} {label} (n={g.n}, planes "
+                f"{g.jq}x{g.iq}), two calls, out=: planes "
+                f"bitwise {fb}, residuals bitwise {rb}, max_abs_err "
+                f"{err:.3e} {'ok' if ok else 'FAIL'}")
             if not ok:
-                bad.append(f"{label} {dtype}")
+                bad.append(f"{label} n={g.n} {dtype}")
     if bad:
         raise AssertionError(f"K13 differs from its plain version: {bad}")
 
@@ -1591,37 +1627,60 @@ def halo_on_card(np):
         raise AssertionError(f"wrong ghost faces: {bad}")
 
 
-@phase("K13 vs plain version and its time at 4096² float32 on 2x2")
+@phase("K13 vs plain version (f32 and f64, n = 1..4) and its time at 4096² "
+       "float32 on 2x2")
 def time_qdist(torch, np):
     from pampi_tpu_torch.ops import sor_qdist as sq
     from pampi_tpu_torch.ops.sor_kernels import sor_coefficients
 
+    bad, errs = [], {}
+    for dtype, size in ((torch.float32, 4), (torch.float64, 8)):
+        for n in (1, 2, 3, 4):
+            g, qoffs = qdist_shards(*MAIN, (2, 2), n)
+            fb, rb, errs[dtype, n] = check_qdist(torch, np, g, qoffs, dtype,
+                                                 61, 1)
+            log(f"rb_sor_qdist 4096² {dtype} on 2x2 ({g.jl}² shards, n={g.n},"
+                f" {len(sq.qdist_tiles(g, size))} tiles a plane) vs plain, "
+                f"every shard: planes bitwise {fb}, residuals bitwise {rb} "
+                f"{'ok' if fb and rb else 'FAIL'}")
+            if not (fb and rb):
+                bad.append(f"{dtype} n={n}")
+    if bad:
+        raise AssertionError(f"K13 differs from its plain version at 4096²: "
+                             f"{bad}")
     g, qoffs = qdist_shards(*MAIN, (2, 2), 4)
-    bitwise, er, err = check_qdist(torch, np, g, qoffs, torch.float32, 61, 1)
-    ok = bitwise and er <= tol(torch, torch.float32)
-    log(f"rb_sor_qdist 4096² f32 on 2x2 ({g.jl}² shards, n={g.n}) vs plain, "
-        f"every shard: planes bitwise {bitwise}, residual rel_err {er:.3e} "
-        f"{'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise AssertionError("K13 differs from its plain version at 4096²")
     coef = sor_coefficients(1.0 / MAIN[1], 1.0 / MAIN[0], 1.9)
     planes = [rng_fields(torch, np, (4, g.jq, g.iq), torch.float32, 2, 71 + k)
               for k in range(4)]
+    outs = [torch.empty_like(x) for x, _ in planes]
 
     def shards(fn):
-        return lambda: [fn(x, f, g, o, *coef)
-                        for (x, f), o in zip(planes, qoffs)]
+        return lambda: [fn(x, f, g, o, *coef, out=y)
+                        for (x, f), y, o in zip(planes, outs, qoffs)]
 
     ms = cuda_ms(torch, shards(sq.rb_sor_qdist), 20) / 4
     pms = cuda_ms(torch, shards(sq.rb_sor_qdist_plain), 3) / 4
+    (x, f), y, o = planes[0], outs[0], qoffs[0]
+    calls = cuda_launches(torch, lambda: sq.rb_sor_qdist(x, f, g, o, *coef,
+                                                         out=y))
+    g1, q1 = qdist_shards(*MAIN, (2, 2), 1)
+    x1, f1, y1 = rng_fields(torch, np, (4, g1.jq, g1.iq), torch.float32, 3,
+                            79)
+    calls1 = cuda_launches(torch, lambda: sq.rb_sor_qdist(x1, f1, g1, q1[0],
+                                                          *coef, out=y1))
+    if (calls or 1) > 1 or (calls1 or 1) > 1:
+        raise AssertionError(f"K13 made {calls} / {calls1} CUDA launches a "
+                             f"call at n = 4 / 1")
     # per shard call: the plane and its rhs read once, the plane written
     # once; ~12 flops per cell update
     b = bound(3 * 4 * g.jq * g.iq * 4, 12 * g.n * g.jl * g.il)
     log(f"rb_sor_qdist 4096² f32 on 2x2: {ms:.4f} ms per shard call (plain "
         f"{pms:.4f}, bound {b[0]:.4f} by {b[1]}), the four shards on one "
-        f"card")
+        f"card, out= form; {launches_text(calls)} / {launches_text(calls1)} "
+        f"CUDA launches a call at n = 4 / 1")
     return {"rb_sor_qdist": dict(
-        max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1],
+        max_abs_err=errs[torch.float32, 4], ms=ms, plain_ms=pms,
+        bound_ms=b[0], bound_by=b[1], cuda_launches_a_call=calls, n1_cuda_launches_a_call=calls1,
         shape=f"{g.jl}x{g.il} shard of {MAIN[0]}x{MAIN[1]} on 2x2, n={g.n}")}
 
 
@@ -1788,7 +1847,7 @@ def dist_cli(np):
     plain = float(np.abs(p_c - p_h).max())
     limit = 1e-12 * max(1.0, float(np.abs(p_h).max()))
     diff = float(np.abs(p_c - p_s).max())
-    ok = (rc_c == rc_h == rc_s == 0 and it_c == it_h == it_s is not None
+    ok = (rc_c == rc_h == rc_s == 0 and it_c == it_h == it_s == "2388"
           and plain <= limit and diff <= 1e-9)
     log(f"poisson.par 100² f64 tpu_mesh 2x2: {it_c} iterations on the card, "
         f"{it_h} on the CPU, {it_s} single-device; max |p card - CPU| on "
@@ -2930,10 +2989,10 @@ def check_cadence_one(torch, np):
         if not ok:
             bad.append(name)
     g, qoffs = qdist_shards(256, 256, (2, 2), 1)
-    bitwise, er, _ = check_qdist(torch, np, g, qoffs, f64, 205)
-    log(f"rb_sor_qdist f64 n={g.n}, 256² on 2x2: planes bitwise {bitwise}, "
-        f"residual rel_err {er:.3e}")
-    if not (bitwise and er <= 1e-12):
+    fb, rb, _ = check_qdist(torch, np, g, qoffs, f64, 205)
+    log(f"rb_sor_qdist f64 n={g.n}, 256² on 2x2: planes bitwise {fb}, "
+        f"residuals bitwise {rb}")
+    if not (fb and rb):
         bad.append("rb_sor_qdist")
     g, offs = odist_shards((32, 32, 32), (2, 2, 2), 1)
     bitwise, er, _ = check_odist(torch, np, g, offs, f64, 207)
@@ -3590,16 +3649,19 @@ def inverse_squares_2d(param):
 
 
 def check_masked_k2(torch, np, param, flags, dtype, n, seed, calls=2):
-    """Masked K2 and its plain version on copies of random p, rhs, `calls`
-    calls each. Returns (fields bitwise, residuals bitwise, max_abs_err)."""
+    """Masked K2 in the solver's form (reading one field, writing `out`, the
+    two swapped each call) and its plain version (in place) on copies of
+    random p, rhs, `calls` calls each. Returns (fields bitwise, residuals
+    bitwise, max_abs_err)."""
     from pampi_tpu_torch.ops import sor_kernels as sk
 
     c = inverse_squares_2d(param)
     x, f = rng_fields(torch, np, tuple(flags.shape), dtype, 2, seed)
-    xk, xp = x.clone(), x.clone()
+    xk, xp, y = x.clone(), x.clone(), torch.empty_like(x)
     for _ in range(calls):
         rk = sk.rb_sor_checkerboard(xk, f, n, 0.0, *c, flags=flags,
-                                    omega=param.omg)
+                                    omega=param.omg, out=y)
+        xk, y = y, xk
         rp = sk.rb_sor_masked_plain(xp, f, flags, n, param.omg, *c)
     return (torch.equal(xk, xp), torch.equal(rk, rp),
             float((xk - xp).abs().max()))
@@ -3682,11 +3744,12 @@ def check_obstacle2d_kernels(torch, np):
             name = "float32" if dtype == torch.float32 else "float64"
             param = obstacle2d_config(jmax, imax, tpu_dtype=name, eps=0.0)
             flags = obstacle2d_flags(param)
-            for n in (1, 4):
+            for n in (1, 2, 3, 4):
                 fb, rb, err = check_masked_k2(torch, np, param, flags, dtype,
                                               n, 251)
                 log(f"rb_sor_checkerboard masked {dtype} {shape} n={n}, two "
-                    f"calls: fields bitwise {fb}, residual bitwise {rb}, "
+                    f"calls, out=: fields bitwise {fb}, "
+                    f"residuals bitwise {rb}, "
                     f"max_abs_err {err:.3e} {'ok' if fb and rb else 'FAIL'}")
                 if not (fb and rb):
                     bad.append(f"masked K2 {shape} {dtype} n={n}")
@@ -3756,31 +3819,49 @@ def time_obstacle2d(torch, np):
     ring = 2 * (I + 2) + 2 * J
     c = inverse_squares_2d(param)
     shape = f"{I}x{J}"
-    fb, rb, err = check_masked_k2(torch, np, param, flags, f32, 4, 281,
-                                  calls=1)
-    if not (fb and rb):
+    bad = []
+    for dtype in (f32, torch.float64):
+        for n in (1, 2, 3, 4):
+            fb, rb, err = check_masked_k2(torch, np, param, flags, dtype, n,
+                                          281, calls=1)
+            log(f"rb_sor_checkerboard masked {shape} {dtype} n={n} vs plain,"
+                f" out=: fields bitwise {fb}, residuals bitwise "
+                f"{rb} {'ok' if fb and rb else 'FAIL'}")
+            if not (fb and rb):
+                bad.append(f"{dtype} n={n}")
+            if dtype == f32 and n == 4:
+                err4 = err
+    if bad:
         raise AssertionError(f"masked K2 differs from its plain version at "
-                             f"{shape}")
+                             f"{shape}: {bad}")
     x, f = rng_fields(torch, np, tuple(flags.shape), f32, 2, 283)
-    ms = cuda_ms(torch, lambda: sk.rb_sor_checkerboard(
-        x, f, 4, 0.0, *c, flags=flags, omega=param.omg), 20)
+    y = torch.empty_like(x)
+
+    def masked(n, p=x, out=y):
+        return lambda: sk.rb_sor_checkerboard(p, f, n, 0.0, *c, flags=flags,
+                                              omega=param.omg, out=out)
+
+    ms = cuda_ms(torch, masked(4), 20)
     pms = cuda_ms(torch, lambda: sk.rb_sor_masked_plain(
-        x, f, flags, 4, param.omg, *c), 2)
-    # n = 1 too: a call costs a + b·n, a the residual's fixed-order sum
-    ms1 = cuda_ms(torch, lambda: sk.rb_sor_checkerboard(
-        x, f, 1, 0.0, *c, flags=flags, omega=param.omg), 20)
+        x.clone(), f, flags, 4, param.omg, *c), 2)
+    ms1 = cuda_ms(torch, masked(1), 20)
+    calls, calls1 = cuda_launches(torch, masked(4)), cuda_launches(
+        torch, masked(1))
+    if (calls or 1) > 1 or (calls1 or 1) > 1:
+        raise AssertionError(f"masked K2 made {calls} / {calls1} CUDA "
+                             f"launches a call at n = 4 / 1")
     # p and rhs read, p written, the flags read once: 13 bytes a cell;
     # ~20 flops a cell update
     b = bound(13 * cells, 20 * 4 * interior)
     rows["rb_sor_checkerboard_masked"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1],
-        n1_ms=ms1,
+        max_abs_err=err4, ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1],
+        n1_ms=ms1, cuda_launches_a_call=calls, n1_cuda_launches_a_call=calls1,
         shape=f"{shape} f32, n=4, canal_obstacle.par's box (512x512 cells)")
     log(f"rb_sor_checkerboard masked {shape} f32 n=4: {ms:.4f} ms per call "
-        f"(plain {pms:.4f}, bound {b[0]:.4f} by {b[1]}); n=1 {ms1:.4f} ms, "
-        f"so {(ms - ms1) / 3:.4f} ms an iteration and "
-        f"{ms1 - (ms - ms1) / 3:.4f} ms a call for the residual's sum")
-    del x, f
+        f"(plain {pms:.4f}, bound {b[0]:.4f} by {b[1]}); n=1 {ms1:.4f} ms; "
+        f"out= form, {launches_text(calls)} / {launches_text(calls1)} CUDA "
+        f"launches a call at n = 4 / 1")
+    del x, f, y
     # K3/K4 in flag mode on the same grid
     cfg = nf.StepConfig.from_param(param)
     u, v, pp = rng_fields(torch, np, tuple(flags.shape), f32, 3, 287)
@@ -3936,6 +4017,165 @@ def time_obsdist_cli(torch, np):
     return rows
 
 
+@phase("K13 and masked K2 at the CLI runs' float64 shapes (n = 1): vs "
+       "plain, times, CUDA launches a call")
+def time_sor_cli(torch, np):
+    """K13 on configs/dcavity.par's 50² shards on 2x2 and masked K2 on
+    configs/canal_obstacle.par (512x128) and canal_obstacle2048.par
+    (2048x512), float64 at the CLI's n = 1, in the solvers' `out=` form:
+    bitwise their plain versions, ms a call from CUDA events over
+    back-to-back calls (the host's rate where its work exceeds the
+    card's), CUDA launches a call (must be 1)."""
+    from pampi_tpu_torch.ops import sor_kernels as sk
+    from pampi_tpu_torch.ops import sor_qdist as sq
+
+    f64, rows, bad = torch.float64, {}, []
+    s = dist2d_solver(config("dcavity.par", tpu_mesh="2x2"), (2, 2))
+    g = s._qg
+    qoffs = [(jo // 2, io // 2) for jo, io in s.offs]
+    fb, rb, err = check_qdist(torch, np, g, qoffs, f64, 331)
+    coef = sk.sor_coefficients(1.0 / g.imax, 1.0 / g.jmax, s.param.omg)
+    planes = [rng_fields(torch, np, (4, g.jq, g.iq), f64, 2, 333 + k)
+              for k in range(len(qoffs))]
+    outs = [torch.empty_like(x) for x, _ in planes]
+    ms = cuda_ms(torch, lambda: [
+        sq.rb_sor_qdist(x, f, g, o, *coef, out=y)
+        for (x, f), y, o in zip(planes, outs, qoffs)], 200) / len(qoffs)
+    pms = cuda_ms(torch, lambda: [
+        sq.rb_sor_qdist_plain(x, f, g, o, *coef, out=y)
+        for (x, f), y, o in zip(planes, outs, qoffs)], 5) / len(qoffs)
+    (x, f), y = planes[0], outs[0]
+    calls = cuda_launches(torch, lambda: sq.rb_sor_qdist(
+        x, f, g, qoffs[0], *coef, out=y))
+    b = bound(3 * 4 * g.jq * g.iq * 8, 12 * g.n * g.jl * g.il, FP64_FLOPS)
+    rows["rb_sor_qdist"] = dict(
+        cli_dcavity_ms=ms, cli_dcavity_plain_ms=pms,
+        cli_dcavity_bound_ms=b[0], cli_dcavity_bound_by=b[1],
+        cli_dcavity_max_abs_err=err, cli_dcavity_cuda_launches_a_call=calls,
+        cli_dcavity_shape=f"dcavity.par 2x2 f64 shards, planes "
+                          f"{g.jq}x{g.iq}, n={g.n}")
+    log(f"rb_sor_qdist f64 dcavity.par 2x2 (planes {g.jq}x{g.iq}, n={g.n}), "
+        f"every shard vs plain: planes bitwise {fb}, residuals bitwise {rb};"
+        f" {ms:.4f} ms a shard call (plain {pms:.4f}, bound {b[0]:.6f} by "
+        f"{b[1]}), {launches_text(calls)} CUDA launches a call")
+    if not (fb and rb and (calls or 1) == 1):
+        bad.append("K13 dcavity.par 2x2")
+    del s, planes, outs
+    rows["rb_sor_checkerboard_masked"] = {}
+    for par in ("canal_obstacle.par", "canal_obstacle2048.par"):
+        key = "cli_" + par.split(".")[0]
+        param = config(par)
+        flags = obstacle2d_flags(param)
+        fb, rb, err = check_masked_k2(torch, np, param, flags, f64, 1, 341)
+        c = inverse_squares_2d(param)
+        x, f = rng_fields(torch, np, tuple(flags.shape), f64, 2, 343)
+        y = torch.empty_like(x)
+
+        def call(x=x, f=f, y=y, flags=flags, c=c, omega=param.omg):
+            return sk.rb_sor_checkerboard(x, f, 1, 0.0, *c, flags=flags,
+                                          omega=omega, out=y)
+
+        ms = cuda_ms(torch, call, 200)
+        pms = cuda_ms(torch, lambda: sk.rb_sor_masked_plain(
+            x.clone(), f, flags, 1, param.omg, *c), 5)
+        calls = cuda_launches(torch, call)
+        cells, interior = flags.numel(), param.imax * param.jmax
+        b = bound((3 * 8 + 1) * cells, 20 * interior, FP64_FLOPS)
+        rows["rb_sor_checkerboard_masked"].update({
+            f"{key}_ms": ms, f"{key}_plain_ms": pms,
+            f"{key}_bound_ms": b[0], f"{key}_bound_by": b[1],
+            f"{key}_max_abs_err": err,
+            f"{key}_cuda_launches_a_call": calls,
+            f"{key}_shape": f"{par} {param.imax}x{param.jmax} f64, n=1"})
+        log(f"rb_sor_checkerboard masked f64 {par} ({param.imax}x"
+            f"{param.jmax}, n=1) vs plain: fields bitwise {fb}, residuals "
+            f"bitwise {rb}; {ms:.4f} ms a call (plain {pms:.4f}, bound "
+            f"{b[0]:.6f} by {b[1]}), {launches_text(calls)} CUDA launches a "
+            f"call")
+        if not (fb and rb and (calls or 1) == 1):
+            bad.append(f"masked K2 {par}")
+        del x, f, y
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"at the CLI shapes: {bad}")
+    return rows
+
+
+def kernel_times(root) -> int:
+    """--kernel-times [ROOT]: K13, masked K2 and K15 of the package under
+    ROOT (default: this checkout) at their timed shapes and the CLI's
+    float64 shapes, each called as that checkout's solvers call it (with
+    `out=` where its wrapper takes it): device ms a call (CUDA events over
+    back-to-back calls) and CUDA launches a call (torch.profiler's trace).
+    Prints the card and one JSON line. Run it for two checkouts in one
+    call on the card, in the order old, new, new, old, to compare them."""
+    import inspect
+
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.abspath(root))
+    from pampi_tpu_torch.ops import sor_kernels as sk
+    from pampi_tpu_torch.ops import sor_obsdist as sod
+    from pampi_tpu_torch.ops import sor_qdist as sq
+    from pampi_tpu_torch.parallel.stencil2d import ca_halo
+
+    def with_out(fn, y):
+        return {"out": y} if "out" in inspect.signature(fn).parameters else {}
+
+    def row(calls, reps, label):
+        ms = cuda_ms(torch, lambda: [c() for c in calls], reps) / len(calls)
+        return {"shape": label, "ms": ms,
+                "cuda_launches_a_call": cuda_launches(torch, calls[0])}
+
+    f32, f64, out = torch.float32, torch.float64, {}
+    for key, (jmax, imax), dtype, n, reps in (
+            ("k13_4096_2x2_f32", MAIN, f32, 4, 20),
+            ("k13_dcavity_2x2_f64", (100, 100), f64, 1, 500)):
+        g, qoffs = qdist_shards(jmax, imax, (2, 2), n)
+        coef = sk.sor_coefficients(1.0 / imax, 1.0 / jmax, 1.9)
+        calls = []
+        for k, o in enumerate(qoffs):
+            x, f, y = rng_fields(torch, np, (4, g.jq, g.iq), dtype, 3, 11 + k)
+            kw = with_out(sq.rb_sor_qdist, y)
+            calls.append(lambda x=x, f=f, o=o, kw=kw: sq.rb_sor_qdist(
+                x, f, g, o, *coef, **kw))
+        out[key] = row(calls, reps, f"{g.jl}x{g.il} shard of {imax}x{jmax} "
+                                    f"on 2x2, n={g.n}, {dtype}")
+    for key, par, dims, dtype, n, reps in (
+            ("k2_8192x2048_f32_n4", "canal_obstacle.par", (2048, 8192), f32,
+             4, 20),
+            ("k2_8192x2048_f32_n1", "canal_obstacle.par", (2048, 8192), f32,
+             1, 20),
+            ("k2_canal_obstacle_f64", "canal_obstacle.par", None, f64, 1,
+             500),
+            ("k2_canal_obstacle2048_f64", "canal_obstacle2048.par", None,
+             f64, 1, 200)):
+        param = config(par) if dims is None else obstacle2d_config(*dims)
+        flags = obstacle2d_flags(param)
+        c = inverse_squares_2d(param)
+        x, f, y = rng_fields(torch, np, tuple(flags.shape), dtype, 3, 31)
+        kw = with_out(sk.rb_sor_checkerboard, y)
+        out[key] = row([lambda: sk.rb_sor_checkerboard(
+            x, f, n, 0.0, *c, flags=flags, omega=param.omg, **kw)], reps,
+            f"{par} geometry at {param.imax}x{param.jmax}, n={n}, {dtype}")
+    g = sod.ObsGeom(4096, 4096, 1366, 4096, 4, ca_halo(4, True))
+    x, f, y = rng_fields(torch, np, g.shape, f32, 3, 61)
+    fl = torch.ones(g.shape, dtype=torch.uint8, device="cuda")
+    out["k15_3x1_f32_n4"] = row([lambda: sod.rb_sor_obsdist(
+        x, f, fl, g, (1366, 0), 1.9, 4096.0 ** 2, 4096.0 ** 2, out=y)], 50,
+        "1366x4096 shard (deep 1384x4114) of 4096² on 3x1, n=4, float32, "
+        "all fluid")
+    log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True).stdout.strip())
+    print(json.dumps({"root": os.path.abspath(root), **out}))
+    return 0
+
+
 def check_not_launched_2d(counts, label):
     """K1, unmasked K2, K13 and the unflagged K3/K4 never run on a 2-D
     obstacle path."""
@@ -4062,6 +4302,11 @@ OBST2_TE = 0.5     # canal_obstacle.par: ~50 steps
 # canal_obstacle2048.par: 0.2 took 263 steps and 49.5 s on one card (a
 # masked K2 call and a host check an iteration at float64), so 0.1
 OBST2048_TE = 0.1
+# canal_obstacle2048.par cut to this te for the card-vs-CPU comparison: the
+# CPU process took 561 s for te 0.01 (14 steps, its first solves at itermax
+# 500, ~80 ms a plain masked iteration at 2048x512 f64 beside the other
+# processes), which slowed the host-bound card runs beside it
+OBST2048_CPU_TE = 0.004
 
 
 @phase("configs/canal_obstacle.par: the CPU run and the 2x2 and 3x2 card "
@@ -4070,14 +4315,17 @@ def obstacle2d_cli_start():
     tmp = tempfile.mkdtemp(prefix="obstacle2d_")
     OBST2_RUNS["tmp"] = tmp
     env = dict(os.environ, OMP_NUM_THREADS="2")
-    for name, mesh, device in (("cpu", "1", "cpu"), ("2x2", "2x2", "cuda"),
-                               ("3x2", "3x2", "cuda")):
+    for name, mesh, device, src, te in (
+            ("cpu", "1", "cpu", "canal_obstacle.par", OBST2_TE),
+            ("2x2", "2x2", "cuda", "canal_obstacle.par", OBST2_TE),
+            ("3x2", "3x2", "cuda", "canal_obstacle.par", OBST2_TE),
+            ("cpu2048", "1", "cpu", "canal_obstacle2048.par",
+             OBST2048_CPU_TE)):
         d = os.path.join(tmp, name)
         os.makedirs(d)
-        par = os.path.join(d, "canal_obstacle.par")
+        par = os.path.join(d, src)
         with open(par, "w") as fh:
-            fh.write(config_text("canal_obstacle.par", te=OBST2_TE,
-                                 tpu_mesh=mesh))
+            fh.write(config_text(src, te=te, tpu_mesh=mesh))
         out = os.path.join(d, "fields.npz")
         OBST2_RUNS[name] = (out, start(
             [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
@@ -4087,7 +4335,8 @@ def obstacle2d_cli_start():
 
 @phase(f"main path: python -m pampi_tpu_torch configs/canal_obstacle.par "
        f"(te {OBST2_TE}) on the card, one device, 2x2 and 3x2, and on the "
-       f"CPU; configs/canal_obstacle2048.par (te {OBST2048_TE}) on the card")
+       f"CPU; configs/canal_obstacle2048.par (te {OBST2048_TE}) on the card, "
+       f"and at te {OBST2048_CPU_TE} on the card and the CPU")
 def obstacle2d_cli(np):
     from pampi_tpu_torch.kernels import build as kb
 
@@ -4096,7 +4345,9 @@ def obstacle2d_cli(np):
     tmp = OBST2_RUNS["tmp"]
     counts, one = [], {}
     for name, par, te in (("one", "canal_obstacle.par", OBST2_TE),
-                          ("2048", "canal_obstacle2048.par", OBST2048_TE)):
+                          ("2048", "canal_obstacle2048.par", OBST2048_TE),
+                          ("2048cut", "canal_obstacle2048.par",
+                           OBST2048_CPU_TE)):
         d = os.path.join(tmp, name)
         os.makedirs(d)
         path = os.path.join(d, par)
@@ -4121,9 +4372,10 @@ def obstacle2d_cli(np):
         log(f"{par} te {te} (f64) on one card: {got['nt']} steps to "
             f"t={got['t']:.6f} in {secs:.1f} s (wall, the CLI's whole run, "
             f"beside the other processes); fields finite")
-    ref, bad = one["one"], []
-    scale = max(1.0, *(float(np.abs(ref[k]).max()) for k in "uvp"))
-    for name in ("cpu", "2x2", "3x2"):
+    bad = []
+    for name in ("cpu", "2x2", "3x2", "cpu2048"):
+        ref = one["2048cut" if name == "cpu2048" else "one"]
+        scale = max(1.0, *(float(np.abs(ref[k]).max()) for k in "uvp"))
         out, proc = OBST2_RUNS[name]
         rc = proc.wait(timeout=900)
         if rc != 0:
@@ -4133,7 +4385,8 @@ def obstacle2d_cli(np):
         with np.load(out) as z:
             got = {k: z[k] for k in z.files}
         c = json.loads(str(got["counts"]))
-        if name != "cpu":
+        cpu = name.startswith("cpu")
+        if not cpu:
             log(f"canal_obstacle.par {name} CLI launches: {json.dumps(c)}")
             missing = [k for k in ("rb_sor_obsdist",) + OBST2_PATH
                        if c[k] == 0]
@@ -4146,10 +4399,12 @@ def obstacle2d_cli(np):
         same = (int(got["nt"]), float(got["t"])) == (ref["nt"], ref["t"])
         label = json.loads(str(got["record"])).get(
             "obstacle_dist", "one device")
-        ok = diff <= 1e-9 * scale and (same if name != "cpu"
+        ok = diff <= 1e-9 * scale and (same if not cpu
                                        else int(got["nt"]) == ref["nt"])
-        log(f"canal_obstacle.par te {OBST2_TE} {name} ({label}), its own "
-            f"process on the {'CPU' if name == 'cpu' else 'card'}: "
+        par, te = (("canal_obstacle2048.par", OBST2048_CPU_TE)
+                   if name == "cpu2048" else ("canal_obstacle.par", OBST2_TE))
+        log(f"{par} te {te} {name} ({label}), its own "
+            f"process on the {'CPU' if cpu else 'card'}: "
             f"{int(got['nt'])} steps in {float(got['secs']):.1f} s (one "
             f"card: {ref['nt']}), t equal {float(got['t']) == ref['t']}; max "
             f"|{name} - one card| over u, v, p {diff:.3e} (tol 1e-9 of scale "
@@ -4157,7 +4412,7 @@ def obstacle2d_cli(np):
         if not ok:
             bad.append(name)
     if bad:
-        raise AssertionError(f"canal_obstacle.par runs disagree: {bad}")
+        raise AssertionError(f"canal_obstacle runs disagree: {bad}")
     return counts
 
 
@@ -4573,6 +4828,7 @@ def main() -> int:
         o3_rows = time_obstacle3d(torch, np)
         o2_rows = time_obstacle2d(torch, np)
         cli_rows = time_obsdist_cli(torch, np)
+        sor_cli_rows = time_sor_cli(torch, np)
         k18_rows = time_class_kernel(torch, np)
         sor_ns2d = {}
         counts = main_path(torch, sor_ns2d)
@@ -4603,7 +4859,8 @@ def main() -> int:
         counts_o3cli = obstacle3d_cli(np)
         counts_o2cli = obstacle2d_cli(np)
         if None not in (rows, rows3, mg_rows, q_rows, d3_rows, d2_rows,
-                        o3_rows, o2_rows, cli_rows, k18_rows, counts,
+                        o3_rows, o2_rows, cli_rows, sor_cli_rows, k18_rows,
+                        counts,
                         counts3,
                         counts_mg, counts_dist, counts_cli, counts_d3,
                         counts_d3cli, counts_d2, counts_d2cards,
@@ -4617,6 +4874,8 @@ def main() -> int:
                                        **cli_rows["rb_sor_obsdist"]}}
             rows["rb_sor_obsdist3d"] = {**rows["rb_sor_obsdist3d"],
                                         **cli_rows["rb_sor_obsdist3d"]}
+            for name, extra in sor_cli_rows.items():
+                rows[name] = {**rows[name], **extra}
             for name in ("ns3d_pre", "ns3d_post"):
                 rows[name] = {**rows[name], **d3_rows[name]}
             for name in ("ns2d_pre", "ns2d_post"):
@@ -4668,6 +4927,8 @@ if __name__ == "__main__":
         sys.exit(cli_child(*sys.argv[2:4]))
     if sys.argv[1:2] in (["--cli2-child"], ["--cli3-child"]):
         sys.exit(cli_ns_child(int(sys.argv[1][5]), *sys.argv[2:5]))
+    if sys.argv[1:2] == ["--kernel-times"]:
+        sys.exit(kernel_times(sys.argv[2] if len(sys.argv) > 2 else ROOT))
     try:
         code = main()
     finally:

@@ -32,8 +32,9 @@
 // uniform shift of a dense plane (pampi_tpu/ops/sor_quarters.py), so each
 // colour's update is unit-stride and coalesced; the Neumann refresh is
 // eight same-index edge copies between planes, all independent, in one
-// launch. Temporal blocking (n_inner iterations per sweep through memory)
-// is later work.
+// launch. K1 and plain K2 keep this design; the masked mode runs all
+// n_inner iterations in one pass through shared memory (below), and
+// temporal blocking for K1 and plain K2 is later work.
 //
 // Arithmetic keeps the reference association term for term:
 //   r = rhs - ((e - 2c + w)*idx2 + (n - 2c + s)*idy2);  p = c - factor*r
@@ -44,20 +45,18 @@
 //   solve, pampi_tpu/ops/obstacle.make_obstacle_solver_fn): a cell updates
 //   only where it is interior, of the colour and fluid (flag != 0), with
 //   per-direction coefficients formed from the uint8 flags in the kernel
-//   (sor_pallas.masked_stencil_ops' order):
-//     eps_* = the four neighbours' flags,
-//     denom = (eps_e + eps_w)*idx2 + (eps_n + eps_s)*idy2,
-//     fac   = (denom > 0 ? omega/denom : 0) * flag,
-//     r     = rhs - ((eps_e*(e - c) + eps_w*(w - c))*idx2
-//                    + (eps_n*(n - c) + eps_s*(s - c))*idy2),
-//     p     = c - fac*r.
-//   The flags add 1 byte a cell: the bound is 13 bytes a cell at float32
-//   (p and rhs read, p written, the flags read). Its residual takes plain
-//   K2's order: on the last iteration each block of a colour launch sums
-//   its threads' r^2 (0 on an obstacle) with the fixed shared-memory tree,
-//   and sum_partials adds the red and then the black partials; the plain
-//   version (ops/sor_kernels.rb_sor_masked_plain) repeats that order, so
-//   kernel and plain version agree bitwise, residual included.
+//   (sor_pallas.masked_stencil_ops' order). It is the tiled template of
+//   csrc/sor_tiles2d.cuh, K15's, on the whole (J+2, I+2) field as a block
+//   of H = 1 at offsets 0, whose outer ring is the wall-ghost ring that the
+//   tiles at the field's edge refresh inside the pass (sor_pallas.py:
+//   252-255): all n iterations of a call in one pass through shared memory,
+//   one launch a call, out of place (the caller swaps two fields), the
+//   residual as per-tile partials summed by the last CTA in tile order
+//   (ops/sor_kernels.tile_partials repeats it, so kernel and plain version
+//   agree bitwise, residual included). Its bound: 13 bytes a cell at
+//   float32 (p and rhs read, p written, the flags read), ~65 us at
+//   8192x2048; what bounds it in fact is the issue rate of the sweeps over
+//   the boxes' cells, as K15's (PERF.md).
 //
 // rb_sor_blocked (K17) replaces pampi_tpu/ops/sor_pallas.py _rb_kernel
 //   (make_rb_iter_pallas, the blocked kernel of
@@ -87,6 +86,8 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "sor_tiles2d.cuh"
 
 namespace {
 
@@ -271,42 +272,6 @@ __global__ void q_neumann(T* __restrict__ q, int J2, int I2) {
   }
 }
 
-// one colour of the masked mode, in place (cb_color's mapping); on the
-// last iteration (partial != nullptr) each block writes its sum of r^2 (0
-// on an obstacle cell) as cb_color does
-template <typename T>
-__global__ void cbm_color(T* __restrict__ p, const T* __restrict__ rhs,
-                          const uint8_t* __restrict__ fl, int J, int I,
-                          int color, T omega, T idx2, T idy2,
-                          T* __restrict__ partial) {
-  __shared__ T sh[NT];
-  const size_t W = I + 2;
-  const int j = 1 + blockIdx.y * BY + threadIdx.y;
-  const int t = blockIdx.x * BX + threadIdx.x;
-  T rr = T(0);
-  if (j <= J) {
-    const int i = (((1 + j) & 1) == color ? 1 : 2) + 2 * t;
-    const size_t k = (size_t)j * W + i;
-    if (i <= I && fl[k] != 0) {
-      const T ee = T(fl[k + 1]), ew = T(fl[k - 1]);
-      const T en = T(fl[k + W]), es = T(fl[k - W]);
-      const T denom = (ee + ew) * idx2 + (en + es) * idy2;
-      const T fac = (denom > T(0) ? omega / denom : T(0)) * T(fl[k]);
-      const T c = p[k];
-      const T lap = (ee * (p[k + 1] - c) + ew * (p[k - 1] - c)) * idx2 +
-                    (en * (p[k + W] - c) + es * (p[k - W] - c)) * idy2;
-      const T r = rhs[k] - lap;
-      p[k] = c - fac * r;
-      rr = r * r;
-    }
-  }
-  if (partial != nullptr) {
-    const T s = block_sum(rr, sh);
-    if (threadIdx.x == 0 && threadIdx.y == 0)
-      partial[blockIdx.y * gridDim.x + blockIdx.x] = s;
-  }
-}
-
 // K17: one colour over CTA b's band of rows [b*BAND, b*BAND + BAND) of the
 // (J+2, I+2) array, tile by tile (TILE threads, one column each); partial[b]
 // = the CTA's sum of r^2 in the fixed order described at the top
@@ -420,30 +385,6 @@ int run_quarters(int dev, T* q, const T* f, int J2, int I2, int n_inner,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int run_masked(int dev, T* p, const T* rhs, const uint8_t* fl, int J, int I,
-               int n_inner, double omega, double idx2, double idy2, T* partial,
-               T* out, cudaStream_t st) {
-  cudaError_t e = cudaSetDevice(dev);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grd = cb_grid(J, I);
-  const dim3 blk(BX, BY);
-  const int nb = grd.x * grd.y;
-  const int nn = ((I > J ? I : J) + 255) / 256;
-  for (int t = 0; t < n_inner; ++t) {
-    const bool last = t == n_inner - 1;
-    cbm_color<T><<<grd, blk, 0, st>>>(p, rhs, fl, J, I, 0, T(omega),
-                                      T(idx2), T(idy2),
-                                      last ? partial : nullptr);
-    cbm_color<T><<<grd, blk, 0, st>>>(p, rhs, fl, J, I, 1, T(omega),
-                                      T(idx2), T(idy2),
-                                      last ? partial + nb : nullptr);
-    cb_neumann<T><<<nn, 256, 0, st>>>(p, J, I);
-  }
-  sum_partials<T><<<1, FIN, 0, st>>>(partial, 2 * nb, out);
-  return (int)cudaGetLastError();
-}
-
 int blk_bands(int J) { return (J + 2 + BAND - 1) / BAND; }
 
 template <typename T>
@@ -497,15 +438,6 @@ SOR_ENTRY(rb_sor_quarters_f64, run_quarters, double)
 
 int rb_sor_blocked_partials(int J) { return 2 * blk_bands(J); }
 
-#define MASKED_ENTRY(NAME, T)                                                \
-  int NAME(int dev, void* p, const void* rhs, const void* fl, int J, int I,  \
-           int n_inner, double omega, double idx2, double idy2,             \
-           void* partial, void* out, void* stream) {                         \
-    return run_masked<T>(dev, (T*)p, (const T*)rhs, (const uint8_t*)fl, J,   \
-                         I, n_inner, omega, idx2, idy2, (T*)partial,        \
-                         (T*)out, (cudaStream_t)stream);                     \
-  }
-
 #define BLOCKED_ENTRY(NAME, T)                                               \
   int NAME(int dev, void* p, const void* rhs, int J, int I, double factor,   \
            double idx2, double idy2, void* partial, void* out,               \
@@ -514,8 +446,8 @@ int rb_sor_blocked_partials(int J) { return 2 * blk_bands(J); }
                           idy2, (T*)partial, (T*)out, (cudaStream_t)stream); \
   }
 
-MASKED_ENTRY(rb_sor_masked_f32, float)
-MASKED_ENTRY(rb_sor_masked_f64, double)
+TILED2D_ENTRY(rb_sor_masked_f32, float, true)
+TILED2D_ENTRY(rb_sor_masked_f64, double, true)
 BLOCKED_ENTRY(rb_sor_blocked_f32, float)
 BLOCKED_ENTRY(rb_sor_blocked_f64, double)
 

@@ -1,6 +1,7 @@
 """Build the port's CUDA kernels and bind them to Python.
 
-Every `pampi_tpu_torch/csrc/<name>.cu` is compiled at first use, by `nvcc`
+Every `pampi_tpu_torch/csrc/<name>.cu` (with the headers `csrc/*.cuh` it
+includes) is compiled at first use, by `nvcc`
 for Hopper (`sm_90a`), into a shared library with a plain C interface under
 `build/torch_kernels/` at the repository root, and loaded with `ctypes`:
 pointers and the stream travel as `c_void_p`, and every C entry point
@@ -80,9 +81,14 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
+    """The library of source `name`; its hash covers the source, the
+    shared headers (csrc/*.cuh, which several sources include) and the
+    flags."""
+    text = (CSRC_DIR / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        text += header.read_bytes()
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+        text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -359,15 +359,23 @@ class NS2DDistSolver:
         qoffs = [(jo // 2, io // 2) for jo, io in self.offs]
         rq = qd.q_exchange([qd.pack_ext_to_q(r, qg) for r in rhs], comm, qg)
         xq = [qd.pack_ext_to_q(x, qg) for x in p]
-        copies = qd.q_exchange_copies(xq, comm, qg)
+        # two lists of planes, each with the exchange's views bound to it:
+        # K13 reads the first and writes the second, and the two swap, so
+        # the first holds the newest planes
+        planes = [xq, [torch.empty_like(x) for x in xq]]
+        copies = [qd.q_exchange_copies(x, comm, qg) for x in planes]
 
         def rounds():
-            qd.q_exchange(xq, comm, qg, copies)
-            return [self._rb_q(o, x, f) for o, x, f in zip(qoffs, xq, rq)], \
-                qg.n
+            qd.q_exchange(planes[0], comm, qg, copies[0])
+            r2 = [self._rb_q(o, x, f, out=y)
+                  for o, x, y, f in zip(qoffs, *planes, rq)]
+            planes.reverse()
+            copies.reverse()
+            return r2, qg.n
 
         res, it = self._loop(rounds)
-        p = pc.halo_exchange([qd.unpack_q_to_ext(x, qg) for x in xq], comm)
+        p = pc.halo_exchange([qd.unpack_q_to_ext(x, qg) for x in planes[0]],
+                             comm)
         return p, res, it
 
     def _grid_masks(self):

@@ -176,16 +176,23 @@ class DistPoissonSolver:
             rq.append(qd.pack_ext_to_q(self._rhs_ext(s, 1), g))
             qoffs.append((joff // 2, ioff // 2))
         qd.q_exchange(rq, comm, g)
-        copies = qd.q_exchange_copies(xq, comm, g)
+        # two lists of planes, each with the exchange's views bound to it:
+        # K13 reads the first and writes the second, and the two swap, so
+        # the first holds the newest planes
+        planes = [xq, [torch.empty_like(x) for x in xq]]
+        copies = [qd.q_exchange_copies(x, comm, g) for x in planes]
 
         def rounds():
-            qd.q_exchange(xq, comm, g, copies)
-            r2 = [self.rb_q(o, x, f) for o, x, f in zip(qoffs, xq, rq)]
+            qd.q_exchange(planes[0], comm, g, copies[0])
+            r2 = [self.rb_q(o, x, f, out=y)
+                  for o, x, y, f in zip(qoffs, *planes, rq)]
+            planes.reverse()
+            copies.reverse()
             return r2, g.n
 
         res, it = self._loop(rounds)
         self.p = [qd.unpack_q_to_ext(x, g)[1:-1, 1:-1].contiguous()
-                  for x in xq]
+                  for x in planes[0]]
         return res, it
 
     def _solve_grid(self, first):

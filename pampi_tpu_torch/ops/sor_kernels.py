@@ -16,10 +16,16 @@ K2's masked mode (`rb_sor_checkerboard(..., flags=, omega=)`) replaces
   from uint8 flags (1 byte a cell) in the field's dtype, as
   sor_pallas.masked_stencil_ops forms them (`masked_stencil_2d`, which
   K15's plain version shares). Its launches count on their own kernel
-  entry, `rb_sor_checkerboard_masked`. Its residual is summed from
-  per-block partials in a fixed order (`_cb_partials`, then
-  `fixed_order_sum`) that the plain version repeats, so the two agree
-  bitwise, residual included.
+  entry, `rb_sor_checkerboard_masked`. It is K15's kernel (the tiled
+  template of csrc/sor_tiles2d.cuh) on the whole field as a block of
+  H = 1 at offsets 0: all n_inner iterations in one pass through shared
+  memory, one launch a call, out of place: it reads p and writes `out`
+  (the solver swaps two fields), the tiles at the field's edge refreshing
+  its wall-ghost ring. Its
+  residual is summed per tile and then over the tiles in tile order
+  (`tiled_residual`), which the plain version repeats, so the two agree
+  bitwise, residual included. Bound: 13 bytes a cell at float32, ~65 us
+  at 8192x2048; the sweeps' issue rate bounds it in fact, as K15.
 K17 `rb_sor_blocked` replaces pampi_tpu/ops/sor_pallas.py `_rb_kernel`
   (make_rb_iter_pallas, pallas_call at :1049; its one caller is
   models/poisson.make_rb_step_padded(kernel="blocked")): ONE red-black
@@ -29,18 +35,20 @@ K17 `rb_sor_blocked` replaces pampi_tpu/ops/sor_pallas.py `_rb_kernel`
   per colour; csrc/sor_rb.cu says more). Its fields equal K2's at n_inner
   1 bit for bit, and its plain version repeats its summation order.
 
-All update p in place and return the sum of r² over both half-sweeps of
-the LAST of their iterations, as a 0-dim tensor on p's device.
+All but masked K2 update p in place; all return the sum of r² over both
+half-sweeps of the LAST of their iterations, as a 0-dim tensor on p's
+device.
 
 What bounds them on the H100 is memory bandwidth (~10 flops per cell
 update). The least any implementation must move per call is p and rhs read
-once and p written once: ~60 us at 4096² f32 whatever n_inner is. The design
-is simple first: a launch per colour per iteration (black sees red through
-the launch boundary), a Neumann launch, per-block partial sums of r² on the
-last iteration and a one-block fixed-order sum, so the residual and every
-iteration count are reproducible. Each iteration therefore reads and writes
-p from device memory; temporal blocking (several iterations per pass, as
-the TPU kernels do) is later work.
+once and p written once: ~60 us at 4096² f32 whatever n_inner is. K1 and
+plain K2 are simple first: a launch per colour per iteration (black sees
+red through the launch boundary), a Neumann launch, per-block partial sums
+of r² on the last iteration and a one-block fixed-order sum, so the
+residual and every iteration count are reproducible. Each iteration
+therefore reads and writes p from device memory; temporal blocking
+(several iterations per pass, as the TPU kernels do) is later work for
+them, done for the masked mode above.
 
 For a CPU tensor each wrapper runs its plain version; for a CUDA tensor it
 launches its kernel or raises.
@@ -48,7 +56,9 @@ launches its kernel or raises.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 
 import torch
 
@@ -76,14 +86,20 @@ _SIGNATURES["rb_sor_checkerboard_partials"] = [_I, _I]
 _SIGNATURES["rb_sor_quarters_partials"] = [_I, _I]
 _SIGNATURES["rb_sor_blocked_partials"] = [_I]
 for _t in ("f32", "f64"):
-    _SIGNATURES[f"rb_sor_masked_{_t}"] = [_I, _V, _V, _V, _I, _I, _I, _D, _D,
-                                          _D, _V, _V, _V]
+    _SIGNATURES[f"rb_sor_masked_{_t}"] = [_I, _V, _V, _V, _V, _V, _D, _D, _D,
+                                          _V, _V, _V, _V]
     _SIGNATURES[f"rb_sor_blocked_{_t}"] = [_I, _V, _V, _I, _I, _D, _D, _D,
                                            _V, _V, _V]
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 FIN = 1024  # threads of the kernels' one-block final sum (sum_partials)
 BX, BY = 32, 8  # K2's thread block (sor_rb.cu)
 BAND, TILE = 8, 256  # K17's rows per CTA and columns per tile (sor_rb.cu)
+# a tiled kernel's CTA (csrc/sor_tiles2d.cuh's TX x TY threads)
+TX_TILED, TY_TILED = 32, 16
+NT_TILED = TX_TILED * TY_TILED
+# per (device, stream): the residual's ticket and its partial buffers
+_TICKETS: dict = {}
+_PARTIALS: dict = {}
 
 
 def fixed_order_sum(flat, threads: int = FIN):
@@ -109,6 +125,100 @@ def _tree(s):
         s = s[..., :st] + s[..., st:2 * st]
         st //= 2
     return s
+
+
+def tile_partials(r2, th, tw):
+    """The tiled kernels' per-CTA partial sums (K13 and masked K2;
+    csrc/sor_tiles2d.cuh's tile_residual): r2 of shape (..., ej, ei) (the
+    last iteration's r², 0 where nothing counts) is cut into tiles of th x
+    tw cells, row-major; thread (tx, ty) of a tile's CTA adds the tile's
+    cells (ty + TY·k, tx + TX·m), leading index by leading index, k-major,
+    and a halving tree over tid = TX·ty + tx reduces the threads. Returns
+    the partials in CTA order."""
+    *lead, ej, ei = r2.shape
+    gy, gx = -(-ej // th), -(-ei // tw)
+    kk, mm = -(-th // TY_TILED), -(-tw // TX_TILED)
+    wide = r2.new_zeros((*lead, gy, kk * TY_TILED, gx, mm * TX_TILED))
+    tiles = torch.zeros((*lead, gy * th, gx * tw), dtype=r2.dtype,
+                        device=r2.device)
+    tiles[..., :ej, :ei] = r2
+    wide[..., :, :th, :, :tw] = tiles.reshape(*lead, gy, th, gx, tw)
+    cells = wide.reshape(-1, gy, kk, TY_TILED, gx, mm, TX_TILED)
+    cells = cells.permute(1, 4, 0, 2, 5, 3, 6).reshape(
+        gy * gx, -1, TY_TILED * TX_TILED)
+    acc = r2.new_zeros((gy * gx, TY_TILED * TX_TILED))
+    for k in range(cells.shape[1]):
+        acc = acc + cells[:, k]
+    return _tree(acc)[:, 0]
+
+
+def tiled_residual(r2, th, tw):
+    """The tiled kernels' residual: tile_partials, then the last CTA's sum
+    of the partials in CTA order (fixed_order_sum over NT_TILED threads).
+    A 0-dim tensor equal bit for bit to the kernels'."""
+    return fixed_order_sum(tile_partials(r2, th, tw), NT_TILED)
+
+
+def residual_buffers(t, stream: int, ntiles: int):
+    """(ticket, partial) of a tiled kernel's launch on t's device and the
+    stream `stream` (kb.stream_of(t)): the ticket an int32 0 that the
+    kernels leave at 0, the partial buffer at least ntiles long. Both are
+    made once per stream and reused: launches on one stream run in
+    order."""
+    key = (t.device.index, stream)
+    ticket = _TICKETS.get(key)
+    if ticket is None:
+        ticket = torch.zeros(1, dtype=torch.int32, device=t.device)
+        _TICKETS[key] = ticket
+    pkey = key + (t.dtype,)
+    partial = _PARTIALS.get(pkey)
+    if partial is None or partial.numel() < ntiles:
+        partial = torch.empty(ntiles, dtype=t.dtype, device=t.device)
+        _PARTIALS[pkey] = partial
+    return ticket, partial
+
+
+def run_passes(p, launches, out, launch):
+    """Run a tiled kernel's passes (K13, K15, masked K2): launches holds
+    (tiles, geometry array) per pass, and launch(src, dst, geo, partial,
+    ticket, res, stream) starts one and returns its CUDA error. The passes
+    alternate two arrays so that the last lands in out (or, without out,
+    in a new array copied back into p: a second launch). Returns the
+    residual, a new 0-dim tensor (the caller keeps it across calls)."""
+    target = torch.empty_like(p) if out is None else out
+    scratch = torch.empty_like(p) if len(launches) > 1 else None
+    res = torch.empty((), dtype=p.dtype, device=p.device)
+    with card_of(p):
+        stream = kb.stream_of(p)
+        ticket, partial = residual_buffers(
+            p, stream, max(ntiles for ntiles, _ in launches))
+        src = p
+        for k, (_, geo) in enumerate(launches):
+            dst = target if (len(launches) - 1 - k) % 2 == 0 else scratch
+            launch(src, dst, geo, partial, ticket, res, stream)
+            src = dst
+        if out is None:
+            p.copy_(target)
+    return res
+
+
+def card_of(t):
+    """The guard that makes t's card current for a launch and gives the
+    caller its current card back (the shards of a mesh lie on several
+    cards); nothing to do where t's card is current already."""
+    if t.device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(t.device)
+
+
+def check_out(name, p, out):
+    """The `out=` form's contract: a contiguous tensor of p's dtype, shape
+    and device that is not p itself."""
+    if (out.device != p.device or out.dtype != p.dtype
+            or out.shape != p.shape or not out.is_contiguous()
+            or out.data_ptr() == p.data_ptr()):
+        raise ValueError(f"{name}: out must be a contiguous {p.dtype} block "
+                         f"of p's shape on p's device, not p itself")
 
 
 def ordered_r2_sum(r2):
@@ -195,11 +305,33 @@ def rb_sor_checkerboard_plain(p, rhs, n_inner, factor, idx2, idy2):
     return r0 + r1
 
 
+@functools.lru_cache(maxsize=64)
+def masked_geom(J: int, I: int, n_inner: int):
+    """Masked K2's field as the tiled kernel's block: the (J+2, I+2) field
+    is a block of H = 1 at offsets 0 whose owned region is the interior
+    (ops/sor_obsdist.ObsGeom)."""
+    from .sor_obsdist import ObsGeom
+
+    return ObsGeom(J, I, J, I, n_inner, 1)
+
+
 def rb_sor_masked_plain(p, rhs, flags, n_inner, omega, idx2, idy2):
     """K2's masked mode, plain: n_inner (red, black, Neumann) iterations in
     place on p, a cell updating only where it is interior, of the colour
     and fluid. Returns Σr² of the last iteration in the kernel's order
-    (_cb_partials of red and of black, then fixed_order_sum)."""
+    (tiled_residual over the tiles of the call's last pass)."""
+    from .sor_obsdist import obsdist_passes
+
+    r2 = masked_sweeps(p, rhs, flags, n_inner, omega, idx2, idy2)
+    pl = obsdist_passes(masked_geom(p.shape[0] - 2, p.shape[1] - 2, n_inner),
+                        p.element_size())[-1]
+    return tiled_residual(r2, pl.th, pl.tw)
+
+
+def masked_sweeps(p, rhs, flags, n_inner, omega, idx2, idy2):
+    """rb_sor_masked_plain's iterations, in place on p. Returns the last
+    iteration's r² as a field of p's shape (0 on the ring and on every
+    cell that does not update)."""
     jmax, imax = p.shape[0] - 2, p.shape[1] - 2
     fluid = flags[1:-1, 1:-1] != 0
     red = (checkerboard_mask(jmax, imax, 0, torch.uint8, p.device)
@@ -216,36 +348,23 @@ def rb_sor_masked_plain(p, rhs, flags, n_inner, omega, idx2, idy2):
         r_blk = torch.where(black, rhs_c - lap(p), zero)
         p[1:-1, 1:-1] = p[1:-1, 1:-1] - fac * r_blk
         neumann_bc(p)
-    return fixed_order_sum(torch.cat([_cb_partials(r_red * r_red, 0),
-                                      _cb_partials(r_blk * r_blk, 1)]))
-
-
-def _cb_partials(rr, colour):
-    """Masked K2's per-block partial sums of one colour's r² (rr: the
-    (J, I) interior, 0 off the colour): block (bx, by) of BX x BY threads
-    takes interior rows 8·by .. 8·by + 7, thread (tx, ty) the cell
-    2·(32·bx + tx) of its row, shifted by one on rows whose first interior
-    cell is of the other colour, and a halving tree over tid = 32·ty + tx
-    reduces the block. Returns the partials in block order (by·gx + bx)."""
-    J, I = rr.shape
-    gx, gy = -(-((I + 1) // 2) // BX), -(-J // BY)
-    wide = torch.zeros((gy * BY, 2 * gx * BX + 1), dtype=rr.dtype,
-                       device=rr.device)
-    wide[:J, :I] = rr
-    first = (torch.arange(gy * BY, device=rr.device) % 2 == colour)[:, None]
-    cells = torch.where(first, wide[:, 0:-1:2], wide[:, 1::2])
-    blocks = cells.reshape(gy, BY, gx, BX).permute(0, 2, 1, 3)
-    return _tree(blocks.reshape(gy, gx, BY * BX))[..., 0].reshape(-1)
+    r2 = torch.zeros_like(p)
+    r2[1:-1, 1:-1] = r_red * r_red + r_blk * r_blk
+    return r2
 
 
 def rb_sor_checkerboard(p, rhs, n_inner, factor, idx2, idy2, flags=None,
-                        omega=None):
+                        omega=None, out=None):
     """K2 on a (jmax+2, imax+2) p, in place. Returns Σr² of the last
     iteration (0-dim tensor). With `flags` (uint8 of p's shape, 0 on
     obstacle cells) the masked mode, which relaxes with `omega` (the
-    per-cell factor comes from the flags; `factor` is not read)."""
+    per-cell factor comes from the flags; `factor` is not read) and needs
+    `out`: it reads p and writes the new field into out (p untouched), one
+    launch a call."""
     if flags is not None:
-        return _masked(p, rhs, flags, n_inner, omega, idx2, idy2)
+        return _masked(p, rhs, flags, n_inner, omega, idx2, idy2, out)
+    if out is not None:
+        raise ValueError("K2 takes out= in its masked mode only")
     if p.device.type == "cpu":
         return rb_sor_checkerboard_plain(p, rhs, n_inner, factor, idx2, idy2)
     _check(p, rhs, n_inner)
@@ -257,29 +376,30 @@ def rb_sor_checkerboard(p, rhs, n_inner, factor, idx2, idy2, flags=None,
                    n_inner, factor, idx2, idy2)
 
 
-def _masked(p, rhs, flags, n_inner, omega, idx2, idy2):
-    if omega is None:
-        raise ValueError("the masked mode needs omega")
+def _masked(p, rhs, flags, n_inner, omega, idx2, idy2, out):
+    from . import sor_obsdist as sod
+
+    if omega is None or out is None:
+        raise ValueError("the masked mode needs omega and out")
+    check_out("masked K2", p, out)
     if p.device.type == "cpu":
-        return rb_sor_masked_plain(p, rhs, flags, n_inner, omega, idx2, idy2)
+        out.copy_(p)
+        return rb_sor_masked_plain(out, rhs, flags, n_inner, omega, idx2,
+                                   idy2)
     _check(p, rhs, n_inner)
     if (p.dim() != 2 or flags.dtype != torch.uint8
             or flags.device != p.device or flags.shape != p.shape
             or not flags.is_contiguous()):
         raise ValueError("masked K2 needs a 2-D p and contiguous uint8 flags "
                          "of its shape on its device")
-    J, I = p.shape[0] - 2, p.shape[1] - 2
+    g = masked_geom(p.shape[0] - 2, p.shape[1] - 2, n_inner)
     lib = kb.load("sor_rb", _SIGNATURES)
-    partial = torch.empty(lib.rb_sor_checkerboard_partials(J, I),
-                          dtype=p.dtype, device=p.device)
-    out = torch.empty((), dtype=p.dtype, device=p.device)
-    err = getattr(lib, f"rb_sor_masked_{_SUFFIX[p.dtype]}")(
-        p.device.index, p.data_ptr(), rhs.data_ptr(), flags.data_ptr(), J, I,
-        n_inner, omega, idx2, idy2, partial.data_ptr(), out.data_ptr(),
-        kb.stream_of(p))
-    kb.check(lib, err, "rb_sor_masked")
+    res = sod.run_tiled(getattr(lib, f"rb_sor_masked_{_SUFFIX[p.dtype]}"),
+                        lib, "rb_sor_masked",
+                        sod.launch_plan(g, p.element_size(), 0, 0), p, rhs,
+                        flags, omega, idx2, idy2, out)
     RB_SOR_MASKED.launches += 1
-    return out
+    return res
 
 
 def _band_partials(r):

@@ -63,7 +63,7 @@ from dataclasses import dataclass
 import torch
 
 from ..kernels import build as kb
-from .sor_kernels import _SUFFIX, masked_stencil_2d
+from .sor_kernels import _SUFFIX, check_out, masked_stencil_2d, run_passes
 
 SOURCE = "pampi_tpu_torch/csrc/sor_obsdist.cu"
 RB_SOR_OBSDIST = kb.register(
@@ -84,7 +84,6 @@ _THREADS = 512  # a CTA's threads (csrc/sor_obsdist.cu's NT)
 # dynamic shared memory a CTA may take on the H100 (227 KB, less a margin
 # for the kernel's static shared memory)
 SMEM_LIMIT = 232448 - 1024
-_TICKETS: dict = {}
 
 
 @dataclass(frozen=True)
@@ -230,14 +229,6 @@ def obsdist_tiles(g: ObsGeom, itemsize: int = 4, n: int | None = None):
             for j0 in range(0, ej, pl.th) for i0 in range(0, ei, pl.tw)]
 
 
-def _check_out(name, p, out):
-    if (out.device != p.device or out.dtype != p.dtype
-            or out.shape != p.shape or not out.is_contiguous()
-            or out.data_ptr() == p.data_ptr()):
-        raise ValueError(f"{name}: out must be a contiguous {p.dtype} block "
-                         f"of p's shape on p's device, not p itself")
-
-
 def rb_sor_obsdist(p, rhs, flags, g: ObsGeom, offs, omega, idx2, idy2,
                    out=None):
     """K15 on one shard's deep block p, rhs of shape g.shape with the uint8
@@ -246,7 +237,7 @@ def rb_sor_obsdist(p, rhs, flags, g: ObsGeom, offs, omega, idx2, idy2,
     untouched); without, it updates p in place. Returns the owned Σr² of
     the last iteration (0-dim tensor)."""
     if out is not None:
-        _check_out("K15", p, out)
+        check_out("K15", p, out)
     if p.device.type == "cpu":
         if out is None:
             return rb_iters_obsdist_plain(p, rhs, flags, g, offs, omega,
@@ -268,41 +259,34 @@ def rb_sor_obsdist(p, rhs, flags, g: ObsGeom, offs, omega, idx2, idy2,
         raise ValueError(f"K15 needs n >= 1 and H >= 2n, got n = {g.n}, "
                          f"H = {g.H}")
     lib = kb.load("sor_obsdist", _SIGNATURES)
-    entry = getattr(lib, f"rb_sor_obsdist_{_SUFFIX[p.dtype]}")
-    launches = _launches(g, p.element_size(), int(offs[0]), int(offs[1]))
-    target = torch.empty_like(p) if out is None else out
-    scratch = torch.empty_like(p) if len(launches) > 1 else None
-    res = torch.empty((), dtype=p.dtype, device=p.device)
-    # the shards of a mesh lie on several cards: the launch selects p's
-    # card, and the guard gives the caller its current card back
-    with torch.cuda.device(p.device):
-        stream = kb.stream_of(p)
-        ticket = _TICKETS.get((p.device.index, stream))
-        if ticket is None:
-            ticket = torch.zeros(1, dtype=torch.int32, device=p.device)
-            _TICKETS[(p.device.index, stream)] = ticket
-        src = p
-        for k, (ntiles, geo) in enumerate(launches):
-            # alternate the two buffers so that the last pass lands in target
-            dst = target if (len(launches) - 1 - k) % 2 == 0 else scratch
-            partial = torch.empty(ntiles, dtype=p.dtype, device=p.device)
-            err = entry(p.device.index, src.data_ptr(), rhs.data_ptr(),
-                        flags.data_ptr(), dst.data_ptr(), geo, omega, idx2,
-                        idy2, partial.data_ptr(), ticket.data_ptr(),
-                        res.data_ptr(), stream)
-            kb.check(lib, err, "rb_sor_obsdist")
-            src = dst
-        if out is None:
-            p.copy_(target)
+    res = run_tiled(getattr(lib, f"rb_sor_obsdist_{_SUFFIX[p.dtype]}"), lib,
+                    "rb_sor_obsdist",
+                    launch_plan(g, p.element_size(), int(offs[0]),
+                                int(offs[1])),
+                    p, rhs, flags, omega, idx2, idy2, out)
     RB_SOR_OBSDIST.launches += 1
     return res
 
 
+def run_tiled(entry, lib, what, launches, p, rhs, flags, omega, idx2, idy2,
+              out):
+    """Launch the tiled kernel `entry` (K15's or masked K2's, the template
+    of csrc/sor_tiles2d.cuh) for each pass of `launches` (launch_plan);
+    ops/sor_kernels.run_passes says the rest."""
+    def launch(src, dst, geo, partial, ticket, res, stream):
+        kb.check(lib, entry(p.device.index, src.data_ptr(), rhs.data_ptr(),
+                            flags.data_ptr(), dst.data_ptr(), geo, omega,
+                            idx2, idy2, partial.data_ptr(), ticket.data_ptr(),
+                            res.data_ptr(), stream), what)
+
+    return run_passes(p, launches, out, launch)
+
+
 @functools.lru_cache(maxsize=1024)
-def _launches(g: ObsGeom, itemsize: int, joff: int, ioff: int):
+def launch_plan(g: ObsGeom, itemsize: int, joff: int, ioff: int):
     """(tiles, the kernel's geometry array) of each pass of a call, made
-    once per shard: the CLI's rounds call K15 on small shards, where the
-    host's work is the call's cost."""
+    once per shard: the CLI's rounds call K15 and masked K2 on small
+    blocks, where the host's work is the call's cost."""
     ej, ei = g.shape
     return tuple(
         (-(-ej // pl.th) * -(-ei // pl.tw),

@@ -62,8 +62,8 @@ import torch
 
 from ..kernels import build as kb
 from .sor3d_kernels import masked_stencil_3d
-from .sor_kernels import _SUFFIX, ordered_r2_sum
-from .sor_obsdist import SMEM_LIMIT, _check_out, _flag_pitch, split_passes
+from .sor_kernels import _SUFFIX, check_out, ordered_r2_sum
+from .sor_obsdist import SMEM_LIMIT, _flag_pitch, split_passes
 
 SOURCE = "pampi_tpu_torch/csrc/sor_obsdist3d.cu"
 RB_SOR_OBSDIST3D = kb.register(
@@ -241,7 +241,7 @@ def rb_sor_obsdist3d(p, rhs, flags, g: ObsGeom3, offs, omega, idx2, idy2,
     (p untouched); without, it updates p in place. Returns the owned Σr²
     of the last iteration (0-dim tensor)."""
     if out is not None:
-        _check_out("K16", p, out)
+        check_out("K16", p, out)
     if p.device.type == "cpu":
         if out is None:
             return rb_iters_obsdist3d_plain(p, rhs, flags, g, offs, omega,

@@ -94,10 +94,11 @@ def quarters_dispatch(param, jmax, imax, jl, il, dx, dy, dtype,
                       record_key: str, plain_sor: bool, label="kernel"):
     """The layout decision of the 2-D distributed solvers: whether the
     quarter-layout path runs. Returns (rb_q, qg), where rb_q(qoffs, xq,
-    rq) runs K13 (or, on a CPU tensor, its plain version) on one
-    shard; rb_q is None when the caller should run its grid-space CA path.
-    Raises ValueError on a forced `tpu_sor_layout quarters` that does not
-    fit. The depth n (iterations per exchange) is the dtype's
+    rq, out) runs K13 (or, on a CPU tensor, its plain version) on one
+    shard, reading xq and writing out; rb_q is None when the caller should
+    run its grid-space CA path. Raises ValueError on a forced
+    `tpu_sor_layout quarters` that does not fit.
+    The depth n (iterations per exchange) is the dtype's
     utils/dispatch.sor_cadence, clamped by qdist_clamp. The decision is
     recorded under record_key as "<label>_quarters caN" (the JAX package's
     NS-2D records "pallas_quarters").
@@ -125,8 +126,8 @@ def quarters_dispatch(param, jmax, imax, jl, il, dx, dy, dtype,
     qg = make_qgeom(jmax, imax, jl, il, n_q)
     factor, idx2, idy2 = sor_coefficients(dx, dy, param.omg)
 
-    def rb_q(qoffs, xq, rq):
-        return rb_sor_qdist(xq, rq, qg, qoffs, factor, idx2, idy2)
+    def rb_q(qoffs, xq, rq, out):
+        return rb_sor_qdist(xq, rq, qg, qoffs, factor, idx2, idy2, out)
 
     _dispatch.record(record_key, f"{label}_quarters ca{n_q}")
     return rb_q, qg
@@ -273,9 +274,22 @@ def _upd(center, rhs_q, w, e, s, n_, mask, factor, idx2, idy2):
 def rb_iters_q(xq, rhsq, g: QGeom, m, factor, idx2, idy2):
     """n red-black iterations, each with the Neumann wall refresh, on one
     shard's stacked plane: the plain version of K13 (the twin of the JAX
-    rb_iters_q_jnp: the same neighbour identities, selects and order; the
-    rolls wrap only into cells every mask excludes). Returns (new planes,
-    the owned sum of r² of the last iteration)."""
+    rb_iters_q_jnp). Returns (new planes, the owned sum of r² of the last
+    iteration, in K13's order: ops/sor_kernels.tiled_residual over the
+    tiles of the call's last pass)."""
+    from ..ops.sor_kernels import tiled_residual
+    from ..ops.sor_qdist import qdist_passes
+
+    new, r2 = rb_sweeps_q(xq, rhsq, g, m, factor, idx2, idy2)
+    pl = qdist_passes(g, xq.element_size())[-1]
+    return new, tiled_residual(r2, pl.th, pl.tw)
+
+
+def rb_sweeps_q(xq, rhsq, g: QGeom, m, factor, idx2, idy2):
+    """rb_iters_q's iterations (the JAX rb_iters_q_jnp's neighbour
+    identities, selects and order; the rolls wrap only into cells every
+    mask excludes). Returns (new planes, the last iteration's r² on the
+    owned cells of each slot, 0 elsewhere: (4, jq, iq))."""
     R0, R1, B0, B1 = xq.unbind(0)
     F0, F1, G0, G1 = rhsq.unbind(0)
 
@@ -311,7 +325,6 @@ def rb_iters_q(xq, rhsq, g: QGeom, m, factor, idx2, idy2):
         B0 = torch.where(m["col_hi_pr0"], R0, B0)
         R1 = torch.where(m["col_hi_pr1"], B1, R1)
 
-    rsq = xq.new_zeros(())
-    for rq, own in zip(rs, m["own"]):
-        rsq = rsq + torch.sum(torch.where(own, rq * rq, torch.zeros_like(rq)))
-    return torch.stack([R0, R1, B0, B1]), rsq
+    r2 = torch.stack([torch.where(own, rq * rq, torch.zeros_like(rq))
+                      for rq, own in zip(rs, m["own"])])
+    return torch.stack([R0, R1, B0, B1]), r2

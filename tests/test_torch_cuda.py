@@ -10,7 +10,9 @@ contraction, only the r² sums are reduced in another order. The MG cycle
 kernels K9-K12 and the distributed quarter and octant kernels K13 and K14
 keep every operation of their plain versions, so their fields are held
 bitwise, and K14 on a one-shard mesh is K6, residual included; so is K15,
-the flag-masked per-shard kernel of the distributed NS-2D solve; masked
+the flag-masked per-shard kernel of the distributed NS-2D solve; K13 and
+masked K2 sum their residual per tile in an order their plain versions
+repeat, so it is held bitwise too; masked
 K5 and K16 (3-D obstacles) sum their residual in an order their plain
 versions repeat, so they are held bitwise, residual included, and K16 on a
 one-shard mesh is masked K5; masked K2 (2-D obstacles) and K17 (one
@@ -19,7 +21,9 @@ fields are K2's; so is K18 (the fleet's one-launch class V-cycle), fields
 and residual; K15 and K16 (one pass through shared memory a call) on
 shards of several tiles with ragged remainders and on shards smaller than
 a tile, n = 1..4 (K16 also n = 5, and 6 as two passes), their `out=` form (the
-solvers') and in-place form bitwise each other; an MG run on the card
+solvers') and in-place form bitwise each other; K13 and masked K2 (one
+pass a call, `out=` only) on planes and fields of several tiles and of
+one; an MG run on the card
 against the CPU, whose DCT bottom's matrix products sum in another order,
 to 1e-9; a fleet of mg class lanes on the card against the CPU to 1e-9 of
 scale."""
@@ -250,20 +254,47 @@ def test_mg_fft_dcavity_on_card_matches_cpu(cuda, solver, monkeypatch):
 @pytest.mark.parametrize("qoffs", [(0, 0), (8, 4), (0, 12), (16, 36)])
 def test_qdist_kernel_matches_plain(cuda, dtype, qoffs):
     """K13 on random stacked planes of shards at global offsets, walls and
-    ghosts included: planes bitwise, the owned r² to the sum-order
-    tolerance."""
+    ghosts included: planes and the owned r² (summed in the tile order the
+    plain version repeats) bitwise."""
     g = qd.make_qgeom(64, 96, 32, 24, 3)
     coef = sk.sor_coefficients(1 / 96, 1 / 64, 1.9)
     x = _rand((4, g.jq, g.iq), dtype, cuda, 21)
     f = _rand((4, g.jq, g.iq), dtype, cuda, 22)
-    xk, xp = x.clone(), x.clone()
+    xk, xp, yk, yp = x.clone(), x.clone(), x.clone(), x.clone()
     launches = sq.RB_SOR_QDIST.launches
     for _ in range(2):
-        rk = sq.rb_sor_qdist(xk, f, g, qoffs, *coef)
-        rp = sq.rb_sor_qdist_plain(xp, f, g, qoffs, *coef)
+        rk = sq.rb_sor_qdist(xk, f, g, qoffs, *coef, out=yk)
+        rp = sq.rb_sor_qdist_plain(xp, f, g, qoffs, *coef, out=yp)
+        xk, yk, xp, yp = yk, xk, yp, xp
     assert sq.RB_SOR_QDIST.launches == launches + 2
-    assert torch.equal(xk, xp)
-    assert abs(float(rk) - float(rp)) <= _tol(dtype) * float(rp)
+    assert torch.equal(xk, xp) and torch.equal(rk, rp)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [1, 2, 3, 4])
+@pytest.mark.parametrize("grid", [(1024, 680, (2, 2)), (100, 100, (2, 2))])
+def test_qdist_tiles_match_plain(cuda, dtype, n, grid):
+    """K13 (one launch, `out=`) on every shard of 1024x680 on 2x2 (several
+    tiles a plane, cut at the plane's edges) and of configs/dcavity.par's
+    100² on 2x2 (one tile), two chained calls: planes and residual bitwise
+    the plain version's, q untouched."""
+    jmax, imax, dims = grid
+    jl, il = jmax // dims[0], imax // dims[1]
+    g = qd.make_qgeom(jmax, imax, jl, il, n)
+    coef = sk.sor_coefficients(1 / imax, 1 / jmax, 1.9)
+    for s in range(dims[0] * dims[1]):
+        qoffs = (s // dims[1] * jl // 2, s % dims[1] * il // 2)
+        x, f = (_rand((4, g.jq, g.iq), dtype, cuda, 301 + 2 * s + k)
+                for k in (0, 1))
+        xp, yp, xk, out = x.clone(), x.clone(), x.clone(), torch.empty_like(x)
+        for _ in range(2):
+            keep = xk.clone()
+            rk = sq.rb_sor_qdist(xk, f, g, qoffs, *coef, out=out)
+            assert torch.equal(xk, keep)
+            xk, out = out, xk
+            rp = sq.rb_sor_qdist_plain(xp, f, g, qoffs, *coef, out=yp)
+            xp, yp = yp, xp
+        assert torch.equal(xk, xp) and torch.equal(rk, rp)
 
 
 def test_dist_poisson_on_card_matches_cpu(cuda):
@@ -779,13 +810,37 @@ def test_masked_k2_matches_plain(cuda, dtype, shape, n):
     coef = (1.0 / (dx * dx), 1.0 / (dy * dy))
     x = _rand((jmax + 2, imax + 2), dtype, cuda, 91)
     f = _rand((jmax + 2, imax + 2), dtype, cuda, 92)
-    xk, xp = x.clone(), x.clone()
+    xk, xp, yk = x.clone(), x.clone(), x.clone()
     launches = sk.RB_SOR_MASKED.launches
     for _ in range(2):
         rk = sk.rb_sor_checkerboard(xk, f, n, 0.0, *coef, flags=flags,
-                                    omega=1.8)
+                                    omega=1.8, out=yk)
+        xk, yk = yk, xk
         rp = sk.rb_sor_masked_plain(xp, f, flags, n, 1.8, *coef)
     assert sk.RB_SOR_MASKED.launches == launches + 2
+    assert torch.equal(xk, xp) and torch.equal(rk, rp)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [1, 2, 3, 4])
+@pytest.mark.parametrize("shape", [(300, 520), (41, 9)])
+def test_masked_k2_tiles_match_plain(cuda, dtype, n, shape):
+    """Masked K2 (one launch, `out=`) on a field of several tiles, the box
+    across tile edges, and on one smaller than a tile, two chained calls:
+    fields and residual bitwise the plain version's, p untouched."""
+    jmax, imax = shape
+    flags, dx, dy = _obstacle_flags_2d(jmax, imax, cuda)
+    coef = (1.0 / (dx * dx), 1.0 / (dy * dy))
+    x = _rand((jmax + 2, imax + 2), dtype, cuda, 95)
+    f = _rand((jmax + 2, imax + 2), dtype, cuda, 96)
+    xp, xk, out = x.clone(), x.clone(), torch.empty_like(x)
+    for _ in range(2):
+        keep = xk.clone()
+        rk = sk.rb_sor_checkerboard(xk, f, n, 0.0, *coef, flags=flags,
+                                    omega=1.8, out=out)
+        assert torch.equal(xk, keep)
+        xk, out = out, xk
+        rp = sk.rb_sor_masked_plain(xp, f, flags, n, 1.8, *coef)
     assert torch.equal(xk, xp) and torch.equal(rk, rp)
 
 

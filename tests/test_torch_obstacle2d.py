@@ -172,9 +172,9 @@ def test_masked_k2_plain_matches_jax_chain_and_interpret_kernel(n_inner):
             p_j, r1 = jobst.sor_pass_obstacle(p_j, jnp.asarray(rhs), black,
                                               jm, idx2, idy2)
             p_j = neumann_bc(p_j)
-    x = _t(p0)
-    r = sk.rb_sor_checkerboard(x, _t(rhs), n_inner, 0.0, idx2, idy2,
-                               flags=flags, omega=OMEGA)
+    x = torch.empty_like(_t(p0))
+    r = sk.rb_sor_checkerboard(_t(p0), _t(rhs), n_inner, 0.0, idx2, idy2,
+                               flags=flags, omega=OMEGA, out=x)
     np.testing.assert_array_equal(x.numpy(), np.asarray(p_j))
     assert abs(float(r) - float(r0 + r1)) <= 1e-13 * float(r0 + r1)
     rb, br, h = make_rb_iter_tblock(I, J, DX, DY, OMEGA, jnp.float64,
@@ -189,13 +189,15 @@ def test_masked_k2_plain_matches_jax_chain_and_interpret_kernel(n_inner):
 
 
 def test_masked_k2_residual_is_the_ordered_sum():
-    """The plain version's residual is the kernel's fixed order: in each
-    colour launch of the last iteration, block (bx, by) of 32x8 threads
-    sums its threads' r² (thread (tx, ty) holds the colour's cell
-    2·(32·bx + tx) of interior row 8·by + ty, one further on rows that
-    start with the other colour) by a halving tree over 32·ty + tx; then
-    one block of FIN threads adds the red and then the black partials and
-    a halving tree (written out here in numpy)."""
+    """The plain version's residual is the kernel's fixed order: the field
+    is cut into the call's tiles (th x tw, row-major; K15's plan on the
+    field as a block of H = 1); in a tile's CTA thread (tx, ty) of 32 x 16
+    adds the r² of the tile's cells (ty + 16 k, tx + 32 m), k-major (0 on
+    the ring and off the fluid), and a halving tree over 32 ty + tx sums
+    the threads; then thread t of 512 adds partials t, t + 512, ... and a
+    halving tree (written out here in numpy)."""
+    from pampi_tpu_torch.ops import sor_obsdist as sod
+
     flags = obst.make_masks(_fluid(), DX, DY, OMEGA).flags()
     idx2, idy2 = 1.0 / (DX * DX), 1.0 / (DY * DY)
     rng = np.random.default_rng(4)
@@ -203,7 +205,7 @@ def test_masked_k2_residual_is_the_ordered_sum():
     r = sk.rb_sor_masked_plain(p0.clone(), rhs, flags, 1, OMEGA, idx2, idy2)
     fac, lap = sk.masked_stencil_2d(flags, torch.float64, OMEGA, idx2, idy2)
     fluid = flags[1:-1, 1:-1] != 0
-    y, parts = p0.clone(), []
+    y, sq = p0.clone(), np.zeros((J + 2, I + 2))
 
     def tree(v):
         st = len(v) // 2
@@ -216,21 +218,19 @@ def test_masked_k2_residual_is_the_ordered_sum():
         upd = (sk.checkerboard_mask(J, I, parity, torch.uint8) != 0) & fluid
         rr = torch.where(upd, rhs[1:-1, 1:-1] - lap(y), 0.0)
         y[1:-1, 1:-1] = y[1:-1, 1:-1] - fac * rr
-        sq = (rr * rr).numpy()
-        gx, gy = -(-((I + 1) // 2) // 32), -(-J // 8)
-        for by in range(gy):
-            for bx in range(gx):
-                sh = np.zeros(256)
-                for ty in range(8):
-                    for tx in range(32):
-                        jj = 8 * by + ty
-                        ii = 2 * (32 * bx + tx) + (0 if jj % 2 == parity
-                                                   else 1)
-                        if jj < J and ii < I:
-                            sh[32 * ty + tx] = sq[jj, ii]
-                parts.append(tree(sh))
-    s = np.zeros(sk.FIN)
-    s[:len(parts)] = parts
+        sq[1:-1, 1:-1] += (rr * rr).numpy()
+    (pl,) = sod.obsdist_passes(sk.masked_geom(J, I, 1), 8)
+    parts = []
+    for j0 in range(0, J + 2, pl.th):
+        for i0 in range(0, I + 2, pl.tw):
+            acc = np.zeros(512)
+            for j in range(j0, min(j0 + pl.th, J + 2)):
+                for i in range(i0, min(i0 + pl.tw, I + 2)):
+                    acc[32 * ((j - j0) % 16) + (i - i0) % 32] += sq[j, i]
+            parts.append(tree(acc))
+    s = np.zeros(512)
+    for k, v in enumerate(parts):
+        s[k % 512] += v
     assert float(r) == float(tree(s)) > 0
 
 
