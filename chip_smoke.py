@@ -89,14 +89,17 @@ The distributed NS-3D slice (a 3-D mesh of shards driven by one process,
 its eight shards on the one card) adds:
 
 2. the per-shard octant kernel K14 against its plain version, float32 and
-   float64, two calls each, on every shard of 32³ on 2x2x2 and of
-   32x48x64 on 1x2x4 (n = 2), volumes required bitwise, and on a 1x1x1
-   mesh against K6 (volume and residual bitwise); K7/K8 in their
+   float64, two calls each in the `out=` form, on every shard of 32³ on
+   2x2x2 and of 32x48x64 on 1x2x4 (n = 1..4), volumes and residuals
+   required bitwise, and on a 1x1x1 mesh against K6 (volume bitwise,
+   residual to 1e-5 / 1e-12: the two sum in other orders); K7/K8 in their
    distributed mode (K7 on a shard's deep block, K8 on its halo-1 blocks)
    at every shard of 64³ on 2x2x2 with the dcavity3d and canal3d
    boundary sets (copies and maxima bitwise, the rest to the tolerance);
-3. K14 per shard call at 256³ float32 on 2x2x2 (n = 4) and K7/K8
-   distributed per shard call (a 128³ shard of 256³), beside their bounds;
+3. K14 at 256³ on 2x2x2 against its plain version (float32 and float64,
+   n = 1..4, bitwise), K14 per shard call at 256³ float32 (n = 4) with its
+   CUDA launches a call, and K7/K8 distributed per shard call (a 128³
+   shard of 256³), beside their bounds;
 4. configs/dcavity3d.par (128³ float32) with tpu_mesh 2x2x2, itermax 100,
    eps 0, 16 steps after one warm-up through NS3DDistSolver: PRE / solve /
    POST and the exchanges' share of the step from CUDA events, the fields
@@ -154,14 +157,18 @@ The 3-D obstacle slice (configs/canal3d_obstacle.par: a box in a channel,
 flag-field masks) adds:
 
 2. the masked mode of K5 against its plain version (float32 and float64,
-   n = 1 and 4, two calls) on the shipped 128x32x32 flags and on an odd
-   63x47x31 grid with a box, fields and residuals bitwise; K16 against
+   n = 1..4, two calls in the `out=` form) on the shipped 128x32x32
+   flags, on an odd 63x47x31 grid with a box, on a 90x300x40 one of many
+   tiles and slabs and on a 16x12x10 one smaller than a tile, fields and
+   residuals bitwise; K16 against
    its plain version on every shard of 128x32x32 on 2x2x2 (n = 1 and 2,
    two calls), blocks and residuals bitwise, and on 1x1x1 against masked
    K5 (volume and residual bitwise); K7/K8 in flag mode on one device and
    on every shard of 2x2x2 (copies and maxima bitwise, the rest to the
    tolerance);
-3. masked K5 (n = 4) and K7/K8 in flag mode at 512x128x128 float32 and
+3. masked K5 against its plain version at 512x128x128 (float32 and
+   float64, n = 1..4, bitwise), masked K5 (n = 4, with its CUDA launches a
+   call) and K7/K8 in flag mode at 512x128x128 float32 and
    K16 per (128, 128, 512) shard of 1024x256x256 on 2x2x2 (n = 4), beside
    their bounds;
 4. the shipped geometry at 512x128x128 float32 (re 100, tpu_sor_inner 4,
@@ -255,9 +262,10 @@ the card's name and power limit
 from nvidia-smi, and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
-`python3 chip_smoke.py --kernel-times [ROOT]` times only K13, masked K2
-and K15 of the package under ROOT (another checkout: run old, new, new,
-old in one call on the card to compare two) and prints one JSON line.
+`python3 chip_smoke.py --kernel-times [ROOT]` times only K13, masked K2,
+K15, masked K5, K14 and K16 of the package under ROOT (another checkout:
+run old, new, new, old in one call on the card to compare two) and
+prints one JSON line.
 """
 
 import contextlib
@@ -1886,24 +1894,29 @@ def mesh_coords(s, dims):
 
 def check_odist(torch, np, g, qoffs, dtype, seed, calls=2):
     """K14 and its plain version on copies of random stacked volumes at
-    each shard offset, `calls` calls each (ghosts carried across calls).
-    Returns (volumes bitwise, residual rel_err, max_abs_err)."""
+    each shard offset, `calls` calls each in the solvers' form (each call
+    reads one volume and writes the other of a pair, and the two swap;
+    ghosts carried across calls). Returns (volumes bitwise, residuals
+    bitwise, max_abs_err)."""
     from pampi_tpu_torch.ops import sor_odist as so
     from pampi_tpu_torch.ops.sor3d import sor_coefficients_3d
 
     coef = sor_coefficients_3d(1.0 / g.imax, 1.0 / g.jmax, 1.0 / g.kmax, 1.8)
-    bitwise, er, err = True, 0.0, 0.0
+    bitwise, rbit, err = True, True, 0.0
     for k, offs in enumerate(qoffs):
         x, f = rng_fields(torch, np, (8, g.kq, g.jq, g.iq), dtype, 2,
                           seed + k)
-        xk, xp = x.clone(), x.clone()
+        xk = [x.clone(), torch.empty_like(x)]
+        xp = [x.clone(), torch.empty_like(x)]
         for _ in range(calls):
-            rk = so.rb_sor_odist(xk, f, g, offs, *coef)
-            rp = so.rb_sor_odist_plain(xp, f, g, offs, *coef)
-        bitwise = bitwise and torch.equal(xk, xp)
-        er = max(er, abs(float(rk) - float(rp)) / abs(float(rp)))
-        err = max(err, float((xk - xp).abs().max()))
-    return bitwise, er, err
+            rk = so.rb_sor_odist(xk[0], f, g, offs, *coef, xk[1])
+            rp = so.rb_sor_odist_plain(xp[0], f, g, offs, *coef, xp[1])
+            xk.reverse()
+            xp.reverse()
+        bitwise = bitwise and torch.equal(xk[0], xp[0])
+        rbit = rbit and torch.equal(rk, rp)
+        err = max(err, float((xk[0] - xp[0]).abs().max()))
+    return bitwise, rbit, err
 
 
 def step3d_shard(torch, cfg, offs, G, u, v, w, p, dt, flags=(None, None)):
@@ -1997,8 +2010,9 @@ def check_dist3d_kernels(torch, np):
 
     cases = []
     for ext, dims in (((32, 32, 32), (2, 2, 2)), ((32, 48, 64), (1, 2, 4))):
-        g, offs = odist_shards(ext, dims, 2)
-        cases += [(label(ext, dims, g), g, offs, dt) for dt in dtypes]
+        for n in (1, 2, 3, 4):
+            g, offs = odist_shards(ext, dims, n)
+            cases += [(label(ext, dims, g), g, offs, dt) for dt in dtypes]
     # the shard geometries of the distributed main path, in its dtype
     main = dist3d_main_configs()
     for param, dims in main:
@@ -2008,27 +2022,32 @@ def check_dist3d_kernels(torch, np):
         cases.append((f"{param.name} {label(ext, dims, g)}", g, offs,
                       resolve_dtype(param.tpu_dtype)))
     for name, g, offs, dtype in cases:
-        t = tol(torch, dtype)
-        bitwise, er, err = check_odist(torch, np, g, offs, dtype, 81)
-        ok = bitwise and er <= t
+        bitwise, rbit, err = check_odist(torch, np, g, offs, dtype, 81)
+        ok = bitwise and rbit
         log(f"rb_sor_odist {dtype} {name}: volumes bitwise {bitwise}, "
-            f"max_abs_err {err:.3e}, residual rel_err {er:.3e} (tol "
-            f"{t:g}) {'ok' if ok else 'FAIL'}")
+            f"residuals bitwise {rbit}, max_abs_err {err:.3e} "
+            f"{'ok' if ok else 'FAIL'}")
         if not ok:
             bad.append(f"{name} {dtype}")
     steps = []
     for dtype in dtypes:
-        # (1, 1, 1): the shard's volume is K6's stacked octants
+        # (1, 1, 1): the shard's volume is K6's stacked octants, bitwise;
+        # the two residuals sum in other orders
+        rtol = 1e-5 if dtype == torch.float32 else 1e-12
         g = od.make_ogeom(32, 32, 32, 32, 32, 32, 2, dims=(1, 1, 1))
         coef = sor_coefficients_3d(1 / 32, 1 / 32, 1 / 32, 1.8)
         x, f = rng_fields(torch, np, (8, g.kq, g.jq, g.iq), dtype, 2, 91)
-        x14, x6 = x.clone(), x.clone()
+        x14, x6 = [x.clone(), torch.empty_like(x)], x.clone()
         for _ in range(2):
-            r14 = so.rb_sor_odist(x14, f, g, (0, 0, 0), *coef)
+            r14 = so.rb_sor_odist(x14[0], f, g, (0, 0, 0), *coef, x14[1])
+            x14.reverse()
             r6 = sk3.rb_sor3d_octants(x6, f, g.n, *coef)
-        ok = torch.equal(x14, x6) and torch.equal(r14, r6)
+        vol = torch.equal(x14[0], x6)
+        er = abs(float(r14) - float(r6)) / abs(float(r6))
+        ok = vol and er <= rtol
         log(f"rb_sor_odist {dtype} 32³ on 1x1x1 vs rb_sor3d_octants (K6): "
-            f"volume and residual bitwise {ok}")
+            f"volume bitwise {vol}, residual rel_err {er:.3e} (tol {rtol:g})"
+            f" {'ok' if ok else 'FAIL'}")
         if not ok:
             bad.append(f"K14 vs K6 {dtype}")
         for problem, bckw in CASES_3D:
@@ -2061,35 +2080,49 @@ def time_dist3d(torch, np):
     from pampi_tpu_torch.utils.params import Parameter
 
     dims, size = (2, 2, 2), 4
+    bad = []
+    for dtype in (torch.float32, torch.float64):
+        for n in (1, 2, 3, 4):
+            g, qoffs = odist_shards(BIG3, dims, n)
+            bitwise, rbit, err = check_odist(torch, np, g, qoffs, dtype,
+                                             101, 1)
+            if dtype == torch.float32 and n == 4:
+                err4 = err
+            log(f"rb_sor_odist 256³ {dtype} on 2x2x2 ({g.kl}³ shards, "
+                f"n={g.n}) vs plain, every shard: volumes bitwise {bitwise}"
+                f", residuals bitwise {rbit} "
+                f"{'ok' if bitwise and rbit else 'FAIL'}")
+            if not (bitwise and rbit):
+                bad.append(f"{dtype} n={n}")
+    if bad:
+        raise AssertionError(f"K14 differs from its plain version at 256³: "
+                             f"{bad}")
     g, qoffs = odist_shards(BIG3, dims, 4)
-    bitwise, er, err = check_odist(torch, np, g, qoffs, torch.float32, 101, 1)
-    ok = bitwise and er <= tol(torch, torch.float32)
-    log(f"rb_sor_odist 256³ f32 on 2x2x2 ({g.kl}³ shards, n={g.n}) vs plain,"
-        f" every shard: volumes bitwise {bitwise}, residual rel_err "
-        f"{er:.3e} {'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise AssertionError("K14 differs from its plain version at 256³")
     coef = sor_coefficients_3d(1 / BIG3[2], 1 / BIG3[1], 1 / BIG3[0], 1.8)
-    vols = [rng_fields(torch, np, (8, g.kq, g.jq, g.iq), torch.float32, 2,
+    vols = [rng_fields(torch, np, (8, g.kq, g.jq, g.iq), torch.float32, 3,
                        111 + k) for k in range(8)]
 
     def shards(fn):
-        return lambda: [fn(x, f, g, o, *coef)
-                        for (x, f), o in zip(vols, qoffs)]
+        return lambda: [fn(x, f, g, o, *coef, y)
+                        for (x, f, y), o in zip(vols, qoffs)]
 
     ms = cuda_ms(torch, shards(so.rb_sor_odist), 20) / 8
     pms = cuda_ms(torch, shards(so.rb_sor_odist_plain), 2) / 8
+    x, f, y = vols[0]
+    calls = cuda_launches(torch, lambda: so.rb_sor_odist(
+        x, f, g, qoffs[0], *coef, y))
     cells = 8 * g.kq * g.jq * g.iq
     # per shard call: the volume and its rhs read once, the volume written
     # once; ~13 flops per cell update
     b = bound(3 * cells * size, 13 * g.n * g.kl * g.jl * g.il)
     rows = {"rb_sor_odist": dict(
-        max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1],
+        max_abs_err=err4, ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1],
+        cuda_launches_a_call=calls,
         shape=f"{g.kl}³ shard of 256³ on 2x2x2, n={g.n}")}
     log(f"rb_sor_odist 256³ f32 on 2x2x2: {ms:.4f} ms per shard call (plain "
-        f"{pms:.4f}, bound {b[0]:.4f} by {b[1]}), the eight shards on one "
-        f"card")
-    del vols
+        f"{pms:.4f}, bound {b[0]:.4f} by {b[1]}), {launches_text(calls)} "
+        f"CUDA launches a call, the eight shards on one card")
+    del vols, x, f, y
     # K7 on a deep block, K8 on the halo-1 blocks of the (1, 1, 1) shard
     # of 256³ on 2x2x2 (interfaces on three sides, walls on the other
     # three)
@@ -2995,10 +3028,10 @@ def check_cadence_one(torch, np):
     if not (fb and rb):
         bad.append("rb_sor_qdist")
     g, offs = odist_shards((32, 32, 32), (2, 2, 2), 1)
-    bitwise, er, _ = check_odist(torch, np, g, offs, f64, 207)
+    bitwise, rbit, _ = check_odist(torch, np, g, offs, f64, 207)
     log(f"rb_sor_odist f64 n={g.n}, 32³ on 2x2x2: volumes bitwise {bitwise},"
-        f" residual rel_err {er:.3e}")
-    if not (bitwise and er <= 1e-12):
+        f" residuals bitwise {rbit}")
+    if not (bitwise and rbit):
         bad.append("rb_sor_odist")
     if bad:
         raise AssertionError(f"kernels at n = 1 disagree: {bad}")
@@ -3049,18 +3082,21 @@ def inverse_squares(param):
 
 def check_masked_k5(torch, np, param, flags, dtype, n, seed, calls=2):
     """Masked K5 and its plain version on copies of random p, rhs, `calls`
-    calls each. Returns (fields bitwise, residuals bitwise, max_abs_err)."""
+    calls each in the solver's form (each call reads one field and writes
+    the other of a pair, and the two swap). Returns (fields bitwise,
+    residuals bitwise, max_abs_err)."""
     from pampi_tpu_torch.ops import sor3d_kernels as sk3
 
     c = inverse_squares(param)
     x, f = rng_fields(torch, np, tuple(flags.shape), dtype, 2, seed)
-    xk, xp = x.clone(), x.clone()
+    xk, xp = [x.clone(), torch.empty_like(x)], x.clone()
     for _ in range(calls):
-        rk = sk3.rb_sor3d_checkerboard(xk, f, n, 0.0, *c, flags=flags,
-                                       omega=param.omg)
+        rk = sk3.rb_sor3d_checkerboard(xk[0], f, n, 0.0, *c, flags=flags,
+                                       omega=param.omg, out=xk[1])
+        xk.reverse()
         rp = sk3.rb_sor3d_masked_plain(xp, f, flags, n, param.omg, *c)
-    return (torch.equal(xk, xp), torch.equal(rk, rp),
-            float((xk - xp).abs().max()))
+    return (torch.equal(xk[0], xp), torch.equal(rk, rp),
+            float((xk[0] - xp).abs().max()))
 
 
 def check_k16(torch, np, param, fluid, offs, local, n, dtype, seed,
@@ -3144,12 +3180,19 @@ def check_obstacle3d_kernels(torch, np):
     shipped = obstacle_config()  # 128x32x32
     odd = Parameter(name="dcavity3d", imax=63, jmax=47, kmax=31, re=100.0,
                     obstacles="0.3,0.2,0.35,0.7,0.6,0.75")
+    # masked K5 alone: a field of several (j, i) tiles and k slabs, tiles
+    # cut at every face, and one smaller than a tile
+    tiled = Parameter(name="dcavity3d", imax=90, jmax=300, kmax=40,
+                      re=100.0, obstacles="0.3,0.2,0.35,0.7,0.6,0.75")
+    small = Parameter(name="dcavity3d", imax=16, jmax=12, kmax=10,
+                      re=100.0, obstacles="0.3,0.2,0.3,0.7,0.6,0.7")
     grids = [(p, obstacle_fluid(p)) for p in (shipped, odd)]
-    for param, fluid in grids:
+    for param, fluid in grids + [(p, obstacle_fluid(p))
+                                 for p in (tiled, small)]:
         flags = torch.from_numpy(fluid.astype(np.uint8)).to("cuda")
         shape = f"{param.imax}x{param.jmax}x{param.kmax}"
         for dtype in dtypes:
-            for n in (1, 4):
+            for n in (1, 2, 3, 4):
                 fb, rb, err = check_masked_k5(torch, np, param, flags, dtype,
                                               n, 151)
                 log(f"rb_sor3d_checkerboard masked {dtype} {shape} n={n}, "
@@ -3157,6 +3200,10 @@ def check_obstacle3d_kernels(torch, np):
                     f", max_abs_err {err:.3e} {'ok' if fb and rb else 'FAIL'}")
                 if not (fb and rb):
                     bad.append(f"masked K5 {shape} {dtype} n={n}")
+    for param, fluid in grids:
+        flags = torch.from_numpy(fluid.astype(np.uint8)).to("cuda")
+        shape = f"{param.imax}x{param.jmax}x{param.kmax}"
+        for dtype in dtypes:
             t = tol(torch, dtype)
             u, v, w, pp = rng_fields(torch, np, tuple(flags.shape), dtype, 4,
                                      157)
@@ -3198,14 +3245,16 @@ def check_obstacle3d_kernels(torch, np):
         flags5 = torch.from_numpy(fluid.astype(np.uint8)).to("cuda")
         c = inverse_squares(param)
         x, f = rng_fields(torch, np, tuple(flags5.shape), dtype, 2, 171)
-        x5, xd = x.clone(), embed_deep(x, g.H).contiguous()
-        fd = embed_deep(f, g.H).contiguous()
+        x5, xd = [x.clone(), torch.empty_like(x)], embed_deep(x, g.H)
+        xd, fd = xd.contiguous(), embed_deep(f, g.H).contiguous()
         for _ in range(2):
             r16 = sod3.rb_sor_obsdist3d(xd, fd, flags16, g, (0, 0, 0),
                                         param.omg, *c)
-            r5 = sk3.rb_sor3d_checkerboard(x5, f, g.n, 0.0, *c, flags=flags5,
-                                           omega=param.omg)
-        ok = torch.equal(strip_deep(xd, g.H), x5) and torch.equal(r16, r5)
+            r5 = sk3.rb_sor3d_checkerboard(x5[0], f, g.n, 0.0, *c,
+                                           flags=flags5, omega=param.omg,
+                                           out=x5[1])
+            x5.reverse()
+        ok = torch.equal(strip_deep(xd, g.H), x5[0]) and torch.equal(r16, r5)
         log(f"rb_sor_obsdist3d {dtype} 128x32x32 on 1x1x1 (n=2) vs masked "
             f"K5, two calls: volume and residual bitwise {ok}")
         if not ok:
@@ -3236,25 +3285,43 @@ def time_obstacle3d(torch, np):
     K, J, I = (n - 2 for n in flags.shape)
     shape = f"{I}x{J}x{K}"
     c = inverse_squares(param)
-    fb, rb, err = check_masked_k5(torch, np, param, flags, torch.float32, 4,
-                                  191, calls=1)
-    if not (fb and rb):
+    bad = []
+    for dtype in (torch.float32, torch.float64):
+        for n in (1, 2, 3, 4):
+            fb, rb, e = check_masked_k5(torch, np, param, flags, dtype, n,
+                                        191, calls=1)
+            if dtype == torch.float32 and n == 4:
+                err = e
+            log(f"rb_sor3d_checkerboard masked {dtype} {shape} n={n} vs "
+                f"plain: field bitwise {fb}, residual bitwise {rb} "
+                f"{'ok' if fb and rb else 'FAIL'}")
+            if not (fb and rb):
+                bad.append(f"{dtype} n={n}")
+    if bad:
         raise AssertionError(f"masked K5 differs from its plain version at "
-                             f"{shape}")
-    x, f = rng_fields(torch, np, tuple(flags.shape), torch.float32, 2, 193)
-    ms = cuda_ms(torch, lambda: sk3.rb_sor3d_checkerboard(
-        x, f, 4, 0.0, *c, flags=flags, omega=param.omg), 20)
+                             f"{shape}: {bad}")
+    x, f, y = rng_fields(torch, np, tuple(flags.shape), torch.float32, 3,
+                         193)
+
+    def masked():
+        return sk3.rb_sor3d_checkerboard(x, f, 4, 0.0, *c, flags=flags,
+                                         omega=param.omg, out=y)
+
+    ms = cuda_ms(torch, masked, 20)
     pms = cuda_ms(torch, lambda: sk3.rb_sor3d_masked_plain(
         x, f, flags, 4, param.omg, *c), 2)
+    calls = cuda_launches(torch, masked)
     # p and rhs read, p written, the flags read once: 13 bytes a cell;
     # ~33 flops a cell update
     b = bound(13 * cells, 33 * 4 * K * J * I)
     rows["rb_sor3d_checkerboard_masked"] = dict(
         max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1],
+        cuda_launches_a_call=calls,
         shape=f"{shape} f32, n=4, the box of canal3d_obstacle.par")
     log(f"rb_sor3d_checkerboard masked {shape} f32 n=4: {ms:.4f} ms per call"
-        f" (plain {pms:.4f}, bound {b[0]:.4f} by {b[1]})")
-    del x, f
+        f" (plain {pms:.4f}, bound {b[0]:.4f} by {b[1]}), "
+        f"{launches_text(calls)} CUDA launches a call")
+    del x, f, y
     # K7/K8 in flag mode on the same grid
     pk = obstacle_config(**OBST_MAIN, tpu_dtype="float32")
     cfg = nf3.StepConfig3D.from_param(pk)
@@ -4102,11 +4169,12 @@ def time_sor_cli(torch, np):
 
 
 def kernel_times(root) -> int:
-    """--kernel-times [ROOT]: K13, masked K2 and K15 of the package under
-    ROOT (default: this checkout) at their timed shapes and the CLI's
-    float64 shapes, each called as that checkout's solvers call it (with
-    `out=` where its wrapper takes it): device ms a call (CUDA events over
-    back-to-back calls) and CUDA launches a call (torch.profiler's trace).
+    """--kernel-times [ROOT]: K13, masked K2 and K15, masked K5, K14 and
+    K16 of the package under ROOT (default: this checkout) at their timed
+    shapes and the CLI's shapes (kernel_times_3d), each called as that
+    checkout's solvers call it (with `out=` where its wrapper takes it):
+    device ms a call (CUDA events over back-to-back calls) and CUDA
+    launches a call (torch.profiler's trace).
     Prints the card and one JSON line. Run it for two checkouts in one
     call on the card, in the order old, new, new, old, to compare them."""
     import inspect
@@ -4169,11 +4237,83 @@ def kernel_times(root) -> int:
         x, f, fl, g, (1366, 0), 1.9, 4096.0 ** 2, 4096.0 ** 2, out=y)], 50,
         "1366x4096 shard (deep 1384x4114) of 4096² on 3x1, n=4, float32, "
         "all fluid")
+    del x, f, y, fl
+    out.update(kernel_times_3d(torch, np, with_out, row))
     log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
                        text=True).stdout.strip())
     print(json.dumps({"root": os.path.abspath(root), **out}))
     return 0
+
+
+def kernel_times_3d(torch, np, with_out, row):
+    """kernel_times' 3-D rows: masked K5 at 512x128x128 float32, n = 4,
+    and at configs/canal3d_obstacle.par's 128x32x32 float64, n = 1; K14
+    per 128³ shard of 256³ on 2x2x2 float32, n = 4, and on the shards of
+    configs/dcavity3d.par on 2x2x2 (64³, float32 at its cadence and
+    float64 at n = 1); masked K5's and K14's rows with their bounds; K16
+    per (128, 128, 512) shard of 1024x256x256 on 2x2x2 float32, n = 4."""
+    from pampi_tpu_torch.models.ns3d_dist import NS3DDistSolver
+    from pampi_tpu_torch.ops import sor3d_kernels as sk3
+    from pampi_tpu_torch.ops import sor_obsdist3d as sod3
+    from pampi_tpu_torch.ops import sor_odist as so
+    from pampi_tpu_torch.ops.sor3d import sor_coefficients_3d
+    from pampi_tpu_torch.parallel.comm import CartComm
+
+    f32, f64, out = torch.float32, torch.float64, {}
+    for key, param, dtype, n, reps in (
+            ("k5m_512x128x128_f32_n4", obstacle_config(**OBST_MAIN), f32, 4,
+             20),
+            ("k5m_canal3d_obstacle_f64_n1", obstacle_config(), f64, 1, 500)):
+        flags = torch.from_numpy(obstacle_fluid(param).astype(
+            np.uint8)).to("cuda")
+        c = inverse_squares(param)
+        x, f, y = rng_fields(torch, np, tuple(flags.shape), dtype, 3, 41)
+        kw = with_out(sk3.rb_sor3d_checkerboard, y)
+        label = (f"canal3d_obstacle.par geometry at {param.imax}x"
+                 f"{param.jmax}x{param.kmax}, n={n}, {dtype}")
+        # p, rhs and the flags read, p written
+        b = bound((3 * x.element_size() + 1) * flags.numel(), 0)[0]
+        out[key] = {**row([lambda: sk3.rb_sor3d_checkerboard(
+            x, f, n, 0.0, *c, flags=flags, omega=param.omg, **kw)], reps,
+            label), "bound_ms": b}
+        del x, f, y, flags
+    cases = [("k14_256_2x2x2_f32_n4", odist_shards(BIG3, (2, 2, 2), 4), f32,
+              sor_coefficients_3d(1 / 256, 1 / 256, 1 / 256, 1.8), 20)]
+    for dtype in (f32, f64):
+        param = config("dcavity3d.par", tpu_mesh="2x2x2",
+                       tpu_dtype=str(dtype).split(".")[1])
+        s = NS3DDistSolver(param, CartComm(ndims=3, dims=(2, 2, 2)))
+        cases.append((f"k14_dcavity3d_2x2x2_f{str(dtype)[-2:]}_n{s._og.n}",
+                      (s._og, [tuple(o // 2 for o in off) for off in s.offs]),
+                      dtype, s._coef, 200))
+        del s
+    for key, (g, qoffs), dtype, coef, reps in cases:
+        vols = [rng_fields(torch, np, (8, g.kq, g.jq, g.iq), dtype, 3, 51 + k)
+                for k in range(len(qoffs))]
+        calls = [lambda x=x, f=f, o=o, kw=with_out(so.rb_sor_odist, y):
+                 so.rb_sor_odist(x, f, g, o, *coef, **kw)
+                 for (x, f, y), o in zip(vols, qoffs)]
+        label = f"{g.kl}x{g.jl}x{g.il} shard, volume {(8, g.kq, g.jq, g.iq)}"
+        label += f", n={g.n}, {dtype}"
+        # the volume and its rhs read, the volume written
+        b = bound(3 * vols[0][0].numel() * vols[0][0].element_size(), 0)[0]
+        out[key] = {**row(calls, reps, label), "bound_ms": b}
+        del vols, calls
+    big = obstacle_config(**OBST_K16)
+    local = (big.kmax // 2, big.jmax // 2, big.imax // 2)
+    g = sod3.ObsGeom3(big.kmax, big.jmax, big.imax, *local, 4)
+    flags = shard_flags(obstacle_fluid(big), local, local, g.H)
+    x, f, y = rng_fields(torch, np, g.shape, f32, 3, 71)
+    c = inverse_squares(big)
+    out["k16_1024x256x256_2x2x2_f32_n4"] = row(
+        [lambda: sod3.rb_sor_obsdist3d(x, f, flags, g, local, big.omg, *c,
+                                       out=y)], 20,
+        f"(128, 128, 512) shard of 1024x256x256 on 2x2x2, deep {g.shape}, "
+        f"n=4, float32")
+    del x, f, y, flags
+    torch.cuda.empty_cache()
+    return out
 
 
 def check_not_launched_2d(counts, label):

@@ -34,8 +34,9 @@
 // a uniform shift of a dense array, so a thread updates the same index of
 // its colour's four octants with unit-stride, coalesced reads, and the
 // Neumann refresh is 24 same-index plane copies in one launch. Temporal
-// blocking (several iterations per pass through memory, as the TPU kernels
-// do) is later work.
+// blocking of these two (several iterations per pass through memory, as
+// the TPU kernels do) is later work; the masked mode below streams its
+// passes through shared memory.
 //
 // Arithmetic keeps the reference association term for term:
 //   r = rhs - ((e - 2c + w)*idx2 + (n - 2c + s)*idy2 + (b - 2c + f)*idz2)
@@ -57,17 +58,45 @@
 //                    + (eps_b*(b - c) + eps_f*(f - c))*idz2),
 //     p     = c - fac*r.
 //   The flags add 1 byte a cell: the bound is 13 bytes a cell at float32
-//   (p and rhs read, p written, the flags read). Its residual takes a
-//   fixed order that a plain PyTorch version can repeat bit for bit: on
-//   the last iteration each cell of a colour writes r^2 (0 on an
-//   obstacle) into an interior-sized buffer, one thread per (k, j) row
-//   sums its row from i = 1 up, and one block sums the rows as
-//   sum_partials does (ops/sor_kernels.ordered_r2_sum is the plain
-//   form). The per-shard kernel K16 (sor_obsdist3d.cu) reduces its owned
-//   cells the same way, so on a one-shard mesh the two residuals agree
-//   bitwise. The buffer costs one extra write and read of a field per
-//   call, on the last iteration only.
+//   (p and rhs read, p written, the flags read; 0.0337 ms at 512x128x128,
+//   whatever n is).
+//
+//   Design of the masked mode: K16's streaming (csrc/sor_obsdist3d.cu) on
+//   the whole field, one iteration a pass, one launch each (a call of n
+//   iterations runs n passes; of the depths m = 1, 2, 4 iterations a pass
+//   measured on the card, m = 1 was fastest: a pass moves about the bound,
+//   and the ring and the halo, 2m + 1 cells a side, grow with m; PERF.md
+//   §6). The field is cut into owned (j, i) tiles, 32 columns wide,
+//   and k slabs that partition it, wall shell included (ops/sor3d_kernels.
+//   masked_tiles); a CTA, two an SM, streams its tile's box (the tile and
+//   3 cells a side, clipped to the field) along k through a ring of 5
+//   planes of p, rhs and the flags in shared memory: the 4 planes that the
+//   two colour stages read and the next one, in flight while the stages
+//   run (p and rhs by cp.async, a cell a copy; the flag bytes in
+//   registers until the next step). The odd stage runs one plane behind
+//   the newest, the even one two, followed on its plane by the j/i wall
+//   selects and, on planes 1 and K, the k-face ones.
+//   The box's shell stays frozen where it lies inside the field (its cells
+//   are not owned); where it is the field's wall shell, the edge tiles
+//   write it, edges and corners untouched, as cb3_neumann does. It reads p
+//   and writes out (out of place: a CTA reads its neighbours' cells while
+//   they write); p is never written. A cell whose own flag and six
+//   neighbours' are all 1 skips the eps products (the same bits). The
+//   residual keeps its fixed order, which a plain PyTorch version can
+//   repeat bit for bit: the last pass writes each owned interior cell's
+//   r^2 (0 on an obstacle) into an interior-sized buffer, and one launch
+//   (r2_total) sums each (k, j) row from i = 1 up, staged through shared
+//   memory so its loads coalesce, and its last block (an integer ticket)
+//   sums the rows as sum_partials does (ops/sor_kernels.ordered_r2_sum is
+//   the plain form). The per-shard kernel K16 reduces its owned cells the
+//   same way, so on a one-shard mesh the two residuals agree bitwise.
+//   Launches a call: n + 1. What bounds it: a CTA's plane steps, each
+//   ~5 us on the H100 whatever the box (1.6x the field streamed at
+//   512x128x128, tiles and slabs together); neither the copies' issue nor
+//   the memory's latency sets that cost (copying 16-byte blocks, and
+//   fetching two planes ahead, made the pass slower: PERF.md §6).
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -134,52 +163,288 @@ __global__ void cb3_color(T* __restrict__ p, const T* __restrict__ rhs, int K,
   if (partial != nullptr) write_partial(rr, sh, partial);
 }
 
-// one colour of the masked mode, in place (cb3_color's mapping); on the
-// last iteration (r2 != nullptr) every cell of the colour writes its r^2
-// at its interior index, 0 on an obstacle cell
-template <typename T>
-__global__ void cb3m_color(T* __restrict__ p, const T* __restrict__ rhs,
-                           const uint8_t* __restrict__ fl, int K, int J,
-                           int I, int par, T omega, T idx2, T idy2, T idz2,
-                           T* __restrict__ r2) {
-  const size_t W = I + 2;
-  const size_t P = (size_t)(J + 2) * W;
-  const int k = 1 + blockIdx.z;
-  const int j = 1 + blockIdx.y * BY + threadIdx.y;
-  const int t = blockIdx.x * BX + threadIdx.x;
-  if (j > J) return;
-  const int i = (((1 + j + k) & 1) == par ? 1 : 2) + 2 * t;
-  if (i > I) return;
-  const size_t x = k * P + j * W + i;
-  T rr = T(0);
-  if (fl[x] != 0) {
-    const T ee = T(fl[x + 1]), ew = T(fl[x - 1]);
-    const T en = T(fl[x + W]), es = T(fl[x - W]);
-    const T eb = T(fl[x + P]), ef = T(fl[x - P]);
-    const T denom = (ee + ew) * idx2 + (en + es) * idy2 + (eb + ef) * idz2;
-    const T fac = (denom > T(0) ? omega / denom : T(0)) * T(fl[x]);
-    const T c = p[x];
-    const T lap = (ee * (p[x + 1] - c) + ew * (p[x - 1] - c)) * idx2 +
-                  (en * (p[x + W] - c) + es * (p[x - W] - c)) * idy2 +
-                  (eb * (p[x + P] - c) + ef * (p[x - P] - c)) * idz2;
-    const T r = rhs[x] - lap;
-    p[x] = c - fac * r;
-    rr = r * r;
+// ---- the masked mode: streamed passes ----------------------------------
+
+constexpr int MTX = 32;  // a warp takes 32 columns of a row pair
+constexpr int HT5 = 3;   // the tiles' halo (ops/sor3d_kernels.HALO5)
+constexpr int RS5 = 4;   // ring planes that the two colour stages read
+constexpr int NS5 = 5;   // and the next one, in flight (RING5)
+
+struct MGeom {
+  int ek, ej, ei;  // the field: K + 2, J + 2, I + 2
+  int tk, tj, ti;  // owned tile extents
+  int rows;        // rows of a ring plane (the largest box's j)
+  int P, Pf;       // row pitches: p and rhs (elements), flags (bytes)
+};
+
+// One iteration of the masked mode on the box of one owned tile, read from
+// p, the tile's cells written into out. The ring holds NS5 planes of p,
+// rhs and the flags: the RS5 that the two colour stages read and the next
+// one, whose p and rhs arrive by cp.async while the stages run (its flags,
+// bytes that cp.async cannot take one by one, in flight in registers).
+// TY rows of MTX threads; thread (tx, ty) owns column b = tx of the box
+// (at most MTX wide) and the row pairs a0 = 2 (ty + TY kk), a0 + 1, kk <
+// KK, of every plane: it loads them, updates them in both colours (in one
+// step both stages take the same row of a pair, as the plane's parity and
+// the colour change together, so neighbouring lanes read neighbouring
+// words) and writes them out. On the last pass (r2 != nullptr) each owned
+// interior cell writes its r^2 (0 on an obstacle) at its interior index.
+template <typename T, int TY, int KK, int MINB>
+__global__ void __launch_bounds__(MTX * TY, MINB)
+cb3m_pass(const T* __restrict__ p, const T* __restrict__ rhs,
+          const uint8_t* __restrict__ fl, T* __restrict__ out, MGeom g,
+          T omega, T idx2, T idy2, T idz2, T* __restrict__ r2) {
+  constexpr int RS = RS5, NS = NS5, NT = MTX * TY;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int P = g.P, Pf = g.Pf;
+  const int PS = g.rows * P, PSF = g.rows * Pf;
+  T* sp = reinterpret_cast<T*>(smem);
+  T* sr = sp + (size_t)NS * PS;
+  uint8_t* sf = reinterpret_cast<uint8_t*>(sr + (size_t)NS * PS);
+  const int b = threadIdx.x, tid = threadIdx.y * MTX + b;
+  const int K = g.ek - 2, J = g.ej - 2, I = g.ei - 2;
+  // the owned tile and its box (the tile and ht cells a side, clipped)
+  const int k0 = blockIdx.z * g.tk, k1 = min(g.ek, k0 + g.tk);
+  const int j0 = blockIdx.y * g.tj, j1 = min(g.ej, j0 + g.tj);
+  const int i0 = blockIdx.x * g.ti, i1 = min(g.ei, i0 + g.ti);
+  const int bk0 = max(0, k0 - HT5), KB = min(g.ek, k1 + HT5) - bk0;
+  const int bj0 = max(0, j0 - HT5), R = min(g.ej, j1 + HT5) - bj0;
+  const int bi0 = max(0, i0 - HT5), W = min(g.ei, i1 + HT5) - bi0;
+  const size_t SW = g.ei, SP = (size_t)g.ej * g.ei;
+  // the cells that update: off the box's shell (which stays frozen where
+  // it lies inside the field, and is the wall shell where it does not),
+  // in the interior: box rows 1..ahi, columns 1..bhi, planes 1..qhi
+  const int ahi = min(R - 2, J - bj0), bhi = min(W - 2, I - bi0);
+  const int qhi = min(KB - 2, K - bk0);
+  // the tile's cells in box coordinates
+  const int ta0 = j0 - bj0, ta1 = j1 - bj0, tb0 = i0 - bi0, tb1 = i1 - bi0;
+  const int tq0 = k0 - bk0, tq1 = k1 - bk0;
+  const bool col = b < W, tcol = b >= tb0 && b < tb1;
+  const bool ucol = b >= 1 && b <= bhi;  // the column updates
+  // box plane q's p and rhs into ring slot `slot` by cp.async, its flags
+  // into registers, one byte each, untouched until the next step (zeroed:
+  // a loop-carried register array left uninitialised was miscompiled)
+  unsigned vf[KK][2] = {};
+  auto fetch = [&](int q, int slot) {
+    const size_t x0 = (size_t)(bk0 + q) * SP + (size_t)bj0 * SW + bi0 + b;
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int a = 2 * (threadIdx.y + TY * kk) + r;
+        if (!col || a >= R) continue;
+        const size_t x = x0 + (size_t)a * SW;
+        const int y = slot * PS + a * P + b;
+        vf[kk][r] = fl[x];
+        __pipeline_memcpy_async(sp + y, p + x, sizeof(T));
+        __pipeline_memcpy_async(sr + y, rhs + x, sizeof(T));
+      }
+  };
+  // fac of a fluid cell whose six neighbours are fluid (all flags 1),
+  // formed as every cell's is
+  const T f1 = T(1u);
+  const T denom_one = (f1 + f1) * idx2 + (f1 + f1) * idy2 + (f1 + f1) * idz2;
+  const T fac_one = (denom_one > T(0) ? omega / denom_one : T(0)) * f1;
+  fetch(0, 0);
+  __pipeline_commit();
+  // the last stage runs in step KB + 1 (on plane KB - 1); the planes that
+  // have not left the ring by then go out after the loop
+  const int ZE = KB + 2;
+  for (int z = 0, zs = 0; z < ZE; ++z, zs = zs == NS - 1 ? 0 : zs + 1) {
+    // zs = z % NS: plane z's slot. Its flags go in from the registers;
+    // then, once its p and rhs have landed and every thread is past step
+    // z - 1, the plane z - RS leaves the ring for out (its last read and
+    // write came in step z - 1) from the slot that plane z + 1 then takes
+    if (z < KB) {
+#pragma unroll
+      for (int kk = 0; kk < KK; ++kk)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int a = 2 * (threadIdx.y + TY * kk) + r;
+          if (col && a < R) sf[zs * PSF + a * Pf + b] = (uint8_t)vf[kk][r];
+        }
+    }
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    const int so = zs == NS - 1 ? 0 : zs + 1;
+    {
+      const int qo = z - RS;
+      if (qo >= tq0 && qo < tq1 && tcol) {
+        const size_t xo = (size_t)(bk0 + qo) * SP + (size_t)bj0 * SW + bi0 + b;
+#pragma unroll
+        for (int kk = 0; kk < KK; ++kk)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int a = 2 * (threadIdx.y + TY * kk) + r;
+            if (a >= ta0 && a < ta1)
+              out[xo + (size_t)a * SW] = sp[so * PS + a * P + b];
+          }
+      }
+    }
+    if (z + 1 < KB) fetch(z + 1, so);
+    __pipeline_commit();
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      // stage s: colour odd (s = 0) or even (s = 1) on plane q = z - 1 - s
+      const int q = z - 1 - s;
+      const bool on = q >= 1 && q <= qhi;
+      int sq = zs - 1 - s;  // ring slots of planes q, q - 1, q + 1
+      if (sq < 0) sq += NS;
+      const int sm = sq == 0 ? NS - 1 : sq - 1;
+      const int sn = sq == NS - 1 ? 0 : sq + 1;
+      T* cp = sp + sq * PS;
+      if (on && ucol) {
+        const T* cm = sp + sm * PS;
+        const T* cq = sp + sn * PS;
+        const uint8_t* fq = sf + sq * PSF;
+        const bool last = r2 != nullptr && q >= tq0 && q < tq1 && tcol;
+        // the row of each pair in the stage's colour
+        const int rz = (z + bk0 + bj0 + bi0 + b) & 1;
+#pragma unroll
+        for (int kk = 0; kk < KK; ++kk) {
+          const int a = 2 * (threadIdx.y + TY * kk) + rz;
+          if (a < 1 || a > ahi) continue;
+          const int x = a * P + b, xf = a * Pf + b;
+          const unsigned fc = fq[xf];
+          T rr = T(0);
+          if (fc != 0) {
+            const unsigned fe = fq[xf + 1], fw = fq[xf - 1],
+                           fn = fq[xf + Pf], fs = fq[xf - Pf],
+                           fb = sf[sn * PSF + xf], ff = sf[sm * PSF + xf];
+            const T cv = cp[x];
+            const T de = cp[x + 1] - cv, dw = cp[x - 1] - cv;
+            const T dn = cp[x + P] - cv, ds = cp[x - P] - cv;
+            const T db = cq[x] - cv, df = cm[x] - cv;
+            T lap, fac;
+            // all seven flags 1: eps*d is d, the same bits
+            if (((fc ^ 1u) | (fe ^ 1u) | (fw ^ 1u) | (fn ^ 1u) | (fs ^ 1u) |
+                 (fb ^ 1u) | (ff ^ 1u)) == 0) {
+              fac = fac_one;
+              lap = (de + dw) * idx2 + (dn + ds) * idy2 + (db + df) * idz2;
+            } else {
+              const T ee = T(fe), ew = T(fw), en = T(fn), es = T(fs);
+              const T eb = T(fb), ef = T(ff);
+              const T denom =
+                  (ee + ew) * idx2 + (en + es) * idy2 + (eb + ef) * idz2;
+              fac = (denom > T(0) ? omega / denom : T(0)) * T(fc);
+              lap = (ee * de + ew * dw) * idx2 + (en * dn + es * ds) * idy2 +
+                    (eb * db + ef * df) * idz2;
+            }
+            const T res = sr[sq * PS + x] - lap;
+            cp[x] = cv - fac * res;
+            rr = res * res;
+          }
+          if (last && a >= ta0 && a < ta1)
+            r2[((size_t)(bk0 + q - 1) * J + (bj0 + a - 1)) * I + bi0 + b -
+               1] = rr;
+        }
+      }
+      __syncthreads();
+      if (on && s == 1) {
+        // the wall selects that follow plane q's even stage: the j and i
+        // faces on the plane, and the k face 0 (K + 1) from 1 (K); each
+        // copies its inward interior neighbour, clipped tangentially to
+        // the interior. A face row or column that the box holds lies on
+        // the field's wall shell (an edge tile's), else off the box. No
+        // barrier before the next stage: it reads only interior cells of
+        // this plane, and the k faces' planes do not update.
+        const int nrow = max(0, bhi), ncol = max(0, ahi);
+        for (int u = tid; u < 2 * (nrow + ncol); u += NT) {
+          int a, bb, src;
+          if (u < 2 * nrow) {
+            const int hi = u >= nrow;
+            a = hi ? J + 1 - bj0 : -bj0;
+            bb = 1 + u - hi * nrow;
+            if (a < 0 || a >= R) continue;
+            src = (hi ? a - 1 : a + 1) * P + bb;
+          } else {
+            const int v = u - 2 * nrow, hi = v >= ncol;
+            bb = hi ? I + 1 - bi0 : -bi0;
+            a = 1 + v - hi * ncol;
+            if (bb < 0 || bb >= W) continue;
+            src = a * P + (hi ? bb - 1 : bb + 1);
+          }
+          cp[a * P + bb] = cp[src];
+        }
+        // the k faces: each thread its own cells, as it writes them out
+        const int gk = bk0 + q;
+#pragma unroll
+        for (int side = 0; side < 2; ++side) {
+          if (gk != (side == 0 ? 1 : K) || !ucol) continue;
+          T* cd = sp + (side == 0 ? sm : sn) * PS;
+#pragma unroll
+          for (int kk = 0; kk < KK; ++kk)
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const int a = 2 * (threadIdx.y + TY * kk) + r;
+              if (a >= 1 && a <= ahi) cd[a * P + b] = cp[a * P + b];
+            }
+        }
+      }
+    }
   }
-  if (r2 != nullptr)
-    r2[((size_t)(k - 1) * J + (j - 1)) * I + (i - 1)] = rr;
+  __syncthreads();
+  for (int qo = max(0, ZE - RS); qo < KB; ++qo) {
+    if (qo < tq0 || qo >= tq1 || !tcol) continue;
+    const size_t xo = (size_t)(bk0 + qo) * SP + (size_t)bj0 * SW + bi0 + b;
+    const int so = qo % NS;
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int a = 2 * (threadIdx.y + TY * kk) + r;
+        if (a >= ta0 && a < ta1)
+          out[xo + (size_t)a * SW] = sp[so * PS + a * P + b];
+      }
+  }
 }
 
-// out[row] = the sum of the row's n values from the first up
+// The residual of the last pass, one launch: block b sums the rows 32 b ..
+// 32 b + 31 of v (rows x n) from their first value up, 32 columns at a time
+// staged through shared memory so that its loads coalesce (lane r of the
+// first warp sums row r), into rsum; the last block to take the ticket
+// sums the rows as sum_partials does (thread t adds rows t, t + FIN, ...,
+// then the halving tree) into res[0] and resets the ticket
 template <typename T>
-__global__ void row_sums(const T* __restrict__ v, int rows, int n,
-                         T* __restrict__ out) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= rows) return;
-  const T* a = v + (size_t)r * n;
+__global__ void __launch_bounds__(FIN)
+r2_total(const T* __restrict__ v, int rows, int n, T* __restrict__ rsum,
+         unsigned* __restrict__ ticket, T* __restrict__ res) {
+  __shared__ T sh[32][33];
+  __shared__ T tree[FIN];
+  __shared__ bool last_block;
+  const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * 32 + tx;
+  const int r0 = blockIdx.x * 32;
   T s = T(0);
-  for (int i = 0; i < n; ++i) s += a[i];
-  out[r] = s;
+  for (int c0 = 0; c0 < n; c0 += 32) {
+    const int r = r0 + ty, c = c0 + tx;
+    sh[ty][tx] = r < rows && c < n ? v[(size_t)r * n + c] : T(0);
+    __syncthreads();
+    if (ty == 0) {
+      const int m = min(32, n - c0);
+      for (int cc = 0; cc < m; ++cc) s += sh[tx][cc];
+    }
+    __syncthreads();
+  }
+  if (ty == 0 && r0 + tx < rows) {
+    rsum[r0 + tx] = s;
+    __threadfence();
+  }
+  __syncthreads();
+  if (tid == 0) last_block = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last_block) return;
+  T a = T(0);
+  for (int k = tid; k < rows; k += FIN) a += __ldcg(rsum + k);
+  tree[tid] = a;
+  __syncthreads();
+  for (int st = FIN / 2; st > 0; st >>= 1) {
+    if (tid < st) tree[tid] += tree[tid + st];
+    __syncthreads();
+  }
+  if (tid == 0) {
+    res[0] = tree[0];
+    *ticket = 0u;
+  }
 }
 
 // the six Neumann faces; blockIdx.z picks the axis (0: front/back, 1:
@@ -359,26 +624,48 @@ int run_checkerboard3d(int dev, T* p, const T* rhs, int K, int J, int I,
   return (int)cudaGetLastError();
 }
 
+template <typename T, int TY, int KK, int MINB>
+cudaError_t launch_masked_pass(const T* p, const T* rhs, const uint8_t* fl,
+                               T* out, const MGeom& g, int smem,
+                               double omega, double idx2, double idy2,
+                               double idz2, T* r2, cudaStream_t st) {
+  cudaError_t e = cudaFuncSetAttribute(
+      cb3m_pass<T, TY, KK, MINB>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grd(ceil_div(g.ei, g.ti), ceil_div(g.ej, g.tj),
+                 ceil_div(g.ek, g.tk));
+  cb3m_pass<T, TY, KK, MINB><<<grd, dim3(MTX, TY), smem, st>>>(
+      p, rhs, fl, out, g, T(omega), T(idx2), T(idy2), T(idz2), r2);
+  return cudaGetLastError();
+}
+
+// one pass of the masked mode (geo: ops/sor3d_kernels.masked_geometry)
+// and, on the last pass (r2 != nullptr), the residual's one launch. Two
+// CTAs an SM, each of 16 rows of threads with 3 row pairs at float32
+// (boxes of up to 96 rows) or 2 at float64 (64 rows)
 template <typename T>
-int run_masked3d(int dev, T* p, const T* rhs, const uint8_t* fl, int K,
-                 int J, int I, int n_inner, double omega, double idx2,
-                 double idy2, double idz2, T* r2, T* rows, T* out,
-                 cudaStream_t st) {
+int run_masked3d(int dev, const T* p, const T* rhs, const uint8_t* fl,
+                 T* out, const int* geo, double omega, double idx2,
+                 double idy2, double idz2, T* r2, T* rsum, unsigned* ticket,
+                 T* res, cudaStream_t st) {
+  constexpr int TY = 16, KK = sizeof(T) == 4 ? 3 : 2;
   cudaError_t e = cudaSetDevice(dev);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grd = cb3_grid(K, J, I);
-  const dim3 blk(BX, BY);
-  const dim3 ngrd(ceil_div(I > J ? I : J, BX), ceil_div(J > K ? J : K, BY), 3);
-  for (int t = 0; t < n_inner; ++t) {
-    T* last = t == n_inner - 1 ? r2 : nullptr;
-    cb3m_color<T><<<grd, blk, 0, st>>>(p, rhs, fl, K, J, I, 1, T(omega),
-                                       T(idx2), T(idy2), T(idz2), last);
-    cb3m_color<T><<<grd, blk, 0, st>>>(p, rhs, fl, K, J, I, 0, T(omega),
-                                       T(idx2), T(idy2), T(idz2), last);
-    cb3_neumann<T><<<ngrd, blk, 0, st>>>(p, K, J, I);
+  const MGeom g{geo[0], geo[1], geo[2], geo[3], geo[4],
+                geo[5], geo[6], geo[7], geo[8]};
+  const int smem = geo[9];
+  // the box must fit the threads' columns and row pairs
+  if (g.rows > 2 * TY * KK || min(g.ei, g.ti + 2 * HT5) > MTX)
+    return (int)cudaErrorInvalidValue;
+  e = launch_masked_pass<T, TY, KK, 2>(p, rhs, fl, out, g, smem, omega,
+                                       idx2, idy2, idz2, r2, st);
+  if (e != cudaSuccess) return (int)e;
+  if (r2 != nullptr) {
+    const int K = g.ek - 2, J = g.ej - 2, I = g.ei - 2;
+    r2_total<T><<<ceil_div(K * J, 32), dim3(32, 32), 0, st>>>(
+        r2, K * J, I, rsum, ticket, res);
   }
-  row_sums<T><<<ceil_div(K * J, 256), 256, 0, st>>>(r2, K * J, I, rows);
-  sum_partials<T><<<1, FIN, 0, st>>>(rows, K * J, out);
   return (int)cudaGetLastError();
 }
 
@@ -434,13 +721,19 @@ int rb_sor3d_octants_partials(int K2, int J2, int I2) {
                   idy2, idz2, (T*)partial, (T*)out, (cudaStream_t)stream);   \
   }
 
-#define MASKED3_ENTRY(NAME, T)                                               \
-  int NAME(int dev, void* p, const void* rhs, const void* fl, int K, int J,  \
-           int I, int n_inner, double omega, double idx2, double idy2,       \
-           double idz2, void* r2, void* rows, void* out, void* stream) {     \
-    return run_masked3d<T>(dev, (T*)p, (const T*)rhs, (const uint8_t*)fl, K, \
-                           J, I, n_inner, omega, idx2, idy2, idz2, (T*)r2,   \
-                           (T*)rows, (T*)out, (cudaStream_t)stream);         \
+// geo = [K+2, J+2, I+2, tk, tj, ti, rows, P, Pf, smem bytes]
+// (ops/sor3d_kernels.masked_geometry); r2 == nullptr skips the residual (a
+// pass before the last); ticket is an unsigned 0 that the residual leaves
+// at 0
+#define MASKED3_ENTRY(NAME, T)                                      \
+  int NAME(int dev, const void* p, const void* rhs, const void* fl,          \
+           void* out, const int* geo, double omega, double idx2,             \
+           double idy2, double idz2, void* r2, void* rsum, void* ticket,     \
+           void* res, void* stream) {                                        \
+    return run_masked3d<T>(                                                  \
+        dev, (const T*)p, (const T*)rhs, (const uint8_t*)fl, (T*)out, geo,   \
+        omega, idx2, idy2, idz2, (T*)r2, (T*)rsum, (unsigned*)ticket,        \
+        (T*)res, (cudaStream_t)stream);                                      \
   }
 
 MASKED3_ENTRY(rb_sor3d_masked_f32, float)

@@ -283,15 +283,23 @@ class NS3DDistSolver:
         qoffs = [tuple(o // 2 for o in off) for off in self.offs]
         ro = od.o_exchange([od.pack_ext_to_o(r, og) for r in rhs], comm, og)
         xo = [od.pack_ext_to_o(x, og) for x in p]
-        copies = od.o_exchange_copies(xo, comm, og)
+        # two lists of volumes, each with the exchange's views bound to it:
+        # K14 reads the first and writes the second, and the two swap, so
+        # the first holds the newest volumes
+        vols = [xo, [torch.empty_like(x) for x in xo]]
+        copies = [od.o_exchange_copies(x, comm, og) for x in vols]
 
         def rounds():
-            od.o_exchange(xo, comm, og, copies)
-            return ([self._rb_o(q, x, f) for q, x, f in zip(qoffs, xo, ro)],
-                    og.n)
+            od.o_exchange(vols[0], comm, og, copies[0])
+            r2 = [self._rb_o(q, x, f, y)
+                  for q, x, y, f in zip(qoffs, *vols, ro)]
+            vols.reverse()
+            copies.reverse()
+            return r2, og.n
 
         res, it = self._loop(rounds)
-        p = pc.halo_exchange([od.unpack_o_to_ext(x, og) for x in xo], comm)
+        p = pc.halo_exchange([od.unpack_o_to_ext(x, og) for x in vols[0]],
+                             comm)
         return p, res, it
 
     def _grid_masks(self):

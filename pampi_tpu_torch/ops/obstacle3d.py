@@ -276,10 +276,13 @@ def make_obstacle_solver_fn_3d(imax, jmax, kmax, dx, dy, dz, eps, itermax,
     """The one-device obstacle pressure solve, solve(p, rhs) -> (p, res,
     it): the masked mode of K5, n_inner iterations a call (its plain
     version on the CPU), the residual Σr²/n_fluid checked against eps²
-    after every call (NS3DSolver passes the dtype's sor_cadence). The
-    relaxation factor is formed from the flags in the field's dtype, as
-    the TPU kernel forms it; the JAX package's jnp path takes a factor
-    made on the host in float64, which equals it at float64."""
+    after every call (NS3DSolver passes the dtype's sor_cadence). Each
+    call reads one field and writes the other of a pair (the masked
+    mode's `out=` form), and the two swap; a solve that ends in the second
+    field copies it into p once. The relaxation factor is formed from the
+    flags in the field's dtype, as the TPU kernel forms it; the JAX
+    package's jnp path takes a factor made on the host in float64, which
+    equals it at float64."""
     from ..models.poisson import make_convergence_loop
 
     if n_inner < 1:
@@ -289,15 +292,21 @@ def make_obstacle_solver_fn_3d(imax, jmax, kmax, dx, dy, dz, eps, itermax,
     idx2, idy2, idz2 = 1.0 / (dx * dx), 1.0 / (dy * dy), 1.0 / (dz * dz)
     flags = m.flags(device)
 
-    def step(p, rhs):
-        return rb_sor3d_checkerboard(p, rhs, n_inner, 0.0, idx2, idy2, idz2,
-                                     flags=flags, omega=m.omega)
+    def step(pair, rhs):
+        # pair = [newest field, the other one (made at the first call)]
+        if len(pair) == 1:
+            pair.append(torch.empty_like(pair[0]))
+        r = rb_sor3d_checkerboard(pair[0], rhs[0], n_inner, 0.0, idx2, idy2,
+                                  idz2, flags=flags, omega=m.omega,
+                                  out=pair[1])
+        pair.reverse()
+        return r
 
     def prep(x):
-        return x.contiguous()
+        return [x.contiguous()]
 
-    solve = make_convergence_loop(step, prep, prep, n_inner, m.n_fluid, eps,
-                                  itermax, dtype)
+    solve = make_convergence_loop(step, prep, lambda pair: pair[0], n_inner,
+                                  m.n_fluid, eps, itermax, dtype)
     solve.flags = flags
     return solve
 

@@ -15,21 +15,32 @@ K5's masked mode (`rb_sor3d_checkerboard(..., flags=, omega=)`) replaces
   per-direction coefficients and the relaxation factor omega/denom formed
   from uint8 flags (1 byte a cell) in the field's dtype, as
   sor3d_pallas.masked_stencil_ops_3d forms them. Its launches count on
-  their own kernel entry, `rb_sor3d_checkerboard_masked`. Its residual is
-  summed in a fixed order (`ordered_r2_sum`) that the plain version
-  repeats, so the two agree bitwise, residual included.
+  their own kernel entry, `rb_sor3d_checkerboard_masked`. It reads p and
+  writes `out` (the solver swaps two fields). Bound: 13 bytes a cell at
+  float32 (p, rhs and the flags read, p written: 0.0337 ms at
+  512x128x128). Its design is K16's streaming on the whole field, one
+  iteration a pass: a call of n iterations runs n passes, one launch each
+  (masked_pass); a pass cuts the field into (j, i) tiles and k slabs
+  (masked_tiles), and a CTA streams its tile's box (a halo of HALO5 = 3
+  cells) along k through a ring of RING5 = 5 planes in shared memory, the
+  edge tiles writing the wall shell. Its residual is summed in a fixed
+  order (`ordered_r2_sum`: row sums, then the rows, one more launch) that
+  the plain version repeats, so the two agree bitwise, residual included:
+  n + 1 launches a call. The passes alternate `out` and one scratch field
+  cached per shape and stream, the last landing in `out`.
 
 Each iteration is the odd-parity half-sweep, the even one, and the 6-face
-Neumann refresh. Both update p in place and return the sum of r² over both
-half-sweeps of the LAST of their n_inner iterations, as a 0-dim tensor on
-p's device.
+Neumann refresh. K5 and K6 update p in place; all return the sum of r²
+over both half-sweeps of the LAST of their n_inner iterations, as a 0-dim
+tensor on p's device.
 
 What bounds them on the H100 is memory bandwidth: the least a call must
 move is p and rhs read once and p written once (3 field-sizes, ~61.5 us at
-256³ f32). The design is the 2-D kernels' (ops/sor_kernels.py): a launch
-per colour per iteration, a Neumann launch, per-block partial sums of r²
-on the last iteration and a one-block fixed-order sum, so the residual and
-every iteration count are reproducible. Temporal blocking is later work.
+256³ f32). The design of K5 and K6 is the 2-D kernels' (ops/sor_kernels.
+py): a launch per colour per iteration, a Neumann launch, per-block
+partial sums of r² on the last iteration and a one-block fixed-order sum,
+so the residual and every iteration count are reproducible; their
+temporal blocking is later work.
 
 For a CPU tensor each wrapper runs its plain version; for a CUDA tensor it
 launches its kernel or raises.
@@ -38,12 +49,22 @@ launches its kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 
 import torch
 
 from ..kernels import build as kb
 from .sor3d import checkerboard_mask_3d, neumann_faces_3d, sor_pass_3d
-from .sor_kernels import _SUFFIX, _check, ordered_r2_sum
+from .sor_kernels import (
+    _SUFFIX,
+    _check,
+    card_of,
+    check_out,
+    ordered_r2_sum,
+    residual_buffers,
+)
+from .sor_obsdist import SMEM_LIMIT, _flag_pitch
 from .sor_octants import BITS, rb_sweeps_octants
 
 SOURCE = "pampi_tpu_torch/csrc/sor3d_rb.cu"
@@ -63,10 +84,26 @@ _SIGNATURES = {
 }
 _SIGNATURES["rb_sor3d_checkerboard_partials"] = [_I, _I, _I]
 _SIGNATURES["rb_sor3d_octants_partials"] = [_I, _I, _I]
-_MASKED_ARGS = [_I, _V, _V, _V, _I, _I, _I, _I, _D, _D, _D, _D, _V, _V, _V,
-                _V]
+_MASKED_ARGS = [_I, _V, _V, _V, _V, _V, _D, _D, _D, _D, _V, _V, _V, _V, _V]
 _SIGNATURES.update({f"rb_sor3d_masked_{t}": _MASKED_ARGS
                     for t in ("f32", "f64")})
+# the masked mode's CTAs (csrc/sor3d_rb.cu's run_masked3d): MASKED_BLOCKS
+# an SM, the ring's shared memory and the registers split among them;
+# boxes a warp's MTX columns wide and, by element size, up to _ROWS5 rows
+# (the threads' row pairs)
+MASKED_BLOCKS = 2
+SMEM_SM = 233472  # the shared memory of an SM (228 KB)
+MTX = 32
+_ROWS5 = {4: 96, 8: 64}
+# a pass is one iteration: the tiles' halo (2 cells that the two colour
+# stages reach in from the box's edge, a wall-ghost cell's copy one more)
+# and the ring's planes (the 4 that the stages read and the next one)
+HALO5, RING5 = 3, 5
+# the scratch field, r² volume and row sums of the masked mode's calls,
+# per (shape, dtype, device, stream)
+_BUFFERS: dict = {}
+
+
 def masked_stencil_3d(flags, dtype, omega, idx2, idy2, idz2):
     """(fac, lap) of the flag-masked stencil on the interior of a
     (K'+2, J'+2, I'+2) block, from the six neighbours' flags (e, w, n, s,
@@ -129,6 +166,14 @@ def rb_sor3d_masked_plain(p, rhs, flags, n_inner, omega, idx2, idy2,
     place on p, a cell updating only where it is interior, of the colour
     and fluid. Returns Σr² of the last iteration in ordered_r2_sum's
     order."""
+    return ordered_r2_sum(masked_sweeps_3d(p, rhs, flags, n_inner, omega,
+                                           idx2, idy2, idz2))
+
+
+def masked_sweeps_3d(p, rhs, flags, n_inner, omega, idx2, idy2, idz2):
+    """rb_sor3d_masked_plain's iterations, in place on p. Returns the last
+    iteration's r² on the interior (0 on every cell that does not
+    update)."""
     kmax, jmax, imax = (n - 2 for n in p.shape)
     fluid = flags[1:-1, 1:-1, 1:-1] != 0
     odd = (checkerboard_mask_3d(kmax, jmax, imax, 1, torch.uint8, p.device)
@@ -145,17 +190,20 @@ def rb_sor3d_masked_plain(p, rhs, flags, n_inner, omega, idx2, idy2,
         r_evn = torch.where(even, rhs_c - lap(p), zero)
         p[1:-1, 1:-1, 1:-1] = p[1:-1, 1:-1, 1:-1] - fac * r_evn
         neumann_faces_3d(p)
-    return ordered_r2_sum(r_odd * r_odd + r_evn * r_evn)
+    return r_odd * r_odd + r_evn * r_evn
 
 
 def rb_sor3d_checkerboard(p, rhs, n_inner, factor, idx2, idy2, idz2,
-                          flags=None, omega=None):
+                          flags=None, omega=None, out=None):
     """K5 on a (kmax+2, jmax+2, imax+2) p, in place. Returns Σr² of the
     last iteration (0-dim tensor). With `flags` (uint8 of p's shape, 0 on
     obstacle cells) the masked mode, which relaxes with `omega` (the
-    per-cell factor comes from the flags; `factor` is not read)."""
+    per-cell factor comes from the flags; `factor` is not read) and needs
+    `out`: it reads p and writes the new field into out (p untouched)."""
     if flags is not None:
-        return _masked(p, rhs, flags, n_inner, omega, idx2, idy2, idz2)
+        return _masked(p, rhs, flags, n_inner, omega, idx2, idy2, idz2, out)
+    if out is not None:
+        raise ValueError("K5 takes out= in its masked mode only")
     if p.device.type == "cpu":
         return rb_sor3d_checkerboard_plain(p, rhs, n_inner, factor, idx2,
                                            idy2, idz2)
@@ -167,11 +215,13 @@ def rb_sor3d_checkerboard(p, rhs, n_inner, factor, idx2, idy2, idz2,
                    idy2, idz2)
 
 
-def _masked(p, rhs, flags, n_inner, omega, idx2, idy2, idz2):
-    if omega is None:
-        raise ValueError("the masked mode needs omega")
+def _masked(p, rhs, flags, n_inner, omega, idx2, idy2, idz2, out):
+    if omega is None or out is None:
+        raise ValueError("the masked mode needs omega and out")
+    check_out("masked K5", p, out)
     if p.device.type == "cpu":
-        return rb_sor3d_masked_plain(p, rhs, flags, n_inner, omega, idx2,
+        out.copy_(p)
+        return rb_sor3d_masked_plain(out, rhs, flags, n_inner, omega, idx2,
                                      idy2, idz2)
     _check(p, rhs, n_inner)
     if (p.dim() != 3 or flags.dtype != torch.uint8
@@ -181,16 +231,118 @@ def _masked(p, rhs, flags, n_inner, omega, idx2, idy2, idz2):
                          "of its shape on its device")
     K, J, I = (n - 2 for n in p.shape)
     lib = kb.load("sor3d_rb", _SIGNATURES)
-    r2 = torch.empty((K, J, I), dtype=p.dtype, device=p.device)
-    rows = torch.empty((K, J), dtype=p.dtype, device=p.device)
-    out = torch.empty((), dtype=p.dtype, device=p.device)
-    err = getattr(lib, f"rb_sor3d_masked_{_SUFFIX[p.dtype]}")(
-        p.device.index, p.data_ptr(), rhs.data_ptr(), flags.data_ptr(), K, J,
-        I, n_inner, omega, idx2, idy2, idz2, r2.data_ptr(), rows.data_ptr(),
-        out.data_ptr(), kb.stream_of(p))
-    kb.check(lib, err, "rb_sor3d_masked")
+    entry = getattr(lib, f"rb_sor3d_masked_{_SUFFIX[p.dtype]}")
+    geo = masked_geometry(K, J, I, p.element_size())
+    res = torch.empty((), dtype=p.dtype, device=p.device)
+    with card_of(p):
+        stream = kb.stream_of(p)
+        key = (tuple(p.shape), p.dtype, p.device, stream)
+        bufs = _BUFFERS.get(key)
+        if bufs is None:
+            bufs = _BUFFERS[key] = (
+                torch.empty_like(p),
+                torch.empty((K, J, I), dtype=p.dtype, device=p.device),
+                torch.empty(K * J, dtype=p.dtype, device=p.device))
+        scratch, r2, rsum = bufs
+        ticket, _ = residual_buffers(p, stream, 1)
+        src = p
+        for k in range(n_inner):
+            # the passes alternate out and the scratch field, the last
+            # landing in out
+            last = k == n_inner - 1
+            dst = out if (n_inner - 1 - k) % 2 == 0 else scratch
+            err = entry(p.device.index, src.data_ptr(), rhs.data_ptr(),
+                        flags.data_ptr(), dst.data_ptr(), geo, omega, idx2,
+                        idy2, idz2, r2.data_ptr() if last else None,
+                        rsum.data_ptr(), ticket.data_ptr(), res.data_ptr(),
+                        stream)
+            kb.check(lib, err, "rb_sor3d_masked")
+            src = dst
     RB_SOR3D_MASKED.launches += 1
-    return out
+    return res
+
+
+@dataclass(frozen=True)
+class MaskedPass:
+    """A pass of the masked mode: one iteration on owned tiles (tk, tj,
+    ti) with a halo of HALO5 cells, streamed along k through a ring of
+    RING5 planes of rows x P cells of p and rhs and rows x Pf flag
+    bytes."""
+
+    tk: int
+    tj: int
+    ti: int
+    rows: int
+    P: int  # row pitch of p (and rhs) in shared memory (elements, even)
+    Pf: int  # row pitch of the flags (bytes)
+    smem: int  # dynamic shared memory a CTA takes (bytes)
+
+
+def _tiles(extent: int, box: int, ht: int):
+    """(owned tile extent, count) of one axis: the fewest tiles whose boxes
+    (the tile and ht cells a side) fit `box`, of near-equal extent; the
+    whole extent where it fits the box. None where no tile fits."""
+    if extent <= box:
+        return extent, 1
+    if box <= 2 * ht:
+        return None
+    t = -(-extent // -(-extent // (box - 2 * ht)))
+    return t, -(-extent // t)
+
+
+def masked_pass(K: int, J: int, I: int, itemsize: int = 4,
+                sms: int | None = None) -> MaskedPass:
+    """The plan of a pass of the masked mode on the (K+2, J+2, I+2) field.
+    The tile halo is HALO5, K16's at one iteration: the two colour stages
+    reach 2 cells in from the box's edge, a wall-ghost cell's copy one
+    more. The box is a warp's 32 columns wide and as tall as the ring of
+    RING5 planes in shared memory (227 KB) and the threads' row pairs
+    allow, at MASKED_BLOCKS CTAs an SM (two ran faster than one at the
+    timed shape, PERF.md §6); the (j, i) tiles are the fewest that
+    fit it, of near-equal extent, and k is cut into as many slabs as the
+    SMs can take (one wave: a CTA's time is its planes and a fixed 2 HALO5
+    + 2 steps of halo and ring)."""
+    from .sor_obsdist3d import SMS
+
+    sms = SMS if sms is None else sms
+    ek, ej, ei = K + 2, J + 2, I + 2
+    ti_n = _tiles(ei, MTX, HALO5)
+    w = min(ei, ti_n[0] + 2 * HALO5) if ti_n else MTX
+    P, Pf = w + (w & 1), _flag_pitch(w)
+    per_row = RING5 * (2 * P * itemsize + Pf)
+    budget = min(SMEM_LIMIT, SMEM_SM // MASKED_BLOCKS - 1024)
+    tj_n = _tiles(ej, min(budget // per_row, _ROWS5[itemsize]), HALO5)
+    if ti_n is None or tj_n is None:
+        raise ValueError("no masked K5 box fits")
+    (tj, nj), (ti, ni) = tj_n, ti_n
+    rows = min(ej, tj + 2 * HALO5)
+    slabs = max(1, min(sms * MASKED_BLOCKS // (nj * ni), ek))
+    return MaskedPass(-(-ek // slabs), tj, ti, rows, P, Pf, rows * per_row)
+
+
+def masked_tiles(K: int, J: int, I: int, pl: MaskedPass):
+    """The owned tiles (k0, k1, j0, j1, i0, i1) of a pass: they partition
+    the field, its wall shell included, so the kernel writes each cell
+    once. The CTA of a tile streams the box of the tile and HALO5 cells a
+    side, clipped to the field."""
+    ek, ej, ei = K + 2, J + 2, I + 2
+    return [(k0, min(k0 + pl.tk, ek), j0, min(j0 + pl.tj, ej), i0,
+             min(i0 + pl.ti, ei))
+            for k0 in range(0, ek, pl.tk) for j0 in range(0, ej, pl.tj)
+            for i0 in range(0, ei, pl.ti)]
+
+
+@functools.lru_cache(maxsize=64)
+def masked_geometry(K: int, J: int, I: int, itemsize: int):
+    """The kernel's geometry array of a pass, made once per field shape
+    (the CLI's solves call the masked mode at n = 1 on a small field,
+    where the host's work is the call's cost)."""
+    pl = masked_pass(K, J, I, itemsize)
+    if pl.smem > SMEM_LIMIT:
+        raise ValueError(f"a masked K5 pass takes {pl.smem} bytes of shared "
+                         "memory")
+    return (ctypes.c_int * 10)(K + 2, J + 2, I + 2, pl.tk, pl.tj, pl.ti,
+                               pl.rows, pl.P, pl.Pf, pl.smem)
 
 
 def rb_sor3d_octants_plain(q, f, n_inner, factor, idx2, idy2, idz2):

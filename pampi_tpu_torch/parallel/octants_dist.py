@@ -122,7 +122,8 @@ def octants_dispatch(param, kmax, jmax, imax, kl, jl, il, dx, dy, dz,
                      plain_sor: bool = True):
     """The layout decision of the distributed NS-3D solver: whether the
     octant-layout path runs. Returns (rb_o, og, n_o), where rb_o(qoffs, xo,
-    ro) runs K14 (or, on a CPU tensor, its plain version) on one shard;
+    ro, out) runs K14 (or, on a CPU tensor, its plain version) on one
+    shard, reading xo and writing out;
     rb_o is None when the caller should run its grid-space CA path, or,
     with `plain_sor` False (obstacle flag fields), its own solve. Raises
     ValueError on a forced `tpu_sor_layout octants` that does not fit or
@@ -153,8 +154,9 @@ def octants_dispatch(param, kmax, jmax, imax, kl, jl, il, dx, dy, dz,
     og = make_ogeom(kmax, jmax, imax, kl, jl, il, n_o, dims=dims)
     factor, idx2, idy2, idz2 = sor_coefficients_3d(dx, dy, dz, param.omg)
 
-    def rb_o(qoffs, xo, ro):
-        return rb_sor_odist(xo, ro, og, qoffs, factor, idx2, idy2, idz2)
+    def rb_o(qoffs, xo, ro, out):
+        return rb_sor_odist(xo, ro, og, qoffs, factor, idx2, idy2, idz2,
+                            out)
 
     _dispatch.record(record_key, f"kernel_octants ca{n_o}")
     return rb_o, og, n_o
@@ -311,8 +313,9 @@ def rb_iters_o(xo, rhso, g: OGeom, m, factor, idx2, idy2, idz2):
     gated Neumann selects) on one shard's stacked volume: the plain version
     of K14 (the twin of the JAX rb_iters_o_jnp: the same neighbour
     identities, selects and order; the rolls wrap only into cells every
-    mask excludes). Returns (the new volume, the owned sum of r² of the
-    last iteration)."""
+    mask excludes). Returns (the new volume, the last iteration's r² on
+    the owned cells, 0 elsewhere, as a stacked volume: K14 sums it in its
+    tile order, ops/sor_odist.odist_residual)."""
     octs = {bits: xo[QIDX[bits]] for bits in BITS}
     rhs_o = {bits: rhso[QIDX[bits]] for bits in BITS}
 
@@ -351,9 +354,7 @@ def rb_iters_o(xo, rhso, g: OGeom, m, factor, idx2, idy2, idz2):
                                              octs[_flip(bits, axis)],
                                              octs[bits])
 
-    rsq = xo.new_zeros(())
-    for bits in BITS:
-        rq = resids[bits]
-        rsq = rsq + torch.sum(torch.where(m["own"][bits], rq * rq,
-                                          torch.zeros_like(rq)))
-    return torch.stack([octs[bits] for bits in BITS]), rsq
+    r2 = torch.stack([torch.where(m["own"][bits], rq * rq,
+                                  torch.zeros_like(rq))
+                      for bits, rq in ((b, resids[b]) for b in BITS)])
+    return torch.stack([octs[bits] for bits in BITS]), r2

@@ -336,41 +336,50 @@ def test_dist_poisson_across_cards_matches_cpu(cuda):
     ((2, 2, 2), (0, 0, 0)), ((2, 2, 2), (8, 8, 8)), ((1, 2, 4), (0, 8, 24)),
     ((1, 1, 1), (0, 0, 0))])
 def test_odist_kernel_matches_plain(cuda, dtype, dims, offs):
-    """K14 on random stacked volumes of a shard of 32x32x64 (n = 2) at its
-    global octant offsets, walls and ghosts included: volumes bitwise, the
-    owned r² to the sum-order tolerance."""
+    """K14 (`out=`, the solver's swap of two volumes) on random stacked
+    volumes of a shard of 32x32x64 (n = 2) at its global octant offsets,
+    walls and ghosts included: volumes and the owned r² bitwise (the
+    residual's tile order is the plain version's), q untouched."""
     ext = (32, 32, 64) if dims != (1, 1, 1) else (16, 16, 16)
     local = tuple(e // d for e, d in zip(ext, dims))
     g = od.make_ogeom(*ext, *local, 2, dims=dims)
     coef = sor_coefficients_3d(1 / ext[2], 1 / ext[1], 1 / ext[0], 1.8)
     x = _rand((8, g.kq, g.jq, g.iq), dtype, cuda, 31)
     f = _rand((8, g.kq, g.jq, g.iq), dtype, cuda, 32)
-    xk, xp = x.clone(), x.clone()
+    xk, xp = [x.clone(), torch.empty_like(x)], [x.clone(), torch.empty_like(x)]
     launches = so.RB_SOR_ODIST.launches
     for _ in range(2):
-        rk = so.rb_sor_odist(xk, f, g, offs, *coef)
-        rp = so.rb_sor_odist_plain(xp, f, g, offs, *coef)
+        keep = xk[0].clone()
+        rk = so.rb_sor_odist(xk[0], f, g, offs, *coef, xk[1])
+        assert torch.equal(xk[0], keep)
+        rp = so.rb_sor_odist_plain(xp[0], f, g, offs, *coef, xp[1])
+        xk.reverse()
+        xp.reverse()
     assert so.RB_SOR_ODIST.launches == launches + 2
-    assert torch.equal(xk, xp)
-    assert abs(float(rk) - float(rp)) <= _tol(dtype) * float(rp)
+    assert torch.equal(xk[0], xp[0]) and torch.equal(rk, rp)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_odist_kernel_on_one_shard_is_k6(cuda, dtype):
     """On a (1, 1, 1) mesh the shard's volume is K6's stacked octants: K14
-    and K6 give the same volume and the same residual, bitwise."""
+    and K6 give the same volume, bitwise, and the same residual summed in
+    other orders (K14's per tile, K6's per block): rtol 1e-5 at float32,
+    1e-12 at float64."""
     g = od.make_ogeom(24, 16, 32, 24, 16, 32, 3, dims=(1, 1, 1))
     coef = sor_coefficients_3d(1 / 32, 1 / 16, 1 / 24, 1.7)
     p = _rand((26, 18, 34), dtype, cuda, 41)
     rhs = _rand((26, 18, 34), dtype, cuda, 42)
-    q14, q6 = stack_octants(p), stack_octants(p)
+    q14, q6 = [stack_octants(p), None], stack_octants(p)
+    q14[1] = torch.empty_like(q14[0])
     f = stack_octants(rhs)
-    assert tuple(q14.shape) == (8, g.kq, g.jq, g.iq)
+    assert tuple(q6.shape) == (8, g.kq, g.jq, g.iq)
     for _ in range(2):
-        r14 = so.rb_sor_odist(q14, f, g, (0, 0, 0), *coef)
+        r14 = so.rb_sor_odist(q14[0], f, g, (0, 0, 0), *coef, q14[1])
+        q14.reverse()
         r6 = sk3.rb_sor3d_octants(q6, f, g.n, *coef)
-    assert torch.equal(q14, q6)
-    assert torch.equal(r14, r6)
+    assert torch.equal(q14[0], q6)
+    rtol = 1e-5 if dtype == torch.float32 else 1e-12
+    assert abs(float(r14) - float(r6)) <= rtol * float(r6)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -608,22 +617,68 @@ def _obstacle_flags(shape, cuda):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", [(16, 24, 32), (15, 23, 31)])
-@pytest.mark.parametrize("n", [1, 4])
+@pytest.mark.parametrize("n", [1, 2, 3, 4])
 def test_masked_k5_matches_plain(cuda, dtype, shape, n):
-    """K5's masked mode (obstacle flags), two calls: fields and the
-    residual bitwise (the residual's fixed order is the plain version's)."""
+    """K5's masked mode (obstacle flags, `out=`, the solver's swap of two
+    fields), two calls: fields and the residual bitwise (the residual's
+    fixed order is the plain version's), p untouched."""
     full = tuple(e + 2 for e in shape)
     flags = _obstacle_flags(full, cuda)
     coef = tuple(e * e for e in shape[::-1])  # idx2, idy2, idz2 of 1/e
     x, f = _rand(full, dtype, cuda, 81), _rand(full, dtype, cuda, 82)
-    xk, xp = x.clone(), x.clone()
+    xk, xp = [x.clone(), torch.empty_like(x)], x.clone()
     launches = sk3.RB_SOR3D_MASKED.launches
     for _ in range(2):
-        rk = sk3.rb_sor3d_checkerboard(xk, f, n, 0.0, *coef, flags=flags,
-                                       omega=1.7)
+        keep = xk[0].clone()
+        rk = sk3.rb_sor3d_checkerboard(xk[0], f, n, 0.0, *coef, flags=flags,
+                                       omega=1.7, out=xk[1])
+        assert torch.equal(xk[0], keep)
+        xk.reverse()
         rp = sk3.rb_sor3d_masked_plain(xp, f, flags, n, 1.7, *coef)
     assert sk3.RB_SOR3D_MASKED.launches == launches + 2
-    assert torch.equal(xk, xp) and torch.equal(rk, rp)
+    assert torch.equal(xk[0], xp) and torch.equal(rk, rp)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(40, 300, 90), (9, 11, 13)])
+@pytest.mark.parametrize("n", [1, 2, 3, 4])
+def test_masked_k5_tiles_match_plain(cuda, dtype, shape, n):
+    """Masked K5 on a field of several (j, i) tiles and k slabs, tiles cut
+    at every face (40x300x90, k, j, i), and on one smaller than a tile:
+    fields and residual bitwise its plain version's over two calls."""
+    full = tuple(e + 2 for e in shape)
+    flags = _obstacle_flags(full, cuda)
+    coef = tuple(e * e for e in shape[::-1])
+    x, f = _rand(full, dtype, cuda, 85), _rand(full, dtype, cuda, 86)
+    xk, xp = [x.clone(), torch.empty_like(x)], x.clone()
+    for _ in range(2):
+        rk = sk3.rb_sor3d_checkerboard(xk[0], f, n, 0.0, *coef, flags=flags,
+                                       omega=1.7, out=xk[1])
+        xk.reverse()
+        rp = sk3.rb_sor3d_masked_plain(xp, f, flags, n, 1.7, *coef)
+    assert torch.equal(xk[0], xp) and torch.equal(rk, rp)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [1, 2, 3, 4])
+def test_odist_tiles_match_plain(cuda, dtype, n):
+    """K14 on every shard of 128³ on (2, 2, 2) (64³ shards: several (j, i)
+    tiles and k slabs), two calls: volumes and residuals bitwise."""
+    dims = (2, 2, 2)
+    g = od.make_ogeom(128, 128, 128, 64, 64, 64, n, dims=dims)
+    coef = sor_coefficients_3d(1 / 128, 1 / 128, 1 / 128, 1.8)
+    for s in range(8):
+        offs = tuple(((s >> (2 - a)) & 1) * 32 for a in range(3))
+        x = _rand((8, g.kq, g.jq, g.iq), dtype, cuda, 33 + s)
+        f = _rand((8, g.kq, g.jq, g.iq), dtype, cuda, 43 + s)
+        xk = [x.clone(), torch.empty_like(x)]
+        xp = [x.clone(), torch.empty_like(x)]
+        for _ in range(2):
+            rk = so.rb_sor_odist(xk[0], f, g, offs, *coef, xk[1])
+            rp = so.rb_sor_odist_plain(xp[0], f, g, offs, *coef, xp[1])
+            xk.reverse()
+            xp.reverse()
+        assert torch.equal(xk[0], xp[0]) and torch.equal(rk, rp)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -706,13 +761,14 @@ def test_obsdist3d_on_one_shard_is_masked_k5(cuda, dtype):
     deep = torch.nn.functional.pad(flags, (g.H - 1,) * 6).contiguous()
     coef = (14.0**2, 10.0**2, 12.0**2)  # idx2, idy2, idz2 of 1/I, 1/J, 1/K
     x, f = _rand(full, dtype, cuda, 101), _rand(full, dtype, cuda, 102)
-    x5, xd = x.clone(), embed_deep(x, g.H).contiguous()
-    fd = embed_deep(f, g.H).contiguous()
+    x5, xd = [x.clone(), torch.empty_like(x)], embed_deep(x, g.H)
+    xd, fd = xd.contiguous(), embed_deep(f, g.H).contiguous()
     for _ in range(2):
         r16 = sod3.rb_sor_obsdist3d(xd, fd, deep, g, (0, 0, 0), 1.7, *coef)
-        r5 = sk3.rb_sor3d_checkerboard(x5, f, n, 0.0, *coef, flags=flags,
-                                       omega=1.7)
-    assert torch.equal(strip_deep(xd, g.H), x5) and torch.equal(r16, r5)
+        r5 = sk3.rb_sor3d_checkerboard(x5[0], f, n, 0.0, *coef, flags=flags,
+                                       omega=1.7, out=x5[1])
+        x5.reverse()
+    assert torch.equal(strip_deep(xd, g.H), x5[0]) and torch.equal(r16, r5)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -199,9 +199,9 @@ def test_jnp_twin_and_masked_k5_match_jax_passes():
             jx, jf, jmask(K, J, I, parity, jnp.float64), jm, *c)
         jr2 += float(jr)
     jx = jneumann(jx)
-    k5 = _torch(p0)
-    rk = sk3.rb_sor3d_checkerboard(k5, _torch(rhs), 1, 0.0, *c,
-                                   flags=m.flags(), omega=OMEGA)
+    k5 = torch.empty_like(_torch(p0))
+    rk = sk3.rb_sor3d_checkerboard(_torch(p0), _torch(rhs), 1, 0.0, *c,
+                                   flags=m.flags(), omega=OMEGA, out=k5)
     np.testing.assert_array_equal(k5.numpy(), np.asarray(jx))
     assert float(rk) == pytest.approx(jr2, rel=1e-12)
 
@@ -223,12 +223,14 @@ def test_masked_kernel_float32_matches_jax_interpret_kernel(n_inner):
     pp = pad_array_3d(jnp.asarray(p0), bk, n_inner)
     rp = pad_array_3d(jnp.asarray(rhs), bk, n_inner)
     x, f = torch.from_numpy(p0.copy()), torch.from_numpy(rhs)
+    y = torch.empty_like(x)
     flags = m.flags()
     for _ in range(3):
         pp, jres = rb(pp, rp)
         res = sk3.rb_sor3d_checkerboard(x, f, n_inner, 0.0, 1 / DX**2,
                                         1 / DY**2, 1 / DZ**2, flags=flags,
-                                        omega=OMEGA)
+                                        omega=OMEGA, out=y)
+        x, y = y, x
         got = np.asarray(unpad_array_3d(pp, K, J, I, n_inner))
         np.testing.assert_allclose(x.numpy(), got, rtol=0, atol=5e-5)
         assert float(res) == pytest.approx(float(jres), rel=1e-4)
