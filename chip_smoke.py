@@ -254,6 +254,27 @@ adds:
    and a sor request (served solo), float64, on the card and on the CPU:
    fields within 1e-9 of scale, the same steps.
 
+The obstacle multigrid on one card (the masked mode of K9-K12) adds:
+
+2. masked DOWN and UP against their plain versions, float32 and float64,
+   bitwise, on canal_obstacle.par's box at 1024x256, an odd box on two
+   walls at 512² (coarsening keeps it on every level's edge),
+   canal3d_obstacle.par as shipped and an odd box on three walls at 64³;
+3. the masked mode once more at 8192x2048 and 512x128x128 float32 (the
+   obstacle paths' geometries) and its times beside the bound;
+4. NS-2D canal_obstacle 8192x2048 and NS-3D canal3d_obstacle 512x128x128
+   float32 under tpu_solver mg (re 100, eps 0, 4 V-cycles a step), 16
+   steps after one warm-up: ms/step, PRE / solve / POST and the cycle's
+   DOWN / bottom / UP / residual check from CUDA events, beside the masked
+   SOR steps of the same run; the 2-D ladder (tpu_mg_fused off, masked K2
+   at omega = 1 on its large levels) for 4 steps; only the masked cycle
+   (or masked K2) launched;
+5. `python -m pampi_tpu_torch` with tpu_solver auto on
+   configs/canal_obstacle.par and canal3d_obstacle.par at te 0.5 on the
+   card and on the CPU (processes of their own): fields within 1e-9 of
+   scale, the same steps; and configs/canal_obstacle2048.par at te 0.1 on
+   the card, with its seconds.
+
 It then prints the kernels line (JSON; K5-K8 and K11/K12 at 256³, where a
 field outgrows the L2 and the bound is a floor, with their 128³ numbers
 under main_shape_* keys and the distributed modes of K3/K4 and K7/K8
@@ -888,7 +909,58 @@ def check_mg_cycle(torch, np, plan, dtype, seed):
     return err, rel, bitwise, pstk, rstk, pbot
 
 
-@phase("MG cycle kernels K9-K12 vs plain versions")
+def mg_obstacle_plan(fluid, spacings, dtype):
+    """The masked plan of the obstacle MG solve over the bool flags
+    `fluid` (ghosts fluid), as make_obstacle_mg_solve_2d/3d builds it, on
+    the card. spacings = (dx, dy[, dz])."""
+    from pampi_tpu_torch.ops import mg_fused as mf
+    from pampi_tpu_torch.ops import multigrid as mg
+
+    extents = tuple(n - 2 for n in fluid.shape)
+    levels = mg._truncate_levels(mg.mg_levels(*extents),
+                                 mg._DENSE_BOTTOM_MAX_CELLS)
+    lvs = mg.obstacle_levels(fluid, levels, spacings, dtype, "cuda")
+    return mf.make_cycle_plan(levels, spacings,
+                              fluid_levels=[lv.flags for lv in lvs],
+                              factor_levels=[lv.fac_ext for lv in lvs])
+
+
+def obstacle2d_geometry(jmax, imax):
+    """(bool flags, (dx, dy)) of configs/canal_obstacle.par on a jmax x
+    imax grid."""
+    from pampi_tpu_torch.ops import obstacle as obst
+
+    param = obstacle2d_config(jmax, imax)
+    dx, dy = param.xlength / imax, param.ylength / jmax
+    return obst.build_fluid(imax, jmax, dx, dy, param.obstacles), (dx, dy)
+
+
+def obstacle3d_geometry(**grid):
+    """(bool flags, (dx, dy, dz)) of configs/canal3d_obstacle.par on the
+    given grid (as shipped without one)."""
+    param = obstacle_config(**grid)
+    return obstacle_fluid(param), (param.xlength / param.imax,
+                                   param.ylength / param.jmax,
+                                   param.zlength / param.kmax)
+
+
+def mg_obstacle_checks(np):
+    """(tag, flags, spacings) of the masked cycle's checks:
+    canal_obstacle.par's box at 1024x256, an odd box on the south and east
+    walls at 512² (coarsening keeps it on every level's edge),
+    canal3d_obstacle.par as shipped (128x32x32), an odd box on three walls
+    at 64³."""
+    odd2 = np.ones((514, 514), bool)
+    odd2[1:38, 301:513] = False
+    odd3 = np.ones((66, 66, 66), bool)
+    odd3[1:20, 33:65, 7:30] = False
+    return (("canal_obstacle 1024x256", *obstacle2d_geometry(256, 1024)),
+            ("odd box on two walls 512x512", odd2, (1 / 512, 1 / 512)),
+            ("canal3d_obstacle 128x32x32", *obstacle3d_geometry()),
+            ("odd box on three walls 64x64x64", odd3, (1 / 64,) * 3))
+
+
+@phase("MG cycle kernels K9-K12 vs plain versions, plain and masked")
 def check_mg_kernels(torch, np):
     bad = []
     for dtype in (torch.float32, torch.float64):
@@ -901,6 +973,15 @@ def check_mg_kernels(torch, np):
                 f"{rel:.3e} {'ok' if bitwise else 'FAIL'}")
             if not bitwise:
                 bad.append(f"{tag} {dtype}")
+        for tag, fluid, spacings in mg_obstacle_checks(np):
+            plan = mg_obstacle_plan(fluid, spacings, dtype)
+            err, rel, bitwise, *_ = check_mg_cycle(torch, np, plan, dtype, 37)
+            log(f"mg_down/mg_up masked {plan.nd}-D {dtype} {tag} (L="
+                f"{len(plan.levels)}, {int((~fluid).sum())} obstacle cells): "
+                f"bitwise {bitwise}, max_abs_err {err:.3e}, max_rel_err "
+                f"{rel:.3e} {'ok' if bitwise else 'FAIL'}")
+            if not bitwise:
+                bad.append(f"masked {tag} {dtype}")
     if bad:
         raise AssertionError(f"MG cycle kernels differ from plain: {bad}")
 
@@ -908,30 +989,40 @@ def check_mg_kernels(torch, np):
 def mg_bytes(plan, size):
     """Least bytes of one DOWN and one UP: DOWN reads the fine p and rhs
     and writes every stored level and every restricted rhs; UP reads the
-    stored levels, their rhs and the bottom, and writes the fine p."""
+    stored levels, their rhs and the bottom, and writes the fine p. The
+    masked mode also reads the flags (1 byte) and the factor of every
+    level it relaxes, once each half."""
     import math
 
     cells = [math.prod(plan.shape(lvl)) for lvl in range(len(plan.levels))]
-    down = 2 * cells[0] + sum(cells) + sum(cells[1:])
-    up = 2 * sum(cells[:-1]) + cells[-1] + cells[0]
-    return down * size, up * size
+    down = (2 * cells[0] + sum(cells) + sum(cells[1:])) * size
+    up = (2 * sum(cells[:-1]) + cells[-1] + cells[0]) * size
+    if plan.masked:
+        down += sum(cells[:-1]) * (1 + size)
+        up += sum(cells[:-1]) * (1 + size)
+    return down, up
 
 
 def mg_flops(plan):
-    """Operations of one DOWN and one UP: ~12 per cell update (n sweeps on
-    each level but the last), ~13 per fine cell in the restriction (its
-    residual and its share of the sum), 1 per fine cell in the
-    prolongation."""
+    """Operations of one DOWN and one UP: per cell update ~12 (masked:
+    8 per axis, the sums, the flag product and the update: 21 in 2-D, 30
+    in 3-D; n sweeps on each level but the last), per fine cell in the
+    restriction ~13 (masked 20 / 29: its residual and its share of the
+    sum), per fine cell in the prolongation 1 (masked 2: the flag
+    product)."""
     import math
 
+    nd = plan.nd
+    upd, restrict = (8 * nd + nd + 3, 8 * nd + nd + 2) if plan.masked \
+        else (12, 13)
     inner = [math.prod(e) for e in plan.levels[:-1]]
-    down = sum((12 * plan.n_pre + 13) * n for n in inner)
-    up = sum((12 * plan.n_post + 1) * n for n in inner)
+    down = sum((upd * plan.n_pre + restrict) * n for n in inner)
+    up = sum((upd * plan.n_post + 1 + plan.masked) * n for n in inner)
     return down, up
 
 
 @phase("MG cycle kernels vs plain versions and their times at 4096², 128³ "
-       "and 256³ float32")
+       "and 256³ float32, the masked mode at 8192x2048 and 512x128x128")
 def time_mg_kernels(torch, np):
     from pampi_tpu_torch.ops import dctpoisson as dct
     from pampi_tpu_torch.ops import mg_fused as mf
@@ -977,6 +1068,35 @@ def time_mg_kernels(torch, np):
                 torch, lambda: solve(p, rhs), 5)
         del p, rhs, pstk, rstk, pbot
         torch.cuda.empty_cache()
+    # the masked mode at the obstacle main paths' grids and geometries
+    for dims, (fluid, spacings) in (
+            (OBST2_MAIN, obstacle2d_geometry(*OBST2_MAIN)),
+            (tuple(OBST_MAIN[k] for k in ("kmax", "jmax", "imax")),
+             obstacle3d_geometry(**OBST_MAIN))):
+        plan = mg_obstacle_plan(fluid, spacings, dtype)
+        nd, L = plan.nd, len(plan.levels)
+        tag = "x".join(map(str, reversed(dims)))
+        err, rel, bitwise, pstk, rstk, pbot = check_mg_cycle(
+            torch, np, plan, dtype, 47)
+        log(f"mg_down/mg_up masked {tag} f32 (L={L}) vs plain: bitwise "
+            f"{bitwise}, max_abs_err {err:.3e} {'ok' if bitwise else 'FAIL'}")
+        if not bitwise:
+            bad.append(f"masked {tag}")
+        p, rhs = rng_fields(torch, np, plan.shape(0), dtype, 2, 49)
+        bd, bu = mg_bytes(plan, 4)
+        fd, fu = mg_flops(plan)
+        for kind, nbytes, flops, kern, plain in (
+                ("down", bd, fd, lambda: mf.mg_down(plan, p, rhs),
+                 lambda: mf.mg_down_plain(plan, p, rhs)),
+                ("up", bu, fu, lambda: mf.mg_up(plan, pstk, rstk, pbot),
+                 lambda: mf.mg_up_plain(plan, pstk, rstk, pbot))):
+            b = bound(nbytes, flops)
+            rows[f"mg_{kind}_{nd}d_masked"] = {dims: dict(
+                max_abs_err=err, ms=cuda_ms(torch, kern, 20),
+                plain_ms=cuda_ms(torch, plain, 3), bound_ms=b[0],
+                bound_by=b[1], levels=L)}
+        del p, rhs, pstk, rstk, pbot, plan
+        torch.cuda.empty_cache()
     for name, by in rows.items():
         for dims, r in by.items():
             log(f"{name} {'x'.join(map(str, dims))} f32 (L={r['levels']}): "
@@ -995,6 +1115,10 @@ def time_mg_kernels(torch, np):
 
     out = {f"mg_{k}_2d": line(rows[f"mg_{k}_2d"][MAIN], MAIN)
            for k in ("down", "up")}
+    for name, by in rows.items():
+        if name.endswith("_masked"):
+            ((dims, r),) = by.items()
+            out[name] = line(r, tuple(reversed(dims)))
     for k in ("down", "up"):
         by = rows[f"mg_{k}_3d"]
         out[f"mg_{k}_3d"] = dict(
@@ -3393,6 +3517,9 @@ def time_obstacle3d(torch, np):
     return rows
 
 
+# the one-device SOR obstacle steps of this run (main_path_obstacle2d/3d),
+# printed beside the obstacle multigrid's
+OBST_SOR_STEP = {}
 OBST_PATH = ("ns3d_pre_flags", "ns3d_post_flags")
 NOT_ON_OBSTACLE_PATHS = ("rb_sor3d_octants", "rb_sor_odist",
                          "rb_sor3d_checkerboard", "ns3d_pre", "ns3d_post")
@@ -3425,6 +3552,7 @@ def main_path_obstacle3d(torch):
                       lambda: timed_steps(torch, single, 16))
     check_not_launched(c, "the one-device obstacle path")
     counts.append(c)
+    OBST_SOR_STEP["3d"] = r
     log(f"NS-3D canal3d_obstacle 512x128x128 f32 one device (re 100, "
         f"itermax 100, eps 0, masked K5 n=4): {r['ms_per_step']:.3f} ms/step"
         f" (host clock); PRE {r['pre']:.3f} / solve {r['solve']:.3f} / POST "
@@ -4348,6 +4476,7 @@ def main_path_obstacle2d(torch):
                       lambda: timed_steps(torch, single, 16))
     check_not_launched_2d(c, "the one-device 2-D obstacle path")
     counts.append(c)
+    OBST_SOR_STEP["2d"] = r
     log(f"NS-2D canal_obstacle {I}x{J} f32 one device (re 100, itermax 100, "
         f"eps 0, masked K2 n=4): {r['ms_per_step']:.3f} ms/step (host "
         f"clock); PRE {r['pre']:.3f} / solve {r['solve']:.3f} / POST "
@@ -4553,6 +4682,199 @@ def obstacle2d_cli(np):
             bad.append(name)
     if bad:
         raise AssertionError(f"canal_obstacle runs disagree: {bad}")
+    return counts
+
+
+# ----------------------------------------------------------------------
+# obstacle multigrid on one card: the masked mode of K9-K12
+# ----------------------------------------------------------------------
+
+MG_OBST_CYCLES = 4  # V-cycles a step on the obstacle mg main paths
+UNMASKED_MG = ("mg_down_2d", "mg_up_2d", "mg_down_3d", "mg_up_3d")
+
+
+def check_not_launched_mg(counts, label, also=()):
+    """The unmasked fused cycle (and `also`) never runs on an obstacle mg
+    path."""
+    wrong = [k for k in UNMASKED_MG + tuple(also) if counts.get(k, 0)]
+    if wrong:
+        raise AssertionError(f"{label} launched {wrong}")
+
+
+@phase("main path: NS-2D canal_obstacle 8192x2048 and NS-3D canal3d_obstacle "
+       "512x128x128 float32 under tpu_solver mg (fused masked cycle, and "
+       "the 2-D ladder)")
+def main_path_obstacle_mg(torch):
+    from pampi_tpu_torch.kernels import build as kb
+    from pampi_tpu_torch.models.ns2d import NS2DSolver
+    from pampi_tpu_torch.models.ns3d import NS3DSolver
+    from pampi_tpu_torch.utils import dispatch
+
+    mg = dict(tpu_dtype="float32", re=100.0, itermax=MG_OBST_CYCLES, eps=0.0,
+              tpu_mg_stall_rtol=0.0, te=1e9, tpu_solver="mg", tpu_mesh="1")
+    counts, bad = [], []
+    for label, make, kernels, sor, not_on in (
+            ("NS-2D canal_obstacle 8192x2048 f32 mg",
+             lambda: NS2DSolver(obstacle2d_config(*OBST2_MAIN, **mg),
+                                device="cuda"),
+             ("mg_down_2d_masked", "mg_up_2d_masked") + OBST2_PATH,
+             OBST_SOR_STEP.get("2d"), NOT_ON_OBSTACLE2D_PATHS
+             + ("rb_sor_checkerboard_masked",)),
+            ("NS-3D canal3d_obstacle 512x128x128 f32 mg",
+             lambda: NS3DSolver(obstacle_config(**OBST_MAIN, **mg),
+                                device="cuda"),
+             ("mg_down_3d_masked", "mg_up_3d_masked") + OBST_PATH,
+             OBST_SOR_STEP.get("3d"), NOT_ON_OBSTACLE_PATHS
+             + ("rb_sor3d_checkerboard_masked",))):
+        s = make()
+        rec = dispatch.snapshot()
+        c, r = drive_path(kb, label, kernels, lambda: timed_steps(
+            torch, s, 16, MG_OBST_CYCLES))
+        check_not_launched_mg(c, label, not_on)
+        counts.append(c)
+        fields = [s.u, s.v, s.p] + ([s.w] if hasattr(s, "w") else [])
+        finite = all(bool(torch.isfinite(x).all()) for x in fields)
+        ok = finite and s.nt == 17 and s.last_it == MG_OBST_CYCLES
+        cyc = r["cycle"]
+        key = "mg2d_obstacle_fused" if "NS-2D" in label else \
+            "mg3d_obstacle_fused"
+        down = [k for k in kernels if "down" in k][0]
+        log(f"{label} (re 100, eps 0, {MG_OBST_CYCLES} V-cycles a step, "
+            f"L={len(s._solve.levels)}, {rec.get(key)}): "
+            f"{r['ms_per_step']:.3f} ms/step (host clock); PRE "
+            f"{r['pre']:.3f} / solve {r['solve']:.3f} / POST {r['post']:.3f}"
+            f" ms (CUDA events); V-cycle: DOWN {cyc['down']:.4f} / bottom "
+            f"{cyc['bottom']:.4f} / UP {cyc['up']:.4f} / residual check "
+            f"{cyc['check']:.4f} ms (CUDA events, the same 16 steps); "
+            f"cycles a step {s.last_it}, DOWN calls {c[down]}; finite "
+            f"{finite} {'ok' if ok else 'FAIL'}")
+        if sor is not None:
+            log(f"{label}: {r['ms_per_step']:.3f} ms/step beside the masked "
+                f"SOR step of this run (itermax 100, eps 0, n=4) "
+                f"{sor['ms_per_step']:.3f} ms/step, solve {r['solve']:.3f} "
+                f"vs {sor['solve']:.3f} ms")
+        if not ok:
+            bad.append(label)
+        del s
+        torch.cuda.empty_cache()
+    # the ladder (tpu_mg_fused off): its large levels smooth through masked
+    # K2 at omega = 1
+    s = NS2DSolver(obstacle2d_config(*OBST2_MAIN, tpu_mg_fused="off", **mg),
+                   device="cuda")
+    label = "NS-2D canal_obstacle 8192x2048 f32 mg ladder"
+    c, r = drive_path(kb, label, ("rb_sor_checkerboard_masked",)
+                      + OBST2_PATH, lambda: timed_steps(torch, s, 4))
+    check_not_launched_mg(c, label, ("mg_down_2d_masked", "mg_up_2d_masked"))
+    counts.append(c)
+    finite = all(bool(torch.isfinite(x).all()) for x in (s.u, s.v, s.p))
+    log(f"{label} (tpu_mg_fused off, {MG_OBST_CYCLES} V-cycles a step, 4 "
+        f"steps): {r['ms_per_step']:.3f} ms/step (host clock), solve "
+        f"{r['solve']:.3f} ms (CUDA events); masked K2 launches "
+        f"{c['rb_sor_checkerboard_masked']}; finite {finite} "
+        f"{'ok' if finite and s.nt == 5 else 'FAIL'}")
+    if not (finite and s.nt == 5):
+        bad.append(label)
+    del s
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"obstacle mg paths failed: {bad}")
+    return counts
+
+
+MG_OBST_RUNS = {}
+# the CLI runs of tpu_solver auto on the obstacle configs held card vs CPU:
+# (config, NS dimension, te)
+MG_OBST_CLI = (("canal_obstacle.par", 2, 0.5),
+               ("canal3d_obstacle.par", 3, 0.5))
+MG_OBST2048_TE = 0.1
+
+
+@phase("tpu_solver auto on the obstacle configs: the CPU runs started in "
+       "processes of their own")
+def obstacle_mg_cli_start():
+    tmp = tempfile.mkdtemp(prefix="obstacle_mg_")
+    MG_OBST_RUNS["tmp"] = tmp
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    for src, ndim, te in MG_OBST_CLI:
+        d = os.path.join(tmp, f"cpu_{src}")
+        os.makedirs(d)
+        par = os.path.join(d, src)
+        with open(par, "w") as fh:
+            fh.write(config_text(src, te=te, tpu_solver="auto", tpu_mesh="1",
+                                 tpu_vtk="binary"))
+        out = os.path.join(d, "fields.npz")
+        MG_OBST_RUNS[src] = (out, start(
+            [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+             f"--cli{ndim}-child", par, out, "cpu"], d,
+            os.path.join(d, "child.log"), env))
+
+
+@phase(f"main path: python -m pampi_tpu_torch with tpu_solver auto (obstacle "
+       f"multigrid) on configs/canal_obstacle.par and canal3d_obstacle.par "
+       f"(te 0.5) on the card against the CPU, and canal_obstacle2048.par "
+       f"(te {MG_OBST2048_TE}) on the card")
+def obstacle_mg_cli(np):
+    from pampi_tpu_torch.kernels import build as kb
+
+    if not all(src in MG_OBST_RUNS for src, _n, _te in MG_OBST_CLI):
+        raise AssertionError("the CPU child runs did not start")
+    tmp = MG_OBST_RUNS["tmp"]
+    counts, bad = [], []
+    for src, ndim, te in MG_OBST_CLI + (("canal_obstacle2048.par", 2,
+                                         MG_OBST2048_TE),):
+        d = os.path.join(tmp, f"card_{src}")
+        os.makedirs(d)
+        path = os.path.join(d, src)
+        with open(path, "w") as fh:
+            fh.write(config_text(src, te=te, tpu_solver="auto", tpu_mesh="1",
+                                 tpu_vtk="binary"))
+        kernels = ((f"mg_down_{ndim}d_masked", f"mg_up_{ndim}d_masked")
+                   + (OBST2_PATH if ndim == 2 else OBST_PATH))
+        cwd = os.getcwd()
+        os.chdir(d)
+        try:
+            c, (rc, secs, _c, got) = drive_path(
+                kb, f"{src} te {te} auto CLI", kernels,
+                lambda: run_cli_ns(path, "cuda", ndim))
+        finally:
+            os.chdir(cwd)
+        check_not_launched_mg(c, f"the {src} CLI run")
+        counts.append(c)
+        names = ("u", "v", "p") if ndim == 2 else ("ug", "vg", "wg", "pg")
+        finite = rc == 0 and all(np.isfinite(got[k]).all() for k in names)
+        rec = json.loads(got["record"]) if finite else {}
+        key = f"mg{ndim}d_obstacle_fused"
+        log(f"{src} te {te} tpu_solver auto (f64) on one card: rc {rc}, "
+            f"{got.get('nt')} steps to t={got.get('t', float('nan')):.6f} in "
+            f"{secs:.1f} s (wall, the CLI's whole run); "
+            f"{rec.get('solver_auto')}; {rec.get(key)}; DOWN calls "
+            f"{c[kernels[0]]}; fields finite {finite}")
+        if not finite or "fused" not in str(rec.get(key)):
+            bad.append(f"{src} card")
+            continue
+        if src not in MG_OBST_RUNS:
+            continue
+        out, proc = MG_OBST_RUNS[src]
+        crc = proc.wait(timeout=900)
+        if crc != 0:
+            log(open(os.path.join(os.path.dirname(out),
+                                  "child.log")).read()[-4000:])
+            bad.append(f"{src} cpu exited {crc}")
+            continue
+        with np.load(out) as z:
+            cpu = {k: z[k] for k in z.files}
+        scale = max(1.0, *(float(np.abs(got[k]).max()) for k in names))
+        diff = max(float(np.abs(cpu[k] - got[k]).max()) for k in names)
+        ok = diff <= 1e-9 * scale and int(cpu["nt"]) == got["nt"]
+        log(f"{src} te {te} tpu_solver auto on the CPU (its own process): "
+            f"{int(cpu['nt'])} steps in {float(cpu['secs']):.1f} s (card: "
+            f"{got['nt']}), t equal {float(cpu['t']) == got['t']}; max "
+            f"|cpu - card| over {', '.join(names)} {diff:.3e} (tol 1e-9 of "
+            f"scale {scale:.3e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            bad.append(f"{src} card vs cpu")
+    if bad:
+        raise AssertionError(f"obstacle mg CLI runs failed: {bad}")
     return counts
 
 
@@ -4986,6 +5308,7 @@ def main() -> int:
         counts_d2cards = dist2d_several_cards(torch)
         counts_o3 = main_path_obstacle3d(torch)
         counts_o2 = main_path_obstacle2d(torch)
+        counts_omg = main_path_obstacle_mg(torch)
         counts_fl = main_path_fleet(torch)
         fleet_card_vs_cpu(np)
         # no times are taken from here on: the CPU half of dcavity_card
@@ -4993,11 +5316,13 @@ def main() -> int:
         # card's runs
         obstacle3d_cli_start()
         obstacle2d_cli_start()
+        obstacle_mg_cli_start()
         dcavity_card(np)
         counts_d2cli = dist2d_cli(np)
         dcavity_card_vs_cpu(np)
         counts_o3cli = obstacle3d_cli(np)
         counts_o2cli = obstacle2d_cli(np)
+        counts_omgcli = obstacle_mg_cli(np)
         if None not in (rows, rows3, mg_rows, q_rows, d3_rows, d2_rows,
                         o3_rows, o2_rows, cli_rows, sor_cli_rows, k18_rows,
                         counts,
@@ -5005,7 +5330,8 @@ def main() -> int:
                         counts_mg, counts_dist, counts_cli, counts_d3,
                         counts_d3cli, counts_d2, counts_d2cards,
                         counts_d2cli, counts_o3, counts_o3cli, counts_o2,
-                        counts_o2cli, counts_fl):
+                        counts_o2cli, counts_fl, counts_omg,
+                        counts_omgcli):
             rows = {**rows, **rows3, **mg_rows[0], **q_rows, **o3_rows,
                     **o2_rows, **k18_rows,
                     "rb_sor_odist": d3_rows["rb_sor_odist"],
@@ -5024,7 +5350,7 @@ def main() -> int:
             # main-path launches are its sum over the paths
             paths = (counts + counts3 + counts_mg + counts_d3 + counts_d2
                      + counts_d2cli + counts_o3 + counts_o3cli + counts_o2
-                     + counts_o2cli
+                     + counts_o2cli + counts_omg + counts_omgcli
                      + [counts_dist, counts_cli, counts_d3cli,
                         counts_d2cards, counts_fl])
             counts = {k: sum(c.get(k, 0) for c in paths)

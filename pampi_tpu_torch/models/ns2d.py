@@ -15,9 +15,11 @@ With an `obstacles` key (canal_obstacle*.par: flag-field rectangles,
 ops/obstacle.py) the step is the same composition in flag mode: PRE (K3
 with the flags: the obstacle velocity BC after the special BC, F/G
 carrying U/V on non-fluid faces), the fluid-weighted normalizePressure
-every 100 steps, the solve on the masked mode of K2 (residual over the
-fluid cells, `tpu_solver sor` only), POST (K4 with the flags: the
-projection on fluid-fluid faces). The JAX package runs that step as its
+every 100 steps, the solve (residual over the fluid cells) on the masked
+mode of K2 under `tpu_solver sor` or the obstacle multigrid under `mg`
+(ops/multigrid.make_obstacle_mg_solve_2d: the masked mode of K9/K10, or
+its ladder on masked K2), POST (K4 with the flags: the projection on
+fluid-fluid faces). The JAX package runs that step as its
 phase chain on the CPU and as these kernels on a TPU.
 
 The step updates u and v in place and replaces p with the solved field.
@@ -32,6 +34,7 @@ import torch
 
 from ..ops import ns2d as ops
 from ..ops import obstacle as obst
+from ..ops.multigrid import make_obstacle_mg_solve_2d
 from ..ops.ns2d_fused import StepConfig, ns2d_post, ns2d_pre
 from ..utils import flags as _flags
 from ..utils.datio import write_pressure, write_velocity
@@ -93,12 +96,22 @@ class NS2DSolver:
                 self.dx, self.dy, param.omg)
             self._fluid = torch.from_numpy(self.masks.fluid).to(
                 device=self.device, dtype=self.dtype)
-            n = sor_cadence(param, self.dtype)
-            self._solve = obst.make_obstacle_solver_fn(
-                self.imax, self.jmax, self.dx, self.dy, param.eps,
-                param.itermax, self.masks, self.dtype, n, device=self.device)
+            if param.tpu_solver == "mg":
+                self._solve = make_obstacle_mg_solve_2d(
+                    self.imax, self.jmax, self.dx, self.dy, param.eps,
+                    param.itermax, self.masks, self.dtype,
+                    stall_rtol=param.tpu_mg_stall_rtol,
+                    fused=param.tpu_mg_fused, device=self.device)
+                label = ("mg obstacle "
+                         + ("fused" if self._solve.fused else "ladder"))
+            else:
+                n = sor_cadence(param, self.dtype)
+                self._solve = obst.make_obstacle_solver_fn(
+                    self.imax, self.jmax, self.dx, self.dy, param.eps,
+                    param.itermax, self.masks, self.dtype, n,
+                    device=self.device)
+                label = f"sor masked checkerboard n_inner={n}"
             self._flags = self._solve.flags
-            label = f"sor masked checkerboard n_inner={n}"
         else:
             self._solve = make_pressure_solve_for(param, self.dx, self.dy,
                                                   self.dtype, self.device)

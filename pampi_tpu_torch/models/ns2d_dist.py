@@ -59,8 +59,8 @@ assignment-5 MPI solver (ex5-nazifkar), with NS2DSolver's .par interface.
 On the CPU the same composition runs the kernels' plain versions. The
 fields equal NS2DSolver's to round-off where the iteration counts agree.
 The overlapped and depth-scheduled exchanges, the residual-adaptive
-itermax and mg/fft on a mesh are refused (ROADMAP A.8), and obstacle
-multigrid (A item 5).
+itermax and mg/fft on a mesh are refused (ROADMAP A.8), the obstacle
+multigrid too (A.8, item 6.4: it runs on one device, models/ns2d.py).
 """
 
 from __future__ import annotations

@@ -18,12 +18,14 @@ t accumulates on the host in float64 (one readback of dt per step), which
 is what the JAX chunk carries (`t + dt.astype(f64)`).
 
 Obstacle flag fields (the .par `obstacles` key, 3-D boxes; ops/
-obstacle3d.py) run under `tpu_solver sor`: the masks are built from the
-geometry, K7 and K8 run in their flag mode (the obstacle velocity BC and
-the masked F/G/H in PRE, the projection on fluid-fluid faces in POST),
-and the solve is the masked mode of K5 (make_obstacle_solver_fn_3d), the
-residual normalised by the fluid cells. The distributed solver is
-models/ns3d_dist.py.
+obstacle3d.py) run under `tpu_solver sor` and `mg`: the masks are built
+from the geometry, K7 and K8 run in their flag mode (the obstacle
+velocity BC and the masked F/G/H in PRE, the projection on fluid-fluid
+faces in POST), and the solve, its residual normalised by the fluid
+cells, is the masked mode of K5 (make_obstacle_solver_fn_3d) under sor
+and the obstacle multigrid (ops/multigrid.make_obstacle_mg_solve_3d: the
+masked mode of K11/K12, or its ladder on masked K5) under mg. The
+distributed solver is models/ns3d_dist.py.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ import torch
 
 from ..ops import ns3d as ops
 from ..ops.dctpoisson import make_dct_solve_3d
-from ..ops.multigrid import make_mg_solve_3d
+from ..ops.multigrid import make_mg_solve_3d, make_obstacle_mg_solve_3d
 from ..ops.ns3d_fused import StepConfig3D, ns3d_post, ns3d_pre
 from ..ops.sor3d import sor_coefficients_3d
 from ..ops.sor3d_kernels import rb_sor3d_checkerboard, rb_sor3d_octants
@@ -149,18 +151,27 @@ class NS3DSolver:
         n_inner = sor_cadence(param, self.dtype)
         self.masks = self._flags = None
         if param.obstacles.strip():
-            # check_supported leaves only sor here
+            # check_supported leaves sor and mg here
             validate_obstacle_layout(param.tpu_sor_layout)
             self.masks = obst3.make_masks_3d(
                 obst3.build_fluid_3d(g.imax, g.jmax, g.kmax, g.dx, g.dy,
                                      g.dz, param.obstacles),
                 g.dx, g.dy, g.dz, param.omg)
-            self._solve = obst3.make_obstacle_solver_fn_3d(
-                g.imax, g.jmax, g.kmax, g.dx, g.dy, g.dz, param.eps,
-                param.itermax, self.masks, self.dtype, n_inner=n_inner,
-                device=self.device)
+            if solver == "mg":
+                self._solve = make_obstacle_mg_solve_3d(
+                    g.imax, g.jmax, g.kmax, g.dx, g.dy, g.dz, param.eps,
+                    param.itermax, self.masks, self.dtype,
+                    stall_rtol=param.tpu_mg_stall_rtol,
+                    fused=param.tpu_mg_fused, device=self.device)
+                solver = ("mg obstacle "
+                          + ("fused" if self._solve.fused else "ladder"))
+            else:
+                self._solve = obst3.make_obstacle_solver_fn_3d(
+                    g.imax, g.jmax, g.kmax, g.dx, g.dy, g.dz, param.eps,
+                    param.itermax, self.masks, self.dtype, n_inner=n_inner,
+                    device=self.device)
+                solver = f"sor masked checkerboard n_inner={n_inner}"
             self._flags = self._solve.flags
-            solver = f"sor masked checkerboard n_inner={n_inner}"
         else:
             if solver == "sor":
                 layout = resolve_layout_3d(g.imax, g.jmax, g.kmax,

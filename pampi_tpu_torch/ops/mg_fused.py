@@ -14,6 +14,15 @@ K10 `mg_up_2d`, K12 `mg_up_3d` replace `_up_body` (pallas_call at :409):
     prolongation of the coarser correction on the interior, the Neumann
     copy, and n_post sweeps; returns the fine p.
 
+Their masked mode (`mg_down_2d_masked`, `mg_up_2d_masked`,
+`mg_down_3d_masked`, `mg_up_3d_masked`: the `masked=True` bodies of the
+same two pallas_calls, which make_cycle_kernels(fluid_levels=,
+factor_levels=) builds for the obstacle multigrid) reads per level the
+uint8 flags and the ω = 1 factor (CyclePlan.fluid, CyclePlan.fac): each
+sweep relaxes r = (rhs - lap_obs(p))·fl with p -= fac·r, lap_obs the
+flag-masked stencil (coefficients fl(±)·fl), the restricted residual is
+masked the same way, and UP adds the prolonged correction times fl.
+
 The exact bottom solve runs between them as plain torch
 (ops/multigrid.py), as in the JAX package. Both halves are op for op the
 ladder of ops/multigrid.py (parity order red first in 2-D, odd first in
@@ -57,6 +66,8 @@ from .multigrid import (
     _inner,
     _masks,
     _neumann,
+    _obstacle_residual,
+    _obstacle_smooth,
     _parities,
     _prolong,
     _residual,
@@ -74,8 +85,16 @@ MG_DOWN_2D = kb.register("mg_down_2d", SOURCE, _DOWN)
 MG_UP_2D = kb.register("mg_up_2d", SOURCE, _UP)
 MG_DOWN_3D = kb.register("mg_down_3d", SOURCE, _DOWN)
 MG_UP_3D = kb.register("mg_up_3d", SOURCE, _UP)
-_KERNELS = {("down", 2): MG_DOWN_2D, ("up", 2): MG_UP_2D,
-            ("down", 3): MG_DOWN_3D, ("up", 3): MG_UP_3D}
+MG_DOWN_2D_MASKED = kb.register("mg_down_2d_masked", SOURCE, _DOWN)
+MG_UP_2D_MASKED = kb.register("mg_up_2d_masked", SOURCE, _UP)
+MG_DOWN_3D_MASKED = kb.register("mg_down_3d_masked", SOURCE, _DOWN)
+MG_UP_3D_MASKED = kb.register("mg_up_3d_masked", SOURCE, _UP)
+_KERNELS = {("down", 2, False): MG_DOWN_2D, ("up", 2, False): MG_UP_2D,
+            ("down", 3, False): MG_DOWN_3D, ("up", 3, False): MG_UP_3D,
+            ("down", 2, True): MG_DOWN_2D_MASKED,
+            ("up", 2, True): MG_UP_2D_MASKED,
+            ("down", 3, True): MG_DOWN_3D_MASKED,
+            ("up", 3, True): MG_UP_3D_MASKED}
 
 _V, _I = ctypes.c_void_p, ctypes.c_int
 _PV = ctypes.POINTER(ctypes.c_void_p)
@@ -90,6 +109,12 @@ for _nd in (2, 3):
         # dev, pstk, rstk, pbot, out, ext, coef, L, n_post, stream
         _SIGNATURES[f"mg_up_{_nd}d_{_t}"] = [_I, _PV, _PV, _V, _PV, _PI, _PD,
                                              _I, _I, _V]
+        # the masked entries take the flag and factor pointers of every
+        # level after the stacks
+        _SIGNATURES[f"mg_down_{_nd}d_masked_{_t}"] = [
+            _I, _V, _V, _PV, _PV, _PV, _PV, _PI, _PD, _I, _I, _V]
+        _SIGNATURES[f"mg_up_{_nd}d_masked_{_t}"] = [
+            _I, _PV, _PV, _V, _PV, _PV, _PV, _PI, _PD, _I, _I, _V]
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
@@ -98,7 +123,9 @@ class CyclePlan:
     """A static level plan and its per-level coefficients: levels finest
     first ((jl, il) or (kl, jl, il)), inv2 per level ordered (idx2,
     idy2[, idz2]), the ω = 1 factor per level, the half-sweep parities,
-    and the sweep counts."""
+    and the sweep counts. A masked plan (the obstacle multigrid) also
+    holds per level the uint8 flags and the ω = 1 per-cell factor, both
+    tensors of the level's extended shape on the cycle's device."""
 
     levels: tuple
     inv2: tuple
@@ -106,20 +133,31 @@ class CyclePlan:
     parities: tuple
     n_pre: int
     n_post: int
+    fluid: tuple = ()
+    fac: tuple = ()
 
     @property
     def nd(self) -> int:
         return len(self.levels[0])
 
+    @property
+    def masked(self) -> bool:
+        return bool(self.fluid)
+
     def shape(self, lvl: int) -> tuple:
         return tuple(n + 2 for n in self.levels[lvl])
 
 
-def make_cycle_plan(levels, spacings, n_pre: int = 2, n_post: int = 2):
-    """The plan of make_cycle_kernels (pampi_tpu/ops/mg_fused.py:361-373)
+def make_cycle_plan(levels, spacings, n_pre: int = 2, n_post: int = 2,
+                    fluid_levels=None, factor_levels=None):
+    """The plan of make_cycle_kernels (pampi_tpu/ops/mg_fused.py:361-384)
     for levels finest first and spacings (dx, dy[, dz]). The plan must
     have at least two levels, every coarser level exactly half of an even
-    finer one, and n_pre, n_post >= 1."""
+    finer one, and n_pre, n_post >= 1. For the masked mode pass
+    `fluid_levels` (per level a uint8 flag tensor, 0 on obstacle cells,
+    the ghost ring fluid) and `factor_levels` (per level the ω = 1
+    factor, ops/multigrid.obstacle_factor, in the cycle's dtype), both of
+    the level's extended shape on one device."""
     levels = tuple(tuple(int(n) for n in ext) for ext in levels)
     if len(levels) < 2:
         raise ValueError("the fused cycle needs a plan of at least 2 levels")
@@ -130,25 +168,62 @@ def make_cycle_plan(levels, spacings, n_pre: int = 2, n_post: int = 2):
         raise ValueError(f"n_pre and n_post must be >= 1, got {n_pre}, "
                          f"{n_post}")
     cfg = level_config(levels, spacings)
-    return CyclePlan(levels, tuple(c[0] for c in cfg),
+    plan = CyclePlan(levels, tuple(c[0] for c in cfg),
                      tuple(c[1] for c in cfg), _parities(len(levels[0])),
                      n_pre, n_post)
+    if fluid_levels is None and factor_levels is None:
+        return plan
+    fluid, fac = tuple(fluid_levels or ()), tuple(factor_levels or ())
+    if len(fluid) != len(levels) or len(fac) != len(levels):
+        raise ValueError("a masked plan needs the flags and the factor of "
+                         "every level")
+    for lvl, (fl, fc) in enumerate(zip(fluid, fac)):
+        want = plan.shape(lvl)
+        if (tuple(fl.shape) != want or tuple(fc.shape) != want
+                or fl.dtype != torch.uint8 or not fc.is_floating_point()
+                or fl.device != fac[0].device or fc.device != fac[0].device
+                or fc.dtype != fac[0].dtype or not fl.is_contiguous()
+                or not fc.is_contiguous()):
+            raise ValueError(f"level {lvl}: flags must be contiguous uint8 "
+                             f"and the factor a contiguous float tensor of "
+                             f"one dtype, both {want} on one device")
+    return CyclePlan(levels, plan.inv2, plan.factor, plan.parities, n_pre,
+                     n_post, fluid, fac)
 
 
 def _level_masks(plan: CyclePlan, lvl: int, like):
     return _masks(plan.levels[lvl], plan.parities, like.dtype, like.device)
 
 
+def _level_fl(plan: CyclePlan, lvl: int, like):
+    """The masked plan's level flags as 0/1 in like's dtype."""
+    return plan.fluid[lvl].to(device=like.device, dtype=like.dtype)
+
+
+def _level_smooth(plan: CyclePlan, lvl: int, p, rhs, n):
+    masks = _level_masks(plan, lvl, p)
+    if plan.masked:
+        fac = _inner(plan.fac[lvl]).to(device=p.device, dtype=p.dtype)
+        return _obstacle_smooth(p, rhs, _level_fl(plan, lvl, p), fac, masks,
+                                plan.inv2[lvl], n)
+    return _smooth(p, rhs, masks, plan.factor[lvl], plan.inv2[lvl], n)
+
+
 def mg_down_plain(plan: CyclePlan, p, rhs):
-    """DOWN's plain version: (pstk, rstk), lists of L level tensors."""
+    """DOWN's plain version: (pstk, rstk), lists of L level tensors. A
+    masked plan relaxes and restricts with the flag-masked operator."""
     L = len(plan.levels)
     pstk, rstk = [], [rhs]
     p = p.clone()
     for lvl in range(L - 1):
-        _smooth(p, rstk[lvl], _level_masks(plan, lvl, p),
-                plan.factor[lvl], plan.inv2[lvl], plan.n_pre)
+        _level_smooth(plan, lvl, p, rstk[lvl], plan.n_pre)
         pstk.append(p)
-        rc = _embed(_restrict(_residual(p, rstk[lvl], plan.inv2[lvl])))
+        if plan.masked:
+            r = _obstacle_residual(p, rstk[lvl], _level_fl(plan, lvl, p),
+                                   plan.inv2[lvl])
+        else:
+            r = _residual(p, rstk[lvl], plan.inv2[lvl])
+        rc = _embed(_restrict(r))
         rstk.append(rc)
         p = torch.zeros_like(rc)
     pstk.append(p)
@@ -156,19 +231,22 @@ def mg_down_plain(plan: CyclePlan, p, rhs):
 
 
 def mg_up_plain(plan: CyclePlan, pstk, rstk, pbot):
-    """UP's plain version: the fine p (a new tensor)."""
+    """UP's plain version: the fine p (a new tensor). A masked plan adds
+    the prolonged correction on fluid cells only."""
     e = pbot
     for lvl in reversed(range(len(plan.levels) - 1)):
         p = pstk[lvl].clone()
-        _inner(p).add_(_prolong(_inner(e)))
+        f = _prolong(_inner(e))
+        if plan.masked:
+            f = f * _inner(_level_fl(plan, lvl, p))
+        _inner(p).add_(f)
         _neumann(p)
-        _smooth(p, rstk[lvl], _level_masks(plan, lvl, p),
-                plan.factor[lvl], plan.inv2[lvl], plan.n_post)
+        _level_smooth(plan, lvl, p, rstk[lvl], plan.n_post)
         e = p
     return e
 
 
-def _check(tensors, shapes):
+def _check(plan: CyclePlan, tensors, shapes):
     dev, dtype = tensors[0].device, tensors[0].dtype
     if dev.type != "cuda":
         raise ValueError(f"MG cycle kernels take CPU or CUDA tensors, not {dev}")
@@ -180,23 +258,29 @@ def _check(tensors, shapes):
         if tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(f"level tensor {tuple(t.shape)} must be a "
                              f"contiguous {shape}")
+    if plan.masked and (plan.fluid[0].device != dev
+                        or plan.fac[0].dtype != dtype):
+        raise ValueError(f"the masked plan's flags and factors must be on "
+                         f"{dev} and the factors {dtype}")
 
 
 def _call(plan: CyclePlan, kind: str, like, ptrs):
     """One ctypes call of DOWN or UP on like's device and stream: ptrs
-    are the entry point's tensor arguments, the plan's extents and
-    coefficients follow."""
+    are the entry point's tensor arguments; a masked plan's flag and
+    factor pointers, then the plan's extents and coefficients follow."""
     nd, L = plan.nd, len(plan.levels)
     ext = (ctypes.c_int * (L * nd))(*[n for e in plan.levels for n in e])
     coef = (ctypes.c_double * (L * (nd + 1)))(
         *[c for inv2, f in zip(plan.inv2, plan.factor) for c in (*inv2, f)])
     n = plan.n_pre if kind == "down" else plan.n_post
     lib = kb.load("mg_cycle", _SIGNATURES)
-    entry = f"mg_{kind}_{nd}d"
+    entry = f"mg_{kind}_{nd}d" + ("_masked" if plan.masked else "")
+    if plan.masked:
+        ptrs = (*ptrs, _ptrs(plan.fluid), _ptrs(plan.fac))
     err = getattr(lib, f"{entry}_{_SUFFIX[like.dtype]}")(
         like.device.index, *ptrs, ext, coef, L, n, kb.stream_of(like))
     kb.check(lib, err, entry)
-    _KERNELS[(kind, nd)].launches += 1
+    _KERNELS[(kind, nd, plan.masked)].launches += 1
 
 
 def _ptrs(tensors):
@@ -209,11 +293,12 @@ def _empty_levels(plan, like, lvls):
 
 
 def mg_down(plan: CyclePlan, p, rhs):
-    """K9 (2-D) / K11 (3-D): DOWN on the fine p and rhs. Returns (pstk,
-    rstk), L level tensors each; rstk[0] is rhs itself."""
+    """K9 (2-D) / K11 (3-D): DOWN on the fine p and rhs, in the masked
+    mode for a masked plan. Returns (pstk, rstk), L level tensors each;
+    rstk[0] is rhs itself."""
     if p.device.type == "cpu":
         return mg_down_plain(plan, p, rhs)
-    _check((p, rhs), (plan.shape(0),) * 2)
+    _check(plan, (p, rhs), (plan.shape(0),) * 2)
     L = len(plan.levels)
     pstk = _empty_levels(plan, p, range(L))
     rstk = [rhs] + _empty_levels(plan, p, range(1, L))
@@ -224,11 +309,12 @@ def mg_down(plan: CyclePlan, p, rhs):
 
 def mg_up(plan: CyclePlan, pstk, rstk, pbot):
     """K10 (2-D) / K12 (3-D): UP from the bottom correction pbot through
-    the stacks of DOWN. Returns the fine p (a new tensor)."""
+    the stacks of DOWN, in the masked mode for a masked plan. Returns the
+    fine p (a new tensor)."""
     if pbot.device.type == "cpu":
         return mg_up_plain(plan, pstk, rstk, pbot)
     L = len(plan.levels)
-    _check([pbot, *pstk, *rstk],
+    _check(plan, [pbot, *pstk, *rstk],
            [plan.shape(L - 1)] + [plan.shape(lvl) for lvl in range(L)] * 2)
     out = _empty_levels(plan, pbot, range(L - 1))
     _call(plan, "up", pbot,

@@ -36,8 +36,10 @@ kernel's global gating excludes them. Layout as in ops/ns2d.py:
 (jmax+2, imax+2) arrays [j, i]; u on east faces, v on north faces; the
 ghost ring counts as fluid.
 
-The JAX package's obstacle multigrid is not ported (ROADMAP A item 5),
-and neither is its padded TPU layout (`sor_pallas.pad_array`,
+The obstacle multigrid on one device is ops/multigrid.py's
+make_obstacle_mg_solve_2d (it reads these masks' fluid field); its
+distributed form is not ported (ROADMAP A.8, item 6.4), and neither is the
+JAX package's padded TPU layout (`sor_pallas.pad_array`,
 `sor_obsdist.padded_deep_exchange`): the port exchanges the unpadded deep
 block (parallel/comm.halo_exchange).
 """

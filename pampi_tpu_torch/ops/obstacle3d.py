@@ -28,9 +28,10 @@ interior coefficients (eps_*, factor, p_mask) are not kept. Layout as in
 ops/ns3d.py: (kmax+2, jmax+2, imax+2) arrays [k, j, i]; u on east faces,
 v on north faces, w on back faces; the ghost shell counts as fluid.
 
-The JAX package's obstacle multigrid and its ragged-mesh obstacle solve
-are not ported (ROADMAP A items 5 and 6), and neither is its padded TPU
-layout (`pad_array_3d`, `padded_deep_exchange_3d`): the port exchanges
+The obstacle multigrid on one device is ops/multigrid.py's
+make_obstacle_mg_solve_3d; the JAX package's distributed obstacle
+multigrid and its ragged-mesh obstacle solve are not ported (ROADMAP A.8,
+item 6.4, and A item 6), and neither is its padded TPU layout (`pad_array_3d`, `padded_deep_exchange_3d`): the port exchanges
 the unpadded deep block (parallel/comm.halo_exchange).
 """
 

@@ -54,9 +54,9 @@ def resolve_solver(param, ragged: bool = False):
     """`tpu_solver auto` -> the solver for the run's structure, as the JAX
     package resolves it (pampi_tpu/utils/dispatch.py resolve_solver): a
     ragged distributed grid takes `sor`, a plain grid `fft` (the exact DCT
-    direct solve), an obstacle grid `mg` (which check_supported refuses
-    until obstacle multigrid is ported). Every other value passes
-    through. The
+    direct solve), an obstacle grid `mg` (the obstacle multigrid, on one
+    device; check_supported refuses it on a mesh). Every other value
+    passes through. The
     decision is recorded under "solver_auto". Returns the param with a
     concrete solver; the models resolve through here first. A 2-D
     obstacle run under `sor_lex` gets the JAX package's ValueError (its
@@ -196,7 +196,8 @@ def check_supported(param, mesh: bool = False, ragged: bool = False) -> None:
     2-D and 3-D single device with the red-black SOR, multigrid and DCT
     pressure solvers, obstacle flag fields under the SOR (2-D on one
     device and on any 2-D mesh, 3-D on one device and on a mesh that
-    divides the grid), and on a mesh (`tpu_mesh PJxPI`, `PKxPJxPI`) under
+    divides the grid) and under the obstacle multigrid (one device), and
+    on a mesh (`tpu_mesh PJxPI`, `PKxPJxPI`) under
     `tpu_solver sor` the distributed 2-D Poisson solve, the distributed
     NS-2D time stepper on a mesh that divides the grid or not (ragged),
     and the distributed NS-3D time stepper on a divisible grid. `param`
@@ -244,23 +245,25 @@ _OBSTACLE_FFT = ("tpu_solver fft cannot solve obstacle flag fields (the "
 
 
 def _check_obstacles(param, three_d: bool, mesh: bool) -> None:
-    """Obstacle flag fields under `tpu_solver sor`: 2-D ones on one device
-    and on a 2-D mesh, divisible or ragged; 3-D ones on one device and on
-    a mesh that divides the grid (the ragged refusal is _check_mesh's).
-    The Poisson problems refuse the key and fft refuses the fields, each
-    with the JAX package's ValueError (pampi_tpu/cli.py,
-    models/ns2d.py, ns2d_dist.py, ns3d.py); mg (which `auto` resolves to
-    on an obstacle grid) is refused until obstacle multigrid is ported."""
+    """Obstacle flag fields: under `tpu_solver sor` 2-D ones on one device
+    and on a 2-D mesh, divisible or ragged, 3-D ones on one device and on
+    a mesh that divides the grid (the ragged refusal is _check_mesh's);
+    under `tpu_solver mg` (which `auto` resolves to on an obstacle grid)
+    the obstacle multigrid on one device. The Poisson problems refuse the
+    key and fft refuses the fields, each with the JAX package's ValueError
+    (pampi_tpu/cli.py, models/ns2d.py, ns2d_dist.py, ns3d.py); obstacle
+    multigrid on a mesh is not ported (ROADMAP A.8, item 6.4)."""
     if param.name.startswith("poisson"):
         raise ValueError("the obstacles key is supported for NS problems "
                          "only")
     if param.tpu_solver == "fft":
         raise ValueError(_OBSTACLE_SOLVER_2D.format("fft")
                          if not (three_d or mesh) else _OBSTACLE_FFT)
-    if param.tpu_solver == "mg":
+    if param.tpu_solver == "mg" and mesh:
         raise NotImplementedError(
-            "tpu_solver mg with obstacle flag fields: obstacle multigrid "
-            "is not yet ported (ROADMAP A item 5); use tpu_solver sor")
+            "tpu_solver mg with obstacle flag fields on a mesh: the "
+            "distributed obstacle multigrid is not yet ported (ROADMAP A.8, "
+            "item 6.4); use tpu_solver sor, or one device")
 
 
 def _check_mesh(param, three_d: bool, ragged: bool) -> None:

@@ -218,7 +218,10 @@ def test_kernel_registry():
                                "rb_sor3d_checkerboard", "rb_sor3d_octants",
                                "ns3d_pre", "ns3d_post",
                                "mg_down_2d", "mg_up_2d",
-                               "mg_down_3d", "mg_up_3d", "rb_sor_qdist",
+                               "mg_down_3d", "mg_up_3d",
+                               "mg_down_2d_masked", "mg_up_2d_masked",
+                               "mg_down_3d_masked", "mg_up_3d_masked",
+                               "rb_sor_qdist",
                                "rb_sor_odist", "rb_sor_obsdist",
                                "rb_sor_obsdist3d",
                                "rb_sor3d_checkerboard_masked",

@@ -251,6 +251,66 @@ def test_mg_fft_dcavity_on_card_matches_cpu(cuda, solver, monkeypatch):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("extents", [(64, 96), (32, 32, 48)])
+def test_masked_mg_cycle_kernels_match_plain(cuda, dtype, extents):
+    """The masked mode of K9-K12 (an odd box on two walls, 3 levels)
+    bitwise its plain version, launched as the masked entries."""
+    nd = len(extents)
+    fluid = np.ones(tuple(n + 2 for n in extents), bool)
+    fluid[(slice(1, 12),) + (slice(5, 17),) * (nd - 2)
+          + (slice(extents[-1] - 20, extents[-1] + 1),)] = False
+    levels = mg.mg_levels(*extents)[:3]
+    sp = tuple(1.0 / n for n in reversed(extents))
+    lvs = mg.obstacle_levels(fluid, levels, sp, dtype, cuda)
+    plan = mf.make_cycle_plan(levels, sp,
+                              fluid_levels=[lv.flags for lv in lvs],
+                              factor_levels=[lv.fac_ext for lv in lvs])
+    full = tuple(n + 2 for n in extents)
+    p, rhs = _rand(full, dtype, cuda, 21), _rand(full, dtype, cuda, 22)
+    down, up = mf._KERNELS[("down", nd, True)], mf._KERNELS[("up", nd, True)]
+    n_down, n_up = down.launches, up.launches
+    pstk, rstk = mf.mg_down(plan, p, rhs)
+    pk, rk = mf.mg_down_plain(plan, p, rhs)
+    assert down.launches == n_down + 1
+    for a, b in zip(pstk + rstk, pk + rk):
+        assert torch.equal(a, b)
+    pbot = _rand(tuple(n + 2 for n in levels[-1]), dtype, cuda, 23)
+    out = mf.mg_up(plan, pstk, rstk, pbot)
+    assert up.launches == n_up + 1
+    assert torch.equal(out, mf.mg_up_plain(plan, pk, rk, pbot))
+
+
+@pytest.mark.parametrize("fused", ["auto", "off"])
+@pytest.mark.parametrize("nd", [2, 3])
+def test_obstacle_mg_on_card_matches_cpu(cuda, nd, fused, monkeypatch):
+    """canal_obstacle.par cut to 64x16 and canal3d_obstacle.par cut to
+    32x16x16 (f64) under tpu_solver mg, multi-level plans, on the card
+    and on the CPU: the same steps and fields within 1e-9."""
+    import pathlib
+
+    from pampi_tpu_torch.utils.params import read_parameter
+
+    monkeypatch.setattr(mg, "_DENSE_BOTTOM_MAX_CELLS", 64 if nd == 2 else 512)
+    root = pathlib.Path(__file__).resolve().parent.parent
+    if nd == 2:
+        param = read_parameter(str(root / "configs" / "canal_obstacle.par")
+                               ).replace(imax=64, jmax=16, te=0.5)
+    else:
+        param = read_parameter(str(root / "configs" / "canal3d_obstacle.par")
+                               ).replace(imax=32, jmax=16, kmax=16, te=0.5,
+                                         tpu_mesh="1")
+    param = param.replace(tpu_solver="mg", tpu_mg_fused=fused)
+    cls = NS2DSolver if nd == 2 else NS3DSolver
+    a, b = (cls(param, device=d) for d in ("cuda", "cpu"))
+    for s in (a, b):
+        s.run(progress=False)
+    assert len(a._solve.levels) >= 2 and a.nt == b.nt > 2
+    for name in ("uvp" if nd == 2 else "uvwp"):
+        d = (getattr(a, name).cpu() - getattr(b, name)).abs().max()
+        assert float(d) <= 1e-9
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("qoffs", [(0, 0), (8, 4), (0, 12), (16, 36)])
 def test_qdist_kernel_matches_plain(cuda, dtype, qoffs):
     """K13 on random stacked planes of shards at global offsets, walls and

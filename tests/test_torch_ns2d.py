@@ -104,10 +104,13 @@ def test_run_stops_after_te_like_jax():
 
 
 def test_cli_refuses_unported_problems(tmp_path, capsys):
-    """canal_obstacle runs since 2-D obstacles are ported; what stays
-    refused on it is obstacle multigrid, named by its ROADMAP item."""
+    """canal_obstacle runs since 2-D obstacles are ported, and under
+    tpu_solver mg on one device since obstacle multigrid is; what stays
+    refused on it is obstacle multigrid on an explicit mesh, named by its
+    ROADMAP item."""
     par = tmp_path / "co.par"
     par.write_text("name canal_obstacle\nobstacles 0.2,0.2,0.4,0.4\n"
-                   "tpu_solver mg\n")
+                   "tpu_solver mg\ntpu_mesh 2x2\n")
     assert cli.main(["pampi_tpu_torch", "--device", "cpu", str(par)]) == 1
-    assert "ROADMAP A item 5" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "obstacle multigrid" in err and "ROADMAP A.8" in err

@@ -352,13 +352,6 @@ def _obstacle_param(**kw):
 
 
 REFUSALS = {
-    "mg": (lambda: NS2DSolver(_obstacle_param(tpu_solver="mg"),
-                              device="cpu"),
-           NotImplementedError, "obstacle multigrid .*ROADMAP A item 5"),
-    "auto-takes-mg": (lambda: NS2DSolver(_obstacle_param(tpu_solver="auto"),
-                                         device="cpu"),
-                      NotImplementedError,
-                      "tpu_solver mg with obstacle flag fields"),
     "quarters": (lambda: NS2DSolver(
         _obstacle_param(tpu_sor_layout="quarters"), device="cpu"),
                  ValueError, "tpu_sor_layout quarters does not support "

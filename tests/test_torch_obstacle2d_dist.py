@@ -152,8 +152,8 @@ def test_from_jax_state_on_ragged_mesh_matches_one_device():
 
 def test_mesh_refusals_follow_jax():
     """A forced quarter layout and fft raise the JAX package's ValueErrors;
-    mg (and auto, which takes mg on an obstacle grid) name the obstacle
-    multigrid item."""
+    mg (and auto, which takes mg on an obstacle grid) name ROADMAP A.8,
+    where the distributed obstacle multigrid waits."""
     jparam, param = _params(jmax=16, imax=64)
     comm = CartComm(ndims=2, dims=(2, 2), devices=[CPU])
     for kw in (dict(tpu_sor_layout="quarters"), dict(tpu_solver="fft")):
@@ -164,7 +164,7 @@ def test_mesh_refusals_follow_jax():
         assert str(ours.value) == str(theirs.value)
     for solver in ("mg", "auto"):
         with pytest.raises(NotImplementedError,
-                           match="obstacle multigrid .*ROADMAP A item 5"):
+                           match="obstacle multigrid .*ROADMAP A.8"):
             NS2DDistSolver(param.replace(tpu_solver=solver), comm)
 
 

@@ -38,7 +38,6 @@ from pampi_tpu.models.ns3d import NS3DSolver as JNS3DSolver
 from pampi_tpu.ops import obstacle3d as jo3
 from pampi_tpu.utils.params import read_parameter as jread_parameter
 from pampi_tpu_torch import cli
-from pampi_tpu_torch.models.ns2d import NS2DSolver
 from pampi_tpu_torch.models.ns3d import NS3DSolver
 from pampi_tpu_torch.models.ns3d_dist import NS3DDistSolver
 from pampi_tpu_torch.ops import ns3d as ops
@@ -328,13 +327,8 @@ REFUSALS = {
             ValueError, "tpu_solver fft cannot solve obstacle flag fields"),
     "fft-mesh": (lambda: _mesh(_three_d(tpu_solver="fft"), (2, 2, 2)),
                  ValueError, "tpu_solver fft cannot solve obstacle"),
-    "mg": (lambda: NS3DSolver(_three_d(tpu_solver="mg"), device="cpu"),
-           NotImplementedError, "obstacle multigrid .*ROADMAP A item 5"),
-    "auto-takes-mg": (
-        lambda: NS3DSolver(_three_d(tpu_solver="auto"), device="cpu"),
-        NotImplementedError, "tpu_solver mg with obstacle flag fields"),
     "mg-mesh": (lambda: _mesh(_three_d(tpu_solver="mg"), (2, 2, 2)),
-                NotImplementedError, "obstacle multigrid"),
+                NotImplementedError, "obstacle multigrid .*ROADMAP A.8"),
     "ragged-mesh": (lambda: _mesh(_three_d(imax=18), (1, 1, 4)),
                     NotImplementedError, "A.8"),
     "octants-one-device": (
@@ -343,10 +337,6 @@ REFUSALS = {
     "octants-mesh": (
         lambda: _mesh(_three_d(tpu_sor_layout="octants"), (2, 2, 2)),
         ValueError, "tpu_sor_layout octants needs"),
-    "2-d": (lambda: NS2DSolver(Parameter(name="canal", imax=16, jmax=8,
-                                         obstacles="0.2,0.2,0.4,0.4",
-                                         tpu_solver="mg"), device="cpu"),
-            NotImplementedError, "obstacle multigrid .*ROADMAP A item 5"),
 }
 
 
