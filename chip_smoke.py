@@ -37,7 +37,7 @@ the last line):
    layouts, split the same way, with the host syncs priced by the same 25
    solve calls back to back; then configs/canal3d.par (200x50x50,
    float64) for 8 steps; every kernel of a path must have been launched;
-5. configs/dcavity.par (100², float64) with te 0.05, once on the card and
+5. configs/dcavity.par (100², float64) with te 0.03, once on the card and
    once on the CPU (`python -m pampi_tpu_torch --device cpu` in a process
    of its own, started with the card half after the timed phases and
    read at the end): the written .dat fields must agree to 1e-9;
@@ -148,7 +148,7 @@ on the one card) adds:
    its first solves run to itermax 1000) on 2x2 and 3x3 and
    configs/canal.par (te 0.5) on 2x2, 3x3 and 3x2, on the card and on the
    CPU: pressure.dat and velocity.dat within 1e-9, the same step count;
-   and configs/dcavity.par to te 0.05 (400 steps) on 2x2 and 3x3 on the
+   and configs/dcavity.par to te 0.03 on 2x2 and 3x3 on the
    card, each in a process of its own beside those runs, against the
    single-device card run of phase 5: u, v, p within 1e-9 of scale, the
    same steps and t.
@@ -275,10 +275,36 @@ The obstacle multigrid on one card (the masked mode of K9-K12) adds:
    scale, the same steps; and configs/canal_obstacle2048.par at te 0.1 on
    the card, with its seconds.
 
+NS-3D on a mesh that does not divide the grid (the ragged pad-with-mask
+decomposition: ceil-divided shards whose trailing cells are dead; K8's
+ragged mode, the live-mask multiply, and K7 at uneven shard bounds)
+adds:
+
+2. K7 on every shard's deep block and K8 in its ragged mode on its
+   halo-1 blocks against their plain versions, float32 and float64,
+   without and with a box's flags, on configs/dcavity3d.par's 128³ on
+   1x2x3 (six 128x64x43 shards) and 9x64x64 on 4x1x1 (the last shard
+   holds only the HI ghost plane and dead cells), and in flag mode on
+   the obstacle path's 512x128x128 on 1x2x3: copies, maxima and the dead
+   cells (0) bitwise, the rest to the tolerance;
+3. K7 and K8's ragged mode (and its unragged mode on the same block) per
+   call at the two paths' last shards, float32, beside their bounds;
+4. configs/dcavity3d.par 128³ float32 (itermax 100, eps 0) and
+   canal3d_obstacle.par's geometry at 512x128x128 float32 on the ragged
+   1x2x3, 16 and 7 steps after one warm-up through NS3DDistSolver: PRE /
+   solve / POST and the exchanges' share from CUDA events, the fields
+   against one device (1e-5 of scale), K14, K16, K5, K6 and K8's
+   unragged modes never launched;
+5. `python -m pampi_tpu_torch` on configs/canal3d.par with tpu_mesh
+   2x3x3 and canal3d_obstacle.par with 3x3x3, te cut to 0.1, on the card,
+   and cut to 0.04 (one step) on the CPU, each in a process of its own,
+   against one card at the same te: fields within 1e-9 of scale, the
+   same steps.
+
 It then prints the kernels line (JSON; K5-K8 and K11/K12 at 256³, where a
 field outgrows the L2 and the bound is a floor, with their 128³ numbers
-under main_shape_* keys and the distributed modes of K3/K4 and K7/K8
-under dist_* keys),
+under main_shape_* keys, the distributed modes of K3/K4 and K7/K8
+under dist_* keys and K7 at uneven bounds under ragged_* keys),
 the card's name and power limit
 from nvidia-smi, and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -291,6 +317,7 @@ prints one JSON line.
 
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -1510,8 +1537,10 @@ def mg_fft_card_vs_cpu(torch):
 # float64 it checks convergence every iteration (utils/dispatch.
 # sor_cadence), and te 0.2 (1601 steps) took 358 s of it on the CPU and 45
 # s on the card; te 0.05 (400 steps) took 143.7 s on the CPU, so it runs
-# in a process of its own beside the card's last phases
-DCAVITY_TE = 0.05
+# in a process of its own beside the card's last phases. te 0.03 since the
+# ragged NS-3D phases joined those processes: at te 0.05 the 3x3 mesh run
+# of dist2d_cli (host-bound, 361-618 s) took the script to 855-1013 s
+DCAVITY_TE = 0.03
 # the card's fields at DCAVITY_TE (full precision, and as written to the
 # .dat files), which the CPU half and the mesh runs of dist2d_cli are held
 # against; the CPU half's process and directory
@@ -1552,7 +1581,8 @@ def stop_procs():
         if proc.poll() is None:
             proc.kill()
             proc.wait()
-    for files in (DCAVITY_CPU, OBST_RUNS, OBST2_RUNS):
+    for files in (DCAVITY_CPU, OBST_RUNS, OBST2_RUNS, RAGGED_RUNS,
+                  DIST2D_RUNS):
         if "tmp" in files:
             shutil.rmtree(files.pop("tmp"), ignore_errors=True)
 
@@ -2043,12 +2073,16 @@ def check_odist(torch, np, g, qoffs, dtype, seed, calls=2):
     return bitwise, rbit, err
 
 
-def step3d_shard(torch, cfg, offs, G, u, v, w, p, dt, flags=(None, None)):
+def step3d_shard(torch, cfg, offs, G, u, v, w, p, dt, flags=(None, None),
+                 ragged=False):
     """K7 on copies of one shard's deep blocks u, v, w, then K8 on the
     stripped halo-1 blocks, each against its plain version on the same
-    inputs (in the flag mode with flags = (deep block, halo-1 block)).
-    Returns (copies and maxima bitwise, F/G/H/rhs and u''/v''/w''
-    max_rel_err, max_abs_err, K7's F/G/H/rhs, the halo-1 u/v/w K8 read)."""
+    inputs (in the flag mode with flags = (deep block, halo-1 block); K8
+    in its ragged mode when `ragged`, whose dead cells must then be 0 and
+    bitwise the plain version's). Returns (copies, maxima and dead cells
+    bitwise, F/G/H/rhs and u''/v''/w'' max_rel_err, max_abs_err, K7's
+    F/G/H/rhs, the halo-1 u/v/w K8 read)."""
+    from pampi_tpu_torch.ops import ns3d as ops3
     from pampi_tpu_torch.ops import ns3d_fused as nf3
 
     uk, vk, wk = u.clone(), v.clone(), w.clone()
@@ -2059,11 +2093,19 @@ def step3d_shard(torch, cfg, offs, G, u, v, w, p, dt, flags=(None, None)):
     h1 = [a[strip].contiguous() for a in (uk, vk, wk)]
     post = [a.clone() for a in h1]
     mk = nf3.ns3d_post(*post, *fk[:3], p, dt, cfg.dx, cfg.dy, cfg.dz, offs, G,
-                       flags=flags[1])
+                       flags=flags[1], ragged=ragged)
     mp = nf3.ns3d_post_plain(*(a[strip] for a in pl[:3]), *pl[3:6], p, dt,
-                             cfg.dx, cfg.dy, cfg.dz, offs, G, flags[1])
+                             cfg.dx, cfg.dy, cfg.dz, offs, G, flags[1],
+                             ragged)
     exact = exact and all(torch.equal(m, a.abs().max())
                           for m, a in zip(mk, post))
+    if ragged:
+        gk, gj, gi = ops3.index_grids(post[0].shape, 0, offs, "cuda")
+        dead = ((gk > G[0] + 1) | (gj > G[1] + 1)
+                | (gi > G[2] + 1)).expand(post[0].shape)
+        exact = exact and all(
+            torch.equal(a[dead], b[dead]) and not a[dead].any()
+            for a, b in zip(post, mp[:3]))
     pairs = list(zip(fk, pl[3:])) + list(zip(post, mp[:3]))
     e = max(rel_err(a, b) for a, b in pairs)
     err = max([float((a - b).abs().max()) for a, b in pairs]
@@ -2071,16 +2113,17 @@ def step3d_shard(torch, cfg, offs, G, u, v, w, p, dt, flags=(None, None)):
     return exact, e, err, fk, h1
 
 
-def check_step3d_dist(torch, np, dims, param, dtype, seed):
+def check_step3d_dist(torch, np, dims, param, dtype, seed, ragged=False):
     """K7 on every shard's deep block and K8 on its halo-1 blocks of the
-    param's grid on a dims mesh against their plain versions. Returns
-    (copies and maxima bitwise, F/G/H/rhs and u''/v''/w'' max_rel_err,
-    max_abs_err)."""
+    param's grid on a dims mesh against their plain versions (`ragged`: a
+    mesh that does not divide the grid, its blocks ceil-divided, K8 in
+    its ragged mode). Returns (copies, maxima and dead cells bitwise,
+    F/G/H/rhs and u''/v''/w'' max_rel_err, max_abs_err)."""
     from pampi_tpu_torch.ops import ns3d_fused as nf3
 
     cfg = nf3.StepConfig3D.from_param(param)
     G = (param.kmax, param.jmax, param.imax)
-    local = tuple(e // d for e, d in zip(G, dims))
+    local = tuple(-(-e // d) for e, d in zip(G, dims))
     exact, e, err = True, 0.0, 0.0
     dt = torch.tensor(0.013, dtype=dtype, device="cuda")
     fluid = obstacle_fluid(param) if param.obstacles.strip() else None
@@ -2094,7 +2137,7 @@ def check_step3d_dist(torch, np, dims, param, dtype, seed):
         flags = (None, None) if fluid is None else tuple(
             shard_flags(fluid, offs, local, H) for H in (3, 1))
         ex, es, errs, _, _ = step3d_shard(torch, cfg, offs, G, u, v, w, p, dt,
-                                          flags)
+                                          flags, ragged)
         exact, e, err = exact and ex, max(e, es), max(err, errs)
     return exact, e, err
 
@@ -2939,8 +2982,8 @@ DIST2D_CLI = (("dcavity.par", 0.001, (("2x2", "rb_sor_qdist"),
                                       ("3x3", "rb_sor_obsdist"))),
               ("canal.par", 0.5, (("2x2", None), ("3x3", "rb_sor_obsdist"),
                                   ("3x2", "rb_sor_obsdist"))))
-# configs/dcavity.par on the card alone to DCAVITY_TE (400 steps, 381140
-# solve iterations), held against the single-device card run of
+# configs/dcavity.par on the card alone to DCAVITY_TE (te 0.05 was 400
+# steps, 381140 solve iterations), held against the single-device card run of
 # dcavity_card, which is held against the CPU; each mesh in a process of
 # its own (cli_child): the runs are bound by the host's launches (0.45 and
 # 1.27 ms an iteration on 2x2 and 3x3 on the H100, against 0.06 on one
@@ -2983,11 +3026,46 @@ def cli_child(par, out):
     return rc
 
 
+DIST2D_RUNS = {}
+
+
+def dist2d_par_text(par, te, mesh):
+    """configs/<par>'s text with te and tpu_mesh set."""
+    import re
+
+    text = open(os.path.join(ROOT, "configs", par)).read()
+    text = re.sub(r"^te .*$", f"te {te}", text, flags=re.M)
+    return re.sub(r"^tpu_mesh .*$", f"tpu_mesh {mesh}", text, flags=re.M)
+
+
+@phase(f"configs/dcavity.par te {DCAVITY_TE} on 2-D meshes: the card runs "
+       "started in processes of their own")
+def dist2d_card_start():
+    """Start DIST2D_CARD's runs (cli_child) before the card half of
+    dcavity_card, so that the longest of them, bound by the host's
+    launches, runs beside it and the other CLI phases."""
+    tmp = tempfile.mkdtemp(prefix="dist2d_card_")
+    DIST2D_RUNS["tmp"] = tmp
+    children = []
+    for par, te, meshes in DIST2D_CARD:
+        for mesh, solve in meshes:
+            d = os.path.join(tmp, f"{par}{te}{mesh}")
+            os.makedirs(d)
+            path = os.path.join(d, par)
+            with open(path, "w") as fh:
+                fh.write(dist2d_par_text(par, te, mesh))
+            out = os.path.join(d, "fields.npz")
+            children.append((par, te, mesh, solve, out, start(
+                [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+                 "--cli-child", path, out], d,
+                os.path.join(d, "child.log"))))
+    DIST2D_RUNS["children"] = children
+
+
 @phase("main path: python -m pampi_tpu_torch configs/dcavity.par and "
        "configs/canal.par on 2-D meshes, card and CPU, card and one device")
 def dist2d_cli(np):
     import io
-    import re
 
     from pampi_tpu_torch import cli
     from pampi_tpu_torch.kernels import build as kb
@@ -3038,31 +3116,16 @@ def dist2d_cli(np):
                 *read_velocity(os.path.join(d, "velocity.dat")), steps[0],
                 time.perf_counter() - t0)
 
-    def par_text(par, te, mesh):
-        text = open(os.path.join(ROOT, "configs", par)).read()
-        text = re.sub(r"^te .*$", f"te {te}", text, flags=re.M)
-        return re.sub(r"^tpu_mesh .*$", f"tpu_mesh {mesh}", text, flags=re.M)
-
     if not DCAVITY_CARD:
         raise AssertionError("no single-device card run to hold the mesh "
                              "runs against")
+    if "children" not in DIST2D_RUNS:
+        raise AssertionError(f"the te {DCAVITY_TE} mesh runs did not start")
+    children = DIST2D_RUNS["children"]
     with tempfile.TemporaryDirectory() as tmp:
-        children = []
-        for par, te, meshes in DIST2D_CARD:
-            for mesh, solve in meshes:
-                d = os.path.join(tmp, f"{par}{te}{mesh}")
-                os.makedirs(d)
-                path = os.path.join(d, par)
-                with open(path, "w") as fh:
-                    fh.write(par_text(par, te, mesh))
-                out = os.path.join(d, "fields.npz")
-                children.append((par, te, mesh, solve, out, start(
-                    [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
-                     "--cli-child", path, out], d,
-                    os.path.join(d, "child.log"))))
         for par, te, meshes in DIST2D_CLI:
             for mesh, solve in meshes:
-                body = par_text(par, te, mesh)
+                body = dist2d_par_text(par, te, mesh)
                 a, b = (run_cli(par, mesh, body, device, solve,
                                 os.path.join(tmp, f"{par}{te}{mesh}{device}"))
                         for device in ("cuda", "cpu"))
@@ -3187,12 +3250,15 @@ def obstacle_fluid(param):
 
 def shard_flags(fluid, offs, local, H):
     """A shard's (l + 2H)-extent block of the flags as uint8 on the card:
-    the global field padded with H-1 dead cells per side, cut at the
-    shard's offsets (ops/obstacle3d.deep_flag_block_3d's slice)."""
+    the global field padded with H-1 dead cells per side (and on the HI
+    sides by a ragged shard's overhang past the grid), cut at the shard's
+    offsets (ops/obstacle3d.deep_flag_block_3d's slice)."""
     import numpy as np
     import torch
 
-    wide = np.pad(fluid.astype(np.uint8), H - 1)
+    over = [max(0, o + n + 2 - g) for o, n, g in zip(offs, local,
+                                                     fluid.shape)]
+    wide = np.pad(fluid.astype(np.uint8), [(H - 1, H - 1 + e) for e in over])
     blk = wide[tuple(slice(o, o + n + 2 * H) for o, n in zip(offs, local))]
     return torch.from_numpy(np.ascontiguousarray(blk)).to("cuda")
 
@@ -4879,6 +4945,308 @@ def obstacle_mg_cli(np):
 
 
 # ----------------------------------------------------------------------
+# NS-3D on a mesh that does not divide the grid: the ragged pad-with-mask
+# decomposition, K8's ragged mode and K7 at uneven shard bounds
+# ----------------------------------------------------------------------
+
+RAGGED_MESH = (1, 2, 3)  # the ragged main paths' mesh: 128 and 512 by 3
+RAGGED_BOX = "0.3,0.3,0.3,0.7,0.7,0.7"  # flags for the unit-box grids
+RAGGED_RUNS = {}
+# the ragged CLI runs: (name, config, tpu_mesh, te, the CPU half's te): on
+# the card on the mesh to te, held against one card; on the CPU on the
+# mesh to the cut te (one step: the CPU half is host-bound, ~2 minutes a
+# step of canal3d.par beside the other processes), held against one card
+# at that te
+RAGGED_CLI = (("canal3d", "canal3d.par", "2x3x3", 0.1, 0.04),
+              ("obstacle", "canal3d_obstacle.par", "3x3x3", 0.1, 0.04))
+
+
+def ragged3d_configs():
+    """The ragged main paths' runs: configs/dcavity3d.par (128³ float32,
+    re 1000) and canal3d_obstacle.par's geometry at 512x128x128 float32
+    (re 100), each with itermax 100 and eps 0, on RAGGED_MESH."""
+    kw = dict(itermax=100, eps=0.0, te=1e9, tpu_sor_inner=4,
+              tpu_mesh="x".join(map(str, RAGGED_MESH)))
+    return (config("dcavity3d.par", **kw),
+            obstacle_config(**OBST_MAIN, tpu_dtype="float32", re=100.0,
+                            **kw))
+
+
+def ragged_check_cases(torch):
+    """(param, mesh dims, dtype) of phase 2's ragged K7/K8 checks: every
+    shard of dcavity3d 128³ on 1x2x3 and of 9x64x64 on 4x1x1 (its last
+    shard holds only the HI ghost plane and dead cells), plain and with a
+    box's flags, and of the obstacle path's 512x128x128 on 1x2x3, at
+    float32 and float64."""
+    from pampi_tpu_torch.utils.params import Parameter
+
+    dcav, obst = ragged3d_configs()
+    thin = Parameter(name="dcavity3d", imax=64, jmax=64, kmax=9, re=1000.0)
+    cases = []
+    for dtype in (torch.float32, torch.float64):
+        for param, dims in ((dcav, RAGGED_MESH), (thin, (4, 1, 1))):
+            cases += [(param, dims, dtype),
+                      (param.replace(obstacles=RAGGED_BOX), dims, dtype)]
+        cases.append((obst, RAGGED_MESH, dtype))
+    return cases
+
+
+@phase("K8's ragged mode and K7 at uneven shard bounds vs plain versions")
+def check_ragged3d_kernels(torch, np):
+    bad = []
+    for param, dims, dtype in ragged_check_cases(torch):
+        t = tol(torch, dtype)
+        exact, e, err = check_step3d_dist(torch, np, dims, param, dtype, 231,
+                                          ragged=True)
+        ok = exact and e <= t
+        mode = "flags" if param.obstacles.strip() else "plain"
+        shape = f"{param.kmax}x{param.jmax}x{param.imax}"
+        log(f"ns3d_pre/post ragged {mode} {dtype} {shape} on "
+            f"{'x'.join(map(str, dims))}, every shard: u', v', w', maxima and"
+            f" dead cells bitwise {exact}, max_rel_err {e:.3e}, max_abs_err "
+            f"{err:.3e} (tol {t:g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            bad.append(f"{mode} {shape} {dtype}")
+    if bad:
+        raise AssertionError(f"ragged K7/K8 disagree: {bad}")
+
+
+def last_shard(param, dims):
+    """(local extents, offsets) of a mesh's last shard, the one the
+    ceil division leaves ragged."""
+    G = (param.kmax, param.jmax, param.imax)
+    local = tuple(-(-n // d) for n, d in zip(G, dims))
+    return local, tuple((d - 1) * n for d, n in zip(dims, local))
+
+
+@phase("K8's ragged mode and K7 at uneven bounds: times at the ragged "
+       "paths' last shards")
+def time_ragged3d(torch, np):
+    from pampi_tpu_torch.ops import ns3d_fused as nf3
+
+    rows = {}
+    for param, post, pre in zip(ragged3d_configs(),
+                                ("ns3d_post_ragged", "ns3d_post_flags_ragged"),
+                                ("ns3d_pre", "ns3d_pre_flags")):
+        cfg = nf3.StepConfig3D.from_param(param)
+        G = (param.kmax, param.jmax, param.imax)
+        local, offs = last_shard(param, RAGGED_MESH)
+        flags = (None, None)
+        if param.obstacles.strip():
+            fluid = obstacle_fluid(param)
+            flags = tuple(shard_flags(fluid, offs, local, H) for H in (3, 1))
+        u, v, w = rng_fields(torch, np, tuple(n + 6 for n in local),
+                             torch.float32, 3, 241)
+        (p,) = rng_fields(torch, np, tuple(n + 2 for n in local),
+                          torch.float32, 1, 244)
+        dt = torch.tensor(1e-3, dtype=torch.float32, device="cuda")
+        exact, e, err, fk, h1 = step3d_shard(torch, cfg, offs, G, u, v, w, p,
+                                             dt, flags, ragged=True)
+        if not (exact and e <= tol(torch, torch.float32)):
+            raise AssertionError(f"{post} / {pre} differ at the timed shard")
+        uk, vk, wk = u.clone(), v.clone(), w.clone()
+        size, one = 4, 1 if flags[0] is not None else 0
+        deep = math.prod(n + 6 for n in local)
+        ext = math.prod(n + 2 for n in local)
+        cells = math.prod(local)
+        ms = cuda_ms(torch, lambda: nf3.ns3d_pre(
+            uk, vk, wk, dt, cfg, offs, G, 2, flags=flags[0]), 20)
+        pms = cuda_ms(torch, lambda: nf3.ns3d_pre_plain(
+            u, v, w, dt, cfg, offs, G, 2, flags=flags[0]), 3)
+        # PRE: the three deep blocks (and their flags) read, F, G, H, rhs
+        # written on the halo-1 block; ~190 flops a cell
+        bpre = bound((3 * deep + 4 * ext) * size + deep * one, 190 * cells)
+
+        def post_call(ragged):
+            return lambda: nf3.ns3d_post(*h1, *fk[:3], p, dt, cfg.dx, cfg.dy,
+                                         cfg.dz, offs, G, flags=flags[1],
+                                         ragged=ragged)
+
+        qms = cuda_ms(torch, post_call(True), 20)
+        ums = cuda_ms(torch, post_call(False), 20)
+        qpms = cuda_ms(torch, lambda: nf3.ns3d_post_plain(
+            *h1, *fk[:3], p, dt, cfg.dx, cfg.dy, cfg.dz, offs, G, flags[1],
+            True), 3)
+        calls = cuda_launches(torch, post_call(True))
+        # POST: F, G, H, p read and u, v, w written (7 field-sizes; the
+        # flags 1 byte a cell more); ~15 flops a cell
+        bpost = bound(7 * ext * size + ext * one, 15 * cells)
+        shape = (f"{'x'.join(map(str, local))} shard at {offs} of "
+                 f"{'x'.join(map(str, G))} on "
+                 f"{'x'.join(map(str, RAGGED_MESH))}")
+        rows[post] = dict(max_abs_err=err, ms=qms, plain_ms=qpms,
+                          bound_ms=bpost[0], bound_by=bpost[1],
+                          unragged_ms=ums, cuda_launches_a_call=calls,
+                          shape=shape)
+        rows[pre] = dict(ragged_ms=ms, ragged_plain_ms=pms,
+                         ragged_bound_ms=bpre[0], ragged_bound_by=bpre[1],
+                         ragged_max_abs_err=err, ragged_shape=shape)
+        log(f"{pre} at uneven bounds f32 ({shape}, deep block "
+            f"{tuple(n + 6 for n in local)}): {ms:.4f} ms per shard call "
+            f"(plain {pms:.4f}, bound {bpre[0]:.4f} by {bpre[1]}); {post}: "
+            f"{qms:.4f} ms (its unragged mode on the same block {ums:.4f}, "
+            f"plain {qpms:.4f}, bound {bpost[0]:.4f} by {bpost[1]}), "
+            f"{launches_text(calls)} CUDA launches a call")
+    return rows
+
+
+NOT_ON_RAGGED_PATHS = ("rb_sor_odist", "rb_sor_obsdist3d", "rb_sor3d_octants",
+                       "rb_sor3d_checkerboard", "ns3d_post", "ns3d_post_flags")
+
+
+def check_launched(counts, kernels, label):
+    """Every kernel of a path run in a process of its own was launched."""
+    missing = [k for k in kernels if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"{label} did not launch {missing}")
+
+
+def check_not_launched_ragged(counts, label, also=()):
+    """K14 and K16 (divisible meshes only), K6 and K5 (one device) and K8's
+    unragged modes never run on a ragged path."""
+    wrong = [k for k in NOT_ON_RAGGED_PATHS + also if counts.get(k, 0)]
+    if wrong:
+        raise AssertionError(f"{label} launched {wrong}")
+
+
+@phase("main path: NS-3D on the ragged 1x2x3: configs/dcavity3d.par 128³ "
+       "and canal3d_obstacle.par's geometry at 512x128x128, float32")
+def main_path_ragged3d(torch):
+    from pampi_tpu_torch.kernels import build as kb
+    from pampi_tpu_torch.models.ns3d import NS3DSolver
+    from pampi_tpu_torch.models.ns3d_dist import NS3DDistSolver
+    from pampi_tpu_torch.parallel.comm import CartComm
+    from pampi_tpu_torch.utils import dispatch
+
+    counts = []
+    for param, steps, path, also in (
+            (ragged3d_configs()[0], 16, ("ns3d_pre", "ns3d_post_ragged"),
+             ("ns3d_pre_flags", "ns3d_post_flags_ragged")),
+            (ragged3d_configs()[1], 7,
+             ("ns3d_pre_flags", "ns3d_post_flags_ragged"),
+             ("ns3d_pre", "ns3d_post_ragged"))):
+        s = NS3DDistSolver(param, CartComm(ndims=3, dims=RAGGED_MESH))
+        label = (dispatch.last("ns3d_dist"), dispatch.last("obstacle3d_dist")
+                 if param.obstacles.strip() else None)
+        s.comm.print_config()
+        c, r = drive_path(kb, f"NS-3D ragged {param.name} "
+                          f"{'x'.join(map(str, RAGGED_MESH))}", path,
+                          lambda: dist2d_steps(torch, s, steps))
+        check_not_launched_ragged(c, "a ragged path", also)
+        counts.append(c)
+        single = NS3DSolver(param.replace(tpu_mesh="1"), device="cuda")
+        single.run_steps(steps + 1)
+        diff, scale = global_diff(s, single)
+        step = r["pre"] + r["solve"] + r["post"]
+        ok = s.ragged and s.nt == single.nt and diff <= 1e-5 * scale
+        shape = f"{param.kmax}x{param.jmax}x{param.imax}"
+        log(f"NS-3D {param.name} {shape} f32 on the ragged "
+            f"{'x'.join(map(str, RAGGED_MESH))} ({s.kl}x{s.jl}x{s.il} "
+            f"shards, {label}): {r['ms']:.3f} ms/step over {steps} steps "
+            f"after a warm-up (host clock); PRE {r['pre']:.3f} / solve "
+            f"{r['solve']:.3f} / POST {r['post']:.3f} ms (CUDA events); "
+            f"exchanges {r['exchange']:.3f} ms/step, share "
+            f"{r['exchange'] / step:.3f} of the step; t={s.t:.6e}, "
+            f"single-device t={single.t:.6e}; max |mesh - one device| "
+            f"{diff:.3e} (limit {1e-5 * scale:.3e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"the ragged {param.name} run disagrees "
+                                 "with one device")
+        del s, single
+        torch.cuda.empty_cache()
+    return counts
+
+
+@phase("ragged NS-3D CLI runs: the card's mesh runs and the CPU runs started "
+       "in processes of their own")
+def ragged3d_cli_start():
+    tmp = tempfile.mkdtemp(prefix="ragged3d_")
+    RAGGED_RUNS["tmp"] = tmp
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    for name, src, mesh, te, te_cpu in RAGGED_CLI:
+        for device, t in (("cuda", te), ("cpu", te_cpu)):
+            d = os.path.join(tmp, f"{name}_{device}")
+            os.makedirs(d)
+            par = os.path.join(d, src)
+            with open(par, "w") as fh:
+                fh.write(config_text(src, te=t, tpu_mesh=mesh))
+            out = os.path.join(d, "fields.npz")
+            RAGGED_RUNS[name, device] = (out, start(
+                [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+                 "--cli3-child", par, out, device], d,
+                os.path.join(d, "child.log"), env))
+
+
+@phase("main path: python -m pampi_tpu_torch on ragged meshes: "
+       "configs/canal3d.par on 2x3x3 and canal3d_obstacle.par on 3x3x3, "
+       "card against one card and against the CPU")
+def ragged3d_cli(np):
+    from pampi_tpu_torch.kernels import build as kb
+
+    if "tmp" not in RAGGED_RUNS:
+        raise AssertionError("the child runs did not start")
+    tmp = RAGGED_RUNS["tmp"]
+    counts, bad = [], []
+    names = ("ug", "vg", "wg", "pg")
+    for name, src, mesh, te, te_cpu in RAGGED_CLI:
+        obst = name == "obstacle"
+        one = {}
+        for t in (te, te_cpu):
+            d = os.path.join(tmp, f"{name}_one_{t}")
+            os.makedirs(d)
+            par = os.path.join(d, src)
+            with open(par, "w") as fh:
+                fh.write(config_text(src, te=t, tpu_mesh="1"))
+            cwd = os.getcwd()
+            os.chdir(d)
+            try:
+                rc, secs, _c, one[t] = run_cli_ns(par, "cuda", 3)
+            finally:
+                os.chdir(cwd)
+            if rc != 0:
+                raise AssertionError(f"the one-card {src} te {t} run exited "
+                                     f"{rc}")
+        runs = {}
+        for device in ("cuda", "cpu"):
+            out, proc = RAGGED_RUNS[name, device]
+            crc = proc.wait(timeout=900)
+            if crc != 0:
+                log(open(os.path.join(os.path.dirname(out),
+                                      "child.log")).read()[-4000:])
+                raise AssertionError(f"the {name} {device} child exited "
+                                     f"{crc}")
+            with np.load(out) as z:
+                runs[device] = {k: z[k] for k in z.files}
+        card = runs["cuda"]
+        c = json.loads(str(card["counts"]))
+        path = ("ns3d_pre_flags", "ns3d_post_flags_ragged") if obst else (
+            "ns3d_pre", "ns3d_post_ragged")
+        log(f"{src} tpu_mesh {mesh} CLI launches: {json.dumps(c)}")
+        check_launched(c, path, f"the {src} {mesh} CLI run")
+        check_not_launched_ragged(c, f"the {src} {mesh} CLI run")
+        counts.append(c)
+        rec = json.loads(str(card["record"]))
+        label = rec.get("obstacle3d_dist" if obst else "ns3d_dist")
+        for who, run, t in (("the card", card, te),
+                            ("the CPU", runs["cpu"], te_cpu)):
+            ref = one[t]
+            scale = max(1.0, *(float(np.abs(ref[k]).max()) for k in names))
+            diff = max(float(np.abs(run[k] - ref[k]).max()) for k in names)
+            ok = int(run["nt"]) == int(ref["nt"]) and diff <= 1e-9 * scale
+            log(f"{src} te {t} f64 tpu_mesh {mesh} ({label}) on {who}, its "
+                f"own process: {int(run['nt'])} steps in "
+                f"{float(run['secs']):.1f} s; one card: {int(ref['nt'])} "
+                f"steps; max |mesh - one card| over the cell-centred u, v, "
+                f"w, p {diff:.3e} (tol 1e-9 of scale {scale:.3e}) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                bad.append(f"{src} {mesh} te {t} on {who}")
+    if bad:
+        raise AssertionError(f"ragged CLI runs disagree: {bad}")
+    return counts
+
+
+# ----------------------------------------------------------------------
 # the fleet's shape-class mg lane: K18, the one-launch class V-cycle
 # ----------------------------------------------------------------------
 
@@ -5275,6 +5643,7 @@ def main() -> int:
         check_cadence_one(torch, np)
         check_dist2d_kernels(torch, np)
         check_obstacle3d_kernels(torch, np)
+        check_ragged3d_kernels(torch, np)
         check_obstacle2d_kernels(torch, np)
         check_class_kernel(torch, np)
     if CHECKS_ONLY:
@@ -5288,6 +5657,7 @@ def main() -> int:
         d3_rows = time_dist3d(torch, np)
         d2_rows = time_dist2d(torch, np)
         o3_rows = time_obstacle3d(torch, np)
+        r3_rows = time_ragged3d(torch, np)
         o2_rows = time_obstacle2d(torch, np)
         cli_rows = time_obsdist_cli(torch, np)
         sor_cli_rows = time_sor_cli(torch, np)
@@ -5307,6 +5677,7 @@ def main() -> int:
         counts_d2 = main_path_dist2d(torch)
         counts_d2cards = dist2d_several_cards(torch)
         counts_o3 = main_path_obstacle3d(torch)
+        counts_r3 = main_path_ragged3d(torch)
         counts_o2 = main_path_obstacle2d(torch)
         counts_omg = main_path_obstacle_mg(torch)
         counts_fl = main_path_fleet(torch)
@@ -5317,21 +5688,24 @@ def main() -> int:
         obstacle3d_cli_start()
         obstacle2d_cli_start()
         obstacle_mg_cli_start()
+        ragged3d_cli_start()
+        dist2d_card_start()
         dcavity_card(np)
         counts_d2cli = dist2d_cli(np)
         dcavity_card_vs_cpu(np)
         counts_o3cli = obstacle3d_cli(np)
         counts_o2cli = obstacle2d_cli(np)
         counts_omgcli = obstacle_mg_cli(np)
+        counts_r3cli = ragged3d_cli(np)
         if None not in (rows, rows3, mg_rows, q_rows, d3_rows, d2_rows,
-                        o3_rows, o2_rows, cli_rows, sor_cli_rows, k18_rows,
-                        counts,
+                        o3_rows, r3_rows, o2_rows, cli_rows, sor_cli_rows,
+                        k18_rows, counts,
                         counts3,
                         counts_mg, counts_dist, counts_cli, counts_d3,
                         counts_d3cli, counts_d2, counts_d2cards,
                         counts_d2cli, counts_o3, counts_o3cli, counts_o2,
                         counts_o2cli, counts_fl, counts_omg,
-                        counts_omgcli):
+                        counts_omgcli, counts_r3, counts_r3cli):
             rows = {**rows, **rows3, **mg_rows[0], **q_rows, **o3_rows,
                     **o2_rows, **k18_rows,
                     "rb_sor_odist": d3_rows["rb_sor_odist"],
@@ -5344,6 +5718,8 @@ def main() -> int:
                 rows[name] = {**rows[name], **extra}
             for name in ("ns3d_pre", "ns3d_post"):
                 rows[name] = {**rows[name], **d3_rows[name]}
+            for name, row in r3_rows.items():
+                rows[name] = {**rows.get(name, {}), **row}
             for name in ("ns2d_pre", "ns2d_post"):
                 rows[name] = {**rows[name], **d2_rows[name]}
             # each path ran with the counts at 0 before it: a kernel's
@@ -5351,6 +5727,7 @@ def main() -> int:
             paths = (counts + counts3 + counts_mg + counts_d3 + counts_d2
                      + counts_d2cli + counts_o3 + counts_o3cli + counts_o2
                      + counts_o2cli + counts_omg + counts_omgcli
+                     + counts_r3 + counts_r3cli
                      + [counts_dist, counts_cli, counts_d3cli,
                         counts_d2cards, counts_fl])
             counts = {k: sum(c.get(k, 0) for c in paths)

@@ -16,29 +16,33 @@ the `name` key selects, write the outputs and print the wall time.
                         (the obstacle multigrid, one device)
   dcavity3d/canal3d  -> NS-3D time stepper (dcavity.vtk / canal.vtk, in
                         the `tpu_vtk` format: ascii, binary, or sharded,
-                        the binary file written slab by slab on a mesh);
+                        the binary file written slab by slab on a mesh
+                        that divides the grid);
                         on a mesh (`tpu_mesh PKxPJxPI`, or `auto` with
                         several cards) the distributed time stepper; with
                         an `obstacles` key (3-D boxes, e.g.
                         configs/canal3d_obstacle.par) the flag-masked
                         obstacle run under `tpu_solver sor`, on one
-                        device or a mesh that divides the grid, or
-                        `mg` (the obstacle multigrid, one device)
+                        device or any mesh, or `mg` (the obstacle
+                        multigrid, one device); a mesh need not divide
+                        the grid (the ragged pad-with-mask
+                        decomposition, as in the JAX package)
 
 Every problem takes `tpu_solver sor|mg|fft|auto` (auto resolves to fft on
 these plain grids, to sor on a ragged mesh, to mg on an obstacle grid,
 where mg runs the obstacle multigrid, `tpu_mg_fused auto|on|off` choosing
 its cycle form, and fft exits with the JAX package's error). A Poisson
-.par with an `obstacles` key exits with the JAX package's error.
+.par with an `obstacles` key, and mg or fft on a mesh that does not
+divide an NS-3D grid, exit with the JAX package's error.
 
 `tpu_mesh` follows the JAX package: `auto` is one shard per visible card
 (the single-device path on one card), an explicit mesh one of that shape,
 whose shards share the cards when they outnumber them (parallel/comm.py).
 The distributed layer runs Poisson, NS-2D and NS-3D under `tpu_solver
-sor` and prints the shard placement. mg/fft on a mesh (obstacle multigrid
-included) and a mesh that does not divide an NS-3D grid exit with an
-error naming ROADMAP A.8 on an explicit mesh; under `auto` with several
-cards they run on one card, with a note.
+sor` and prints the shard placement. mg/fft on a mesh that divides the
+grid (obstacle multigrid included) exit with an error naming ROADMAP A.8
+on an explicit mesh; under `auto` with several cards they run on one
+card, with a note.
 
     python -m pampi_tpu_torch --halo-test [2|3] [--mesh PJxPI] [--device cpu]
 

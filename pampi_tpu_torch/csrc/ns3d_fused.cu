@@ -98,6 +98,16 @@
 //   as p does there.
 // The flags add 1 byte a cell to each kernel's traffic, and PRE's snapshot
 // 6 field-sizes (three written, three read).
+//
+// The ragged mode of POST (a mesh that does not divide the grid: ceil-
+// divided blocks whose trailing cells are dead; the TPU kernel's `ragged`
+// flag): after the projection u, v, w are multiplied by the live mask, 1 up
+// to the global ghost ring and 0 past it, so a dead cell holds 0 (-0 where
+// its value was negative) and never reaches the maxima of the ghost-
+// inclusive CFL dt. Only the dead cells are multiplied and written (a
+// multiply by 1 leaves the others' bits as they are); with or without the
+// flags, launches stay two. PRE needs no mode of its own there: its writes
+// are gated by the global index wherever the walls cross the block.
 
 #include <cuda_runtime.h>
 
@@ -133,11 +143,20 @@ __device__ __forceinline__ bool in_range(int a, int n) {
   return a >= 0 && a < n;
 }
 
+// a local index one step outside [0, L) wrapped onto the block, as the
+// plain version's rolls read it
+__device__ __forceinline__ int wrap(int a, int L) {
+  return a < 0 ? a + L : (a >= L ? a - L : a);
+}
+
 // the BC of one face at one tangential position `b` (the offset of the
 // position in the face's plane), planes `stride` apart along the normal:
 // the normal component n on the wall plane aw (read from aw_in), the
 // tangential components t1, t2 on the ghost plane ag (read from ag_in); a
-// plane the block does not hold is not written
+// plane the block does not hold is not written. A read one plane outside
+// the block wraps onto it, as the plain version's roll does: on a ragged
+// mesh a HI wall can sit on a deep block's first plane (its outermost
+// layer, which no output reads).
 template <typename T>
 __device__ __forceinline__ void face(int kind, T* n, T* t1, T* t2, size_t b,
                                      size_t stride, int L, int aw, int aw_in,
@@ -145,10 +164,10 @@ __device__ __forceinline__ void face(int kind, T* n, T* t1, T* t2, size_t b,
   if (kind != NOSLIP && kind != SLIP && kind != OUTFLOW) return;
   if (in_range(aw, L)) {
     const size_t w = b + aw * stride;
-    n[w] = kind == OUTFLOW ? n[b + aw_in * stride] : T(0);
+    n[w] = kind == OUTFLOW ? n[b + wrap(aw_in, L) * stride] : T(0);
   }
   if (in_range(ag, L)) {
-    const size_t g = b + ag * stride, gi = b + ag_in * stride;
+    const size_t g = b + ag * stride, gi = b + wrap(ag_in, L) * stride;
     if (kind == NOSLIP) {
       t1[g] = -t1[gi];
       t2[g] = -t2[gi];
@@ -228,7 +247,7 @@ __global__ void bc_kfaces_special(T* u, T* v, T* w, Blk k, Bcs bc,
     const int aj = k.G[1] + 1 - k.base[1];  // the lid's ghost plane J+1
     if (!in_range(aj, k.L[1])) return;
     const size_t x = a * P + (size_t)aj * W + b;
-    u[x] = T(2) - u[x - W];
+    u[x] = T(2) - u[a * P + (size_t)wrap(aj - 1, k.L[1]) * W + b];
   } else if (problem == CANAL) {
     if (a >= k.L[0] || b >= k.L[1]) return;
     const int gk = a + k.base[0], gj = b + k.base[1];
@@ -240,10 +259,6 @@ __global__ void bc_kfaces_special(T* u, T* v, T* w, Blk k, Bcs bc,
 }
 
 // -- the flag mode --------------------------------------------------------
-
-__device__ __forceinline__ int wrap(int a, int L) {
-  return a < 0 ? a + L : (a >= L ? a - L : a);
-}
 
 __device__ __forceinline__ size_t at(const Blk& k, int a0, int a1, int a2) {
   return ((size_t)wrap(a0, k.L[0]) * k.L[1] + wrap(a1, k.L[1])) * k.L[2] +
@@ -466,7 +481,7 @@ __global__ void adapt_cells(T* __restrict__ u, T* __restrict__ v,
                             const T* __restrict__ g, const T* __restrict__ h,
                             const T* __restrict__ p, const T* __restrict__ dtp,
                             Blk o, T dx, T dy, T dz,
-                            const uint8_t* __restrict__ fl,
+                            const uint8_t* __restrict__ fl, bool ragged,
                             T* __restrict__ partial) {
   __shared__ T shu[NT];
   __shared__ T shv[NT];
@@ -505,6 +520,15 @@ __global__ void adapt_cells(T* __restrict__ u, T* __restrict__ v,
       uu = u[x];
       vv = v[x];
       ww = w[x];
+      if (ragged && (gi > o.G[2] + 1 || gj > o.G[1] + 1 || gk > o.G[0] + 1)) {
+        // a dead cell past the global ghost ring: times the live mask's 0
+        uu = uu * T(0);
+        vv = vv * T(0);
+        ww = ww * T(0);
+        u[x] = uu;
+        v[x] = vv;
+        w[x] = ww;
+      }
     }
     au = fabs(uu);
     av = fabs(vv);
@@ -618,8 +642,8 @@ int run_pre(int dev, T* u, T* v, T* w, const T* dt, T* f, T* g, T* h, T* rhs,
 template <typename T>
 int run_post(int dev, T* u, T* v, T* w, const T* f, const T* g, const T* h,
              const T* p, const T* dt, const int* l, const int* geo,
-             double dx, double dy, double dz, const uint8_t* fl, T* partial,
-             T* out, void* stream) {
+             double dx, double dy, double dz, const uint8_t* fl, int ragged,
+             T* partial, T* out, void* stream) {
   cudaError_t e = cudaSetDevice(dev);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = (cudaStream_t)stream;
@@ -627,7 +651,7 @@ int run_post(int dev, T* u, T* v, T* w, const T* f, const T* g, const T* h,
   const dim3 grd = cell_grid(o);
   adapt_cells<T><<<grd, dim3(BX, BY), 0, st>>>(u, v, w, f, g, h, p, dt, o,
                                                T(dx), T(dy), T(dz), fl,
-                                               partial);
+                                               ragged != 0, partial);
   max_partials<T><<<1, FIN, 0, st>>>(partial, (int)(grd.x * grd.y * grd.z),
                                      out);
   return (int)cudaGetLastError();
@@ -663,11 +687,11 @@ int ns3d_post_partials(int lk, int lj, int li) {
   int NAME(int dev, void* u, void* v, void* w, const void* f, const void* g, \
            const void* h, const void* p, const void* dt, const int* l,       \
            const int* geo, double dx, double dy, double dz, const void* fl,  \
-           void* partial, void* out, void* stream) {                         \
+           int ragged, void* partial, void* out, void* stream) {             \
     return run_post<T>(dev, (T*)u, (T*)v, (T*)w, (const T*)f, (const T*)g,   \
                        (const T*)h, (const T*)p, (const T*)dt, l, geo, dx,   \
-                       dy, dz, (const uint8_t*)fl, (T*)partial, (T*)out,     \
-                       stream);                                              \
+                       dy, dz, (const uint8_t*)fl, ragged, (T*)partial,      \
+                       (T*)out, stream);                                     \
   }
 
 PRE_ENTRY(ns3d_pre_f32, float)

@@ -149,7 +149,7 @@ class NS2DDistSolver:
         self.ragged = any(e * p != n for e, p, n in
                           zip(self.local, self.comm.dims, self.gext))
         param = _dispatch.resolve_solver(param, ragged=self.ragged)
-        _dispatch.check_supported(param, mesh=True, ragged=self.ragged)
+        _dispatch.check_supported(param, mesh=True)
         if param.tpu_sor_layout not in ("auto", "checkerboard", "quarters"):
             raise ValueError(
                 f"2-D SOR layout must be auto|checkerboard|quarters, got "

@@ -6,7 +6,19 @@ JAX package completes them and this module ports that solver.
 - Every field is a list of per-shard halo-1 extended blocks (kl+2, jl+2,
   il+2) in mesh order, shard s on `comm.devices[s]` (parallel/comm.py: one
   controller loops over the shards; a mesh with more shards than cards
-  shares them). Grids the mesh does not divide are refused (ROADMAP A.8).
+  shares them).
+- Any grid runs on any mesh: the blocks are ceil-divided
+  (`comm.local_shape(..., ragged=True)`), and on a mesh that does not
+  divide the grid the trailing shards' cells past the global ghost ring
+  are dead (the JAX package's pad-with-mask decomposition,
+  parallel/ragged3d.py). Every BC and fixup is gated by the global index,
+  so the HI walls may sit anywhere inside a trailing shard; the
+  projection zeroes the dead cells (K8's ragged mode, the chain's live
+  mask), so the ghost-inclusive CFL maxima never read them. There the
+  solve is the grid-space CA path at depth ca_halo(n, True) = 2n + 1 (the
+  octants are not dispatched), or with obstacles the JAX package's jnp
+  path (ops/obstacle3d.make_dist_obstacle_solver_3d(ragged=True)), and
+  `tpu_solver mg|fft` raise the JAX package's ValueError.
 - The fused step (`tpu_fuse_phases` auto/on, the default): one depth-3
   deep-halo exchange of u, v, w; the CFL dt from the maxima of the
   exchanged deep blocks (the JAX package's order, which equals the
@@ -52,6 +64,7 @@ from ..ops.ns3d_fused import StepConfig3D, ns3d_post, ns3d_pre
 from ..ops.sor3d import sor_coefficients_3d
 from ..parallel import comm as pc
 from ..parallel import octants_dist as od
+from ..parallel import ragged3d as rg3
 from ..parallel.comm import (
     CartComm,
     assemble_global,
@@ -129,7 +142,13 @@ class NS3DDistSolver:
         self.ragged = any(e * p != n for e, p, n in
                           zip(self.local, self.comm.dims, self.gext))
         param = _dispatch.resolve_solver(param, ragged=self.ragged)
-        _dispatch.check_supported(param, mesh=True, ragged=self.ragged)
+        if self.ragged and param.tpu_solver in ("mg", "fft"):
+            raise ValueError(
+                f"tpu_solver {param.tpu_solver} needs a divisible grid/mesh "
+                f"(grid {g.kmax}x{g.jmax}x{g.imax} on {self.comm.dims}); "
+                "ragged pad-with-mask runs use tpu_solver sor (obstacles "
+                "compose)")
+        _dispatch.check_supported(param, mesh=True)
         if param.tpu_sor_layout not in ("auto", "checkerboard", "octants"):
             raise ValueError(
                 f"3-D SOR layout must be auto|checkerboard|octants, got "
@@ -171,18 +190,23 @@ class NS3DDistSolver:
         self._rb_o, self._og, self._n_o = od.octants_dispatch(
             param, g.kmax, g.jmax, g.imax, kl, jl, il, g.dx, g.dy, g.dz,
             self.dtype, "ns3d_dist", dims=comm.dims,
-            plain_sor=self.masks is None)
+            plain_sor=self.masks is None and not self.ragged)
         if self._rb_o is None:
-            _dispatch.record("ns3d_dist", "jnp_ca" if self.masks is None
-                             else "obstacle_jnp")
+            _dispatch.record("ns3d_dist", ("jnp_ca" if self.masks is None
+                                           else "obstacle_jnp")
+                             + (" ragged" if self.ragged else ""))
         self._obs_solve = self._flags = self._local_masks = None
         if self.masks is not None:
+            # the kernel's depth on a divisible mesh; on a ragged one the
+            # JAX package's jnp path, which takes tpu_ca_inner at every
+            # dtype
+            n = (param.tpu_ca_inner if self.ragged else _dispatch.sor_cadence(
+                param, self.dtype, mesh=True,
+                clamp=lambda n: ca_clamp(n, kl, jl, il)))
             self._obs_solve, _ = obst3.make_dist_obstacle_solver_3d(
                 comm, g.imax, g.jmax, g.kmax, kl, jl, il, g.dx, g.dy, g.dz,
-                param.eps, param.itermax, self.masks, self.dtype,
-                _dispatch.sor_cadence(
-                    param, self.dtype, mesh=True,
-                    clamp=lambda n: ca_clamp(n, kl, jl, il)))
+                param.eps, param.itermax, self.masks, self.dtype, n,
+                ragged=self.ragged)
             # the fused kernels' flag blocks: the deep block for PRE, the
             # halo-1 block for POST (the JAX package's fused_flag_blocks)
             self._flags = [
@@ -193,12 +217,19 @@ class NS3DDistSolver:
         # the grid-space CA path: block size, halo depth and masks
         self._ca_ok = ca_supported(kl, jl, il)
         self._n_ca = ca_inner(param, kl, jl, il) if self._ca_ok else 1
-        self._H = ca_halo(self._n_ca) if self._ca_ok else 1
+        self._H = ca_halo(self._n_ca, self.ragged) if self._ca_ok else 1
         self._masks = None
         why = None
         if min(self.local) < FUSE_DEEP_HALO:
             why = f"shard extents < deep halo {FUSE_DEEP_HALO}"
         self._fused = _resolve_fuse_phases(param.tpu_fuse_phases, why)
+        self._gates = None
+        if not self._fused and self.ragged:
+            # the phase chain's ragged projection: the global interior and
+            # the live mask (K8 forms both per cell on the fused path)
+            self._gates = [rg3.interior_and_live(
+                comm, s, kl, jl, il, g.kmax, g.jmax, g.imax, self.dtype, dev)
+                for s, dev in enumerate(comm.devices)]
         if param.tpu_overlap == "off":
             _dispatch.record("overlap_ns3d_dist", "serial (tpu_overlap off)")
         elif not self._fused:
@@ -322,7 +353,8 @@ class NS3DDistSolver:
         def rounds():
             if not self._ca_ok:
                 new, r2 = rb_exchange_per_sweep_3d(pd, rd, masks, comm,
-                                                   *self._coef)
+                                                   *self._coef,
+                                                   ragged=self.ragged)
                 pd[:] = new
                 return r2, 1
             pc.halo_exchange(pd, comm, depth=H)
@@ -363,7 +395,7 @@ class NS3DDistSolver:
         self._mark("post")
         maxima = [ns3d_post(u[s], v[s], w[s], f[s], gg[s], h[s], self.p[s],
                             dts[s], g.dx, g.dy, g.dz, self.offs[s],
-                            self.gext, flags=flags[s][1])
+                            self.gext, flags=flags[s][1], ragged=self.ragged)
                   for s in range(comm.size)]
         self.last_maxima = tuple(reduction(list(m), comm, "max")
                                  for m in zip(*maxima))
@@ -375,23 +407,23 @@ class NS3DDistSolver:
         """One step of the phase chain (JAX step, `tpu_fuse_phases off`):
         depth-1 exchanges around the BCs, the F/G/H donor-edge shift before
         the RHS, the projection on every shard. The walls, lid/inflow and
-        F/G/H fixups are gated by the global index on the halo-1 blocks,
-        as in the PRE kernel; what they write on interface ghosts the
-        following exchange overwrites."""
+        F/G/H fixups are gated by the global index on the halo-1 blocks
+        (parallel/ragged3d.py, on a divisible mesh too), as in the PRE
+        kernel; what they write on interface ghosts the following exchange
+        overwrites."""
         comm, g, cfg = self.comm, self.grid, self._cfg
+        blk = (*self.local, *self.gext)  # the ragged3d forms' extents
         self._mark("pre")
         for x in (self.u, self.v, self.w):
             pc.halo_exchange(x, comm)
         dt = self._dt(self.u, self.v, self.w)
         dts = self._on_shards(dt)
-        idx = [ops.index_grids(x.shape, 0, off, x.device)
-               for x, off in zip(self.u, self.offs)]
         for s in range(comm.size):
-            u, v, w = ops.apply_wall_bcs_3d_gated(
-                self.u[s], self.v[s], self.w[s], *idx[s], cfg.bcs, self.gext)
+            u, v, w = rg3.set_bcs_3d_ragged(self.u[s], self.v[s], self.w[s],
+                                            cfg.bcs, comm, s, *blk)
             self.u[s], self.v[s], self.w[s] = (
-                ops.apply_special_bc_3d_gated(u, *idx[s], cfg.problem,
-                                              self.gext), v, w)
+                rg3.set_special_bc_3d_ragged(u, cfg.problem, comm, s, *blk),
+                v, w)
         for x in (self.u, self.v, self.w):
             pc.halo_exchange(x, comm)
         lm = self._shard_masks()
@@ -407,11 +439,11 @@ class NS3DDistSolver:
         f, gg, h = [], [], []
         for s in range(comm.size):
             u, v, w = self.u[s], self.v[s], self.w[s]
-            fs, gs, hs = ops.fgh_fixups_gated(
+            fs, gs, hs = rg3.fgh_fixups_ragged(
                 *ops.compute_fgh_interior(u, v, w, dts[s], cfg.re, cfg.gx,
                                           cfg.gy, cfg.gz, cfg.gamma, g.dx,
                                           g.dy, g.dz),
-                u, v, w, *idx[s], self.gext)
+                u, v, w, comm, s, *blk)
             if lm is not None:
                 fs, gs, hs = obst3.mask_fgh(fs, gs, hs, u, v, w, lm[s])
             f.append(fs)
@@ -426,11 +458,20 @@ class NS3DDistSolver:
         self.p, self.last_res, self.last_it = self._solve(self.p, rhs)
         self._mark("post")
         for s in range(comm.size):
-            args = (self.u[s], self.v[s], self.w[s], f[s], gg[s], h[s],
-                    self.p[s], dts[s], g.dx, g.dy, g.dz)
-            self.u[s], self.v[s], self.w[s] = (
-                ops.adapt_uvw(*args) if lm is None
-                else obst3.adapt_uvw_obstacle(*args, lm[s]))
+            old = (self.u[s], self.v[s], self.w[s])
+            args = (*old, f[s], gg[s], h[s], self.p[s], dts[s], g.dx, g.dy,
+                    g.dz)
+            new = (ops.adapt_uvw(*args) if lm is None
+                   else obst3.adapt_uvw_obstacle(*args, lm[s]))
+            if self._gates is not None:
+                # only the global interior updates (ghost planes stored in
+                # a block's interior keep their BC values) and the dead
+                # cells go to zero, for the plain and the obstacle
+                # projections alike
+                interior, live = self._gates[s]
+                new = tuple(torch.where(interior, a, b) * live
+                            for a, b in zip(new, old))
+            self.u[s], self.v[s], self.w[s] = new
         self._mark("end")
         return dt
 
@@ -476,21 +517,27 @@ class NS3DDistSolver:
 
     # -- output ----------------------------------------------------------
     def _cell_centred(self):
-        """Per shard, the cell-centred (kl, jl, il) numpy slabs (u, v, w,
-        p) and the slab's global origin. Staggered-to-centre averaging
-        reads the minus-side ghosts, so u, v, w are exchanged first (on
-        copies: the state is left as it is). The averages are taken on the
-        host in the field's dtype, as NS3DSolver.collect takes them."""
+        """Per shard, the cell-centred numpy slabs (u, v, w, p) of its
+        global-interior cells, (kl, jl, il) on a mesh that divides the grid
+        (a ragged mesh's dead cells are cropped: a shard past the grid
+        gives empty slabs), and the slab's global origin.
+        Staggered-to-centre averaging reads the minus-side ghosts, so u,
+        v, w are exchanged first (on copies: the state is left as it is).
+        The averages are taken on the host in the field's dtype, as
+        NS3DSolver.collect takes them."""
         u, v, w = (pc.halo_exchange([b.clone() for b in x], self.comm)
                    for x in (self.u, self.v, self.w))
         out = []
         for s in range(self.comm.size):
             us, vs, ws, ps = (a[s].detach().cpu().numpy()
                               for a in (u, v, w, self.p))
-            out.append(((us[1:-1, 1:-1, 1:-1] + us[1:-1, 1:-1, :-2]) / 2.0,
-                        (vs[1:-1, 1:-1, 1:-1] + vs[1:-1, :-2, 1:-1]) / 2.0,
-                        (ws[1:-1, 1:-1, 1:-1] + ws[:-2, 1:-1, 1:-1]) / 2.0,
-                        ps[1:-1, 1:-1, 1:-1], self.offs[s]))
+            own = tuple(slice(0, max(0, min(e, n - o))) for o, e, n in
+                        zip(self.offs[s], self.local, self.gext))
+            out.append(tuple(a[own] for a in (
+                (us[1:-1, 1:-1, 1:-1] + us[1:-1, 1:-1, :-2]) / 2.0,
+                (vs[1:-1, 1:-1, 1:-1] + vs[1:-1, :-2, 1:-1]) / 2.0,
+                (ws[1:-1, 1:-1, 1:-1] + ws[:-2, 1:-1, 1:-1]) / 2.0,
+                ps[1:-1, 1:-1, 1:-1])) + (self.offs[s],))
         return out
 
     def collect(self):
@@ -499,7 +546,7 @@ class NS3DDistSolver:
         slabs = self._cell_centred()
         fields = [np.empty(self.gext, slabs[0][0].dtype) for _ in range(4)]
         for *arrs, off in slabs:
-            sl = tuple(slice(o, o + e) for o, e in zip(off, self.local))
+            sl = tuple(slice(o, o + e) for o, e in zip(off, arrs[0].shape))
             for full, a in zip(fields, arrs):
                 full[sl] = a
         return tuple(fields)
@@ -518,7 +565,11 @@ class NS3DDistSolver:
         shard's cell-centred block at its own byte offsets, with no global
         array assembled (the reference's scaffolded MPI-IO write,
         vtkWriter.c:118-143, completed). The bytes are those of
-        write_result(fmt="binary")."""
+        write_result(fmt="binary"). On a mesh that does not divide the
+        grid it is that gathered binary write, as in the JAX package."""
+        if self.ragged:
+            self.write_result(path=path, fmt="binary")
+            return
         slabs = self._cell_centred()
         writer = ShardedVtkWriter(self._cfg.problem, self.grid, path=path)
         writer.scalar("pressure", [(ps, off) for *_, ps, off in slabs])

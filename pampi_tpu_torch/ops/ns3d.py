@@ -439,19 +439,26 @@ def _high_neighbours(x):
     return (xp[:-1, :-1, 1:], xp[:-1, 1:, :-1], xp[1:, :-1, :-1])
 
 
-def post_gated(u, v, w, f, g, h, p, dt, dx, dy, dz, offs, gext, flags=None):
+def post_gated(u, v, w, f, g, h, p, dt, dx, dy, dz, offs, gext, flags=None,
+               ragged: bool = False):
     """POST on a shard's halo-1 block (the plain version of K8's
     distributed mode): the projection on the cells of the global interior,
     ghost-ring cells included where they are interface ghosts, with p read
     as 0 beyond the block's high edge; other cells keep u, v, w. With the
     block's uint8 `flags` the projection is multiplied by the face masks,
     a face fluid-fluid where the cell and its + neighbour are fluid (the
-    flags, like p, read as 0 beyond the high edge). Returns (u'', v'',
-    w'', max|u''|, max|v''|, max|w''|), the maxima over the block. Inputs
-    untouched."""
+    flags, like p, read as 0 beyond the high edge). `ragged` (a mesh that
+    does not divide the grid) then multiplies u, v, w by the live mask
+    (1 up to the global ghost ring, 0 on the dead cells past it; the JAX
+    package's `_post3_kernel(ragged=True)`), so that the dead cells hold 0
+    (-0 where the value was negative) and never reach the maxima. Returns
+    (u'', v'', w'', max|u''|, max|v''|, max|w''|), the maxima over the
+    block. Inputs untouched."""
     gk, gj, gi = index_grids(u.shape, 0, offs, u.device)
     in_k, in_j, in_i = _interior(gk, gj, gi, gext)
     interior = in_k & in_j & in_i
+    K, J, I = gext
+    live = ((gk <= K + 1) & (gj <= J + 1) & (gi <= I + 1)).to(u.dtype)
     faces = (None,) * 3
     if flags is not None:
         fl = flags.to(u.dtype)
@@ -462,7 +469,8 @@ def post_gated(u, v, w, f, g, h, p, dt, dx, dy, dz, offs, gext, flags=None):
         new = fa - (pn - p) * (dt / _const(d, dt))
         if face is not None:
             new = new * face
-        out.append(torch.where(interior, new, a))
+        new = torch.where(interior, new, a)
+        out.append(new * live if ragged else new)
     return (*out, *(max_element(a) for a in out))
 
 

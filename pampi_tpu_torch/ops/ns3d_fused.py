@@ -43,6 +43,16 @@ mask_fgh); POST projects on fluid-fluid faces only (adapt_uvw_obstacle).
 Its launches count on kernel entries of their own, `ns3d_pre_flags` and
 `ns3d_post_flags`.
 
+The ragged mode of K8 (`ragged=True`, a mesh that does not divide the
+grid: ceil-divided shards whose trailing cells are dead; JAX
+make_fused_post_3d(ragged=True)): after the projection u, v, w are
+multiplied by the live mask (parallel/ragged3d.live_masks_3d), so that
+the dead cells hold 0 and never reach the ghost-inclusive maxima. Its
+launches count on `ns3d_post_ragged` and, with the flags,
+`ns3d_post_flags_ragged`. K7 runs unchanged at such uneven shard bounds:
+every write is gated by the global index, wherever the walls cross the
+block.
+
 For a CPU tensor each wrapper runs its plain version (ops/ns3d.py,
 ops/obstacle3d.py); for a CUDA tensor it launches its kernel or raises.
 """
@@ -67,13 +77,17 @@ NS3D_PRE_FLAGS = kb.register(
     "ns3d_pre_flags", SOURCE, "pampi_tpu/ops/ns3d_fused.py:778")
 NS3D_POST_FLAGS = kb.register(
     "ns3d_post_flags", SOURCE, "pampi_tpu/ops/ns3d_fused.py:880")
+NS3D_POST_RAGGED = kb.register(
+    "ns3d_post_ragged", SOURCE, "pampi_tpu/ops/ns3d_fused.py:880")
+NS3D_POST_FLAGS_RAGGED = kb.register(
+    "ns3d_post_flags_ragged", SOURCE, "pampi_tpu/ops/ns3d_fused.py:880")
 
 _PROBLEM_CODE = {"dcavity": 1, "canal": 2}
 _V, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _PRE_ARGS = [_I, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _I, _V, _V, _V,
              _V, _V, _V]
-_POST_ARGS = [_I, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _D, _D, _D, _V, _V,
-              _V, _V]
+_POST_ARGS = [_I, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _D, _D, _D, _V, _I,
+              _V, _V, _V]
 _SIGNATURES = {
     "ns3d_pre_f32": _PRE_ARGS, "ns3d_pre_f64": _PRE_ARGS,
     "ns3d_post_f32": _POST_ARGS, "ns3d_post_f64": _POST_ARGS,
@@ -243,16 +257,22 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+# K8's kernel entry by (flag mode, ragged mode)
+_POST_ENTRY = {(False, False): NS3D_POST, (True, False): NS3D_POST_FLAGS,
+               (False, True): NS3D_POST_RAGGED,
+               (True, True): NS3D_POST_FLAGS_RAGGED}
+
+
 def ns3d_post_plain(u, v, w, f, g, h, p, dt, dx, dy, dz, offs=None,
-                    gext=None, flags=None):
+                    gext=None, flags=None, ragged: bool = False):
     """K8's plain version: returns (u'', v'', w'', max|u''|, max|v''|,
     max|w''|); in the distributed mode the gated projection of
-    ops/ns3d.post_gated on the shard's halo-1 blocks. `flags` restricts
-    the projection to fluid-fluid faces (ops/obstacle3d.
-    adapt_uvw_obstacle)."""
+    ops/ns3d.post_gated on the shard's halo-1 blocks, with the live-mask
+    multiply when `ragged`. `flags` restricts the projection to
+    fluid-fluid faces (ops/obstacle3d.adapt_uvw_obstacle)."""
     if offs is not None:
         return ops.post_gated(u, v, w, f, g, h, p, dt, dx, dy, dz, offs,
-                              gext, flags)
+                              gext, flags, ragged)
     if flags is None:
         u2, v2, w2 = ops.adapt_uvw(u, v, w, f, g, h, p, dt, dx, dy, dz)
     else:
@@ -266,16 +286,21 @@ def ns3d_post_plain(u, v, w, f, g, h, p, dt, dx, dy, dz, offs=None,
 
 
 def ns3d_post(u, v, w, f, g, h, p, dt, dx, dy, dz, offs=None, gext=None,
-              flags=None):
+              flags=None, ragged: bool = False):
     """K8: projection in place on u, v, w; returns (umax, vmax, wmax) as
     0-dim tensors on the fields' device. With the shard's global offsets
     and the global extents, the distributed mode on its halo-1 blocks
     (the maxima are the shard's). `flags` (uint8 of u's shape) selects
-    the flag mode."""
+    the flag mode, `ragged` the live-mask multiply of a mesh that does
+    not divide the grid."""
     local, o, G = _mode(u.shape, offs, gext, 0, False)
+    if ragged and offs is None:
+        raise ValueError("the ragged mode needs the shard's offsets and the "
+                         "global extents")
     if u.device.type == "cpu":
         u2, v2, w2, *maxima = ns3d_post_plain(u, v, w, f, g, h, p, dt, dx,
-                                              dy, dz, offs, gext, flags)
+                                              dy, dz, offs, gext, flags,
+                                              ragged)
         for a, b in ((u, u2), (v, v2), (w, w2)):
             a.copy_(b)
         return tuple(maxima)
@@ -291,8 +316,8 @@ def ns3d_post(u, v, w, f, g, h, p, dt, dx, dy, dz, offs=None, gext=None,
             u.device.index, u.data_ptr(), v.data_ptr(), w.data_ptr(),
             f.data_ptr(), g.data_ptr(), h.data_ptr(), p.data_ptr(),
             dt.data_ptr(), (ctypes.c_int * 3)(*local),
-            (ctypes.c_int * 6)(*o, *G), dx, dy, dz, _ptr(flags),
+            (ctypes.c_int * 6)(*o, *G), dx, dy, dz, _ptr(flags), int(ragged),
             partial.data_ptr(), out.data_ptr(), kb.stream_of(u))
     kb.check(lib, err, "ns3d_post")
-    (NS3D_POST if flags is None else NS3D_POST_FLAGS).launches += 1
+    _POST_ENTRY[flags is not None, bool(ragged)].launches += 1
     return out[0], out[1], out[2]

@@ -15,24 +15,30 @@ one device and on a 3-D mesh.
   in the Laplacian and in the relaxation factor omega/denom (homogeneous
   Neumann on obstacle surfaces); the residual is normalised by the number
   of fluid cells. On one device the solve runs the masked mode of kernel
-  K5 (ops/sor3d_kernels.py); on a mesh kernel K16 per shard
-  (ops/sor_obsdist3d.py), each on its plain version for CPU tensors.
+  K5 (ops/sor3d_kernels.py); on a mesh that divides the grid kernel K16
+  per shard (ops/sor_obsdist3d.py), each on its plain version for CPU
+  tensors; on a mesh that does not divide it, and on shards too thin for
+  K16, the JAX package's jnp path in plain torch (the deep-halo CA
+  iterations or the exchange-per-half-sweep fallback).
 
 Obstacles must be at least 2 cells thick per axis. The masks are numpy
 float64 arrays, as the JAX package computes them on the host;
 `ObstacleMasks3D.to` moves them to a device in the field's dtype (the
-JAX package's cast). The pressure solve reads only the uint8 flags: its
+JAX package's cast). The kernels read only the uint8 flags: their
 coefficients are formed from them (ops/sor3d_kernels.masked_stencil_3d),
-as the TPU kernels form them, so the JAX package's float64 host arrays of
-interior coefficients (eps_*, factor, p_mask) are not kept. Layout as in
-ops/ns3d.py: (kmax+2, jmax+2, imax+2) arrays [k, j, i]; u on east faces,
-v on north faces, w on back faces; the ghost shell counts as fluid.
+as the TPU kernels form them. The jnp path's coefficient fields (p_mask,
+eps_*, factor) are formed on the host in float64, as the JAX package
+forms them, and cut per shard (`interior_coefficients_3d`,
+`deep_obstacle_masks_3d`). Layout as in ops/ns3d.py: (kmax+2, jmax+2,
+imax+2) arrays [k, j, i]; u on east faces, v on north faces, w on back
+faces; the ghost shell counts as fluid. On a mesh that does not divide
+the grid the dead cells past the global array read zero masks and flags.
 
 The obstacle multigrid on one device is ops/multigrid.py's
 make_obstacle_mg_solve_3d; the JAX package's distributed obstacle
-multigrid and its ragged-mesh obstacle solve are not ported (ROADMAP A.8,
-item 6.4, and A item 6), and neither is its padded TPU layout (`pad_array_3d`, `padded_deep_exchange_3d`): the port exchanges
-the unpadded deep block (parallel/comm.halo_exchange).
+multigrid is not ported (ROADMAP A.8, item 6.4), and neither is its
+padded TPU layout (`pad_array_3d`, `padded_deep_exchange_3d`): the port
+exchanges the unpadded deep block (parallel/comm.halo_exchange).
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ from ..parallel import comm as pc
 from ..parallel.comm import CartComm
 from ..parallel.stencil2d import (
     ca_clamp,
+    ca_halo,
     ca_supported,
     embed_deep,
     strip_deep,
@@ -56,7 +63,7 @@ from ..parallel.stencil3d import _owned_r2_3d, ca_masks_3d, neumann_masked_3d
 from ..utils import dispatch as _dispatch
 from ..utils.precision import check_eps_floor
 from .ns2d import _const
-from .sor3d_kernels import masked_stencil_3d, rb_sor3d_checkerboard
+from .sor3d_kernels import rb_sor3d_checkerboard
 from .sor_obsdist3d import ObsGeom3, rb_sor_obsdist3d
 
 
@@ -315,73 +322,181 @@ def make_obstacle_solver_fn_3d(imax, jmax, kmax, dx, dy, dz, eps, itermax,
 # -- on a 3-D mesh -----------------------------------------------------------
 
 
+def _cut(a, offs, size, lo: int = 0):
+    """The (size)-box of the global array `a` whose local index 0 sits at
+    global index offs - lo per axis, zero where the box runs past `a`
+    (the JAX package's slice of the array padded with `lo` zeros per side
+    and, on the HI sides, by the ceil-division overhang)."""
+    a = np.asarray(a)
+    out = np.zeros(size, a.dtype)
+    src, dst = [], []
+    for o, n, g in zip(offs, size, a.shape):
+        start = o - lo
+        lo_src, hi_src = max(0, start), min(g, start + n)
+        src.append(slice(lo_src, max(lo_src, hi_src)))
+        dst.append(slice(lo_src - start, max(lo_src, hi_src) - start))
+    out[tuple(dst)] = a[tuple(src)]
+    return out
+
+
 def shard_masks_3d(m: ObstacleMasks3D, comm: CartComm, s: int, kl: int,
                    jl: int, il: int) -> ObstacleMasks3D:
-    """Shard s's view of the global masks on a mesh that divides the grid:
-    its halo-1 block, sliced at its offsets (no overhang: divisible
-    only)."""
-    k0, j0, i0 = comm.offsets(s, (kl, jl, il))
+    """Shard s's view of the global masks: its halo-1 block, sliced at its
+    offsets; on a mesh that does not divide the grid the dead cells past
+    the global array read zero masks (the JAX package's HI-side pad by the
+    ceil-division overhang)."""
+    offs = comm.offsets(s, (kl, jl, il))
+    size = (kl + 2, jl + 2, il + 2)
     return dataclasses.replace(m, **{
-        name: np.asarray(getattr(m, name))[k0:k0 + kl + 2, j0:j0 + jl + 2,
-                                           i0:i0 + il + 2]
-        for name in _FULL})
+        name: _cut(getattr(m, name), offs, size) for name in _FULL})
 
 
 def deep_flag_block_3d(m: ObstacleMasks3D, comm: CartComm, s: int, kl: int,
                        jl: int, il: int, H: int, device="cpu"):
     """Shard s's (kl+2H, jl+2H, il+2H) deep block of the fluid flags, as
-    uint8: the global flags padded with H-1 dead (0) cells per side and
-    sliced at the shard's offsets (local index a is global
-    a - (H-1) + offset)."""
-    k0, j0, i0 = comm.offsets(s, (kl, jl, il))
-    wide = np.pad((np.asarray(m.fluid) != 0).astype(np.uint8), H - 1)
-    blk = wide[k0:k0 + kl + 2 * H, j0:j0 + jl + 2 * H, i0:i0 + il + 2 * H]
-    return torch.from_numpy(np.ascontiguousarray(blk)).to(device)
+    uint8: the global flags padded with H-1 dead (0) cells per side (and,
+    on a mesh that does not divide the grid, by the ceil-division overhang
+    on the HI sides) and sliced at the shard's offsets (local index a is
+    global a - (H-1) + offset)."""
+    blk = _cut((np.asarray(m.fluid) != 0).astype(np.uint8),
+               comm.offsets(s, (kl, jl, il)),
+               (kl + 2 * H, jl + 2 * H, il + 2 * H), H - 1)
+    return torch.from_numpy(blk).to(device)
 
 
-def _flag_half_3d(p, rhs, upd, fac, lap):
-    """One flag-masked half-sweep on a halo-1 block, in place on p: the
-    cells of `upd` relax with the flags' coefficients (fac, lap:
-    sor3d_kernels.masked_stencil_3d). Returns r."""
-    inner = (slice(1, -1),) * 3
-    r = torch.where(upd, rhs[inner] - lap(p), torch.zeros_like(fac))
-    p[inner] = p[inner] - fac * r
+_COEF = ("p_mask", "eps_e", "eps_w", "eps_n", "eps_s", "eps_b", "eps_f",
+         "factor")
+
+
+def interior_coefficients_3d(m: ObstacleMasks3D, dx, dy, dz) -> dict:
+    """The global interior (kmax, jmax, imax) coefficient fields of the
+    eps-coefficient stencil, in float64 numpy as the JAX package's
+    make_masks_3d forms them on the host: p_mask (the cell is fluid),
+    eps_e/w/n/s/b/f (the +i/-i/+j/-j/+k/-k neighbour and the cell are
+    fluid) and factor = omega/denom on fluid cells."""
+    f = np.asarray(m.fluid) != 0
+    fi = f[1:-1, 1:-1, 1:-1]
+    eps = {"eps_e": f[1:-1, 1:-1, 2:], "eps_w": f[1:-1, 1:-1, :-2],
+           "eps_n": f[1:-1, 2:, 1:-1], "eps_s": f[1:-1, :-2, 1:-1],
+           "eps_b": f[2:, 1:-1, 1:-1], "eps_f": f[:-2, 1:-1, 1:-1]}
+    out = {k: (a & fi).astype(np.float64) for k, a in eps.items()}
+    idx2, idy2, idz2 = 1.0 / (dx * dx), 1.0 / (dy * dy), 1.0 / (dz * dz)
+    denom = ((out["eps_e"] + out["eps_w"]) * idx2
+             + (out["eps_n"] + out["eps_s"]) * idy2
+             + (out["eps_b"] + out["eps_f"]) * idz2)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        out["factor"] = np.where(denom > 0, m.omega / denom, 0.0) * fi
+    out["p_mask"] = fi.astype(np.float64)
+    return out
+
+
+def deep_obstacle_masks_3d(coef: dict, comm: CartComm, s: int, kl: int,
+                           jl: int, il: int, halo: int, dtype,
+                           device="cpu") -> dict:
+    """Shard s's slices of the interior coefficient fields
+    (interior_coefficients_3d) for the deep-halo CA layout (JAX
+    deep_obstacle_masks_3d(over_*)): each global field padded with
+    halo-1 zeros per side, and on the HI sides by the ceil-division
+    overhang, cut at the shard's offsets to (kl+2H-2, jl+2H-2, il+2H-2),
+    the interior of the shard's deep block, and cast to dtype. Every shard
+    that sees a cell holds its values, so redundant halo updates agree
+    bitwise."""
+    offs = comm.offsets(s, (kl, jl, il))
+    size = (kl + 2 * halo - 2, jl + 2 * halo - 2, il + 2 * halo - 2)
+    return {k: torch.from_numpy(_cut(coef[k], offs, size, halo - 1)).to(
+        device=device, dtype=dtype) for k in _COEF}
+
+
+def _obstacle_half_3d(p, rhs, colour, om, idx2, idy2, idz2):
+    """One eps-coefficient half-sweep on an extended block, in place on p,
+    op for op the JAX package's _obstacle_half_3d: the cells of the float
+    `colour` mask (colour times p_mask) relax with the block's
+    coefficient slices `om` (deep_obstacle_masks_3d). Returns r."""
+    c = p[1:-1, 1:-1, 1:-1]
+    lap = (
+        om["eps_e"] * (p[1:-1, 1:-1, 2:] - c)
+        + om["eps_w"] * (p[1:-1, 1:-1, :-2] - c)
+    ) * idx2 + (
+        om["eps_n"] * (p[1:-1, 2:, 1:-1] - c)
+        + om["eps_s"] * (p[1:-1, :-2, 1:-1] - c)
+    ) * idy2 + (
+        om["eps_b"] * (p[2:, 1:-1, 1:-1] - c)
+        + om["eps_f"] * (p[:-2, 1:-1, 1:-1] - c)
+    ) * idz2
+    r = (rhs[1:-1, 1:-1, 1:-1] - lap) * colour
+    p[1:-1, 1:-1, 1:-1] += -om["factor"] * r
     return r
+
+
+def ca_rb_iters_obstacle_3d(p, rhs, n: int, cm, om, idx2, idy2, idz2):
+    """n full red-black iterations of the eps-coefficient stencil (odd
+    pass, even pass, the six-face Neumann refresh) on one shard's
+    deep-halo block after a depth-H exchange (the obstacle twin of
+    parallel/stencil3d.ca_rb_iters_3d; JAX ca_rb_iters_obstacle_3d). cm is
+    the block's stencil3d.ca_masks_3d set, om its deep_obstacle_masks_3d
+    set. Returns the block and the owned sum of r² of the last
+    iteration."""
+    odd = cm["odd"][1:-1, 1:-1, 1:-1] * om["p_mask"]
+    even = cm["even"][1:-1, 1:-1, 1:-1] * om["p_mask"]
+    r_odd = r_evn = None
+    for _ in range(n):
+        r_odd = _obstacle_half_3d(p, rhs, odd, om, idx2, idy2, idz2)
+        r_evn = _obstacle_half_3d(p, rhs, even, om, idx2, idy2, idz2)
+        p = neumann_masked_3d(p, cm)
+    return p, _owned_r2_3d(r_odd, r_evn, cm)
 
 
 def make_dist_obstacle_solver_3d(comm: CartComm, imax, jmax, kmax, kl, jl,
                                  il, dx, dy, dz, eps, itermax,
                                  m: ObstacleMasks3D, dtype, n: int,
-                                 record_key: str = "obstacle3d_dist"):
-    """The distributed flag-masked pressure solve on a mesh that divides
-    the grid, communication-avoiding: one depth-2n halo exchange buys n
-    exact red-black iterations, which kernel K16 runs on every shard's
-    deep block (ops/sor_obsdist3d.py; its plain version on CPU tensors).
-    The residual, normalised by the global fluid-cell count, is checked
-    every n iterations. `n` is the caller's cadence
-    (utils/dispatch.sor_cadence), clamped so that the deep strips come
-    from owned cells (ca_clamp). Shards below the CA's extents take the
-    exchange-per-half-sweep fallback, as the JAX package's do, with the
-    coefficients formed from their halo-1 flag blocks. The decision is
-    recorded under record_key with the JAX package's labels ("pallas caN",
-    "jnp_rb_fallback").
+                                 record_key: str = "obstacle3d_dist",
+                                 ragged: bool = False):
+    """The distributed flag-masked pressure solve, communication-avoiding:
+    one depth-H halo exchange buys n exact red-black iterations. The
+    residual, normalised by the global fluid-cell count, is checked every
+    n iterations.
+
+    - On a mesh that divides the grid, kernel K16 runs them on every
+      shard's deep block (ops/sor_obsdist3d.py; its plain version on CPU
+      tensors), H = 2n. `n` is the caller's cadence
+      (utils/dispatch.sor_cadence), clamped so that the deep strips come
+      from owned cells (ca_clamp). Recorded "pallas caN", the JAX
+      package's label.
+    - On a mesh that does not divide the grid (`ragged`) the JAX package
+      keeps its solve on its jnp path, and so does the port:
+      ca_rb_iters_obstacle_3d in plain torch on the shards' deep blocks,
+      H = ca_halo(n, True) = 2n + 1, with the coefficients of
+      deep_obstacle_masks_3d. It needs ca_halo(1, True) <= every extent;
+      `n` (the JAX package's `tpu_ca_inner`) is clamped by ca_clamp and
+      then lowered until 2n + 1 fits. Recorded "jnp_ca caN ragged".
+    - Shards below those extents take the exchange-per-half-sweep
+      fallback, as the JAX package's do (one exchange more before the
+      Neumann copy on a ragged mesh), with the same coefficients on the
+      halo-1 blocks. Recorded "jnp_rb_fallback[ ragged]".
 
     Returns (solve, used_kernel), the JAX package's shape: solve(p, rhs)
     -> (p, res, it) on lists of halo-1 blocks (p exchanged on return: the
     projection reads it across shard edges); used_kernel says whether K16
     runs. solve.n, solve.geom, solve.flags and solve.offs give the
     cadence, the shards' geometry, deep flag blocks and offsets (for
-    callers that time or check K16 at this solve's shapes)."""
+    callers that time or check K16 at this solve's shapes; geom and
+    flags are None without K16)."""
     check_eps_floor(eps, int(m.n_fluid), dtype,
                     f"sor_dist_obstacle3d {imax}x{jmax}x{kmax}")
     idx2, idy2, idz2 = 1.0 / (dx * dx), 1.0 / (dy * dy), 1.0 / (dz * dz)
     local = (kl, jl, il)
     offs = [comm.offsets(s, local) for s in range(comm.size)]
-    supported = ca_supported(kl, jl, il)
+    supported = ca_supported(kl, jl, il) and (
+        not ragged or ca_halo(1, True) <= min(local))
     n = ca_clamp(n, kl, jl, il) if supported else 1
-    H = 2 * n if supported else 1
+    if supported and ragged:
+        while n > 1 and ca_halo(n, True) > min(local):
+            n -= 1
+    H = ca_halo(n, ragged) if supported else 1
+    kernel = supported and not ragged
+    geom = flags = None
 
-    if supported:
+    if kernel:
         geom = ObsGeom3(kmax, jmax, imax, kl, jl, il, n)
         flags = [deep_flag_block_3d(m, comm, s, kl, jl, il, H, dev)
                  for s, dev in enumerate(comm.devices)]
@@ -401,30 +516,42 @@ def make_dist_obstacle_solver_3d(comm: CartComm, imax, jmax, kmax, kl, jl,
                 return res, n
             return rounds
     else:
-        geom = flags = None
-        _dispatch.record(record_key, "jnp_rb_fallback")
-        cms, sweeps = [], []
-        for s, dev in enumerate(comm.devices):
-            cms.append(ca_masks_3d(kl, jl, il, 1, kmax, jmax, imax,
-                                   torch.bool, *offs[s], device=dev))
-            fl = deep_flag_block_3d(m, comm, s, kl, jl, il, 1, dev)
-            fluid = fl[1:-1, 1:-1, 1:-1] != 0
-            sweeps.append((cms[-1]["odd"][1:-1, 1:-1, 1:-1] & fluid,
-                           cms[-1]["even"][1:-1, 1:-1, 1:-1] & fluid,
-                           *masked_stencil_3d(fl, dtype, m.omega, idx2,
-                                              idy2, idz2)))
+        _dispatch.record(record_key, (f"jnp_ca ca{n}" if supported
+                                      else "jnp_rb_fallback")
+                         + (" ragged" if ragged else ""))
+        coef = interior_coefficients_3d(m, dx, dy, dz)
+        cms = [ca_masks_3d(kl, jl, il, H, kmax, jmax, imax, dtype, *o,
+                           device=dev)
+               for o, dev in zip(offs, comm.devices)]
+        oms = [deep_obstacle_masks_3d(coef, comm, s, kl, jl, il, H, dtype,
+                                      dev)
+               for s, dev in enumerate(comm.devices)]
+        del coef
 
         def rounds_for(pd, rd):
             def rounds():
-                pc.halo_exchange(pd, comm)
-                r_odd = [_flag_half_3d(x, f, odd, fac, lap)
-                         for x, f, (odd, _, fac, lap) in zip(pd, rd, sweeps)]
-                pc.halo_exchange(pd, comm)
-                r_evn = [_flag_half_3d(x, f, even, fac, lap)
-                         for x, f, (_, even, fac, lap) in zip(pd, rd, sweeps)]
+                if supported:
+                    pc.halo_exchange(pd, comm, depth=H)
+                    r2 = []
+                    for s, (cm, om) in enumerate(zip(cms, oms)):
+                        pd[s], r = ca_rb_iters_obstacle_3d(
+                            pd[s], rd[s], n, cm, om, idx2, idy2, idz2)
+                        r2.append(r)
+                    return r2, n
+                r_half = []
+                for colour in ("odd", "even"):
+                    pc.halo_exchange(pd, comm)
+                    r_half.append([_obstacle_half_3d(
+                        x, f, cm[colour][1:-1, 1:-1, 1:-1] * om["p_mask"],
+                        om, idx2, idy2, idz2)
+                        for x, f, cm, om in zip(pd, rd, cms, oms)])
+                if ragged:
+                    # the wall-ghost plane can open a dead shard whose
+                    # Neumann source lives on a neighbour (ca_halo)
+                    pc.halo_exchange(pd, comm)
                 pd[:] = [neumann_masked_3d(x, cm) for x, cm in zip(pd, cms)]
                 return [_owned_r2_3d(a, b, cm)
-                        for a, b, cm in zip(r_odd, r_evn, cms)], 1
+                        for a, b, cm in zip(*r_half, cms)], 1
             return rounds
 
     def solve(p, rhs):
@@ -436,4 +563,4 @@ def make_dist_obstacle_solver_3d(comm: CartComm, imax, jmax, kmax, kl, jl,
         return pc.halo_exchange(p, comm), res, it
 
     solve.n, solve.geom, solve.flags, solve.offs = n, geom, flags, offs
-    return solve, supported
+    return solve, kernel

@@ -100,7 +100,8 @@ def _owned_r2_3d(r_odd, r_evn, masks):
 def ca_rb_iters_3d(p, rhs, n: int, masks, factor, idx2, idy2, idz2):
     """n full red-black iterations (odd pass, even pass, 6-face Neumann
     refresh: the sequential loop order) on one shard's deep-halo block,
-    after a depth-ca_halo(n) exchange. Returns the block and the owned sum
+    after a depth-ca_halo(n) exchange (2n, and 2n + 1 on a ragged mesh: the
+wall-ghost plane can open a dead shard). Returns the block and the owned sum
     of r² of the last iteration."""
     odd = masks["odd"][1:-1, 1:-1, 1:-1]
     even = masks["even"][1:-1, 1:-1, 1:-1]
@@ -113,10 +114,12 @@ def ca_rb_iters_3d(p, rhs, n: int, masks, factor, idx2, idy2, idz2):
 
 
 def rb_exchange_per_sweep_3d(blocks, rhs, masks, comm: CartComm, factor,
-                             idx2, idy2, idz2):
+                             idx2, idy2, idz2, ragged: bool = False):
     """The extent-1 fallback over every shard: one red-black iteration
-    with an exchange before each half-sweep, on halo-1 blocks. Returns the
-    blocks and the per-shard owned sums of r²."""
+    with an exchange before each half-sweep, on halo-1 blocks. Ragged
+    layouts exchange once more before the Neumann copy (the wall-ghost
+    plane can open a dead shard whose Neumann source is a neighbour's
+    plane). Returns the blocks and the per-shard owned sums of r²."""
     coef = (factor, idx2, idy2, idz2)
     halo_exchange(blocks, comm)
     r_odd = [ca_half_sweep_3d(p, f, m["odd"][1:-1, 1:-1, 1:-1], *coef)[1]
@@ -124,6 +127,8 @@ def rb_exchange_per_sweep_3d(blocks, rhs, masks, comm: CartComm, factor,
     halo_exchange(blocks, comm)
     r_evn = [ca_half_sweep_3d(p, f, m["even"][1:-1, 1:-1, 1:-1], *coef)[1]
              for p, f, m in zip(blocks, rhs, masks)]
+    if ragged:
+        halo_exchange(blocks, comm)
     blocks = [neumann_masked_3d(p, m) for p, m in zip(blocks, masks)]
     return blocks, [_owned_r2_3d(a, b, m)
                     for a, b, m in zip(r_odd, r_evn, masks)]

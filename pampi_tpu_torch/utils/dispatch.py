@@ -190,25 +190,24 @@ def mesh_is_single(tpu_mesh: str, ndevices: int) -> bool:
     return ndevices == 1 if dims is None else all(d == 1 for d in dims)
 
 
-def check_supported(param, mesh: bool = False, ragged: bool = False) -> None:
+def check_supported(param, mesh: bool = False) -> None:
     """Raise NotImplementedError for every configuration outside the
     ported stacks, ValueError for a value no package takes. The port runs
     2-D and 3-D single device with the red-black SOR, multigrid and DCT
     pressure solvers, obstacle flag fields under the SOR (2-D on one
-    device and on any 2-D mesh, 3-D on one device and on a mesh that
-    divides the grid) and under the obstacle multigrid (one device), and
-    on a mesh (`tpu_mesh PJxPI`, `PKxPJxPI`) under
-    `tpu_solver sor` the distributed 2-D Poisson solve, the distributed
-    NS-2D time stepper on a mesh that divides the grid or not (ragged),
-    and the distributed NS-3D time stepper on a divisible grid. `param`
-    has been through resolve_solver, which checks `tpu_solver`;
-    `tpu_mg_fused` is checked where an MG build resolves it
-    (resolve_mg_fused). `mesh` says that the solve runs on a mesh (the
-    distributed solvers pass it), and
-    `ragged` that the mesh does not divide the grid; otherwise only an
-    explicit mesh of several shards is held to the distributed layer's
-    reach, since `auto` is resolved over the visible cards by the CLI
-    (cli._make_comm)."""
+    device and on any mesh) and under the obstacle multigrid (one
+    device), and on a mesh (`tpu_mesh PJxPI`, `PKxPJxPI`) under
+    `tpu_solver sor` the distributed 2-D Poisson solve and the
+    distributed NS-2D and NS-3D time steppers, on a mesh that divides the
+    grid or not (ragged). `param` has been through resolve_solver, which
+    checks `tpu_solver`; `tpu_mg_fused` is checked where an MG build
+    resolves it (resolve_mg_fused). `mesh` says that the solve runs on a
+    mesh (the distributed solvers pass it); otherwise only an explicit
+    mesh of several shards is held to the distributed layer's reach, since
+    `auto` is resolved over the visible cards by the CLI
+    (cli._make_comm). A ragged mesh under mg or fft is refused by the
+    distributed solvers, with the JAX package's ValueError, before this
+    check."""
     if param.tpu_solver == "fft" and param.tpu_dtype in ("bfloat16", "bf16"):
         # the direct solve's refusal, before the dtype itself is refused as
         # not yet ported
@@ -219,7 +218,7 @@ def check_supported(param, mesh: bool = False, ragged: bool = False) -> None:
     if param.obstacles.strip():
         _check_obstacles(param, three_d, on_mesh)
     if on_mesh:
-        _check_mesh(param, three_d, ragged)
+        _check_mesh(param, three_d)
     # the SOR layout is checked where it is resolved
     # (models/poisson.resolve_layout, models/ns3d.resolve_layout_3d)
     if three_d and param.tpu_vtk not in ("ascii", "binary", "sharded"):
@@ -245,11 +244,10 @@ _OBSTACLE_FFT = ("tpu_solver fft cannot solve obstacle flag fields (the "
 
 
 def _check_obstacles(param, three_d: bool, mesh: bool) -> None:
-    """Obstacle flag fields: under `tpu_solver sor` 2-D ones on one device
-    and on a 2-D mesh, divisible or ragged, 3-D ones on one device and on
-    a mesh that divides the grid (the ragged refusal is _check_mesh's);
-    under `tpu_solver mg` (which `auto` resolves to on an obstacle grid)
-    the obstacle multigrid on one device. The Poisson problems refuse the
+    """Obstacle flag fields: under `tpu_solver sor` on one device and on
+    any mesh, divisible or ragged; under `tpu_solver mg` (which `auto`
+    resolves to on an obstacle grid) the obstacle multigrid on one
+    device. The Poisson problems refuse the
     key and fft refuses the fields, each with the JAX package's ValueError
     (pampi_tpu/cli.py, models/ns2d.py, ns2d_dist.py, ns3d.py); obstacle
     multigrid on a mesh is not ported (ROADMAP A.8, item 6.4)."""
@@ -266,12 +264,12 @@ def _check_obstacles(param, three_d: bool, mesh: bool) -> None:
             "item 6.4); use tpu_solver sor, or one device")
 
 
-def _check_mesh(param, three_d: bool, ragged: bool) -> None:
+def _check_mesh(param, three_d: bool) -> None:
     """The distributed layer's reach, all under `tpu_solver sor`: the 2-D
-    Poisson solve (models/poisson_dist.py), the NS-2D time stepper
-    (models/ns2d_dist.py) on any mesh, and the NS-3D time stepper
-    (models/ns3d_dist.py) on a mesh that divides the grid; the NS steppers
-    with the serial exchange schedule and a fixed solve budget."""
+    Poisson solve (models/poisson_dist.py), and the NS-2D and NS-3D time
+    steppers (models/ns2d_dist.py, models/ns3d_dist.py) on any mesh, one
+    that divides the grid or a ragged one; the NS steppers with the serial
+    exchange schedule and a fixed solve budget."""
     where = f"tpu_mesh {param.tpu_mesh}"
     ns = param.name in ("dcavity3d", "canal3d", "dcavity", "canal",
                         "canal_obstacle")
@@ -286,11 +284,6 @@ def _check_mesh(param, three_d: bool, ragged: bool) -> None:
     if not ns:
         return
     family = "NS-3D" if three_d else "NS-2D"
-    if three_d and ragged:
-        raise NotImplementedError(
-            f"{where}: a mesh that does not divide the NS-3D grid (the "
-            "ragged pad-with-mask decomposition) is not yet ported "
-            "(ROADMAP A.8)")
     if param.tpu_overlap == "on":
         raise NotImplementedError(
             f"tpu_overlap on: the overlapped exchange schedule of the "

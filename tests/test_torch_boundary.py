@@ -226,6 +226,7 @@ def test_kernel_registry():
                                "rb_sor_obsdist3d",
                                "rb_sor3d_checkerboard_masked",
                                "ns3d_pre_flags", "ns3d_post_flags",
+                               "ns3d_post_ragged", "ns3d_post_flags_ragged",
                                "rb_sor_checkerboard_masked",
                                "rb_sor_blocked", "ns2d_pre_flags",
                                "ns2d_post_flags", "mg_class_cycle_2d"}

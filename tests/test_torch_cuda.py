@@ -478,6 +478,91 @@ def test_ns3d_step_kernels_distributed_match_plain(cuda, dtype, problem,
         assert torch.equal(m, a.abs().max())
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("flags", [False, True], ids=["plain", "flags"])
+@pytest.mark.parametrize("dims,G", [((4, 1, 1), (9, 12, 12)),
+                                    ((2, 2, 2), (9, 11, 13))],
+                         ids=["4x1x1-ghost", "2x2x2"])
+def test_ns3d_step_kernels_ragged_match_plain(cuda, dtype, flags, dims, G):
+    """K7 at uneven shard bounds and K8 in its ragged mode (the live-mask
+    multiply), on every shard of a mesh that does not divide the grid
+    (on 4x1x1 the last shard holds only the HI ghost plane and dead
+    cells), without and with a box's flags, against their plain versions:
+    u', v', w', the maxima and the dead cells (0) bitwise, the rest to the
+    tolerance."""
+    from pampi_tpu_torch.ops import ns3d as ops3
+
+    param = Parameter(name="dcavity3d", imax=G[2], jmax=G[1], kmax=G[0],
+                      re=100.0)
+    cfg = nf3.StepConfig3D.from_param(param)
+    local = tuple(-(-n // d) for n, d in zip(G, dims))
+    fluid = np.ones(tuple(n + 2 for n in G), bool)
+    fluid[3:7, 4:9, 3:9] = False
+    comm = CartComm(ndims=3, dims=dims, devices=[cuda])
+    dt = torch.tensor(0.013, dtype=dtype, device=cuda)
+    for s in range(comm.size):
+        offs = comm.offsets(s, local)
+        fl = (None, None)
+        if flags:
+            over = [max(0, o + n + 4 - g) for o, n, g in
+                    zip(offs, local, fluid.shape)]
+            wide = np.pad(fluid.astype(np.uint8),
+                          [(2, 2 + e) for e in over])
+            fl = tuple(torch.from_numpy(np.ascontiguousarray(wide[tuple(
+                slice(o + 2 - h, o + n + 4 + h) for o, n in
+                zip(offs, local))])).to(cuda) for h in (2, 0))
+        u, v, w = (_rand(tuple(n + 6 for n in local), dtype, cuda, 61 + k)
+                   for k in range(3))
+        p = _rand(tuple(n + 2 for n in local), dtype, cuda, 64)
+        uk, vk, wk = u.clone(), v.clone(), w.clone()
+        fk = nf3.ns3d_pre(uk, vk, wk, dt, cfg, offs, G, 2, flags=fl[0])
+        plain = nf3.ns3d_pre_plain(u, v, w, dt, cfg, offs, G, 2, fl[0])
+        for a, b in zip((uk, vk, wk), plain[:3]):
+            assert torch.equal(a, b)
+        for a, b in zip(fk, plain[3:]):
+            _assert_close(a, b, dtype)
+        strip = (slice(2, -2),) * 3
+        halo1 = [a[strip].contiguous() for a in (uk, vk, wk)]
+        mk = nf3.ns3d_post(*halo1, *fk[:3], p, dt, cfg.dx, cfg.dy, cfg.dz,
+                           offs, G, flags=fl[1], ragged=True)
+        mp = nf3.ns3d_post_plain(*(a[strip] for a in plain[:3]),
+                                 *plain[3:6], p, dt, cfg.dx, cfg.dy, cfg.dz,
+                                 offs, G, fl[1], True)
+        gk, gj, gi = ops3.index_grids(halo1[0].shape, 0, offs, cuda)
+        dead = ((gk > G[0] + 1) | (gj > G[1] + 1)
+                | (gi > G[2] + 1)).expand(halo1[0].shape)
+        for a, b in zip(halo1, mp[:3]):
+            _assert_close(a, b, dtype)
+            assert torch.equal(a[dead], b[dead]) and not a[dead].any()
+        for m, a in zip(mk, halo1):
+            assert torch.equal(m, a.abs().max())
+
+
+def test_ragged_dist_ns3d_on_card_matches_cpu(cuda):
+    """dcavity3d 9x11x13 f64 on the ragged (2, 2, 2), K7/K8 (ragged mode),
+    and canal3d with a box on the ragged (1, 2, 3) in flag mode, against
+    the same mesh on the CPU (their plain versions): the same step count,
+    fields within 1e-12 (the r² sums, reduced in another order, decide no
+    count here)."""
+    for param, dims in (
+            (Parameter(name="dcavity3d", imax=13, jmax=11, kmax=9, re=100.0,
+                       te=0.2, tpu_dtype="float64"), (2, 2, 2)),
+            (Parameter(name="canal3d", imax=20, jmax=10, kmax=10, re=100.0,
+                       bcLeft=3, bcRight=3, te=0.2, xlength=2.0,
+                       obstacles="0.6,0.3,0.3,1.0,0.7,0.7",
+                       tpu_dtype="float64"), (1, 2, 3))):
+        runs = []
+        for device in ("cuda", "cpu"):
+            s = NS3DDistSolver(param, CartComm(
+                ndims=3, dims=dims, devices=[torch.device(device)]))
+            assert s.ragged
+            s.run(progress=False)
+            runs.append((s.nt, s.collect()))
+        assert runs[0][0] == runs[1][0] >= 2
+        for a, b in zip(runs[0][1], runs[1][1]):
+            assert np.abs(a - b).max() <= 1e-12 * max(1.0, np.abs(b).max())
+
+
 def test_dist_ns3d_on_card_matches_cpu(cuda):
     """dcavity3d 16³ f64 on a (2, 2, 2) mesh whose shards share the card
     (K7, K8, K14) against the same mesh on the CPU (their plain versions):

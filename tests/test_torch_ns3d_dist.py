@@ -13,6 +13,7 @@ both sides check the residual every iteration and stop at the same one.
 Against the reference's VTK: 1e-6, the writer's `%f`."""
 
 import dataclasses
+import json
 import pathlib
 import re
 
@@ -192,21 +193,30 @@ def test_canal3d_fixture_on_a_mesh():
 def test_refusals():
     """What the distributed NS-3D slice does not run raises, naming the
     ROADMAP item (or, for a forced octant layout on odd shards, the JAX
-    package's ValueError). Obstacles run under sor on a divisible mesh;
-    with mg, or on a ragged mesh, they stay refused."""
+    package's ValueError). Obstacles run under sor on any mesh; with mg
+    they stay refused. On a mesh that does not divide the grid mg and fft
+    raise the JAX package's ValueError (its refusal is permanent, so it
+    comes before the ROADMAP item's), obstacles or not."""
     base = _port_param(_jparam())
     box = "0.2,0.2,0.2,0.6,0.6,0.6"
-    for kw, mesh in ((dict(imax=18), (1, 1, 4)),  # ragged
-                     (dict(tpu_solver="mg"), (2, 2, 2)),
+    for kw, mesh in ((dict(tpu_solver="mg"), (2, 2, 2)),
                      (dict(tpu_solver="fft"), (2, 2, 2)),
                      (dict(tpu_solver="auto"), (2, 2, 2)),  # takes fft
                      (dict(obstacles=box, tpu_solver="mg"), (2, 2, 2)),
-                     (dict(obstacles=box, imax=18), (1, 1, 4)),  # ragged
                      (dict(tpu_overlap="on"), (2, 2, 2)),
                      (dict(tpu_exchange_depth="1"), (2, 2, 2)),
                      (dict(tpu_itermax_adaptive=4), (2, 2, 2))):
         with pytest.raises(NotImplementedError, match="ROADMAP A"):
             NS3DDistSolver(base.replace(**kw), _comm(mesh))
+    jbase = _jparam()
+    for kw in (dict(imax=18, tpu_solver="mg"),  # ragged
+               dict(imax=18, tpu_solver="fft"),
+               dict(imax=18, tpu_solver="mg", obstacles=box)):
+        with pytest.raises(ValueError) as theirs:
+            JDist(jbase.replace(**kw), JComm(ndims=3, dims=(1, 1, 4)))
+        with pytest.raises(ValueError, match="needs a divisible") as ours:
+            NS3DDistSolver(base.replace(**kw), _comm((1, 1, 4)))
+        assert str(ours.value) == str(theirs.value)
     with pytest.raises(ValueError, match="tpu_sor_layout octants"):
         NS3DDistSolver(base.replace(imax=12, jmax=12, kmax=12,
                                     tpu_sor_layout="octants"),
@@ -360,3 +370,116 @@ def test_debug_and_verbose_lines(monkeypatch, capsys):
         ["1", "3", "5"]
     assert [ln for ln in lines if ln.startswith("TIME")] == [
         f"TIME {s.t} , TIMESTEP {s.t}"]
+
+
+# -- a mesh that does not divide the grid (the ragged pad-with-mask
+# decomposition): the port against the JAX package on the same mesh ----------
+
+
+def _jax_run_counts(jparam, dims, tmp_path, monkeypatch, cls=JDist):
+    """JAX's distributed solver run to te one step a chunk, with its
+    flight recorder on: the solver and every step's iteration count."""
+    tel = tmp_path / "telemetry.jsonl"
+    monkeypatch.setenv("PAMPI_TELEMETRY", str(tel))
+
+    class OneStep(cls):
+        CHUNK = 1
+
+    js = OneStep(jparam, JComm(ndims=3, dims=dims))
+    js.run(progress=False)
+    monkeypatch.delenv("PAMPI_TELEMETRY")
+    recs = [json.loads(ln) for ln in tel.read_text().splitlines()]
+    return js, [r["iters"] for r in recs if r["kind"] == "chunk"]
+
+
+def _port_run_counts(s):
+    """The port's solver run to te: every step's iteration count."""
+    its = []
+    while s.t <= s.param.te:
+        s.run_steps(1)
+        its.append(int(s.last_it))
+    return its
+
+
+def assert_ragged_run_matches_jax(jparam, dims, tmp_path, monkeypatch, tol,
+                                  records):
+    """The port's NS3DDistSolver against JAX's on the same mesh: each
+    step's iteration count, nt and t exactly, the fields to `tol`, and
+    the dispatch records {key: label} both packages make."""
+    js, jits = _jax_run_counts(jparam, dims, tmp_path, monkeypatch)
+    jrec = {k: jdispatch.last(k) for k in records}
+    s = NS3DDistSolver(_port_param(jparam), _comm(dims))
+    assert s.ragged
+    its = _port_run_counts(s)
+    assert its == jits and len(its) >= 2
+    assert (s.nt, s.t) == (js.nt, js.t)
+    _assert_fields_close(s, js, tol)
+    assert {k: dispatch.last(k) for k in records} == jrec == records
+    return s
+
+
+# (mesh, (kmax, jmax, imax), tpu_fuse_phases, other keys): the five
+# ragged meshes, each run fused (K7/K8) or through the phase chain
+RAGGED = [((4, 2, 1), (10, 10, 12), "off", {}),
+          ((1, 2, 4), (10, 10, 18), "on", {}),
+          ((2, 2, 2), (9, 11, 13), "on", dict(tpu_dtype="float32")),
+          ((2, 2, 2), (7, 7, 7), "off", dict(tpu_ca_inner=2)),
+          ((4, 1, 1), (9, 8, 8), "on", {})]
+
+
+@pytest.mark.parametrize(
+    "dims,shape,fuse,kw", RAGGED,
+    ids=["4x2x1-chain", "1x2x4-fused", "2x2x2-fused-f32",
+         "2x2x2-7cubed-ca2-chain", "4x1x1-ghost-fused"])
+def test_ragged_mesh_matches_jax(dims, shape, fuse, kw, tmp_path,
+                                 monkeypatch):
+    """dcavity3d at re 100, te 0.2, on a mesh that does not divide the
+    grid: the grid-space CA solve at halo 2n + 1 ("jnp_ca ragged"), the
+    octants not dispatched; K7/K8 (ragged mode) against JAX's Pallas
+    kernels in interpret mode, or the phase chain against JAX's. float64
+    to 1e-10; the float32 case's counts must equal JAX's too (its
+    cadence is tpu_ca_inner, as JAX's jnp path takes it), fields to
+    1e-5."""
+    k, j, i = shape
+    jparam = _jparam(kmax=k, jmax=j, imax=i, te=0.2, tpu_fuse_phases=fuse,
+                     **kw)
+    f32 = kw.get("tpu_dtype") == "float32"
+    assert_ragged_run_matches_jax(
+        jparam, dims, tmp_path, monkeypatch, 1e-5 if f32 else 1e-10,
+        {"ns3d_dist": "jnp_ca ragged"})
+    assert dispatch.last("ns3d_dist_phases") == (
+        "kernel_fused (forced)" if fuse == "on"
+        else "jnp (tpu_fuse_phases off)")
+
+
+def test_ragged_octants_forced_fails_as_jax():
+    """tpu_sor_layout octants on a ragged mesh: the octant layout is not
+    dispatched there, and a forced one raises as JAX's does."""
+    jparam = _jparam(imax=12, jmax=12, kmax=10, tpu_sor_layout="octants")
+    with pytest.raises(ValueError) as theirs:
+        JDist(jparam, JComm(ndims=3, dims=(4, 2, 1)))
+    with pytest.raises(ValueError) as ours:
+        NS3DDistSolver(_port_param(jparam), _comm((4, 2, 1)))
+    assert str(ours.value) == str(theirs.value)
+
+
+def test_cli_ragged_mesh_matches_one_device(tmp_path, monkeypatch, capsys):
+    """configs/canal3d.par cut to 18x8x8, te 0.3, on tpu_mesh 1x1x4, which
+    does not divide imax 18: the CLI runs it on the mesh with no ROADMAP
+    note, and its `tpu_vtk sharded` file (the gathered binary write on a
+    ragged mesh) holds the bytes of the one-device binary run."""
+    text = (CONFIGS / "canal3d.par").read_text()
+    for key, val in (("imax", 18), ("jmax", 8), ("kmax", 8), ("te", 0.3)):
+        text = re.sub(rf"^{key} .*$", f"{key} {val}", text, flags=re.M)
+    files = {}
+    for mesh, vtk in (("1x1x4", "sharded"), ("1", "binary")):
+        par = tmp_path / f"canal3d_{mesh}.par"
+        par.write_text(re.sub(r"^tpu_mesh .*$", f"tpu_mesh {mesh}", text,
+                              flags=re.M) + f"\ntpu_vtk {vtk}\n")
+        out = _run(cli.main, ["pampi_tpu_torch", "--device", "cpu",
+                              str(par)], tmp_path / mesh, monkeypatch,
+                   capsys)
+        assert ("\tShard 3 (0, 0, 3): cpu" in out) == (mesh != "1")
+        assert "ROADMAP" not in out
+        files[mesh] = (tmp_path / mesh / "canal.vtk").read_bytes()
+    assert files["1x1x4"] == files["1"]

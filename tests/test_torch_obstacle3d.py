@@ -329,8 +329,9 @@ REFUSALS = {
                  ValueError, "tpu_solver fft cannot solve obstacle"),
     "mg-mesh": (lambda: _mesh(_three_d(tpu_solver="mg"), (2, 2, 2)),
                 NotImplementedError, "obstacle multigrid .*ROADMAP A.8"),
-    "ragged-mesh": (lambda: _mesh(_three_d(imax=18), (1, 1, 4)),
-                    NotImplementedError, "A.8"),
+    "ragged-mesh": (lambda: _mesh(_three_d(imax=18, tpu_solver="mg"),
+                                  (1, 1, 4)),
+                    ValueError, "tpu_solver mg needs a divisible grid/mesh"),
     "octants-one-device": (
         lambda: NS3DSolver(_three_d(tpu_sor_layout="octants"), device="cpu"),
         ValueError, "tpu_sor_layout octants does not support obstacle"),

@@ -280,3 +280,131 @@ def test_dist_solver_matches_jax_and_one_device(dims, fuse, label, phases,
         assert np.abs(gf[name] - np.asarray(jg[name])).max() <= 1e-10, name
         assert np.abs(gf[name] - getattr(single, name).numpy()).max() \
             <= 1e-12, name
+
+
+# -- a mesh that does not divide the grid: the JAX package's jnp path ---------
+
+RBOX = "0.3,0.3,0.3,0.7,0.7,0.7"
+# (mesh, (kmax, jmax, imax)): ragged along every axis, and eight shards
+# along k of 9 planes, of which the fifth holds the HI ghost plane and the
+# last three only dead cells
+RAGGED = [((2, 2, 2), (9, 10, 10)), ((8, 1, 1), (9, 8, 8))]
+
+
+def _rparam(shape, **kw):
+    """configs/canal3d_obstacle.par on a unit box of `shape` cells with
+    the box RBOX (3-4 cells a side), te 0.1, itermax 40, float64."""
+    k, j, i = shape
+    return _jparam(imax=i, jmax=j, kmax=k, xlength=1.0, ylength=1.0,
+                   zlength=1.0, obstacles=RBOX, te=0.1, itermax=40, **kw)
+
+
+@pytest.mark.parametrize("dims,shape", RAGGED, ids=["2x2x2", "8x1x1"])
+def test_ragged_masks_and_coefficients_match_jax(dims, shape):
+    """On a ragged mesh every shard's halo-1 masks (shard_masks_3d), its
+    deep flag blocks at the fused step's H = 3 and the CA's H = 3, and
+    the coefficient slices of the jnp path (deep_obstacle_masks_3d) at
+    H = 3 and 1 against the JAX package's, whose HI sides are padded by
+    the ceil-division overhang, under shard_map, bitwise; the dead cells
+    read 0."""
+    K, J, I = shape
+    param = _rparam(shape)
+    g = parameter_from_dict(dataclasses.asdict(param))
+    dx, dy, dz = g.xlength / I, g.ylength / J, g.zlength / K
+    fluid = o3.build_fluid_3d(I, J, K, dx, dy, dz, RBOX)
+    m = o3.make_masks_3d(fluid, dx, dy, dz, OMEGA)
+    jm = jo3.make_masks_3d(fluid, dx, dy, dz, OMEGA, jnp.float64)
+    coef = o3.interior_coefficients_3d(m, dx, dy, dz)
+    local = tuple(-(-n // d) for n, d in zip(shape, dims))
+    over = [d * e - n for d, e, n in zip(dims, local, shape)]
+    comm, jc = _comm(dims), jcomm.CartComm(ndims=3, dims=dims)
+    spec = P("k", "j", "i")
+    for H in (3, 1):
+        ext = tuple(e + 2 * H - 2 for e in local)
+
+        def kern(x):
+            om = jo3.deep_obstacle_masks_3d(jm, *local, H, *over)
+            sm = jo3.shard_masks_3d(jm, *local, *over)
+            return tuple(om[k] for k in KEYS) + (sm.fluid, sm.u_face,
+                                                 sm.v_face, sm.w_face)
+
+        outs = jax.jit(jc.shard_map(kern, in_specs=(spec,),
+                                    out_specs=(spec,) * (len(KEYS) + 4),
+                                    check_vma=False))(
+            jnp.zeros(tuple(d * e for d, e in zip(dims, ext))))
+        wide = np.pad(fluid.astype(np.uint8),
+                      [(2, 2 + o) for o in over])  # JAX fused_flag_blocks
+        for s in range(comm.size):
+            c = comm.coords(s)
+            offs = comm.offsets(s, local)
+            om = o3.deep_obstacle_masks_3d(coef, comm, s, *local, H,
+                                           torch.float64)
+            sl = tuple(slice(ci * e, (ci + 1) * e) for ci, e in zip(c, ext))
+            for k, a in zip(KEYS, outs):
+                np.testing.assert_array_equal(om[k].numpy(),
+                                              np.asarray(a[sl]), k)
+            e2 = tuple(e + 2 for e in local)
+            sl = tuple(slice(ci * n, (ci + 1) * n) for ci, n in zip(c, e2))
+            sm = o3.shard_masks_3d(m, comm, s, *local)
+            for name, a in zip(("fluid", "u_face", "v_face", "w_face"),
+                               outs[len(KEYS):]):
+                np.testing.assert_array_equal(getattr(sm, name),
+                                              np.asarray(a[sl]), name)
+            deep = o3.deep_flag_block_3d(m, comm, s, *local, 3)
+            np.testing.assert_array_equal(
+                deep.numpy(), wide[tuple(slice(o, o + e + 6) for o, e in
+                                         zip(offs, local))])
+
+
+def _jax_counts(jparam, dims, tmp_path, monkeypatch):
+    """JAX's distributed solver run one step a chunk, its flight recorder
+    on: the solver and every step's iteration count."""
+    import json
+
+    tel = tmp_path / "telemetry.jsonl"
+    monkeypatch.setenv("PAMPI_TELEMETRY", str(tel))
+
+    class OneStep(JDist):
+        CHUNK = 1
+
+    js = OneStep(jparam, jcomm.CartComm(ndims=3, dims=dims))
+    js.run(progress=False)
+    monkeypatch.delenv("PAMPI_TELEMETRY")
+    recs = [json.loads(ln) for ln in tel.read_text().splitlines()]
+    return js, [r["iters"] for r in recs if r["kind"] == "chunk"]
+
+
+@pytest.mark.parametrize("dims,shape,fuse,label", [
+    ((2, 2, 2), (9, 10, 10), "on", "jnp_ca ca1 ragged"),
+    ((8, 1, 1), (9, 8, 8), "off", "jnp_rb_fallback ragged"),
+], ids=["2x2x2-fused", "8x1x1-fallback-chain"])
+def test_ragged_obstacle_run_matches_jax(dims, shape, fuse, label,
+                                         tmp_path, monkeypatch):
+    """NS3DDistSolver with the box on a ragged mesh against JAX's: the
+    jnp CA at depth 2n + 1 with the coefficient slices (JAX keeps its
+    3-D kernel divisible-only, and so does the port: K16 is not run),
+    or, on one-plane shards, the exchange-per-half-sweep fallback with
+    one exchange more before the Neumann copy; K7/K8 in flag mode (K8's
+    ragged mode) against JAX's Pallas kernels in interpret mode, or the
+    phase chain. Each step's iteration count and nt exactly, t to an ulp,
+    fields to 1e-10, the dispatch records JAX's."""
+    jparam = _rparam(shape, tpu_fuse_phases=fuse)
+    js, jits = _jax_counts(jparam, dims, tmp_path, monkeypatch)
+    jlabels = (jdispatch.last("ns3d_dist"), jdispatch.last("obstacle3d_dist"))
+    s = NS3DDistSolver(parameter_from_dict(dataclasses.asdict(jparam)),
+                       _comm(dims))
+    assert s.ragged
+    assert (dispatch.last("ns3d_dist"), dispatch.last("obstacle3d_dist")) \
+        == jlabels == ("obstacle_jnp ragged", label)
+    its = []
+    while s.t <= s.param.te:
+        s.run_steps(1)
+        its.append(int(s.last_it))
+    assert its == jits and len(its) >= 2
+    # t to an ulp: JAX's jitted chain contracts multiply-adds in the CFL dt
+    assert s.nt == js.nt and abs(s.t - js.t) <= 1e-15 * js.t
+    gf, jg = s.global_fields(), js.global_fields()
+    for name in "uvwp":
+        assert np.abs(gf[name] - np.asarray(jg[name])).max() <= 1e-10, name
+    for a, b in zip(s.collect(), js.collect()):
+        assert np.abs(a - np.asarray(b)).max() <= 1e-10
