@@ -251,8 +251,9 @@ adds:
    launched, the warm run bitwise the cold one; four of bucket A's
    requests served alone in the 128² class, bitwise their bucket-A lanes;
 5. 8 mg class requests (dcavity in the 16² class, canal in the 32² class)
-   and a sor request (served solo), float64, on the card and on the CPU:
-   fields within 1e-9 of scale, the same steps.
+   and a sor request (a class lane since the sor class lane, below),
+   float64, on the card and on the CPU: fields within 1e-9 of scale, the
+   same steps.
 
 The obstacle multigrid on one card (the masked mode of K9-K12) adds:
 
@@ -300,6 +301,38 @@ adds:
    and cut to 0.04 (one step) on the CPU, each in a process of its own,
    against one card at the same te: fields within 1e-9 of scale, the
    same steps.
+
+The fleet's sor shape-class lane (the dynamic-extent mode of K2 and the
+class mode of K3/K4, entries `rb_sor_class`, `ns2d_pre_class`,
+`ns2d_post_class`) adds:
+
+2. each against its plain version, float32 and float64, on bucket A's 256
+   lanes of the 64² class, a mixed 8-lane batch of the 64² class (a 64x64
+   lane, a 12x12 one, a 33x61 one, a canal-box lane, one that does not
+   step, three more) and 4 lanes of the 256² class: K2 at n = 4 then 1
+   (per-lane residuals bitwise, fields to the tolerance, dead cells and
+   the lane that does not solve untouched), K3/K4 with the dcavity and the
+   canal boundary sets (copies and maxima bitwise, F/G/rhs and the
+   projected fields to the tolerance, dead cells 0);
+3. the three at bucket A's shape, float32, beside their bounds (bytes:
+   each lane's class block, p and rhs read and p written for K2, 5
+   field-sizes for K3/K4);
+4. FleetScheduler(classes="on") on the card, float32, with the launch
+   counts reset: bucket A as 256 dcavity sor requests (tools/
+   perf_fleet.py --classes at its TPU size) and bucket B as 32 canal sor
+   requests in the 256² class (the mg buckets' extents and end times,
+   canal.par's itermax 500), served cold and then warm with fresh ids:
+   scenarios/s from the run walls, ms per chunk, each class-mode kernel's
+   calls and ms per call (CUDA events around its wrapper), the host-sync
+   share of the solve (its wall blocked in the per-round residual
+   read-backs); every lane finite, none diverged, only the three
+   class-mode kernels launched, warm bitwise cold, four of bucket A
+   alone in the 128² class bitwise their bucket-A lanes; then bucket A's
+   first 32 requests served solo, for contrast (printed, not gated);
+5. 8 sor class requests (dcavity in the 16², canal in the 32² class,
+   float64) under tpu_fuse_phases auto and on, one step a chunk, on the
+   card and on the CPU: fields within 1e-9 of scale, the same steps and
+   per-step iteration counts.
 
 It then prints the kernels line (JSON; K5-K8 and K11/K12 at 256³, where a
 field outgrows the L2 and the bound is a floor, with their 128³ numbers
@@ -423,6 +456,29 @@ def cuda_launches(torch, fn, calls=20):
         torch.cuda.synchronize()
     n = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
     return round(n / calls) if n else None
+
+
+def device_trace(torch, fn, calls=20):
+    """(device operations, their device ms) per call of fn, from
+    torch.profiler's trace of `calls` calls after a warm-up call: the
+    count as cuda_launches takes it, and the sum of those operations'
+    durations on the card (busy time: gaps between them excluded). (None,
+    None) where the trace holds no device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not ops:
+        return None, None
+    busy = sum(e.time_range.end - e.time_range.start for e in ops) / 1e3
+    return round(len(ops) / calls), busy / calls
 
 
 def launches_text(n):
@@ -5336,7 +5392,7 @@ def check_class_kernel(torch, np):
     params = [Parameter(name="dcavity", imax=i, jmax=j, eps=1e-3,
                         itermax=30, tpu_solver="mg") for j, i in lanes]
     gm = np.array([sc.lane_geometry(q) for q in params])
-    cl = sc.class_lanes(gm, 64, 64, dtype, CARD)
+    cl = sc.class_lanes(gm, 64, 64, dtype, CARD, mg=True)
     solve = sc.make_class_mg_solve(params[0], 64, 64, dtype, CARD)
     p0, rhs, *_ = class_inputs(torch, np, 64, lanes, dtype, 509)
     p0 = torch.zeros_like(p0)
@@ -5415,16 +5471,18 @@ def time_class_kernel(torch, np):
         bound_operations_ms=ops / FP32_FLOPS * 1e3, shape=shape)}
 
 
-def fleet_requests(torch, sid0=""):
+def fleet_requests(torch, sid0="", solver="mg"):
     """(bucket A, bucket B) requests of the fleet main path, f32: A 256
-    dcavity mg requests in the 64² class (tools/perf_fleet.py --classes at
-    its TPU size, itermax 10 V-cycles), B 32 canal mg requests in the 256²
-    class with configs/canal.par's physics on a square box (xlength cut
-    from 30 to its ylength 4: on the 30x4 box these grids' cells are 4.7-9.8
-    times longer than high, and the class V-cycle, point red-black
-    Gauss-Seidel with piecewise-constant prolongation as on the TPU,
-    diverges there), each lane's te 20 of its first steps' dt (tau·
-    dt_bound: the inflow's CFL limit is larger), itermax 20 V-cycles."""
+    dcavity requests in the 64² class (tools/perf_fleet.py --classes at
+    its TPU size, itermax 10: V-cycles under mg, iterations under sor), B
+    32 canal requests in the 256² class with configs/canal.par's physics
+    on a square box (xlength cut from 30 to its ylength 4: on the 30x4 box
+    these grids' cells are 4.7-9.8 times longer than high, and the class
+    V-cycle, point red-black Gauss-Seidel with piecewise-constant
+    prolongation as on the TPU, diverges there), each lane's te 20 of its
+    first steps' dt (tau·dt_bound: the inflow's CFL limit is larger),
+    itermax 20 V-cycles under mg and canal.par's own itermax 500 and eps
+    1e-5 under sor."""
     from pampi_tpu_torch.fleet import ScenarioRequest
     from pampi_tpu_torch.fleet import shapeclass as sc
     from pampi_tpu_torch.utils.params import read_parameter
@@ -5433,13 +5491,14 @@ def fleet_requests(torch, sid0=""):
         read_parameter(os.path.join(ROOT, "configs", "dcavity.par")).replace(
             imax=48 + i % 17, jmax=64 - i % 17, re=10.0, te=0.05, tau=0.5,
             eps=1e-4, omg=1.7, gamma=0.9, u_init=0.001 * i, itermax=10,
-            tpu_solver="mg", tpu_dtype="float32", tpu_mesh="1")
+            tpu_solver=solver, tpu_dtype="float32", tpu_mesh="1")
         for i in range(FLEET_A))]
     canal = read_parameter(os.path.join(ROOT, "configs", "canal.par"))
     b = []
     for i in range(FLEET_B):
-        q = canal.replace(imax=256 - 2 * i, jmax=160 + 3 * i, itermax=20,
-                          xlength=canal.ylength, tpu_solver="mg",
+        q = canal.replace(imax=256 - 2 * i, jmax=160 + 3 * i,
+                          itermax=20 if solver == "mg" else canal.itermax,
+                          xlength=canal.ylength, tpu_solver=solver,
                           tpu_dtype="float32", tpu_mesh="1")
         dtb = sc.lane_geometry(q)[sc.G_DTB]
         b.append(ScenarioRequest(f"{sid0}b{i}", q.replace(
@@ -5564,7 +5623,9 @@ def main_path_fleet(torch):
 
 
 @phase("the fleet card vs CPU, float64: 8 mg class requests across the 16² "
-       "and 32² classes and a sor request served solo")
+       "and 32² classes and a sor class request; 8 sor class requests "
+       "(dcavity 16², canal 32²) under tpu_fuse_phases auto and on, step by "
+       "step")
 def fleet_card_vs_cpu(np):
     from pampi_tpu_torch.fleet import FleetScheduler
     from pampi_tpu_torch.utils.params import Parameter
@@ -5607,8 +5668,425 @@ def fleet_card_vs_cpu(np):
             bad.append(sid)
     modes = sorted(r["mode"] for r in card.summary["buckets"])
     log(f"card {tc:.1f} s, CPU {tp:.1f} s; bucket modes {modes}")
-    if modes != ["class", "class", "solo"] or bad:
+    if modes != ["class", "class", "class"] or bad:
         raise AssertionError(f"fleet card and CPU disagree: {bad} {modes}")
+    # sor class batches step by step: the same steps and per-step counts
+    batches = {
+        "dcavity": (16, [dict(dcav, tpu_solver="sor", itermax=200,
+                              eps=1e-3, imax=i, jmax=j, u_init=0.01 * k)
+                         for k, (j, i) in enumerate(((12, 12), (9, 16),
+                                                     (14, 10), (13, 13)))]),
+        "canal": (32, [dict(canal, tpu_solver="sor", itermax=200,
+                            eps=1e-3, imax=i, jmax=j)
+                       for j, i in ((24, 28), (20, 30), (30, 17),
+                                    (18, 26))])}
+    for knob in ("auto", "on"):
+        for name, (cls, kws) in batches.items():
+            params = [Parameter(**kw, tpu_fuse_phases=knob) for kw in kws]
+            sids = [f"{name}{k}" for k in range(len(params))]
+            (rc, sc_), (rp, sp) = (class_steps(params, sids, cls, cls, dev)
+                                   for dev in (CARD, "cpu"))
+            diff = max(max(float(np.abs(x - y).max())
+                           / max(1.0, float(np.abs(y).max()))
+                           for x, y in zip(a["fields"], b["fields"]))
+                       for a, b in zip(rc, rp))
+            ok = (sc_ == sp and [a["nt"] for a in rc] == [b["nt"] for b in rp]
+                  and diff <= 1e-9 and not any(a["diverged"] for a in rc))
+            its = sorted({x for step in sc_ for x in step if x})
+            its = its if len(its) <= 6 else its[:3] + ["..."] + its[-2:]
+            log(f"sor class {name} {cls}² f64 tpu_fuse_phases {knob}: steps "
+                f"card {[a['nt'] for a in rc]} / CPU {[b['nt'] for b in rp]},"
+                f" per-step iteration counts equal {sc_ == sp} (counts seen "
+                f"{its}), max |card - cpu| / scale {diff:.3e} (limit 1e-9) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                bad.append(f"sor {name} {knob}")
+    if bad:
+        raise AssertionError(f"fleet sor card and CPU disagree: {bad}")
+
+
+# ----------------------------------------------------------------------
+# the fleet's sor shape-class lane: the dynamic-extent mode of K2 and the
+# class mode of K3/K4
+# ----------------------------------------------------------------------
+
+SOR_CLASS_KERNELS = ("rb_sor_class", "ns2d_pre_class", "ns2d_post_class")
+SOR_CLASS_ROWS = {}   # max_abs_err of each class-mode kernel, from its check
+SOLO_CONTRAST = 32    # bucket A's first requests served solo, for contrast
+
+
+def sor_class_batch(torch, np, cls, lanes, dtype, seed, canal=(),
+                    inactive=()):
+    """Lane-stacked inputs of the sor class lane's kernels in a cls²
+    class for (jmax, imax) lanes: u, v, p, rhs random on each live corner
+    and 0 on the dead cells; the lanes' extents, SOR constants, cell sizes
+    (unit box, or canal.par's 30x4 box for the lanes in `canal`), dt, and
+    the active flags (false for the lanes in `inactive`)."""
+    from pampi_tpu_torch.fleet import shapeclass as sc
+    from pampi_tpu_torch.utils.params import Parameter
+
+    rng = np.random.default_rng(seed)
+    n = len(lanes)
+    fields = np.zeros((4, n, cls + 2, cls + 2))
+    gm = []
+    for k, (j, i) in enumerate(lanes):
+        fields[:, k, :j + 2, :i + 2] = rng.normal(size=(4, j + 2, i + 2))
+        box = (30.0, 4.0) if k in canal else (1.0, 1.0)
+        gm.append(sc.lane_geometry(Parameter(
+            imax=i, jmax=j, xlength=box[0], ylength=box[1], omg=1.7)))
+    gm = np.array(gm)
+    real = np.float64 if dtype == torch.float64 else np.float32
+    u, v, p, rhs = (torch.from_numpy(x).to(CARD, dtype) for x in fields)
+    return dict(
+        u=u, v=v, p=p, rhs=rhs,
+        ext=torch.tensor(lanes, dtype=torch.int32, device=CARD),
+        geo=torch.from_numpy(np.ascontiguousarray(
+            gm[:, [sc.G_FACTOR, sc.G_IDX2, sc.G_IDY2]], real)).to(CARD),
+        cell=torch.from_numpy(np.ascontiguousarray(
+            gm[:, [sc.G_DX, sc.G_DY]], real)).to(CARD),
+        dt=torch.from_numpy(0.004 + 0.0001 * (np.arange(n) % 7)).to(CARD,
+                                                                    dtype),
+        active=torch.tensor([k not in inactive for k in range(n)],
+                            device=CARD))
+
+
+def sor_class_batches():
+    """(label, class, lanes, canal lanes, inactive lanes) of the class-mode
+    checks: bucket A's 256 lanes of the 64² class; a mixed 8-lane batch of
+    the 64² class (a 64x64 lane, a 12x12 one, a 33x61 one, a canal lane,
+    one that does not step, and three more); 4 lanes of the 256² class."""
+    return (
+        ("bucket A", 64, fleet_lanes_a(), (), ()),
+        ("mixed", 64, [(64, 64), (12, 12), (61, 33), (16, 64), (64, 60),
+                       (9, 64), (40, 17), (50, 50)], (3,), (4,)),
+        ("256²", 256, [(256, 256), (200, 256), (256, 130), (131, 255)],
+         (), ()))
+
+
+def dead_cells_equal(torch, a, b, ext):
+    """Whether every lane's cells past its live corner are equal in a, b."""
+    return all(torch.equal(a[k, j + 2:], b[k, j + 2:])
+               and torch.equal(a[k, :, i + 2:], b[k, :, i + 2:])
+               for k, (j, i) in enumerate(ext.tolist()))
+
+
+@phase("the sor class lane's kernels vs their plain versions: K2's "
+       "dynamic-extent mode and K3/K4's class mode (bucket A's 256 lanes, "
+       "a mixed 8-lane batch, 4 lanes of the 256² class; float32/float64)")
+def check_sor_class_kernels(torch, np):
+    from pampi_tpu_torch.ops import ns2d_fused as nf
+    from pampi_tpu_torch.ops import sor_kernels as sk
+    from pampi_tpu_torch.utils.params import Parameter
+
+    bad = []
+    errs = {k: 0.0 for k in SOR_CLASS_KERNELS}
+    for dtype in (torch.float32, torch.float64):
+        t = tol(torch, dtype)
+        for label, cls, lanes, canal, inactive in sor_class_batches():
+            b = sor_class_batch(torch, np, cls, lanes, dtype,
+                                601 + len(lanes), canal, inactive)
+            # K2, n = 4 then 1 (the f32 and f64 cadences), chained
+            pk, pp = b["p"].clone(), b["p"].clone()
+            same = fields_ok = True
+            for n in (4, 1):
+                rk = sk.rb_sor_class(pk, b["rhs"], n, b["ext"], b["geo"],
+                                     b["active"])
+                rp = sk.rb_sor_class_plain(pp, b["rhs"], n, b["ext"],
+                                           b["geo"], b["active"])
+                same = same and torch.equal(rk, rp)
+                fields_ok = fields_ok and rel_err(pk, pp) <= t
+                errs["rb_sor_class"] = max(errs["rb_sor_class"],
+                                           float((pk - pp).abs().max()))
+            dead = dead_cells_equal(torch, pk, b["p"], b["ext"])
+            off = [k for k in inactive if not torch.equal(pk[k], b["p"][k])]
+            ok = same and fields_ok and dead and not off
+            log(f"rb_sor_class {label} ({len(lanes)} lanes of the {cls}² "
+                f"class) {dtype}, n = 4 then 1: residuals bitwise {same}, "
+                f"fields within {t:g} of scale {fields_ok} (bitwise "
+                f"{torch.equal(pk, pp)}), dead cells untouched {dead}, "
+                f"inactive lanes passed {not off} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                bad.append(f"rb_sor_class {label} {dtype}")
+            # K3/K4 with the dcavity and the canal boundary sets
+            for problem in ("dcavity", "canal"):
+                cfg = sor_class_cfg(Parameter, problem)
+                uk, vk = b["u"].clone(), b["v"].clone()
+                kw = dict(ext=b["ext"], geo=b["cell"], active=b["active"])
+                fk, gk, rk = nf.ns2d_pre(uk, vk, b["dt"], cfg, **kw)
+                up, vp, fp, gp, rp = nf.ns2d_pre_plain(b["u"], b["v"],
+                                                       b["dt"], cfg, **kw)
+                copies = torch.equal(uk, up) and torch.equal(vk, vp)
+                stencil = max(rel_err(a, c) for a, c in
+                              ((fk, fp), (gk, gp), (rk, rp)))
+                errs["ns2d_pre_class"] = max(
+                    errs["ns2d_pre_class"],
+                    max(float((a - c).abs().max()) for a, c in
+                        ((fk, fp), (gk, gp), (rk, rp))))
+                mk = nf.ns2d_post(uk, vk, fk, gk, b["p"], b["dt"], None,
+                                  None, **kw)
+                u2, v2, *mp = nf.ns2d_post_plain(up, vp, fk, gk, b["p"],
+                                                 b["dt"], None, None, **kw)
+                post = max(rel_err(uk, u2), rel_err(vk, v2))
+                errs["ns2d_post_class"] = max(
+                    errs["ns2d_post_class"], float((uk - u2).abs().max()),
+                    float((vk - v2).abs().max()))
+                maxima = all(torch.equal(x, y) for x, y in zip(mk, mp))
+                zero = torch.zeros_like(uk)
+                dead = (dead_cells_equal(torch, uk, zero, b["ext"])
+                        and dead_cells_equal(torch, vk, zero, b["ext"]))
+                off = [k for k in inactive
+                       if not (torch.equal(uk[k], b["u"][k])
+                               and torch.equal(vk[k], b["v"][k]))]
+                ok = (copies and stencil <= t and post <= t and maxima
+                      and dead and not off)
+                log(f"ns2d_pre_class/ns2d_post_class {problem} {label} "
+                    f"{dtype}: copies bitwise {copies}, F/G/rhs "
+                    f"{stencil:.2e} and projected u, v {post:.2e} of scale "
+                    f"(limit {t:g}), maxima bitwise {maxima}, dead cells 0 "
+                    f"{dead}, inactive lanes passed {not off} "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    bad.append(f"K3/K4 class {problem} {label} {dtype}")
+    SOR_CLASS_ROWS.update({k: {"max_abs_err": v} for k, v in errs.items()})
+    if bad:
+        raise AssertionError(f"class-mode kernels differ: {bad}")
+
+
+def sor_class_cfg(Parameter, problem):
+    """The phase kernels' static configuration of a dcavity or a canal
+    (canal.par's boundary set and box) class lane."""
+    from pampi_tpu_torch.ops import ns2d_fused as nf
+
+    if problem == "canal":
+        return nf.StepConfig.from_param(Parameter(
+            name="canal", bcLeft=3, bcRight=3, re=100.0, xlength=30.0,
+            ylength=4.0))
+    return nf.StepConfig.from_param(Parameter(name="dcavity", re=10.0))
+
+
+@phase("the sor class lane's kernels at bucket A's shape (256 lanes of the "
+       "64² class, float32) and their times beside the bound")
+def time_sor_class_kernels(torch, np):
+    from pampi_tpu_torch.ops import ns2d_fused as nf
+    from pampi_tpu_torch.ops import sor_kernels as sk
+    from pampi_tpu_torch.utils.params import Parameter
+
+    dtype, size = torch.float32, 4
+    b = sor_class_batch(torch, np, 64, fleet_lanes_a(), dtype, 611)
+    n = len(fleet_lanes_a())
+    # one field-size over every lane's class block, and over every lane's
+    # live corner (the (jmax+2, imax+2) cells a class-mode kernel reads)
+    block = n * 66 * 66 * size
+    corner = sum((j + 2) * (i + 2) for j, i in fleet_lanes_a()) * size
+    cfg = sor_class_cfg(Parameter, "dcavity")
+    kw = dict(ext=b["ext"], geo=b["cell"], active=b["active"])
+    live = sum((j * i) for j, i in fleet_lanes_a())
+    p, u, v = b["p"].clone(), b["u"].clone(), b["v"].clone()
+    f, g, rhs = nf.ns2d_pre(u, v, b["dt"], cfg, **kw)
+    calls = {
+        "rb_sor_class": (
+            lambda: sk.rb_sor_class(p, b["rhs"], 4, b["ext"], b["geo"],
+                                    b["active"]),
+            lambda: sk.rb_sor_class_plain(p.clone(), b["rhs"], 4, b["ext"],
+                                          b["geo"], b["active"]),
+            3 * corner, 4 * 11 * live,
+            "n = 4 iterations (3n + 1 = 13 launches)"),
+        "ns2d_pre_class": (
+            lambda: nf.ns2d_pre(u, v, b["dt"], cfg, **kw),
+            lambda: nf.ns2d_pre_plain(u, v, b["dt"], cfg, **kw),
+            2 * corner + 3 * block, 70 * live, "3 launches"),
+        "ns2d_post_class": (
+            lambda: nf.ns2d_post(u, v, f, g, p, b["dt"], None, None, **kw),
+            lambda: nf.ns2d_post_plain(u, v, f, g, p, b["dt"], None, None,
+                                       **kw),
+            5 * block, 8 * live, "2 launches"),
+    }
+    rows = {}
+    shape = "256 lanes of the 64² class f32 (imax 48..64, jmax 48..64)"
+    for name, (fn, plain, nbytes, ops, what) in calls.items():
+        ms = cuda_ms(torch, fn, 20)
+        pms = cuda_ms(torch, plain, 1)
+        bd = bound(nbytes, ops)
+        # the call's own device time: at this size the host's enqueue of
+        # the launches can take longer than the card's work
+        n_dev, busy = device_trace(torch, fn)
+        busy_text = "not measured" if busy is None else f"{busy:.4f} ms"
+        log(f"{name} {shape}, {what}: {ms:.4f} ms per call (plain "
+            f"{pms:.4f}), bound {bd[0]:.5f} ms by {bd[1]} (bytes "
+            f"{nbytes / 1e6:.2f} MB over 3.35 TB/s; operations "
+            f"{ops / 1e6:.1f} M over 67 TFLOP/s = {ops / FP32_FLOPS * 1e3:.5f}"
+            f" ms); the card busy {busy_text} a call in "
+            f"{launches_text(n_dev)} device operations (torch.profiler)")
+        rows[name] = dict(
+            SOR_CLASS_ROWS.get(name, {"max_abs_err": None}), ms=ms,
+            plain_ms=pms, bound_ms=bd[0], bound_by=bd[1],
+            device_busy_ms=busy, device_ops_per_call=n_dev,
+            bound_bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+            bound_operations_ms=ops / FP32_FLOPS * 1e3, shape=shape)
+    return rows
+
+
+@contextlib.contextmanager
+def wrapper_events(torch, calls):
+    """Wrap the class-mode wrappers (sk.rb_sor_class, nf.ns2d_pre,
+    nf.ns2d_post, which the class chunk looks up at call time) so that
+    each class-mode call records CUDA events, kept in calls[name]."""
+    from pampi_tpu_torch.ops import ns2d_fused as nf
+    from pampi_tpu_torch.ops import sor_kernels as sk
+
+    saved = [(sk, "rb_sor_class"), (nf, "ns2d_pre"), (nf, "ns2d_post")]
+    inner = {name: getattr(mod, name) for mod, name in saved}
+
+    def timed(name):
+        def call(*a, **kw):
+            if name != "rb_sor_class" and kw.get("ext") is None:
+                return inner[name](*a, **kw)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = inner[name](*a, **kw)
+            ev[1].record()
+            key = name if name == "rb_sor_class" else f"{name}_class"
+            calls.setdefault(key, []).append(ev)
+            return out
+        return call
+
+    for mod, name in saved:
+        setattr(mod, name, timed(name))
+    try:
+        yield
+    finally:
+        for mod, name in saved:
+            setattr(mod, name, inner[name])
+
+
+@phase("main path: the fleet's sor class lane on the card, f32: 256 dcavity "
+       "sor requests in the 64² class and 32 canal sor requests in the "
+       "256² class, cold and warm; four of them alone in the 128² class; "
+       "32 served solo for contrast")
+def main_path_fleet_sor(torch):
+    import numpy as np
+
+    from pampi_tpu_torch.fleet import BatchedSolver, FleetScheduler
+    from pampi_tpu_torch.fleet import shapeclass as sc
+    from pampi_tpu_torch.kernels import build as kb
+
+    sched = FleetScheduler(classes="on", device=CARD)
+    runs = {}
+
+    def serve():
+        for name in ("cold", "warm"):
+            a, b = fleet_requests(torch, "" if name == "cold" else "w",
+                                  solver="sor")
+            for r in a + b:
+                sched.submit(r)
+            calls = {}
+            stats0 = {k: dict(t.solve_stats or {})
+                      for k, t in sched._templates.items()}
+            with wrapper_events(torch, calls):
+                runs[name] = sched.run()
+            torch.cuda.synchronize()
+            runs[name + "_calls"] = {
+                k: (len(ev), sum(x.elapsed_time(y) for x, y in ev))
+                for k, ev in calls.items()}
+            runs[name + "_stats"] = {
+                t.jc: {k: v - stats0.get(sig, {}).get(k, 0)
+                       for k, v in (t.solve_stats or {}).items()}
+                for sig, t in sched._templates.items()}
+        a, _b = fleet_requests(torch, solver="sor")
+        four = [a[k] for k in (0, 5, 16, min(200, FLEET_A - 1))]
+        tpl = sc.ClassSolver(four[0].param, ic=128, jc=128, device=CARD)
+        batch = BatchedSolver(tpl, [r.param for r in four],
+                              [r.sid for r in four])
+        runs["128"] = batch.results(batch.run())
+
+    counts, _ = drive_path(kb, "fleet sor class lane", SOR_CLASS_KERNELS,
+                           serve)
+    others = [k for k, v in counts.items()
+              if v and k not in SOR_CLASS_KERNELS]
+    if others:
+        raise AssertionError(f"the sor class path launched {others}")
+    bad = []
+    for name in ("cold", "warm"):
+        res = runs[name]
+        n_bad = [s.sid for s in res.scenarios
+                 if s.diverged or not all(np.isfinite(f).all()
+                                          for f in s.fields)]
+        if n_bad or len(res.scenarios) != FLEET_A + FLEET_B:
+            bad.append(f"{name}: {len(n_bad)} lanes not finite or diverged")
+        for row in res.summary["buckets"]:
+            nts = [s.nt for s in res.scenarios if s.bucket == row["bucket"]]
+            st = runs[name + "_stats"].get(row["grid"][1], {})
+            share = st.get("sync_s", 0.0) / max(1e-12, st.get("solve_s", 0.0))
+            log(f"fleet sor {name} bucket {row['grid']} ({row['lanes']} "
+                f"lanes, mode {row['mode']}): set-up "
+                f"{row['compile_wall_s']:.3f} s, run {row['run_wall_s']:.4f}"
+                f" s, {row['chunks']} chunks, "
+                f"{row['run_wall_s'] / max(1, row['chunks']) * 1e3:.2f} ms "
+                f"per chunk; steps per lane {min(nts)}..{max(nts)}; solve "
+                f"{st.get('solve_s', 0.0):.4f} s in {st.get('rounds', 0)} "
+                f"rounds, the residual read-backs {st.get('sync_s', 0.0):.4f}"
+                f" s: host-sync share of the solve {share:.3f}")
+            if row["mode"] != "class":
+                bad.append(f"{row['bucket']} ran {row['mode']}")
+        for k, (n_calls, ms) in sorted(runs[name + "_calls"].items()):
+            log(f"fleet sor {name} {k}: {n_calls} calls, "
+                f"{ms / max(1, n_calls):.4f} ms per call (CUDA events "
+                f"around the wrapper), {ms:.2f} ms in all")
+        log(f"fleet sor {name}: {res.summary['n_scenarios']} scenarios, "
+            f"{res.summary['scenarios_per_s']} scenarios/s (run walls), "
+            f"diverged {res.summary['divergence_census']['diverged']}")
+    b_nts = [s.nt for s in runs["cold"].scenarios if s.sid.startswith("b")]
+    if not 15 <= min(b_nts) <= max(b_nts) <= 30:
+        bad.append(f"bucket B lanes ran {min(b_nts)}..{max(b_nts)} steps")
+    cold, warm = runs["cold"], runs["warm"]
+    differ = [s.sid for s in cold.scenarios
+              if s.nt != warm.by_sid("w" + s.sid).nt or not all(
+                  np.array_equal(x, y, equal_nan=True) for x, y in
+                  zip(s.fields, warm.by_sid("w" + s.sid).fields))]
+    log(f"warm run bitwise the cold one: {not differ}")
+    if differ:
+        bad.append(f"warm differs from cold in {differ}")
+    same = all(r["nt"] == cold.by_sid(r["sid"]).nt and all(
+        np.array_equal(x, y) for x, y in zip(
+            r["fields"], cold.by_sid(r["sid"]).fields))
+        for r in runs["128"])
+    log(f"four bucket-A sor requests alone in the 128² class: steps "
+        f"{[r['nt'] for r in runs['128']]}, fields bitwise their 64²-class "
+        f"lanes {same} {'ok' if same else 'FAIL'}")
+    if not same:
+        bad.append("the 128² re-run differs")
+    # the contrast: bucket A's first requests served solo (not gated)
+    solo = FleetScheduler(classes="off", device=CARD)
+    a, _b = fleet_requests(torch, "s", solver="sor")
+    for r in a[:SOLO_CONTRAST]:
+        solo.submit(r)
+    t0 = time.perf_counter()
+    sres = solo.run()
+    wall = time.perf_counter() - t0
+    log(f"contrast: bucket A's first {SOLO_CONTRAST} sor requests served "
+        f"solo (classes off): {sres.summary['scenarios_per_s']} scenarios/s "
+        f"(run walls), {wall:.2f} s in all; the class buckets above "
+        f"{cold.summary['scenarios_per_s']} (cold) / "
+        f"{warm.summary['scenarios_per_s']} (warm)")
+    if bad:
+        raise AssertionError(f"fleet sor main path: {bad}")
+    return counts
+
+
+def class_steps(params, sids, ic, jc, device):
+    """A class batch of sor requests run one step a chunk (tpu_chunk 1):
+    (results, each step's per-lane iteration counts)."""
+    from pampi_tpu_torch.fleet import BatchedSolver
+    from pampi_tpu_torch.fleet import shapeclass as sc
+
+    params = [q.replace(tpu_chunk=1) for q in params]
+    tpl = sc.ClassSolver(params[0], ic=ic, jc=jc, device=device)
+    b = BatchedSolver(tpl, params, sids)
+    state, steps = b.initial_state(), []
+    while float(state[8]) <= b.drive_te():
+        state = b.chunk(state)
+        steps.append(tpl.last_iters.tolist())
+    return b.results(state), steps
 
 
 def main() -> int:
@@ -5646,6 +6124,7 @@ def main() -> int:
         check_ragged3d_kernels(torch, np)
         check_obstacle2d_kernels(torch, np)
         check_class_kernel(torch, np)
+        check_sor_class_kernels(torch, np)
     if CHECKS_ONLY:
         log(f"checks only; failed: {FAILED}")
         return 1 if FAILED else 0
@@ -5662,6 +6141,7 @@ def main() -> int:
         cli_rows = time_obsdist_cli(torch, np)
         sor_cli_rows = time_sor_cli(torch, np)
         k18_rows = time_class_kernel(torch, np)
+        sor_class_rows = time_sor_class_kernels(torch, np)
         sor_ns2d = {}
         counts = main_path(torch, sor_ns2d)
         counts3 = main_path_3d(torch)
@@ -5681,6 +6161,7 @@ def main() -> int:
         counts_o2 = main_path_obstacle2d(torch)
         counts_omg = main_path_obstacle_mg(torch)
         counts_fl = main_path_fleet(torch)
+        counts_fs = main_path_fleet_sor(torch)
         fleet_card_vs_cpu(np)
         # no times are taken from here on: the CPU half of dcavity_card
         # and the canal3d_obstacle.par mesh and CPU runs run beside the
@@ -5699,7 +6180,7 @@ def main() -> int:
         counts_r3cli = ragged3d_cli(np)
         if None not in (rows, rows3, mg_rows, q_rows, d3_rows, d2_rows,
                         o3_rows, r3_rows, o2_rows, cli_rows, sor_cli_rows,
-                        k18_rows, counts,
+                        k18_rows, sor_class_rows, counts_fs, counts,
                         counts3,
                         counts_mg, counts_dist, counts_cli, counts_d3,
                         counts_d3cli, counts_d2, counts_d2cards,
@@ -5707,7 +6188,7 @@ def main() -> int:
                         counts_o2cli, counts_fl, counts_omg,
                         counts_omgcli, counts_r3, counts_r3cli):
             rows = {**rows, **rows3, **mg_rows[0], **q_rows, **o3_rows,
-                    **o2_rows, **k18_rows,
+                    **o2_rows, **k18_rows, **sor_class_rows,
                     "rb_sor_odist": d3_rows["rb_sor_odist"],
                     "rb_sor_obsdist": {**d2_rows["rb_sor_obsdist"],
                                        **o2_rows["rb_sor_obsdist"],
@@ -5729,7 +6210,7 @@ def main() -> int:
                      + counts_o2cli + counts_omg + counts_omgcli
                      + counts_r3 + counts_r3cli
                      + [counts_dist, counts_cli, counts_d3cli,
-                        counts_d2cards, counts_fl])
+                        counts_d2cards, counts_fl, counts_fs])
             counts = {k: sum(c.get(k, 0) for c in paths)
                       for k in set().union(*paths)}
             print(json.dumps({"library": mg_rows[1]}))

@@ -74,6 +74,24 @@
 //   as p does there.
 // The flags add 1 byte a cell to each kernel's traffic, and PRE's snapshot
 // 4 field-sizes (two written, two read).
+//
+// The class mode (the fleet's shape-class lanes: make_fused_pre_2d(...,
+// dynamic=True) and make_fused_post_2d(..., ragged=True, dynamic=True) of
+// the JAX package, run by pampi_tpu/fleet/shapeclass.make_fused_class_chunk)
+// steps a batch of N lanes at once, each a (jc+2, ic+2) class block whose
+// live corner is its own (J+2, I+2) grid, the lane on blockIdx.z (x for the
+// walls). Each lane reads its extents (J, I), its cell sizes (dx, dy, in
+// T), its dt and its `active` flag from device arrays: the distributed
+// kernels' gating by global index with offsets 0 and the lane's extents.
+// Every grid constant is formed in T from the lane's dx and dy, as the JAX
+// kernels form them from their SMEM scalars (idx = 1/dx, idx*0.25,
+// gamma*idx*0.25, idx*idx; the canal inflow's y = (j - 0.5)*dy), not from
+// host doubles. An inactive lane is left as it is (PRE writes its F, G,
+// rhs as 0). PRE is three launches (the walls by a block per lane in the
+// reference's order, F/G, rhs), POST two: the projection on the lane's
+// interior, the live-mask multiply that keeps the dead cells 0 (K4's ragged
+// mode) and per-block partial maxima of |u|, |v| over the live cells, then
+// a block per lane that reduces them (max is exact in any order).
 
 #include <cuda_runtime.h>
 
@@ -92,33 +110,35 @@ struct Coef {
   T idx4, gidx4, idy4, gidy4, idx2, idy2, inv_re, gx, gy;
 };
 
+// the walls of a (J+2, I+2) grid with rows of W cells in the reference's
+// order (left, right, bottom, top), then the lid or the inflow, by the nt
+// threads of one block
 template <typename T>
-__global__ void bc_strips(T* __restrict__ u, T* __restrict__ v, int J, int I,
-                          int bl, int br, int bb, int bt, int problem, T dy,
-                          T yl, T yl2) {
-  const size_t W = I + 2;
+__device__ void walls(T* __restrict__ u, T* __restrict__ v, int J, int I,
+                      size_t W, int bl, int br, int bb, int bt, int problem,
+                      T dy, T yl, T yl2) {
 #define U(j, i) u[(size_t)(j) * W + (i)]
 #define V(j, i) v[(size_t)(j) * W + (i)]
-  const int t0 = threadIdx.x;
-  for (int j = 1 + t0; j <= J; j += BC_THREADS) {  // left: U on the wall
+  const int t0 = threadIdx.x, nt = blockDim.x;
+  for (int j = 1 + t0; j <= J; j += nt) {  // left: U on the wall
     if (bl == NOSLIP) { U(j, 0) = T(0); V(j, 0) = -V(j, 1); }
     else if (bl == SLIP) { U(j, 0) = T(0); V(j, 0) = V(j, 1); }
     else if (bl == OUTFLOW) { U(j, 0) = U(j, 1); V(j, 0) = V(j, 1); }
   }
   __syncthreads();
-  for (int j = 1 + t0; j <= J; j += BC_THREADS) {  // right: U(imax) on it
+  for (int j = 1 + t0; j <= J; j += nt) {  // right: U(imax) on it
     if (br == NOSLIP) { U(j, I) = T(0); V(j, I + 1) = -V(j, I); }
     else if (br == SLIP) { U(j, I) = T(0); V(j, I + 1) = V(j, I); }
     else if (br == OUTFLOW) { U(j, I) = U(j, I - 1); V(j, I + 1) = V(j, I); }
   }
   __syncthreads();
-  for (int i = 1 + t0; i <= I; i += BC_THREADS) {  // bottom: V on the wall
+  for (int i = 1 + t0; i <= I; i += nt) {  // bottom: V on the wall
     if (bb == NOSLIP) { V(0, i) = T(0); U(0, i) = -U(1, i); }
     else if (bb == SLIP) { V(0, i) = T(0); U(0, i) = U(1, i); }
     else if (bb == OUTFLOW) { U(0, i) = U(1, i); V(0, i) = V(1, i); }
   }
   __syncthreads();
-  for (int i = 1 + t0; i <= I; i += BC_THREADS) {  // top: V(jmax) on it
+  for (int i = 1 + t0; i <= I; i += nt) {  // top: V(jmax) on it
     if (bt == NOSLIP) { V(J, i) = T(0); U(J + 1, i) = -U(J, i); }
     else if (bt == SLIP) { V(J, i) = T(0); U(J + 1, i) = U(J, i); }
     else if (bt == OUTFLOW) { U(J + 1, i) = U(J, i); V(J, i) = V(J - 1, i); }
@@ -126,16 +146,23 @@ __global__ void bc_strips(T* __restrict__ u, T* __restrict__ v, int J, int I,
   __syncthreads();
   if (problem == DCAVITY) {
     // lid, skipping the last interior i (the reference loop-bound quirk)
-    for (int i = 1 + t0; i <= I - 1; i += BC_THREADS)
+    for (int i = 1 + t0; i <= I - 1; i += nt)
       U(J + 1, i) = T(2) - U(J, i);
   } else if (problem == CANAL) {
-    for (int j = 1 + t0; j <= J; j += BC_THREADS) {
+    for (int j = 1 + t0; j <= J; j += nt) {
       const T y = (T(j) - T(0.5)) * dy;
       U(j, 0) = y * (yl - y) * T(4) / yl2;
     }
   }
 #undef U
 #undef V
+}
+
+template <typename T>
+__global__ void bc_strips(T* __restrict__ u, T* __restrict__ v, int J, int I,
+                          int bl, int br, int bb, int bt, int problem, T dy,
+                          T yl, T yl2) {
+  walls(u, v, J, I, I + 2, bl, br, bb, bt, problem, dy, yl, yl2);
 }
 
 // -- the flag mode --------------------------------------------------------
@@ -352,11 +379,15 @@ __global__ void adapt_cells(T* __restrict__ u, T* __restrict__ v,
   }
 }
 
+// block b reduces the b-th run of 2*nb partials (nb of |u|, nb of |v|):
+// out[b] = max|u|, out[gridDim.x + b] = max|v| (one block: out[0], out[1];
+// the class mode: a block per lane)
 template <typename T>
 __global__ void max_partials(const T* __restrict__ partial, int nb,
                              T* __restrict__ out) {
   __shared__ T shu[FIN];
   __shared__ T shv[FIN];
+  partial += (size_t)blockIdx.x * 2 * nb;
   T mu = T(0), mv = T(0);
   for (int k = threadIdx.x; k < nb; k += FIN) {
     mu = nanmax(mu, partial[k]);
@@ -373,8 +404,8 @@ __global__ void max_partials(const T* __restrict__ partial, int nb,
     __syncthreads();
   }
   if (threadIdx.x == 0) {
-    out[0] = shu[0];
-    out[1] = shv[0];
+    out[blockIdx.x] = shu[0];
+    out[gridDim.x + blockIdx.x] = shv[0];
   }
 }
 
@@ -680,6 +711,182 @@ int run_post_dist(int dev, T* u, T* v, const T* f, const T* g, const T* p,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------
+// The class mode: lane-stacked (jc+2, ic+2) blocks; per lane ext = [J, I],
+// geo = [dx, dy] (T), dt, active.
+// ---------------------------------------------------------------------
+
+// the walls of a lane's live grid in the reference's order (left, right,
+// bottom, top), then the lid or the inflow, a block per lane
+template <typename T>
+__global__ void cls_bc(T* __restrict__ u, T* __restrict__ v,
+                       const int* __restrict__ ext, const T* __restrict__ geo,
+                       const uint8_t* __restrict__ active, int jc, int ic,
+                       int bl, int br, int bb, int bt, int problem, T yl,
+                       T yl2) {
+  const int lane = blockIdx.x;
+  if (!active[lane]) return;
+  const size_t W = ic + 2, lane_cells = (size_t)(jc + 2) * W;
+  walls(u + lane * lane_cells, v + lane * lane_cells, ext[2 * lane],
+        ext[2 * lane + 1], W, bl, br, bb, bt, problem, geo[2 * lane + 1], yl,
+        yl2);
+}
+
+// F and G of every cell of a lane's block: the predictor on its interior,
+// the wall fixups, 0 elsewhere (and everywhere on an inactive lane)
+template <typename T>
+__global__ void cls_fg(const T* __restrict__ u, const T* __restrict__ v,
+                       const T* __restrict__ dt, T* __restrict__ f,
+                       T* __restrict__ g, const int* __restrict__ ext,
+                       const T* __restrict__ geo,
+                       const uint8_t* __restrict__ active, int jc, int ic,
+                       T gamma, T inv_re, T gx, T gy) {
+  const int lane = blockIdx.z;
+  const int i = blockIdx.x * BX + threadIdx.x;
+  const int j = blockIdx.y * BY + threadIdx.y;
+  if (i > ic + 1 || j > jc + 1) return;
+  const size_t W = ic + 2;
+  const size_t k = (size_t)lane * (jc + 2) * W + (size_t)j * W + i;
+  T fv = T(0), gv = T(0);
+  if (active[lane]) {
+    const int J = ext[2 * lane], I = ext[2 * lane + 1];
+    const bool rows = j >= 1 && j <= J;
+    const bool cols = i >= 1 && i <= I;
+    if (rows && cols) {
+      const T idx = T(1) / geo[2 * lane], idy = T(1) / geo[2 * lane + 1];
+      const Coef<T> c{idx * T(0.25), gamma * idx * T(0.25), idy * T(0.25),
+                      gamma * idy * T(0.25), idx * idx, idy * idy, inv_re,
+                      gx, gy};
+      fg_predict(u, v, k, W, dt[lane], c, fv, gv);
+    }
+    if (rows && (i == 0 || i == I)) fv = u[k];
+    if (cols && (j == 0 || j == J)) gv = v[k];
+  }
+  f[k] = fv;
+  g[k] = gv;
+}
+
+template <typename T>
+__global__ void cls_rhs(const T* __restrict__ f, const T* __restrict__ g,
+                        const T* __restrict__ dt, T* __restrict__ rhs,
+                        const int* __restrict__ ext,
+                        const T* __restrict__ geo,
+                        const uint8_t* __restrict__ active, int jc, int ic) {
+  const int lane = blockIdx.z;
+  const int i = blockIdx.x * BX + threadIdx.x;
+  const int j = blockIdx.y * BY + threadIdx.y;
+  if (i > ic + 1 || j > jc + 1) return;
+  const size_t W = ic + 2;
+  const size_t k = (size_t)lane * (jc + 2) * W + (size_t)j * W + i;
+  T r = T(0);
+  if (active[lane] && j >= 1 && j <= ext[2 * lane] && i >= 1 &&
+      i <= ext[2 * lane + 1]) {
+    const T inv_dt = T(1) / dt[lane];
+    r = inv_dt * ((f[k] - f[k - 1]) / geo[2 * lane] +
+                  (g[k] - g[k - W]) / geo[2 * lane + 1]);
+  }
+  rhs[k] = r;
+}
+
+// the projection on an active lane's interior, the live-mask multiply, and
+// per-block maxima of |u|, |v| over the lane's live cells (all lanes)
+template <typename T>
+__global__ void cls_adapt(T* __restrict__ u, T* __restrict__ v,
+                          const T* __restrict__ f, const T* __restrict__ g,
+                          const T* __restrict__ p, const T* __restrict__ dt,
+                          const int* __restrict__ ext,
+                          const T* __restrict__ geo,
+                          const uint8_t* __restrict__ active, int jc, int ic,
+                          T* __restrict__ partial) {
+  __shared__ T shu[NT];
+  __shared__ T shv[NT];
+  const int lane = blockIdx.z;
+  const int i = blockIdx.x * BX + threadIdx.x;
+  const int j = blockIdx.y * BY + threadIdx.y;
+  const int tid = threadIdx.y * BX + threadIdx.x;
+  const int J = ext[2 * lane], I = ext[2 * lane + 1];
+  T au = T(0), av = T(0);
+  if (i <= ic + 1 && j <= jc + 1) {
+    const size_t W = ic + 2;
+    const size_t k = (size_t)lane * (jc + 2) * W + (size_t)j * W + i;
+    const bool live = j <= J + 1 && i <= I + 1;
+    T uu = u[k], vv = v[k];
+    if (active[lane]) {
+      if (j >= 1 && j <= J && i >= 1 && i <= I) {
+        const T d = dt[lane];
+        const T fx = d / geo[2 * lane];
+        const T fy = d / geo[2 * lane + 1];
+        uu = f[k] - (p[k + 1] - p[k]) * fx;
+        vv = g[k] - (p[k + W] - p[k]) * fy;
+      }
+      const T lm = live ? T(1) : T(0);
+      uu = uu * lm;
+      vv = vv * lm;
+      u[k] = uu;
+      v[k] = vv;
+    }
+    if (live) {
+      au = fabs(uu);
+      av = fabs(vv);
+    }
+  }
+  shu[tid] = au;
+  shv[tid] = av;
+  __syncthreads();
+  for (int s = NT / 2; s > 0; s >>= 1) {
+    if (tid < s) {
+      shu[tid] = nanmax(shu[tid], shu[tid + s]);
+      shv[tid] = nanmax(shv[tid], shv[tid + s]);
+    }
+    __syncthreads();
+  }
+  if (tid == 0) {
+    const int nb = gridDim.x * gridDim.y;
+    const size_t b = (size_t)lane * 2 * nb + blockIdx.y * gridDim.x +
+                     blockIdx.x;
+    partial[b] = shu[0];
+    partial[b + nb] = shv[0];
+  }
+}
+
+template <typename T>
+int run_pre_class(int dev, T* u, T* v, const T* dt, T* f, T* g, T* rhs,
+                  const int* ext, const T* geo, const uint8_t* active,
+                  int lanes, int jc, int ic, const int* bc, int problem,
+                  const double* c, void* stream) {
+  cudaError_t e = cudaSetDevice(dev);
+  if (e != cudaSuccess) return (int)e;
+  cudaStream_t st = (cudaStream_t)stream;
+  // c = [gamma, 1/re, gx, gy, ylength, ylength*ylength]
+  cls_bc<T><<<lanes, 256, 0, st>>>(u, v, ext, geo, active, jc, ic, bc[0],
+                                   bc[1], bc[2], bc[3], problem, T(c[4]),
+                                   T(c[5]));
+  dim3 grd = cell_grid(jc, ic);
+  grd.z = lanes;
+  const dim3 blk(BX, BY);
+  cls_fg<T><<<grd, blk, 0, st>>>(u, v, dt, f, g, ext, geo, active, jc, ic,
+                                 T(c[0]), T(c[1]), T(c[2]), T(c[3]));
+  cls_rhs<T><<<grd, blk, 0, st>>>(f, g, dt, rhs, ext, geo, active, jc, ic);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int run_post_class(int dev, T* u, T* v, const T* f, const T* g, const T* p,
+                   const T* dt, const int* ext, const T* geo,
+                   const uint8_t* active, int lanes, int jc, int ic,
+                   T* partial, T* out, void* stream) {
+  cudaError_t e = cudaSetDevice(dev);
+  if (e != cudaSuccess) return (int)e;
+  cudaStream_t st = (cudaStream_t)stream;
+  dim3 grd = cell_grid(jc, ic);
+  const int nb = (int)(grd.x * grd.y);
+  grd.z = lanes;
+  cls_adapt<T><<<grd, dim3(BX, BY), 0, st>>>(u, v, f, g, p, dt, ext, geo,
+                                             active, jc, ic, partial);
+  max_partials<T><<<lanes, FIN, 0, st>>>(partial, nb, out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -740,6 +947,36 @@ int ns2d_post_partials(int J, int I) {
                             stream);                                         \
   }
 
+// the class mode: u, v, f, g, rhs, p lane-stacked (lanes, jc+2, ic+2); ext
+// int32 (lanes, 2) = [J, I]; geo (lanes, 2) = [dx, dy]; dt (lanes,); active
+// uint8 (lanes,); c = [gamma, 1/re, gx, gy, ylength, ylength*ylength]
+#define PRE_CLASS_ENTRY(NAME, T)                                             \
+  int NAME(int dev, void* u, void* v, const void* dt, void* f, void* g,      \
+           void* rhs, const void* ext, const void* geo, const void* active,  \
+           int lanes, int jc, int ic, const int* bc, int problem,            \
+           const double* c, void* stream) {                                  \
+    return run_pre_class<T>(dev, (T*)u, (T*)v, (const T*)dt, (T*)f, (T*)g,   \
+                            (T*)rhs, (const int*)ext, (const T*)geo,         \
+                            (const uint8_t*)active, lanes, jc, ic, bc,       \
+                            problem, c, stream);                             \
+  }
+
+// partial: 2*ns2d_post_partials(jc, ic)/2 per lane; out (2, lanes)
+#define POST_CLASS_ENTRY(NAME, T)                                            \
+  int NAME(int dev, void* u, void* v, const void* f, const void* g,          \
+           const void* p, const void* dt, const void* ext, const void* geo,  \
+           const void* active, int lanes, int jc, int ic, void* partial,     \
+           void* out, void* stream) {                                        \
+    return run_post_class<T>(dev, (T*)u, (T*)v, (const T*)f, (const T*)g,    \
+                             (const T*)p, (const T*)dt, (const int*)ext,     \
+                             (const T*)geo, (const uint8_t*)active, lanes,   \
+                             jc, ic, (T*)partial, (T*)out, stream);          \
+  }
+
+PRE_CLASS_ENTRY(ns2d_pre_class_f32, float)
+PRE_CLASS_ENTRY(ns2d_pre_class_f64, double)
+POST_CLASS_ENTRY(ns2d_post_class_f32, float)
+POST_CLASS_ENTRY(ns2d_post_class_f64, double)
 PRE_DIST_ENTRY(ns2d_pre_dist_f32, float)
 PRE_DIST_ENTRY(ns2d_pre_dist_f64, double)
 POST_DIST_ENTRY(ns2d_post_dist_f32, float)

@@ -82,6 +82,27 @@
 //   bit (the same association). Bound: memory, as K2's (p and rhs read
 //   once, p written once: 12 bytes a cell at float32); each colour launch
 //   reads p and the colour's rhs, so a call moves about 2.5 field-sizes.
+//
+// rb_sor_class (K2's dynamic-extent mode) replaces the shape-class mode of
+//   the same TPU kernel (_tblock_kernel(dynamic=True), make_rb_iter_tblock(
+//   dynamic=True): the fleet's padded class solve, pampi_tpu/fleet/
+//   shapeclass.make_padded_class_solve). A batch of N lanes, each a
+//   (jc+2, ic+2) class block whose live corner is its own (J+2, I+2) grid;
+//   each lane reads its extents (J, I), its update constants (factor,
+//   idx2, idy2, in T) and its `solving` flag from device arrays, so one
+//   build serves every grid of a class. K2's per-colour kernels with the
+//   lane on blockIdx.z: a block past the lane's live extent, or of a lane
+//   that is not solving, returns at once, so cells beyond the live extent
+//   and such lanes pass through untouched (never a multiply by a mask).
+//   The residual of the last iteration: block (bx, by) of colour c writes
+//   its partial at c*nb + by*gx + bx, with (gx, gy) the LANE's block grid
+//   (cls_blocks(J, I)) and nb = gx*gy, and a block per lane sums its 2*nb
+//   partials in the fixed order of sum_partials. Both the blocks' cells and
+//   that order depend on the lane's extents only, never on the class or the
+//   batchmates, so a lane's solve is bitwise the same in every rung; the
+//   plain version (ops/sor_kernels.rb_sor_class_plain) repeats the order.
+//   3n + 1 launches a call of n iterations. Bound: p and rhs read and p
+//   written once per lane's class block.
 
 #include <cuda_runtime.h>
 
@@ -404,6 +425,125 @@ int run_blocked(int dev, T* p, const T* rhs, int J, int I, double factor,
   return (int)cudaGetLastError();
 }
 
+// -- K2's dynamic-extent mode (the fleet's shape-class lanes) ------------
+
+// a lane's block grid of one colour: cb_grid of its live extents
+__host__ __device__ __forceinline__ int cls_gx(int I) {
+  return ((I + 1) / 2 + BX - 1) / BX;
+}
+__host__ __device__ __forceinline__ int cls_gy(int J) {
+  return (J + BY - 1) / BY;
+}
+
+// one colour of every solving lane, in place; ext = [J, I] per lane, geo =
+// [factor, idx2, idy2] per lane; on the last iteration each live block
+// writes its partial at partial[lane*stride + color*nb + by*gx + bx]
+template <typename T>
+__global__ void cls_color(T* __restrict__ p, const T* __restrict__ rhs,
+                          const int* __restrict__ ext,
+                          const T* __restrict__ geo,
+                          const uint8_t* __restrict__ solving, int jc, int ic,
+                          int color, T* __restrict__ partial, int stride) {
+  __shared__ T sh[NT];
+  const int lane = blockIdx.z;
+  const int J = ext[2 * lane], I = ext[2 * lane + 1];
+  const int gx = cls_gx(I), gy = cls_gy(J);
+  // uniform per block: a returning block never reaches block_sum's barrier
+  if (!solving[lane] || (int)blockIdx.x >= gx || (int)blockIdx.y >= gy)
+    return;
+  const size_t W = ic + 2;
+  const size_t base = (size_t)lane * (jc + 2) * W;
+  const T factor = geo[3 * lane], idx2 = geo[3 * lane + 1],
+          idy2 = geo[3 * lane + 2];
+  const int j = 1 + blockIdx.y * BY + threadIdx.y;
+  const int t = blockIdx.x * BX + threadIdx.x;
+  T rr = T(0);
+  if (j <= J) {
+    const int i = (((1 + j) & 1) == color ? 1 : 2) + 2 * t;
+    if (i <= I) {
+      const size_t k = base + (size_t)j * W + i;
+      const T c = p[k];
+      const T r = resid(c, rhs[k], p[k - 1], p[k + 1], p[k - W], p[k + W],
+                        idx2, idy2);
+      p[k] = c - factor * r;
+      rr = r * r;
+    }
+  }
+  if (partial != nullptr) {
+    const T s = block_sum(rr, sh);
+    if (threadIdx.x == 0 && threadIdx.y == 0)
+      partial[(size_t)lane * stride + color * gx * gy + blockIdx.y * gx +
+              blockIdx.x] = s;
+  }
+}
+
+// the Neumann ghost copy of every solving lane at its own extents (corners
+// untouched); lane on blockIdx.y
+template <typename T>
+__global__ void cls_neumann(T* __restrict__ p, const int* __restrict__ ext,
+                            const uint8_t* __restrict__ solving, int jc,
+                            int ic) {
+  const int lane = blockIdx.y;
+  if (!solving[lane]) return;
+  const int J = ext[2 * lane], I = ext[2 * lane + 1];
+  const size_t W = ic + 2;
+  T* q = p + (size_t)lane * (jc + 2) * W;
+  const int k = 1 + blockIdx.x * blockDim.x + threadIdx.x;
+  if (k <= I) {
+    q[k] = q[W + k];
+    q[(size_t)(J + 1) * W + k] = q[(size_t)J * W + k];
+  }
+  if (k <= J) {
+    q[k * W] = q[k * W + 1];
+    q[k * W + I + 1] = q[k * W + I];
+  }
+}
+
+// a block per lane: res[lane] = the sum of the lane's 2*nb partials in
+// sum_partials' order (0 for a lane that is not solving)
+template <typename T>
+__global__ void cls_sum(const T* __restrict__ partial, int stride,
+                        const int* __restrict__ ext,
+                        const uint8_t* __restrict__ solving,
+                        T* __restrict__ res) {
+  __shared__ T sh[FIN];
+  const int lane = blockIdx.x;
+  const int J = ext[2 * lane], I = ext[2 * lane + 1];
+  const int n = solving[lane] ? 2 * cls_gx(I) * cls_gy(J) : 0;
+  const T* pl = partial + (size_t)lane * stride;
+  T s = T(0);
+  for (int k = threadIdx.x; k < n; k += FIN) s += pl[k];
+  sh[threadIdx.x] = s;
+  __syncthreads();
+  for (int st = FIN / 2; st > 0; st >>= 1) {
+    if (threadIdx.x < st) sh[threadIdx.x] += sh[threadIdx.x + st];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) res[lane] = sh[0];
+}
+
+template <typename T>
+int run_class(int dev, T* p, const T* rhs, const int* ext, const T* geo,
+              const uint8_t* solving, int lanes, int jc, int ic, int n_inner,
+              T* partial, T* res, cudaStream_t st) {
+  cudaError_t e = cudaSetDevice(dev);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grd(cls_gx(ic), cls_gy(jc), lanes);
+  const dim3 blk(BX, BY);
+  const int stride = 2 * (int)(grd.x * grd.y);
+  const dim3 ngrd(((ic > jc ? ic : jc) + 255) / 256, lanes);
+  for (int t = 0; t < n_inner; ++t) {
+    T* part = t == n_inner - 1 ? partial : nullptr;
+    cls_color<T><<<grd, blk, 0, st>>>(p, rhs, ext, geo, solving, jc, ic, 0,
+                                      part, stride);
+    cls_color<T><<<grd, blk, 0, st>>>(p, rhs, ext, geo, solving, jc, ic, 1,
+                                      part, stride);
+    cls_neumann<T><<<ngrd, 256, 0, st>>>(p, ext, solving, jc, ic);
+  }
+  cls_sum<T><<<lanes, FIN, 0, st>>>(partial, stride, ext, solving, res);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -446,6 +586,23 @@ int rb_sor_blocked_partials(int J) { return 2 * blk_bands(J); }
                           idy2, (T*)partial, (T*)out, (cudaStream_t)stream); \
   }
 
+// K2's dynamic-extent mode: the partial buffer holds this many per lane
+int rb_sor_class_partials(int jc, int ic) {
+  return 2 * cls_gx(ic) * cls_gy(jc);
+}
+
+#define CLASS_ENTRY(NAME, T)                                                 \
+  int NAME(int dev, void* p, const void* rhs, const void* ext,               \
+           const void* geo, const void* solving, int lanes, int jc, int ic,  \
+           int n_inner, void* partial, void* res, void* stream) {           \
+    return run_class<T>(dev, (T*)p, (const T*)rhs, (const int*)ext,          \
+                        (const T*)geo, (const uint8_t*)solving, lanes, jc,   \
+                        ic, n_inner, (T*)partial, (T*)res,                   \
+                        (cudaStream_t)stream);                               \
+  }
+
+CLASS_ENTRY(rb_sor_class_f32, float)
+CLASS_ENTRY(rb_sor_class_f64, double)
 TILED2D_ENTRY(rb_sor_masked_f32, float, true)
 TILED2D_ENTRY(rb_sor_masked_f64, double, true)
 BLOCKED_ENTRY(rb_sor_blocked_f32, float)

@@ -6,7 +6,8 @@ Modes of the port, one per bucket, recorded under `fleet_<bucket>`:
   class  a shape-class bucket (fleet/shapeclass.py, `classes="on"` or
          `"auto"`): one ClassSolver template and one BatchedSolver advance
          every lane of the bucket together; an mg lane's V-cycle is one
-         launch of K18 for the whole batch;
+         launch of K18 for the whole batch, a sor lane's step one call
+         each of the class modes of K3, K2 and K4;
   solo   every exact-shape bucket: one solver per request, the one the
          port's CLI builds for that Parameter (cli.build_ns_solver), which
          is the JAX package's `solo` mode. The JAX package batches such

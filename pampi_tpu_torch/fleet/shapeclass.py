@@ -1,46 +1,61 @@
 """Shape-class batching: mixed-grid requests padded into shared class
-blocks (counterpart of the 2-D mg part of pampi_tpu/fleet/shapeclass.py).
+blocks (counterpart of the 2-D part of pampi_tpu/fleet/shapeclass.py).
 
 A class is a rung of a ladder, the next power of two per axis with a
 floor of RUNG_FLOOR. Every lane of a class batch holds a (jc+2, ic+2)
 block whose live corner is its own (jmax+2, imax+2) grid; the dead cells
 hold exact 0 and stay out of every reduction. The lane's grid extents
-and every grid-derived constant (dx, dy, the CFL bound, idx2, idy2, the
-residual norm) are per-lane data, computed on the host in Python float64
-with the solo solver's expressions (`lane_geometry`, the G_* slots).
+and every grid-derived constant (dx, dy, the CFL bound, the SOR factor,
+idx2, idy2, the residual norm) are per-lane data, computed on the host in
+Python float64 with the solo solver's expressions (`lane_geometry`, the
+G_* slots).
 
-One step of the class chunk is the JAX package's masked phase chain over
-the lane-stacked blocks (`make_class_chunk`): the CFL dt per lane, the
-wall and special BCs, F/G and their fixups, the rhs, normalizePressure
-every 100 steps over the live corner, the solve, the projection and the
-live-mask multiply. The solve of a `tpu_solver mg` lane is the
-one-launch class V-cycle, K18 (`ops/mg_fused.class_cycle`): one launch
-per V-cycle for every lane of the batch still cycling, each lane's level
-plan from its own extents (`make_class_mg_solve`), until its residual is
-under eps² or itermax cycles are done.
+Two chunks step a class batch, as in the JAX package:
 
-What stays the JAX package's alone (ROADMAP A item 9): the rb-sor class
-lane with its dynamic-extent K2/K3/K4 (`make_class_solve`,
-`make_fused_class_chunk`) and the 3-D class rungs (`Class3DSolver`, the
-dynamic-extent K7/K8). class_eligible keeps such requests in their
-exact-shape buckets with a reason naming that item.
+- the masked phase chain (`make_class_chunk`): the CFL dt per lane, the
+  wall and special BCs, F/G and their fixups, the rhs, normalizePressure
+  every 100 steps over the live corner, the solve, the projection and
+  the live-mask multiply, in plain torch over the lane-stacked blocks.
+  The solve of a `tpu_solver mg` lane is the one-launch class V-cycle,
+  K18 (`ops/mg_fused.class_cycle`, `make_class_mg_solve`); that of a sor
+  lane under `tpu_fuse_phases off` the padded class solve below at one
+  iteration a residual check (the cadence of the JAX package's masked jnp
+  loop there);
+- the fused class chunk of a sor lane (`make_fused_class_chunk`, under
+  `tpu_fuse_phases auto|on`): a step is one call of the class mode of K3
+  (PRE), normalizePressure every 100 steps, the padded class solve on the
+  dynamic-extent mode of K2 (`make_padded_class_solve`, `class_cadence`
+  iterations a call and a residual check, one (N,) read-back a round for
+  the whole batch) and one call of the class mode of K4 (POST, which also
+  gives the next step's CFL maxima), for all lanes of the batch at once.
 
-Every per-lane reduction takes a fixed order that depends on the lane's
-live extents only (K18's residual, the live-corner sum of
-normalizePressure), so a lane's fields are bitwise the same in every rung
-and whatever its batchmates are.
+A lane stops solving when its residual is under eps² or its count has
+reached itermax, and the lanes still solving go on: each lane's count and
+fields are its solo's (the JAX package's vmapped while_loop). Every
+per-lane reduction takes a fixed order that depends on the lane's live
+extents only (K18's residual, K2's class-mode residual, the live-corner
+sum of normalizePressure), so a lane's fields are bitwise the same in
+every rung and whatever its batchmates are.
+
+What stays the JAX package's alone (ROADMAP A item 9.2): the 3-D class
+rungs (`Class3DSolver`, the dynamic-extent K7/K8). class_eligible keeps
+such requests in their exact-shape buckets with a reason naming that
+item.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import time
 
 import numpy as np
 import torch
 
 from ..ops import mg_fused as mf
 from ..ops import ns2d as ops
+from ..ops import ns2d_fused as nf
+from ..ops import sor_kernels as sk
 from ..ops.sor_kernels import _tree
 from ..parallel import ragged2d as rg
 from ..utils import dispatch as _dispatch
@@ -61,12 +76,9 @@ G_IMAX, G_JMAX, G_DX, G_DY, G_DTB, G_FACTOR, G_IDX2, G_IDY2, G_NORM = \
 # the class signature also leaves out the grid extents (per-lane data)
 CLASS_KEYS = ("imax", "jmax", "kmax")
 
-# the port's own refusals, naming the ROADMAP item that brings each
-SOR_LANE = ("tpu_solver sor class lane (the masked rb-sor class chunk and "
-            "the dynamic-extent modes of K2/K3/K4 are not yet ported, "
-            "ROADMAP A item 9)")
+# the port's own refusal, naming the ROADMAP item that brings it
 LANE_3D = ("3-D class rung (Class3DSolver and the dynamic-extent modes of "
-           "K7/K8 are not yet ported, ROADMAP A item 9)")
+           "K7/K8 are not yet ported, ROADMAP A item 9.2)")
 
 
 def class_extent(n: int) -> int:
@@ -125,14 +137,30 @@ def _jax_reason(param, ndevices: int) -> str | None:
 def class_eligible(param, ndevices: int = 1) -> str | None:
     """None when the request may ride a class; else why it keeps its
     exact-shape bucket: the JAX package's reason where it refuses, else
-    the port's (a sor lane, a 3-D lane). `ndevices` is the visible device
-    count (the JAX package reads jax.devices())."""
+    the port's (a 3-D lane). `ndevices` is the visible device count (the
+    JAX package reads jax.devices())."""
     why = _jax_reason(param, ndevices)
     if why is None and is_3d_config(param):
         return LANE_3D
-    if why is None and param.tpu_solver == "sor":
-        return SOR_LANE
     return why
+
+
+def class_cadence(param, dtype) -> int:
+    """Red-black iterations between two residual checks of a sor class
+    lane: the number the JAX package's ClassSolver takes on a TPU for the
+    same `tpu_fuse_phases` and dtype (the rule utils/dispatch.sor_cadence
+    applies to solo solves). `on` forces its fused chunk, whose padded
+    class solve checks every `tpu_sor_inner` iterations at any dtype;
+    `auto` takes the fused chunk where Mosaic lowers the dtype (at most 4
+    bytes: `tpu_sor_inner`) and otherwise records "jnp (dtype not
+    Mosaic-lowerable)" and runs its masked jnp loop, which checks every
+    iteration (float64: 1); `off` is that jnp chain (1)."""
+    knob = param.tpu_fuse_phases
+    if knob not in ("auto", "on", "off"):
+        raise ValueError(f"tpu_fuse_phases must be auto|on|off, got {knob!r}")
+    if knob == "off" or (knob == "auto" and dtype.itemsize > 4):
+        return 1
+    return max(1, param.tpu_sor_inner)
 
 
 def class_signature(param) -> str:
@@ -173,47 +201,67 @@ def lane_geometry(param):
 @dataclasses.dataclass
 class Lanes:
     """The per-lane constants of a batch, derived once from its (N, 9)
-    float64 geometry vectors: extents and cell sizes as (N, 1, 1)
-    tensors, the interior and live masks, the normalizePressure count and
-    gather plan, and K18's stacked level plans."""
+    float64 geometry vectors: the kernels' per-lane arrays, dims (N, 2)
+    int32 (jmax, imax), cell (N, 2) (dx, dy) and sor_geo (N, 3) (factor,
+    idx2, idy2) in the lane dtype (jmax, imax, dx, dy are their (N, 1, 1)
+    views); the CFL bound; the interior and live masks; the
+    normalizePressure count and gather plan; and, for mg lanes only, K18's
+    stacked level plans (mg_ext, mg_geo)."""
 
-    jmax: torch.Tensor
-    imax: torch.Tensor
-    dx: torch.Tensor
-    dy: torch.Tensor
+    dims: torch.Tensor
+    cell: torch.Tensor
+    sor_geo: torch.Tensor
     dtb: torch.Tensor
     interior: torch.Tensor
     live: torch.Tensor
     cnt: torch.Tensor
     gather: torch.Tensor
     valid: torch.Tensor
-    ext: torch.Tensor
-    geo: torch.Tensor
     norm: np.ndarray
+    mg_ext: torch.Tensor | None = None
+    mg_geo: torch.Tensor | None = None
+
+    @property
+    def jmax(self):
+        return self.dims[:, 0, None, None]
+
+    @property
+    def imax(self):
+        return self.dims[:, 1, None, None]
+
+    @property
+    def dx(self):
+        return self.cell[:, 0, None, None]
+
+    @property
+    def dy(self):
+        return self.cell[:, 1, None, None]
 
 
-def class_lanes(gm, jc: int, ic: int, dtype, device) -> Lanes:
-    """Lanes of a batch from its geometry vectors `gm` (numpy (N, 9))."""
+def class_lanes(gm, jc: int, ic: int, dtype, device, mg: bool = False
+                ) -> Lanes:
+    """Lanes of a batch from its geometry vectors `gm` (numpy (N, 9)), with
+    K18's level plans when `mg`. Every lane's extents must fit the (jc, ic)
+    class: the kernels read them on the card unchecked."""
     gm = np.asarray(gm, np.float64)
     n = gm.shape[0]
     real = mf._REAL[dtype]
+    ext = gm[:, [G_JMAX, G_IMAX]]
+    if ((ext < 1) | (ext > (jc, ic))).any():
+        raise ValueError(f"lane extents {ext.astype(int).tolist()} do not "
+                         f"fit the class {ic}x{jc}")
     gj, gi = rg.class_index_grids(jc, ic, device)
 
-    def col(slot, to=dtype):
-        return torch.from_numpy(gm[:, slot].copy()).to(
-            device=device, dtype=to).view(n, 1, 1)
+    def lane_array(slots, to):
+        return torch.from_numpy(np.ascontiguousarray(
+            gm[:, slots].astype(to))).to(device)
 
-    jmax = col(G_JMAX, torch.int64)
-    imax = col(G_IMAX, torch.int64)
-    interior = (gj >= 1) & (gj <= jmax) & (gi >= 1) & (gi <= imax)
-    live = (gj <= jmax + 1) & (gi <= imax + 1)
-    cnt = ((col(G_JMAX, torch.float64) + 2.0)
-           * (col(G_IMAX, torch.float64) + 2.0)).to(dtype)
+    dims = lane_array([G_JMAX, G_IMAX], np.int32)
+    jmax, imax = dims[:, 0, None, None], dims[:, 1, None, None]
     # normalizePressure's sum: each lane's live corner in row-major order,
     # in the fixed order of K18's residual (thread t of CLASS_THREADS adds
     # t, t + T, ...), so the mean depends on the lane's extents only
-    sizes = [(int(j) + 2, int(i) + 2) for j, i in
-             zip(gm[:, G_JMAX], gm[:, G_IMAX])]
+    sizes = [(int(j) + 2, int(i) + 2) for j, i in ext]
     t = mf.CLASS_THREADS
     width = -(-max(a * b for a, b in sizes) // t) * t
     gather = np.zeros((n, width), np.int64)
@@ -223,18 +271,25 @@ def class_lanes(gm, jc: int, ic: int, dtype, device) -> Lanes:
                 + np.arange(cols)[None, :]).reshape(-1)
         gather[lane, :flat.size] = flat
         valid[lane, :flat.size] = True
-    lmax = mf.class_level_max(jc, ic)
-    plans = [mf.class_level_plan(int(g[G_JMAX]), int(g[G_IMAX]),
-                                 g[G_IDX2], g[G_IDY2], lmax, dtype)
-             for g in gm]
+    mg_ext = mg_geo = None
+    if mg:
+        lmax = mf.class_level_max(jc, ic)
+        plans = [mf.class_level_plan(int(g[G_JMAX]), int(g[G_IMAX]),
+                                     g[G_IDX2], g[G_IDY2], lmax, dtype)
+                 for g in gm]
+        mg_ext = torch.stack([e for e, _ in plans]).to(device)
+        mg_geo = torch.stack([g for _, g in plans]).to(device)
     return Lanes(
-        jmax=jmax, imax=imax, dx=col(G_DX), dy=col(G_DY), dtb=col(G_DTB),
-        interior=interior, live=live, cnt=cnt,
+        dims=dims, cell=lane_array([G_DX, G_DY], real),
+        sor_geo=lane_array([G_FACTOR, G_IDX2, G_IDY2], real),
+        dtb=lane_array([G_DTB], real).view(n, 1, 1),
+        interior=(gj >= 1) & (gj <= jmax) & (gi >= 1) & (gi <= imax),
+        live=(gj <= jmax + 1) & (gi <= imax + 1),
+        cnt=torch.from_numpy((ext[:, 0] + 2.0) * (ext[:, 1] + 2.0)).to(
+            device=device, dtype=dtype).view(n, 1, 1),
         gather=torch.from_numpy(gather).to(device),
         valid=torch.from_numpy(valid).to(device),
-        ext=torch.stack([e for e, _ in plans]).to(device),
-        geo=torch.stack([g for _, g in plans]).to(device),
-        norm=gm[:, G_NORM].astype(real))
+        norm=gm[:, G_NORM].astype(real), mg_ext=mg_ext, mg_geo=mg_geo)
 
 
 def live_sum(q, lanes: Lanes):
@@ -275,14 +330,14 @@ def make_class_mg_solve(param, jc: int, ic: int, dtype, device):
         buf = work.get(n)
         if buf is None and p.device.type == "cuda":
             buf = work[n] = torch.empty(
-                max(1, n * mf.class_work_cells(jc, ic, lanes.ext.shape[1])),
+                max(1, n * mf.class_work_cells(jc, ic, lanes.mg_ext.shape[1])),
                 dtype=dtype, device=p.device)
         while True:
             on = cycling & (res >= epssq) & (it < itermax)
             if not on.any():
                 break
             act = torch.from_numpy(on.astype(np.int32)).to(p.device)
-            p, rsq = mf.class_cycle(p, rhs, lanes.ext, lanes.geo, act,
+            p, rsq = mf.class_cycle(p, rhs, lanes.mg_ext, lanes.mg_geo, act,
                                     work=buf)
             res[on] = rsq.cpu().numpy().astype(real)[on] / lanes.norm[on]
             it[on] += 1
@@ -291,24 +346,84 @@ def make_class_mg_solve(param, jc: int, ic: int, dtype, device):
     return solve
 
 
+def make_padded_class_solve(param, jc: int, ic: int, dtype, n_inner: int):
+    """The sor class lane's solve (the JAX package's
+    make_padded_class_solve; the masked chain's at n_inner = 1, where the
+    JAX package runs its masked jnp loop): the convergence loop over K2's
+    dynamic-extent mode (ops/sor_kernels.rb_sor_class), n_inner
+    iterations a call for every lane still solving, then one (N,)
+    read-back of the residuals for the whole batch:
+
+        solve(p, rhs, lanes, solving) -> (p, res, it)
+
+    in place on p. A lane solves while it is in `solving`, res >= eps² and
+    it < itermax, res = its Σr² of the call's last iteration over
+    imax·jmax in the lane dtype; `it` counts iterations (a multiple of
+    n_inner, as on the TPU). `solve.stats` accumulates the solve's wall,
+    the wall spent in the read-backs and the rounds (host clock)."""
+    real = mf._REAL[dtype]
+    epssq = real(param.eps * param.eps)
+    itermax = param.itermax
+    stats = {"solve_s": 0.0, "sync_s": 0.0, "rounds": 0}
+
+    def solve(p, rhs, lanes: Lanes, solving):
+        t0 = time.perf_counter()
+        n = p.shape[0]
+        res = np.ones(n, real)
+        it = np.zeros(n, np.int64)
+        while True:
+            on = solving & (res >= epssq) & (it < itermax)
+            if not on.any():
+                break
+            act = torch.from_numpy(on).to(p.device)
+            rsq = sk.rb_sor_class(p, rhs, n_inner, lanes.dims,
+                                  lanes.sor_geo, act)
+            s0 = time.perf_counter()
+            rsq = rsq.cpu().numpy().astype(real)
+            stats["sync_s"] += time.perf_counter() - s0
+            stats["rounds"] += 1
+            res[on] = (rsq / lanes.norm)[on]
+            it[on] += n_inner
+        stats["solve_s"] += time.perf_counter() - t0
+        return p, res, it
+
+    solve.stats = stats
+    return solve
+
+
+def _normalize(p, nt, lanes: Lanes, stepping):
+    """normalizePressure every 100 steps over each stepping lane's live
+    corner (the JAX package's dynamic count, ghost ring included); dead
+    cells stay 0."""
+    renorm = ((nt % 100) == 0) & stepping
+    if not bool(renorm.any()):
+        return p
+    mean = live_sum(p, lanes) / lanes.cnt
+    return torch.where(renorm.view(-1, 1, 1) & lanes.live, p - mean, p)
+
+
 def make_class_chunk(param, jc: int, ic: int, dtype, device,
-                     chunk_default: int = 64):
-    """One class's chunk: models/ns2d's phase order over lane-stacked
-    blocks with the grid extents as per-lane data (the JAX package's
-    make_class_chunk, mg lanes):
+                     chunk_default: int = 64, log=None):
+    """One class's masked chain: models/ns2d's phase order over
+    lane-stacked blocks with the grid extents as per-lane data (the JAX
+    package's make_class_chunk):
 
         chunk(u, v, p, t, nt, lanes, te, running) -> (u, v, p, t, nt)
 
     Every lane in `running` (an (N,) bool tensor) takes steps while its
     t <= te, at most `tpu_chunk` (default chunk_default) in all; the other
     lanes pass through unchanged. One host check a step (whether any lane
-    still steps) and the solve's read-back a V-cycle."""
-    if param.tpu_solver != "mg":
-        raise NotImplementedError(SOR_LANE)
+    still steps) and the solve's read-back a V-cycle or an iteration.
+    `log["it"]` holds each lane's solve count of the last step (numpy,
+    0 for a lane that did not step)."""
     grids = rg.class_index_grids(jc, ic, device)
     adaptive = param.tau > 0.0
     chunk = param.tpu_chunk or chunk_default
-    solve = make_class_mg_solve(param, jc, ic, dtype, device)
+    if param.tpu_solver == "mg":
+        solve = make_class_mg_solve(param, jc, ic, dtype, device)
+    else:
+        solve = make_padded_class_solve(param, jc, ic, dtype, 1)
+    log = {} if log is None else log
 
     def step(u, v, p, t, nt, lanes: Lanes, stepping):
         n = u.shape[0]
@@ -328,12 +443,9 @@ def make_class_chunk(param, jc: int, ic: int, dtype, device,
         zero = torch.zeros((), dtype=dtype, device=device)
         rhs = torch.where(lanes.interior,
                           ops.rhs_terms(f, g, dt, lanes.dx, lanes.dy), zero)
-        renorm = ((nt % 100) == 0) & stepping
-        if bool(renorm.any()):
-            # normalizePressure over the live corner only; dead cells stay 0
-            mean = live_sum(p, lanes) / lanes.cnt
-            p = torch.where(renorm.view(n, 1, 1) & lanes.live, p - mean, p)
-        p, _res, _it = solve(p, rhs, lanes, stepping.cpu().numpy())
+        p = _normalize(p, nt, lanes, stepping)
+        p, _res, it = solve(p, rhs, lanes, stepping.cpu().numpy())
+        log["it"] = it
         u_new, v_new = ops.adapt_terms(f, g, p, dt, lanes.dx, lanes.dy)
         lm = lanes.live.to(dtype)
         u = torch.where(lanes.interior, u_new, u) * lm
@@ -341,6 +453,7 @@ def make_class_chunk(param, jc: int, ic: int, dtype, device,
         return u, v, p, t + dt.view(n).to(t.dtype), nt + 1
 
     def run(u, v, p, t, nt, lanes: Lanes, te, running):
+        p = p.clone()  # the sor solve works in place: the caller's p stays
         for _ in range(chunk):
             stepping = running & (t <= te)
             if not bool(stepping.any()):
@@ -356,13 +469,71 @@ def make_class_chunk(param, jc: int, ic: int, dtype, device,
     return run
 
 
+def make_fused_class_chunk(param, jc: int, ic: int, dtype, device,
+                           chunk_default: int = 64, n_inner: int = 1,
+                           log=None):
+    """The sor class lane's fused chunk (the JAX package's
+    make_fused_class_chunk): a step is the class mode of K3 (PRE), the
+    every-100-steps normalizePressure, the padded class solve on K2's
+    dynamic-extent mode at n_inner iterations a call, and the class mode of
+    K4 (POST, whose maxima give the next step's CFL dt), each one call for
+    every lane of the batch; the lanes not stepping pass through (the
+    kernels' `active` / `solving` flags). Same call and state as
+    make_class_chunk; on the CPU the kernels' plain versions run.
+    `solve.stats` rides on the returned function as `run.solve_stats`."""
+    cfg = nf.StepConfig.from_param(param)
+    adaptive = param.tau > 0.0
+    chunk = param.tpu_chunk or chunk_default
+    solve = make_padded_class_solve(param, jc, ic, dtype, n_inner)
+    log = {} if log is None else log
+
+    def run(u, v, p, t, nt, lanes: Lanes, te, running):
+        n = u.shape[0]
+        # the kernels work in place: the caller's state stays as it was
+        u, v, p = u.clone(), v.clone(), p.clone()
+        umax = u.abs().amax((-2, -1)).view(n, 1, 1)
+        vmax = v.abs().amax((-2, -1)).view(n, 1, 1)
+        for _ in range(chunk):
+            stepping = running & (t <= te)
+            if not bool(stepping.any()):
+                break
+            if adaptive:
+                dt = ops.cfl_dt(umax, vmax, lanes.dtb, lanes.dx, lanes.dy,
+                                param.tau).reshape(n)
+            else:
+                dt = torch.full((n,), param.dt, dtype=dtype, device=device)
+            f, g, rhs = nf.ns2d_pre(u, v, dt, cfg, ext=lanes.dims,
+                                    geo=lanes.cell, active=stepping)
+            p = _normalize(p, nt, lanes, stepping)
+            p, _res, it = solve(p, rhs, lanes, stepping.cpu().numpy())
+            log["it"] = it
+            um, vm = nf.ns2d_post(u, v, f, g, p, dt, None, None,
+                                  ext=lanes.dims, geo=lanes.cell,
+                                  active=stepping)
+            umax, vmax = um.view(n, 1, 1), vm.view(n, 1, 1)
+            t = torch.where(stepping, t + dt.to(t.dtype), t)
+            nt = torch.where(stepping, nt + 1, nt)
+        return u, v, p, t, nt
+
+    run.solve_stats = solve.stats
+    return run
+
+
 class ClassSolver:
-    """The template of one shape class (the JAX package's ClassSolver, mg
+    """The template of one shape class (the JAX package's ClassSolver, 2-D
     lanes): built from a representative request, it serves every request
     of its class signature, of any eligible grid, through
     fleet/batch.BatchedSolver. `lane_state` gives a lane's initial state
     (fields, t, nt and the geometry vector), `crop_lane` a lane's fields
-    back in its own (jmax+2, imax+2) layout."""
+    back in its own (jmax+2, imax+2) layout.
+
+    An mg lane steps the masked chain with K18's V-cycles. A sor lane
+    steps the fused class chunk under `tpu_fuse_phases auto|on` and the
+    masked chain under `off`, at `class_cadence` iterations a residual
+    check (decisions under `ns2d_class_phases` and `ns2d_class_solve`).
+    On the card the kernels are built (or loaded) here: the build is
+    set-up, not serving. `last_iters` holds each lane's solve count of the
+    last step; `solve_stats` the fused chunk's solve walls."""
 
     CHUNK = 64
 
@@ -380,18 +551,69 @@ class ClassSolver:
         self.ic, self.jc = ic, jc
         self.dtype = resolve_dtype(param.tpu_dtype) if dtype is None \
             else dtype
-        self.lmax = mf.class_level_max(jc, ic)
-        _dispatch.resolve_mg_class(param.tpu_mg_fused, self.lmax)
-        _dispatch.record("ns2d_class_phases",
-                         f"plain torch chain on {self.device.type} (mg "
-                         "class lane: the solve is the one-launch class "
-                         "cycle)")
-        if self.device.type == "cuda":
-            # build (or load) K18 now: the build is set-up, not serving
-            mf.class_cycle_library()
-        self._chunk = make_class_chunk(self.param, jc, ic, self.dtype,
-                                       self.device, self.CHUNK)
+        self._mg = param.tpu_solver == "mg"
+        self._log: dict = {}
+        self.solve_stats = None
+        self._chunk = self._build_chunk()
         self._lanes: dict[bytes, Lanes] = {}
+
+    def _build_fused_chunk(self):
+        """The sor lane's fused class chunk where `tpu_fuse_phases` takes it
+        (`auto` and `on`: the policy does not depend on the device, the CPU
+        runs the kernels' plain versions), else None; the decision is
+        recorded either way."""
+        knob = self.param.tpu_fuse_phases
+        cadence = class_cadence(self.param, self.dtype)
+        if knob == "off":
+            _dispatch.record("ns2d_class_phases",
+                             "plain torch chain (tpu_fuse_phases off)")
+            return None
+        how = "forced" if knob == "on" else (
+            "auto" if self.dtype.itemsize <= 4 else
+            "auto; float64 checks every iteration, where the JAX package "
+            "runs its jnp chain")
+        _dispatch.record("ns2d_class_phases",
+                         f"fused class chunk on {self.device.type} ({how}: "
+                         "class K3 + padded class solve + class K4)")
+        _dispatch.record("ns2d_class_solve",
+                         f"padded class solve (K2's dynamic-extent mode, "
+                         f"n_inner={cadence})")
+        if self.device.type == "cuda":
+            sk._lib()
+            nf._lib()
+        chunk = make_fused_class_chunk(self.param, self.jc, self.ic,
+                                       self.dtype, self.device, self.CHUNK,
+                                       cadence, self._log)
+        self.solve_stats = chunk.solve_stats
+        return chunk
+
+    def _build_chunk(self):
+        if self._mg:
+            _dispatch.resolve_mg_class(self.param.tpu_mg_fused,
+                                       mf.class_level_max(self.jc, self.ic))
+            _dispatch.record("ns2d_class_phases",
+                             f"plain torch chain on {self.device.type} (mg "
+                             "class lane: the solve is the one-launch class "
+                             "cycle)")
+            if self.device.type == "cuda":
+                mf.class_cycle_library()
+            self._fused = False
+        else:
+            fused = self._build_fused_chunk()
+            self._fused = fused is not None
+            if fused is not None:
+                return fused
+            _dispatch.record("ns2d_class_solve",
+                             "padded class solve (K2's dynamic-extent mode, "
+                             "n_inner=1)")
+        return make_class_chunk(self.param, self.jc, self.ic, self.dtype,
+                                self.device, self.CHUNK, self._log)
+
+    @property
+    def last_iters(self):
+        """Each lane's solve count (iterations, or V-cycles) of the last
+        step, numpy (N,); 0 for a lane that did not step."""
+        return self._log.get("it")
 
     def lane_consts(self, gm) -> Lanes:
         """The Lanes of geometry vectors gm (numpy (N, 9)), cached."""
@@ -400,7 +622,8 @@ class ClassSolver:
         lanes = self._lanes.get(key)
         if lanes is None:
             lanes = self._lanes[key] = class_lanes(gm, self.jc, self.ic,
-                                                   self.dtype, self.device)
+                                                   self.dtype, self.device,
+                                                   self._mg)
         return lanes
 
     def advance(self, u, v, p, t, nt, lanes: Lanes, te, running):

@@ -51,6 +51,24 @@ special BC and makes F/G carry U/V on non-fluid faces
 fluid-fluid faces only (adapt_uv_obstacle). Its launches count on kernel
 entries of their own, `ns2d_pre_flags` and `ns2d_post_flags`.
 
+The class mode (`ext=`, `geo=`, `active=`: the fleet's shape-class lanes,
+the JAX package's make_fused_pre_2d(..., dynamic=True) and
+make_fused_post_2d(..., ragged=True, dynamic=True)): u, v, F, G, rhs, p are
+lane-stacked (N, jc+2, ic+2) class blocks whose live corner is each lane's
+own grid; ext (N, 2) int32 holds each lane's (jmax, imax), geo (N, 2) its
+(dx, dy) in the fields' dtype, dt (N,) its timestep and active (N,) bool
+which lanes step. Every write is gated by the lane's extents, and every
+grid constant (1/dx, the canal inflow's y = (j - 0.5)·dy, ...) is formed
+in the fields' dtype from the lane's dx and dy, as the JAX kernels form it
+from their SMEM scalars; an inactive lane is left as it is (its F, G, rhs
+are 0). POST zeroes the dead cells after the projection (the live-mask
+multiply) and returns each lane's max|u|, max|v| over its live cells, (N,)
+each. Its launches count on entries of their own, `ns2d_pre_class` and
+`ns2d_post_class` (three and two CUDA launches a call for the whole
+batch). Every lane's extents must fit its block (1 <= jmax <= jc, 1 <=
+imax <= ic): the kernels read them on the card unchecked, and
+fleet/shapeclass.class_lanes checks them on the host.
+
 For a CPU tensor each wrapper runs its plain version (ops/ns2d.py,
 ops/obstacle.py); for a CUDA tensor it launches its kernel or raises.
 """
@@ -75,6 +93,10 @@ NS2D_PRE_FLAGS = kb.register(
     "ns2d_pre_flags", SOURCE, "pampi_tpu/ops/ns2d_fused.py:775")
 NS2D_POST_FLAGS = kb.register(
     "ns2d_post_flags", SOURCE, "pampi_tpu/ops/ns2d_fused.py:877")
+NS2D_PRE_CLASS = kb.register(
+    "ns2d_pre_class", SOURCE, "pampi_tpu/ops/ns2d_fused.py:775")
+NS2D_POST_CLASS = kb.register(
+    "ns2d_post_class", SOURCE, "pampi_tpu/ops/ns2d_fused.py:877")
 
 _PROBLEM_CODE = {"dcavity": 1, "canal": 2, "canal_obstacle": 2}
 _V, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
@@ -91,6 +113,14 @@ _SIGNATURES = {
     "ns2d_post_dist_f64": _POST_DIST_ARGS,
     "ns2d_post_partials": [_I, _I],
 }
+# dev, u, v, dt, f, g, rhs, ext, geo, active, lanes, jc, ic, bc, problem, c,
+# stream; and dev, u, v, f, g, p, dt, ext, geo, active, lanes, jc, ic,
+# partial, out, stream
+for _t in ("f32", "f64"):
+    _SIGNATURES[f"ns2d_pre_class_{_t}"] = [_I, _V, _V, _V, _V, _V, _V, _V, _V,
+                                           _V, _I, _I, _I, _V, _I, _V, _V]
+    _SIGNATURES[f"ns2d_post_class_{_t}"] = [_I, _V, _V, _V, _V, _V, _V, _V,
+                                            _V, _V, _I, _I, _I, _V, _V, _V]
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
@@ -186,12 +216,102 @@ def _faces(flags, u):
         tuple(n - 2 for n in u.shape), u.dtype)
 
 
+def _class_lanes(u, ext, geo):
+    """(index grids, jmax, imax, dx, dy) of a class-mode call, the lane
+    scalars as (N, 1, 1) tensors."""
+    n = u.shape[0]
+    grids = ops.index_grids_2d(u.shape[-2:], 0, (0, 0), u.device)
+    jmax, imax = (ext[:, k].to(torch.int64).view(n, 1, 1) for k in (0, 1))
+    dx, dy = (geo[:, k].to(u.dtype).view(n, 1, 1) for k in (0, 1))
+    return grids, jmax, imax, dx, dy
+
+
+def _pre_class_plain(u, v, dt, cfg: StepConfig, ext, geo, active):
+    """K3's class mode, plain: the JAX package's dynamic PRE on every
+    active lane (the class chain's gated BCs, the inflow in the fields'
+    dtype from the lane's dy, the predictor on the lane's interior, the
+    wall fixups, rhs), the inactive lanes left as they are with F, G, rhs
+    0."""
+    from ..parallel import ragged2d as rg
+
+    n = u.shape[0]
+    (gj, gi), jmax, imax, dx, dy = _class_lanes(u, ext, geo)
+    dt3 = dt.to(u.dtype).view(n, 1, 1)
+    u1, v1 = ops.apply_wall_bcs_gated(u, v, gj, gi, cfg.bc, (jmax, imax))
+    if cfg.problem in ("canal", "canal_obstacle"):
+        prof = rg.class_inflow_profile(u.shape[-2], dy, cfg.ylength,
+                                       u.dtype, u.device)
+        m = (gi == 0) & (gj >= 1) & (gj <= jmax)
+        u1 = torch.where(m, prof.expand_as(u1), u1)
+    else:
+        u1 = ops.apply_special_bc_gated(u1, gj, gi, cfg.problem,
+                                        (jmax, imax), None, cfg.ylength)
+    f_full, g_full = ops.fg_predictor_terms(u1, v1, dt3, cfg.re, cfg.gx,
+                                            cfg.gy, cfg.gamma, dx, dy)
+    interior = (gj >= 1) & (gj <= jmax) & (gi >= 1) & (gi <= imax)
+    zero = ops._const(0.0, u)
+    f, g = ops.fg_fixups_gated(torch.where(interior, f_full, zero),
+                               torch.where(interior, g_full, zero),
+                               u1, v1, gj, gi, (jmax, imax))
+    rhs = torch.where(interior, ops.rhs_terms(f, g, dt3, dx, dy), zero)
+    on = active.to(torch.bool).view(n, 1, 1)
+    return (torch.where(on, u1, u), torch.where(on, v1, v),
+            *(torch.where(on, x, zero) for x in (f, g, rhs)))
+
+
+def _post_class_plain(u, v, f, g, p, dt, ext, geo, active):
+    """K4's class mode, plain: on every active lane the projection on its
+    interior and the live-mask multiply; (u'', v'', max|u''|, max|v''|),
+    the maxima over each lane's live cells, (N,) each."""
+    n = u.shape[0]
+    (gj, gi), jmax, imax, dx, dy = _class_lanes(u, ext, geo)
+    ua, va = ops.adapt_terms(f, g, p, dt.to(u.dtype).view(n, 1, 1), dx, dy)
+    interior = (gj >= 1) & (gj <= jmax) & (gi >= 1) & (gi <= imax)
+    live = (gj <= jmax + 1) & (gi <= imax + 1)
+    lm = live.to(u.dtype)
+    on = active.to(torch.bool).view(n, 1, 1)
+    un = torch.where(on, torch.where(interior, ua, u) * lm, u)
+    vn = torch.where(on, torch.where(interior, va, v) * lm, v)
+    zero = ops._const(0.0, u)
+    return (un, vn, torch.where(live, un.abs(), zero).amax((-2, -1)),
+            torch.where(live, vn.abs(), zero).amax((-2, -1)))
+
+
+def _check_class(tensors, dt, ext, geo, active) -> tuple:
+    """(lanes, jc, ic) of a class-mode call on the card, after checking its
+    lane-stacked fields and per-lane arrays."""
+    t0 = tensors[0]
+    if t0.device.type != "cuda":
+        raise ValueError(f"NS-2D kernels take CPU or CUDA tensors, not {t0.device}")
+    if t0.dtype not in _SUFFIX or t0.dim() != 3:
+        raise ValueError("the class mode takes float32 or float64 fields of "
+                         "shape (lanes, jc+2, ic+2)")
+    for t in tensors:
+        if (t.device != t0.device or t.dtype != t0.dtype
+                or t.shape != t0.shape or not t.is_contiguous()):
+            raise ValueError("fields must be contiguous and share device, "
+                             "dtype and shape")
+    n = t0.shape[0]
+    for a, dtype, shape in ((dt, t0.dtype, (n,)), (ext, torch.int32, (n, 2)),
+                            (geo, t0.dtype, (n, 2)),
+                            (active, torch.bool, (n,))):
+        if (a.device != t0.device or a.dtype != dtype
+                or tuple(a.shape) != shape or not a.is_contiguous()):
+            raise ValueError(f"the class mode needs contiguous {dtype} "
+                             f"{shape} per-lane arrays on the fields' device")
+    return n, t0.shape[1] - 2, t0.shape[2] - 2
+
+
 def ns2d_pre_plain(u, v, dt, cfg: StepConfig, offs=None, gext=None,
-                   ext_pad: int = 0, flags=None):
+                   ext_pad: int = 0, flags=None, ext=None, geo=None,
+                   active=None):
     """K3's plain version: returns (u', v', F, G, rhs), inputs untouched;
     in the distributed mode u', v' are deep blocks and F, G, rhs halo-1
     blocks (ops/ns2d.pre_gated). `flags` adds the obstacle velocity BC
-    and mask_fg (ops/obstacle.py)."""
+    and mask_fg (ops/obstacle.py); `ext`, `geo`, `active` select the class
+    mode (module docstring)."""
+    if ext is not None:
+        return _pre_class_plain(u, v, dt, cfg, ext, geo, active)
     if offs is not None:
         _mode(u.shape, offs, gext, ext_pad, True)
         return ops.pre_gated(u, v, dt, cfg.bc, cfg.problem, cfg.re, cfg.gx,
@@ -211,14 +331,17 @@ def ns2d_pre_plain(u, v, dt, cfg: StepConfig, offs=None, gext=None,
 
 
 def ns2d_pre(u, v, dt, cfg: StepConfig, offs=None, gext=None,
-             ext_pad: int = 0, flags=None):
+             ext_pad: int = 0, flags=None, ext=None, geo=None, active=None):
     """K3: boundary conditions in place on u and v; returns (F, G, rhs).
     dt is a 0-dim tensor beside the fields. One device by default; with
     the shard's global offsets `offs` = (joff, ioff), the global interior
     extents `gext` = (jmax, imax) and `ext_pad` >= 1, u and v are the
     shard's deep blocks (local index a is global a - ext_pad + offset) and
     F, G, rhs its halo-1 blocks. `flags` (uint8 of u's shape) selects the
-    flag mode."""
+    flag mode; `ext`, `geo` and `active` the class mode, with dt (N,)
+    (module docstring)."""
+    if ext is not None:
+        return _pre_class(u, v, dt, cfg, ext, geo, active)
     local, o, G = _mode(u.shape, offs, gext, ext_pad, True)
     if u.device.type == "cpu":
         u1, v1, f, g, rhs = ns2d_pre_plain(u, v, dt, cfg, offs, gext,
@@ -255,12 +378,39 @@ def ns2d_pre(u, v, dt, cfg: StepConfig, offs=None, gext=None,
     return f, g, rhs
 
 
+def _pre_class(u, v, dt, cfg: StepConfig, ext, geo, active):
+    if u.device.type == "cpu":
+        u1, v1, f, g, rhs = _pre_class_plain(u, v, dt, cfg, ext, geo, active)
+        u.copy_(u1)
+        v.copy_(v1)
+        return f, g, rhs
+    n, jc, ic = _check_class((u, v), dt, ext, geo, active)
+    f, g, rhs = (torch.empty_like(u) for _ in range(3))
+    bc = (ctypes.c_int * 4)(*cfg.bc)
+    coef = (ctypes.c_double * 6)(cfg.gamma, 1.0 / cfg.re, cfg.gx, cfg.gy,
+                                 cfg.ylength, cfg.ylength * cfg.ylength)
+    lib = _lib()
+    with torch.cuda.device(u.device):
+        err = getattr(lib, f"ns2d_pre_class_{_SUFFIX[u.dtype]}")(
+            u.device.index, u.data_ptr(), v.data_ptr(), dt.data_ptr(),
+            f.data_ptr(), g.data_ptr(), rhs.data_ptr(), ext.data_ptr(),
+            geo.data_ptr(), active.data_ptr(), n, jc, ic, bc,
+            _PROBLEM_CODE.get(cfg.problem, 0), coef, kb.stream_of(u))
+    kb.check(lib, err, "ns2d_pre_class")
+    NS2D_PRE_CLASS.launches += 1
+    return f, g, rhs
+
+
 def ns2d_post_plain(u, v, f, g, p, dt, dx, dy, offs=None, gext=None,
-                    ragged: bool = False, flags=None):
+                    ragged: bool = False, flags=None, ext=None, geo=None,
+                    active=None):
     """K4's plain version: returns (u'', v'', max|u''|, max|v''|); in the
     distributed mode the gated projection of ops/ns2d.post_gated on the
     shard's halo-1 blocks. `flags` restricts the projection to
-    fluid-fluid faces (ops/obstacle.adapt_uv_obstacle)."""
+    fluid-fluid faces (ops/obstacle.adapt_uv_obstacle); `ext`, `geo`,
+    `active` select the class mode (dx, dy unused)."""
+    if ext is not None:
+        return _post_class_plain(u, v, f, g, p, dt, ext, geo, active)
     if offs is not None:
         return ops.post_gated(u, v, f, g, p, dt, dx, dy, offs, gext, ragged,
                               flags)
@@ -273,13 +423,17 @@ def ns2d_post_plain(u, v, f, g, p, dt, dx, dy, offs=None, gext=None,
 
 
 def ns2d_post(u, v, f, g, p, dt, dx, dy, offs=None, gext=None,
-              ragged: bool = False, flags=None):
+              ragged: bool = False, flags=None, ext=None, geo=None,
+              active=None):
     """K4: projection in place on u and v; returns (umax, vmax) as 0-dim
     tensors on the fields' device. With the shard's global offsets and the
     global extents, the distributed mode on its halo-1 blocks (`ragged`:
     the mesh does not divide the grid, and the dead cells are zeroed); the
     maxima are then the shard's. `flags` (uint8 of u's shape) selects the
-    flag mode."""
+    flag mode; `ext`, `geo` and `active` the class mode (dx, dy unused),
+    whose maxima are (N,) each (module docstring)."""
+    if ext is not None:
+        return _post_class(u, v, f, g, p, dt, ext, geo, active)
     local, o, G = _mode(u.shape, offs, gext, 0, False)
     if u.device.type == "cpu":
         u2, v2, umax, vmax = ns2d_post_plain(u, v, f, g, p, dt, dx, dy,
@@ -310,4 +464,27 @@ def ns2d_post(u, v, f, g, p, dt, dx, dy, offs=None, gext=None,
                 kb.stream_of(u))
     kb.check(lib, err, "ns2d_post")
     (NS2D_POST if flags is None else NS2D_POST_FLAGS).launches += 1
+    return out[0], out[1]
+
+
+def _post_class(u, v, f, g, p, dt, ext, geo, active):
+    if u.device.type == "cpu":
+        u2, v2, umax, vmax = _post_class_plain(u, v, f, g, p, dt, ext, geo,
+                                               active)
+        u.copy_(u2)
+        v.copy_(v2)
+        return umax, vmax
+    n, jc, ic = _check_class((u, v, f, g, p), dt, ext, geo, active)
+    lib = _lib()
+    partial = torch.empty(n * lib.ns2d_post_partials(jc, ic), dtype=u.dtype,
+                          device=u.device)
+    out = torch.empty((2, n), dtype=u.dtype, device=u.device)
+    with torch.cuda.device(u.device):
+        err = getattr(lib, f"ns2d_post_class_{_SUFFIX[u.dtype]}")(
+            u.device.index, u.data_ptr(), v.data_ptr(), f.data_ptr(),
+            g.data_ptr(), p.data_ptr(), dt.data_ptr(), ext.data_ptr(),
+            geo.data_ptr(), active.data_ptr(), n, jc, ic, partial.data_ptr(),
+            out.data_ptr(), kb.stream_of(u))
+    kb.check(lib, err, "ns2d_post_class")
+    NS2D_POST_CLASS.launches += 1
     return out[0], out[1]

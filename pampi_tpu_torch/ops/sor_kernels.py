@@ -35,6 +35,22 @@ K17 `rb_sor_blocked` replaces pampi_tpu/ops/sor_pallas.py `_rb_kernel`
   per colour; csrc/sor_rb.cu says more). Its fields equal K2's at n_inner
   1 bit for bit, and its plain version repeats its summation order.
 
+K2's dynamic-extent mode `rb_sor_class` replaces the shape-class mode of
+  the same TPU kernel (_tblock_kernel(dynamic=True), make_rb_iter_tblock(
+  dynamic=True): the fleet's padded class solve): n_inner iterations on
+  every solving lane of a batch of (jc+2, ic+2) class blocks at once, each
+  lane at its own extents (ext (N, 2) int32: jmax, imax) with its own
+  update constants (geo (N, 3): factor, idx2, idy2, in p's dtype). Cells
+  beyond a lane's live extent, and every cell of a lane whose `solving`
+  flag is false, pass through untouched (selects, never multiplies). It
+  returns each lane's Σr² of its last iteration, (N,), summed from
+  per-block partials in an order that depends on the lane's extents only
+  (`class_residual`, which the plain version repeats), so a lane is
+  bitwise the same in every rung and beside any batchmates, residual
+  included. K2's per-colour kernels with the lane on blockIdx.z: 3n + 1
+  launches a call for the whole batch. Its launches count on their own
+  kernel entry, `rb_sor_class`.
+
 All but masked K2 update p in place; all return the sum of r² over both
 half-sweeps of the LAST of their iterations, as a 0-dim tensor on p's
 device.
@@ -75,6 +91,8 @@ RB_SOR_MASKED = kb.register(
     "rb_sor_checkerboard_masked", SOURCE, "pampi_tpu/ops/sor_pallas.py:620")
 RB_SOR_BLOCKED = kb.register(
     "rb_sor_blocked", SOURCE, "pampi_tpu/ops/sor_pallas.py:1049")
+RB_SOR_CLASS = kb.register(
+    "rb_sor_class", SOURCE, "pampi_tpu/ops/sor_pallas.py:620")
 
 _V, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _SOR_ARGS = [_I, _V, _V, _I, _I, _I, _D, _D, _D, _V, _V, _V]
@@ -90,6 +108,11 @@ for _t in ("f32", "f64"):
                                           _V, _V, _V, _V]
     _SIGNATURES[f"rb_sor_blocked_{_t}"] = [_I, _V, _V, _I, _I, _D, _D, _D,
                                            _V, _V, _V]
+    # dev, p, rhs, ext, geo, solving, lanes, jc, ic, n_inner, partial, res,
+    # stream
+    _SIGNATURES[f"rb_sor_class_{_t}"] = [_I, _V, _V, _V, _V, _V, _I, _I, _I,
+                                         _I, _V, _V, _V]
+_SIGNATURES["rb_sor_class_partials"] = [_I, _I]
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 FIN = 1024  # threads of the kernels' one-block final sum (sum_partials)
 BX, BY = 32, 8  # K2's thread block (sor_rb.cu)
@@ -202,6 +225,11 @@ def run_passes(p, launches, out, launch):
     return res
 
 
+def _lib():
+    """K1/K2/K17's bound library (csrc/sor_rb.cu), built at first use."""
+    return kb.load("sor_rb", _SIGNATURES)
+
+
 def card_of(t):
     """The guard that makes t's card current for a launch and gives the
     caller its current card back (the shards of a mesh lie on several
@@ -279,7 +307,7 @@ def _check(p: torch.Tensor, rhs: torch.Tensor, n_inner: int) -> None:
 
 def _launch(kernel, entry: str, partials: str, p, rhs, a: int, b: int,
             n_inner: int, factor: float, idx2: float, idy2: float):
-    lib = kb.load("sor_rb", _SIGNATURES)
+    lib = _lib()
     partial = torch.empty(getattr(lib, partials)(a, b), dtype=p.dtype,
                           device=p.device)
     out = torch.empty((), dtype=p.dtype, device=p.device)
@@ -393,7 +421,7 @@ def _masked(p, rhs, flags, n_inner, omega, idx2, idy2, out):
         raise ValueError("masked K2 needs a 2-D p and contiguous uint8 flags "
                          "of its shape on its device")
     g = masked_geom(p.shape[0] - 2, p.shape[1] - 2, n_inner)
-    lib = kb.load("sor_rb", _SIGNATURES)
+    lib = _lib()
     res = sod.run_tiled(getattr(lib, f"rb_sor_masked_{_SUFFIX[p.dtype]}"),
                         lib, "rb_sor_masked",
                         sod.launch_plan(g, p.element_size(), 0, 0), p, rhs,
@@ -446,7 +474,7 @@ def rb_sor_blocked(p, rhs, factor, idx2, idy2):
     if p.dim() != 2:
         raise ValueError(f"K17 takes a 2-D p, got {tuple(p.shape)}")
     J, I = p.shape[0] - 2, p.shape[1] - 2
-    lib = kb.load("sor_rb", _SIGNATURES)
+    lib = _lib()
     partial = torch.empty(lib.rb_sor_blocked_partials(J), dtype=p.dtype,
                           device=p.device)
     out = torch.empty((), dtype=p.dtype, device=p.device)
@@ -476,3 +504,155 @@ def rb_sor_quarters(q, f, n_inner, factor, idx2, idy2):
     return _launch(RB_SOR_QUARTERS, "rb_sor_quarters",
                    "rb_sor_quarters_partials", q, f, q.shape[1], q.shape[2],
                    n_inner, factor, idx2, idy2)
+
+
+# ----------------------------------------------------------------------
+# K2's dynamic-extent mode: the fleet's sor class lanes
+# ----------------------------------------------------------------------
+
+
+def _cls_blocks(jmax: int, imax: int) -> tuple:
+    """(gx, gy): the block grid of one colour over (jmax, imax), K2's
+    cb_grid (sor_rb.cu cls_gx, cls_gy)."""
+    return -(-((imax + 1) // 2) // BX), -(-jmax // BY)
+
+
+@functools.lru_cache(maxsize=64)
+def _class_order(jc: int, ic: int, ext: tuple):
+    """The gather plan of class_residual for lanes of extents `ext`
+    ((jmax, imax) per lane) in a (jc, ic) class: index (N, m·FIN) into the
+    lane's [red partials, black partials, 0] (each colour's partials of the
+    class's block grid, row-major), in the kernel's order: the lane's own
+    block grid row-major, red then black, padded with the zero slot."""
+    gxc, gyc = _cls_blocks(jc, ic)
+    nbc = gxc * gyc
+    lists = []
+    for jmax, imax in ext:
+        gx, gy = _cls_blocks(jmax, imax)
+        own = [by * gxc + bx for by in range(gy) for bx in range(gx)]
+        lists.append(own + [nbc + k for k in own])
+    width = max(1, -(-max(len(x) for x in lists) // FIN)) * FIN
+    idx = torch.full((len(ext), width), 2 * nbc, dtype=torch.int64)
+    for lane, order in enumerate(lists):
+        idx[lane, :len(order)] = torch.tensor(order, dtype=torch.int64)
+    return idx
+
+
+def class_residual(r2_red, r2_blk, ext):
+    """Each lane's Σr² in rb_sor_class's order, (N,): r2_red, r2_blk the
+    last iteration's r² of each colour on the class interior (N, jc, ic),
+    0 wherever nothing updated. Block (bx, by) of a colour holds the cells
+    (j, i0(j) + 2t) with j = 1 + BY·by + ty, t = BX·bx + tx, i0 = 1 where
+    (1 + j) % 2 is the colour (0 red, 1 black), else 2, reduced over tid =
+    BX·ty + tx by block_sum's halving tree; a lane's partials, red then
+    black, each over its own block grid row-major, are summed by FIN
+    threads in turn and a halving tree (sum_partials)."""
+    n, jc, ic = r2_red.shape
+    gxc, gyc = _cls_blocks(jc, ic)
+    tc = gxc * BX
+    jj = torch.arange(1, jc + 1, device=r2_red.device)
+    parts = []
+    for color, r2 in ((0, r2_red), (1, r2_blk)):
+        odd = torch.zeros((n, jc, tc), dtype=r2.dtype, device=r2.device)
+        even = torch.zeros_like(odd)
+        a1, a2 = r2[:, :, 0::2], r2[:, :, 1::2]  # i = 1, 3, ... and 2, 4, ...
+        odd[:, :, :a1.shape[-1]] = a1
+        even[:, :, :a2.shape[-1]] = a2
+        start1 = (1 + jj) % 2 == color
+        rows = torch.where(start1.view(1, jc, 1), odd, even)
+        grid = torch.zeros((n, gyc * BY, tc), dtype=r2.dtype,
+                           device=r2.device)
+        grid[:, :jc] = rows
+        blocks = grid.view(n, gyc, BY, gxc, BX).permute(0, 1, 3, 2, 4)
+        parts.append(_tree(blocks.reshape(n, gyc * gxc, BY * BX))[..., 0])
+    flat = torch.cat(parts + [r2_red.new_zeros((n, 1))], dim=1)
+    ext_t = tuple((int(a), int(b)) for a, b in ext.tolist())
+    idx = _class_order(jc, ic, ext_t).to(flat.device)
+    vals = flat.gather(1, idx).view(n, -1, FIN)
+    s = torch.zeros((n, FIN), dtype=flat.dtype, device=flat.device)
+    for r in range(vals.shape[1]):
+        s = s + vals[:, r]
+    return _tree(s)[..., 0]
+
+
+def rb_sor_class_plain(p, rhs, n_inner, ext, geo, solving):
+    """K2's dynamic-extent mode, plain: n_inner (red, black, Neumann)
+    iterations in place on every solving lane of p (N, jc+2, ic+2), each at
+    its extents ext[lane] = (jmax, imax) with geo[lane] = (factor, idx2,
+    idy2); every other cell is left as it is (selects). Returns each
+    lane's Σr² of the last iteration in the kernel's order (class_residual;
+    0 for a lane that is not solving)."""
+    n, jc, ic = p.shape[0], p.shape[-2] - 2, p.shape[-1] - 2
+    dev = p.device
+    jmax, imax = (ext[:, k].to(torch.int64).view(n, 1, 1) for k in (0, 1))
+    factor, idx2, idy2 = (geo[:, k].to(p.dtype).view(n, 1, 1)
+                          for k in range(3))
+    on = solving.to(torch.bool).view(n, 1, 1)
+    jj = torch.arange(1, jc + 1, device=dev)[:, None]
+    ii = torch.arange(1, ic + 1, device=dev)[None, :]
+    interior = on & (jj <= jmax) & (ii <= imax)
+    red = interior & ((ii + jj) % 2 == 0)
+    black = interior & ((ii + jj) % 2 == 1)
+    gj = torch.arange(jc + 2, device=dev)[:, None]
+    gi = torch.arange(ic + 2, device=dev)[None, :]
+    tan_j = on & (gj >= 1) & (gj <= jmax)
+    tan_i = on & (gi >= 1) & (gi <= imax)
+    ghosts = (((gj == 0) & tan_i, -1, -2), ((gj == jmax + 1) & tan_i, 1, -2),
+              ((gi == 0) & tan_j, -1, -1), ((gi == imax + 1) & tan_j, 1, -1))
+    zero = torch.zeros((), dtype=p.dtype, device=dev)
+    rc = rhs[:, 1:-1, 1:-1]
+    r2 = [None, None]
+    for _ in range(n_inner):
+        for k, mask in enumerate((red, black)):
+            c = p[:, 1:-1, 1:-1]
+            r = rc - ((p[:, 1:-1, 2:] - 2.0 * c + p[:, 1:-1, :-2]) * idx2
+                      + (p[:, 2:, 1:-1] - 2.0 * c + p[:, :-2, 1:-1]) * idy2)
+            p[:, 1:-1, 1:-1] = torch.where(mask, c - factor * r, c)
+            r2[k] = torch.where(mask, r * r, zero)
+        q = p
+        for mask, shift, dim in ghosts:
+            q = torch.where(mask, torch.roll(q, shift, dim), q)
+        p.copy_(q)
+    return class_residual(r2[0], r2[1], ext)
+
+
+def rb_sor_class(p, rhs, n_inner, ext, geo, solving, out=None):
+    """K2's dynamic-extent mode on lane-stacked class blocks p, rhs (N,
+    jc+2, ic+2), in place on p (or, with `out`, on out after copying p into
+    it, p untouched). ext (N, 2) int32, geo (N, 3) in p's dtype, solving
+    (N,) bool, on p's device. Returns each lane's Σr² of the last
+    iteration, (N,) (0 where not solving).
+
+    Every lane's extents must fit its block, 1 <= jmax <= jc and 1 <= imax
+    <= ic: the kernel reads them on the card and does not check them (a
+    larger lane would write into the next lane's block and sum past its
+    partials). fleet/shapeclass.class_lanes checks them on the host."""
+    if out is not None:
+        check_out("K2's class mode", p, out)
+        out.copy_(p)
+        p = out
+    if p.device.type == "cpu":
+        return rb_sor_class_plain(p, rhs, n_inner, ext, geo, solving)
+    _check(p, rhs, n_inner)
+    n = p.shape[0]
+    for a, dtype, shape in ((ext, torch.int32, (n, 2)),
+                            (geo, p.dtype, (n, 3)),
+                            (solving, torch.bool, (n,))):
+        if (p.dim() != 3 or a.device != p.device or a.dtype != dtype
+                or tuple(a.shape) != shape or not a.is_contiguous()):
+            raise ValueError(f"K2's class mode takes (N, jc+2, ic+2) p and "
+                             f"contiguous {dtype} {shape} per-lane arrays "
+                             f"on its device")
+    jc, ic = p.shape[1] - 2, p.shape[2] - 2
+    lib = _lib()
+    partial = torch.empty(n * lib.rb_sor_class_partials(jc, ic),
+                          dtype=p.dtype, device=p.device)
+    res = torch.empty(n, dtype=p.dtype, device=p.device)
+    with card_of(p):
+        err = getattr(lib, f"rb_sor_class_{_SUFFIX[p.dtype]}")(
+            p.device.index, p.data_ptr(), rhs.data_ptr(), ext.data_ptr(),
+            geo.data_ptr(), solving.data_ptr(), n, jc, ic, n_inner,
+            partial.data_ptr(), res.data_ptr(), kb.stream_of(p))
+    kb.check(lib, err, "rb_sor_class")
+    RB_SOR_CLASS.launches += 1
+    return res

@@ -135,7 +135,7 @@ def class_inflow_profile(jrows: int, dy, ylength: float, dtype, device):
     dtype. Returns (N, jrows, 1)."""
     jj = torch.arange(jrows, dtype=dtype, device=device)[:, None]
     y = (jj - 0.5) * dy.to(dtype)
-    return y * (ylength - y) * 4.0 / ops._const(ylength ** 2, y)
+    return y * (ylength - y) * 4.0 / ops._const(ylength * ylength, y)
 
 
 def set_special_bc_class(u, param, grids, jmax, imax, dy):

@@ -1194,3 +1194,134 @@ def test_class_fleet_on_card_matches_cpu(cuda):
         for x, y in zip(a.fields, b.fields):
             scale = max(1.0, float(np.abs(y).max()))
             assert np.abs(x - y).max() <= 1e-9 * scale
+
+
+def _sor_class_batch(cls, dtype, device, seed):
+    """Lane-stacked inputs of the sor class lane's kernels in a cls² class:
+    a full-class lane, a 12x12 one, a ragged one, a canal-shaped one (30x4
+    box) and one that does not step; fields random on each live corner,
+    0 on the dead cells. Returns (u, v, p, rhs, ext, sor_geo, cell, dt,
+    active)."""
+    from pampi_tpu_torch.fleet import shapeclass as sc
+
+    lanes = [(cls, cls), (12, 12), (cls - 3, cls - 1), (cls // 2, cls - 2),
+             (cls, cls - 5)]
+    lengths = [(1.0, 1.0), (1.0, 1.0), (1.0, 1.0), (30.0, 4.0), (1.0, 1.0)]
+    rng = np.random.default_rng(seed)
+    n = len(lanes)
+    fields = np.zeros((4, n, cls + 2, cls + 2))
+    gm = []
+    for k, ((j, i), (xl, yl)) in enumerate(zip(lanes, lengths)):
+        fields[:, k, :j + 2, :i + 2] = rng.normal(size=(4, j + 2, i + 2))
+        gm.append(sc.lane_geometry(Parameter(imax=i, jmax=j, xlength=xl,
+                                             ylength=yl, omg=1.7)))
+    gm = np.array(gm)
+    real = np.float64 if dtype == torch.float64 else np.float32
+    u, v, p, rhs = (torch.from_numpy(x).to(device, dtype) for x in fields)
+    return (u, v, p, rhs,
+            torch.tensor(lanes, dtype=torch.int32, device=device),
+            torch.from_numpy(np.ascontiguousarray(gm[:, [5, 6, 7]], real)).to(
+                device),
+            torch.from_numpy(np.ascontiguousarray(gm[:, [2, 3]], real)).to(
+                device),
+            torch.from_numpy(0.01 + 0.002 * np.arange(n)).to(device, dtype),
+            torch.tensor([True] * (n - 1) + [False], device=device))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("cls", [16, 64, 256])
+def test_sor_class_k2_matches_plain(cuda, dtype, cls):
+    """K2's dynamic-extent mode against its plain version, n = 4 then 1:
+    fields and per-lane residuals bitwise, dead cells and the lane that
+    does not solve untouched."""
+    _u, _v, p, rhs, ext, geo, _c, _dt, solving = _sor_class_batch(
+        cls, dtype, cuda, 301 + cls)
+    pk, pp = p.clone(), p.clone()
+    launches = sk.RB_SOR_CLASS.launches
+    for n in (4, 1):
+        rk = sk.rb_sor_class(pk, rhs, n, ext, geo, solving)
+        rp = sk.rb_sor_class_plain(pp, rhs, n, ext, geo, solving)
+        _assert_close(pk, pp, dtype)
+        assert torch.equal(pk, pp) and torch.equal(rk, rp)
+    assert sk.RB_SOR_CLASS.launches == launches + 2
+    assert torch.equal(pk[-1], p[-1]) and float(rk[-1]) == 0.0
+    for k, (j, i) in enumerate(ext.tolist()):
+        assert torch.equal(pk[k, j + 2:], p[k, j + 2:])
+        assert torch.equal(pk[k, :, i + 2:], p[k, :, i + 2:])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("problem", ["dcavity", "canal"])
+def test_sor_class_k3_k4_match_plain(cuda, dtype, problem):
+    """K3/K4's class mode against their plain versions in the 64² class:
+    boundary copies, dead cells and maxima bitwise, F/G/rhs and the
+    projected fields to the tolerance, the inactive lane untouched."""
+    u, v, p, _r, ext, _g, cell, dt, active = _sor_class_batch(
+        64, dtype, cuda, 401)
+    for k, (j, i) in enumerate(ext.tolist()):  # dead cells hold 0
+        for a in (u, v):
+            a[k, j + 2:] = 0.0
+            a[k, :, i + 2:] = 0.0
+    cfg = nf.StepConfig.from_param(Parameter(
+        name=problem, bcLeft=3 if problem == "canal" else 1,
+        bcRight=3 if problem == "canal" else 1, ylength=4.0))
+    uk, vk = u.clone(), v.clone()
+    fk, gk, rk = nf.ns2d_pre(uk, vk, dt, cfg, ext=ext, geo=cell,
+                             active=active)
+    up, vp, fp, gp, rp = nf.ns2d_pre_plain(u, v, dt, cfg, ext=ext, geo=cell,
+                                           active=active)
+    assert torch.equal(uk, up) and torch.equal(vk, vp)
+    for a, b in ((fk, fp), (gk, gp), (rk, rp)):
+        _assert_close(a, b, dtype)
+    mk = nf.ns2d_post(uk, vk, fk, gk, p, dt, None, None, ext=ext, geo=cell,
+                      active=active)
+    u2, v2, *mp = nf.ns2d_post_plain(up, vp, fk, gk, p, dt, None, None,
+                                     ext=ext, geo=cell, active=active)
+    _assert_close(uk, u2, dtype)
+    _assert_close(vk, v2, dtype)
+    for a, b, f in zip(mk, mp, (uk, vk)):
+        assert torch.equal(a, b)
+        assert torch.equal(a, f.abs().amax((-2, -1)))
+    assert torch.equal(uk[-1], u[-1]) and torch.equal(vk[-1], v[-1])
+    for k, (j, i) in enumerate(ext.tolist()):
+        assert not uk[k, j + 2:].any() and not vk[k, :, i + 2:].any()
+
+
+def test_sor_class_fleet_on_card_matches_cpu(cuda):
+    """Mixed-grid sor requests (dcavity and canal, f64, tpu_fuse_phases
+    auto and on) through FleetScheduler(classes="on") on the card and on
+    the CPU: class buckets, the same steps, fields within 1e-9 of scale,
+    only K2/K3/K4's class modes launched."""
+    from pampi_tpu_torch.fleet import FleetScheduler
+    from pampi_tpu_torch.kernels import build as kb
+
+    base = dict(tpu_mesh="1", tpu_solver="sor", re=10.0, tau=0.5,
+                itermax=50, eps=1e-4, gamma=0.9, te=0.05, omg=1.7)
+    reqs = {}
+    for knob in ("auto", "on"):
+        reqs.update({
+            f"d0{knob}": dict(base, name="dcavity", imax=12, jmax=12,
+                              tpu_fuse_phases=knob),
+            f"d1{knob}": dict(base, name="dcavity", imax=16, jmax=9,
+                              u_init=0.1, tpu_fuse_phases=knob),
+            f"c0{knob}": dict(base, name="canal", imax=24, jmax=10,
+                              xlength=3.0, bcLeft=3, bcRight=3, re=100.0,
+                              tpu_fuse_phases=knob)})
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        sched = FleetScheduler(classes="on", device=dev)
+        for sid, kw in reqs.items():
+            sched.submit_param(sid, Parameter(**kw))
+        kb.reset_launches()
+        runs[dev] = sched.run()
+        if dev == "cuda":
+            used = {k for k, v in kb.KERNELS.items() if v.launches}
+            assert used == {"rb_sor_class", "ns2d_pre_class",
+                            "ns2d_post_class"}
+    for sid in reqs:
+        a, b = runs["cuda"].by_sid(sid), runs["cpu"].by_sid(sid)
+        assert a.nt == b.nt and a.mode == b.mode == "class"
+        assert not a.diverged
+        for x, y in zip(a.fields, b.fields):
+            scale = max(1.0, float(np.abs(y).max()))
+            assert np.abs(x - y).max() <= 1e-9 * scale

@@ -5,7 +5,8 @@ lane, the batched runner, the scheduler) against the JAX package's
 Contracts:
 - bucketing: the same groups, grids, class/exact split and labels as the
   JAX package's bucket(..., classes=True); JAX's refusal strings where JAX
-  refuses, the port's own (naming ROADMAP A item 9) for sor and 3-D lanes;
+  refuses, the port's own (naming ROADMAP A item 9.2) for 3-D lanes; a 2-D
+  sor request a class lane, as in JAX;
 - lane_geometry and ClassSolver.lane_state bitwise JAX's;
 - an f64 mg class batch (dcavity and canal, mixed grids, mixed te) against
   JAX's ClassSolver + BatchedSolver
@@ -21,8 +22,8 @@ Contracts:
 - a NaN lane is retired with JAX's diverged flags and nt, its batchmates
   bitwise the batch without it;
 - FleetScheduler(classes="on", device="cpu") per sid against JAX's on a
-  mixed queue (mg class lanes; a sor request, a class lane in JAX, served
-  solo here), and a Poisson request refused with JAX's message;
+  mixed queue (mg class lanes and a sor class lane), and a Poisson request
+  refused with JAX's message;
 - a lane larger than its class is refused ("exceeds class").
 
 The JAX oracles run once, in one JAX FleetScheduler run over every bucket
@@ -53,7 +54,7 @@ CANAL = dict(_MG, name="canal", re=100.0, te=0.6, itermax=20, eps=1e-5,
 # sid -> request: bucket A (dcavity, 16² class, chunks of 16 steps; a1
 # starts from p_init 0.3, so the step-0 normalizePressure sums a live
 # corner that is not 0), bucket B (canal, 32x16 class), bucket C (dcavity
-# f32), and a sor request (JAX: a class lane; the port: solo)
+# f32), and a sor request (a class lane in both packages)
 QUEUE = {
     "a0": dict(DCAV, imax=12, jmax=12, te=0.4, tpu_chunk=16),
     "a1": dict(DCAV, imax=16, jmax=10, u_init=0.01, p_init=0.3, te=0.3,
@@ -146,7 +147,7 @@ def test_bucketing_matches_jax():
             for s, r in zip(queue, jreqs)]
     jb = jfleet.bucket(jreqs, classes=True)
     ours = fleet.bucket(reqs, classes=True, ndevices=8)
-    port_only = {"s0", "x_3dsor"}  # JAX class lanes the port refuses
+    port_only = {"x_3dsor"}  # JAX class lanes the port refuses
     jgroups = {k.label: [r.sid for r in v] for k, v in jb.items()}
     groups = {k.label: [r.sid for r in v] for k, v in ours.items()}
     for label, sids in groups.items():
@@ -158,7 +159,7 @@ def test_bucketing_matches_jax():
             jwhy = jsc.class_eligible(
                 next(j.param for j in jreqs if j.sid == r.sid))
             if r.sid in port_only:
-                assert jwhy is None and "ROADMAP A item 9" in why
+                assert jwhy is None and "ROADMAP A item 9.2" in why
                 assert not key.sig.startswith("cls")
             else:
                 assert why == jwhy, r.sid
@@ -170,9 +171,10 @@ def test_bucketing_matches_jax():
         assert sc.padding_waste(grid) == jsc.padding_waste(grid)
     assert sc.class_eligible(_port(JParameter(**extra["x_3dsor"]))) \
         == sc.LANE_3D
-    assert sc.class_eligible(_port(JParameter(**QUEUE["s0"]))) == sc.SOR_LANE
+    assert sc.class_eligible(_port(JParameter(**QUEUE["s0"]))) is None
+    assert ours_key(ours, "s0").sig.startswith("cls")
     last = dispatch.last(f"class_{ours_key(ours, 's0').label}")
-    assert last.startswith("exact (tpu_solver sor class lane")
+    assert last.startswith("class (padded 16x16")
     # the signature hashes are the JAX package's (the same Parameter)
     p = JParameter(**QUEUE["a1"])
     assert fleet.signature_hash(_port(p)) == jfleet.signature_hash(p)
@@ -291,15 +293,15 @@ def test_scheduler_matches_jax(jax_fleet):
     assert result.summary["divergence_census"]["diverged"] == 0
     assert result.summary["scenarios_per_s"] > 0
     modes = {r["bucket"]: r["mode"] for r in result.summary["buckets"]}
-    assert sorted(modes.values()) == ["class", "class", "class", "solo"]
+    assert sorted(modes.values()) == ["class", "class", "class", "class"]
     for s in result.scenarios:
         theirs = jax_fleet.by_sid(s.sid)
         tol = F32_TOL if s.sid.startswith("c") else F64_TOL
         _agree(dataclasses.asdict(s), theirs, tol)
-        assert s.mode == ("solo" if s.sid == "s0" else "class")
+        assert s.mode == "class"
         assert theirs.mode == "class"
-    solo = result.by_sid("s0").bucket
-    assert "ROADMAP A item 9" in dispatch.last(f"fleet_{solo}")
+    sor = result.by_sid("s0").bucket
+    assert dispatch.last(f"fleet_{sor}").startswith("class (padded 16x16")
     # warm: a bucket again, fresh ids, served by the cached batch
     for s, kw in QUEUE.items():
         if s.startswith("c"):
@@ -327,4 +329,4 @@ def test_exceeds_class_is_refused():
     with pytest.raises(ValueError, match="exceeds class"):
         tpl.lane_state(p.replace(jmax=17))
     with pytest.raises(ValueError, match="not class-eligible"):
-        tpl.lane_state(p.replace(tpu_solver="sor"))
+        tpl.lane_state(p.replace(tpu_solver="fft"))
