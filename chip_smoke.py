@@ -334,6 +334,35 @@ class mode of K3/K4, entries `rb_sor_class`, `ns2d_pre_class`,
    card and on the CPU: fields within 1e-9 of scale, the same steps and
    per-step iteration counts.
 
+The fleet's 3-D shape-class rungs (the class mode of K7/K8, entries
+`ns3d_pre_class`, `ns3d_post_class`, around the masked class solve in
+plain torch) add:
+
+2. both against their plain versions, float32 and float64, on bucket C's
+   128 lanes of the 32³ class, a mixed 6-lane batch of the 16³ class (a
+   16³ lane, an 8³ one, a 10x9x8 one, a canal3d-box lane, one that does
+   not step, one more) and 4 lanes of the 64x16x16 class, with the
+   dcavity3d and the canal3d boundary sets: copies, dead cells (0) and
+   maxima bitwise, F/G/H/rhs and the projected fields to the tolerance,
+   the lane that does not step passed through bitwise;
+3. both at bucket C's shape, float32, beside their bounds (7 field-sizes
+   each over the lanes' live corners);
+4. FleetScheduler(classes="on") on the card, float32, with the launch
+   counts reset: bucket C as 128 dcavity3d sor requests in the 32³ class
+   (the 2-D bucket A's knobs) and bucket D as 16 canal3d sor requests in
+   the 64x16x16 class (configs/canal3d.par's physics, te 1.0), served
+   cold and then warm with fresh ids: scenarios/s from the run walls, ms
+   per chunk, each class kernel's calls and ms per call (CUDA events
+   around its wrapper), the solve's share of the run and the host-sync
+   share of the solve; every lane finite, none diverged, only class K7
+   and class K8 launched, warm bitwise cold, four of bucket C alone in
+   the 64³ class bitwise their bucket-C lanes; then bucket C's first 16
+   requests served solo, for contrast (printed, not gated);
+5. dcavity3d 8³ and 10x9x8 in the 16³ class and canal3d 20x10x10 in the
+   32x16x16 class (float64) under tpu_fuse_phases auto and off, one step
+   a chunk, on the card and on the CPU: fields within 1e-9 of scale, the
+   same steps and per-step iteration counts.
+
 It then prints the kernels line (JSON; K5-K8 and K11/K12 at 256³, where a
 field outgrows the L2 and the bound is a floor, with their 128³ numbers
 under main_shape_* keys, the distributed modes of K3/K4 and K7/K8
@@ -5624,8 +5653,9 @@ def main_path_fleet(torch):
 
 @phase("the fleet card vs CPU, float64: 8 mg class requests across the 16² "
        "and 32² classes and a sor class request; 8 sor class requests "
-       "(dcavity 16², canal 32²) under tpu_fuse_phases auto and on, step by "
-       "step")
+       "(dcavity 16², canal 32²) under tpu_fuse_phases auto and on, and 3 "
+       "3-D class requests (dcavity3d 16³, canal3d 32x16x16) under auto and "
+       "off, step by step")
 def fleet_card_vs_cpu(np):
     from pampi_tpu_torch.fleet import FleetScheduler
     from pampi_tpu_torch.utils.params import Parameter
@@ -5684,7 +5714,7 @@ def fleet_card_vs_cpu(np):
         for name, (cls, kws) in batches.items():
             params = [Parameter(**kw, tpu_fuse_phases=knob) for kw in kws]
             sids = [f"{name}{k}" for k in range(len(params))]
-            (rc, sc_), (rp, sp) = (class_steps(params, sids, cls, cls, dev)
+            (rc, sc_), (rp, sp) = (class_steps(params, sids, (cls, cls), dev)
                                    for dev in (CARD, "cpu"))
             diff = max(max(float(np.abs(x - y).max())
                            / max(1.0, float(np.abs(y).max()))
@@ -5701,6 +5731,7 @@ def fleet_card_vs_cpu(np):
                 f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 bad.append(f"sor {name} {knob}")
+    bad += fleet3d_card_vs_cpu(np)
     if bad:
         raise AssertionError(f"fleet sor card and CPU disagree: {bad}")
 
@@ -5927,25 +5958,28 @@ def time_sor_class_kernels(torch, np):
 
 
 @contextlib.contextmanager
-def wrapper_events(torch, calls):
-    """Wrap the class-mode wrappers (sk.rb_sor_class, nf.ns2d_pre,
-    nf.ns2d_post, which the class chunk looks up at call time) so that
-    each class-mode call records CUDA events, kept in calls[name]."""
+def wrapper_events(torch, calls, saved=None):
+    """Wrap the class-mode wrappers (default sk.rb_sor_class, nf.ns2d_pre,
+    nf.ns2d_post; `saved` names others as (module, name) pairs), which the
+    class chunks look up at call time, so that each class-mode call (a
+    `*_class` wrapper, or a call with `ext=`) records CUDA events, kept in
+    calls[name of its kernel entry]."""
     from pampi_tpu_torch.ops import ns2d_fused as nf
     from pampi_tpu_torch.ops import sor_kernels as sk
 
-    saved = [(sk, "rb_sor_class"), (nf, "ns2d_pre"), (nf, "ns2d_post")]
+    if saved is None:
+        saved = [(sk, "rb_sor_class"), (nf, "ns2d_pre"), (nf, "ns2d_post")]
     inner = {name: getattr(mod, name) for mod, name in saved}
 
     def timed(name):
         def call(*a, **kw):
-            if name != "rb_sor_class" and kw.get("ext") is None:
+            if not name.endswith("_class") and kw.get("ext") is None:
                 return inner[name](*a, **kw)
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             ev[0].record()
             out = inner[name](*a, **kw)
             ev[1].record()
-            key = name if name == "rb_sor_class" else f"{name}_class"
+            key = name if name.endswith("_class") else f"{name}_class"
             calls.setdefault(key, []).append(ev)
             return out
         return call
@@ -6073,20 +6107,417 @@ def main_path_fleet_sor(torch):
     return counts
 
 
-def class_steps(params, sids, ic, jc, device):
-    """A class batch of sor requests run one step a chunk (tpu_chunk 1):
-    (results, each step's per-lane iteration counts)."""
+def class_steps(params, sids, grid, device):
+    """A class batch of sor requests in the class grid (ic, jc) or (ic, jc,
+    kc), run one step a chunk (tpu_chunk 1): (results, each step's per-lane
+    iteration counts)."""
     from pampi_tpu_torch.fleet import BatchedSolver
     from pampi_tpu_torch.fleet import shapeclass as sc
+    from pampi_tpu_torch.fleet.batch import T_DRIVE
 
     params = [q.replace(tpu_chunk=1) for q in params]
-    tpl = sc.ClassSolver(params[0], ic=ic, jc=jc, device=device)
+    if len(grid) == 3:
+        tpl = sc.Class3DSolver(params[0], *grid, device=device)
+    else:
+        tpl = sc.ClassSolver(params[0], *grid, device=device)
     b = BatchedSolver(tpl, params, sids)
     state, steps = b.initial_state(), []
-    while float(state[8]) <= b.drive_te():
+    while float(state[b.slot(T_DRIVE)]) <= b.drive_te():
         state = b.chunk(state)
         steps.append(tpl.last_iters.tolist())
     return b.results(state), steps
+
+
+# ----------------------------------------------------------------------
+# the fleet's 3-D shape-class rungs: the class mode of K7/K8 around the
+# masked class solve
+# ----------------------------------------------------------------------
+
+CLASS3D_KERNELS = ("ns3d_pre_class", "ns3d_post_class")
+CLASS3D_ROWS = {}      # max_abs_err of each class-mode kernel, from its check
+FLEET_C = 128          # bucket C: dcavity3d sor requests in the 32³ class
+FLEET_D = 16           # bucket D: canal3d sor requests in the 64x16x16 class
+SOLO_CONTRAST_3D = 16  # bucket C's first requests served solo, for contrast
+
+
+def fleet_lanes_c():
+    """Bucket C's (kmax, jmax, imax) extents, all in the 32³ class."""
+    return [(20 + i % 13, 32 - i % 9, 24 + i % 9) for i in range(FLEET_C)]
+
+
+def fleet_lanes_d():
+    """Bucket D's (kmax, jmax, imax) extents, all in the 64x16x16 class."""
+    return [(10 + i % 5, 10 + i % 7, 40 + i % 17) for i in range(FLEET_D)]
+
+
+def class3d_batch(torch, np, cls, lanes, dtype, seed, canal=(),
+                  inactive=()):
+    """Lane-stacked inputs of K7/K8's class mode in a class of interior
+    extents cls = (kc, jc, ic) for (kmax, jmax, imax) lanes: u, v, w, p
+    random on each live corner and 0 on the dead cells; the lanes'
+    extents, cell sizes (unit box, or canal3d.par's 30x4x4 box for the
+    lanes in `canal`), dt, and the active flags (false for the lanes in
+    `inactive`)."""
+    from pampi_tpu_torch.fleet import shapeclass as sc
+    from pampi_tpu_torch.utils.params import Parameter
+
+    rng = np.random.default_rng(seed)
+    n = len(lanes)
+    fields = np.zeros((4, n) + tuple(c + 2 for c in cls))
+    gm = []
+    for q, (k, j, i) in enumerate(lanes):
+        fields[:, q, :k + 2, :j + 2, :i + 2] = rng.normal(
+            size=(4, k + 2, j + 2, i + 2))
+        box = (30.0, 4.0, 4.0) if q in canal else (1.0, 1.0, 1.0)
+        gm.append(sc.lane_geometry_3d(Parameter(
+            name="dcavity3d", imax=i, jmax=j, kmax=k, xlength=box[0],
+            ylength=box[1], zlength=box[2])))
+    gm = np.array(gm)
+    real = np.float64 if dtype == torch.float64 else np.float32
+    u, v, w, p = (torch.from_numpy(x).to(CARD, dtype) for x in fields)
+    return dict(
+        u=u, v=v, w=w, p=p,
+        ext=torch.tensor(lanes, dtype=torch.int32, device=CARD),
+        cell=torch.from_numpy(np.ascontiguousarray(
+            gm[:, [sc.G3_DX, sc.G3_DY, sc.G3_DZ]], real)).to(CARD),
+        dt=torch.from_numpy(0.004 + 0.0001 * (np.arange(n) % 7)).to(CARD,
+                                                                    dtype),
+        active=torch.tensor([q not in inactive for q in range(n)],
+                            device=CARD))
+
+
+def class3d_batches():
+    """(label, class (kc, jc, ic), lanes, canal lanes, inactive lanes) of
+    the class-mode checks: bucket C's 128 lanes of the 32³ class; a mixed
+    6-lane batch of the 16³ class (a 16³ lane, an 8³ one, a 10x9x8 one, a
+    canal3d lane, one that does not step, and a 13x16x11 one); 4 lanes of
+    the 64x16x16 class."""
+    return (
+        ("bucket C", (32, 32, 32), fleet_lanes_c(), (), ()),
+        ("mixed", (16, 16, 16), [(16, 16, 16), (8, 8, 8), (8, 9, 10),
+                                 (8, 8, 16), (12, 14, 9), (11, 16, 13)],
+         (3,), (4,)),
+        ("64x16x16", (16, 16, 64), fleet_lanes_d()[:4], (0, 1, 2, 3), ()))
+
+
+def class3d_cfg(Parameter, problem):
+    """K7's static configuration of a dcavity3d or a canal3d (canal3d.par's
+    boundary set and box) class lane."""
+    from pampi_tpu_torch.ops import ns3d_fused as nf3
+
+    if problem == "canal3d":
+        return nf3.StepConfig3D.from_param(Parameter(
+            name="canal3d", bcLeft=3, bcRight=3, re=100.0, xlength=30.0,
+            ylength=4.0, zlength=4.0))
+    return nf3.StepConfig3D.from_param(Parameter(name="dcavity3d", re=10.0))
+
+
+def dead_cells_zero_3d(torch, a, ext):
+    """Whether every lane's cells past its live corner hold 0 in a."""
+    return all(not (a[q, k + 2:].any() or a[q, :, j + 2:].any()
+                    or a[q, :, :, i + 2:].any())
+               for q, (k, j, i) in enumerate(ext.tolist()))
+
+
+@phase("the 3-D class rungs' kernels vs their plain versions: K7/K8's class "
+       "mode (bucket C's 128 lanes of the 32³ class, a mixed 6-lane batch of "
+       "the 16³ class, 4 lanes of the 64x16x16 class; float32/float64)")
+def check_class3d_kernels(torch, np):
+    from pampi_tpu_torch.ops import ns3d_fused as nf3
+    from pampi_tpu_torch.utils.params import Parameter
+
+    bad = []
+    errs = {k: 0.0 for k in CLASS3D_KERNELS}
+    for dtype in (torch.float32, torch.float64):
+        t = tol(torch, dtype)
+        for label, cls, lanes, canal, inactive in class3d_batches():
+            b = class3d_batch(torch, np, cls, lanes, dtype, 701 + len(lanes),
+                              canal, inactive)
+            kw = dict(ext=b["ext"], geo=b["cell"], active=b["active"])
+            for problem in ("dcavity3d", "canal3d"):
+                cfg = class3d_cfg(Parameter, problem)
+                uk, vk, wk = b["u"].clone(), b["v"].clone(), b["w"].clone()
+                fk, gk, hk, rk = nf3.ns3d_pre(uk, vk, wk, b["dt"], cfg, **kw)
+                up, vp, wp, fp, gp, hp, rp = nf3.ns3d_pre_plain(
+                    b["u"], b["v"], b["w"], b["dt"], cfg, **kw)
+                copies = all(torch.equal(x, y) for x, y in
+                             ((uk, up), (vk, vp), (wk, wp)))
+                pairs = ((fk, fp), (gk, gp), (hk, hp), (rk, rp))
+                stencil = max(rel_err(x, y) for x, y in pairs)
+                errs["ns3d_pre_class"] = max(
+                    errs["ns3d_pre_class"],
+                    max(float((x - y).abs().max()) for x, y in pairs))
+                mk = nf3.ns3d_post(uk, vk, wk, fk, gk, hk, b["p"], b["dt"],
+                                   None, None, None, **kw)
+                *uvw, m1, m2, m3 = nf3.ns3d_post_plain(
+                    up, vp, wp, fk, gk, hk, b["p"], b["dt"], None, None,
+                    None, **kw)
+                post = max(rel_err(x, y) for x, y in zip((uk, vk, wk), uvw))
+                errs["ns3d_post_class"] = max(
+                    errs["ns3d_post_class"],
+                    max(float((x - y).abs().max())
+                        for x, y in zip((uk, vk, wk), uvw)))
+                maxima = all(torch.equal(x, y) for x, y in
+                             zip(mk, (m1, m2, m3)))
+                dead = all(dead_cells_zero_3d(torch, a, b["ext"])
+                           for a in (uk, vk, wk))
+                off = [q for q in inactive
+                       if not all(torch.equal(x[q], y[q]) for x, y in
+                                  ((uk, b["u"]), (vk, b["v"]), (wk, b["w"])))]
+                ok = (copies and stencil <= t and post <= t and maxima
+                      and dead and not off)
+                rung = "x".join(map(str, cls[::-1]))
+                log(f"ns3d_pre_class/ns3d_post_class {problem} {label} "
+                    f"({len(lanes)} lanes of the {rung} class) {dtype}: "
+                    f"copies bitwise {copies}, F/G/H/rhs "
+                    f"{stencil:.2e} and projected u, v, w {post:.2e} of scale "
+                    f"(limit {t:g}), maxima bitwise {maxima}, dead cells 0 "
+                    f"{dead}, inactive lanes passed {not off} "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    bad.append(f"K7/K8 class {problem} {label} {dtype}")
+    CLASS3D_ROWS.update({k: {"max_abs_err": v} for k, v in errs.items()})
+    if bad:
+        raise AssertionError(f"3-D class-mode kernels differ: {bad}")
+
+
+@phase("the 3-D class rungs' kernels at bucket C's shape (128 lanes of the "
+       "32³ class, float32) and their times beside the bound")
+def time_class3d_kernels(torch, np):
+    from pampi_tpu_torch.ops import ns3d_fused as nf3
+    from pampi_tpu_torch.utils.params import Parameter
+
+    dtype, size = torch.float32, 4
+    lanes = fleet_lanes_c()
+    b = class3d_batch(torch, np, (32, 32, 32), lanes, dtype, 711)
+    # one field-size over every lane's live corner (the cells a class-mode
+    # kernel must read or write); the predictor's ~190 operations a cell
+    corner = sum((k + 2) * (j + 2) * (i + 2) for k, j, i in lanes) * size
+    live = sum(k * j * i for k, j, i in lanes)
+    cfg = class3d_cfg(Parameter, "dcavity3d")
+    kw = dict(ext=b["ext"], geo=b["cell"], active=b["active"])
+    u, v, w, p = b["u"], b["v"], b["w"], b["p"]
+    f, g, h, rhs = nf3.ns3d_pre(u, v, w, b["dt"], cfg, **kw)
+    calls = {
+        "ns3d_pre_class": (
+            lambda: nf3.ns3d_pre(u, v, w, b["dt"], cfg, **kw),
+            lambda: nf3.ns3d_pre_plain(u, v, w, b["dt"], cfg, **kw),
+            7 * corner, 190 * live,
+            "5 launches (reads u, v, w; writes F, G, H, rhs)"),
+        "ns3d_post_class": (
+            lambda: nf3.ns3d_post(u, v, w, f, g, h, p, b["dt"], None, None,
+                                  None, **kw),
+            lambda: nf3.ns3d_post_plain(u, v, w, f, g, h, p, b["dt"], None,
+                                        None, None, **kw),
+            7 * corner, 15 * live,
+            "2 launches (reads F, G, H, p; writes u, v, w)"),
+    }
+    rows = {}
+    shape = ("128 lanes of the 32³ class f32 (kmax 20..32, jmax 24..32, "
+             "imax 24..32)")
+    for name, (fn, plain, nbytes, ops, what) in calls.items():
+        ms = cuda_ms(torch, fn, 20)
+        pms = cuda_ms(torch, plain, 3)
+        bd = bound(nbytes, ops)
+        n_dev, busy = device_trace(torch, fn)
+        busy_text = "not measured" if busy is None else f"{busy:.4f} ms"
+        log(f"{name} {shape}, {what}: {ms:.4f} ms per call (plain "
+            f"{pms:.4f}), bound {bd[0]:.5f} ms by {bd[1]} (bytes "
+            f"{nbytes / 1e6:.2f} MB over the lanes' live corners over 3.35 "
+            f"TB/s; operations {ops / 1e6:.1f} M over 67 TFLOP/s = "
+            f"{ops / FP32_FLOPS * 1e3:.5f} ms); the card busy {busy_text} a "
+            f"call in {launches_text(n_dev)} device operations "
+            f"(torch.profiler)")
+        rows[name] = dict(
+            CLASS3D_ROWS.get(name, {"max_abs_err": None}), ms=ms,
+            plain_ms=pms, bound_ms=bd[0], bound_by=bd[1],
+            device_busy_ms=busy, device_ops_per_call=n_dev,
+            bound_bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+            bound_operations_ms=ops / FP32_FLOPS * 1e3, shape=shape)
+    return rows
+
+
+def fleet_requests_3d(sid0=""):
+    """(bucket C, bucket D) requests of the 3-D fleet main path, f32: C 128
+    dcavity3d sor requests in the 32³ class with the 2-D bucket A's knobs
+    (re 10, te 0.05, tau 0.5, itermax 10, eps 1e-4, omg 1.7, gamma 0.9),
+    D 16 canal3d sor requests in the 64x16x16 class with configs/
+    canal3d.par's physics and te 1.0."""
+    from pampi_tpu_torch.fleet import ScenarioRequest
+    from pampi_tpu_torch.utils.params import read_parameter
+
+    dcav = read_parameter(os.path.join(ROOT, "configs", "dcavity3d.par"))
+    c = [ScenarioRequest(f"{sid0}c{q}", dcav.replace(
+        imax=i, jmax=j, kmax=k, re=10.0, te=0.05, tau=0.5, eps=1e-4,
+        omg=1.7, gamma=0.9, u_init=0.001 * q, itermax=10, tpu_solver="sor",
+        tpu_dtype="float32", tpu_mesh="1"))
+        for q, (k, j, i) in enumerate(fleet_lanes_c())]
+    canal = read_parameter(os.path.join(ROOT, "configs", "canal3d.par"))
+    d = [ScenarioRequest(f"{sid0}d{q}", canal.replace(
+        imax=i, jmax=j, kmax=k, te=1.0, tpu_solver="sor",
+        tpu_dtype="float32", tpu_mesh="1"))
+        for q, (k, j, i) in enumerate(fleet_lanes_d())]
+    return c, d
+
+
+@phase("main path: the fleet's 3-D class rungs on the card, f32: 128 "
+       "dcavity3d sor requests in the 32³ class and 16 canal3d sor requests "
+       "in the 64x16x16 class, cold and warm; four of them alone in the 64³ "
+       "class; 16 served solo for contrast")
+def main_path_fleet_3d(torch):
+    import numpy as np
+
+    from pampi_tpu_torch.fleet import BatchedSolver, FleetScheduler
+    from pampi_tpu_torch.fleet import shapeclass as sc
+    from pampi_tpu_torch.kernels import build as kb
+    from pampi_tpu_torch.ops import ns3d_fused as nf3
+
+    sched = FleetScheduler(classes="on", device=CARD)
+    runs = {}
+
+    def serve():
+        for name in ("cold", "warm"):
+            c, d = fleet_requests_3d("" if name == "cold" else "w")
+            for r in c + d:
+                sched.submit(r)
+            calls = {}
+            stats0 = {k: dict(t.solve_stats) for k, t in
+                      sched._templates.items()}
+            with wrapper_events(torch, calls, [(nf3, "ns3d_pre"),
+                                               (nf3, "ns3d_post")]):
+                runs[name] = sched.run()
+            torch.cuda.synchronize()
+            runs[name + "_calls"] = {
+                k: (len(ev), sum(x.elapsed_time(y) for x, y in ev))
+                for k, ev in calls.items()}
+            runs[name + "_stats"] = {
+                t.ic: {k: v - stats0.get(sig, {}).get(k, 0)
+                       for k, v in t.solve_stats.items()}
+                for sig, t in sched._templates.items()}
+        c, _d = fleet_requests_3d()
+        four = [c[q] for q in (0, 5, 16, 100)]
+        tpl = sc.Class3DSolver(four[0].param, ic=64, jc=64, kc=64,
+                               device=CARD)
+        batch = BatchedSolver(tpl, [r.param for r in four],
+                              [r.sid for r in four])
+        runs["64"] = batch.results(batch.run())
+
+    counts, _ = drive_path(kb, "fleet 3-D class rungs", CLASS3D_KERNELS,
+                           serve)
+    others = [k for k, v in counts.items()
+              if v and k not in CLASS3D_KERNELS]
+    if others:
+        raise AssertionError(f"the 3-D class path launched {others}")
+    bad = []
+    for name in ("cold", "warm"):
+        res = runs[name]
+        n_bad = [s.sid for s in res.scenarios
+                 if s.diverged or not all(np.isfinite(f).all()
+                                          for f in s.fields)]
+        if n_bad or len(res.scenarios) != FLEET_C + FLEET_D:
+            bad.append(f"{name}: {len(n_bad)} lanes not finite or diverged")
+        for row in res.summary["buckets"]:
+            nts = [s.nt for s in res.scenarios if s.bucket == row["bucket"]]
+            st = runs[name + "_stats"].get(row["grid"][0], {})
+            solve_s = st.get("solve_s", 0.0)
+            log(f"fleet 3-D {name} bucket {row['grid']} ({row['lanes']} "
+                f"lanes, mode {row['mode']}): set-up "
+                f"{row['compile_wall_s']:.3f} s, run {row['run_wall_s']:.4f}"
+                f" s, {row['chunks']} chunks, "
+                f"{row['run_wall_s'] / max(1, row['chunks']) * 1e3:.2f} ms "
+                f"per chunk; steps per lane {min(nts)}..{max(nts)}; solve "
+                f"{solve_s:.4f} s in {st.get('rounds', 0)} iterations, "
+                f"{solve_s / max(1e-12, row['run_wall_s']):.3f} of the run; "
+                f"the residual read-backs {st.get('sync_s', 0.0):.4f} s: "
+                f"host-sync share of the solve "
+                f"{st.get('sync_s', 0.0) / max(1e-12, solve_s):.3f}")
+            if row["mode"] != "class":
+                bad.append(f"{row['bucket']} ran {row['mode']}")
+        for k, (n_calls, ms) in sorted(runs[name + "_calls"].items()):
+            log(f"fleet 3-D {name} {k}: {n_calls} calls, "
+                f"{ms / max(1, n_calls):.4f} ms per call (CUDA events "
+                f"around the wrapper), {ms:.2f} ms in all")
+        log(f"fleet 3-D {name}: {res.summary['n_scenarios']} scenarios, "
+            f"{res.summary['scenarios_per_s']} scenarios/s (run walls), "
+            f"diverged {res.summary['divergence_census']['diverged']}")
+    cold, warm = runs["cold"], runs["warm"]
+    differ = [s.sid for s in cold.scenarios
+              if s.nt != warm.by_sid("w" + s.sid).nt or not all(
+                  np.array_equal(x, y, equal_nan=True) for x, y in
+                  zip(s.fields, warm.by_sid("w" + s.sid).fields))]
+    log(f"warm run bitwise the cold one: {not differ}")
+    if differ:
+        bad.append(f"warm differs from cold in {differ}")
+    same = all(r["nt"] == cold.by_sid(r["sid"]).nt and all(
+        np.array_equal(x, y) for x, y in zip(
+            r["fields"], cold.by_sid(r["sid"]).fields))
+        for r in runs["64"])
+    log(f"four bucket-C requests alone in the 64³ class: steps "
+        f"{[r['nt'] for r in runs['64']]}, fields bitwise their 32³-class "
+        f"lanes {same} {'ok' if same else 'FAIL'}")
+    if not same:
+        bad.append("the 64³ re-run differs")
+    # the contrast: bucket C's first requests served solo (not gated)
+    solo = FleetScheduler(classes="off", device=CARD)
+    c, _d = fleet_requests_3d("s")
+    for r in c[:SOLO_CONTRAST_3D]:
+        solo.submit(r)
+    t0 = time.perf_counter()
+    sres = solo.run()
+    wall = time.perf_counter() - t0
+    log(f"contrast: bucket C's first {SOLO_CONTRAST_3D} requests served solo "
+        f"(classes off): {sres.summary['scenarios_per_s']} scenarios/s (run "
+        f"walls), {wall:.2f} s in all; the class buckets above "
+        f"{cold.summary['scenarios_per_s']} (cold) / "
+        f"{warm.summary['scenarios_per_s']} (warm)")
+    if bad:
+        raise AssertionError(f"fleet 3-D main path: {bad}")
+    return counts
+
+
+def fleet3d_card_vs_cpu(np):
+    """The 3-D part of fleet_card_vs_cpu: dcavity3d 8³ and 10x9x8 in the
+    16³ class (eps 1e-3, so that the solves converge before itermax) and
+    canal3d 20x10x10 in the 32x16x16 class (configs/canal3d.par's physics,
+    itermax cut to 100 for the CPU half's time), f64, under
+    tpu_fuse_phases auto and off, step by step. Returns the failures."""
+    from pampi_tpu_torch.utils.params import Parameter
+
+    base = dict(tpu_mesh="1", tpu_solver="sor", tau=0.5, gamma=0.9,
+                tpu_dtype="float64")
+    batches = {
+        "dcavity3d": ((16, 16, 16), [
+            dict(base, name="dcavity3d", re=10.0, te=0.05, itermax=200,
+                 eps=1e-3, omg=1.7, imax=i, jmax=j, kmax=k, u_init=0.01 * q)
+            for q, (k, j, i) in enumerate(((8, 8, 8), (8, 9, 10)))]),
+        "canal3d": ((32, 16, 16), [
+            dict(base, name="canal3d", re=100.0, te=1.5, itermax=100,
+                 eps=1e-4, omg=1.3, xlength=30.0, ylength=4.0, zlength=4.0,
+                 u_init=1.0, bcLeft=3, bcRight=3, imax=20, jmax=10,
+                 kmax=10)])}
+    bad = []
+    for knob in ("auto", "off"):
+        for name, (cls, kws) in batches.items():
+            params = [Parameter(**kw, tpu_fuse_phases=knob) for kw in kws]
+            sids = [f"{name}{q}" for q in range(len(params))]
+            (rc, sc_), (rp, sp) = (class_steps(params, sids, cls, dev)
+                                   for dev in (CARD, "cpu"))
+            diff = max(max(float(np.abs(a - b).max())
+                           / max(1.0, float(np.abs(b).max()))
+                           for a, b in zip(x["fields"], y["fields"]))
+                       for x, y in zip(rc, rp))
+            ok = (sc_ == sp and [a["nt"] for a in rc] == [b["nt"] for b in rp]
+                  and diff <= 1e-9 and not any(a["diverged"] for a in rc))
+            its = sorted({x for step in sc_ for x in step if x})
+            its = its if len(its) <= 6 else its[:3] + ["..."] + its[-2:]
+            log(f"3-D class {name} {'x'.join(map(str, cls))} f64 "
+                f"tpu_fuse_phases {knob}: steps card {[a['nt'] for a in rc]} "
+                f"/ CPU {[b['nt'] for b in rp]}, per-step iteration counts "
+                f"equal {sc_ == sp} (counts seen {its}), max |card - cpu| / "
+                f"scale {diff:.3e} (limit 1e-9) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                bad.append(f"3-D {name} {knob}")
+    return bad
 
 
 def main() -> int:
@@ -6125,6 +6556,7 @@ def main() -> int:
         check_obstacle2d_kernels(torch, np)
         check_class_kernel(torch, np)
         check_sor_class_kernels(torch, np)
+        check_class3d_kernels(torch, np)
     if CHECKS_ONLY:
         log(f"checks only; failed: {FAILED}")
         return 1 if FAILED else 0
@@ -6142,6 +6574,7 @@ def main() -> int:
         sor_cli_rows = time_sor_cli(torch, np)
         k18_rows = time_class_kernel(torch, np)
         sor_class_rows = time_sor_class_kernels(torch, np)
+        class3d_rows = time_class3d_kernels(torch, np)
         sor_ns2d = {}
         counts = main_path(torch, sor_ns2d)
         counts3 = main_path_3d(torch)
@@ -6162,6 +6595,7 @@ def main() -> int:
         counts_omg = main_path_obstacle_mg(torch)
         counts_fl = main_path_fleet(torch)
         counts_fs = main_path_fleet_sor(torch)
+        counts_f3 = main_path_fleet_3d(torch)
         fleet_card_vs_cpu(np)
         # no times are taken from here on: the CPU half of dcavity_card
         # and the canal3d_obstacle.par mesh and CPU runs run beside the
@@ -6180,7 +6614,8 @@ def main() -> int:
         counts_r3cli = ragged3d_cli(np)
         if None not in (rows, rows3, mg_rows, q_rows, d3_rows, d2_rows,
                         o3_rows, r3_rows, o2_rows, cli_rows, sor_cli_rows,
-                        k18_rows, sor_class_rows, counts_fs, counts,
+                        k18_rows, sor_class_rows, class3d_rows, counts_fs,
+                        counts_f3, counts,
                         counts3,
                         counts_mg, counts_dist, counts_cli, counts_d3,
                         counts_d3cli, counts_d2, counts_d2cards,
@@ -6188,7 +6623,7 @@ def main() -> int:
                         counts_o2cli, counts_fl, counts_omg,
                         counts_omgcli, counts_r3, counts_r3cli):
             rows = {**rows, **rows3, **mg_rows[0], **q_rows, **o3_rows,
-                    **o2_rows, **k18_rows, **sor_class_rows,
+                    **o2_rows, **k18_rows, **sor_class_rows, **class3d_rows,
                     "rb_sor_odist": d3_rows["rb_sor_odist"],
                     "rb_sor_obsdist": {**d2_rows["rb_sor_obsdist"],
                                        **o2_rows["rb_sor_obsdist"],
@@ -6210,7 +6645,7 @@ def main() -> int:
                      + counts_o2cli + counts_omg + counts_omgcli
                      + counts_r3 + counts_r3cli
                      + [counts_dist, counts_cli, counts_d3cli,
-                        counts_d2cards, counts_fl, counts_fs])
+                        counts_d2cards, counts_fl, counts_fs, counts_f3])
             counts = {k: sum(c.get(k, 0) for c in paths)
                       for k in set().union(*paths)}
             print(json.dumps({"library": mg_rows[1]}))

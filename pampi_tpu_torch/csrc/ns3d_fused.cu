@@ -187,15 +187,14 @@ __device__ __forceinline__ bool tangential(const Blk& k, int ax1, int a,
   return g1 >= 1 && g1 <= k.G[ax1] && g2 >= 1 && g2 <= k.G[ax2];
 }
 
-// launch 1: top (z = 0) and bottom (z = 1) at local (k, i) = (y, x)
+// launch 1: top (z = 0) and bottom (z = 1) at local (k, i) = (a, b)
 template <typename T>
-__global__ void bc_jfaces(T* u, T* v, T* w, Blk k, Bcs bc) {
-  const int a = blockIdx.y * BY + threadIdx.y;
-  const int b = blockIdx.x * BX + threadIdx.x;
+__device__ __forceinline__ void jfaces(T* u, T* v, T* w, const Blk& k,
+                                       const Bcs& bc, int a, int b, int z) {
   if (!tangential(k, 0, a, 2, b)) return;
   const size_t W = k.L[2], P = (size_t)k.L[1] * W;
   const size_t base = a * P + b;
-  if (blockIdx.z == 0) {  // top: v on the wall j = J, ghosts at J+1
+  if (z == 0) {  // top: v on the wall j = J, ghosts at J+1
     const int aw = k.G[1] - k.base[1];
     face(bc.top, v, u, w, base, W, k.L[1], aw, aw - 1, aw + 1, aw);
   } else {  // bottom: v on the wall j = 0, ghosts at 0
@@ -204,15 +203,20 @@ __global__ void bc_jfaces(T* u, T* v, T* w, Blk k, Bcs bc) {
   }
 }
 
-// launch 2: left (z = 0) and right (z = 1) at local (k, j) = (y, x)
 template <typename T>
-__global__ void bc_ifaces(T* u, T* v, T* w, Blk k, Bcs bc) {
-  const int a = blockIdx.y * BY + threadIdx.y;
-  const int b = blockIdx.x * BX + threadIdx.x;
+__global__ void bc_jfaces(T* u, T* v, T* w, Blk k, Bcs bc) {
+  jfaces(u, v, w, k, bc, blockIdx.y * BY + threadIdx.y,
+         blockIdx.x * BX + threadIdx.x, blockIdx.z);
+}
+
+// launch 2: left (z = 0) and right (z = 1) at local (k, j) = (a, b)
+template <typename T>
+__device__ __forceinline__ void ifaces(T* u, T* v, T* w, const Blk& k,
+                                       const Bcs& bc, int a, int b, int z) {
   if (!tangential(k, 0, a, 1, b)) return;
   const size_t W = k.L[2], P = (size_t)k.L[1] * W;
   const size_t base = a * P + b * W;
-  if (blockIdx.z == 0) {  // left: u on the wall i = 0, ghosts at 0
+  if (z == 0) {  // left: u on the wall i = 0, ghosts at 0
     const int aw = -k.base[2];
     face(bc.left, u, v, w, base, 1, k.L[2], aw, aw + 1, aw, aw + 1);
   } else {  // right: u on the wall i = I, ghosts at I+1
@@ -221,19 +225,25 @@ __global__ void bc_ifaces(T* u, T* v, T* w, Blk k, Bcs bc) {
   }
 }
 
-// launch 3: front (z = 0) and back (z = 1) at local (j, i) = (y, x), and
-// the special BC (z = 2): the dcavity lid at local (k, i) = (y, x),
+template <typename T>
+__global__ void bc_ifaces(T* u, T* v, T* w, Blk k, Bcs bc) {
+  ifaces(u, v, w, k, bc, blockIdx.y * BY + threadIdx.y,
+         blockIdx.x * BX + threadIdx.x, blockIdx.z);
+}
+
+// launch 3: front (z = 0) and back (z = 1) at local (j, i) = (a, b), and
+// the special BC (z = 2): the dcavity lid at local (k, i) = (a, b),
 // skipping the last interior k and i, or the canal inflow at (k, j)
 template <typename T>
-__global__ void bc_kfaces_special(T* u, T* v, T* w, Blk k, Bcs bc,
-                                  int problem) {
-  const int a = blockIdx.y * BY + threadIdx.y;
-  const int b = blockIdx.x * BX + threadIdx.x;
+__device__ __forceinline__ void kfaces_special(T* u, T* v, T* w,
+                                               const Blk& k, const Bcs& bc,
+                                               int problem, int a, int b,
+                                               int z) {
   const size_t W = k.L[2], P = (size_t)k.L[1] * W;
-  if (blockIdx.z < 2) {
+  if (z < 2) {
     if (!tangential(k, 1, a, 2, b)) return;
     const size_t base = a * W + b;
-    if (blockIdx.z == 0) {  // front: w on the wall k = 0, ghosts at 0
+    if (z == 0) {  // front: w on the wall k = 0, ghosts at 0
       const int aw = -k.base[0];
       face(bc.front, w, u, v, base, P, k.L[0], aw, aw + 1, aw, aw + 1);
     } else {  // back: w on the wall k = K, ghosts at K+1
@@ -256,6 +266,13 @@ __global__ void bc_kfaces_special(T* u, T* v, T* w, Blk k, Bcs bc,
     if (!in_range(ai, k.L[2])) return;
     u[a * P + b * W + ai] = T(2);
   }
+}
+
+template <typename T>
+__global__ void bc_kfaces_special(T* u, T* v, T* w, Blk k, Bcs bc,
+                                  int problem) {
+  kfaces_special(u, v, w, k, bc, problem, blockIdx.y * BY + threadIdx.y,
+                 blockIdx.x * BX + threadIdx.x, blockIdx.z);
 }
 
 // -- the flag mode --------------------------------------------------------
@@ -345,14 +362,11 @@ __global__ void obs_mirror(T* __restrict__ u, T* __restrict__ v,
 // launch 4: F, G, H for every cell of the output block o (the halo-1
 // block, `e` cells inside the input block k on every side)
 template <typename T>
-__global__ void fgh_cells(const T* __restrict__ u, const T* __restrict__ v,
-                          const T* __restrict__ w, const T* __restrict__ dtp,
-                          T* __restrict__ f, T* __restrict__ g,
-                          T* __restrict__ h, Blk k, Blk o, int e,
-                          Coef<T> c, const uint8_t* __restrict__ fl) {
-  const int oi = blockIdx.x * BX + threadIdx.x;
-  const int oj = blockIdx.y * BY + threadIdx.y;
-  const int ok = blockIdx.z;
+__device__ __forceinline__ void fgh_cell(
+    const T* __restrict__ u, const T* __restrict__ v, const T* __restrict__ w,
+    const T* __restrict__ dtp, T* __restrict__ f, T* __restrict__ g,
+    T* __restrict__ h, const Blk& k, const Blk& o, int e, const Coef<T>& c,
+    const uint8_t* __restrict__ fl, int oi, int oj, int ok) {
   if (oi >= o.L[2] || oj >= o.L[1]) return;
   const size_t W = k.L[2], P = (size_t)k.L[1] * W;
   const size_t x = (size_t)(ok + e) * P + (size_t)(oj + e) * W + (oi + e);
@@ -445,15 +459,27 @@ __global__ void fgh_cells(const T* __restrict__ u, const T* __restrict__ v,
   h[y] = hv;
 }
 
+template <typename T>
+__global__ void fgh_cells(const T* __restrict__ u, const T* __restrict__ v,
+                          const T* __restrict__ w, const T* __restrict__ dtp,
+                          T* __restrict__ f, T* __restrict__ g,
+                          T* __restrict__ h, Blk k, Blk o, int e,
+                          Coef<T> c, const uint8_t* __restrict__ fl) {
+  fgh_cell(u, v, w, dtp, f, g, h, k, o, e, c, fl,
+           blockIdx.x * BX + threadIdx.x, blockIdx.y * BY + threadIdx.y,
+           blockIdx.z);
+}
+
 // launch 5: rhs = div(F, G, H)/dt on the owned global-interior cells of the
 // output block, zero elsewhere
 template <typename T>
-__global__ void rhs_cells(const T* __restrict__ f, const T* __restrict__ g,
-                          const T* __restrict__ h, const T* __restrict__ dtp,
-                          T* __restrict__ rhs, Blk o, T dx, T dy, T dz) {
-  const int i = blockIdx.x * BX + threadIdx.x;
-  const int j = blockIdx.y * BY + threadIdx.y;
-  const int k = blockIdx.z;
+__device__ __forceinline__ void rhs_cell(const T* __restrict__ f,
+                                         const T* __restrict__ g,
+                                         const T* __restrict__ h,
+                                         const T* __restrict__ dtp,
+                                         T* __restrict__ rhs, const Blk& o,
+                                         T dx, T dy, T dz, int i, int j,
+                                         int k) {
   if (i >= o.L[2] || j >= o.L[1]) return;
   const size_t W = o.L[2], P = (size_t)o.L[1] * W;
   const size_t x = k * P + j * W + i;
@@ -468,6 +494,14 @@ __global__ void rhs_cells(const T* __restrict__ f, const T* __restrict__ g,
         inv_dt;
   }
   rhs[x] = r;
+}
+
+template <typename T>
+__global__ void rhs_cells(const T* __restrict__ f, const T* __restrict__ g,
+                          const T* __restrict__ h, const T* __restrict__ dtp,
+                          T* __restrict__ rhs, Blk o, T dx, T dy, T dz) {
+  rhs_cell(f, g, h, dtp, rhs, o, dx, dy, dz, blockIdx.x * BX + threadIdx.x,
+           blockIdx.y * BY + threadIdx.y, blockIdx.z);
 }
 
 template <typename T>
@@ -657,6 +691,296 @@ int run_post(int dev, T* u, T* v, T* w, const T* f, const T* g, const T* h,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------
+// The class mode: lane-stacked (kc+2, jc+2, ic+2) blocks; per lane ext =
+// [K, J, I] (int32), geo = [dx, dy, dz] (T), dt, active (uint8).
+// ---------------------------------------------------------------------
+
+// the lanes of a class call and the class block's interior extents
+struct Cls {
+  int lanes, kc, jc, ic;
+};
+
+// the most blocks a grid's z axis takes: past it a block loops over z
+constexpr int ZMAX = 65535;
+
+__host__ __device__ __forceinline__ size_t lane_cells(const Cls& c) {
+  return (size_t)(c.kc + 2) * (c.jc + 2) * (c.ic + 2);
+}
+
+// lane l's block at offset 0, its global extents the lane's own
+__device__ __forceinline__ Blk lane_blk(const Cls& c, const int* ext,
+                                        int l) {
+  Blk b;
+  b.L[0] = c.kc + 2;
+  b.L[1] = c.jc + 2;
+  b.L[2] = c.ic + 2;
+  for (int a = 0; a < 3; ++a) {
+    b.base[a] = 0;
+    b.G[a] = ext[3 * l + a];
+  }
+  return b;
+}
+
+// launches 1-3: the wall BCs and the special BC of every active lane, z =
+// lane * faces + face (a block loops over z past the grid's z extent)
+template <typename T>
+__global__ void cls_jfaces(T* u, T* v, T* w, const int* __restrict__ ext,
+                           const uint8_t* __restrict__ active, Cls c,
+                           Bcs bc) {
+  const int a = blockIdx.y * BY + threadIdx.y;
+  const int b = blockIdx.x * BX + threadIdx.x;
+  for (int z = blockIdx.z; z < 2 * c.lanes; z += gridDim.z) {
+    const int l = z / 2;
+    if (!active[l]) continue;
+    const size_t o = l * lane_cells(c);
+    jfaces(u + o, v + o, w + o, lane_blk(c, ext, l), bc, a, b, z % 2);
+  }
+}
+
+template <typename T>
+__global__ void cls_ifaces(T* u, T* v, T* w, const int* __restrict__ ext,
+                           const uint8_t* __restrict__ active, Cls c,
+                           Bcs bc) {
+  const int a = blockIdx.y * BY + threadIdx.y;
+  const int b = blockIdx.x * BX + threadIdx.x;
+  for (int z = blockIdx.z; z < 2 * c.lanes; z += gridDim.z) {
+    const int l = z / 2;
+    if (!active[l]) continue;
+    const size_t o = l * lane_cells(c);
+    ifaces(u + o, v + o, w + o, lane_blk(c, ext, l), bc, a, b, z % 2);
+  }
+}
+
+template <typename T>
+__global__ void cls_kfaces_special(T* u, T* v, T* w,
+                                   const int* __restrict__ ext,
+                                   const uint8_t* __restrict__ active, Cls c,
+                                   Bcs bc, int problem) {
+  const int a = blockIdx.y * BY + threadIdx.y;
+  const int b = blockIdx.x * BX + threadIdx.x;
+  for (int z = blockIdx.z; z < 3 * c.lanes; z += gridDim.z) {
+    const int l = z / 3;
+    if (!active[l]) continue;
+    const size_t o = l * lane_cells(c);
+    kfaces_special(u + o, v + o, w + o, lane_blk(c, ext, l), bc, problem, a,
+                   b, z % 3);
+  }
+}
+
+// the predictor's constants of lane l in T from its dx, dy, dz, as the JAX
+// package's dynamic kernel forms them from its SMEM scalars
+template <typename T>
+__device__ __forceinline__ Coef<T> lane_coef(const T* __restrict__ geo,
+                                             int l, T gamma, T inv_re, T gx,
+                                             T gy, T gz) {
+  const T idx = T(1) / geo[3 * l], idy = T(1) / geo[3 * l + 1],
+          idz = T(1) / geo[3 * l + 2];
+  return Coef<T>{idx * T(0.25), gamma * idx * T(0.25), idy * T(0.25),
+                 gamma * idy * T(0.25), idz * T(0.25), gamma * idz * T(0.25),
+                 idx * idx, idy * idy, idz * idz, inv_re, gx, gy, gz};
+}
+
+// launch 4: F, G, H of every cell of every lane's block (0 on an inactive
+// lane); z = lane * (kc+2) + k
+template <typename T>
+__global__ void cls_fgh(const T* __restrict__ u, const T* __restrict__ v,
+                        const T* __restrict__ w, const T* __restrict__ dt,
+                        T* __restrict__ f, T* __restrict__ g,
+                        T* __restrict__ h, const int* __restrict__ ext,
+                        const T* __restrict__ geo,
+                        const uint8_t* __restrict__ active, Cls c, T gamma,
+                        T inv_re, T gx, T gy, T gz) {
+  const int i = blockIdx.x * BX + threadIdx.x;
+  const int j = blockIdx.y * BY + threadIdx.y;
+  if (i > c.ic + 1 || j > c.jc + 1) return;
+  for (int z = blockIdx.z; z < c.lanes * (c.kc + 2); z += gridDim.z) {
+    const int l = z / (c.kc + 2), k = z % (c.kc + 2);
+    const size_t o = l * lane_cells(c);
+    if (!active[l]) {
+      const size_t x = o + ((size_t)k * (c.jc + 2) + j) * (c.ic + 2) + i;
+      f[x] = T(0);
+      g[x] = T(0);
+      h[x] = T(0);
+      continue;
+    }
+    const Blk b = lane_blk(c, ext, l);
+    fgh_cell(u + o, v + o, w + o, dt + l, f + o, g + o, h + o, b, b, 0,
+             lane_coef(geo, l, gamma, inv_re, gx, gy, gz),
+             (const uint8_t*)nullptr, i, j, k);
+  }
+}
+
+// launch 5: rhs of every cell of every lane's block (0 on an inactive lane)
+template <typename T>
+__global__ void cls_rhs(const T* __restrict__ f, const T* __restrict__ g,
+                        const T* __restrict__ h, const T* __restrict__ dt,
+                        T* __restrict__ rhs, const int* __restrict__ ext,
+                        const T* __restrict__ geo,
+                        const uint8_t* __restrict__ active, Cls c) {
+  const int i = blockIdx.x * BX + threadIdx.x;
+  const int j = blockIdx.y * BY + threadIdx.y;
+  if (i > c.ic + 1 || j > c.jc + 1) return;
+  for (int z = blockIdx.z; z < c.lanes * (c.kc + 2); z += gridDim.z) {
+    const int l = z / (c.kc + 2), k = z % (c.kc + 2);
+    const size_t o = l * lane_cells(c);
+    if (!active[l]) {
+      rhs[o + ((size_t)k * (c.jc + 2) + j) * (c.ic + 2) + i] = T(0);
+      continue;
+    }
+    rhs_cell(f + o, g + o, h + o, dt + l, rhs + o, lane_blk(c, ext, l),
+             geo[3 * l], geo[3 * l + 1], geo[3 * l + 2], i, j, k);
+  }
+}
+
+// POST launch 1: on an active lane the projection on its interior and the
+// live-mask multiply of every cell; per-block maxima of |u|, |v|, |w| over
+// each lane's live cells (every lane). Partials: lane l, field q, block b
+// at (l * 3 + q) * nb + b, nb = the blocks of one lane.
+template <typename T>
+__global__ void cls_adapt(T* __restrict__ u, T* __restrict__ v,
+                          T* __restrict__ w, const T* __restrict__ f,
+                          const T* __restrict__ g, const T* __restrict__ h,
+                          const T* __restrict__ p, const T* __restrict__ dt,
+                          const int* __restrict__ ext,
+                          const T* __restrict__ geo,
+                          const uint8_t* __restrict__ active, Cls c,
+                          T* __restrict__ partial) {
+  __shared__ T shu[NT];
+  __shared__ T shv[NT];
+  __shared__ T shw[NT];
+  const int i = blockIdx.x * BX + threadIdx.x;
+  const int j = blockIdx.y * BY + threadIdx.y;
+  const int tid = threadIdx.y * BX + threadIdx.x;
+  const size_t W = c.ic + 2, P = (size_t)(c.jc + 2) * W;
+  const size_t nb = (size_t)gridDim.x * gridDim.y * (c.kc + 2);
+  for (int z = blockIdx.z; z < c.lanes * (c.kc + 2); z += gridDim.z) {
+    const int l = z / (c.kc + 2), k = z % (c.kc + 2);
+    T au = T(0), av = T(0), aw = T(0);
+    if (i <= c.ic + 1 && j <= c.jc + 1) {
+      const int K = ext[3 * l], J = ext[3 * l + 1], I = ext[3 * l + 2];
+      const size_t x = l * lane_cells(c) + k * P + j * W + i;
+      const bool live = k <= K + 1 && j <= J + 1 && i <= I + 1;
+      T uu = u[x], vv = v[x], ww = w[x];
+      if (active[l]) {
+        if (k >= 1 && k <= K && j >= 1 && j <= J && i >= 1 && i <= I) {
+          const T d = dt[l];
+          const T pc = p[x];
+          uu = f[x] - (p[x + 1] - pc) * (d / geo[3 * l]);
+          vv = g[x] - (p[x + W] - pc) * (d / geo[3 * l + 1]);
+          ww = h[x] - (p[x + P] - pc) * (d / geo[3 * l + 2]);
+        }
+        const T lm = live ? T(1) : T(0);
+        uu = uu * lm;
+        vv = vv * lm;
+        ww = ww * lm;
+        u[x] = uu;
+        v[x] = vv;
+        w[x] = ww;
+      }
+      if (live) {
+        au = fabs(uu);
+        av = fabs(vv);
+        aw = fabs(ww);
+      }
+    }
+    shu[tid] = au;
+    shv[tid] = av;
+    shw[tid] = aw;
+    __syncthreads();
+    for (int s = NT / 2; s > 0; s >>= 1) {
+      if (tid < s) {
+        shu[tid] = nanmax(shu[tid], shu[tid + s]);
+        shv[tid] = nanmax(shv[tid], shv[tid + s]);
+        shw[tid] = nanmax(shw[tid], shw[tid + s]);
+      }
+      __syncthreads();
+    }
+    if (tid == 0) {
+      const size_t b =
+          ((size_t)k * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+      partial[(size_t)l * 3 * nb + b] = shu[0];
+      partial[((size_t)l * 3 + 1) * nb + b] = shv[0];
+      partial[((size_t)l * 3 + 2) * nb + b] = shw[0];
+    }
+    __syncthreads();
+  }
+}
+
+// POST launch 2: block l reduces lane l's 3 * nb partials to out[q][l]
+template <typename T>
+__global__ void cls_max_partials(const T* __restrict__ partial, int nb,
+                                 int lanes, T* __restrict__ out) {
+  __shared__ T sh[3][FIN];
+  const int l = blockIdx.x;
+  partial += (size_t)l * 3 * nb;
+  T m[3] = {T(0), T(0), T(0)};
+  for (int k = threadIdx.x; k < nb; k += FIN)
+    for (int q = 0; q < 3; ++q)
+      m[q] = nanmax(m[q], partial[(size_t)q * nb + k]);
+  for (int q = 0; q < 3; ++q) sh[q][threadIdx.x] = m[q];
+  __syncthreads();
+  for (int s = FIN / 2; s > 0; s >>= 1) {
+    if (threadIdx.x < s)
+      for (int q = 0; q < 3; ++q)
+        sh[q][threadIdx.x] = nanmax(sh[q][threadIdx.x], sh[q][threadIdx.x + s]);
+    __syncthreads();
+  }
+  if (threadIdx.x == 0)
+    for (int q = 0; q < 3; ++q) out[(size_t)q * lanes + l] = sh[q][0];
+}
+
+int zdim(long long n) { return (int)(n < ZMAX ? n : ZMAX); }
+
+// c = [gamma, 1/re, gx, gy, gz]
+template <typename T>
+int run_pre_class(int dev, T* u, T* v, T* w, const T* dt, T* f, T* g, T* h,
+                  T* rhs, const int* ext, const T* geo,
+                  const uint8_t* active, Cls c, const int* bc, int problem,
+                  const double* cf, void* stream) {
+  cudaError_t e = cudaSetDevice(dev);
+  if (e != cudaSuccess) return (int)e;
+  cudaStream_t st = (cudaStream_t)stream;
+  const Bcs b{bc[0], bc[1], bc[2], bc[3], bc[4], bc[5]};
+  const int L0 = c.kc + 2, L1 = c.jc + 2, L2 = c.ic + 2;
+  const dim3 blk(BX, BY);
+  cls_jfaces<T><<<dim3(ceil_div(L2, BX), ceil_div(L0, BY),
+                       zdim(2LL * c.lanes)), blk, 0, st>>>(u, v, w, ext,
+                                                           active, c, b);
+  cls_ifaces<T><<<dim3(ceil_div(L1, BX), ceil_div(L0, BY),
+                       zdim(2LL * c.lanes)), blk, 0, st>>>(u, v, w, ext,
+                                                           active, c, b);
+  cls_kfaces_special<T><<<dim3(ceil_div(max2(L2, L1), BX),
+                               ceil_div(max2(L1, L0), BY),
+                               zdim(3LL * c.lanes)), blk, 0, st>>>(
+      u, v, w, ext, active, c, b, problem);
+  const dim3 grd(ceil_div(L2, BX), ceil_div(L1, BY),
+                 zdim((long long)c.lanes * L0));
+  cls_fgh<T><<<grd, blk, 0, st>>>(u, v, w, dt, f, g, h, ext, geo, active, c,
+                                  T(cf[0]), T(cf[1]), T(cf[2]), T(cf[3]),
+                                  T(cf[4]));
+  cls_rhs<T><<<grd, blk, 0, st>>>(f, g, h, dt, rhs, ext, geo, active, c);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int run_post_class(int dev, T* u, T* v, T* w, const T* f, const T* g,
+                   const T* h, const T* p, const T* dt, const int* ext,
+                   const T* geo, const uint8_t* active, Cls c, T* partial,
+                   T* out, void* stream) {
+  cudaError_t e = cudaSetDevice(dev);
+  if (e != cudaSuccess) return (int)e;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int L0 = c.kc + 2, L1 = c.jc + 2, L2 = c.ic + 2;
+  const dim3 grd(ceil_div(L2, BX), ceil_div(L1, BY),
+                 zdim((long long)c.lanes * L0));
+  cls_adapt<T><<<grd, dim3(BX, BY), 0, st>>>(u, v, w, f, g, h, p, dt, ext,
+                                             geo, active, c, partial);
+  cls_max_partials<T><<<c.lanes, FIN, 0, st>>>(
+      partial, (int)(grd.x * grd.y * L0), c.lanes, out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -694,6 +1018,37 @@ int ns3d_post_partials(int lk, int lj, int li) {
                        (T*)out, stream);                                     \
   }
 
+// the class mode: u, v, w, f, g, h, rhs, p lane-stacked (lanes, kc+2, jc+2,
+// ic+2); ext int32 (lanes, 3) = [K, J, I]; geo (lanes, 3) = [dx, dy, dz];
+// dt (lanes,); active uint8 (lanes,); c = [gamma, 1/re, gx, gy, gz]
+#define PRE_CLASS_ENTRY(NAME, T)                                             \
+  int NAME(int dev, void* u, void* v, void* w, const void* dt, void* f,      \
+           void* g, void* h, void* rhs, const void* ext, const void* geo,    \
+           const void* active, int lanes, int kc, int jc, int ic,            \
+           const int* bc, int problem, const double* c, void* stream) {      \
+    return run_pre_class<T>(dev, (T*)u, (T*)v, (T*)w, (const T*)dt, (T*)f,   \
+                            (T*)g, (T*)h, (T*)rhs, (const int*)ext,          \
+                            (const T*)geo, (const uint8_t*)active,           \
+                            Cls{lanes, kc, jc, ic}, bc, problem, c, stream); \
+  }
+
+// partial: lanes * ns3d_post_partials(kc, jc, ic); out (3, lanes)
+#define POST_CLASS_ENTRY(NAME, T)                                            \
+  int NAME(int dev, void* u, void* v, void* w, const void* f, const void* g, \
+           const void* h, const void* p, const void* dt, const void* ext,    \
+           const void* geo, const void* active, int lanes, int kc, int jc,   \
+           int ic, void* partial, void* out, void* stream) {                 \
+    return run_post_class<T>(dev, (T*)u, (T*)v, (T*)w, (const T*)f,         \
+                             (const T*)g, (const T*)h, (const T*)p,          \
+                             (const T*)dt, (const int*)ext, (const T*)geo,   \
+                             (const uint8_t*)active, Cls{lanes, kc, jc, ic}, \
+                             (T*)partial, (T*)out, stream);                  \
+  }
+
+PRE_CLASS_ENTRY(ns3d_pre_class_f32, float)
+PRE_CLASS_ENTRY(ns3d_pre_class_f64, double)
+POST_CLASS_ENTRY(ns3d_post_class_f32, float)
+POST_CLASS_ENTRY(ns3d_post_class_f64, double)
 PRE_ENTRY(ns3d_pre_f32, float)
 PRE_ENTRY(ns3d_pre_f64, double)
 POST_ENTRY(ns3d_post_f32, float)

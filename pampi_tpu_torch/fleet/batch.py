@@ -3,17 +3,19 @@ of pampi_tpu/fleet/batch.py over a shape-class template).
 
 The JAX package vmaps its template's chunk over a leading scenario axis;
 here the lanes are stacked on that axis explicitly and the class template
-(fleet/shapeclass.ClassSolver) steps them all at once. The state mirrors
-the JAX package's class batch, so a JAX state converted to numpy
-continues here (`from_numpy_state`):
+(fleet/shapeclass.ClassSolver, Class3DSolver) steps them all at once. The
+state mirrors the JAX package's class batch, so a JAX state converted to
+numpy continues here (`from_numpy_state`):
 
-    (u, v, p, t, nt, gm, te, active, t_drive, nt_drive)
+    (fields..., t, nt, gm, te, active, t_drive, nt_drive)
 
-u, v, p (N, jc+2, ic+2); t (N,) float64; nt (N,) int32; gm (N, 9) the
-lanes' geometry vectors; te (N,) each lane's end time (class templates
-always carry it, so mixed end times share a batch); active (N,) bool;
-t_drive, the minimum t over the lanes still running (+inf once none is),
-and nt_drive, the largest nt, are what the host loop reads.
+the template's `n_fields` lane-stacked fields, (u, v, p) of shape (N,
+jc+2, ic+2) for a 2-D class and (u, v, w, p) of shape (N, kc+2, jc+2,
+ic+2) for a 3-D one; t (N,) float64; nt (N,) int32; gm the lanes'
+geometry vectors ((N, 9) or (N, 12)); te (N,) each lane's end time (class
+templates always carry it, so mixed end times share a batch); active (N,)
+bool; t_drive, the minimum t over the lanes still running (+inf once none
+is), and nt_drive, the largest nt, are what the host loop reads.
 
 After each chunk a lane whose t or fields are no longer finite is
 retired: `active` drops and the lane is not stepped again, so it keeps
@@ -37,8 +39,8 @@ import torch
 from ..utils import flags as _flags
 from ..utils.progress import Progress
 
-# state slots
-U, V, P, T, NT, GM, TE, ACTIVE, T_DRIVE, NT_DRIVE = range(10)
+# the state's slots after the fields, as offsets from the field count
+T, NT, GM, TE, ACTIVE, T_DRIVE, NT_DRIVE = range(7)
 
 
 class BatchedSolver:
@@ -51,8 +53,9 @@ class BatchedSolver:
             raise NotImplementedError(
                 "vmapped exact-shape batches over a solver template are not "
                 "yet ported (ROADMAP A item 9); the port batches shape-class "
-                "templates (fleet/shapeclass.ClassSolver)")
+                "templates (fleet/shapeclass.ClassSolver, Class3DSolver)")
         self.template = template
+        self.nf = template.n_fields
         self.dtype = template.dtype
         self.device = template.device
         self.rebind(params, sids)
@@ -74,24 +77,29 @@ class BatchedSolver:
             **{k: getattr(params[0], k) for k in DRIVE_KEYS})
         self._state0 = None
 
+    def slot(self, offset: int) -> int:
+        """The state index of a slot after the fields (T, NT, ...)."""
+        return self.nf + offset
+
     @classmethod
     def from_numpy_state(cls, template, params, sids, state):
-        """A batch that continues `state`: the ten arrays of a JAX class
+        """A batch that continues `state`: the arrays of a JAX class
         BatchedSolver's state (converted to numpy), in the layout of this
-        module's docstring. run() starts from it."""
+        module's docstring (10 for a 2-D class, 11 for a 3-D one). run()
+        starts from it."""
         b = cls(template, params, sids)
-        if len(state) != 10:
-            raise ValueError(f"a class batch state has 10 slots, got "
-                             f"{len(state)}")
+        if len(state) != b.nf + 7:
+            raise ValueError(f"a class batch state of {b.nf} fields has "
+                             f"{b.nf + 7} slots, got {len(state)}")
         dev = b.device
-        dtypes = (b.dtype, b.dtype, b.dtype, torch.float64, torch.int32,
-                  torch.float64, torch.float64, torch.bool, torch.float64,
-                  torch.int32)
+        dtypes = (b.dtype,) * b.nf + (
+            torch.float64, torch.int32, torch.float64, torch.float64,
+            torch.bool, torch.float64, torch.int32)
         b._state0 = tuple(torch.from_numpy(np.array(x)).to(device=dev,
                                                           dtype=d)
                           for x, d in zip(state, dtypes))
-        if b._state0[U].shape[0] != b.n:
-            raise ValueError(f"state holds {b._state0[U].shape[0]} lanes, "
+        if b._state0[0].shape[0] != b.n:
+            raise ValueError(f"state holds {b._state0[0].shape[0]} lanes, "
                              f"{b.n} requests given")
         return b
 
@@ -110,18 +118,19 @@ class BatchedSolver:
     def chunk(self, state) -> tuple:
         """One chunk of every running lane, then the retirement check and
         the drive scalars."""
-        u, v, p, t, nt, gm, te, active = state[:T_DRIVE]
+        fields = state[:self.nf]
+        t, nt, gm, te, active = state[self.nf:self.slot(T_DRIVE)]
         lanes = self.template.lane_consts(gm.cpu().numpy())
-        u, v, p, t, nt = self.template.advance(u, v, p, t, nt, lanes, te,
+        *fields, t, nt = self.template.advance(*fields, t, nt, lanes, te,
                                                active)
         ok = torch.isfinite(t)
-        for f in (u, v, p):
-            ok = ok & torch.isfinite(f).all(dim=-1).all(dim=-1)
+        for f in fields:
+            ok = ok & torch.isfinite(f).flatten(1).all(dim=1)
         active = active & ok
         running = active & (t <= te)
         inf = torch.full((), float("inf"), dtype=t.dtype, device=t.device)
         t_drive = torch.where(running, t, inf).min()
-        return (u, v, p, t, nt, gm, te, active, t_drive, nt.max())
+        return (*fields, t, nt, gm, te, active, t_drive, nt.max())
 
     # -- drive API ------------------------------------------------------
     def drive_te(self) -> float:
@@ -137,10 +146,10 @@ class BatchedSolver:
         state = self._state0 if self._state0 is not None \
             else self.initial_state()
         self.chunks = 0
-        while float(state[T_DRIVE]) <= te:
+        while float(state[self.slot(T_DRIVE)]) <= te:
             state = self.chunk(state)
             self.chunks += 1
-            td = float(state[T_DRIVE])
+            td = float(state[self.slot(T_DRIVE)])
             if td == td and td != float("inf"):
                 bar.update(td)
         bar.stop()
@@ -149,12 +158,12 @@ class BatchedSolver:
     def harvest(self, state, lane: int) -> dict:
         """One lane's result: {sid, t, nt, diverged, fields}, the fields
         cropped to the request's own grid (numpy)."""
-        fields = tuple(state[k][lane].cpu().numpy() for k in (U, V, P))
+        fields = tuple(f[lane].cpu().numpy() for f in state[:self.nf])
         return {
             "sid": self.sids[lane],
-            "t": float(state[T][lane]),
-            "nt": int(state[NT][lane]),
-            "diverged": not bool(state[ACTIVE][lane]),
+            "t": float(state[self.slot(T)][lane]),
+            "nt": int(state[self.slot(NT)][lane]),
+            "diverged": not bool(state[self.slot(ACTIVE)][lane]),
             "fields": self.template.crop_lane(fields, self.params[lane]),
         }
 

@@ -4,10 +4,12 @@ and a fleet summary (counterpart of pampi_tpu/fleet/scheduler.py).
 Modes of the port, one per bucket, recorded under `fleet_<bucket>`:
 
   class  a shape-class bucket (fleet/shapeclass.py, `classes="on"` or
-         `"auto"`): one ClassSolver template and one BatchedSolver advance
-         every lane of the bucket together; an mg lane's V-cycle is one
-         launch of K18 for the whole batch, a sor lane's step one call
-         each of the class modes of K3, K2 and K4;
+         `"auto"`): one class template (ClassSolver for a 2-D bucket,
+         Class3DSolver for a 3-D one) and one BatchedSolver advance every
+         lane of the bucket together; an mg lane's V-cycle is one launch
+         of K18 for the whole batch, a 2-D sor lane's step one call each
+         of the class modes of K3, K2 and K4, a 3-D lane's one call each
+         of the class modes of K7 and K8 around the masked class solve;
   solo   every exact-shape bucket: one solver per request, the one the
          port's CLI builds for that Parameter (cli.build_ns_solver), which
          is the JAX package's `solo` mode. The JAX package batches such
@@ -189,14 +191,19 @@ class FleetScheduler:
                 "run_wall_s": round(run_wall, 4)}, results
 
     def _run_class(self, key, reqs, progress: bool):
-        from .shapeclass import ClassSolver
+        from .shapeclass import Class3DSolver, ClassSolver
 
         c0 = time.perf_counter()
         template = self._templates.get(key.sig)
         cached = template is not None
         if not cached:
-            template = ClassSolver(reqs[0].param, ic=key.grid[0],
-                                   jc=key.grid[1], device=self.device)
+            if key.family == "ns3d":  # grid (ic, jc, kc)
+                template = Class3DSolver(reqs[0].param, ic=key.grid[0],
+                                         jc=key.grid[1], kc=key.grid[2],
+                                         device=self.device)
+            else:
+                template = ClassSolver(reqs[0].param, ic=key.grid[0],
+                                       jc=key.grid[1], device=self.device)
             self._templates[key.sig] = template
         params = [r.param for r in reqs]
         sids = [r.sid for r in reqs]

@@ -1,5 +1,5 @@
 """Shape-class batching: mixed-grid requests padded into shared class
-blocks (counterpart of the 2-D part of pampi_tpu/fleet/shapeclass.py).
+blocks (counterpart of pampi_tpu/fleet/shapeclass.py).
 
 A class is a rung of a ladder, the next power of two per axis with a
 floor of RUNG_FLOOR. Every lane of a class batch holds a (jc+2, ic+2)
@@ -37,10 +37,16 @@ extents only (K18's residual, K2's class-mode residual, the live-corner
 sum of normalizePressure), so a lane's fields are bitwise the same in
 every rung and whatever its batchmates are.
 
-What stays the JAX package's alone (ROADMAP A item 9.2): the 3-D class
-rungs (`Class3DSolver`, the dynamic-extent K7/K8). class_eligible keeps
-such requests in their exact-shape buckets with a reason naming that
-item.
+The 3-D class rungs (`Class3DSolver`, the JAX package's): (kc, jc, ic)
+blocks with each lane's (kmax, jmax, imax) and its grid constants as
+per-lane data (`lane_geometry_3d`, the G3_* slots). A step of the fused
+chunk (`tpu_fuse_phases auto|on`) is one call of the class mode of K7
+(PRE), the masked red-black class solve in plain torch
+(`make_class_solve_3d`, one (N,) read-back an iteration) and one call of
+the class mode of K8 (POST, whose maxima give the next step's dt); the
+masked chain (`off`) runs the same phases in plain torch. Each lane's
+residual sums its interior in a fixed order (`interior_sum`), so a 3-D
+lane too is bitwise the same in every rung.
 """
 
 from __future__ import annotations
@@ -55,9 +61,13 @@ import torch
 from ..ops import mg_fused as mf
 from ..ops import ns2d as ops
 from ..ops import ns2d_fused as nf
+from ..ops import ns3d as ops3
+from ..ops import ns3d_fused as nf3
 from ..ops import sor_kernels as sk
+from ..ops.sor3d import sor_coefficients_3d
 from ..ops.sor_kernels import _tree
 from ..parallel import ragged2d as rg
+from ..parallel import ragged3d as rg3
 from ..utils import dispatch as _dispatch
 from ..utils.device import resolve_device, visible_devices
 from ..utils.params import is_3d_config
@@ -75,11 +85,6 @@ G_IMAX, G_JMAX, G_DX, G_DY, G_DTB, G_FACTOR, G_IDX2, G_IDY2, G_NORM = \
 
 # the class signature also leaves out the grid extents (per-lane data)
 CLASS_KEYS = ("imax", "jmax", "kmax")
-
-# the port's own refusal, naming the ROADMAP item that brings it
-LANE_3D = ("3-D class rung (Class3DSolver and the dynamic-extent modes of "
-           "K7/K8 are not yet ported, ROADMAP A item 9.2)")
-
 
 def class_extent(n: int) -> int:
     """The rung of one live extent: next power of two, >= RUNG_FLOOR."""
@@ -102,9 +107,12 @@ def padding_waste(grid) -> float:
     return padded / live
 
 
-def _jax_reason(param, ndevices: int) -> str | None:
-    """The JAX package's class_eligible, its order and its strings; the
-    mesh rule reads `ndevices` visible devices (the CLI's mesh_is_single)."""
+def class_eligible(param, ndevices: int = 1) -> str | None:
+    """None when the request may ride a class; else why it keeps its
+    exact-shape bucket: the JAX package's class_eligible, its order and
+    its strings, for 2-D and 3-D requests. `ndevices` is the visible
+    device count the mesh rule reads (the JAX package reads
+    jax.devices(), through the CLI's mesh_is_single)."""
     if param.obstacles.strip():
         return "obstacle flags are trace-baked geometry"
     if param.tpu_solver not in ("sor", "mg"):
@@ -132,17 +140,6 @@ def _jax_reason(param, ndevices: int) -> str | None:
                 f"{MIN_CLASS_EXTENT}-cell class floor (padding waste "
                 "would exceed the bound)")
     return None
-
-
-def class_eligible(param, ndevices: int = 1) -> str | None:
-    """None when the request may ride a class; else why it keeps its
-    exact-shape bucket: the JAX package's reason where it refuses, else
-    the port's (a 3-D lane). `ndevices` is the visible device count (the
-    JAX package reads jax.devices())."""
-    why = _jax_reason(param, ndevices)
-    if why is None and is_3d_config(param):
-        return LANE_3D
-    return why
 
 
 def class_cadence(param, dtype) -> int:
@@ -536,6 +533,7 @@ class ClassSolver:
     last step; `solve_stats` the fused chunk's solve walls."""
 
     CHUNK = 64
+    n_fields = 3  # u, v, p
 
     def __init__(self, param, ic: int, jc: int, dtype=None, device="cuda"):
         self.device = resolve_device(device)
@@ -660,6 +658,408 @@ class ClassSolver:
         as numpy arrays."""
         return tuple(np.asarray(f)[:param.jmax + 2, :param.imax + 2]
                      for f in fields)
+
+    def initial_state(self) -> tuple:
+        return self.lane_state(self._request)
+
+
+# ---------------------------------------------------------------------------
+# The 3-D class rungs: the same ladder with kmax among the per-lane data,
+# the masked red-black solve in plain torch, and the class mode of K7/K8
+# ---------------------------------------------------------------------------
+
+# 3-D geometry-vector slots (per lane, float64)
+(G3_KMAX, G3_JMAX, G3_IMAX, G3_DX, G3_DY, G3_DZ, G3_DTB, G3_FACTOR,
+ G3_IDX2, G3_IDY2, G3_IDZ2, G3_NORM) = range(12)
+
+
+def lane_geometry_3d(param):
+    """The 3-D per-lane geometry scalars in Python float64, with the solo
+    solver's expressions and ops/sor3d.sor_coefficients_3d (the JAX
+    package's lane_geometry_3d)."""
+    dx = param.xlength / param.imax
+    dy = param.ylength / param.jmax
+    dz = param.zlength / param.kmax
+    inv_sqr_sum = 1.0 / dx**2 + 1.0 / dy**2 + 1.0 / dz**2
+    dt_bound = 0.5 * param.re / inv_sqr_sum
+    factor, idx2, idy2, idz2 = sor_coefficients_3d(dx, dy, dz, param.omg)
+    norm = float(param.imax * param.jmax * param.kmax)
+    return (float(param.kmax), float(param.jmax), float(param.imax),
+            dx, dy, dz, dt_bound, factor, idx2, idy2, idz2, norm)
+
+
+@dataclasses.dataclass
+class Lanes3D:
+    """The per-lane constants of a 3-D batch, derived once from its (N, 12)
+    float64 geometry vectors: K7/K8's per-lane arrays dims (N, 3) int32
+    (kmax, jmax, imax) and cell (N, 3) (dx, dy, dz) in the lane dtype
+    (`ext` and `cell4` are their (N, 1, 1, 1) columns); the SOR constants
+    (factor, idx2, idy2, idz2), the CFL bound and the residual norm in the
+    lane dtype; the class index grids; the interior and live masks, the
+    colour masks (odd, even) and the six Neumann face masks with their
+    rolls; and the gather plan of each lane's interior for its residual
+    sum (interior_sum)."""
+
+    dims: torch.Tensor
+    cell: torch.Tensor
+    sor: tuple
+    dtb: torch.Tensor
+    norm: torch.Tensor
+    grids: tuple
+    interior: torch.Tensor
+    live: torch.Tensor
+    odd: torch.Tensor
+    even: torch.Tensor
+    faces: tuple
+    gather: torch.Tensor
+    valid: torch.Tensor
+
+    @property
+    def ext(self):
+        n = self.dims.shape[0]
+        return tuple(self.dims[:, a].to(torch.int64).view(n, 1, 1, 1)
+                     for a in range(3))
+
+    @property
+    def cell4(self):
+        n = self.cell.shape[0]
+        return tuple(self.cell[:, a].view(n, 1, 1, 1) for a in range(3))
+
+
+def class_lanes_3d(gm, kc: int, jc: int, ic: int, dtype, device) -> Lanes3D:
+    """Lanes3D of a batch from its geometry vectors `gm` (numpy (N, 12)).
+    Every lane's extents must fit the (kc, jc, ic) class: the kernels read
+    them on the card unchecked."""
+    gm = np.asarray(gm, np.float64)
+    n = gm.shape[0]
+    real = mf._REAL[dtype]
+    ext = gm[:, [G3_KMAX, G3_JMAX, G3_IMAX]]
+    if ((ext < 1) | (ext > (kc, jc, ic))).any():
+        raise ValueError(f"lane extents {ext.astype(int).tolist()} do not "
+                         f"fit the class {ic}x{jc}x{kc}")
+
+    def lane_array(slots, to):
+        return torch.from_numpy(np.ascontiguousarray(
+            gm[:, slots].astype(to))).to(device)
+
+    def scalar(slot):
+        return lane_array([slot], real).view(n, 1, 1, 1)
+
+    dims = lane_array([G3_KMAX, G3_JMAX, G3_IMAX], np.int32)
+    kmax, jmax, imax = (dims[:, a].to(torch.int64).view(n, 1, 1, 1)
+                        for a in range(3))
+    grids = rg3.class_index_grids_3d(kc, jc, ic, device)
+    gk, gj, gi = grids
+    interior, live = rg3.class_masks_3d(grids, kmax, jmax, imax)
+    parity = (gk + gj + gi) % 2
+    # pass 0 visits parity 1 (odd), pass 1 parity 0 (the reference's order)
+    odd = (interior & (parity == 1)).to(dtype)
+    even = (interior & (parity == 0)).to(dtype)
+    in_k = (gk >= 1) & (gk <= kmax)
+    in_j = (gj >= 1) & (gj <= jmax)
+    in_i = (gi >= 1) & (gi <= imax)
+    # the 6-face Neumann copy in the JAX package's order, corners untouched:
+    # (mask, roll shift, axis) for front, back, bottom, top, left, right
+    faces = (((gk == 0) & in_j & in_i, -1, -3),
+             ((gk == kmax + 1) & in_j & in_i, 1, -3),
+             ((gj == 0) & in_k & in_i, -1, -2),
+             ((gj == jmax + 1) & in_k & in_i, 1, -2),
+             ((gi == 0) & in_k & in_j, -1, -1),
+             ((gi == imax + 1) & in_k & in_j, 1, -1))
+    # each lane's interior cells in row-major order, zero-padded to a power
+    # of two for the halving tree
+    counts = ext.prod(axis=1).astype(np.int64)
+    width = 1 << int(counts.max() - 1).bit_length()
+    gather = np.zeros((n, width), np.int64)
+    valid = np.zeros((n, width), bool)
+    for lane, (k, j, i) in enumerate(ext.astype(int)):
+        flat = ((np.arange(1, k + 1)[:, None, None] * (jc + 2)
+                 + np.arange(1, j + 1)[None, :, None]) * (ic + 2)
+                + np.arange(1, i + 1)[None, None, :]).reshape(-1)
+        gather[lane, :flat.size] = flat
+        valid[lane, :flat.size] = True
+    return Lanes3D(
+        dims=dims, cell=lane_array([G3_DX, G3_DY, G3_DZ], real),
+        sor=tuple(scalar(s) for s in (G3_FACTOR, G3_IDX2, G3_IDY2, G3_IDZ2)),
+        dtb=scalar(G3_DTB), norm=lane_array([G3_NORM], real).view(n),
+        grids=grids, interior=interior, live=live, odd=odd, even=even,
+        faces=faces, gather=torch.from_numpy(gather).to(device),
+        valid=torch.from_numpy(valid).to(device))
+
+
+def interior_sum(q, lanes: Lanes3D):
+    """Each lane's sum of q over its interior cells, (N,), in a fixed order
+    that depends on the lane's extents only: the cells in row-major order,
+    zero-padded to a power of two, then a halving tree. Zeros past a
+    lane's cells leave the tree's result as it is, so a lane's sum is
+    bitwise the same in every rung and whatever its batchmates are."""
+    n = q.shape[0]
+    vals = torch.where(lanes.valid, q.reshape(n, -1).gather(1, lanes.gather),
+                       torch.zeros((), dtype=q.dtype, device=q.device))
+    return _tree(vals)[:, 0]
+
+
+def make_class_solve_3d(param, kc: int, jc: int, ic: int, dtype):
+    """The 3-D class solve (the JAX package's make_class_solve_3d): the
+    masked red-black SOR convergence loop over lane-stacked (kc+2, jc+2,
+    ic+2) blocks in plain torch. An iteration is the odd pass, the even
+    pass (each r = (rhs - lap)·colour mask, p += -factor·r, over the whole
+    block), then the 6-face Neumann copy:
+
+        solve(p, rhs, lanes, solving) -> (p', res, it)
+
+    A lane iterates while it is in `solving` (numpy (N,) bools), res >=
+    eps² and it < itermax, res = (Σr²(odd) + Σr²(even)) / norm in the lane
+    dtype, each Σ interior_sum's fixed order; the other lanes keep their
+    p. So each lane's count and p are its solo's (the JAX package's
+    vmapped while_loop). One (N,) read-back of the residuals an iteration
+    for the whole batch. `solve.stats` accumulates the solve's wall, the
+    wall spent in the read-backs and the iterations (host clock)."""
+    real = mf._REAL[dtype]
+    epssq = real(param.eps * param.eps)
+    itermax = param.itermax
+    stats = {"solve_s": 0.0, "sync_s": 0.0, "rounds": 0}
+    roll = torch.roll
+
+    def sweep(p, rhs, mask, lanes: Lanes3D):
+        factor, idx2, idy2, idz2 = lanes.sor
+        lap = ((roll(p, -1, -1) - 2.0 * p + roll(p, 1, -1)) * idx2
+               + (roll(p, -1, -2) - 2.0 * p + roll(p, 1, -2)) * idy2
+               + (roll(p, -1, -3) - 2.0 * p + roll(p, 1, -3)) * idz2)
+        r = (rhs - lap) * mask
+        return p + (-factor) * r, interior_sum(r * r, lanes)
+
+    def solve(p, rhs, lanes: Lanes3D, solving):
+        t0 = time.perf_counter()
+        n = p.shape[0]
+        res = np.ones(n, real)
+        it = np.zeros(n, np.int64)
+        while True:
+            on = solving & (res >= epssq) & (it < itermax)
+            if not on.any():
+                break
+            q, r0 = sweep(p, rhs, lanes.odd, lanes)
+            q, r1 = sweep(q, rhs, lanes.even, lanes)
+            for mask, shift, axis in lanes.faces:
+                q = torch.where(mask, roll(q, shift, axis), q)
+            p = torch.where(torch.from_numpy(on).to(p.device).view(
+                n, 1, 1, 1), q, p)
+            s0 = time.perf_counter()
+            rn = ((r0 + r1) / lanes.norm).cpu().numpy()
+            stats["sync_s"] += time.perf_counter() - s0
+            stats["rounds"] += 1
+            res[on] = rn[on]
+            it[on] += 1
+        stats["solve_s"] += time.perf_counter() - t0
+        return p, res, it
+
+    solve.stats = stats
+    return solve
+
+
+def make_class_chunk_3d(param, kc: int, jc: int, ic: int, dtype, device,
+                        chunk_default: int = 32, fused: bool = False,
+                        log=None):
+    """One 3-D class's chunk (the JAX package's make_class_chunk_3d), the
+    reference's 3-D phase order with the grid extents as per-lane data (no
+    normalizePressure: the 3-D loop never calls it):
+
+        chunk(u, v, w, p, t, nt, lanes, te, running) -> (u, v, w, p, t, nt)
+
+    Every lane in `running` (an (N,) bool tensor) takes steps while its
+    t <= te, at most `tpu_chunk` (default chunk_default) in all; the other
+    lanes pass through unchanged. A step of the masked chain (`fused`
+    false) is the CFL dt from each lane's ghost-inclusive maxima, the BCs,
+    F/G/H and their fixups, the rhs (parallel/ragged3d.class_pre_3d), the
+    class solve, the projection and the live-mask multiply (class_post_3d),
+    in plain torch. A fused step is one call of K7's class mode, the class
+    solve and one call of K8's class mode for all lanes, K8's maxima giving
+    the next step's dt (at a chunk's start the maxima of the whole blocks);
+    on the CPU the kernels' plain versions run. `log["it"]` holds each
+    lane's iterations of the last step (numpy, 0 for a lane that did not
+    step); `run.solve_stats` the solve's walls."""
+    cfg = nf3.StepConfig3D.from_param(param)
+    adaptive = param.tau > 0.0
+    chunk = param.tpu_chunk or chunk_default
+    solve = make_class_solve_3d(param, kc, jc, ic, dtype)
+    log = {} if log is None else log
+
+    def dt_of(maxima, lanes: Lanes3D, n):
+        if adaptive:
+            return ops3.cfl_dt_3d(*(m.view(n, 1, 1, 1) for m in maxima),
+                                  lanes.dtb, *lanes.cell4,
+                                  param.tau).reshape(n)
+        return torch.full((n,), param.dt, dtype=dtype, device=device)
+
+    def block_maxima(fields):
+        return tuple(a.abs().amax((-3, -2, -1)) for a in fields)
+
+    def chain(u, v, w, p, t, nt, lanes: Lanes3D, te, running):
+        n = u.shape[0]
+        for _ in range(chunk):
+            stepping = running & (t <= te)
+            if not bool(stepping.any()):
+                break
+            dt = dt_of(block_maxima((u, v, w)), lanes, n)
+            dt4 = dt.view(n, 1, 1, 1)
+            *uvw, f, g, h, rhs = rg3.class_pre_3d(
+                u, v, w, dt4, cfg, lanes.grids, lanes.ext, lanes.cell4)
+            q, _res, it = solve(p, rhs, lanes, stepping.cpu().numpy())
+            log["it"] = it
+            new = rg3.class_post_3d(*uvw, f, g, h, q, dt4, lanes.grids,
+                                    lanes.ext, lanes.cell4)
+            m4 = stepping.view(n, 1, 1, 1)
+            u, v, w, p = (torch.where(m4, a, b) for a, b in
+                          zip((*new, q), (u, v, w, p)))
+            t = torch.where(stepping, t + dt.to(t.dtype), t)
+            nt = torch.where(stepping, nt + 1, nt)
+        return u, v, w, p, t, nt
+
+    def fused_run(u, v, w, p, t, nt, lanes: Lanes3D, te, running):
+        n = u.shape[0]
+        # the kernels work in place: the caller's state stays as it was
+        u, v, w = u.clone(), v.clone(), w.clone()
+        maxima = block_maxima((u, v, w))
+        for _ in range(chunk):
+            stepping = running & (t <= te)
+            if not bool(stepping.any()):
+                break
+            dt = dt_of(maxima, lanes, n)
+            f, g, h, rhs = nf3.ns3d_pre(u, v, w, dt, cfg, ext=lanes.dims,
+                                        geo=lanes.cell, active=stepping)
+            p, _res, it = solve(p, rhs, lanes, stepping.cpu().numpy())
+            log["it"] = it
+            maxima = nf3.ns3d_post(u, v, w, f, g, h, p, dt, None, None, None,
+                                   ext=lanes.dims, geo=lanes.cell,
+                                   active=stepping)
+            t = torch.where(stepping, t + dt.to(t.dtype), t)
+            nt = torch.where(stepping, nt + 1, nt)
+        return u, v, w, p, t, nt
+
+    run = fused_run if fused else chain
+    run.solve_stats = solve.stats
+    return run
+
+
+class Class3DSolver:
+    """The template of one 3-D shape class (the JAX package's
+    Class3DSolver): (kc, jc, ic) power-of-two rungs, each lane's (kmax,
+    jmax, imax) per-lane data, served through fleet/batch.BatchedSolver.
+    `lane_state` gives a lane's initial state (u, v, w, p, t, nt and the
+    geometry vector), `crop_lane` a lane's fields back in its own (kmax+2,
+    jmax+2, imax+2) layout.
+
+    Under `tpu_fuse_phases` `on` and `auto` a step is the fused one (class
+    K7, the masked class solve, class K8), on either device: on the CPU
+    the kernels' plain versions run. `off` takes the masked plain-torch
+    chain. Decisions under `ns3d_class_phases` and `ns3d_class_solve`.
+    This is the 2-D sor lane's policy (ClassSolver._build_fused_chunk);
+    the JAX package fuses under `auto` only on a TPU and runs its jnp
+    chain elsewhere, which computes the same arithmetic. The solve is the
+    masked red-black loop in plain torch in both steps, as in the JAX
+    package (its octant kernels are exact-shape programs). On the card the
+    kernels are built (or loaded) here: the build is set-up, not serving.
+    `last_iters` holds each lane's iterations of the last step;
+    `solve_stats` the solve's walls."""
+
+    CHUNK = 32
+    n_fields = 4  # u, v, w, p
+
+    def __init__(self, param, ic: int, jc: int, kc: int, dtype=None,
+                 device="cuda"):
+        self.device = resolve_device(device)
+        self._ndev = len(visible_devices(self.device))
+        reason = class_eligible(param, self._ndev)
+        if reason is not None:
+            raise ValueError(f"request is not class-eligible: {reason}")
+        if (class_extent(param.imax) > ic or class_extent(param.jmax) > jc
+                or class_extent(param.kmax) > kc):
+            raise ValueError(
+                f"grid {param.imax}x{param.jmax}x{param.kmax} exceeds "
+                f"class {ic}x{jc}x{kc}")
+        self.param = param.replace(imax=ic, jmax=jc, kmax=kc)
+        self._request = param
+        self.ic, self.jc, self.kc = ic, jc, kc
+        self.dtype = resolve_dtype(param.tpu_dtype) if dtype is None \
+            else dtype
+        knob = self.param.tpu_fuse_phases
+        if knob not in ("auto", "on", "off"):
+            raise ValueError(f"tpu_fuse_phases must be auto|on|off, got "
+                             f"{knob!r}")
+        self._fused = knob != "off"
+        if self._fused:
+            _dispatch.record(
+                "ns3d_class_phases",
+                f"fused class chunk on {self.device.type} "
+                f"({'forced' if knob == 'on' else 'auto'}: class K7 + "
+                "masked class solve + class K8)")
+            if self.device.type == "cuda":
+                nf3._lib()
+        else:
+            _dispatch.record("ns3d_class_phases",
+                             "plain torch chain (tpu_fuse_phases off)")
+        _dispatch.record("ns3d_class_solve",
+                         "masked red-black class solve in plain torch (one "
+                         "(N,) read-back an iteration)")
+        self._log: dict = {}
+        self._lanes: dict[bytes, Lanes3D] = {}
+        self._chunk = make_class_chunk_3d(self.param, kc, jc, ic, self.dtype,
+                                          self.device, self.CHUNK,
+                                          self._fused, self._log)
+        self.solve_stats = self._chunk.solve_stats
+
+    @property
+    def last_iters(self):
+        """Each lane's solve iterations of the last step, numpy (N,); 0
+        for a lane that did not step."""
+        return self._log.get("it")
+
+    def lane_consts(self, gm) -> Lanes3D:
+        """The Lanes3D of geometry vectors gm (numpy (N, 12)), cached."""
+        gm = np.ascontiguousarray(gm, np.float64)
+        key = gm.tobytes()
+        lanes = self._lanes.get(key)
+        if lanes is None:
+            lanes = self._lanes[key] = class_lanes_3d(
+                gm, self.kc, self.jc, self.ic, self.dtype, self.device)
+        return lanes
+
+    def advance(self, u, v, w, p, t, nt, lanes: Lanes3D, te, running):
+        """Up to CHUNK (or tpu_chunk) steps of every running lane."""
+        return self._chunk(u, v, w, p, t, nt, lanes, te, running)
+
+    def lane_state(self, param) -> tuple:
+        """(u, v, w, p, t, nt, gm) of one request in this class: the fields
+        are its constant initial values on its live corner and 0 on the
+        dead cells."""
+        reason = class_eligible(param, self._ndev)
+        if reason is not None:
+            raise ValueError(f"request is not class-eligible: {reason}")
+        kc, jc, ic = self.kc, self.jc, self.ic
+        if param.imax > ic or param.jmax > jc or param.kmax > kc:
+            raise ValueError(
+                f"grid {param.imax}x{param.jmax}x{param.kmax} exceeds "
+                f"class {ic}x{jc}x{kc}")
+        live = ((np.arange(kc + 2)[:, None, None] <= param.kmax + 1)
+                & (np.arange(jc + 2)[None, :, None] <= param.jmax + 1)
+                & (np.arange(ic + 2)[None, None, :] <= param.imax + 1))
+
+        def field(init):
+            return torch.from_numpy(np.where(live, init, 0.0)).to(
+                device=self.device, dtype=self.dtype)
+
+        return (field(param.u_init), field(param.v_init),
+                field(param.w_init), field(param.p_init),
+                torch.zeros((), dtype=torch.float64, device=self.device),
+                torch.zeros((), dtype=torch.int32, device=self.device),
+                torch.tensor(lane_geometry_3d(param), dtype=torch.float64,
+                             device=self.device))
+
+    def crop_lane(self, fields, param) -> tuple:
+        """A lane's fields in the request's own (kmax+2, jmax+2, imax+2)
+        layout, as numpy arrays."""
+        return tuple(np.asarray(f)[:param.kmax + 2, :param.jmax + 2,
+                                   :param.imax + 2] for f in fields)
 
     def initial_state(self) -> tuple:
         return self.lane_state(self._request)

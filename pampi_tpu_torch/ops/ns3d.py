@@ -26,9 +26,10 @@ NOSLIP, SLIP, OUTFLOW, PERIODIC = 1, 2, 3, 4
 
 def V3(a, dk=0, dj=0, di=0):
     """Interior view shifted by (dk, dj, di): the (i±1, j±1, k±1) stencil
-    accessor over the whole interior at once."""
-    K, J, I = a.shape
-    return a[1 + dk:K - 1 + dk, 1 + dj:J - 1 + dj, 1 + di:I - 1 + di]
+    accessor over the whole interior of the last three axes at once (a
+    leading lane axis, if any, is carried along)."""
+    K, J, I = a.shape[-3:]
+    return a[..., 1 + dk:K - 1 + dk, 1 + dj:J - 1 + dj, 1 + di:I - 1 + di]
 
 
 def fgh_predictor_terms(u, v, w, dt, re, gx, gy, gz, gamma, dx, dy, dz):
@@ -132,7 +133,7 @@ def fgh_predictor_terms(u, v, w, dt, re, gx, gy, gz, gamma, dx, dy, dz):
 
 def _with_interior(like, interior):
     out = torch.zeros_like(like)
-    out[1:-1, 1:-1, 1:-1] = interior
+    out[..., 1:-1, 1:-1, 1:-1] = interior
     return out
 
 
@@ -327,7 +328,9 @@ def apply_wall_bcs_3d_gated(u, v, w, gk, gj, gi, bcs, gext):
     """set_boundary_conditions_3d as sequential where-updates gated by the
     global index: the same face order, the same written values, so later
     faces read earlier faces' writes as on one device. The inward read is
-    a roll; it wraps only where no face writes."""
+    a roll; it wraps only where no face writes. The rolls take the last
+    three axes, so lane-stacked (N, K, J, I) class blocks with (N, 1, 1, 1)
+    extents in `gext` work as well."""
     fields = {0: w, 1: v, 2: u}  # normal component per axis
     coords = (gk, gj, gi)
     tans = _interior(gk, gj, gi, gext)
@@ -347,12 +350,12 @@ def apply_wall_bcs_3d_gated(u, v, w, gk, gj, gi, bcs, gext):
             shift = 1
         normal = fields[axis]
         if kind == OUTFLOW:
-            fields[axis] = torch.where(wall, torch.roll(normal, shift, axis),
-                                       normal)
+            fields[axis] = torch.where(
+                wall, torch.roll(normal, shift, axis - 3), normal)
         else:  # NOSLIP, SLIP
             fields[axis] = torch.where(wall, torch.zeros_like(normal), normal)
         for a in t_axes:
-            inward = torch.roll(fields[a], shift, axis)
+            inward = torch.roll(fields[a], shift, axis - 3)
             fields[a] = torch.where(ghost,
                                     -inward if kind == NOSLIP else inward,
                                     fields[a])
@@ -366,7 +369,7 @@ def apply_special_bc_3d_gated(u, gk, gj, gi, problem, gext):
     if problem == "dcavity":
         m = ((gj == J + 1) & (gk >= 1) & (gk <= K - 1)
              & (gi >= 1) & (gi <= I - 1))
-        return torch.where(m, 2.0 - torch.roll(u, 1, 1), u)
+        return torch.where(m, 2.0 - torch.roll(u, 1, -2), u)
     if problem == "canal":
         m = (gi == 0) & (gk >= 1) & (gk <= K) & (gj >= 1) & (gj <= J)
         return torch.where(m, torch.full_like(u, 2.0), u)

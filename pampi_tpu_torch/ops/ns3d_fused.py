@@ -53,8 +53,30 @@ launches count on `ns3d_post_ragged` and, with the flags,
 every write is gated by the global index, wherever the walls cross the
 block.
 
+The class mode (`ext=`, `geo=`, `active=`: the fleet's 3-D shape-class
+lanes, the JAX package's make_fused_pre_3d(..., dynamic=True) and
+make_fused_post_3d(..., ragged=True, dynamic=True)): u, v, w, F, G, H,
+rhs, p are lane-stacked (N, kc+2, jc+2, ic+2) class blocks whose live
+corner is each lane's own grid; ext (N, 3) int32 holds each lane's (kmax,
+jmax, imax), geo (N, 3) its (dx, dy, dz) in the fields' dtype, dt (N,) its
+timestep and active (N,) bool which lanes step. Every write is gated by the
+lane's extents, and 1/dx, the predictor's coefficients and dt/dx are
+formed in the fields' dtype from the lane's dx, dy, dz, as the JAX kernels
+form them from their SMEM scalars (the one-grid mode folds them in double
+on the host). An inactive lane is left as it is (its F, G, H, rhs are 0).
+POST zeroes the dead cells after the projection (the live-mask multiply)
+and returns each lane's max|u|, max|v|, max|w| over its live cells, (N,)
+each. The lane shares the grid's z axis with the k plane (z = lane·(kc+2)
++ k); past CUDA's 65,535 a block loops over z, so no lane is dropped.
+Launches: five for PRE and two for POST, for the whole batch, counted on
+entries of their own, `ns3d_pre_class` and `ns3d_post_class`. Every
+lane's extents must fit its block (1 <= kmax <= kc, ...): the kernels
+read them on the card unchecked, and fleet/shapeclass.class_lanes_3d
+checks them on the host.
+
 For a CPU tensor each wrapper runs its plain version (ops/ns3d.py,
-ops/obstacle3d.py); for a CUDA tensor it launches its kernel or raises.
+ops/obstacle3d.py, parallel/ragged3d.py's class forms); for a CUDA tensor
+it launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -81,6 +103,10 @@ NS3D_POST_RAGGED = kb.register(
     "ns3d_post_ragged", SOURCE, "pampi_tpu/ops/ns3d_fused.py:880")
 NS3D_POST_FLAGS_RAGGED = kb.register(
     "ns3d_post_flags_ragged", SOURCE, "pampi_tpu/ops/ns3d_fused.py:880")
+NS3D_PRE_CLASS = kb.register(
+    "ns3d_pre_class", SOURCE, "pampi_tpu/ops/ns3d_fused.py:778")
+NS3D_POST_CLASS = kb.register(
+    "ns3d_post_class", SOURCE, "pampi_tpu/ops/ns3d_fused.py:880")
 
 _PROBLEM_CODE = {"dcavity": 1, "canal": 2}
 _V, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
@@ -93,6 +119,14 @@ _SIGNATURES = {
     "ns3d_post_f32": _POST_ARGS, "ns3d_post_f64": _POST_ARGS,
     "ns3d_post_partials": [_I, _I, _I],
 }
+# dev, u, v, w, dt, f, g, h, rhs, ext, geo, active, lanes, kc, jc, ic, bc,
+# problem, c, stream; and dev, u, v, w, f, g, h, p, dt, ext, geo, active,
+# lanes, kc, jc, ic, partial, out, stream
+for _t in ("f32", "f64"):
+    _SIGNATURES[f"ns3d_pre_class_{_t}"] = [_I] + [_V] * 11 + [_I] * 4 + [
+        _V, _I, _V, _V]
+    _SIGNATURES[f"ns3d_post_class_{_t}"] = [_I] + [_V] * 11 + [_I] * 4 + [
+        _V] * 3
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
@@ -187,12 +221,134 @@ def _check_flags(flags, like) -> None:
                          "shape on their device")
 
 
+def _class_lanes(u, dt, ext, geo):
+    """(index grids, (kmax, jmax, imax), (dx, dy, dz), dt) of a class-mode
+    call, the lane scalars as (N, 1, 1, 1) tensors."""
+    from ..parallel import ragged3d as rg3
+
+    n = u.shape[0]
+    grids = rg3.class_index_grids_3d(*(m - 2 for m in u.shape[1:]),
+                                     u.device)
+    ext4 = tuple(ext[:, a].to(torch.int64).view(n, 1, 1, 1) for a in range(3))
+    cell = tuple(geo[:, a].to(u.dtype).view(n, 1, 1, 1) for a in range(3))
+    return grids, ext4, cell, dt.to(u.dtype).view(n, 1, 1, 1)
+
+
+def _pre_class_plain(u, v, w, dt, cfg: StepConfig3D, ext, geo, active):
+    """K7's class mode, plain: parallel/ragged3d.class_pre_3d on every
+    active lane, the inactive lanes left as they are with F, G, H, rhs 0."""
+    from ..parallel import ragged3d as rg3
+
+    grids, ext4, cell, dt4 = _class_lanes(u, dt, ext, geo)
+    out = rg3.class_pre_3d(u, v, w, dt4, cfg, grids, ext4, cell)
+    on = active.to(torch.bool).view(-1, 1, 1, 1)
+    zero = ops._const(0.0, u)
+    return (*(torch.where(on, a, b) for a, b in zip(out[:3], (u, v, w))),
+            *(torch.where(on, x, zero) for x in out[3:]))
+
+
+def _post_class_plain(u, v, w, f, g, h, p, dt, ext, geo, active):
+    """K8's class mode, plain: on every active lane parallel/ragged3d.
+    class_post_3d (the projection and the live-mask multiply); returns
+    (u'', v'', w'', max|u''|, max|v''|, max|w''|), the maxima over each
+    lane's live cells, (N,) each."""
+    from ..parallel import ragged3d as rg3
+
+    grids, ext4, cell, dt4 = _class_lanes(u, dt, ext, geo)
+    new = rg3.class_post_3d(u, v, w, f, g, h, p, dt4, grids, ext4, cell)
+    on = active.to(torch.bool).view(-1, 1, 1, 1)
+    out = tuple(torch.where(on, a, b) for a, b in zip(new, (u, v, w)))
+    _interior, live = rg3.class_masks_3d(grids, *ext4)
+    zero = ops._const(0.0, u)
+    return (*out, *(torch.where(live, a.abs(), zero).amax((-3, -2, -1))
+                    for a in out))
+
+
+def _check_class(tensors, dt, ext, geo, active) -> tuple:
+    """(lanes, kc, jc, ic) of a class-mode call on the card, after checking
+    its lane-stacked fields and per-lane arrays."""
+    t0 = tensors[0]
+    if t0.device.type != "cuda":
+        raise ValueError(f"NS-3D kernels take CPU or CUDA tensors, not {t0.device}")
+    if t0.dtype not in _SUFFIX or t0.dim() != 4 or min(t0.shape[1:]) < 4:
+        raise ValueError("the class mode takes float32 or float64 fields of "
+                         "shape (lanes, kc+2, jc+2, ic+2), kc, jc, ic >= 2")
+    for t in tensors:
+        if (t.device != t0.device or t.dtype != t0.dtype
+                or t.shape != t0.shape or not t.is_contiguous()):
+            raise ValueError("fields must be contiguous and share device, "
+                             "dtype and shape")
+    n = t0.shape[0]
+    for a, dtype, shape in ((dt, t0.dtype, (n,)), (ext, torch.int32, (n, 3)),
+                            (geo, t0.dtype, (n, 3)),
+                            (active, torch.bool, (n,))):
+        if (a.device != t0.device or a.dtype != dtype
+                or tuple(a.shape) != shape or not a.is_contiguous()):
+            raise ValueError(f"the class mode needs contiguous {dtype} "
+                             f"{shape} per-lane arrays on the fields' device")
+    return (n, *(m - 2 for m in t0.shape[1:]))
+
+
+def _pre_class(u, v, w, dt, cfg: StepConfig3D, ext, geo, active):
+    if u.device.type == "cpu":
+        *uvw, f, g, h, rhs = _pre_class_plain(u, v, w, dt, cfg, ext, geo,
+                                              active)
+        for a, b in zip((u, v, w), uvw):
+            a.copy_(b)
+        return f, g, h, rhs
+    n, kc, jc, ic = _check_class((u, v, w), dt, ext, geo, active)
+    f, g, h, rhs = (torch.empty_like(u) for _ in range(4))
+    bc = (ctypes.c_int * 6)(*cfg.bc)
+    coef = (ctypes.c_double * 5)(cfg.gamma, 1.0 / cfg.re, cfg.gx, cfg.gy,
+                                 cfg.gz)
+    lib = _lib()
+    with torch.cuda.device(u.device):
+        err = getattr(lib, f"ns3d_pre_class_{_SUFFIX[u.dtype]}")(
+            u.device.index, u.data_ptr(), v.data_ptr(), w.data_ptr(),
+            dt.data_ptr(), f.data_ptr(), g.data_ptr(), h.data_ptr(),
+            rhs.data_ptr(), ext.data_ptr(), geo.data_ptr(), active.data_ptr(),
+            n, kc, jc, ic, bc, _PROBLEM_CODE.get(cfg.problem, 0), coef,
+            kb.stream_of(u))
+    kb.check(lib, err, "ns3d_pre_class")
+    NS3D_PRE_CLASS.launches += 1
+    return f, g, h, rhs
+
+
+def _post_class(u, v, w, f, g, h, p, dt, ext, geo, active):
+    if u.device.type == "cpu":
+        *uvw, umax, vmax, wmax = _post_class_plain(u, v, w, f, g, h, p, dt,
+                                                   ext, geo, active)
+        for a, b in zip((u, v, w), uvw):
+            a.copy_(b)
+        return umax, vmax, wmax
+    n, kc, jc, ic = _check_class((u, v, w, f, g, h, p), dt, ext, geo,
+                                 active)
+    lib = _lib()
+    partial = torch.empty(n * lib.ns3d_post_partials(kc, jc, ic),
+                          dtype=u.dtype, device=u.device)
+    out = torch.empty((3, n), dtype=u.dtype, device=u.device)
+    with torch.cuda.device(u.device):
+        err = getattr(lib, f"ns3d_post_class_{_SUFFIX[u.dtype]}")(
+            u.device.index, u.data_ptr(), v.data_ptr(), w.data_ptr(),
+            f.data_ptr(), g.data_ptr(), h.data_ptr(), p.data_ptr(),
+            dt.data_ptr(), ext.data_ptr(), geo.data_ptr(), active.data_ptr(),
+            n, kc, jc, ic, partial.data_ptr(), out.data_ptr(),
+            kb.stream_of(u))
+    kb.check(lib, err, "ns3d_post_class")
+    NS3D_POST_CLASS.launches += 1
+    return out[0], out[1], out[2]
+
+
 def ns3d_pre_plain(u, v, w, dt, cfg: StepConfig3D, offs=None, gext=None,
-                   ext_pad: int = 0, flags=None):
+                   ext_pad: int = 0, flags=None, ext=None, geo=None,
+                   active=None):
     """K7's plain version: returns (u', v', w', F, G, H, rhs), inputs
     untouched; in the distributed mode u', v', w' are deep blocks and
     F, G, H, rhs halo-1 blocks (ops/ns3d.pre_gated). `flags` adds the
-    obstacle velocity BC and mask_fgh (ops/obstacle3d.py)."""
+    obstacle velocity BC and mask_fgh (ops/obstacle3d.py); `ext`, `geo`,
+    `active` select the class mode (module docstring)."""
+    if ext is not None:
+        return _pre_class_plain(u, v, w, dt, cfg, ext, geo, active)
     if offs is not None:
         _mode(u.shape, offs, gext, ext_pad, True)
         return ops.pre_gated(u, v, w, dt, cfg.bcs, cfg.problem, cfg.re,
@@ -214,14 +370,17 @@ def ns3d_pre_plain(u, v, w, dt, cfg: StepConfig3D, offs=None, gext=None,
 
 
 def ns3d_pre(u, v, w, dt, cfg: StepConfig3D, offs=None, gext=None,
-             ext_pad: int = 0, flags=None):
+             ext_pad: int = 0, flags=None, ext=None, geo=None, active=None):
     """K7: boundary conditions in place on u, v, w; returns (F, G, H, rhs).
     dt is a 0-dim tensor beside the fields. One device by default; with
     the shard's global offsets `offs` = (koff, joff, ioff), the global
     interior extents `gext` and `ext_pad` >= 1, u, v, w are the shard's
     deep blocks (local index a is global a - ext_pad + offset) and F, G,
     H, rhs its halo-1 blocks. `flags` (uint8 of u's shape) selects the
-    flag mode."""
+    flag mode; `ext`, `geo` and `active` the class mode, with dt (N,)
+    (module docstring)."""
+    if ext is not None:
+        return _pre_class(u, v, w, dt, cfg, ext, geo, active)
     local, o, G = _mode(u.shape, offs, gext, ext_pad, True)
     if u.device.type == "cpu":
         u1, v1, w1, f, g, h, rhs = ns3d_pre_plain(u, v, w, dt, cfg, offs,
@@ -264,12 +423,16 @@ _POST_ENTRY = {(False, False): NS3D_POST, (True, False): NS3D_POST_FLAGS,
 
 
 def ns3d_post_plain(u, v, w, f, g, h, p, dt, dx, dy, dz, offs=None,
-                    gext=None, flags=None, ragged: bool = False):
+                    gext=None, flags=None, ragged: bool = False, ext=None,
+                    geo=None, active=None):
     """K8's plain version: returns (u'', v'', w'', max|u''|, max|v''|,
     max|w''|); in the distributed mode the gated projection of
     ops/ns3d.post_gated on the shard's halo-1 blocks, with the live-mask
     multiply when `ragged`. `flags` restricts the projection to
-    fluid-fluid faces (ops/obstacle3d.adapt_uvw_obstacle)."""
+    fluid-fluid faces (ops/obstacle3d.adapt_uvw_obstacle); `ext`, `geo`,
+    `active` select the class mode (dx, dy, dz unused)."""
+    if ext is not None:
+        return _post_class_plain(u, v, w, f, g, h, p, dt, ext, geo, active)
     if offs is not None:
         return ops.post_gated(u, v, w, f, g, h, p, dt, dx, dy, dz, offs,
                               gext, flags, ragged)
@@ -286,13 +449,17 @@ def ns3d_post_plain(u, v, w, f, g, h, p, dt, dx, dy, dz, offs=None,
 
 
 def ns3d_post(u, v, w, f, g, h, p, dt, dx, dy, dz, offs=None, gext=None,
-              flags=None, ragged: bool = False):
+              flags=None, ragged: bool = False, ext=None, geo=None,
+              active=None):
     """K8: projection in place on u, v, w; returns (umax, vmax, wmax) as
     0-dim tensors on the fields' device. With the shard's global offsets
     and the global extents, the distributed mode on its halo-1 blocks
     (the maxima are the shard's). `flags` (uint8 of u's shape) selects
     the flag mode, `ragged` the live-mask multiply of a mesh that does
-    not divide the grid."""
+    not divide the grid; `ext`, `geo` and `active` the class mode (dx,
+    dy, dz unused), whose maxima are (N,) each (module docstring)."""
+    if ext is not None:
+        return _post_class(u, v, w, f, g, h, p, dt, ext, geo, active)
     local, o, G = _mode(u.shape, offs, gext, 0, False)
     if ragged and offs is None:
         raise ValueError("the ragged mode needs the shard's offsets and the "

@@ -17,10 +17,13 @@ op for op; this module gives them the shard's global index grids. The same
 forms serve a divisible mesh, where every wall is an array edge of a wall
 shard: models/ns3d_dist.py's phase chain uses them on every mesh.
 Functions take one shard, s, of the mesh (the port's controller loops over
-the shards) and return new tensors.
+the shards) and return new tensors. The offset-0 class forms at the end
+serve the fleet's 3-D shape-class lanes.
 """
 
 from __future__ import annotations
+
+import torch
 
 from ..ops import ns3d as ops
 from .comm import CartComm
@@ -83,3 +86,86 @@ def fgh_fixups_ragged(f, g, h, u, v, w, comm: CartComm, s: int, kl: int,
     (ops/ns3d.fgh_fixups_gated)."""
     grids = global_index_grids(comm, s, kl, jl, il, u.device)
     return ops.fgh_fixups_gated(f, g, h, u, v, w, *grids, (kmax, jmax, imax))
+
+
+# ----------------------------------------------------------------------
+# Offset-0 forms over lane-stacked class blocks (the fleet's 3-D shape-
+# class chunk, fleet/shapeclass.py): one (kc+2, jc+2, ic+2) block per lane
+# on a leading axis, each lane's grid extents as (N, 1, 1, 1) tensors. The
+# JAX package reaches the same arithmetic through the functions above with
+# `grids=` given.
+# ----------------------------------------------------------------------
+
+
+def class_index_grids_3d(kc: int, jc: int, ic: int, device="cpu"):
+    """(gk, gj, gi) of a class block: the global extended index is the
+    block index (offset 0)."""
+    return ops.index_grids((kc + 2, jc + 2, ic + 2), 0, (0, 0, 0), device)
+
+
+def class_masks_3d(grids, kmax, jmax, imax):
+    """(each lane's interior, each lane's live corner) as bool masks of the
+    lane-stacked blocks."""
+    gk, gj, gi = grids
+    in_k, in_j, in_i = ops._interior(gk, gj, gi, (kmax, jmax, imax))
+    return (in_k & in_j & in_i,
+            (gk <= kmax + 1) & (gj <= jmax + 1) & (gi <= imax + 1))
+
+
+def set_bcs_class_3d(u, v, w, bcs: dict, grids, kmax, jmax, imax):
+    """set_boundary_conditions_3d on lane-stacked class blocks, in the
+    reference's face order (ops/ns3d.apply_wall_bcs_3d_gated)."""
+    return ops.apply_wall_bcs_3d_gated(u, v, w, *grids, bcs,
+                                       (kmax, jmax, imax))
+
+
+def set_special_bc_class_3d(u, problem: str, grids, kmax, jmax, imax):
+    """The dcavity lid (skipping the last interior i and k) or the canal
+    inflow on lane-stacked class blocks."""
+    return ops.apply_special_bc_3d_gated(u, *grids, problem,
+                                         (kmax, jmax, imax))
+
+
+def fgh_fixups_class_3d(f, g, h, u, v, w, grids, kmax, jmax, imax):
+    """The F/G/H wall fixups on lane-stacked class blocks."""
+    return ops.fgh_fixups_gated(f, g, h, u, v, w, *grids,
+                                (kmax, jmax, imax))
+
+
+def class_pre_3d(u, v, w, dt, cfg, grids, ext, cell):
+    """The class chain's phases before the solve, on every lane (the JAX
+    package's _class_step_3d, which K7's class mode computes): the wall and
+    special BCs, F/G/H on each lane's interior with the wall fixups, the
+    rhs on the interior. `cfg` holds the static knobs (ops/ns3d_fused.
+    StepConfig3D: bcs, problem, re, gx, gy, gz, gamma); ext (kmax, jmax,
+    imax) and cell (dx, dy, dz, in the fields' dtype) are (N, 1, 1, 1)
+    tensors, dt too. Returns (u', v', w', F, G, H, rhs), new tensors."""
+    kmax, jmax, imax = ext
+    dx, dy, dz = cell
+    u1, v1, w1 = set_bcs_class_3d(u, v, w, cfg.bcs, grids, kmax, jmax, imax)
+    u1 = set_special_bc_class_3d(u1, cfg.problem, grids, kmax, jmax, imax)
+    interior, _live = class_masks_3d(grids, kmax, jmax, imax)
+    zero = ops._const(0.0, u)
+    f, g, h = (torch.where(interior, a, zero)
+               for a in ops.compute_fgh_interior(
+                   u1, v1, w1, dt, cfg.re, cfg.gx, cfg.gy, cfg.gz, cfg.gamma,
+                   dx, dy, dz))
+    f, g, h = fgh_fixups_class_3d(f, g, h, u1, v1, w1, grids, kmax, jmax,
+                                  imax)
+    rhs = torch.where(interior, ops.compute_rhs(f, g, h, dt, dx, dy, dz),
+                      zero)
+    return u1, v1, w1, f, g, h, rhs
+
+
+def class_post_3d(u, v, w, f, g, h, p, dt, grids, ext, cell):
+    """The projection on each lane's interior, then the live-mask multiply
+    (dead cells to 0, -0 where the value was negative), as class_pre_3d's
+    arguments. Returns (u'', v'', w''), new tensors."""
+    interior, live = class_masks_3d(grids, *ext)
+    lm = live.to(u.dtype)
+    out = []
+    for a, new in zip((u, v, w), ops.adapt_terms_3d(f, g, h, p, dt, *cell)):
+        full = a.clone()
+        full[..., 1:-1, 1:-1, 1:-1] = new
+        out.append(torch.where(interior, full, a) * lm)
+    return tuple(out)

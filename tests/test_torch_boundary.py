@@ -231,7 +231,8 @@ def test_kernel_registry():
                                "rb_sor_blocked", "ns2d_pre_flags",
                                "ns2d_post_flags", "mg_class_cycle_2d",
                                "rb_sor_class", "ns2d_pre_class",
-                               "ns2d_post_class"}
+                               "ns2d_post_class", "ns3d_pre_class",
+                               "ns3d_post_class"}
     for k in kb.KERNELS.values():
         assert (ROOT / k.source).is_file()
         path, line = k.replaces.split(":")

@@ -26,7 +26,9 @@ pass a call, `out=` only) on planes and fields of several tiles and of
 one; an MG run on the card
 against the CPU, whose DCT bottom's matrix products sum in another order,
 to 1e-9; a fleet of mg class lanes on the card against the CPU to 1e-9 of
-scale."""
+scale; K7/K8's class mode against their plain versions (boundary copies,
+dead cells and maxima bitwise) and a fleet of 3-D class lanes on the card
+against the CPU to 1e-9 of scale."""
 
 import numpy as np
 import pytest
@@ -1321,6 +1323,118 @@ def test_sor_class_fleet_on_card_matches_cpu(cuda):
     for sid in reqs:
         a, b = runs["cuda"].by_sid(sid), runs["cpu"].by_sid(sid)
         assert a.nt == b.nt and a.mode == b.mode == "class"
+        assert not a.diverged
+        for x, y in zip(a.fields, b.fields):
+            scale = max(1.0, float(np.abs(y).max()))
+            assert np.abs(x - y).max() <= 1e-9 * scale
+
+
+def _class3d_batch(cls, dtype, device, seed):
+    """Lane-stacked inputs of K7/K8's class mode in a cls³ class: a
+    full-class lane, an 8³ one, a ragged one, a canal3d-shaped one (30x4x4
+    box) and one that does not step; u, v, w, p random on each live
+    corner, 0 on the dead cells. Returns (u, v, w, p, ext, cell, dt,
+    active)."""
+    from pampi_tpu_torch.fleet import shapeclass as sc
+
+    lanes = [(cls, cls, cls), (8, 8, 8), (cls - 3, cls - 1, cls - 6),
+             (cls // 2, cls // 2, cls), (cls, cls - 5, cls - 2)]
+    lengths = [(1.0,) * 3, (1.0,) * 3, (1.0,) * 3, (30.0, 4.0, 4.0),
+               (1.0,) * 3]
+    rng = np.random.default_rng(seed)
+    n = len(lanes)
+    fields = np.zeros((4, n) + (cls + 2,) * 3)
+    gm = []
+    for q, ((k, j, i), (xl, yl, zl)) in enumerate(zip(lanes, lengths)):
+        fields[:, q, :k + 2, :j + 2, :i + 2] = rng.normal(
+            size=(4, k + 2, j + 2, i + 2))
+        gm.append(sc.lane_geometry_3d(Parameter(
+            name="dcavity3d", imax=i, jmax=j, kmax=k, xlength=xl,
+            ylength=yl, zlength=zl)))
+    gm = np.array(gm)
+    real = np.float64 if dtype == torch.float64 else np.float32
+    cells = [sc.G3_DX, sc.G3_DY, sc.G3_DZ]
+    return (*(torch.from_numpy(x).to(device, dtype) for x in fields),
+            torch.tensor(lanes, dtype=torch.int32, device=device),
+            torch.from_numpy(np.ascontiguousarray(gm[:, cells], real)).to(
+                device),
+            torch.from_numpy(0.01 + 0.002 * np.arange(n)).to(device, dtype),
+            torch.tensor([True] * (n - 1) + [False], device=device))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("problem", ["dcavity3d", "canal3d"])
+@pytest.mark.parametrize("cls", [16, 32])
+def test_class_k7_k8_match_plain(cuda, dtype, problem, cls):
+    """K7/K8's class mode against their plain versions: boundary copies,
+    dead cells and maxima bitwise, F/G/H/rhs and the projected fields to
+    the tolerance, the inactive lane untouched, 5 and 2 launches a call
+    counted once each."""
+    u, v, w, p, ext, cell, dt, active = _class3d_batch(cls, dtype, cuda,
+                                                       501 + cls)
+    bc = dict(bcLeft=3, bcRight=3) if problem == "canal3d" else {}
+    cfg = nf3.StepConfig3D.from_param(Parameter(name=problem, **bc))
+    kw = dict(ext=ext, geo=cell, active=active)
+    uk, vk, wk = u.clone(), v.clone(), w.clone()
+    counts = (nf3.NS3D_PRE_CLASS.launches, nf3.NS3D_POST_CLASS.launches)
+    fk, gk, hk, rk = nf3.ns3d_pre(uk, vk, wk, dt, cfg, **kw)
+    up, vp, wp, fp, gp, hp, rp = nf3.ns3d_pre_plain(u, v, w, dt, cfg, **kw)
+    for a, b in ((uk, up), (vk, vp), (wk, wp)):
+        assert torch.equal(a, b)
+    for a, b in ((fk, fp), (gk, gp), (hk, hp), (rk, rp)):
+        _assert_close(a, b, dtype)
+    mk = nf3.ns3d_post(uk, vk, wk, fk, gk, hk, p, dt, None, None, None, **kw)
+    *uvw, m1, m2, m3 = nf3.ns3d_post_plain(up, vp, wp, fk, gk, hk, p, dt,
+                                           None, None, None, **kw)
+    for a, b in zip((uk, vk, wk), uvw):
+        _assert_close(a, b, dtype)
+    for a, b, f in zip(mk, (m1, m2, m3), (uk, vk, wk)):
+        assert torch.equal(a, b)
+        assert torch.equal(a, f.abs().amax((-3, -2, -1)))
+    for a, b in ((uk, u), (vk, v), (wk, w)):
+        assert torch.equal(a[-1], b[-1])
+    for q, (k, j, i) in enumerate(ext.tolist()):
+        for a in (uk, vk, wk):
+            assert not a[q, k + 2:].any() and not a[q, :, j + 2:].any()
+            assert not a[q, :, :, i + 2:].any()
+    assert (nf3.NS3D_PRE_CLASS.launches, nf3.NS3D_POST_CLASS.launches) == (
+        counts[0] + 1, counts[1] + 1)
+
+
+def test_class3d_fleet_on_card_matches_cpu(cuda):
+    """Mixed-grid 3-D sor requests (dcavity3d and canal3d, f64,
+    tpu_fuse_phases auto and off) through FleetScheduler(classes="on") on
+    the card and on the CPU: class buckets, the same steps, fields within
+    1e-9 of scale; under auto only K7/K8's class modes launched."""
+    from pampi_tpu_torch.fleet import FleetScheduler
+    from pampi_tpu_torch.kernels import build as kb
+
+    base = dict(tpu_mesh="1", tpu_solver="sor", re=10.0, tau=0.5,
+                itermax=20, eps=1e-4, gamma=0.9, te=0.05, omg=1.7)
+    reqs = {}
+    for knob in ("auto", "off"):
+        reqs.update({
+            f"d0{knob}": dict(base, name="dcavity3d", imax=8, jmax=8,
+                              kmax=8, tpu_fuse_phases=knob),
+            f"d1{knob}": dict(base, name="dcavity3d", imax=10, jmax=9,
+                              kmax=8, u_init=0.1, tpu_fuse_phases=knob),
+            f"c0{knob}": dict(base, name="canal3d", imax=20, jmax=10,
+                              kmax=10, xlength=30.0, ylength=4.0,
+                              zlength=4.0, u_init=1.0, bcLeft=3, bcRight=3,
+                              re=100.0, te=0.5, tpu_fuse_phases=knob)})
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        sched = FleetScheduler(classes="on", device=dev)
+        for sid, kw in reqs.items():
+            sched.submit_param(sid, Parameter(**kw))
+        kb.reset_launches()
+        runs[dev] = sched.run()
+        if dev == "cuda":
+            used = {k for k, v in kb.KERNELS.items() if v.launches}
+            assert used == {"ns3d_pre_class", "ns3d_post_class"}
+    for sid in reqs:
+        a, b = runs["cuda"].by_sid(sid), runs["cpu"].by_sid(sid)
+        assert a.nt == b.nt > 0 and a.mode == b.mode == "class"
         assert not a.diverged
         for x, y in zip(a.fields, b.fields):
             scale = max(1.0, float(np.abs(y).max()))

@@ -5,8 +5,8 @@ lane, the batched runner, the scheduler) against the JAX package's
 Contracts:
 - bucketing: the same groups, grids, class/exact split and labels as the
   JAX package's bucket(..., classes=True); JAX's refusal strings where JAX
-  refuses, the port's own (naming ROADMAP A item 9.2) for 3-D lanes; a 2-D
-  sor request a class lane, as in JAX;
+  refuses (a 3-D mg lane among them); a 2-D and a 3-D sor request class
+  lanes, as in JAX;
 - lane_geometry and ClassSolver.lane_state bitwise JAX's;
 - an f64 mg class batch (dcavity and canal, mixed grids, mixed te) against
   JAX's ClassSolver + BatchedSolver
@@ -147,30 +147,28 @@ def test_bucketing_matches_jax():
             for s, r in zip(queue, jreqs)]
     jb = jfleet.bucket(jreqs, classes=True)
     ours = fleet.bucket(reqs, classes=True, ndevices=8)
-    port_only = {"x_3dsor"}  # JAX class lanes the port refuses
     jgroups = {k.label: [r.sid for r in v] for k, v in jb.items()}
     groups = {k.label: [r.sid for r in v] for k, v in ours.items()}
     for label, sids in groups.items():
-        if not set(sids) & port_only:
-            assert jgroups[label] == sids, label
+        assert jgroups[label] == sids, label
     for key, rs in ours.items():
         for r in rs:
             why = sc.class_eligible(r.param, ndevices=8)
             jwhy = jsc.class_eligible(
                 next(j.param for j in jreqs if j.sid == r.sid))
-            if r.sid in port_only:
-                assert jwhy is None and "ROADMAP A item 9.2" in why
-                assert not key.sig.startswith("cls")
-            else:
-                assert why == jwhy, r.sid
-                assert key.sig.startswith("cls") == (why is None)
+            assert why == jwhy, r.sid
+            assert key.sig.startswith("cls") == (why is None)
     assert ours_key(ours, "a0").grid == (16, 16)
     assert ours_key(ours, "b0").grid == (32, 16)
     assert ours_key(ours, "x_big").grid == (64, 32)
     for grid in ((9, 13), (40, 17), (64, 64)):
         assert sc.padding_waste(grid) == jsc.padding_waste(grid)
-    assert sc.class_eligible(_port(JParameter(**extra["x_3dsor"]))) \
-        == sc.LANE_3D
+    # a 3-D sor request is a class lane, as in JAX; a 3-D mg one is not
+    assert sc.class_eligible(_port(JParameter(**extra["x_3dsor"]))) is None
+    assert ours_key(ours, "x_3dsor").grid == (16, 16, 16)
+    assert ours_key(ours, "x_3dsor").sig.startswith("cls")
+    assert sc.class_eligible(_port(JParameter(**extra["x_3dmg"]))) == (
+        "3-D mg lane (the one-launch class cycle is 2-D)")
     assert sc.class_eligible(_port(JParameter(**QUEUE["s0"]))) is None
     assert ours_key(ours, "s0").sig.startswith("cls")
     last = dispatch.last(f"class_{ours_key(ours, 's0').label}")
