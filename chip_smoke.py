@@ -37,7 +37,7 @@ the last line):
    layouts, split the same way, with the host syncs priced by the same 25
    solve calls back to back; then configs/canal3d.par (200x50x50,
    float64) for 8 steps; every kernel of a path must have been launched;
-5. configs/dcavity.par (100², float64) with te 0.03, once on the card and
+5. configs/dcavity.par (100², float64) with te 0.02, once on the card and
    once on the CPU (`python -m pampi_tpu_torch --device cpu` in a process
    of its own, started with the card half after the timed phases and
    read at the end): the written .dat fields must agree to 1e-9;
@@ -148,7 +148,7 @@ on the one card) adds:
    its first solves run to itermax 1000) on 2x2 and 3x3 and
    configs/canal.par (te 0.5) on 2x2, 3x3 and 3x2, on the card and on the
    CPU: pressure.dat and velocity.dat within 1e-9, the same step count;
-   and configs/dcavity.par to te 0.03 on 2x2 and 3x3 on the
+   and configs/dcavity.par to te 0.02 on 2x2 and 3x3 on the
    card, each in a process of its own beside those runs, against the
    single-device card run of phase 5: u, v, p within 1e-9 of scale, the
    same steps and t.
@@ -362,6 +362,29 @@ plain torch) add:
    32x16x16 class (float64) under tpu_fuse_phases auto and off, one step
    a chunk, on the card and on the CPU: fields within 1e-9 of scale, the
    same steps and per-step iteration counts.
+
+The overlapped exchange schedule (`tpu_overlap on`; the grid-band mode of
+K3 and K7, entries `ns2d_pre_band`, `ns3d_pre_band`) adds:
+
+2. both halves (the interior and the boundary bands of the port's region
+   plan) of each band mode on every shard of dcavity 4096² on 2x2,
+   canal_obstacle.par on 2x2 (flags), dcavity3d 128³ and
+   canal3d_obstacle.par on 2x2x2 (flags), float32 and float64: the BCs and
+   every output on the bands' rows bitwise the full call's, and within the
+   tolerance of the band plain version;
+3. each half on a 2048² shard of 4096² and a 64³ shard of 128³, float32,
+   beside the full call and the bound (the bytes of the rows it covers,
+   over 3.35 TB/s and over the card's rate measured by a 1 GiB copy);
+4. NS-2D dcavity 4096² f32 on 2x2 (K13) and NS-3D dcavity3d 128³ f32 on
+   2x2x2 (K14), 16 steps after a warm-up with `tpu_overlap on` and with
+   `off`, each with the launch counts reset: ms/step, the PRE / solve /
+   POST split, fields bitwise, t and the counts equal, and from
+   torch.profiler's trace of two more steps the side stream's device time
+   and the part of it beside the main stream's work; configs/dcavity.par
+   f64 on 2x2 with `on`, four steps (two a call, then two in one), card
+   against CPU: each step's count, t, fields within 1e-12 of scale;
+   configs/canal_obstacle.par on 2x2 (flag K3 band, K15), five steps, `on`
+   against `off`: counts, t and fields bitwise.
 
 It then prints the kernels line (JSON; K5-K8 and K11/K12 at 256³, where a
 field outgrows the L2 and the bound is a floor, with their 128³ numbers
@@ -1624,8 +1647,10 @@ def mg_fft_card_vs_cpu(torch):
 # s on the card; te 0.05 (400 steps) took 143.7 s on the CPU, so it runs
 # in a process of its own beside the card's last phases. te 0.03 since the
 # ragged NS-3D phases joined those processes: at te 0.05 the 3x3 mesh run
-# of dist2d_cli (host-bound, 361-618 s) took the script to 855-1013 s
-DCAVITY_TE = 0.03
+# of dist2d_cli (host-bound, 361-618 s) took the script to 855-1013 s; te
+# 0.02 since the overlapped schedule's phases: at te 0.03 the mesh runs
+# took 393-468 s of a 690-880 s script
+DCAVITY_TE = 0.02
 # the card's fields at DCAVITY_TE (full precision, and as written to the
 # .dat files), which the CPU half and the mesh runs of dist2d_cli are held
 # against; the CPU half's process and directory
@@ -6520,6 +6545,454 @@ def fleet3d_card_vs_cpu(np):
     return bad
 
 
+# -- the overlapped exchange schedule (`tpu_overlap on`): the grid-band mode
+# of K3 and K7 and the overlapped NS-2D and NS-3D steps --------------------
+
+def band_cases_2d():
+    """(label, param, mesh, shard index) of the K3 band checks: the 2048²
+    shards of dcavity 4096² on 2x2 (the main path's) and canal_obstacle.par
+    (512x128) on 2x2 with its flags."""
+    J, I = MAIN
+    return (("dcavity 4096² 2x2", config("dcavity.par", imax=I, jmax=J),
+             (2, 2)),
+            ("canal_obstacle.par 2x2", config("canal_obstacle.par"), (2, 2)))
+
+
+def band_cases_3d():
+    """(label, param, mesh) of the K7 band checks: the 64³ shards of
+    dcavity3d 128³ on 2x2x2 and canal3d_obstacle.par (128x32x32) on 2x2x2
+    with its flags."""
+    return (("dcavity3d 128³ 2x2x2", config("dcavity3d.par"), (2, 2, 2)),
+            ("canal3d_obstacle.par 2x2x2", config("canal3d_obstacle.par"),
+             (2, 2, 2)))
+
+
+def band_plan(local, dims, rows):
+    """The port's region plan of a shard geometry (the overlapped step's)
+    and its interior mask on the card."""
+    from pampi_tpu_torch.parallel import overlap as ovl
+
+    part = tuple(d > 1 for d in dims)
+    return (ovl.pre_plan(local, part, 2, rows),
+            ovl.interior_mask(local, ovl.OVERLAP_RIM, part, "cuda"))
+
+
+def band_call(torch, pre, plain, deep, tail, bands, full):
+    """One band call (kernel `pre`) on copies of the deep blocks against
+    the full kernel call `full` ((deep blocks after the BCs, outputs)) and
+    the band plain version: (BCs bitwise, outputs bitwise the full call's
+    on their rows, max abs error against the plain version there, its
+    rel_err, plain bitwise)."""
+    blocks = [x.clone() for x in deep]
+    out = pre(*blocks, *tail, bands=bands)
+    pl = plain(*deep, *tail, bands=bands)
+    nd = len(deep)
+    bcs = all(torch.equal(a, b) for a, b in zip(blocks, full[0]))
+    exact = every = True
+    err = rel = 0.0
+    for a, b, c in zip(out, full[1], pl[nd:]):
+        rows = ~torch.isnan(c)  # the plain version's NaN: outside the bands
+        exact = exact and torch.equal(a[rows], b[rows])
+        every = every and torch.equal(a[rows], c[rows])
+        err = max(err, float((a[rows] - c[rows]).abs().max()))
+        rel = max(rel, rel_err(a[rows], c[rows]))
+    return bcs, exact, err, rel, every
+
+
+def check_band_family(torch, np, three_d, label, param, dims, dtype, seed):
+    """Every shard of one mesh: each half (interior and boundary bands of
+    the port's plan) of K3's or K7's band mode against the full call and
+    the band plain version; returns (ok, max_abs_err, text)."""
+    from pampi_tpu_torch.ops import ns2d_fused as nf
+    from pampi_tpu_torch.ops import ns3d_fused as nf3
+    from pampi_tpu_torch.parallel.comm import CartComm
+
+    comm = CartComm(ndims=len(dims), dims=dims, devices=["cuda"])
+    names = ("kmax", "jmax", "imax")[3 - len(dims):]
+    gext = tuple(getattr(param, n) for n in names)
+    local = comm.local_shape(gext, ragged=True)
+    plan, _mask = band_plan(local, dims, nf3.BAND_ROWS if three_d
+                            else nf.BAND_ROWS)
+    if plan is None:
+        raise AssertionError(f"{label}: the shards have no interior region")
+    fl = [None] * comm.size
+    if param.obstacles.strip():
+        fl = obstacle_flag_blocks(param, comm, local, three_d)
+    if three_d:
+        cfg = nf3.StepConfig3D.from_param(param)
+        pre, plain, nfield = nf3.ns3d_pre, nf3.ns3d_pre_plain, 3
+    else:
+        cfg = nf.StepConfig.from_param(param)
+        pre, plain, nfield = nf.ns2d_pre, nf.ns2d_pre_plain, 2
+    dt = torch.tensor(1e-3, dtype=dtype, device="cuda")
+    ok, err, worst = True, 0.0, 0.0
+    for s in range(comm.size):
+        off = comm.offsets(s, local)
+        deep = rng_fields(torch, np, tuple(e + 6 for e in local), dtype,
+                          nfield, seed + s)
+        tail = (dt, cfg, off, gext, 2, fl[s])
+        blocks = [x.clone() for x in deep]
+        full = (blocks, pre(*blocks, *tail))
+        for half in ("int_bands", "bnd_bands"):
+            bcs, exact, e, r, every = band_call(torch, pre, plain, deep,
+                                                tail, plan[half], full)
+            ok = ok and bcs and exact and r <= tol(torch, dtype)
+            err, worst = max(err, e), max(worst, r)
+    kind = "K7" if three_d else "K3"
+    text = (f"{kind} band {dtype} {label} ({'x'.join(map(str, local))} "
+            f"shards, bands {plan['int_bands']} / {plan['bnd_bands']}), every "
+            f"shard, both halves: BCs and outputs bitwise the full call's "
+            f"inside the bands, max_abs_err vs plain {err:.3e}, max_rel_err "
+            f"{worst:.3e} (tol {tol(torch, dtype):g}) "
+            f"{'ok' if ok else 'FAIL'}")
+    return ok, err, text
+
+
+def obstacle_flag_blocks(param, comm, local, three_d):
+    """Every shard's deep flag block (uint8, on the card) of an obstacle
+    config, as the distributed solvers cut them."""
+    if three_d:
+        from pampi_tpu_torch.ops import obstacle3d as obst3
+        from pampi_tpu_torch.utils.grid import Grid
+
+        g = Grid(imax=param.imax, jmax=param.jmax, kmax=param.kmax,
+                 xlength=param.xlength, ylength=param.ylength,
+                 zlength=param.zlength)
+        m = obst3.make_masks_3d(obst3.build_fluid_3d(
+            g.imax, g.jmax, g.kmax, g.dx, g.dy, g.dz, param.obstacles),
+            g.dx, g.dy, g.dz, param.omg)
+        return [obst3.deep_flag_block_3d(m, comm, s, *local, 3, "cuda")
+                for s in range(comm.size)]
+    from pampi_tpu_torch.ops import obstacle as obst
+
+    dx, dy = param.xlength / param.imax, param.ylength / param.jmax
+    m = obst.make_masks(obst.build_fluid(param.imax, param.jmax, dx, dy,
+                                         param.obstacles), dx, dy, param.omg)
+    return [obst.deep_flag_block(m, comm, s, *local, 3, param.jmax,
+                                 param.imax, "cuda")
+            for s in range(comm.size)]
+
+
+BAND_ERR = {}  # each band kernel's max_abs_err, from its checks
+
+
+@phase("grid-band K3 and K7 vs the full call and their plain versions")
+def check_band_kernels(torch, np):
+    bad = []
+    for three_d, cases in ((False, band_cases_2d()), (True, band_cases_3d())):
+        name = "ns3d_pre_band" if three_d else "ns2d_pre_band"
+        for label, param, dims in cases:
+            for dtype in (torch.float32, torch.float64):
+                ok, err, text = check_band_family(torch, np, three_d, label,
+                                                  param, dims, dtype, 211)
+                log(text)
+                BAND_ERR[name] = max(BAND_ERR.get(name, 0.0), err)
+                if not ok:
+                    bad.append(f"{name} {label} {dtype}")
+                torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"band kernels disagree: {bad}")
+
+
+def copy_rate(torch):
+    """The card's measured device-memory rate, bytes/s: a 1 GiB
+    device-to-device copy (2 GiB moved), CUDA events."""
+    x = torch.empty(1 << 28, dtype=torch.float32, device="cuda")
+    y = torch.empty_like(x)
+    ms = cuda_ms(torch, lambda: y.copy_(x), 10)
+    return 2 * x.numel() * 4 / (ms * 1e-3)
+
+
+def band_bytes(ranges, local, size, three_d):
+    """Bytes a band call must move: u, v (w) read on its rows and the rows
+    their stencils reach (one more each side, and one below each band for
+    the F/G/H row that rhs reads), F, G (H) written on its rows and the
+    row below, rhs on its rows; the BC strips not counted."""
+    nf = 3 if three_d else 2
+    row = 1
+    for e in local[1:]:
+        row *= e + 2
+    deep_row = 1
+    for e in local[1:]:
+        deep_row *= e + 6
+    rows = sum(hi - lo for lo, hi in ranges)
+    return size * (nf * (rows + 3 * len(ranges)) * deep_row
+                   + nf * (rows + len(ranges)) * row + rows * row)
+
+
+@phase("grid-band K3 and K7: times per shard call (4096² f32 on 2x2, 128³ "
+       "f32 on 2x2x2)")
+def time_band_kernels(torch, np):
+    from pampi_tpu_torch.ops import ns2d_fused as nf
+    from pampi_tpu_torch.ops import ns3d_fused as nf3
+    from pampi_tpu_torch.parallel import overlap as ovl
+    from pampi_tpu_torch.parallel.comm import CartComm
+
+    rate = copy_rate(torch)
+    rows = {}
+    for three_d, (label, param, dims) in ((False, band_cases_2d()[0]),
+                                          (True, band_cases_3d()[0])):
+        mod = nf3 if three_d else nf
+        name = "ns3d_pre_band" if three_d else "ns2d_pre_band"
+        comm = CartComm(ndims=len(dims), dims=dims, devices=["cuda"])
+        names = ("kmax", "jmax", "imax")[3 - len(dims):]
+        gext = tuple(getattr(param, n) for n in names)
+        local = comm.local_shape(gext)
+        plan, _ = band_plan(local, dims, mod.BAND_ROWS)
+        cfg = (nf3.StepConfig3D if three_d else nf.StepConfig).from_param(
+            param)
+        pre, plain = ((nf3.ns3d_pre, nf3.ns3d_pre_plain) if three_d else
+                      (nf.ns2d_pre, nf.ns2d_pre_plain))
+        nfield = 3 if three_d else 2
+        deep = rng_fields(torch, np, tuple(e + 6 for e in local),
+                          torch.float32, nfield, 223)
+        dt = torch.tensor(1e-3, dtype=torch.float32, device="cuda")
+        tail = (dt, cfg, comm.offsets(0, local), gext, 2)
+        full_ms = cuda_ms(torch, lambda: pre(*deep, *tail), 20)
+        _fops, fbusy = device_trace(torch, lambda: pre(*deep, *tail))
+        row = {}
+        for half, key in (("int_bands", ""), ("bnd_bands", "boundary_")):
+            bands = plan[half]
+            ranges = ovl.band_ranges(bands, mod.BAND_ROWS, local[0] + 6, 2,
+                                     mod.MAX_BANDS)
+            ms = cuda_ms(torch, lambda: pre(*deep, *tail, bands=bands), 20)
+            ops, busy = device_trace(torch, lambda: pre(*deep, *tail,
+                                                         bands=bands))
+            pms = cuda_ms(torch, lambda: plain(*deep, *tail, bands=bands), 3)
+            nbytes = band_bytes(ranges, local, 4, three_d)
+            # ~70 (2-D) or ~100 (3-D) flops a cell of the predictor
+            cells = sum(hi - lo for lo, hi in ranges)
+            for e in local[1:]:
+                cells *= e + 2
+            b = bound(nbytes, (100 if three_d else 70) * cells)
+            row.update({f"{key}ms": ms, f"{key}plain_ms": pms,
+                        f"{key}busy_ms": busy, f"{key}device_ops": ops,
+                        f"{key}bound_ms": b[0], f"{key}bound_by": b[1],
+                        f"{key}bound_measured_rate_ms":
+                            nbytes / rate * 1e3,
+                        f"{key}bands": [list(x) for x in bands]})
+            log(f"{name} {label} f32, {'interior' if not key else 'boundary'}"
+                f" half (bands {bands}, {sum(h - l for l, h in ranges)} of "
+                f"{local[0] + 2} rows): {ms:.4f} ms per shard call, the card "
+                f"busy {'not measured' if busy is None else f'{busy:.4f}'} "
+                f"ms of it in {launches_text(ops)} device operations (plain "
+                f"{pms:.4f}; the full call {full_ms:.4f}, busy "
+                f"{'not measured' if fbusy is None else f'{fbusy:.4f}'}); "
+                f"bound {b[0]:.4f} "
+                f"ms by {b[1]} at 3.35 TB/s, {nbytes / rate * 1e3:.4f} ms at "
+                f"the measured {rate / 1e12:.3f} TB/s")
+        row.update(full_call_ms=full_ms, full_call_busy_ms=fbusy,
+                   measured_rate_tb_s=rate / 1e12,
+                   max_abs_err=BAND_ERR.get(name, 0.0),
+                   shape=f"{'x'.join(map(str, local))} shard of "
+                         f"{'x'.join(map(str, gext))} on "
+                         f"{'x'.join(map(str, dims))}, f32")
+        rows[name] = row
+        del deep
+        torch.cuda.empty_cache()
+    return rows
+
+
+def side_overlap(torch, run):
+    """torch.profiler's trace of run(): (the device time of operations on
+    streams other than the busiest one, the part of it that ran while the
+    busiest stream ran, in ms, and a summary {stream: (operations, busy
+    ms, the commonest operation's name)}); (None, None, None) where the
+    trace holds no device event or no stream ids."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    streams, names = {}, {}
+    for e in ops:
+        sid = getattr(e, "device_resource_id", None)
+        if sid is None:
+            return None, None, None
+        streams.setdefault(sid, []).append(
+            (e.time_range.start, e.time_range.end))
+        names.setdefault(sid, Counter())[e.name[:40]] += 1
+    summary = {sid: (len(iv), sum(b - a for a, b in iv) / 1e3,
+                     names[sid].most_common(1)[0][0])
+               for sid, iv in streams.items()}
+    if len(streams) < 2:
+        return (0.0, 0.0, summary) if ops else (None, None, None)
+    main = max(streams, key=lambda k: sum(b - a for a, b in streams[k]))
+    busy = sorted(streams.pop(main))
+    side = sum(b - a for k in streams for a, b in streams[k])
+    hidden = 0
+    for k in streams:
+        for a, b in streams[k]:
+            for c, d in busy:
+                if c >= b:
+                    break
+                hidden += max(0, min(b, d) - max(a, c))
+    return side / 1e3, hidden / 1e3, summary
+
+
+def per_step_counts(s, n):
+    """n steps one call each (a prologue exchange every step under the
+    overlapped schedule), every step's iteration count."""
+    its = []
+    for _ in range(n):
+        s.run_steps(1)
+        its.append(int(s.last_it))
+    return its
+
+
+def same_fields(a, b):
+    """Whether two distributed solvers hold bitwise equal global fields."""
+    import numpy as np
+
+    ga, gb = a.global_fields(), b.global_fields()
+    return all(np.array_equal(ga[k], gb[k], equal_nan=True) for k in ga)
+
+
+@phase("main path: the overlapped schedule (tpu_overlap on) of NS-2D "
+       "4096² on 2x2 and NS-3D 128³ on 2x2x2, dcavity.par f64 card vs CPU, "
+       "canal_obstacle.par on against off")
+def main_path_overlap(torch):
+    from pampi_tpu_torch.kernels import build as kb
+    from pampi_tpu_torch.models.ns2d_dist import NS2DDistSolver
+    from pampi_tpu_torch.models.ns3d_dist import NS3DDistSolver
+    from pampi_tpu_torch.parallel.comm import CartComm
+    from pampi_tpu_torch.utils import dispatch
+
+    counts, bad = [], []
+    (_, p2, d2) = dist2d_main_configs()[0]
+    (p3, d3), _ = dist3d_main_configs()
+    for label, cls, param, dims, kernels in (
+            ("NS-2D dcavity 4096² f32 2x2", NS2DDistSolver, p2, d2,
+             ("rb_sor_qdist", "ns2d_pre_band", "ns2d_post")),
+            ("NS-3D dcavity3d 128³ f32 2x2x2", NS3DDistSolver,
+             p3.replace(tpu_mesh="2x2x2"), d3,
+             ("rb_sor_odist", "ns3d_pre_band", "ns3d_post"))):
+        fam = "ns3d_dist" if cls is NS3DDistSolver else "ns2d_dist"
+        res = {}
+        solvers = {}
+        for knob in ("on", "off"):
+            s = cls(param.replace(tpu_overlap=knob),
+                    CartComm(ndims=len(dims), dims=dims))
+            solvers[knob] = s
+            rec = {k: dispatch.last(f"{k}_{fam}")
+                   for k in ("overlap", "overlap_grid", "sweep_split")}
+            c, r = drive_path(kb, f"{label} tpu_overlap {knob}",
+                              kernels if knob == "on" else
+                              (kernels[0], kernels[1][:-5], kernels[2]),
+                              lambda: dist2d_steps(torch, s, 16))
+            counts.append(c)
+            res[knob] = r
+            log(f"{label} tpu_overlap {knob}: {r['ms']:.3f} ms/step (host "
+                f"clock); PRE {r['pre']:.3f} / solve {r['solve']:.3f} / POST "
+                f"{r['post']:.3f} ms (CUDA events); records {rec}; PRE "
+                f"launches a step {c[kernels[1]] / 17:.1f} band, "
+                f"{c[kernels[1][:-5]] / 17:.1f} full")
+        on, off = solvers["on"], solvers["off"]
+        bitwise = same_fields(on, off)
+        text = (f"nt {on.nt} / {off.nt}, t {on.t!r} / {off.t!r}, last "
+                f"counts {on.last_it} / {off.last_it}, fields bitwise "
+                f"{bitwise}")
+        ok = (on.nt == off.nt == 17 and on.t == off.t
+              and on.last_it == off.last_it and bitwise)
+        side, hidden, streams = side_overlap(torch,
+                                             lambda: on.run_steps(2))
+        log(f"{label}: on against off over 17 steps: {text}; "
+            f"ms/step on {res['on']['ms']:.3f} against off "
+            f"{res['off']['ms']:.3f}; the side stream's device time over 2 "
+            f"steps (torch.profiler): "
+            + ("not measured" if side is None else
+               f"{side:.3f} ms, {hidden:.3f} ms of it beside the main "
+               f"stream's work; streams (operations, busy ms, commonest) "
+               f"{streams}") + f" {'ok' if ok else 'FAIL'}")
+        del on, off, solvers
+        torch.cuda.empty_cache()
+        # the timing once more in the other order (on, off, off, on), on
+        # fresh solvers
+        again = {}
+        for knob in ("off", "on"):
+            s = cls(param.replace(tpu_overlap=knob),
+                    CartComm(ndims=len(dims), dims=dims))
+            again[knob] = dist2d_steps(torch, s, 16)
+            del s
+            torch.cuda.empty_cache()
+        log(f"{label}, again (off, then on): ms/step off "
+            f"{again['off']['ms']:.3f} (PRE {again['off']['pre']:.3f} / "
+            f"solve {again['off']['solve']:.3f} / POST "
+            f"{again['off']['post']:.3f}), on {again['on']['ms']:.3f} (PRE "
+            f"{again['on']['pre']:.3f} / solve {again['on']['solve']:.3f} / "
+            f"POST {again['on']['post']:.3f})")
+        OVERLAP_STEPS[label] = dict(
+            on_ms=[res["on"]["ms"], again["on"]["ms"]],
+            off_ms=[res["off"]["ms"], again["off"]["ms"]],
+            on_split=[res["on"], again["on"]],
+            off_split=[res["off"], again["off"]], side_ms=side,
+            side_hidden_ms=hidden)
+        if not ok:
+            bad.append(f"{label} on vs off")
+
+    # configs/dcavity.par f64 on 2x2, overlapped, card against CPU: each
+    # step's count, t and the fields (1e-12 of scale)
+    par = config("dcavity.par", tpu_mesh="2x2", tpu_overlap="on",
+                 tpu_overlap_restrict="on", te=1e9)
+    card = NS2DDistSolver(par, CartComm(ndims=2, dims=(2, 2)))
+    cpu = NS2DDistSolver(par, CartComm(ndims=2, dims=(2, 2),
+                                       devices=["cpu"]))
+
+    def steps(s):
+        # two steps a call each (a prologue each), then two in one call
+        # (POST's maxima carried)
+        its = per_step_counts(s, 2)
+        s.run_steps(2)
+        return its
+
+    c, its = drive_path(kb, "dcavity.par f64 2x2 tpu_overlap on",
+                        ("rb_sor_qdist", "ns2d_pre_band", "ns2d_post"),
+                        lambda: steps(card))
+    counts.append(c)
+    cits = steps(cpu)
+    gc, gp = card.global_fields(), cpu.global_fields()
+    diff = max(float(abs(gc[k] - gp[k]).max()) for k in gc)
+    scale = max(1.0, max(float(abs(gp[k]).max()) for k in gp))
+    ok = its == cits and card.t == cpu.t and diff <= 1e-12 * scale
+    log(f"configs/dcavity.par f64 on 2x2, tpu_overlap on, 4 steps: counts "
+        f"card {its} / CPU {cits}, t {card.t!r} / {cpu.t!r}, max |card - "
+        f"CPU| {diff:.3e} (limit {1e-12 * scale:.3e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        bad.append("dcavity.par 2x2 card vs CPU")
+
+    # canal_obstacle.par on 2x2 (flag K3 band, K15 on real flags): on
+    # against off on the card, bitwise
+    par = config("canal_obstacle.par", tpu_mesh="2x2", te=1e9)
+    runs = {}
+    for knob in ("on", "off"):
+        s = NS2DDistSolver(par.replace(tpu_overlap=knob),
+                           CartComm(ndims=2, dims=(2, 2)))
+        c, its = drive_path(kb, f"canal_obstacle.par 2x2 tpu_overlap {knob}",
+                            ("rb_sor_obsdist", "ns2d_pre_band" if knob == "on"
+                             else "ns2d_pre_flags", "ns2d_post_flags"),
+                            lambda: per_step_counts(s, 5))
+        counts.append(c)
+        runs[knob] = (s, its)
+    (on, ion), (off, ioff) = runs["on"], runs["off"]
+    ok = ion == ioff and on.t == off.t and same_fields(on, off)
+    log(f"canal_obstacle.par f64 on 2x2, 5 steps: counts on {ion} / off "
+        f"{ioff}, t {on.t!r} / {off.t!r}, fields bitwise "
+        f"{same_fields(on, off)} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        bad.append("canal_obstacle.par on vs off")
+    if bad:
+        raise AssertionError(f"the overlapped schedule disagrees: {bad}")
+    return counts
+
+
+OVERLAP_STEPS = {}  # main_path_overlap's ms/step, on and off
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -6557,6 +7030,7 @@ def main() -> int:
         check_class_kernel(torch, np)
         check_sor_class_kernels(torch, np)
         check_class3d_kernels(torch, np)
+        check_band_kernels(torch, np)
     if CHECKS_ONLY:
         log(f"checks only; failed: {FAILED}")
         return 1 if FAILED else 0
@@ -6575,6 +7049,7 @@ def main() -> int:
         k18_rows = time_class_kernel(torch, np)
         sor_class_rows = time_sor_class_kernels(torch, np)
         class3d_rows = time_class3d_kernels(torch, np)
+        band_rows = time_band_kernels(torch, np)
         sor_ns2d = {}
         counts = main_path(torch, sor_ns2d)
         counts3 = main_path_3d(torch)
@@ -6596,6 +7071,7 @@ def main() -> int:
         counts_fl = main_path_fleet(torch)
         counts_fs = main_path_fleet_sor(torch)
         counts_f3 = main_path_fleet_3d(torch)
+        counts_ov = main_path_overlap(torch)
         fleet_card_vs_cpu(np)
         # no times are taken from here on: the CPU half of dcavity_card
         # and the canal3d_obstacle.par mesh and CPU runs run beside the
@@ -6614,8 +7090,8 @@ def main() -> int:
         counts_r3cli = ragged3d_cli(np)
         if None not in (rows, rows3, mg_rows, q_rows, d3_rows, d2_rows,
                         o3_rows, r3_rows, o2_rows, cli_rows, sor_cli_rows,
-                        k18_rows, sor_class_rows, class3d_rows, counts_fs,
-                        counts_f3, counts,
+                        k18_rows, sor_class_rows, class3d_rows, band_rows,
+                        counts_fs, counts_f3, counts_ov, counts,
                         counts3,
                         counts_mg, counts_dist, counts_cli, counts_d3,
                         counts_d3cli, counts_d2, counts_d2cards,
@@ -6624,6 +7100,7 @@ def main() -> int:
                         counts_omgcli, counts_r3, counts_r3cli):
             rows = {**rows, **rows3, **mg_rows[0], **q_rows, **o3_rows,
                     **o2_rows, **k18_rows, **sor_class_rows, **class3d_rows,
+                    **band_rows,
                     "rb_sor_odist": d3_rows["rb_sor_odist"],
                     "rb_sor_obsdist": {**d2_rows["rb_sor_obsdist"],
                                        **o2_rows["rb_sor_obsdist"],
@@ -6643,7 +7120,7 @@ def main() -> int:
             paths = (counts + counts3 + counts_mg + counts_d3 + counts_d2
                      + counts_d2cli + counts_o3 + counts_o3cli + counts_o2
                      + counts_o2cli + counts_omg + counts_omgcli
-                     + counts_r3 + counts_r3cli
+                     + counts_r3 + counts_r3cli + counts_ov
                      + [counts_dist, counts_cli, counts_d3cli,
                         counts_d2cards, counts_fl, counts_fs, counts_f3])
             counts = {k: sum(c.get(k, 0) for c in paths)

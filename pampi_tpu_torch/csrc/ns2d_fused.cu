@@ -92,6 +92,16 @@
 // interior, the live-mask multiply that keeps the dead cells 0 (K4's ragged
 // mode) and per-block partial maxima of |u|, |v| over the live cells, then
 // a block per lane that reduces them (max is exact in any order).
+//
+// The grid-band mode of the distributed PRE (the overlapped step's two
+// halves, make_fused_pre_2d(grid_bands=) of the JAX package;
+// parallel/overlap.py): the BCs run on the whole deep block as in the full
+// call, F/G and rhs only on bands of the halo-1 block's rows, a CTA row
+// mapped to its band through a table of at most four bands passed by
+// value. rhs reads G one row down, so the F/G launch also covers the row
+// below each band. Every value stored inside a band is the full call's,
+// bit for bit (the same code on the same cells); the rows outside are not
+// written. What bounds it: the bytes of the rows it covers.
 
 #include <cuda_runtime.h>
 
@@ -424,6 +434,53 @@ struct Dist {
   int Lj, Li, e, joff, ioff, Gj, Gi;
 };
 
+// The grid-band mode (the overlapped step's interior and boundary halves,
+// make_fused_pre_2d(grid_bands=) of the JAX package): F/G and rhs cover
+// only bands of the halo-1 block's rows. Band b is rows [lo[b], hi[b]),
+// its CTA rows (blockIdx.y) start at cta[b]; n == 0 is the full sweep.
+// A table of at most MAXB bands travels by value.
+constexpr int MAXB = 4;
+struct Bands {
+  int n;
+  int lo[MAXB], hi[MAXB], cta[MAXB + 1];
+};
+
+// the row of thread row t of CTA row y (rows of `step` rows a CTA row),
+// or -1 past its band's end; the full sweep's row without bands. The
+// table is read at constant indices only (an unrolled select), so it stays
+// in the kernel's parameter space: a runtime index would copy it to local
+// memory in every thread.
+__device__ __forceinline__ int band_row(const Bands& b, int y, int t,
+                                        int step) {
+  if (b.n == 0) return y * step + t;
+  int lo = b.lo[0], hi = b.hi[0], c0 = 0;
+#pragma unroll
+  for (int q = 1; q < MAXB; ++q)
+    if (q < b.n && y >= b.cta[q]) {
+      lo = b.lo[q];
+      hi = b.hi[q];
+      c0 = b.cta[q];
+    }
+  const int r = lo + (y - c0) * step + t;
+  return r < hi ? r : -1;
+}
+
+// the table of rows [lo, hi) per band from ranges = [n, lo0, hi0, ...],
+// each band's start moved `widen` rows down (clipped at 0); CTA rows of
+// `step` rows
+Bands make_bands(const int* ranges, int widen, int step) {
+  Bands b{};
+  b.n = ranges == nullptr ? 0 : ranges[0];
+  b.cta[0] = 0;
+  for (int k = 0; k < b.n; ++k) {
+    const int lo = ranges[1 + 2 * k] - widen;
+    b.lo[k] = lo < 0 ? 0 : lo;
+    b.hi[k] = ranges[2 + 2 * k];
+    b.cta[k + 1] = b.cta[k] + (b.hi[k] - b.lo[k] + step - 1) / step;
+  }
+  return b;
+}
+
 // the deep block of a Dist as a flag-mode block
 __device__ __host__ __forceinline__ Blk deep_blk(const Dist& d) {
   return Blk{d.Lj + 2 + 2 * d.e, d.Li + 2 + 2 * d.e, d.joff - d.e,
@@ -513,10 +570,10 @@ __global__ void fg_cells_dist(const T* __restrict__ u,
                               const T* __restrict__ v,
                               const T* __restrict__ dtp, T* __restrict__ f,
                               T* __restrict__ g, Dist d, Coef<T> c,
-                              const uint8_t* __restrict__ fl) {
+                              const uint8_t* __restrict__ fl, Bands bd) {
   const int i = blockIdx.x * BX + threadIdx.x;
-  const int j = blockIdx.y * BY + threadIdx.y;
-  if (i > d.Li + 1 || j > d.Lj + 1) return;
+  const int j = band_row(bd, blockIdx.y, threadIdx.y, BY);
+  if (i > d.Li + 1 || j < 0 || j > d.Lj + 1) return;
   const size_t Wd = d.Li + 2 + 2 * d.e;
   const size_t kd = (size_t)(j + d.e) * Wd + (i + d.e);
   const size_t k = (size_t)j * (d.Li + 2) + i;
@@ -538,10 +595,10 @@ template <typename T>
 __global__ void rhs_cells_dist(const T* __restrict__ f,
                                const T* __restrict__ g,
                                const T* __restrict__ dtp, T* __restrict__ rhs,
-                               Dist d, T dx, T dy) {
+                               Dist d, T dx, T dy, Bands bd) {
   const int i = blockIdx.x * BX + threadIdx.x;
-  const int j = blockIdx.y * BY + threadIdx.y;
-  if (i > d.Li + 1 || j > d.Lj + 1) return;
+  const int j = band_row(bd, blockIdx.y, threadIdx.y, BY);
+  if (i > d.Li + 1 || j < 0 || j > d.Lj + 1) return;
   const size_t W = d.Li + 2;
   const size_t k = (size_t)j * W + i;
   const int gj = j + d.joff, gi = i + d.ioff;
@@ -674,7 +731,8 @@ int run_post(int dev, T* u, T* v, const T* f, const T* g, const T* p,
 template <typename T>
 int run_pre_dist(int dev, T* u, T* v, const T* dt, T* f, T* g, T* rhs,
                  const int* geo, const int* bc, int problem, const double* c,
-                 const uint8_t* fl, T* us, T* vs, void* stream) {
+                 const uint8_t* fl, T* us, T* vs, void* stream,
+                 const int* bands = nullptr) {
   cudaError_t e = cudaSetDevice(dev);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = (cudaStream_t)stream;
@@ -687,11 +745,18 @@ int run_pre_dist(int dev, T* u, T* v, const T* dt, T* f, T* g, T* rhs,
   if (fl != nullptr) run_obstacle_bc(u, v, fl, us, vs, deep_blk(d), st);
   const Coef<T> k{T(c[0]), T(c[1]), T(c[2]), T(c[3]), T(c[4]),
                   T(c[5]), T(c[6]), T(c[7]), T(c[8])};
-  const dim3 grd = cell_grid(d.Lj, d.Li);
+  // with bands: rhs on the bands' rows, F/G also on the row below each
+  // band (rhs reads G one row down)
+  const Bands fgb = make_bands(bands, 1, BY), rhb = make_bands(bands, 0, BY);
+  dim3 grd = cell_grid(d.Lj, d.Li);
   const dim3 blk(BX, BY);
-  fg_cells_dist<T><<<grd, blk, 0, st>>>(u, v, dt, f, g, d, k, fl);
-  rhs_cells_dist<T><<<grd, blk, 0, st>>>(f, g, dt, rhs, d, T(c[9]),
-                                         T(c[10]));
+  if (fgb.n > 0) grd.y = fgb.cta[fgb.n];
+  if (grd.y > 0)
+    fg_cells_dist<T><<<grd, blk, 0, st>>>(u, v, dt, f, g, d, k, fl, fgb);
+  if (rhb.n > 0) grd.y = rhb.cta[rhb.n];
+  if (grd.y > 0)
+    rhs_cells_dist<T><<<grd, blk, 0, st>>>(f, g, dt, rhs, d, T(c[9]),
+                                           T(c[10]), rhb);
   return (int)cudaGetLastError();
 }
 
@@ -935,6 +1000,21 @@ int ns2d_post_partials(int J, int I) {
                            (T*)us, (T*)vs, stream);                          \
   }
 
+// the grid-band mode of the distributed PRE: bands = [n, lo0, hi0, ...],
+// n <= 4 sorted disjoint ranges of the halo-1 block's rows; F, G and rhs
+// are written on those rows (F/G one row more below each), the BCs on the
+// whole deep block as in the full call
+#define PRE_BAND_ENTRY(NAME, T)                                              \
+  int NAME(int dev, void* u, void* v, const void* dt, void* f, void* g,      \
+           void* rhs, const int* geo, const int* bc, int problem,            \
+           const double* c, const void* fl, void* us, void* vs,              \
+           const int* bands, void* stream) {                                 \
+    if (bands[0] < 1 || bands[0] > MAXB) return (int)cudaErrorInvalidValue;  \
+    return run_pre_dist<T>(dev, (T*)u, (T*)v, (const T*)dt, (T*)f, (T*)g,    \
+                           (T*)rhs, geo, bc, problem, c, (const uint8_t*)fl, \
+                           (T*)us, (T*)vs, stream, bands);                   \
+  }
+
 // geo = [Lj, Li, joff, ioff, Gj, Gi]; every block is the shard's halo-1
 #define POST_DIST_ENTRY(NAME, T)                                             \
   int NAME(int dev, void* u, void* v, const void* f, const void* g,          \
@@ -979,6 +1059,8 @@ POST_CLASS_ENTRY(ns2d_post_class_f32, float)
 POST_CLASS_ENTRY(ns2d_post_class_f64, double)
 PRE_DIST_ENTRY(ns2d_pre_dist_f32, float)
 PRE_DIST_ENTRY(ns2d_pre_dist_f64, double)
+PRE_BAND_ENTRY(ns2d_pre_band_f32, float)
+PRE_BAND_ENTRY(ns2d_pre_band_f64, double)
 POST_DIST_ENTRY(ns2d_post_dist_f32, float)
 POST_DIST_ENTRY(ns2d_post_dist_f64, double)
 PRE_ENTRY(ns2d_pre_f32, float)

@@ -108,6 +108,14 @@
 // multiply by 1 leaves the others' bits as they are); with or without the
 // flags, launches stay two. PRE needs no mode of its own there: its writes
 // are gated by the global index wherever the walls cross the block.
+//
+// The grid-band mode of the distributed PRE (the overlapped step's two
+// halves, make_fused_pre_3d(grid_bands=) of the JAX package): the BCs on
+// the whole deep block as in the full call, F/G/H and rhs only on bands of
+// the halo-1 block's k-planes, a grid z index mapped to its plane through
+// a table of at most four bands passed by value; the F/G/H launch also
+// covers the plane below each band, which rhs reads. Every value stored
+// inside a band is the full call's, bit for bit.
 
 #include <cuda_runtime.h>
 
@@ -138,6 +146,49 @@ struct Coef {
   T idx4, gidx4, idy4, gidy4, idz4, gidz4, idx2, idy2, idz2, inv_re, gx, gy,
       gz;
 };
+
+// The grid-band mode (the overlapped step's interior and boundary halves,
+// make_fused_pre_3d(grid_bands=) of the JAX package): F/G/H and rhs cover
+// only bands of the halo-1 block's k-planes. Band b is planes [lo[b],
+// hi[b]), its grid z indices start at cta[b]; n == 0 is the full sweep. A
+// table of at most MAXB bands travels by value.
+constexpr int MAXB = 4;
+struct Bands {
+  int n;
+  int lo[MAXB], hi[MAXB], cta[MAXB + 1];
+};
+
+// the plane of grid z index z, or -1 past its band's end; z without bands.
+// The table is read at constant indices only (an unrolled select), so it
+// stays in the kernel's parameter space.
+__device__ __forceinline__ int band_plane(const Bands& b, int z) {
+  if (b.n == 0) return z;
+  int lo = b.lo[0], hi = b.hi[0], c0 = 0;
+#pragma unroll
+  for (int q = 1; q < MAXB; ++q)
+    if (q < b.n && z >= b.cta[q]) {
+      lo = b.lo[q];
+      hi = b.hi[q];
+      c0 = b.cta[q];
+    }
+  const int r = lo + (z - c0);
+  return r < hi ? r : -1;
+}
+
+// the table of planes [lo, hi) per band from ranges = [n, lo0, hi0, ...],
+// each band's start moved `widen` planes down (clipped at 0)
+Bands make_bands(const int* ranges, int widen) {
+  Bands b{};
+  b.n = ranges == nullptr ? 0 : ranges[0];
+  b.cta[0] = 0;
+  for (int k = 0; k < b.n; ++k) {
+    const int lo = ranges[1 + 2 * k] - widen;
+    b.lo[k] = lo < 0 ? 0 : lo;
+    b.hi[k] = ranges[2 + 2 * k];
+    b.cta[k + 1] = b.cta[k] + b.hi[k] - b.lo[k];
+  }
+  return b;
+}
 
 __device__ __forceinline__ bool in_range(int a, int n) {
   return a >= 0 && a < n;
@@ -464,10 +515,12 @@ __global__ void fgh_cells(const T* __restrict__ u, const T* __restrict__ v,
                           const T* __restrict__ w, const T* __restrict__ dtp,
                           T* __restrict__ f, T* __restrict__ g,
                           T* __restrict__ h, Blk k, Blk o, int e,
-                          Coef<T> c, const uint8_t* __restrict__ fl) {
+                          Coef<T> c, const uint8_t* __restrict__ fl,
+                          Bands bd) {
+  const int ok = band_plane(bd, blockIdx.z);
+  if (ok < 0 || ok >= o.L[0]) return;
   fgh_cell(u, v, w, dtp, f, g, h, k, o, e, c, fl,
-           blockIdx.x * BX + threadIdx.x, blockIdx.y * BY + threadIdx.y,
-           blockIdx.z);
+           blockIdx.x * BX + threadIdx.x, blockIdx.y * BY + threadIdx.y, ok);
 }
 
 // launch 5: rhs = div(F, G, H)/dt on the owned global-interior cells of the
@@ -499,9 +552,12 @@ __device__ __forceinline__ void rhs_cell(const T* __restrict__ f,
 template <typename T>
 __global__ void rhs_cells(const T* __restrict__ f, const T* __restrict__ g,
                           const T* __restrict__ h, const T* __restrict__ dtp,
-                          T* __restrict__ rhs, Blk o, T dx, T dy, T dz) {
+                          T* __restrict__ rhs, Blk o, T dx, T dy, T dz,
+                          Bands bd) {
+  const int k = band_plane(bd, blockIdx.z);
+  if (k < 0 || k >= o.L[0]) return;
   rhs_cell(f, g, h, dtp, rhs, o, dx, dy, dz, blockIdx.x * BX + threadIdx.x,
-           blockIdx.y * BY + threadIdx.y, blockIdx.z);
+           blockIdx.y * BY + threadIdx.y, k);
 }
 
 template <typename T>
@@ -634,7 +690,7 @@ template <typename T>
 int run_pre(int dev, T* u, T* v, T* w, const T* dt, T* f, T* g, T* h, T* rhs,
             const int* l, const int* geo, const int* bc, int problem,
             const double* c, const uint8_t* fl, T* us, T* vs, T* ws,
-            void* stream) {
+            void* stream, const int* bands = nullptr) {
   cudaError_t e = cudaSetDevice(dev);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = (cudaStream_t)stream;
@@ -665,10 +721,18 @@ int run_pre(int dev, T* u, T* v, T* w, const T* dt, T* f, T* g, T* h, T* rhs,
   const Coef<T> cf{T(c[0]), T(c[1]), T(c[2]),  T(c[3]),  T(c[4]),
                    T(c[5]), T(c[6]), T(c[7]),  T(c[8]),  T(c[9]),
                    T(c[10]), T(c[11]), T(c[12])};
-  const dim3 grd = cell_grid(o);
-  fgh_cells<T><<<grd, blk, 0, st>>>(u, v, w, dt, f, g, h, k, o, ep, cf, fl);
-  rhs_cells<T><<<grd, blk, 0, st>>>(f, g, h, dt, rhs, o, T(c[13]), T(c[14]),
-                                    T(c[15]));
+  // with bands: rhs on the bands' planes, F/G/H also on the plane below
+  // each band (rhs reads H one plane down)
+  const Bands fgb = make_bands(bands, 1), rhb = make_bands(bands, 0);
+  dim3 grd = cell_grid(o);
+  if (fgb.n > 0) grd.z = fgb.cta[fgb.n];
+  if (grd.z > 0)
+    fgh_cells<T><<<grd, blk, 0, st>>>(u, v, w, dt, f, g, h, k, o, ep, cf, fl,
+                                      fgb);
+  if (rhb.n > 0) grd.z = rhb.cta[rhb.n];
+  if (grd.z > 0)
+    rhs_cells<T><<<grd, blk, 0, st>>>(f, g, h, dt, rhs, o, T(c[13]),
+                                      T(c[14]), T(c[15]), rhb);
   return (int)cudaGetLastError();
 }
 
@@ -1007,6 +1071,22 @@ int ns3d_post_partials(int lk, int lj, int li) {
                       (const uint8_t*)fl, (T*)us, (T*)vs, (T*)ws, stream);   \
   }
 
+// the grid-band mode of the distributed PRE: bands = [n, lo0, hi0, ...],
+// n <= 4 sorted disjoint ranges of the halo-1 block's k-planes; F, G, H and
+// rhs are written on those planes (F/G/H one plane more below each band),
+// the BCs on the whole deep block as in the full call
+#define PRE_BAND_ENTRY(NAME, T)                                              \
+  int NAME(int dev, void* u, void* v, void* w, const void* dt, void* f,      \
+           void* g, void* h, void* rhs, const int* l, const int* geo,        \
+           const int* bc, int problem, const double* c, const void* fl,      \
+           void* us, void* vs, void* ws, const int* bands, void* stream) {   \
+    if (bands[0] < 1 || bands[0] > MAXB) return (int)cudaErrorInvalidValue;  \
+    return run_pre<T>(dev, (T*)u, (T*)v, (T*)w, (const T*)dt, (T*)f, (T*)g,  \
+                      (T*)h, (T*)rhs, l, geo, bc, problem, c,                \
+                      (const uint8_t*)fl, (T*)us, (T*)vs, (T*)ws, stream,    \
+                      bands);                                                \
+  }
+
 #define POST_ENTRY(NAME, T)                                                  \
   int NAME(int dev, void* u, void* v, void* w, const void* f, const void* g, \
            const void* h, const void* p, const void* dt, const int* l,       \
@@ -1051,6 +1131,8 @@ POST_CLASS_ENTRY(ns3d_post_class_f32, float)
 POST_CLASS_ENTRY(ns3d_post_class_f64, double)
 PRE_ENTRY(ns3d_pre_f32, float)
 PRE_ENTRY(ns3d_pre_f64, double)
+PRE_BAND_ENTRY(ns3d_pre_band_f32, float)
+PRE_BAND_ENTRY(ns3d_pre_band_f64, double)
 POST_ENTRY(ns3d_post_f32, float)
 POST_ENTRY(ns3d_post_f64, double)
 

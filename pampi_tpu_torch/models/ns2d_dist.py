@@ -56,11 +56,27 @@ assignment-5 MPI solver (ex5-nazifkar), with NS2DSolver's .par interface.
   (ops/obstacle.shard_masks); normalizePressure takes the fluid-weighted
   mean, the sums in mesh order.
 
+- `tpu_overlap on` (the JAX package's overlapped schedule; `auto` takes
+  it only on a TPU, so here it records "serial (no TPU)"): the fused step
+  with the next step's deep exchange following POST
+  (parallel/comm.ExchangeSchedule.post: on the card a second stream's
+  copies, issued beside the next interior half) and carried between
+  steps, PRE run twice, an interior half on
+  the stale re-embedded blocks and a boundary half on the exchanged ones,
+  merged by the interior mask (parallel/overlap.py), dt from POST's
+  carried maxima through the generation guard; `tpu_overlap_restrict`
+  bands the halves' rows (K3's grid-band mode). A `run_steps(n)` or
+  `_advance(n)` call is the JAX package's chunk: its first step takes the
+  prologue exchange. The grid CA solve becomes its split form
+  (`_solve_split`, "split (jnp rb-sor)"); K13 and K15 keep their serial
+  sweeps ("serial (pallas/other solve)"). Bitwise the serial step.
+
 On the CPU the same composition runs the kernels' plain versions. The
 fields equal NS2DSolver's to round-off where the iteration counts agree.
-The overlapped and depth-scheduled exchanges, the residual-adaptive
-itermax and mg/fft on a mesh are refused (ROADMAP A.8), the obstacle
-multigrid too (A.8, item 6.4: it runs on one device, models/ns2d.py).
+The depth-scheduled exchange (`tpu_exchange_depth`, with the K-step
+chunks), the residual-adaptive itermax and mg/fft on a mesh are refused
+(ROADMAP A.8, items 6.2-6.4), the obstacle multigrid too (A.8, item 6.4:
+it runs on one device, models/ns2d.py).
 """
 
 from __future__ import annotations
@@ -70,9 +86,10 @@ import torch
 
 from ..ops import ns2d as ops
 from ..ops import obstacle as obst
-from ..ops.ns2d_fused import StepConfig, ns2d_post, ns2d_pre
+from ..ops.ns2d_fused import BAND_ROWS, StepConfig, ns2d_post, ns2d_pre
 from ..ops.sor_kernels import sor_coefficients
 from ..parallel import comm as pc
+from ..parallel import overlap as ovl
 from ..parallel import quarters_dist as qd
 from ..parallel import ragged2d as rg
 from ..parallel.comm import (
@@ -89,6 +106,7 @@ from ..parallel.stencil2d import (
     ca_supported,
     embed_deep,
     rb_exchange_per_sweep,
+    rb_split_iter,
     scalar_half,
     strip_deep,
 )
@@ -100,7 +118,9 @@ from ..utils.precision import resolve_dtype
 from ..utils.progress import Progress
 from ._driver import clamped_dt, drive_chunks, mesh_convergence_loop
 
-FUSE_DEEP_HALO = 3  # the JAX package's ops/ns2d_fused.FUSE_DEEP_HALO
+# the JAX package's ops/ns2d_fused.FUSE_DEEP_HALO: FUSE_FOOTPRINT + 1, as
+# the overlapped step's interior rim (parallel/overlap.OVERLAP_RIM)
+FUSE_DEEP_HALO = ovl.FUSE_FOOTPRINT + 1
 
 
 def _resolve_fuse_phases(knob: str, why_not) -> bool:
@@ -256,14 +276,40 @@ class NS2DDistSolver:
             self._live = [rg.live_masks(comm, s, jl, il, self.jmax,
                                         self.imax, dtype, dev)
                           for s, dev in enumerate(devices)]
-        if param.tpu_overlap == "off":
-            _dispatch.record("overlap_ns2d_dist", "serial (tpu_overlap off)")
-        elif not self._fused:
-            _dispatch.record("overlap_ns2d_dist", "serial (needs the fused "
-                             "deep-halo step (tpu_fuse_phases))")
-        else:
-            _dispatch.record("overlap_ns2d_dist", "serial (the overlapped "
-                             "schedule is not yet ported, ROADMAP A.8)")
+        self._build_overlap()
+
+    def _build_overlap(self):
+        """The exchange schedule (JAX: resolve_overlap, the sweep-split
+        records, the region plan): under `tpu_overlap on` the overlapped
+        step (`_step_overlap`) with, where the solve is the grid CA
+        (`_solve_grid`), its split form; the K13/K15 solves keep their
+        serial sweeps, as the JAX package keeps its Pallas solves'."""
+        param, comm = self.param, self.comm
+        self._overlap = _dispatch.resolve_overlap(
+            param, "overlap_ns2d_dist", why_not=None if self._fused else
+            "needs the fused deep-halo step (tpu_fuse_phases)")
+        self._split = self._overlap and self._rb_q is None and \
+            self._solve_k is None
+        self._overlap_plan = self._carry = None
+        if not self._overlap:
+            return
+        _dispatch.record("sweep_split_ns2d_dist", "split (jnp rb-sor)"
+                         if self._split else "serial (pallas/other solve)")
+        H = FUSE_DEEP_HALO
+        # a mesh axis of size 1 exchanges nothing: no rim on its sides
+        part = tuple(d > 1 for d in comm.dims)
+        plan = ovl.pre_plan(self.local, part, H - 1, BAND_ROWS)
+        if _dispatch.resolve_overlap_restrict(
+                param, "overlap_grid_ns2d_dist", plan):
+            self._overlap_plan = plan
+        self._deep_sched = pc.persistent_exchange(comm, H, self.dtype)
+        self._int_mask = [ovl.interior_mask(self.local, ovl.OVERLAP_RIM,
+                                            part, dev)
+                          for dev in comm.devices]
+        if self._split:
+            self._split_sched = pc.persistent_exchange(comm, 1, self.dtype)
+            self._split_masks = [ovl.interior_mask(self.local, 2, part, dev)
+                                 for dev in comm.devices]
 
     @classmethod
     def from_numpy_state(cls, param: Parameter, comm: CartComm, u, v, p, t,
@@ -278,7 +324,10 @@ class NS2DDistSolver:
 
     def set_global_fields(self, fields: dict) -> None:
         """Scatter global reference-layout fields to the shards (the JAX
-        package's set_global_fields; dead cells zero)."""
+        package's set_global_fields; dead cells zero). Drops the
+        overlapped step's carry, so that no buffer of the old state is
+        consumed."""
+        self._carry = None
         for name, arr in fields.items():
             blocks = scatter_blocks(np.array(arr), self.comm, self.local)
             setattr(self, name, [
@@ -307,19 +356,27 @@ class NS2DDistSolver:
         return [x.to(dev) for dev in self.comm.devices]
 
     # -- the CFL dt and normalizePressure --------------------------------
+    def _maxima(self, *fields):
+        """The mesh maxima of |x| (ghosts included) of each field."""
+        return tuple(reduction([ops.max_element(b) for b in x], self.comm,
+                               "max") for x in fields)
+
+    def _cfl(self, umax, vmax):
+        """The CFL dt from the mesh maxima of u and v, or the fixed dt
+        when tau <= 0 (before the recovery clamp)."""
+        param = self.param
+        if param.tau > 0.0:
+            return ops.cfl_dt(umax, vmax, self.dt_bound, self.dx, self.dy,
+                              param.tau)
+        return torch.full((), param.dt, dtype=self.dtype,
+                          device=self.comm.devices[0])
+
     def _dt(self, u, v):
         """The CFL dt from the mesh maxima of u and v (ghosts included),
         or the fixed dt when tau <= 0."""
-        param = self.param
-        if param.tau > 0.0:
-            umax, vmax = (reduction([ops.max_element(b) for b in x],
-                                    self.comm, "max") for x in (u, v))
-            dt = ops.cfl_dt(umax, vmax, self.dt_bound, self.dx, self.dy,
-                            param.tau)
-        else:
-            dt = torch.full((), param.dt, dtype=self.dtype,
-                            device=self.comm.devices[0])
-        return clamped_dt(dt, self._dt_scale)
+        umax, vmax = self._maxima(u, v) if self.param.tau > 0.0 else (
+            None, None)
+        return clamped_dt(self._cfl(umax, vmax), self._dt_scale)
 
     def _normalize(self, p):
         """normalizePressure: p minus the mean over the global
@@ -346,6 +403,8 @@ class NS2DDistSolver:
             return self._solve_quarters(p, rhs)
         if self._solve_k is not None:
             return self._solve_k(p, rhs)
+        if self._split:
+            return self._solve_split(p, rhs)
         return self._solve_grid(p, rhs)
 
     def _loop(self, rounds):
@@ -412,6 +471,29 @@ class NS2DDistSolver:
                              comm)
         return p, res, it
 
+    def _solve_split(self, p, rhs):
+        """The grid CA solve's twin under the overlapped schedule (JAX
+        _solve_sor_split): the same residual cadence (n iterations a
+        check), each half-sweep's depth-1 exchange posted beside the
+        interior update (parallel/stencil2d.rb_split_iter), on the halo-1
+        blocks; bitwise the CA trajectory."""
+        comm = self.comm
+        masks = [ca_masks(self.jl, self.il, 1, self.jmax, self.imax,
+                          self.dtype, *off, device=dev)
+                 for off, dev in zip(self.offs, comm.devices)]
+        blocks = list(p)
+
+        def rounds():
+            r2 = None
+            for _ in range(self._n_ca):
+                blocks[:], r2 = rb_split_iter(
+                    blocks, rhs, masks, self._split_sched, self._split_masks,
+                    *self._coef, ragged=self.ragged)
+            return r2, self._n_ca
+
+        res, it = self._loop(rounds)
+        return pc.halo_exchange(blocks, comm), res, it
+
     def _pressure(self, rhs):
         """normalizePressure every 100 steps, then the solve."""
         if self.nt % 100 == 0:
@@ -446,6 +528,78 @@ class NS2DDistSolver:
         self.last_maxima = tuple(reduction(list(m), comm, "max")
                                  for m in zip(*maxima))
         self.u, self.v = u, v
+        self._mark("end")
+        return dt
+
+    def _exchange_buffers(self, u, v, ready=None):
+        """Post the deep exchange of u and v (the double buffer's fill):
+        embed_deep and the depth-3 exchange, on the card on the side
+        stream after `ready` (parallel/comm.ExchangeSchedule.post)."""
+        H = FUSE_DEEP_HALO
+        return self._deep_sched.post([u, v], lambda b: embed_deep(b, H),
+                                     ready=ready)
+
+    def _overlap_prologue(self):
+        """The carry's first generation (JAX: the overlapped chunk's
+        prologue): the deep exchange of the current u, v, waited on, and
+        the CFL maxima of the exchanged blocks (the serial step's dt
+        inputs); later steps carry POST's maxima."""
+        posted = self._exchange_buffers(self.u, self.v)
+        um, vm = self._maxima(*posted.wait())
+        self._carry = (lambda: posted, um, vm, self.nt)
+
+    def _step_overlap(self):
+        """One overlapped step (JAX step_overlap): dt from the carried
+        maxima through the generation guard; PRE twice, the interior half
+        on the stale re-embedded blocks (K3 writes its BCs in place, so on
+        copies) and the boundary half on the double buffer, merged by the
+        interior mask; the solve; POST, whose maxima feed the next dt. The
+        next step's deep exchange follows POST: on the card its copies
+        wait on events recorded right after POST, and the host issues them
+        after the next step's interior half, so that the two run side by
+        side; only the boundary half waits on them. With
+        `tpu_overlap_restrict` the halves run K3's grid-band mode over the
+        region plan's bands."""
+        comm, H = self.comm, FUSE_DEEP_HALO
+        if self._carry is None:
+            self._overlap_prologue()
+        start, um, vm, gen = self._carry
+        self._mark("pre")
+        dt = clamped_dt(ovl.generation_guard(self._cfl(um, vm), gen, self.nt),
+                        self._dt_scale)
+        dts = self._on_shards(dt)
+        flags = self._flags or [(None, None)] * comm.size
+        plan = self._overlap_plan
+        bands = (None, None) if plan is None else (plan["int_bands"],
+                                                   plan["bnd_bands"])
+
+        def half(ud, vd, b):
+            outs = [ns2d_pre(ud[s], vd[s], dts[s], self._cfg, self.offs[s],
+                             self.gext, H - 1, flags[s][0], bands=b)
+                    for s in range(comm.size)]
+            return [[strip_deep(ud[s], H), strip_deep(vd[s], H), *outs[s]]
+                    for s in range(comm.size)]
+
+        inner = half(*([embed_deep(x, H) for x in f] for f in (self.u,
+                                                              self.v)),
+                     bands[0])
+        outer = half(*start().wait(), bands[1])
+        u, v, f, g, rhs = (list(x) for x in zip(*(
+            ovl.merge_halves(m, a, b)
+            for m, a, b in zip(self._int_mask, inner, outer))))
+        self._mark("solve")
+        self._pressure(rhs)
+        self._mark("post")
+        maxima = [ns2d_post(u[s], v[s], f[s], g[s], self.p[s], dts[s],
+                            self.dx, self.dy, self.offs[s], self.gext,
+                            self.ragged, flags[s][1])
+                  for s in range(comm.size)]
+        um, vm = self.last_maxima = tuple(
+            reduction(list(m), comm, "max") for m in zip(*maxima))
+        self.u, self.v = u, v
+        ready = pc.ready_events(comm)
+        self._carry = (lambda: self._exchange_buffers(u, v, ready), um, vm,
+                       self.nt + 1)
         self._mark("end")
         return dt
 
@@ -517,7 +671,8 @@ class NS2DDistSolver:
         return dt
 
     def _step(self) -> None:
-        dt = self._step_fused() if self._fused else self._step_chain()
+        dt = (self._step_overlap() if self._overlap else
+              self._step_fused() if self._fused else self._step_chain())
         dt_host = float(dt)
         self.t += dt_host
         self.nt += 1
@@ -526,12 +681,16 @@ class NS2DDistSolver:
                             dt_host)
 
     def run_steps(self, n: int) -> None:
-        """Advance exactly n steps, whatever te says."""
+        """Advance exactly n steps, whatever te says. Under the overlapped
+        schedule a call is the JAX package's chunk dispatch: it starts
+        with the prologue exchange."""
+        self._carry = None
         for _ in range(n):
             self._step()
 
     def _advance(self, n: int) -> float:
         te = self.param.te
+        self._carry = None
         for _ in range(n):
             if not self.t <= te:
                 break

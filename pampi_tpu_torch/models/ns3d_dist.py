@@ -46,6 +46,12 @@ JAX package completes them and this module ports that solver.
   obstacle velocity BC, mask_fgh and the masked projection on the
   shard's masks, with one more exchange after the obstacle BC, as the
   JAX package's chain does.
+- `tpu_overlap on`: the overlapped schedule of models/ns2d_dist.py one
+  dimension up (`_step_overlap`; seven fields merged, K7's grid-band mode
+  over k-planes under `tpu_overlap_restrict`, the grid CA solve split,
+  K14 and the obstacle solve serial); `auto` records "serial (no TPU)".
+  The depth-scheduled exchange and the residual-adaptive itermax are
+  refused (ROADMAP A.8, items 6.2 and 6.3).
 
 On the CPU the same composition runs the kernels' plain versions. Every
 path keeps the single-device trajectory: the fields equal NS3DSolver's
@@ -60,10 +66,11 @@ import torch
 
 from ..ops import ns3d as ops
 from ..ops import obstacle3d as obst3
-from ..ops.ns3d_fused import StepConfig3D, ns3d_post, ns3d_pre
+from ..ops.ns3d_fused import BAND_ROWS, StepConfig3D, ns3d_post, ns3d_pre
 from ..ops.sor3d import sor_coefficients_3d
 from ..parallel import comm as pc
 from ..parallel import octants_dist as od
+from ..parallel import overlap as ovl
 from ..parallel import ragged3d as rg3
 from ..parallel.comm import (
     CartComm,
@@ -83,6 +90,7 @@ from ..parallel.stencil3d import (
     ca_masks_3d,
     ca_rb_iters_3d,
     rb_exchange_per_sweep_3d,
+    rb_split_iter_3d,
 )
 from ..utils import dispatch as _dispatch
 from ..utils import flags as _flags
@@ -93,7 +101,9 @@ from ..utils.progress import Progress
 from ..utils.vtkio import ShardedVtkWriter, VtkWriter
 from ._driver import clamped_dt, drive_chunks, mesh_convergence_loop
 
-FUSE_DEEP_HALO = 3  # the JAX package's ops/ns2d_fused.FUSE_DEEP_HALO
+# the JAX package's ops/ns2d_fused.FUSE_DEEP_HALO: FUSE_FOOTPRINT + 1, as
+# the overlapped step's interior rim (parallel/overlap.OVERLAP_RIM)
+FUSE_DEEP_HALO = ovl.FUSE_FOOTPRINT + 1
 
 
 def _resolve_fuse_phases(knob: str, why_not) -> bool:
@@ -230,14 +240,39 @@ class NS3DDistSolver:
             self._gates = [rg3.interior_and_live(
                 comm, s, kl, jl, il, g.kmax, g.jmax, g.imax, self.dtype, dev)
                 for s, dev in enumerate(comm.devices)]
-        if param.tpu_overlap == "off":
-            _dispatch.record("overlap_ns3d_dist", "serial (tpu_overlap off)")
-        elif not self._fused:
-            _dispatch.record("overlap_ns3d_dist", "serial (needs the fused "
-                             "deep-halo step (tpu_fuse_phases))")
-        else:
-            _dispatch.record("overlap_ns3d_dist", "serial (the overlapped "
-                             "schedule is not yet ported, ROADMAP A.8)")
+        self._build_overlap()
+
+    def _build_overlap(self):
+        """The exchange schedule (JAX: resolve_overlap, the sweep-split
+        records, the region plan over k-planes): under `tpu_overlap on`
+        the overlapped step (`_step_overlap`) with, where the solve is the
+        grid CA (`_solve_grid`), its split form; the K14 and obstacle
+        solves keep their serial sweeps."""
+        param, comm = self.param, self.comm
+        self._overlap = _dispatch.resolve_overlap(
+            param, "overlap_ns3d_dist", why_not=None if self._fused else
+            "needs the fused deep-halo step (tpu_fuse_phases)")
+        self._split = self._overlap and self._obs_solve is None and \
+            self._rb_o is None
+        self._overlap_plan = self._carry = None
+        if not self._overlap:
+            return
+        _dispatch.record("sweep_split_ns3d_dist", "split (jnp rb-sor)"
+                         if self._split else "serial (pallas/other solve)")
+        H = FUSE_DEEP_HALO
+        part = tuple(d > 1 for d in comm.dims)
+        plan = ovl.pre_plan(self.local, part, H - 1, BAND_ROWS)
+        if _dispatch.resolve_overlap_restrict(
+                param, "overlap_grid_ns3d_dist", plan):
+            self._overlap_plan = plan
+        self._deep_sched = pc.persistent_exchange(comm, H, self.dtype)
+        self._int_mask = [ovl.interior_mask(self.local, ovl.OVERLAP_RIM,
+                                            part, dev)
+                          for dev in comm.devices]
+        if self._split:
+            self._split_sched = pc.persistent_exchange(comm, 1, self.dtype)
+            self._split_masks = [ovl.interior_mask(self.local, 2, part, dev)
+                                 for dev in comm.devices]
 
     @classmethod
     def from_numpy_state(cls, param: Parameter, comm: CartComm, u, v, w, p,
@@ -252,7 +287,9 @@ class NS3DDistSolver:
 
     def set_global_fields(self, fields: dict) -> None:
         """Scatter global reference-layout fields to the shards (the JAX
-        package's set_global_fields)."""
+        package's set_global_fields). Drops the overlapped step's carry,
+        so that no buffer of the old state is consumed."""
+        self._carry = None
         for name, arr in fields.items():
             blocks = scatter_blocks(np.array(arr), self.comm, self.local)
             setattr(self, name, [
@@ -275,20 +312,27 @@ class NS3DDistSolver:
         return [x.to(dev) for dev in self.comm.devices]
 
     # -- the CFL dt ------------------------------------------------------
+    def _maxima(self, *fields):
+        """The mesh maxima of |x| (ghosts included) of each field."""
+        return tuple(reduction([ops.max_element(b) for b in x], self.comm,
+                               "max") for x in fields)
+
+    def _cfl(self, umax, vmax, wmax):
+        """The CFL dt from the mesh maxima of u, v, w, or the fixed dt when
+        tau <= 0 (before the recovery clamp)."""
+        param, g = self.param, self.grid
+        if param.tau > 0.0:
+            return ops.cfl_dt_3d(umax, vmax, wmax, self.dt_bound, g.dx,
+                                 g.dy, g.dz, param.tau)
+        return torch.full((), param.dt, dtype=self.dtype,
+                          device=self.comm.devices[0])
+
     def _dt(self, u, v, w):
         """The CFL dt from the mesh maxima of u, v, w (ghosts included), or
         the fixed dt when tau <= 0."""
-        param, g = self.param, self.grid
-        if param.tau > 0.0:
-            umax, vmax, wmax = (
-                reduction([ops.max_element(b) for b in x], self.comm, "max")
-                for x in (u, v, w))
-            dt = ops.cfl_dt_3d(umax, vmax, wmax, self.dt_bound, g.dx, g.dy,
-                               g.dz, param.tau)
-        else:
-            dt = torch.full((), param.dt, dtype=self.dtype,
-                            device=self.comm.devices[0])
-        return clamped_dt(dt, self._dt_scale)
+        maxima = self._maxima(u, v, w) if self.param.tau > 0.0 else (
+            None,) * 3
+        return clamped_dt(self._cfl(*maxima), self._dt_scale)
 
     # -- the pressure solve ----------------------------------------------
     def _loop(self, rounds):
@@ -304,6 +348,8 @@ class NS3DDistSolver:
             return self._obs_solve(p, rhs)
         if self._rb_o is not None:
             return self._solve_octants(p, rhs)
+        if self._split:
+            return self._solve_split(p, rhs)
         return self._solve_grid(p, rhs)
 
     def _solve_octants(self, p, rhs):
@@ -370,6 +416,29 @@ class NS3DDistSolver:
                              comm)
         return p, res, it
 
+    def _solve_split(self, p, rhs):
+        """The grid CA solve's twin under the overlapped schedule (JAX
+        _solve_sor_split): the same residual cadence, each half-sweep's
+        depth-1 exchange posted beside the interior update
+        (parallel/stencil3d.rb_split_iter_3d), on the halo-1 blocks;
+        bitwise the CA trajectory."""
+        comm, g = self.comm, self.grid
+        masks = [ca_masks_3d(*self.local, 1, g.kmax, g.jmax, g.imax,
+                             self.dtype, *off, device=dev)
+                 for off, dev in zip(self.offs, comm.devices)]
+        blocks = list(p)
+
+        def rounds():
+            r2 = None
+            for _ in range(self._n_ca):
+                blocks[:], r2 = rb_split_iter_3d(
+                    blocks, rhs, masks, self._split_sched, self._split_masks,
+                    *self._coef, ragged=self.ragged)
+            return r2, self._n_ca
+
+        res, it = self._loop(rounds)
+        return pc.halo_exchange(blocks, comm), res, it
+
     # -- the steps ---------------------------------------------------------
     def _step_fused(self):
         """One step through K7 and K8 (JAX step_fused): one deep exchange
@@ -400,6 +469,71 @@ class NS3DDistSolver:
         self.last_maxima = tuple(reduction(list(m), comm, "max")
                                  for m in zip(*maxima))
         self.u, self.v, self.w = u, v, w
+        self._mark("end")
+        return dt
+
+    def _exchange_buffers(self, u, v, w, ready=None):
+        """Post the deep exchange of u, v, w (embed_deep and the depth-3
+        exchange; on the card on the side stream after `ready`)."""
+        H = FUSE_DEEP_HALO
+        return self._deep_sched.post([u, v, w], lambda b: embed_deep(b, H),
+                                     ready=ready)
+
+    def _overlap_prologue(self):
+        """The carry's first generation: the deep exchange of the current
+        u, v, w, waited on, and the CFL maxima of the exchanged blocks."""
+        posted = self._exchange_buffers(self.u, self.v, self.w)
+        self._carry = (lambda: posted, self._maxima(*posted.wait()), self.nt)
+
+    def _step_overlap(self):
+        """One overlapped step (JAX step_overlap; see
+        models/ns2d_dist._step_overlap): dt from the carried maxima
+        through the generation guard, K7 as an interior half on copies of
+        the stale blocks and a boundary half on the double buffer (u, v,
+        w, F, G, H and rhs merged by the interior mask), the solve, K8,
+        and the next step's deep exchange following POST, its copies
+        issued beside the next interior half. With `tpu_overlap_restrict`
+        the halves run K7's grid-band mode over k-plane bands."""
+        comm, g, H = self.comm, self.grid, FUSE_DEEP_HALO
+        if self._carry is None:
+            self._overlap_prologue()
+        start, maxima, gen = self._carry
+        self._mark("pre")
+        dt = clamped_dt(ovl.generation_guard(self._cfl(*maxima), gen,
+                                             self.nt), self._dt_scale)
+        dts = self._on_shards(dt)
+        flags = self._flags or [(None, None)] * comm.size
+        plan = self._overlap_plan
+        bands = (None, None) if plan is None else (plan["int_bands"],
+                                                   plan["bnd_bands"])
+
+        def half(deep, b):
+            outs = [ns3d_pre(*(x[s] for x in deep), dts[s], self._cfg,
+                             self.offs[s], self.gext, H - 1,
+                             flags=flags[s][0], bands=b)
+                    for s in range(comm.size)]
+            return [[strip_deep(x[s], H) for x in deep] + list(outs[s])
+                    for s in range(comm.size)]
+
+        inner = half([[embed_deep(x, H) for x in f]
+                      for f in (self.u, self.v, self.w)], bands[0])
+        outer = half(start().wait(), bands[1])
+        u, v, w, f, gg, h, rhs = (list(x) for x in zip(*(
+            ovl.merge_halves(m, a, b)
+            for m, a, b in zip(self._int_mask, inner, outer))))
+        self._mark("solve")
+        self.p, self.last_res, self.last_it = self._solve(self.p, rhs)
+        self._mark("post")
+        maxima = [ns3d_post(u[s], v[s], w[s], f[s], gg[s], h[s], self.p[s],
+                            dts[s], g.dx, g.dy, g.dz, self.offs[s],
+                            self.gext, flags=flags[s][1], ragged=self.ragged)
+                  for s in range(comm.size)]
+        self.last_maxima = tuple(reduction(list(m), comm, "max")
+                                 for m in zip(*maxima))
+        self.u, self.v, self.w = u, v, w
+        ready = pc.ready_events(comm)
+        self._carry = (lambda: self._exchange_buffers(u, v, w, ready),
+                       self.last_maxima, self.nt + 1)
         self._mark("end")
         return dt
 
@@ -486,7 +620,8 @@ class NS3DDistSolver:
         return self._local_masks
 
     def _step(self) -> None:
-        dt = self._step_fused() if self._fused else self._step_chain()
+        dt = (self._step_overlap() if self._overlap else
+              self._step_fused() if self._fused else self._step_chain())
         dt_host = float(dt)
         self.t += dt_host
         self.nt += 1
@@ -495,12 +630,16 @@ class NS3DDistSolver:
                             dt_host)
 
     def run_steps(self, n: int) -> None:
-        """Advance exactly n steps, whatever te says."""
+        """Advance exactly n steps, whatever te says. Under the overlapped
+        schedule a call is the JAX package's chunk dispatch: it starts
+        with the prologue exchange."""
+        self._carry = None
         for _ in range(n):
             self._step()
 
     def _advance(self, n: int) -> float:
         te = self.param.te
+        self._carry = None
         for _ in range(n):
             if not self.t <= te:
                 break

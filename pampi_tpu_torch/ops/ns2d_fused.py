@@ -69,6 +69,13 @@ batch). Every lane's extents must fit its block (1 <= jmax <= jc, 1 <=
 imax <= ic): the kernels read them on the card unchecked, and
 fleet/shapeclass.class_lanes checks them on the host.
 
+The grid-band mode of the distributed PRE (`bands=`, the JAX package's
+make_fused_pre_2d(grid_bands=); the overlapped step's interior and
+boundary halves, parallel/overlap.py): K3 with its F/G and rhs launches
+restricted to bands of the halo-1 block's rows (the BCs as in the full
+call), every value inside the bands bitwise the full call's. Its launches
+count on `ns2d_pre_band`, with or without flags.
+
 For a CPU tensor each wrapper runs its plain version (ops/ns2d.py,
 ops/obstacle.py); for a CUDA tensor it launches its kernel or raises.
 """
@@ -81,6 +88,7 @@ from dataclasses import dataclass
 import torch
 
 from ..kernels import build as kb
+from ..parallel.overlap import band_plain, band_ranges
 from . import ns2d as ops
 from . import obstacle as obst
 
@@ -97,6 +105,13 @@ NS2D_PRE_CLASS = kb.register(
     "ns2d_pre_class", SOURCE, "pampi_tpu/ops/ns2d_fused.py:775")
 NS2D_POST_CLASS = kb.register(
     "ns2d_post_class", SOURCE, "pampi_tpu/ops/ns2d_fused.py:877")
+NS2D_PRE_BAND = kb.register(
+    "ns2d_pre_band", SOURCE, "pampi_tpu/ops/ns2d_fused.py:775")
+
+# the grid-band mode: rows of the deep block a band block covers (a CTA row
+# of the band launch), and the most bands one call takes
+BAND_ROWS = 8
+MAX_BANDS = 4
 
 _PROBLEM_CODE = {"dcavity": 1, "canal": 2, "canal_obstacle": 2}
 _V, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
@@ -105,8 +120,10 @@ _POST_ARGS = [_I, _V, _V, _V, _V, _V, _V, _I, _I, _D, _D, _V, _V, _V, _V]
 _PRE_DIST_ARGS = [_I, _V, _V, _V, _V, _V, _V, _V, _V, _I, _V, _V, _V, _V, _V]
 _POST_DIST_ARGS = [_I, _V, _V, _V, _V, _V, _V, _V, _I, _D, _D, _V, _V, _V,
                    _V]
+_PRE_BAND_ARGS = _PRE_DIST_ARGS[:-1] + [_V, _V]
 _SIGNATURES = {
     "ns2d_pre_f32": _PRE_ARGS, "ns2d_pre_f64": _PRE_ARGS,
+    "ns2d_pre_band_f32": _PRE_BAND_ARGS, "ns2d_pre_band_f64": _PRE_BAND_ARGS,
     "ns2d_post_f32": _POST_ARGS, "ns2d_post_f64": _POST_ARGS,
     "ns2d_pre_dist_f32": _PRE_DIST_ARGS, "ns2d_pre_dist_f64": _PRE_DIST_ARGS,
     "ns2d_post_dist_f32": _POST_DIST_ARGS,
@@ -304,19 +321,31 @@ def _check_class(tensors, dt, ext, geo, active) -> tuple:
 
 def ns2d_pre_plain(u, v, dt, cfg: StepConfig, offs=None, gext=None,
                    ext_pad: int = 0, flags=None, ext=None, geo=None,
-                   active=None):
+                   active=None, bands=None):
     """K3's plain version: returns (u', v', F, G, rhs), inputs untouched;
     in the distributed mode u', v' are deep blocks and F, G, rhs halo-1
     blocks (ops/ns2d.pre_gated). `flags` adds the obstacle velocity BC
     and mask_fg (ops/obstacle.py); `ext`, `geo`, `active` select the class
-    mode (module docstring)."""
+    mode (module docstring). `bands` (distributed mode only) selects the
+    grid-band mode: F, G and rhs hold the full call's values on the bands'
+    rows (F and G on the row below each band too, as the kernel writes
+    them) and NaN on every other row, so that a merge that reads outside
+    the bands shows; u', v' are the full call's."""
     if ext is not None:
         return _pre_class_plain(u, v, dt, cfg, ext, geo, active)
     if offs is not None:
         _mode(u.shape, offs, gext, ext_pad, True)
-        return ops.pre_gated(u, v, dt, cfg.bc, cfg.problem, cfg.re, cfg.gx,
-                             cfg.gy, cfg.gamma, cfg.dx, cfg.dy, cfg.ylength,
-                             offs, gext, ext_pad, flags)
+        out = ops.pre_gated(u, v, dt, cfg.bc, cfg.problem, cfg.re, cfg.gx,
+                            cfg.gy, cfg.gamma, cfg.dx, cfg.dy, cfg.ylength,
+                            offs, gext, ext_pad, flags)
+        if bands is None:
+            return out
+        return out[:2] + band_plain(
+            out[2:], band_ranges(bands, BAND_ROWS, u.shape[0], ext_pad,
+                                 MAX_BANDS), u)
+    if bands is not None:
+        raise ValueError("the grid-band mode is the distributed mode's "
+                         "(offsets and global extents)")
     u1, v1 = ops.set_boundary_conditions(u, v, *cfg.bc)
     u1 = ops.set_special_bc(u1, cfg.problem, cfg.dy, cfg.ylength)
     if flags is not None:
@@ -331,7 +360,8 @@ def ns2d_pre_plain(u, v, dt, cfg: StepConfig, offs=None, gext=None,
 
 
 def ns2d_pre(u, v, dt, cfg: StepConfig, offs=None, gext=None,
-             ext_pad: int = 0, flags=None, ext=None, geo=None, active=None):
+             ext_pad: int = 0, flags=None, ext=None, geo=None, active=None,
+             bands=None):
     """K3: boundary conditions in place on u and v; returns (F, G, rhs).
     dt is a 0-dim tensor beside the fields. One device by default; with
     the shard's global offsets `offs` = (joff, ioff), the global interior
@@ -339,13 +369,22 @@ def ns2d_pre(u, v, dt, cfg: StepConfig, offs=None, gext=None,
     shard's deep blocks (local index a is global a - ext_pad + offset) and
     F, G, rhs its halo-1 blocks. `flags` (uint8 of u's shape) selects the
     flag mode; `ext`, `geo` and `active` the class mode, with dt (N,)
-    (module docstring)."""
+    (module docstring). `bands` ((start_row, n_blocks), ... of BAND_ROWS
+    rows in the deep block's frame, overlap.band_ranges) selects the
+    grid-band mode of the distributed call, with or without flags: the BCs as in
+    the full call, F, G and rhs only on the bands' rows, every value there
+    bitwise the full call's; the other rows of F, G and rhs are left
+    unwritten (the plain version's NaN). Its launches count on
+    `ns2d_pre_band`."""
     if ext is not None:
         return _pre_class(u, v, dt, cfg, ext, geo, active)
     local, o, G = _mode(u.shape, offs, gext, ext_pad, True)
+    if bands is not None and offs is None:
+        raise ValueError("the grid-band mode is the distributed mode's "
+                         "(offsets and global extents)")
     if u.device.type == "cpu":
         u1, v1, f, g, rhs = ns2d_pre_plain(u, v, dt, cfg, offs, gext,
-                                           ext_pad, flags)
+                                           ext_pad, flags, bands=bands)
         u.copy_(u1)
         v.copy_(v1)
         return f, g, rhs
@@ -367,14 +406,28 @@ def ns2d_pre(u, v, dt, cfg: StepConfig, offs=None, gext=None,
                 f.data_ptr(), g.data_ptr(), rhs.data_ptr(), *local, bc, code,
                 coef, _ptr(flags), *(_ptr(a) for a in scratch),
                 kb.stream_of(u))
-        else:
+        elif bands is None:
             err = getattr(lib, f"ns2d_pre_dist_{_SUFFIX[u.dtype]}")(
                 u.device.index, u.data_ptr(), v.data_ptr(), dt.data_ptr(),
                 f.data_ptr(), g.data_ptr(), rhs.data_ptr(),
                 (ctypes.c_int * 7)(*local, ext_pad, *o, *G), bc, code, coef,
                 _ptr(flags), *(_ptr(a) for a in scratch), kb.stream_of(u))
+        else:
+            ranges = band_ranges(bands, BAND_ROWS, u.shape[0], ext_pad,
+                                 MAX_BANDS)
+            table = (ctypes.c_int * (1 + 2 * MAX_BANDS))(
+                len(ranges), *(r for lohi in ranges for r in lohi))
+            err = getattr(lib, f"ns2d_pre_band_{_SUFFIX[u.dtype]}")(
+                u.device.index, u.data_ptr(), v.data_ptr(), dt.data_ptr(),
+                f.data_ptr(), g.data_ptr(), rhs.data_ptr(),
+                (ctypes.c_int * 7)(*local, ext_pad, *o, *G), bc, code, coef,
+                _ptr(flags), *(_ptr(a) for a in scratch), table,
+                kb.stream_of(u))
     kb.check(lib, err, "ns2d_pre")
-    (NS2D_PRE if flags is None else NS2D_PRE_FLAGS).launches += 1
+    if bands is not None:
+        NS2D_PRE_BAND.launches += 1
+    else:
+        (NS2D_PRE if flags is None else NS2D_PRE_FLAGS).launches += 1
     return f, g, rhs
 
 

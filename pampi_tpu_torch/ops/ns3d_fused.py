@@ -74,6 +74,13 @@ lane's extents must fit its block (1 <= kmax <= kc, ...): the kernels
 read them on the card unchecked, and fleet/shapeclass.class_lanes_3d
 checks them on the host.
 
+The grid-band mode of the distributed PRE (`bands=`, the JAX package's
+make_fused_pre_3d(grid_bands=); the overlapped step's interior and
+boundary halves, parallel/overlap.py): K7 with its F/G/H and rhs launches
+restricted to bands of the halo-1 block's k-planes (the BCs as in the full
+call), every value inside the bands bitwise the full call's. Its launches
+count on `ns3d_pre_band`, with or without flags.
+
 For a CPU tensor each wrapper runs its plain version (ops/ns3d.py,
 ops/obstacle3d.py, parallel/ragged3d.py's class forms); for a CUDA tensor
 it launches its kernel or raises.
@@ -87,6 +94,7 @@ from dataclasses import dataclass
 import torch
 
 from ..kernels import build as kb
+from ..parallel.overlap import band_plain, band_ranges
 from . import ns3d as ops
 from . import obstacle3d as obst3
 
@@ -107,6 +115,13 @@ NS3D_PRE_CLASS = kb.register(
     "ns3d_pre_class", SOURCE, "pampi_tpu/ops/ns3d_fused.py:778")
 NS3D_POST_CLASS = kb.register(
     "ns3d_post_class", SOURCE, "pampi_tpu/ops/ns3d_fused.py:880")
+NS3D_PRE_BAND = kb.register(
+    "ns3d_pre_band", SOURCE, "pampi_tpu/ops/ns3d_fused.py:778")
+
+# the grid-band mode: k-planes of the deep block a band block covers (a
+# grid z index of the band launch), and the most bands one call takes
+BAND_ROWS = 1
+MAX_BANDS = 4
 
 _PROBLEM_CODE = {"dcavity": 1, "canal": 2}
 _V, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
@@ -114,8 +129,10 @@ _PRE_ARGS = [_I, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _I, _V, _V, _V,
              _V, _V, _V]
 _POST_ARGS = [_I, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _D, _D, _D, _V, _I,
               _V, _V, _V]
+_PRE_BAND_ARGS = _PRE_ARGS[:-1] + [_V, _V]
 _SIGNATURES = {
     "ns3d_pre_f32": _PRE_ARGS, "ns3d_pre_f64": _PRE_ARGS,
+    "ns3d_pre_band_f32": _PRE_BAND_ARGS, "ns3d_pre_band_f64": _PRE_BAND_ARGS,
     "ns3d_post_f32": _POST_ARGS, "ns3d_post_f64": _POST_ARGS,
     "ns3d_post_partials": [_I, _I, _I],
 }
@@ -341,19 +358,31 @@ def _post_class(u, v, w, f, g, h, p, dt, ext, geo, active):
 
 def ns3d_pre_plain(u, v, w, dt, cfg: StepConfig3D, offs=None, gext=None,
                    ext_pad: int = 0, flags=None, ext=None, geo=None,
-                   active=None):
+                   active=None, bands=None):
     """K7's plain version: returns (u', v', w', F, G, H, rhs), inputs
     untouched; in the distributed mode u', v', w' are deep blocks and
     F, G, H, rhs halo-1 blocks (ops/ns3d.pre_gated). `flags` adds the
     obstacle velocity BC and mask_fgh (ops/obstacle3d.py); `ext`, `geo`,
-    `active` select the class mode (module docstring)."""
+    `active` select the class mode (module docstring). `bands`
+    (distributed mode only) selects the grid-band mode: F, G, H and rhs
+    hold the full call's values on the bands' k-planes (F, G, H on the
+    plane below each band too, as the kernel writes them) and NaN on
+    every other plane; u', v', w' are the full call's."""
     if ext is not None:
         return _pre_class_plain(u, v, w, dt, cfg, ext, geo, active)
     if offs is not None:
         _mode(u.shape, offs, gext, ext_pad, True)
-        return ops.pre_gated(u, v, w, dt, cfg.bcs, cfg.problem, cfg.re,
-                             cfg.gx, cfg.gy, cfg.gz, cfg.gamma, cfg.dx,
-                             cfg.dy, cfg.dz, offs, gext, ext_pad, flags)
+        out = ops.pre_gated(u, v, w, dt, cfg.bcs, cfg.problem, cfg.re,
+                            cfg.gx, cfg.gy, cfg.gz, cfg.gamma, cfg.dx,
+                            cfg.dy, cfg.dz, offs, gext, ext_pad, flags)
+        if bands is None:
+            return out
+        return out[:3] + band_plain(
+            out[3:], band_ranges(bands, BAND_ROWS, u.shape[0], ext_pad,
+                                 MAX_BANDS), u)
+    if bands is not None:
+        raise ValueError("the grid-band mode is the distributed mode's "
+                         "(offsets and global extents)")
     u1, v1, w1 = ops.set_boundary_conditions_3d(u, v, w, cfg.bcs)
     u1 = ops.set_special_bc_3d(u1, cfg.problem)
     if flags is not None:
@@ -370,7 +399,8 @@ def ns3d_pre_plain(u, v, w, dt, cfg: StepConfig3D, offs=None, gext=None,
 
 
 def ns3d_pre(u, v, w, dt, cfg: StepConfig3D, offs=None, gext=None,
-             ext_pad: int = 0, flags=None, ext=None, geo=None, active=None):
+             ext_pad: int = 0, flags=None, ext=None, geo=None, active=None,
+             bands=None):
     """K7: boundary conditions in place on u, v, w; returns (F, G, H, rhs).
     dt is a 0-dim tensor beside the fields. One device by default; with
     the shard's global offsets `offs` = (koff, joff, ioff), the global
@@ -378,13 +408,22 @@ def ns3d_pre(u, v, w, dt, cfg: StepConfig3D, offs=None, gext=None,
     deep blocks (local index a is global a - ext_pad + offset) and F, G,
     H, rhs its halo-1 blocks. `flags` (uint8 of u's shape) selects the
     flag mode; `ext`, `geo` and `active` the class mode, with dt (N,)
-    (module docstring)."""
+    (module docstring). `bands` ((start_plane, n_planes), ... in the deep
+    block's frame, overlap.band_ranges) selects the grid-band mode of the
+    distributed call, with or without flags: the BCs as in the full call,
+    F, G, H and rhs only on the bands' k-planes, every value there
+    bitwise the full call's; the other planes are left unwritten (the
+    plain version's NaN). Its launches count on `ns3d_pre_band`."""
     if ext is not None:
         return _pre_class(u, v, w, dt, cfg, ext, geo, active)
     local, o, G = _mode(u.shape, offs, gext, ext_pad, True)
+    if bands is not None and offs is None:
+        raise ValueError("the grid-band mode is the distributed mode's "
+                         "(offsets and global extents)")
     if u.device.type == "cpu":
         u1, v1, w1, f, g, h, rhs = ns3d_pre_plain(u, v, w, dt, cfg, offs,
-                                                  gext, ext_pad, flags)
+                                                  gext, ext_pad, flags,
+                                                  bands=bands)
         for a, b in ((u, u1), (v, v1), (w, w1)):
             a.copy_(b)
         return f, g, h, rhs
@@ -399,16 +438,28 @@ def ns3d_pre(u, v, w, dt, cfg: StepConfig3D, offs=None, gext=None,
     bc = (ctypes.c_int * 6)(*cfg.bc)
     coef = (ctypes.c_double * 16)(*cfg.coefficients())
     lib = _lib()
-    with torch.cuda.device(u.device):
-        err = getattr(lib, f"ns3d_pre_{_SUFFIX[u.dtype]}")(
-            u.device.index, u.data_ptr(), v.data_ptr(), w.data_ptr(),
+    args = (u.device.index, u.data_ptr(), v.data_ptr(), w.data_ptr(),
             dt.data_ptr(), f.data_ptr(), g.data_ptr(), h.data_ptr(),
             rhs.data_ptr(), (ctypes.c_int * 3)(*local),
             (ctypes.c_int * 7)(ext_pad, *o, *G), bc,
             _PROBLEM_CODE.get(cfg.problem, 0), coef, _ptr(flags),
-            *(_ptr(a) for a in scratch), kb.stream_of(u))
+            *(_ptr(a) for a in scratch))
+    with torch.cuda.device(u.device):
+        if bands is None:
+            err = getattr(lib, f"ns3d_pre_{_SUFFIX[u.dtype]}")(
+                *args, kb.stream_of(u))
+        else:
+            ranges = band_ranges(bands, BAND_ROWS, u.shape[0], ext_pad,
+                                 MAX_BANDS)
+            table = (ctypes.c_int * (1 + 2 * MAX_BANDS))(
+                len(ranges), *(r for lohi in ranges for r in lohi))
+            err = getattr(lib, f"ns3d_pre_band_{_SUFFIX[u.dtype]}")(
+                *args, table, kb.stream_of(u))
     kb.check(lib, err, "ns3d_pre")
-    (NS3D_PRE if flags is None else NS3D_PRE_FLAGS).launches += 1
+    if bands is not None:
+        NS3D_PRE_BAND.launches += 1
+    else:
+        (NS3D_PRE if flags is None else NS3D_PRE_FLAGS).launches += 1
     return f, g, h, rhs
 
 

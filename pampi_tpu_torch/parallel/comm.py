@@ -17,6 +17,10 @@ package runs one program per device under `shard_map`:
                                        neighbour's owned strip copied into
                                        the ghost strip (Tensor.copy_, which
                                        also crosses cards)
+  ExchangeSchedule / persistent_       ExchangeSchedule / persistent_
+  exchange (the overlapped step's      exchange: the same copies; `post`
+  exchange, flown by XLA behind        runs them on a second CUDA stream
+  compute)                             beside the work issued after it
   halo_shift (one ppermute)            halo_shift(blocks, comm, axis): the
                                        low ghost strip only (commShift)
   master_print (debug print on shard   master_print(comm, fmt, *args): one
@@ -46,6 +50,7 @@ only.
 
 from __future__ import annotations
 
+import contextlib
 import math
 import sys
 from dataclasses import dataclass, field
@@ -302,6 +307,172 @@ def halo_exchange(blocks, comm: CartComm, periodic=(), depth: int = 1):
     for dim, axis in enumerate(comm.axis_names):
         _exchange_axis(blocks, comm, dim, axis in periodic, depth)
     return blocks
+
+
+class Posted:
+    """An exchange in flight (ExchangeSchedule.post): the exchanged blocks,
+    one list per posted field, and on the card the events recorded on the
+    side streams after the exchange's last copy."""
+
+    def __init__(self, blocks, events=()):
+        self.blocks = blocks
+        self.events = list(events)
+
+    def wait(self):
+        """Make the current stream of every device the blocks lie on wait
+        for the exchange (nothing to wait for on the CPU); returns the
+        blocks. Only the exchange's consumer calls it."""
+        if self.events:
+            for dev in {b.device for x in self.blocks for b in x}:
+                stream = torch.cuda.current_stream(dev)
+                for ev in self.events:
+                    stream.wait_event(ev)
+        return self.blocks
+
+
+def _cards(comm: CartComm):
+    """The comm's distinct devices, a card with its index (the devices of
+    the tensors on it), or [] when the shards lie on the CPU."""
+    if comm.devices[0].type != "cuda":
+        return []
+    return list(dict.fromkeys(
+        d if d.index is not None else
+        torch.device("cuda", torch.cuda.current_device())
+        for d in comm.devices))
+
+
+def ready_events(comm: CartComm):
+    """Events recorded now on the current stream of each of the comm's
+    cards (the point an exchange posted later must follow), or None on
+    the CPU."""
+    cards = _cards(comm)
+    if not cards:
+        return None
+    return [torch.cuda.current_stream(d).record_event() for d in cards]
+
+
+_SIDE_STREAMS: dict = {}
+
+
+def side_stream(device):
+    """The exchange's second stream on a card, one per device and
+    process."""
+    device = torch.device(device)
+    stream = _SIDE_STREAMS.get(device)
+    if stream is None:
+        stream = _SIDE_STREAMS[device] = torch.cuda.Stream(device)
+    return stream
+
+
+class ExchangeSchedule:
+    """A persistent halo-exchange schedule (the JAX package's
+    parallel/comm.ExchangeSchedule): what is static about one class of
+    exchange (the mesh, the depth, the dtype, the periodic axes) resolved
+    once, the axes ordered by tier (dcn first; a single-tier mesh keeps
+    the axis order). Reordering full-strip axis exchanges moves no value:
+    a ghost corner receives the diagonal neighbour's owned value by either
+    route.
+
+    Calling it exchanges a list of blocks in place, as halo_exchange does.
+    `post` starts an exchange that a later consumer waits on: on the card
+    its copies run on a second stream of each device (side_stream) after
+    events recorded on the current streams (at the post, or earlier by
+    ready_events), so that the work issued around the post runs beside
+    them until `Posted.wait`. On the CPU `post` runs the same calls in
+    order."""
+
+    def __init__(self, comm: CartComm, depth: int = 1, dtype=None,
+                 periodic=()):
+        self.comm = comm
+        self.depth = int(depth)
+        self.dtype = dtype
+        self.periodic = tuple(periodic)
+        self.plan = sorted(
+            range(comm.ndims),
+            key=lambda d: (TIERS.index(comm.tiers[comm.axis_names[d]]), d))
+
+    def __call__(self, blocks):
+        if self.dtype is not None and any(b.dtype != self.dtype
+                                          for b in blocks):
+            raise TypeError(
+                f"ExchangeSchedule built for {self.dtype} applied to "
+                f"{blocks[0].dtype}: schedules are cached per (mesh, depth, "
+                "dtype); take the right one from persistent_exchange()")
+        if len({tuple(b.shape) for b in blocks}) != 1:
+            raise ValueError("halo_exchange needs equal block shapes")
+        for dim in self.plan:
+            _exchange_axis(blocks, self.comm, dim,
+                           self.comm.axis_names[dim] in self.periodic,
+                           self.depth)
+        return blocks
+
+    def post(self, groups, prepare=None, ready=None) -> Posted:
+        """Start the exchange of every list of blocks in `groups` (one
+        list per field). `prepare` maps each block to a new block to
+        exchange (embed_deep, say); without it the blocks are exchanged in
+        place. On the card the side streams wait for `ready`
+        (ready_events, recorded when the sources were complete: the caller
+        may issue work on the current streams between the two, which then
+        runs beside the copies) or, without it, for events recorded now;
+        they read the sources and write the new blocks, so
+        Tensor.record_stream marks each for the stream that has not
+        allocated it (the caching allocator then keeps its memory until
+        that stream's work is done), and nothing may write a source until
+        the consumer has waited."""
+        devices = _cards(self.comm)
+        if not devices:
+            out = [[prepare(b) for b in x] if prepare else list(x)
+                   for x in groups]
+            for x in out:
+                self(x)
+            return Posted(out)
+        main = {d: torch.cuda.current_stream(d) for d in devices}
+        side = {d: side_stream(d) for d in devices}
+        if ready is None:
+            ready = [main[d].record_event() for d in devices]
+        with contextlib.ExitStack() as stack:
+            for d in devices:
+                stack.enter_context(torch.cuda.stream(side[d]))
+                for ev in ready:
+                    side[d].wait_event(ev)
+            out = []
+            for x in groups:
+                blocks = [prepare(b) for b in x] if prepare else list(x)
+                self(blocks)
+                out.append(blocks)
+            done = [side[d].record_event() for d in devices]
+        for x, y in zip(groups, out):
+            for b in x:
+                b.record_stream(side[b.device])
+            if prepare:
+                for b in y:
+                    b.record_stream(main[b.device])
+        return Posted(out, done)
+
+
+_SCHEDULES: dict = {}
+
+
+def _mesh_key(comm: CartComm) -> tuple:
+    """The identity of a comm's mesh: axes, dims, devices and the tier
+    map (a re-tiered mesh orders its exchange otherwise)."""
+    return (tuple(comm.axis_names), tuple(comm.dims),
+            tuple(str(d) for d in comm.devices),
+            tuple(sorted(comm.tiers.items())))
+
+
+def persistent_exchange(comm: CartComm, depth: int = 1, dtype=None,
+                        periodic=()) -> ExchangeSchedule:
+    """The cached ExchangeSchedule of (mesh with its tier map, depth,
+    dtype, periodic axes): built once a process, the same object
+    afterwards."""
+    key = (_mesh_key(comm), int(depth),
+           None if dtype is None else str(dtype), tuple(sorted(periodic)))
+    sched = _SCHEDULES.get(key)
+    if sched is None:
+        sched = _SCHEDULES[key] = ExchangeSchedule(comm, depth, dtype,
+                                                   periodic)
+    return sched
 
 
 def halo_shift(blocks, comm: CartComm, axis: str):

@@ -12,7 +12,9 @@ assignment-5/ex5-nazifkar/src/solver.c:609). Extent-1 shards, which cannot
 ship a depth-2 strip, take the exchange-per-half-sweep fallback
 (`rb_exchange_per_sweep`). This path serves `tpu_sor_layout checkerboard`,
 ragged meshes and odd shard extents; the quarter-layout path of
-parallel/quarters_dist.py serves the rest.
+parallel/quarters_dist.py serves the rest. Under the overlapped schedule
+(`tpu_overlap`) the solve takes the split form `rb_split_iter` instead:
+an exchange per half-sweep, posted beside the interior update.
 
 Every update has the arithmetic of ops/sor.sor_pass (sliced laplacian,
 float mask multiply) in the JAX package's association. The per-shard
@@ -24,7 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from .comm import CartComm, halo_exchange
+from .comm import CartComm, halo_exchange, ready_events
 
 
 def ca_masks(jl: int, il: int, halo: int, jmax: int, imax: int, dtype,
@@ -130,6 +132,67 @@ def rb_exchange_per_sweep(blocks, rhs, masks, comm: CartComm, half,
     if ragged:
         halo_exchange(blocks, comm)
     blocks = [neumann_masked(p, m) for p, m in zip(blocks, masks)]
+    return blocks, [_owned_r2(a, b, m) for a, b, m in zip(r_red, r_blk, masks)]
+
+
+def split_half(blocks, rhs, sched, int_masks, update):
+    """One half-sweep of every shard split interior/boundary (the solve's
+    twin of the overlapped PRE split): the depth-1 exchange is posted on
+    copies of the blocks, the interior update runs in place on the
+    unexchanged blocks meanwhile, the boundary update on the exchanged
+    copies after it; the interior mask (rim 2: cells whose stencil never
+    reads the ghost ring) merges the two. `update(s, p, f)` relaxes shard
+    s's block p in place and returns its r (of the block's [1:-1, ...]
+    slice). Returns the merged blocks and r. On the card the interior
+    update is issued before the exchange's copies, which wait only for
+    the clones (events recorded after them, ready_events), so that the
+    two run side by side."""
+    copies = [b.clone() for b in blocks]
+    ready = ready_events(sched.comm)
+    r_int = [update(s, p, f) for s, (p, f) in enumerate(zip(blocks, rhs))]
+    (ex,) = sched.post([copies], ready=ready).wait()
+    r_bnd = [update(s, p, f) for s, (p, f) in enumerate(zip(ex, rhs))]
+    inner = (slice(1, -1),) * blocks[0].dim()
+    return ([torch.where(m, a, b) for m, a, b in zip(int_masks, blocks, ex)],
+            [torch.where(m[inner], a, b)
+             for m, a, b in zip(int_masks, r_int, r_bnd)])
+
+
+def split_refresh(blocks, sched, int_masks, refresh):
+    """The ragged layouts' pre-Neumann exchange, split as split_half:
+    `refresh(s, p)` (the wall-ghost copy, a new block) on the unexchanged
+    and on the exchanged blocks, merged by the interior mask."""
+    (ex,) = sched.post([[b.clone() for b in blocks]]).wait()
+    return [torch.where(m, refresh(s, a), refresh(s, b))
+            for s, (m, a, b) in enumerate(zip(int_masks, blocks, ex))]
+
+
+def rb_split_iter(blocks, rhs, masks, sched, int_masks, factor, idx2, idy2,
+                  ragged: bool = False):
+    """One red-black iteration of every shard with each half-sweep split
+    interior/boundary (the JAX package's rb_split_iter; split_half), on
+    halo-1 blocks. `sched` is the persistent depth-1 ExchangeSchedule
+    (parallel/comm.persistent_exchange), `int_masks` each shard's rim-2
+    interior mask (parallel/overlap.interior_mask(local, 2,
+    partitioned)). The values are bitwise the exchange-per-half-sweep
+    form's (rb_exchange_per_sweep), itself bitwise the CA form's: interior
+    cells compute the same values from either block, boundary cells read
+    the exchanged one. Ragged layouts split the extra pre-Neumann refresh
+    the same way. Returns the blocks and the per-shard owned sums of
+    r²."""
+    def half(colour):
+        def update(s, p, f):
+            return ca_half_sweep(p, f, masks[s][colour][1:-1, 1:-1], factor,
+                                 idx2, idy2)[1]
+        return update
+
+    blocks, r_red = split_half(blocks, rhs, sched, int_masks, half("red"))
+    blocks, r_blk = split_half(blocks, rhs, sched, int_masks, half("black"))
+    if ragged:
+        blocks = split_refresh(blocks, sched, int_masks,
+                               lambda s, p: neumann_masked(p, masks[s]))
+    else:
+        blocks = [neumann_masked(p, m) for p, m in zip(blocks, masks)]
     return blocks, [_owned_r2(a, b, m) for a, b, m in zip(r_red, r_blk, masks)]
 
 

@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from .comm import CartComm, halo_exchange
+from .stencil2d import split_half, split_refresh
 
 
 def ca_masks_3d(kl: int, jl: int, il: int, halo: int, kmax: int, jmax: int,
@@ -130,5 +131,32 @@ def rb_exchange_per_sweep_3d(blocks, rhs, masks, comm: CartComm, factor,
     if ragged:
         halo_exchange(blocks, comm)
     blocks = [neumann_masked_3d(p, m) for p, m in zip(blocks, masks)]
+    return blocks, [_owned_r2_3d(a, b, m)
+                    for a, b, m in zip(r_odd, r_evn, masks)]
+
+
+def rb_split_iter_3d(blocks, rhs, masks, sched, int_masks, factor, idx2,
+                     idy2, idz2, ragged: bool = False):
+    """One red-black iteration of every shard with each half-sweep split
+    interior/boundary (the JAX package's rb_split_iter_3d; stencil2d.
+    split_half), on halo-1 blocks: bitwise the exchange-per-half-sweep
+    form. `sched` is the persistent depth-1 ExchangeSchedule,
+    `int_masks` each shard's rim-2 interior mask. Returns the blocks and
+    the per-shard owned sums of r²."""
+    coef = (factor, idx2, idy2, idz2)
+
+    def half(parity):
+        def update(s, p, f):
+            return ca_half_sweep_3d(p, f, masks[s][parity][1:-1, 1:-1, 1:-1],
+                                    *coef)[1]
+        return update
+
+    blocks, r_odd = split_half(blocks, rhs, sched, int_masks, half("odd"))
+    blocks, r_evn = split_half(blocks, rhs, sched, int_masks, half("even"))
+    if ragged:
+        blocks = split_refresh(blocks, sched, int_masks,
+                               lambda s, p: neumann_masked_3d(p, masks[s]))
+    else:
+        blocks = [neumann_masked_3d(p, m) for p, m in zip(blocks, masks)]
     return blocks, [_owned_r2_3d(a, b, m)
                     for a, b, m in zip(r_odd, r_evn, masks)]

@@ -2,9 +2,10 @@
 
 `record`/`last`/`snapshot` keep a per-process record of which path each
 solver took (kernel or plain version, layout, fused or ladder MG cycle,
-the fleet's class and bucket decisions), like the JAX package's
-`utils/dispatch.py`. `resolve_solver`, `resolve_mg_fused`,
-`resolve_mg_class` and `resolve_class` port that module's policies,
+the exchange schedule, the fleet's class and bucket decisions), like the
+JAX package's `utils/dispatch.py`. `resolve_solver`, `resolve_mg_fused`,
+`resolve_mg_class`, `resolve_overlap`, `resolve_overlap_restrict` and
+`resolve_class` port that module's policies,
 `mesh_is_single` the CLI's mesh policy. `check_supported` refuses, loudly,
 every option the port does not run yet, naming the ROADMAP item that will
 bring it."""
@@ -153,6 +154,73 @@ def resolve_mg_class(knob: str, lmax: int, key: str = "mg_class_fused"
     return True
 
 
+def resolve_overlap(param, key: str, why_not: str | None = None) -> bool:
+    """`tpu_overlap` -> whether a distributed NS build runs the overlapped
+    exchange schedule (parallel/overlap.py: the PRE split into an
+    interior and a boundary half, the next step's deep exchange posted
+    after POST) instead of the serial exchange-then-compute step, in the
+    JAX package's decision order and words (pampi_tpu/utils/dispatch.py
+    resolve_overlap). `why_not` marks a build that cannot take it (the
+    schedule rides the fused deep-halo step). `auto` overlaps only on a
+    TPU in the JAX package; the card is not one, so `auto` records
+    "serial (no TPU)" on the CPU and on the card alike; `on` forces the
+    schedule. Recorded under `key` ("overlap_ns2d_dist",
+    "overlap_ns3d_dist")."""
+    knob = param.tpu_overlap
+    if knob not in ("auto", "on", "off"):
+        raise ValueError(f"tpu_overlap must be auto|on|off, got {knob!r}")
+    if knob == "off":
+        record(key, "serial (tpu_overlap off)")
+        return False
+    if why_not is not None:
+        record(key, f"serial ({why_not})")
+        return False
+    if knob == "on":
+        record(key, "overlap (forced)")
+        return True
+    record(key, "serial (no TPU)")
+    return False
+
+
+def resolve_overlap_restrict(param, key: str, plan,
+                             why_not: str | None = None) -> bool:
+    """`tpu_overlap_restrict` -> whether the overlapped PRE halves run in
+    the grid-band mode of K3/K7 (parallel/overlap.pre_plan: the interior
+    half over the interior core's rows, the boundary half over the rim's)
+    instead of two full sweeps, in the JAX package's order and words
+    (resolve_overlap_restrict). `plan` is the region plan (None: the
+    interior region is empty). `auto` restricts where the plan's banded
+    cells beat the two full sweeps, `on` forces it, `off` keeps the full
+    halves. The cell counts are of the port's own layout (rows of the
+    deep block in blocks of the band launch's rows, each row as wide as
+    the halo-1 block's). Recorded under `key`
+    ("overlap_grid_<family>")."""
+    knob = param.tpu_overlap_restrict
+    if knob not in ("auto", "on", "off"):
+        raise ValueError(
+            f"tpu_overlap_restrict must be auto|on|off, got {knob!r}")
+    if knob == "off":
+        record(key, "full (tpu_overlap_restrict off)")
+        return False
+    if why_not is not None:
+        record(key, f"full ({why_not})")
+        return False
+    if plan is None:
+        record(key, "full (interior region empty: boundary-everywhere)")
+        return False
+    cells, full = plan["cells"], plan["cells_full"]
+    if knob == "on":
+        record(key, f"restricted (forced; {cells} vs {full} cells)")
+        return True
+    if plan["win"]:
+        record(key, f"restricted (grid plan wins: {cells} vs {full} "
+                    "cells)")
+        return True
+    record(key, f"full (banding cannot win at this shard geometry: "
+                f"{cells} vs {full} cells)")
+    return False
+
+
 def resolve_class(key: str, grid, why_not: str | None) -> bool:
     """Shape-class eligibility of one request, recorded per bucket (the
     JAX package's resolve_class): `key` is `class_<bucket>`, the class
@@ -269,7 +337,8 @@ def _check_mesh(param, three_d: bool) -> None:
     Poisson solve (models/poisson_dist.py), and the NS-2D and NS-3D time
     steppers (models/ns2d_dist.py, models/ns3d_dist.py) on any mesh, one
     that divides the grid or a ragged one; the NS steppers with the serial
-    exchange schedule and a fixed solve budget."""
+    or the overlapped exchange schedule (`tpu_overlap`, resolve_overlap)
+    and a fixed solve budget."""
     where = f"tpu_mesh {param.tpu_mesh}"
     ns = param.name in ("dcavity3d", "canal3d", "dcavity", "canal",
                         "canal_obstacle")
@@ -283,19 +352,13 @@ def _check_mesh(param, three_d: bool) -> None:
             "mg/fft solves are not yet ported (ROADMAP A.8)")
     if not ns:
         return
-    family = "NS-3D" if three_d else "NS-2D"
-    if param.tpu_overlap == "on":
-        raise NotImplementedError(
-            f"tpu_overlap on: the overlapped exchange schedule of the "
-            f"distributed {family} step is not yet ported (ROADMAP A.8)")
-    if param.tpu_overlap not in ("auto", "off"):
-        raise ValueError(
-            f"tpu_overlap must be auto|on|off, got {param.tpu_overlap!r}")
     if param.tpu_exchange_depth not in ("auto", "off"):
         raise NotImplementedError(
             f"tpu_exchange_depth {param.tpu_exchange_depth}: the K-step "
-            "fused exchange schedule is not yet ported (ROADMAP A.8)")
+            "fused exchange schedule is not yet ported (ROADMAP A.8, item "
+            "6.2)")
     if param.tpu_itermax_adaptive > 0:
         raise NotImplementedError(
             "tpu_itermax_adaptive > 0: the residual-adaptive solve budget "
-            "of the distributed SOR paths is not yet ported (ROADMAP A.8)")
+            "of the distributed SOR paths is not yet ported (ROADMAP A.8, "
+            "item 6.3)")

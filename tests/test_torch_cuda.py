@@ -1439,3 +1439,102 @@ def test_class3d_fleet_on_card_matches_cpu(cuda):
         for x, y in zip(a.fields, b.fields):
             scale = max(1.0, float(np.abs(y).max()))
             assert np.abs(x - y).max() <= 1e-9 * scale
+
+
+# -- the overlapped schedule: the grid-band mode of K3/K7 and the launches
+# of the overlapped step ------------------------------------------------------
+
+def _band_case(three_d, local, dims, problem):
+    """(param, comm, global extents, plan) of a shard geometry."""
+    from pampi_tpu_torch.parallel import overlap as ovl
+
+    names = ("kmax", "jmax", "imax")[3 - len(dims):]
+    gext = tuple(e * d - 1 for e, d in zip(local, dims))  # ragged
+    param = Parameter(name=problem, re=100.0, gamma=0.9,
+                      **dict(zip(names, gext)))
+    comm = CartComm(ndims=len(dims), dims=dims, devices=["cuda"])
+    plan = ovl.pre_plan(comm.local_shape(gext, ragged=True),
+                        tuple(d > 1 for d in dims), 2,
+                        nf3.BAND_ROWS if three_d else nf.BAND_ROWS)
+    return param, comm, gext, plan
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("three_d,local,dims,problem", [
+    (False, (40, 72), (2, 2), "dcavity"), (False, (33, 20), (3, 1), "canal"),
+    (True, (20, 12, 16), (2, 2, 2), "dcavity3d"),
+    (True, (18, 10, 9), (2, 1, 2), "canal3d")])
+def test_band_k3_k7_match_full_and_plain(cuda, dtype, three_d, local, dims,
+                                         problem):
+    """K3's and K7's grid-band mode on every shard of a ragged mesh, both
+    halves of the port's plan: the BCs and every output on the bands' rows
+    bitwise the full call's, and to the tolerance of the band plain
+    version (which is NaN off the bands)."""
+    param, comm, gext, plan = _band_case(three_d, local, dims, problem)
+    assert plan is not None
+    if three_d:
+        cfg, pre, plain, nfield = (nf3.StepConfig3D.from_param(param),
+                                   nf3.ns3d_pre, nf3.ns3d_pre_plain, 3)
+    else:
+        cfg, pre, plain, nfield = (nf.StepConfig.from_param(param),
+                                   nf.ns2d_pre, nf.ns2d_pre_plain, 2)
+    local = comm.local_shape(gext, ragged=True)
+    dt = torch.tensor(1e-3, dtype=dtype, device=cuda)
+    before = (nf3.NS3D_PRE_BAND if three_d else nf.NS2D_PRE_BAND).launches
+    for s in range(comm.size):
+        deep = [_rand(tuple(e + 6 for e in local), dtype, cuda, 31 * s + k)
+                for k in range(nfield)]
+        tail = (dt, cfg, comm.offsets(s, local), gext, 2)
+        full_blocks = [x.clone() for x in deep]
+        full = pre(*full_blocks, *tail)
+        for half in ("int_bands", "bnd_bands"):
+            blocks = [x.clone() for x in deep]
+            out = pre(*blocks, *tail, bands=plan[half])
+            pl = plain(*deep, *tail, bands=plan[half])
+            torch.cuda.synchronize()
+            for a, b in zip(blocks, full_blocks):
+                assert torch.equal(a, b)
+            for a, b, c in zip(out, full, pl[nfield:]):
+                rows = ~torch.isnan(c)
+                assert rows.any() and torch.equal(a[rows], b[rows])
+                _assert_close(a[rows], c[rows], dtype)
+    assert (nf3.NS3D_PRE_BAND if three_d else nf.NS2D_PRE_BAND).launches \
+        == before + 2 * comm.size
+
+
+@pytest.mark.parametrize("three_d", [False, True], ids=["2d", "3d"])
+@pytest.mark.parametrize("restrict", ["off", "on"])
+def test_overlap_launches_and_fields_on_card(cuda, three_d, restrict):
+    """`tpu_overlap on` on the card: PRE launches twice a step and shard
+    (K3/K7's band mode under `tpu_overlap_restrict on`), the side stream's
+    exchange waited on where it is consumed, and the fields bitwise the
+    serial step's (`off`) after the same steps."""
+    from pampi_tpu_torch.kernels import build as kb
+
+    if three_d:
+        cls, dims = NS3DDistSolver, (2, 2, 2)
+        param = Parameter(name="dcavity3d", imax=24, jmax=24, kmax=24,
+                          re=100.0, itermax=20, tpu_dtype="float64")
+        full, band = nf3.NS3D_PRE, nf3.NS3D_PRE_BAND
+    else:
+        cls, dims = NS2DDistSolver, (2, 2)
+        param = Parameter(name="dcavity", imax=64, jmax=64, re=100.0,
+                          itermax=20, tpu_dtype="float64")
+        full, band = nf.NS2D_PRE, nf.NS2D_PRE_BAND
+    runs = {}
+    for overlap in ("on", "off"):
+        s = cls(param.replace(tpu_overlap=overlap,
+                              tpu_overlap_restrict=restrict),
+                CartComm(ndims=len(dims), dims=dims, devices=[cuda]))
+        kb.reset_launches()
+        s.run_steps(4)
+        torch.cuda.synchronize()
+        per = 2 if overlap == "on" else 1
+        banded = overlap == "on" and restrict == "on"
+        assert (band if banded else full).launches == 4 * per * s.comm.size
+        assert (full if banded else band).launches == 0
+        runs[overlap] = s
+    a, b = (runs[k].global_fields() for k in ("on", "off"))
+    assert runs["on"].t == runs["off"].t
+    for name in a:
+        assert np.array_equal(a[name], b[name])

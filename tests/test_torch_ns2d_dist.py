@@ -239,7 +239,7 @@ def test_refusals():
     comm = CartComm(ndims=2, dims=(2, 2), devices=[CPU])
     for kw in (dict(tpu_solver="mg"), dict(tpu_solver="fft"),
                dict(tpu_solver="auto"),  # takes fft on a divisible mesh
-               dict(tpu_overlap="on"), dict(tpu_exchange_depth="1"),
+               dict(tpu_exchange_depth="1"),
                dict(tpu_itermax_adaptive=4),
                dict(obstacles="0.2,0.2,0.4,0.4", tpu_solver="mg")):
         with pytest.raises(NotImplementedError, match="ROADMAP A"):
@@ -265,8 +265,7 @@ def test_dispatch_records_and_fallbacks():
                    CartComm(ndims=2, dims=(2, 2), devices=[CPU]))
     assert dispatch.last("ns2d_dist") == "pallas_quarters ca3"  # 8/2 - 1
     assert dispatch.last("ns2d_dist_phases") == "pallas_fused"
-    assert dispatch.last("overlap_ns2d_dist") == (
-        "serial (the overlapped schedule is not yet ported, ROADMAP A.8)")
+    assert dispatch.last("overlap_ns2d_dist") == "serial (no TPU)"
     # ragged, f64: the cadence is tpu_ca_inner; forced: the kernel's
     NS2DDistSolver(base.replace(imax=15, tpu_ca_inner=2),
                    CartComm(ndims=2, dims=(2, 2), devices=[CPU]))

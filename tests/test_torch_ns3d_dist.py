@@ -203,7 +203,6 @@ def test_refusals():
                      (dict(tpu_solver="fft"), (2, 2, 2)),
                      (dict(tpu_solver="auto"), (2, 2, 2)),  # takes fft
                      (dict(obstacles=box, tpu_solver="mg"), (2, 2, 2)),
-                     (dict(tpu_overlap="on"), (2, 2, 2)),
                      (dict(tpu_exchange_depth="1"), (2, 2, 2)),
                      (dict(tpu_itermax_adaptive=4), (2, 2, 2))):
         with pytest.raises(NotImplementedError, match="ROADMAP A"):
@@ -230,8 +229,7 @@ def test_dispatch_records():
     NS3DDistSolver(base, _comm((2, 2, 2)))
     assert dispatch.last("ns3d_dist") == "kernel_octants ca1"
     assert dispatch.last("ns3d_dist_phases") == "kernel_fused"
-    assert dispatch.last("overlap_ns3d_dist") == (
-        "serial (the overlapped schedule is not yet ported, ROADMAP A.8)")
+    assert dispatch.last("overlap_ns3d_dist") == "serial (no TPU)"
     # float32 takes the kernel's depth (float64 checks every tpu_ca_inner)
     NS3DDistSolver(base.replace(tpu_sor_inner=4, tpu_dtype="float32"),
                    _comm((2, 2, 2)))
