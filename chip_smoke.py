@@ -386,6 +386,29 @@ K3 and K7, entries `ns2d_pre_band`, `ns3d_pre_band`) adds:
    configs/canal_obstacle.par on 2x2 (flag K3 band, K15), five steps, `on`
    against `off`: counts, t and fields bitwise.
 
+`tpu_dtype bfloat16` (K1's bf16-storage mode, entry
+`rb_sor_quarters_bf16`: bf16 planes, float32 inside a call, one launch a
+call; K3/K4 at bf16, entries `ns2d_pre_bf16`, `ns2d_post_bf16`: every
+operation rounded to bf16) adds:
+
+2. K1 bf16 against its plain version at 1024² and 1022x1020, n = 1..4,
+   three chained calls in the `out=` form, and at n = 40 (a call in
+   passes): planes and the float32 residual bitwise; K3/K4 bf16 on
+   dcavity and canal 1024²: u', v' copies and maxima bitwise, F, G, rhs,
+   u'', v'' bitwise or within 1 bf16 ulp of scale, the count of differing
+   cells logged;
+3. K1 bf16 at 4096² (n = 4) beside K1 float32 in the same run, and
+   K3/K4 bf16 at 4096²: ms a call (CUDA events), CUDA launches a call
+   (torch.profiler), the bound (2 bytes a cell);
+4. Poisson 4096² bf16 (400 iterations, tpu_sor_inner 4): ms/iteration;
+   NS-2D dcavity 4096² (itermax 100, eps 0) at bf16 and float32, 16
+   steps after a warm-up: ms/step, PRE / solve / POST; u and v of the bf16
+   run within 0.05 of scale of the float32 run, the p gap logged;
+5. `python -m pampi_tpu_torch` on configs/dcavity.par at bf16, te cut
+   to 0.0025 (eps 1e-3 lies under the bf16 floor: every solve runs its
+   1000 iterations), on the card and on the CPU (a process of its own):
+   the same steps, the .dat fields within 1 bf16 ulp of scale.
+
 It then prints the kernels line (JSON; K5-K8 and K11/K12 at 256³, where a
 field outgrows the L2 and the bound is a floor, with their 128³ numbers
 under main_shape_* keys, the distributed modes of K3/K4 and K7/K8
@@ -1692,7 +1715,7 @@ def stop_procs():
             proc.kill()
             proc.wait()
     for files in (DCAVITY_CPU, OBST_RUNS, OBST2_RUNS, RAGGED_RUNS,
-                  DIST2D_RUNS):
+                  DIST2D_RUNS, BF16_RUN):
         if "tmp" in files:
             shutil.rmtree(files.pop("tmp"), ignore_errors=True)
 
@@ -6993,6 +7016,354 @@ def main_path_overlap(torch):
 OVERLAP_STEPS = {}  # main_path_overlap's ms/step, on and off
 
 
+# -- tpu_dtype bfloat16: K1's bf16-storage mode, K3/K4 at bf16 --------------
+
+BF16_ULP = 2.0 ** -7   # bf16's ulp at 1 (8 significant bits)
+BF16_ERR = {}          # each bf16 kernel's max_abs_err, from its checks
+BF16_TE = 0.0025       # configs/dcavity.par's te for the bf16 CLI run
+BF16_RUN = {}          # the CPU half's process and directory
+
+
+def bf16_rand(torch, np, shape, seed, n=1):
+    """n bf16 fields on the card from a seeded normal draw."""
+    return [x.to(torch.bfloat16) for x in
+            rng_fields(torch, np, shape, torch.float32, n, seed)]
+
+
+def bf16_gap(a, b):
+    """(max |a - b| in bf16 ulps of b's scale max(1, max|b|), the count of
+    cells that differ at all, max |a - b|)."""
+    d = (a.float() - b.float()).abs()
+    scale = max(1.0, float(b.float().abs().max()))
+    return (float(d.max()) / (BF16_ULP * scale), int((d > 0).sum()),
+            float(d.max()))
+
+
+def check_k1_bf16(torch, sk, q, f, n, coef, calls=3):
+    """K1's bf16 mode (`out=`, the solvers' form) against its plain
+    version on the card, `calls` chained calls: (planes bitwise, residual
+    bitwise, max_abs_err)."""
+    qk, qp, out = q.clone(), q.clone(), torch.empty_like(q)
+    for _ in range(calls):
+        rk = sk.rb_sor_quarters(qk, f, n, *coef, out=out)
+        qk, out = out, qk
+        rp = sk.rb_sor_quarters_plain(qp, f, n, *coef)
+    torch.cuda.synchronize()
+    return (torch.equal(qk, qp), torch.equal(rk, rp),
+            float((qk.float() - qp.float()).abs().max()))
+
+
+def check_k34_bf16(torch, nf, cfg, u, v, p, dt):
+    """K3/K4's bf16 mode against their plain versions on the card: (u', v'
+    copies and maxima bitwise, {output: bf16_gap}), the outputs F, G, rhs,
+    u'', v''."""
+    uk, vk = u.clone(), v.clone()
+    fk, gk, rk = nf.ns2d_pre(uk, vk, dt, cfg)
+    u1, v1, f1, g1, r1 = nf.ns2d_pre_plain(u, v, dt, cfg)
+    copies = torch.equal(uk, u1) and torch.equal(vk, v1)
+    umax, vmax = nf.ns2d_post(uk, vk, fk, gk, p, dt, cfg.dx, cfg.dy)
+    u2, v2, um2, vm2 = nf.ns2d_post_plain(u1, v1, f1, g1, p, dt, cfg.dx,
+                                          cfg.dy)
+    maxima = torch.equal(umax, um2) and torch.equal(vmax, vm2)
+    gaps = {k: bf16_gap(a, b) for k, a, b in (
+        ("F", fk, f1), ("G", gk, g1), ("rhs", rk, r1), ("u''", uk, u2),
+        ("v''", vk, v2))}
+    return copies, maxima, gaps
+
+
+def bf16_step_config(Parameter, nf, problem, J, I):
+    bc = (1, 1, 1, 1) if problem == "dcavity" else (3, 3, 1, 1)
+    return nf.StepConfig.from_param(Parameter(
+        name=problem, imax=I, jmax=J, re=1000.0, gamma=0.9, bcLeft=bc[0],
+        bcRight=bc[1], bcBottom=bc[2], bcTop=bc[3]))
+
+
+@phase("bf16 kernels vs plain versions")
+def check_bf16_kernels(torch, np):
+    from pampi_tpu_torch.ops import ns2d_fused as nf
+    from pampi_tpu_torch.ops import sor_kernels as sk
+    from pampi_tpu_torch.ops.sor_quarters import stack_quarters
+    from pampi_tpu_torch.utils.params import Parameter
+
+    bad = []
+    for J, I in ((1024, 1024), (1022, 1020)):
+        coef = sk.sor_coefficients(1.0 / I, 1.0 / J, 1.9)
+        p, rhs = bf16_rand(torch, np, (J + 2, I + 2), 61, 2)
+        q, f = stack_quarters(p), stack_quarters(rhs)
+        for n in (1, 2, 3, 4):
+            fields, res, err = check_k1_bf16(torch, sk, q, f, n, coef)
+            BF16_ERR["rb_sor_quarters_bf16"] = max(
+                BF16_ERR.get("rb_sor_quarters_bf16", 0.0), err)
+            ok = fields and res
+            log(f"rb_sor_quarters_bf16 {J}x{I} n={n}: planes bitwise "
+                f"{fields}, float32 residual bitwise {res} (3 calls) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                bad.append(f"rb_sor_quarters_bf16 {J}x{I} n={n}")
+    # a call too deep for one pass: float32 planes between the passes
+    coef = sk.sor_coefficients(1.0 / 1024, 1.0 / 1024, 1.9)
+    p, rhs = bf16_rand(torch, np, (1026, 1026), 62, 2)
+    fields, res, _ = check_k1_bf16(torch, sk, stack_quarters(p),
+                                   stack_quarters(rhs), 40, coef, calls=1)
+    log(f"rb_sor_quarters_bf16 1024² n=40 (passes): planes bitwise {fields},"
+        f" residual bitwise {res} {'ok' if fields and res else 'FAIL'}")
+    if not (fields and res):
+        bad.append("rb_sor_quarters_bf16 n=40")
+    J = I = 1024
+    for problem in ("dcavity", "canal"):
+        cfg = bf16_step_config(Parameter, nf, problem, J, I)
+        u, v, pp = bf16_rand(torch, np, (J + 2, I + 2), 63, 3)
+        dt = torch.tensor(1.3e-3, dtype=torch.bfloat16, device="cuda")
+        copies, maxima, gaps = check_k34_bf16(torch, nf, cfg, u, v, pp, dt)
+        worst = max(g[0] for g in gaps.values())
+        for name, keys in (("ns2d_pre_bf16", ("F", "G", "rhs")),
+                           ("ns2d_post_bf16", ("u''", "v''"))):
+            BF16_ERR[name] = max([BF16_ERR.get(name, 0.0)]
+                                 + [gaps[k][2] for k in keys])
+        ok = copies and maxima and worst <= 1.0
+        log(f"ns2d_pre/post_bf16 {problem} {J}²: u', v' bitwise {copies}, "
+            f"maxima bitwise {maxima}; "
+            + ", ".join(f"{k} {g[0]:.3g} ulp of scale ({g[1]} cells differ)"
+                        for k, g in gaps.items())
+            + f" (tol 1 ulp) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            bad.append(f"ns2d_pre/post_bf16 {problem}")
+    if bad:
+        raise AssertionError(f"bf16 kernels disagree: {bad}")
+
+
+@phase("bf16 kernels at 4096²: K1 bf16 beside K1 float32, K3/K4 bf16")
+def time_bf16_kernels(torch, np):
+    from pampi_tpu_torch.ops import ns2d_fused as nf
+    from pampi_tpu_torch.ops import sor_kernels as sk
+    from pampi_tpu_torch.ops.sor_quarters import stack_quarters
+    from pampi_tpu_torch.utils.params import Parameter
+
+    J, I = MAIN
+    n = 4
+    cells = (J + 2) * (I + 2)
+    ring = 2 * (I + 2) + 2 * J
+    interior = J * I
+    coef = sk.sor_coefficients(1.0 / I, 1.0 / J, 1.8)
+    p, rhs = bf16_rand(torch, np, (J + 2, I + 2), 64, 2)
+    q, f = stack_quarters(p), stack_quarters(rhs)
+    rows = {}
+    fields, res, err = check_k1_bf16(torch, sk, q, f, n, coef, calls=1)
+    if not (fields and res):
+        raise AssertionError("K1 bf16 disagrees with its plain version at "
+                             "4096²")
+    out, qp = torch.empty_like(q), q.clone()
+    ms = cuda_ms(torch, lambda: sk.rb_sor_quarters(q, f, n, *coef, out=out),
+                 20)
+    pms = cuda_ms(torch, lambda: sk.rb_sor_quarters_plain(qp, f, n, *coef),
+                  3)
+    launches = cuda_launches(torch, lambda: sk.rb_sor_quarters(
+        q, f, n, *coef, out=out))
+    # p and rhs read once and p written once at 2 bytes a cell; the
+    # iterations run on float32 cores: ~12 flops an update
+    b = bound(3 * cells * 2, 12 * n * interior)
+    rows["rb_sor_quarters_bf16"] = dict(
+        max_abs_err=BF16_ERR.get("rb_sor_quarters_bf16", err), ms=ms,
+        plain_ms=pms, bound_ms=b[0], bound_by=b[1],
+        cuda_launches_per_call=launches)
+    q32, f32 = q.float(), f.float()
+    ms32 = cuda_ms(torch, lambda: sk.rb_sor_quarters(q32, f32, n, *coef), 20)
+    l32 = cuda_launches(torch, lambda: sk.rb_sor_quarters(q32, f32, n,
+                                                          *coef))
+    b32 = bound(3 * cells * 4, 12 * n * interior)
+    log(f"K1 4096² n={n}: bf16 {ms:.4f} ms/call, {launches_text(launches)} "
+        f"CUDA launches a call, bound {b[0]:.4f} ({b[1]}); float32 "
+        f"{ms32:.4f} ms/call, {launches_text(l32)} launches, bound "
+        f"{b32[0]:.4f}; bf16 plain {pms:.4f}")
+    cfg = bf16_step_config(Parameter, nf, "dcavity", J, I)
+    u, v, pp = bf16_rand(torch, np, (J + 2, I + 2), 65, 3)
+    dt = torch.tensor(1e-4, dtype=torch.bfloat16, device="cuda")
+    copies, maxima, gaps = check_k34_bf16(torch, nf, cfg, u, v, pp, dt)
+    if not (copies and maxima and max(g[0] for g in gaps.values()) <= 1.0):
+        raise AssertionError(f"K3/K4 bf16 disagree at 4096²: {gaps}")
+    uk, vk = u.clone(), v.clone()
+    fk, gk, _ = nf.ns2d_pre(uk, vk, dt, cfg)
+    for name, kern, plain, flops in (
+            ("ns2d_pre_bf16", lambda: nf.ns2d_pre(uk, vk, dt, cfg),
+             lambda: nf.ns2d_pre_plain(u, v, dt, cfg), 80),
+            ("ns2d_post_bf16",
+             lambda: nf.ns2d_post(uk, vk, fk, gk, pp, dt, cfg.dx, cfg.dy),
+             lambda: nf.ns2d_post_plain(u, v, fk, gk, pp, dt, cfg.dx,
+                                        cfg.dy), 10)):
+        ms = cuda_ms(torch, kern, 20)
+        pms = cuda_ms(torch, plain, 3)
+        launches = cuda_launches(torch, kern)
+        # the float32 rows' five field-sizes and the ghost rings, at 2 bytes
+        b = bound((5 * cells + 2 * ring) * 2, flops * interior)
+        rows[name] = dict(max_abs_err=BF16_ERR.get(name, 0.0), ms=ms,
+                          plain_ms=pms, bound_ms=b[0], bound_by=b[1],
+                          cuda_launches_per_call=launches)
+    for name, r in rows.items():
+        log(f"{name} 4096² bf16: {r['ms']:.4f} ms/call (plain "
+            f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} by "
+            f"{r['bound_by']}), {launches_text(r['cuda_launches_per_call'])}"
+            f" CUDA launches a call, max_abs_err vs plain "
+            f"{r['max_abs_err']:.3e}")
+    return rows
+
+
+@phase("main path: Poisson 4096² and NS-2D dcavity 4096² at tpu_dtype "
+       "bfloat16, beside float32")
+def main_path_bf16(torch):
+    from pampi_tpu_torch.kernels import build as kb
+    from pampi_tpu_torch.models.ns2d import NS2DSolver
+    from pampi_tpu_torch.models.poisson import PoissonSolver
+    from pampi_tpu_torch.utils.params import Parameter
+
+    J, I = MAIN
+    kernels = ("rb_sor_quarters_bf16", "ns2d_pre_bf16", "ns2d_post_bf16")
+
+    def poisson():
+        param = Parameter(name="poisson", imax=I, jmax=J, itermax=400,
+                          eps=0.0, omg=1.9, tpu_dtype="bfloat16",
+                          tpu_sor_inner=4)
+        s = PoissonSolver(param, device="cuda")
+        s.solve()  # warm-up: loads the kernels
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        it, res = s.solve()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        if (it != 400 or not res == res or s.p.dtype != torch.bfloat16
+                or not bool(torch.isfinite(s.p).all())):
+            raise AssertionError(f"Poisson bf16: it={it} res={res}")
+        log(f"Poisson 4096² bf16 (quarters, tpu_sor_inner 4): {it} "
+            f"iterations, {sec / it * 1e3:.4f} ms/iteration, "
+            f"{J * I * it / sec:.4e} site-updates/s, residual {res:.4e} "
+            "(float32)")
+
+    runs = {}
+
+    def ns2d(dtype):
+        param = Parameter(name="dcavity", imax=I, jmax=J, re=1000.0,
+                          itermax=100, eps=0.0, te=1e9, tpu_dtype=dtype,
+                          tpu_sor_inner=4)
+        s = NS2DSolver(param, device="cuda")
+        r = timed_steps(torch, s, 16)
+        finite = all(bool(torch.isfinite(x).all()) for x in (s.u, s.v, s.p))
+        if not finite or s.nt != 17:
+            raise AssertionError(f"NS-2D {dtype}: finite={finite} "
+                                 f"nt={s.nt}")
+        log(f"NS-2D dcavity 4096² {dtype}: {r['ms_per_step']:.3f} "
+            f"ms/step (host clock); PRE {r['pre']:.3f} / solve "
+            f"{r['solve']:.3f} / POST {r['post']:.3f} ms (CUDA "
+            f"events), t={s.t:.6e}")
+        runs[dtype] = s
+
+    # each dtype's run is a path of its own: counts set to 0 before it
+    # and read after it
+    counts = [drive_path(kb, "Poisson bf16", kernels[:1], poisson)[0],
+              drive_path(kb, "NS-2D bf16", kernels,
+                         lambda: ns2d("bfloat16"))[0],
+              drive_path(kb, "NS-2D float32 (the comparison run)",
+                         ("rb_sor_quarters", "ns2d_pre", "ns2d_post"),
+                         lambda: ns2d("float32"))[0]]
+    lo, hi = runs["bfloat16"], runs["float32"]
+    gaps = {k: float((getattr(lo, k).float() - getattr(hi, k)).abs().max())
+            / max(1.0, float(getattr(hi, k).abs().max())) for k in "uvp"}
+    log(f"bf16 against float32 after 17 steps, max |diff| / scale: "
+        f"u {gaps['u']:.4f}, v {gaps['v']:.4f} (limit 0.05), p "
+        f"{gaps['p']:.4f} (logged); t {lo.t:.6e} vs {hi.t:.6e}")
+    if not (gaps["u"] <= 0.05 and gaps["v"] <= 0.05):
+        raise AssertionError(f"bf16 run strays from float32: {gaps}")
+    return counts
+
+
+def bf16_dcavity_par(tmp):
+    """configs/dcavity.par at tpu_dtype bfloat16 with te BF16_TE, in tmp."""
+    import re
+
+    path = dcavity_par(tmp, BF16_TE)
+    text = open(path).read()
+    with open(path, "w") as fh:
+        fh.write(re.sub(r"^tpu_dtype .*$", "tpu_dtype bfloat16", text,
+                        flags=re.M))
+    return path
+
+
+@phase(f"configs/dcavity.par at bf16, te {BF16_TE}: the CPU half started")
+def bf16_cli_start():
+    tmp = tempfile.mkdtemp(prefix="bf16_cpu_")
+    BF16_RUN["tmp"] = tmp
+    par = bf16_dcavity_par(tmp)
+    env = dict(os.environ, OMP_NUM_THREADS="4", PAMPI_VERBOSE="1",
+               PYTHONPATH=os.pathsep.join(
+                   [ROOT] + [x for x in [os.environ.get("PYTHONPATH")] if x]))
+    BF16_RUN["proc"] = start(
+        [sys.executable, "-m", "pampi_tpu_torch", "--device", "cpu", par],
+        tmp, os.path.join(tmp, "cli.log"), env)
+
+
+@phase(f"main path: python -m pampi_tpu_torch configs/dcavity.par at bf16, "
+       f"te {BF16_TE}, card vs CPU")
+def bf16_cli(np):
+    import io
+
+    from pampi_tpu_torch import cli
+    from pampi_tpu_torch.kernels import build as kb
+    from pampi_tpu_torch.models.ns2d import NS2DSolver
+    from pampi_tpu_torch.utils.datio import read_pressure, read_velocity
+
+    if "proc" not in BF16_RUN:
+        raise AssertionError("the CPU half did not start")
+    tmp = BF16_RUN["tmp"]
+    card = os.path.join(tmp, "card")
+    os.makedirs(card)
+    par = bf16_dcavity_par(card)
+    write, got = NS2DSolver.write_result, {}
+
+    def record(self, *a, **kw):
+        got.update(nt=self.nt, t=self.t)
+        return write(self, *a, **kw)
+
+    def run():
+        cwd = os.getcwd()
+        os.chdir(card)
+        try:
+            with contextlib.redirect_stdout(io.StringIO()), \
+                    mock.patch.object(NS2DSolver, "write_result", record):
+                rc = cli.main(["pampi_tpu_torch", "--device", "cuda", par])
+        finally:
+            os.chdir(cwd)
+        if rc != 0:
+            raise AssertionError(f"the card half exited {rc}")
+
+    t0 = time.perf_counter()
+    counts, _ = drive_path(kb, "dcavity.par bf16", (
+        "rb_sor_quarters_bf16", "ns2d_pre_bf16", "ns2d_post_bf16"), run)
+    log(f"cuda: {got['nt']} steps to t={got['t']:.6f} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    proc = BF16_RUN["proc"]
+    rc = proc.wait(timeout=600)
+    out = open(os.path.join(tmp, "cli.log")).read()
+    if rc != 0:
+        log(out[-4000:])
+        raise AssertionError(f"the CPU half exited {rc}")
+    took = [ln for ln in out.splitlines() if ln.startswith("Solution took")]
+    steps = sum(ln.startswith("TIME ") for ln in out.splitlines())
+    gaps = []
+    for name in ("pressure.dat", "velocity.dat"):
+        reader = read_pressure if name == "pressure.dat" else read_velocity
+        a = reader(os.path.join(card, name))
+        b = reader(os.path.join(tmp, name))
+        for x, y in zip(a if isinstance(a, tuple) else (a,),
+                        b if isinstance(b, tuple) else (b,)):
+            gaps.append(float(np.abs(x - y).max())
+                        / (BF16_ULP * max(1.0, float(np.abs(y).max()))))
+    log(f"cpu: {took[-1] if took else 'no timing line'}, {steps} steps; "
+        f"card {got['nt']} steps; max |card - cpu| over the .dat fields "
+        f"{max(gaps):.3g} bf16 ulps of scale (limit 1)")
+    if steps != got["nt"] or not max(gaps) <= 1.0:
+        raise AssertionError(f"bf16 CLI: steps {got['nt']} vs {steps}, "
+                             f"gaps {gaps}")
+    return counts
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -7031,6 +7402,7 @@ def main() -> int:
         check_sor_class_kernels(torch, np)
         check_class3d_kernels(torch, np)
         check_band_kernels(torch, np)
+        check_bf16_kernels(torch, np)
     if CHECKS_ONLY:
         log(f"checks only; failed: {FAILED}")
         return 1 if FAILED else 0
@@ -7050,6 +7422,7 @@ def main() -> int:
         sor_class_rows = time_sor_class_kernels(torch, np)
         class3d_rows = time_class3d_kernels(torch, np)
         band_rows = time_band_kernels(torch, np)
+        bf16_rows = time_bf16_kernels(torch, np)
         sor_ns2d = {}
         counts = main_path(torch, sor_ns2d)
         counts3 = main_path_3d(torch)
@@ -7072,6 +7445,7 @@ def main() -> int:
         counts_fs = main_path_fleet_sor(torch)
         counts_f3 = main_path_fleet_3d(torch)
         counts_ov = main_path_overlap(torch)
+        counts_bf = main_path_bf16(torch)
         fleet_card_vs_cpu(np)
         # no times are taken from here on: the CPU half of dcavity_card
         # and the canal3d_obstacle.par mesh and CPU runs run beside the
@@ -7080,6 +7454,7 @@ def main() -> int:
         obstacle2d_cli_start()
         obstacle_mg_cli_start()
         ragged3d_cli_start()
+        bf16_cli_start()
         dist2d_card_start()
         dcavity_card(np)
         counts_d2cli = dist2d_cli(np)
@@ -7088,9 +7463,11 @@ def main() -> int:
         counts_o2cli = obstacle2d_cli(np)
         counts_omgcli = obstacle_mg_cli(np)
         counts_r3cli = ragged3d_cli(np)
+        counts_bfcli = bf16_cli(np)
         if None not in (rows, rows3, mg_rows, q_rows, d3_rows, d2_rows,
                         o3_rows, r3_rows, o2_rows, cli_rows, sor_cli_rows,
                         k18_rows, sor_class_rows, class3d_rows, band_rows,
+                        bf16_rows, counts_bf, counts_bfcli,
                         counts_fs, counts_f3, counts_ov, counts,
                         counts3,
                         counts_mg, counts_dist, counts_cli, counts_d3,
@@ -7100,7 +7477,7 @@ def main() -> int:
                         counts_omgcli, counts_r3, counts_r3cli):
             rows = {**rows, **rows3, **mg_rows[0], **q_rows, **o3_rows,
                     **o2_rows, **k18_rows, **sor_class_rows, **class3d_rows,
-                    **band_rows,
+                    **band_rows, **bf16_rows,
                     "rb_sor_odist": d3_rows["rb_sor_odist"],
                     "rb_sor_obsdist": {**d2_rows["rb_sor_obsdist"],
                                        **o2_rows["rb_sor_obsdist"],
@@ -7120,8 +7497,8 @@ def main() -> int:
             paths = (counts + counts3 + counts_mg + counts_d3 + counts_d2
                      + counts_d2cli + counts_o3 + counts_o3cli + counts_o2
                      + counts_o2cli + counts_omg + counts_omgcli
-                     + counts_r3 + counts_r3cli + counts_ov
-                     + [counts_dist, counts_cli, counts_d3cli,
+                     + counts_r3 + counts_r3cli + counts_ov + counts_bf
+                     + [counts_dist, counts_cli, counts_d3cli, counts_bfcli,
                         counts_d2cards, counts_fl, counts_fs, counts_f3])
             counts = {k: sum(c.get(k, 0) for c in paths)
                       for k in set().union(*paths)}

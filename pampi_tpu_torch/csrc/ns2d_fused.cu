@@ -103,9 +103,101 @@
 // bit for bit (the same code on the same cells); the rows outside are not
 // written. What bounds it: the bytes of the rows it covers.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <cstring>
+
+// The bf16 mode of K3/K4 (one device; the JAX package's kernels at
+// bfloat16, whose scratch is in the field dtype, so every operation is a
+// bf16 operation): the single-device kernels above and below instantiated
+// with T = bf16::value, a 2-byte bf16 whose every operation is computed in
+// float32 and rounded to bf16 (round to nearest even), as PyTorch rounds
+// each bf16 tensor operation and XLA each bf16 one. So the kernels round
+// where the plain version (ops/ns2d.py on bf16 tensors) rounds, in its
+// order and association: the bf16 instantiation equals it bit for bit.
+// The coefficients are formed in double on the host, as the JAX package
+// forms them from Python floats, and rounded to bf16 (through float32, as
+// PyTorch and ml_dtypes convert a double), and so is T(j), the canal
+// inflow's row index (bf16 holds integers exactly only up to 256, and the
+// JAX kernel casts the index to the field dtype there too). The type lives
+// in a namespace of its own, so that its fabs is found by argument-
+// dependent lookup alone and never hides ::fabs from the float and double
+// instantiations.
+namespace bf16 {
+
+__host__ __device__ inline unsigned bits_of(float x) {
+#ifdef __CUDA_ARCH__
+  return __float_as_uint(x);
+#else
+  unsigned u;
+  std::memcpy(&u, &x, sizeof u);
+  return u;
+#endif
+}
+
+__host__ __device__ inline float float_of(unsigned u) {
+#ifdef __CUDA_ARCH__
+  return __uint_as_float(u);
+#else
+  float x;
+  std::memcpy(&x, &u, sizeof x);
+  return x;
+#endif
+}
+
+struct value {
+  unsigned short b;
+  value() = default;
+  // float32 -> bf16, round to nearest even: one conversion instruction on
+  // the card; on the host (the coefficients) PyTorch's rounding, NaN to
+  // 0x7fc0
+  __host__ __device__ explicit value(float x) {
+#ifdef __CUDA_ARCH__
+    b = __bfloat16_as_ushort(__float2bfloat16_rn(x));
+#else
+    const unsigned u = bits_of(x);
+    b = (u & 0x7fffffffu) > 0x7f800000u
+            ? (unsigned short)0x7fc0
+            : (unsigned short)((u + 0x7fffu + ((u >> 16) & 1u)) >> 16);
+#endif
+  }
+  __host__ __device__ explicit value(double x) : value((float)x) {}
+  __host__ __device__ explicit value(int x) : value((float)x) {}
+  __host__ __device__ float f() const { return float_of((unsigned)b << 16); }
+};
+
+__host__ __device__ inline value operator+(value a, value c) {
+  return value(a.f() + c.f());
+}
+__host__ __device__ inline value operator-(value a, value c) {
+  return value(a.f() - c.f());
+}
+__host__ __device__ inline value operator*(value a, value c) {
+  return value(a.f() * c.f());
+}
+__host__ __device__ inline value operator/(value a, value c) {
+  return value(a.f() / c.f());
+}
+__host__ __device__ inline value operator-(value a) {
+  value r;
+  r.b = a.b ^ 0x8000u;
+  return r;
+}
+__host__ __device__ inline bool operator>(value a, value c) {
+  return a.f() > c.f();
+}
+__host__ __device__ inline bool operator!=(value a, value c) {
+  return a.f() != c.f();
+}
+__host__ __device__ inline value fabs(value a) {
+  value r;
+  r.b = a.b & 0x7fffu;
+  return r;
+}
+
+}  // namespace bf16
 
 namespace {
 
@@ -1065,7 +1157,9 @@ POST_DIST_ENTRY(ns2d_post_dist_f32, float)
 POST_DIST_ENTRY(ns2d_post_dist_f64, double)
 PRE_ENTRY(ns2d_pre_f32, float)
 PRE_ENTRY(ns2d_pre_f64, double)
+PRE_ENTRY(ns2d_pre_bf16, bf16::value)
 POST_ENTRY(ns2d_post_f32, float)
 POST_ENTRY(ns2d_post_f64, double)
+POST_ENTRY(ns2d_post_bf16, bf16::value)
 
 }  // extern "C"

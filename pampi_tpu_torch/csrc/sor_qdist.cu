@@ -56,8 +56,37 @@
 // Arithmetic keeps the reference association term for term:
 //   r = rhs - ((e - 2c + w)*idx2 + (n - 2c + s)*idy2);  p = c - factor*r
 // built with --fmad=false so no multiply-add is contracted.
+//
+// rb_sor_quarters_bf16 is kernel K1's bf16-storage mode on the same
+//   template: it replaces the compute_dtype branch of
+//   pampi_tpu/ops/sor_pallas.py _tblock_quarters_kernel
+//   (make_rb_iter_tblock_quarters at bfloat16, pallas_call at :964): the
+//   single-device stacked quarter plane (4, J2, I2) of
+//   pampi_tpu_torch/ops/sor_quarters.py stored in bf16, all n iterations of
+//   a call in float32, the plane rounded to bf16 once, at the store, and
+//   the residual of the last iteration in float32. The TPU kernel holds a
+//   band of rows in VMEM for the n iterations, so that bf16 touches only
+//   HBM; here a CTA loads its box of the bf16 plane and rhs converted to
+//   float32 boxes in shared memory, and writes its tile rounded to bf16:
+//   one launch a call, no float32 copy of the plane in device memory. The
+//   plane is the whole grid, ghost rows included: in the geometry below its
+//   ghost depth is 0 and its offsets 0, and `ring` is 0, because a cell of
+//   the global interior never reads past the plane (the wall quarters are
+//   written only by the eight selects). Its owned region is the global
+//   interior of each slot, so the residual is the sum of r^2 over every
+//   update of the last iteration, in the per-tile order
+//   (ops/sor_kernels.tiled_residual). A call too deep for one pass of
+//   float32 boxes runs several (ops/sor_qdist.quarters_bf16_passes): the
+//   first writes a float32 plane, the last rounds to bf16, so the plane is
+//   still rounded once a call. What bounds it: the plane and its rhs read
+//   once and the plane written once at 2 bytes a cell, 6 bytes a cell
+//   (4 x 2049^2 cells at 4096^2: 0.030 ms at 3.35 TB/s); in fact the
+//   sweeps' issue rate over the boxes, as K13.
 
+#include <cuda_bf16.h>
 #include <cuda_pipeline.h>
+
+#include <type_traits>
 
 #include "sor_tiles2d.cuh"
 
@@ -91,7 +120,27 @@ struct Geom {
   int ht;            // the tiles' halo
   int th, tw;        // owned tile extents
   int rows, P;       // rows of the largest box, row pitch (elements)
+  int ring;          // 1: the plane's outermost ring stays frozen (K13)
 };
+
+// a stored value in the box's type, and a box value in the stored type:
+// the identity, except bf16 <-> float32 (round to nearest even)
+template <typename T>
+__device__ __forceinline__ T widen(T x) {
+  return x;
+}
+
+__device__ __forceinline__ float widen(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename S, typename T>
+__device__ __forceinline__ S narrow(T x) {
+  if constexpr (std::is_same<S, __nv_bfloat16>::value)
+    return __float2bfloat16_rn(x);
+  else
+    return S(x);
+}
 
 template <typename T>
 __device__ __forceinline__ T resid(T c, T rhs, T w, T e, T s, T n, T idx2,
@@ -105,10 +154,12 @@ __device__ __forceinline__ bool inside(int parity, int gq, int max2) {
   return parity == 0 ? (gq >= 1 && gq <= max2) : (gq >= 0 && gq <= max2 - 1);
 }
 
-template <typename T>
+// T: the boxes' (and the arithmetic's) type; SQ, SF, SO: the stored
+// types of the plane read, its rhs and the plane written (all T for K13)
+template <typename T, typename SQ, typename SF, typename SO>
 __global__ void __launch_bounds__(NT, 2)
-qd_tiled(const T* __restrict__ q, const T* __restrict__ f,
-         T* __restrict__ out, Geom g, T factor, T idx2, T idy2,
+qd_tiled(const SQ* __restrict__ q, const SF* __restrict__ f,
+         SO* __restrict__ out, Geom g, T factor, T idx2, T idy2,
          T* __restrict__ partial, unsigned* __restrict__ ticket,
          T* __restrict__ res) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -123,15 +174,25 @@ qd_tiled(const T* __restrict__ q, const T* __restrict__ f,
   const int R = min(g.jq, j1 + g.ht) - bj0;
   const int W = min(g.iq, i1 + g.ht) - bi0;
   const int ta = j0 - bj0, tb = i0 - bi0;  // the tile's first box cell
+  constexpr bool same = std::is_same<SQ, T>::value &&
+                        std::is_same<SF, T>::value;
   for (int s = 0; s < 4; ++s)
     for (int a = ty; a < R; a += TY) {
       const size_t row = s * S + (size_t)(bj0 + a) * g.iq + bi0;
       for (int b = tx; b < W; b += TX) {
-        copy_async(sp + s * SS + a * P + b, q + row + b);
-        copy_async(sr + s * SS + a * P + b, f + row + b);
+        if constexpr (same) {
+          copy_async(sp + s * SS + a * P + b, q + row + b);
+          copy_async(sr + s * SS + a * P + b, f + row + b);
+        } else {
+          sp[s * SS + a * P + b] = widen(q[row + b]);
+          sr[s * SS + a * P + b] = widen(f[row + b]);
+        }
       }
     }
-  copy_wait();
+  if constexpr (same)
+    copy_wait();
+  else
+    __syncthreads();
   // global quarter index of box cell (0, 0)
   const int gr0 = bj0 - g.n + g.qoff_j, gc0 = bi0 - g.n + g.qoff_i;
   // per parity, the box rows and columns that update, in the global
@@ -139,8 +200,8 @@ qd_tiled(const T* __restrict__ q, const T* __restrict__ f,
   // above (even columns the column left, odd ones right), so an edge of
   // the box inside the plane stops only the parity that reads across it;
   // where the box's edge is the plane's, its ring stays frozen
-  const int pj0 = bj0 == 0, pj1 = bj0 + R == g.jq;
-  const int pi0 = bi0 == 0, pi1 = bi0 + W == g.iq;
+  const int pj0 = g.ring && bj0 == 0, pj1 = g.ring && bj0 + R == g.jq;
+  const int pi0 = g.ring && bi0 == 0, pi1 = g.ring && bi0 + W == g.iq;
   const int alo0 = max(1, 1 - gr0), ahi0 = min(R - 1 - pj1, g.jmax2 - gr0);
   const int alo1 = max(pj0, -gr0), ahi1 = min(R - 2, g.jmax2 - 1 - gr0);
   const int blo0 = max(1, 1 - gc0), bhi0 = min(W - 1 - pi1, g.imax2 - gc0);
@@ -233,7 +294,7 @@ qd_tiled(const T* __restrict__ q, const T* __restrict__ f,
       const size_t row = s * S + (size_t)(bj0 + a) * g.iq + bi0;
       const bool arow = a >= r0 && a < r0 + g.jl2;
       for (int b = tb + tx; b < tb + i1 - i0; b += TX) {
-        out[row + b] = sp[s * SS + a * P + b];
+        out[row + b] = narrow<SO>(sp[s * SS + a * P + b]);
         if (arow && b >= c0 && b < c0 + g.il2) acc += sr[s * SS + a * P + b];
       }
     }
@@ -242,23 +303,23 @@ qd_tiled(const T* __restrict__ q, const T* __restrict__ f,
   tiles2d::tile_residual(acc, sp, partial, ticket, res);
 }
 
-template <typename T>
-int run_qdist(int dev, const T* q, const T* f, T* out, const int* geo,
-              double factor, double idx2, double idy2, T* partial,
-              unsigned* ticket, T* res, cudaStream_t st) {
+template <typename T, typename SQ = T, typename SF = T, typename SO = T>
+int run_qdist(int dev, const void* q, const void* f, void* out,
+              const int* geo, double factor, double idx2, double idy2,
+              void* partial, void* ticket, void* res, void* stream) {
   cudaError_t e = cudaSetDevice(dev);
   if (e != cudaSuccess) return (int)e;
   const Geom g{geo[0], geo[1], geo[2],  geo[3],  geo[4],  geo[5],
                geo[6], geo[7], geo[8],  geo[9],  geo[10], geo[11],
-               geo[12], geo[13], geo[14]};
-  const int smem = geo[15];
-  e = cudaFuncSetAttribute(qd_tiled<T>,
+               geo[12], geo[13], geo[14], geo[15]};
+  const int smem = geo[16];
+  e = cudaFuncSetAttribute(qd_tiled<T, SQ, SF, SO>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grd((g.iq + g.tw - 1) / g.tw, (g.jq + g.th - 1) / g.th);
-  qd_tiled<T><<<grd, dim3(TX, TY), smem, st>>>(q, f, out, g, T(factor),
-                                               T(idx2), T(idy2), partial,
-                                               ticket, res);
+  qd_tiled<T, SQ, SF, SO><<<grd, dim3(TX, TY), smem, (cudaStream_t)stream>>>(
+      (const SQ*)q, (const SF*)f, (SO*)out, g, T(factor), T(idx2), T(idy2),
+      (T*)partial, (unsigned*)ticket, (T*)res);
   return (int)cudaGetLastError();
 }
 
@@ -271,19 +332,49 @@ const char* kernel_error_string(int e) {
 }
 
 // geo = [jq, iq, jl/2, il/2, n, iters, jmax/2, imax/2, qoff_j, qoff_i, ht,
-//        th, tw, rows, P, smem bytes] (ops/sor_qdist.
+//        th, tw, rows, P, ring, smem bytes] (ops/sor_qdist.
 // qdist_pass_plan); partial holds one value per tile, ticket an unsigned 0
 // that the kernel leaves at 0
 #define QDIST_ENTRY(NAME, T)                                                  \
   int NAME(int dev, const void* q, const void* f, void* out, const int* geo, \
            double factor, double idx2, double idy2, void* partial,           \
            void* ticket, void* res, void* stream) {                          \
-    return run_qdist<T>(dev, (const T*)q, (const T*)f, (T*)out, geo, factor,  \
-                        idx2, idy2, (T*)partial, (unsigned*)ticket, (T*)res,  \
-                        (cudaStream_t)stream);                                \
+    return run_qdist<T>(dev, q, f, out, geo, factor, idx2, idy2, partial,    \
+                        ticket, res, stream);                                \
   }
 
 QDIST_ENTRY(rb_sor_qdist_f32, float)
 QDIST_ENTRY(rb_sor_qdist_f64, double)
+
+// K1's bf16-storage mode: q, out bf16 (or float32 between the passes of a
+// deep call), f bf16, partial and res float32, geo as above (ring 0).
+// stage: 0 the call's one pass (bf16 -> bf16), 1 the first of several
+// (bf16 -> float32), 2 a middle one (float32 -> float32), 3 the last
+// (float32 -> bf16)
+int rb_sor_quarters_bf16(int dev, const void* q, const void* f, void* out,
+                         const int* geo, int stage, double factor,
+                         double idx2, double idy2, void* partial,
+                         void* ticket, void* res, void* stream) {
+  using B = __nv_bfloat16;
+  switch (stage) {
+    case 0:
+      return run_qdist<float, B, B, B>(dev, q, f, out, geo, factor, idx2,
+                                       idy2, partial, ticket, res, stream);
+    case 1:
+      return run_qdist<float, B, B, float>(dev, q, f, out, geo, factor, idx2,
+                                           idy2, partial, ticket, res,
+                                           stream);
+    case 2:
+      return run_qdist<float, float, B, float>(dev, q, f, out, geo, factor,
+                                               idx2, idy2, partial, ticket,
+                                               res, stream);
+    case 3:
+      return run_qdist<float, float, B, B>(dev, q, f, out, geo, factor, idx2,
+                                           idy2, partial, ticket, res,
+                                           stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
 
 }  // extern "C"

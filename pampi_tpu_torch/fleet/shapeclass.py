@@ -536,6 +536,7 @@ class ClassSolver:
     n_fields = 3  # u, v, p
 
     def __init__(self, param, ic: int, jc: int, dtype=None, device="cuda"):
+        _dispatch.check_bf16_class(param)
         self.device = resolve_device(device)
         self._ndev = len(visible_devices(self.device))
         reason = class_eligible(param, self._ndev)
@@ -967,6 +968,7 @@ class Class3DSolver:
 
     def __init__(self, param, ic: int, jc: int, kc: int, dtype=None,
                  device="cuda"):
+        _dispatch.check_bf16_class(param)
         self.device = resolve_device(device)
         self._ndev = len(visible_devices(self.device))
         reason = class_eligible(param, self._ndev)

@@ -35,15 +35,17 @@ def mesh_convergence_loop(rounds, comm, dtype, cells: int, eps: float,
     exchange and n iterations on every shard, returning the per-shard owned
     sums of r² and n) until the residual, their mesh-order sum over
     `cells`, falls below eps² or itermax iterations are done. The residual
-    is read back and compared on the host in the field's dtype. Returns
+    is read back and compared on the host in the residual's dtype
+    (utils/precision.res_dtype). Returns
     (res, it)."""
     import numpy as np
     import torch
 
     from ..parallel.comm import master_print, reduction
     from ..utils import flags
+    from ..utils.precision import res_dtype
 
-    real = np.float32 if dtype == torch.float32 else np.float64
+    real = np.float64 if res_dtype(dtype) == torch.float64 else np.float32
     norm = real(cells)
     epssq = real(eps * eps)
     res, it = real(1.0), 0

@@ -24,12 +24,19 @@ phase chain on the CPU and as these kernels on a TPU.
 
 The step updates u and v in place and replaces p with the solved field.
 t accumulates on the host in float64 (one readback of dt per step), which
-is what the JAX package carries in its chunk (`t + dt.astype(f64)`).
+is what the JAX package carries in its chunk (`t + dt.astype(f64)`); dt
+is formed in the field's dtype.
+
+At `tpu_dtype bfloat16` (dcavity and canal on one device under the
+quarters SOR; utils/dispatch.check_supported refuses the rest) the step is
+the JAX package's fused chunk at bf16: K3 and K4 in their bf16 mode (every
+operation rounded to bf16), dt from the bf16 maxima, normalizePressure in
+bf16, and K1's bf16-storage mode for the solve (float32 inside a call, a
+float32 residual).
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from ..ops import ns2d as ops
@@ -46,7 +53,7 @@ from ..utils.dispatch import (
     sor_cadence,
 )
 from ..utils.params import Parameter, validate_obstacle_layout
-from ..utils.precision import resolve_dtype
+from ..utils.precision import resolve_dtype, tensor_from_array
 from ..utils.progress import Progress
 from ._driver import clamped_dt, drive_chunks
 from .poisson import make_pressure_solve_for, solve_label
@@ -130,8 +137,7 @@ class NS2DSolver:
         s = cls(param, device=device)
         for name, arr in (("u", u), ("v", v), ("p", p)):
             # a copy: the solver updates its fields in place
-            setattr(s, name, torch.from_numpy(np.array(arr)).to(
-                device=s.device, dtype=s.dtype).contiguous())
+            setattr(s, name, tensor_from_array(arr, s.dtype, s.device))
         s.t, s.nt = float(t), int(nt)
         return s
 

@@ -15,10 +15,13 @@ cadence for the dtype (utils/dispatch.sor_cadence): `tpu_sor_inner` at
 float32, where its TPU kernels run, and 1 at float64, where it steps its
 jnp path one iteration at a time.
 
-The residual is normalised and compared on the host in the field's dtype
-(numpy float32 or float64 arithmetic), which is what the JAX loop computes
-on the device: `rsq / norm` in the field dtype, compared with eps² cast to
-that dtype.
+The residual is normalised and compared on the host in the residual's
+dtype (numpy float32 or float64 arithmetic), which is what the JAX loop
+computes on the device: `rsq / norm` in promote(dtype, float32), compared
+with eps² cast to that dtype. At `tpu_dtype bfloat16` (the quarters layout
+only, utils/dispatch.check_supported) K1 runs its bf16-storage mode: the
+planes are bf16, every call iterates in float32 and returns a float32
+Σr², and the cadence is `tpu_sor_inner`, as at float32.
 
 Layout policy (`tpu_sor_layout`, as in make_rb_loop of the JAX package):
 `auto` is the quarter layout on even grids and the checkerboard otherwise;
@@ -59,7 +62,12 @@ from ..utils.dispatch import (
     sor_cadence,
 )
 from ..utils.params import Parameter
-from ..utils.precision import check_eps_floor, resolve_dtype
+from ..utils.precision import (
+    check_eps_floor,
+    res_dtype,
+    resolve_dtype,
+    tensor_from_array,
+)
 
 
 def init_fields(param: Parameter, problem: int = 2, dtype=torch.float64,
@@ -96,16 +104,34 @@ def make_rb_loop(imax, jmax, dx, dy, omega, n_inner: int = 1,
     """The loop-carried red-black step: returns (step, prep, post,
     eff_inner). prep turns a (jmax+2, imax+2) array into the carried
     layout, post turns it back; step(carry, rhs_carry) performs eff_inner
-    iterations in place on carry and returns their last Σr² (0-dim tensor,
-    not yet normalised)."""
+    iterations on carry and returns their last Σr² (0-dim tensor, not yet
+    normalised). The quarters layout carries a list of stacked planes
+    (newest first: at bfloat16, K1 writes the other of two)."""
     if n_inner < 1:
         raise ValueError(f"n_inner must be >= 1, got {n_inner}")
     factor, idx2, idy2 = sor_coefficients(dx, dy, omega)
     if resolve_layout(imax, jmax, layout) == "quarters":
-        def step(q, f):
-            return rb_sor_quarters(q, f, n_inner, factor, idx2, idy2)
+        def step(pair, f):
+            # pair = [newest planes] in place; at bfloat16 [newest, the
+            # other one (made at the first call)]: K1's bf16-storage mode
+            # reads one and writes the other, one launch a call
+            q = pair[0]
+            if q.dtype != torch.bfloat16:
+                return rb_sor_quarters(q, f[0], n_inner, factor, idx2, idy2)
+            if len(pair) == 1:
+                pair.append(torch.empty_like(q))
+            r = rb_sor_quarters(q, f[0], n_inner, factor, idx2, idy2,
+                                out=pair[1])
+            pair.reverse()
+            return r
 
-        return step, stack_quarters, unstack_quarters, n_inner
+        def prep(x):
+            return [stack_quarters(x)]
+
+        def post(pair):
+            return unstack_quarters(pair[0])
+
+        return step, prep, post, n_inner
 
     def step(p, rhs):
         return rb_sor_checkerboard(p, rhs, n_inner, factor, idx2, idy2)
@@ -177,9 +203,11 @@ def make_convergence_loop(step, prep, post, eff, ncells, eps, itermax, dtype,
                           flat: bool = False):
     """solve(p, rhs) -> (p, res, it) around a red-black step of eff
     iterations (make_rb_loop's contract), shared by the 2-D and 3-D
-    solvers: res = Σr² / ncells in the field's dtype, checked against eps²
-    after every call (make_solver_fn says the rest)."""
-    real = np.float32 if dtype == torch.float32 else np.float64
+    solvers: res = Σr² / ncells in the residual's dtype (res_dtype: the
+    field's, float32 at bfloat16, whose kernel returns a float32 Σr²),
+    checked against eps² after every call (make_solver_fn says the
+    rest)."""
+    real = np.float64 if res_dtype(dtype) == torch.float64 else np.float32
     norm = real(ncells)
     epssq = real(eps * eps)
 
@@ -285,9 +313,8 @@ class PoissonSolver:
         solver's fields), cast to the configured dtype."""
         s = cls(param, device=device)
         # copies: the solver updates p in place
-        s.p = torch.from_numpy(np.array(p)).to(device=s.device, dtype=s.dtype)
-        s.rhs = torch.from_numpy(np.array(rhs)).to(device=s.device,
-                                                   dtype=s.dtype)
+        s.p = tensor_from_array(p, s.dtype, s.device)
+        s.rhs = tensor_from_array(rhs, s.dtype, s.device)
         return s
 
     def solve(self):

@@ -32,6 +32,17 @@ def _const(x, like: torch.Tensor) -> torch.Tensor:
     return torch.full((), x, dtype=like.dtype, device=like.device)
 
 
+def _weak(x, like: torch.Tensor):
+    """A Python float constant as the JAX package's weak typing makes it:
+    at bfloat16 a 0-dim bf16 tensor (the constant rounded to bf16, as JAX
+    rounds it; PyTorch would keep a Python scalar in float32 beside a bf16
+    tensor), else x unchanged (float32 and float64 round a scalar to the
+    tensor's dtype already)."""
+    if like.dtype == torch.bfloat16 and not isinstance(x, torch.Tensor):
+        return _const(x, like)
+    return x
+
+
 def _interior_mask(shape, device) -> torch.Tensor:
     """The interior of the last two axes (a leading lane axis, if any,
     is broadcast over)."""
@@ -47,7 +58,13 @@ def fg_predictor_terms(u, v, dt, re, gx, gy, gamma, dx, dy):
     take the last two axes, so lane-stacked (N, J, I) fields with (N, 1,
     1) dt, dx, dy work as well."""
     idx, idy = 1.0 / dx, 1.0 / dy
-    inv_re = 1.0 / re
+    # the coefficients as the JAX package forms them (Python floats, in
+    # the fields' dtype: rounded to bf16 at bfloat16)
+    idx4, gidx4 = _weak(idx * 0.25, u), _weak(gamma * idx * 0.25, u)
+    idy4, gidy4 = _weak(idy * 0.25, u), _weak(gamma * idy * 0.25, u)
+    idxx, idyy = _weak(idx * idx, u), _weak(idy * idy, u)
+    inv_re = _weak(1.0 / re, u)
+    gx, gy = _weak(gx, u), _weak(gy, u)
     roll = torch.roll
 
     uc = u
@@ -63,30 +80,30 @@ def fg_predictor_terms(u, v, dt, re, gx, gy, gamma, dx, dy):
     vs = roll(v, 1, -2)
     vse = roll(roll(v, 1, -2), -1, -1)
 
-    du2dx = idx * 0.25 * (
+    du2dx = idx4 * (
         (uc + ue) * (uc + ue) - (uc + uw) * (uc + uw)
-    ) + gamma * idx * 0.25 * (
+    ) + gidx4 * (
         torch.abs(uc + ue) * (uc - ue) + torch.abs(uc + uw) * (uc - uw)
     )
-    duvdy = idy * 0.25 * (
+    duvdy = idy4 * (
         (vc + ve) * (uc + un) - (vs + vse) * (uc + us)
-    ) + gamma * idy * 0.25 * (
+    ) + gidy4 * (
         torch.abs(vc + ve) * (uc - un) + torch.abs(vs + vse) * (uc - us)
     )
-    lap_u = idx * idx * (ue - 2.0 * uc + uw) + idy * idy * (un - 2.0 * uc + us)
+    lap_u = idxx * (ue - 2.0 * uc + uw) + idyy * (un - 2.0 * uc + us)
     f_int = uc + dt * (inv_re * lap_u - du2dx - duvdy + gx)
 
-    duvdx = idx * 0.25 * (
+    duvdx = idx4 * (
         (uc + un) * (vc + ve) - (uw + unw) * (vc + vw)
-    ) + gamma * idx * 0.25 * (
+    ) + gidx4 * (
         torch.abs(uc + un) * (vc - ve) + torch.abs(uw + unw) * (vc - vw)
     )
-    dv2dy = idy * 0.25 * (
+    dv2dy = idy4 * (
         (vc + vn) * (vc + vn) - (vc + vs) * (vc + vs)
-    ) + gamma * idy * 0.25 * (
+    ) + gidy4 * (
         torch.abs(vc + vn) * (vc - vn) + torch.abs(vc + vs) * (vc - vs)
     )
-    lap_v = idx * idx * (ve - 2.0 * vc + vw) + idy * idy * (vn - 2.0 * vc + vs)
+    lap_v = idxx * (ve - 2.0 * vc + vw) + idyy * (vn - 2.0 * vc + vs)
     g_int = vc + dt * (inv_re * lap_v - duvdx - dv2dy + gy)
     return f_int, g_int
 
@@ -205,8 +222,13 @@ def set_special_bc_canal(u, dy, ylength):
     """Parabolic inflow U(0, j) = y(ylength - y)·4/ylength²."""
     u = u.clone()
     jmax = u.shape[0] - 2
-    y = (torch.arange(1, jmax + 1, dtype=u.dtype, device=u.device) - 0.5) * dy
-    u[1:-1, 0] = y * (ylength - y) * 4.0 / _const(ylength * ylength, u)
+    # the row index cast to the field's dtype, as the JAX package casts it:
+    # bf16 rounds integers above 256 (to nearest even; an arange made in
+    # bf16 drifts from that above 256)
+    j = torch.arange(1, jmax + 1, device=u.device).to(u.dtype)
+    y = (j - 0.5) * _weak(dy, u)
+    u[1:-1, 0] = (y * (_weak(ylength, u) - y) * 4.0
+                  / _const(ylength * ylength, u))
     return u
 
 
@@ -236,7 +258,7 @@ def cfl_dt(umax, vmax, dt_bound, dx, dy, tau):
             torch.where(vmax > 0, _const(dy, vmax) / vmax, inf),
         ),
     )
-    return dt * tau
+    return dt * _weak(tau, dt)
 
 
 def compute_timestep(u, v, dt_bound, dx, dy, tau):

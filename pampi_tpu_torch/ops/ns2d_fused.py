@@ -69,6 +69,16 @@ batch). Every lane's extents must fit its block (1 <= jmax <= jc, 1 <=
 imax <= ic): the kernels read them on the card unchecked, and
 fleet/shapeclass.class_lanes checks them on the host.
 
+The bf16 mode (bfloat16 fields, one device only: the JAX package's
+kernels at bfloat16, whose scratch is in the field dtype): every operation
+rounded to bf16, in the plain version's order and association. The plain
+version is ops/ns2d.py on bf16 tensors, with each Python-float constant
+rounded to bf16 first where the JAX package forms it in the field dtype
+(ops/ns2d._weak); the kernels compute each operation in float32 and round
+it (csrc/ns2d_fused.cu, bf16::value), so the two agree bit for bit. Its
+launches count on `ns2d_pre_bf16` and `ns2d_post_bf16`; the distributed, flag, class
+and band modes raise a ValueError on bfloat16 fields.
+
 The grid-band mode of the distributed PRE (`bands=`, the JAX package's
 make_fused_pre_2d(grid_bands=); the overlapped step's interior and
 boundary halves, parallel/overlap.py): K3 with its F/G and rhs launches
@@ -107,6 +117,10 @@ NS2D_POST_CLASS = kb.register(
     "ns2d_post_class", SOURCE, "pampi_tpu/ops/ns2d_fused.py:877")
 NS2D_PRE_BAND = kb.register(
     "ns2d_pre_band", SOURCE, "pampi_tpu/ops/ns2d_fused.py:775")
+NS2D_PRE_BF16 = kb.register(
+    "ns2d_pre_bf16", SOURCE, "pampi_tpu/ops/ns2d_fused.py:775")
+NS2D_POST_BF16 = kb.register(
+    "ns2d_post_bf16", SOURCE, "pampi_tpu/ops/ns2d_fused.py:877")
 
 # the grid-band mode: rows of the deep block a band block covers (a CTA row
 # of the band launch), and the most bands one call takes
@@ -138,7 +152,21 @@ for _t in ("f32", "f64"):
                                            _V, _I, _I, _I, _V, _I, _V, _V]
     _SIGNATURES[f"ns2d_post_class_{_t}"] = [_I, _V, _V, _V, _V, _V, _V, _V,
                                             _V, _V, _I, _I, _I, _V, _V, _V]
-_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64",
+           torch.bfloat16: "bf16"}
+_SIGNATURES["ns2d_pre_bf16"] = _PRE_ARGS
+_SIGNATURES["ns2d_post_bf16"] = _POST_ARGS
+
+
+def _check_bf16(u, offs, flags, ext, bands=None) -> None:
+    """bfloat16 fields run the single-device mode only (the bf16 mode of
+    K3/K4, module docstring): the distributed, flag, class and band modes
+    raise a ValueError on either device."""
+    if u.dtype == torch.bfloat16 and not (
+            offs is None and flags is None and ext is None and bands is None):
+        raise ValueError("K3/K4 take bfloat16 fields in their single-device "
+                         "mode only (no offsets, flags, class lanes or "
+                         "bands)")
 
 
 @dataclass(frozen=True)
@@ -181,7 +209,8 @@ def _check(tensors, dt, shape=None) -> None:
     if t0.device.type != "cuda":
         raise ValueError(f"NS-2D kernels take CPU or CUDA tensors, not {t0.device}")
     if t0.dtype not in _SUFFIX:
-        raise ValueError(f"NS-2D kernels take float32 or float64, not {t0.dtype}")
+        raise ValueError(f"NS-2D kernels take float32, float64 or bfloat16, "
+                         f"not {t0.dtype}")
     if t0.dim() != 2:
         raise ValueError(f"fields must be 2-D, got {tuple(t0.shape)}")
     for t in tensors:
@@ -376,6 +405,7 @@ def ns2d_pre(u, v, dt, cfg: StepConfig, offs=None, gext=None,
     bitwise the full call's; the other rows of F, G and rhs are left
     unwritten (the plain version's NaN). Its launches count on
     `ns2d_pre_band`."""
+    _check_bf16(u, offs, flags, ext, bands)
     if ext is not None:
         return _pre_class(u, v, dt, cfg, ext, geo, active)
     local, o, G = _mode(u.shape, offs, gext, ext_pad, True)
@@ -426,6 +456,8 @@ def ns2d_pre(u, v, dt, cfg: StepConfig, offs=None, gext=None,
     kb.check(lib, err, "ns2d_pre")
     if bands is not None:
         NS2D_PRE_BAND.launches += 1
+    elif u.dtype == torch.bfloat16:
+        NS2D_PRE_BF16.launches += 1
     else:
         (NS2D_PRE if flags is None else NS2D_PRE_FLAGS).launches += 1
     return f, g, rhs
@@ -485,6 +517,7 @@ def ns2d_post(u, v, f, g, p, dt, dx, dy, offs=None, gext=None,
     maxima are then the shard's. `flags` (uint8 of u's shape) selects the
     flag mode; `ext`, `geo` and `active` the class mode (dx, dy unused),
     whose maxima are (N,) each (module docstring)."""
+    _check_bf16(u, offs, flags, ext)
     if ext is not None:
         return _post_class(u, v, f, g, p, dt, ext, geo, active)
     local, o, G = _mode(u.shape, offs, gext, 0, False)
@@ -516,7 +549,10 @@ def ns2d_post(u, v, f, g, p, dt, dx, dy, offs=None, gext=None,
                 _ptr(flags), partial.data_ptr(), out.data_ptr(),
                 kb.stream_of(u))
     kb.check(lib, err, "ns2d_post")
-    (NS2D_POST if flags is None else NS2D_POST_FLAGS).launches += 1
+    if u.dtype == torch.bfloat16:
+        NS2D_POST_BF16.launches += 1
+    else:
+        (NS2D_POST if flags is None else NS2D_POST_FLAGS).launches += 1
     return out[0], out[1]
 
 

@@ -5,6 +5,12 @@ K1 `rb_sor_quarters` replaces pampi_tpu/ops/sor_pallas.py
   `_tblock_quarters_kernel` (make_rb_iter_tblock_quarters, pallas_call at
   :964): n_inner iterations on the stacked quarter planes (4, J2, I2) =
   [R0, R1, B0, B1] of pampi_tpu_torch/ops/sor_quarters.py.
+K1's bf16-storage mode (`rb_sor_quarters` on bfloat16 planes) replaces the
+  compute_dtype branch of the same TPU kernel: bf16 planes, all n_inner
+  iterations of a call in float32, the plane rounded to bf16 once, at the
+  store, and a float32 residual. Its kernel is K13's one-pass tiled
+  template (ops/sor_qdist.rb_sor_quarters_bf16, csrc/sor_qdist.cu): one
+  launch a call, with `out=`; its launches count on `rb_sor_quarters_bf16`.
 K2 `rb_sor_checkerboard` replaces pampi_tpu/ops/sor_pallas.py
   `_tblock_kernel` (make_rb_iter_tblock, plain mode, pallas_call at :620):
   the same function on the natural (jmax+2, imax+2) checkerboard.
@@ -292,13 +298,17 @@ def sor_coefficients(dx: float, dy: float, omega: float):
     return factor, 1.0 / dx2, 1.0 / dy2
 
 
-def _check(p: torch.Tensor, rhs: torch.Tensor, n_inner: int) -> None:
+def _check(p: torch.Tensor, rhs: torch.Tensor, n_inner: int,
+           dtypes=_SUFFIX) -> None:
+    """A kernel's inputs on the card: float32 or float64 (`dtypes`: K1's
+    bf16-storage mode takes bfloat16), contiguous, of one shape."""
     if p.device.type != "cuda":
         raise ValueError(f"SOR kernels take CPU or CUDA tensors, not {p.device}")
     if rhs.device != p.device or rhs.dtype != p.dtype or rhs.shape != p.shape:
         raise ValueError("p and rhs must share device, dtype and shape")
-    if p.dtype not in _SUFFIX:
-        raise ValueError(f"SOR kernels take float32 or float64, not {p.dtype}")
+    if p.dtype not in dtypes:
+        raise ValueError(f"this SOR kernel takes {', '.join(map(str, dtypes))}"
+                         f", not {p.dtype}")
     if not (p.is_contiguous() and rhs.is_contiguous()):
         raise ValueError("SOR kernels need contiguous p and rhs")
     if n_inner < 1:
@@ -488,14 +498,28 @@ def rb_sor_blocked(p, rhs, factor, idx2, idy2):
 
 def rb_sor_quarters_plain(q, f, n_inner, factor, idx2, idy2):
     """K1's plain version: ops/sor_quarters.rb_sweeps_quarters, in place
-    on the planes of q."""
+    on the planes of q. On bf16 planes the bf16-storage mode
+    (ops/sor_qdist.rb_sor_quarters_bf16_plain: float32 inside the call,
+    a float32 residual in the one-pass kernel's order)."""
+    if q.dtype == torch.bfloat16:
+        from .sor_qdist import rb_sor_quarters_bf16_plain
+
+        return rb_sor_quarters_bf16_plain(q, f, n_inner, factor, idx2, idy2)
     return rb_sweeps_quarters(tuple(q.unbind(0)), tuple(f.unbind(0)),
                               n_inner, factor, idx2, idy2)
 
 
-def rb_sor_quarters(q, f, n_inner, factor, idx2, idy2):
+def rb_sor_quarters(q, f, n_inner, factor, idx2, idy2, out=None):
     """K1 on stacked quarters q, f of shape (4, J2, I2), in place on q.
-    Returns Σr² of the last iteration (0-dim tensor)."""
+    Returns Σr² of the last iteration (0-dim tensor). bf16 planes take
+    the bf16-storage mode (ops/sor_qdist.rb_sor_quarters_bf16: one launch
+    a call, the residual float32), which also takes `out`: it then reads
+    q and writes the new plane into out, q untouched (without out, a
+    second launch copies the new plane into q)."""
+    if q.dtype == torch.bfloat16:
+        return _quarters_bf16(q, f, n_inner, factor, idx2, idy2, out)
+    if out is not None:
+        raise ValueError("K1 takes out= in its bf16-storage mode only")
     if q.device.type == "cpu":
         return rb_sor_quarters_plain(q, f, n_inner, factor, idx2, idy2)
     _check(q, f, n_inner)
@@ -504,6 +528,22 @@ def rb_sor_quarters(q, f, n_inner, factor, idx2, idy2):
     return _launch(RB_SOR_QUARTERS, "rb_sor_quarters",
                    "rb_sor_quarters_partials", q, f, q.shape[1], q.shape[2],
                    n_inner, factor, idx2, idy2)
+
+
+def _quarters_bf16(q, f, n_inner, factor, idx2, idy2, out):
+    from .sor_qdist import rb_sor_quarters_bf16
+
+    if out is not None:
+        check_out("K1 bf16", q, out)
+    if q.device.type == "cpu":
+        x = q if out is None else out.copy_(q)
+        return rb_sor_quarters_plain(x, f, n_inner, factor, idx2, idy2)
+    if out is not None:
+        return rb_sor_quarters_bf16(q, f, n_inner, factor, idx2, idy2, out)
+    new = torch.empty_like(q)
+    res = rb_sor_quarters_bf16(q, f, n_inner, factor, idx2, idy2, new)
+    q.copy_(new)
+    return res
 
 
 # ----------------------------------------------------------------------

@@ -35,26 +35,36 @@ import ctypes
 import functools
 from dataclasses import dataclass
 
+import torch
+
 from ..kernels import build as kb
-from ..parallel.quarters_dist import QGeom, q_masks, rb_iters_q
+from ..parallel.quarters_dist import QGeom, make_qgeom, q_masks, rb_iters_q
 from .sor_kernels import (
     _SUFFIX,
     NT_TILED,
     _check,
+    card_of,
     check_out,
+    residual_buffers,
     run_passes,
+    tiled_residual,
 )
 from .sor_obsdist import SMEM_LIMIT, split_passes
+from .sor_quarters import rb_sweeps_quarters_r2
 
 SOURCE = "pampi_tpu_torch/csrc/sor_qdist.cu"
 RB_SOR_QDIST = kb.register(
     "rb_sor_qdist", SOURCE, "pampi_tpu/ops/sor_qdist.py:249")
+RB_SOR_QUARTERS_BF16 = kb.register(
+    "rb_sor_quarters_bf16", SOURCE, "pampi_tpu/ops/sor_pallas.py:964")
 
 _V, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _SIGNATURES = {
     f"rb_sor_qdist_{t}": [_I, _V, _V, _V, _V, _D, _D, _D, _V, _V, _V, _V]
     for t in ("f32", "f64")
 }
+_SIGNATURES["rb_sor_quarters_bf16"] = [_I, _V, _V, _V, _V, _I, _D, _D, _D,
+                                       _V, _V, _V, _V]
 # the largest box (tile and halo, rows x columns of quarter cells) a CTA
 # holds, by element size: the four slots of p and rhs, 32 bytes a cell at
 # float32 (48x64, 96 KB) and 64 at float64 (48x32, 96 KB), two CTAs an
@@ -164,7 +174,99 @@ def launch_plan(g: QGeom, itemsize: int, qoff_j: int, qoff_i: int):
     host's work is the call's cost."""
     return tuple(
         (-(-g.jq // pl.th) * -(-g.iq // pl.tw),
-         (ctypes.c_int * 16)(g.jq, g.iq, g.jl // 2, g.il // 2, g.n, pl.iters,
-                             g.jmax // 2, g.imax // 2, qoff_j, qoff_i, pl.ht,
-                             pl.th, pl.tw, pl.rows, pl.P, pl.smem))
+         _geometry(g, pl, qoff_j, qoff_i, ring=1))
         for pl in qdist_passes(g, itemsize))
+
+
+def _geometry(g: QGeom, pl: QPassPlan, qoff_j: int, qoff_i: int, ring: int):
+    """The kernel's geometry array (csrc/sor_qdist.cu Geom, then the shared
+    memory bytes)."""
+    return (ctypes.c_int * 17)(g.jq, g.iq, g.jl // 2, g.il // 2, g.n,
+                               pl.iters, g.jmax // 2, g.imax // 2, qoff_j,
+                               qoff_i, pl.ht, pl.th, pl.tw, pl.rows, pl.P,
+                               ring, pl.smem)
+
+
+# ----------------------------------------------------------------------
+# K1's bf16-storage mode on the same template
+# ----------------------------------------------------------------------
+
+
+def quarters_geom(j2: int, i2: int) -> QGeom:
+    """The single-device stacked quarter plane (4, j2, i2) of a (2 j2 - 2)
+    x (2 i2 - 2) grid as K13's geometry: ghost depth 0, offsets 0, the
+    owned region the global interior of each slot."""
+    jmax, imax = 2 * (j2 - 1), 2 * (i2 - 1)
+    return make_qgeom(jmax, imax, jmax, imax, 0)
+
+
+@functools.lru_cache(maxsize=256)
+def quarters_bf16_passes(j2: int, i2: int, n: int) -> tuple:
+    """K1 bf16's launches for a call of n iterations on a (4, j2, i2)
+    plane: one pass of n iterations where its float32 boxes (_BOX[4]) fit
+    shared memory, else the fewest that do (qdist_pass_plan at 4 bytes a
+    cell)."""
+    g = quarters_geom(j2, i2)
+    parts = split_passes(n, lambda m: qdist_pass_plan(g, m, 4).smem
+                         <= SMEM_LIMIT)
+    return tuple(qdist_pass_plan(g, m, 4) for m in parts)
+
+
+@functools.lru_cache(maxsize=256)
+def quarters_bf16_plan(j2: int, i2: int, n: int) -> tuple:
+    """(stage, tiles, geometry array) of each launch of a K1 bf16 call
+    (the stages of csrc/sor_qdist.cu rb_sor_quarters_bf16: 0 the one pass,
+    1 first, 2 middle, 3 last)."""
+    g = quarters_geom(j2, i2)
+    passes = quarters_bf16_passes(j2, i2, n)
+    last = len(passes) - 1
+    return tuple(
+        (0 if last == 0 else 1 if k == 0 else 3 if k == last else 2,
+         -(-g.jq // pl.th) * -(-g.iq // pl.tw),
+         _geometry(g, pl, 0, 0, ring=0))
+        for k, pl in enumerate(passes))
+
+
+def rb_sor_quarters_bf16_plain(q, f, n_inner, factor, idx2, idy2):
+    """K1's bf16-storage mode, plain: q and f upcast to float32, n_inner
+    iterations of ops/sor_quarters in float32, q rounded back to bf16 in
+    place once. Returns the last iteration's Σr², a float32 0-dim tensor
+    summed in the kernel's per-tile order (tiled_residual over the tiles
+    of the call's last pass)."""
+    x = q.float()
+    r2 = rb_sweeps_quarters_r2(x, f.float(), n_inner, factor, idx2, idy2)
+    q.copy_(x)
+    pl = quarters_bf16_passes(q.shape[1], q.shape[2], n_inner)[-1]
+    return tiled_residual(r2, pl.th, pl.tw)
+
+
+def rb_sor_quarters_bf16(q, f, n_inner, factor, idx2, idy2, out):
+    """K1's bf16-storage mode on the card: reads the bf16 plane q (4, J2,
+    I2) and its bf16 rhs f, writes the new plane into `out` (q untouched),
+    one launch a call (a call too deep for one pass of float32 boxes: its
+    first pass writes a float32 plane, its last rounds to bf16). Returns
+    the float32 Σr² of the last iteration (0-dim tensor)."""
+    check_out("K1 bf16", q, out)
+    _check(q, f, n_inner, dtypes=(torch.bfloat16,))
+    if q.dim() != 3 or q.shape[0] != 4:
+        raise ValueError(f"quarters must be (4, J2, I2), got {tuple(q.shape)}")
+    lib = kb.load("sor_qdist", _SIGNATURES)
+    plan = quarters_bf16_plan(q.shape[1], q.shape[2], n_inner)
+    res = torch.empty((), dtype=torch.float32, device=q.device)
+    with card_of(q):
+        stream = kb.stream_of(q)
+        ticket, partial = residual_buffers(
+            res, stream, max(ntiles for _, ntiles, _ in plan))
+        wide = ([torch.empty(q.shape, dtype=torch.float32, device=q.device)
+                 for _ in range(min(2, len(plan) - 1))])
+        src = q
+        for k, (stage, _, geo) in enumerate(plan):
+            dst = out if k == len(plan) - 1 else wide[k % 2]
+            kb.check(lib, lib.rb_sor_quarters_bf16(
+                q.device.index, src.data_ptr(), f.data_ptr(), dst.data_ptr(),
+                geo, stage, factor, idx2, idy2, partial.data_ptr(),
+                ticket.data_ptr(), res.data_ptr(), stream),
+                "rb_sor_quarters_bf16")
+            src = dst
+    RB_SOR_QUARTERS_BF16.launches += 1
+    return res

@@ -87,6 +87,13 @@ def _upd(center, rhs, w, e, s, n, factor, idx2, idy2):
     return r
 
 
+# each quarter's interior (the cells it updates), as slices of its plane
+_INTERIORS = ((slice(1, None), slice(1, None)),   # R0
+              (slice(None, -1), slice(None, -1)),  # R1
+              (slice(1, None), slice(None, -1)),   # B0
+              (slice(None, -1), slice(1, None)))   # B1
+
+
 def _sweep_views(q, rhsq):
     """The slices one red-black iteration reads and writes, per colour:
     (center, rhs, w, e, s, n) for each quarter's interior, then the eight
@@ -104,19 +111,37 @@ def _sweep_views(q, rhsq):
     return red, black, _ghost_pairs(*q)
 
 
-def rb_sweeps_quarters(q, rhsq, n_inner, factor, idx2, idy2):
-    """n_inner full red-black iterations + Neumann refresh in quarter space,
-    in place on the planes of q. Returns Σr² over both half-sweeps of the
-    last iteration."""
+def _sweeps(q, rhsq, n_inner, factor, idx2, idy2):
+    """n_inner iterations in place on the planes of q; returns the last
+    iteration's r of each quarter's interior (R0, R1, B0, B1)."""
     red, black, ghosts = _sweep_views(q, rhsq)
     rs = ()
     for _ in range(n_inner):
         rs = tuple(_upd(*v, factor, idx2, idy2) for v in red + black)
         for dst, src in ghosts:
             dst.copy_(src)
-    r0, r1, r2, r3 = rs
+    return rs
+
+
+def rb_sweeps_quarters(q, rhsq, n_inner, factor, idx2, idy2):
+    """n_inner full red-black iterations + Neumann refresh in quarter space,
+    in place on the planes of q. Returns Σr² over both half-sweeps of the
+    last iteration."""
+    r0, r1, r2, r3 = _sweeps(q, rhsq, n_inner, factor, idx2, idy2)
     return (torch.sum(r0 * r0) + torch.sum(r1 * r1)
             + torch.sum(r2 * r2) + torch.sum(r3 * r3))
+
+
+def rb_sweeps_quarters_r2(q, rhsq, n_inner, factor, idx2, idy2):
+    """rb_sweeps_quarters on a stacked plane q (4, J2, I2), in place;
+    returns the last iteration's r² as a (4, J2, I2) field, 0 outside each
+    quarter's interior (for a residual summed in a kernel's order)."""
+    rs = _sweeps(tuple(q.unbind(0)), tuple(rhsq.unbind(0)), n_inner, factor,
+                 idx2, idy2)
+    r2 = torch.zeros_like(q)
+    for k, (sl, r) in enumerate(zip(_INTERIORS, rs)):
+        r2[k][sl] = r * r
+    return r2
 
 
 def rb_iter_quarters(q, rhsq, factor, idx2, idy2):

@@ -217,20 +217,24 @@ def q_exchange(xq, comm: CartComm, g: QGeom, copies=None):
 # ----------------------------------------------------------------------
 
 
-def q_masks(g: QGeom, qoff_j: int, qoff_i: int, device="cpu"):
+def q_masks(g: QGeom, qoff_j: int, qoff_i: int, device="cpu",
+            ring: bool = True):
     """Per-slot boolean masks on the (jq, iq) stored plane from global
     quarter coordinates: 'upd' (global interior within the plane's
     interior), 'own' (the owned region, residual accounting) and the eight
     wall-refresh masks, keyed like the kernel's select order. K13 computes
     the same formulas per cell (csrc/sor_qdist.cu). The JAX masks also AND a
     `valid` region that excludes the TPU padding; the compact plane is all
-    valid."""
+    valid. `ring` False drops the frozen ring: K1's bf16 mode on the
+    single-device plane (ops/sor_qdist.quarters_geom), whose interior cells
+    never read past it."""
     rho = torch.arange(g.jq, device=device)[:, None]
     col = torch.arange(g.iq, device=device)[None, :]
     gqr = rho - g.n + qoff_j
     gqc = col - g.n + qoff_i
     # the outermost stored ring stays frozen: its neighbours lie outside
-    valid_upd = (rho >= 1) & (rho <= g.jq - 2) & (col >= 1) & (col <= g.iq - 2)
+    valid_upd = ((rho >= 1) & (rho <= g.jq - 2) & (col >= 1)
+                 & (col <= g.iq - 2)) if ring else True
 
     def row_int(pr):
         if pr == 0:

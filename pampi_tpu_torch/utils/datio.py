@@ -15,7 +15,10 @@ import numpy as np
 
 def _host(x) -> np.ndarray:
     if hasattr(x, "detach"):  # a torch tensor, on any device
-        x = x.detach().cpu().numpy()
+        x = x.detach().cpu()
+        if x.is_floating_point() and x.element_size() == 2:
+            x = x.float()  # numpy has no bfloat16; float32 holds it exactly
+        x = x.numpy()
     return np.asarray(x, dtype=np.float64)
 
 

@@ -69,6 +69,10 @@ def resolve_solver(param, ragged: bool = False):
     check_solver(param.tpu_solver)
     if param.tpu_solver != "auto":
         return param
+    if is_bf16(param):
+        raise NotImplementedError(_bf16_refusal(
+            "tpu_solver auto (it resolves to mg or fft, and mg's kernels "
+            "K9-K12 and K18 at bfloat16)"))
     if ragged:
         choice, why = "sor", "ragged decomposition (mg/fft unsupported)"
     elif param.obstacles.strip():
@@ -276,9 +280,9 @@ def check_supported(param, mesh: bool = False) -> None:
     (cli._make_comm). A ragged mesh under mg or fft is refused by the
     distributed solvers, with the JAX package's ValueError, before this
     check."""
-    if param.tpu_solver == "fft" and param.tpu_dtype in ("bfloat16", "bf16"):
-        # the direct solve's refusal, before the dtype itself is refused as
-        # not yet ported
+    if param.tpu_solver == "fft" and is_bf16(param):
+        # the direct solve's refusal (the JAX package's ValueError), before
+        # the bfloat16 paths that are not yet ported
         check_direct_dtype(torch.bfloat16)
     three_d = is_3d_config(param)
     dims = mesh_dims(param.tpu_mesh)
@@ -287,6 +291,8 @@ def check_supported(param, mesh: bool = False) -> None:
         _check_obstacles(param, three_d, on_mesh)
     if on_mesh:
         _check_mesh(param, three_d)
+    if is_bf16(param):
+        _check_bf16(param, three_d, on_mesh)
     # the SOR layout is checked where it is resolved
     # (models/poisson.resolve_layout, models/ns3d.resolve_layout_3d)
     if three_d and param.tpu_vtk not in ("ascii", "binary", "sharded"):
@@ -299,6 +305,58 @@ def check_supported(param, mesh: bool = False) -> None:
         raise NotImplementedError(
             "checkpoint, restart and ring recovery are not yet ported "
             "(ROADMAP A.9)")
+
+
+def is_bf16(param) -> bool:
+    return param.tpu_dtype in ("bfloat16", "bf16")
+
+
+def _bf16_refusal(what: str) -> str:
+    return (f"tpu_dtype bfloat16 with {what} is not yet ported (ROADMAP A "
+            "item 11.1); bfloat16 runs Poisson and NS-2D on one device "
+            "under tpu_solver sor with the quarters layout")
+
+
+def _check_bf16(param, three_d: bool, mesh: bool) -> None:
+    """tpu_dtype bfloat16: the port runs the JAX package's bf16 storage
+    mode on Poisson and NS-2D, on one device, under `tpu_solver sor` with
+    the quarters layout (K1's bf16-storage mode, K3/K4 at bf16). Every
+    other bfloat16 path raises NotImplementedError naming ROADMAP A item
+    11.1, before any field is built: nothing falls back to float32.
+    Checkerboard (forced, or `auto` on an odd grid) is refused too: at
+    bf16 the JAX package's K2 sums its residual in a bf16 per-lane vector,
+    an order the port could not repeat, and iteration counts follow it.
+    (fft keeps the JAX package's ValueError, `auto` is refused in
+    resolve_solver, the fleet's class lanes in check_bf16_class.)"""
+    odd = param.imax % 2 or param.jmax % 2
+    if mesh:
+        what = (f"tpu_mesh {param.tpu_mesh} (the per-shard kernels K13-K16 "
+                "at bfloat16)")
+    elif param.obstacles.strip():
+        what = ("obstacle flag fields (masked K2 and the flag modes of "
+                "K3/K4 and K7/K8 at bfloat16)")
+    elif three_d:
+        what = "NS-3D (K5-K8 at bfloat16)"
+    elif param.tpu_solver == "mg":
+        what = "tpu_solver mg (K9-K12 at bfloat16)"
+    elif (param.tpu_sor_layout == "checkerboard"
+          or (param.tpu_sor_layout == "auto" and odd)):
+        what = (f"the checkerboard layout (tpu_sor_layout "
+                f"{param.tpu_sor_layout} on a {param.imax}x{param.jmax} "
+                "grid: K2 at bfloat16)")
+    else:
+        return
+    raise NotImplementedError(_bf16_refusal(what))
+
+
+def check_bf16_class(param) -> None:
+    """The fleet's shape-class lanes at tpu_dtype bfloat16 (K2's class
+    mode, K3/K4's and K7/K8's class modes and K18 at bf16) raise
+    NotImplementedError naming ROADMAP A item 11.1."""
+    if is_bf16(param):
+        raise NotImplementedError(_bf16_refusal(
+            "the fleet's shape-class lanes (the class modes of K2, K3/K4, "
+            "K7/K8 and K18 at bfloat16)"))
 
 
 # the JAX package's refusals of a solver that cannot take obstacle flag

@@ -1,7 +1,8 @@
 """The port's boundary and device rules:
 
-- importing and running pampi_tpu_torch loads neither jax nor pampi_tpu
-  (checked in a fresh interpreter), and no file of the port imports them;
+- importing and running pampi_tpu_torch (bfloat16 runs included) loads
+  neither jax, ml_dtypes nor pampi_tpu (checked in a fresh interpreter),
+  and no file of the port imports them;
 - an entry point asked for CUDA without a GPU raises, it never runs on the
   CPU quietly;
 - state crosses from the JAX package to the port and back unchanged;
@@ -39,7 +40,7 @@ PORT = ROOT / "pampi_tpu_torch"
 
 def _forbidden(name: str) -> bool:
     return (name.startswith("jax") or name == "pampi_tpu"
-            or name.startswith("pampi_tpu."))
+            or name.startswith("pampi_tpu.") or name.startswith("ml_dtypes"))
 
 
 def test_import_and_solve_load_no_jax():
@@ -98,16 +99,22 @@ def test_import_and_solve_load_no_jax():
         sched.submit_param("s", Parameter(name="dcavity", imax=8, jmax=8,
                                           te=0.02, tpu_mesh="1"))
         fl = sched.run()
+        bf = PoissonSolver(Parameter(imax=8, jmax=8, itermax=40, eps=0.0,
+                                     tpu_dtype="bfloat16"),
+                           device="cpu").solve()
+        NS2DSolver(Parameter(name="dcavity", imax=8, jmax=8, eps=0.0,
+                             tpu_dtype="bfloat16"), device="cpu").run_steps(2)
         print(it, s.nt, s3.nt, mg[0], fft[0], dist[0], d3.nt, d2.nt,
-              fl.summary["n_scenarios"])
+              fl.summary["n_scenarios"], bf[0])
         print(sorted(m for m in sys.modules
-                     if m.startswith("jax") or m.startswith("pampi_tpu")))
+                     if m.startswith("jax") or m.startswith("pampi_tpu")
+                     or m.startswith("ml_dtypes")))
     """)
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, cwd=str(ROOT), timeout=120,
                          check=True).stdout.splitlines()
-    assert out[0] == "40 2 2 3 1 36 2 2 3"
+    assert out[0] == "40 2 2 3 1 36 2 2 3 40"
     loaded = ast.literal_eval(out[1])
     assert [m for m in loaded if _forbidden(m)] == []
     for mod in ("ops.sor_kernels", "ops.sor3d_kernels", "ops.ns3d_fused",
@@ -233,7 +240,8 @@ def test_kernel_registry():
                                "rb_sor_class", "ns2d_pre_class",
                                "ns2d_post_class", "ns3d_pre_class",
                                "ns3d_post_class", "ns2d_pre_band",
-                               "ns3d_pre_band"}
+                               "ns3d_pre_band", "rb_sor_quarters_bf16",
+                               "ns2d_pre_bf16", "ns2d_post_bf16"}
     for k in kb.KERNELS.values():
         assert (ROOT / k.source).is_file()
         path, line = k.replaces.split(":")

@@ -28,7 +28,9 @@ against the CPU, whose DCT bottom's matrix products sum in another order,
 to 1e-9; a fleet of mg class lanes on the card against the CPU to 1e-9 of
 scale; K7/K8's class mode against their plain versions (boundary copies,
 dead cells and maxima bitwise) and a fleet of 3-D class lanes on the card
-against the CPU to 1e-9 of scale."""
+against the CPU to 1e-9 of scale; K1's bf16-storage mode (planes and its
+float32 residual) and K3/K4 at bf16 bitwise their plain versions, and an
+NS-2D bf16 run on the card bitwise the CPU's."""
 
 import numpy as np
 import pytest
@@ -1538,3 +1540,85 @@ def test_overlap_launches_and_fields_on_card(cuda, three_d, restrict):
     assert runs["on"].t == runs["off"].t
     for name in a:
         assert np.array_equal(a[name], b[name])
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4])
+@pytest.mark.parametrize("shape", [(256, 384), (62, 30)])
+def test_k1_bf16_matches_plain(cuda, n, shape):
+    """K1's bf16-storage mode (one launch a call, `out=`) on a plane of
+    several tiles and on one smaller than a tile, three chained calls:
+    planes and the float32 residual bitwise the plain version's, q
+    untouched; the in-place form (a second launch copies) the same."""
+    jmax, imax = shape
+    coef = sk.sor_coefficients(1 / imax, 1 / jmax, 1.9)
+    q, f = (stack_quarters(_rand((jmax + 2, imax + 2), torch.bfloat16, cuda,
+                                 s)) for s in (41, 42))
+    qk, qp, qi, out = q.clone(), q.clone(), q.clone(), torch.empty_like(q)
+    launches = sq.RB_SOR_QUARTERS_BF16.launches
+    for _ in range(3):
+        keep = qk.clone()
+        rk = sk.rb_sor_quarters(qk, f, n, *coef, out=out)
+        assert torch.equal(qk, keep)
+        qk, out = out, qk
+        rp = sk.rb_sor_quarters_plain(qp, f, n, *coef)
+        ri = sk.rb_sor_quarters(qi, f, n, *coef)
+    assert sq.RB_SOR_QUARTERS_BF16.launches == launches + 6
+    assert rk.dtype == torch.float32
+    assert torch.equal(qk, qp) and torch.equal(rk, rp)
+    assert torch.equal(qi, qp) and torch.equal(ri, rp)
+
+
+def test_k1_bf16_deep_call_in_passes_matches_plain(cuda):
+    """n = 40 at 1024²: a call in passes (float32 between them), still
+    rounded to bf16 once: bitwise the plain version."""
+    coef = sk.sor_coefficients(1 / 1024, 1 / 1024, 1.9)
+    assert len(sq.quarters_bf16_passes(513, 513, 40)) > 1
+    q, f = (stack_quarters(_rand((1026, 1026), torch.bfloat16, cuda, s))
+            for s in (43, 44))
+    qp, out = q.clone(), torch.empty_like(q)
+    rk = sk.rb_sor_quarters(q, f, 40, *coef, out=out)
+    rp = sk.rb_sor_quarters_plain(qp, f, 40, *coef)
+    assert torch.equal(out, qp) and torch.equal(rk, rp)
+
+
+@pytest.mark.parametrize("problem", ["dcavity", "canal"])
+def test_k3_k4_bf16_match_plain(cuda, problem):
+    """K3/K4's bf16 mode on a grid taller than 256 rows (the canal's row
+    index rounds in bf16): every operation rounded to bf16 in the plain
+    version's order, so every output bitwise, maxima included."""
+    bc = (1, 1, 1, 1) if problem == "dcavity" else (3, 3, 1, 1)
+    param = Parameter(name=problem, imax=200, jmax=300, re=100.0,
+                      bcLeft=bc[0], bcRight=bc[1], bcBottom=bc[2],
+                      bcTop=bc[3], gx=0.1, gy=-0.2)
+    cfg = nf.StepConfig.from_param(param)
+    u, v, p = (_rand((302, 202), torch.bfloat16, cuda, 50 + k)
+               for k in range(3))
+    dt = torch.tensor(0.013, dtype=torch.bfloat16, device=cuda)
+    uk, vk = u.clone(), v.clone()
+    pre = nf.NS2D_PRE_BF16.launches, nf.NS2D_POST_BF16.launches
+    fk, gk, rk = nf.ns2d_pre(uk, vk, dt, cfg)
+    u1, v1, f1, g1, r1 = nf.ns2d_pre_plain(u, v, dt, cfg)
+    for a, b in ((uk, u1), (vk, v1), (fk, f1), (gk, g1), (rk, r1)):
+        assert a.dtype == torch.bfloat16 and torch.equal(a, b)
+    umax, vmax = nf.ns2d_post(uk, vk, fk, gk, p, dt, cfg.dx, cfg.dy)
+    u2, v2, um2, vm2 = nf.ns2d_post_plain(u1, v1, f1, g1, p, dt, cfg.dx,
+                                          cfg.dy)
+    assert torch.equal(uk, u2) and torch.equal(vk, v2)
+    assert torch.equal(umax, um2) and torch.equal(vmax, vm2)
+    assert (nf.NS2D_PRE_BF16.launches, nf.NS2D_POST_BF16.launches) == (
+        pre[0] + 1, pre[1] + 1)
+
+
+def test_ns2d_bf16_on_card_matches_cpu(cuda):
+    """dcavity 64² at bf16, 5 steps on the card (K1's bf16 mode, K3/K4 at
+    bf16) and on the CPU (their plain versions): bitwise the same fields,
+    t and step count."""
+    param = Parameter(name="dcavity", imax=64, jmax=64, re=100.0, te=1e9,
+                      itermax=40, eps=0.0, tpu_dtype="bfloat16")
+    card, cpu = NS2DSolver(param, device="cuda"), NS2DSolver(param,
+                                                             device="cpu")
+    card.run_steps(5)
+    cpu.run_steps(5)
+    assert (card.nt, card.t) == (cpu.nt, cpu.t)
+    for name in "uvp":
+        assert torch.equal(getattr(card, name).cpu(), getattr(cpu, name))
