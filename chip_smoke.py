@@ -409,18 +409,37 @@ operation rounded to bf16) adds:
    1000 iterations), on the card and on the CPU (a process of its own):
    the same steps, the .dat fields within 1 bf16 ulp of scale.
 
+K6's on-chip design (entry `rb_sor3d_octants_onchip`: one cooperative
+launch a call, each CTA's tile of the octants in shared memory; the
+multi-launch design keeps `rb_sor3d_octants` for fields past the capacity
+rule) and flag K7's tiled launch (no snapshot of u, v, w) add:
+
+2. K6 at configs/dcavity3d.par's 128³ float32 and configs/canal3d.par's
+   200x50x50 float64, n = 1..4, two calls: the on-chip design ran (its
+   counter and the dispatch record), volume and residual bitwise the
+   plain version's; the phases above hold K6 multi-launch at 256³, K14 on
+   1x1x1 bitwise K6's volume, and flag K7 on one device, on the 2x2x2
+   deep blocks, at the 1x2x3 uneven bounds and in both band halves;
+3. flag K7's CUDA launches a call (torch.profiler) beside its time, and
+   whether F/G/H/rhs came out bitwise;
+4. the NS-3D main paths count K6 on chip (dcavity3d.par 128³ and
+   canal3d.par) and fail on a multi-launch call there.
+
 It then prints the kernels line (JSON; K5-K8 and K11/K12 at 256³, where a
 field outgrows the L2 and the bound is a floor, with their 128³ numbers
-under main_shape_* keys, the distributed modes of K3/K4 and K7/K8
-under dist_* keys and K7 at uneven bounds under ragged_* keys),
-the card's name and power limit
-from nvidia-smi, and as its last line
+under main_shape_* keys, K6 on chip at 128³, the distributed modes of
+K3/K4 and K7/K8 under dist_* keys and K7 at uneven bounds under
+ragged_* keys), the card's name and power limit from nvidia-smi, and as
+its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
-`python3 chip_smoke.py --kernel-times [ROOT]` times only K13, masked K2,
-K15, masked K5, K14 and K16 of the package under ROOT (another checkout:
-run old, new, new, old in one call on the card to compare two) and
-prints one JSON line.
+`python3 chip_smoke.py --kernel-times [ROOT [PREFIX ...]]` times only
+K13, masked K2, K15, masked K5, K14, K16, K6 (128³ float32 n = 4,
+canal3d.par float64 n = 1, 256³ float32 n = 4) and flag K7
+(512x128x128 float32, canal3d_obstacle.par float64) of the package under
+ROOT (another checkout: run old, new, new, old in one call on the card to
+compare two), or the rows whose keys start with a PREFIX (k6, k7f, ...),
+and prints one JSON line.
 """
 
 import contextlib
@@ -766,6 +785,48 @@ def check_kernels_3d(torch, np):
         raise AssertionError(f"3-D kernels disagree with plain versions: {bad}")
 
 
+@phase("K6 on chip vs its plain version at the main path's fields")
+def check_k6_onchip(torch, np):
+    """K6 at configs/dcavity3d.par's 128³ float32 and configs/canal3d.par's
+    200x50x50 float64 (its lengths and omega), n = 1..4, two calls: the
+    on-chip design ran (its counter, the record), volume and residual
+    bitwise the plain version's."""
+    from pampi_tpu_torch.ops import sor3d_kernels as sk3
+    from pampi_tpu_torch.ops.sor3d import sor_coefficients_3d
+    from pampi_tpu_torch.ops.sor_octants import stack_octants
+    from pampi_tpu_torch.utils import dispatch
+
+    canal = config("canal3d.par")
+    bad = []
+    for param, dtype in ((config("dcavity3d.par"), torch.float32),
+                         (canal, torch.float64)):
+        K, J, I = param.kmax, param.jmax, param.imax
+        coef = sor_coefficients_3d(param.xlength / I, param.ylength / J,
+                                   param.zlength / K, param.omg)
+        p, rhs = rng_fields(torch, np, (K + 2, J + 2, I + 2), dtype, 2, 211)
+        q, f = stack_octants(p), stack_octants(rhs)
+        del p, rhs
+        for n in (1, 2, 3, 4):
+            xk, xp = q.clone(), q.clone()
+            before = sk3.RB_SOR3D_OCTANTS_ONCHIP.launches
+            for _ in range(2):  # ghosts carried across calls
+                rk = sk3.rb_sor3d_octants(xk, f, n, *coef)
+                rp = sk3.rb_sor3d_octants_plain(xp, f, n, *coef)
+            design = dispatch.last("sor3d_octants")
+            ran = sk3.RB_SOR3D_OCTANTS_ONCHIP.launches - before
+            vol, res = torch.equal(xk, xp), torch.equal(rk, rp)
+            ok = vol and res and ran == 2 and design.startswith("on chip")
+            log(f"rb_sor3d_octants {param.name} {I}x{J}x{K} {dtype} n={n}, "
+                f"two calls ({design}; {ran} on-chip launches): volume "
+                f"bitwise {vol}, residual bitwise {res}, max_abs_err "
+                f"{float((xk - xp).abs().max()):.3e} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                bad.append(f"{param.name} {dtype} n={n}")
+    if bad:
+        raise AssertionError(f"K6 on chip differs from its plain version: "
+                             f"{bad}")
+
+
 def repeat_solve(torch, label, solve, p0, rhs, eps, cap=20000):
     """50 solves of the same problem: identical iteration counts and
     residuals, bitwise identical fields, and convergence."""
@@ -945,6 +1006,8 @@ def time_kernels_3d(torch, np):
     from pampi_tpu_torch.ops.sor_octants import stack_octants
     from pampi_tpu_torch.utils.params import Parameter
 
+    from pampi_tpu_torch.utils import dispatch
+
     dtype = torch.float32
     t = tol(torch, dtype)
     size = 4
@@ -969,6 +1032,11 @@ def time_kernels_3d(torch, np):
                  sk3.rb_sor3d_checkerboard_plain, p, rhs)):
             e, er, err, ok = check_sor3d(kern, plain, x, f, n_inner, coef,
                                          t)
+            if name == "rb_sor3d_octants":
+                # K6's design at this shape (octant_tiles): its own row
+                if sk3.octant_tiles(*x.shape[1:], size) is not None:
+                    name = "rb_sor3d_octants_onchip"
+                log(f"{name} {tag} f32: {dispatch.last('sor3d_octants')}")
             log(f"{name} {tag} f32 vs plain: field max_rel_err {e:.3e}, "
                 f"residual rel_err {er:.3e} (tol {t:g}) "
                 f"{'ok' if ok else 'FAIL'}")
@@ -1022,13 +1090,22 @@ def time_kernels_3d(torch, np):
         raise AssertionError(f"3-D kernels disagree with plain versions: "
                              f"{bad}")
     # the kernels line carries 256³, where the fields outgrow the L2 and the
-    # bound is a floor, and the main path's 128³ under main_shape_* keys
-    return {name: dict(r, shape="x".join(map(str, BIG3)),
-                       main_shape="x".join(map(str, MAIN3)),
-                       **{f"main_shape_{k}": rows[MAIN3][name][k]
-                          for k in ("ms", "plain_ms", "bound_ms",
-                                    "max_abs_err")})
-            for name, r in rows[BIG3].items()}
+    # bound is a floor, and the main path's 128³ under main_shape_* keys;
+    # K6 runs on chip at 128³ (its row there) and multi-launch at 256³
+    onchip = rows[MAIN3].pop("rb_sor3d_octants_onchip")
+    out = {name: dict(r, shape="x".join(map(str, BIG3)),
+                      main_shape="x".join(map(str, MAIN3)),
+                      **{f"main_shape_{k}": rows[MAIN3][name][k]
+                         for k in ("ms", "plain_ms", "bound_ms",
+                                   "max_abs_err")})
+           for name, r in rows[BIG3].items()
+           if name != "rb_sor3d_octants"}
+    out["rb_sor3d_octants"] = dict(
+        rows[BIG3]["rb_sor3d_octants"], shape="x".join(map(str, BIG3)),
+        main_shape="none: the main path's fields run on chip")
+    out["rb_sor3d_octants_onchip"] = dict(
+        onchip, shape="x".join(map(str, MAIN3)))
+    return out
 
 
 MG2 = ((512, 512), (1024, 1024))      # 2 and 3 levels
@@ -1452,7 +1529,7 @@ def main_path_3d(torch):
             **kw)
 
     counts = []
-    for layout, kern in (("auto", "rb_sor3d_octants"),
+    for layout, kern in (("auto", "rb_sor3d_octants_onchip"),
                          ("checkerboard", "rb_sor3d_checkerboard")):
         # eps 0: every solve runs its itermax (25 calls at tpu_sor_inner 4)
         param = config("dcavity3d.par", itermax=100, eps=0.0, te=1e9,
@@ -1462,6 +1539,8 @@ def main_path_3d(torch):
                           (kern, "ns3d_pre", "ns3d_post"),
                           lambda: timed_steps(torch, s, 16))
         counts.append(c)
+        if c.get("rb_sor3d_octants", 0):
+            raise AssertionError("dcavity3d.par 128³ ran K6 multi-launch")
         finite = all(bool(torch.isfinite(x).all())
                      for x in (s.u, s.v, s.w, s.p))
         if not finite or s.nt != 17 or s.dtype != torch.float32:
@@ -1472,7 +1551,7 @@ def main_path_3d(torch):
         g = s.grid
         coef = sor_coefficients_3d(g.dx, g.dy, g.dz, param.omg)
         rhs = torch.zeros_like(s.p)  # a call's work does not depend on it
-        if kern == "rb_sor3d_octants":
+        if kern == "rb_sor3d_octants_onchip":
             def flat():
                 q, f = stack_octants(s.p), stack_octants(rhs)
                 for _ in range(25):
@@ -1500,9 +1579,11 @@ def main_path_3d(torch):
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) / 8 * 1e3
 
-    c, ms = drive_path(kb, "NS-3D canal3d", ("rb_sor3d_octants", "ns3d_pre",
-                                              "ns3d_post"), canal)
+    c, ms = drive_path(kb, "NS-3D canal3d", ("rb_sor3d_octants_onchip",
+                                              "ns3d_pre", "ns3d_post"), canal)
     counts.append(c)
+    if c.get("rb_sor3d_octants", 0):
+        raise AssertionError("canal3d.par ran K6 multi-launch")
     finite = all(bool(torch.isfinite(x).all()) for x in (s.u, s.v, s.w, s.p))
     if not finite or s.nt != 8 or s.dtype != torch.float64:
         raise AssertionError(f"canal3d: finite={finite} nt={s.nt}")
@@ -2549,7 +2630,7 @@ def main_path_dist3d(torch):
     c, _ = drive_path(kb, f"NS-3D dcavity3d {mesh}",
                       ("rb_sor_odist", "ns3d_pre", "ns3d_post"), dist)
     counts.append(c)
-    if c["rb_sor3d_octants"] != 0:
+    if c["rb_sor3d_octants"] or c["rb_sor3d_octants_onchip"]:
         raise AssertionError("the distributed path launched K6")
     single = NS3DSolver(param.replace(tpu_mesh="1"), device="cuda")
     single.run_steps(17)
@@ -3669,14 +3750,19 @@ def time_obstacle3d(torch, np):
     # 7 field-sizes each, as without flags, plus the flags' byte a cell
     b = bound((7 * size + 1) * cells, 200 * K * J * I)
     q = bound((7 * size + 1) * cells, 20 * K * J * I)
+    calls = cuda_launches(torch, lambda: nf3.ns3d_pre(uk, vk, wk, dt, cfg,
+                                                      flags=flags))
     rows["ns3d_pre_flags"] = dict(
         max_abs_err=err_pre, ms=ms, plain_ms=pms, bound_ms=b[0],
-        bound_by=b[1], shape=f"{shape} f32, canal3d_obstacle.par's BCs")
+        bound_by=b[1], cuda_launches_a_call=calls,
+        shape=f"{shape} f32, canal3d_obstacle.par's BCs")
     rows["ns3d_post_flags"] = dict(
         max_abs_err=err_post, ms=qms, plain_ms=qpms, bound_ms=q[0],
         bound_by=q[1], shape=f"{shape} f32, canal3d_obstacle.par's BCs")
     log(f"ns3d_pre flag mode {shape} f32: {ms:.4f} ms (plain {pms:.4f}, "
-        f"bound {b[0]:.4f} by {b[1]}); ns3d_post flag mode: {qms:.4f} ms "
+        f"bound {b[0]:.4f} by {b[1]}), {launches_text(calls)} CUDA launches "
+        f"a call, F/G/H/rhs bitwise the plain version's {e_pre == 0.0}; "
+        f"ns3d_post flag mode: {qms:.4f} ms "
         f"(plain {qpms:.4f}, bound {q[0]:.4f} by {q[1]})")
     del u, v, w, pp, uk, vk, wk, fk, flags
     torch.cuda.empty_cache()
@@ -3720,8 +3806,9 @@ def time_obstacle3d(torch, np):
 # printed beside the obstacle multigrid's
 OBST_SOR_STEP = {}
 OBST_PATH = ("ns3d_pre_flags", "ns3d_post_flags")
-NOT_ON_OBSTACLE_PATHS = ("rb_sor3d_octants", "rb_sor_odist",
-                         "rb_sor3d_checkerboard", "ns3d_pre", "ns3d_post")
+NOT_ON_OBSTACLE_PATHS = ("rb_sor3d_octants", "rb_sor3d_octants_onchip",
+                         "rb_sor_odist", "rb_sor3d_checkerboard", "ns3d_pre",
+                         "ns3d_post")
 
 
 def check_not_launched(counts, label):
@@ -4495,15 +4582,17 @@ def time_sor_cli(torch, np):
     return rows
 
 
-def kernel_times(root) -> int:
-    """--kernel-times [ROOT]: K13, masked K2 and K15, masked K5, K14 and
-    K16 of the package under ROOT (default: this checkout) at their timed
-    shapes and the CLI's shapes (kernel_times_3d), each called as that
-    checkout's solvers call it (with `out=` where its wrapper takes it):
-    device ms a call (CUDA events over back-to-back calls) and CUDA
-    launches a call (torch.profiler's trace).
-    Prints the card and one JSON line. Run it for two checkouts in one
-    call on the card, in the order old, new, new, old, to compare them."""
+def kernel_times(root, only=()) -> int:
+    """--kernel-times [ROOT [PREFIX ...]]: K13, masked K2 and K15, masked
+    K5, K14, K16, K6 and flag K7 of the package under ROOT (default: this
+    checkout) at their timed shapes and the CLI's shapes (kernel_times_3d),
+    each called as that checkout's solvers call it (with `out=` where its
+    wrapper takes it): device ms a call (CUDA events over back-to-back
+    calls) and CUDA launches a call (torch.profiler's trace). With
+    PREFIXes, only the rows whose keys start with one of them (k13, k2,
+    k15, k5m, k14, k16, k6, k7f). Prints the card and one JSON line. Run
+    it for two checkouts in one call on the card, in the order old, new,
+    new, old, to compare them."""
     import inspect
 
     import numpy as np
@@ -4526,10 +4615,15 @@ def kernel_times(root) -> int:
         return {"shape": label, "ms": ms,
                 "cuda_launches_a_call": cuda_launches(torch, calls[0])}
 
+    def want(key):
+        return not only or key.startswith(tuple(only))
+
     f32, f64, out = torch.float32, torch.float64, {}
     for key, (jmax, imax), dtype, n, reps in (
             ("k13_4096_2x2_f32", MAIN, f32, 4, 20),
             ("k13_dcavity_2x2_f64", (100, 100), f64, 1, 500)):
+        if not want(key):
+            continue
         g, qoffs = qdist_shards(jmax, imax, (2, 2), n)
         coef = sk.sor_coefficients(1.0 / imax, 1.0 / jmax, 1.9)
         calls = []
@@ -4549,6 +4643,8 @@ def kernel_times(root) -> int:
              500),
             ("k2_canal_obstacle2048_f64", "canal_obstacle2048.par", None,
              f64, 1, 200)):
+        if not want(key):
+            continue
         param = config(par) if dims is None else obstacle2d_config(*dims)
         flags = obstacle2d_flags(param)
         c = inverse_squares_2d(param)
@@ -4557,15 +4653,16 @@ def kernel_times(root) -> int:
         out[key] = row([lambda: sk.rb_sor_checkerboard(
             x, f, n, 0.0, *c, flags=flags, omega=param.omg, **kw)], reps,
             f"{par} geometry at {param.imax}x{param.jmax}, n={n}, {dtype}")
-    g = sod.ObsGeom(4096, 4096, 1366, 4096, 4, ca_halo(4, True))
-    x, f, y = rng_fields(torch, np, g.shape, f32, 3, 61)
-    fl = torch.ones(g.shape, dtype=torch.uint8, device="cuda")
-    out["k15_3x1_f32_n4"] = row([lambda: sod.rb_sor_obsdist(
-        x, f, fl, g, (1366, 0), 1.9, 4096.0 ** 2, 4096.0 ** 2, out=y)], 50,
-        "1366x4096 shard (deep 1384x4114) of 4096² on 3x1, n=4, float32, "
-        "all fluid")
-    del x, f, y, fl
-    out.update(kernel_times_3d(torch, np, with_out, row))
+    if want("k15"):
+        g = sod.ObsGeom(4096, 4096, 1366, 4096, 4, ca_halo(4, True))
+        x, f, y = rng_fields(torch, np, g.shape, f32, 3, 61)
+        fl = torch.ones(g.shape, dtype=torch.uint8, device="cuda")
+        out["k15_3x1_f32_n4"] = row([lambda: sod.rb_sor_obsdist(
+            x, f, fl, g, (1366, 0), 1.9, 4096.0 ** 2, 4096.0 ** 2, out=y)],
+            50, "1366x4096 shard (deep 1384x4114) of 4096² on 3x1, n=4, "
+            "float32, all fluid")
+        del x, f, y, fl
+    out.update(kernel_times_3d(torch, np, with_out, row, want))
     log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
                        text=True).stdout.strip())
@@ -4573,25 +4670,69 @@ def kernel_times(root) -> int:
     return 0
 
 
-def kernel_times_3d(torch, np, with_out, row):
+def kernel_times_3d(torch, np, with_out, row, want):
     """kernel_times' 3-D rows: masked K5 at 512x128x128 float32, n = 4,
     and at configs/canal3d_obstacle.par's 128x32x32 float64, n = 1; K14
     per 128³ shard of 256³ on 2x2x2 float32, n = 4, and on the shards of
     configs/dcavity3d.par on 2x2x2 (64³, float32 at its cadence and
-    float64 at n = 1); masked K5's and K14's rows with their bounds; K16
-    per (128, 128, 512) shard of 1024x256x256 on 2x2x2 float32, n = 4."""
+    float64 at n = 1); K16 per (128, 128, 512) shard of 1024x256x256 on
+    2x2x2 float32, n = 4; K6 at configs/dcavity3d.par's 128³ float32, n =
+    4, configs/canal3d.par's 200x50x50 float64, n = 1, and 256³ float32, n
+    = 4; flag K7 at canal3d_obstacle.par's geometry at 512x128x128 float32
+    and as shipped (128x32x32 float64). Every row but K16's with its
+    bound."""
     from pampi_tpu_torch.models.ns3d_dist import NS3DDistSolver
+    from pampi_tpu_torch.ops import ns3d_fused as nf3
     from pampi_tpu_torch.ops import sor3d_kernels as sk3
     from pampi_tpu_torch.ops import sor_obsdist3d as sod3
     from pampi_tpu_torch.ops import sor_odist as so
     from pampi_tpu_torch.ops.sor3d import sor_coefficients_3d
+    from pampi_tpu_torch.ops.sor_octants import stack_octants
     from pampi_tpu_torch.parallel.comm import CartComm
 
     f32, f64, out = torch.float32, torch.float64, {}
     for key, param, dtype, n, reps in (
+            ("k6_dcavity3d_128_f32_n4", config("dcavity3d.par"), f32, 4, 50),
+            ("k6_canal3d_f64_n1", config("canal3d.par"), f64, 1, 500),
+            ("k6_256_f32_n4", config("dcavity3d.par", imax=256, jmax=256,
+                                     kmax=256), f32, 4, 20)):
+        if not want(key):
+            continue
+        K, J, I = param.kmax, param.jmax, param.imax
+        coef = sor_coefficients_3d(param.xlength / I, param.ylength / J,
+                                   param.zlength / K, param.omg)
+        q, f = (stack_octants(a) for a in rng_fields(
+            torch, np, (K + 2, J + 2, I + 2), dtype, 2, 43))
+        # the octants of p and rhs read, those of p written
+        b = bound(3 * q.numel() * q.element_size(), 0)[0]
+        out[key] = {**row([lambda: sk3.rb_sor3d_octants(q, f, n, *coef)],
+                          reps, f"{I}x{J}x{K} octants {tuple(q.shape)}, "
+                          f"n={n}, {dtype}"), "bound_ms": b}
+        del q, f
+    for key, param, dtype, reps in (
+            ("k7f_512x128x128_f32", obstacle_config(**OBST_MAIN), f32, 20),
+            ("k7f_canal3d_obstacle_f64", obstacle_config(), f64, 500)):
+        if not want(key):
+            continue
+        flags = torch.from_numpy(obstacle_fluid(param).astype(
+            np.uint8)).to("cuda")
+        cfg = nf3.StepConfig3D.from_param(param)
+        u, v, w = rng_fields(torch, np, tuple(flags.shape), dtype, 3, 47)
+        dt = torch.tensor(1e-3, dtype=dtype, device="cuda")
+        # 7 field-sizes, as without flags, plus the flags' byte a cell
+        b = bound((7 * u.element_size() + 1) * flags.numel(), 0)[0]
+        out[key] = {**row([lambda: nf3.ns3d_pre(u, v, w, dt, cfg,
+                                                flags=flags)], reps,
+                          f"canal3d_obstacle.par geometry at {param.imax}x"
+                          f"{param.jmax}x{param.kmax}, {dtype}"),
+                    "bound_ms": b}
+        del u, v, w, flags
+    for key, param, dtype, n, reps in (
             ("k5m_512x128x128_f32_n4", obstacle_config(**OBST_MAIN), f32, 4,
              20),
             ("k5m_canal3d_obstacle_f64_n1", obstacle_config(), f64, 1, 500)):
+        if not want(key):
+            continue
         flags = torch.from_numpy(obstacle_fluid(param).astype(
             np.uint8)).to("cuda")
         c = inverse_squares(param)
@@ -4607,7 +4748,7 @@ def kernel_times_3d(torch, np, with_out, row):
         del x, f, y, flags
     cases = [("k14_256_2x2x2_f32_n4", odist_shards(BIG3, (2, 2, 2), 4), f32,
               sor_coefficients_3d(1 / 256, 1 / 256, 1 / 256, 1.8), 20)]
-    for dtype in (f32, f64):
+    for dtype in (f32, f64) if want("k14") else ():
         param = config("dcavity3d.par", tpu_mesh="2x2x2",
                        tpu_dtype=str(dtype).split(".")[1])
         s = NS3DDistSolver(param, CartComm(ndims=3, dims=(2, 2, 2)))
@@ -4616,6 +4757,8 @@ def kernel_times_3d(torch, np, with_out, row):
                       dtype, s._coef, 200))
         del s
     for key, (g, qoffs), dtype, coef, reps in cases:
+        if not want(key):
+            continue
         vols = [rng_fields(torch, np, (8, g.kq, g.jq, g.iq), dtype, 3, 51 + k)
                 for k in range(len(qoffs))]
         calls = [lambda x=x, f=f, o=o, kw=with_out(so.rb_sor_odist, y):
@@ -4627,18 +4770,19 @@ def kernel_times_3d(torch, np, with_out, row):
         b = bound(3 * vols[0][0].numel() * vols[0][0].element_size(), 0)[0]
         out[key] = {**row(calls, reps, label), "bound_ms": b}
         del vols, calls
-    big = obstacle_config(**OBST_K16)
-    local = (big.kmax // 2, big.jmax // 2, big.imax // 2)
-    g = sod3.ObsGeom3(big.kmax, big.jmax, big.imax, *local, 4)
-    flags = shard_flags(obstacle_fluid(big), local, local, g.H)
-    x, f, y = rng_fields(torch, np, g.shape, f32, 3, 71)
-    c = inverse_squares(big)
-    out["k16_1024x256x256_2x2x2_f32_n4"] = row(
-        [lambda: sod3.rb_sor_obsdist3d(x, f, flags, g, local, big.omg, *c,
-                                       out=y)], 20,
-        f"(128, 128, 512) shard of 1024x256x256 on 2x2x2, deep {g.shape}, "
-        f"n=4, float32")
-    del x, f, y, flags
+    if want("k16"):
+        big = obstacle_config(**OBST_K16)
+        local = (big.kmax // 2, big.jmax // 2, big.imax // 2)
+        g = sod3.ObsGeom3(big.kmax, big.jmax, big.imax, *local, 4)
+        flags = shard_flags(obstacle_fluid(big), local, local, g.H)
+        x, f, y = rng_fields(torch, np, g.shape, f32, 3, 71)
+        c = inverse_squares(big)
+        out["k16_1024x256x256_2x2x2_f32_n4"] = row(
+            [lambda: sod3.rb_sor_obsdist3d(x, f, flags, g, local, big.omg,
+                                           *c, out=y)], 20,
+            f"(128, 128, 512) shard of 1024x256x256 on 2x2x2, deep "
+            f"{g.shape}, n=4, float32")
+        del x, f, y, flags
     torch.cuda.empty_cache()
     return out
 
@@ -5224,7 +5368,8 @@ def time_ragged3d(torch, np):
 
 
 NOT_ON_RAGGED_PATHS = ("rb_sor_odist", "rb_sor_obsdist3d", "rb_sor3d_octants",
-                       "rb_sor3d_checkerboard", "ns3d_post", "ns3d_post_flags")
+                       "rb_sor3d_octants_onchip", "rb_sor3d_checkerboard",
+                       "ns3d_post", "ns3d_post_flags")
 
 
 def check_launched(counts, kernels, label):
@@ -7388,6 +7533,7 @@ def main() -> int:
     if not FAILED:
         check_kernels(torch, np)
         check_kernels_3d(torch, np)
+        check_k6_onchip(torch, np)
         check_mg_kernels(torch, np)
         check_repeat_solves(torch)
         check_qdist_kernel(torch, np)
@@ -7541,7 +7687,8 @@ if __name__ == "__main__":
     if sys.argv[1:2] in (["--cli2-child"], ["--cli3-child"]):
         sys.exit(cli_ns_child(int(sys.argv[1][5]), *sys.argv[2:5]))
     if sys.argv[1:2] == ["--kernel-times"]:
-        sys.exit(kernel_times(sys.argv[2] if len(sys.argv) > 2 else ROOT))
+        sys.exit(kernel_times(sys.argv[2] if len(sys.argv) > 2 else ROOT,
+                              sys.argv[3:]))
     try:
         code = main()
     finally:

@@ -76,28 +76,29 @@
 // and likewise v along j and w along k.
 //   PRE, after the walls and the special BC (obstacle3d.
 //   apply_obstacle_velocity_bc_3d, then mask_fgh):
-//   4a. zero the normal components on faces touching an obstacle, into a
-//       snapshot us, vs, ws (scratch the wrapper allocates);
-//   4b. write u, v, w from the snapshot: u = us + both_u*mirror(us),
-//       where both_u marks a face buried in obstacles and mirror is the
-//       first-hit sum over the fluid-fluid faces at j+1, j-1, k+1, k-1
-//       (v: i+1, i-1, k+1, k-1; w: i+1, i-1, j+1, j-1), in the JAX
-//       package's arithmetic (`_mirror`). The JAX function is functional:
-//       every mirror reads the array as it is after the zeroing. Done in
-//       place, a thread's write could land on a cell another thread
-//       reads, and even a read that is multiplied by 0 changes the sign
-//       of a zero; the snapshot keeps 4b's reads apart from its writes.
+//   4a. zero the normal components on faces touching an obstacle;
+//   4b. u = us + both_u*mirror(us), where us is u zeroed, both_u marks a
+//       face buried in obstacles and mirror is the first-hit sum over the
+//       fluid-fluid faces at j+1, j-1, k+1, k-1 (v: i+1, i-1, k+1, k-1; w:
+//       i+1, i-1, j+1, j-1), in the JAX package's arithmetic (`_mirror`):
+//       every mirror reads the components as they are after the zeroing.
 //       Neighbour reads wrap on the block, as the plain version's rolls
 //       do; on one device they are the JAX package's full-array rolls,
 //       and on a deep block they reach only the outermost layer, which no
 //       output reads;
-//   then F, G, H carry U, V, W on every non-fluid face (after the wall
-//   fixups).
+//   4.  then F, G, H, carrying U, V, W on every non-fluid face (after the
+//       wall fixups).
+//   4a, 4b and 4 are one tiled launch through shared memory
+//   (obs_fgh_tiles, whose note says why its in-place writes leave every
+//   value bitwise the plain version's), so PRE is five launches here too
+//   and no snapshot of u, v, w reaches device memory.
 //   POST: the projection is multiplied by the face mask (adapt_uvw_
 //   obstacle); on a shard the flags read 0 beyond the block's high edge,
 //   as p does there.
-// The flags add 1 byte a cell to each kernel's traffic, and PRE's snapshot
-// 6 field-sizes (three written, three read).
+// The flags add 1 byte a cell to each kernel's traffic; the tiled launch
+// reads u, v, w and the flags over its boxes (a tile of 8x8x27 cells at
+// float32, 4x8x27 at float64, and 2 cells a side: mostly from the L2) and
+// writes u, v, w only where the mirror changed them.
 //
 // The ragged mode of POST (a mesh that does not divide the grid: ceil-
 // divided blocks whose trailing cells are dead; the TPU kernel's `ragged`
@@ -117,6 +118,7 @@
 // covers the plane below each band, which rhs reads. Every value stored
 // inside a band is the full call's, bit for bit.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -333,36 +335,6 @@ __device__ __forceinline__ size_t at(const Blk& k, int a0, int a1, int a2) {
          wrap(a2, k.L[2]);
 }
 
-// the face mask of the component normal to `axis` (0: w, 1: v, 2: u) at
-// local (a0, a1, a2), every index wrapping on the block: 1 on the last
-// global ghost plane of the axis, else the cell's flag times the flag of
-// its + neighbour along the axis
-template <typename T>
-__device__ __forceinline__ T face_at(const uint8_t* fl, const Blk& k,
-                                     int axis, int a0, int a1, int a2) {
-  int a[3] = {wrap(a0, k.L[0]), wrap(a1, k.L[1]), wrap(a2, k.L[2])};
-  if (a[axis] + k.base[axis] == k.G[axis] + 1) return T(1);
-  const T c = T(fl[at(k, a[0], a[1], a[2])]);
-  a[axis] += 1;
-  return c * T(fl[at(k, a[0], a[1], a[2])]);
-}
-
-// launch 4a: the zeroed normal components, into the snapshot
-template <typename T>
-__global__ void obs_zero(const T* __restrict__ u, const T* __restrict__ v,
-                         const T* __restrict__ w,
-                         const uint8_t* __restrict__ fl, T* __restrict__ us,
-                         T* __restrict__ vs, T* __restrict__ ws, Blk k) {
-  const int a2 = blockIdx.x * BX + threadIdx.x;
-  const int a1 = blockIdx.y * BY + threadIdx.y;
-  const int a0 = blockIdx.z;
-  if (a2 >= k.L[2] || a1 >= k.L[1]) return;
-  const size_t x = at(k, a0, a1, a2);
-  us[x] = u[x] * face_at<T>(fl, k, 2, a0, a1, a2);
-  vs[x] = v[x] * face_at<T>(fl, k, 1, a0, a1, a2);
-  ws[x] = w[x] * face_at<T>(fl, k, 0, a0, a1, a2);
-}
-
 // one term of the first-hit mirror (obstacle3d._mirror)
 template <typename T>
 __device__ __forceinline__ void mirror_term(T& acc, T& rem, T fm, T val) {
@@ -370,44 +342,74 @@ __device__ __forceinline__ void mirror_term(T& acc, T& rem, T fm, T val) {
   rem = rem * (T(1) - fm);
 }
 
-// launch 4b: the tangential mirror of every component, read from the
-// snapshot, written to u, v, w; d[q] are the four neighbour offsets
-template <typename T>
-__device__ __forceinline__ T mirrored(const T* s, const uint8_t* fl,
-                                      const Blk& k, int axis, int a0, int a1,
-                                      int a2, const int (*d)[3]) {
-  const T one = T(1);
-  int b[3] = {a0, a1, a2};
-  b[axis] += 1;
-  const T both = (one - T(fl[at(k, a0, a1, a2)])) *
-                 (one - T(fl[at(k, b[0], b[1], b[2])]));
-  T acc = T(0), rem = T(1);
-  for (int q = 0; q < 4; ++q) {
-    const int n0 = a0 + d[q][0], n1 = a1 + d[q][1], n2 = a2 + d[q][2];
-    mirror_term(acc, rem, face_at<T>(fl, k, axis, n0, n1, n2),
-                s[at(k, n0, n1, n2)]);
-  }
-  return s[at(k, a0, a1, a2)] + both * acc;
-}
-
-template <typename T>
-__global__ void obs_mirror(T* __restrict__ u, T* __restrict__ v,
-                           T* __restrict__ w, const uint8_t* __restrict__ fl,
-                           const T* __restrict__ us, const T* __restrict__ vs,
-                           const T* __restrict__ ws, Blk k) {
-  // priority order: u north, south, back, front; v east, west, back,
-  // front; w east, west, north, south ((k, j, i) offsets)
-  const int du[4][3] = {{0, 1, 0}, {0, -1, 0}, {1, 0, 0}, {-1, 0, 0}};
-  const int dv[4][3] = {{0, 0, 1}, {0, 0, -1}, {1, 0, 0}, {-1, 0, 0}};
-  const int dw[4][3] = {{0, 0, 1}, {0, 0, -1}, {0, 1, 0}, {0, -1, 0}};
-  const int a2 = blockIdx.x * BX + threadIdx.x;
-  const int a1 = blockIdx.y * BY + threadIdx.y;
-  const int a0 = blockIdx.z;
-  if (a2 >= k.L[2] || a1 >= k.L[1]) return;
-  const size_t x = at(k, a0, a1, a2);
-  u[x] = mirrored<T>(us, fl, k, 2, a0, a1, a2, du);
-  v[x] = mirrored<T>(vs, fl, k, 1, a0, a1, a2, dv);
-  w[x] = mirrored<T>(ws, fl, k, 0, a0, a1, a2, dw);
+// F, G, H of a global-interior cell x of u, v, w (row pitch W, plane
+// pitch P): the predictor, in the reference's association
+template <typename T, typename Ix>
+__device__ __forceinline__ void fgh_point(const T* u, const T* v, const T* w,
+                                          Ix x, Ix W, Ix P, T dt,
+                                          const Coef<T>& c, T& fv, T& gv,
+                                          T& hv) {
+  const T uc = u[x], vc = v[x], wc = w[x];
+  const T u_ip = u[x + 1], u_im = u[x - 1], u_jp = u[x + W],
+          u_jm = u[x - W], u_kp = u[x + P], u_km = u[x - P];
+  const T v_ip = v[x + 1], v_im = v[x - 1], v_jp = v[x + W],
+          v_jm = v[x - W], v_kp = v[x + P], v_km = v[x - P];
+  const T w_ip = w[x + 1], w_im = w[x - 1], w_jp = w[x + W],
+          w_jm = w[x - W], w_kp = w[x + P], w_km = w[x - P];
+  const T u_im_jp = u[x - 1 + W], u_im_kp = u[x - 1 + P];
+  const T v_jm_ip = v[x - W + 1], v_jm_kp = v[x - W + P];
+  const T w_km_ip = w[x - P + 1], w_km_jp = w[x - P + W];
+  // ---- F ----
+  const T du2dx =
+      c.idx4 * ((uc + u_ip) * (uc + u_ip) - (uc + u_im) * (uc + u_im)) +
+      c.gidx4 * (fabs(uc + u_ip) * (uc - u_ip) +
+                 fabs(uc + u_im) * (uc - u_im));
+  const T duvdy =
+      c.idy4 * ((vc + v_ip) * (uc + u_jp) - (v_jm + v_jm_ip) * (uc + u_jm)) +
+      c.gidy4 * (fabs(vc + v_ip) * (uc - u_jp) +
+                 fabs(v_jm + v_jm_ip) * (uc - u_jm));
+  const T duwdz =
+      c.idz4 * ((wc + w_ip) * (uc + u_kp) - (w_km + w_km_ip) * (uc + u_km)) +
+      c.gidz4 * (fabs(wc + w_ip) * (uc - u_kp) +
+                 fabs(w_km + w_km_ip) * (uc - u_km));
+  const T lap_u = c.idx2 * (u_ip - T(2) * uc + u_im) +
+                  c.idy2 * (u_jp - T(2) * uc + u_jm) +
+                  c.idz2 * (u_kp - T(2) * uc + u_km);
+  fv = uc + dt * (c.inv_re * lap_u - du2dx - duvdy - duwdz + c.gx);
+  // ---- G ---- (reference quirk: v_kp in both halves of dvwdz)
+  const T duvdx =
+      c.idx4 * ((uc + u_jp) * (vc + v_ip) - (u_im + u_im_jp) * (vc + v_im)) +
+      c.gidx4 * (fabs(uc + u_jp) * (vc - v_ip) +
+                 fabs(u_im + u_im_jp) * (vc - v_im));
+  const T dv2dy =
+      c.idy4 * ((vc + v_jp) * (vc + v_jp) - (vc + v_jm) * (vc + v_jm)) +
+      c.gidy4 * (fabs(vc + v_jp) * (vc - v_jp) +
+                 fabs(vc + v_jm) * (vc - v_jm));
+  const T dvwdz =
+      c.idz4 * ((wc + w_jp) * (vc + v_kp) - (w_km + w_km_jp) * (vc + v_kp)) +
+      c.gidz4 * (fabs(wc + w_jp) * (vc - v_kp) +
+                 fabs(w_km + w_km_jp) * (vc - v_kp));
+  const T lap_v = c.idx2 * (v_ip - T(2) * vc + v_im) +
+                  c.idy2 * (v_jp - T(2) * vc + v_jm) +
+                  c.idz2 * (v_kp - T(2) * vc + v_km);
+  gv = vc + dt * (c.inv_re * lap_v - duvdx - dv2dy - dvwdz + c.gy);
+  // ---- H ----
+  const T duwdx =
+      c.idx4 * ((uc + u_kp) * (wc + w_ip) - (u_im + u_im_kp) * (wc + w_im)) +
+      c.gidx4 * (fabs(uc + u_kp) * (wc - w_ip) +
+                 fabs(u_im + u_im_kp) * (wc - w_im));
+  const T dvwdy =
+      c.idy4 * ((vc + v_kp) * (wc + w_jp) - (v_jm_kp + v_jm) * (wc + w_jm)) +
+      c.gidy4 * (fabs(vc + v_kp) * (wc - w_jp) +
+                 fabs(v_jm_kp + v_jm) * (wc - w_jm));
+  const T dw2dz =
+      c.idz4 * ((wc + w_kp) * (wc + w_kp) - (wc + w_km) * (wc + w_km)) +
+      c.gidz4 * (fabs(wc + w_kp) * (wc - w_kp) +
+                 fabs(wc + w_km) * (wc - w_km));
+  const T lap_w = c.idx2 * (w_ip - T(2) * wc + w_im) +
+                  c.idy2 * (w_jp - T(2) * wc + w_jm) +
+                  c.idz2 * (w_kp - T(2) * wc + w_km);
+  hv = wc + dt * (c.inv_re * lap_w - duwdx - dvwdy - dw2dz + c.gz);
 }
 
 // launch 4: F, G, H for every cell of the output block o (the halo-1
@@ -417,7 +419,7 @@ __device__ __forceinline__ void fgh_cell(
     const T* __restrict__ u, const T* __restrict__ v, const T* __restrict__ w,
     const T* __restrict__ dtp, T* __restrict__ f, T* __restrict__ g,
     T* __restrict__ h, const Blk& k, const Blk& o, int e, const Coef<T>& c,
-    const uint8_t* __restrict__ fl, int oi, int oj, int ok) {
+    int oi, int oj, int ok) {
   if (oi >= o.L[2] || oj >= o.L[1]) return;
   const size_t W = k.L[2], P = (size_t)k.L[1] * W;
   const size_t x = (size_t)(ok + e) * P + (size_t)(oj + e) * W + (oi + e);
@@ -426,84 +428,12 @@ __device__ __forceinline__ void fgh_cell(
   const bool in_j = gj >= 1 && gj <= o.G[1];
   const bool in_k = gk >= 1 && gk <= o.G[0];
   T fv = T(0), gv = T(0), hv = T(0);
-  if (in_i && in_j && in_k) {
-    const T dt = *dtp;
-    const T uc = u[x], vc = v[x], wc = w[x];
-    const T u_ip = u[x + 1], u_im = u[x - 1], u_jp = u[x + W],
-            u_jm = u[x - W], u_kp = u[x + P], u_km = u[x - P];
-    const T v_ip = v[x + 1], v_im = v[x - 1], v_jp = v[x + W],
-            v_jm = v[x - W], v_kp = v[x + P], v_km = v[x - P];
-    const T w_ip = w[x + 1], w_im = w[x - 1], w_jp = w[x + W],
-            w_jm = w[x - W], w_kp = w[x + P], w_km = w[x - P];
-    const T u_im_jp = u[x - 1 + W], u_im_kp = u[x - 1 + P];
-    const T v_jm_ip = v[x - W + 1], v_jm_kp = v[x - W + P];
-    const T w_km_ip = w[x - P + 1], w_km_jp = w[x - P + W];
-    // ---- F ----
-    const T du2dx =
-        c.idx4 * ((uc + u_ip) * (uc + u_ip) - (uc + u_im) * (uc + u_im)) +
-        c.gidx4 * (fabs(uc + u_ip) * (uc - u_ip) +
-                   fabs(uc + u_im) * (uc - u_im));
-    const T duvdy =
-        c.idy4 * ((vc + v_ip) * (uc + u_jp) - (v_jm + v_jm_ip) * (uc + u_jm)) +
-        c.gidy4 * (fabs(vc + v_ip) * (uc - u_jp) +
-                   fabs(v_jm + v_jm_ip) * (uc - u_jm));
-    const T duwdz =
-        c.idz4 * ((wc + w_ip) * (uc + u_kp) - (w_km + w_km_ip) * (uc + u_km)) +
-        c.gidz4 * (fabs(wc + w_ip) * (uc - u_kp) +
-                   fabs(w_km + w_km_ip) * (uc - u_km));
-    const T lap_u = c.idx2 * (u_ip - T(2) * uc + u_im) +
-                    c.idy2 * (u_jp - T(2) * uc + u_jm) +
-                    c.idz2 * (u_kp - T(2) * uc + u_km);
-    fv = uc + dt * (c.inv_re * lap_u - du2dx - duvdy - duwdz + c.gx);
-    // ---- G ---- (reference quirk: v_kp in both halves of dvwdz)
-    const T duvdx =
-        c.idx4 * ((uc + u_jp) * (vc + v_ip) - (u_im + u_im_jp) * (vc + v_im)) +
-        c.gidx4 * (fabs(uc + u_jp) * (vc - v_ip) +
-                   fabs(u_im + u_im_jp) * (vc - v_im));
-    const T dv2dy =
-        c.idy4 * ((vc + v_jp) * (vc + v_jp) - (vc + v_jm) * (vc + v_jm)) +
-        c.gidy4 * (fabs(vc + v_jp) * (vc - v_jp) +
-                   fabs(vc + v_jm) * (vc - v_jm));
-    const T dvwdz =
-        c.idz4 * ((wc + w_jp) * (vc + v_kp) - (w_km + w_km_jp) * (vc + v_kp)) +
-        c.gidz4 * (fabs(wc + w_jp) * (vc - v_kp) +
-                   fabs(w_km + w_km_jp) * (vc - v_kp));
-    const T lap_v = c.idx2 * (v_ip - T(2) * vc + v_im) +
-                    c.idy2 * (v_jp - T(2) * vc + v_jm) +
-                    c.idz2 * (v_kp - T(2) * vc + v_km);
-    gv = vc + dt * (c.inv_re * lap_v - duvdx - dv2dy - dvwdz + c.gy);
-    // ---- H ----
-    const T duwdx =
-        c.idx4 * ((uc + u_kp) * (wc + w_ip) - (u_im + u_im_kp) * (wc + w_im)) +
-        c.gidx4 * (fabs(uc + u_kp) * (wc - w_ip) +
-                   fabs(u_im + u_im_kp) * (wc - w_im));
-    const T dvwdy =
-        c.idy4 * ((vc + v_kp) * (wc + w_jp) - (v_jm_kp + v_jm) * (wc + w_jm)) +
-        c.gidy4 * (fabs(vc + v_kp) * (wc - w_jp) +
-                   fabs(v_jm_kp + v_jm) * (wc - w_jm));
-    const T dw2dz =
-        c.idz4 * ((wc + w_kp) * (wc + w_kp) - (wc + w_km) * (wc + w_km)) +
-        c.gidz4 * (fabs(wc + w_kp) * (wc - w_kp) +
-                   fabs(wc + w_km) * (wc - w_km));
-    const T lap_w = c.idx2 * (w_ip - T(2) * wc + w_im) +
-                    c.idy2 * (w_jp - T(2) * wc + w_jm) +
-                    c.idz2 * (w_kp - T(2) * wc + w_km);
-    hv = wc + dt * (c.inv_re * lap_w - duwdx - dvwdy - dw2dz + c.gz);
-  }
+  if (in_i && in_j && in_k) fgh_point(u, v, w, x, W, P, *dtp, c, fv, gv, hv);
   // wall fixups: F carries U on the i walls, G V on the j walls, H W on the
   // k walls (tangentially the global interior)
   if (in_j && in_k && (gi == 0 || gi == o.G[2])) fv = u[x];
   if (in_i && in_k && (gj == 0 || gj == o.G[1])) gv = v[x];
   if (in_i && in_j && (gk == 0 || gk == o.G[0])) hv = w[x];
-  if (fl != nullptr) {  // F, G, H carry U, V, W on non-fluid faces
-    const T one = T(1);
-    const T uf = face_at<T>(fl, k, 2, ok + e, oj + e, oi + e);
-    const T vf = face_at<T>(fl, k, 1, ok + e, oj + e, oi + e);
-    const T wf = face_at<T>(fl, k, 0, ok + e, oj + e, oi + e);
-    fv = uf * fv + (one - uf) * u[x];
-    gv = vf * gv + (one - vf) * v[x];
-    hv = wf * hv + (one - wf) * w[x];
-  }
   const size_t y = ((size_t)ok * o.L[1] + oj) * o.L[2] + oi;
   f[y] = fv;
   g[y] = gv;
@@ -515,12 +445,281 @@ __global__ void fgh_cells(const T* __restrict__ u, const T* __restrict__ v,
                           const T* __restrict__ w, const T* __restrict__ dtp,
                           T* __restrict__ f, T* __restrict__ g,
                           T* __restrict__ h, Blk k, Blk o, int e,
-                          Coef<T> c, const uint8_t* __restrict__ fl,
-                          Bands bd) {
+                          Coef<T> c, Bands bd) {
   const int ok = band_plane(bd, blockIdx.z);
   if (ok < 0 || ok >= o.L[0]) return;
-  fgh_cell(u, v, w, dtp, f, g, h, k, o, e, c, fl,
-           blockIdx.x * BX + threadIdx.x, blockIdx.y * BY + threadIdx.y, ok);
+  fgh_cell(u, v, w, dtp, f, g, h, k, o, e, c, blockIdx.x * BX + threadIdx.x,
+           blockIdx.y * BY + threadIdx.y, ok);
+}
+
+// -- the flag mode's tiled launch (replaces 4a, 4b and 4) ----------------
+//
+// One launch does the obstacle velocity BC and F, G, H: a CTA owns a tile
+// of the input block, loads u, v, w over the tile and 2 cells a side and
+// the flags over the tile, 2 cells below and 3 above (the face masks read
+// the + neighbour's flag), every index wrapping on the block as the plain
+// version's rolls do; it makes a mask byte a cell (the three face masks
+// and buried marks) from the flags, forms the zeroed and mirrored
+// components in shared memory on the tile and one ring around it (rows of
+// cells on a warp's lanes), computes F, G, H on
+// its cells of the halo-1 block from them (the ring recomputed, never read
+// from another CTA), and writes u, v, w on its own cells where the mirror
+// changed their bits. No snapshot reaches device memory.
+//
+// Its CTAs read their neighbours' u, v, w while those write theirs, so a
+// CTA may load a neighbour's cell before or after the mirror. That changes
+// nothing it computes, except at one kind of cell, which this launch does
+// not write: a value r of cell z enters only as s = r * face(z). Where
+// face(z) = 1 from the flags, z is fluid, so both(z) = 0 and the mirrored
+// value is u + 0 * acc, which differs from u at most in the sign of a
+// zero; the first-hit sum takes s as +0 + (-s) and later terms as +-0 (acc
+// is +0 or nonzero), so no sign of a zero reaches it, and a ring cell
+// recomputed from the mirrored value gets u + 0*acc + 0*acc = u + 0*acc.
+// Where face(z) = 0, s is a zero that enters the sum multiplied by face 0
+// (no effect) and the ring cell as s + both*acc: acc when both = 1 (or
+// +0), and s + 0*acc when both = 0, whose sign is s's only if acc < 0, and
+// then the mirrored value is sign(u)0 + (-0) = sign(u)0 again. The
+// exception: on the last global ghost plane the face is forced to 1, and
+// where that plane crosses a deep block's dead cells (flags 0 past the
+// global grid) both(z) = 1 too, and the mirror is u + acc. Those cells are
+// left as they are here and written by the rhs launch (forced_column).
+// So every value equals the plain version's, bit for bit, for finite u, v,
+// w (a non-finite input gives non-finite outputs either way) and flags of
+// 0 and 1; with every tile run alone in turn, each seeing every earlier
+// tile's writes, the flag-mode checks of chip_smoke.py came out bitwise too.
+
+template <typename T>
+struct PreTile;  // the largest tile (k, j, i) of a CTA, by dtype
+template <>
+struct PreTile<float> {
+  static constexpr int K = 8, J = 8, I = 27;
+};
+template <>
+struct PreTile<double> {
+  static constexpr int K = 4, J = 8, I = 27;
+};
+constexpr int PNT = 512;  // threads of the tiled launch: 16 warps, 2 CTAs an SM
+
+template <typename T>
+__device__ __forceinline__ bool same_bits(T a, T b);
+template <>
+__device__ __forceinline__ bool same_bits(float a, float b) {
+  return __float_as_uint(a) == __float_as_uint(b);
+}
+template <>
+__device__ __forceinline__ bool same_bits(double a, double b) {
+  return __double_as_longlong(a) == __double_as_longlong(b);
+}
+
+// whether plane p of the halo-1 block lies in a band (every plane without
+// bands); the table read at constant indices
+__device__ __forceinline__ bool in_bands(const Bands& b, int p) {
+  if (b.n == 0) return true;
+  bool in = false;
+#pragma unroll
+  for (int q = 0; q < MAXB; ++q)
+    if (q < b.n && p >= b.lo[q] && p < b.hi[q]) in = true;
+  return in;
+}
+
+// The tile's boxes in shared memory, pitched for the largest tile: the
+// originals u, v, w (the tile and 2 cells a side, rows of at most 31 <= 32
+// cells), a mask byte a cell of that box (the three face masks and the
+// three buried-face marks), the mirrored components (the tile and 1 a
+// side); the flags (2 below, 3 above: rows of at most 32) live in the
+// mirrored components' room until the masks are made. Box origins: local
+// index (a0, b0, c0) - 2, and - 1 for the mirrored components.
+template <typename T>
+struct PreBoxes {
+  static constexpr int MK = PreTile<T>::K, MJ = PreTile<T>::J,
+                       MI = PreTile<T>::I;
+  static constexpr int UI = MI + 4, UP = (MJ + 4) * UI, UV = (MK + 4) * UP;
+  static constexpr int FI = MI + 5, FP = (MJ + 5) * FI, FV = (MK + 5) * FP;
+  static constexpr int VI = MI + 2, VP = (MJ + 2) * VI, VV = (MK + 2) * VP;
+  static_assert(FI <= 32, "a flag row fits a warp");
+  static_assert(FV <= (int)sizeof(T) * 3 * VV, "the flags fit their room");
+  static constexpr int bytes = (int)sizeof(T) * 3 * (UV + VV) + UV;
+};
+
+// mask bits: the face masks of u, v, w (axes 2, 1, 0), then their buried
+// marks (both cells of the face obstacles)
+constexpr int MF_U = 1, MF_V = 2, MF_W = 4, MB_U = 8, MB_V = 16, MB_W = 32;
+
+// rows (a, b) of an na x nb box, a warp a row (lane = column), the CTA's
+// warps stepping by as many rows; the thread's row advances by carries
+struct PreRows {
+  int a, b, nb;
+  __device__ explicit PreRows(int nb_) : nb(nb_) {
+    const int w = threadIdx.x >> 5;
+    a = w / nb;
+    b = w - a * nb;
+  }
+  __device__ void next() {
+    b += PNT / 32;
+    while (b >= nb) {
+      b -= nb;
+      ++a;
+    }
+  }
+};
+
+// the mirrored component m (0: u, normal to axis 2; 1: v, axis 1; 2: w,
+// axis 0) at original-box cell y: obstacle3d's zeroing and first-hit
+// mirror, from the originals and the mask bytes
+template <typename T, typename B, int M>
+__device__ __forceinline__ T mirrored_box(const T* su, const uint8_t* sm8,
+                                          int y) {
+  // neighbour offsets in priority order: u north, south, back, front; v
+  // east, west, back, front; w east, west, north, south
+  constexpr int d0 = M == 0 ? B::UI : 1, d1 = M == 2 ? B::UI : B::UP;
+  constexpr int off[4] = {d0, -d0, d1, -d1};
+  constexpr uint8_t fbit = M == 0 ? MF_U : (M == 1 ? MF_V : MF_W);
+  constexpr uint8_t bbit = M == 0 ? MB_U : (M == 1 ? MB_V : MB_W);
+  const T one = T(1);
+  T acc = T(0), rem = T(1);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int z = y + off[q];
+    const T fm = (sm8[z] & fbit) ? one : T(0);
+    mirror_term(acc, rem, fm, su[z] * fm);
+  }
+  const T fy = (sm8[y] & fbit) ? one : T(0);
+  const T both = (sm8[y] & bbit) ? one : T(0);
+  return su[y] * fy + both * acc;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(PNT, 2)
+obs_fgh_tiles(T* __restrict__ u, T* __restrict__ v, T* __restrict__ w,
+              const uint8_t* __restrict__ fl, const T* __restrict__ dtp,
+              T* __restrict__ f, T* __restrict__ g, T* __restrict__ h,
+              Blk k, Blk o, int e, Coef<T> c, Bands bd, int tk, int tj,
+              int ti) {
+  using B = PreBoxes<T>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* su = reinterpret_cast<T*>(smem);  // originals: u, v, w
+  T* sm = su + 3 * B::UV;               // mirrored: u, v, w
+  uint8_t* sm8 = reinterpret_cast<uint8_t*>(sm + 3 * B::VV);  // masks
+  uint8_t* sfl = reinterpret_cast<uint8_t*>(sm);  // the flags, at first
+  T* comp[3] = {u, v, w};
+  const int lane = threadIdx.x & 31;
+  const int a0 = blockIdx.z * tk, b0 = blockIdx.y * tj, c0 = blockIdx.x * ti;
+  const int nk = min(tk, k.L[0] - a0), nj = min(tj, k.L[1] - b0),
+            ni = min(ti, k.L[2] - c0);
+  // the flags and the originals, wrapped on the block: a warp a row; u,
+  // v, w by cp.async, the flag bytes four rows of a thread in flight
+  {
+    const int cw = wrap(c0 - 2 + lane, k.L[2]);
+    for (PreRows r(nj + 5); r.a < nk + 5;) {
+      uint8_t fv[4];
+      int yf[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q, r.next()) {
+        yf[q] = -1;
+        if (r.a >= nk + 5 || lane >= ni + 5) continue;
+        // 32-bit offsets: run_pre takes blocks of fewer than 2^31 cells
+        const int x = (wrap(a0 - 2 + r.a, k.L[0]) * k.L[1] +
+                       wrap(b0 - 2 + r.b, k.L[1])) * k.L[2] + cw;
+        yf[q] = r.a * B::FP + r.b * B::FI + lane;
+        fv[q] = fl[x];
+        if (r.a < nk + 4 && r.b < nj + 4 && lane < ni + 4) {
+          const int y = r.a * B::UP + r.b * B::UI + lane;
+#pragma unroll
+          for (int m = 0; m < 3; ++m)
+            __pipeline_memcpy_async(su + m * B::UV + y, comp[m] + x,
+                                    sizeof(T));
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (yf[q] >= 0) sfl[yf[q]] = fv[q];
+    }
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+  }
+  __syncthreads();
+  // the mask bytes on the originals' box: face masks (1 on the last global
+  // ghost plane of their axis, else the flags of the cell and its +
+  // neighbour) and buried marks (both flags 0)
+  {
+    const int gi = wrap(c0 - 2 + lane, k.L[2]) + k.base[2];
+    for (PreRows r(nj + 4); r.a < nk + 4; r.next()) {
+      if (lane >= ni + 4) continue;
+      const int gk = wrap(a0 - 2 + r.a, k.L[0]) + k.base[0];
+      const int gj = wrap(b0 - 2 + r.b, k.L[1]) + k.base[1];
+      const int z = r.a * B::FP + r.b * B::FI + lane;
+      const int fc = sfl[z], fi = sfl[z + 1], fj = sfl[z + B::FI],
+                fk = sfl[z + B::FP];
+      int m = 0;
+      if (gi == k.G[2] + 1 || (fc && fi)) m |= MF_U;
+      if (gj == k.G[1] + 1 || (fc && fj)) m |= MF_V;
+      if (gk == k.G[0] + 1 || (fc && fk)) m |= MF_W;
+      if (!fc && !fi) m |= MB_U;
+      if (!fc && !fj) m |= MB_V;
+      if (!fc && !fk) m |= MB_W;
+      sm8[r.a * B::UP + r.b * B::UI + lane] = (uint8_t)m;
+    }
+  }
+  __syncthreads();
+  // the mirrored components on the tile and one ring
+  for (PreRows r(nj + 2); r.a < nk + 2; r.next()) {
+    if (lane >= ni + 2) continue;
+    const int y = (r.a + 1) * B::UP + (r.b + 1) * B::UI + lane + 1;
+    const int ym = r.a * B::VP + r.b * B::VI + lane;
+    sm[ym] = mirrored_box<T, B, 0>(su, sm8, y);
+    sm[B::VV + ym] = mirrored_box<T, B, 1>(su + B::UV, sm8, y);
+    sm[2 * B::VV + ym] = mirrored_box<T, B, 2>(su + 2 * B::UV, sm8, y);
+  }
+  __syncthreads();
+  // F, G, H on the tile's cells of the halo-1 block (in the bands), and
+  // u, v, w where the mirror changed them
+  const T dt = *dtp;
+  const T one = T(1);
+  const T* mu = sm;
+  const T* mv = sm + B::VV;
+  const T* mw = sm + 2 * B::VV;
+  for (PreRows r(nj); r.a < nk; r.next()) {
+    if (lane >= ni) continue;
+    const int xm = (r.a + 1) * B::VP + (r.b + 1) * B::VI + lane + 1;
+    const int xu = (r.a + 2) * B::UP + (r.b + 2) * B::UI + lane + 2;
+    const int ok = a0 + r.a - e, oj = b0 + r.b - e, oi = c0 + lane - e;
+    const int mk = sm8[xu];
+    if (ok >= 0 && ok < o.L[0] && oj >= 0 && oj < o.L[1] && oi >= 0 &&
+        oi < o.L[2] && in_bands(bd, ok)) {
+      const int gi = oi + o.base[2], gj = oj + o.base[1],
+                gk = ok + o.base[0];
+      const bool in_i = gi >= 1 && gi <= o.G[2];
+      const bool in_j = gj >= 1 && gj <= o.G[1];
+      const bool in_k = gk >= 1 && gk <= o.G[0];
+      T fv = T(0), gv = T(0), hv = T(0);
+      if (in_i && in_j && in_k)
+        fgh_point(mu, mv, mw, xm, B::VI, B::VP, dt, c, fv, gv, hv);
+      if (in_j && in_k && (gi == 0 || gi == o.G[2])) fv = mu[xm];
+      if (in_i && in_k && (gj == 0 || gj == o.G[1])) gv = mv[xm];
+      if (in_i && in_j && (gk == 0 || gk == o.G[0])) hv = mw[xm];
+      const T uf = (mk & MF_U) ? one : T(0);
+      const T vf = (mk & MF_V) ? one : T(0);
+      const T wf = (mk & MF_W) ? one : T(0);
+      fv = uf * fv + (one - uf) * mu[xm];
+      gv = vf * gv + (one - vf) * mv[xm];
+      hv = wf * hv + (one - wf) * mw[xm];
+      const size_t y = ((size_t)ok * o.L[1] + oj) * o.L[2] + oi;
+      f[y] = fv;
+      g[y] = gv;
+      h[y] = hv;
+    }
+    const int x = ((a0 + r.a) * k.L[1] + b0 + r.b) * k.L[2] + c0 + lane;
+#pragma unroll
+    for (int m = 0; m < 3; ++m) {
+      // a cell whose face is forced and buried is left to the rhs launch
+      // (obs_forced_cells)
+      const int fb =
+          m == 0 ? MF_U | MB_U : (m == 1 ? MF_V | MB_V : MF_W | MB_W);
+      const T val = sm[m * B::VV + xm];
+      if ((mk & fb) != fb && !same_bits(val, su[m * B::UV + xu]))
+        comp[m][x] = val;
+    }
+  }
 }
 
 // launch 5: rhs = div(F, G, H)/dt on the owned global-interior cells of the
@@ -558,6 +757,102 @@ __global__ void rhs_cells(const T* __restrict__ f, const T* __restrict__ g,
   if (k < 0 || k >= o.L[0]) return;
   rhs_cell(f, g, h, dtp, rhs, o, dx, dy, dz, blockIdx.x * BX + threadIdx.x,
            blockIdx.y * BY + threadIdx.y, k);
+}
+
+// The cells whose face is forced (the last global ghost plane of the
+// component's axis) and buried (its flag and the + neighbour's 0): they
+// lie where that plane crosses the dead cells of a deep block, past the
+// global grid. Their mirror is no small change (u + acc), so the tiled
+// launch, whose CTAs read their neighbours' cells while those write,
+// leaves them as they are, and they are written here, after it. On the
+// plane every face is forced, so the first neighbour in priority order (u:
+// j + 1; v, w: i + 1) is the hit: acc = +0 + (-its value), and the other
+// three terms add a zero that leaves acc as it is (acc is +0 or nonzero).
+// A warp takes a column of the plane along that axis in chunks of 32
+// cells, every read of a chunk (the next chunk's first cell included)
+// before its writes; the column's last cell wraps to its first, read
+// before the loop. comp: 0 u (plane i = I + 1), 1 v (j = J + 1), 2 w
+// (k = K + 1).
+template <typename T, int COMP>
+__device__ __forceinline__ void forced_column(T* a, const uint8_t* fl,
+                                              const Blk& k, int col) {
+  constexpr int ax = 2 - COMP;              // the component's normal axis
+  constexpr int run = COMP == 0 ? 1 : 2;    // the first neighbour's axis
+  constexpr int fix = COMP == 2 ? 1 : 0;    // the column's fixed index
+  const int p = k.G[ax] + 1 - k.base[ax];  // the plane, local
+  if (p < 0 || p >= k.L[ax] || col >= k.L[fix]) return;
+  const int stride[3] = {k.L[1] * k.L[2], k.L[2], 1};
+  const int lane = threadIdx.x & 31, n = k.L[run], sr = stride[run];
+  // a cell of the column, and its + neighbour along ax (wrapping)
+  const int base = p * stride[ax] + col * stride[fix];
+  const int up = wrap(p + 1, k.L[ax]) * stride[ax] + col * stride[fix];
+  const T first = a[base];
+  const T one = T(1);
+  // the buried cells of up to 64 chunks at once (their flag reads in
+  // flight together; most columns hold none), then those chunks in order
+  for (int seg = 0; seg < n; seg += 64 * 32) {
+    unsigned long long mine = 0ull;
+#pragma unroll 8
+    for (int q = 0; q < 64; ++q) {
+      const int t = seg + q * 32 + lane;
+      if (t < n && fl[base + t * sr] == 0 && fl[up + t * sr] == 0)
+        mine |= 1ull << q;
+    }
+    unsigned long long any = mine;
+#pragma unroll
+    for (int h = 16; h > 0; h >>= 1)
+      any |= __shfl_xor_sync(0xffffffffu, any, h);
+    while (any) {
+      const int q = __ffsll(any) - 1;
+      any &= any - 1;
+      const int t = seg + q * 32 + lane;
+      const bool buried = (mine >> q) & 1ull;
+      T cur = T(0), next = T(0);
+      if (buried) {
+        cur = a[base + t * sr];
+        next = t + 1 == n ? first : a[base + (t + 1) * sr];
+      }
+      __syncwarp();
+      if (buried) {
+        T acc = T(0), rem = T(1);
+        mirror_term(acc, rem, one, next * one);
+        a[base + t * sr] = cur * one + one * acc;
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// launch 5 of the flag mode: the forced-and-buried cells of u, v and w
+// (z slice 0, whose blocks start first: their columns are sequential),
+// then rhs (the slices above, as rhs_cells)
+template <typename T>
+__global__ void rhs_forced_cells(const T* __restrict__ f,
+                                 const T* __restrict__ g,
+                                 const T* __restrict__ h,
+                                 const T* __restrict__ dtp,
+                                 T* __restrict__ rhs, Blk o, T dx, T dy, T dz,
+                                 Bands bd, T* u, T* v, T* w,
+                                 const uint8_t* __restrict__ fl, Blk k) {
+  if (blockIdx.z > 0) {
+    const int kk = band_plane(bd, blockIdx.z - 1);
+    if (kk < 0 || kk >= o.L[0]) return;
+    rhs_cell(f, g, h, dtp, rhs, o, dx, dy, dz, blockIdx.x * BX + threadIdx.x,
+             blockIdx.y * BY + threadIdx.y, kk);
+    return;
+  }
+  // a warp a column: u's and v's columns at each k, then w's at each j
+  const int nwarp = gridDim.x * gridDim.y * (NT / 32);
+  const int w0 = ((blockIdx.y * gridDim.x + blockIdx.x) * NT +
+                  threadIdx.y * BX + threadIdx.x) >> 5;
+  for (int c = w0; c < 2 * k.L[0] + k.L[1]; c += nwarp) {
+    if (c < k.L[0])
+      forced_column<T, 0>(u, fl, k, c);
+    else if (c < 2 * k.L[0])
+      forced_column<T, 1>(v, fl, k, c - k.L[0]);
+    else
+      forced_column<T, 2>(w, fl, k, c - 2 * k.L[0]);
+  }
 }
 
 template <typename T>
@@ -689,8 +984,8 @@ int max2(int a, int b) { return a > b ? a : b; }
 template <typename T>
 int run_pre(int dev, T* u, T* v, T* w, const T* dt, T* f, T* g, T* h, T* rhs,
             const int* l, const int* geo, const int* bc, int problem,
-            const double* c, const uint8_t* fl, T* us, T* vs, T* ws,
-            void* stream, const int* bands = nullptr) {
+            const double* c, const uint8_t* fl, void* stream,
+            const int* bands = nullptr) {
   cudaError_t e = cudaSetDevice(dev);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = (cudaStream_t)stream;
@@ -710,11 +1005,6 @@ int run_pre(int dev, T* u, T* v, T* w, const T* dt, T* f, T* g, T* h, T* rhs,
   const int xa = max2(k.L[2], k.L[1]), ya = max2(k.L[1], k.L[0]);
   bc_kfaces_special<T><<<dim3(ceil_div(xa, BX), ceil_div(ya, BY), 3), blk, 0,
                          st>>>(u, v, w, k, b, problem);
-  if (fl != nullptr) {
-    const dim3 kgrd(ceil_div(k.L[2], BX), ceil_div(k.L[1], BY), k.L[0]);
-    obs_zero<T><<<kgrd, blk, 0, st>>>(u, v, w, fl, us, vs, ws, k);
-    obs_mirror<T><<<kgrd, blk, 0, st>>>(u, v, w, fl, us, vs, ws, k);
-  }
   // c = [idx*0.25, gamma*idx*0.25, idy*0.25, gamma*idy*0.25, idz*0.25,
   //      gamma*idz*0.25, idx*idx, idy*idy, idz*idz, 1/re, gx, gy, gz,
   //      dx, dy, dz]
@@ -725,14 +1015,48 @@ int run_pre(int dev, T* u, T* v, T* w, const T* dt, T* f, T* g, T* h, T* rhs,
   // each band (rhs reads H one plane down)
   const Bands fgb = make_bands(bands, 1), rhb = make_bands(bands, 0);
   dim3 grd = cell_grid(o);
-  if (fgb.n > 0) grd.z = fgb.cta[fgb.n];
-  if (grd.z > 0)
-    fgh_cells<T><<<grd, blk, 0, st>>>(u, v, w, dt, f, g, h, k, o, ep, cf, fl,
-                                      fgb);
+  if (fl != nullptr) {
+    // the obstacle velocity BC and F, G, H in one tiled launch (32-bit
+    // offsets)
+    if ((double)k.L[0] * k.L[1] * k.L[2] >= 2147483647.0)
+      return (int)cudaErrorInvalidValue;
+    using PT = PreTile<T>;
+    const int nk = ceil_div(k.L[0], PT::K), nj = ceil_div(k.L[1], PT::J),
+              ni = ceil_div(k.L[2], PT::I);
+    const int tk = ceil_div(k.L[0], nk), tj = ceil_div(k.L[1], nj),
+              ti = ceil_div(k.L[2], ni);
+    // the shared memory attribute, set once a card
+    const int smem = PreBoxes<T>::bytes;
+    constexpr int CARDS = 64;
+    static bool set[CARDS];
+    if (dev < 0 || dev >= CARDS) return (int)cudaErrorInvalidDevice;
+    if (!set[dev]) {
+      e = cudaFuncSetAttribute(obs_fgh_tiles<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+      if (e != cudaSuccess) return (int)e;
+      set[dev] = true;
+    }
+    obs_fgh_tiles<T><<<dim3(ceil_div(k.L[2], ti), ceil_div(k.L[1], tj),
+                            ceil_div(k.L[0], tk)),
+                       PNT, smem, st>>>(u, v, w, fl, dt, f, g, h, k, o, ep,
+                                        cf, fgb, tk, tj, ti);
+  } else {
+    if (fgb.n > 0) grd.z = fgb.cta[fgb.n];
+    if (grd.z > 0)
+      fgh_cells<T><<<grd, blk, 0, st>>>(u, v, w, dt, f, g, h, k, o, ep, cf,
+                                        fgb);
+  }
   if (rhb.n > 0) grd.z = rhb.cta[rhb.n];
-  if (grd.z > 0)
+  if (fl != nullptr) {
+    grd.z += 1;  // the forced-and-buried cells' slice
+    rhs_forced_cells<T><<<grd, blk, 0, st>>>(f, g, h, dt, rhs, o, T(c[13]),
+                                             T(c[14]), T(c[15]), rhb, u, v,
+                                             w, fl, k);
+  } else if (grd.z > 0) {
     rhs_cells<T><<<grd, blk, 0, st>>>(f, g, h, dt, rhs, o, T(c[13]),
                                       T(c[14]), T(c[15]), rhb);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -870,8 +1194,7 @@ __global__ void cls_fgh(const T* __restrict__ u, const T* __restrict__ v,
     }
     const Blk b = lane_blk(c, ext, l);
     fgh_cell(u + o, v + o, w + o, dt + l, f + o, g + o, h + o, b, b, 0,
-             lane_coef(geo, l, gamma, inv_re, gx, gy, gz),
-             (const uint8_t*)nullptr, i, j, k);
+             lane_coef(geo, l, gamma, inv_re, gx, gy, gz), i, j, k);
   }
 }
 
@@ -1059,16 +1382,15 @@ int ns3d_post_partials(int lk, int lj, int li) {
   return 3 * ceil_div(li + 2, BX) * ceil_div(lj + 2, BY) * (lk + 2);
 }
 
-// fl (uint8, the input block's shape) and the scratch us, vs, ws are
-// null outside the flag mode
+// fl (uint8, the input block's shape) is null outside the flag mode
 #define PRE_ENTRY(NAME, T)                                                   \
   int NAME(int dev, void* u, void* v, void* w, const void* dt, void* f,      \
            void* g, void* h, void* rhs, const int* l, const int* geo,        \
            const int* bc, int problem, const double* c, const void* fl,      \
-           void* us, void* vs, void* ws, void* stream) {                     \
+           void* stream) {                                                   \
     return run_pre<T>(dev, (T*)u, (T*)v, (T*)w, (const T*)dt, (T*)f, (T*)g,  \
                       (T*)h, (T*)rhs, l, geo, bc, problem, c,                \
-                      (const uint8_t*)fl, (T*)us, (T*)vs, (T*)ws, stream);   \
+                      (const uint8_t*)fl, stream);                           \
   }
 
 // the grid-band mode of the distributed PRE: bands = [n, lo0, hi0, ...],
@@ -1079,12 +1401,11 @@ int ns3d_post_partials(int lk, int lj, int li) {
   int NAME(int dev, void* u, void* v, void* w, const void* dt, void* f,      \
            void* g, void* h, void* rhs, const int* l, const int* geo,        \
            const int* bc, int problem, const double* c, const void* fl,      \
-           void* us, void* vs, void* ws, const int* bands, void* stream) {   \
+           const int* bands, void* stream) {                                 \
     if (bands[0] < 1 || bands[0] > MAXB) return (int)cudaErrorInvalidValue;  \
     return run_pre<T>(dev, (T*)u, (T*)v, (T*)w, (const T*)dt, (T*)f, (T*)g,  \
                       (T*)h, (T*)rhs, l, geo, bc, problem, c,                \
-                      (const uint8_t*)fl, (T*)us, (T*)vs, (T*)ws, stream,    \
-                      bands);                                                \
+                      (const uint8_t*)fl, stream, bands);                    \
   }
 
 #define POST_ENTRY(NAME, T)                                                  \

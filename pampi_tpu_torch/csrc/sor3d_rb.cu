@@ -21,7 +21,8 @@
 // 8.8 MB a field) ~7.9 us at 3.35 TB/s, at 256^3 ~61.5 us, whatever n_inner
 // is. At 128^3, p and rhs fit the 50 MB L2, so that bound is no floor there.
 //
-// Design (simple and right first, as the 2-D kernels of sor_rb.cu): the TPU
+// Design of K5 and of K6's multi-launch design (simple and right first, as
+// the 2-D kernels of sor_rb.cu; K6's on-chip design follows below): the TPU
 // kernels run their grid steps in order and carry the residual across them
 // in SMEM; CUDA blocks run in no order, so every ordering point is a launch
 // boundary. Per iteration: one launch per colour (in place; within a colour
@@ -33,10 +34,48 @@
 // iteration count, is reproducible. In the octant layout every neighbour is
 // a uniform shift of a dense array, so a thread updates the same index of
 // its colour's four octants with unit-stride, coalesced reads, and the
-// Neumann refresh is 24 same-index plane copies in one launch. Temporal
-// blocking of these two (several iterations per pass through memory, as
-// the TPU kernels do) is later work; the masked mode below streams its
-// passes through shared memory.
+// Neumann refresh is 24 same-index plane copies in one launch. The masked
+// mode below streams its passes through shared memory.
+//
+// K6's on-chip design (rb_sor3d_octants_onchip; the wrapper takes it
+// wherever ops/sor3d_kernels.octant_tiles, the capacity rule, finds a
+// plan: both main-path fields, 128^3 f32 and canal3d's 200x50x50 f64): one
+// cooperative launch a call, one CTA an SM. Each CTA owns a fixed tile
+// (ts, tr, tc) of octant space, all eight slots, and holds it in shared
+// memory for the whole call: p in a box of (ts+1)(tr+1)(tc+1) per slot (the
+// tile and one face per axis, on the side the slot is read from: a slot
+// with bit b along an axis sits at box offset b there, so every update
+// reads its partners at box offsets 0 and +1) and rhs on the tile. In
+// octant space a slot reads the other colour at its own index and one cell
+// away on one side per axis, so a half-sweep of a colour needs only the
+// faces of the other colour's slots that the neighbouring tiles updated
+// last: after each half-sweep a CTA writes its own boundary planes of the
+// colour it updated to p in device memory (the exchange; no cell is
+// written there by two CTAs, and in a half-sweep no CTA reads the colour
+// that is being written), the CTA waits for its six face neighbours to
+// have written theirs (an epoch word a tile: wait_epoch; no grid-wide
+// barrier), and it refreshes its box faces of that colour from p. A face
+// never holds a ghost cell that an update reads (those lie at the reader's
+// own index), so the 24 Neumann copies stay in the tile, after the even
+// half-sweep. 2n - 1 exchanges replace the 3n + 1 launches; p crosses
+// device memory once each way (8 loads a thread in flight), plus the faces
+// (cells of a tile's surface per half-sweep). The last iteration stashes
+// each update's r^2 (0 on a cell that does not update) in the rhs slot;
+// each CTA sums its tile's 8 ts tr tc stash cells, in (slot, s, r, c)
+// order, as consecutive runs a thread, then the threads' sums of each warp
+// in lane order and the warps' in warp order (seq_sum), and the
+// last CTA to take an integer ticket adds the tiles' partials in tile
+// order. The order depends on the shape and dtype alone, and sor3d_kernels.
+// octant_tile_residual repeats it bit for bit. No float atomics.
+//   What bounds it at 128^3 f32 (n = 4, 125 tiles of 13^3 octant cells;
+// clock64 sections of one CTA on the H100, PERF.md section 6): filling the
+// boxes (~16 us: 4-byte reads of 14-cell rows, ~2 TB/s from the L2) and
+// writing the tile back (~7 us), each half-sweep (~4 us: 17 updates a
+// thread of 512, each a chain of dependent adds on 8 shared-memory reads)
+// and each exchange (~4.5 us: the faces out, a fence, the neighbours'
+// epochs, the faces in), not the device memory: the bound (p and rhs read,
+// p written once) is 0.008 ms. One CTA an SM of 512 threads: a tile's
+// boxes take 158 KB, and at 1024 threads the registers spilled.
 //
 // Arithmetic keeps the reference association term for term:
 //   r = rhs - ((e - 2c + w)*idx2 + (n - 2c + s)*idy2 + (b - 2c + f)*idz2)
@@ -590,6 +629,463 @@ __global__ void sum_partials(const T* __restrict__ partial, int n,
   if (threadIdx.x == 0) out[0] = sh[0];
 }
 
+// ---- K6 on chip: one cooperative launch a call --------------------------
+
+constexpr int OT = 512;  // a tile's CTA (ops/sor3d_kernels.OCT_THREADS)
+constexpr int OLD = 8;  // loads of a thread in flight while the boxes fill
+
+// the octant extents, the tile extents and the tiles per axis; tile t is
+// (t / (nr nc), t / nc % nr, t % nc) (ops/sor3d_kernels.octant_tiles)
+struct OTiles {
+  int K2, J2, I2;
+  int ts, tr, tc;
+  int ns, nr, nc;
+};
+
+// The exchange's synchronisation: after writing its faces for exchange k
+// of a call, a CTA publishes epoch base + k in its word of `ep`, and waits
+// until each of its (at most six) face neighbours has published that
+// epoch before it reads their faces. base is the host's count of epochs
+// before this call (the words of earlier calls are older, compared in
+// wrapping 32-bit arithmetic). A CTA writes a colour's faces again two
+// exchanges later, after its own wait for its neighbours' next epoch, so
+// they have read the faces of the one before; no grid-wide barrier. All
+// CTAs must be resident together (the cooperative launch sees to it).
+__device__ __forceinline__ void publish_epoch(unsigned* ep, unsigned e) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    *(volatile unsigned*)(ep + blockIdx.x) = e;
+  }
+}
+
+__device__ __forceinline__ void wait_epoch(unsigned* ep, int nb,
+                                           unsigned e) {
+  if (nb >= 0) {
+    volatile unsigned* w = ep + nb;
+    while ((int)(*w - e) < 0) __nanosleep(20);
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// the tile's sum of its n stash cells in a fixed, sequential order:
+// thread t adds cells t c .. t c + c - 1 (c = ceil(n / OT)) from the
+// first, lane 0 of each warp adds its 32 threads' sums in lane order, and
+// thread 0 the warp sums in warp order. The total in thread 0; ws holds
+// OT / 32 values. (A CPU emulation is three sequential accumulations:
+// sor3d_kernels._seq_sum.)
+template <typename T>
+__device__ __forceinline__ T seq_sum(const T* v, int n, T* ws) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c = (n + OT - 1) / OT, e0 = threadIdx.x * c;
+  T acc = T(0);
+  for (int e = e0; e < min(n, e0 + c); ++e) acc += v[e];
+  T wsum = T(0);
+  for (int l = 0; l < 32; ++l) wsum += __shfl_sync(0xffffffffu, acc, l);
+  if (lane == 0) ws[warp] = wsum;
+  __syncthreads();
+  T total = T(0);
+  if (threadIdx.x == 0)
+    for (int w = 0; w < OT / 32; ++w) total += ws[w];
+  return total;
+}
+
+// a CTA's tile and its boxes in shared memory
+struct OBox {
+  int s0, r0, c0;  // the tile's first index
+  int es, er, ec;  // its extents inside the octants
+  int BR, BC, BV;  // box pitches: rows (tr + 1), columns (tc + 1), a slot
+  int TV;          // a slot's tile: ts tr tc
+};
+
+// cell (a, b, c) of slot o's box lies at octant index (s0 - pk + a,
+// r0 - pj + b, c0 - pi + c)
+__device__ __forceinline__ int obox(const OBox& x, int o, int a, int b,
+                                    int c) {
+  return o * x.BV + (a * x.BR + b) * x.BC + c;
+}
+
+// slot sl (0..3) of a colour, in BITS order: odd 1, 2, 4, 7; even 0, 3, 5, 6
+__device__ __forceinline__ int colour_slot(int odd, int sl) {
+  return odd ? (sl == 3 ? 7 : 1 << sl) : (sl == 0 ? 0 : 7 - (1 << (3 - sl)));
+}
+
+// The rows (o, a, b) of 8 slots of na x nb rows, walked by the CTA: a warp
+// takes 32 / cw rows at once (lane = sub * cw + col, cw the least power of
+// two >= the row length), the warps stepping by 32 * 32 / cw rows; the
+// thread's row advances by carries, without a division.
+struct RowWalk {
+  int o, a, b, na, nb, do_, da, db, col, r, rows, step;
+  __device__ RowWalk(int na_, int nb_, int len) : na(na_), nb(nb_) {
+    int cw = 1;
+    while (cw < len) cw <<= 1;
+    const int lane = threadIdx.x & 31, rpw = 32 / cw;
+    col = lane & (cw - 1);
+    r = (threadIdx.x >> 5) * rpw + lane / cw;
+    rows = 8 * na * nb;
+    step = (OT / 32) * rpw;
+    o = r / (na * nb);
+    a = r / nb - o * na;
+    b = r - (o * na + a) * nb;
+    do_ = step / (na * nb);
+    da = step / nb - do_ * na;
+    db = step - (do_ * na + da) * nb;
+  }
+  __device__ void next() {
+    r += step;
+    b += db;
+    if (b >= nb) {
+      b -= nb;
+      ++a;
+    }
+    a += da;
+    if (a >= na) {
+      a -= na;
+      ++o;
+    }
+    o += do_;
+  }
+};
+
+// a thread's face cells (at most OFE a colour): slot index, axis and the
+// two tangential tile coordinates, packed, decoded once a call
+constexpr int OFE = 4;
+__device__ __forceinline__ int face_pack(int sl, int ax, int d1, int d2) {
+  return sl | ax << 2 | d1 << 4 | d2 << 18;
+}
+
+// the box index and the octant offset of a face cell of slot o: the halo
+// face (halo = true) on the side the slot is read from, or the tile's own
+// plane that the neighbour there reads; false where it lies outside
+__device__ __forceinline__ bool face_cell(const OTiles& g, const OBox& x,
+                                          int code, int odd, bool halo,
+                                          int& bx, int& gx) {
+  const int o = colour_slot(odd, code & 3), ax = (code >> 2) & 3;
+  const int d1 = (code >> 4) & 0x3fff, d2 = code >> 18;
+  const int pk = o >> 2, pj = (o >> 1) & 1, pi = o & 1;
+  int ds, dr, dc;
+  if (ax == 0) {
+    ds = halo ? (pk ? -1 : x.es) : (pk ? x.es - 1 : 0);
+    dr = d1;
+    dc = d2;
+  } else if (ax == 1) {
+    ds = d1;
+    dr = halo ? (pj ? -1 : x.er) : (pj ? x.er - 1 : 0);
+    dc = d2;
+  } else {
+    ds = d1;
+    dr = d2;
+    dc = halo ? (pi ? -1 : x.ec) : (pi ? x.ec - 1 : 0);
+  }
+  const int s = x.s0 + ds, r = x.r0 + dr, c = x.c0 + dc;
+  if (s < 0 || s >= g.K2 || r < 0 || r >= g.J2 || c < 0 || c >= g.I2)
+    return false;
+  bx = obox(x, o, ds + pk, dr + pj, dc + pi);
+  gx = ((o * g.K2 + s) * g.J2 + r) * g.I2 + c;
+  return true;
+}
+
+// the colour's faces out (halo = false: the tile's boundary planes to p)
+// or in (halo = true: the box faces from p), all loads of a thread in
+// flight together
+template <typename T>
+__device__ __forceinline__ void oct_faces(T* __restrict__ q, T* sp,
+                                          const OTiles& g, const OBox& x,
+                                          const int* code, int nf, int odd,
+                                          bool halo) {
+  T v[OFE];
+  int bx[OFE];
+  int gx[OFE];
+  bool in[OFE];
+#pragma unroll
+  for (int k = 0; k < OFE; ++k) {
+    in[k] = k < nf && face_cell(g, x, code[k], odd, halo, bx[k], gx[k]);
+    if (in[k]) {
+      if (halo) v[k] = __ldcg(q + gx[k]);
+      else __stcg(q + gx[k], sp[bx[k]]);
+    }
+  }
+  if (halo) {
+#pragma unroll
+    for (int k = 0; k < OFE; ++k)
+      if (in[k]) sp[bx[k]] = v[k];
+  }
+}
+
+// one column segment of a half-sweep, in place: slot o's cells xo, xo + PS,
+// ... (n of them; those off the slot's interior keep their value) from its
+// three partners' boxes, rhs at xf, xf + FS, ...; on the last iteration
+// each cell's r^2 (0 where it does not update) replaces its rhs. The
+// partners are the other colour's slots, so no cell read is written here:
+// the restrict pointers and a body without branches let the loads of
+// later cells start early (every read stays inside the boxes, so a cell
+// that does not update computes on box values and keeps its own).
+template <typename T>
+__device__ __forceinline__ void oct_column(
+    T* __restrict__ own, const T* __restrict__ p1, const T* __restrict__ p2,
+    const T* __restrict__ p4, T* __restrict__ fo, int xo, int xi, int xj,
+    int xk, int xf, int n, int PS, int FS, int BC, int s, int slo, int shi,
+    bool col, bool last, T factor, T idx2, T idy2, T idz2) {
+  // the k partner below the first cell; each cell's upper one is the
+  // next cell's lower
+  T lo = n > 0 ? p4[xk] : T(0);
+#pragma unroll 2
+  for (int k = 0; k < n; ++k, ++s) {
+    const bool upd = col && s >= slo && s <= shi;
+    const T cv = own[xo], hi = p4[xk + PS];
+    const T res = resid3(cv, fo[xf], p1[xi], p1[xi + 1], p2[xj],
+                         p2[xj + BC], lo, hi, idx2, idy2, idz2);
+    own[xo] = upd ? cv - factor * res : cv;
+    if (last) fo[xf] = upd ? res * res : T(0);
+    lo = hi;
+    xo += PS;
+    xi += PS;
+    xj += PS;
+    xk += PS;
+    xf += FS;
+  }
+}
+
+// one column segment of a half-sweep (slot index sl of the colour, tile
+// row dr, column dc, planes ds0..ds1 - 1)
+template <typename T>
+__device__ __forceinline__ void oct_sweep(T* sp, T* sf, const OTiles& g,
+                                          const OBox& x, int odd, int sl,
+                                          int dr, int dc, int ds0, int ds1,
+                                          bool last, T factor, T idx2,
+                                          T idy2, T idz2) {
+  const int o = colour_slot(odd, sl);
+  const int pk = o >> 2, pj = (o >> 1) & 1, pi = o & 1;
+  const int r = x.r0 + dr, c = x.c0 + dc;
+  const bool col = (pj == 0 ? r >= 1 : r <= g.J2 - 2) &&
+                   (pi == 0 ? c >= 1 : c <= g.I2 - 2);
+  oct_column(sp + o * x.BV, sp + (o ^ 1) * x.BV, sp + (o ^ 2) * x.BV,
+             sp + (o ^ 4) * x.BV, sf + o * x.TV,
+             obox(x, 0, ds0 + pk, dr + pj, dc + pi),
+             obox(x, 0, ds0 + pk, dr + pj, dc), obox(x, 0, ds0 + pk, dr, dc + pi),
+             obox(x, 0, ds0, dr + pj, dc + pi), (ds0 * g.tr + dr) * g.tc + dc,
+             ds1 - ds0, x.BR * x.BC, g.tr * g.tc, x.BC, x.s0 + ds0,
+             pk == 0 ? 1 : 0, pk == 0 ? g.K2 : g.K2 - 2, col, last, factor,
+             idx2, idy2, idz2);
+}
+
+// a half-sweep of the colour: its 4 er ec columns (slot index, tile row
+// and column), each cut into segments along s where the columns are
+// fewer than the threads, over the CTA's threads
+template <typename T>
+__device__ __forceinline__ void oct_half(T* sp, T* sf, const OTiles& g,
+                                         const OBox& x, int odd, bool last,
+                                         T factor, T idx2, T idy2, T idz2) {
+  const int area = x.er * x.ec, ncol = 4 * area;
+  const int nseg = ncol >= OT ? 1 : min(x.es, OT / ncol);
+  const int slen = (x.es + nseg - 1) / nseg;
+  for (int u = threadIdx.x; u < ncol * nseg; u += OT) {
+    const int seg = u / ncol, col = u - seg * ncol;
+    const int sl = col / area, rc = col - sl * area;
+    const int dr = rc / x.ec, dc = rc - dr * x.ec;
+    const int ds0 = min(x.es, seg * slen);
+    oct_sweep(sp, sf, g, x, odd, sl, dr, dc, ds0, min(x.es, ds0 + slen),
+              last, factor, idx2, idy2, idz2);
+  }
+}
+
+// the Neumann copies that fall in the tile: on each octant face the tile
+// touches (axis ax, lo or hi), the four slots whose bit along ax is hi's
+// copy their ghost plane (tangentially clipped to their interior) from
+// the partner across the face at the same index
+template <typename T>
+__device__ __forceinline__ void oct_neumann_tile(T* sp, const OTiles& g,
+                                                 const OBox& x) {
+  const int st[3] = {x.s0, x.r0, x.c0};
+  const int ext[3] = {x.es, x.er, x.ec};
+  const int n[3] = {g.K2, g.J2, g.I2};
+#pragma unroll
+  for (int ax = 0; ax < 3; ++ax) {
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int plane = (hi ? n[ax] - 1 : 0) - st[ax];
+      if (plane < 0 || plane >= ext[ax]) continue;
+      const int a1 = ax == 0 ? 1 : 0, a2 = ax == 2 ? 1 : 2;
+      const int n2 = ext[a2], area = ext[a1] * n2;
+      for (int u = threadIdx.x; u < 4 * area; u += OT) {
+        const int sl = u / area, v = u - sl * area;
+        const int t1 = v / n2, t2 = v - t1 * n2;
+        // the four slots with bit hi along ax, in BITS order
+        const int lo_bits = ((sl >> 1) << (ax == 0 ? 1 : 2)) |
+                            ((sl & 1) << (ax == 2 ? 1 : 0));
+        const int o = lo_bits | (hi << (2 - ax));
+        const int bit[3] = {o >> 2, (o >> 1) & 1, o & 1};
+        const int g1 = st[a1] + t1, g2 = st[a2] + t2;
+        if ((bit[a1] == 0 ? g1 < 1 : g1 > n[a1] - 2) ||
+            (bit[a2] == 0 ? g2 < 1 : g2 > n[a2] - 2))
+          continue;
+        int d[3];
+        d[ax] = plane;
+        d[a1] = t1;
+        d[a2] = t2;
+        const int p = o ^ (4 >> ax);
+        sp[obox(x, o, d[0] + bit[0], d[1] + bit[1], d[2] + bit[2])] =
+            sp[obox(x, p, d[0] + (p >> 2), d[1] + ((p >> 1) & 1),
+                    d[2] + (p & 1))];
+      }
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(OT, 1)
+oct_onchip(T* __restrict__ q, const T* __restrict__ f, OTiles g, int n_inner,
+           T factor, T idx2, T idy2, T idz2, T* __restrict__ partial,
+           unsigned* __restrict__ bar, unsigned base, T* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  OBox x;
+  const int t = blockIdx.x;
+  x.s0 = t / (g.nr * g.nc) * g.ts;
+  x.r0 = t / g.nc % g.nr * g.tr;
+  x.c0 = t % g.nc * g.tc;
+  x.es = min(g.ts, g.K2 - x.s0);
+  x.er = min(g.tr, g.J2 - x.r0);
+  x.ec = min(g.tc, g.I2 - x.c0);
+  x.BR = g.tr + 1;
+  x.BC = g.tc + 1;
+  x.BV = (g.ts + 1) * x.BR * x.BC;
+  x.TV = g.ts * g.tr * g.tc;
+  T* sp = reinterpret_cast<T*>(smem);  // 8 boxes of p
+  T* sf = sp + 8 * x.BV;               // 8 tiles of rhs, then r^2
+  T* ws = sf + 8 * x.TV;               // 32 warp sums
+  // 32-bit offsets: an on-chip plan's octants hold at most a few million
+  // cells (they fit the card's shared memory)
+  const int S = g.K2 * g.J2 * g.I2, PL = g.J2 * g.I2;
+  // the boxes of p (tile and faces; cells outside the octants 0) and rhs
+  // on the tile (0 past the octants), rows of cells, OLD loads of a
+  // thread in flight at once
+  for (RowWalk w(g.ts + 1, x.BR, x.BC); w.r < w.rows;) {
+    T v[OLD];
+    int y[OLD];
+#pragma unroll
+    for (int k = 0; k < OLD; ++k, w.next()) {
+      y[k] = -1;
+      if (w.r >= w.rows || w.col >= x.BC) continue;
+      const int s = x.s0 - (w.o >> 2) + w.a,
+                r = x.r0 - ((w.o >> 1) & 1) + w.b,
+                c = x.c0 - (w.o & 1) + w.col;
+      y[k] = w.r * x.BC + w.col;
+      v[k] = s >= 0 && s < g.K2 && r >= 0 && r < g.J2 && c >= 0 && c < g.I2
+                 ? __ldcg(q + (w.o * S + s * PL + r * g.I2 + c))
+                 : T(0);
+    }
+#pragma unroll
+    for (int k = 0; k < OLD; ++k)
+      if (y[k] >= 0) sp[y[k]] = v[k];
+  }
+  for (RowWalk w(g.ts, g.tr, g.tc); w.r < w.rows;) {
+    T v[OLD];
+    int y[OLD];
+#pragma unroll
+    for (int k = 0; k < OLD; ++k, w.next()) {
+      y[k] = -1;
+      if (w.r >= w.rows || w.col >= g.tc) continue;
+      const int s = x.s0 + w.a, r = x.r0 + w.b, c = x.c0 + w.col;
+      y[k] = w.r * g.tc + w.col;
+      v[k] = s < g.K2 && r < g.J2 && c < g.I2
+                 ? __ldcg(f + (w.o * S + s * PL + r * g.I2 + c))
+                 : T(0);
+    }
+#pragma unroll
+    for (int k = 0; k < OLD; ++k)
+      if (y[k] >= 0) sf[y[k]] = v[k];
+  }
+  // the thread's face cells: u = tid + k OT of the colour's 4 (er ec +
+  // es ec + es er) cells, decoded once
+  int code[OFE];
+  int nf = 0;
+  {
+    const int n0 = x.er * x.ec, n1 = x.es * x.ec, n2 = x.es * x.er;
+    const int per = n0 + n1 + n2;
+#pragma unroll
+    for (int k = 0; k < OFE; ++k) {
+      const int u = threadIdx.x + k * OT;
+      code[k] = 0;
+      if (u >= 4 * per) continue;
+      const int sl = u / per;
+      int v = u - sl * per;
+      if (v < n0) {
+        code[k] = face_pack(sl, 0, v / x.ec, v % x.ec);
+      } else if (v < n0 + n1) {
+        v -= n0;
+        code[k] = face_pack(sl, 1, v / x.ec, v % x.ec);
+      } else {
+        v -= n0 + n1;
+        code[k] = face_pack(sl, 2, v / x.er, v % x.er);
+      }
+      nf = k + 1;
+    }
+  }
+  // the face neighbour that thread k < 6 watches: tile -s, +s, -r, +r,
+  // -c, +c (-1 past the octants)
+  int nb = -1;
+  if (threadIdx.x < 6) {
+    const int ax = threadIdx.x >> 1, dir = threadIdx.x & 1 ? 1 : -1;
+    int i3[3] = {t / (g.nr * g.nc), t / g.nc % g.nr, t % g.nc};
+    const int n3[3] = {g.ns, g.nr, g.nc};
+    i3[ax] += dir;
+    if (i3[ax] >= 0 && i3[ax] < n3[ax])
+      nb = (i3[0] * g.nr + i3[1]) * g.nc + i3[2];
+  }
+  unsigned* ep = bar + 1;
+  unsigned epoch = base;
+  __syncthreads();
+  for (int it = 0; it < n_inner; ++it) {
+    const bool last = it == n_inner - 1;
+    // the odd half-sweep, then its faces out and back in
+    oct_half(sp, sf, g, x, 1, last, factor, idx2, idy2, idz2);
+    __syncthreads();
+    oct_faces(q, sp, g, x, code, nf, 1, false);
+    publish_epoch(ep, ++epoch);
+    wait_epoch(ep, nb, epoch);
+    oct_faces(q, sp, g, x, code, nf, 1, true);
+    __syncthreads();
+    // the even half-sweep and the tile's Neumann copies
+    oct_half(sp, sf, g, x, 0, last, factor, idx2, idy2, idz2);
+    __syncthreads();
+    oct_neumann_tile(sp, g, x);
+    __syncthreads();
+    if (!last) {
+      oct_faces(q, sp, g, x, code, nf, 0, false);
+      publish_epoch(ep, ++epoch);
+      wait_epoch(ep, nb, epoch);
+      oct_faces(q, sp, g, x, code, nf, 0, true);
+      __syncthreads();
+    }
+  }
+  // the tile's own cells back to p, rows of tc cells
+  for (RowWalk w(g.ts, g.tr, g.tc); w.r < w.rows; w.next()) {
+    if (w.col >= x.ec || w.a >= x.es || w.b >= x.er) continue;
+    __stcg(q + (w.o * S + (x.s0 + w.a) * PL + (x.r0 + w.b) * g.I2 + x.c0 +
+                w.col),
+           sp[obox(x, w.o, w.a + (w.o >> 2), w.b + ((w.o >> 1) & 1),
+                   w.col + (w.o & 1))]);
+  }
+  // its partial of r^2 to partial[t]; the last CTA to take the ticket
+  // (bar[0], left at 0) adds the partials in tile order
+  const T acc = seq_sum(sf, 8 * x.TV, ws);
+  __shared__ bool last_cta;
+  if (threadIdx.x == 0) {
+    __stcg(partial + t, acc);
+    __threadfence();
+    last_cta = atomicAdd(bar, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (last_cta && threadIdx.x == 0) {
+    __threadfence();
+    T v = T(0);
+    for (int p = 0; p < (int)gridDim.x; ++p) v += __ldcg(partial + p);
+    out[0] = v;
+    *bar = 0u;
+  }
+}
+
 dim3 cb3_grid(int K, int J, int I) {
   return dim3(((I + 1) / 2 + BX - 1) / BX, (J + BY - 1) / BY, K);
 }
@@ -694,6 +1190,59 @@ int run_octants(int dev, T* q, const T* f, int K2, int J2, int I2,
   return (int)cudaGetLastError();
 }
 
+// K6 on chip: geo = [K2, J2, I2, ts, tr, tc, ns, nr, nc, smem bytes]
+// (ops/sor3d_kernels.octant_geometry); partial holds ns nr nc values; bar
+// is the ticket (an unsigned 0 the launch leaves at 0) and then one epoch
+// word a tile, all older than base; the call uses epochs base + 1 ..
+// base + 2 n_inner - 1
+template <typename T>
+int run_octants_onchip(int dev, T* q, const T* f, const int* geo,
+                       int n_inner, double factor, double idx2, double idy2,
+                       double idz2, T* partial, unsigned* bar, unsigned base,
+                       T* out, cudaStream_t st) {
+  cudaError_t e = cudaSetDevice(dev);
+  if (e != cudaSuccess) return (int)e;
+  const OTiles g{geo[0], geo[1], geo[2], geo[3], geo[4],
+                 geo[5], geo[6], geo[7], geo[8]};
+  const int smem = geo[9];
+  const int tiles = g.ns * g.nr * g.nc;
+  // per card, the largest shared memory set so far and how many CTAs can
+  // then be resident at once (0 without cooperative launch): queried once,
+  // a call's host time is the CLI's cost at small shapes
+  constexpr int CARDS = 64;
+  static int smem_set[CARDS], resident[CARDS];
+  if (dev < 0 || dev >= CARDS) return (int)cudaErrorInvalidDevice;
+  if (smem_set[dev] < smem) {
+    int coop = 0, sms = 0, per_sm = 0;
+    if ((e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch,
+                                    dev)) != cudaSuccess)
+      return (int)e;
+    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+      return (int)e;
+    if ((e = cudaFuncSetAttribute(oct_onchip<T>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  smem)) != cudaSuccess)
+      return (int)e;
+    if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, oct_onchip<T>, OT, smem)) != cudaSuccess)
+      return (int)e;
+    smem_set[dev] = smem;
+    resident[dev] = coop ? per_sm * sms : 0;
+  }
+  // every tile's CTA must be resident at once (the neighbour waits)
+  if (tiles > OT || tiles > resident[dev])
+    return (int)cudaErrorCooperativeLaunchTooLarge;
+  const T tf = T(factor), tx = T(idx2), ty = T(idy2), tz = T(idz2);
+  void* args[] = {&q,         &f,         (void*)&g, &n_inner,
+                  (void*)&tf, (void*)&tx, (void*)&ty, (void*)&tz,
+                  &partial,   &bar,       &base,     &out};
+  e = cudaLaunchCooperativeKernel((const void*)oct_onchip<T>, dim3(tiles),
+                                  dim3(OT), args, smem, st);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -701,6 +1250,20 @@ extern "C" {
 const char* kernel_error_string(int e) {
   return cudaGetErrorString((cudaError_t)e);
 }
+
+#define OCT_ONCHIP_ENTRY(NAME, T)                                            \
+  int NAME(int dev, void* q, const void* f, const int* geo, int n_inner,     \
+           double factor, double idx2, double idy2, double idz2,             \
+           void* partial, void* bar, unsigned base, void* out,               \
+           void* stream) {                                                   \
+    return run_octants_onchip<T>(dev, (T*)q, (const T*)f, geo, n_inner,      \
+                                 factor, idx2, idy2, idz2, (T*)partial,      \
+                                 (unsigned*)bar, base, (T*)out,              \
+                                 (cudaStream_t)stream);                      \
+  }
+
+OCT_ONCHIP_ENTRY(rb_sor3d_octants_onchip_f32, float)
+OCT_ONCHIP_ENTRY(rb_sor3d_octants_onchip_f64, double)
 
 // length of the partial-sum buffer each entry point needs
 int rb_sor3d_checkerboard_partials(int K, int J, int I) {

@@ -41,7 +41,14 @@ velocity BC after the walls and the special BC and makes F/G/H carry
 U/V/W on non-fluid faces (ops/obstacle3d.apply_obstacle_velocity_bc_3d,
 mask_fgh); POST projects on fluid-fluid faces only (adapt_uvw_obstacle).
 Its launches count on kernel entries of their own, `ns3d_pre_flags` and
-`ns3d_post_flags`.
+`ns3d_post_flags`. PRE's flag mode is five launches: the three wall
+launches and, instead of F/G/H per cell, one tiled launch through shared
+memory that applies the obstacle velocity BC and computes F, G, H (no
+snapshot of u, v, w in device memory, nothing allocated beyond the
+outputs), then rhs, which also writes the few cells whose face is forced
+on the last global ghost plane and buried in a deep block's dead cells
+(the tiled launch's in-place writes leave them alone: the csrc note says
+why). The flags are 0 or 1, as the package makes them.
 
 The ragged mode of K8 (`ragged=True`, a mesh that does not divide the
 grid: ceil-divided shards whose trailing cells are dead; JAX
@@ -125,8 +132,8 @@ MAX_BANDS = 4
 
 _PROBLEM_CODE = {"dcavity": 1, "canal": 2}
 _V, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-_PRE_ARGS = [_I, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _I, _V, _V, _V,
-             _V, _V, _V]
+_PRE_ARGS = [_I, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _I, _V, _V,
+             _V]
 _POST_ARGS = [_I, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _D, _D, _D, _V, _I,
               _V, _V, _V]
 _PRE_BAND_ARGS = _PRE_ARGS[:-1] + [_V, _V]
@@ -431,10 +438,8 @@ def ns3d_pre(u, v, w, dt, cfg: StepConfig3D, offs=None, gext=None,
     f, g, h, rhs = (u.new_empty(tuple(n + 2 for n in local))
                     for _ in range(4))
     _check((f, g, h, rhs), dt)
-    scratch = [None] * 3
     if flags is not None:
         _check_flags(flags, u)
-        scratch = [torch.empty_like(u) for _ in range(3)]
     bc = (ctypes.c_int * 6)(*cfg.bc)
     coef = (ctypes.c_double * 16)(*cfg.coefficients())
     lib = _lib()
@@ -442,8 +447,7 @@ def ns3d_pre(u, v, w, dt, cfg: StepConfig3D, offs=None, gext=None,
             dt.data_ptr(), f.data_ptr(), g.data_ptr(), h.data_ptr(),
             rhs.data_ptr(), (ctypes.c_int * 3)(*local),
             (ctypes.c_int * 7)(ext_pad, *o, *G), bc,
-            _PROBLEM_CODE.get(cfg.problem, 0), coef, _ptr(flags),
-            *(_ptr(a) for a in scratch))
+            _PROBLEM_CODE.get(cfg.problem, 0), coef, _ptr(flags))
     with torch.cuda.device(u.device):
         if bands is None:
             err = getattr(lib, f"ns3d_pre_{_SUFFIX[u.dtype]}")(

@@ -36,11 +36,28 @@ tensor on p's device.
 
 What bounds them on the H100 is memory bandwidth: the least a call must
 move is p and rhs read once and p written once (3 field-sizes, ~61.5 us at
-256³ f32). The design of K5 and K6 is the 2-D kernels' (ops/sor_kernels.
-py): a launch per colour per iteration, a Neumann launch, per-block
-partial sums of r² on the last iteration and a one-block fixed-order sum,
-so the residual and every iteration count are reproducible; their
-temporal blocking is later work.
+256³ f32). The design of K5 is the 2-D kernels' (ops/sor_kernels.py): a
+launch per colour per iteration, a Neumann launch, per-block partial sums
+of r² on the last iteration and a one-block fixed-order sum, so the
+residual and every iteration count are reproducible.
+
+K6 has two designs, picked by the capacity rule `octant_tiles` (a function
+of the shape and the dtype alone):
+- on chip (`rb_sor3d_octants_onchip`, its own launch counter), wherever
+  the stacked octants of p and rhs fit the card's shared memory as one
+  tile per CTA, at most SMS = 132 tiles (both NS-3D main-path fields: 128³
+  float32 and canal3d.par's 200x50x50 float64): one cooperative launch a
+  call. Each CTA keeps its tile of all eight slots in shared memory for
+  the whole call; after each half-sweep it writes its boundary planes to
+  p, waits for its face neighbours to have done the same (an epoch word a
+  tile) and reads theirs (the source note of csrc/sor3d_rb.cu). Its residual is summed per tile in a
+  fixed order and then over the tiles (`octant_tile_residual`), which the
+  plain version repeats bit for bit;
+- multi-launch (`rb_sor3d_octants`, as before) for fields that do not fit
+  (256³ float32): 3n + 1 launches, K5's pattern on the octants, the plain
+  version summing octant by octant (within round-off of the kernel's
+  per-block partials).
+`dispatch.last("sor3d_octants")` names the design of the last call.
 
 For a CPU tensor each wrapper runs its plain version; for a CUDA tensor it
 launches its kernel or raises.
@@ -52,9 +69,11 @@ import ctypes
 import functools
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from ..kernels import build as kb
+from ..utils.dispatch import record
 from .sor3d import checkerboard_mask_3d, neumann_faces_3d, sor_pass_3d
 from .sor_kernels import (
     _SUFFIX,
@@ -65,13 +84,15 @@ from .sor_kernels import (
     residual_buffers,
 )
 from .sor_obsdist import SMEM_LIMIT, _flag_pitch
-from .sor_octants import BITS, rb_sweeps_octants
+from .sor_octants import BITS, interior_slices, octant_sums, sweeps_octants
 
 SOURCE = "pampi_tpu_torch/csrc/sor3d_rb.cu"
 RB_SOR3D_CHECKERBOARD = kb.register(
     "rb_sor3d_checkerboard", SOURCE, "pampi_tpu/ops/sor3d_pallas.py:388")
 RB_SOR3D_OCTANTS = kb.register(
     "rb_sor3d_octants", SOURCE, "pampi_tpu/ops/sor3d_pallas.py:735")
+RB_SOR3D_OCTANTS_ONCHIP = kb.register(
+    "rb_sor3d_octants_onchip", SOURCE, "pampi_tpu/ops/sor3d_pallas.py:735")
 RB_SOR3D_MASKED = kb.register(
     "rb_sor3d_checkerboard_masked", SOURCE,
     "pampi_tpu/ops/sor3d_pallas.py:388")
@@ -87,6 +108,9 @@ _SIGNATURES["rb_sor3d_octants_partials"] = [_I, _I, _I]
 _MASKED_ARGS = [_I, _V, _V, _V, _V, _V, _D, _D, _D, _D, _V, _V, _V, _V, _V]
 _SIGNATURES.update({f"rb_sor3d_masked_{t}": _MASKED_ARGS
                     for t in ("f32", "f64")})
+_SIGNATURES.update({f"rb_sor3d_octants_onchip_{t}": [
+    _I, _V, _V, _V, _I, _D, _D, _D, _D, _V, _V, ctypes.c_uint, _V, _V]
+    for t in ("f32", "f64")})
 # the masked mode's CTAs (csrc/sor3d_rb.cu's run_masked3d): MASKED_BLOCKS
 # an SM, the ring's shared memory and the registers split among them;
 # boxes a warp's MTX columns wide and, by element size, up to _ROWS5 rows
@@ -102,6 +126,15 @@ HALO5, RING5 = 3, 5
 # the scratch field, r² volume and row sums of the masked mode's calls,
 # per (shape, dtype, device, stream)
 _BUFFERS: dict = {}
+# K6 on chip: a CTA's threads (csrc/sor3d_rb.cu OT: 16 warps of 32), the
+# most tiles (one CTA an SM of the H100, whatever card runs it, so that the
+# residual's order depends on the shape and dtype alone), and per (device,
+# stream) the residual's ticket and the tiles' epoch words (int32, 1 +
+# OCT_TILES_MAX) with the count of epochs its calls have used
+OCT_THREADS = 512
+OCT_TILES_MAX = 132
+_EPOCHS: dict = {}
+_NP = {torch.float32: np.float32, torch.float64: np.float64}
 
 
 def masked_stencil_3d(flags, dtype, omega, idx2, idy2, idz2):
@@ -345,21 +378,213 @@ def masked_geometry(K: int, J: int, I: int, itemsize: int):
                                pl.rows, pl.P, pl.Pf, pl.smem)
 
 
+@dataclass(frozen=True)
+class OctantTiles:
+    """K6's on-chip plan: tiles of (ts, tr, tc) octant cells, ns x nr x nc
+    of them, tile t = (t // (nr nc), t // nc % nr, t % nc); a CTA's shared
+    memory: each slot's box of p (the tile and one face per axis) and its
+    tile of rhs, and 32 warp sums."""
+
+    ts: int
+    tr: int
+    tc: int
+    ns: int
+    nr: int
+    nc: int
+    smem: int
+
+    @property
+    def tiles(self) -> int:
+        return self.ns * self.nr * self.nc
+
+
+def _tile_extents(n: int):
+    """The tile extents worth trying on an axis of n cells: the least
+    extent for each tile count."""
+    return sorted({-(-n // m) for m in range(1, n + 1)})
+
+
+@functools.lru_cache(maxsize=64)
+def octant_tiles(K2: int, J2: int, I2: int, itemsize: int):
+    """The capacity rule of K6's on-chip design: the plan of the (K2, J2,
+    I2) octants at `itemsize` bytes a cell, or None where they do not fit
+    (then the multi-launch design runs). A plan has at most OCT_TILES_MAX
+    tiles, each CTA's boxes fit SMEM_LIMIT, a box row fits a warp (tc <
+    32) and a colour's faces come to at most four cells a thread; of
+    those, the one of the smallest box (the least work and face traffic a
+    CTA), then the fewest tiles, then the longest rows. A function of the
+    shape and the dtype alone, so the residual's order is too."""
+    if 8 * K2 * J2 * I2 >= 2 ** 31:  # the kernel's 32-bit offsets
+        return None
+    best = None
+    for ts in _tile_extents(K2):
+        ns = -(-K2 // ts)
+        for tr in _tile_extents(J2):
+            nr = -(-J2 // tr)
+            for tc in _tile_extents(I2):
+                nc = -(-I2 // tc)
+                if (ns * nr * nc > OCT_TILES_MAX or tc >= 32
+                        or tr * tc + ts * tc + ts * tr > OCT_THREADS):
+                    continue
+                box = (ts + 1) * (tr + 1) * (tc + 1)
+                smem = itemsize * (8 * box + 8 * ts * tr * tc + 32)
+                if smem > SMEM_LIMIT:
+                    continue
+                key = (box, ns * nr * nc, -tc)
+                if best is None or key < best[0]:
+                    best = (key, OctantTiles(ts, tr, tc, ns, nr, nc, smem))
+    return None if best is None else best[1]
+
+
+def octant_tile_list(K2: int, J2: int, I2: int, pl: OctantTiles):
+    """The tiles (s0, s1, r0, r1, c0, c1) of a plan in tile order: they
+    partition the octants' index space."""
+    return [(s0, min(s0 + pl.ts, K2), r0, min(r0 + pl.tr, J2), c0,
+             min(c0 + pl.tc, I2))
+            for s0 in range(0, pl.ns * pl.ts, pl.ts)
+            for r0 in range(0, pl.nr * pl.tr, pl.tr)
+            for c0 in range(0, pl.nc * pl.tc, pl.tc)]
+
+
+@functools.lru_cache(maxsize=64)
+def octant_geometry(K2: int, J2: int, I2: int, itemsize: int):
+    """The on-chip kernel's geometry array (made once per shape)."""
+    pl = octant_tiles(K2, J2, I2, itemsize)
+    return (ctypes.c_int * 10)(K2, J2, I2, pl.ts, pl.tr, pl.tc, pl.ns,
+                               pl.nr, pl.nc, pl.smem)
+
+
+@functools.lru_cache(maxsize=64)
+def octant_design(pl, n_inner: int) -> str:
+    """The text `record` keeps for a K6 call of plan pl (None: the
+    multi-launch design)."""
+    if pl is None:
+        return f"multi-launch ({3 * n_inner + 1} launches a call)"
+    return (f"on chip: {pl.tiles} tiles of {pl.ts}x{pl.tr}x{pl.tc}, one "
+            f"cooperative launch a call")
+
+
+def _seq_sum(x):
+    """The on-chip kernel's sum of each row of x (rows, n), a numpy array
+    (csrc/sor3d_rb.cu seq_sum): thread t adds its run of c = ceil(n /
+    OCT_THREADS) cells from the first, each warp's 32 thread sums are
+    added in lane order and the warps' in warp order. Threads and warps
+    past the cells hold +0, which leaves a sum of squares as it is, so
+    they are left out here: a few vector adds, cheap on the CPU, where the
+    plain solves call it every iteration. Returns (rows,)."""
+    rows, n = x.shape
+    c = -(-n // OCT_THREADS)
+    threads = -(-n // c)
+    warps = -(-threads // 32)
+    x = np.concatenate([x, np.zeros((rows, warps * 32 * c - n), x.dtype)],
+                       axis=1).reshape(rows, warps, 32, c)
+    acc = x[..., 0]
+    for k in range(1, c):
+        acc = acc + x[..., k]
+    lanes = acc[..., 0]
+    for k in range(1, 32):
+        lanes = lanes + acc[..., k]
+    total = lanes[:, 0]
+    for k in range(1, warps):
+        total = total + lanes[:, k]
+    return total
+
+
+@functools.lru_cache(maxsize=16)
+def _tile_order(K2: int, J2: int, I2: int, pl: OctantTiles):
+    """The order of octant_tile_residual: (tiles, 8 ts tr tc) indices into
+    the slots' interior r² concatenated in BITS order (each row-major), the
+    index past them (a 0) where a tile's cell lies past the octants or off
+    its slot's interior."""
+    starts, size = [], 0
+    for bits in BITS:
+        starts.append(size)
+        size += (K2 - 1) * (J2 - 1) * (I2 - 1)
+    t_s, t_r, t_c = np.meshgrid(np.arange(pl.ns), np.arange(pl.nr),
+                                np.arange(pl.nc), indexing="ij")
+    d_s, d_r, d_c = np.meshgrid(np.arange(pl.ts), np.arange(pl.tr),
+                                np.arange(pl.tc), indexing="ij")
+    s = (t_s.reshape(-1, 1) * pl.ts + d_s.reshape(1, -1))
+    r = (t_r.reshape(-1, 1) * pl.tr + d_r.reshape(1, -1))
+    c = (t_c.reshape(-1, 1) * pl.tc + d_c.reshape(1, -1))
+    out = []
+    for start, (pk, pj, pi) in zip(starts, BITS):
+        # an interior drops index 0 on a bit-0 axis, the last on a bit-1 one
+        ls, lr, lc = s - (1 - pk), r - (1 - pj), c - (1 - pi)
+        ok = ((ls >= 0) & (ls < K2 - 1) & (lr >= 0) & (lr < J2 - 1)
+              & (lc >= 0) & (lc < I2 - 1))
+        out.append(np.where(ok, start + (ls * (J2 - 1) + lr) * (I2 - 1) + lc,
+                            size))
+    return np.concatenate(out, axis=1)
+
+
+def _slots_tile_residual(r2s, shape, pl: OctantTiles):
+    """octant_tile_residual of the slots' interior r² (BITS order)."""
+    idx = _tile_order(*shape, pl)
+    dtype, device = r2s[0].dtype, r2s[0].device
+    flat = np.concatenate([x.detach().cpu().numpy().reshape(-1) for x in r2s]
+                          + [np.zeros(1, dtype=_NP[dtype])])
+    total = np.add.accumulate(_seq_sum(flat[idx]))[-1]
+    return torch.tensor(total, dtype=dtype, device=device)
+
+
+def octant_tile_residual(r2, pl: OctantTiles):
+    """The on-chip kernel's Σr² of an (8, K2, J2, I2) volume of r² whose
+    cells off their slot's interior do not count (the kernel stashes 0
+    there): each tile's 8 ts tr tc cells in (slot, s, r, c) order, cells
+    past the octants 0, through _seq_sum; then the tiles' partials added
+    in tile order. A 0-dim tensor, equal bit for bit to the kernel's."""
+    return _slots_tile_residual(
+        [r2[k][interior_slices(bits)] for k, bits in enumerate(BITS)],
+        tuple(r2.shape[1:]), pl)
+
+
 def rb_sor3d_octants_plain(q, f, n_inner, factor, idx2, idy2, idz2):
-    """K6's plain version: ops/sor_octants.rb_sweeps_octants, in place on
-    the octants of q."""
-    return rb_sweeps_octants(dict(zip(BITS, q.unbind(0))),
-                             dict(zip(BITS, f.unbind(0))), n_inner, factor,
-                             idx2, idy2, idz2)
+    """K6's plain version: ops/sor_octants.sweeps_octants, in place on the
+    octants of q. Σr² of the last iteration in the order of the design
+    that the capacity rule picks: octant_tile_residual's (on chip, bitwise
+    the kernel's) or octant by octant (multi-launch)."""
+    rs = sweeps_octants(dict(zip(BITS, q.unbind(0))),
+                        dict(zip(BITS, f.unbind(0))), n_inner, factor,
+                        idx2, idy2, idz2)
+    pl = octant_tiles(*q.shape[1:], q.element_size())
+    if pl is None:
+        return octant_sums(rs)
+    return _slots_tile_residual([rs[b] * rs[b] for b in BITS],
+                                tuple(q.shape[1:]), pl)
 
 
 def rb_sor3d_octants(q, f, n_inner, factor, idx2, idy2, idz2):
     """K6 on stacked octants q, f of shape (8, K2, J2, I2), in place on q.
-    Returns Σr² of the last iteration (0-dim tensor)."""
+    Returns Σr² of the last iteration (0-dim tensor). The capacity rule
+    (octant_tiles) picks the design; `record` names it."""
+    pl = octant_tiles(*q.shape[1:], q.element_size())
+    record("sor3d_octants", octant_design(pl, n_inner))
     if q.device.type == "cpu":
         return rb_sor3d_octants_plain(q, f, n_inner, factor, idx2, idy2, idz2)
     _check(q, f, n_inner)
     if q.dim() != 4 or q.shape[0] != 8 or min(q.shape[1:]) < 2:
         raise ValueError(f"octants must be (8, K2, J2, I2), got {tuple(q.shape)}")
-    return _launch(RB_SOR3D_OCTANTS, "rb_sor3d_octants", q, f,
-                   tuple(q.shape[1:]), n_inner, factor, idx2, idy2, idz2)
+    if pl is None:
+        return _launch(RB_SOR3D_OCTANTS, "rb_sor3d_octants", q, f,
+                       tuple(q.shape[1:]), n_inner, factor, idx2, idy2, idz2)
+    geo = octant_geometry(*q.shape[1:], q.element_size())
+    lib = kb.load("sor3d_rb", _SIGNATURES)
+    out = torch.empty((), dtype=q.dtype, device=q.device)
+    with card_of(q):
+        stream = kb.stream_of(q)
+        _, partial = residual_buffers(q, stream, pl.tiles)
+        key = (q.device.index, stream)
+        words = _EPOCHS.get(key)
+        if words is None:
+            words = _EPOCHS[key] = [torch.zeros(
+                1 + OCT_TILES_MAX, dtype=torch.int32, device=q.device), 0]
+        base = words[1]
+        words[1] = (base + 2 * n_inner) & 0xFFFFFFFF
+        err = getattr(lib, f"rb_sor3d_octants_onchip_{_SUFFIX[q.dtype]}")(
+            q.device.index, q.data_ptr(), f.data_ptr(), geo, n_inner, factor,
+            idx2, idy2, idz2, partial.data_ptr(), words[0].data_ptr(), base,
+            out.data_ptr(), stream)
+    kb.check(lib, err, "rb_sor3d_octants_onchip")
+    RB_SOR3D_OCTANTS_ONCHIP.launches += 1
+    return out

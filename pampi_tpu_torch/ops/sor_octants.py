@@ -141,10 +141,11 @@ def _update(center, rhs, w, e, s, n, f, bk, factor, idx2, idy2, idz2):
     return r
 
 
-def rb_sweeps_octants(octs, rhs_octs, n_inner, factor, idx2, idy2, idz2):
+def sweeps_octants(octs, rhs_octs, n_inner, factor, idx2, idy2, idz2):
     """n_inner full red-black iterations (odd pass, even pass, Neumann
-    refresh) in octant space, in place on the octants. Returns Σr² over
-    both passes of the last iteration."""
+    refresh) in octant space, in place on the octants. Returns {bits: r}
+    of the last iteration on each octant's interior, in ODD + EVEN
+    order."""
     odd, even = _sweep_views(octs, rhs_octs)
     ghosts = ghost_pairs(octs)
     rs = ()
@@ -154,6 +155,13 @@ def rb_sweeps_octants(octs, rhs_octs, n_inner, factor, idx2, idy2, idz2):
         rs = tuple(_update(*v, factor, idx2, idy2, idz2) for v in odd + even)
         for dst, src in ghosts:
             dst.copy_(src)
+    return dict(zip(ODD + EVEN, rs))
+
+
+def octant_sums(rs):
+    """Σr² of sweeps_octants' residuals, octant by octant in ODD + EVEN
+    order."""
+    rs = list(rs.values())
     total = torch.sum(rs[0] * rs[0])
     for r in rs[1:]:
         total = total + torch.sum(r * r)
@@ -164,4 +172,5 @@ def rb_iter_octants(octs, rhs_octs, factor, idx2, idy2, idz2):
     """One full red-black iteration in octant space, in place on the
     octants ({bits: tensor}; views of a stacked tensor work). Returns Σr²
     over both passes."""
-    return rb_sweeps_octants(octs, rhs_octs, 1, factor, idx2, idy2, idz2)
+    return octant_sums(sweeps_octants(octs, rhs_octs, 1, factor, idx2, idy2,
+                                      idz2))

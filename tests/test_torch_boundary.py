@@ -223,6 +223,7 @@ def test_kernel_registry():
     assert set(kb.KERNELS) == {"rb_sor_quarters", "rb_sor_checkerboard",
                                "ns2d_pre", "ns2d_post",
                                "rb_sor3d_checkerboard", "rb_sor3d_octants",
+                               "rb_sor3d_octants_onchip",
                                "ns3d_pre", "ns3d_post",
                                "mg_down_2d", "mg_up_2d",
                                "mg_down_3d", "mg_up_3d",

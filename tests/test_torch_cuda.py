@@ -139,9 +139,11 @@ def test_sor3d_kernels_match_plain(cuda, dtype, shape):
     cases = [(sk3.rb_sor3d_checkerboard, sk3.rb_sor3d_checkerboard_plain,
               sk3.RB_SOR3D_CHECKERBOARD, p, rhs)]
     if kmax % 2 == 0:
+        q = stack_octants(p)
+        onchip = sk3.octant_tiles(*q.shape[1:], q.element_size())
         cases.append((sk3.rb_sor3d_octants, sk3.rb_sor3d_octants_plain,
-                      sk3.RB_SOR3D_OCTANTS, stack_octants(p),
-                      stack_octants(rhs)))
+                      sk3.RB_SOR3D_OCTANTS_ONCHIP if onchip
+                      else sk3.RB_SOR3D_OCTANTS, q, stack_octants(rhs)))
     for kern, plain, counter, x, f in cases:
         xk, xp = x.clone(), x.clone()
         launches = counter.launches
@@ -151,6 +153,47 @@ def test_sor3d_kernels_match_plain(cuda, dtype, shape):
         assert counter.launches == launches + 3
         _assert_close(xk, xp, dtype)
         assert abs(float(rk) - float(rp)) <= _tol(dtype) * float(rp)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(16, 24, 32), (50, 50, 200), (4, 6, 2)])
+def test_octants_onchip_matches_plain_bitwise(cuda, dtype, shape):
+    """K6's on-chip design (one launch a call) on grids of many tiles,
+    canal3d.par's among them, and on one of tiles smaller than a cell row:
+    volume and residual bitwise the plain version's at n = 1..4, with the
+    ghosts carried across calls."""
+    kmax, jmax, imax = shape
+    coef = sor_coefficients_3d(1 / imax, 1 / jmax, 1 / kmax, 1.7)
+    full = (kmax + 2, jmax + 2, imax + 2)
+    q = stack_octants(_rand(full, dtype, cuda, 21))
+    f = stack_octants(_rand(full, dtype, cuda, 22))
+    assert sk3.octant_tiles(*q.shape[1:], q.element_size()) is not None
+    for n in (1, 2, 3, 4):
+        xk, xp = q.clone(), q.clone()
+        launches = sk3.RB_SOR3D_OCTANTS_ONCHIP.launches
+        for _ in range(2):
+            rk = sk3.rb_sor3d_octants(xk, f, n, *coef)
+            rp = sk3.rb_sor3d_octants_plain(xp, f, n, *coef)
+        assert sk3.RB_SOR3D_OCTANTS_ONCHIP.launches == launches + 2
+        assert torch.equal(xk, xp) and torch.equal(rk, rp)
+
+
+def test_octants_multi_launch_beyond_capacity(cuda):
+    """Octants past the capacity rule (128³ float64) run the multi-launch
+    design, counted on its own entry, within round-off of the plain
+    version (the residual sums in other orders)."""
+    coef = sor_coefficients_3d(1 / 128, 1 / 128, 1 / 128, 1.7)
+    full = (130, 130, 130)
+    q = stack_octants(_rand(full, torch.float64, cuda, 23))
+    f = stack_octants(_rand(full, torch.float64, cuda, 24))
+    assert sk3.octant_tiles(*q.shape[1:], 8) is None
+    xk, xp = q.clone(), q.clone()
+    launches = sk3.RB_SOR3D_OCTANTS.launches
+    rk = sk3.rb_sor3d_octants(xk, f, 2, *coef)
+    rp = sk3.rb_sor3d_octants_plain(xp, f, 2, *coef)
+    assert sk3.RB_SOR3D_OCTANTS.launches == launches + 1
+    assert torch.equal(xk, xp)
+    assert abs(float(rk) - float(rp)) <= 1e-12 * float(rp)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -969,6 +1012,38 @@ def test_ns3d_step_kernels_flag_mode_match_plain(cuda, dtype, offs):
         _assert_close(a, b, dtype)
     for m, a in zip(mk, halo1):
         assert torch.equal(m, a.abs().max())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ns3d_pre_flags_tiles_no_snapshot(cuda, dtype):
+    """Flag K7's tiled launch on a block of several tiles per axis, the
+    last ones ragged, with two obstacle boxes: u', v', w' bitwise the plain
+    version's, F/G/H/rhs to the tolerance; the call allocates its four
+    outputs and nothing more (no snapshot of u, v, w)."""
+    shape = (21, 35, 77)
+    param = Parameter(name="canal3d", imax=75, jmax=33, kmax=19, re=100.0,
+                      bcLeft=3, bcRight=3)
+    cfg = nf3.StepConfig3D.from_param(param)
+    flags = _obstacle_flags(shape, cuda)
+    flags[12:17, 3:9, 50:60] = 0
+    u, v, w = (_rand(shape, dtype, cuda, 131 + k) for k in range(3))
+    dt = torch.tensor(0.013, dtype=dtype, device=cuda)
+    uk, vk, wk = u.clone(), v.clone(), w.clone()
+    nf3.ns3d_pre(uk, vk, wk, dt, cfg, flags=flags)  # built and warm
+    uk, vk, wk = u.clone(), v.clone(), w.clone()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    launches = nf3.NS3D_PRE_FLAGS.launches
+    fk = nf3.ns3d_pre(uk, vk, wk, dt, cfg, flags=flags)
+    torch.cuda.synchronize()
+    assert nf3.NS3D_PRE_FLAGS.launches == launches + 1
+    assert torch.cuda.max_memory_allocated() - base <= 4 * u.nbytes + 4096
+    plain = nf3.ns3d_pre_plain(u, v, w, dt, cfg, flags=flags)
+    for a, b in zip((uk, vk, wk), plain[:3]):
+        assert torch.equal(a, b)
+    for a, b in zip(fk, plain[3:]):
+        _assert_close(a, b, dtype)
 
 
 def test_obstacle_ns3d_on_card_matches_cpu(cuda):

@@ -10,7 +10,11 @@ versions on CPU tensors) against the JAX package at float64:
   rb_iter_octants) and the octant Pallas kernel in interpret mode
   (make_rb_iter_tblock_3d_octants), on even shapes;
 - the octant pack/unpack round trip, the building blocks of ops/sor3d.py,
-  the layout rule and the convergence loop.
+  the layout rule and the convergence loop;
+- K6's capacity rule and tile plan (the on-chip design's tiles partition
+  octant space; the main-path fields fit, 256³ float32 does not), and the
+  on-chip residual order, which the plain version repeats, against a
+  numpy loop written from the kernel's thread order.
 
 Fields agree to 1e-12 of their scale and Σr² to 1e-12 relative: the
 association of every term is the same, the sums run in another order."""
@@ -27,6 +31,7 @@ from pampi_tpu_torch.models.ns3d import make_pressure_solve_3d, resolve_layout_3
 from pampi_tpu_torch.ops import sor3d
 from pampi_tpu_torch.ops import sor3d_kernels as sk3
 from pampi_tpu_torch.ops import sor_octants as so
+from pampi_tpu_torch.utils import dispatch
 
 TOL = 1e-12
 OMEGA = 1.7
@@ -243,3 +248,96 @@ def test_wrappers_refuse_other_devices():
         sk3.rb_sor3d_checkerboard(z, z, 1, 1.0, 1.0, 1.0, 1.0)
     with pytest.raises(ValueError):
         sk3.rb_sor3d_octants(q, q, 1, 1.0, 1.0, 1.0, 1.0)
+
+
+@pytest.mark.parametrize("shape,itemsize", [
+    ((65, 65, 65), 4), ((26, 26, 101), 8), ((6, 7, 8), 8), ((9, 13, 17), 4),
+    ((2, 2, 2), 4)])
+def test_octant_tiles_partition(shape, itemsize):
+    """The on-chip plan's tiles, in tile order, cover every octant index
+    once; at most OCT_TILES_MAX of them, each CTA's boxes within
+    SMEM_LIMIT; the geometry array is the plan's."""
+    pl = sk3.octant_tiles(*shape, itemsize)
+    assert pl is not None and pl.tiles <= sk3.OCT_TILES_MAX
+    box = (pl.ts + 1) * (pl.tr + 1) * (pl.tc + 1)
+    assert pl.smem == itemsize * (8 * box + 8 * pl.ts * pl.tr * pl.tc + 32)
+    assert pl.smem <= sk3.SMEM_LIMIT
+    seen = np.zeros(shape, dtype=np.int64)
+    tiles = sk3.octant_tile_list(*shape, pl)
+    assert len(tiles) == pl.tiles
+    for s0, s1, r0, r1, c0, c1 in tiles:
+        assert s1 > s0 and r1 > r0 and c1 > c0
+        seen[s0:s1, r0:r1, c0:c1] += 1
+    assert (seen == 1).all()
+    assert list(sk3.octant_geometry(*shape, itemsize)) == [
+        *shape, pl.ts, pl.tr, pl.tc, pl.ns, pl.nr, pl.nc, pl.smem]
+
+
+def test_octant_capacity_rule():
+    """Both NS-3D main-path fields run K6 on chip (dcavity3d.par's 128³
+    float32, canal3d.par's 200x50x50 float64); 256³ float32 and 128³
+    float64 exceed the card's shared memory and run the multi-launch
+    design, and the record says so."""
+    def octants(kmax, jmax, imax):
+        return ((kmax + 2) // 2, (jmax + 2) // 2, (imax + 2) // 2)
+
+    assert sk3.octant_tiles(*octants(128, 128, 128), 4) is not None
+    assert sk3.octant_tiles(*octants(50, 50, 200), 8) is not None
+    assert sk3.octant_tiles(*octants(256, 256, 256), 4) is None
+    assert sk3.octant_tiles(*octants(128, 128, 128), 8) is None
+    pl = sk3.octant_tiles(65, 65, 65, 4)
+    assert sk3.octant_design(pl, 4) == (
+        "on chip: 125 tiles of 13x13x13, one cooperative launch a call")
+    assert sk3.octant_design(None, 4) == "multi-launch (13 launches a call)"
+    q = torch.zeros(8, 3, 4, 5, dtype=torch.float64)
+    sk3.rb_sor3d_octants(q, q.clone(), 2, 1.0, 1.0, 1.0, 1.0)
+    assert dispatch.last("sor3d_octants").startswith("on chip")
+
+
+def _kernel_order_sum(r2, pl):
+    """The on-chip kernel's Σr², written from its thread order in numpy
+    loops: per tile, thread t of nt = OCT_THREADS adds its run of c =
+    ceil(8 ts tr tc / nt) cells of (slot, s, r, c) (extents ts, tr, tc;
+    past the octants or off a slot's interior 0) from the first, lane 0 of
+    each warp adds its lanes' sums in order, thread 0 the warp sums in
+    order; then the tiles' partials in tile order."""
+    nt = sk3.OCT_THREADS
+    total = r2.dtype.type(0)
+    for s0, _s1, r0, _r1, c0, _c1 in sk3.octant_tile_list(*r2.shape[1:], pl):
+        cells = np.zeros((8, pl.ts, pl.tr, pl.tc), dtype=r2.dtype)
+        for k, bits in enumerate(so.BITS):
+            inner = np.zeros(r2.shape[1:], dtype=bool)
+            inner[so.interior_slices(bits)] = True
+            box = np.where(inner, r2[k], 0)[s0:s0 + pl.ts, r0:r0 + pl.tr,
+                                             c0:c0 + pl.tc]
+            cells[k, :box.shape[0], :box.shape[1], :box.shape[2]] = box
+        flat = cells.reshape(-1)
+        c = -(-flat.size // nt)
+        part = r2.dtype.type(0)
+        for w in range(nt // 32):
+            wsum = r2.dtype.type(0)
+            for lane in range(32):
+                acc = r2.dtype.type(0)
+                for e in range((w * 32 + lane) * c,
+                               min(flat.size, (w * 32 + lane + 1) * c)):
+                    acc = acc + flat[e]
+                wsum = wsum + acc
+            part = part + wsum
+        total = total + part
+    return total
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_octant_tile_residual_is_the_kernel_order(dtype):
+    """octant_tile_residual, which the plain version uses on chip, sums in
+    the kernel's stated order, bit for bit, on a plan of 128 tiles, the
+    last ones sticking out of the octants on every axis, each of more
+    cells than a CTA's threads (runs of several cells a thread)."""
+    shape = (27, 26, 31)
+    pl = sk3.octant_tiles(*shape, np.dtype(dtype).itemsize)
+    assert pl.tiles > 1 and 8 * pl.ts * pl.tr * pl.tc > sk3.OCT_THREADS
+    assert any(n % t for n, t in zip(shape, (pl.ts, pl.tr, pl.tc)))
+    rng = np.random.default_rng(3)
+    r2 = (rng.standard_normal((8, *shape)) ** 2).astype(dtype)
+    got = sk3.octant_tile_residual(torch.from_numpy(r2), pl)
+    assert got.item() == _kernel_order_sum(r2, pl)
