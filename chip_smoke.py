@@ -425,6 +425,20 @@ rule) and flag K7's tiled launch (no snapshot of u, v, w) add:
 4. the NS-3D main paths count K6 on chip (dcavity3d.par 128³ and
    canal3d.par) and fail on a multi-launch call there.
 
+K1 in one pass a call (q_tiled: one launch with `out=`, the residual per
+tile in an order its plain version repeats) and K2's class mode in one
+launch (cls_tiled) add:
+
+2. K1 bitwise its plain version, planes and residual, at 4096², 1022x1020
+   and 100², float32 and float64, n = 1..4, two chained calls out of place
+   and one in place, and its CUDA launches a call (torch.profiler: 1 at
+   4096² n = 4 and 100² n = 1 and 4); phase 2's other K1 checks (1024²,
+   the n = 1 cadence) bitwise too; class K2 out of place into a block that
+   held NaN (n = 4, 1 and 30, a call in passes): residuals and blocks
+   bitwise, dead cells and lanes that do not solve copied;
+3. K1 timed out of place, as the solve loop calls it, with its CUDA
+   launches a call; class K2 timed out of place.
+
 It then prints the kernels line (JSON; K5-K8 and K11/K12 at 256³, where a
 field outgrows the L2 and the bound is a floor, with their 128³ numbers
 under main_shape_* keys, K6 on chip at 128³, the distributed modes of
@@ -434,12 +448,15 @@ its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 `python3 chip_smoke.py --kernel-times [ROOT [PREFIX ...]]` times only
-K13, masked K2, K15, masked K5, K14, K16, K6 (128³ float32 n = 4,
+K1 (4096² float32 and float64 n = 4, the 100² CLI call float64 n = 1,
+bf16 at 4096² and 100² n = 4), K2's class mode (bucket A: 256 lanes of
+the 64² class; bucket B: 32 lanes of the 256² class; float32 n = 4), K13,
+masked K2, K15, masked K5, K14, K16, K6 (128³ float32 n = 4,
 canal3d.par float64 n = 1, 256³ float32 n = 4) and flag K7
 (512x128x128 float32, canal3d_obstacle.par float64) of the package under
 ROOT (another checkout: run old, new, new, old in one call on the card to
-compare two), or the rows whose keys start with a PREFIX (k6, k7f, ...),
-and prints one JSON line.
+compare two), or the rows whose keys start with a PREFIX (k1_, k1bf16,
+k2c, k6, k7f, ...), and prints one JSON line.
 """
 
 import contextlib
@@ -617,6 +634,8 @@ def check_kernels(torch, np):
                 e = rel_err(xk, xp)
                 er = abs(float(rk) - float(rp)) / abs(float(rp))
                 ok = e <= t and er <= t
+                if name == "rb_sor_quarters":  # one pass a call: bitwise
+                    ok = torch.equal(xk, xp) and torch.equal(rk, rp)
                 log(f"{name} {dtype} {J}x{I}: field max_rel_err {e:.3e}, "
                     f"residual rel_err {er:.3e} (tol {t:g}) "
                     f"{'ok' if ok else 'FAIL'}")
@@ -658,6 +677,60 @@ def check_kernels(torch, np):
                     bad.append("ns2d_post")
     if bad:
         raise AssertionError(f"kernels disagree with plain versions: {bad}")
+
+
+@phase("K1 vs its plain version, bitwise: 4096², 1022x1020 and 100², "
+       "float32 and float64, n = 1..4, out of place and in place; its "
+       "CUDA launches a call")
+def check_k1(torch, np):
+    """K1 (one pass through shared memory a call) against its
+    plain version: planes and residual bitwise, two chained calls as the
+    solve loop makes them (`out=`, the planes swapped), then one in place;
+    one CUDA launch a call with `out=` at 4096² n = 4 and 100² n = 1
+    (torch.profiler's trace)."""
+    from pampi_tpu_torch.ops import sor_kernels as sk
+    from pampi_tpu_torch.ops.sor_quarters import stack_quarters
+
+    bad = []
+    for dtype in (torch.float32, torch.float64):
+        for J, I in ((4096, 4096), (1022, 1020), (100, 100)):
+            coef = sk.sor_coefficients(1.0 / I, 1.0 / J, 1.9)
+            p, rhs = rng_fields(torch, np, (J + 2, I + 2), dtype, 2, 13)
+            q, f = stack_quarters(p), stack_quarters(rhs)
+            del p, rhs
+            for n in (1, 2, 3, 4):
+                qk, qp, out = q.clone(), q.clone(), torch.empty_like(q)
+                same = True
+                for _ in range(2):
+                    keep = qk.clone()
+                    rk = sk.rb_sor_quarters(qk, f, n, *coef, out=out)
+                    same = same and torch.equal(qk, keep)
+                    qk, out = out, qk
+                    rp = sk.rb_sor_quarters_plain(qp, f, n, *coef)
+                    same = (same and torch.equal(qk, qp)
+                            and torch.equal(rk, rp))
+                ri = sk.rb_sor_quarters(qk, f, n, *coef)
+                rp = sk.rb_sor_quarters_plain(qp, f, n, *coef)
+                same = same and torch.equal(qk, qp) and torch.equal(ri, rp)
+                log(f"rb_sor_quarters {dtype} {J}x{I} n={n}: planes and "
+                    f"residual bitwise {same} {'ok' if same else 'FAIL'}")
+                if not same:
+                    bad.append(f"{dtype} {J}x{I} n={n}")
+                del qk, qp, out
+            if (J, n) in ((4096, 4), (100, 4)):
+                out = torch.empty_like(q)
+                for m in ((4,) if J == 4096 else (1, 4)):
+                    n_dev = cuda_launches(torch, lambda: sk.rb_sor_quarters(
+                        q, f, m, *coef, out=out))
+                    log(f"rb_sor_quarters {dtype} {J}x{I} n={m}: "
+                        f"{launches_text(n_dev)} CUDA launches a call "
+                        f"(torch.profiler)")
+                    if n_dev is not None and n_dev != 1:
+                        bad.append(f"{dtype} {J}x{I} n={m}: {n_dev} launches")
+            del q, f
+            torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"K1 disagrees with its plain version: {bad}")
 
 
 CASES_3D = (("dcavity3d", {}),
@@ -931,23 +1004,39 @@ def time_kernels(torch, np):
 
     # SOR: p and rhs read once, p written once; ~12 flops per update
     sor_bound = bound(3 * cells * size, 12 * n_inner * interior)
+    qout = torch.empty_like(q)
+
+    def k1(x, r, n, *c):  # as the solve loop calls it: out of place
+        return sk.rb_sor_quarters(x, r, n, *c, out=qout)
+
     for name, kern, plain, x, r in (
-            ("rb_sor_quarters", sk.rb_sor_quarters, sk.rb_sor_quarters_plain,
-             q, f),
+            ("rb_sor_quarters", k1, sk.rb_sor_quarters_plain, q, f),
             ("rb_sor_checkerboard", sk.rb_sor_checkerboard,
              sk.rb_sor_checkerboard_plain, p, rhs)):
         xk, xp = x.clone(), x.clone()
         rk = kern(xk, r, n_inner, fac, idx2, idy2)
         rp = plain(xp, r, n_inner, fac, idx2, idy2)
+        if name == "rb_sor_quarters":
+            xk = qout  # the new planes
         err = float((xk - xp).abs().max())
         e, er = rel_err(xk, xp), abs(float(rk) - float(rp)) / abs(float(rp))
-        verdict(name, e <= t and er <= t,
-                f"field max_rel_err {e:.3e}, residual rel_err {er:.3e} "
-                f"(tol {t:g})")
-        ms = cuda_ms(torch, lambda: kern(xk, r, n_inner, fac, idx2, idy2), 20)
+        if name == "rb_sor_quarters":
+            verdict(name, torch.equal(xk, xp) and torch.equal(rk, rp),
+                    f"planes bitwise {torch.equal(xk, xp)}, residual bitwise "
+                    f"{torch.equal(rk, rp)}")
+        else:
+            verdict(name, e <= t and er <= t,
+                    f"field max_rel_err {e:.3e}, residual rel_err {er:.3e} "
+                    f"(tol {t:g})")
+        src = x if name == "rb_sor_quarters" else xk
+        ms = cuda_ms(torch, lambda: kern(src, r, n_inner, fac, idx2, idy2),
+                     20)
         pms = cuda_ms(torch, lambda: plain(xp, r, n_inner, fac, idx2, idy2), 5)
         rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
-                          bound_ms=sor_bound[0], bound_by=sor_bound[1])
+                          bound_ms=sor_bound[0], bound_by=sor_bound[1],
+                          cuda_launches_per_call=cuda_launches(
+                              torch, lambda: kern(src, r, n_inner, fac, idx2,
+                                                  idy2)))
     # PRE, in place: reads u and v; writes F, G, rhs and the ghost ring of u
     # and v (the TPU kernel writes whole new u and v arrays); ~80 flops/cell
     uk, vk = u.clone(), v.clone()
@@ -3417,6 +3506,8 @@ def check_cadence_one(torch, np):
         rk, rp = kern(xk, rhs, 1, *c), plain(xp, rhs, 1, *c)
         ok = (torch.equal(xk, xp)
               and abs(float(rk) - float(rp)) <= 1e-12 * abs(float(rp)))
+        if name == "rb_sor_quarters":
+            ok = ok and torch.equal(rk, rp)
         log(f"{name} f64 n=1: field bitwise {torch.equal(xk, xp)}, "
             f"residual {float(rk):.6e} / {float(rp):.6e} "
             f"{'ok' if ok else 'FAIL'}")
@@ -4583,14 +4674,16 @@ def time_sor_cli(torch, np):
 
 
 def kernel_times(root, only=()) -> int:
-    """--kernel-times [ROOT [PREFIX ...]]: K13, masked K2 and K15, masked
-    K5, K14, K16, K6 and flag K7 of the package under ROOT (default: this
-    checkout) at their timed shapes and the CLI's shapes (kernel_times_3d),
+    """--kernel-times [ROOT [PREFIX ...]]: K1 (float32, float64 and bf16),
+    K2's class mode (the fleet's buckets A and B), K13, masked K2 and K15,
+    masked K5, K14, K16, K6 and flag K7 of the package under ROOT (default:
+    this checkout) at their timed shapes and the CLI's shapes
+    (kernel_times_3d),
     each called as that checkout's solvers call it (with `out=` where its
     wrapper takes it): device ms a call (CUDA events over back-to-back
     calls) and CUDA launches a call (torch.profiler's trace). With
-    PREFIXes, only the rows whose keys start with one of them (k13, k2,
-    k15, k5m, k14, k16, k6, k7f). Prints the card and one JSON line. Run
+    PREFIXes, only the rows whose keys start with one of them (k1_,
+    k1bf16, k2c, k13, k2_, k15, k5m, k14, k16, k6, k7f). Prints the card and one JSON line. Run
     it for two checkouts in one call on the card, in the order old, new,
     new, old, to compare them."""
     import inspect
@@ -4605,6 +4698,7 @@ def kernel_times(root, only=()) -> int:
     from pampi_tpu_torch.ops import sor_kernels as sk
     from pampi_tpu_torch.ops import sor_obsdist as sod
     from pampi_tpu_torch.ops import sor_qdist as sq
+    from pampi_tpu_torch.ops.sor_quarters import stack_quarters
     from pampi_tpu_torch.parallel.stencil2d import ca_halo
 
     def with_out(fn, y):
@@ -4653,6 +4747,47 @@ def kernel_times(root, only=()) -> int:
         out[key] = row([lambda: sk.rb_sor_checkerboard(
             x, f, n, 0.0, *c, flags=flags, omega=param.omg, **kw)], reps,
             f"{par} geometry at {param.imax}x{param.jmax}, n={n}, {dtype}")
+    for key, (jmax, imax), dtype, n, reps in (
+            ("k1_4096_f32_n4", MAIN, f32, 4, 50),
+            ("k1_4096_f64_n4", MAIN, f64, 4, 20),
+            ("k1_100_f64_n1", (100, 100), f64, 1, 500),
+            ("k1bf16_4096_n4", MAIN, torch.bfloat16, 4, 50),
+            ("k1bf16_100_n4", (100, 100), torch.bfloat16, 4, 500)):
+        if not want(key):
+            continue
+        coef = sk.sor_coefficients(1.0 / imax, 1.0 / jmax, 1.9)
+        x, f, y = (stack_quarters(a) for a in rng_fields(
+            torch, np, (jmax + 2, imax + 2), dtype, 3, 13))
+        # as that checkout's solve loop calls it: out of place where its
+        # K1 takes `out=` at every dtype, else in place (float32 and
+        # float64 in the multi-launch design)
+        kw = ({"out": y} if hasattr(sk, "quarters_launch_plan")
+              or dtype == torch.bfloat16 else {})
+        # the planes and their rhs read, the planes written
+        b = bound(3 * x.numel() * x.element_size(), 0)[0]
+        out[key] = {**row([lambda: sk.rb_sor_quarters(x, f, n, *coef, **kw)],
+                          reps, f"{imax}x{jmax} quarters {tuple(x.shape)}, "
+                          f"n={n}, {dtype}"), "bound_ms": b}
+        del x, f, y
+    for key, cls, lanes, reps in (
+            ("k2c_A_64_f32_n4", 64, fleet_lanes_a(), 200),
+            ("k2c_B_256_f32_n4", 256, [(256, 256)] * FLEET_B, 50)):
+        if not want(key):
+            continue
+        bt = sor_class_batch(torch, np, cls, lanes, f32, 611)
+        y = torch.empty_like(bt["p"])
+        # out of place where the class solve alternates two blocks (the
+        # one-launch design), else in place
+        kw = {"out": y} if hasattr(sk, "class_launch_plan") else {}
+        corner = sum((j + 2) * (i + 2) for j, i in lanes) * 4
+        call = [lambda: sk.rb_sor_class(bt["p"], bt["rhs"], 4, bt["ext"],
+                                        bt["geo"], bt["active"], **kw)]
+        n_dev, busy = device_trace(torch, call[0])
+        out[key] = {**row(call, reps, f"{len(lanes)} lanes of the {cls}² "
+                          f"class, n=4, float32"),
+                    "device_busy_ms": busy, "bound_ms": bound(3 * corner,
+                                                              0)[0]}
+        del bt, y
     if want("k15"):
         g = sod.ObsGeom(4096, 4096, 1366, 4096, 4, ca_halo(4, True))
         x, f, y = rng_fields(torch, np, g.shape, f32, 3, 61)
@@ -6009,12 +6144,17 @@ def check_sor_class_kernels(torch, np):
         for label, cls, lanes, canal, inactive in sor_class_batches():
             b = sor_class_batch(torch, np, cls, lanes, dtype,
                                 601 + len(lanes), canal, inactive)
-            # K2, n = 4 then 1 (the f32 and f64 cadences), chained
+            # K2, n = 4 then 1 (the f32 and f64 cadences) and 30 (a call
+            # in passes), chained as the solve calls it: out of place into
+            # a block that held NaN, so that every cell the kernel does
+            # not write shows
             pk, pp = b["p"].clone(), b["p"].clone()
+            spare = torch.full_like(pk, float("nan"))
             same = fields_ok = True
-            for n in (4, 1):
+            for n in (4, 1, 30):
                 rk = sk.rb_sor_class(pk, b["rhs"], n, b["ext"], b["geo"],
-                                     b["active"])
+                                     b["active"], out=spare)
+                pk, spare = spare, pk
                 rp = sk.rb_sor_class_plain(pp, b["rhs"], n, b["ext"],
                                            b["geo"], b["active"])
                 same = same and torch.equal(rk, rp)
@@ -6025,7 +6165,8 @@ def check_sor_class_kernels(torch, np):
             off = [k for k in inactive if not torch.equal(pk[k], b["p"][k])]
             ok = same and fields_ok and dead and not off
             log(f"rb_sor_class {label} ({len(lanes)} lanes of the {cls}² "
-                f"class) {dtype}, n = 4 then 1: residuals bitwise {same}, "
+                f"class) {dtype}, n = 4, 1, 30, out of place: residuals "
+                f"bitwise {same}, "
                 f"fields within {t:g} of scale {fields_ok} (bitwise "
                 f"{torch.equal(pk, pp)}), dead cells untouched {dead}, "
                 f"inactive lanes passed {not off} {'ok' if ok else 'FAIL'}")
@@ -6106,15 +6247,16 @@ def time_sor_class_kernels(torch, np):
     kw = dict(ext=b["ext"], geo=b["cell"], active=b["active"])
     live = sum((j * i) for j, i in fleet_lanes_a())
     p, u, v = b["p"].clone(), b["u"].clone(), b["v"].clone()
+    pout = torch.empty_like(p)
     f, g, rhs = nf.ns2d_pre(u, v, b["dt"], cfg, **kw)
     calls = {
         "rb_sor_class": (
             lambda: sk.rb_sor_class(p, b["rhs"], 4, b["ext"], b["geo"],
-                                    b["active"]),
+                                    b["active"], out=pout),
             lambda: sk.rb_sor_class_plain(p.clone(), b["rhs"], 4, b["ext"],
                                           b["geo"], b["active"]),
             3 * corner, 4 * 11 * live,
-            "n = 4 iterations (3n + 1 = 13 launches)"),
+            "n = 4 iterations, out of place (1 launch)"),
         "ns2d_pre_class": (
             lambda: nf.ns2d_pre(u, v, b["dt"], cfg, **kw),
             lambda: nf.ns2d_pre_plain(u, v, b["dt"], cfg, **kw),
@@ -7312,9 +7454,11 @@ def time_bf16_kernels(torch, np):
         plain_ms=pms, bound_ms=b[0], bound_by=b[1],
         cuda_launches_per_call=launches)
     q32, f32 = q.float(), f.float()
-    ms32 = cuda_ms(torch, lambda: sk.rb_sor_quarters(q32, f32, n, *coef), 20)
+    o32 = torch.empty_like(q32)
+    ms32 = cuda_ms(torch, lambda: sk.rb_sor_quarters(q32, f32, n, *coef,
+                                                     out=o32), 20)
     l32 = cuda_launches(torch, lambda: sk.rb_sor_quarters(q32, f32, n,
-                                                          *coef))
+                                                          *coef, out=o32))
     b32 = bound(3 * cells * 4, 12 * n * interior)
     log(f"K1 4096² n={n}: bf16 {ms:.4f} ms/call, {launches_text(launches)} "
         f"CUDA launches a call, bound {b[0]:.4f} ({b[1]}); float32 "
@@ -7532,6 +7676,7 @@ def main() -> int:
     rows = counts = None
     if not FAILED:
         check_kernels(torch, np)
+        check_k1(torch, np)
         check_kernels_3d(torch, np)
         check_k6_onchip(torch, np)
         check_mg_kernels(torch, np)

@@ -353,34 +353,49 @@ def make_padded_class_solve(param, jc: int, ic: int, dtype, n_inner: int):
 
         solve(p, rhs, lanes, solving) -> (p, res, it)
 
-    in place on p. A lane solves while it is in `solving`, res >= eps² and
-    it < itermax, res = its Σr² of the call's last iteration over
-    imax·jmax in the lane dtype; `it` counts iterations (a multiple of
-    n_inner, as on the TPU). `solve.stats` accumulates the solve's wall,
-    the wall spent in the read-backs and the rounds (host clock)."""
+    in place on p. K2's class mode reads one block and writes another
+    (every cell: the lanes that are not solving and the cells past each
+    live corner are copied), so the rounds alternate p and a spare batch
+    made once per shape, and a solve of an odd number of rounds copies the
+    newest back into p once: the solve keeps the in-place contract that
+    its callers hold (p is theirs). A lane solves while it is in
+    `solving`, res >= eps² and it < itermax, res = its Σr² of the call's
+    last iteration over imax·jmax in the lane dtype; `it` counts
+    iterations (a multiple of n_inner, as on the TPU). `solve.stats`
+    accumulates the solve's wall, the wall spent in the read-backs and the
+    rounds (host clock)."""
     real = mf._REAL[dtype]
     epssq = real(param.eps * param.eps)
     itermax = param.itermax
     stats = {"solve_s": 0.0, "sync_s": 0.0, "rounds": 0}
+    spares = {}
 
     def solve(p, rhs, lanes: Lanes, solving):
         t0 = time.perf_counter()
         n = p.shape[0]
         res = np.ones(n, real)
         it = np.zeros(n, np.int64)
+        key = (tuple(p.shape), p.dtype, p.device)
+        other = spares.get(key)
+        if other is None:
+            other = spares[key] = torch.empty_like(p)
+        cur = p
         while True:
             on = solving & (res >= epssq) & (it < itermax)
             if not on.any():
                 break
             act = torch.from_numpy(on).to(p.device)
-            rsq = sk.rb_sor_class(p, rhs, n_inner, lanes.dims,
-                                  lanes.sor_geo, act)
+            rsq = sk.rb_sor_class(cur, rhs, n_inner, lanes.dims,
+                                  lanes.sor_geo, act, out=other)
+            cur, other = other, cur
             s0 = time.perf_counter()
             rsq = rsq.cpu().numpy().astype(real)
             stats["sync_s"] += time.perf_counter() - s0
             stats["rounds"] += 1
             res[on] = (rsq / lanes.norm)[on]
             it[on] += n_inner
+        if cur is not p:
+            p.copy_(cur)
         stats["solve_s"] += time.perf_counter() - t0
         return p, res, it
 

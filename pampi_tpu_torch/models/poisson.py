@@ -105,22 +105,17 @@ def make_rb_loop(imax, jmax, dx, dy, omega, n_inner: int = 1,
     eff_inner). prep turns a (jmax+2, imax+2) array into the carried
     layout, post turns it back; step(carry, rhs_carry) performs eff_inner
     iterations on carry and returns their last Σr² (0-dim tensor, not yet
-    normalised). The quarters layout carries a list of stacked planes
-    (newest first: at bfloat16, K1 writes the other of two)."""
+    normalised). The quarters layout carries a pair of stacked planes,
+    newest first: K1 reads one and writes the other, one launch a call."""
     if n_inner < 1:
         raise ValueError(f"n_inner must be >= 1, got {n_inner}")
     factor, idx2, idy2 = sor_coefficients(dx, dy, omega)
     if resolve_layout(imax, jmax, layout) == "quarters":
         def step(pair, f):
-            # pair = [newest planes] in place; at bfloat16 [newest, the
-            # other one (made at the first call)]: K1's bf16-storage mode
-            # reads one and writes the other, one launch a call
-            q = pair[0]
-            if q.dtype != torch.bfloat16:
-                return rb_sor_quarters(q, f[0], n_inner, factor, idx2, idy2)
+            # pair = [newest, the other planes (made at the first call)]
             if len(pair) == 1:
-                pair.append(torch.empty_like(q))
-            r = rb_sor_quarters(q, f[0], n_inner, factor, idx2, idy2,
+                pair.append(torch.empty_like(pair[0]))
+            r = rb_sor_quarters(pair[0], f[0], n_inner, factor, idx2, idy2,
                                 out=pair[1])
             pair.reverse()
             return r

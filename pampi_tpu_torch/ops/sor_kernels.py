@@ -4,7 +4,13 @@ plain PyTorch version (sources: pampi_tpu_torch/csrc/sor_rb.cu).
 K1 `rb_sor_quarters` replaces pampi_tpu/ops/sor_pallas.py
   `_tblock_quarters_kernel` (make_rb_iter_tblock_quarters, pallas_call at
   :964): n_inner iterations on the stacked quarter planes (4, J2, I2) =
-  [R0, R1, B0, B1] of pampi_tpu_torch/ops/sor_quarters.py.
+  [R0, R1, B0, B1] of pampi_tpu_torch/ops/sor_quarters.py, in one
+  pass a call (csrc/sor_rb.cu q_tiled): owned tiles with a halo of n
+  quarter cells, each thread holding a column run of the four slots of p
+  and rhs in registers and publishing its cells to shared memory after
+  each colour; one launch with `out=` (the solve loop swaps two planes),
+  the residual per tile and then over the tiles in tile order
+  (`quarters_residual`, which the plain version repeats: bitwise).
 K1's bf16-storage mode (`rb_sor_quarters` on bfloat16 planes) replaces the
   compute_dtype branch of the same TPU kernel: bf16 planes, all n_inner
   iterations of a call in float32, the plane rounded to bf16 once, at the
@@ -46,31 +52,34 @@ K2's dynamic-extent mode `rb_sor_class` replaces the shape-class mode of
   dynamic=True): the fleet's padded class solve): n_inner iterations on
   every solving lane of a batch of (jc+2, ic+2) class blocks at once, each
   lane at its own extents (ext (N, 2) int32: jmax, imax) with its own
-  update constants (geo (N, 3): factor, idx2, idy2, in p's dtype). Cells
-  beyond a lane's live extent, and every cell of a lane whose `solving`
-  flag is false, pass through untouched (selects, never multiplies). It
-  returns each lane's Σr² of its last iteration, (N,), summed from
-  per-block partials in an order that depends on the lane's extents only
-  (`class_residual`, which the plain version repeats), so a lane is
-  bitwise the same in every rung and beside any batchmates, residual
-  included. K2's per-colour kernels with the lane on blockIdx.z: 3n + 1
-  launches a call for the whole batch. Its launches count on their own
-  kernel entry, `rb_sor_class`.
+  update constants (geo (N, 3): factor, idx2, idy2, in p's dtype), in
+  one launch a call with `out=` (csrc/sor_rb.cu cls_tiled): a CTA
+  per tile of a lane's block (tiles of a side that depends on the dtype
+  and n only, `class_tile`), all n iterations in shared memory; cells
+  beyond a lane's live corner, and every cell of a lane whose `solving`
+  flag is false, are copied into out unchanged. It returns each lane's
+  Σr² of its last iteration, (N,), summed per tile and then over the
+  lane's own tiles (`class_residual`, which the plain version repeats),
+  so a lane is bitwise the same in every rung and beside any batchmates,
+  residual included. Its launches count on their own kernel entry,
+  `rb_sor_class`; its partial, ticket and result buffers are made once
+  per stream and batch.
 
-All but masked K2 update p in place; all return the sum of r² over both
+Plain K2 and K17 update p in place; K1, masked K2 and the class mode
+read p and write `out` (without `out`, K1 and the class mode copy the new
+field back: a second launch). All return the sum of r² over both
 half-sweeps of the LAST of their iterations, as a 0-dim tensor on p's
-device.
+device (the class mode one per lane).
 
 What bounds them on the H100 is memory bandwidth (~10 flops per cell
 update). The least any implementation must move per call is p and rhs read
-once and p written once: ~60 us at 4096² f32 whatever n_inner is. K1 and
-plain K2 are simple first: a launch per colour per iteration (black sees
-red through the launch boundary), a Neumann launch, per-block partial sums
-of r² on the last iteration and a one-block fixed-order sum, so the
-residual and every iteration count are reproducible. Each iteration
-therefore reads and writes p from device memory; temporal blocking
-(several iterations per pass, as the TPU kernels do) is later work for
-them, done for the masked mode above.
+once and p written once: ~60 us at 4096² f32 whatever n_inner is. Plain K2
+is simple first: a launch per colour per iteration (black sees red through
+the launch boundary), a Neumann launch, per-block partial sums of r² on
+the last iteration and a one-block fixed-order sum, so the residual and
+every iteration count are reproducible; temporal blocking (several
+iterations per pass, as the TPU kernels do) is done for K1, masked K2 and
+the class mode.
 
 For a CPU tensor each wrapper runs its plain version; for a CUDA tensor it
 launches its kernel or raises.
@@ -81,12 +90,14 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
+from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from ..kernels import build as kb
 from .sor import checkerboard_mask, interior_residual, neumann_bc, sor_pass
-from .sor_quarters import rb_sweeps_quarters
+from .sor_quarters import rb_sweeps_quarters_rs
 
 SOURCE = "pampi_tpu_torch/csrc/sor_rb.cu"
 RB_SOR_QUARTERS = kb.register(
@@ -101,27 +112,27 @@ RB_SOR_CLASS = kb.register(
     "rb_sor_class", SOURCE, "pampi_tpu/ops/sor_pallas.py:620")
 
 _V, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-_SOR_ARGS = [_I, _V, _V, _I, _I, _I, _D, _D, _D, _V, _V, _V]
 _SIGNATURES = {
-    f"rb_sor_{layout}_{t}": _SOR_ARGS
-    for layout in ("checkerboard", "quarters") for t in ("f32", "f64")
+    f"rb_sor_checkerboard_{t}": [_I, _V, _V, _I, _I, _I, _D, _D, _D, _V, _V,
+                                 _V]
+    for t in ("f32", "f64")
 }
 _SIGNATURES["rb_sor_checkerboard_partials"] = [_I, _I]
-_SIGNATURES["rb_sor_quarters_partials"] = [_I, _I]
 _SIGNATURES["rb_sor_blocked_partials"] = [_I]
 for _t in ("f32", "f64"):
+    # dev, q, f, out, geo, factor, idx2, idy2, partial, ticket, res, stream
+    _SIGNATURES[f"rb_sor_quarters_{_t}"] = [_I, _V, _V, _V, _V, _D, _D, _D,
+                                            _V, _V, _V, _V]
     _SIGNATURES[f"rb_sor_masked_{_t}"] = [_I, _V, _V, _V, _V, _V, _D, _D, _D,
                                           _V, _V, _V, _V]
     _SIGNATURES[f"rb_sor_blocked_{_t}"] = [_I, _V, _V, _I, _I, _D, _D, _D,
                                            _V, _V, _V]
-    # dev, p, rhs, ext, geo, solving, lanes, jc, ic, n_inner, partial, res,
+    # dev, p, rhs, out, ext, geo, solving, lanes, gi, partial, ticket, res,
     # stream
-    _SIGNATURES[f"rb_sor_class_{_t}"] = [_I, _V, _V, _V, _V, _V, _I, _I, _I,
-                                         _I, _V, _V, _V]
-_SIGNATURES["rb_sor_class_partials"] = [_I, _I]
+    _SIGNATURES[f"rb_sor_class_{_t}"] = [_I, _V, _V, _V, _V, _V, _V, _I, _V,
+                                         _V, _V, _V, _V]
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 FIN = 1024  # threads of the kernels' one-block final sum (sum_partials)
-BX, BY = 32, 8  # K2's thread block (sor_rb.cu)
 BAND, TILE = 8, 256  # K17's rows per CTA and columns per tile (sor_rb.cu)
 # a tiled kernel's CTA (csrc/sor_tiles2d.cuh's TX x TY threads)
 TX_TILED, TY_TILED = 32, 16
@@ -496,45 +507,229 @@ def rb_sor_blocked(p, rhs, factor, idx2, idy2):
     return out
 
 
+
+
+# ----------------------------------------------------------------------
+# K1: the single-device quarter plane, one pass through the card a call
+# ----------------------------------------------------------------------
+
+# K1's CTA by element size: (QW, QS, QK) = box columns (a thread each),
+# row segments, rows a thread; the box is QS*QK rows by QW columns, 32x64
+# at float32 and 16x64 at float64 (the shapes csrc/sor_rb.cu
+# instantiates, the fastest measured, PERF.md). Each thread keeps
+# QK cells of the four slots of p and rhs in registers.
+K1_CTA = {4: (64, 4, 8), 8: (64, 4, 4)}
+
+
+@dataclass(frozen=True)
+class QuartersPass:
+    """One launch of K1: `iters` iterations on owned tiles (th, tw) of the
+    plane, each in a box of rows x qw quarter cells from the tile's corner
+    less `iters` (the halo) on each side."""
+
+    iters: int
+    th: int
+    tw: int
+    qw: int
+    qs: int
+    qk: int
+
+    @property
+    def rows(self) -> int:
+        return self.qs * self.qk
+
+    @property
+    def threads(self) -> int:
+        return self.qw * self.qs
+
+
+def quarters_pass(iters: int, itemsize: int) -> QuartersPass:
+    """K1's launch plan for a pass of `iters` iterations: the halo is iters
+    quarter cells (each slot reads the other colour one cell away on one
+    side per axis: tests/test_torch_sor_tiles.py shows iters enough and
+    iters - 1 not), the owned tile the box less the halo."""
+    qw, qs, qk = K1_CTA[itemsize]
+    return QuartersPass(iters, qs * qk - 2 * iters, qw - 2 * iters, qw, qs,
+                        qk)
+
+
+@functools.lru_cache(maxsize=256)
+def quarters_passes(n: int, itemsize: int) -> tuple:
+    """K1's passes for a call of n iterations: one pass wherever its tile
+    keeps at least half the box each way, else the fewest that do."""
+    from .sor_obsdist import split_passes
+
+    qw, qs, qk = K1_CTA[itemsize]
+    parts = split_passes(n, lambda m: 4 * m <= min(qs * qk, qw))
+    return tuple(quarters_pass(m, itemsize) for m in parts)
+
+
+@functools.lru_cache(maxsize=256)
+def quarters_launch_plan(j2: int, i2: int, n: int, itemsize: int):
+    """(tiles, the kernel's geometry array) of each pass of a K1 call on a
+    (4, j2, i2) plane (csrc/sor_rb.cu launch_q_tiled: J2, I2, iters, th,
+    tw, QS, QK, shared-memory bytes)."""
+    out = []
+    for pl in quarters_passes(n, itemsize):
+        smem = 4 * pl.rows * pl.qw * itemsize
+        geo = (ctypes.c_int * 8)(j2, i2, pl.iters, pl.th, pl.tw, pl.qs,
+                                 pl.qk, smem)
+        out.append((-(-j2 // pl.th) * -(-i2 // pl.tw), geo))
+    return tuple(out)
+
+
+def np_tree(s):
+    """_tree in numpy: s[..., :h] + s[..., h:2h] for h = n/2, ..., 1;
+    returns s[..., 0]."""
+    h = s.shape[-1] // 2
+    while h:
+        s = s[..., :h] + s[..., h:2 * h]
+        h //= 2
+    return s[..., 0]
+
+
+def np_fixed_order_sum(parts, threads: int):
+    """fixed_order_sum in numpy over the last axis: thread t adds parts t,
+    t + threads, ... in turn, then the halving tree. With no more parts
+    than threads the tree runs over the next power of two only: its upper
+    levels would add zeros."""
+    n = parts.shape[-1]
+    if n <= threads:
+        width = 1 << max(0, n - 1).bit_length()
+        padded = np.zeros((*parts.shape[:-1], width), dtype=parts.dtype)
+        padded[..., :n] = parts
+        return np_tree(padded)
+    m = -(-n // threads)
+    padded = np.zeros((*parts.shape[:-1], m * threads), dtype=parts.dtype)
+    padded[..., :parts.shape[-1]] = parts
+    acc = np.zeros((*parts.shape[:-1], threads), dtype=parts.dtype)
+    for r in range(m):
+        acc = acc + padded[..., r * threads:(r + 1) * threads]
+    return np_tree(acc)
+
+
+# each slot's interior (its cells that update) as (first row, first
+# column) of its plane; its extent is (J2 - 1, I2 - 1) (ops/sor_quarters)
+_INTERIOR_START = ((1, 1), (0, 0), (1, 0), (0, 1))
+
+
+@functools.lru_cache(maxsize=16)
+def _quarters_order(j2: int, i2: int, pl: QuartersPass):
+    """The gather plan of quarters_residual: an index array (steps, tiles x
+    threads) of indices into the four slots' interior r² laid end to end
+    (each row-major), the index past them (a 0) where a thread's cell of
+    that step lies off its tile or off its slot's interior. A thread (tx,
+    ty) holds column tx of box rows ty·QK .. ty·QK + QK - 1 (the box from
+    the tile's corner less the halo); its steps are its update order, red
+    (R0 then R1 of each row in turn) then black (B0, B1). Steps that no
+    thread takes are left out (adding 0 to a sum of squares changes no
+    bit)."""
+    th, tw, ht = pl.th, pl.tw, pl.iters
+    gy, gx = -(-j2 // th), -(-i2 // tw)
+    size = (j2 - 1) * (i2 - 1)
+    by, bx, ty, tx = np.meshgrid(np.arange(gy), np.arange(gx),
+                                 np.arange(pl.qs), np.arange(pl.qw),
+                                 indexing="ij")
+    col = tx - ht  # the cell's column in its tile
+    gc = bx * tw + col
+    steps = []
+    for slots in ((0, 1), (2, 3)):
+        for k in range(pl.qk):
+            row = ty * pl.qk + k - ht
+            gr = by * th + row
+            own = ((row >= 0) & (row < th) & (gr < j2)
+                   & (col >= 0) & (col < tw) & (gc < i2))
+            for s in slots:
+                r0, c0 = _INTERIOR_START[s]
+                ir, ic = gr - r0, gc - c0
+                ok = own & (ir >= 0) & (ir < j2 - 1) & (ic >= 0) & (ic < i2 - 1)
+                idx = np.where(ok, s * size + ir * (i2 - 1) + ic, 4 * size)
+                if ok.any():
+                    steps.append(idx.reshape(-1).astype(np.intp))
+    return np.stack(steps), gy * gx
+
+
+def quarters_residual(rs, pl: QuartersPass):
+    """K1's residual in the kernel's order, from the last iteration's r of
+    each slot's interior (R0, R1, B0, B1; ops/sor_quarters.rb_sweeps_
+    quarters_rs): in each tile's box thread (tx, ty) adds its column tx of
+    rows ty·QK .. ty·QK + QK - 1 in its update order (red: R0 then R1 of
+    each row in turn; then black: B0, B1), a halving tree over tid =
+    QW·ty + tx gives the tile's partial, and the last CTA adds the tiles'
+    partials in tile order (fixed_order_sum over the CTA's threads). The
+    adds are IEEE adds of the dtype in numpy, a cached gather and one add
+    a step (_quarters_order), which costs the CPU solves a fraction of
+    torch's per-op overhead. A 0-dim tensor on rs's device, equal bit for
+    bit to the kernel's."""
+    r = [x.detach().numpy() if x.device.type == "cpu" else x.cpu().numpy()
+         for x in rs]
+    j2, i2 = r[0].shape[0] + 1, r[0].shape[1] + 1
+    order, tiles = _quarters_order(j2, i2, pl)
+    size = (j2 - 1) * (i2 - 1)
+    flat = np.empty(4 * size + 1, dtype=r[0].dtype)
+    for s, x in enumerate(r):
+        np.multiply(x, x, out=flat[s * size:(s + 1) * size].reshape(x.shape))
+    flat[-1] = 0
+    terms = np.take(flat, order)
+    acc = terms[0].copy()
+    for e in range(1, len(terms)):
+        acc += terms[e]
+    parts = np_tree(acc.reshape(tiles, pl.threads))
+    return torch.from_numpy(np.asarray(
+        np_fixed_order_sum(parts, pl.threads))).to(rs[0].device)
+
+
 def rb_sor_quarters_plain(q, f, n_inner, factor, idx2, idy2):
-    """K1's plain version: ops/sor_quarters.rb_sweeps_quarters, in place
-    on the planes of q. On bf16 planes the bf16-storage mode
-    (ops/sor_qdist.rb_sor_quarters_bf16_plain: float32 inside the call,
-    a float32 residual in the one-pass kernel's order)."""
+    """K1's plain version: ops/sor_quarters's iterations, in place on the
+    stacked planes q; the residual in the kernel's order (quarters_residual
+    over the tiles of the call's last pass). On bf16 planes the
+    bf16-storage mode (ops/sor_qdist.rb_sor_quarters_bf16_plain: float32
+    inside the call, a float32 residual in the one-pass kernel's order)."""
     if q.dtype == torch.bfloat16:
         from .sor_qdist import rb_sor_quarters_bf16_plain
 
         return rb_sor_quarters_bf16_plain(q, f, n_inner, factor, idx2, idy2)
-    return rb_sweeps_quarters(tuple(q.unbind(0)), tuple(f.unbind(0)),
-                              n_inner, factor, idx2, idy2)
+    rs = rb_sweeps_quarters_rs(q, f, n_inner, factor, idx2, idy2)
+    return quarters_residual(
+        rs, quarters_passes(n_inner, q.element_size())[-1])
 
 
 def rb_sor_quarters(q, f, n_inner, factor, idx2, idy2, out=None):
-    """K1 on stacked quarters q, f of shape (4, J2, I2), in place on q.
-    Returns Σr² of the last iteration (0-dim tensor). bf16 planes take
-    the bf16-storage mode (ops/sor_qdist.rb_sor_quarters_bf16: one launch
-    a call, the residual float32), which also takes `out`: it then reads
-    q and writes the new plane into out, q untouched (without out, a
-    second launch copies the new plane into q)."""
+    """K1 on stacked quarters q, f of shape (4, J2, I2): with `out` it
+    reads q and writes the new planes into out (q untouched), one launch a
+    call (a call too deep for one pass runs several); without, a second
+    launch copies the new planes back into q. Returns Σr² of the last
+    iteration (0-dim tensor). bf16 planes take the bf16-storage mode
+    (ops/sor_qdist.rb_sor_quarters_bf16, the residual float32)."""
+    if out is not None:
+        check_out("K1", q, out)
     if q.dtype == torch.bfloat16:
         return _quarters_bf16(q, f, n_inner, factor, idx2, idy2, out)
-    if out is not None:
-        raise ValueError("K1 takes out= in its bf16-storage mode only")
     if q.device.type == "cpu":
-        return rb_sor_quarters_plain(q, f, n_inner, factor, idx2, idy2)
+        x = q if out is None else out.copy_(q)
+        return rb_sor_quarters_plain(x, f, n_inner, factor, idx2, idy2)
     _check(q, f, n_inner)
     if q.dim() != 3 or q.shape[0] != 4:
         raise ValueError(f"quarters must be (4, J2, I2), got {tuple(q.shape)}")
-    return _launch(RB_SOR_QUARTERS, "rb_sor_quarters",
-                   "rb_sor_quarters_partials", q, f, q.shape[1], q.shape[2],
-                   n_inner, factor, idx2, idy2)
+    lib = _lib()
+    entry = getattr(lib, f"rb_sor_quarters_{_SUFFIX[q.dtype]}")
+    launches = quarters_launch_plan(q.shape[1], q.shape[2], n_inner,
+                                    q.element_size())
+
+    def launch(src, dst, geo, partial, ticket, res, stream):
+        kb.check(lib, entry(q.device.index, src.data_ptr(), f.data_ptr(),
+                            dst.data_ptr(), geo, factor, idx2, idy2,
+                            partial.data_ptr(), ticket.data_ptr(),
+                            res.data_ptr(), stream), "rb_sor_quarters")
+
+    res = run_passes(q, launches, out, launch)
+    RB_SOR_QUARTERS.launches += 1
+    return res
 
 
 def _quarters_bf16(q, f, n_inner, factor, idx2, idy2, out):
     from .sor_qdist import rb_sor_quarters_bf16
 
-    if out is not None:
-        check_out("K1 bf16", q, out)
     if q.device.type == "cpu":
         x = q if out is None else out.copy_(q)
         return rb_sor_quarters_plain(x, f, n_inner, factor, idx2, idy2)
@@ -550,69 +745,89 @@ def _quarters_bf16(q, f, n_inner, factor, idx2, idy2, out):
 # K2's dynamic-extent mode: the fleet's sor class lanes
 # ----------------------------------------------------------------------
 
-
-def _cls_blocks(jmax: int, imax: int) -> tuple:
-    """(gx, gy): the block grid of one colour over (jmax, imax), K2's
-    cb_grid (sor_rb.cu cls_gx, cls_gy)."""
-    return -(-((imax + 1) // 2) // BX), -(-jmax // BY)
-
-
-@functools.lru_cache(maxsize=64)
-def _class_order(jc: int, ic: int, ext: tuple):
-    """The gather plan of class_residual for lanes of extents `ext`
-    ((jmax, imax) per lane) in a (jc, ic) class: index (N, m·FIN) into the
-    lane's [red partials, black partials, 0] (each colour's partials of the
-    class's block grid, row-major), in the kernel's order: the lane's own
-    block grid row-major, red then black, padded with the zero slot."""
-    gxc, gyc = _cls_blocks(jc, ic)
-    nbc = gxc * gyc
-    lists = []
-    for jmax, imax in ext:
-        gx, gy = _cls_blocks(jmax, imax)
-        own = [by * gxc + bx for by in range(gy) for bx in range(gx)]
-        lists.append(own + [nbc + k for k in own])
-    width = max(1, -(-max(len(x) for x in lists) // FIN)) * FIN
-    idx = torch.full((len(ext), width), 2 * nbc, dtype=torch.int64)
-    for lane, order in enumerate(lists):
-        idx[lane, :len(order)] = torch.tensor(order, dtype=torch.int64)
-    return idx
+# the class mode's box side by element size: a pass of m iterations takes
+# tiles of side CLASS_BOX - 2(2m + 1), so a call's tiles depend on the
+# dtype and n only; a 64² lane fits one tile at n = 4 (66 cells)
+CLASS_BOX = {4: 84, 8: 84}
+_CLASS_MIN_TILE = 32
+# per (device, stream, dtype, lanes, stride): the partial, ticket and
+# result buffers; per (device, stream, dtype, shape): the scratch block
+_CLASS_BUFS: dict = {}
+_CLASS_SCRATCH: dict = {}
 
 
-def class_residual(r2_red, r2_blk, ext):
-    """Each lane's Σr² in rb_sor_class's order, (N,): r2_red, r2_blk the
-    last iteration's r² of each colour on the class interior (N, jc, ic),
-    0 wherever nothing updated. Block (bx, by) of a colour holds the cells
-    (j, i0(j) + 2t) with j = 1 + BY·by + ty, t = BX·bx + tx, i0 = 1 where
-    (1 + j) % 2 is the colour (0 red, 1 black), else 2, reduced over tid =
-    BX·ty + tx by block_sum's halving tree; a lane's partials, red then
-    black, each over its own block grid row-major, are summed by FIN
-    threads in turn and a halving tree (sum_partials)."""
-    n, jc, ic = r2_red.shape
-    gxc, gyc = _cls_blocks(jc, ic)
-    tc = gxc * BX
-    jj = torch.arange(1, jc + 1, device=r2_red.device)
-    parts = []
-    for color, r2 in ((0, r2_red), (1, r2_blk)):
-        odd = torch.zeros((n, jc, tc), dtype=r2.dtype, device=r2.device)
-        even = torch.zeros_like(odd)
-        a1, a2 = r2[:, :, 0::2], r2[:, :, 1::2]  # i = 1, 3, ... and 2, 4, ...
-        odd[:, :, :a1.shape[-1]] = a1
-        even[:, :, :a2.shape[-1]] = a2
-        start1 = (1 + jj) % 2 == color
-        rows = torch.where(start1.view(1, jc, 1), odd, even)
-        grid = torch.zeros((n, gyc * BY, tc), dtype=r2.dtype,
-                           device=r2.device)
-        grid[:, :jc] = rows
-        blocks = grid.view(n, gyc, BY, gxc, BX).permute(0, 1, 3, 2, 4)
-        parts.append(_tree(blocks.reshape(n, gyc * gxc, BY * BX))[..., 0])
-    flat = torch.cat(parts + [r2_red.new_zeros((n, 1))], dim=1)
-    ext_t = tuple((int(a), int(b)) for a, b in ext.tolist())
-    idx = _class_order(jc, ic, ext_t).to(flat.device)
-    vals = flat.gather(1, idx).view(n, -1, FIN)
-    s = torch.zeros((n, FIN), dtype=flat.dtype, device=flat.device)
-    for r in range(vals.shape[1]):
-        s = s + vals[:, r]
-    return _tree(s)[..., 0]
+def class_tile(iters: int, itemsize: int) -> int:
+    """The side of the class mode's owned tiles in a pass of `iters`
+    iterations: the box less a halo of 2·iters + 1 a side (the sweeps reach
+    2·iters cells in from a box edge inside the lane, a wall-ghost cell
+    copies its neighbour one further)."""
+    return CLASS_BOX[itemsize] - 2 * (2 * iters + 1)
+
+
+@functools.lru_cache(maxsize=256)
+def class_passes(n: int, itemsize: int) -> tuple:
+    """The iterations of each pass of a class call of n: one pass where
+    its tile keeps _CLASS_MIN_TILE cells a side, else the fewest that do."""
+    from .sor_obsdist import split_passes
+
+    return tuple(split_passes(n, lambda m: class_tile(m, itemsize)
+                              >= _CLASS_MIN_TILE))
+
+
+@functools.lru_cache(maxsize=256)
+def class_launch_plan(jc: int, ic: int, n: int, itemsize: int):
+    """(stride, the kernel's geometry array of each pass) of a class call
+    on (jc+2, ic+2) blocks (csrc/sor_rb.cu run_class: jc, ic, iters, th,
+    tw, the boxes' row pitch, shared-memory bytes, stride); stride: the
+    partials a lane may have, the class block's tile count."""
+    passes = class_passes(n, itemsize)
+    stride = max(-(-(jc + 2) // class_tile(m, itemsize))
+                 * -(-(ic + 2) // class_tile(m, itemsize)) for m in passes)
+    geos = []
+    for m in passes:
+        t = class_tile(m, itemsize)
+        rows = min(t + 2 * (2 * m + 1), jc + 2)
+        w = min(t + 2 * (2 * m + 1), ic + 2)
+        pitch = w + (w & 1)
+        smem = max(2 * rows * pitch * itemsize, NT_TILED * itemsize)
+        geos.append((ctypes.c_int * 8)(jc, ic, m, t, t, pitch, smem, stride))
+    return stride, tuple(geos)
+
+
+def class_residual(r2, ext, n_inner: int):
+    """Each lane's Σr² in rb_sor_class's order, (N,): r2 the last
+    iteration's r² of the lanes' (jc+2, ic+2) blocks, 0 wherever nothing
+    updated. A lane's tiles (side class_tile of the call's last pass) start
+    at its block's corner; thread (tx, ty) of a tile's CTA adds the tile's
+    cells (ty + TY·k, tx + TX·m), k-major, a halving tree over tid = TX·ty
+    + tx gives the tile's partial, and the lane's last CTA adds the
+    partials of the lane's own tile grid (ceil((jmax+2)/t) x
+    ceil((imax+2)/t), row-major) by fixed_order_sum over the CTA's
+    threads: an order that depends on the lane's extents only, so a lane
+    is bitwise the same in every rung. Made in numpy (IEEE adds of r2's
+    dtype); returned on r2's device."""
+    a = r2.detach().cpu().numpy()
+    n, ej, ei = a.shape
+    t = class_tile(class_passes(n_inner, r2.element_size())[-1],
+                   r2.element_size())
+    gy, gx = -(-ej // t), -(-ei // t)
+    kk, mm = -(-t // TY_TILED), -(-t // TX_TILED)
+    wide = np.zeros((n, gy, kk * TY_TILED, gx, mm * TX_TILED), dtype=a.dtype)
+    tiles = np.zeros((n, gy * t, gx * t), dtype=a.dtype)
+    tiles[:, :ej, :ei] = a
+    wide[:, :, :t, :, :t] = tiles.reshape(n, gy, t, gx, t)
+    cells = wide.reshape(n, gy, kk, TY_TILED, gx, mm, TX_TILED)
+    acc = np.zeros((n, gy, TY_TILED, gx, TX_TILED), dtype=a.dtype)
+    for k in range(kk):
+        for m in range(mm):
+            acc = acc + cells[:, :, k, :, :, m]
+    parts = np_tree(acc.transpose(0, 1, 3, 2, 4).reshape(n, gy, gx, -1))
+    own = np.zeros((n, gy * gx), dtype=a.dtype)
+    for lane, (jmax, imax) in enumerate(ext.tolist()):
+        gyl, gxl = -(-(jmax + 2) // t), -(-(imax + 2) // t)
+        own[lane, :gyl * gxl] = parts[lane, :gyl, :gxl].reshape(-1)
+    return torch.from_numpy(np_fixed_order_sum(own, NT_TILED)).to(
+        r2.device)
 
 
 def rb_sor_class_plain(p, rhs, n_inner, ext, geo, solving):
@@ -641,27 +856,60 @@ def rb_sor_class_plain(p, rhs, n_inner, ext, geo, solving):
               ((gi == 0) & tan_j, -1, -1), ((gi == imax + 1) & tan_j, 1, -1))
     zero = torch.zeros((), dtype=p.dtype, device=dev)
     rc = rhs[:, 1:-1, 1:-1]
-    r2 = [None, None]
-    for _ in range(n_inner):
-        for k, mask in enumerate((red, black)):
+    r2 = torch.zeros_like(p)
+    for t in range(n_inner):
+        for mask in (red, black):
             c = p[:, 1:-1, 1:-1]
             r = rc - ((p[:, 1:-1, 2:] - 2.0 * c + p[:, 1:-1, :-2]) * idx2
                       + (p[:, 2:, 1:-1] - 2.0 * c + p[:, :-2, 1:-1]) * idy2)
             p[:, 1:-1, 1:-1] = torch.where(mask, c - factor * r, c)
-            r2[k] = torch.where(mask, r * r, zero)
+            if t == n_inner - 1:
+                # each interior cell updates in one colour: its r² lands
+                # once, as in the kernel's rhs slot
+                r2[:, 1:-1, 1:-1] += torch.where(mask, r * r, zero)
         q = p
         for mask, shift, dim in ghosts:
             q = torch.where(mask, torch.roll(q, shift, dim), q)
         p.copy_(q)
-    return class_residual(r2[0], r2[1], ext)
+    return class_residual(r2, ext, n_inner)
+
+
+def _class_buffers(p, stream: int, n: int, stride: int):
+    """(partial, ticket, res) of a class call on p's device and stream for
+    n lanes: made once and reused (launches on one stream run in order),
+    the ticket n int32 zeros that the kernel leaves at 0."""
+    key = (p.device.index, stream, p.dtype, n, stride)
+    bufs = _CLASS_BUFS.get(key)
+    if bufs is None:
+        bufs = (torch.empty(n * stride, dtype=p.dtype, device=p.device),
+                torch.zeros(n, dtype=torch.int32, device=p.device),
+                torch.empty(n, dtype=p.dtype, device=p.device))
+        _CLASS_BUFS[key] = bufs
+    return bufs
+
+
+def _class_scratch(p, stream: int, k: int):
+    """Scratch block k (0 or 1) of p's shape, dtype and device for the
+    passes of a deep call or the in-place form, made once per stream and
+    shape."""
+    key = (p.device.index, stream, p.dtype, tuple(p.shape), k)
+    x = _CLASS_SCRATCH.get(key)
+    if x is None:
+        x = _CLASS_SCRATCH[key] = torch.empty_like(p)
+    return x
 
 
 def rb_sor_class(p, rhs, n_inner, ext, geo, solving, out=None):
     """K2's dynamic-extent mode on lane-stacked class blocks p, rhs (N,
-    jc+2, ic+2), in place on p (or, with `out`, on out after copying p into
-    it, p untouched). ext (N, 2) int32, geo (N, 3) in p's dtype, solving
-    (N,) bool, on p's device. Returns each lane's Σr² of the last
-    iteration, (N,) (0 where not solving).
+    jc+2, ic+2). With `out` it reads p and writes the new blocks into out
+    (p untouched), one launch a call: the kernel writes every cell of out,
+    the cells past each lane's live corner and the lanes that are not
+    solving copied from p, so out is whole whichever array the caller
+    reads next. Without `out` a second launch copies the new blocks back
+    into p. ext (N, 2) int32, geo (N, 3) in p's dtype, solving (N,) bool,
+    on p's device. Returns each lane's Σr² of the last iteration, (N,) (0
+    where not solving); on the card a buffer reused by the next call with
+    the same stream and batch size: read it before.
 
     Every lane's extents must fit its block, 1 <= jmax <= jc and 1 <= imax
     <= ic: the kernel reads them on the card and does not check them (a
@@ -669,10 +917,9 @@ def rb_sor_class(p, rhs, n_inner, ext, geo, solving, out=None):
     partials). fleet/shapeclass.class_lanes checks them on the host."""
     if out is not None:
         check_out("K2's class mode", p, out)
-        out.copy_(p)
-        p = out
     if p.device.type == "cpu":
-        return rb_sor_class_plain(p, rhs, n_inner, ext, geo, solving)
+        x = p if out is None else out.copy_(p)
+        return rb_sor_class_plain(x, rhs, n_inner, ext, geo, solving)
     _check(p, rhs, n_inner)
     n = p.shape[0]
     for a, dtype, shape in ((ext, torch.int32, (n, 2)),
@@ -685,14 +932,27 @@ def rb_sor_class(p, rhs, n_inner, ext, geo, solving, out=None):
                              f"on its device")
     jc, ic = p.shape[1] - 2, p.shape[2] - 2
     lib = _lib()
-    partial = torch.empty(n * lib.rb_sor_class_partials(jc, ic),
-                          dtype=p.dtype, device=p.device)
-    res = torch.empty(n, dtype=p.dtype, device=p.device)
+    entry = getattr(lib, f"rb_sor_class_{_SUFFIX[p.dtype]}")
+    stride, geos = class_launch_plan(jc, ic, n_inner, p.element_size())
     with card_of(p):
-        err = getattr(lib, f"rb_sor_class_{_SUFFIX[p.dtype]}")(
-            p.device.index, p.data_ptr(), rhs.data_ptr(), ext.data_ptr(),
-            geo.data_ptr(), solving.data_ptr(), n, jc, ic, n_inner,
-            partial.data_ptr(), res.data_ptr(), kb.stream_of(p))
-    kb.check(lib, err, "rb_sor_class")
+        stream = kb.stream_of(p)
+        partial, ticket, res = _class_buffers(p, stream, n, stride)
+        target = _class_scratch(p, stream, 0) if out is None else out
+        other = (_class_scratch(p, stream, 1 if out is None else 0)
+                 if len(geos) > 1 else None)
+        src = p
+        for k, gi in enumerate(geos):
+            # the passes alternate target and a scratch block so that the
+            # last lands in target
+            dst = target if (len(geos) - 1 - k) % 2 == 0 else other
+            kb.check(lib, entry(p.device.index, src.data_ptr(),
+                                rhs.data_ptr(), dst.data_ptr(),
+                                ext.data_ptr(), geo.data_ptr(),
+                                solving.data_ptr(), n, gi,
+                                partial.data_ptr(), ticket.data_ptr(),
+                                res.data_ptr(), stream), "rb_sor_class")
+            src = dst
+        if out is None:
+            p.copy_(target)
     RB_SOR_CLASS.launches += 1
     return res

@@ -46,7 +46,15 @@ import torch
 from ..kernels import build as kb
 from ..parallel.octants_dist import OGeom, o_masks, rb_iters_o
 from .sor3d_kernels import _tiles
-from .sor_kernels import _SUFFIX, _check, card_of, check_out, residual_buffers
+from .sor_kernels import (
+    _SUFFIX,
+    _check,
+    card_of,
+    check_out,
+    np_fixed_order_sum,
+    np_tree,
+    residual_buffers,
+)
 from .sor_obsdist import SMEM_LIMIT
 
 SOURCE = "pampi_tpu_torch/csrc/sor_odist.cu"
@@ -148,17 +156,7 @@ def odist_partials(r2, g: OGeom, pl: OPassPlan):
     acc = np.zeros(ntiles * NT, dtype=flat.dtype)
     for e in range(steps):
         acc = acc + terms[e]
-    return _halving_tree(acc.reshape(ntiles, NT))
-
-
-def _halving_tree(s):
-    """sor_kernels._tree in numpy: s[..., :h] + s[..., h:2h] for h = n/2,
-    n/4, ..., 1; returns s[..., 0]."""
-    h = s.shape[-1] // 2
-    while h:
-        s = s[..., :h] + s[..., h:2 * h]
-        h //= 2
-    return s[..., 0]
+    return np_tree(acc.reshape(ntiles, NT))
 
 
 def odist_residual(r2, g: OGeom, pl: OPassPlan):
@@ -166,12 +164,8 @@ def odist_residual(r2, g: OGeom, pl: OPassPlan):
     partials in tile order (thread t of NT adds partials t, t + NT, ...,
     then the halving tree: sor_kernels.fixed_order_sum). A 0-dim tensor on
     r2's device, equal bit for bit to the kernel's."""
-    parts = odist_partials(r2, g, pl)
-    acc = np.zeros(NT, dtype=parts.dtype)
-    for k in range(0, len(parts), NT):
-        chunk = parts[k:k + NT]
-        acc[:len(chunk)] = acc[:len(chunk)] + chunk
-    return torch.tensor(_halving_tree(acc), device=r2.device)
+    return torch.tensor(np_fixed_order_sum(odist_partials(r2, g, pl), NT),
+                        device=r2.device)
 
 
 @functools.lru_cache(maxsize=4)

@@ -111,10 +111,10 @@ def _sweep_views(q, rhsq):
     return red, black, _ghost_pairs(*q)
 
 
-def _sweeps(q, rhsq, n_inner, factor, idx2, idy2):
+def _sweeps(q, rhsq, n_inner, factor, idx2, idy2, views=None):
     """n_inner iterations in place on the planes of q; returns the last
     iteration's r of each quarter's interior (R0, R1, B0, B1)."""
-    red, black, ghosts = _sweep_views(q, rhsq)
+    red, black, ghosts = _sweep_views(q, rhsq) if views is None else views
     rs = ()
     for _ in range(n_inner):
         rs = tuple(_upd(*v, factor, idx2, idy2) for v in red + black)
@@ -130,6 +130,35 @@ def rb_sweeps_quarters(q, rhsq, n_inner, factor, idx2, idy2):
     r0, r1, r2, r3 = _sweeps(q, rhsq, n_inner, factor, idx2, idy2)
     return (torch.sum(r0 * r0) + torch.sum(r1 * r1)
             + torch.sum(r2 * r2) + torch.sum(r3 * r3))
+
+
+# the views of the last few CPU (planes, rhs) pairs that
+# rb_sweeps_quarters_rs iterated: a solve loop alternates two planes over
+# one rhs, and forming the ~40 views anew cost more host time a call than
+# the iterations' arithmetic at the CLI's 100² grid. A cached view keeps
+# its storage alive, so no other tensor can take its address while it is
+# cached (on the card, where the plain version only checks the kernel,
+# nothing is cached).
+_VIEWS: dict = {}
+_VIEWS_KEPT = 4
+
+
+def rb_sweeps_quarters_rs(q, rhsq, n_inner, factor, idx2, idy2):
+    """rb_sweeps_quarters on a stacked plane q (4, J2, I2), in place;
+    returns the last iteration's r of each quarter's interior (R0, R1, B0,
+    B1), for a residual summed in a kernel's order."""
+    if q.device.type != "cpu":
+        return _sweeps(tuple(q.unbind(0)), tuple(rhsq.unbind(0)), n_inner,
+                       factor, idx2, idy2)
+    key = (q.data_ptr(), rhsq.data_ptr(), tuple(q.shape), q.stride(),
+           rhsq.stride(), q.dtype)
+    views = _VIEWS.get(key)
+    if views is None:
+        if len(_VIEWS) >= _VIEWS_KEPT:
+            _VIEWS.pop(next(iter(_VIEWS)))
+        views = _VIEWS[key] = _sweep_views(tuple(q.unbind(0)),
+                                           tuple(rhsq.unbind(0)))
+    return _sweeps(None, None, n_inner, factor, idx2, idy2, views)
 
 
 def rb_sweeps_quarters_r2(q, rhsq, n_inner, factor, idx2, idy2):

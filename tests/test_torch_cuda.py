@@ -1330,6 +1330,47 @@ def test_sor_class_k2_matches_plain(cuda, dtype, cls):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 20])
+@pytest.mark.parametrize("shape", [(256, 384), (62, 30), (100, 100)])
+def test_k1_one_pass_matches_plain(cuda, dtype, n, shape):
+    """K1 in one pass a call (`out=`, three chained calls, the planes
+    swapped as the solve loop swaps them; n = 20 in passes): planes and
+    residual bitwise the plain version's, q untouched, one launch a call
+    by the wrapper's count."""
+    jmax, imax = shape
+    coef = sk.sor_coefficients(1 / imax, 1 / jmax, 1.9)
+    q, f = (stack_quarters(_rand((jmax + 2, imax + 2), dtype, cuda, s))
+            for s in (61, 62))
+    qk, qp, out = q.clone(), q.clone(), torch.empty_like(q)
+    launches = sk.RB_SOR_QUARTERS.launches
+    for _ in range(3):
+        keep = qk.clone()
+        rk = sk.rb_sor_quarters(qk, f, n, *coef, out=out)
+        assert torch.equal(qk, keep)
+        qk, out = out, qk
+        rp = sk.rb_sor_quarters_plain(qp, f, n, *coef)
+        assert torch.equal(qk, qp) and torch.equal(rk, rp)
+    assert sk.RB_SOR_QUARTERS.launches == launches + 3
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_sor_class_k2_out_form_writes_every_cell(cuda, dtype):
+    """K2's class mode out of place into a block that held NaN, n = 4, 1
+    and 30 (passes): every cell written (dead cells and the lane that does
+    not solve copied), bitwise the plain version."""
+    _u, _v, p, rhs, ext, geo, _c, _dt, solving = _sor_class_batch(
+        64, dtype, cuda, 331)
+    pk, pp = p.clone(), p.clone()
+    for n in (4, 1, 30):
+        out = torch.full_like(pk, float("nan"))
+        rk = sk.rb_sor_class(pk, rhs, n, ext, geo, solving, out=out)
+        rp = sk.rb_sor_class_plain(pp, rhs, n, ext, geo, solving)
+        pk = out
+        assert torch.equal(pk, pp) and torch.equal(rk, rp)
+    assert torch.equal(pk[-1], p[-1]) and float(rk[-1]) == 0.0
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("problem", ["dcavity", "canal"])
 def test_sor_class_k3_k4_match_plain(cuda, dtype, problem):
     """K3/K4's class mode against their plain versions in the 64² class:
