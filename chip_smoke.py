@@ -231,14 +231,19 @@ The fleet's shape-class mg lane (K18, the one-launch class V-cycle)
 adds:
 
 2. K18 against its plain version, float32 and float64, three chained
-   cycles, in the 16², 64² and 256² classes, each with a full-class lane,
+   cycles, in the 16², 64², 128², 256² and 512² classes (every form of its
+   capacity rule: one CTA a lane; a cluster of 8 with the coarse levels in
+   CTA 0; the same with the fine level in device memory), each with a
+   full-class lane,
    an odd 9x13 lane (a one-level plan: the bottom sweeps run at level 0),
    a 12x12 lane whose plan stops early, a ragged lane and an inactive one:
    fields and residuals bitwise, the inactive lane passed through; 50
    class solves of one 8-lane batch of the 64² class with identical
    cycle counts and bitwise fields;
-3. K18 at bucket A's shape (256 lanes of the 64² class, float32) beside
-   its bound;
+3. K18 at bucket A's shape (256 lanes of the 64² class, float32) and
+   bucket B's (32 lanes of the 256² class, the canal lanes' extents),
+   bitwise its plain version, ms a call (CUDA events), the card's busy
+   time and its CUDA launches a call (torch.profiler), beside its bound;
 4. FleetScheduler(classes="on") on the card, float32, with the launch
    counts reset: bucket A, 256 dcavity mg requests in the 64² class
    (tools/perf_fleet.py --classes at its TPU size: imax 48 + i%17, jmax 64
@@ -439,6 +444,20 @@ launch (cls_tiled) add:
 3. K1 timed out of place, as the solve loop calls it, with its CUDA
    launches a call; class K2 timed out of place.
 
+Plain K2 in one pass a call (cb_tiled: one launch with `out=`, the
+residual per tile in an order its plain version repeats) and K18 on chip
+(the levels in shared memory, a big lane on a thread block cluster) add:
+
+2. plain K2 bitwise its plain version, field and residual, at 4096²,
+   1023x1021, 100² and 258x386, float32 and float64, n = 1..4, two
+   chained calls out of place and one in place, its CUDA launches a call
+   (torch.profiler: 1 at 4096² n = 4 and 100² n = 1 and 4), and through
+   make_rb_step_padded (tblock n = 4, fused) and the mg ladder's V-cycle
+   against the same calls with the plain version in its place; K18 in
+   every form of its capacity rule (above);
+3. plain K2 timed out of place, as the Poisson loop calls it; K18 at both
+   fleet buckets' shapes with the card's busy time.
+
 It then prints the kernels line (JSON; K5-K8 and K11/K12 at 256³, where a
 field outgrows the L2 and the bound is a floor, with their 128³ numbers
 under main_shape_* keys, K6 on chip at 128³, the distributed modes of
@@ -449,14 +468,16 @@ its last line
 
 `python3 chip_smoke.py --kernel-times [ROOT [PREFIX ...]]` times only
 K1 (4096² float32 and float64 n = 4, the 100² CLI call float64 n = 1,
-bf16 at 4096² and 100² n = 4), K2's class mode (bucket A: 256 lanes of
+bf16 at 4096² and 100² n = 4), plain K2 (4096² float32 and float64 n =
+4, float32 n = 1, the 1023x1021 CLI call float64 n = 1), K18 (the fleet's
+buckets A and B, float32), K2's class mode (bucket A: 256 lanes of
 the 64² class; bucket B: 32 lanes of the 256² class; float32 n = 4), K13,
 masked K2, K15, masked K5, K14, K16, K6 (128³ float32 n = 4,
 canal3d.par float64 n = 1, 256³ float32 n = 4) and flag K7
 (512x128x128 float32, canal3d_obstacle.par float64) of the package under
 ROOT (another checkout: run old, new, new, old in one call on the card to
 compare two), or the rows whose keys start with a PREFIX (k1_, k1bf16,
-k2c, k6, k7f, ...), and prints one JSON line.
+k2p, k18, k2c, k6, k7f, ...), and prints one JSON line.
 """
 
 import contextlib
@@ -634,8 +655,9 @@ def check_kernels(torch, np):
                 e = rel_err(xk, xp)
                 er = abs(float(rk) - float(rp)) / abs(float(rp))
                 ok = e <= t and er <= t
-                if name == "rb_sor_quarters":  # one pass a call: bitwise
-                    ok = torch.equal(xk, xp) and torch.equal(rk, rp)
+                # one pass a call, the residual in the plain version's
+                # order: bitwise
+                ok = torch.equal(xk, xp) and torch.equal(rk, rp)
                 log(f"{name} {dtype} {J}x{I}: field max_rel_err {e:.3e}, "
                     f"residual rel_err {er:.3e} (tol {t:g}) "
                     f"{'ok' if ok else 'FAIL'}")
@@ -731,6 +753,106 @@ def check_k1(torch, np):
             torch.cuda.empty_cache()
     if bad:
         raise AssertionError(f"K1 disagrees with its plain version: {bad}")
+
+
+@phase("plain K2 vs its plain version, bitwise: 4096², 1023x1021, 100² "
+       "and 258x386, float32 and float64, n = 1..4, out of place and in "
+       "place; through make_rb_step_padded and the mg ladder's smoother; "
+       "its CUDA launches a call")
+def check_k2(torch, np):
+    """Plain K2 (one pass through registers and shared memory a call)
+    against its plain version: field and residual bitwise, two chained
+    calls as the Poisson loop makes them (`out=`, the fields swapped),
+    then one in place; make_rb_step_padded (tblock n = 4, fused) and the
+    mg ladder's V-cycle (tpu_mg_fused off, 1024² float32) on the card
+    against the same calls with the plain version in K2's place; one CUDA
+    launch a call with `out=` at 4096² n = 4 and 100² n = 1
+    (torch.profiler's trace)."""
+    from pampi_tpu_torch.models import poisson as mp
+    from pampi_tpu_torch.ops import multigrid as mgm
+    from pampi_tpu_torch.ops import sor_kernels as sk
+
+    bad = []
+    for dtype in (torch.float32, torch.float64):
+        for J, I in ((4096, 4096), (1023, 1021), (100, 100), (258, 386)):
+            coef = sk.sor_coefficients(1.0 / I, 1.0 / J, 1.9)
+            p, rhs = rng_fields(torch, np, (J + 2, I + 2), dtype, 2, 17)
+            for n in (1, 2, 3, 4):
+                pk, pp, out = p.clone(), p.clone(), torch.empty_like(p)
+                same = True
+                for _ in range(2):
+                    keep = pk.clone()
+                    rk = sk.rb_sor_checkerboard(pk, rhs, n, *coef, out=out)
+                    same = same and torch.equal(pk, keep)
+                    pk, out = out, pk
+                    rp = sk.rb_sor_checkerboard_plain(pp, rhs, n, *coef)
+                    same = (same and torch.equal(pk, pp)
+                            and torch.equal(rk, rp))
+                ri = sk.rb_sor_checkerboard(pk, rhs, n, *coef)
+                rp = sk.rb_sor_checkerboard_plain(pp, rhs, n, *coef)
+                same = same and torch.equal(pk, pp) and torch.equal(ri, rp)
+                log(f"rb_sor_checkerboard {dtype} {J}x{I} n={n}: field and "
+                    f"residual bitwise {same} {'ok' if same else 'FAIL'}")
+                if not same:
+                    bad.append(f"{dtype} {J}x{I} n={n}")
+                del pk, pp, out
+            if J in (4096, 100):
+                out = torch.empty_like(p)
+                for m in ((4,) if J == 4096 else (1, 4)):
+                    n_dev = cuda_launches(torch, lambda: sk.rb_sor_checkerboard(
+                        p, rhs, m, *coef, out=out))
+                    log(f"rb_sor_checkerboard {dtype} {J}x{I} n={m}: "
+                        f"{launches_text(n_dev)} CUDA launches a call "
+                        f"(torch.profiler)")
+                    if n_dev is not None and n_dev != 1:
+                        bad.append(f"{dtype} {J}x{I} n={m}: {n_dev} launches")
+                del out
+            del p, rhs
+            torch.cuda.empty_cache()
+    # the in-place callers: make_rb_step_padded and the ladder's smoother
+    J, I = 1023, 1021
+    dtype = torch.float32
+    p, rhs = rng_fields(torch, np, (J + 2, I + 2), dtype, 2, 19)
+    for kernel, n in (("tblock", 4), ("fused", 1)):
+        step, pad, _ = mp.make_rb_step_padded(I, J, 1.0 / I, 1.0 / J, 1.9,
+                                              dtype, kernel=kernel,
+                                              n_inner=n, device="cuda")
+        x, ref = pad(p), p.clone()
+        norm = torch.full((), float(I * J), dtype=dtype, device="cuda")
+        same = True
+        for _ in range(3):
+            x, res = step(x, rhs)
+            r = sk.rb_sor_checkerboard_plain(
+                ref, rhs, n, *sk.sor_coefficients(1.0 / I, 1.0 / J, 1.9))
+            same = same and torch.equal(x, ref) and torch.equal(res, r / norm)
+        log(f"make_rb_step_padded kernel={kernel} {J}x{I} f32, 3 steps: "
+            f"field and residual bitwise the plain K2's {same} "
+            f"{'ok' if same else 'FAIL'}")
+        if not same:
+            bad.append(f"make_rb_step_padded {kernel}")
+    J = I = 1024
+    p, rhs = rng_fields(torch, np, (J + 2, I + 2), dtype, 2, 23)
+    vcycle = mgm.make_mg_vcycle_2d(I, J, 1.0 / I, 1.0 / J, dtype,
+                                   fused="off", device="cuda")
+    before = sk.RB_SOR_CHECKERBOARD.launches
+    got = vcycle(p.clone(), rhs)
+    calls = sk.RB_SOR_CHECKERBOARD.launches - before
+
+    def plain_inplace(x, f, n, factor, idx2, idy2):
+        return sk.rb_sor_checkerboard_plain(x, f, n, factor, idx2, idy2)
+
+    with mock.patch.object(mgm, "rb_sor_checkerboard", plain_inplace):
+        want = mgm.make_mg_vcycle_2d(I, J, 1.0 / I, 1.0 / J, dtype,
+                                     fused="off", device="cuda")(p.clone(),
+                                                                 rhs)
+    same = torch.equal(got, want) and calls > 0
+    log(f"mg ladder V-cycle 1024² f32 (tpu_mg_fused off): {calls} K2 calls, "
+        f"field bitwise the ladder with the plain K2 {torch.equal(got, want)}"
+        f" {'ok' if same else 'FAIL'}")
+    if not same:
+        bad.append("mg ladder")
+    if bad:
+        raise AssertionError(f"K2 disagrees with its plain version: {bad}")
 
 
 CASES_3D = (("dcavity3d", {}),
@@ -1004,31 +1126,27 @@ def time_kernels(torch, np):
 
     # SOR: p and rhs read once, p written once; ~12 flops per update
     sor_bound = bound(3 * cells * size, 12 * n_inner * interior)
-    qout = torch.empty_like(q)
+    qout, pout = torch.empty_like(q), torch.empty_like(p)
 
-    def k1(x, r, n, *c):  # as the solve loop calls it: out of place
+    # as the solve loops call them: out of place
+    def k1(x, r, n, *c):
         return sk.rb_sor_quarters(x, r, n, *c, out=qout)
 
-    for name, kern, plain, x, r in (
-            ("rb_sor_quarters", k1, sk.rb_sor_quarters_plain, q, f),
-            ("rb_sor_checkerboard", sk.rb_sor_checkerboard,
-             sk.rb_sor_checkerboard_plain, p, rhs)):
-        xk, xp = x.clone(), x.clone()
-        rk = kern(xk, r, n_inner, fac, idx2, idy2)
+    def k2(x, r, n, *c):
+        return sk.rb_sor_checkerboard(x, r, n, *c, out=pout)
+
+    for name, kern, plain, x, r, new in (
+            ("rb_sor_quarters", k1, sk.rb_sor_quarters_plain, q, f, qout),
+            ("rb_sor_checkerboard", k2, sk.rb_sor_checkerboard_plain, p, rhs,
+             pout)):
+        xp = x.clone()
+        rk = kern(x, r, n_inner, fac, idx2, idy2)
         rp = plain(xp, r, n_inner, fac, idx2, idy2)
-        if name == "rb_sor_quarters":
-            xk = qout  # the new planes
-        err = float((xk - xp).abs().max())
-        e, er = rel_err(xk, xp), abs(float(rk) - float(rp)) / abs(float(rp))
-        if name == "rb_sor_quarters":
-            verdict(name, torch.equal(xk, xp) and torch.equal(rk, rp),
-                    f"planes bitwise {torch.equal(xk, xp)}, residual bitwise "
-                    f"{torch.equal(rk, rp)}")
-        else:
-            verdict(name, e <= t and er <= t,
-                    f"field max_rel_err {e:.3e}, residual rel_err {er:.3e} "
-                    f"(tol {t:g})")
-        src = x if name == "rb_sor_quarters" else xk
+        err = float((new - xp).abs().max())
+        verdict(name, torch.equal(new, xp) and torch.equal(rk, rp),
+                f"field bitwise {torch.equal(new, xp)}, residual bitwise "
+                f"{torch.equal(rk, rp)}")
+        src = x
         ms = cuda_ms(torch, lambda: kern(src, r, n_inner, fac, idx2, idy2),
                      20)
         pms = cuda_ms(torch, lambda: plain(xp, r, n_inner, fac, idx2, idy2), 5)
@@ -4683,7 +4801,7 @@ def kernel_times(root, only=()) -> int:
     wrapper takes it): device ms a call (CUDA events over back-to-back
     calls) and CUDA launches a call (torch.profiler's trace). With
     PREFIXes, only the rows whose keys start with one of them (k1_,
-    k1bf16, k2c, k13, k2_, k15, k5m, k14, k16, k6, k7f). Prints the card and one JSON line. Run
+    k1bf16, k2p, k18, k2c, k13, k2_, k15, k5m, k14, k16, k6, k7f). Prints the card and one JSON line. Run
     it for two checkouts in one call on the card, in the order old, new,
     new, old, to compare them."""
     import inspect
@@ -4769,6 +4887,47 @@ def kernel_times(root, only=()) -> int:
                           reps, f"{imax}x{jmax} quarters {tuple(x.shape)}, "
                           f"n={n}, {dtype}"), "bound_ms": b}
         del x, f, y
+    for key, (jmax, imax), dtype, n, reps in (
+            ("k2p_4096_f32_n4", MAIN, f32, 4, 50),
+            ("k2p_4096_f64_n4", MAIN, f64, 4, 20),
+            ("k2p_4096_f32_n1", MAIN, f32, 1, 50),
+            ("k2p_1023x1021_f64_n1", (1021, 1023), f64, 1, 200)):
+        if not want(key):
+            continue
+        coef = sk.sor_coefficients(1.0 / imax, 1.0 / jmax, 1.9)
+        x, f, y = rng_fields(torch, np, (jmax + 2, imax + 2), dtype, 3, 15)
+        # as that checkout's Poisson loop calls it: out of place in the
+        # one-pass design, else in place
+        kw = {"out": y} if hasattr(sk, "checkerboard_launch_plan") else {}
+        call = [lambda: sk.rb_sor_checkerboard(x, f, n, *coef, **kw)]
+        n_dev, busy = device_trace(torch, call[0])
+        out[key] = {**row(call, reps, f"{imax}x{jmax} field, n={n}, "
+                          f"{dtype}"),
+                    "device_busy_ms": busy,
+                    "bound_ms": bound(3 * x.numel() * x.element_size(),
+                                      0)[0]}
+        del x, f, y
+    for key, cls, lanes, reps in (
+            ("k18_A_64_f32", 64, fleet_lanes_a(), 100),
+            ("k18_B_256_f32", 256, fleet_lanes_b(), 50)):
+        if not want(key):
+            continue
+        from pampi_tpu_torch.ops import mg_fused as mf
+
+        p, rhs, ext, geo, act = class_inputs(torch, np, cls, lanes, f32, 511)
+        work = torch.empty(len(lanes) * mf.class_work_cells(cls, cls,
+                                                            ext.shape[1]),
+                           dtype=f32, device=CARD)
+        call = [lambda: mf.class_cycle(p, rhs, ext, geo, act, work=work)]
+        n_dev, busy = device_trace(torch, call[0])
+        if not n_dev:  # a cluster launch the trace missed: not measured
+            busy = None
+        nbytes = sum(class_work(rows, 4)[0] for rows in ext.tolist())
+        out[key] = {**row(call, reps, f"{len(lanes)} lanes of the {cls}² "
+                          f"class, float32"),
+                    "device_busy_ms": busy,
+                    "bound_ms": bound(nbytes, 0)[0]}
+        del p, rhs, work
     for key, cls, lanes, reps in (
             ("k2c_A_64_f32_n4", 64, fleet_lanes_a(), 200),
             ("k2c_B_256_f32_n4", 256, [(256, 256)] * FLEET_B, 50)):
@@ -5664,7 +5823,10 @@ def ragged3d_cli(np):
 # ----------------------------------------------------------------------
 
 CARD = "cuda"          # where the fleet phases run
-CLASS_CHECK = (16, 64, 256)
+# the classes K18 is held against its plain version in: one CTA (16², 64²,
+# 128² at float32), a cluster with CTA 0's levels (128² at float64, 256²),
+# a cluster with the fine level in device memory (512²)
+CLASS_CHECK = (16, 64, 128, 256, 512)
 FLEET_A = 256          # bucket A: dcavity mg requests in the 64² class
 FLEET_B = 32           # bucket B: canal mg requests in the 256² class
 FLEET_B_STEPS = 20     # each bucket-B lane's te is ~this many first steps
@@ -5717,10 +5879,12 @@ def fleet_lanes_a():
     return [(64 - i % 17, 48 + i % 17) for i in range(FLEET_A)]
 
 
-@phase("class V-cycle kernel K18 vs its plain version (16², 64², 256², "
-       "float32/float64) and 50 repeated class solves")
+@phase("class V-cycle kernel K18 vs its plain version (16², 64², 128², "
+       "256², 512², float32/float64: every form of its capacity rule) and "
+       "50 repeated class solves")
 def check_class_kernel(torch, np):
     from pampi_tpu_torch.fleet import shapeclass as sc
+    from pampi_tpu_torch.ops import mg_fused as mf
     from pampi_tpu_torch.utils.params import Parameter
 
     bad = []
@@ -5737,10 +5901,12 @@ def check_class_kernel(torch, np):
             passed = (torch.equal(pk[4], inputs[0][4])
                       and float(rk[4]) == 0.0)
             ok = same and passed
-            log(f"mg_class_cycle_2d {cls}² {dtype}, lanes {lanes[:4]} + an "
-                f"inactive one, 3 chained cycles: fields and rsq bitwise "
-                f"{same}, max_abs_err {err:.3e}, inactive lane passed "
-                f"{passed} {'ok' if ok else 'FAIL'}")
+            form = mf.class_cycle_form(cls, cls, inputs[0].element_size())
+            log(f"mg_class_cycle_2d {cls}² {dtype} (form: {form.name}, "
+                f"{form.smem} bytes of shared memory a CTA), lanes "
+                f"{lanes[:4]} + an inactive one, 3 chained cycles: fields "
+                f"and rsq bitwise {same}, max_abs_err {err:.3e}, inactive "
+                f"lane passed {passed} {'ok' if ok else 'FAIL'}")
             if not ok:
                 bad.append(f"{cls} {dtype}")
     # 50 class solves of one batch (8 lanes of the 64² class, f32)
@@ -5790,42 +5956,77 @@ def class_work(ext_rows, size, n_pre=2, n_post=2, n_bottom=8):
     return nbytes, ops
 
 
-@phase("K18 at the fleet main path's shape (bucket A: 256 lanes of the 64² "
-       "class, float32) and its time beside the bound")
+def fleet_lanes_b():
+    """Bucket B's (jmax, imax): the canal requests of fleet_requests,
+    jmax = 160 + 3i, imax = 256 - 2i."""
+    return [(160 + 3 * i, 256 - 2 * i) for i in range(FLEET_B)]
+
+
+@phase("K18 at the fleet main path's shapes (bucket A: 256 lanes of the 64² "
+       "class; bucket B: 32 lanes of the 256² class; float32), its time "
+       "(CUDA events) and the card's busy time (torch.profiler) beside the "
+       "bound")
 def time_class_kernel(torch, np):
     from pampi_tpu_torch.ops import mg_fused as mf
 
     dtype = torch.float32
-    lanes = fleet_lanes_a()
-    inputs = class_inputs(torch, np, 64, lanes, dtype, 511)
-    same, err, _pk, _rk = check_class(torch, inputs, calls=1)
-    if not same:
-        raise AssertionError("K18 differs from its plain version at bucket "
-                             "A's shape")
-    p, rhs, ext, geo, act = inputs
-    work = torch.empty(len(lanes) * mf.class_work_cells(64, 64,
-                                                        ext.shape[1]),
-                       dtype=dtype, device=CARD)
-    ms = cuda_ms(torch, lambda: mf.class_cycle(p, rhs, ext, geo, act,
-                                               work=work), 20)
-    pms = cuda_ms(torch, lambda: mf.class_cycle_plain(p, rhs, ext, geo,
-                                                      act), 1)
-    nbytes = ops = 0
-    for rows in ext.tolist():
-        b, o = class_work(rows, 4)
-        nbytes, ops = nbytes + b, ops + o
-    b = bound(nbytes, ops)
-    shape = (f"256 lanes of the 64² class f32 (imax 48..64, jmax 48..64), "
-             f"one V-cycle each")
-    log(f"mg_class_cycle_2d {shape}: {ms:.4f} ms per call (plain {pms:.4f}),"
-        f" bound {b[0]:.5f} ms by {b[1]} (bytes {nbytes / 1e6:.2f} MB over "
-        f"3.35 TB/s = {nbytes / HBM_BYTES_PER_S * 1e3:.5f} ms; operations "
-        f"{ops / 1e6:.1f} M over 67 TFLOP/s = {ops / FP32_FLOPS * 1e3:.5f} "
-        f"ms); bitwise its plain version")
-    return {"mg_class_cycle_2d": dict(
-        max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1],
-        bound_bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-        bound_operations_ms=ops / FP32_FLOPS * 1e3, shape=shape)}
+    out = {}
+    for bucket, cls, lanes in (("A", 64, fleet_lanes_a()),
+                               ("B", 256, fleet_lanes_b())):
+        inputs = class_inputs(torch, np, cls, lanes, dtype, 511)
+        same, err, _pk, _rk = check_class(torch, inputs, calls=1)
+        if not same:
+            raise AssertionError(f"K18 differs from its plain version at "
+                                 f"bucket {bucket}'s shape")
+        p, rhs, ext, geo, act = inputs
+        work = torch.empty(len(lanes) * mf.class_work_cells(cls, cls,
+                                                            ext.shape[1]),
+                           dtype=dtype, device=CARD)
+        call = lambda: mf.class_cycle(p, rhs, ext, geo, act,  # noqa: E731
+                                      work=work)
+        ms = cuda_ms(torch, call, 20)
+        n_dev, busy = device_trace(torch, call)
+        if not n_dev:
+            # the trace has been seen to miss a cluster launch's kernel
+            # record: the count and the busy time are then not measured
+            n_dev = busy = None
+        pms = cuda_ms(torch, lambda: mf.class_cycle_plain(p, rhs, ext, geo,
+                                                          act), 1)
+        nbytes = ops = 0
+        for rows in ext.tolist():
+            b, o = class_work(rows, 4)
+            nbytes, ops = nbytes + b, ops + o
+        b = bound(nbytes, ops)
+        form = mf.class_cycle_form(cls, cls, 4)
+        shape = (f"{len(lanes)} lanes of the {cls}² class f32 (jmax "
+                 f"{min(j for j, _ in lanes)}..{max(j for j, _ in lanes)}, "
+                 f"imax {min(i for _, i in lanes)}.."
+                 f"{max(i for _, i in lanes)}), one V-cycle each")
+        log(f"mg_class_cycle_2d bucket {bucket}, {shape}, form {form.name}: "
+            f"{ms:.4f} ms per call (CUDA events), the card busy "
+            f"{busy if busy is None else round(busy, 4)} ms in "
+            f"{launches_text(n_dev)} CUDA launches (torch.profiler), plain "
+            f"{pms:.4f}; bound {b[0]:.5f} ms by {b[1]} (bytes "
+            f"{nbytes / 1e6:.2f} MB over 3.35 TB/s = "
+            f"{nbytes / HBM_BYTES_PER_S * 1e3:.5f} ms; operations "
+            f"{ops / 1e6:.1f} M over 67 TFLOP/s = "
+            f"{ops / FP32_FLOPS * 1e3:.5f} ms); bitwise its plain version")
+        if n_dev is not None and n_dev != 1:
+            raise AssertionError(f"K18 bucket {bucket}: {n_dev} CUDA "
+                                 f"launches a call")
+        if bucket == "A":
+            out = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0],
+                       bound_by=b[1], busy_ms=busy,
+                       bound_bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                       bound_operations_ms=ops / FP32_FLOPS * 1e3,
+                       shape=shape, form=form.name)
+        else:
+            out.update(bucket_b_ms=ms, bucket_b_busy_ms=busy,
+                       bucket_b_plain_ms=pms, bucket_b_bound_ms=b[0],
+                       bucket_b_bound_by=b[1], bucket_b_max_abs_err=err,
+                       bucket_b_shape=shape, bucket_b_form=form.name)
+        del inputs, p, rhs, work
+    return {"mg_class_cycle_2d": out}
 
 
 def fleet_requests(torch, sid0="", solver="mg"):
@@ -7677,6 +7878,7 @@ def main() -> int:
     if not FAILED:
         check_kernels(torch, np)
         check_k1(torch, np)
+        check_k2(torch, np)
         check_kernels_3d(torch, np)
         check_k6_onchip(torch, np)
         check_mg_kernels(torch, np)

@@ -168,9 +168,67 @@ def build_ns_solver(param: Parameter, device, announce: bool = False):
     return NS2DSolver(param, device=device)
 
 
+_NS_NAMES = ("dcavity", "canal", "canal_obstacle", "dcavity3d", "canal3d")
+
+
+def check_knobs(param: Parameter, ns: bool) -> None:
+    """The execution knobs' ranges, refused with the JAX package's own
+    error lines (pampi_tpu/cli._dispatch; for the NS problems also
+    utils/dispatch.resolve_fuse_phases and resolve_chunk_fuse), before any
+    field is built. A K-step fused chunk (`tpu_chunk_fuse on` or a K >= 2),
+    which the JAX package runs, is not ported and is refused too, naming
+    its ROADMAP item."""
+    if param.tpu_chunk < 0 or param.tpu_lookahead < 0:
+        raise ValueError(
+            "tpu_chunk and tpu_lookahead must be >= 0 "
+            f"(got {param.tpu_chunk}, {param.tpu_lookahead})")
+    if (param.tpu_recover_ring < 0 or param.tpu_recover_max < 1
+            or not 0.0 < param.tpu_recover_dt_scale <= 1.0
+            or param.tpu_retry_replenish < 0):
+        raise ValueError(
+            "recovery knobs out of range — need tpu_recover_ring >= 0, "
+            "tpu_recover_max >= 1, 0 < tpu_recover_dt_scale <= 1, "
+            "tpu_retry_replenish >= 0 (got "
+            f"{param.tpu_recover_ring}, {param.tpu_recover_max}, "
+            f"{param.tpu_recover_dt_scale}, {param.tpu_retry_replenish})")
+    if (param.tpu_coord not in ("auto", "on", "off")
+            or param.tpu_ckpt_elastic not in (0, 1)):
+        raise ValueError(
+            "tpu_coord must be auto|on|off and tpu_ckpt_elastic 0|1 (got "
+            f"{param.tpu_coord!r}, {param.tpu_ckpt_elastic})")
+    if param.tpu_coord_timeout < 0 or param.tpu_dead_resume not in (0, 1):
+        raise ValueError(
+            "tpu_coord_timeout must be >= 0 (seconds; 0 disables the "
+            "boundary watchdog) and tpu_dead_resume 0|1 (got "
+            f"{param.tpu_coord_timeout}, {param.tpu_dead_resume})")
+    if not ns:
+        # the JAX package's Poisson solve reads neither knob
+        return
+    if param.tpu_fuse_phases not in ("auto", "on", "off"):
+        raise ValueError(f"tpu_fuse_phases must be auto|on|off, got "
+                         f"{param.tpu_fuse_phases!r}")
+    knob = param.tpu_chunk_fuse
+    if knob in ("auto", "off"):
+        return
+    if knob != "on":
+        try:
+            k = int(knob)
+        except ValueError:
+            raise ValueError(f"tpu_chunk_fuse must be auto|on|off|<int>, "
+                             f"got {knob!r}") from None
+        if k < 1:
+            raise ValueError(f"tpu_chunk_fuse K must be >= 1, got {k}")
+        if k == 1:
+            return
+    raise NotImplementedError(
+        f"tpu_chunk_fuse {knob}: the K-step fused chunk is not yet ported "
+        "(ROADMAP A.8, item 6.2)")
+
+
 def _dispatch(param: Parameter, device: str) -> int:
     from .utils.device import visible_devices
 
+    check_knobs(param, ns=param.name in _NS_NAMES)
     if param.name.startswith("poisson"):
         from .models.poisson import PoissonSolver
 
@@ -193,8 +251,7 @@ def _dispatch(param: Parameter, device: str) -> int:
         solver.write_result("p.dat")
         print("Walltime %.2fs" % (end - start))
         return 0
-    if param.name in ("dcavity", "canal", "canal_obstacle", "dcavity3d",
-                      "canal3d"):
+    if param.name in _NS_NAMES:
         three_d = is_3d_config(param)
         solver = build_ns_solver(param, device, announce=True)
         start = get_timestamp()

@@ -20,15 +20,39 @@
 // reads one colour's neighbours and rhs and writes that colour, so each of
 // its iterations moves about 2.5 field-sizes.
 //
-// Plain K2 (and K17) keep the first design: a TPU grid runs its steps in
-// order and carries the residual across them in SMEM; CUDA blocks run in
-// no order, so every ordering point becomes a launch boundary. Per
-// iteration: one launch per colour (in place; within a colour every cell
-// reads only the other colour, so there is no hazard), then one Neumann
-// launch. On the last iteration each block writes its partial sum of r^2
-// (a fixed-order shared-memory tree), and a one-block launch sums the
-// partials in a fixed order. No float atomics: the residual, and so every
-// iteration count, is reproducible run to run.
+// Plain K2 (cb_tiled) carries K1's design to the natural layout: all n
+// iterations of a call in one pass, one launch, out of place (the Poisson
+// loop swaps two fields). The field is cut into owned tiles (th, tw) from
+// its corner, the ghost ring included; a CTA's box is the tile and a halo
+// of 2n + 1 grid cells a side (each half-sweep carries a stale or clamped
+// value one cell further in; a wall ghost, written at the end from its
+// interior neighbour, reads one further: tests/test_torch_k18_k2_tiles.py
+// shows 2n + 1 enough and 2n not). A thread owns one column of the box
+// and QK consecutive rows of it, its red cells and its black cells of p
+// and of rhs in registers: a cell's N and S neighbours are its own (the
+// ends of the run read the next runs' from shared memory) and W and E
+// come from shared memory, where each thread publishes its cells after
+// each colour; a pass of n iterations is red, publish, barrier, black,
+// publish, barrier. The Neumann ghost copy is folded into the reads: from
+// the second iteration of a pass on a wall ghost holds its interior
+// neighbour's value, which is the reading cell's own, so a cell next to a
+// wall reads itself there, and the ghosts go out once, from their
+// neighbours' final values; corners are never touched. A box inside the
+// interior drops the per-cell predicates. The CTA: 64 columns by 4 runs
+// of 24 rows at float32 (of 16 at float64), 256 threads, two CTAs an SM.
+// Each thread adds its owned r^2 of the last iteration in its update
+// order (red cells down its run, then black), a fixed tree over the CTA
+// gives the tile's partial, and the last CTA to take a ticket adds the
+// partials in tile order (ticket_sum); ops/sor_kernels.checkerboard_
+// residual repeats that order, so kernel and plain version agree bitwise,
+// residual included. A call too deep for one pass (the tile keeping half
+// the box each way) runs several. Bound: p and rhs read and p written
+// once, 12 bytes a cell at float32 (0.060 ms at 4096^2); the halo adds
+// (box / tile - 1) of reads (0.71 at float32, n = 4), the sweeps' issue
+// rate the rest. TMA cannot take these boxes: a field row of 4098 floats
+// is 16,392 bytes, a multiple of 16, but the odd grids' rows (1023 + 2
+// floats, 4,100 bytes; 1021 + 2 doubles) are not; the plain 16-byte-
+// aligned loads were not tried (PERF.md).
 //
 // K1 (q_tiled) runs all n iterations of a call in one pass, one launch,
 // out of place (the solve loop swaps two planes). The plane is cut into
@@ -146,58 +170,14 @@
 
 namespace {
 
-constexpr int BX = 32;
-constexpr int BY = 8;
-constexpr int NT = BX * BY;
 constexpr int FIN = 1024;
 constexpr int BAND = 8;    // K17: rows a CTA owns
 constexpr int TILE = 256;  // K17: columns of a tile, one thread each
 
 template <typename T>
-__device__ T block_sum(T v, T* sh) {
-  const int tid = threadIdx.y * BX + threadIdx.x;
-  sh[tid] = v;
-  __syncthreads();
-  for (int s = NT / 2; s > 0; s >>= 1) {
-    if (tid < s) sh[tid] += sh[tid + s];
-    __syncthreads();
-  }
-  return sh[0];
-}
-
-template <typename T>
 __device__ __forceinline__ T resid(T c, T rhs, T w, T e, T s, T n, T idx2,
                                    T idy2) {
   return rhs - ((e - T(2) * c + w) * idx2 + (n - T(2) * c + s) * idy2);
-}
-
-// one colour of the checkerboard, in place: cells (i+j)%2 == color,
-// 1 <= i <= I, 1 <= j <= J; thread (t, row) takes the t-th cell of its row
-template <typename T>
-__global__ void cb_color(T* __restrict__ p, const T* __restrict__ rhs, int J,
-                         int I, int color, T factor, T idx2, T idy2,
-                         T* __restrict__ partial) {
-  __shared__ T sh[NT];
-  const int W = I + 2;
-  const int j = 1 + blockIdx.y * BY + threadIdx.y;
-  const int t = blockIdx.x * BX + threadIdx.x;
-  T rr = T(0);
-  if (j <= J) {
-    const int i = (((1 + j) & 1) == color ? 1 : 2) + 2 * t;
-    if (i <= I) {
-      const size_t k = (size_t)j * W + i;
-      const T c = p[k];
-      const T r = resid(c, rhs[k], p[k - 1], p[k + 1], p[k - W], p[k + W],
-                        idx2, idy2);
-      p[k] = c - factor * r;
-      rr = r * r;
-    }
-  }
-  if (partial != nullptr) {
-    const T s = block_sum(rr, sh);
-    if (threadIdx.x == 0 && threadIdx.y == 0)
-      partial[blockIdx.y * gridDim.x + blockIdx.x] = s;
-  }
 }
 
 // ghost copy on the four walls, corners untouched; the rows read are
@@ -275,32 +255,6 @@ __global__ void sum_partials(const T* __restrict__ partial, int n,
     __syncthreads();
   }
   if (threadIdx.x == 0) out[0] = sh[0];
-}
-
-dim3 cb_grid(int J, int I) {
-  return dim3(((I + 1) / 2 + BX - 1) / BX, (J + BY - 1) / BY);
-}
-
-template <typename T>
-int run_checkerboard(int dev, T* p, const T* rhs, int J, int I, int n_inner,
-                     double factor, double idx2, double idy2, T* partial,
-                     T* out, cudaStream_t st) {
-  cudaError_t e = cudaSetDevice(dev);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grd = cb_grid(J, I);
-  const dim3 blk(BX, BY);
-  const int nb = grd.x * grd.y;
-  const int nn = ((I > J ? I : J) + 255) / 256;
-  for (int t = 0; t < n_inner; ++t) {
-    const bool last = t == n_inner - 1;
-    cb_color<T><<<grd, blk, 0, st>>>(p, rhs, J, I, 0, T(factor), T(idx2),
-                                     T(idy2), last ? partial : nullptr);
-    cb_color<T><<<grd, blk, 0, st>>>(p, rhs, J, I, 1, T(factor), T(idx2),
-                                     T(idy2), last ? partial + nb : nullptr);
-    cb_neumann<T><<<nn, 256, 0, st>>>(p, J, I);
-  }
-  sum_partials<T><<<1, FIN, 0, st>>>(partial, 2 * nb, out);
-  return (int)cudaGetLastError();
 }
 
 int blk_bands(int J) { return (J + 2 + BAND - 1) / BAND; }
@@ -609,6 +563,232 @@ int run_q_tiled(int dev, const T* q, const T* f, T* out, const int* geo,
   return (int)cudaErrorInvalidValue;
 }
 
+// -- K2: the natural (J+2, I+2) field, a pass in registers and shared memory
+
+// K2's pass of `iters` iterations over owned tiles (th, tw) of the field;
+// the box of a tile is QS*QK rows by QW columns from (j0 - ht, i0 - ht),
+// ht = 2 iters + 1 (each half-sweep carries a stale value one cell in, a
+// wall ghost reads one further), not clipped (its cells off the field hold 0 and never update).
+// Thread (tx, ty) = (tid % QW, tid / QW) holds column tx, rows ty*QK ..
+// ty*QK + QK - 1 of the box in registers, p and rhs, as its red cells
+// A[m] (run row 2m + par) and black cells B[m] (run row 2m + 1 - par),
+// par the parity of its first cell; a cell's N and S neighbours are its
+// own (the ends of the run read the next runs' from shared memory), W and
+// E come from shared memory, where each thread publishes its cells after
+// each colour. Per iteration: red, publish, a barrier; black, publish, a
+// barrier. The Neumann ghost copy is folded into the reads: from the
+// second iteration of a pass on, a wall ghost holds its interior
+// neighbour's value, which is the reading cell's own, so an interior cell
+// next to a wall reads itself there, and the ghosts are written once, at
+// the end, from their neighbours' final values; the corners are never
+// touched. A box inside the field's interior (rows 1..J, columns 1..I)
+// drops the per-cell predicates: its ring cells update from clamped
+// offsets, wrong only where staleness already is.
+template <typename T, int QW, int QS, int QK, int MINB>
+__global__ void __launch_bounds__(QW * QS, MINB)
+cb_tiled(const T* __restrict__ p, const T* __restrict__ f,
+         T* __restrict__ out, int J, int I, int iters, int th, int tw,
+         T factor, T idx2, T idy2, T* __restrict__ partial,
+         unsigned* __restrict__ ticket, T* __restrict__ res) {
+  constexpr int NTH = QW * QS, R = QS * QK, M = QK / 2;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* sp = reinterpret_cast<T*>(smem);
+  const int tid = threadIdx.x, tx = tid % QW, ty = tid / QW;
+  const int ht = 2 * iters + 1;
+  const int gc = blockIdx.x * tw - ht + tx;  // the thread's field column
+  const int a0 = ty * QK;                    // box row of its first cell
+  const int gr0 = blockIdx.y * th - ht + a0;
+  const size_t W = (size_t)I + 2;
+  const int par = (gr0 + gc) & 1;
+  T A[M], B[M], FA[M], FB[M];
+  // bit m: red cell m (black cell m) lies in the field's interior rows,
+  // in the tile's rows
+  unsigned rin_a = 0u, rin_b = 0u, own_a = 0u, own_b = 0u;
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    T v[2], g[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gr = gr0 + 2 * m + h;
+      v[h] = g[h] = T(0);
+      if (gr >= 0 && gr <= J + 1 && gc >= 0 && gc <= I + 1) {
+        const size_t x = (size_t)gr * W + gc;
+        v[h] = p[x];
+        g[h] = f[x];
+      }
+    }
+    A[m] = par ? v[1] : v[0];
+    B[m] = par ? v[0] : v[1];
+    FA[m] = par ? g[1] : g[0];
+    FB[m] = par ? g[0] : g[1];
+    const int ka = 2 * m + par, kb = 2 * m + 1 - par;
+    const int ra = gr0 + ka, rb = gr0 + kb;
+    if (ra >= 1 && ra <= J) rin_a |= 1u << m;
+    if (rb >= 1 && rb <= J) rin_b |= 1u << m;
+    if (a0 + ka >= ht && a0 + ka < ht + th && ra <= J + 1) own_a |= 1u << m;
+    if (a0 + kb >= ht && a0 + kb < ht + th && rb <= J + 1) own_b |= 1u << m;
+  }
+  const bool cin = gc >= 1 && gc <= I;
+  const bool cown = tx >= ht && tx < ht + tw && gc <= I + 1;
+  const bool gw = gc == 1, ge = gc == I;  // W (E) neighbour a wall ghost
+  const int ks = 1 - gr0, kn = J - gr0;   // run rows of field rows 1, J
+  const int br0 = blockIdx.y * th - ht, bc0 = blockIdx.x * tw - ht;
+  const bool inner = br0 >= 1 && br0 + R <= J + 1 && bc0 >= 1 &&
+                     bc0 + QW <= I + 1;
+  const int x0 = a0 * QW + tx;
+  const int xa = x0 + par * QW, xb = x0 + (1 - par) * QW;
+  // neighbours across the box's columns and the runs' ends (clamped where
+  // they leave the box: those cells' values never reach the tile)
+  const int dw = tx > 0 ? -1 : 0, de = tx < QW - 1 ? 1 : 0;
+  const int ds = a0 > 0 ? -QW : 0, dn = a0 + QK < R ? QW : 0;
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    sp[xa + 2 * m * QW] = A[m];
+    sp[xb + 2 * m * QW] = B[m];
+  }
+  __syncthreads();
+  T acc = T(0);
+  // one iteration; FIRST reads the loaded wall ghosts, later ones the
+  // reading cell (the folded Neumann copy); LAST adds the owned r^2 in the
+  // thread's update order (red A[0..M), then black B[0..M)); EDGE: the
+  // CTA's box holds a wall ghost or cells off the field
+  const auto iteration = [&](bool first, auto last_tag, auto edge_tag) {
+    constexpr bool LAST = decltype(last_tag)::value;
+    constexpr bool EDGE = decltype(edge_tag)::value;
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      const int x = xa + 2 * m * QW;
+      const T c = A[m];
+      T s = par ? B[m] : (m > 0 ? B[m > 0 ? m - 1 : 0] : sp[x + ds]);
+      T n = par ? (m < M - 1 ? B[m < M - 1 ? m + 1 : m] : sp[x + dn]) : B[m];
+      T w = sp[x + dw], e = sp[x + de];
+      bool u = true;
+      if (EDGE) {
+        const int k = 2 * m + par;
+        if (!first) {
+          w = gw ? c : w;
+          e = ge ? c : e;
+          s = k == ks ? c : s;
+          n = k == kn ? c : n;
+        }
+        u = cin && ((rin_a >> m) & 1u);
+      }
+      const T r = resid(c, FA[m], w, e, s, n, idx2, idy2);
+      A[m] = u ? c - factor * r : c;
+      if (LAST && u && cown && ((own_a >> m) & 1u)) acc += r * r;
+    }
+#pragma unroll
+    for (int m = 0; m < M; ++m) sp[xa + 2 * m * QW] = A[m];
+    __syncthreads();
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      const int x = xb + 2 * m * QW;
+      const T c = B[m];
+      T s = par ? (m > 0 ? A[m > 0 ? m - 1 : 0] : sp[x + ds]) : A[m];
+      T n = par ? A[m] : (m < M - 1 ? A[m < M - 1 ? m + 1 : m] : sp[x + dn]);
+      T w = sp[x + dw], e = sp[x + de];
+      bool u = true;
+      if (EDGE) {
+        const int k = 2 * m + 1 - par;
+        if (!first) {
+          w = gw ? c : w;
+          e = ge ? c : e;
+          s = k == ks ? c : s;
+          n = k == kn ? c : n;
+        }
+        u = cin && ((rin_b >> m) & 1u);
+      }
+      const T r = resid(c, FB[m], w, e, s, n, idx2, idy2);
+      B[m] = u ? c - factor * r : c;
+      if (LAST && u && cown && ((own_b >> m) & 1u)) acc += r * r;
+    }
+    if (!LAST || EDGE) {
+      // an edge box's last publish feeds the ghosts' write-out
+#pragma unroll
+      for (int m = 0; m < M; ++m) sp[xb + 2 * m * QW] = B[m];
+      __syncthreads();
+    }
+  };
+  if (inner) {
+    for (int t = 0; t < iters - 1; ++t)
+      iteration(t == 0, std::false_type{}, std::false_type{});
+    iteration(iters == 1, std::true_type{}, std::false_type{});
+  } else {
+    for (int t = 0; t < iters - 1; ++t)
+      iteration(t == 0, std::false_type{}, std::true_type{});
+    iteration(iters == 1, std::true_type{}, std::true_type{});
+  }
+  // the tile's cells go out once: interior cells and corners from the
+  // registers, each wall ghost its interior neighbour's final value
+  if (cown) {
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const bool red = h == 0;
+        if (!(((red ? own_a : own_b) >> m) & 1u)) continue;
+        const int k = 2 * m + (red ? par : 1 - par);
+        const int gr = gr0 + k, x = x0 + k * QW;
+        T v = red ? A[m] : B[m];
+        if (!inner) {
+          const bool rint = gr >= 1 && gr <= J;
+          if (gr == 0 && cin) v = sp[x + QW];
+          else if (gr == J + 1 && cin) v = sp[x - QW];
+          else if (gc == 0 && rint) v = sp[x + 1];
+          else if (gc == I + 1 && rint) v = sp[x - 1];
+        }
+        out[(size_t)gr * W + gc] = v;
+      }
+    }
+  }
+  __syncthreads();
+  ticket_sum<NTH>(acc, sp, tid, partial, blockIdx.y * gridDim.x + blockIdx.x,
+                  gridDim.x * gridDim.y, ticket, res);
+}
+
+// geo = [J, I, iters, th, tw, QS, QK, smem bytes]
+template <typename T, int QW, int QS, int QK, int MINB>
+int launch_cb_tiled(const T* p, const T* f, T* out, const int* geo,
+                    double factor, double idx2, double idy2, T* partial,
+                    unsigned* ticket, T* res, cudaStream_t st) {
+  const int smem = geo[7];
+  cudaError_t e = cudaFuncSetAttribute(
+      cb_tiled<T, QW, QS, QK, MINB>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grd((geo[1] + 2 + geo[4] - 1) / geo[4],
+                 (geo[0] + 2 + geo[3] - 1) / geo[3]);
+  cb_tiled<T, QW, QS, QK, MINB><<<grd, QW * QS, smem, st>>>(
+      p, f, out, geo[0], geo[1], geo[2], geo[3], geo[4], T(factor), T(idx2),
+      T(idy2), partial, ticket, res);
+  return (int)cudaGetLastError();
+}
+
+// the CTA shapes (64 columns; QS runs of QK rows; two CTAs an SM): 256
+// threads of 24 rows at float32, of 16 at float64. Measured at 4096^2, n =
+// 4 (PERF.md): float32 runs of 32 rows spill (0.205 ms), 24 rows 0.172,
+// 16 rows 0.202, 8 runs of 16 (512 threads, one CTA an SM) 0.209;
+// float64 16 rows 0.270, 8 rows 0.488, 8 runs of 8 0.409
+template <typename T>
+int run_cb_tiled(int dev, const T* p, const T* f, T* out, const int* geo,
+                 double factor, double idx2, double idy2, T* partial,
+                 unsigned* ticket, T* res, cudaStream_t st) {
+  cudaError_t e = cudaSetDevice(dev);
+  if (e != cudaSuccess) return (int)e;
+  const int qs = geo[5], qk = geo[6];
+#define CB_SHAPE(S, K, M)                                                    \
+  if (qs == S && qk == K)                                                   \
+    return launch_cb_tiled<T, 64, S, K, M>(p, f, out, geo, factor, idx2,    \
+                                           idy2, partial, ticket, res, st);
+  if constexpr (sizeof(T) == 4) {
+    CB_SHAPE(4, 24, 2)
+  } else {
+    CB_SHAPE(4, 16, 2)
+  }
+#undef CB_SHAPE
+  return (int)cudaErrorInvalidValue;
+}
+
 // -- K2's dynamic-extent mode: the fleet's shape-class lanes -------------
 
 // One CTA of tiles2d's shape (TX x TY threads) per owned tile (th, tw) of
@@ -768,22 +948,20 @@ const char* kernel_error_string(int e) {
   return cudaGetErrorString((cudaError_t)e);
 }
 
-// length of the partial-sum buffer each entry point needs
-int rb_sor_checkerboard_partials(int J, int I) {
-  const dim3 g = cb_grid(J, I);
-  return 2 * (int)(g.x * g.y);
-}
-
-#define SOR_ENTRY(NAME, RUN, T)                                              \
-  int NAME(int dev, void* p, const void* rhs, int a, int b, int n_inner,     \
-           double factor, double idx2, double idy2, void* partial,          \
-           void* out, void* stream) {                                        \
-    return RUN<T>(dev, (T*)p, (const T*)rhs, a, b, n_inner, factor, idx2,    \
-                  idy2, (T*)partial, (T*)out, (cudaStream_t)stream);         \
+// K2: p, out (J+2, I+2) fields, out != p; geo as launch_cb_tiled;
+// partial one value per tile, ticket an unsigned 0 that the kernel leaves
+// at 0
+#define CHECKERBOARD_ENTRY(NAME, T)                                           \
+  int NAME(int dev, const void* p, const void* f, void* out, const int* geo, \
+           double factor, double idx2, double idy2, void* partial,           \
+           void* ticket, void* res, void* stream) {                          \
+    return run_cb_tiled<T>(dev, (const T*)p, (const T*)f, (T*)out, geo,     \
+                           factor, idx2, idy2, (T*)partial,                  \
+                           (unsigned*)ticket, (T*)res, (cudaStream_t)stream);\
   }
 
-SOR_ENTRY(rb_sor_checkerboard_f32, run_checkerboard, float)
-SOR_ENTRY(rb_sor_checkerboard_f64, run_checkerboard, double)
+CHECKERBOARD_ENTRY(rb_sor_checkerboard_f32, float)
+CHECKERBOARD_ENTRY(rb_sor_checkerboard_f64, double)
 
 int rb_sor_blocked_partials(int J) { return 2 * blk_bands(J); }
 

@@ -105,8 +105,9 @@ def make_rb_loop(imax, jmax, dx, dy, omega, n_inner: int = 1,
     eff_inner). prep turns a (jmax+2, imax+2) array into the carried
     layout, post turns it back; step(carry, rhs_carry) performs eff_inner
     iterations on carry and returns their last Σr² (0-dim tensor, not yet
-    normalised). The quarters layout carries a pair of stacked planes,
-    newest first: K1 reads one and writes the other, one launch a call."""
+    normalised). Both layouts carry a pair, newest first (the quarters
+    layout of stacked planes, the checkerboard of natural fields): K1 or
+    K2 reads one and writes the other, one launch a call."""
     if n_inner < 1:
         raise ValueError(f"n_inner must be >= 1, got {n_inner}")
     factor, idx2, idy2 = sor_coefficients(dx, dy, omega)
@@ -128,13 +129,23 @@ def make_rb_loop(imax, jmax, dx, dy, omega, n_inner: int = 1,
 
         return step, prep, post, n_inner
 
-    def step(p, rhs):
-        return rb_sor_checkerboard(p, rhs, n_inner, factor, idx2, idy2)
+    def step(pair, f):
+        # pair = [newest, the other field (made at the first call)]: K2
+        # reads one and writes the other, one launch a call
+        if len(pair) == 1:
+            pair.append(torch.empty_like(pair[0]))
+        r = rb_sor_checkerboard(pair[0], f[0], n_inner, factor, idx2, idy2,
+                                out=pair[1])
+        pair.reverse()
+        return r
 
-    def ident(x):
-        return x.contiguous()
+    def prep(x):
+        return [x.contiguous()]
 
-    return step, ident, ident, n_inner
+    def post(pair):
+        return pair[0]
+
+    return step, prep, post, n_inner
 
 
 def make_rb_step_padded(imax, jmax, dx, dy, omega, dtype,

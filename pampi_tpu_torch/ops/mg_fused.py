@@ -43,17 +43,23 @@ for a CUDA tensor it launches its kernels or raises.
 K18 `mg_class_cycle_2d` (source: pampi_tpu_torch/csrc/mg_class_cycle.cu)
 replaces `_class_cycle_body` (make_class_cycle_2d, pallas_call at :549),
 the fleet's shape-class mg lane: the whole 2-D V-cycle of every lane of a
-class batch in ONE launch (a CTA per lane), each lane's level plan
-(`class_level_plan`, from its live extents) arriving as data, with an
-in-kernel smoothed bottom (n_bottom extra sweeps at the deepest live
-level) in place of a direct solve. `class_cycle` is its wrapper,
+class batch in ONE launch, each lane's level plan (`class_level_plan`,
+from its live extents) arriving as data, with an in-kernel smoothed
+bottom (n_bottom extra sweeps at the deepest live level) in place of a
+direct solve. Each lane's levels live in shared memory: a lane is one CTA
+where they fit it (the 64² class), else a thread block cluster of 8 CTAs
+whose bands of rows hold the fine levels and whose CTA 0 holds the coarse
+ones (the 256² class); `class_cycle_form` is the capacity rule, and the
+wrapper records the form it picked (utils/dispatch, key
+"mg_class_cycle_<jc>x<ic>_<dtype>"). `class_cycle` is its wrapper,
 `class_cycle_plain` its plain version, which repeats the kernel's
-fixed-order residual sum, so the two agree bitwise.
+fixed-order residual sum, so the two agree bitwise whatever the form.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from dataclasses import dataclass
 
@@ -75,6 +81,7 @@ from .multigrid import (
     _smooth,
     level_config,
 )
+from ..utils.dispatch import record
 from .sor import checkerboard_mask, interior_residual, neumann_bc
 from .sor_kernels import fixed_order_sum
 
@@ -336,12 +343,86 @@ N_PRE = N_POST = 2
 N_BOTTOM = 8
 _CLASS_SIGNATURES = {
     # dev, p, rhs, out, ext, geo, active, work, rsq, lanes, jc, ic, lmax,
-    # lane_work, n_pre, n_post, n_bottom, stream
+    # lane_work, form, n_pre, n_post, n_bottom, stream
     f"mg_class_cycle_2d_{t}": [_I, _V, _V, _V, _V, _V, _V, _V, _V, _I, _I,
-                               _I, _I, ctypes.c_longlong, _I, _I, _I, _V]
+                               _I, _I, ctypes.c_longlong, _V, _I, _I, _I,
+                               _V]
     for t in ("f32", "f64")
 }
 _REAL = {torch.float32: np.float32, torch.float64: np.float64}
+# K18's capacity rule: the dynamic shared memory a CTA may take (the 227 KB
+# of an H100 SM's CTA less the kernel's static arrays and a margin), the
+# CTAs of a cluster lane (8: the portable cluster size), and the levels
+# small enough to live whole in CTA 0 (at most 36² cells)
+CLASS_SMEM = 222 * 1024
+CLASS_CLUSTER = 8
+CLASS_LOCAL_CELLS = 36 * 36
+
+
+@dataclass(frozen=True)
+class ClassForm:
+    """The form K18 runs a class in (csrc/mg_class_cycle.cu): `ctas` CTAs a
+    lane (1: one CTA; more: a thread block cluster), levels below `banded`
+    cut into bands of rows over the CTAs, the rest whole in CTA 0, bit l of
+    `gmask` set where level l's bands lie in device memory, `smem` the
+    dynamic shared memory of a CTA in bytes."""
+
+    ctas: int
+    banded: int
+    gmask: int
+    smem: int
+
+    @property
+    def name(self) -> str:
+        if self.ctas == 1:
+            return "cta"
+        glob = [lvl for lvl in range(16) if (self.gmask >> lvl) & 1]
+        return (f"cluster {self.ctas}, {self.banded} banded levels"
+                + (f", levels {glob} in device memory" if glob else ""))
+
+
+def class_form_smem(jc: int, ic: int, itemsize: int, ctas: int,
+                    banded: int, gmask: int) -> int:
+    """A CTA's shared memory in a form: p and rhs of each banded level's
+    band (ceil(rows / ctas) rows) unless it lies in device memory, and of
+    each level past them whole (the kernel's layout)."""
+    total = 0
+    for lvl in range(class_level_max(jc, ic)):
+        rows, width = (jc >> lvl) + 2, (ic >> lvl) + 2
+        if (gmask >> lvl) & 1:
+            continue
+        band = -(-rows // ctas) if lvl < banded else rows
+        total += 2 * band * width * itemsize
+    return total
+
+
+@functools.lru_cache(maxsize=64)
+def class_cycle_form(jc: int, ic: int, itemsize: int) -> ClassForm:
+    """K18's capacity rule for a (jc, ic) class: one CTA a lane where every
+    level fits its shared memory (the 64² class: 47 KB at float32, 95 KB
+    at float64); else a cluster of CLASS_CLUSTER CTAs, the levels of more
+    than CLASS_LOCAL_CELLS cells banded over them and the rest whole in
+    CTA 0, and, while a CTA's share exceeds CLASS_SMEM, the finest banded
+    level still in shared memory moved to device memory (L2)."""
+    lmax = class_level_max(jc, ic)
+    one = class_form_smem(jc, ic, itemsize, 1, lmax, 0)
+    if one <= CLASS_SMEM:
+        return ClassForm(1, lmax, 0, one)
+    ctas = CLASS_CLUSTER
+    banded = sum(1 for lvl in range(lmax)
+                 if ((jc >> lvl) + 2) * ((ic >> lvl) + 2) > CLASS_LOCAL_CELLS)
+    banded = max(1, banded)
+    gmask = 0
+    smem = class_form_smem(jc, ic, itemsize, ctas, banded, gmask)
+    for lvl in range(banded):
+        if smem <= CLASS_SMEM:
+            break
+        gmask |= 1 << lvl
+        smem = class_form_smem(jc, ic, itemsize, ctas, banded, gmask)
+    if smem > CLASS_SMEM:
+        raise ValueError(f"K18 cannot hold the {jc}x{ic} class's coarse "
+                         f"levels in one CTA ({smem} bytes)")
+    return ClassForm(ctas, banded, gmask, smem)
 
 
 def class_level_max(jmax_c: int, imax_c: int) -> int:
@@ -509,18 +590,22 @@ def class_cycle(p, rhs, ext, geo, active, work=None, n_pre: int = N_PRE,
     lane through with rsq 0. The caller guarantees every lane's extents
     fit the class (ClassSolver.lane_state refuses a lane that does not).
     `work` is the scratch of the coarse levels (N·class_work_cells
-    elements of p's dtype), allocated here when not given. Shapes and
-    dtypes are checked on either device; then for CPU tensors the plain
-    version runs, for CUDA tensors one launch, or a raise. p is not
-    modified."""
+    elements of p's dtype), read only where the form puts a level in
+    device memory, and allocated here when not given. Shapes and dtypes
+    are checked on either device; then for CPU tensors the plain version
+    runs, for CUDA tensors one launch in the form class_cycle_form picks,
+    or a raise. p is not modified."""
     n, jc, ic, lmax = _check_class(p, rhs, ext, geo, active)
     if p.device.type == "cpu":
         return class_cycle_plain(p, rhs, ext, geo, active, n_pre, n_post,
                                  n_bottom)
     lane_work = class_work_cells(jc, ic, lmax)
+    form = class_cycle_form(jc, ic, p.element_size())
     if work is None:
-        work = torch.empty(max(1, n * lane_work), dtype=p.dtype,
-                           device=p.device)
+        # the coarse levels' scratch, read only where a level of the form
+        # lies in device memory
+        work = torch.empty(max(1, n * lane_work) if form.gmask else 1,
+                           dtype=p.dtype, device=p.device)
     elif (work.device != p.device or work.dtype != p.dtype
           or work.numel() < n * lane_work):
         raise ValueError(f"work must hold {n * lane_work} {p.dtype} on "
@@ -529,11 +614,25 @@ def class_cycle(p, rhs, ext, geo, active, work=None, n_pre: int = N_PRE,
     rsq = torch.empty(n, dtype=p.dtype, device=p.device)
     lib = class_cycle_library()
     entry = "mg_class_cycle_2d"
+    record(*_form_record(jc, ic, p.dtype, form))
     err = getattr(lib, f"{entry}_{_SUFFIX[p.dtype]}")(
         p.device.index, p.data_ptr(), rhs.data_ptr(), out.data_ptr(),
         ext.data_ptr(), geo.data_ptr(), active.data_ptr(), work.data_ptr(),
-        rsq.data_ptr(), n, jc, ic, lmax, lane_work, n_pre, n_post, n_bottom,
-        kb.stream_of(p))
+        rsq.data_ptr(), n, jc, ic, lmax, lane_work, _form_array(form), n_pre,
+        n_post, n_bottom, kb.stream_of(p))
     kb.check(lib, err, entry)
     MG_CLASS_CYCLE_2D.launches += 1
     return out, rsq
+
+
+@functools.lru_cache(maxsize=64)
+def _form_record(jc: int, ic: int, dtype, form: ClassForm):
+    """(key, value) of the dispatch record of the form a class ran in."""
+    return f"mg_class_cycle_{jc}x{ic}_{_SUFFIX[dtype]}", form.name
+
+
+@functools.lru_cache(maxsize=64)
+def _form_array(form: ClassForm):
+    """The kernel's form argument: [ctas, banded, gmask, smem] (host
+    memory)."""
+    return (ctypes.c_int * 4)(form.ctas, form.banded, form.gmask, form.smem)

@@ -19,7 +19,14 @@ K1's bf16-storage mode (`rb_sor_quarters` on bfloat16 planes) replaces the
   launch a call, with `out=`; its launches count on `rb_sor_quarters_bf16`.
 K2 `rb_sor_checkerboard` replaces pampi_tpu/ops/sor_pallas.py
   `_tblock_kernel` (make_rb_iter_tblock, plain mode, pallas_call at :620):
-  the same function on the natural (jmax+2, imax+2) checkerboard.
+  the same function on the natural (jmax+2, imax+2) checkerboard, in one
+  pass a call (csrc/sor_rb.cu cb_tiled): owned tiles with a halo of 2n + 1
+  grid cells, each thread holding a column run of p and rhs in registers
+  (its red and its black cells) and publishing its cells to shared memory
+  after each colour, the Neumann copy folded into the reads; one launch
+  with `out=` (the Poisson loop swaps two fields), the residual per tile
+  and then over the tiles in tile order (`checkerboard_residual`, which
+  the plain version repeats: bitwise).
 
 K2's masked mode (`rb_sor_checkerboard(..., flags=, omega=)`) replaces
   the masked mode of the same TPU kernel (_tblock_kernel(masked=True), the
@@ -65,21 +72,18 @@ K2's dynamic-extent mode `rb_sor_class` replaces the shape-class mode of
   `rb_sor_class`; its partial, ticket and result buffers are made once
   per stream and batch.
 
-Plain K2 and K17 update p in place; K1, masked K2 and the class mode
-read p and write `out` (without `out`, K1 and the class mode copy the new
-field back: a second launch). All return the sum of r² over both
-half-sweeps of the LAST of their iterations, as a 0-dim tensor on p's
-device (the class mode one per lane).
+K17 updates p in place; K1, K2 (plain and masked) and the class mode
+read p and write `out` (without `out`, K1, plain K2 and the class mode
+copy the new field back: a second launch). All return the sum of r² over
+both half-sweeps of the LAST of their iterations, as a 0-dim tensor on
+p's device (the class mode one per lane).
 
 What bounds them on the H100 is memory bandwidth (~10 flops per cell
 update). The least any implementation must move per call is p and rhs read
-once and p written once: ~60 us at 4096² f32 whatever n_inner is. Plain K2
-is simple first: a launch per colour per iteration (black sees red through
-the launch boundary), a Neumann launch, per-block partial sums of r² on
-the last iteration and a one-block fixed-order sum, so the residual and
-every iteration count are reproducible; temporal blocking (several
-iterations per pass, as the TPU kernels do) is done for K1, masked K2 and
-the class mode.
+once and p written once: ~60 us at 4096² f32 whatever n_inner is. K1, K2
+(plain and masked) and the class mode run all n_inner iterations of a call
+in one pass (temporal blocking, as the TPU kernels do); their residuals are
+per-tile fixed-order sums, so every iteration count is reproducible.
 
 For a CPU tensor each wrapper runs its plain version; for a CUDA tensor it
 launches its kernel or raises.
@@ -112,17 +116,13 @@ RB_SOR_CLASS = kb.register(
     "rb_sor_class", SOURCE, "pampi_tpu/ops/sor_pallas.py:620")
 
 _V, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-_SIGNATURES = {
-    f"rb_sor_checkerboard_{t}": [_I, _V, _V, _I, _I, _I, _D, _D, _D, _V, _V,
-                                 _V]
-    for t in ("f32", "f64")
-}
-_SIGNATURES["rb_sor_checkerboard_partials"] = [_I, _I]
-_SIGNATURES["rb_sor_blocked_partials"] = [_I]
+_SIGNATURES = {"rb_sor_blocked_partials": [_I]}
 for _t in ("f32", "f64"):
     # dev, q, f, out, geo, factor, idx2, idy2, partial, ticket, res, stream
     _SIGNATURES[f"rb_sor_quarters_{_t}"] = [_I, _V, _V, _V, _V, _D, _D, _D,
                                             _V, _V, _V, _V]
+    _SIGNATURES[f"rb_sor_checkerboard_{_t}"] = [_I, _V, _V, _V, _V, _D, _D,
+                                                _D, _V, _V, _V, _V]
     _SIGNATURES[f"rb_sor_masked_{_t}"] = [_I, _V, _V, _V, _V, _V, _D, _D, _D,
                                           _V, _V, _V, _V]
     _SIGNATURES[f"rb_sor_blocked_{_t}"] = [_I, _V, _V, _I, _I, _D, _D, _D,
@@ -326,32 +326,33 @@ def _check(p: torch.Tensor, rhs: torch.Tensor, n_inner: int,
         raise ValueError(f"n_inner must be >= 1, got {n_inner}")
 
 
-def _launch(kernel, entry: str, partials: str, p, rhs, a: int, b: int,
-            n_inner: int, factor: float, idx2: float, idy2: float):
-    lib = _lib()
-    partial = torch.empty(getattr(lib, partials)(a, b), dtype=p.dtype,
-                          device=p.device)
-    out = torch.empty((), dtype=p.dtype, device=p.device)
-    err = getattr(lib, f"{entry}_{_SUFFIX[p.dtype]}")(
-        p.device.index, p.data_ptr(), rhs.data_ptr(), a, b, n_inner,
-        factor, idx2, idy2, partial.data_ptr(), out.data_ptr(),
-        kb.stream_of(p))
-    kb.check(lib, err, entry)
-    kernel.launches += 1
-    return out
-
-
 def rb_sor_checkerboard_plain(p, rhs, n_inner, factor, idx2, idy2):
-    """K2's plain version: n_inner (red, black, Neumann) iterations with
-    ops/sor.py, in place on p."""
+    """K2's plain version: n_inner (red, black, Neumann) iterations in
+    place on p, each colour's cells taking c - factor·r (the other cells
+    left as they are), the Neumann copy with corners untouched. Returns Σr²
+    of the last iteration in the kernel's order (checkerboard_residual
+    over the tiles of the call's last pass)."""
+    r2 = checkerboard_sweeps(p, rhs, n_inner, factor, idx2, idy2)
+    return checkerboard_residual(
+        r2, checkerboard_passes(n_inner, p.element_size())[-1])
+
+
+def checkerboard_sweeps(p, rhs, n_inner, factor, idx2, idy2):
+    """rb_sor_checkerboard_plain's iterations, in place on p. Returns the
+    last iteration's r² on the (jmax, imax) interior (each cell's from its
+    own colour's half-sweep)."""
     jmax, imax = p.shape[0] - 2, p.shape[1] - 2
-    red = checkerboard_mask(jmax, imax, 0, p.dtype, p.device)
-    black = checkerboard_mask(jmax, imax, 1, p.dtype, p.device)
+    red = checkerboard_mask(jmax, imax, 0, torch.bool, p.device)
+    black = ~red
+    inner = p[1:-1, 1:-1]
+    r_red = r_blk = None
     for _ in range(n_inner):
-        _, r0 = sor_pass(p, rhs, red, factor, idx2, idy2)
-        _, r1 = sor_pass(p, rhs, black, factor, idx2, idy2)
+        r_red = interior_residual(p, rhs, idx2, idy2)
+        inner.copy_(torch.where(red, inner - factor * r_red, inner))
+        r_blk = interior_residual(p, rhs, idx2, idy2)
+        inner.copy_(torch.where(black, inner - factor * r_blk, inner))
         neumann_bc(p)
-    return r0 + r1
+    return torch.where(red, r_red * r_red, r_blk * r_blk)
 
 
 @functools.lru_cache(maxsize=64)
@@ -404,25 +405,37 @@ def masked_sweeps(p, rhs, flags, n_inner, omega, idx2, idy2):
 
 def rb_sor_checkerboard(p, rhs, n_inner, factor, idx2, idy2, flags=None,
                         omega=None, out=None):
-    """K2 on a (jmax+2, imax+2) p, in place. Returns Σr² of the last
-    iteration (0-dim tensor). With `flags` (uint8 of p's shape, 0 on
-    obstacle cells) the masked mode, which relaxes with `omega` (the
-    per-cell factor comes from the flags; `factor` is not read) and needs
-    `out`: it reads p and writes the new field into out (p untouched), one
-    launch a call."""
+    """K2 on a (jmax+2, imax+2) p. With `out` it reads p and writes the new
+    field into out (p untouched), one launch a call (a call too deep for
+    one pass runs several); without, the new field is copied back into p
+    (a second launch). Returns Σr² of the last iteration (0-dim tensor).
+    With `flags` (uint8 of p's shape, 0 on obstacle cells) the masked
+    mode, which relaxes with `omega` (the per-cell factor comes from the
+    flags; `factor` is not read) and needs `out`."""
     if flags is not None:
         return _masked(p, rhs, flags, n_inner, omega, idx2, idy2, out)
     if out is not None:
-        raise ValueError("K2 takes out= in its masked mode only")
+        check_out("K2", p, out)
     if p.device.type == "cpu":
-        return rb_sor_checkerboard_plain(p, rhs, n_inner, factor, idx2, idy2)
+        x = p if out is None else out.copy_(p)
+        return rb_sor_checkerboard_plain(x, rhs, n_inner, factor, idx2, idy2)
     _check(p, rhs, n_inner)
     if p.dim() != 2:
         raise ValueError(f"checkerboard p must be 2-D, got {tuple(p.shape)}")
-    jmax, imax = p.shape[0] - 2, p.shape[1] - 2
-    return _launch(RB_SOR_CHECKERBOARD, "rb_sor_checkerboard",
-                   "rb_sor_checkerboard_partials", p, rhs, jmax, imax,
-                   n_inner, factor, idx2, idy2)
+    lib = _lib()
+    entry = getattr(lib, f"rb_sor_checkerboard_{_SUFFIX[p.dtype]}")
+    launches = checkerboard_launch_plan(p.shape[0] - 2, p.shape[1] - 2,
+                                        n_inner, p.element_size())
+
+    def launch(src, dst, geo, partial, ticket, res, stream):
+        kb.check(lib, entry(p.device.index, src.data_ptr(), rhs.data_ptr(),
+                            dst.data_ptr(), geo, factor, idx2, idy2,
+                            partial.data_ptr(), ticket.data_ptr(),
+                            res.data_ptr(), stream), "rb_sor_checkerboard")
+
+    res = run_passes(p, launches, out, launch)
+    RB_SOR_CHECKERBOARD.launches += 1
+    return res
 
 
 def _masked(p, rhs, flags, n_inner, omega, idx2, idy2, out):
@@ -523,9 +536,10 @@ K1_CTA = {4: (64, 4, 8), 8: (64, 4, 4)}
 
 @dataclass(frozen=True)
 class QuartersPass:
-    """One launch of K1: `iters` iterations on owned tiles (th, tw) of the
-    plane, each in a box of rows x qw quarter cells from the tile's corner
-    less `iters` (the halo) on each side."""
+    """One launch of K1 or K2: `iters` iterations on owned tiles (th, tw)
+    of the plane (K1's quarter cells) or the field (K2's grid cells), each
+    in a box of rows x qw cells from the tile's corner less the halo on
+    each side (K1: `iters`; K2: checkerboard_halo)."""
 
     iters: int
     th: int
@@ -739,6 +753,114 @@ def _quarters_bf16(q, f, n_inner, factor, idx2, idy2, out):
     res = rb_sor_quarters_bf16(q, f, n_inner, factor, idx2, idy2, new)
     q.copy_(new)
     return res
+
+
+# ----------------------------------------------------------------------
+# K2: the natural field, one pass through the card a call
+# ----------------------------------------------------------------------
+
+# K2's CTA by element size: (QW, QS, QK) = box columns (a thread each),
+# runs, rows a run; the box is QS*QK rows by QW columns, 96x64 at float32
+# and 64x64 at float64 (csrc/sor_rb.cu cb_tiled, the fastest measured,
+# PERF.md). Each thread keeps QK cells of p and of rhs in registers.
+K2_CTA = {4: (64, 4, 24), 8: (64, 4, 16)}
+
+
+def checkerboard_halo(iters: int) -> int:
+    """K2's halo for a pass of `iters` iterations: 2·iters + 1 grid cells
+    (each half-sweep carries a stale or clamped value one cell further in;
+    a wall ghost, written at the end from its interior neighbour, reads one
+    further: tests/test_torch_k18_k2_tiles.py shows 2·iters + 1 enough and
+    2·iters not)."""
+    return 2 * iters + 1
+
+
+def checkerboard_pass(iters: int, itemsize: int) -> QuartersPass:
+    """K2's launch plan for a pass of `iters` iterations: the owned tile is
+    the box less the halo on each side."""
+    qw, qs, qk = K2_CTA[itemsize]
+    h = checkerboard_halo(iters)
+    return QuartersPass(iters, qs * qk - 2 * h, qw - 2 * h, qw, qs, qk)
+
+
+@functools.lru_cache(maxsize=256)
+def checkerboard_passes(n: int, itemsize: int) -> tuple:
+    """K2's passes for a call of n iterations: one pass wherever its tile
+    keeps at least half the box each way, else the fewest that do."""
+    from .sor_obsdist import split_passes
+
+    qw, qs, qk = K2_CTA[itemsize]
+    parts = split_passes(
+        n, lambda m: 4 * checkerboard_halo(m) <= min(qs * qk, qw))
+    return tuple(checkerboard_pass(m, itemsize) for m in parts)
+
+
+@functools.lru_cache(maxsize=256)
+def checkerboard_launch_plan(jmax: int, imax: int, n: int, itemsize: int):
+    """(tiles, the kernel's geometry array) of each pass of a K2 call on a
+    (jmax+2, imax+2) field (csrc/sor_rb.cu launch_cb_tiled: J, I, iters,
+    th, tw, QS, QK, shared-memory bytes)."""
+    out = []
+    for pl in checkerboard_passes(n, itemsize):
+        smem = pl.rows * pl.qw * itemsize
+        geo = (ctypes.c_int * 8)(jmax, imax, pl.iters, pl.th, pl.tw, pl.qs,
+                                 pl.qk, smem)
+        out.append((-(-(jmax + 2) // pl.th) * -(-(imax + 2) // pl.tw), geo))
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=16)
+def _checkerboard_order(jmax: int, imax: int, pl: QuartersPass):
+    """The gather plan of checkerboard_residual: an index array (steps,
+    tiles x threads) into the interior r² (row-major) with one 0 appended,
+    the index of that 0 where a thread's cell of that step lies off its
+    tile or off the interior. Thread (tx, ty) holds column tx of box rows
+    ty·QK .. ty·QK + QK - 1 (the box from the tile's corner less the halo);
+    par, the parity of its first cell's (row + column), puts its red cells
+    at run rows 2m + par and its black ones at 2m + 1 - par; its steps are
+    its update order, red m = 0, 1, ... then black."""
+    th, tw, ht = pl.th, pl.tw, checkerboard_halo(pl.iters)
+    gy, gx = -(-(jmax + 2) // th), -(-(imax + 2) // tw)
+    size = jmax * imax
+    by, bx, ty, tx = np.meshgrid(np.arange(gy), np.arange(gx),
+                                 np.arange(pl.qs), np.arange(pl.qw),
+                                 indexing="ij")
+    col = tx - ht  # the cell's column in its tile
+    gc = bx * tw + col
+    row0 = ty * pl.qk - ht  # the run's first row in its tile
+    par = (by * th + row0 + gc) & 1
+    steps = []
+    for shift in (par, 1 - par):
+        for m in range(pl.qk // 2):
+            row = row0 + 2 * m + shift
+            gr = by * th + row
+            ok = ((row >= 0) & (row < th) & (col >= 0) & (col < tw)
+                  & (gr >= 1) & (gr <= jmax) & (gc >= 1) & (gc <= imax))
+            idx = np.where(ok, (gr - 1) * imax + gc - 1, size)
+            if ok.any():
+                steps.append(idx.reshape(-1).astype(np.intp))
+    return np.stack(steps), gy * gx
+
+
+def checkerboard_residual(r2, pl: QuartersPass):
+    """K2's residual in the kernel's order, from the last iteration's r² on
+    the (jmax, imax) interior: in each tile's box thread (tx, ty) adds its
+    owned cells in its update order (_checkerboard_order), a halving tree
+    over tid = QW·ty + tx gives the tile's partial, and the last CTA adds
+    the tiles' partials in tile order (fixed_order_sum over the CTA's
+    threads). IEEE adds of the dtype in numpy, a cached gather and one add
+    a step. A 0-dim tensor on r2's device, equal bit for bit to the
+    kernel's."""
+    a = r2.detach().cpu().numpy()
+    order, tiles = _checkerboard_order(a.shape[0], a.shape[1], pl)
+    flat = np.append(a.reshape(-1), a.dtype.type(0))
+    terms = np.take(flat, order)
+    acc = terms[0].copy()
+    for e in range(1, len(terms)):
+        acc += terms[e]
+    parts = np_tree(acc.reshape(tiles, pl.threads))
+    return torch.from_numpy(np.asarray(
+        np_fixed_order_sum(parts, pl.threads))).to(r2.device)
 
 
 # ----------------------------------------------------------------------

@@ -12,7 +12,8 @@ keep every operation of their plain versions, so their fields are held
 bitwise, and K14 on a one-shard mesh is K6, residual included; so is K15,
 the flag-masked per-shard kernel of the distributed NS-2D solve; K13 and
 masked K2 sum their residual per tile in an order their plain versions
-repeat, so it is held bitwise too; masked
+repeat, so it is held bitwise too, and so do K1 and plain K2 (one pass
+a call), fields and residual; masked
 K5 and K16 (3-D obstacles) sum their residual in an order their plain
 versions repeat, so they are held bitwise, residual included, and K16 on a
 one-shard mesh is masked K5; masked K2 (2-D obstacles) and K17 (one
@@ -1228,10 +1229,13 @@ def _class_lanes(cls, dtype, device, seed):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("cls", [16, 64, 256])
+@pytest.mark.parametrize("cls", [16, 64, 128, 256, 512])
 def test_class_cycle_k18_matches_plain(cuda, dtype, cls):
     """K18 against its plain version on the same CUDA inputs, three
-    cycles: fields and residual bitwise; the inactive lane passes."""
+    cycles, in every form its capacity rule picks (one CTA a lane; a
+    cluster with the coarse levels in CTA 0; the same with the fine level
+    in device memory at 512²): fields and residual bitwise; the inactive
+    lane passes."""
     p, rhs, ext, geo, act = _class_lanes(cls, dtype, cuda, 101 + cls)
     pk = pp = p
     launches = mf.MG_CLASS_CYCLE_2D.launches
@@ -1351,6 +1355,55 @@ def test_k1_one_pass_matches_plain(cuda, dtype, n, shape):
         rp = sk.rb_sor_quarters_plain(qp, f, n, *coef)
         assert torch.equal(qk, qp) and torch.equal(rk, rp)
     assert sk.RB_SOR_QUARTERS.launches == launches + 3
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 20])
+@pytest.mark.parametrize("shape", [(256, 384), (63, 31), (100, 100),
+                                   (258, 386)])
+def test_k2_one_pass_matches_plain(cuda, dtype, n, shape):
+    """Plain K2 in one pass a call (`out=`, three chained calls, the fields
+    swapped as the Poisson loop swaps them; n = 20 in passes), then in
+    place: field and residual bitwise the plain version's, p untouched by
+    the `out=` form, one launch a call by the wrapper's count."""
+    jmax, imax = shape
+    coef = sk.sor_coefficients(1 / imax, 1 / jmax, 1.9)
+    p, f = (_rand((jmax + 2, imax + 2), dtype, cuda, s) for s in (71, 72))
+    pk, pp, out = p.clone(), p.clone(), torch.empty_like(p)
+    launches = sk.RB_SOR_CHECKERBOARD.launches
+    for _ in range(3):
+        keep = pk.clone()
+        rk = sk.rb_sor_checkerboard(pk, f, n, *coef, out=out)
+        assert torch.equal(pk, keep)
+        pk, out = out, pk
+        rp = sk.rb_sor_checkerboard_plain(pp, f, n, *coef)
+        assert torch.equal(pk, pp) and torch.equal(rk, rp)
+    assert sk.RB_SOR_CHECKERBOARD.launches == launches + 3
+    ri = sk.rb_sor_checkerboard(pk, f, n, *coef)
+    rp = sk.rb_sor_checkerboard_plain(pp, f, n, *coef)
+    assert torch.equal(pk, pp) and torch.equal(ri, rp)
+
+
+@pytest.mark.parametrize("layout", ["checkerboard"])
+def test_poisson_checkerboard_loop_on_card_matches_cpu(cuda, layout):
+    """The Poisson checkerboard loop (K2 out of place, the fields swapped)
+    on a 64x50 float64 grid: the card's iterations and field are the
+    CPU's (the plain version), bitwise."""
+    from pampi_tpu_torch.models.poisson import make_solver_fn
+
+    imax, jmax = 50, 64
+    dx, dy = 1.0 / imax, 1.0 / jmax
+    p0 = _rand((jmax + 2, imax + 2), torch.float64, "cpu", 81)
+    rhs = _rand((jmax + 2, imax + 2), torch.float64, "cpu", 82)
+    rhs[1:-1, 1:-1] -= rhs[1:-1, 1:-1].mean()
+    runs = []
+    for dev in ("cpu", cuda):
+        solve = make_solver_fn(imax, jmax, dx, dy, 1.7, 1e-6, 3000,
+                               torch.float64, n_inner=1, layout=layout)
+        p, res, it = solve(p0.to(dev).clone(), rhs.to(dev))
+        runs.append((p.cpu(), res, it))
+    assert runs[0][2] == runs[1][2] and runs[0][1] == runs[1][1]
+    assert torch.equal(runs[0][0], runs[1][0])
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

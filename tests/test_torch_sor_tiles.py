@@ -415,8 +415,8 @@ def test_k2_launch_plans_fit(itemsize, n):
 def test_k2_out_form(dtype):
     """rb_sor_checkerboard(..., flags=, out=) on the CPU: p untouched, out
     and the residual bitwise the plain version's (in place on a copy); the
-    masked mode needs out, out must not be p, and the unmasked mode takes
-    no out."""
+    masked mode needs out, out must not be p; the unmasked mode's out=
+    form leaves p untouched and writes the in-place call's field."""
     p, rhs, fl, coef = _kcase(40, 48, dtype, 131)
     keep, inplace = p.clone(), p.clone()
     out = torch.full_like(p, float("nan"))
@@ -430,8 +430,11 @@ def test_k2_out_form(dtype):
     with pytest.raises(ValueError):
         sk.rb_sor_checkerboard(p, rhs, 2, 0.0, *coef, flags=fl, omega=OMEGA,
                                out=p)
-    with pytest.raises(ValueError):
-        sk.rb_sor_checkerboard(p, rhs, 2, 0.1, *coef, out=out)
+    plain = p.clone()
+    r_plain = sk.rb_sor_checkerboard(p, rhs, 2, 0.1, *coef, out=out)
+    r_in = sk.rb_sor_checkerboard(plain, rhs, 2, 0.1, *coef)
+    assert torch.equal(p, keep) and torch.equal(out, plain)
+    assert torch.equal(r_plain, r_in)
 
 
 def test_k2_residual_is_the_tile_order(monkeypatch):
